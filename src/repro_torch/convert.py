@@ -1,0 +1,46 @@
+"""Carry table contents between the reference and the port.
+
+A table's data plays the part that weights play for a model: both daemons
+start from the same contents when one's state is carried into the other.
+The reference's ``SQLCached.table_state(name)`` returns a nested dict of
+arrays (``cols`` / ``payloads`` / ``valid`` / ``clock`` / ``ops`` /
+``indexes``); converted to numpy with ``numpy.asarray`` on each leaf, it
+becomes a state of the port here, and the port's state goes back the
+same way.
+
+TEXT columns hold interner ids, so the strings must agree too:
+:func:`copy_interner` replays one daemon's string table into another's.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def state_from_numpy(state: Any, device) -> Any:
+    """Nested dict of numpy arrays -> the same dict of tensors on
+    ``device`` (dtypes kept; the reference stores 32-bit widths)."""
+    if isinstance(state, dict):
+        return {k: state_from_numpy(v, device) for k, v in state.items()}
+    arr = np.array(state, copy=True, order="C")  # keeps 0-d leaves 0-d
+    return torch.from_numpy(arr).to(device)
+
+
+def state_to_numpy(state: Any) -> Any:
+    """Nested dict of tensors -> the same dict of numpy arrays."""
+    if isinstance(state, dict):
+        return {k: state_to_numpy(v) for k, v in state.items()}
+    return state.detach().cpu().numpy()
+
+
+def copy_interner(src, dst) -> None:
+    """Intern ``src``'s strings into ``dst`` in id order, so that TEXT ids
+    agree between the two daemons. ``dst`` must not yet hold a string at
+    an id where ``src`` holds another one."""
+    for i, s in enumerate(src._rev[1:], start=1):
+        got = dst.intern(s)
+        if got != i:
+            raise ValueError(f"interner ids disagree: {s!r} is {i} in the "
+                             f"source and {got} in the destination")

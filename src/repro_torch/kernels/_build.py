@@ -1,0 +1,149 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file has a plain C interface (``extern "C"``
+functions that take raw device pointers, ints and a stream and return the
+launch's ``cudaGetLastError()``), so each one compiles with ``nvcc`` alone
+in seconds into a shared library that ``ctypes`` loads; nothing includes
+PyTorch's headers.
+
+Builds happen at the first kernel call on a CUDA tensor (never at import:
+the CPU tests import every module). All sources compile together, one
+``nvcc`` process each, into ``build/repro_torch/<hash>/`` at the repository
+root, where ``<hash>`` covers the sources and the flags, so an edited
+kernel never loads a stale library. Only sources inside this package are
+compiled.
+
+``launches`` counts kernel launches per kernel name: each wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that its
+main path went through the kernels (``reset_launches`` zeroes them).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("relscan", "hashidx")
+BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+KERNELS = ("relscan_scan", "relscan_compact", "hash_build", "hash_probe")
+launches = {k: 0 for k in KERNELS}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+ptxas_log: dict[str, str] = {}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / f"{name}.cu").read_bytes())
+    h.update((CSRC / "common.cuh").read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> dict[str, str]:
+    """Compile every source (in parallel) unless this hash is built, load
+    the libraries, and return the ``-Xptxas -v`` report of each build
+    (empty for a library that was already on disk)."""
+    with _lock:
+        if len(_libs) == len(SOURCES):
+            return dict(ptxas_log)
+        out_dir = BUILD_ROOT / _digest()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in SOURCES:
+            so = out_dir / f"lib{name}.so"
+            if so.exists():
+                ptxas_log.setdefault(name, "")
+                continue
+            tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp, so)
+        errors = []
+        for name, (proc, tmp, so) in procs.items():
+            log, _ = proc.communicate()
+            ptxas_log[name] = log
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu:\n{log}")
+                continue
+            os.replace(tmp, so)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        for name in SOURCES:
+            lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+            _declare(lib)
+            _libs[name] = lib
+        return dict(ptxas_log)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """argtypes/restype of every exported function: pointers and the
+    stream as c_void_p (a bare Python int would be cut to 32 bits)."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    sigs = {
+        "relscan_scan": [P, P, P, P, I, I, I, I, I, P, P, I, I, P, P, P],
+        "relscan_compact": [P, P, I, I, I, P, P],
+        "hash_build": [P, P, P, P, I, I, P, P, P],
+        "hash_probe": [P, P, P, I, I, P, P, P],
+    }
+    for fn, args in sigs.items():
+        if hasattr(lib, fn):
+            f = getattr(lib, fn)
+            f.argtypes = args
+            f.restype = I
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` (builds on first
+    use)."""
+    if name not in _libs:
+        build_all()
+    return _libs[name]
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise when a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {kernel} failed: cudaError {err}")
+
+
+def require_cuda(t, kernel: str) -> None:
+    """A wrapper serves CPU tensors with its plain version and CUDA tensors
+    with its kernel; anything else is refused."""
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{kernel}: tensors on {t.device} are not served "
+                           f"(CPU tensors take the plain version, CUDA "
+                           f"tensors the kernel)")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

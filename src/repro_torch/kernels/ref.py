@@ -1,0 +1,22 @@
+"""Plain PyTorch oracles composed from the kernels' plain versions (the
+counterpart of ``repro.kernels.ref``). The attention and Mamba oracles
+arrive with their kernels."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import relscan as RS
+
+
+def relscan_ref(cols, valid, vals, *, ops, limit, want_ids=True):
+    """Fused-conjunction oracle with the :func:`relscan.relscan` contract
+    (batched over the rows of ``vals [w, nterms]``), built only from the
+    plain versions, whatever the device."""
+    mask, cnt = RS.scan_ref(cols, valid, vals, ops)
+    count = cnt.sum(dim=1, dtype=torch.int32)
+    if not want_ids:
+        return None, None, mask, count
+    ids = RS.compact_ref(mask, cnt, limit)
+    present = torch.arange(limit, dtype=torch.int32,
+                           device=mask.device)[None, :] < count[:, None]
+    return ids, present, mask, count

@@ -1,0 +1,175 @@
+"""Fused WHERE scan + compaction over int32 table columns (the FusedScan
+route of every SELECT / DELETE / UPDATE / aggregate).
+
+Two kernels, in ``csrc/relscan.cu``, each with its plain PyTorch version
+beside it in this module:
+
+``scan``     AND of 1..4 ``col OP value`` terms with the validity bitmap ->
+             match mask ``[w, cap]`` + per-block match counts
+             ``[w, nblk]`` (``BLOCK`` rows a block). ``vals`` is a
+             ``[w, nterms]`` value matrix: ``w`` statements scan the same
+             columns in one launch.
+``compact``  the first ``limit`` matching row ids of every statement, in
+             row order, 0-padded, from the mask and the exclusive prefix
+             of the block counts.
+
+A wrapper serves a CPU tensor with the plain version and a CUDA tensor
+with its kernel; there is no other route. :func:`relscan` chains the two
+with the contract of ``repro.kernels.relscan.relscan``, batched over ``w``.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_TERMS = 4
+BLOCK = 256  # rows a block; csrc/common.cuh RS_BLOCK
+
+OP_CODES = {"==": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
+
+_CMP = {
+    "==": torch.eq,
+    "!=": torch.ne,
+    "<": torch.lt,
+    "<=": torch.le,
+    ">": torch.gt,
+    ">=": torch.ge,
+}
+
+
+def n_blocks(cap: int) -> int:
+    return -(-cap // BLOCK)
+
+
+def block_counts(mask: torch.Tensor) -> torch.Tensor:
+    """Per-block set-bit counts ``[w, nblk]`` int32 of a ``[w, cap]`` mask
+    (what the scan kernel emits beside its mask)."""
+    w, cap = mask.shape
+    nblk = n_blocks(cap)
+    padded = torch.zeros((w, nblk * BLOCK), dtype=torch.int32,
+                         device=mask.device)
+    padded[:, :cap] = mask.to(torch.int32)
+    return padded.view(w, nblk, BLOCK).sum(dim=2, dtype=torch.int32)
+
+
+def _check_scan(cols, valid, vals, ops):
+    if not 1 <= len(ops) <= MAX_TERMS or len(cols) != len(ops):
+        raise ValueError(f"relscan supports 1..{MAX_TERMS} terms")
+    for op in ops:
+        if op not in OP_CODES:
+            raise ValueError(f"unknown comparison {op!r}")
+    cap = valid.shape[0]
+    if valid.dtype != torch.bool or valid.dim() != 1:
+        raise TypeError("valid must be a [cap] bool tensor")
+    if vals.dim() != 2 or vals.shape[1] != len(ops) or vals.dtype != torch.int32:
+        raise TypeError("vals must be a [w, nterms] int32 tensor")
+    for c in cols:
+        if c.shape != (cap,) or c.dtype != torch.int32:
+            raise TypeError("every column must be a [cap] int32 tensor")
+        if c.device != valid.device:
+            raise ValueError("columns and validity must share a device")
+    if vals.device != valid.device:
+        raise ValueError("vals and validity must share a device")
+
+
+def scan_ref(cols: Sequence[torch.Tensor], valid: torch.Tensor,
+             vals: torch.Tensor, ops: tuple[str, ...]):
+    """Plain version of the scan kernel: (mask [w, cap] bool,
+    cnt [w, nblk] int32)."""
+    _check_scan(cols, valid, vals, ops)
+    mask = valid[None, :].expand(vals.shape[0], -1)
+    for t, op in enumerate(ops):
+        mask = mask & _CMP[op](cols[t][None, :], vals[:, t:t + 1])
+    return mask, block_counts(mask)
+
+
+def scan(cols: Sequence[torch.Tensor], valid: torch.Tensor,
+         vals: torch.Tensor, ops: tuple[str, ...]):
+    """Fused conjunction scan (kernel on CUDA tensors). Contract of
+    :func:`scan_ref`."""
+    if valid.device.type == "cpu":
+        return scan_ref(cols, valid, vals, ops)
+    _build.require_cuda(valid, "relscan_scan")
+    _check_scan(cols, valid, vals, ops)
+    cols = [c.contiguous() for c in cols]
+    vals = vals.contiguous()
+    cap, w = valid.shape[0], vals.shape[0]
+    mask = torch.empty((w, cap), dtype=torch.bool, device=valid.device)
+    cnt = torch.empty((w, n_blocks(cap)), dtype=torch.int32,
+                      device=valid.device)
+    ptrs = [c.data_ptr() for c in cols] + [cols[0].data_ptr()] * (
+        MAX_TERMS - len(cols))
+    codes = [OP_CODES[o] for o in ops] + [0] * (MAX_TERMS - len(ops))
+    err = _build.lib("relscan").relscan_scan(
+        *ptrs, *codes, len(ops), valid.contiguous().data_ptr(),
+        vals.data_ptr(), cap, w, mask.data_ptr(), cnt.data_ptr(),
+        _build.stream_ptr(valid.device))
+    _build.check(err, "relscan_scan")
+    _build.launches["relscan_scan"] += 1
+    return mask, cnt
+
+
+def compact_ref(mask: torch.Tensor, cnt: torch.Tensor, limit: int):
+    """Plain version of the compaction kernel: the first ``limit`` set
+    bits of every mask row as row ids ``[w, limit]`` int32, in row order,
+    0-padded (``cnt`` is the kernel's prefix input; unused here)."""
+    del cnt
+    w, cap = mask.shape
+    pos = torch.cumsum(mask.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    tgt = torch.where(mask & (pos < limit), pos, limit).long()
+    ids = torch.zeros((w, limit + 1), dtype=torch.int32, device=mask.device)
+    rows = torch.arange(cap, dtype=torch.int32,
+                        device=mask.device).expand(w, -1)
+    ids.scatter_(1, tgt, rows)  # overflow rows land in the scratch column
+    return ids[:, :limit].contiguous()
+
+
+def compact(mask: torch.Tensor, cnt: torch.Tensor, limit: int):
+    """Bitmap -> first ``limit`` row ids (kernel on CUDA tensors).
+    Contract of :func:`compact_ref`."""
+    if mask.dim() != 2 or mask.dtype != torch.bool:
+        raise TypeError("mask must be a [w, cap] bool tensor")
+    w, cap = mask.shape
+    if cnt.shape != (w, n_blocks(cap)) or cnt.dtype != torch.int32:
+        raise TypeError("cnt must be the scan's [w, nblk] int32 block counts")
+    if limit < 1:
+        raise ValueError("limit must be >= 1")
+    if mask.device.type == "cpu":
+        return compact_ref(mask, cnt, limit)
+    _build.require_cuda(mask, "relscan_compact")
+    # exclusive prefix of the block counts (nblk long; the JAX package also
+    # takes this step outside its kernel)
+    offs = (torch.cumsum(cnt, dim=1, dtype=torch.int32) - cnt).contiguous()
+    mask = mask.contiguous()
+    ids = torch.zeros((w, limit), dtype=torch.int32, device=mask.device)
+    err = _build.lib("relscan").relscan_compact(
+        mask.data_ptr(), offs.data_ptr(), cap, w, limit, ids.data_ptr(),
+        _build.stream_ptr(mask.device))
+    _build.check(err, "relscan_compact")
+    _build.launches["relscan_compact"] += 1
+    return ids
+
+
+def relscan(cols: Sequence[torch.Tensor], valid: torch.Tensor,
+            vals: torch.Tensor, *, ops: tuple[str, ...], limit: int,
+            want_ids: bool = True):
+    """Fused conjunction scan + compaction for ``w`` statements.
+
+    cols: one [cap] int32 tensor per term (a column may repeat);
+    vals: [w, nterms] int32 runtime values; valid: [cap] bool.
+
+    Returns (ids [w, limit] int32 first matching row ids in row order,
+    0-padded; present [w, limit] bool; mask [w, cap] bool; count [w]
+    int32, unclamped). ``want_ids=False`` skips the compaction and returns
+    None for ids and present."""
+    mask, cnt = scan(cols, valid, vals, ops)
+    count = cnt.sum(dim=1, dtype=torch.int32)
+    if not want_ids:
+        return None, None, mask, count
+    ids = compact(mask, cnt, limit)
+    present = torch.arange(limit, dtype=torch.int32,
+                           device=mask.device)[None, :] < count[:, None]
+    return ids, present, mask, count

@@ -31,3 +31,8 @@ def _lockcheck_no_cycles():
         assert not cyc, (
             f"lock-order cycle(s) observed under REPRO_LOCKCHECK=1: {cyc} "
             f"(report: {lockorder.report()})")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips (with a reason) without one")
