@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -7,13 +7,19 @@ Run from a checkout of the repository on a machine with a CUDA card and
 the CUDA toolkit. Phases (one JSON line each on stdout):
 
 0. device  -- the card's name and power limit (``nvidia-smi``).
-1. build   -- compile the four CUDA kernels from ``src/repro_torch/csrc``
-              (one ``nvcc`` per source, in parallel) and report registers
-              and shared memory per kernel.
-2. kernels -- every kernel against its plain PyTorch version on the card,
-              exact equality, at the main path's shapes and beyond; then
-              each kernel's time (CUDA events), its plain version's time
-              and its bound.
+1. build   -- compile the six CUDA kernels from the four sources in
+              ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
+              parallel) and report registers and shared memory per kernel.
+2. kernels -- every relscan / hash-index kernel against its plain PyTorch
+              version on the card, exact equality, at the main path's
+              shapes and beyond; then each kernel's time (CUDA events),
+              its plain version's time and its bound.
+   kernels_attention -- the flash- and paged-attention kernels against
+              their plain versions (fp32 within 1e-5, bf16 within 2e-2)
+              at tests/test_kernels.py's shapes, head dims 32-256, and the
+              serve path's own shapes; then their times, bounds and, for
+              flash attention, the time of the one PyTorch call that
+              computes the same function (scaled_dot_product_attention).
 3. table2  -- the paper's Table 2 deployment (100,000 records over 30,000
               pages and 1,000 users, CAPACITY 131072), with and without
               INDEX(page_id), INDEX(user_id), on the card daemon and on a
@@ -25,16 +31,27 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
 5. wire    -- one tagged/untagged socket script against a ThreadedServer
               on the card daemon and one on a CPU daemon: the response
               bytes must match (the ``device`` field of SHOW STATS aside).
-6. profile -- after the main path: kernels, copies, device time and idle
-              share per Table 2 DELETE / SELECT statement (torch.profiler).
+6. serve   -- the paged-KV serving engine with yi-6b at full width (bf16,
+              random weights from a seeded torch.Generator) on the card:
+              launch/serve.py's default traffic (6 requests of 8-24
+              tokens, 16 new tokens, 4 slots, block 16, max_seq 256), then
+              one evict_user and one flush. Logits are checked teacher-
+              forced against a dense, kernel-free reference on the card;
+              every block count against a CPU daemon's replay of the
+              ``kv`` table's statements; block allocation and the step's
+              dispatch run with sync debugging set to "error".
+7. profile -- after the main paths: kernels, copies, device time and idle
+              share per Table 2 DELETE / SELECT statement and per decode
+              round of the serve path (torch.profiler).
 
-Phases 3-5 are four main paths (Table 2 plain, Table 2 indexed, Fig. 1,
-wire). The launch counters are zeroed right before each path and read
-right after it, and each path must have launched every kernel it runs:
-scan and compact everywhere, build and probe on the indexed Table 2
-table, probe in the wire script (its table has INDEX(k)). Then comes a
-``kernels`` line (launches summed over the four paths), the
-``nvidia-smi`` line, and the final status line.
+Phases 3-6 are five main paths (Table 2 plain, Table 2 indexed, Fig. 1,
+wire, serve). The launch counters are zeroed right before each path and
+read right after it, and each path must have launched every kernel it
+runs: scan and compact on the statement paths, build and probe on the
+indexed Table 2 table, probe in the wire script (its table has
+INDEX(k)); flash attention, paged attention and the scan on the serve
+path. Then comes a ``kernels`` line (launches summed over the paths),
+the ``nvidia-smi`` line, and the final status line.
 Any failure raises: the script exits non-zero and prints no status line,
 and so it does without a CUDA card or outside a checkout of the repo.
 """
@@ -59,14 +76,21 @@ import torch  # noqa: E402
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device is present")
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import daemon as D  # noqa: E402
 from repro_torch.core import protocol as PR  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import hashidx as HX  # noqa: E402
+from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import relscan as RS  # noqa: E402
+from repro_torch.models import transformer as TF  # noqa: E402
+from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 SIMT_OPS_S = 67e12      # H100 SXM non-tensor-core 32-bit rate (data sheet)
+BF16_OPS_S = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
+ATT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SEED = 0
 
 
@@ -115,8 +139,8 @@ def device_ms(fn, kernel_symbol: str, iters=50):
     return (total / n / 1e3) if n and total > 0 else None
 
 
-def bound(nbytes: float, ops: float):
-    t_b, t_o = nbytes / HBM_BYTES_S, ops / SIMT_OPS_S
+def bound(nbytes: float, ops: float, ops_rate: float = SIMT_OPS_S):
+    t_b, t_o = nbytes / HBM_BYTES_S, ops / ops_rate
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -161,8 +185,14 @@ def phase_build() -> None:
             m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem|$)",
                           line)
             if m and fn:
-                name = re.search(r"(scan|compact|build|probe)_kernel", fn)
-                report[f"{src}.{name.group(0) if name else fn}"] = {
+                name = re.search(r"(scan|compact|build|probe|flash|paged)"
+                                 r"_kernel", fn)
+                key = name.group(0) if name else fn
+                inst = re.search(r"_kernelI(f|13__nv_bfloat16)Li(\d+)E", fn)
+                if inst:  # attention templates: <dtype, head dim>
+                    key += ("<f32," if inst.group(1) == "f" else "<bf16,") \
+                        + inst.group(2) + ">"
+                report[f"{src}.{key}"] = {
                     "registers": int(m.group(1)),
                     "smem_bytes": int(m.group(2) or 0)}
     emit({"phase": "build", "seconds": round(secs, 3), "ptxas": report})
@@ -377,6 +407,192 @@ def phase_kernels(dev, card):
     return out, errs
 
 
+# --------------------------------------------------- phase 2b: attention
+
+# (b, h, kh, sq, sk, hd, causal, window, softcap, q_offset)
+FLASH_CASES = [
+    # tests/test_kernels.py's sweep
+    (2, 4, 4, 128, 128, 64, True, 0, 0.0, 0),
+    (1, 8, 2, 256, 256, 64, True, 0, 0.0, 0),
+    (2, 4, 2, 128, 256, 32, False, 0, 0.0, 0),
+    (1, 4, 4, 256, 256, 64, True, 96, 0.0, 0),
+    (1, 4, 4, 128, 128, 64, True, 0, 50.0, 0),
+    (2, 2, 2, 64, 64, 128, True, 48, 30.0, 0),
+    # head dim 256, ragged lengths, q_offset, one token
+    (1, 4, 2, 13, 40, 256, True, 7, 20.0, 27),
+    (2, 8, 8, 100, 100, 256, True, 0, 0.0, 0),
+    (3, 6, 3, 1, 1, 128, True, 0, 0.0, 0),
+    (2, 8, 4, 13, 13, 8, True, 0, 0.0, 0),      # yi-6b SMOKE's head dim
+    (1, 4, 2, 37, 37, 16, True, 5, 10.0, 0),
+] + [(1, 32, 4, n, n, 128, True, 0, 0.0, 0)   # the serve path's prefills
+     for n in range(8, 25)]
+
+# (b, h, kh, hd, block, nblk, window, softcap, lengths or None)
+PAGED_CASES = [
+    (2, 4, 4, 64, 16, 4, 0, 0.0, None),
+    (3, 8, 2, 64, 16, 6, 0, 0.0, None),
+    (2, 4, 4, 128, 32, 3, 0, 50.0, None),
+    (2, 4, 2, 64, 16, 8, 40, 0.0, None),
+    (2, 8, 2, 256, 8, 5, 9, 30.0, None),
+    (2, 4, 2, 32, 16, 4, 0, 0.0, None),
+    (3, 8, 4, 8, 8, 6, 0, 0.0, None),           # yi-6b SMOKE's head dim
+    (2, 4, 4, 16, 16, 3, 7, 5.0, None),
+    # the serve path's decode: 4 slots, one without a request
+    (4, 32, 4, 128, 16, 16, 0, 0.0, [24, 31, 0, 40]),
+    (4, 32, 4, 128, 16, 16, 0, 0.0, [9, 17, 33, 256]),
+]
+SERVE_DECODE_LENGTHS = [24, 31, 17, 40]
+
+
+def att_err(got, want, dtype, what) -> float:
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= ATT_TOL[dtype]:   # NaN fails too
+        raise AssertionError(f"{what}: kernel differs from its plain "
+                             f"version by {err} (tolerance "
+                             f"{ATT_TOL[dtype]})")
+    return err
+
+
+def flash_inputs(gen, dev, dtype, b, h, kh, sq, sk, hd):
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((b, h, sq, hd), (b, kh, sk, hd),
+                               (b, kh, sk, hd)))
+
+
+def paged_inputs(rng, gen, dev, dtype, b, h, kh, hd, block, nblk, lengths):
+    """Random arena rows per sequence (tests/test_kernels.py's
+    construction); ``lengths`` fixes each sequence's length (0: no
+    pages, as a slot without a request)."""
+    cap = b * nblk + 4
+    pages = np.full((b, nblk), -1, np.int32)
+    lens = np.zeros((b,), np.int32)
+    perm = rng.permutation(cap)
+    pi = 0
+    for i in range(b):
+        if lengths is None:
+            n = int(rng.integers(1, nblk + 1))
+            lens[i] = (n - 1) * block + int(rng.integers(1, block + 1))
+        else:
+            lens[i] = lengths[i]
+            n = -(-lengths[i] // block)
+        pages[i, :n] = perm[pi:pi + n]
+        pi += n
+    q = torch.randn((b, h, hd), generator=gen, device=dev).to(dtype)
+    arena = torch.randn((cap, 2, block, kh, hd), generator=gen,
+                        device=dev).to(dtype)
+    return (q, arena, torch.from_numpy(pages).to(dev),
+            torch.from_numpy(lens).to(dev))
+
+
+def flash_work(b, h, kh, sq, sk, hd, elem, causal=True, q_offset=0):
+    """(bytes, FLOP) one flash call must move and do: q, k, v read once,
+    the output written once; QK^T and PV over the visible (q, k) pairs."""
+    nbytes = (2 * b * h * sq * hd + 2 * b * kh * sk * hd) * elem
+    pairs = sum(min(sk, q_offset + i + 1) if causal else sk
+                for i in range(sq))
+    return nbytes, 4 * b * h * pairs * hd
+
+
+def paged_work(h, kh, hd, nblk, lengths, elem):
+    """(bytes, FLOP) of one decode call: q and out once, each visible K/V
+    row once, pages and lengths; QK^T and PV over the visible tokens."""
+    b = len(lengths)
+    tokens = int(sum(lengths))
+    nbytes = (2 * b * h * hd + 2 * tokens * kh * hd) * elem \
+        + 4 * b * nblk + 4 * b
+    return nbytes, 4 * h * hd * tokens
+
+
+def phase_kernels_attention(dev, card):
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    errs = {"flash_attention": 0.0, "paged_attention": 0.0}
+    per_case = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for (b, h, kh, sq, sk, hd, causal, window, softcap,
+             q_offset) in FLASH_CASES:
+            q, k, v = flash_inputs(gen, dev, dtype, b, h, kh, sq, sk, hd)
+            kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+                      softcap=softcap, q_offset=q_offset)
+            got = FA.flash_attention(q, k, v, **kw)
+            want = FA.flash_attention_ref(q, k, v, **kw)
+            sync()
+            shape = f"{b}x{h}/{kh}x{sq}x{sk}x{hd} w{window} c{softcap}"
+            e = att_err(got, want, dtype, f"flash_attention {shape} {dname}")
+            errs["flash_attention"] = max(errs["flash_attention"], e)
+            per_case.append(["flash", dname, shape, e])
+        for (b, h, kh, hd, block, nblk, window, softcap,
+             lengths) in PAGED_CASES:
+            q, arena, pages, lens = paged_inputs(rng, gen, dev, dtype, b, h,
+                                                 kh, hd, block, nblk, lengths)
+            kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
+            got = PA.paged_attention(q, arena, pages, lens, **kw)
+            want = PA.paged_attention_ref(q, arena, pages, lens, **kw)
+            sync()
+            shape = f"{b}x{h}/{kh}x{hd} blk{block}x{nblk} w{window} " \
+                    f"c{softcap}"
+            e = att_err(got, want, dtype, f"paged_attention {shape} {dname}")
+            errs["paged_attention"] = max(errs["paged_attention"], e)
+            per_case.append(["paged", dname, shape, e])
+    emit({"phase": "kernels_attention", "card": card, "cases": len(per_case),
+          "tolerance": {"float32": ATT_TOL[torch.float32],
+                        "bfloat16": ATT_TOL[torch.bfloat16]},
+          "max_abs_err": errs, "per_case": per_case})
+
+    # timings at the serve path's shapes (yi-6b, bf16)
+    out = {}
+    bf = torch.bfloat16
+    b, h, kh, s, hd = 1, 32, 4, 24, 128
+    q, k, v = flash_inputs(gen, dev, bf, b, h, kh, s, s, hd)
+    scale = hd ** -0.5
+    run = lambda: FA.flash_attention(q, k, v, scale=scale)  # noqa: E731
+    k_ms = time_ms(run)
+    p_ms = time_ms(lambda: FA.flash_attention_ref(q, k, v, scale=scale))
+    d_ms = device_ms(run, "flash_kernel")
+    b_ms, b_by = bound(*flash_work(b, h, kh, s, s, hd, 2), BF16_OPS_S)
+    lib_ms, lib_err, lib_diff = None, None, None
+    try:
+        import torch.nn.functional as F
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True)
+        lib_diff = float((sdpa().float() - run().float()).abs().max())
+        if not lib_diff <= ATT_TOL[bf]:
+            raise AssertionError(f"scaled_dot_product_attention differs "
+                                 f"from the kernel by {lib_diff}")
+        lib_ms = time_ms(sdpa)
+    except (TypeError, RuntimeError) as e:
+        lib_err = f"{type(e).__name__}: {e}"[:300]
+    out["flash_attention"] = {
+        "kernel": "flash_attention", "shape": "b1 h32/kh4 sq=sk=24 hd128 "
+        "bf16 causal (the longest serve prompt)", "ms": k_ms,
+        "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib_ms,
+        "library": "torch.nn.functional.scaled_dot_product_attention",
+        "library_max_abs_diff": lib_diff, "library_error": lib_err}
+
+    q, arena, pages, lens = paged_inputs(rng, gen, dev, bf, 4, 32, 4, 128,
+                                         16, 16, SERVE_DECODE_LENGTHS)
+    run = lambda: PA.paged_attention(  # noqa: E731
+        q, arena, pages, lens, scale=scale)
+    k_ms = time_ms(run)
+    p_ms = time_ms(lambda: PA.paged_attention_ref(q, arena, pages, lens,
+                                                  scale=scale))
+    d_ms = device_ms(run, "paged_kernel")
+    b_ms, b_by = bound(*paged_work(32, 4, 128, 16, SERVE_DECODE_LENGTHS, 2),
+                       BF16_OPS_S)
+    out["paged_attention"] = {
+        "kernel": "paged_attention", "shape": "b4 h32/kh4 hd128 block16 "
+        f"nblk16 lengths {SERVE_DECODE_LENGTHS} bf16", "ms": k_ms,
+        "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None,
+        "library": "none: no single PyTorch call gathers K/V through a page "
+                   "table"}
+    for t in out.values():
+        emit({"phase": "kernel_timing", "card": card, **t})
+    return out, errs
+
+
 # ---------------------------------------------------------------- phase 3
 
 def snap(r):
@@ -587,6 +803,224 @@ def phase_wire(card):
           "cpu_script_s": round(outs["cpu_s"], 3)})
 
 
+# ---------------------------------------------------------------- phase 6
+
+SERVE_LOGIT_ATOL = 0.05   # see phase_serve
+SERVE_BLOCK = 16
+
+
+def serve_prompts(cfg, n=6, seed=SEED):
+    """launch/serve.py's default traffic: n prompts of 8-24 tokens."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab, size=int(rng.integers(8, 24)))
+            .astype(np.int32) for _ in range(n)]
+
+
+class KvLog:
+    """Records every statement the engine's daemon runs (after its CREATE
+    TABLE), for a CPU daemon to replay."""
+
+    def __init__(self, db):
+        self.log = []
+        execute, executemany = db.execute, db.executemany
+
+        def rec_execute(sql, params=(), payloads=None):
+            r = execute(sql, params, payloads)
+            self.log.append(("execute", sql, tuple(params), r))
+            return r
+
+        def rec_executemany(sql, params_list, *a, **kw):
+            r = executemany(sql, params_list, *a, **kw)
+            self.log.append(("executemany", sql, list(params_list), r))
+            return r
+
+        db.execute, db.executemany = rec_execute, rec_executemany
+
+    def replay(self, cap: int) -> dict:
+        """Run the log on a CPU daemon: every INSERT must allocate the same
+        rows and every DELETE / FLUSH remove the same count."""
+        cpu = D.SQLCached(device="cpu")
+        cpu.execute("CREATE TABLE kv (slot INT, seq_id INT, user_id INT, "
+                    "pos_block INT, prefix_hash INT) "
+                    f"CAPACITY {cap} MAX_SELECT 256")
+        counts = {"insert": 0, "delete": 0, "flush": 0}
+        for kind, sql, params, got in self.log:
+            want = getattr(cpu, kind)(sql, params)
+            verb = sql.split()[0].lower()
+            counts[verb] += 1
+            if verb == "insert":
+                same = np.array_equal(np.asarray(got.row_ids),
+                                      np.asarray(want.row_ids))
+            else:
+                same = got.count == want.count
+            if not same:
+                raise AssertionError(f"card and CPU daemons differ on "
+                                     f"{sql!r} {params}")
+        return {"statements": counts, "cpu_live_rows": cpu.live_rows("kv")}
+
+
+def guard(obj, name, timer=None):
+    """Wrap ``obj.name`` so that it runs with sync debugging set to
+    "error" (PyTorch raises on any call that waits for the card) and,
+    given ``timer``, add its host time to ``timer[name]``."""
+    fn = getattr(obj, name)
+
+    def guarded(*a, **kw):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            if timer is not None:
+                timer[name] = timer.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(obj, name, guarded)
+
+
+def teacher_forced(cfg, params, dev, records):
+    """The kernel path's tokens through a dense, kernel-free reference on
+    the card: every prompt and its generated tokens go one token a step
+    through ``decode_step`` (dense cache, plain attention) in one batch.
+    The reference's logits after token n-1 must match the prefill's, and
+    after each generated token the next round's, within
+    SERVE_LOGIT_ATOL; where the reference's top-2 margin exceeds that
+    tolerance the kernel path must have picked the reference's token."""
+    seqs = [list(r["prompt"]) + r["generated"][:-1] for r in records]
+    steps = max(len(x) for x in seqs)
+    cache = TF.init_cache(cfg, len(seqs), steps + 1, dev)
+    max_err, checked, margin_ok, flips = 0.0, 0, 0, 0
+    for t in range(steps):
+        toks = torch.tensor([x[t] if t < len(x) else 0 for x in seqs],
+                            device=dev)
+        lengths = torch.full((len(seqs),), t, device=dev)
+        ref, cache = TF.decode_step(params, cfg, toks, cache, lengths)
+        ref = ref[:, :cfg.vocab]
+        for i, r in enumerate(records):
+            j = t - (len(r["prompt"]) - 1)
+            if not 0 <= j < len(r["logits"]):
+                continue
+            got = r["logits"][j][:cfg.vocab]
+            err = float((got - ref[i]).abs().max())
+            if not err <= SERVE_LOGIT_ATOL:
+                raise AssertionError(f"request {i}, step {j}: logits differ "
+                                     f"from the dense reference by {err}")
+            max_err = max(max_err, err)
+            checked += 1
+            top2 = torch.topk(ref[i], 2).values
+            if float(top2[0] - top2[1]) > SERVE_LOGIT_ATOL:
+                margin_ok += 1
+                if int(torch.argmax(ref[i])) != r["generated"][j]:
+                    raise AssertionError(f"request {i}, step {j}: token "
+                                         f"{r['generated'][j]} where the "
+                                         f"reference's clear winner is "
+                                         f"{int(torch.argmax(ref[i]))}")
+            elif int(torch.argmax(ref[i])) != r["generated"][j]:
+                flips += 1
+    return {"logit_max_abs_err": max_err, "steps_checked": checked,
+            "steps_with_clear_winner": margin_ok,
+            "near_tie_flips": flips, "atol": SERVE_LOGIT_ATOL,
+            "ref_logit_std": float(ref.std()),
+            "ref_logit_max_abs": float(ref.abs().max())}
+
+
+def phase_serve(card, dev, hold):
+    """yi-6b at full width through ServeEngine, as launch/serve.py drives
+    it, plus one evict_user and one flush. ``hold`` keeps the engine for
+    the profile phase."""
+    cfg = configs.get_config("yi-6b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = TF.init_model(torch.Generator(device=dev).manual_seed(SEED),
+                           cfg, dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    eng = ServeEngine(cfg, params, max_slots=4, max_seq=256,
+                      block=SERVE_BLOCK, device=dev)
+    log = KvLog(eng.daemon)
+    host = {}
+    guard(eng, "_insert_blocks", host)
+    guard(eng, "_step", host)
+
+    pending = serve_prompts(cfg)
+    records, by_slot = [], {}
+    prefill_ms, round_ms, finish_ms, freed = [], [], [], []
+    done, tokens_out = 0, 0
+    t_serve = time.perf_counter()
+    total = len(pending)
+    while done < total:
+        while pending and len(eng.requests) < eng.max_slots:
+            prompt = pending.pop()
+            t0 = time.perf_counter()
+            slot = eng.add_request(prompt, user_id=done + len(pending))
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            rec = {"prompt": prompt, "logits": [eng.prefill_logits.clone()]}
+            records.append(rec)
+            by_slot[slot] = rec
+        t0 = time.perf_counter()
+        eng.decode_round()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        tokens_out += len(eng.requests)
+        for s in eng.requests:
+            by_slot[s]["logits"].append(eng.logits[s].clone())
+        for s in [s for s, r in eng.requests.items()
+                  if len(r.generated) >= 16]:
+            by_slot[s]["generated"] = list(eng.requests[s].generated)
+            n_tok = int(eng.lengths[s])
+            t0 = time.perf_counter()
+            n = eng.finish_request(s)
+            finish_ms.append((time.perf_counter() - t0) * 1e3)
+            if n != -(-n_tok // SERVE_BLOCK):
+                raise AssertionError(f"finish_request freed {n} blocks for "
+                                     f"{n_tok} tokens")
+            freed.append(n)
+            done += 1
+    serve_s = time.perf_counter() - t_serve
+    if eng.live_blocks() != 0:
+        raise AssertionError(f"{eng.live_blocks()} blocks live after every "
+                             f"request finished")
+    for r in records:  # the prefill's logits, then one per round
+        if len(r["logits"]) != len(r["generated"]):
+            raise AssertionError("a request's logits and tokens disagree")
+    # one session eviction and one flush over fresh requests
+    extra = serve_prompts(cfg, 3, seed=SEED + 1)
+    for i, prompt in enumerate(extra):
+        eng.add_request(prompt, user_id=100 + (i % 2))
+    for _ in range(3):
+        eng.decode_round()
+    evicted = eng.evict_user(100)
+    flushed = eng.flush()
+    if eng.live_blocks() != 0 or eng.requests:
+        raise AssertionError("flush left blocks or requests behind")
+    replay = log.replay(eng.cap)
+    if replay["cpu_live_rows"] != 0:
+        raise AssertionError("the CPU replay kept live rows")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    tf = teacher_forced(cfg, params, dev, records)
+    n_rounds = len(round_ms)
+    hold.update(eng=eng, cfg=cfg, params=params, layers=cfg.n_layers,
+                prefills=len(records) + len(extra), rounds=n_rounds + 3)
+    emit({"phase": "serve", "card": card, "arch": cfg.name,
+          "params_b": cfg.param_count() / 1e9,
+          "dtype": str(cfg.dtype).split(".")[-1],
+          "init_s": round(init_s, 3), "requests": len(records),
+          "prompt_lens": [len(r["prompt"]) for r in records],
+          "prefill_ms": [round(x, 3) for x in prefill_ms],
+          "prefill_ms_mean": float(np.mean(prefill_ms)),
+          "decode_rounds": n_rounds,
+          "decode_ms_mean": float(np.mean(round_ms)),
+          "decode_ms_p50": p50(round_ms),
+          "decode_ms_first_round": round_ms[0],
+          "tokens": tokens_out, "serve_s": serve_s,
+          "tokens_per_s": tokens_out / serve_s,
+          "host_ms_in_insert_blocks": host.get("_insert_blocks", 0) * 1e3,
+          "host_ms_in_step_dispatch": host.get("_step", 0) * 1e3,
+          "finish_request_ms": [round(x, 3) for x in finish_ms],
+          "freed_blocks": freed, "evict_user_blocks": evicted,
+          "flush_blocks": flushed, "kv_replay": replay,
+          "peak_memory_gb": peak_gb, "teacher_forced": tf})
+
+
 # ------------------------------------------------------------ profile
 
 def profile_statements(db, sql, params_list):
@@ -624,7 +1058,64 @@ def profile_statements(db, sql, params_list):
                                sorted(top.items(), key=lambda kv: -kv[1])[:6]}}
 
 
-def phase_profile(card):
+def profile_rounds(eng, cfg, n_rounds=4):
+    """Decode rounds of the serve path under the profiler: per round the
+    host wall time, the card's busy time and idle share, and device time
+    by kernel family (GEMMs, the attention kernels, the kv table's SQL
+    kernels, the rest)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i, prompt in enumerate(serve_prompts(cfg, 4, seed=SEED + 2)):
+        eng.add_request(prompt, user_id=200 + i)
+    eng.decode_round()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_rounds):
+            eng.decode_round()
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    def t_of(e):
+        if hasattr(e, "self_device_time_total"):
+            return e.self_device_time_total
+        return e.self_cuda_time_total
+
+    fam = {"gemm": 0.0, "flash_attention": 0.0, "paged_attention": 0.0,
+           "sql_kernels": 0.0, "copies": 0.0, "other": 0.0}
+    top = {}
+    for e in dev:
+        n, t = e.name, t_of(e)
+        if "emcpy" in n or "emset" in n:
+            fam["copies"] += t
+        elif "paged_kernel" in n:
+            fam["paged_attention"] += t
+        elif "flash_kernel" in n:
+            fam["flash_attention"] += t
+        elif "scan_kernel" in n or "compact_kernel" in n:
+            fam["sql_kernels"] += t
+        elif any(w in n.lower() for w in ("gemm", "gemv", "nvjet",
+                                           "cutlass", "sm90_xmma")):
+            fam["gemm"] += t
+        else:
+            fam["other"] += t
+        top[n[:60]] = top.get(n[:60], 0.0) + t
+    busy = sum(fam.values())
+    eng.flush()
+    return {"rounds": n_rounds, "wall_us_per_round": wall_us / n_rounds,
+            "device_us_per_round": busy / n_rounds,
+            "idle_share": 1 - busy / wall_us,
+            "kernels_per_round": len(dev) / n_rounds,
+            "device_us_per_round_by_family": {
+                k: v / n_rounds for k, v in fam.items()},
+            "top_kernels_us_per_round": {
+                k: v / n_rounds for k, v in
+                sorted(top.items(), key=lambda kv: -kv[1])[:8]}}
+
+
+def phase_profile(card, serve):
     pages, users, payload = table2_data()
     out = {}
     for variant, extra in (("plain", ""),
@@ -641,6 +1132,7 @@ def phase_profile(card):
         out[f"{variant}_page_select"] = profile_statements(
             db, "SELECT * FROM cache WHERE page_id = ? LIMIT 64",
             [(int(p),) for p in pages[500:520]])
+    out["serve_decode_round"] = profile_rounds(serve["eng"], serve["cfg"])
     emit({"phase": "profile", "card": card, **out})
 
 
@@ -655,6 +1147,10 @@ SOURCES = {
                    "src/repro/kernels/hashidx.py:133"),
     "hash_probe": ("src/repro_torch/csrc/hashidx.cu",
                    "src/repro/kernels/hashidx.py:207"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:28"),
+    "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention.py:27"),
 }
 
 
@@ -664,18 +1160,26 @@ def main():
     card = phase_device()
     phase_build()
     timing, errs = phase_kernels(dev, card)
+    att_timing, att_errs = phase_kernels_attention(dev, card)
+    timing.update(att_timing)
+    errs.update(att_errs)
 
     # each main path runs with the launch counts zeroed right before it and
     # read right after it; every kernel that path must run has to show up
     scan_compact = ("relscan_scan", "relscan_compact")
+    serve: dict = {}   # the serve path's engine, for the profile phase
     paths = (
         ("table2_plain", lambda: phase_table2(card, "plain", ""),
          scan_compact),
         ("table2_indexed", lambda: phase_table2(
             card, "indexed", ", INDEX(page_id), INDEX(user_id)"),
-         _build.KERNELS),
+         scan_compact + ("hash_build", "hash_probe")),
         ("fig1", lambda: phase_fig1(card), scan_compact),
         ("wire", lambda: phase_wire(card), scan_compact + ("hash_probe",)),
+        # the kv table has no payload, so its DELETEs take the mask-only
+        # route (the scan, no compaction), as in the reference
+        ("serve", lambda: phase_serve(card, dev, serve),
+         ("flash_attention", "paged_attention", "relscan_scan")),
     )
     launches = {k: 0 for k in _build.KERNELS}
     for path, drive, need in paths:
@@ -687,13 +1191,21 @@ def main():
         if missing:
             raise AssertionError(f"{path}: kernels never launched on this "
                                  f"path: {missing} ({got})")
+        if path == "serve":  # one launch per layer per prefill / round
+            want = {"flash_attention": serve["layers"] * serve["prefills"],
+                    "paged_attention": serve["layers"] * serve["rounds"]}
+            if any(got[k] != n for k, n in want.items()):
+                raise AssertionError(f"serve: launches {got}, expected "
+                                     f"{want}")
         for k, n in got.items():
             launches[k] += n
     emit({"phase": "main_path_launches", **launches})
-    phase_profile(card)
+    phase_profile(card, serve)
 
     keymap = {"relscan_scan": "scan", "relscan_compact": "compact",
-              "hash_build": "build", "hash_probe": "probe"}
+              "hash_build": "build", "hash_probe": "probe",
+              "flash_attention": "flash_attention",
+              "paged_attention": "paged_attention"}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         t = timing[keymap[name]]

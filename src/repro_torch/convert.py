@@ -1,4 +1,5 @@
-"""Carry table contents between the reference and the port.
+"""Carry table contents and model weights between the reference and the
+port.
 
 A table's data plays the part that weights play for a model: both daemons
 start from the same contents when one's state is carried into the other.
@@ -10,6 +11,11 @@ same way.
 
 TEXT columns hold interner ids, so the strings must agree too:
 :func:`copy_interner` replays one daemon's string table into another's.
+
+Model weights travel the same way: the reference's parameter tree (after
+``repro.models.params.split``, every leaf through ``numpy.asarray``) has
+the port's names and stacked layout, so :func:`params_from_numpy` is one
+mapping and :func:`params_to_numpy` its inverse.
 """
 from __future__ import annotations
 
@@ -44,3 +50,30 @@ def copy_interner(src, dst) -> None:
         if got != i:
             raise ValueError(f"interner ids disagree: {s!r} is {i} in the "
                              f"source and {got} in the destination")
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """numpy -> CPU tensor; bfloat16 arrays (the ``ml_dtypes`` type numpy
+    gets from JAX) travel as their 16-bit patterns."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def params_from_numpy(cfg, tree: Any, device) -> Any:
+    """The reference's parameter tree (nested dict of numpy arrays) ->
+    the port's parameters on ``device`` in ``cfg.dtype``."""
+    from repro_torch.models.transformer import check_supported
+    check_supported(cfg)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(cfg, v, device) for k, v in tree.items()}
+    return _tensor(np.asarray(tree)).to(device=device, dtype=cfg.dtype)
+
+
+def params_to_numpy(params: Any) -> Any:
+    """The port's parameters -> nested dict of float32 numpy arrays (the
+    reference casts them to its config's dtype)."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    return params.detach().float().cpu().numpy()

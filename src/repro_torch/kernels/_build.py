@@ -28,12 +28,13 @@ import subprocess
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("relscan", "hashidx")
+SOURCES = ("relscan", "hashidx", "flash_attention", "paged_attention")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("relscan_scan", "relscan_compact", "hash_build", "hash_probe")
+KERNELS = ("relscan_scan", "relscan_compact", "hash_build", "hash_probe",
+           "flash_attention", "paged_attention")
 launches = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -62,7 +63,8 @@ def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / f"{name}.cu").read_bytes())
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -106,12 +108,16 @@ def build_all() -> dict[str, str]:
 def _declare(lib: ctypes.CDLL) -> None:
     """argtypes/restype of every exported function: pointers and the
     stream as c_void_p (a bare Python int would be cut to 32 bits)."""
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
         "relscan_scan": [P, P, P, P, I, I, I, I, I, P, P, I, I, P, P, P],
         "relscan_compact": [P, P, I, I, I, P, P],
         "hash_build": [P, P, P, P, I, I, P, P, P],
         "hash_probe": [P, P, P, I, I, P, P, P],
+        "flash_attention": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, F, I,
+                            P],
+        "paged_attention": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I,
+                            P],
     }
     for fn, args in sigs.items():
         if hasattr(lib, fn):

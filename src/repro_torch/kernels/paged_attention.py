@@ -1,0 +1,100 @@
+"""Decode attention over the paged KV arena through a page table (port of
+``repro.kernels.paged_attention``).
+
+The kernel is ``csrc/paged_attention.cu``; :func:`paged_attention_ref`
+beside it is its plain PyTorch version (the counterpart of
+``repro.kernels.ref.paged_attention_ref``). The wrapper serves a CPU
+tensor with the plain version and a CUDA tensor with the kernel; there is
+no other route.
+
+Contract: position ``j * block + t`` of sequence ``b`` lives at
+``arena[pages[b, j], :, t]``; page ids outside ``[0, cap)`` (``-1``) are
+missing; the first ``lengths[b]`` positions are visible, and with
+``window > 0`` only those with ``lengths[b] - pos < window``. A sequence
+with no visible position gives 0 (the reference's masking gives a mean of
+masked rows there, which no caller reads).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import DTYPE_CODES, HEAD_DIMS
+
+NEG_INF = -1e30
+
+
+def _check(q, arena, pages, lengths):
+    if q.dim() != 3 or arena.dim() != 5 or arena.shape[1] != 2:
+        raise TypeError("q must be [b, h, hd] and arena [cap, 2, block, kh, "
+                        "hd]")
+    b, h, hd = q.shape
+    if arena.shape[4] != hd or h % arena.shape[3]:
+        raise TypeError(f"shapes do not fit: q {tuple(q.shape)}, arena "
+                        f"{tuple(arena.shape)}")
+    if pages.dim() != 2 or pages.shape[0] != b or pages.dtype != torch.int32:
+        raise TypeError("pages must be a [b, nblk] int32 tensor")
+    if lengths.shape != (b,) or lengths.dtype != torch.int32:
+        raise TypeError("lengths must be a [b] int32 tensor")
+    if q.dtype != arena.dtype:
+        raise TypeError("q and the arena must share a dtype")
+    if not (q.device == arena.device == pages.device == lengths.device):
+        raise ValueError("q, arena, pages and lengths must share a device")
+
+
+def paged_attention_ref(q, arena, pages, lengths, *, scale: float,
+                        softcap: float = 0.0, window: int = 0):
+    """Plain version: gathers every page's K/V and takes one masked
+    softmax. Returns [b, h, hd] in q's dtype (fp32 math)."""
+    _check(q, arena, pages, lengths)
+    b, h, hd = q.shape
+    cap, _, block, kh, _ = arena.shape
+    nblk = pages.shape[1]
+    g = h // kh
+    present = (pages >= 0) & (pages < cap)
+    blk = arena[pages.clamp(0, cap - 1).long()]      # [b, nblk, 2, blk, kh, hd]
+    k = blk[:, :, 0].reshape(b, nblk * block, kh, hd).float()
+    v = blk[:, :, 1].reshape(b, nblk * block, kh, hd).float()
+    qg = q.reshape(b, kh, g, hd).float() * scale
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k)
+    if softcap and softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    pos = torch.arange(nblk * block, device=q.device)
+    ok = pos[None] < lengths[:, None]
+    ok &= present.repeat_interleave(block, dim=1)
+    if window and window > 0:
+        ok &= (lengths[:, None] - pos[None]) < window
+    s = torch.where(ok[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1) * ok.any(dim=1)[:, None, None, None]
+    o = torch.einsum("bkgt,btkd->bkgd", p, v)
+    return o.reshape(b, h, hd).to(q.dtype)
+
+
+def paged_attention(q, arena, pages, lengths, *, scale: float,
+                    softcap: float = 0.0, window: int = 0):
+    """Contract of :func:`paged_attention_ref` (kernel on CUDA tensors:
+    fp32 or bf16, head dim in ``HEAD_DIMS``). ``arena`` must be
+    contiguous (a layer of a layer-major arena is): it is read in place."""
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, arena, pages, lengths, scale=scale,
+                                   softcap=softcap, window=window)
+    _build.require_cuda(q, "paged_attention")
+    _check(q, arena, pages, lengths)
+    b, h, hd = q.shape
+    cap, _, block, kh, _ = arena.shape
+    if q.dtype not in DTYPE_CODES or hd not in HEAD_DIMS:
+        raise TypeError(f"paged_attention takes fp32/bf16 and head dims "
+                        f"{HEAD_DIMS}, not {q.dtype} / {hd}")
+    if not arena.is_contiguous():
+        raise ValueError("paged_attention reads the arena in place: pass a "
+                         "contiguous arena")
+    q, pages, lengths = q.contiguous(), pages.contiguous(), lengths.contiguous()
+    out = torch.empty_like(q)
+    err = _build.lib("paged_attention").paged_attention(
+        q.data_ptr(), arena.data_ptr(), pages.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, h, kh, hd, cap, block, pages.shape[1],
+        DTYPE_CODES[q.dtype], float(scale), float(softcap), int(window),
+        _build.stream_ptr(q.device))
+    _build.check(err, "paged_attention")
+    _build.launches["paged_attention"] += 1
+    return out

@@ -1,11 +1,13 @@
 """Plain PyTorch oracles composed from the kernels' plain versions (the
-counterpart of ``repro.kernels.ref``). The attention and Mamba oracles
-arrive with their kernels."""
+counterpart of ``repro.kernels.ref``). The Mamba oracle arrives with its
+kernel."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import relscan as RS
+from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: F401
+from repro_torch.kernels.paged_attention import paged_attention_ref  # noqa: F401
 
 
 def relscan_ref(cols, valid, vals, *, ops, limit, want_ids=True):

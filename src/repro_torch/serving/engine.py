@@ -1,0 +1,322 @@
+"""Serving engine: continuous batching on top of the paged KV pool (port
+of ``repro.serving.engine``, single device, dense decoders).
+
+Layering (top to bottom):
+
+- ``ServeEngine`` (host): request lifecycle + the SQLcached *management
+  plane*: every block allocation is an INSERT into the ``kv`` metadata
+  table of the port's ``SQLCached`` (``DELETE FROM kv WHERE seq_id=?``
+  finishes a request; ``... WHERE user_id=?`` ends a session; ``FLUSH``
+  is the memcached strawman the paper benchmarks against).
+- ``make_serve_step`` (device): one decode token for every slot. Each
+  attention layer writes the new token's K/V into the arena and reads the
+  pool through the page table with the paged-attention kernel
+  (``serving/paged.py``); prefill runs the flash-attention kernel
+  (``models/transformer.prefill``).
+
+Host syncs are the reference's: the first token of a prefill
+(``argmax``), the tokens of a decode round, and the count of a DELETE or
+FLUSH. Block allocation (``_insert_blocks``) and the step's dispatch do
+not wait on the device: parameters travel through pinned non-blocking
+uploads and row ids stay on the device.
+
+Not in this port yet: a device mesh, the int8 arena, SSM / MoE /
+encoder-decoder / frontend configs and ``lower_serve_step``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import kvpool
+from repro_torch.core import table as T
+from repro_torch.core.daemon import SQLCached, resolve_device
+from repro_torch.models import transformer as TF
+from repro_torch.models.config import ModelConfig, NotPorted
+from repro_torch.models.layers.attention import (_scale, out_project,
+                                                 qkv_project)
+from repro_torch.models.layers.mlp import mlp_forward
+from repro_torch.models.layers.norms import rms_norm
+from repro_torch.serving.paged import (PagedGeom, build_blk_start,
+                                       make_paged_island, plan_geometry)
+
+
+# ============================================================== serve step
+def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
+    """Build serve_step(params, state, inputs) -> (next_tokens, state,
+    logits): one new token per slot against the paged arena. The arena in
+    ``state`` is updated in place."""
+    TF.check_supported(cfg)
+    if mesh is not None:
+        raise NotPorted("a device mesh for the serve step")
+    islands: dict[int, object] = {}
+
+    def island_for(window: int):
+        if window not in islands:
+            islands[window] = make_paged_island(
+                geom, None, scale=_scale(cfg), softcap=cfg.attn_softcap,
+                window=window)
+        return islands[window]
+
+    def serve_step(params, state, inputs):
+        x = TF.embed_tokens(params, cfg, inputs["tokens"][:, None])
+        lengths = inputs["lengths"]
+        for i in range(cfg.n_layers):
+            p = TF.layer_params(params, cfg, i)
+            window, theta = TF.layer_attrs(cfg, i)
+            h = rms_norm(x, p["norm1"], cfg.norm_eps)
+            q, k, v = qkv_project(p["attn"], cfg, h, lengths[:, None], theta)
+            a, _ = island_for(window)(
+                q[:, 0], k[:, 0], v[:, 0], state["arena"][i], inputs["pt"],
+                inputs["blk_start"], lengths, inputs["write_rows"],
+                inputs["write_off"])
+            x = x + out_project(p["attn"], a[:, None])
+            h = rms_norm(x, p["norm2"], cfg.norm_eps)
+            x = x + mlp_forward(p["mlp"], cfg, h)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = TF.logits_fn(params, cfg, x[:, 0])
+        return torch.argmax(logits, dim=-1).to(torch.int32), state, logits
+
+    return serve_step
+
+
+# =========================================================== state builders
+def serve_state_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
+    """{name: (shape, dtype)} of the serve state at ``geom.cap`` rows (the
+    engine adds its slack and the arena's scratch row)."""
+    TF.check_supported(cfg)
+    if mesh is not None:
+        raise NotPorted("a device mesh for the serve state")
+    la = TF.n_attn_layers(cfg)
+    return {"arena": ((la, geom.cap, 2, geom.block, cfg.n_kv_heads,
+                       cfg.head_dim), cfg.dtype)}
+
+
+# ================================================================ host side
+@dataclasses.dataclass
+class Request:
+    seq_id: int
+    user_id: int
+    slot: int
+    tokens: list
+    generated: list
+
+
+class ServeEngine:
+    """Continuous-batching engine on one device.
+
+    The KV metadata lives in a real SQLCached table on the same device:
+    allocation is INSERT, the page table is maintained from the row ids
+    the INSERTs report (and rebuilt from the columns after a DELETE), and
+    every fine-grained expiry path is SQL (the paper's Table 2
+    operations). ``device=None`` means the CUDA card; pass ``"cpu"`` to
+    run every kernel's plain version on the CPU."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, *, max_slots: int = 8,
+                 max_seq: int = 256, block: int = 16, slack: float = 1.25,
+                 device=None):
+        TF.check_supported(cfg)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.geom = plan_geometry(
+            batch=max_slots, seq_len=max_seq, kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, q_heads=cfg.n_heads, block=block)
+        self.max_slots = max_slots
+        self.max_seq = max_seq
+        self.block = block
+        cap = int(self.geom.cap * slack)
+        self.daemon = SQLCached(device=self.device)
+        self.daemon.execute(
+            "CREATE TABLE kv (slot INT, seq_id INT, user_id INT, "
+            "pos_block INT, prefix_hash INT) "
+            f"CAPACITY {cap} MAX_SELECT 256")
+        self.cap = cap
+        self.state = {}
+        for name, (shape, dtype) in serve_state_specs(cfg, self.geom).items():
+            # cap rows + the scratch row of the dropped writes
+            self.state[name] = torch.zeros((shape[0], cap + 1) + shape[2:],
+                                           dtype=dtype, device=self.device)
+        self._step = make_serve_step(cfg, self.geom)
+        self.requests: dict[int, Request] = {}   # slot -> request
+        self.lengths = np.zeros(max_slots, np.int32)
+        # device-resident tick state: page table (cap = missing) and each
+        # slot's tail row, maintained from the row ids each INSERT reports
+        self._sch = self.daemon.schema("kv")
+        self.tail_row = torch.full((max_slots,), -1, dtype=torch.int32,
+                                   device=self.device)
+        self._pt = torch.full((max_slots, self.geom.nblk), cap,
+                              dtype=torch.int32, device=self.device)
+        self._blk_start = T.to_device(build_blk_start(self.geom), self.device)
+        self._next_seq = 1
+        self.decode_steps = 0
+        # the last prefill's and the last round's logits (device tensors;
+        # reading them is the caller's sync)
+        self.prefill_logits: torch.Tensor | None = None
+        self.logits: torch.Tensor | None = None
+
+    # ------------------------------------------------------------ plumbing
+    def _free_slot(self) -> int:
+        for s in range(self.max_slots):
+            if s not in self.requests:
+                return s
+        raise RuntimeError("no free slot")
+
+    def _insert_blocks(self, slot, seq_id, user_id, pos_blocks,
+                       hashes=None) -> torch.Tensor:
+        """Sync-free block allocation: one micro-batched INSERT, device row
+        ids out, incremental page-table maintenance."""
+        params_list = []
+        for i, pb in enumerate(pos_blocks):
+            h = int(hashes[i]) if hashes is not None else 0
+            params_list.append((slot, seq_id, user_id, int(pb), h))
+        res = self.daemon.executemany(
+            "INSERT INTO kv (slot, seq_id, user_id, pos_block, prefix_hash)"
+            " VALUES (?, ?, ?, ?, ?)", params_list)
+        rows = res.row_ids_device[: len(params_list)]
+        self._pt = kvpool.page_table_insert(
+            self._sch, self.daemon.table_state("kv"), self._pt, rows,
+            res.value_device, max_slots=self.max_slots,
+            max_blocks=self.geom.nblk)
+        return rows
+
+    def _blockify(self, k: torch.Tensor, v: torch.Tensor,
+                  nblk: int) -> torch.Tensor:
+        """k/v [L, 1, s, kh, hd] -> [L, nblk, 2, block, kh, hd]
+        (zero-padded to whole blocks)."""
+        L, _, s, kh, hd = k.shape
+        kv = torch.zeros((L, nblk * self.block, 2, kh, hd), dtype=k.dtype,
+                         device=k.device)
+        kv[:, :s, 0] = k[:, 0]
+        kv[:, :s, 1] = v[:, 0]
+        return kv.reshape(L, nblk, self.block, 2, kh, hd).transpose(2, 3)
+
+    # ------------------------------------------------------------- publics
+    def add_request(self, prompt_tokens, *, user_id: int = 0,
+                    extras: dict | None = None) -> int:
+        """Prefill a prompt into a fresh slot. Returns the slot id."""
+        if extras:
+            raise NotPorted("frontend / encoder inputs")
+        slot = self._free_slot()
+        seq_id = self._next_seq
+        self._next_seq += 1
+        toks = np.asarray(prompt_tokens, np.int32)
+        n = len(toks)
+        logits, cache = TF.prefill(self.params, self.cfg, {
+            "tokens": T.to_device(toks[None], self.device)})
+        nblk = -(-n // self.block)
+        pad = nblk * self.block
+        hashes = None
+        if n >= self.block:  # on the host: the prompt is host data
+            hashes = kvpool.rolling_prefix_hashes(
+                torch.from_numpy(np.pad(toks, (0, pad - n))),
+                self.block).numpy()
+        rows = self._insert_blocks(slot, seq_id, user_id, list(range(nblk)),
+                                   hashes)
+        self.tail_row[slot] = rows[-1]
+        self.state["arena"][:, rows.long()] = self._blockify(
+            cache["k"], cache["v"], nblk)
+        self.lengths[slot] = n
+        self.prefill_logits = logits[0]
+        first = int(torch.argmax(logits[0]))
+        self.requests[slot] = Request(seq_id, user_id, slot, list(toks),
+                                      [first])
+        return slot
+
+    def _build_inputs(self) -> dict:
+        b = self.max_slots
+        tokens = np.zeros(b, np.int32)
+        lengths = np.zeros(b, np.int32)
+        for s, r in self.requests.items():
+            tokens[s] = r.generated[-1]
+            lengths[s] = self.lengths[s]
+        dev = self.device
+        inputs = {"tokens": T.to_device(tokens, dev),
+                  "lengths": T.to_device(lengths, dev),
+                  "write_off": T.to_device(lengths % self.block, dev)}
+        # allocate the write row of slots at a block boundary: device row
+        # ids flow straight into the page table and the tail rows
+        for s, r in self.requests.items():
+            if self.lengths[s] % self.block == 0:
+                rows = self._insert_blocks(
+                    s, r.seq_id, r.user_id,
+                    [self.lengths[s] // self.block])
+                self.tail_row[s] = rows[-1]
+        pt = torch.where(self._pt >= self.cap, -1, self._pt)
+        inputs["pt"] = pt[:, None, :]
+        inputs["blk_start"] = self._blk_start
+        inputs["write_rows"] = self.tail_row[:, None]
+        return inputs
+
+    def decode_round(self) -> dict[int, int]:
+        """One token for every active request. Returns {slot: token}."""
+        if not self.requests:
+            return {}
+        inputs = self._build_inputs()
+        nxt, self.state, self.logits = self._step(self.params, self.state,
+                                                  inputs)
+        nxt = nxt.cpu().numpy()
+        out = {}
+        for s, r in self.requests.items():
+            # the token decoded THIS round extends the sequence; the model
+            # consumed r.generated[-1] at position lengths[s]
+            self.lengths[s] += 1
+            tok = int(nxt[s])
+            r.generated.append(tok)
+            out[s] = tok
+        self.decode_steps += 1
+        return out
+
+    # ------------------------------------------- fine-grained expiry (SQL)
+    def _apply_delete(self, res) -> None:
+        """Page-table removal after a DELETE: incremental from the row ids
+        when the statement reported all of them, else a rebuild from the
+        columns (the ``kv`` table has no payload, so its DELETEs report a
+        count only and take the rebuild, as in the reference)."""
+        ts = self.daemon.table_state("kv")
+        ids = res.row_ids_device
+        if ids is not None and res.count <= int(ids.shape[0]):
+            self._pt = kvpool.page_table_delete(
+                self._sch, ts, self._pt, ids, res.present_device,
+                max_slots=self.max_slots, max_blocks=self.geom.nblk)
+        else:
+            self._pt = kvpool.page_table(self._sch, ts,
+                                         max_slots=self.max_slots,
+                                         max_blocks=self.geom.nblk)
+
+    def finish_request(self, slot: int) -> int:
+        """Paper Table 2 'single page': expire one request's blocks."""
+        r = self.requests.pop(slot)
+        res = self.daemon.execute("DELETE FROM kv WHERE seq_id = ?",
+                                  (r.seq_id,))
+        self._apply_delete(res)
+        self.lengths[slot] = 0
+        self.tail_row[slot].fill_(-1)
+        return res.count
+
+    def evict_user(self, user_id: int) -> int:
+        """Paper Table 2 'single user': end every session of one user."""
+        res = self.daemon.execute("DELETE FROM kv WHERE user_id = ?",
+                                  (user_id,))
+        self._apply_delete(res)
+        for s in [s for s, r in self.requests.items()
+                  if r.user_id == user_id]:
+            self.requests.pop(s)
+            self.lengths[s] = 0
+            self.tail_row[s].fill_(-1)
+        return res.count
+
+    def flush(self) -> int:
+        """The memcached way: everything goes (and every active request
+        must re-prefill: the paper's load-spike scenario)."""
+        res = self.daemon.execute("FLUSH kv")
+        self.requests.clear()
+        self.lengths[:] = 0
+        self.tail_row.fill_(-1)
+        self._pt.fill_(self.cap)
+        return res.count
+
+    def live_blocks(self) -> int:
+        return self.daemon.live_rows("kv")

@@ -1,13 +1,17 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, with exact equality (ids, masks, counts and index lanes are
-integers and bits). Every test skips with a reason where no CUDA card is
+card: exact equality for the relscan and hash-index kernels (ids, masks,
+counts and index lanes are integers and bits), and for the attention
+kernels fp32 1e-5 (summation order) and bf16 2e-2 (one bf16 rounding of
+the output). Every test skips with a reason where no CUDA card is
 present; run them on the card with ``python -m pytest -m gpu
 tests/test_torch_gpu.py``."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import hashidx as HX
+from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import relscan as RS
 
 pytestmark = pytest.mark.gpu
@@ -91,6 +95,13 @@ def test_cuda_tensor_never_takes_plain_version(cuda):
                ops=("==",), limit=8)
     rid, key, _ = HX.build(c, v, n_buckets=HX.n_buckets_for(cap))
     HX.probe(rid, key, torch.zeros(3, dtype=torch.int32, device=cuda))
+    q = torch.randn((1, 4, 5, 64), device=cuda)
+    k = torch.randn((1, 2, 5, 64), device=cuda)
+    FA.flash_attention(q, k, k, scale=0.125)
+    PA.paged_attention(q[:, :, 0], torch.randn((3, 2, 4, 2, 64), device=cuda),
+                       torch.tensor([[2, 0]], dtype=torch.int32, device=cuda),
+                       torch.tensor([6], dtype=torch.int32, device=cuda),
+                       scale=0.125)
     assert all(n == 1 for n in _build.launches.values()), _build.launches
 
 
@@ -128,3 +139,114 @@ def test_daemon_dispatch_is_sync_free(cuda):
     for r in rs:
         for x in (r if isinstance(r, list) else [r]):
             assert x.count >= 0
+
+
+ATT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,kh,sq,sk,hd,causal,window,softcap,q_offset",
+    [
+        (2, 4, 4, 128, 128, 64, True, 0, 0.0, 0),
+        (1, 8, 2, 256, 256, 64, True, 0, 0.0, 0),     # GQA
+        (2, 4, 2, 128, 256, 32, False, 0, 0.0, 0),    # sq != sk
+        (1, 4, 4, 256, 256, 64, True, 96, 0.0, 0),    # window
+        (2, 2, 2, 64, 64, 128, True, 48, 30.0, 0),    # window + softcap
+        (1, 32, 4, 21, 21, 128, True, 0, 0.0, 0),     # serve prefill, ragged
+        (1, 4, 2, 13, 40, 256, True, 7, 20.0, 27),    # q_offset, hd 256
+        (3, 6, 3, 1, 1, 128, True, 0, 0.0, 0),        # one token
+        (2, 8, 4, 13, 13, 8, True, 0, 0.0, 0),        # head dim 8 (SMOKE)
+        (1, 4, 2, 37, 37, 16, True, 5, 10.0, 0),      # head dim 16
+    ])
+def test_flash_attention_matches_plain(cuda, b, h, kh, sq, sk, hd, causal,
+                                       window, softcap, q_offset, dtype):
+    g = torch.Generator(device=cuda).manual_seed(sq * 7 + hd)
+    q = torch.randn((b, h, sq, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, kh, sk, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, kh, sk, hd), generator=g, device=cuda).to(dtype)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+              softcap=softcap, q_offset=q_offset)
+    got = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) <= ATT_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,kh,hd,block,nblk,window,softcap",
+    [
+        (2, 4, 4, 64, 16, 4, 0, 0.0),
+        (3, 8, 2, 64, 16, 6, 0, 0.0),       # GQA g=4
+        (2, 4, 4, 128, 32, 3, 0, 50.0),     # softcap
+        (2, 4, 2, 64, 16, 8, 40, 0.0),      # window
+        (4, 32, 4, 128, 16, 16, 0, 0.0),    # the serve path's decode
+        (2, 8, 2, 256, 8, 5, 9, 30.0),      # hd 256, window + softcap
+        (3, 8, 4, 8, 8, 6, 0, 0.0),         # head dim 8 (SMOKE)
+    ])
+def test_paged_attention_matches_plain(cuda, b, h, kh, hd, block, nblk,
+                                       window, softcap, dtype):
+    rng = np.random.default_rng(b * 100 + nblk)
+    cap = b * nblk + 4
+    pages = np.full((b, nblk), -1, np.int32)
+    lengths = np.zeros((b,), np.int32)
+    perm = rng.permutation(cap)
+    pi = 0
+    for i in range(b):
+        n = int(rng.integers(1, nblk + 1))
+        pages[i, :n] = perm[pi:pi + n]
+        pi += n
+        lengths[i] = (n - 1) * block + int(rng.integers(1, block + 1))
+    lengths[-1] = 0 if b > 2 else lengths[-1]   # an empty slot gives 0
+    g = torch.Generator(device=cuda).manual_seed(hd + nblk)
+    q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
+    arena = torch.randn((cap, 2, block, kh, hd), generator=g,
+                        device=cuda).to(dtype)
+    pt = torch.from_numpy(pages).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
+    got = PA.paged_attention(q, arena, pt, ln, **kw)
+    want = PA.paged_attention_ref(q, arena, pt, ln, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) <= ATT_TOL[dtype]
+
+
+def test_serve_engine_on_card_matches_cpu(cuda):
+    """yi-6b SMOKE (fp32) through the paged engine on the card and on the
+    CPU with the same weights: the same tokens, logits within 1e-4."""
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving.engine import ServeEngine
+    cfg = configs.get_smoke("yi-6b")
+    params = TF.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    on_card = _to(params, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (9, 17, 8)]
+    engines = [ServeEngine(cfg, params, max_slots=4, max_seq=64, block=8,
+                           device="cpu"),
+               ServeEngine(cfg, on_card, max_slots=4, max_seq=64, block=8,
+                           device=cuda)]
+    _build.reset_launches()
+    for e in engines:
+        for i, p in enumerate(prompts):
+            e.add_request(p, user_id=i)
+    for _ in range(9):
+        outs = [e.decode_round() for e in engines]
+        assert outs[0] == outs[1]
+        assert float((engines[0].logits - engines[1].logits.cpu())
+                     .abs().max()) <= 1e-4
+    assert [e.finish_request(1) for e in engines] == [4, 4]  # 26 tokens
+    assert engines[1].live_blocks() == engines[0].live_blocks()
+    assert _build.launches["flash_attention"] == 3 * cfg.n_layers
+    assert _build.launches["paged_attention"] == 9 * cfg.n_layers
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
