@@ -7,7 +7,7 @@ Run from a checkout of the repository on a machine with a CUDA card and
 the CUDA toolkit. Phases (one JSON line each on stdout):
 
 0. device  -- the card's name and power limit (``nvidia-smi``).
-1. build   -- compile the six CUDA kernels from the four sources in
+1. build   -- compile the seven CUDA kernels from the five sources in
               ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
               parallel) and report registers and shared memory per kernel.
 2. kernels -- every relscan / hash-index kernel against its plain PyTorch
@@ -16,10 +16,18 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               its plain version's time and its bound.
    kernels_attention -- the flash- and paged-attention kernels against
               their plain versions (fp32 within 1e-5, bf16 within 2e-2)
-              at tests/test_kernels.py's shapes, head dims 32-256, and the
-              serve path's own shapes; then their times, bounds and, for
+              at tests/test_kernels.py's shapes, head dims 8-256, and both
+              serve paths' own shapes (yi-6b at head dim 128, zamba2's
+              shared block at 80); then their times, bounds and, for
               flash attention, the time of the one PyTorch call that
               computes the same function (scaled_dot_product_attention).
+   kernels_mamba -- the Mamba2 scan kernel against its plain version
+              (y within 1e-4 fp32 / 2e-2 bf16, h_last within 1e-3,
+              relative and absolute) at tests/test_kernels.py's shapes,
+              ragged lengths 23 and 600 and zamba2's prefill (b 1, s 300,
+              nh 80, dh 64, st 64), x in fp32 and bf16, the initial state
+              zero and not; then its time, bound and plain time (no
+              PyTorch call computes this function).
 3. table2  -- the paper's Table 2 deployment (100,000 records over 30,000
               pages and 1,000 users, CAPACITY 131072), with and without
               INDEX(page_id), INDEX(user_id), on the card daemon and on a
@@ -40,21 +48,33 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               every block count against a CPU daemon's replay of the
               ``kv`` table's statements; block allocation and the step's
               dispatch run with sync debugging set to "error".
+   serve_zamba2 -- the same engine with zamba2-2.7b at full width (54
+              Mamba2 layers, one shared attention+MLP block after every
+              6th; bf16, random weights): the launcher's 6 prompts plus
+              one of 300 tokens (so the scan carries its state across
+              tiles), 16 new tokens each, max_seq 512, then the same
+              extra requests, evict_user and flush, with the same checks
+              (the dense reference's SSM recurrence uses no scan kernel).
 7. profile -- after the main paths: kernels, copies, device time and idle
-              share per Table 2 DELETE / SELECT statement and per decode
-              round of the serve path (torch.profiler).
+              share per Table 2 DELETE / SELECT statement, per decode
+              round of both serve paths, and for zamba2's 300-token
+              prefill (torch.profiler).
 
-Phases 3-6 are five main paths (Table 2 plain, Table 2 indexed, Fig. 1,
-wire, serve). The launch counters are zeroed right before each path and
-read right after it, and each path must have launched every kernel it
-runs: scan and compact on the statement paths, build and probe on the
-indexed Table 2 table, probe in the wire script (its table has
-INDEX(k)); flash attention, paged attention and the scan on the serve
-path. Then comes a ``kernels`` line (launches summed over the paths),
-the ``nvidia-smi`` line, and the final status line.
+Phases 3-6 are six main paths (Table 2 plain, Table 2 indexed, Fig. 1,
+wire, serve, serve_zamba2). The launch counters are zeroed right before
+each path and read right after it, and each path must have launched
+every kernel it runs: scan and compact on the statement paths, build and
+probe on the indexed Table 2 table, probe in the wire script (its table
+has INDEX(k)); flash attention, paged attention and the relscan scan on
+both serve paths, and the Mamba2 scan on zamba2's, each an exact number
+of times (per attention layer or shared-block application and prefill or
+round; per Mamba2 layer and prefill). Then comes a ``kernels`` line
+(launches summed over the paths), the ``nvidia-smi`` line, and the final
+status line.
 Any failure raises: the script exits non-zero and prints no status line,
 and so it does without a CUDA card or outside a checkout of the repo.
 """
+import dataclasses
 import json
 import pathlib
 import re
@@ -82,6 +102,7 @@ from repro_torch.core import protocol as PR  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import hashidx as HX  # noqa: E402
+from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import relscan as RS  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
@@ -185,13 +206,14 @@ def phase_build() -> None:
             m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem|$)",
                           line)
             if m and fn:
-                name = re.search(r"(scan|compact|build|probe|flash|paged)"
-                                 r"_kernel", fn)
+                name = re.search(r"(mamba_scan|scan|compact|build|probe|"
+                                 r"flash|paged)_kernel", fn)
                 key = name.group(0) if name else fn
-                inst = re.search(r"_kernelI(f|13__nv_bfloat16)Li(\d+)E", fn)
-                if inst:  # attention templates: <dtype, head dim>
-                    key += ("<f32," if inst.group(1) == "f" else "<bf16,") \
-                        + inst.group(2) + ">"
+                inst = re.search(r"_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?",
+                                 fn)
+                if inst:  # templates: <dtype[, head dim]>
+                    key += "<" + ("f32" if inst.group(1) == "f" else "bf16") \
+                        + ("," + inst.group(2) if inst.group(2) else "") + ">"
                 report[f"{src}.{key}"] = {
                     "registers": int(m.group(1)),
                     "smem_bytes": int(m.group(2) or 0)}
@@ -424,8 +446,13 @@ FLASH_CASES = [
     (3, 6, 3, 1, 1, 128, True, 0, 0.0, 0),
     (2, 8, 4, 13, 13, 8, True, 0, 0.0, 0),      # yi-6b SMOKE's head dim
     (1, 4, 2, 37, 37, 16, True, 5, 10.0, 0),
-] + [(1, 32, 4, n, n, 128, True, 0, 0.0, 0)   # the serve path's prefills
-     for n in range(8, 25)]
+] + [(1, 32, 4, n, n, 128, True, 0, 0.0, 0)   # yi-6b's serve prefills
+     for n in range(8, 25)] + [
+    # zamba2's shared block: head dim 80, 32 kv heads (no GQA)
+    (1, 32, 32, 24, 24, 80, True, 0, 0.0, 0),
+    (1, 32, 32, 300, 300, 80, True, 0, 0.0, 0),
+    (2, 4, 4, 37, 37, 80, True, 9, 15.0, 0),
+]
 
 # (b, h, kh, hd, block, nblk, window, softcap, lengths or None)
 PAGED_CASES = [
@@ -440,8 +467,12 @@ PAGED_CASES = [
     # the serve path's decode: 4 slots, one without a request
     (4, 32, 4, 128, 16, 16, 0, 0.0, [24, 31, 0, 40]),
     (4, 32, 4, 128, 16, 16, 0, 0.0, [9, 17, 33, 256]),
+    # zamba2's shared block decode: block 16, max_seq 512
+    (4, 32, 32, 80, 16, 32, 0, 0.0, [24, 31, 0, 301]),
+    (4, 32, 32, 80, 16, 32, 0, 0.0, [9, 17, 33, 512]),
 ]
 SERVE_DECODE_LENGTHS = [24, 31, 17, 40]
+ZAMBA_DECODE_LENGTHS = [24, 31, 17, 310]
 
 
 def att_err(got, want, dtype, what) -> float:
@@ -588,9 +619,138 @@ def phase_kernels_attention(dev, card):
         "bound_by": b_by, "library_ms": None,
         "library": "none: no single PyTorch call gathers K/V through a page "
                    "table"}
+
+    # zamba2's shared block (hd 80, kh 32): prefills of 24 and 300 tokens
+    # and the decode of 4 slots
+    hd, h = 80, 32
+    scale = hd ** -0.5
+    for s in (24, 300):
+        q, k, v = flash_inputs(gen, dev, bf, 1, h, h, s, s, hd)
+        run = lambda: FA.flash_attention(q, k, v, scale=scale)  # noqa: E731
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731,E501
+            q, k, v, is_causal=True, scale=scale)
+        lib_diff = float((sdpa().float() - run().float()).abs().max())
+        if not lib_diff <= ATT_TOL[bf]:
+            raise AssertionError(f"scaled_dot_product_attention differs "
+                                 f"from the kernel by {lib_diff}")
+        b_ms, b_by = bound(*flash_work(1, h, h, s, s, hd, 2), BF16_OPS_S)
+        out[f"flash_attention_hd80_s{s}"] = {
+            "kernel": "flash_attention", "shape": f"b1 h32/kh32 sq=sk={s} "
+            "hd80 bf16 causal (zamba2's shared block)", "ms": time_ms(run),
+            "device_ms": device_ms(run, "flash_kernel"),
+            "plain_ms": time_ms(lambda: FA.flash_attention_ref(
+                q, k, v, scale=scale), iters=50),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
+            "library": "torch.nn.functional.scaled_dot_product_attention",
+            "library_max_abs_diff": lib_diff}
+    nblk = 32
+    q, arena, pages, lens = paged_inputs(rng, gen, dev, bf, 4, h, h, hd, 16,
+                                         nblk, ZAMBA_DECODE_LENGTHS)
+    run = lambda: PA.paged_attention(  # noqa: E731
+        q, arena, pages, lens, scale=scale)
+    b_ms, b_by = bound(*paged_work(h, h, hd, nblk, ZAMBA_DECODE_LENGTHS, 2),
+                       BF16_OPS_S)
+    out["paged_attention_hd80"] = {
+        "kernel": "paged_attention", "shape": "b4 h32/kh32 hd80 block16 "
+        f"nblk32 lengths {ZAMBA_DECODE_LENGTHS} bf16 (zamba2's shared "
+        "block)", "ms": time_ms(run), "device_ms": device_ms(run,
+                                                              "paged_kernel"),
+        "plain_ms": time_ms(lambda: PA.paged_attention_ref(
+            q, arena, pages, lens, scale=scale)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library": "none: no single PyTorch call gathers K/V through a page "
+                   "table"}
     for t in out.values():
         emit({"phase": "kernel_timing", "card": card, **t})
     return out, errs
+
+
+# ------------------------------------------------ phase 2c: Mamba2 scan
+
+# (b, s, nh, dh, st): tests/test_kernels.py's shapes, ragged last tiles,
+# zamba2's prefill of 300 tokens
+MAMBA_CASES = [(2, 64, 2, 16, 8), (1, 128, 4, 32, 16), (2, 96, 1, 8, 4),
+               (2, 23, 3, 16, 8), (1, 600, 4, 64, 64), (1, 300, 80, 64, 64)]
+MAMBA_SERVE = (1, 300, 80, 64, 64)
+# |kernel - plain| <= tol * (1 + |plain|): y in fp32 (summation order over
+# 64-step tiles), y in bf16 (one rounding of the output), h_last (fp32
+# whatever x is; the state sums run over the whole sequence)
+MAMBA_TOL = {"y_float32": 1e-4, "y_bfloat16": 2e-2, "h_last": 1e-3}
+
+
+def mamba_inputs(gen, dev, dtype, b, s, nh, dh, st, h0):
+    """tests/test_kernels.py's distributions; ``h0``: a zero state (what
+    the prefill passes) or a random one (a carried state)."""
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    sp = torch.nn.functional.softplus
+    x = n(b, s, nh, dh).to(dtype)
+    hz = (n(b, nh, dh, st) if h0 else
+          torch.zeros((b, nh, dh, st), device=dev))
+    return x, sp(n(b, s, nh)), -sp(n(b, s, nh)), n(b, s, st), n(b, s, st), hz
+
+
+def mamba_err(got, want, tol, what) -> float:
+    err = float(((got.float() - want.float()).abs()
+                 / (1 + want.float().abs())).max())
+    if not err <= tol:   # NaN fails too
+        raise AssertionError(f"{what}: kernel differs from its plain "
+                             f"version by {err} (tolerance {tol})")
+    return err
+
+
+def mamba_work(b, s, nh, dh, st, elem, chunk=MS.CHUNK):
+    """(bytes, FLOP) of one scan: x, dt, dA, B, C and h0 read once, y and
+    h_last written once; per tile of n steps the causal C B^T (shared by
+    the heads) and W x products (n (n + 1) / 2 pairs), and per step and
+    head the two [dh, st] state products (C h^T for y, x B^T for h)."""
+    nbytes = (2 * b * s * nh * dh * elem + 4 * (2 * b * s * nh
+              + 2 * b * s * st + 2 * b * nh * dh * st))
+    pairs = sum(n * (n + 1) // 2 for n in
+                [chunk] * (s // chunk) + ([s % chunk] if s % chunk else []))
+    flop = 2 * b * pairs * (st + nh * dh) + 2 * 2 * b * s * nh * dh * st
+    return nbytes, flop
+
+
+def phase_kernels_mamba(dev, card):
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rel, err = 0.0, 0.0    # the checked measure; the plain max |difference|
+    per_case = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for shape in MAMBA_CASES:
+            for h0 in (False, True):
+                args = mamba_inputs(gen, dev, dtype, *shape, h0)
+                y, h = MS.mamba2_scan(*args)
+                y_r, h_r = MS.mamba2_scan_ref(*args)
+                sync()
+                what = f"mamba2_scan {'x'.join(map(str, shape))} {dname} " \
+                       f"h0={'random' if h0 else 'zero'}"
+                if y.dtype != dtype or y.shape != y_r.shape:
+                    raise AssertionError(f"{what}: y is {y.dtype} "
+                                         f"{tuple(y.shape)}")
+                e_y = mamba_err(y, y_r, MAMBA_TOL[f"y_{dname}"], what + " y")
+                e_h = mamba_err(h, h_r, MAMBA_TOL["h_last"], what + " h_last")
+                a_y, a_h = (float((a.float() - b.float()).abs().max())
+                            for a, b in ((y, y_r), (h, h_r)))
+                rel, err = max(rel, e_y, e_h), max(err, a_y, a_h)
+                per_case.append([what, e_y, e_h, a_y, a_h])
+    emit({"phase": "kernels_mamba", "card": card, "cases": len(per_case),
+          "tolerance": MAMBA_TOL, "max_rel_err": rel, "max_abs_err": err,
+          "per_case [what, rel y, rel h_last, abs y, abs h_last]": per_case})
+
+    args = mamba_inputs(gen, dev, torch.float32, *MAMBA_SERVE, False)
+    run = lambda: MS.mamba2_scan(*args)  # noqa: E731
+    b_ms, b_by = bound(*mamba_work(*MAMBA_SERVE, 4))
+    t = {"kernel": "mamba2_scan", "shape": "b1 s300 nh80 dh64 st64 fp32 x, "
+         "zero h0 (zamba2's 300-token prefill)", "ms": time_ms(run),
+         "device_ms": device_ms(run, "mamba_scan_kernel"),
+         "plain_ms": time_ms(lambda: MS.mamba2_scan_ref(*args), iters=20,
+                             warm=3),
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+         "library": "none: no single PyTorch call computes the SSD scan"}
+    emit({"phase": "kernel_timing", "card": card, **t})
+    return {"mamba2_scan": t}, {"mamba2_scan": err}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -805,8 +965,9 @@ def phase_wire(card):
 
 # ---------------------------------------------------------------- phase 6
 
-SERVE_LOGIT_ATOL = 0.05   # see phase_serve
+SERVE_LOGIT_ATOL = 0.05   # yi-6b's; zamba2's is measured (teacher_forced)
 SERVE_BLOCK = 16
+ZAMBA_LONG_PROMPT = 300   # tokens: the scan carries its state over 5 tiles
 
 
 def serve_prompts(cfg, n=6, seed=SEED):
@@ -878,64 +1039,100 @@ def guard(obj, name, timer=None):
     setattr(obj, name, guarded)
 
 
-def teacher_forced(cfg, params, dev, records):
+def teacher_forced(cfg, params, dev, records, atol=SERVE_LOGIT_ATOL):
     """The kernel path's tokens through a dense, kernel-free reference on
     the card: every prompt and its generated tokens go one token a step
-    through ``decode_step`` (dense cache, plain attention) in one batch.
-    The reference's logits after token n-1 must match the prefill's, and
-    after each generated token the next round's, within
-    SERVE_LOGIT_ATOL; where the reference's top-2 margin exceeds that
-    tolerance the kernel path must have picked the reference's token."""
+    through ``decode_step`` (dense cache, plain attention, the SSM
+    recurrence) in one batch. The reference's logits after token n-1 must
+    match the prefill's, and after each generated token the next round's,
+    within ``atol``; where the reference's top-2 margin exceeds that
+    tolerance the kernel path must have picked the reference's token.
+
+    ``atol=None`` sets the tolerance from bf16's own error: the same
+    reference also runs in fp32 (the weights' values cast up), and the
+    kernel path may differ from the bf16 reference by at most twice the
+    bf16 reference's largest distance from the fp32 run on the checked
+    steps (the kernel path then computes no worse than a kernel-free bf16
+    evaluation of the same model, within a factor of two)."""
     seqs = [list(r["prompt"]) + r["generated"][:-1] for r in records]
     steps = max(len(x) for x in seqs)
-    cache = TF.init_cache(cfg, len(seqs), steps + 1, dev)
-    max_err, checked, margin_ok, flips = 0.0, 0, 0, 0
+    runs = [(cfg, params)]
+    if atol is None:
+        runs.append((dataclasses.replace(cfg, dtype=torch.float32),
+                     tree_map(lambda t: t.float(), params)))
+    caches = [TF.init_cache(c, len(seqs), steps + 1, dev) for c, _ in runs]
+    pairs = []   # (request, step, kernel path's logits, reference, fp32 run)
     for t in range(steps):
         toks = torch.tensor([x[t] if t < len(x) else 0 for x in seqs],
                             device=dev)
         lengths = torch.full((len(seqs),), t, device=dev)
-        ref, cache = TF.decode_step(params, cfg, toks, cache, lengths)
-        ref = ref[:, :cfg.vocab]
+        outs = [TF.decode_step(p, c, toks, cache, lengths)[0][:, :cfg.vocab]
+                for (c, p), cache in zip(runs, caches)]
         for i, r in enumerate(records):
             j = t - (len(r["prompt"]) - 1)
-            if not 0 <= j < len(r["logits"]):
-                continue
-            got = r["logits"][j][:cfg.vocab]
-            err = float((got - ref[i]).abs().max())
-            if not err <= SERVE_LOGIT_ATOL:
-                raise AssertionError(f"request {i}, step {j}: logits differ "
-                                     f"from the dense reference by {err}")
-            max_err = max(max_err, err)
-            checked += 1
-            top2 = torch.topk(ref[i], 2).values
-            if float(top2[0] - top2[1]) > SERVE_LOGIT_ATOL:
-                margin_ok += 1
-                if int(torch.argmax(ref[i])) != r["generated"][j]:
-                    raise AssertionError(f"request {i}, step {j}: token "
-                                         f"{r['generated'][j]} where the "
-                                         f"reference's clear winner is "
-                                         f"{int(torch.argmax(ref[i]))}")
-            elif int(torch.argmax(ref[i])) != r["generated"][j]:
-                flips += 1
-    return {"logit_max_abs_err": max_err, "steps_checked": checked,
-            "steps_with_clear_winner": margin_ok,
-            "near_tie_flips": flips, "atol": SERVE_LOGIT_ATOL,
-            "ref_logit_std": float(ref.std()),
-            "ref_logit_max_abs": float(ref.abs().max())}
+            if 0 <= j < len(r["logits"]):
+                pairs.append((i, j, r["logits"][j][:cfg.vocab],
+                              *(o[i] for o in outs)))
+    out = {}
+    if atol is None:
+        floor = max(float((ref - ref32).abs().max())
+                    for _, _, _, ref, ref32 in pairs)
+        atol = 2 * floor
+        out = {"bf16_reference_vs_fp32_max_abs": floor,
+               "kernel_path_vs_fp32_max_abs": max(
+                   float((got - ref32).abs().max())
+                   for _, _, got, _, ref32 in pairs)}
+    errs = [float((got - ref).abs().max()) for _, _, got, ref, *_ in pairs]
+    margin_ok, flips = 0, 0
+    for (i, j, got, ref, *_), err in zip(pairs, errs):
+        r = records[i]
+        if not err <= atol:
+            raise AssertionError(f"request {i}, step {j}: logits differ from "
+                                 f"the dense reference by {err} (atol "
+                                 f"{atol}; largest {max(errs)}, median "
+                                 f"{float(np.median(errs))} over "
+                                 f"{len(errs)} steps; {out})")
+        top2 = torch.topk(ref, 2).values
+        if float(top2[0] - top2[1]) > atol:
+            margin_ok += 1
+            if int(torch.argmax(ref)) != r["generated"][j]:
+                raise AssertionError(f"request {i}, step {j}: token "
+                                     f"{r['generated'][j]} where the "
+                                     f"reference's clear winner is "
+                                     f"{int(torch.argmax(ref))}")
+        elif int(torch.argmax(ref)) != r["generated"][j]:
+            flips += 1
+    refs = torch.stack([ref for _, _, _, ref, *_ in pairs])
+    return {"logit_max_abs_err": max(errs),
+            "logit_median_abs_err": float(np.median(errs)),
+            "steps_checked": len(pairs), "steps_with_clear_winner": margin_ok,
+            "near_tie_flips": flips, "atol": atol, **out,
+            "ref_logit_std": float(refs.std()),
+            "ref_logit_max_abs": float(refs.abs().max())}
 
 
-def phase_serve(card, dev, hold):
-    """yi-6b at full width through ServeEngine, as launch/serve.py drives
-    it, plus one evict_user and one flush. ``hold`` keeps the engine for
-    the profile phase."""
-    cfg = configs.get_config("yi-6b")
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
+                name="serve", atol=SERVE_LOGIT_ATOL):
+    """``arch`` at full width through ServeEngine, as launch/serve.py
+    drives it (plus, with ``long_prompt``, one prompt of that many tokens,
+    admitted first), then one evict_user and one flush. ``hold`` keeps
+    the engine for the profile phase and the launch counts the path must
+    show."""
+    cfg = configs.get_config(arch)
     torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)   # earlier paths' engines
     t0 = time.perf_counter()
     params = TF.init_model(torch.Generator(device=dev).manual_seed(SEED),
                            cfg, dev)
     sync()
     init_s = time.perf_counter() - t0
-    eng = ServeEngine(cfg, params, max_slots=4, max_seq=256,
+    eng = ServeEngine(cfg, params, max_slots=4, max_seq=max_seq,
                       block=SERVE_BLOCK, device=dev)
     log = KvLog(eng.daemon)
     host = {}
@@ -943,6 +1140,9 @@ def phase_serve(card, dev, hold):
     guard(eng, "_step", host)
 
     pending = serve_prompts(cfg)
+    if long_prompt:
+        pending.append(np.random.default_rng(SEED + 3).integers(
+            0, cfg.vocab, size=long_prompt).astype(np.int32))
     records, by_slot = [], {}
     prefill_ms, round_ms, finish_ms, freed = [], [], [], []
     done, tokens_out = 0, 0
@@ -995,16 +1195,20 @@ def phase_serve(card, dev, hold):
     replay = log.replay(eng.cap)
     if replay["cpu_live_rows"] != 0:
         raise AssertionError("the CPU replay kept live rows")
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    tf = teacher_forced(cfg, params, dev, records)
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - resident) / 1e9
+    tf = teacher_forced(cfg, params, dev, records, atol)
     n_rounds = len(round_ms)
-    hold.update(eng=eng, cfg=cfg, params=params, layers=cfg.n_layers,
-                prefills=len(records) + len(extra), rounds=n_rounds + 3)
-    emit({"phase": "serve", "card": card, "arch": cfg.name,
+    prefills, rounds = len(records) + len(extra), n_rounds + 3
+    attn = TF.n_attn_layers(cfg) + cfg.n_shared_applications()
+    hold.update(eng=eng, cfg=cfg, want={
+        "flash_attention": attn * prefills, "paged_attention": attn * rounds,
+        "mamba2_scan": len(cfg.ssm_layer_ids) * prefills})
+    lens = [len(r["prompt"]) for r in records]
+    emit({"phase": name, "card": card, "arch": cfg.name,
           "params_b": cfg.param_count() / 1e9,
           "dtype": str(cfg.dtype).split(".")[-1],
           "init_s": round(init_s, 3), "requests": len(records),
-          "prompt_lens": [len(r["prompt"]) for r in records],
+          "prompt_lens": lens,
           "prefill_ms": [round(x, 3) for x in prefill_ms],
           "prefill_ms_mean": float(np.mean(prefill_ms)),
           "decode_rounds": n_rounds,
@@ -1018,7 +1222,8 @@ def phase_serve(card, dev, hold):
           "finish_request_ms": [round(x, 3) for x in finish_ms],
           "freed_blocks": freed, "evict_user_blocks": evicted,
           "flush_blocks": flushed, "kv_replay": replay,
-          "peak_memory_gb": peak_gb, "teacher_forced": tf})
+          "peak_memory_gb": peak_gb, "resident_before_gb": resident / 1e9,
+          "teacher_forced": tf})
 
 
 # ------------------------------------------------------------ profile
@@ -1058,12 +1263,53 @@ def profile_statements(db, sql, params_list):
                                sorted(top.items(), key=lambda kv: -kv[1])[:6]}}
 
 
-def profile_rounds(eng, cfg, n_rounds=4):
-    """Decode rounds of the serve path under the profiler: per round the
-    host wall time, the card's busy time and idle share, and device time
-    by kernel family (GEMMs, the attention kernels, the kv table's SQL
-    kernels, the rest)."""
+def device_families(prof, wall_us, n):
+    """Device time of a profiled window by kernel family, per unit of
+    ``n`` (a round, a prefill): GEMMs, the Mamba2 scan, the attention
+    kernels, the kv table's SQL kernels, copies and the rest (PyTorch's
+    elementwise and reduction kernels); launches and the idle share."""
     from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    def t_of(e):
+        if hasattr(e, "self_device_time_total"):
+            return e.self_device_time_total
+        return e.self_cuda_time_total
+
+    fam = {"gemm": 0.0, "mamba2_scan": 0.0, "flash_attention": 0.0,
+           "paged_attention": 0.0, "sql_kernels": 0.0, "copies": 0.0,
+           "other": 0.0}
+    top = {}
+    for e in dev:
+        name, t = e.name, t_of(e)
+        if "emcpy" in name or "emset" in name:
+            fam["copies"] += t
+        elif "mamba_scan_kernel" in name:
+            fam["mamba2_scan"] += t
+        elif "paged_kernel" in name:
+            fam["paged_attention"] += t
+        elif "flash_kernel" in name:
+            fam["flash_attention"] += t
+        elif "scan_kernel" in name or "compact_kernel" in name:
+            fam["sql_kernels"] += t
+        elif any(w in name.lower() for w in ("gemm", "gemv", "nvjet",
+                                              "cutlass", "sm90_xmma")):
+            fam["gemm"] += t
+        else:
+            fam["other"] += t
+        top[name[:60]] = top.get(name[:60], 0.0) + t
+    busy = sum(fam.values())
+    return {"wall_us": wall_us / n, "device_us": busy / n,
+            "idle_share": 1 - busy / wall_us, "kernels": len(dev) / n,
+            "device_us_by_family": {k: v / n for k, v in fam.items()},
+            "top_kernels_us": {k: v / n for k, v in
+                               sorted(top.items(), key=lambda kv: -kv[1])[:8]}}
+
+
+def profile_rounds(eng, cfg, n_rounds=4):
+    """Decode rounds of a serve path under the profiler: per round the
+    host wall time, the card's busy time and idle share, launches, and
+    device time by kernel family."""
     from torch.profiler import ProfilerActivity, profile
     for i, prompt in enumerate(serve_prompts(cfg, 4, seed=SEED + 2)):
         eng.add_request(prompt, user_id=200 + i)
@@ -1076,46 +1322,31 @@ def profile_rounds(eng, cfg, n_rounds=4):
             eng.decode_round()
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-
-    def t_of(e):
-        if hasattr(e, "self_device_time_total"):
-            return e.self_device_time_total
-        return e.self_cuda_time_total
-
-    fam = {"gemm": 0.0, "flash_attention": 0.0, "paged_attention": 0.0,
-           "sql_kernels": 0.0, "copies": 0.0, "other": 0.0}
-    top = {}
-    for e in dev:
-        n, t = e.name, t_of(e)
-        if "emcpy" in n or "emset" in n:
-            fam["copies"] += t
-        elif "paged_kernel" in n:
-            fam["paged_attention"] += t
-        elif "flash_kernel" in n:
-            fam["flash_attention"] += t
-        elif "scan_kernel" in n or "compact_kernel" in n:
-            fam["sql_kernels"] += t
-        elif any(w in n.lower() for w in ("gemm", "gemv", "nvjet",
-                                           "cutlass", "sm90_xmma")):
-            fam["gemm"] += t
-        else:
-            fam["other"] += t
-        top[n[:60]] = top.get(n[:60], 0.0) + t
-    busy = sum(fam.values())
     eng.flush()
-    return {"rounds": n_rounds, "wall_us_per_round": wall_us / n_rounds,
-            "device_us_per_round": busy / n_rounds,
-            "idle_share": 1 - busy / wall_us,
-            "kernels_per_round": len(dev) / n_rounds,
-            "device_us_per_round_by_family": {
-                k: v / n_rounds for k, v in fam.items()},
-            "top_kernels_us_per_round": {
-                k: v / n_rounds for k, v in
-                sorted(top.items(), key=lambda kv: -kv[1])[:8]}}
+    return {"rounds": n_rounds, **device_families(prof, wall_us, n_rounds)}
 
 
-def phase_profile(card, serve):
+def profile_prefill(eng, cfg, n_tokens):
+    """One prefill of ``n_tokens`` under the profiler (after one unprofiled
+    prefill of the same length): wall, device time by family, launches
+    and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg.vocab, n_tokens).astype(np.int32)
+               for _ in range(2)]
+    eng.add_request(prompts[0], user_id=300)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.add_request(prompts[1], user_id=301)
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    eng.flush()
+    return {"tokens": n_tokens, **device_families(prof, wall_us, 1)}
+
+
+def phase_profile(card, serve, zamba):
     pages, users, payload = table2_data()
     out = {}
     for variant, extra in (("plain", ""),
@@ -1133,6 +1364,9 @@ def phase_profile(card, serve):
             db, "SELECT * FROM cache WHERE page_id = ? LIMIT 64",
             [(int(p),) for p in pages[500:520]])
     out["serve_decode_round"] = profile_rounds(serve["eng"], serve["cfg"])
+    out["zamba2_decode_round"] = profile_rounds(zamba["eng"], zamba["cfg"])
+    out["zamba2_prefill_300"] = profile_prefill(zamba["eng"], zamba["cfg"],
+                                                ZAMBA_LONG_PROMPT)
     emit({"phase": "profile", "card": card, **out})
 
 
@@ -1151,6 +1385,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:28"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:27"),
+    "mamba2_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                    "src/repro/kernels/mamba_scan.py:23"),
 }
 
 
@@ -1160,14 +1396,19 @@ def main():
     card = phase_device()
     phase_build()
     timing, errs = phase_kernels(dev, card)
-    att_timing, att_errs = phase_kernels_attention(dev, card)
-    timing.update(att_timing)
-    errs.update(att_errs)
+    for phase in (phase_kernels_attention, phase_kernels_mamba):
+        t, e = phase(dev, card)
+        timing.update(t)
+        errs.update(e)
 
     # each main path runs with the launch counts zeroed right before it and
     # read right after it; every kernel that path must run has to show up
     scan_compact = ("relscan_scan", "relscan_compact")
-    serve: dict = {}   # the serve path's engine, for the profile phase
+    serve: dict = {}   # each serve path's engine, for the profile phase
+    zamba: dict = {}
+    # the kv table has no payload, so the serve paths' DELETEs take the
+    # mask-only route (the scan, no compaction), as in the reference
+    serve_need = ("flash_attention", "paged_attention", "relscan_scan")
     paths = (
         ("table2_plain", lambda: phase_table2(card, "plain", ""),
          scan_compact),
@@ -1176,10 +1417,11 @@ def main():
          scan_compact + ("hash_build", "hash_probe")),
         ("fig1", lambda: phase_fig1(card), scan_compact),
         ("wire", lambda: phase_wire(card), scan_compact + ("hash_probe",)),
-        # the kv table has no payload, so its DELETEs take the mask-only
-        # route (the scan, no compaction), as in the reference
-        ("serve", lambda: phase_serve(card, dev, serve),
-         ("flash_attention", "paged_attention", "relscan_scan")),
+        ("serve", lambda: phase_serve(card, dev, serve), serve_need),
+        ("serve_zamba2", lambda: phase_serve(
+            card, dev, zamba, "zamba2-2.7b", max_seq=512,
+            long_prompt=ZAMBA_LONG_PROMPT, name="serve_zamba2", atol=None),
+         serve_need + ("mamba2_scan",)),
     )
     launches = {k: 0 for k in _build.KERNELS}
     for path, drive, need in paths:
@@ -1191,24 +1433,21 @@ def main():
         if missing:
             raise AssertionError(f"{path}: kernels never launched on this "
                                  f"path: {missing} ({got})")
-        if path == "serve":  # one launch per layer per prefill / round
-            want = {"flash_attention": serve["layers"] * serve["prefills"],
-                    "paged_attention": serve["layers"] * serve["rounds"]}
-            if any(got[k] != n for k, n in want.items()):
-                raise AssertionError(f"serve: launches {got}, expected "
-                                     f"{want}")
+        held = {"serve": serve, "serve_zamba2": zamba}.get(path)
+        if held is not None:  # one launch per layer per prefill / round
+            if any(got[k] != n for k, n in held["want"].items()):
+                raise AssertionError(f"{path}: launches {got}, expected "
+                                     f"{held['want']}")
         for k, n in got.items():
             launches[k] += n
     emit({"phase": "main_path_launches", **launches})
-    phase_profile(card, serve)
+    phase_profile(card, serve, zamba)
 
     keymap = {"relscan_scan": "scan", "relscan_compact": "compact",
-              "hash_build": "build", "hash_probe": "probe",
-              "flash_attention": "flash_attention",
-              "paged_attention": "paged_attention"}
+              "hash_build": "build", "hash_probe": "probe"}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        t = timing[keymap[name]]
+        t = timing[keymap.get(name, name)]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": t["ms"],

@@ -26,7 +26,7 @@ ARCHS: dict[str, str] = {
     "gemma2-2b": "gemma2_2b",
 }
 
-PORTED = frozenset({"yi-6b"})
+PORTED = frozenset({"yi-6b", "zamba2-2.7b"})
 
 
 def _module(arch: str):

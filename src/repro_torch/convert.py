@@ -55,20 +55,28 @@ def copy_interner(src, dst) -> None:
 def _tensor(arr: np.ndarray) -> torch.Tensor:
     """numpy -> CPU tensor; bfloat16 arrays (the ``ml_dtypes`` type numpy
     gets from JAX) travel as their 16-bit patterns."""
-    arr = np.ascontiguousarray(arr)
+    arr = np.array(arr, copy=True, order="C")  # JAX's views are read-only
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(arr.copy())
+    return torch.from_numpy(arr)
 
 
 def params_from_numpy(cfg, tree: Any, device) -> Any:
     """The reference's parameter tree (nested dict of numpy arrays) ->
-    the port's parameters on ``device`` in ``cfg.dtype``."""
+    the port's parameters on ``device``: each leaf in the reference's own
+    dtype, which is ``cfg.dtype`` except for the Mamba2 leaves the
+    reference keeps in fp32 (``ssm.FP32_LEAVES``: ``A_log``, ``D``,
+    ``dt_bias``)."""
+    from repro_torch.models.layers.ssm import FP32_LEAVES
     from repro_torch.models.transformer import check_supported
     check_supported(cfg)
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(cfg, v, device) for k, v in tree.items()}
-    return _tensor(np.asarray(tree)).to(device=device, dtype=cfg.dtype)
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        dtype = torch.float32 if name in FP32_LEAVES else cfg.dtype
+        return _tensor(np.asarray(node)).to(device=device, dtype=dtype)
+    return walk(tree, "")
 
 
 def params_to_numpy(params: Any) -> Any:

@@ -26,8 +26,9 @@
 //   * unlike the TPU wrapper (which asserts sq % block_q == 0) any sq and
 //     sk are taken: the ragged tail of the last Q and K/V tiles is masked
 //     in the kernel (rows past sq are neither read nor written);
-//   * head dims 8, 16, 32, 64, 128 and 256 are compiled (template on hd;
-//     below 32 the lanes past hd accumulate nothing).
+//   * head dims 8, 16, 32, 64, 80, 128 and 256 are compiled (template on
+//     hd; where hd is not a multiple of 32, the lanes past hd in the last
+//     group of 32 accumulate nothing: all but 8 below 32, 16 at 80).
 #include "attention_common.cuh"
 
 namespace {
@@ -171,6 +172,7 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int b,
     case 16: return launch<T, 16>(q, k, v, o, b, h, kh, sq, sk, scale, causal, window, softcap, q_offset, s);
     case 32: return launch<T, 32>(q, k, v, o, b, h, kh, sq, sk, scale, causal, window, softcap, q_offset, s);
     case 64: return launch<T, 64>(q, k, v, o, b, h, kh, sq, sk, scale, causal, window, softcap, q_offset, s);
+    case 80: return launch<T, 80>(q, k, v, o, b, h, kh, sq, sk, scale, causal, window, softcap, q_offset, s);
     case 128: return launch<T, 128>(q, k, v, o, b, h, kh, sq, sk, scale, causal, window, softcap, q_offset, s);
     case 256: return launch<T, 256>(q, k, v, o, b, h, kh, sq, sk, scale, causal, window, softcap, q_offset, s);
     default: return (int)cudaErrorInvalidValue;
@@ -180,7 +182,7 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // q [b, h, sq, hd], k/v [b, kh, sk, hd], o [b, h, sq, hd], all contiguous
-// and of one dtype (0 = fp32, 1 = bf16); hd in {8, 16, 32, 64, 128, 256}.
+// and of one dtype (0 = fp32, 1 = bf16); hd in {8, 16, 32, 64, 80, 128, 256}.
 REPRO_EXPORT int flash_attention(const void* q, const void* k, const void* v,
                                  void* o, int b, int h, int kh, int sq, int sk,
                                  int hd, int dtype, float scale, int causal,

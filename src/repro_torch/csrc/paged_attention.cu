@@ -162,6 +162,7 @@ int dispatch_hd(const void* q, const void* arena, const void* pages,
     case 16: return launch<T, 16>(q, arena, pages, lengths, out, b, h, kh, cap, block, nblk, scale, softcap, window, s);
     case 32: return launch<T, 32>(q, arena, pages, lengths, out, b, h, kh, cap, block, nblk, scale, softcap, window, s);
     case 64: return launch<T, 64>(q, arena, pages, lengths, out, b, h, kh, cap, block, nblk, scale, softcap, window, s);
+    case 80: return launch<T, 80>(q, arena, pages, lengths, out, b, h, kh, cap, block, nblk, scale, softcap, window, s);
     case 128: return launch<T, 128>(q, arena, pages, lengths, out, b, h, kh, cap, block, nblk, scale, softcap, window, s);
     case 256: return launch<T, 256>(q, arena, pages, lengths, out, b, h, kh, cap, block, nblk, scale, softcap, window, s);
     default: return (int)cudaErrorInvalidValue;

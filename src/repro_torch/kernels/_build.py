@@ -28,13 +28,14 @@ import subprocess
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("relscan", "hashidx", "flash_attention", "paged_attention")
+SOURCES = ("relscan", "hashidx", "flash_attention", "paged_attention",
+           "mamba_scan")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("relscan_scan", "relscan_compact", "hash_build", "hash_probe",
-           "flash_attention", "paged_attention")
+           "flash_attention", "paged_attention", "mamba2_scan")
 launches = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -118,6 +119,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                             P],
         "paged_attention": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I,
                             P],
+        "mamba2_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     }
     for fn, args in sigs.items():
         if hasattr(lib, fn):

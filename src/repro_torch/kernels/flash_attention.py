@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,12 +1,12 @@
 """Plain PyTorch oracles composed from the kernels' plain versions (the
-counterpart of ``repro.kernels.ref``). The Mamba oracle arrives with its
-kernel."""
+counterpart of ``repro.kernels.ref``)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import relscan as RS
 from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: F401
+from repro_torch.kernels.mamba_scan import mamba2_scan_ref  # noqa: F401
 from repro_torch.kernels.paged_attention import paged_attention_ref  # noqa: F401
 
 

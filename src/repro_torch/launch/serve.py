@@ -5,6 +5,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
 
 Weights are random, drawn from a ``torch.Generator`` seeded with 0 on the
 target device (the reference draws them from ``PRNGKey(0)``); the

@@ -38,3 +38,18 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...], dtype,
                            device=device).mul_(std)
         (out[i] if layers else out).copy_(draw)
     return out
+
+
+def zeros_init(shape: tuple[int, ...], dtype, device, *,
+               layers: int = 0) -> torch.Tensor:
+    """Zeros in ``dtype`` (the reference's ``zeros_init``; ``layers > 0``
+    stacks them on a leading axis)."""
+    return torch.zeros(((layers,) if layers else ()) + tuple(shape),
+                       dtype=dtype, device=device)
+
+
+def ones_init(shape: tuple[int, ...], dtype, device, *,
+              layers: int = 0) -> torch.Tensor:
+    """Ones in ``dtype`` (the reference's ``ones_init``)."""
+    return torch.ones(((layers,) if layers else ()) + tuple(shape),
+                      dtype=dtype, device=device)

@@ -1,5 +1,5 @@
-"""Dense decoder stack (port of ``repro.models.transformer``, the dense
-path).
+"""Decoder stack (port of ``repro.models.transformer``: dense decoders and
+the zamba2 hybrid).
 
 The reference runs a ``lax.scan`` over layer groups with stacked
 parameters; here a Python loop walks the same stacked tensors layer by
@@ -8,9 +8,11 @@ reference's layout and names. Layers past the last full scan unit live
 in ``tail_<t>`` as in the reference.
 
 Ported: dense decoders with global and sliding-window attention layers,
-attention and logit softcaps, scaled or tied embeddings. An MoE, SSM,
-encoder-decoder, frontend, shared-block, sandwich-norm or q/k-norm config
-raises :class:`~repro_torch.models.config.NotPorted`.
+attention and logit softcaps, scaled or tied embeddings; Mamba2 layers
+and zamba2's single shared attention+MLP block, which closes every scan
+unit (its KV is collected per application as ``shared_k/v``). A Mamba1,
+MoE, encoder-decoder, frontend, sandwich-norm or q/k-norm config raises
+:class:`~repro_torch.models.config.NotPorted`.
 
 Entry points
     init_model(gen, cfg, device)     -> parameter tree
@@ -24,8 +26,9 @@ from typing import Any
 
 import torch
 
-from repro_torch.models.config import (GLOBAL, LOCAL, ModelConfig,
-                                       NotPorted)
+from repro_torch.models.config import (GLOBAL, LOCAL, MAMBA1, MAMBA2,
+                                       ModelConfig, NotPorted)
+from repro_torch.models.layers import ssm
 from repro_torch.models.layers.attention import (NEG_INF, _softcap,
                                                  attention_decode,
                                                  attention_prefill,
@@ -36,15 +39,16 @@ from repro_torch.models.params import dense_init
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder this port runs."""
+    """Raise unless ``cfg`` is a config this port runs."""
     unsupported = {
+        "Mamba1 layers": MAMBA1 in cfg.layer_pattern,
         "MoE layers": cfg.is_moe,
-        "SSM layers": bool(cfg.ssm_layer_ids),
         "encoder-decoder": cfg.is_encdec,
         f"the {cfg.frontend!r} frontend": cfg.frontend != "none",
-        "the shared attention block": cfg.shared_attn_every > 0,
         "sandwich norms": cfg.sandwich_norm,
         "q/k norms": cfg.qk_norm,
+        "attention and SSM layers in one stack": len(
+            {k == MAMBA2 for k in cfg.layer_pattern}) > 1,
     }
     for what, on in unsupported.items():
         if on:
@@ -76,7 +80,7 @@ def attn_positions(cfg: ModelConfig) -> tuple[int, ...]:
 
 
 def n_attn_layers(cfg: ModelConfig) -> int:
-    """Total attention layers (scan + tail)."""
+    """Total attention layers (scan + tail), the shared block excluded."""
     return len(cfg.attn_layer_ids)
 
 
@@ -85,7 +89,22 @@ def layer_attrs(cfg: ModelConfig, i: int) -> tuple[int, float]:
     kind = cfg.layer_pattern[i]
     if kind == LOCAL:
         return cfg.window, cfg.rope_theta
-    return 0, cfg.rope_theta_global or cfg.rope_theta
+    return 0, global_theta(cfg)
+
+
+def global_theta(cfg: ModelConfig) -> float:
+    """Rope theta of global attention (the shared block's too)."""
+    return cfg.rope_theta_global or cfg.rope_theta
+
+
+def shared_app(cfg: ModelConfig, i: int) -> int:
+    """Index of the shared-block application that follows layer ``i``, or
+    -1: the reference's shared block closes every scan unit (never a tail
+    layer)."""
+    gs, ng, _ = scan_layout(cfg)
+    if cfg.shared_attn_every > 0 and i < ng * gs and (i + 1) % gs == 0:
+        return i // gs
+    return -1
 
 
 def layer_params(params: dict, cfg: ModelConfig, i: int) -> dict:
@@ -103,8 +122,13 @@ def _index_tree(tree: dict, i: int) -> dict:
 
 
 # ============================================================== init model
-def _init_block(gen, cfg: ModelConfig, device, layers: int) -> dict:
+def init_block(gen, cfg: ModelConfig, kind: str, device, *,
+               layers: int = 0) -> dict:
+    """One layer of ``kind`` (``layers > 0`` stacks that many)."""
     d, dt = cfg.d_model, cfg.dtype
+    if kind == MAMBA2:
+        return {"norm1": init_rmsnorm(d, dt, device, layers=layers),
+                "mamba": ssm.init_mamba2(gen, cfg, device, layers=layers)}
     return {
         "norm1": init_rmsnorm(d, dt, device, layers=layers),
         "attn": init_attention(gen, cfg, device, layers=layers),
@@ -115,7 +139,8 @@ def _init_block(gen, cfg: ModelConfig, device, layers: int) -> dict:
 
 def init_model(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     """Parameter tree with the reference's names and layout, drawn from
-    ``gen`` on ``device`` in ``cfg.dtype``."""
+    ``gen`` on ``device`` in ``cfg.dtype`` (the Mamba2 leaves in
+    ``ssm.FP32_LEAVES`` in fp32, as the reference's)."""
     check_supported(cfg)
     d, dt = cfg.d_model, cfg.dtype
     tree: dict[str, Any] = {
@@ -125,9 +150,13 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     gs, ng, tail = scan_layout(cfg)
     _unit_pattern(cfg)
     if ng > 0:
-        tree["layers"] = _init_block(gen, cfg, device, ng * gs)
+        tree["layers"] = init_block(gen, cfg, cfg.layer_pattern[0], device,
+                                    layers=ng * gs)
     for t in range(tail):
-        tree[f"tail_{t}"] = _init_block(gen, cfg, device, 0)
+        tree[f"tail_{t}"] = init_block(gen, cfg, cfg.layer_pattern[ng * gs + t],
+                                       device)
+    if cfg.shared_attn_every > 0:  # zamba2: one shared attention+MLP block
+        tree["shared"] = init_block(gen, cfg, GLOBAL, device)
     if not cfg.tie_embeddings:
         tree["lm_head"] = dense_init(gen, (d, cfg.padded_vocab), dt, device)
     return tree
@@ -173,31 +202,54 @@ def attn_block_fwd(p: dict, cfg: ModelConfig, x, positions, *, window: int,
     return x + mlp_forward(p["mlp"], cfg, h), kv
 
 
+def mamba_block_fwd(p: dict, cfg: ModelConfig, x, state=None):
+    """One Mamba2 block over the prompt. Returns (x, new_state)."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    y, st = ssm.mamba2_forward(p["mamba"], cfg, h, state)
+    return x + y, st
+
+
 def run_stack(params: dict, cfg: ModelConfig, x, positions, *,
               collect: bool = False):
     """Decoder stack. Returns (hidden, collected); ``collect=True``
-    gathers every attention layer's KV as ``{"k", "v": [La, b, s, kh,
-    hd]}`` (the prefill cache)."""
+    gathers the prefill cache: every attention layer's KV as ``{"k",
+    "v": [La, b, s, kh, hd]}``, every Mamba2 layer's final state as
+    ``{"ssm": {name: [n_ssm, b, ...]}}`` and each application of the
+    shared block's KV as ``{"shared_k", "shared_v": [n_groups, b, s, kh,
+    hd]}``."""
     check_supported(cfg)
-    ks, vs = [], []
+    kv: dict[str, list] = {"k": [], "v": [], "shared_k": [], "shared_v": []}
+    states = []
     for i in range(cfg.n_layers):
-        window, theta = layer_attrs(cfg, i)
-        x, (k, v) = attn_block_fwd(layer_params(params, cfg, i), cfg, x,
-                                   positions, window=window, theta=theta)
-        if collect:
-            ks.append(k)
-            vs.append(v)
-    collected = {}
-    if collect and ks:
-        collected = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        p = layer_params(params, cfg, i)
+        if cfg.layer_pattern[i] == MAMBA2:
+            x, st = mamba_block_fwd(p, cfg, x)
+            states.append(st)
+        else:
+            window, theta = layer_attrs(cfg, i)
+            x, (k, v) = attn_block_fwd(p, cfg, x, positions, window=window,
+                                       theta=theta)
+            kv["k"].append(k)
+            kv["v"].append(v)
+        if shared_app(cfg, i) >= 0:
+            x, (k, v) = attn_block_fwd(params["shared"], cfg, x, positions,
+                                       window=0, theta=global_theta(cfg))
+            kv["shared_k"].append(k)
+            kv["shared_v"].append(v)
+    if not collect:
+        return x, {}
+    collected = {n: torch.stack(t) for n, t in kv.items() if t}
+    if states:
+        collected["ssm"] = {n: torch.stack([st[n] for st in states])
+                            for n in states[0]}
     return x, collected
 
 
 # ============================================================== public API
 def prefill(params: dict, cfg: ModelConfig, batch: dict):
     """Run the full prompt; returns (last-token logits [b, V], cache) with
-    cache ``{"k", "v": [La, b, s, kh, hd]}``. The serving engine re-blocks
-    k/v into the paged arena."""
+    the cache of :func:`run_stack`. The serving engine re-blocks the KV
+    into the paged arenas and copies the SSM states into its slots."""
     x = assemble_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -207,12 +259,26 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    """Dense decode cache (the paged layout lives in ``serving/``)."""
+    """Dense decode cache (the paged layout lives in ``serving/``): the
+    attention layers' and the shared block's KV, and the Mamba2 states."""
     check_supported(cfg)
-    la, kh, hd = n_attn_layers(cfg), cfg.n_kv_heads, cfg.head_dim
-    shape = (la, batch, max_len, kh, hd)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    kh, hd = cfg.n_kv_heads, cfg.head_dim
+    cache: dict[str, Any] = {}
+
+    def kv(n):
+        return torch.zeros((n, batch, max_len, kh, hd), dtype=cfg.dtype,
+                           device=device)
+    la = n_attn_layers(cfg)
+    if la:
+        cache["k"], cache["v"] = kv(la), kv(la)
+    if cfg.shared_attn_every > 0:
+        na = cfg.n_shared_applications()
+        cache["shared_k"], cache["shared_v"] = kv(na), kv(na)
+    if cfg.ssm_layer_ids:
+        one = ssm.mamba2_init_state(cfg, batch, device)
+        n = len(cfg.ssm_layer_ids)
+        cache["ssm"] = {k: a.new_zeros((n,) + a.shape) for k, a in one.items()}
+    return cache
 
 
 def attn_block_decode(p: dict, cfg: ModelConfig, x1, cache_k, cache_v,
@@ -227,19 +293,43 @@ def attn_block_decode(p: dict, cfg: ModelConfig, x1, cache_k, cache_v,
     return x1 + mlp_forward(p["mlp"], cfg, h)
 
 
+def mamba_block_decode(p: dict, cfg: ModelConfig, x1, state: dict):
+    """One-token decode through a Mamba2 block. ``state`` (h, conv_x,
+    conv_bc of one layer, e.g. views into a stacked cache) is updated in
+    place. Returns (x1, state)."""
+    h = rms_norm(x1, p["norm1"], cfg.norm_eps)
+    y, new = ssm.mamba2_decode(p["mamba"], cfg, h, state)
+    for name, t in new.items():
+        state[name].copy_(t)
+    return x1 + y, state
+
+
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: dict, lengths: torch.Tensor):
-    """One decode token for the whole batch (dense-cache reference path).
+    """One decode token for the whole batch (dense-cache reference path;
+    it reaches no kernel).
 
     tokens: [b] int; lengths: [b] tokens already in cache. Returns
     (logits [b, V], cache); the cache's tensors are written in place."""
     check_supported(cfg)
     x = embed_tokens(params, cfg, tokens[:, None])
     lengths = lengths.long()
+    ai = si = 0
     for i in range(cfg.n_layers):
-        window, theta = layer_attrs(cfg, i)
-        x = attn_block_decode(layer_params(params, cfg, i), cfg, x,
-                              cache["k"][i], cache["v"][i], lengths,
-                              window=window, theta=theta)
+        p = layer_params(params, cfg, i)
+        if cfg.layer_pattern[i] == MAMBA2:
+            x, _ = mamba_block_decode(
+                p, cfg, x, {n: t[si] for n, t in cache["ssm"].items()})
+            si += 1
+        else:
+            window, theta = layer_attrs(cfg, i)
+            x = attn_block_decode(p, cfg, x, cache["k"][ai], cache["v"][ai],
+                                  lengths, window=window, theta=theta)
+            ai += 1
+        g = shared_app(cfg, i)
+        if g >= 0:
+            x = attn_block_decode(params["shared"], cfg, x,
+                                  cache["shared_k"][g], cache["shared_v"][g],
+                                  lengths, window=0, theta=global_theta(cfg))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_fn(params, cfg, x[:, 0]), cache

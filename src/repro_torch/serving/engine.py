@@ -1,5 +1,6 @@
 """Serving engine: continuous batching on top of the paged KV pool (port
-of ``repro.serving.engine``, single device, dense decoders).
+of ``repro.serving.engine``, single device: dense decoders and the zamba2
+hybrid).
 
 Layering (top to bottom):
 
@@ -9,18 +10,20 @@ Layering (top to bottom):
   finishes a request; ``... WHERE user_id=?`` ends a session; ``FLUSH``
   is the memcached strawman the paper benchmarks against).
 - ``make_serve_step`` (device): one decode token for every slot. Each
-  attention layer writes the new token's K/V into the arena and reads the
-  pool through the page table with the paged-attention kernel
-  (``serving/paged.py``); prefill runs the flash-attention kernel
-  (``models/transformer.prefill``).
+  attention layer, and each application of zamba2's shared block, writes
+  the new token's K/V into its arena and reads the pool through the page
+  table with the paged-attention kernel (``serving/paged.py``); Mamba2
+  layers advance their O(1) states. Prefill runs the flash-attention and
+  Mamba2 scan kernels (``models/transformer.prefill``).
 
 Host syncs are the reference's: the first token of a prefill
 (``argmax``), the tokens of a decode round, and the count of a DELETE or
 FLUSH. Block allocation (``_insert_blocks``) and the step's dispatch do
 not wait on the device: parameters travel through pinned non-blocking
-uploads and row ids stay on the device.
+uploads and row ids stay on the device. Every state tensor (arenas, SSM
+states) is updated in place.
 
-Not in this port yet: a device mesh, the int8 arena, SSM / MoE /
+Not in this port yet: a device mesh, the int8 arena, Mamba1 / MoE /
 encoder-decoder / frontend configs and ``lower_serve_step``.
 """
 from __future__ import annotations
@@ -34,7 +37,8 @@ from repro_torch.core import kvpool
 from repro_torch.core import table as T
 from repro_torch.core.daemon import SQLCached, resolve_device
 from repro_torch.models import transformer as TF
-from repro_torch.models.config import ModelConfig, NotPorted
+from repro_torch.models.config import MAMBA2, ModelConfig, NotPorted
+from repro_torch.models.layers import ssm as SSM
 from repro_torch.models.layers.attention import (_scale, out_project,
                                                  qkv_project)
 from repro_torch.models.layers.mlp import mlp_forward
@@ -46,8 +50,8 @@ from repro_torch.serving.paged import (PagedGeom, build_blk_start,
 # ============================================================== serve step
 def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
     """Build serve_step(params, state, inputs) -> (next_tokens, state,
-    logits): one new token per slot against the paged arena. The arena in
-    ``state`` is updated in place."""
+    logits): one new token per slot against the paged arenas. The arenas
+    and SSM states in ``state`` are updated in place."""
     TF.check_supported(cfg)
     if mesh is not None:
         raise NotPorted("a device mesh for the serve step")
@@ -60,21 +64,37 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
                 window=window)
         return islands[window]
 
+    def attn_mlp(p, x, arena_l, inputs, *, window, theta):
+        """Attention through the paged island, then the MLP."""
+        lengths = inputs["lengths"]
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        q, k, v = qkv_project(p["attn"], cfg, h, lengths[:, None], theta)
+        a, _ = island_for(window)(
+            q[:, 0], k[:, 0], v[:, 0], arena_l, inputs["pt"],
+            inputs["blk_start"], lengths, inputs["write_rows"],
+            inputs["write_off"])
+        x = x + out_project(p["attn"], a[:, None])
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        return x + mlp_forward(p["mlp"], cfg, h)
+
     def serve_step(params, state, inputs):
         x = TF.embed_tokens(params, cfg, inputs["tokens"][:, None])
-        lengths = inputs["lengths"]
+        ai = si = 0
         for i in range(cfg.n_layers):
             p = TF.layer_params(params, cfg, i)
-            window, theta = TF.layer_attrs(cfg, i)
-            h = rms_norm(x, p["norm1"], cfg.norm_eps)
-            q, k, v = qkv_project(p["attn"], cfg, h, lengths[:, None], theta)
-            a, _ = island_for(window)(
-                q[:, 0], k[:, 0], v[:, 0], state["arena"][i], inputs["pt"],
-                inputs["blk_start"], lengths, inputs["write_rows"],
-                inputs["write_off"])
-            x = x + out_project(p["attn"], a[:, None])
-            h = rms_norm(x, p["norm2"], cfg.norm_eps)
-            x = x + mlp_forward(p["mlp"], cfg, h)
+            if cfg.layer_pattern[i] == MAMBA2:
+                x, _ = TF.mamba_block_decode(
+                    p, cfg, x, {n: t[si] for n, t in state["ssm"].items()})
+                si += 1
+            else:
+                window, theta = TF.layer_attrs(cfg, i)
+                x = attn_mlp(p, x, state["arena"][ai], inputs, window=window,
+                             theta=theta)
+                ai += 1
+            g = TF.shared_app(cfg, i)
+            if g >= 0:
+                x = attn_mlp(params["shared"], x, state["shared_arena"][g],
+                             inputs, window=0, theta=TF.global_theta(cfg))
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = TF.logits_fn(params, cfg, x[:, 0])
         return torch.argmax(logits, dim=-1).to(torch.int32), state, logits
@@ -84,14 +104,27 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
 
 # =========================================================== state builders
 def serve_state_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
-    """{name: (shape, dtype)} of the serve state at ``geom.cap`` rows (the
-    engine adds its slack and the arena's scratch row)."""
+    """{name: (shape, dtype)} of the serve state at ``geom.cap`` arena rows
+    (the engine adds its slack and the arenas' scratch row); ``"ssm"`` maps
+    each Mamba2 state to its (shape, dtype), stacked over the SSM layers
+    and batched over the slots."""
     TF.check_supported(cfg)
     if mesh is not None:
         raise NotPorted("a device mesh for the serve state")
+    row = (2, geom.block, cfg.n_kv_heads, cfg.head_dim)
     la = TF.n_attn_layers(cfg)
-    return {"arena": ((la, geom.cap, 2, geom.block, cfg.n_kv_heads,
-                       cfg.head_dim), cfg.dtype)}
+    specs = {}
+    if la:
+        specs["arena"] = ((la, geom.cap) + row, cfg.dtype)
+    if cfg.shared_attn_every > 0:
+        specs["shared_arena"] = ((cfg.n_shared_applications(), geom.cap)
+                                 + row, cfg.dtype)
+    if cfg.ssm_layer_ids:
+        n = len(cfg.ssm_layer_ids)
+        one = SSM.mamba2_init_state(cfg, geom.batch, "meta")
+        specs["ssm"] = {k: ((n,) + tuple(a.shape), a.dtype)
+                        for k, a in one.items()}
+    return specs
 
 
 # ================================================================ host side
@@ -135,8 +168,14 @@ class ServeEngine:
             f"CAPACITY {cap} MAX_SELECT 256")
         self.cap = cap
         self.state = {}
-        for name, (shape, dtype) in serve_state_specs(cfg, self.geom).items():
-            # cap rows + the scratch row of the dropped writes
+        for name, spec in serve_state_specs(cfg, self.geom).items():
+            if name == "ssm":
+                self.state[name] = {
+                    k: torch.zeros(shape, dtype=dtype, device=self.device)
+                    for k, (shape, dtype) in spec.items()}
+                continue
+            shape, dtype = spec
+            # arenas: cap rows + the scratch row of the dropped writes
             self.state[name] = torch.zeros((shape[0], cap + 1) + shape[2:],
                                            dtype=dtype, device=self.device)
         self._step = make_serve_step(cfg, self.geom)
@@ -216,8 +255,13 @@ class ServeEngine:
         rows = self._insert_blocks(slot, seq_id, user_id, list(range(nblk)),
                                    hashes)
         self.tail_row[slot] = rows[-1]
-        self.state["arena"][:, rows.long()] = self._blockify(
-            cache["k"], cache["v"], nblk)
+        for arena, k, v in (("arena", "k", "v"),
+                            ("shared_arena", "shared_k", "shared_v")):
+            if k in cache:
+                self.state[arena][:, rows.long()] = self._blockify(
+                    cache[k], cache[v], nblk)
+        for name, t in cache.get("ssm", {}).items():
+            self.state["ssm"][name][:, slot] = t[:, 0]
         self.lengths[slot] = n
         self.prefill_logits = logits[0]
         first = int(torch.argmax(logits[0]))

@@ -55,6 +55,8 @@ def _f32(x) -> np.ndarray:
         (1, 4, 4, 256, 256, 64, True, 96, 0.0),     # sliding window
         (1, 4, 4, 128, 128, 64, True, 0, 50.0),     # softcap (gemma2)
         (2, 2, 2, 64, 64, 128, True, 48, 30.0),     # window+softcap
+        (1, 32, 32, 128, 128, 80, True, 0, 0.0),    # zamba2's shared block
+        (2, 4, 4, 64, 64, 80, True, 16, 0.0),       # head dim 80 + window
     ])
 def test_flash_plain_matches_pallas_interpret(b, h, kh, sq, sk, hd, causal,
                                               window, softcap, dt):
@@ -130,6 +132,7 @@ def _paged_case(rng, b, h, kh, hd, block, nblk):
         (3, 8, 2, 64, 16, 6, 0, 0.0),       # GQA g=4
         (2, 4, 4, 128, 32, 3, 0, 50.0),     # softcap
         (2, 4, 2, 64, 16, 8, 40, 0.0),      # sliding window
+        (4, 32, 32, 80, 16, 4, 0, 0.0),     # zamba2's shared block decode
     ])
 def test_paged_plain_matches_pallas_interpret(b, h, kh, hd, block, nblk,
                                               window, softcap, dt):

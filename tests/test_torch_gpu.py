@@ -2,7 +2,9 @@
 card: exact equality for the relscan and hash-index kernels (ids, masks,
 counts and index lanes are integers and bits), and for the attention
 kernels fp32 1e-5 (summation order) and bf16 2e-2 (one bf16 rounding of
-the output). Every test skips with a reason where no CUDA card is
+the output), and for the Mamba2 scan y within 1e-4 and h_last within
+1e-3 in fp32 (relative and absolute: summation order over up to 64-step
+tiles), bf16 y within 2e-2. Every test skips with a reason where no CUDA card is
 present; run them on the card with ``python -m pytest -m gpu
 tests/test_torch_gpu.py``."""
 import numpy as np
@@ -11,6 +13,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import hashidx as HX
+from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import relscan as RS
 
@@ -95,6 +98,10 @@ def test_cuda_tensor_never_takes_plain_version(cuda):
                ops=("==",), limit=8)
     rid, key, _ = HX.build(c, v, n_buckets=HX.n_buckets_for(cap))
     HX.probe(rid, key, torch.zeros(3, dtype=torch.int32, device=cuda))
+    f = torch.rand((1, 5, 2), device=cuda)
+    MS.mamba2_scan(torch.randn((1, 5, 2, 8), device=cuda), f, -f,
+                   torch.randn((1, 5, 4), device=cuda),
+                   torch.randn((1, 5, 4), device=cuda))
     q = torch.randn((1, 4, 5, 64), device=cuda)
     k = torch.randn((1, 2, 5, 64), device=cuda)
     FA.flash_attention(q, k, k, scale=0.125)
@@ -158,6 +165,8 @@ ATT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
         (3, 6, 3, 1, 1, 128, True, 0, 0.0, 0),        # one token
         (2, 8, 4, 13, 13, 8, True, 0, 0.0, 0),        # head dim 8 (SMOKE)
         (1, 4, 2, 37, 37, 16, True, 5, 10.0, 0),      # head dim 16
+        (1, 32, 32, 24, 24, 80, True, 0, 0.0, 0),     # zamba2 shared block
+        (1, 32, 32, 300, 300, 80, True, 0, 0.0, 0),   # its long prompt
     ])
 def test_flash_attention_matches_plain(cuda, b, h, kh, sq, sk, hd, causal,
                                        window, softcap, q_offset, dtype):
@@ -185,6 +194,7 @@ def test_flash_attention_matches_plain(cuda, b, h, kh, sq, sk, hd, causal,
         (4, 32, 4, 128, 16, 16, 0, 0.0),    # the serve path's decode
         (2, 8, 2, 256, 8, 5, 9, 30.0),      # hd 256, window + softcap
         (3, 8, 4, 8, 8, 6, 0, 0.0),         # head dim 8 (SMOKE)
+        (4, 32, 32, 80, 16, 20, 0, 0.0),    # zamba2's shared block decode
     ])
 def test_paged_attention_matches_plain(cuda, b, h, kh, hd, block, nblk,
                                        window, softcap, dtype):
@@ -212,6 +222,43 @@ def test_paged_attention_matches_plain(cuda, b, h, kh, hd, block, nblk,
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
     assert float((got.float() - want.float()).abs().max()) <= ATT_TOL[dtype]
+
+
+SCAN_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 1e-3)}
+
+
+def _ssd_case(gen, dev, b, s, nh, dh, st, dtype, h0):
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x = n(b, s, nh, dh).to(dtype)
+    dt = torch.nn.functional.softplus(n(b, s, nh))
+    dA = -torch.nn.functional.softplus(n(b, s, nh))
+    return x, dt, dA, n(b, s, st), n(b, s, st), (n(b, nh, dh, st) if h0
+                                                  else None)
+
+
+def _rel_err(got, want):
+    return float(((got.float() - want.float()).abs()
+                  / (1 + want.float().abs())).max())
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,s,nh,dh,st",
+    [(2, 64, 2, 16, 8), (1, 128, 4, 32, 16), (2, 96, 1, 8, 4),  # JAX tests
+     (2, 23, 3, 16, 8), (1, 600, 4, 64, 64),    # ragged last tiles
+     (1, 300, 80, 64, 64)])                      # zamba2's prefill
+def test_mamba2_scan_matches_plain(cuda, b, s, nh, dh, st, dtype, h0):
+    gen = torch.Generator(device=cuda).manual_seed(s + nh + dh)
+    args = _ssd_case(gen, cuda, b, s, nh, dh, st, dtype, h0)
+    y, h = MS.mamba2_scan(*args)
+    y_r, h_r = MS.mamba2_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == y_r.shape and h.shape == h_r.shape
+    y_tol, h_tol = SCAN_TOL[dtype]
+    assert _rel_err(y, y_r) <= y_tol
+    assert _rel_err(h, h_r) <= h_tol
 
 
 def test_serve_engine_on_card_matches_cpu(cuda):
@@ -250,3 +297,40 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+def test_zamba2_engine_on_card_matches_cpu(cuda):
+    """zamba2 SMOKE (fp32) through the paged engine on the card and on the
+    CPU with the same weights: the same tokens, logits within 1e-4; the
+    scan once per Mamba2 layer and prefill, flash attention once per
+    shared-block application and prefill, paged attention once per
+    application and round."""
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving.engine import ServeEngine
+    cfg = configs.get_smoke("zamba2-2.7b")
+    params = TF.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (9, 70, 8)]
+    engines = [ServeEngine(cfg, params, max_slots=4, max_seq=128, block=8,
+                           device="cpu"),
+               ServeEngine(cfg, _to(params, cuda), max_slots=4, max_seq=128,
+                           block=8, device=cuda)]
+    _build.reset_launches()
+    for e in engines:
+        for i, p in enumerate(prompts):
+            e.add_request(p, user_id=i)
+    assert float((engines[0].prefill_logits
+                  - engines[1].prefill_logits.cpu()).abs().max()) <= 1e-4
+    for _ in range(9):
+        outs = [e.decode_round() for e in engines]
+        assert outs[0] == outs[1]
+        assert float((engines[0].logits - engines[1].logits.cpu())
+                     .abs().max()) <= 1e-4
+    assert [e.finish_request(1) for e in engines] == [10, 10]  # 79 tokens
+    napps = cfg.n_shared_applications()
+    assert _build.launches["mamba2_scan"] == 3 * cfg.n_layers
+    assert _build.launches["flash_attention"] == 3 * napps
+    assert _build.launches["paged_attention"] == 9 * napps

@@ -145,3 +145,122 @@ def test_unported_configs_raise():
     moe = dataclasses.replace(TC.get_smoke("yi-6b"), n_experts=4, top_k=2)
     with pytest.raises(NotPorted):
         TTF.init_model(torch.Generator(), moe, "cpu")
+
+
+# ------------------------------------------------------------------ zamba2
+@pytest.fixture(scope="module")
+def zamba():
+    """zamba2 SMOKE (4 Mamba2 layers, the shared block after every 2nd),
+    drawn by the reference and carried across, with A_log, D and dt_bias
+    made nonzero so that the decay and skip paths are exercised."""
+    jcfg, tcfg = JC.get_smoke("zamba2-2.7b"), TC.get_smoke("zamba2-2.7b")
+    jp = split(JTF.init_model(jax.random.PRNGKey(0), jcfg))[0]
+    rng = np.random.default_rng(5)
+    for name in ("A_log", "D", "dt_bias"):
+        leaf = jp["layers"]["mamba"][name]
+        jp["layers"]["mamba"][name] = jnp.asarray(
+            rng.standard_normal(leaf.shape) * 0.5, jnp.float32)
+    tp = convert.params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), "cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def _close_tree(got, want, atol=ATOL):
+    if isinstance(got, dict):
+        assert sorted(got) == sorted(want)
+        for k in got:
+            _close_tree(got[k], want[k], atol)
+        return
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
+
+
+def test_zamba2_config_matches_reference():
+    for name in ("CONFIG", "SMOKE"):
+        j = getattr(__import__("repro.configs.zamba2_2p7b", fromlist=[name]),
+                    name)
+        t = getattr(__import__("repro_torch.configs.zamba2_2p7b",
+                               fromlist=[name]), name)
+        for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+                  "d_ff", "vocab", "padded_vocab", "layer_pattern",
+                  "shared_attn_every", "scan_group", "ssm_state", "ssm_conv",
+                  "ssm_expand", "ssm_head_dim", "ssm_chunk", "d_inner",
+                  "ssm_heads", "rope_theta", "norm_eps"):
+            assert getattr(j, f) == getattr(t, f), f
+        assert j.n_shared_applications() == t.n_shared_applications()
+        assert j.param_count() == t.param_count()
+        assert str(t.dtype).split(".")[-1] == jnp.dtype(j.dtype).name
+
+
+def test_zamba2_init_has_the_reference_layout(zamba):
+    jcfg, tcfg, jp, _ = zamba
+    ours = _leaves(TTF.init_model(torch.Generator().manual_seed(0), tcfg,
+                                  "cpu"))
+    theirs = _leaves(jp)
+    assert sorted(ours) == sorted(theirs)
+    for k, v in theirs.items():
+        assert tuple(ours[k].shape) == tuple(v.shape), k
+        assert str(ours[k].dtype).split(".")[-1] == np.asarray(v).dtype.name
+
+
+def test_zamba2_prefill_and_decode_match_reference(zamba):
+    """Prefill logits and the whole cache (SSM states, the shared block's
+    KV), then three dense decode steps from it."""
+    jcfg, tcfg, jp, tp = zamba
+    j_prefill = jax.jit(JTF.prefill, static_argnums=1)
+    j_decode = jax.jit(JTF.decode_step, static_argnums=1)
+    rng = np.random.default_rng(1)
+    s, L = 13, 24
+    toks = rng.integers(0, jcfg.vocab, (2, s)).astype(np.int32)
+    jl, jc = j_prefill(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    tl, tc = TTF.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    _close_tree(tc, jc)
+    jd = JTF.init_cache(jcfg, 2, L)
+    td = TTF.init_cache(tcfg, 2, L, "cpu")
+    assert sorted(td) == sorted(jd) == ["shared_k", "shared_v", "ssm"]
+    for nm in ("shared_k", "shared_v"):
+        jd[nm] = jd[nm].at[:, :, :s].set(jc[nm])
+        td[nm][:, :, :s] = tc[nm]
+    jd["ssm"] = jc["ssm"]
+    for nm, t in td["ssm"].items():
+        t.copy_(tc["ssm"][nm])
+    lengths = np.full(2, s, np.int32)
+    nxt = np.array(jnp.argmax(jl, axis=-1), np.int32)
+    for _ in range(3):
+        jl, jd = j_decode(jp, jcfg, jnp.asarray(nxt), jd,
+                          jnp.asarray(lengths))
+        tl, td = TTF.decode_step(tp, tcfg, torch.from_numpy(nxt), td,
+                                 torch.from_numpy(lengths))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+        nxt = np.array(jnp.argmax(jl, axis=-1), np.int32)
+        lengths += 1
+    _close_tree(td, jd)
+
+
+def test_params_keep_the_reference_fp32_leaves_at_bf16():
+    """At a bf16 config the reference keeps A_log, D and dt_bias in fp32;
+    carrying the tree across (and back through params_to_numpy, whose
+    leaves are all fp32) keeps them fp32 and exact, and every other leaf
+    in bf16."""
+    import dataclasses
+    jcfg = dataclasses.replace(JC.get_smoke("zamba2-2.7b"),
+                               dtype=jnp.bfloat16)
+    tcfg = dataclasses.replace(TC.get_smoke("zamba2-2.7b"),
+                               dtype=torch.bfloat16)
+    jp = split(JTF.init_model(jax.random.PRNGKey(0), jcfg))[0]
+    # values that bf16 cannot hold
+    jp["layers"]["mamba"]["dt_bias"] = jnp.full(
+        jp["layers"]["mamba"]["dt_bias"].shape, 0.1234567, jnp.float32)
+    want = _leaves(jax.tree.map(np.asarray, jp))
+    tp = convert.params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), "cpu")
+    again = convert.params_from_numpy(tcfg, convert.params_to_numpy(tp),
+                                      "cpu")
+    for tree in (tp, again):
+        got = _leaves(tree)
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            fp32 = k.rsplit(".", 1)[-1] in ("A_log", "D", "dt_bias")
+            assert got[k].dtype == (torch.float32 if fp32 else torch.bfloat16)
+            assert v.dtype.name == ("float32" if fp32 else "bfloat16"), k
+            np.testing.assert_array_equal(got[k].float().numpy(),
+                                          v.astype(np.float32))

@@ -58,6 +58,24 @@ class Pair:
         np.testing.assert_array_equal(self.t.tail_row.numpy(),
                                       np.asarray(self.j.tail_row))
 
+    def check_state(self):
+        """The arenas' live rows (those the page table names) and the SSM
+        states of the slots with a request. Slots without one are not
+        compared: the port's island gives 0 there where the reference's
+        gives a masked mean, so their (never read) SSM states drift."""
+        pt = self.t._pt.numpy()
+        rows = np.unique(pt[pt < self.t.cap])
+        for name in ("arena", "shared_arena"):
+            if name in self.t.state:
+                np.testing.assert_allclose(
+                    self.t.state[name][:, rows].numpy(),
+                    np.asarray(self.j.state[name])[:, rows], atol=LOGIT_ATOL)
+        live = sorted(self.t.requests)
+        for name, t in self.t.state.get("ssm", {}).items():
+            np.testing.assert_allclose(
+                t[:, live].numpy(), np.asarray(self.j.state["ssm"][name])
+                [:, live], atol=LOGIT_ATOL)
+
     def add(self, prompt, user_id):
         sj = self.j.add_request(prompt, user_id=user_id)
         st = self.t.add_request(prompt, user_id=user_id)
@@ -195,3 +213,72 @@ def test_page_table_rebuild_and_increments_match_reference(smoke):
     assert int(rt.value) == 1  # the last batch evicted a live row
     full = TKV.page_table(tdb.schema("kv"), tdb.table_state("kv"), **kw)
     np.testing.assert_array_equal(full.numpy(), tpt.numpy())
+
+
+@pytest.fixture(scope="module")
+def zamba():
+    """zamba2 SMOKE, drawn by the reference and carried across, with
+    A_log, D and dt_bias made nonzero."""
+    jcfg, tcfg = JC.get_smoke("zamba2-2.7b"), TC.get_smoke("zamba2-2.7b")
+    jp = split(JTF.init_model(jax.random.PRNGKey(0), jcfg))[0]
+    rng = np.random.default_rng(5)
+    for name in ("A_log", "D", "dt_bias"):
+        leaf = jp["layers"]["mamba"][name]
+        jp["layers"]["mamba"][name] = jnp.asarray(
+            rng.standard_normal(leaf.shape) * 0.5, jnp.float32)
+    tp = convert.params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), "cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def test_zamba2_engine_matches_reference_engine(zamba):
+    """The hybrid through both engines in lockstep: Mamba2 states in the
+    slots, the shared block's KV in the shared arena. Two prompts are
+    longer than ssm_chunk = 8."""
+    jcfg = zamba[0]
+    rng = np.random.default_rng(3)
+    p1, p2, p3 = (rng.integers(0, jcfg.vocab, size=n).astype(np.int32)
+                  for n in (9, 21, 6))
+    pr = Pair(zamba, max_slots=4, max_seq=64, block=8)
+    s1 = pr.add(p1, 1)
+    s2 = pr.add(p2, 2)
+    pr.check_state()
+    pr.rounds(8)            # both slots cross a block boundary
+    pr.check_state()
+    assert pr.t.lengths[s1] == 17 and pr.t.lengths[s2] == 29
+    n = pr.t.finish_request(s1)
+    assert n == pr.j.finish_request(s1) == 3
+    pr.check_tables()
+    s3 = pr.add(p3, 2)
+    pr.rounds(3)
+    pr.check_state()
+    n2 = pr.t.evict_user(2)
+    assert n2 == pr.j.evict_user(2) == 4 + 2   # 32 and 9 tokens
+    assert not pr.t.requests and pr.t.live_blocks() == 0
+    pr.check_tables()
+    assert s3 not in pr.t.requests
+    pr.add(p2, 4)
+    pr.rounds(1)
+    pr.check_state()
+    n3 = pr.t.flush()
+    assert n3 == pr.j.flush() == 3
+    assert pr.t.live_blocks() == 0 and not pr.t.requests
+    pr.check_tables()
+
+
+def test_engine_defaults_to_the_card(zamba):
+    """``device=None`` means the CUDA card: without one the engine raises
+    (no fall-back to the CPU)."""
+    tcfg, tp = zamba[1], zamba[3]
+    if torch.cuda.is_available():
+        eng = TEngine(tcfg, _to(tp, "cuda"), max_slots=2, max_seq=32,
+                      block=8)
+        assert eng.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TEngine(tcfg, tp, max_slots=2, max_seq=32, block=8)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
