@@ -9,18 +9,28 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
 0. device  -- the card's name and power limit (``nvidia-smi``).
 1. build   -- compile the seven CUDA kernels from the five sources in
               ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
-              parallel) and report registers and shared memory per kernel.
+              parallel) and report registers, shared memory and spills
+              per kernel instance, and the tensor-core (HMMA) and cp.async
+              (LDGSTS) instructions of the flash library (``cuobjdump``).
 2. kernels -- every relscan / hash-index kernel against its plain PyTorch
               version on the card, exact equality, at the main path's
               shapes and beyond; then each kernel's time (CUDA events),
-              its plain version's time and its bound.
+              its plain version's time and its bound; the compaction also
+              at cap 4,194,304, and one compaction call under the profiler
+              must show one device kernel and no memset or copy.
    kernels_attention -- the flash- and paged-attention kernels against
               their plain versions (fp32 within 1e-5, bf16 within 2e-2)
-              at tests/test_kernels.py's shapes, head dims 8-256, and both
+              at tests/test_kernels.py's shapes, head dims 8-256, both
               serve paths' own shapes (yi-6b at head dim 128, zamba2's
-              shared block at 80); then their times, bounds and, for
-              flash attention, the time of the one PyTorch call that
-              computes the same function (scaled_dot_product_attention).
+              shared block at 80), the flash kernels' tile edges (lengths
+              1-300 around the 16-row warp, 64-row CTA and 64-key tiles,
+              each head dim, GQA 8:1, windows, softcap, q_offset), and the
+              [b, s, h, hd]-transposed views attention_prefill passes
+              (equal to the contiguous call, no copy); then their times,
+              bounds and, for flash attention, the time of the one PyTorch
+              call that computes the same function
+              (scaled_dot_product_attention), at the serve shapes and at
+              one 2,048-token prompt with yi-6b's heads.
    kernels_mamba -- the Mamba2 scan kernel against its plain version
               (y within 1e-4 fp32 / 2e-2 bf16, h_last within 1e-3,
               relative and absolute) at tests/test_kernels.py's shapes,
@@ -143,6 +153,22 @@ def device_ms(fn, kernel_symbol: str, iters=50):
     """Mean device time of one launch of the kernel whose symbol contains
     ``kernel_symbol``, from the profiler's CUDA activity (None when the
     profiler records no device time)."""
+    times = [device_us(e) for e in device_events(fn, iters)
+             if kernel_symbol in e.name]
+    total = sum(times)
+    return total / len(times) / 1e3 if times and total > 0 else None
+
+
+def device_us(event) -> float:
+    return (event.self_device_time_total
+            if hasattr(event, "self_device_time_total")
+            else event.self_cuda_time_total)
+
+
+def device_events(fn, iters=1):
+    """The CUDA activities (kernels, memsets, copies) of ``iters`` calls of
+    ``fn`` after one warm-up call, from the profiler."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
@@ -150,14 +176,13 @@ def device_ms(fn, kernel_symbol: str, iters=50):
         for _ in range(iters):
             fn()
         sync()
-    total, n = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel_symbol in ev.key:
-            t = (ev.device_time_total if hasattr(ev, "device_time_total")
-                 else ev.cuda_time_total)
-            total += t
-            n += ev.count
-    return (total / n / 1e3) if n and total > 0 else None
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def call_device_ms(fn, iters=50):
+    """Mean device time of one call of ``fn``: every kernel, memset and
+    copy it launches (a library call may launch several)."""
+    return sum(device_us(e) for e in device_events(fn, iters)) / iters / 1e3
 
 
 def bound(nbytes: float, ops: float, ops_rate: float = SIMT_OPS_S):
@@ -192,32 +217,62 @@ def phase_device() -> str:
     return smi
 
 
+KERNEL_NAME = re.compile(r"(mamba_scan|scan|compact|build|probe|flash|paged)"
+                         r"_kernel(_tc)?")
+
+
+def kernel_key(fn: str) -> str:
+    """A readable name for a mangled kernel symbol: the kernel and its
+    template arguments (dtype, head dim), e.g. ``flash_kernel_tc<80>``
+    (the bf16 tensor-core kernel) or ``paged_kernel<bf16,128>``."""
+    name = KERNEL_NAME.search(fn)
+    if not name:
+        return fn
+    inst = re.search(r"_kernel(?:_tc)?I((?:f|13__nv_bfloat16|Li\d+E)+)E", fn)
+    if not inst:
+        return name.group(0)
+    args = [t.group(2) or ("bf16" if t.group(1) else "f32") for t in
+            re.finditer(r"(13__nv_bfloat16)|Li(\d+)E|f", inst.group(1))]
+    return name.group(0) + "<" + ",".join(args) + ">"
+
+
+def sass_counts(lib: pathlib.Path) -> dict | None:
+    """HMMA (tensor-core) and LDGSTS (cp.async) instructions in a built
+    library's SASS, from cuobjdump (None where it is missing)."""
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HMMA", "LDGSTS", "LDSM")}
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build_all()
     secs = time.perf_counter() - t0
     report = {}
     for src, log in logs.items():
-        fn = None
+        fn, spill = None, None
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = m.group(1)
+                fn, spill = m.group(1), None
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = [int(m.group(1)), int(m.group(2))]
             m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem|$)",
                           line)
             if m and fn:
-                name = re.search(r"(mamba_scan|scan|compact|build|probe|"
-                                 r"flash|paged)_kernel", fn)
-                key = name.group(0) if name else fn
-                inst = re.search(r"_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?",
-                                 fn)
-                if inst:  # templates: <dtype[, head dim]>
-                    key += "<" + ("f32" if inst.group(1) == "f" else "bf16") \
-                        + ("," + inst.group(2) if inst.group(2) else "") + ">"
-                report[f"{src}.{key}"] = {
+                report[f"{src}.{kernel_key(fn)}"] = {
                     "registers": int(m.group(1)),
-                    "smem_bytes": int(m.group(2) or 0)}
-    emit({"phase": "build", "seconds": round(secs, 3), "ptxas": report})
+                    "smem_bytes": int(m.group(2) or 0),
+                    "spill_stores_loads": spill}
+    libdir = _build.BUILD_ROOT / _build._digest()
+    emit({"phase": "build", "seconds": round(secs, 3), "ptxas": report,
+          "flash_sass": sass_counts(libdir / "libflash_attention.so")})
 
 
 # ---------------------------------------------------------------- phase 2
@@ -270,12 +325,14 @@ def check_scan_compact(rng, dev):
                 errs["relscan_scan"] = max(
                     errs["relscan_scan"],
                     max_err([(mask, mask_r), (cnt, cnt_r)]))
-                for limit in (1, 64, 1000):
-                    ids = RS.compact(mask, cnt, limit)
-                    ids_r = RS.compact_ref(mask_r, cnt_r, limit)
+                for limit in (1, 64, 1000, cap + 5):
+                    ids, n = RS.compact(mask, limit)
+                    ids_r, n_r = RS.compact_ref(mask_r, limit)
                     sync()
-                    errs["relscan_compact"] = max(errs["relscan_compact"],
-                                                  max_err([(ids, ids_r)]))
+                    errs["relscan_compact"] = max(
+                        errs["relscan_compact"],
+                        max_err([(ids, ids_r), (n, n_r),
+                                 (n, cnt_r.sum(dim=1, dtype=torch.int32))]))
                     cases += 1
     return cases, errs
 
@@ -364,36 +421,46 @@ def phase_kernels(dev, card):
     timings.append({"kernel": "relscan_scan", "shape": "4 terms, cap 4194304",
                     "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
                     "bound_ms": b_ms, "bound_by": b_by})
-    del bcols, bvalid
 
-    # compact: SELECT * WHERE page_id = ? LIMIT 64 at cap 131072
-    mask, cnt = RS.scan([page_col], valid, v1, ("==",))
+    # compact: SELECT * WHERE page_id = ? LIMIT 64 at cap 131072, and a
+    # 4-term scan's mask at cap 4194304
     limit = 64
-    k_ms = time_ms(lambda: RS.compact(mask, cnt, limit))
-    p_ms = time_ms(lambda: RS.compact_ref(mask, cnt, limit))
-    d_ms = device_ms(lambda: RS.compact(mask, cnt, limit), "compact_kernel")
-    # one library call computes the same function at w = 1: the first
-    # `limit` set-bit indices in row order, 0-padded
-    lib_ms, lib_err, lib_agrees = None, None, None
-    try:
-        lib = torch.nonzero_static(mask[0], size=limit, fill_value=0)
-        lib_agrees = torch.equal(lib[:, 0].to(torch.int32),
-                                 RS.compact(mask, cnt, limit)[0])
-        lib_ms = time_ms(lambda: torch.nonzero_static(
-            mask[0], size=limit, fill_value=0))
-    except (RuntimeError, NotImplementedError) as e:
-        lib_err = f"{type(e).__name__}: {e}"[:300]
-    offs = (torch.cumsum(cnt, 1) - cnt)[0]
-    live_blocks = int((offs < limit).sum())
-    b_ms, b_by = bound(live_blocks * RS.BLOCK + nblk * 4 + limit * 4,
-                       live_blocks * RS.BLOCK)
-    out["compact"] = {"kernel": "relscan_compact",
-                      "shape": "cap 131072, limit 64", "ms": k_ms,
-                      "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                      "bound_by": b_by, "library_ms": lib_ms,
-                      "library": "torch.nonzero_static",
-                      "library_agrees": lib_agrees, "library_error": lib_err}
-    timings.append(out["compact"])
+    mask, _ = RS.scan([page_col], valid, v1, ("==",))
+    events = [e.name for e in device_events(lambda: RS.compact(mask, limit))]
+    if len(events) != 1 or "compact_kernel" not in events[0]:
+        raise AssertionError(f"one compact call ran {events} on the card, "
+                             f"not one compact_kernel launch")
+    big_mask, _ = RS.scan(bcols, bvalid, bv, bops)
+    for key, m, label in (("compact", mask, "cap 131072, limit 64"),
+                          ("compact_4m", big_mask, "cap 4194304, limit 64")):
+        w, n = m.shape
+        k_ms = time_ms(lambda: RS.compact(m, limit))
+        p_ms = time_ms(lambda: RS.compact_ref(m, limit), iters=50)
+        d_ms = device_ms(lambda: RS.compact(m, limit), "compact_kernel")
+        # one library call computes the same ids at w = 1 (not the count):
+        # the first `limit` set-bit indices in row order, 0-padded
+        lib_ms, lib_dev, lib_err, lib_agrees = None, None, None, None
+        try:
+            lib = torch.nonzero_static(m[0], size=limit, fill_value=0)
+            lib_agrees = torch.equal(lib[:, 0].to(torch.int32),
+                                     RS.compact(m, limit)[0][0])
+            lib_ms = time_ms(lambda: torch.nonzero_static(
+                m[0], size=limit, fill_value=0))
+            lib_dev = call_device_ms(lambda: torch.nonzero_static(
+                m[0], size=limit, fill_value=0))
+        except (RuntimeError, NotImplementedError) as e:
+            lib_err = f"{type(e).__name__}: {e}"[:300]
+        # the count needs every mask byte: read w * cap, write ids + count
+        b_ms, b_by = bound(w * n + 4 * w * limit + 4 * w, w * n)
+        out[key] = {"kernel": "relscan_compact", "shape": label, "ms": k_ms,
+                    "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_ms,
+                    "library_device_ms": lib_dev,
+                    "library": "torch.nonzero_static",
+                    "library_agrees": lib_agrees, "library_error": lib_err,
+                    "device_events_one_call": events}
+        timings.append(out[key])
+    del bcols, bvalid, big_mask
 
     # build: the bulk load's index build (4096 buckets)
     nb = HX.n_buckets_for(cap)
@@ -453,6 +520,22 @@ FLASH_CASES = [
     (1, 32, 32, 300, 300, 80, True, 0, 0.0, 0),
     (2, 4, 4, 37, 37, 80, True, 9, 15.0, 0),
 ]
+# the flash kernels' tile edges at every compiled head dim: lengths around
+# the 16-row warp tile, the 64-row CTA tile and the 64-key (32 at hd 256)
+# K/V tile with GQA 8:1; a window across K/V tiles, softcap, q_offset with
+# sk > sq, and all of them at once
+FLASH_EDGE_CASES = [(1, 8, 1, n, n, hd, True, 0, 0.0, 0)
+                    for hd in FA.HEAD_DIMS
+                    for n in (1, 15, 16, 17, 63, 64, 65, 300)] + [
+    c for hd in FA.HEAD_DIMS for c in (
+        (1, 4, 2, 130, 130, hd, True, 70, 0.0, 0),
+        (2, 4, 4, 65, 65, hd, True, 0, 30.0, 0),
+        (2, 4, 2, 17, 81, hd, True, 0, 0.0, 64),
+        (1, 8, 1, 100, 164, hd, True, 40, 20.0, 64))]
+# (b, h, kh, s, hd) of the strided case: q/k/v as attention_prefill passes
+# them, [b, s, heads, hd] projections transposed to [b, heads, s, hd]
+FLASH_VIEW_CASES = [(1, 32, 32, 300, 80), (1, 32, 4, 24, 128),
+                    (2, 8, 2, 37, 8)]
 
 # (b, h, kh, hd, block, nblk, window, softcap, lengths or None)
 PAGED_CASES = [
@@ -534,6 +617,32 @@ def paged_work(h, kh, hd, nblk, lengths, elem):
     return nbytes, 4 * h * hd * tokens
 
 
+def check_flash_views(gen, dev, dtype, b, h, kh, s, hd, what):
+    """Flash on [b, s, heads, hd] projections transposed to [b, heads, s,
+    hd], as attention_prefill passes them: equal to the contiguous call,
+    the output in q's layout, within tolerance of the plain version, and
+    the caching allocator hands out the output's bytes and nothing else
+    (no copy). Returns (max abs err, bytes allocated by the call)."""
+    q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=dev)
+               .to(dtype).transpose(1, 2) for n in (h, kh, kh))
+    kw = dict(scale=hd ** -0.5)
+    want = FA.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              **kw)
+    sync()
+    before = torch.cuda.memory_stats(dev)["allocated_bytes.all.allocated"]
+    got = FA.flash_attention(q, k, v, **kw)
+    sync()
+    grown = (torch.cuda.memory_stats(dev)["allocated_bytes.all.allocated"]
+             - before)
+    if grown != -(-got.numel() * got.element_size() // 512) * 512:
+        raise AssertionError(f"{what}: the call allocated {grown} bytes, "
+                             f"more than its output")
+    if got.stride() != q.stride() or not torch.equal(got, want):
+        raise AssertionError(f"{what}: differs from the contiguous call")
+    return att_err(got, FA.flash_attention_ref(q, k, v, **kw), dtype,
+                   what), grown
+
+
 def phase_kernels_attention(dev, card):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
@@ -542,7 +651,7 @@ def phase_kernels_attention(dev, card):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for (b, h, kh, sq, sk, hd, causal, window, softcap,
-             q_offset) in FLASH_CASES:
+             q_offset) in FLASH_CASES + FLASH_EDGE_CASES:
             q, k, v = flash_inputs(gen, dev, dtype, b, h, kh, sq, sk, hd)
             kw = dict(scale=hd ** -0.5, causal=causal, window=window,
                       softcap=softcap, q_offset=q_offset)
@@ -566,6 +675,13 @@ def phase_kernels_attention(dev, card):
             e = att_err(got, want, dtype, f"paged_attention {shape} {dname}")
             errs["paged_attention"] = max(errs["paged_attention"], e)
             per_case.append(["paged", dname, shape, e])
+        for b, h, kh, s, hd in FLASH_VIEW_CASES:
+            shape = f"{b}x{h}/{kh}x{s}x{hd} transposed views"
+            e, grown = check_flash_views(gen, dev, dtype, b, h, kh, s, hd,
+                                         f"flash_attention {shape} {dname}")
+            errs["flash_attention"] = max(errs["flash_attention"], e)
+            per_case.append(["flash", dname, shape, e,
+                             f"allocated {grown} bytes"])
     emit({"phase": "kernels_attention", "card": card, "cases": len(per_case),
           "tolerance": {"float32": ATT_TOL[torch.float32],
                         "bfloat16": ATT_TOL[torch.bfloat16]},
@@ -582,7 +698,7 @@ def phase_kernels_attention(dev, card):
     p_ms = time_ms(lambda: FA.flash_attention_ref(q, k, v, scale=scale))
     d_ms = device_ms(run, "flash_kernel")
     b_ms, b_by = bound(*flash_work(b, h, kh, s, s, hd, 2), BF16_OPS_S)
-    lib_ms, lib_err, lib_diff = None, None, None
+    lib_ms, lib_dev, lib_err, lib_diff = None, None, None, None
     try:
         import torch.nn.functional as F
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -592,15 +708,26 @@ def phase_kernels_attention(dev, card):
             raise AssertionError(f"scaled_dot_product_attention differs "
                                  f"from the kernel by {lib_diff}")
         lib_ms = time_ms(sdpa)
+        lib_dev = call_device_ms(sdpa)
     except (TypeError, RuntimeError) as e:
         lib_err = f"{type(e).__name__}: {e}"[:300]
+    # the serve path's layout: [b, s, h, hd] transposed views, read in
+    # place, against the same views copied first (what the wrapper did
+    # before it read strides)
+    qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    views_ms = time_ms(lambda: FA.flash_attention(qv, kv, vv, scale=scale))
+    copies_ms = time_ms(lambda: FA.flash_attention(
+        qv.contiguous(), kv.contiguous(), vv.contiguous(), scale=scale))
     out["flash_attention"] = {
         "kernel": "flash_attention", "shape": "b1 h32/kh4 sq=sk=24 hd128 "
         "bf16 causal (the longest serve prompt)", "ms": k_ms,
         "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": lib_ms,
+        "bound_by": b_by, "library_ms": lib_ms, "library_device_ms": lib_dev,
         "library": "torch.nn.functional.scaled_dot_product_attention",
-        "library_max_abs_diff": lib_diff, "library_error": lib_err}
+        "library_max_abs_diff": lib_diff, "library_error": lib_err,
+        "ms_transposed_views": views_ms,
+        "ms_transposed_views_copied_first": copies_ms}
 
     q, arena, pages, lens = paged_inputs(rng, gen, dev, bf, 4, 32, 4, 128,
                                          16, 16, SERVE_DECODE_LENGTHS)
@@ -620,29 +747,39 @@ def phase_kernels_attention(dev, card):
         "library": "none: no single PyTorch call gathers K/V through a page "
                    "table"}
 
-    # zamba2's shared block (hd 80, kh 32): prefills of 24 and 300 tokens
-    # and the decode of 4 slots
-    hd, h = 80, 32
-    scale = hd ** -0.5
-    for s in (24, 300):
-        q, k, v = flash_inputs(gen, dev, bf, 1, h, h, s, s, hd)
+    # zamba2's shared block (hd 80, kh 32): prefills of 24 and 300 tokens;
+    # one 2,048-token prompt with yi-6b's heads (timed for the table only)
+    for name, h, kh, s, hd, what in (
+            ("flash_attention_hd80_s24", 32, 32, 24, 80,
+             "zamba2's shared block"),
+            ("flash_attention_hd80_s300", 32, 32, 300, 80,
+             "zamba2's shared block"),
+            ("flash_attention_s2048", 32, 4, 2048, 128,
+             "yi-6b's heads, one long prompt")):
+        scale = hd ** -0.5
+        q, k, v = flash_inputs(gen, dev, bf, 1, h, kh, s, s, hd)
         run = lambda: FA.flash_attention(q, k, v, scale=scale)  # noqa: E731
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731,E501
-            q, k, v, is_causal=True, scale=scale)
+            q, k, v, is_causal=True, scale=scale, enable_gqa=kh != h)
         lib_diff = float((sdpa().float() - run().float()).abs().max())
         if not lib_diff <= ATT_TOL[bf]:
             raise AssertionError(f"scaled_dot_product_attention differs "
                                  f"from the kernel by {lib_diff}")
-        b_ms, b_by = bound(*flash_work(1, h, h, s, s, hd, 2), BF16_OPS_S)
-        out[f"flash_attention_hd80_s{s}"] = {
-            "kernel": "flash_attention", "shape": f"b1 h32/kh32 sq=sk={s} "
-            "hd80 bf16 causal (zamba2's shared block)", "ms": time_ms(run),
+        b_ms, b_by = bound(*flash_work(1, h, kh, s, s, hd, 2), BF16_OPS_S)
+        long = s > 300
+        out[name] = {
+            "kernel": "flash_attention", "shape": f"b1 h{h}/kh{kh} "
+            f"sq=sk={s} hd{hd} bf16 causal ({what})", "ms": time_ms(run),
             "device_ms": device_ms(run, "flash_kernel"),
             "plain_ms": time_ms(lambda: FA.flash_attention_ref(
-                q, k, v, scale=scale), iters=50),
+                q, k, v, scale=scale), iters=10 if long else 50,
+                warm=2 if long else 20),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
+            "library_device_ms": call_device_ms(sdpa),
             "library": "torch.nn.functional.scaled_dot_product_attention",
             "library_max_abs_diff": lib_diff}
+    hd, h = 80, 32
+    scale = hd ** -0.5
     nblk = 32
     q, arena, pages, lens = paged_inputs(rng, gen, dev, bf, 4, h, h, hd, 16,
                                          nblk, ZAMBA_DECODE_LENGTHS)

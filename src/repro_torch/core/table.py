@@ -351,14 +351,13 @@ def _fused_scan(schema, state, plan: P.FusedScan, params_w, w: int, *,
 
 def _compact(mask: torch.Tensor, limit: int, capacity: int):
     """[w, cap] mask -> the first ``limit`` set bits of each row (row
-    order, 0-padded) + presence, through the relscan compaction kernel."""
+    order, 0-padded), presence and the unclamped count, through the relscan
+    compaction kernel."""
     limit = min(limit, capacity)
-    cnt = RS.block_counts(mask)
-    ids = RS.compact(mask, cnt, limit)
-    count = cnt.sum(dim=1, dtype=torch.int32)
+    ids, count = RS.compact(mask, limit)
     present = torch.arange(limit, dtype=torch.int32,
                            device=mask.device)[None, :] < count[:, None]
-    return ids, present
+    return ids, present, count
 
 
 def index_fresh(state: dict, column: str) -> torch.Tensor:
@@ -498,8 +497,7 @@ def select_many(
             idx, present, mask, count = fused
         else:
             mask = _match_mask(schema, state, where, params_w, w)
-            count = mask.sum(dim=1, dtype=torch.int32)
-            idx, present = _compact(mask, limit, cap)
+            idx, present, count = _compact(mask, limit, cap)
         return finish_mask(mask, idx, present, count)
 
     def probe_route(r):
@@ -690,10 +688,11 @@ def _delete_core(schema, state, where, params, *, want_ids, limit,
             ids = present = None
         if extra_mask is not None:
             mask = mask & to_device(extra_mask, dev, torch.bool)
-        n = mask.sum(dtype=torch.int32)
         if want_ids and ids is None:
-            ids, present = _compact(mask[None], limit, cap)
-            ids, present = ids[0], present[0]
+            ids, present, n = _compact(mask[None], limit, cap)
+            ids, present, n = ids[0], present[0], n[0]
+        else:
+            n = mask.sum(dtype=torch.int32)
         if not want_ids:
             ids, present = no_ids
         return state["valid"] & ~mask, n, ids, present

@@ -9,25 +9,38 @@
 // (5 * nterms + 2) bytes a row and one compare per term: at 3.35 TB/s a
 // 131,072-row one-term scan moves ~0.9 MB (~0.27 us), far below launch
 // overhead; a 4-term scan of 4M rows moves ~92 MB (~27 us).
-// The compaction reads the mask (1 byte a row) and writes at most `limit`
-// row ids; blocks whose offset is already past `limit` exit at once.
+// The compaction reads the mask (1 byte a row: it returns the unclamped
+// match count, so every byte is read) and writes `limit` row ids and the
+// count: 0.04 us at cap 131,072, so its floor is one launch's latency.
 //
 // Design. The TPU kernel tiles 2048 rows into (16, 128) VMEM blocks and
 // runs the grid in order, carrying the id output across grid steps. Here
 // blocks run in any order on 132 SMs, so:
-//   * one thread per row, 256 rows a block, coalesced int32 loads; the
-//     ragged edge is masked in the kernel (no padded copies of columns);
-//   * the <= 4 operator codes arrive as kernel arguments and are uniform
-//     across the grid, so the switch never diverges;
-//   * per-block match counts come from warp ballots + popc;
-//   * the compaction takes the exclusive prefix of those counts (computed
-//     between the launches, as the JAX package does at relscan.py:163),
-//     ranks its set bits with ballot/popc, and writes row ids at
-//     offset + rank < limit: ids come out in row order, with no atomics;
-//   * a second grid dimension runs w statements (one row of the [w, nterms]
-//     value matrix each) over the same columns in one launch: the batched
-//     SELECT / aggregate executors use it; w = 1 is the TPU kernel's
-//     contract.
+//   * scan: one thread per row, 256 rows a block, coalesced int32 loads;
+//     the ragged edge is masked in the kernel (no padded copies of
+//     columns); the <= 4 operator codes arrive as kernel arguments and are
+//     uniform across the grid, so the switch never diverges; per-block
+//     match counts come from warp ballots + popc;
+//   * compaction: ONE launch and no other device op (no prefix of block
+//     counts, no zero fill): one CTA of 1024 threads per statement walks
+//     its mask row in row order, 64 bytes a thread a step (four 16-byte
+//     loads, the next step's loads in flight while this step is ranked),
+//     turns the bytes into a 64-bit set-bit mask, ranks the counts with a
+//     block-wide exclusive scan (warp shuffles + one shared-memory pass)
+//     and writes row ids at base + rank < limit, where base carries the
+//     matches of the steps before. Ids come out in row order with no
+//     atomics and no cross-CTA state, so nothing needs initialising. The
+//     CTA then writes the count and the zero padding [min(count, limit),
+//     limit) itself. A row whose start is not 16-byte aligned (w > 1 at a
+//     cap that is not a multiple of 16) is read from the aligned address
+//     below it, the bytes outside the row masked off. One SM a statement
+//     reads ~64 KiB a step: 2 steps at the main path's cap of 131,072,
+//     64 at 4,194,304 (a decoupled look-back over many CTAs would spread
+//     that; see PERF.md for the times of both caps);
+//   * a second grid dimension (scan) / the grid (compaction) runs w
+//     statements (one row of the [w, nterms] value matrix each) over the
+//     same columns in one launch: the batched SELECT / aggregate executors
+//     use it; w = 1 is the TPU kernel's contract.
 #include "common.cuh"
 
 namespace {
@@ -79,25 +92,170 @@ scan_kernel(Cols cols, Ops ops, int nterms, const uint8_t* __restrict__ valid,
   }
 }
 
-__global__ void __launch_bounds__(RS_BLOCK)
-compact_kernel(const uint8_t* __restrict__ mask, const int32_t* __restrict__ offs,
-               int cap, int nblk, int limit, int32_t* __restrict__ ids) {
-  const int blk = blockIdx.x;
-  const int q = blockIdx.y;
-  const int off = offs[(size_t)q * nblk + blk];
-  if (off >= limit) return;  // uniform over the block: nothing left to place
-  const int row = blk * RS_BLOCK + threadIdx.x;
-  const bool m = row < cap && mask[(size_t)q * cap + row] != 0;
-  const unsigned bits = __ballot_sync(0xffffffffu, m);
-  __shared__ int warp_count[RS_WARPS];
+constexpr int CP_THREADS = 256;                    // threads a CTA
+constexpr int CP_BYTES = 64;                       // mask bytes a thread
+constexpr int CP_TILE = CP_THREADS * CP_BYTES;     // 16 KiB of a row a CTA
+constexpr unsigned long long CP_AGG = 1;           // flag: tile's own count
+constexpr unsigned long long CP_PREFIX = 2;        // flag: inclusive prefix
+constexpr unsigned long long CP_VALUE = (1ull << 30) - 1;
+
+// one bit per nonzero byte of w (bit i = byte i)
+__device__ __forceinline__ uint32_t nz_bits4(uint32_t w) {
+  const uint32_t f = __vcmpne4(w, 0u) & 0x01010101u;
+  return (f * 0x01020408u) >> 24;  // the four byte flags land in bits 24-27
+}
+
+// the four 16-byte chunks [c0, c0 + 4) of a row, zeros past nchunks
+__device__ __forceinline__ void load_chunks(uint4 (&c)[4], const uint4* base,
+                                            long long c0, long long nchunks) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    c[j] = c0 + j < nchunks ? __ldg(base + c0 + j) : make_uint4(0, 0, 0, 0);
+}
+
+__device__ __forceinline__ uint64_t chunk_bits(const uint4 (&c)[4]) {
+  uint64_t b = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    b |= (uint64_t)nz_bits4(c[j].x) << (16 * j);
+    b |= (uint64_t)nz_bits4(c[j].y) << (16 * j + 4);
+    b |= (uint64_t)nz_bits4(c[j].z) << (16 * j + 8);
+    b |= (uint64_t)nz_bits4(c[j].w) << (16 * j + 12);
+  }
+  return b;
+}
+
+// bits of the 64 positions from vbase that lie inside the row [head, vlen)
+__device__ __forceinline__ uint64_t row_bits(long long vbase, int head,
+                                             long long vlen) {
+  if (vbase >= head && vbase + CP_BYTES <= vlen) return ~0ull;
+  const long long lo = head > vbase ? head - vbase : 0;
+  const long long hi = vlen - vbase < CP_BYTES ? vlen - vbase : CP_BYTES;
+  if (hi <= lo) return 0ull;
+  const uint64_t below_hi = hi >= CP_BYTES ? ~0ull : (1ull << hi) - 1;
+  return below_hi & ~((1ull << lo) - 1);
+}
+
+// exclusive prefix of x over the CTA's threads; total = sum
+__device__ __forceinline__ int block_exclusive_scan(int x, int* warp_tot,
+                                                    int& total) {
+  constexpr int NW = CP_THREADS / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_count[warp] = __popc(bits);
+  int incl = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
   __syncthreads();
   int before = 0;
-  for (int i = 0; i < warp; ++i) before += warp_count[i];
-  const int pos = off + before + __popc(bits & ((1u << lane) - 1u));
-  if (m && pos < limit) ids[(size_t)q * limit + pos] = row;
+  total = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const int t = warp_tot[i];
+    before += i < warp ? t : 0;
+    total += t;
+  }
+  return before + incl - x;
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// Grid (nblk, w): CTA (blk, q) owns bytes [blk * CP_TILE, +CP_TILE) of
+// row q. ctl = {epoch, CTAs done}; flags [w, nblk] are words
+// epoch << 32 | status << 30 | value, published with release stores.
+__global__ void __launch_bounds__(CP_THREADS)
+compact_kernel(const uint8_t* __restrict__ mask, long long row_stride, int cap,
+               int limit, int nblk, int32_t* __restrict__ ids,
+               int32_t* __restrict__ count, unsigned int* ctl,
+               unsigned long long* flags) {
+  __shared__ int warp_tot[CP_THREADS / 32];
+  __shared__ unsigned int s_epoch;
+  __shared__ int s_before;
+  const int blk = blockIdx.x;
+  const int q = blockIdx.y;
+  const int tid = threadIdx.x;
+  if (tid == 0) s_epoch = *reinterpret_cast<volatile unsigned int*>(ctl);
+
+  const uintptr_t addr = (uintptr_t)(mask + (long long)q * row_stride);
+  const int head = (int)(addr & 15);  // row start past a 16-byte boundary
+  const uint4* base = reinterpret_cast<const uint4*>(addr - head);
+  const long long vlen = (long long)head + cap;  // positions [head, vlen)
+  const long long nchunks = cap > 0 ? (vlen + 15) / 16 : 0;
+  const long long vbase = ((long long)blk * CP_THREADS + tid) * CP_BYTES;
+  uint4 c[4];
+  load_chunks(c, base, vbase / 16, nchunks);
+  uint64_t bits = chunk_bits(c) & row_bits(vbase, head, vlen);
+  int total;
+  const int rank0 = block_exclusive_scan(__popcll(bits), warp_tot, total);
+
+  // this tile's count goes out at once (its inclusive prefix when it is
+  // the row's first tile); warp 0 then sums its predecessors' flags, 32 at
+  // a time, back to the nearest one that holds an inclusive prefix
+  const unsigned long long tag = (unsigned long long)s_epoch << 32;
+  unsigned long long* fl = flags + (long long)q * nblk;
+  if (tid == 0)
+    st_release(fl + blk, tag | ((blk ? CP_AGG : CP_PREFIX) << 30) | total);
+  if (tid < 32) {
+    int before = 0;
+    for (int i = blk - 1; i >= 0; i -= 32) {
+      const int p = i - tid;
+      unsigned long long f = CP_PREFIX << 30;  // before the row: prefix 0
+      if (p >= 0) {
+        do {
+          f = ld_acquire(fl + p);
+        } while ((f >> 32) != s_epoch || ((f >> 30) & 3) == 0);
+      }
+      const unsigned prefix = __ballot_sync(0xffffffffu,
+                                            ((f >> 30) & 3) == CP_PREFIX);
+      const int stop = prefix ? __ffs(prefix) - 1 : 31;
+      int v = tid <= stop ? (int)(f & CP_VALUE) : 0;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      before += v;
+      if (prefix) break;
+    }
+    if (tid == 0) {
+      if (blk) st_release(fl + blk, tag | (CP_PREFIX << 30) | (before + total));
+      s_before = before;
+    }
+  }
+  __syncthreads();
+  const int before = s_before;
+
+  int32_t* out = ids + (long long)q * limit;
+  int rank = before + rank0;
+  while (bits && rank < limit) {
+    const int i = __ffsll((long long)bits) - 1;
+    bits &= bits - 1;
+    out[rank++] = (int32_t)(vbase + i - head);
+  }
+  if (blk == nblk - 1) {  // the row's last tile knows its count
+    const int n = before + total;
+    for (int p = min(n, limit) + tid; p < limit; p += CP_THREADS) out[p] = 0;
+    if (tid == 0) count[q] = n;
+  }
+  // the launch's last CTA moves the epoch on (atomicInc wraps the done
+  // count back to 0), so the next launch ignores these flags
+  if (tid == 0) {
+    __threadfence();
+    const unsigned int n_cta = gridDim.x * gridDim.y;
+    if (atomicInc(ctl + 1, n_cta - 1) == n_cta - 1) atomicAdd(ctl, 1u);
+  }
 }
 
 }  // namespace
@@ -119,14 +277,22 @@ REPRO_EXPORT int relscan_scan(const void* c0, const void* c1, const void* c2,
   return (int)cudaGetLastError();
 }
 
-// ids [w, limit] int32 must be zeroed by the caller (0-padded contract);
-// offs [w, nblk] is the exclusive prefix of the scan's block counts.
-REPRO_EXPORT int relscan_compact(const void* mask, const void* offs, int cap,
-                                 int w, int limit, void* ids, void* stream) {
-  const int nblk = (cap + RS_BLOCK - 1) / RS_BLOCK;
-  dim3 grid(nblk, w);
-  compact_kernel<<<grid, RS_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)mask, (const int32_t*)offs, cap, nblk, limit,
-      (int32_t*)ids);
+// mask [w, cap] uint8 (row q at mask + q * row_stride bytes, bytes
+// contiguous) -> ids [w, limit] int32 (the first `limit` set bytes of each
+// row as row ids, in row order, 0-padded) and count [w] int32 (unclamped).
+// ctl (2 x uint32) and flags (>= w * ceil((cap + 15) / 16 KiB) uint64) are
+// the caller's persistent scratch, zeroed once when allocated and used by
+// one stream's launches only.
+REPRO_EXPORT int relscan_compact(const void* mask, long long row_stride,
+                                 int cap, int w, int limit, void* ids,
+                                 void* count, void* ctl, void* flags,
+                                 void* stream) {
+  if (w <= 0 || limit <= 0 || cap < 0 || (long long)cap > (long long)CP_VALUE)
+    return (int)cudaErrorInvalidValue;
+  const int nblk = (int)(((long long)cap + 15 + CP_TILE - 1) / CP_TILE);
+  const int n = nblk > 0 ? nblk : 1;
+  compact_kernel<<<dim3(n, w), CP_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, row_stride, cap, limit, n, (int32_t*)ids,
+      (int32_t*)count, (unsigned int*)ctl, (unsigned long long*)flags);
   return (int)cudaGetLastError();
 }

@@ -110,13 +110,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     """argtypes/restype of every exported function: pointers and the
     stream as c_void_p (a bare Python int would be cut to 32 bits)."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    L = ctypes.c_longlong
     sigs = {
         "relscan_scan": [P, P, P, P, I, I, I, I, I, P, P, I, I, P, P, P],
-        "relscan_compact": [P, P, I, I, I, P, P],
+        "relscan_compact": [P, L, I, I, I, P, P, P, P, P],
         "hash_build": [P, P, P, P, I, I, P, P, P],
         "hash_probe": [P, P, P, I, I, P, P, P],
         "flash_attention": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, F, I,
-                            P],
+                            ctypes.POINTER(L), P],
         "paged_attention": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I,
                             P],
         "mamba2_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
@@ -153,5 +154,10 @@ def require_cuda(t, kernel: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """PyTorch's current stream on ``device`` as a raw pointer, without
+    building a ``torch.cuda.Stream`` object (the call compiled PyTorch
+    code makes)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)

@@ -2,14 +2,25 @@
 sliding window, logit softcap, GQA (port of
 ``repro.kernels.flash_attention``).
 
-The kernel is ``csrc/flash_attention.cu``; :func:`flash_attention_ref`
-beside it is its plain PyTorch version (the counterpart of
-``repro.kernels.ref.flash_attention_ref``). The wrapper serves a CPU
-tensor with the plain version and a CUDA tensor with the kernel; there is
-no other route. Unlike the TPU wrapper, any ``sq`` and ``sk`` are taken:
-the kernel masks the ragged tail of its last tiles itself.
+The kernels are in ``csrc/flash_attention.cu``: bf16 runs on the tensor
+cores (``flash_kernel_tc``: mma.sync, a cp.async K/V ring), fp32 on the
+SIMT kernel (``flash_kernel``; tensor cores would round fp32 to TF32). The
+dtype picks the kernel; any other dtype is refused.
+:func:`flash_attention_ref` beside them is their plain PyTorch version (the
+counterpart of ``repro.kernels.ref.flash_attention_ref``). The wrapper
+serves a CPU tensor with the plain version and a CUDA tensor with a
+kernel; there is no other route. Unlike the TPU wrapper, any ``sq`` and
+``sk`` are taken: the kernels mask the ragged tail of their last tiles.
+
+The kernels read q, k and v and write the output through their batch,
+head and sequence strides, so the ``[b, s, h, hd]``-transposed views that
+``attention_prefill`` passes need no copy; the output keeps q's strides
+(``torch.empty_like``). A tensor whose head dim is not contiguous or
+whose rows do not start on 16 bytes is copied to a contiguous one first.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -59,11 +70,27 @@ def flash_attention_ref(q, k, v, *, scale: float, causal: bool = True,
     return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
 
 
+def _kernel_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernels can read it through its strides (head
+    dim contiguous, every row starting on 16 bytes), else a contiguous
+    copy."""
+    s0, s1, s2, s3 = t.stride()
+    n0, n1, n2, _ = t.shape
+    step = 16 // t.element_size()  # elements in 16 bytes
+    if (s3 == 1 and t.data_ptr() % 16 == 0 and (n0 == 1 or s0 % step == 0)
+            and (n1 == 1 or s1 % step == 0) and (n2 == 1 or s2 % step == 0)):
+        return t
+    return t.contiguous()
+
+
+_STRIDES = ctypes.c_longlong * 12
+
+
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,
                     window: int = 0, softcap: float = 0.0,
                     q_offset: int = 0) -> torch.Tensor:
-    """Contract of :func:`flash_attention_ref` (kernel on CUDA tensors:
-    fp32 or bf16, head dim in ``HEAD_DIMS``)."""
+    """Contract of :func:`flash_attention_ref` (kernels on CUDA tensors:
+    bf16 on tensor cores, fp32 SIMT; head dim in ``HEAD_DIMS``)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                    window=window, softcap=softcap,
@@ -75,14 +102,16 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
     if q.dtype not in DTYPE_CODES or hd not in HEAD_DIMS:
         raise TypeError(f"flash_attention takes fp32/bf16 and head dims "
                         f"{HEAD_DIMS}, not {q.dtype} / {hd}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
     out = torch.empty_like(q)
     if sq == 0:
         return out
+    strides = _STRIDES(*(q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
+                         + out.stride()[:3]))
     err = _build.lib("flash_attention").flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kh,
         sq, sk, hd, DTYPE_CODES[q.dtype], float(scale), int(bool(causal)),
-        int(window), float(softcap), int(q_offset),
+        int(window), float(softcap), int(q_offset), strides,
         _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
     _build.launches["flash_attention"] += 1

@@ -18,7 +18,7 @@ def relscan_ref(cols, valid, vals, *, ops, limit, want_ids=True):
     count = cnt.sum(dim=1, dtype=torch.int32)
     if not want_ids:
         return None, None, mask, count
-    ids = RS.compact_ref(mask, cnt, limit)
+    ids, _ = RS.compact_ref(mask, limit)
     present = torch.arange(limit, dtype=torch.int32,
                            device=mask.device)[None, :] < count[:, None]
     return ids, present, mask, count

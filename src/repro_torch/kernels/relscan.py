@@ -9,9 +9,10 @@ beside it in this module:
              ``[w, nblk]`` (``BLOCK`` rows a block). ``vals`` is a
              ``[w, nterms]`` value matrix: ``w`` statements scan the same
              columns in one launch.
-``compact``  the first ``limit`` matching row ids of every statement, in
-             row order, 0-padded, from the mask and the exclusive prefix
-             of the block counts.
+``compact``  the first ``limit`` set bits of every mask row as row ids,
+             in row order, 0-padded, and the unclamped count of each row
+             (the JAX package's ``compact(mask, *, limit)`` helper, with
+             the count beside the ids): one launch, nothing else.
 
 A wrapper serves a CPU tensor with the plain version and a CUDA tensor
 with its kernel; there is no other route. :func:`relscan` chains the two
@@ -112,45 +113,73 @@ def scan(cols: Sequence[torch.Tensor], valid: torch.Tensor,
     return mask, cnt
 
 
-def compact_ref(mask: torch.Tensor, cnt: torch.Tensor, limit: int):
-    """Plain version of the compaction kernel: the first ``limit`` set
-    bits of every mask row as row ids ``[w, limit]`` int32, in row order,
-    0-padded (``cnt`` is the kernel's prefix input; unused here)."""
-    del cnt
+def _check_compact(mask, limit):
+    if mask.dim() != 2 or mask.dtype != torch.bool:
+        raise TypeError("mask must be a [w, cap] bool tensor")
+    if limit < 1:
+        raise ValueError("limit must be >= 1")
+
+
+def compact_ref(mask: torch.Tensor, limit: int):
+    """Plain version of the compaction kernel: (ids [w, limit] int32, the
+    first ``limit`` set bits of every mask row as row ids in row order,
+    0-padded; count [w] int32, the set bits of each row, unclamped)."""
+    _check_compact(mask, limit)
     w, cap = mask.shape
-    pos = torch.cumsum(mask.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    m32 = mask.to(torch.int32)
+    pos = torch.cumsum(m32, dim=1, dtype=torch.int32) - 1
     tgt = torch.where(mask & (pos < limit), pos, limit).long()
     ids = torch.zeros((w, limit + 1), dtype=torch.int32, device=mask.device)
     rows = torch.arange(cap, dtype=torch.int32,
                         device=mask.device).expand(w, -1)
     ids.scatter_(1, tgt, rows)  # overflow rows land in the scratch column
-    return ids[:, :limit].contiguous()
+    return ids[:, :limit].contiguous(), m32.sum(dim=1, dtype=torch.int32)
 
 
-def compact(mask: torch.Tensor, cnt: torch.Tensor, limit: int):
-    """Bitmap -> first ``limit`` row ids (kernel on CUDA tensors).
-    Contract of :func:`compact_ref`."""
-    if mask.dim() != 2 or mask.dtype != torch.bool:
-        raise TypeError("mask must be a [w, cap] bool tensor")
-    w, cap = mask.shape
-    if cnt.shape != (w, n_blocks(cap)) or cnt.dtype != torch.int32:
-        raise TypeError("cnt must be the scan's [w, nblk] int32 block counts")
-    if limit < 1:
-        raise ValueError("limit must be >= 1")
+# rows of a mask one compaction CTA covers; csrc/relscan.cu CP_TILE
+COMPACT_TILE = 16384
+_scratch: dict = {}
+
+
+def _compact_scratch(device, stream: int, n_flags: int) -> torch.Tensor:
+    """The compaction's persistent scratch for one device and stream: two
+    uint32 control words (the launch epoch, CTAs done) in element 0, then
+    ``n_flags`` look-back flags. Zeroed once when it is allocated (a larger
+    one replaces it), never per call: each flag carries the epoch of the
+    launch that wrote it, and each launch moves the epoch on."""
+    key = (device.index, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < n_flags + 1:
+        buf = torch.zeros(max(n_flags + 1, 1024), dtype=torch.int64,
+                          device=device)
+        _scratch[key] = buf
+    return buf
+
+
+def compact(mask: torch.Tensor, limit: int):
+    """Bitmap -> (first ``limit`` row ids, unclamped count) per row; on a
+    CUDA tensor one kernel launch and no other device op. Contract of
+    :func:`compact_ref`."""
+    _check_compact(mask, limit)
     if mask.device.type == "cpu":
-        return compact_ref(mask, cnt, limit)
+        return compact_ref(mask, limit)
     _build.require_cuda(mask, "relscan_compact")
-    # exclusive prefix of the block counts (nblk long; the JAX package also
-    # takes this step outside its kernel)
-    offs = (torch.cumsum(cnt, dim=1, dtype=torch.int32) - cnt).contiguous()
-    mask = mask.contiguous()
-    ids = torch.zeros((w, limit), dtype=torch.int32, device=mask.device)
+    w, cap = mask.shape
+    if mask.stride(1) != 1:
+        mask = mask.contiguous()
+    ids = torch.empty((w, limit), dtype=torch.int32, device=mask.device)
+    count = torch.empty((w,), dtype=torch.int32, device=mask.device)
+    if w == 0:
+        return ids, count
+    stream = _build.stream_ptr(mask.device)
+    scratch = _compact_scratch(mask.device, stream,
+                               w * -(-(cap + 15) // COMPACT_TILE))
     err = _build.lib("relscan").relscan_compact(
-        mask.data_ptr(), offs.data_ptr(), cap, w, limit, ids.data_ptr(),
-        _build.stream_ptr(mask.device))
+        mask.data_ptr(), mask.stride(0), cap, w, limit, ids.data_ptr(),
+        count.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 8, stream)
     _build.check(err, "relscan_compact")
     _build.launches["relscan_compact"] += 1
-    return ids
+    return ids, count
 
 
 def relscan(cols: Sequence[torch.Tensor], valid: torch.Tensor,
@@ -169,7 +198,7 @@ def relscan(cols: Sequence[torch.Tensor], valid: torch.Tensor,
     count = cnt.sum(dim=1, dtype=torch.int32)
     if not want_ids:
         return None, None, mask, count
-    ids = compact(mask, cnt, limit)
+    ids, _ = compact(mask, limit)
     present = torch.arange(limit, dtype=torch.int32,
                            device=mask.device)[None, :] < count[:, None]
     return ids, present, mask, count

@@ -72,6 +72,30 @@ def test_flash_plain_matches_pallas_interpret(b, h, kh, sq, sk, hd, causal,
     np.testing.assert_allclose(_f32(got), _f32(want), **TOLS[dt])
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kh,s", [(1, 4, 4, 80), (2, 8, 2, 48)])
+def test_flash_takes_prefill_transposed_views(b, h, kh, s, dt):
+    """attention_prefill passes [b, s, h, hd] projections transposed to
+    [b, h, s, hd] (no copy): the wrapper's CPU path gives the contiguous
+    call's output, and the Pallas kernel's (interpret mode), at hd 80 and
+    s not a multiple of 64."""
+    hd = 80
+    rng = np.random.default_rng(s + h)
+    jq, tq = _pair(rng.standard_normal((b, s, h, hd)), dt)
+    jk, tk = _pair(rng.standard_normal((b, s, kh, hd)), dt)
+    jv, tv = _pair(rng.standard_normal((b, s, kh, hd)), dt)
+    views = [t.transpose(1, 2) for t in (tq, tk, tv)]
+    assert not views[0].is_contiguous()
+    kw = dict(scale=hd ** -0.5, causal=True, window=0, softcap=0.0)
+    got = TF.flash_attention(*views, **kw)
+    assert got.shape == (b, h, s, hd) and got.dtype == TDT[dt]
+    want = TF.flash_attention(*(v.contiguous() for v in views), **kw)
+    assert torch.equal(got, want)
+    jt = [jnp.swapaxes(x, 1, 2) for x in (jq, jk, jv)]
+    pallas = j_flash(*jt, block_q=16, block_kv=16, interpret=True, **kw)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), **TOLS[dt])
+
+
 @pytest.mark.parametrize(
     "s,h,kh,hd,window,softcap,q_offset",
     [

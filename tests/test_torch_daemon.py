@@ -74,6 +74,29 @@ def fill(dbs, n=20):
         [(i % 5, i % 3, f"k{i}", float(i)) for i in range(n)])
 
 
+@pytest.mark.parametrize("limit", [1, 5, 64])
+def test_generic_scan_compaction_matches_reference(monkeypatch, limit):
+    """A WHERE the planner leaves to GenericScan (an OR) is compacted by
+    core.table._compact: the same row ids, presence and counts as the
+    reference daemon's."""
+    from repro_torch.core import table as TT
+    calls = []
+    real = TT._compact
+    monkeypatch.setattr(TT, "_compact",
+                        lambda *a: calls.append(a[1]) or real(*a))
+    dbs = pair()
+    fill(dbs, n=60)
+    for args in ((1, 2), (4, 0), (9, 9)):
+        run(dbs, "execute", "SELECT key, val FROM cache WHERE page_id = ? "
+            f"OR user_id = ? LIMIT {limit}", args)
+    run(dbs, "execute", "DELETE FROM cache WHERE page_id = ? OR val > ?",
+        (3, 50.0))
+    run(dbs, "execute", "SELECT key FROM cache WHERE page_id = ? OR "
+        f"user_id = ? LIMIT {limit}", (3, 1))
+    same_tables(dbs, "cache")
+    assert limit in calls
+
+
 def test_core_daemon_script():
     dbs = pair()
     fill(dbs)

@@ -7,6 +7,8 @@ the output), and for the Mamba2 scan y within 1e-4 and h_last within
 tiles), bf16 y within 2e-2. Every test skips with a reason where no CUDA card is
 present; run them on the card with ``python -m pytest -m gpu
 tests/test_torch_gpu.py``."""
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -48,9 +50,46 @@ def test_scan_and_compact_match_plain(cuda, cap, nterms, w):
     torch.cuda.synchronize()
     assert torch.equal(mask, mask_r) and torch.equal(cnt, cnt_r)
     for limit in (1, 64, 1000):
-        ids = RS.compact(mask, cnt, limit)
+        ids, count = RS.compact(mask, limit)
+        ids_r, count_r = RS.compact_ref(mask_r, limit)
         torch.cuda.synchronize()
-        assert torch.equal(ids, RS.compact_ref(mask_r, cnt_r, limit))
+        assert torch.equal(ids, ids_r) and torch.equal(count, count_r)
+        assert torch.equal(count, cnt.sum(dim=1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("cap", [1, 255, 256, 100_003, 131_072, 4_194_304])
+@pytest.mark.parametrize("w", [1, 5])
+@pytest.mark.parametrize("kind", ["empty", "full", "sparse"])
+def test_compact_matches_plain(cuda, cap, w, kind):
+    """Exact ids and counts; limits below and above the count; rows that
+    do not start on 16 bytes (w > 1 at caps that are not multiples of 16,
+    and a sliced view)."""
+    rng = np.random.default_rng(cap + w)
+    p = {"empty": 0.0, "full": 1.0, "sparse": 0.002}[kind]
+    mask = torch.tensor(rng.random((w, cap)) < p, device=cuda)
+    for m in (mask, mask[:, 3:]):
+        for limit in (1, 64, 1000, m.shape[1] + 3):
+            ids, count = RS.compact(m, limit)
+            ids_r, count_r = RS.compact_ref(m, limit)
+            torch.cuda.synchronize()
+            assert ids.dtype == torch.int32 and ids.shape == (w, limit)
+            assert torch.equal(ids, ids_r), (limit, m.shape)
+            assert torch.equal(count, count_r), (limit, m.shape)
+
+
+def test_compact_is_one_launch(cuda):
+    """One device kernel and no memset or copy per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    mask = torch.rand((1, 131_072), device=cuda) < 0.001
+    RS.compact(mask, 64)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        RS.compact(mask, 64)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "compact_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("cap,frac", [(131_072, 0.76), (4096, 0.0),
@@ -181,6 +220,106 @@ def test_flash_attention_matches_plain(cuda, b, h, kh, sq, sk, hd, causal,
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
     assert float((got.float() - want.float()).abs().max()) <= ATT_TOL[dtype]
+
+
+def _flash_case(dev, dtype, b, h, kh, sq, sk, hd, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((b, h, sq, hd), (b, kh, sk, hd),
+                               (b, kh, sk, hd)))
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 63, 64, 65, 300])
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+def test_flash_bf16_tile_edges(cuda, hd, n):
+    """The tensor-core kernel at lengths around its 16-row warp tile, its
+    64-row CTA tile and its 64-key (32 at hd 256) K/V tile; GQA 8:1."""
+    q, k, v = _flash_case(cuda, torch.bfloat16, 1, 8, 1, n, n, hd, n + hd)
+    got = FA.flash_attention(q, k, v, scale=hd ** -0.5)
+    want = FA.flash_attention_ref(q, k, v, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize(
+    "b,h,kh,sq,sk,causal,window,softcap,q_offset",
+    [
+        (1, 4, 2, 130, 130, True, 70, 0.0, 0),    # window across K/V tiles
+        (2, 4, 4, 65, 65, True, 0, 30.0, 0),      # softcap
+        (2, 4, 2, 17, 81, True, 0, 0.0, 64),      # q_offset, sk > sq
+        (1, 4, 4, 63, 65, False, 0, 0.0, 0),      # not causal, sq != sk
+        (1, 8, 1, 100, 164, True, 40, 20.0, 64),  # all of them, GQA 8:1
+    ])
+def test_flash_bf16_options(cuda, hd, b, h, kh, sq, sk, causal, window,
+                            softcap, q_offset):
+    q, k, v = _flash_case(cuda, torch.bfloat16, b, h, kh, sq, sk, hd,
+                          sq + hd)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+              softcap=softcap, q_offset=q_offset)
+    got = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,s,hd", [(1, 32, 32, 300, 80),
+                                         (2, 32, 4, 24, 128),
+                                         (1, 8, 2, 37, 8)])
+def test_flash_reads_transposed_views_without_a_copy(cuda, dtype, b, h, kh,
+                                                     s, hd):
+    """The [b, s, h, hd]-transposed views attention_prefill passes: the
+    same output as the contiguous call, written in q's layout, and the
+    caching allocator hands out the output's bytes and nothing else."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn((b, s, n, hd), generator=g,
+                           device=cuda).to(dtype).transpose(1, 2)
+               for n in (h, kh, kh))
+    kw = dict(scale=hd ** -0.5)
+    want = FA.flash_attention(q.contiguous(), k.contiguous(),
+                              v.contiguous(), **kw)
+    FA.flash_attention(q, k, v, **kw)  # built and warm
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats(cuda)["allocated_bytes.all.allocated"]
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    grown = (torch.cuda.memory_stats(cuda)["allocated_bytes.all.allocated"]
+             - before)
+    assert grown == -(-got.numel() * got.element_size() // 512) * 512
+    assert got.stride() == q.stride() and got.transpose(1, 2).is_contiguous()
+    assert torch.equal(got, want)
+    ref = FA.flash_attention_ref(q, k, v, **kw)
+    assert float((got.float() - ref.float()).abs().max()) <= ATT_TOL[dtype]
+
+
+def test_flash_dtype_picks_the_kernel(cuda):
+    """bf16 runs on the tensor-core kernel, fp32 on the SIMT kernel
+    (within 1e-5 of the plain version)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cases = {dtype: _flash_case(cuda, dtype, 1, 8, 2, 70, 70, 64, 3)
+             for dtype in (torch.float32, torch.bfloat16)}
+    for dtype, (q, k, v) in cases.items():
+        got = FA.flash_attention(q, k, v, scale=0.125)
+        want = FA.flash_attention_ref(q, k, v, scale=0.125)
+        assert float((got.float() - want.float()).abs().max()) \
+            <= ATT_TOL[dtype]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            for q, k, v in cases.values():
+                FA.flash_attention(q, k, v, scale=0.125)
+        torch.cuda.synchronize()
+    events = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    kinds = [re.search(r"flash_kernel\w*", n) for n in events]
+    assert all(kinds), events
+    assert {m.group(0) for m in kinds} == {"flash_kernel",
+                                           "flash_kernel_tc"}, events
+    q, k, v = cases[torch.float32]
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.half(), k.half(), v.half(), scale=0.125)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -76,15 +76,30 @@ def test_relscan_batched_rows_match_single_statements():
 
 
 def test_compact_plain_matches_reference_compact():
+    """compact(mask, limit) -> (ids, count): the reference's compact
+    helper's ids and presence, and its relscan oracle's ids and count,
+    row by row of a [w, cap] mask."""
     from repro.kernels.relscan import compact as j_compact
     rng = np.random.default_rng(1)
+    w, cap = 3, 1000
     for p in (0.0, 0.01, 0.5, 1.0):
-        mask = rng.random(1000) < p
+        mask = rng.random((w, cap)) < p
+        mask[1] = rng.random(cap) < p / 2   # rows of different counts
         for limit in (1, 7, 200):
-            ids_j, _ = j_compact(jnp.asarray(mask), limit=limit)
-            m = _t(mask)[None]
-            ids_t = TRS.compact(m, TRS.block_counts(m), limit)
-            _eq(ids_j, ids_t[0])
+            ids_t, count_t = TRS.compact(_t(mask), limit)
+            assert ids_t.shape == (w, limit) and count_t.shape == (w,)
+            for i in range(w):
+                ids_j, present_j = j_compact(jnp.asarray(mask[i]),
+                                             limit=limit)
+                _eq(ids_j, ids_t[i])
+                _eq(present_j, torch.arange(limit) < count_t[i])
+                # the oracle over a column that equals the mask row
+                ids_r, _, _, count_r = JR.relscan_ref(
+                    (jnp.asarray(mask[i].astype(np.int32)),),
+                    jnp.ones(cap, bool), jnp.asarray([1], jnp.int32),
+                    ops=("==",), limit=limit)
+                _eq(ids_r, ids_t[i])
+                assert int(count_r) == int(count_t[i]) == int(mask[i].sum())
 
 
 def test_bucket_of_negative_and_large_keys():
