@@ -26,18 +26,26 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               1-300 around the 16-row warp, 64-row CTA and 64-key tiles,
               each head dim, GQA 8:1, windows, softcap, q_offset), and the
               [b, s, h, hd]-transposed views attention_prefill passes
-              (equal to the contiguous call, no copy); then their times,
-              bounds and, for flash attention, the time of the one PyTorch
-              call that computes the same function
-              (scaled_dot_product_attention), at the serve shapes and at
-              one 2,048-token prompt with yi-6b's heads.
+              (equal to the contiguous call, no copy), and the paged
+              kernel's split edges (lengths on and beside a 64-position
+              split, a 1,024-token sequence beside empty and 1-token slots,
+              a window that drops whole splits, missing pages inside a
+              split; a second call must give the same bits); then their
+              times (paged: the device time of the whole call), bounds and,
+              for flash attention, the time of the one PyTorch call that
+              computes the same function (scaled_dot_product_attention), at
+              the serve shapes and at one 2,048-token prompt with yi-6b's
+              heads.
    kernels_mamba -- the Mamba2 scan kernel against its plain version
               (y within 1e-4 fp32 / 2e-2 bf16, h_last within 1e-3,
               relative and absolute) at tests/test_kernels.py's shapes,
-              ragged lengths 23 and 600 and zamba2's prefill (b 1, s 300,
-              nh 80, dh 64, st 64), x in fp32 and bf16, the initial state
-              zero and not; then its time, bound and plain time (no
-              PyTorch call computes this function).
+              ragged lengths 23 and 600, zamba2's prefills (b 1, s 300 and
+              24, nh 80, dh 64, st 64) and the chunk-parallel kernel's
+              edges (s 1, 63, 64, 65, 129; b 3; st 16, 128, 256; dh 80), x
+              in fp32 and bf16, the initial state zero and not; then its
+              time at s 300 and s 24 (the device time of the whole call,
+              2 launches and 1), bound and plain time (no PyTorch call
+              computes this function).
 3. table2  -- the paper's Table 2 deployment (100,000 records over 30,000
               pages and 1,000 users, CAPACITY 131072), with and without
               INDEX(page_id), INDEX(user_id), on the card daemon and on a
@@ -121,6 +129,7 @@ from repro_torch.serving.engine import ServeEngine  # noqa: E402
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 SIMT_OPS_S = 67e12      # H100 SXM non-tensor-core 32-bit rate (data sheet)
 BF16_OPS_S = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
+TF32_OPS_S = 495e12     # H100 SXM dense TF32 tensor-core rate (data sheet)
 ATT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SEED = 0
 
@@ -185,6 +194,11 @@ def call_device_ms(fn, iters=50):
     return sum(device_us(e) for e in device_events(fn, iters)) / iters / 1e3
 
 
+def device_launches(fn, iters=10):
+    """Kernels, memsets and copies one call of ``fn`` puts on the card."""
+    return len(device_events(fn, iters)) / iters
+
+
 def bound(nbytes: float, ops: float, ops_rate: float = SIMT_OPS_S):
     t_b, t_o = nbytes / HBM_BYTES_S, ops / ops_rate
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
@@ -217,14 +231,14 @@ def phase_device() -> str:
     return smi
 
 
-KERNEL_NAME = re.compile(r"(mamba_scan|scan|compact|build|probe|flash|paged)"
-                         r"_kernel(_tc)?")
+KERNEL_NAME = re.compile(r"(ms_state|ms_chunk|scan|compact|build|probe|flash|"
+                         r"paged_split)_kernel(_tc)?")
 
 
 def kernel_key(fn: str) -> str:
     """A readable name for a mangled kernel symbol: the kernel and its
     template arguments (dtype, head dim), e.g. ``flash_kernel_tc<80>``
-    (the bf16 tensor-core kernel) or ``paged_kernel<bf16,128>``."""
+    (the bf16 tensor-core kernel) or ``paged_split_kernel<bf16,128>``."""
     name = KERNEL_NAME.search(fn)
     if not name:
         return fn
@@ -537,25 +551,44 @@ FLASH_EDGE_CASES = [(1, 8, 1, n, n, hd, True, 0, 0.0, 0)
 FLASH_VIEW_CASES = [(1, 32, 32, 300, 80), (1, 32, 4, 24, 128),
                     (2, 8, 2, 37, 8)]
 
-# (b, h, kh, hd, block, nblk, window, softcap, lengths or None)
+# (b, h, kh, hd, block, nblk, window, softcap, lengths or None, holes):
+# holes are (sequence, page) entries of the page table set to -1
 PAGED_CASES = [
-    (2, 4, 4, 64, 16, 4, 0, 0.0, None),
-    (3, 8, 2, 64, 16, 6, 0, 0.0, None),
-    (2, 4, 4, 128, 32, 3, 0, 50.0, None),
-    (2, 4, 2, 64, 16, 8, 40, 0.0, None),
-    (2, 8, 2, 256, 8, 5, 9, 30.0, None),
-    (2, 4, 2, 32, 16, 4, 0, 0.0, None),
-    (3, 8, 4, 8, 8, 6, 0, 0.0, None),           # yi-6b SMOKE's head dim
-    (2, 4, 4, 16, 16, 3, 7, 5.0, None),
+    (2, 4, 4, 64, 16, 4, 0, 0.0, None, ()),
+    (3, 8, 2, 64, 16, 6, 0, 0.0, None, ()),
+    (2, 4, 4, 128, 32, 3, 0, 50.0, None, ()),
+    (2, 4, 2, 64, 16, 8, 40, 0.0, None, ()),
+    (2, 8, 2, 256, 8, 5, 9, 30.0, None, ()),
+    (2, 4, 2, 32, 16, 4, 0, 0.0, None, ()),
+    (3, 8, 4, 8, 8, 6, 0, 0.0, None, ()),       # yi-6b SMOKE's head dim
+    (2, 4, 4, 16, 16, 3, 7, 5.0, None, ()),
     # the serve path's decode: 4 slots, one without a request
-    (4, 32, 4, 128, 16, 16, 0, 0.0, [24, 31, 0, 40]),
-    (4, 32, 4, 128, 16, 16, 0, 0.0, [9, 17, 33, 256]),
+    (4, 32, 4, 128, 16, 16, 0, 0.0, [24, 31, 0, 40], ()),
+    (4, 32, 4, 128, 16, 16, 0, 0.0, [9, 17, 33, 256], ()),
     # zamba2's shared block decode: block 16, max_seq 512
-    (4, 32, 32, 80, 16, 32, 0, 0.0, [24, 31, 0, 301]),
-    (4, 32, 32, 80, 16, 32, 0, 0.0, [9, 17, 33, 512]),
+    (4, 32, 32, 80, 16, 32, 0, 0.0, [24, 31, 0, 301], ()),
+    (4, 32, 32, 80, 16, 32, 0, 0.0, [9, 17, 33, 512], ()),
+    # the split kernel's edges (a split is 64 positions: 4 pages of 16, 8
+    # of 8, 2 of 32): lengths on a split edge and either side of it
+    (4, 32, 4, 128, 16, 16, 0, 0.0, [64, 128, 65, 63], ()),
+    (4, 32, 32, 80, 32, 8, 0, 0.0, [64, 192, 129, 1], ()),
+    # a 1,024-token sequence beside an empty and a 1-token slot
+    (3, 32, 32, 80, 16, 64, 0, 0.0, [1024, 0, 1], ()),
+    (3, 32, 4, 128, 16, 64, 0, 0.0, [1, 1024, 0], ()),
+    # a window that drops whole early splits
+    (2, 8, 2, 64, 16, 20, 40, 0.0, [300, 200], ()),
+    (2, 8, 8, 80, 8, 40, 33, 20.0, [310, 64], ()),
+    # a missing page in the middle of a split, and a split all missing
+    (2, 8, 2, 64, 8, 12, 0, 0.0, [90, 70], ((0, 9), (1, 2))),
+    (2, 8, 8, 80, 16, 16, 0, 0.0, [250, 100], ((0, 4), (0, 5), (0, 6),
+                                               (0, 7), (1, 2))),
 ]
 SERVE_DECODE_LENGTHS = [24, 31, 17, 40]
 ZAMBA_DECODE_LENGTHS = [24, 31, 17, 310]
+# (h, kh, hd, nblk, lengths, what) of the two decode timings: yi-6b's and
+# zamba2's shared block (4 slots, block 16, bf16)
+PAGED_YI = (32, 4, 128, 16, SERVE_DECODE_LENGTHS, "")
+PAGED_ZAMBA = (32, 32, 80, 32, ZAMBA_DECODE_LENGTHS, " (zamba2's shared block)")
 
 
 def att_err(got, want, dtype, what) -> float:
@@ -573,10 +606,12 @@ def flash_inputs(gen, dev, dtype, b, h, kh, sq, sk, hd):
                                (b, kh, sk, hd)))
 
 
-def paged_inputs(rng, gen, dev, dtype, b, h, kh, hd, block, nblk, lengths):
+def paged_inputs(rng, gen, dev, dtype, b, h, kh, hd, block, nblk, lengths,
+                 holes=()):
     """Random arena rows per sequence (tests/test_kernels.py's
     construction); ``lengths`` fixes each sequence's length (0: no
-    pages, as a slot without a request)."""
+    pages, as a slot without a request); ``holes`` are (sequence, page)
+    entries set to -1 (missing)."""
     cap = b * nblk + 4
     pages = np.full((b, nblk), -1, np.int32)
     lens = np.zeros((b,), np.int32)
@@ -591,11 +626,35 @@ def paged_inputs(rng, gen, dev, dtype, b, h, kh, hd, block, nblk, lengths):
             n = -(-lengths[i] // block)
         pages[i, :n] = perm[pi:pi + n]
         pi += n
+    for i, j in holes:
+        pages[i, j] = -1
     q = torch.randn((b, h, hd), generator=gen, device=dev).to(dtype)
     arena = torch.randn((cap, 2, block, kh, hd), generator=gen,
                         device=dev).to(dtype)
     return (q, arena, torch.from_numpy(pages).to(dev),
             torch.from_numpy(lens).to(dev))
+
+
+def paged_timing(rng, gen, dev, h, kh, hd, nblk, lengths, what):
+    """One decode call of paged attention at a serve path's shape: its
+    time, the device time of the whole call and its device launches, the
+    plain version's time and the bound."""
+    q, arena, pages, lens = paged_inputs(rng, gen, dev, torch.bfloat16, 4, h,
+                                         kh, hd, 16, nblk, lengths)
+    scale = hd ** -0.5
+    run = lambda: PA.paged_attention(  # noqa: E731
+        q, arena, pages, lens, scale=scale)
+    b_ms, b_by = bound(*paged_work(h, kh, hd, nblk, lengths, 2), BF16_OPS_S)
+    return {
+        "kernel": "paged_attention", "shape": f"b4 h{h}/kh{kh} hd{hd} "
+        f"block16 nblk{nblk} lengths {lengths} bf16{what}",
+        "ms": time_ms(run), "device_ms": call_device_ms(run),
+        "device_launches": device_launches(run),
+        "plain_ms": time_ms(lambda: PA.paged_attention_ref(
+            q, arena, pages, lens, scale=scale)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library": "none: no single PyTorch call gathers K/V through a page "
+                   "table"}
 
 
 def flash_work(b, h, kh, sq, sk, hd, elem, causal=True, q_offset=0):
@@ -662,16 +721,21 @@ def phase_kernels_attention(dev, card):
             e = att_err(got, want, dtype, f"flash_attention {shape} {dname}")
             errs["flash_attention"] = max(errs["flash_attention"], e)
             per_case.append(["flash", dname, shape, e])
-        for (b, h, kh, hd, block, nblk, window, softcap,
-             lengths) in PAGED_CASES:
+        for (b, h, kh, hd, block, nblk, window, softcap, lengths,
+             holes) in PAGED_CASES:
             q, arena, pages, lens = paged_inputs(rng, gen, dev, dtype, b, h,
-                                                 kh, hd, block, nblk, lengths)
+                                                 kh, hd, block, nblk, lengths,
+                                                 holes)
             kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
             got = PA.paged_attention(q, arena, pages, lens, **kw)
             want = PA.paged_attention_ref(q, arena, pages, lens, **kw)
+            again = PA.paged_attention(q, arena, pages, lens, **kw)
             sync()
             shape = f"{b}x{h}/{kh}x{hd} blk{block}x{nblk} w{window} " \
-                    f"c{softcap}"
+                    f"c{softcap} lengths {lengths} holes {list(holes)}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged_attention {shape} {dname}: a "
+                                     f"second call differs (split counters)")
             e = att_err(got, want, dtype, f"paged_attention {shape} {dname}")
             errs["paged_attention"] = max(errs["paged_attention"], e)
             per_case.append(["paged", dname, shape, e])
@@ -729,23 +793,7 @@ def phase_kernels_attention(dev, card):
         "ms_transposed_views": views_ms,
         "ms_transposed_views_copied_first": copies_ms}
 
-    q, arena, pages, lens = paged_inputs(rng, gen, dev, bf, 4, 32, 4, 128,
-                                         16, 16, SERVE_DECODE_LENGTHS)
-    run = lambda: PA.paged_attention(  # noqa: E731
-        q, arena, pages, lens, scale=scale)
-    k_ms = time_ms(run)
-    p_ms = time_ms(lambda: PA.paged_attention_ref(q, arena, pages, lens,
-                                                  scale=scale))
-    d_ms = device_ms(run, "paged_kernel")
-    b_ms, b_by = bound(*paged_work(32, 4, 128, 16, SERVE_DECODE_LENGTHS, 2),
-                       BF16_OPS_S)
-    out["paged_attention"] = {
-        "kernel": "paged_attention", "shape": "b4 h32/kh4 hd128 block16 "
-        f"nblk16 lengths {SERVE_DECODE_LENGTHS} bf16", "ms": k_ms,
-        "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None,
-        "library": "none: no single PyTorch call gathers K/V through a page "
-                   "table"}
+    out["paged_attention"] = paged_timing(rng, gen, dev, *PAGED_YI)
 
     # zamba2's shared block (hd 80, kh 32): prefills of 24 and 300 tokens;
     # one 2,048-token prompt with yi-6b's heads (timed for the table only)
@@ -778,25 +826,7 @@ def phase_kernels_attention(dev, card):
             "library_device_ms": call_device_ms(sdpa),
             "library": "torch.nn.functional.scaled_dot_product_attention",
             "library_max_abs_diff": lib_diff}
-    hd, h = 80, 32
-    scale = hd ** -0.5
-    nblk = 32
-    q, arena, pages, lens = paged_inputs(rng, gen, dev, bf, 4, h, h, hd, 16,
-                                         nblk, ZAMBA_DECODE_LENGTHS)
-    run = lambda: PA.paged_attention(  # noqa: E731
-        q, arena, pages, lens, scale=scale)
-    b_ms, b_by = bound(*paged_work(h, h, hd, nblk, ZAMBA_DECODE_LENGTHS, 2),
-                       BF16_OPS_S)
-    out["paged_attention_hd80"] = {
-        "kernel": "paged_attention", "shape": "b4 h32/kh32 hd80 block16 "
-        f"nblk32 lengths {ZAMBA_DECODE_LENGTHS} bf16 (zamba2's shared "
-        "block)", "ms": time_ms(run), "device_ms": device_ms(run,
-                                                              "paged_kernel"),
-        "plain_ms": time_ms(lambda: PA.paged_attention_ref(
-            q, arena, pages, lens, scale=scale)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "library": "none: no single PyTorch call gathers K/V through a page "
-                   "table"}
+    out["paged_attention_hd80"] = paged_timing(rng, gen, dev, *PAGED_ZAMBA)
     for t in out.values():
         emit({"phase": "kernel_timing", "card": card, **t})
     return out, errs
@@ -805,10 +835,17 @@ def phase_kernels_attention(dev, card):
 # ------------------------------------------------ phase 2c: Mamba2 scan
 
 # (b, s, nh, dh, st): tests/test_kernels.py's shapes, ragged last tiles,
-# zamba2's prefill of 300 tokens
+# zamba2's prefills of 300 and 24 tokens; the chunk-parallel kernel's
+# edges: one step, one chunk and a step either side of it, three chunks
+# with a ragged one, b 3, st 16, 128 and 256, dh past one 64-row block
 MAMBA_CASES = [(2, 64, 2, 16, 8), (1, 128, 4, 32, 16), (2, 96, 1, 8, 4),
-               (2, 23, 3, 16, 8), (1, 600, 4, 64, 64), (1, 300, 80, 64, 64)]
+               (2, 23, 3, 16, 8), (1, 600, 4, 64, 64), (1, 300, 80, 64, 64),
+               (1, 24, 80, 64, 64), (1, 1, 80, 64, 64), (1, 63, 80, 64, 64),
+               (1, 64, 80, 64, 64), (1, 65, 80, 64, 64), (1, 129, 80, 64, 64),
+               (3, 129, 4, 64, 64), (2, 150, 4, 64, 16), (1, 150, 4, 64, 128),
+               (1, 70, 2, 16, 256), (2, 130, 3, 80, 32)]
 MAMBA_SERVE = (1, 300, 80, 64, 64)
+MAMBA_SHORT = (1, 24, 80, 64, 64)
 # |kernel - plain| <= tol * (1 + |plain|): y in fp32 (summation order over
 # 64-step tiles), y in bf16 (one rounding of the output), h_last (fp32
 # whatever x is; the state sums run over the whole sequence)
@@ -876,18 +913,64 @@ def phase_kernels_mamba(dev, card):
           "tolerance": MAMBA_TOL, "max_rel_err": rel, "max_abs_err": err,
           "per_case [what, rel y, rel h_last, abs y, abs h_last]": per_case})
 
-    args = mamba_inputs(gen, dev, torch.float32, *MAMBA_SERVE, False)
+    t = mamba_timing(gen, dev, MAMBA_SERVE, "zamba2's 300-token prefill")
+    short = mamba_timing(gen, dev, MAMBA_SHORT,
+                         "just above zamba2's serve prompts of 8-23 tokens")
+    for row in (t, short):
+        emit({"phase": "kernel_timing", "card": card, **row})
+    emit({"phase": "kernel_timing_short_prefills", "card": card,
+          **mamba_short_prefills(gen, dev)})
+    return {"mamba2_scan": t, "mamba2_scan_s24": short}, {"mamba2_scan": err}
+
+
+def mamba_timing(gen, dev, shape, what):
+    """One scan call (fp32 x, zero h0, as the prefill passes): its time,
+    the device time of the whole call and its device launches, the plain
+    version's time and the bound."""
+    args = mamba_inputs(gen, dev, torch.float32, *shape, False)
     run = lambda: MS.mamba2_scan(*args)  # noqa: E731
-    b_ms, b_by = bound(*mamba_work(*MAMBA_SERVE, 4))
-    t = {"kernel": "mamba2_scan", "shape": "b1 s300 nh80 dh64 st64 fp32 x, "
-         "zero h0 (zamba2's 300-token prefill)", "ms": time_ms(run),
-         "device_ms": device_ms(run, "mamba_scan_kernel"),
-         "plain_ms": time_ms(lambda: MS.mamba2_scan_ref(*args), iters=20,
-                             warm=3),
-         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-         "library": "none: no single PyTorch call computes the SSD scan"}
-    emit({"phase": "kernel_timing", "card": card, **t})
-    return {"mamba2_scan": t}, {"mamba2_scan": err}
+    b_ms, b_by = bound(*mamba_work(*shape, 4))
+    b, s, nh, dh, st = shape
+    return {"kernel": "mamba2_scan", "shape": f"b{b} s{s} nh{nh} dh{dh} "
+            f"st{st} fp32 x, zero h0 ({what})", "ms": time_ms(run),
+            "device_ms": call_device_ms(run),
+            "device_launches": device_launches(run),
+            "plain_ms": time_ms(lambda: MS.mamba2_scan_ref(*args), iters=20,
+                                warm=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_tc_ms": mamba_bound_tc(shape), "library_ms": None,
+            "library": "none: no single PyTorch call computes the SSD scan"}
+
+
+def mamba_bound_tc(shape):
+    """The scan's bound at the rate its products run at: mma.sync TF32 in
+    the 3-term split form (three products each, fp32 accuracy), i.e. a
+    third of the TF32 peak. ``bound_ms`` keeps the fp32 SIMT rate, the
+    yardstick of the scan's earlier rows."""
+    return bound(*mamba_work(*shape, 4), TF32_OPS_S / 3)[0]
+
+
+def mamba_short_prefills(gen, dev):
+    """The device time of one scan call at each length of zamba2's short
+    serve prefills (serve_zamba2's prompts but the 300-token one), and
+    over all of that path's short-prefill launches (one a Mamba2 layer a
+    prefill), beside their bounds."""
+    cfg = configs.get_config("zamba2-2.7b")
+    lengths = [len(p) for p in serve_prompts(cfg)
+               + serve_prompts(cfg, 3, seed=SEED + 1)]
+    layers = len(cfg.ssm_layer_ids)
+    per = {}
+    for s in sorted(set(lengths)):
+        shape = (1, s, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+        args = mamba_inputs(gen, dev, torch.float32, *shape, False)
+        per[s] = {"device_ms": call_device_ms(lambda: MS.mamba2_scan(*args)),
+                  "bound_ms": bound(*mamba_work(*shape, 4))[0],
+                  "bound_tc_ms": mamba_bound_tc(shape)}
+    total = {k: layers * sum(per[s][k] for s in lengths) for k in
+             ("device_ms", "bound_ms", "bound_tc_ms")}
+    return {"kernel": "mamba2_scan", "prompt_lens": lengths,
+            "mamba2_layers": layers, "launches": layers * len(lengths),
+            "per_length": per, "all_launches": total}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1421,9 +1504,9 @@ def device_families(prof, wall_us, n):
         name, t = e.name, t_of(e)
         if "emcpy" in name or "emset" in name:
             fam["copies"] += t
-        elif "mamba_scan_kernel" in name:
+        elif "ms_state_kernel" in name or "ms_chunk_kernel" in name:
             fam["mamba2_scan"] += t
-        elif "paged_kernel" in name:
+        elif "paged_split_kernel" in name:
             fam["paged_attention"] += t
         elif "flash_kernel" in name:
             fam["flash_attention"] += t
@@ -1598,6 +1681,7 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
 
 
 if __name__ == "__main__":

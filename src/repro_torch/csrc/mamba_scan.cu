@@ -8,203 +8,608 @@
 // bf16), dt and dA [b, s, nh] fp32, B and C [b, s, st] fp32 (one group,
 // shared by every head), h0 [b, nh, dh, st] fp32 or null (= zeros);
 // y [b, s, nh, dh] in x's dtype, h_last [b, nh, dh, st] fp32. Within a
-// tile of steps, with cum the inclusive cumsum of dA over the tile:
+// chunk of steps, with cum the inclusive cumsum of dA over the chunk and
+// T its total:
 //   y_t = sum_{u<=t} (C_t . B_u) exp(cum_t - cum_u) dt_u x_u
 //         + exp(cum_t) (C_t . h_prev^T)
-//   h  <- exp(cum_last) h + sum_u exp(cum_last - cum_u) dt_u x_u B_u^T
-// The math does not depend on the tile length; the decay stays in the
-// difference form exp(cum_t - cum_u), which never overflows (dA <= 0).
-// cum is summed and differenced in fp64: in fp32 a prefix sum that has
-// grown to ~-50 over a 64-step tile keeps only ~4e-6 of absolute
-// precision, which made y's error against an exact sum ~1e-4 relative at
-// the serve shape; in fp64 it is ~1e-5, that of the other fp32 sums.
+//   h  <- exp(T) h_prev + S,  S = sum_u exp(T - cum_u) dt_u x_u B_u^T
+// The decay stays in the difference form exp(cum_t - cum_u), which never
+// overflows (dA <= 0); cum is summed and differenced in fp64 (in fp32 a
+// prefix sum of ~-50 keeps only ~4e-6 of absolute precision, which made
+// y's error ~1e-4 relative at the serve shape; in fp64 it is ~1e-5, that
+// of the other fp32 sums).
 //
-// What bounds it on an H100: at the serve path's prefill (b 1, s 300,
-// nh 80, dh 64, st 64, fp32) the inputs and outputs are ~15 MB (4.5 us at
-// 3.35 TB/s), and the fp32 work is the intra-tile [c, c] products (C B^T
-// once per batch and tile, W x per head) plus the two [dh, st] state
-// products per step and head (y's C h^T and h's x B^T): ~0.5 GFLOP, ~7 us
-// at the card's 67 TFLOP/s fp32 SIMT rate. So operations bound it, by a
-// little.
+// What bounds it on an H100: at the serve path's long prefill (b 1, s 300,
+// nh 80, dh 64, st 64, fp32) the inputs and outputs are ~15 MB (4.6 us at
+// 3.35 TB/s) and the fp32 work ~0.5 GFLOP (7.3 us at 67 TFLOP/s SIMT).
+// The first design (one CTA per 32 rows of dh and head, the chunks a
+// serial loop, C B^T recomputed by every CTA, products as shared-memory FMA
+// chains) took 223 us, 30x that: bound by its dependency chain. At the
+// short prefills (s 8-24, one chunk) the work is ~40x smaller and the
+// time is one CTA's chain of loads, products and barriers.
 //
-// Design (a simple SIMT fp32 kernel that is right first; wgmma and TMA
-// later):
-//   * the TPU grid's sequential chunk axis becomes a loop inside the CTA:
-//     one CTA per (32 rows of dh, head, batch), so the serve shape gives
-//     2 x 80 = 160 CTAs for the 132 SMs; the rows of h are independent
-//     given B, C, dt and dA, which is what makes the dh split free;
-//   * the CTA keeps its h [32, st] slice in shared memory (fp32, rows
-//     padded by one float) for the whole sequence and walks tiles of 64
-//     steps; a ragged last tile is masked by its length, so any s is one
-//     launch (the TPU wrapper halves its chunk until it divides s);
-//   * per tile: B, C (rows padded: conflict-free dot products), the x
-//     slice, dt and dA are staged in shared memory; one warp takes the
-//     inclusive cumsum of dA (fp64) with a shuffle scan; the [64, 64] weight
-//     tile W[t][u] = (C_t . B_u) exp(cum_t - cum_u) dt_u (u <= t) is
-//     built once and serves every row, then y (intra + inter) and the
-//     state update each take one thread per output;
-//   * the cost of the split: every CTA recomputes C B^T, which is shared
-//     by all heads (one group); a later version computes it once per
-//     tile and moves the products onto the tensor cores.
+// Design (the SSD's chunk-parallel form):
+//   * s <= 64 (one chunk): one launch, ms_chunk_kernel, one CTA per (64
+//     rows of dh, head, batch): C B^T, y = W x + exp(cum) C h0^T and
+//     h_last = exp(T) h0 + S all in the CTA.
+//   * s > 64: two launches. ms_state_kernel walks the chunks of each (64
+//     rows of dh, head) in order, h_c = exp(T_c) h_{c-1} + S_c: one product
+//     a chunk, h in registers, the next chunk's tiles in flight (cp.async,
+//     double-buffered); it writes the state entering each chunk and h_last
+//     (80 CTAs at the serve shape, 5 steps in a row). Extra CTAs
+//     of the same launch compute C B^T once per (batch, chunk) for all 80
+//     heads. Then ms_chunk_kernel runs every (chunk, head) at once (400
+//     CTAs at the serve shape): y from C B^T (L2), the entering state and
+//     x. Scratch (allocated by the wrapper): C B^T and the entering states.
+//   * Every product runs on the tensor cores as mma.sync m16n8k8 TF32 in
+//     the 3-term split form (a_hi b_hi + a_hi b_lo + a_lo b_hi), which
+//     holds y to ~3e-5 of the fp32 plain version (plain TF32 keeps ~3
+//     digits): each of 8 warps owns a 16 x 32 output tile. Tiles are
+//     copied in their natural layout with 16-byte cp.async, all in flight
+//     before the first barrier; rows are padded so fragment reads are
+//     conflict-free.
+//   * A ragged last chunk is masked by its length (any s is one call); dt
+//     and dA are read with stride nh.
 #include "attention_common.cuh"
 
 namespace {
 
-constexpr int MS_CHUNK = 64;    // steps a tile (two per lane of one warp)
-constexpr int MS_ROWS = 32;     // rows of h (entries of dh) a CTA owns
-constexpr int MS_THREADS = 256;
+constexpr int MS_CHUNK = 64;            // steps a chunk
+constexpr int MS_DB = 64;               // rows of dh a CTA
+constexpr int MS_LD = MS_CHUNK + 8;     // padded row of x and W^T
+constexpr int MS_THREADS = 256;         // 8 warps, 16 x 32 outputs each
+constexpr int MS_CB = MS_CHUNK * MS_CHUNK;
 
-size_t ms_smem_bytes(int st) {
-  const size_t sp = (size_t)st + 1;
-  return sizeof(double) * MS_CHUNK                          // cum
-         + sizeof(float) * (2 * MS_CHUNK * sp               // B, C tiles
-                            + MS_CHUNK * (MS_CHUNK + 1)     // W
-                            + MS_CHUNK * MS_ROWS            // x tile
-                            + MS_ROWS * sp                  // h slice
-                            + 2 * MS_CHUNK);                // dt, sw
+__host__ __device__ inline int ms_max(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int ms_st8(int st) { return (st + 7) & ~7; }
+// Rows of the shared tiles (floats): whole 64-column blocks plus 4 for the
+// C, B and h tiles, whose mma fragments run along the row (rows 4 banks
+// apart), plus 8 for x, W^T and the walk's B tile, whose fragments run
+// down the column (rows 8 banks apart): conflict-free fragment reads.
+__host__ __device__ inline int ms_lds(int st) { return (st + 63) / 64 * 64 + 4; }
+__host__ __device__ inline int ms_ldw(int st) { return (st + 63) / 64 * 64 + 8; }
+
+// Shared memory: the fp64 cumsum [64], then floats: ec, dts, sw and T
+// [64 each], x [u][d] (rows of MS_LD), C [t][n] (then W^T [u][t], rows of
+// MS_LD), h_prev [d][n] and, for one chunk, B [u][n] (rows of ms_lds).
+struct MsLayout {
+  int x, c, h, b, floats;
+  __host__ __device__ MsLayout(int st, bool one_chunk) {
+    const int tile = MS_CHUNK * ms_lds(st);
+    x = 4 * MS_CHUNK;
+    c = x + MS_CHUNK * MS_LD;
+    h = c + ms_max(tile, MS_CHUNK * MS_LD);
+    b = h + tile;
+    floats = b + (one_chunk ? tile : 0);
+  }
+  size_t bytes() const { return sizeof(double) * MS_CHUNK + sizeof(float) * floats; }
+};
+
+// cp.async of 4 or 16 bytes, global -> shared; ok == false zero-fills
+// (no byte is read: src is then any valid address)
+__device__ __forceinline__ void ms_cp4(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void ms_cp16(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void ms_cp_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 64 rows of `cols` floats into shared rows of `ld`: source row r at
+// src + r * sld, present for r < rows, its first vcols columns real, the
+// rest (to cols) zero.
+__device__ __forceinline__ void ms_cp_tile(float* dst, int ld, const float* src,
+                                           size_t sld, int rows, int vcols, int cols) {
+  const int c4 = cols >> 2;
+  const bool vec = (vcols & 3) == 0 && (sld & 3) == 0 && ((uintptr_t)src & 15) == 0;
+  if (vec && cols == 64) {  // the common tile: 4 copies a thread, no division
+    const int r0 = threadIdx.x >> 4, c = (threadIdx.x & 15) * 4;
+    const float* sp = src + r0 * sld + c;
+#pragma unroll
+    for (int k = 0; k < MS_CHUNK * 16 / MS_THREADS; ++k) {
+      const int r = r0 + k * (MS_THREADS / 16);
+      const bool ok = r < rows && c < vcols;
+      ms_cp16(dst + r * ld + c, ok ? sp + (size_t)k * (MS_THREADS / 16) * sld : src, ok);
+    }
+  } else if (vec) {
+    for (int i = threadIdx.x; i < MS_CHUNK * c4; i += MS_THREADS) {
+      const int r = i / c4, c = (i % c4) * 4;
+      const bool ok = r < rows && c < vcols;
+      ms_cp16(dst + r * ld + c, ok ? src + r * sld + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < MS_CHUNK * cols; i += MS_THREADS) {
+      const int r = i / cols, c = i % cols;
+      const bool ok = r < rows && c < vcols;
+      ms_cp4(dst + r * ld + c, ok ? src + r * sld + c : src, ok);
+    }
+  }
+}
+
+__device__ __forceinline__ void ms_zero(float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+}
+
+// fp32 products on the tensor cores: mma.sync m16n8k8 TF32 in the split
+// form a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi (a_hi: a's top 10 mantissa
+// bits, a_lo = a - a_hi exactly, of which the mma reads the top bits),
+// which keeps about fp32's accuracy where plain TF32 keeps ~3 digits.
+__device__ __forceinline__ void ms_split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void ms_mma(float (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A warp's 16 x 32 output tile, four 16 x 8 mma tiles: acc[nt][i] is row
+// r0 + g + 8 (i / 2), column c0 + 8 nt + 2 q + i % 2 (g = lane / 4,
+// q = lane % 4). acc += sum_{k < K} A(row, k) B(k, column) (* bs[k]), K a
+// multiple of 8, A(r, k) = A[r * ars + k * aks], B(k, n) = Bm[n * bns +
+// k * bks]; the small terms go to their own accumulators (three
+// independent chains).
+template <bool SCALE_B = false>
+__device__ __forceinline__ void ms_mma_tile(float (&acc)[4][4], const float* A,
+                                            int ars, int aks, const float* Bm,
+                                            int bns, int bks, int K, int r0,
+                                            int c0, const float* bs = nullptr) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const float* ap = A + (r0 + g) * ars + q * aks;
+  const float* bp = Bm + (c0 + g) * bns + q * bks;
+  float sm[4][4];
+  ms_zero(sm);
+  for (int k = 0; k < K; k += 8) {
+    uint32_t ah[4], al[4];
+    ms_split(ap[k * aks], ah[0], al[0]);
+    ms_split(ap[k * aks + 8 * ars], ah[1], al[1]);
+    ms_split(ap[(k + 4) * aks], ah[2], al[2]);
+    ms_split(ap[(k + 4) * aks + 8 * ars], ah[3], al[3]);
+    const float s0 = SCALE_B ? bs[k + q] : 1.f, s1 = SCALE_B ? bs[k + q + 4] : 1.f;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      uint32_t bh0, bl0, bh1, bl1;
+      ms_split(bp[nt * 8 * bns + k * bks] * s0, bh0, bl0);
+      ms_split(bp[nt * 8 * bns + (k + 4) * bks] * s1, bh1, bl1);
+      ms_mma(sm[nt], al, bh0, bh1);
+      ms_mma(sm[nt], ah, bl0, bl1);
+      ms_mma(acc[nt], ah, bh0, bh1);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] += sm[nt][i];
+}
+
+// dA and dt of steps 2 lane and 2 lane + 1 of a chunk (0 past L)
+__device__ __forceinline__ float4 ms_stats_load(const float* __restrict__ dt,
+                                                const float* __restrict__ dA,
+                                                size_t base, int nh, int L) {
+  const int t0 = 2 * (threadIdx.x & 31), t1 = t0 + 1;
+  return make_float4(t0 < L ? dA[base + (size_t)t0 * nh] : 0.f,
+                     t1 < L ? dA[base + (size_t)t1 * nh] : 0.f,
+                     t0 < L ? dt[base + (size_t)t0 * nh] : 0.f,
+                     t1 < L ? dt[base + (size_t)t1 * nh] : 0.f);
+}
+
+// The inclusive cumsum of dA over the chunk (fp64, one warp, two steps a
+// lane; steps past L add 0, so cum[63] is the total T), dt, exp(cum_t) and
+// sw_u = exp(T - cum_u) dt_u, into shared memory. Warp 0 only.
+__device__ __forceinline__ void ms_stats(float4 v, double* cum, float* ec,
+                                         float* dts, float* sw, float* Ts) {
+  const int lane = threadIdx.x;
+  const int t0 = 2 * lane, t1 = t0 + 1;
+  const double a0 = v.x, a1 = v.y;
+  double incl = a0 + a1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double u = __shfl_up_sync(ATT_FULL, incl, o);
+    if (lane >= o) incl += u;
+  }
+  double excl = __shfl_up_sync(ATT_FULL, incl, 1);
+  if (lane == 0) excl = 0.0;
+  const double c0 = excl + a0, c1 = c0 + a1;
+  const double total = __shfl_sync(ATT_FULL, c1, 31);
+  cum[t0] = c0;
+  cum[t1] = c1;
+  ec[t0] = expf((float)c0);
+  ec[t1] = expf((float)c1);
+  dts[t0] = v.z;
+  dts[t1] = v.w;
+  sw[t0] = expf((float)(total - c0)) * v.z;
+  sw[t1] = expf((float)(total - c1)) * v.w;
+  if (lane == 0) *Ts = (float)total;
+}
+
+// x [u][d] of (rows row0.., head, d0..) into xs (rows of MS_LD)
+__device__ __forceinline__ void ms_cp_x(float* xs, const float* __restrict__ x,
+                                        size_t row0, int L, int nh, int head,
+                                        int dh, int d0) {
+  ms_cp_tile(xs, MS_LD, x + (row0 * nh + head) * dh + d0, (size_t)nh * dh, L,
+             min(MS_DB, dh - d0), MS_DB);
+}
+__device__ __forceinline__ void ms_cp_x(float* xs, const __nv_bfloat16* __restrict__ x,
+                                        size_t row0, int L, int nh, int head,
+                                        int dh, int d0) {
+#pragma unroll
+  for (int k = 0; k < MS_CB / MS_THREADS; ++k) {
+    const int i = threadIdx.x + k * MS_THREADS;
+    const int u = i >> 6, d = i & 63;
+    xs[u * MS_LD + d] = (u < L && d0 + d < dh)
+        ? __bfloat162float(x[((row0 + u) * nh + head) * dh + d0 + d]) : 0.f;
+  }
+}
+
+// The warp's part of S[d][n] = sum_u sw_u x_u[d] B_u[n] for the 64-column
+// block nb of the state (x [u][d] rows of MS_LD, B [u][n] rows of ldb)
+__device__ __forceinline__ void ms_state_tile(float (&acc)[4][4], const float* xs,
+                                              const float* Bs, int ldb,
+                                              const float* sw, int L, int nb) {
+  const int warp = threadIdx.x >> 5;
+  ms_zero(acc);
+  ms_mma_tile<true>(acc, xs, 1, MS_LD, Bs + nb, 1, ldb, ms_st8(L),
+                    (warp & 3) * 16, (warp >> 2) * 32, sw);
+}
+
+// Two neighbouring elements (p[0], p[1]) of which `left` (> 0) lie in the
+// row: one 8-byte store where they are aligned, else one or two scalars.
+template <typename T>
+__device__ __forceinline__ void ms_store2(T* p, float a, float b, int left) {
+  if (left <= 0) return;
+  if (left >= 2 && ((uintptr_t)p & (2 * sizeof(T) - 1)) == 0) {
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float2*>(p) = make_float2(a, b);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+    }
+    return;
+  }
+  att_store(p, a);
+  if (left >= 2) att_store(p + 1, b);
+}
+
+// Element i of a warp tile: its row and column within the [64][64] block
+__device__ __forceinline__ int ms_row(int i) {
+  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) + 8 * (i >> 1);
+}
+__device__ __forceinline__ int ms_col(int nt, int i) {
+  return (threadIdx.x >> 7) * 32 + 8 * nt + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// State launch (s > 64). Grid (ndb, nh + nch, b). y < nh: the walk of
+// (64 rows of dh, head) along the chunks: h_c = exp(T_c) h_{c-1} + S_c
+// from h0, S_c = sum_u sw_u x_u B_u^T, with h in registers (mma fragments)
+// and the next chunk's x, B, dA and dt arriving (cp.async, two slots)
+// while this chunk's product runs; it writes the state entering every
+// chunk but the first, and h_last. y = nh + c, x == 0: the C B^T tile of
+// chunk c, for every head. Scratch: CB [b][nch][64][64], H [b][nch - 1]
+// [nh][ndb][64][st].
+__host__ __device__ inline int ms_slot(int st) {  // floats of a slot
+  return MS_CHUNK * (MS_LD + ms_ldw(st)) + 2 * MS_CHUNK;
+}
+size_t ms_state_smem(int st) {
+  const size_t walk = 4 * MS_CHUNK + 2 * (size_t)ms_slot(st);
+  const size_t cb = 2 * (size_t)MS_CHUNK * ms_lds(st);
+  return sizeof(double) * MS_CHUNK + sizeof(float) * (walk > cb ? walk : cb);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(MS_THREADS)
-mamba_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                  const float* __restrict__ dA, const float* __restrict__ B,
-                  const float* __restrict__ C, const float* __restrict__ h0,
-                  T* __restrict__ y, float* __restrict__ h_last, int s,
-                  int nh, int dh, int st) {
+ms_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ dA, const float* __restrict__ B,
+                const float* __restrict__ C, const float* __restrict__ h0,
+                float* __restrict__ cbg, float* __restrict__ H,
+                float* __restrict__ h_last, int s, int nh, int dh, int st) {
   extern __shared__ double smem[];
-  const int sp = st + 1;
-  constexpr int WP = MS_CHUNK + 1;
-  double* cum = smem;                      // [MS_CHUNK] inclusive cumsum
-  float* Bs = (float*)(cum + MS_CHUNK);    // [MS_CHUNK][st + 1]
-  float* Cs = Bs + MS_CHUNK * sp;          // [MS_CHUNK][st + 1]
-  float* W = Cs + MS_CHUNK * sp;           // [MS_CHUNK][MS_CHUNK + 1]
-  float* xs = W + MS_CHUNK * WP;           // [MS_CHUNK][MS_ROWS]
-  float* hs = xs + MS_CHUNK * MS_ROWS;     // [MS_ROWS][st + 1]
-  float* dts = hs + MS_ROWS * sp;          // [MS_CHUNK]
-  float* sw = dts + MS_CHUNK;              // [MS_CHUNK] exp(total-cum_u) dt_u
+  const int lds = ms_lds(st), ldw = ms_ldw(st), st8 = ms_st8(st);
+  float* f = reinterpret_cast<float*>(smem + MS_CHUNK);
+  const int nch = (s + MS_CHUNK - 1) / MS_CHUNK;
+  const int ndb = (dh + MS_DB - 1) / MS_DB;
+  const int head = blockIdx.y, bb = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5;
 
-  const int d0 = blockIdx.x * MS_ROWS;
-  const int head = blockIdx.y;
-  const int bb = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int rows = min(MS_ROWS, dh - d0);
-  const size_t hbase = (((size_t)bb * nh + head) * dh + d0) * st;
-
-  for (int i = tid; i < MS_ROWS * st; i += MS_THREADS) {
-    const int r = i / st, n = i % st;
-    hs[r * sp + n] = (h0 != nullptr && r < rows) ? h0[hbase + i] : 0.f;
-  }
-
-  for (int c0 = 0; c0 < s; c0 += MS_CHUNK) {
-    const int L = min(MS_CHUNK, s - c0);
-    __syncthreads();  // h initialised / the previous tile fully consumed
-    for (int i = tid; i < L * st; i += MS_THREADS) {
-      const int t = i / st, n = i % st;
-      const size_t g = ((size_t)bb * s + c0 + t) * st + n;
-      Bs[t * sp + n] = B[g];
-      Cs[t * sp + n] = C[g];
-    }
-    for (int i = tid; i < L * MS_ROWS; i += MS_THREADS) {
-      const int t = i / MS_ROWS, r = i % MS_ROWS;
-      xs[i] = r < rows
-          ? att_load(x + (((size_t)bb * s + c0 + t) * nh + head) * dh + d0 + r)
-          : 0.f;
-    }
-    if (tid < 32) {  // inclusive cumsum of dA over the tile, two steps a lane
-      const int t0 = 2 * tid, t1 = t0 + 1;
-      const size_t base = ((size_t)bb * s + c0) * nh + head;
-      const double a0 = t0 < L ? dA[base + (size_t)t0 * nh] : 0.0;
-      const double a1 = t1 < L ? dA[base + (size_t)t1 * nh] : 0.0;
-      double incl = a0 + a1;
+  if (head >= nh) {  // C B^T of chunk head - nh, shared by every head
+    const int c = head - nh, L = min(MS_CHUNK, s - c * MS_CHUNK);
+    if (blockIdx.x != 0) return;
+    const size_t row0 = (size_t)bb * s + c * MS_CHUNK;
+    float *Cs = f, *Bs = f + MS_CHUNK * lds;
+    ms_cp_tile(Cs, lds, C + row0 * st, st, L, st, st8);
+    ms_cp_tile(Bs, lds, B + row0 * st, st, L, st, st8);
+    ms_cp_wait();
+    __syncthreads();
+    float acc[4][4];
+    ms_zero(acc);
+    ms_mma_tile(acc, Cs, lds, 1, Bs, lds, 1, st8, (warp & 3) * 16, (warp >> 2) * 32);
+    float* out = cbg + ((size_t)bb * nch + c) * MS_CB;
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const double v = __shfl_up_sync(ATT_FULL, incl, o);
-        if (tid >= o) incl += v;
-      }
-      double excl = __shfl_up_sync(ATT_FULL, incl, 1);
-      if (tid == 0) excl = 0.0;
-      cum[t0] = excl + a0;
-      cum[t1] = (excl + a0) + a1;
-      dts[t0] = t0 < L ? dt[base + (size_t)t0 * nh] : 0.f;
-      dts[t1] = t1 < L ? dt[base + (size_t)t1 * nh] : 0.f;
-    }
-    __syncthreads();
-    const double total = cum[L - 1];
-    for (int i = tid; i < L * L; i += MS_THREADS) {
-      const int t = i / L, u = i % L;
-      if (u > t) continue;
-      const float* cr = Cs + t * sp;
-      const float* br = Bs + u * sp;
-      float cb = 0.f;
-#pragma unroll 8
-      for (int n = 0; n < st; ++n) cb = fmaf(cr[n], br[n], cb);
-      W[t * WP + u] = cb * expf((float)(cum[t] - cum[u])) * dts[u];
-    }
-    if (tid < L) sw[tid] = expf((float)(total - cum[tid])) * dts[tid];
-    __syncthreads();
-    // y: one thread a (step, row); the warp shares the step, so W and C
-    // are broadcasts and x, h run along the row
-    for (int i = tid; i < L * MS_ROWS; i += MS_THREADS) {
-      const int t = i / MS_ROWS, r = i % MS_ROWS;
-      const float* wr = W + t * WP;
-      float acc = 0.f;
-      for (int u = 0; u <= t; ++u) acc = fmaf(wr[u], xs[u * MS_ROWS + r], acc);
-      const float* cr = Cs + t * sp;
-      const float* hr = hs + r * sp;
-      float ch = 0.f;
-#pragma unroll 8
-      for (int n = 0; n < st; ++n) ch = fmaf(cr[n], hr[n], ch);
-      acc = fmaf(expf((float)cum[t]), ch, acc);
-      if (r < rows)
-        att_store(y + (((size_t)bb * s + c0 + t) * nh + head) * dh + d0 + r,
-                  acc);
-    }
-    __syncthreads();  // every y read h_prev before the update
-    const float dec = expf((float)total);
-    for (int i = tid; i < MS_ROWS * st; i += MS_THREADS) {
-      const int r = i / st, n = i % st;
-      float acc = 0.f;
-      for (int u = 0; u < L; ++u)
-        acc = fmaf(sw[u] * xs[u * MS_ROWS + r], Bs[u * sp + n], acc);
-      hs[r * sp + n] = fmaf(dec, hs[r * sp + n], acc);
-    }
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; i += 2)
+        *reinterpret_cast<float2*>(out + ms_row(i) * MS_CHUNK + ms_col(nt, i)) =
+            make_float2(acc[nt][i], acc[nt][i + 1]);
+    return;
   }
+
+  const int dblk = blockIdx.x, d0 = dblk * MS_DB;
+  double* cum = smem;
+  float *ec = f, *dts = f + MS_CHUNK, *sw = f + 2 * MS_CHUNK, *Ts = f + 3 * MS_CHUNK;
+  float* slots = f + 4 * MS_CHUNK;  // two slots: x [64][MS_LD], B [64][ldw], dA, dt
+  const int slot = ms_slot(st);
+  const int dh_left = dh - d0;
+  const size_t hrow = ((size_t)bb * nh + head) * dh + d0;  // h row of d = 0
+  const size_t tile_h = (size_t)MS_DB * st;
+
+  float h[4][4][4];  // the 64-column blocks q < 4 (st <= 256), mma fragments
+#pragma unroll
+  for (int qb = 0; qb < 4; ++qb)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = ms_row(i), n = qb * 64 + ms_col(nt, i);
+        h[qb][nt][i] = (h0 != nullptr && n < st && d < dh_left) ? h0[(hrow + d) * st + n] : 0.f;
+      }
+
+  // chunk c into slot c % 2; warp 0 copies dA and dt itself, so its
+  // statistics need only its own wait
+  auto issue = [&](int c) {
+    const int L = min(MS_CHUNK, s - c * MS_CHUNK);
+    const size_t row0 = (size_t)bb * s + c * MS_CHUNK;
+    float* sl = slots + (c & 1) * slot;
+    ms_cp_x(sl, x, row0, L, nh, head, dh, d0);
+    ms_cp_tile(sl + MS_CHUNK * MS_LD, ldw, B + row0 * st, st, L, st, ldw - 8);
+    if (tid < 32) {
+      float* st_a = sl + MS_CHUNK * (MS_LD + ldw);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int t = 2 * tid + k;
+        const size_t gi = (row0 + t) * nh + head;
+        ms_cp4(st_a + t, t < L ? dA + gi : dA, t < L);
+        ms_cp4(st_a + MS_CHUNK + t, t < L ? dt + gi : dt, t < L);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  issue(0);
+  for (int c = 0; c < nch; ++c) {
+    const int L = min(MS_CHUNK, s - c * MS_CHUNK);
+    if (c + 1 < nch) {
+      issue(c + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      ms_cp_wait();
+    }
+    float* sl = slots + (c & 1) * slot;
+    if (tid < 32) {
+      const float* st_a = sl + MS_CHUNK * (MS_LD + ldw);
+      ms_stats(make_float4(st_a[2 * tid], st_a[2 * tid + 1], st_a[MS_CHUNK + 2 * tid],
+                           st_a[MS_CHUNK + 2 * tid + 1]),
+               cum, ec, dts, sw, Ts);
+    }
+    __syncthreads();
+    const float e = expf(*Ts);
+    float* out = c + 1 < nch
+        ? H + ((((size_t)bb * (nch - 1) + c) * nh + head) * ndb + dblk) * tile_h
+        : h_last + hrow * st;
+#pragma unroll
+    for (int qb = 0; qb < 4; ++qb) {
+      if (qb * 64 >= st) break;
+      float acc[4][4];
+      ms_state_tile(acc, sl, sl + MS_CHUNK * MS_LD, ldw, sw, L, qb * 64);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; i += 2) {
+          h[qb][nt][i] = fmaf(e, h[qb][nt][i], acc[nt][i]);
+          h[qb][nt][i + 1] = fmaf(e, h[qb][nt][i + 1], acc[nt][i + 1]);
+          const int d = ms_row(i), n = qb * 64 + ms_col(nt, i);
+          // H rows past dh stay zero (the chunk kernel reads 64 rows)
+          if (c + 1 < nch || d < dh_left)
+            ms_store2(out + (size_t)d * st + n, h[qb][nt][i], h[qb][nt][i + 1], st - n);
+        }
+    }
+    __syncthreads();  // this slot and the statistics are spent
+  }
+}
+
+// Chunk launch. Grid (ndb, nh, b * nch). One chunk (cbg null): C B^T, y
+// and h_last here. Several: C B^T and the entering states from the state
+// launch, y only.
+template <typename T>
+__global__ void __launch_bounds__(MS_THREADS)
+ms_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ dA, const float* __restrict__ B,
+                const float* __restrict__ C, const float* __restrict__ h0,
+                const float* __restrict__ cbg, const float* __restrict__ S,
+                T* __restrict__ y, float* __restrict__ h_last, int s, int nh,
+                int dh, int st) {
+  extern __shared__ double smem[];
+  const bool one = cbg == nullptr;
+  const MsLayout lay(st, one);
+  double* cum = smem;
+  float* f = reinterpret_cast<float*>(smem + MS_CHUNK);
+  float *ec = f, *dts = f + MS_CHUNK, *sw = f + 2 * MS_CHUNK, *Ts = f + 3 * MS_CHUNK;
+  float *xs = f + lay.x, *Cs = f + lay.c, *Hs = f + lay.h, *Bs = f + lay.b;
+
+  const int nch = max(1, (s + MS_CHUNK - 1) / MS_CHUNK);
+  const int ndb = (dh + MS_DB - 1) / MS_DB;
+  const int c = (int)(blockIdx.z % nch), bb = blockIdx.z / nch;
+  const int head = blockIdx.y, dblk = blockIdx.x, d0 = dblk * MS_DB;
+  const int c0 = c * MS_CHUNK, L = max(0, min(MS_CHUNK, s - c0));
+  const size_t row0 = (size_t)bb * s + c0;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  // this warp's rows t0.. t0 + 15 and columns cc0.. cc0 + 31 of a tile
+  const int t0 = (warp & 3) * 16, cc0 = (warp >> 2) * 32;
+  const bool has_prev = h0 != nullptr || c > 0;
+  const int lds = ms_lds(st), st8 = ms_st8(st);
+  const size_t hrow = ((size_t)bb * nh + head) * dh + d0;  // h row of d = 0
+
+  // every tile in flight at once (cp.async); C B^T into registers
+  float cb[4][4];
+  if (!one) {
+    const float* tile = cbg + ((size_t)bb * nch + c) * MS_CB;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; i += 2) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            tile + ms_row(i) * MS_CHUNK + ms_col(nt, i));
+        cb[nt][i] = v.x;
+        cb[nt][i + 1] = v.y;
+      }
+  }
+  ms_cp_x(xs, x, row0, L, nh, head, dh, d0);
+  ms_cp_tile(Cs, lds, C + row0 * st, st, L, st, st8);
+  if (c > 0)  // the state entering chunk c, from the state launch
+    ms_cp_tile(Hs, lds,
+               S + ((((size_t)bb * (nch - 1) + c - 1) * nh + head) * ndb + dblk) *
+                       (size_t)MS_DB * st,
+               st, MS_DB, st, st8);
+  else if (h0 != nullptr)
+    ms_cp_tile(Hs, lds, h0 + hrow * st, st, dh - d0, st, st8);
+  if (one) ms_cp_tile(Bs, lds, B + row0 * st, st, L, st, st8);
+  if (tid < 32)
+    ms_stats(ms_stats_load(dt, dA, row0 * nh + head, nh, L), cum, ec, dts, sw, Ts);
+  ms_cp_wait();
   __syncthreads();
-  for (int i = tid; i < rows * st; i += MS_THREADS)
-    h_last[hbase + i] = hs[(i / st) * sp + i % st];
+
+  // y = exp(cum_t) (C_t . h_prev^T) + W x, W[t][u] = (C_t . B_u)
+  // exp(cum_t - cum_u) dt_u for u <= t < L (W^T goes over C)
+  const bool rows = t0 < L;
+  float yacc[4][4];
+  ms_zero(yacc);
+  if (one) {
+    ms_zero(cb);
+    if (rows && cc0 < L) ms_mma_tile(cb, Cs, lds, 1, Bs, lds, 1, st8, t0, cc0);
+  }
+  if (has_prev && rows) {
+    ms_mma_tile(yacc, Cs, lds, 1, Hs, lds, 1, st8, t0, cc0);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) yacc[nt][i] *= ec[ms_row(i)];
+  }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = ms_row(i), u = ms_col(nt, i);
+      cb[nt][i] = (u <= t && t < L)
+          ? cb[nt][i] * __expf((float)(cum[t] - cum[u])) * dts[u] : 0.f;
+    }
+  __syncthreads();  // every read of C done
+  float* Wt = Cs;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) Wt[ms_col(nt, i) * MS_LD + ms_row(i)] = cb[nt][i];
+  __syncthreads();
+  if (rows) {
+    ms_mma_tile(yacc, Wt, 1, MS_LD, xs, 1, MS_LD, ms_st8(min(L, t0 + 16)), t0, cc0);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; i += 2) {
+        const int t = ms_row(i), d = d0 + ms_col(nt, i);
+        if (t < L)
+          ms_store2(y + ((row0 + t) * nh + head) * dh + d, yacc[nt][i], yacc[nt][i + 1],
+                    dh - d);
+      }
+  }
+  if (!one) return;
+
+  // one chunk: h_last = exp(T) h0 + sum_u (sw_u x_u) B_u^T
+  const float e = expf(*Ts);
+  for (int nb = 0; nb < st; nb += 64) {
+    float acc[4][4];
+    ms_state_tile(acc, xs, Bs, lds, sw, L, nb);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; i += 2) {
+        const int d = ms_row(i), n = nb + ms_col(nt, i);
+        if (d >= dh - d0) continue;
+        const float h0v = has_prev ? Hs[d * lds + n] : 0.f;
+        const float h1v = has_prev ? Hs[d * lds + n + 1] : 0.f;
+        ms_store2(h_last + (hrow + d) * st + n, fmaf(e, h0v, acc[nt][i]),
+                  fmaf(e, h1v, acc[nt][i + 1]), st - n);
+      }
+  }
 }
 
 template <typename T>
 int launch(const void* x, const void* dt, const void* dA, const void* B,
-           const void* C, const void* h0, void* y, void* h_last, int b, int s,
-           int nh, int dh, int st, cudaStream_t stream) {
-  const size_t smem = ms_smem_bytes(st);
-  cudaError_t err = att_smem_attr(mamba_scan_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((dh + MS_ROWS - 1) / MS_ROWS, nh, b);
-  mamba_scan_kernel<T><<<grid, MS_THREADS, smem, stream>>>(
+           const void* C, const void* h0, void* y, void* h_last, void* scratch,
+           int b, int s, int nh, int dh, int st, cudaStream_t stream) {
+  const int nch = s > MS_CHUNK ? (s + MS_CHUNK - 1) / MS_CHUNK : 1;
+  const int ndb = (dh + MS_DB - 1) / MS_DB;
+  float* cbg = nullptr;
+  float* S = nullptr;
+  cudaError_t err;
+  if (nch > 1) {
+    cbg = (float*)scratch;
+    S = cbg + (size_t)b * nch * MS_CB;
+    const size_t smem = ms_state_smem(st);
+    if ((err = att_smem_attr(ms_state_kernel<T>, smem)) != cudaSuccess) return (int)err;
+    ms_state_kernel<T><<<dim3(ndb, nh + nch, b), MS_THREADS, smem, stream>>>(
+        (const T*)x, (const float*)dt, (const float*)dA, (const float*)B,
+        (const float*)C, (const float*)h0, cbg, S, (float*)h_last, s, nh, dh, st);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  const size_t smem = MsLayout(st, nch == 1).bytes();
+  if ((err = att_smem_attr(ms_chunk_kernel<T>, smem)) != cudaSuccess) return (int)err;
+  ms_chunk_kernel<T><<<dim3(ndb, nh, b * nch), MS_THREADS, smem, stream>>>(
       (const T*)x, (const float*)dt, (const float*)dA, (const float*)B,
-      (const float*)C, (const float*)h0, (T*)y, (float*)h_last, s, nh, dh,
-      st);
+      (const float*)C, (const float*)h0, cbg, S, (T*)y, (float*)h_last, s, nh,
+      dh, st);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Floats of scratch a call needs (0 for s <= 64): C B^T of every chunk,
+// then the state entering every chunk but the first.
+REPRO_EXPORT long long mamba2_scan_scratch(int b, int s, int nh, int dh, int st) {
+  const long long nch = (s + MS_CHUNK - 1) / MS_CHUNK;
+  if (nch <= 1) return 0;
+  const long long ndb = (dh + MS_DB - 1) / MS_DB;
+  return b * nch * MS_CB + b * (nch - 1) * nh * ndb * MS_DB * st;
+}
+
 // x [b, s, nh, dh] (dtype 0 = fp32, 1 = bf16); dt, dA [b, s, nh], B, C
 // [b, s, st], h0 [b, nh, dh, st] or null, h_last [b, nh, dh, st]: fp32;
-// y [b, s, nh, dh] in x's dtype; all contiguous; 1 <= st <= 256.
+// y [b, s, nh, dh] in x's dtype; all contiguous; 1 <= st <= 256. For
+// s > 64, scratch holds mamba2_scan_scratch() floats, 16-byte aligned (it
+// may be null for s <= 64).
 REPRO_EXPORT int mamba2_scan(const void* x, const void* dt, const void* dA,
                              const void* B, const void* C, const void* h0,
-                             void* y, void* h_last, int b, int s, int nh,
-                             int dh, int st, int dtype, void* stream) {
+                             void* y, void* h_last, void* scratch, int b, int s,
+                             int nh, int dh, int st, int dtype, void* stream) {
   if (b <= 0 || s < 0 || nh <= 0 || dh <= 0 || st <= 0 || st > 256)
+    return (int)cudaErrorInvalidValue;
+  if (mamba2_scan_scratch(b, s, nh, dh, st) > 0 && scratch == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t cs = (cudaStream_t)stream;
   if (dtype == ATT_F32)
-    return launch<float>(x, dt, dA, B, C, h0, y, h_last, b, s, nh, dh, st, cs);
+    return launch<float>(x, dt, dA, B, C, h0, y, h_last, scratch, b, s, nh, dh,
+                         st, cs);
   if (dtype == ATT_BF16)
-    return launch<__nv_bfloat16>(x, dt, dA, B, C, h0, y, h_last, b, s, nh, dh,
-                                 st, cs);
+    return launch<__nv_bfloat16>(x, dt, dA, B, C, h0, y, h_last, scratch, b, s,
+                                 nh, dh, st, cs);
   return (int)cudaErrorInvalidValue;
 }

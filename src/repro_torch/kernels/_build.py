@@ -118,15 +118,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         "hash_probe": [P, P, P, I, I, P, P, P],
         "flash_attention": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, F, I,
                             ctypes.POINTER(L), P],
-        "paged_attention": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I,
-                            P],
-        "mamba2_scan": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+        "paged_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
+                            F, I, P],
+        "paged_attention_scratch": [I, I, I, I, I],
+        "mamba2_scan": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+        "mamba2_scan_scratch": [I, I, I, I, I],
     }
     for fn, args in sigs.items():
         if hasattr(lib, fn):
             f = getattr(lib, fn)
             f.argtypes = args
-            f.restype = I
+            f.restype = L if fn.endswith("_scratch") else I
 
 
 def lib(name: str) -> ctypes.CDLL:

@@ -8,7 +8,10 @@ wrapper serves a CPU tensor with the plain version and a CUDA tensor with
 the kernel; there is no other route. Unlike the TPU wrapper, which halves
 its chunk until it divides ``s``, any ``s`` is taken: both versions walk
 tiles of ``CHUNK`` steps and the last one may be short (the math does not
-depend on the tile length).
+depend on the tile length). For ``s > CHUNK`` a call is two device
+launches: the states entering every chunk (walked along the chunks) and
+``C B^T`` of every chunk, into a scratch this wrapper allocates; then every
+chunk's ``y`` at once. For ``s <= CHUNK`` it is one.
 """
 from __future__ import annotations
 
@@ -92,11 +95,16 @@ def mamba2_scan(x, dt, dA, B, C, h0=None):
     y = torch.empty_like(x)
     h_last = torch.empty((b, nh, dh, st), dtype=torch.float32,
                          device=x.device)
-    err = _build.lib("mamba_scan").mamba2_scan(
+    lib = _build.lib("mamba_scan")
+    scratch = None  # one chunk needs none; more: C B^T and the chunk states
+    if s > CHUNK:
+        scratch = torch.empty(lib.mamba2_scan_scratch(b, s, nh, dh, st),
+                              dtype=torch.float32, device=x.device)
+    err = lib.mamba2_scan(
         x.data_ptr(), dt.data_ptr(), dA.data_ptr(), B.data_ptr(),
         C.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h_last.data_ptr(), b, s, nh, dh, st, DTYPE_CODES[x.dtype],
-        _build.stream_ptr(x.device))
+        h_last.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        b, s, nh, dh, st, DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
     _build.check(err, "mamba2_scan")
     _build.launches["mamba2_scan"] += 1
     return y, h_last

@@ -13,6 +13,12 @@ missing; the first ``lengths[b]`` positions are visible, and with
 ``window > 0`` only those with ``lengths[b] - pos < window``. A sequence
 with no visible position gives 0 (the reference's masking gives a mean of
 masked rows there, which no caller reads).
+
+The kernel splits each sequence's pages over CTAs (64 positions a split)
+and, where more than one split sees something, merges their partial
+softmax results by their log-sum-exp in the same launch; the wrapper keeps
+the partials' buffer (sized by the library's ``paged_attention_scratch``)
+and the zeroed-once split counters per device and stream.
 """
 from __future__ import annotations
 
@@ -22,6 +28,24 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPE_CODES, HEAD_DIMS
 
 NEG_INF = -1e30
+_scratch: dict = {}
+
+
+def _scratch_for(device, stream: int, n_part: int, n_counters: int):
+    """The kernel's scratch for one device and stream, kept across calls
+    (a larger one replaces it): the splits' partials (rewritten by every
+    launch that merges) and the per-(sequence, kv head) split counters,
+    zeroed when allocated and never per call (every launch leaves them at
+    zero: atomicInc wraps)."""
+    key = (device.index, stream)
+    part, counters = _scratch.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 256), dtype=torch.int32,
+                               device=device)
+    _scratch[key] = (part, counters)
+    return part, counters
 
 
 def _check(q, arena, pages, lengths):
@@ -88,13 +112,24 @@ def paged_attention(q, arena, pages, lengths, *, scale: float,
     if not arena.is_contiguous():
         raise ValueError("paged_attention reads the arena in place: pass a "
                          "contiguous arena")
+    if arena.data_ptr() % 16:
+        raise ValueError("paged_attention reads the arena with 16-byte "
+                         "loads: its storage must start 16-byte aligned")
     q, pages, lengths = q.contiguous(), pages.contiguous(), lengths.contiguous()
     out = torch.empty_like(q)
-    err = _build.lib("paged_attention").paged_attention(
+    nblk = pages.shape[1]
+    lib = _build.lib("paged_attention")
+    stream = _build.stream_ptr(q.device)
+    part_ptr = counters_ptr = None
+    n_part = lib.paged_attention_scratch(b, h, hd, block, nblk)
+    if n_part:  # more than one split a sequence: partials and counters
+        part, counters = _scratch_for(q.device, stream, n_part, b * kh)
+        part_ptr, counters_ptr = part.data_ptr(), counters.data_ptr()
+    err = lib.paged_attention(
         q.data_ptr(), arena.data_ptr(), pages.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, h, kh, hd, cap, block, pages.shape[1],
-        DTYPE_CODES[q.dtype], float(scale), float(softcap), int(window),
-        _build.stream_ptr(q.device))
+        out.data_ptr(), part_ptr, counters_ptr, b, h, kh, hd, cap, block,
+        nblk, DTYPE_CODES[q.dtype], float(scale), float(softcap),
+        int(window), stream)
     _build.check(err, "paged_attention")
     _build.launches["paged_attention"] += 1
     return out

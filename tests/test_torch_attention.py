@@ -192,6 +192,96 @@ def test_paged_plain_gives_zero_where_nothing_is_visible():
                                **TOLS["float32"])
 
 
+SPLIT_POSITIONS = 64  # positions of one split (csrc/paged_attention.cu)
+
+
+def _split_merge(q, arena, pages, lengths, *, scale, softcap, window, pps):
+    """The CUDA kernel's algebra in plain PyTorch: each split of ``pps``
+    pages gives (o unnormalised, m, l) over its visible positions; splits
+    that see nothing are left out; the rest merge by their log-sum-exp; a
+    sequence with no split that sees anything gives 0."""
+    b, h, hd = q.shape
+    cap, _, block, kh, _ = arena.shape
+    g = h // kh
+    nblk = pages.shape[1]
+    out = torch.zeros((b, h, hd), dtype=torch.float32)
+    for i in range(b):
+        n = int(lengths[i])
+        lo = max(0, n - window + 1) if window > 0 else 0
+        parts = []
+        for j0 in range(0, nblk, pps):
+            pos, ks, vs = [], [], []
+            for j in range(j0, min(j0 + pps, nblk)):
+                row = int(pages[i, j])
+                for t in range(block):
+                    p = j * block + t
+                    if 0 <= row < cap and lo <= p < n:
+                        pos.append(p)
+                        ks.append(arena[row, 0, t].float())
+                        vs.append(arena[row, 1, t].float())
+            if not pos:
+                continue
+            k, v = torch.stack(ks), torch.stack(vs)      # [np, kh, hd]
+            qg = q[i].float().reshape(kh, g, hd) * scale
+            sc = torch.einsum("kgd,tkd->kgt", qg, k)
+            if softcap > 0:
+                sc = torch.tanh(sc / softcap) * softcap
+            m = sc.amax(dim=-1)                          # [kh, g]
+            e = torch.exp(sc - m[..., None])
+            parts.append((torch.einsum("kgt,tkd->kgd", e, v), m,
+                          e.sum(dim=-1)))
+        if not parts:
+            continue
+        mx = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+        o = sum(torch.exp(m - mx)[..., None] * o for o, m, _ in parts)
+        lsum = sum(torch.exp(m - mx) * l for _, m, l in parts)
+        out[i] = (o / lsum[..., None]).reshape(h, hd)
+    return out
+
+
+@pytest.mark.parametrize(
+    "b,h,kh,hd,block,nblk,lengths,window,softcap,holes",
+    [
+        (3, 8, 2, 16, 16, 12, [64, 65, 63], 0, 0.0, ()),     # split edges
+        (3, 4, 4, 16, 16, 16, [200, 0, 1], 0, 0.0, ()),      # empty, 1 token
+        (2, 8, 2, 16, 8, 24, [190, 70], 40, 0.0, ()),        # window drops splits
+        (2, 4, 2, 32, 8, 16, [120, 90], 0, 30.0, ((0, 9), (1, 2))),  # holes
+        (2, 4, 4, 8, 16, 12, [180, 100], 0, 0.0,
+         ((0, 4), (0, 5), (0, 6), (0, 7))),                 # a split all missing
+        (1, 4, 2, 16, 16, 4, [0], 0, 0.0, ()),               # nothing visible
+    ])
+def test_split_merge_of_partials_equals_plain(b, h, kh, hd, block, nblk,
+                                              lengths, window, softcap,
+                                              holes):
+    """The split kernel's partial (o, m, l) per split, merged by their
+    log-sum-exp, equals the plain version, including splits that see
+    nothing and a sequence that sees nothing."""
+    rng = np.random.default_rng(b * 7 + nblk)
+    cap = b * nblk + 4
+    pages = np.full((b, nblk), -1, np.int32)
+    perm = rng.permutation(cap)
+    pi = 0
+    for i, n in enumerate(lengths):
+        k = -(-n // block)
+        pages[i, :k] = perm[pi:pi + k]
+        pi += k
+    for i, j in holes:
+        pages[i, j] = -1
+    q = torch.from_numpy(rng.standard_normal((b, h, hd)).astype(np.float32))
+    arena = torch.from_numpy(rng.standard_normal(
+        (cap, 2, block, kh, hd)).astype(np.float32))
+    pt, ln = torch.from_numpy(pages), torch.tensor(lengths, dtype=torch.int32)
+    kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
+    got = _split_merge(q, arena, pt, ln, pps=max(1, SPLIT_POSITIONS // block),
+                       **kw)
+    want = TP.paged_attention_ref(q, arena, pt, ln, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert not got[i].any()
+
+
 def test_cpu_tensors_take_the_plain_versions():
     _build.reset_launches()
     q = torch.randn(1, 4, 5, 32)

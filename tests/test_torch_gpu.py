@@ -4,9 +4,11 @@ counts and index lanes are integers and bits), and for the attention
 kernels fp32 1e-5 (summation order) and bf16 2e-2 (one bf16 rounding of
 the output), and for the Mamba2 scan y within 1e-4 and h_last within
 1e-3 in fp32 (relative and absolute: summation order over up to 64-step
-tiles), bf16 y within 2e-2. Every test skips with a reason where no CUDA card is
-present; run them on the card with ``python -m pytest -m gpu
-tests/test_torch_gpu.py``."""
+tiles and the tensor cores' 3-term TF32 products, ~3e-5), bf16 y within
+2e-2. The paged-attention and scan cases include the edges of their split
+and chunk designs, and a second call must give the same bits. Every test
+skips with a reason where no CUDA card is present; run them on the card
+with ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import re
 
 import numpy as np
@@ -324,43 +326,69 @@ def test_flash_dtype_picks_the_kernel(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "b,h,kh,hd,block,nblk,window,softcap",
+    "b,h,kh,hd,block,nblk,window,softcap,lengths,holes",
     [
-        (2, 4, 4, 64, 16, 4, 0, 0.0),
-        (3, 8, 2, 64, 16, 6, 0, 0.0),       # GQA g=4
-        (2, 4, 4, 128, 32, 3, 0, 50.0),     # softcap
-        (2, 4, 2, 64, 16, 8, 40, 0.0),      # window
-        (4, 32, 4, 128, 16, 16, 0, 0.0),    # the serve path's decode
-        (2, 8, 2, 256, 8, 5, 9, 30.0),      # hd 256, window + softcap
-        (3, 8, 4, 8, 8, 6, 0, 0.0),         # head dim 8 (SMOKE)
-        (4, 32, 32, 80, 16, 20, 0, 0.0),    # zamba2's shared block decode
+        (2, 4, 4, 64, 16, 4, 0, 0.0, None, ()),
+        (3, 8, 2, 64, 16, 6, 0, 0.0, None, ()),       # GQA g=4
+        (2, 4, 4, 128, 32, 3, 0, 50.0, None, ()),     # softcap
+        (2, 4, 2, 64, 16, 8, 40, 0.0, None, ()),      # window
+        (4, 32, 4, 128, 16, 16, 0, 0.0, None, ()),    # the serve path's decode
+        (2, 8, 2, 256, 8, 5, 9, 30.0, None, ()),      # hd 256, window + softcap
+        (3, 8, 4, 8, 8, 6, 0, 0.0, None, ()),         # head dim 8 (SMOKE)
+        (4, 32, 32, 80, 16, 20, 0, 0.0, None, ()),    # zamba2's shared block
+        # the split kernel's edges (a split is 64 positions: 4 pages of 16,
+        # 8 of 8, 2 of 32): lengths on a split edge and either side of it
+        (4, 32, 4, 128, 16, 16, 0, 0.0, [64, 128, 65, 63], ()),
+        (4, 32, 32, 80, 32, 8, 0, 0.0, [64, 192, 129, 1], ()),
+        # a 1,024-token sequence beside an empty and a 1-token slot
+        (3, 32, 32, 80, 16, 64, 0, 0.0, [1024, 0, 1], ()),
+        (3, 32, 4, 128, 16, 64, 0, 0.0, [1, 1024, 0], ()),
+        # a window that drops whole early splits
+        (2, 8, 2, 64, 16, 20, 40, 0.0, [300, 200], ()),
+        (2, 8, 8, 80, 8, 40, 33, 20.0, [310, 64], ()),
+        # a missing page in the middle of a split, and a split all missing
+        (2, 8, 2, 64, 8, 12, 0, 0.0, [90, 70], ((0, 9), (1, 2))),
+        (2, 8, 8, 80, 16, 16, 0, 0.0, [250, 100],
+         ((0, 4), (0, 5), (0, 6), (0, 7), (1, 2))),
     ])
 def test_paged_attention_matches_plain(cuda, b, h, kh, hd, block, nblk,
-                                       window, softcap, dtype):
+                                       window, softcap, lengths, holes,
+                                       dtype):
     rng = np.random.default_rng(b * 100 + nblk)
     cap = b * nblk + 4
     pages = np.full((b, nblk), -1, np.int32)
-    lengths = np.zeros((b,), np.int32)
+    lens = np.zeros((b,), np.int32)
     perm = rng.permutation(cap)
     pi = 0
     for i in range(b):
-        n = int(rng.integers(1, nblk + 1))
+        if lengths is None:
+            n = int(rng.integers(1, nblk + 1))
+            lens[i] = (n - 1) * block + int(rng.integers(1, block + 1))
+        else:
+            lens[i] = lengths[i]
+            n = -(-lengths[i] // block)
         pages[i, :n] = perm[pi:pi + n]
         pi += n
-        lengths[i] = (n - 1) * block + int(rng.integers(1, block + 1))
-    lengths[-1] = 0 if b > 2 else lengths[-1]   # an empty slot gives 0
+    if lengths is None and b > 2:
+        lens[-1] = 0   # an empty slot gives 0
+    for i, j in holes:
+        pages[i, j] = -1
     g = torch.Generator(device=cuda).manual_seed(hd + nblk)
     q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
     arena = torch.randn((cap, 2, block, kh, hd), generator=g,
                         device=cuda).to(dtype)
     pt = torch.from_numpy(pages).to(cuda)
-    ln = torch.from_numpy(lengths).to(cuda)
+    ln = torch.from_numpy(lens).to(cuda)
     kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
     got = PA.paged_attention(q, arena, pt, ln, **kw)
     want = PA.paged_attention_ref(q, arena, pt, ln, **kw)
+    again = PA.paged_attention(q, arena, pt, ln, **kw)  # counters wrapped
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
     assert float((got.float() - want.float()).abs().max()) <= ATT_TOL[dtype]
+    assert torch.equal(got, again)
+    if lengths is not None:   # a slot with nothing visible gives 0
+        assert not got[torch.from_numpy(lens == 0).to(cuda)].any()
 
 
 SCAN_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 1e-3)}
@@ -387,17 +415,27 @@ def _rel_err(got, want):
     "b,s,nh,dh,st",
     [(2, 64, 2, 16, 8), (1, 128, 4, 32, 16), (2, 96, 1, 8, 4),  # JAX tests
      (2, 23, 3, 16, 8), (1, 600, 4, 64, 64),    # ragged last tiles
-     (1, 300, 80, 64, 64)])                      # zamba2's prefill
+     (1, 300, 80, 64, 64),                       # zamba2's prefill
+     (1, 24, 80, 64, 64),                        # zamba2's short prefill
+     # the chunk-parallel kernel's edges: one step, one chunk and one
+     # step either side, three chunks with a ragged one; b = 3; st 16,
+     # 128 and 256; dh past one 64-row block
+     (1, 1, 80, 64, 64), (1, 63, 80, 64, 64), (1, 64, 80, 64, 64),
+     (1, 65, 80, 64, 64), (1, 129, 80, 64, 64), (3, 129, 4, 64, 64),
+     (2, 150, 4, 64, 16), (1, 150, 4, 64, 128), (1, 70, 2, 16, 256),
+     (2, 130, 3, 80, 32)])
 def test_mamba2_scan_matches_plain(cuda, b, s, nh, dh, st, dtype, h0):
     gen = torch.Generator(device=cuda).manual_seed(s + nh + dh)
     args = _ssd_case(gen, cuda, b, s, nh, dh, st, dtype, h0)
     y, h = MS.mamba2_scan(*args)
     y_r, h_r = MS.mamba2_scan_ref(*args)
+    y2, h2 = MS.mamba2_scan(*args)
     torch.cuda.synchronize()
     assert y.dtype == dtype and y.shape == y_r.shape and h.shape == h_r.shape
     y_tol, h_tol = SCAN_TOL[dtype]
     assert _rel_err(y, y_r) <= y_tol
     assert _rel_err(h, h_r) <= h_tol
+    assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
 def test_serve_engine_on_card_matches_cpu(cuda):

@@ -94,6 +94,73 @@ def test_plain_scan_matches_oracle_with_ragged_tiles_and_state(s, chunk, h0):
         np.testing.assert_allclose(h_0.numpy(), np.asarray(want_h), **H_TOL)
 
 
+def _chunk_parallel(x, dt, dA, B, C, h0, chunk=TM.CHUNK):
+    """The CUDA kernel's three-part form in plain PyTorch: every chunk's
+    intra-chunk y and own state S_c from a zero state; the states passed
+    along the chunks, h_c = exp(T_c) h_{c-1} + S_c from h0; then each
+    chunk's y gains exp(cum_t) C_t . h_{c-1}^T. fp32, the cumsums in fp64."""
+    b, s, nh, dh = x.shape
+    ys, states, totals, cums = [], [], [], []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, min(c0 + chunk, s))
+        xc, dtc, Bc, Cc = x[:, sl], dt[:, sl], B[:, sl], C[:, sl]
+        cum = torch.cumsum(dA[:, sl].double(), dim=1)            # [b, n, nh]
+        total = cum[:, -1]
+        n = xc.shape[1]
+        tri = torch.ones((n, n), dtype=torch.bool).tril()
+        decay = torch.exp((cum[:, :, None] - cum[:, None, :]).float())
+        w = torch.where(tri[None, :, :, None],
+                        torch.einsum("bts,bus->btu", Cc, Bc)[..., None] * decay,
+                        0.0)
+        ys.append(torch.einsum("btuh,buh,buhd->bthd", w, dtc, xc))
+        sw = torch.exp((total[:, None] - cum).float()) * dtc
+        states.append(torch.einsum("buh,buhd,bus->bhds", sw, xc, Bc))
+        totals.append(total.float())
+        cums.append(cum)
+    h = torch.zeros((b, nh, dh, B.shape[2])) if h0 is None else h0
+    out = []
+    for yc, sc, tc, cum, c0 in zip(ys, states, totals, cums,
+                                   range(0, s, chunk)):
+        Cc = C[:, c0:c0 + chunk]
+        out.append(yc + torch.einsum("bts,bth,bhds->bthd", Cc,
+                                     torch.exp(cum.float()), h))
+        h = torch.exp(tc)[..., None, None] * h + sc
+    return torch.cat(out, dim=1), h
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 150])
+@pytest.mark.parametrize("h0", [False, True])
+def test_chunk_parallel_form_matches_plain(s, h0):
+    """The kernel's algebra: chunk states from zero, passed along the
+    chunks, equal the plain (sequential) version at fp32 1e-5, with ragged
+    last chunks and a carried initial state."""
+    rng = np.random.default_rng(s * 3 + h0)
+    x, dt, dA, B, C, hz = _t(*_scan_inputs(rng, 2, s, 3, 16, 8, h0=h0))
+    y, h = _chunk_parallel(x, dt, dA, B, C, hz)
+    want_y, want_h = TM.mamba2_scan_ref(x, dt, dA, B, C, hz)
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), want_h.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,nh,dh,st,chunk", [(2, 96, 2, 16, 8, 32),
+                                                (1, 128, 2, 8, 4, 64)])
+def test_chunk_parallel_form_matches_pallas_interpret(b, s, nh, dh, st,
+                                                      chunk):
+    """The same form against the reference's Pallas kernel in interpret
+    mode (zero initial state, which is all that kernel takes), fp32 1e-5."""
+    rng = np.random.default_rng(s + nh)
+    x, dt, dA, B, C, _ = _scan_inputs(rng, b, s, nh, dh, st)
+    want_y, want_h = j_scan(*map(jnp.asarray, (x, dt, dA, B, C)),
+                            chunk=chunk, interpret=True)
+    y, h = _chunk_parallel(*_t(x, dt, dA, B, C), None)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_scan_wrapper_takes_the_plain_version_on_cpu_and_checks_inputs():
     rng = np.random.default_rng(0)
     x, dt, dA, B, C, hz = _t(*_scan_inputs(rng, 1, 5, 2, 8, 4, h0=True))
