@@ -12,20 +12,36 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               parallel) and report registers, shared memory and spills
               per kernel instance, and the tensor-core (HMMA) and cp.async
               (LDGSTS) instructions of the flash library (``cuobjdump``).
+   comparable -- right after the build (torch.profiler): the device time
+              and launches of whole calls that this tree and its parent
+              both offer (``comparable_rows``: the scan with its totals,
+              the bare probe, the executors' verified probe route), and
+              kernels, copies, device time and idle share per Table 2
+              DELETE / SELECT statement, plain and indexed.
 2. kernels -- every relscan / hash-index kernel against its plain PyTorch
               version on the card, exact equality, at the main path's
-              shapes and beyond; then each kernel's time (CUDA events),
-              its plain version's time and its bound; the compaction also
-              at cap 4,194,304, and one compaction call under the profiler
-              must show one device kernel and no memset or copy.
+              shapes and beyond: the scan's mask, block counts and totals
+              also at caps off its 8-row and 256-row tiles (1-100,003),
+              w 1-33 and columns off 16 bytes, each twice; the verified
+              probe at w 1/32/4,096 with 0-4 and 8 residual terms, an
+              extra mask and active flags, limits 1/64/200, on a fresh
+              and a stale index. Then each kernel's time (CUDA events),
+              its plain version's time and its bound: the scan at 1 and 2
+              terms (cap 131,072), 4 terms (cap 4,194,304) and w = 32, the
+              probe bare and verified at w 1 and 32, the compaction also
+              at cap 4,194,304. One scan, one probe and one compaction call under
+              the profiler must each show one device kernel and no memset
+              or copy.
    kernels_attention -- the flash- and paged-attention kernels against
               their plain versions (fp32 within 1e-5, bf16 within 2e-2)
               at tests/test_kernels.py's shapes, head dims 8-256, both
               serve paths' own shapes (yi-6b at head dim 128, zamba2's
               shared block at 80), the flash kernels' tile edges (lengths
               1-300 around the 16-row warp, 64-row CTA and 64-key tiles,
-              each head dim, GQA 8:1, windows, softcap, q_offset), and the
-              [b, s, h, hd]-transposed views attention_prefill passes
+              each head dim, GQA 8:1, windows, softcap, q_offset), query
+              rows that see no key (a window past the last key: the mean
+              of V), and the [b, s, h, hd]-transposed views
+              attention_prefill passes
               (equal to the contiguous call, no copy), and the paged
               kernel's split edges (lengths on and beside a 64-position
               split, a 1,024-token sequence beside empty and 1-token slots,
@@ -73,10 +89,8 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               tiles), 16 new tokens each, max_seq 512, then the same
               extra requests, evict_user and flush, with the same checks
               (the dense reference's SSM recurrence uses no scan kernel).
-7. profile -- after the main paths: kernels, copies, device time and idle
-              share per Table 2 DELETE / SELECT statement, per decode
-              round of both serve paths, and for zamba2's 300-token
-              prefill (torch.profiler).
+7. profile -- after the main paths (torch.profiler): per decode round of
+              both serve paths, and for zamba2's 300-token prefill.
 
 Phases 3-6 are six main paths (Table 2 plain, Table 2 indexed, Fig. 1,
 wire, serve, serve_zamba2). The launch counters are zeroed right before
@@ -174,18 +188,26 @@ def device_us(event) -> float:
             else event.self_cuda_time_total)
 
 
-def device_events(fn, iters=1):
+def device_events(fn, iters=1, tries=3):
     """The CUDA activities (kernels, memsets, copies) of ``iters`` calls of
-    ``fn`` after one warm-up call, from the profiler."""
+    ``fn`` after one warm-up call, from the profiler. Every ``fn`` timed
+    here puts work on the card, yet on the H100 the profiler now and then
+    returned a window with no CUDA activity at all (cause unknown): such a
+    window is profiled again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        sync()
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            sync()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    return events
 
 
 def call_device_ms(fn, iters=50):
@@ -333,12 +355,12 @@ def check_scan_compact(rng, dev):
                 if w > 1:
                     v = v + torch.arange(w, dtype=torch.int32,
                                          device=dev)[:, None]
-                mask, cnt = RS.scan(cols[:nt], valid, v, ops)
-                mask_r, cnt_r = RS.scan_ref(cols[:nt], valid, v, ops)
+                mask, cnt, tot = RS.scan(cols[:nt], valid, v, ops)
+                mask_r, cnt_r, tot_r = RS.scan_ref(cols[:nt], valid, v, ops)
                 sync()
                 errs["relscan_scan"] = max(
                     errs["relscan_scan"],
-                    max_err([(mask, mask_r), (cnt, cnt_r)]))
+                    max_err([(mask, mask_r), (cnt, cnt_r), (tot, tot_r)]))
                 for limit in (1, 64, 1000, cap + 5):
                     ids, n = RS.compact(mask, limit)
                     ids_r, n_r = RS.compact_ref(mask_r, limit)
@@ -347,6 +369,30 @@ def check_scan_compact(rng, dev):
                         errs["relscan_compact"],
                         max_err([(ids, ids_r), (n, n_r),
                                  (n, cnt_r.sum(dim=1, dtype=torch.int32))]))
+                    cases += 1
+    # the scan's edges: caps off its 8 rows a thread and 256 a warp, w
+    # beyond one CTA's 8 statements (mask rows off 8 bytes), columns and
+    # validity off their 16 bytes (views one row in); twice each, for the
+    # accumulator words that must be zero again after a launch
+    for cap in (1, 7, 255, 257, 100_003):
+        for off in (0, 1):
+            base = [torch.from_numpy(rng.integers(-100, 100, cap + off)
+                                     .astype(np.int32)).to(dev)
+                    for _ in range(4)]
+            cols = [c[off:] for c in base]
+            valid = torch.from_numpy(rng.random(cap + off) < 0.8).to(dev)[off:]
+            for nt in (1, 2, 3, 4):
+                ops = tuple(rng.choice(list(RS.OP_CODES), nt))
+                for w in (1, 3, 32, 33):
+                    v = torch.from_numpy(rng.integers(-60, 60, (w, nt))
+                                         .astype(np.int32)).to(dev)
+                    want = RS.scan_ref(cols[:nt], valid, v, ops)
+                    for _ in range(2):
+                        got = RS.scan(cols[:nt], valid, v, ops)
+                        sync()
+                        errs["relscan_scan"] = max(
+                            errs["relscan_scan"],
+                            max_err(list(zip(got, want))))
                     cases += 1
     return cases, errs
 
@@ -381,70 +427,133 @@ def check_build_probe(dev):
         errs["hash_probe"] = max(errs["hash_probe"],
                                  max_err(list(zip(got, want))))
         hits += int(got[1].any(dim=1).sum())
-    return overflow, hits, errs
+    # the verified probe: the page_id index (fresh), the user_id index
+    # (stale: ~100 rows a key, buckets over 128) and the page_id index with
+    # its buckets out of row order; some rows dead after the build, 0-4 and
+    # 8 residual terms (both instances of the kernel), an extra mask and
+    # active flags, limits below and beyond the bucket's 128 lanes
+    ucol, _ = table_column(users, cap, dev)
+    urid, ukey, _ = HX.build(ucol, valid, n_buckets=nb)
+    pcol = keys
+    live = valid.clone()
+    live[torch.from_numpy(rng.integers(0, 100_000, 3000)).to(dev)] = False
+    extra = torch.from_numpy(rng.random(cap) < 0.6).to(dev)
+    ops = list(RS.OP_CODES)
+    verified = 0
+    perm = torch.from_numpy(rng.permutation(HX.BUCKET_CAP)).to(dev)
+    for name, (irid, ikey, kcol, src) in {
+            "page_id": (rid, key, pcol, pages),
+            "user_id": (urid, ukey, ucol, users),
+            # every bucket's lanes out of row order, as insertions leave them
+            "page_id, lanes permuted": (rid[:, perm].contiguous(),
+                                        key[:, perm].contiguous(), pcol,
+                                        pages)}.items():
+        for w in (1, 32, 4096):
+            q = rng.integers(-5, 1_005 if name == "user_id" else 31_000,
+                             w).astype(np.int32)
+            q[0] = src[0]
+            qk = torch.from_numpy(q).to(dev)
+            for nres in (0, 1, 2, 3, 4, 8):
+                residual = [(pcol if t % 2 else ucol, ops[(t + nres) % 6],
+                             torch.from_numpy(rng.integers(
+                                 0, 30_000 if t % 2 else 1_000, w)
+                                 .astype(np.int32)).to(dev))
+                            for t in range(nres)]
+                if nres > 3:
+                    # each term passes most rows, so matches remain: an
+                    # == term compares the key column with the query key
+                    residual = [(kcol, op, qk) if op == "==" else
+                                (col, op, v if op == "!=" else
+                                 (v * 3 // 10 + (hi * 7 // 10
+                                                 if op in ("<", "<=") else 0)))
+                                for (col, op, v), hi in zip(
+                                    residual, [1_000, 30_000] * 4)]
+                for limit in (1, 64, 200):
+                    for gated in (False, True):
+                        kw = dict(valid=live, keycol=kcol, residual=residual,
+                                  limit=limit)
+                        if gated:
+                            act = torch.from_numpy(rng.random(w) < 0.8).to(dev)
+                            kw.update(extra_mask=extra, active=act)
+                        got = HX.probe_verify(irid, ikey, qk, **kw)
+                        want = HX.probe_verify_ref(irid, ikey, qk, **kw)
+                        sync()
+                        errs["hash_probe"] = max(
+                            errs["hash_probe"], max_err(list(zip(got, want))))
+                        verified += 1
+    return overflow, hits, verified, errs
 
 
 def phase_kernels(dev, card):
     rng = np.random.default_rng(SEED)
     cases, errs = check_scan_compact(rng, dev)
-    overflow, hits, errs_hx = check_build_probe(dev)
+    overflow, hits, verified, errs_hx = check_build_probe(dev)
     errs.update(errs_hx)
     emit({"phase": "kernels_exact", "scan_compact_cases": cases,
           "build_overflow": overflow, "probe_queries_with_hits": hits,
-          "max_abs_err": errs})
+          "probe_verify_cases": verified, "max_abs_err": errs})
 
     # timings at the main path's shapes
     pages, users, _ = table2_data()
     cap = 131_072
     page_col, valid = table_column(pages, cap, dev)
     user_col, _ = table_column(users, cap, dev)
-    nblk = RS.n_blocks(cap)
     out = {}
     timings = []
 
-    # scan: the Table 2 page delete (1 term) and the 2-term select
+    # scan: the Table 2 page delete (1 term), the 2-term select, a 4-term
+    # scan of 4M rows, and 32 page deletes in one call (w = 32)
     v1 = torch.tensor([[int(pages[2])]], dtype=torch.int32, device=dev)
     v2 = torch.tensor([[int(users[1]), 15_000]], dtype=torch.int32,
                       device=dev)
-    for label, cols, vals, ops in (
-            ("1 term, cap 131072", [page_col], v1, ("==",)),
-            ("2 terms, cap 131072", [user_col, page_col], v2, ("==", "<"))):
-        nt = len(ops)
-        k_ms = time_ms(lambda: RS.scan(cols, valid, vals, ops))
-        p_ms = time_ms(lambda: RS.scan_ref(cols, valid, vals, ops))
-        d_ms = device_ms(lambda: RS.scan(cols, valid, vals, ops),
-                         "scan_kernel")
-        b_ms, b_by = bound(nt * 4 * cap + cap + cap + nblk * 4 + 4 * nt,
-                           (nt + 1) * cap)
-        timings.append({"kernel": "relscan_scan", "shape": label,
-                        "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
-                        "bound_ms": b_ms, "bound_by": b_by})
-        if "scan" not in out:
-            out["scan"] = timings[-1]
+    v32 = torch.from_numpy(pages[2:34].reshape(32, 1).copy()).to(dev)
     big = 4_194_304
     bcols = [torch.from_numpy(rng.integers(-100, 100, big).astype(np.int32))
              .to(dev) for _ in range(4)]
     bvalid = torch.from_numpy(rng.random(big) < 0.8).to(dev)
     bv = torch.tensor([[0, 50, -50, 3]], dtype=torch.int32, device=dev)
     bops = ("<=", "<", ">=", "!=")
-    k_ms = time_ms(lambda: RS.scan(bcols, bvalid, bv, bops), iters=50)
-    p_ms = time_ms(lambda: RS.scan_ref(bcols, bvalid, bv, bops), iters=20)
-    d_ms = device_ms(lambda: RS.scan(bcols, bvalid, bv, bops), "scan_kernel",
-                     iters=20)
-    b_ms, b_by = bound(16 * big + 2 * big + RS.n_blocks(big) * 4, 5 * big)
-    timings.append({"kernel": "relscan_scan", "shape": "4 terms, cap 4194304",
-                    "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
-                    "bound_ms": b_ms, "bound_by": b_by})
+    events = {}
+    for label, cols, vld, vals, ops in (
+            ("1 term, cap 131072", [page_col], valid, v1, ("==",)),
+            ("2 terms, cap 131072", [user_col, page_col], valid, v2,
+             ("==", "<")),
+            ("4 terms, cap 4194304", bcols, bvalid, bv, bops),
+            ("1 term, w = 32, cap 131072", [page_col], valid, v32, ("==",))):
+        n, w, nt = vld.shape[0], vals.shape[0], len(ops)
+        run = lambda: RS.scan(cols, vld, vals, ops)  # noqa: E731
+        events[label] = [e.name for e in device_events(run)]
+        # columns, validity and values read once; mask, block counts and
+        # totals written once; a compare per term and row, and the AND
+        b_ms, b_by = bound(nt * 4 * n + n + 4 * w * nt + w * n
+                           + 4 * w * RS.n_blocks(n) + 4 * w, w * nt * n + w * n)
+        row = {"kernel": "relscan_scan", "shape": label,
+               "ms": time_ms(run, iters=50 if n == big else 200),
+               "device_ms": device_ms(run, "scan_kernel",
+                                      iters=20 if n == big else 50),
+               "plain_ms": time_ms(lambda: RS.scan_ref(cols, vld, vals, ops),
+                                   iters=20 if n == big else 200),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "library": "none: no single PyTorch call computes the "
+                          "conjunction, its block counts and totals",
+               "device_events_one_call": events[label]}
+        timings.append(row)
+        if "scan" not in out:
+            out["scan"] = row
+    for label, names in events.items():
+        if len(names) != 1 or "scan_kernel" not in names[0]:
+            raise AssertionError(f"one scan call ({label}) ran {names} on "
+                                 f"the card, not one scan_kernel launch")
 
     # compact: SELECT * WHERE page_id = ? LIMIT 64 at cap 131072, and a
     # 4-term scan's mask at cap 4194304
     limit = 64
-    mask, _ = RS.scan([page_col], valid, v1, ("==",))
+    mask = RS.scan([page_col], valid, v1, ("==",))[0]
     events = [e.name for e in device_events(lambda: RS.compact(mask, limit))]
     if len(events) != 1 or "compact_kernel" not in events[0]:
         raise AssertionError(f"one compact call ran {events} on the card, "
                              f"not one compact_kernel launch")
-    big_mask, _ = RS.scan(bcols, bvalid, bv, bops)
+    big_mask = RS.scan(bcols, bvalid, bv, bops)[0]
     for key, m, label in (("compact", mask, "cap 131072, limit 64"),
                           ("compact_4m", big_mask, "cap 4194304, limit 64")):
         w, n = m.shape
@@ -491,20 +600,41 @@ def phase_kernels(dev, card):
                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
     timings.append(out["build"])
 
-    # probe: one key (the singleton IndexProbe) and 32 keys (a batch)
+    # probe: one key (the singleton IndexProbe) and 32 keys (a batch),
+    # bare (the TPU kernel's contract) and verified (the executors'
+    # IndexProbe route: the SELECT's limit of 64, no residual term)
     rid, key, _ = HX.build(page_col, valid, n_buckets=nb)
+    lanes = HX.BUCKET_CAP
     for w in (1, 32):
         q = torch.from_numpy(pages[2:2 + w].copy()).to(dev)
-        k_ms = time_ms(lambda: HX.probe(rid, key, q))
-        p_ms = time_ms(lambda: HX.probe_ref(rid, key, q))
-        d_ms = device_ms(lambda: HX.probe(rid, key, q), "probe_kernel")
-        b_ms, b_by = bound(4 * w + 8 * w * HX.BUCKET_CAP
-                           + 5 * w * HX.BUCKET_CAP, 2 * w * HX.BUCKET_CAP)
-        timings.append({"kernel": "hash_probe", "shape": f"w = {w}",
-                        "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
-                        "bound_ms": b_ms, "bound_by": b_by})
-        if "probe" not in out:
-            out["probe"] = timings[-1]
+        bare = lambda: HX.probe(rid, key, q)  # noqa: E731
+        kw = dict(valid=valid, keycol=page_col, limit=limit)
+        verified = lambda: HX.probe_verify(rid, key, q, **kw)  # noqa: E731
+        n_hit = int(verified()[2].sum())
+        for label, run, plain, nbytes in (
+                (f"w = {w}", bare, lambda: HX.probe_ref(rid, key, q),
+                 4 * w + 8 * w * lanes + 5 * w * lanes),
+                (f"w = {w}, verified, limit {limit}", verified,
+                 lambda: HX.probe_verify_ref(rid, key, q, **kw),
+                 # keys and bucket lanes read, each match's validity byte
+                 # and key read, safe / ok / count / ids written once
+                 4 * w + 8 * w * lanes + 5 * n_hit + 5 * w * lanes + 4 * w
+                 + 4 * w * limit)):
+            names = [e.name for e in device_events(run)]
+            if len(names) != 1 or "probe_kernel" not in names[0]:
+                raise AssertionError(f"one probe call ({label}) ran {names} "
+                                     f"on the card, not one probe_kernel "
+                                     f"launch")
+            b_ms, b_by = bound(nbytes, 2 * w * lanes)
+            timings.append({
+                "kernel": "hash_probe", "shape": label, "ms": time_ms(run),
+                "device_ms": device_ms(run, "probe_kernel"),
+                "plain_ms": time_ms(plain), "bound_ms": b_ms,
+                "bound_by": b_by, "matches": n_hit, "library_ms": None,
+                "library": "none: no single PyTorch call probes a bucketed "
+                           "hash index", "device_events_one_call": names})
+            if "probe" not in out:
+                out["probe"] = timings[-1]
     for t in timings:
         emit({"phase": "kernel_timing", "card": card, **t})
     return out, errs
@@ -545,7 +675,15 @@ FLASH_EDGE_CASES = [(1, 8, 1, n, n, hd, True, 0, 0.0, 0)
         (1, 4, 2, 130, 130, hd, True, 70, 0.0, 0),
         (2, 4, 4, 65, 65, hd, True, 0, 30.0, 0),
         (2, 4, 2, 17, 81, hd, True, 0, 0.0, 64),
-        (1, 8, 1, 100, 164, hd, True, 40, 20.0, 64))]
+        (1, 8, 1, 100, 164, hd, True, 40, 20.0, 64))] + [
+    # query rows that see no key (q_offset + row >= sk + window - 1): the
+    # plain version gives the mean of V over the sk keys there
+    c for hd in FA.HEAD_DIMS for c in (
+        (1, 4, 2, 16, 16, hd, True, 8, 0.0, 40),
+        (1, 4, 2, 16, 16, hd, True, 8, 0.0, 20),
+        (1, 4, 2, 16, 16, hd, True, 4, 0.0, 8),
+        (2, 8, 2, 100, 16, hd, True, 4, 0.0, 8),
+        (1, 4, 4, 30, 20, hd, False, 6, 10.0, 5))]
 # (b, h, kh, s, hd) of the strided case: q/k/v as attention_prefill passes
 # them, [b, s, heads, hd] projections transposed to [b, heads, s, hd]
 FLASH_VIEW_CASES = [(1, 32, 32, 300, 80), (1, 32, 4, 24, 128),
@@ -1566,24 +1704,94 @@ def profile_prefill(eng, cfg, n_tokens):
     return {"tokens": n_tokens, **device_families(prof, wall_us, 1)}
 
 
-def phase_profile(card, serve, zamba):
+def table2_db(extra):
+    """A card daemon holding the Table 2 table (``extra``: its indexes)."""
     pages, users, payload = table2_data()
-    out = {}
-    for variant, extra in (("plain", ""),
-                           ("indexed", ", INDEX(page_id), INDEX(user_id)")):
-        db = D.SQLCached()
-        db.execute(f"CREATE TABLE cache (page_id INT, user_id INT, data "
-                   f"BIGINT{extra}) CAPACITY 131072 MAX_SELECT 64")
-        db.executemany("INSERT INTO cache (page_id, user_id, data) VALUES "
-                       "(?, ?, ?)", list(zip(pages.tolist(), users.tolist(),
-                                             payload.tolist())))
-        out[f"{variant}_page_delete"] = profile_statements(
-            db, "DELETE FROM cache WHERE page_id = ?",
+    db = D.SQLCached()
+    db.execute(f"CREATE TABLE cache (page_id INT, user_id INT, data "
+               f"BIGINT{extra}) CAPACITY 131072 MAX_SELECT 64")
+    db.executemany("INSERT INTO cache (page_id, user_id, data) VALUES "
+                   "(?, ?, ?)", list(zip(pages.tolist(), users.tolist(),
+                                         payload.tolist())))
+    return db
+
+
+def comparable_rows(dev):
+    """Whole calls that this tree's package and its parent's both offer,
+    timed by what they put on the card (every kernel, memset and copy of
+    one call): the scan with each statement's total (``relscan`` without
+    the compaction), the bare probe, the executors' verified IndexProbe
+    route (its ids, presence and count from core/table.py), and
+    per statement on the Table 2 table (plain and indexed) kernels, device
+    time and idle share. Run it in a fresh process per tree to compare
+    this package with another checkout's, within one call."""
+    from repro_torch.core import predicate as P
+    from repro_torch.core import table as T
+    pages, users, _ = table2_data()
+    rng = np.random.default_rng(SEED + 3)
+    cap = 131_072
+    page_col, valid = table_column(pages, cap, dev)
+    user_col, _ = table_column(users, cap, dev)
+    rows = {}
+
+    def add(what, fn, iters=50):
+        # device time and launches from one profiled window
+        events = device_events(fn, iters)
+        rows[what] = {
+            "device_ms": sum(device_us(e) for e in events) / iters / 1e3,
+            "device_launches": len(events) / iters,
+            "ms": time_ms(fn, iters=iters)}
+
+    big = 4_194_304
+    bcols = [torch.from_numpy(rng.integers(-100, 100, big).astype(np.int32))
+             .to(dev) for _ in range(4)]
+    bvalid = torch.from_numpy(rng.random(big) < 0.8).to(dev)
+    for what, cols, vld, vals, ops in (
+            ("1 term, cap 131072", [page_col], valid,
+             [[int(pages[2])]], ("==",)),
+            ("2 terms, cap 131072", [user_col, page_col], valid,
+             [[int(users[1]), 15_000]], ("==", "<")),
+            ("4 terms, cap 4194304", bcols, bvalid, [[0, 50, -50, 3]],
+             ("<=", "<", ">=", "!=")),
+            ("1 term, w = 32, cap 131072", [page_col], valid,
+             pages[2:34].reshape(32, 1).tolist(), ("==",))):
+        v = torch.tensor(vals, dtype=torch.int32, device=dev)
+        add(f"scan + totals, {what}", lambda: RS.relscan(
+            cols, vld, v, ops=ops, limit=1, want_ids=False),
+            iters=20 if vld.shape[0] == big else 50)
+    del bcols, bvalid
+
+    db = table2_db(", INDEX(page_id)")
+    t = db.tables["cache"]
+    where = P.BinOp("=", P.Col("page_id"), P.Param(0))
+    plan = T.plan_for(t.schema, where)
+    idx = t.state["indexes"]["page_id"]
+    for w in (1, 32):
+        q = torch.from_numpy(pages[2:2 + w].copy()).to(dev)
+        add(f"probe, w = {w}", lambda: HX.probe(idx["rid"], idx["key"], q))
+
+        def route():
+            _, _, count, ids = T._probe_candidates(
+                t.schema, t.state, plan, (q,), w, limit=64)
+            return ids, T._present(count, 64), count
+        add(f"verified probe route, w = {w}, limit 64", route)
+
+    for variant, dbx in (("plain", table2_db("")), ("indexed", db)):
+        rows[f"{variant}_page_delete"] = profile_statements(
+            dbx, "DELETE FROM cache WHERE page_id = ?",
             [(int(p),) for p in pages[400:420]])
-        out[f"{variant}_page_select"] = profile_statements(
-            db, "SELECT * FROM cache WHERE page_id = ? LIMIT 64",
+        rows[f"{variant}_page_select"] = profile_statements(
+            dbx, "SELECT * FROM cache WHERE page_id = ? LIMIT 64",
             [(int(p),) for p in pages[500:520]])
-    out["serve_decode_round"] = profile_rounds(serve["eng"], serve["cfg"])
+    return rows
+
+
+def phase_comparable(dev, card):
+    emit({"phase": "comparable", "card": card, "rows": comparable_rows(dev)})
+
+
+def phase_profile(card, serve, zamba):
+    out = {"serve_decode_round": profile_rounds(serve["eng"], serve["cfg"])}
     out["zamba2_decode_round"] = profile_rounds(zamba["eng"], zamba["cfg"])
     out["zamba2_prefill_300"] = profile_prefill(zamba["eng"], zamba["cfg"],
                                                 ZAMBA_LONG_PROMPT)
@@ -1615,6 +1823,9 @@ def main():
     dev = torch.device("cuda", 0)
     card = phase_device()
     phase_build()
+    # first, in a process that has profiled nothing yet: long runs of
+    # profiled windows were seen to lose some kernel records
+    phase_comparable(dev, card)
     timing, errs = phase_kernels(dev, card)
     for phase in (phase_kernels_attention, phase_kernels_mamba):
         t, e = phase(dev, card)

@@ -849,7 +849,12 @@ class SQLCached:
         n = len(params_list)
         if n == 0:
             return [] if per_statement else Result(count=0)
-        b = _bucket(n)
+        if n > schema.capacity:
+            raise S.SQLError(f"INSERT of {n} rows exceeds CAPACITY "
+                             f"{schema.capacity}")
+        # the padded batch takes one slot a row, so it never outgrows the
+        # table (padding rows are masked off)
+        b = min(_bucket(n), schema.capacity)
         n_params = max((P.collect_params(v) for v in stmt.values), default=0)
         if stmt.ttl is not None:
             n_params = max(n_params, P.collect_params(stmt.ttl))

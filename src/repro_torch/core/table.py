@@ -349,15 +349,19 @@ def _fused_scan(schema, state, plan: P.FusedScan, params_w, w: int, *,
                               limit=limit, want_ids=want_ids)
 
 
+def _present(count: torch.Tensor, limit: int) -> torch.Tensor:
+    """[w, limit] presence of the first ``limit`` matches of each row."""
+    return torch.arange(limit, dtype=torch.int32,
+                        device=count.device)[None, :] < count[:, None]
+
+
 def _compact(mask: torch.Tensor, limit: int, capacity: int):
     """[w, cap] mask -> the first ``limit`` set bits of each row (row
     order, 0-padded), presence and the unclamped count, through the relscan
     compaction kernel."""
     limit = min(limit, capacity)
     ids, count = RS.compact(mask, limit)
-    present = torch.arange(limit, dtype=torch.int32,
-                           device=mask.device)[None, :] < count[:, None]
-    return ids, present, count
+    return ids, _present(count, limit), count
 
 
 def index_fresh(state: dict, column: str) -> torch.Tensor:
@@ -366,42 +370,24 @@ def index_fresh(state: dict, column: str) -> torch.Tensor:
 
 
 def _probe_candidates(schema, state, plan: PL.IndexProbe, params_w, w: int,
-                      *, extra_mask=None):
-    """One hash-bucket probe per statement + candidate verification.
-    Returns (safe [w, 128] clamped row ids, ok [w, 128] match bits)."""
-    cap = schema.capacity
+                      *, extra_mask=None, active=None, limit: int = 0):
+    """One hash-bucket probe per statement with candidate verification, in
+    one launch of the probe kernel (``HX.probe_verify``). Returns (safe
+    [w, 128] clamped row ids, ok [w, 128] match bits, count [w], ids
+    [w, limit] matching row ids in row order, 0-padded, or None when
+    ``limit`` is 0)."""
     dev = state["valid"].device
     idx = state["indexes"][plan.column]
-    qv = _term_vals(plan.key, params_w, w, dev)
-    cand, hit = HX.probe(idx["rid"], idx["key"], qv)
-    safe = cand.clamp(0, cap - 1).long()
-    ok = hit & state["valid"][safe] & (
-        state["cols"][plan.column][safe] == qv[:, None])
-    for t in plan.residual:
-        tv = _term_vals(t, params_w, w, dev)
-        ok = ok & P._CMP[t.op](state["cols"][t.col][safe], tv[:, None])
+    residual = [(state["cols"][t.col], t.op, _term_vals(t, params_w, w, dev))
+                for t in plan.residual]
+    em = None
     if extra_mask is not None:
         em = torch.broadcast_to(to_device(extra_mask, dev, torch.bool),
-                                (cap,))
-        ok = ok & em[safe]
-    return safe, ok
-
-
-def _probe_ids(safe, ok, limit: int, capacity: int):
-    """Candidate matches -> the compaction contract: first ``limit``
-    matching row ids in ROW ORDER (0-padded) + presence + count."""
-    w, lanes = safe.shape
-    count = ok.sum(dim=1, dtype=torch.int32)
-    ordered = torch.sort(torch.where(ok, safe, capacity), dim=1).values
-    if limit <= lanes:
-        ids = ordered[:, :limit]
-    else:
-        ids = torch.cat([ordered, torch.full((w, limit - lanes), capacity,
-                                             dtype=ordered.dtype,
-                                             device=ordered.device)], dim=1)
-    present = torch.arange(limit, dtype=torch.int32,
-                           device=safe.device)[None, :] < count[:, None]
-    return torch.where(present, ids, 0).to(torch.int32), present, count
+                                (schema.capacity,))
+    return HX.probe_verify(
+        idx["rid"], idx["key"], _term_vals(plan.key, params_w, w, dev),
+        valid=state["valid"], keycol=state["cols"][plan.column],
+        residual=residual, extra_mask=em, active=active, limit=limit)
 
 
 def _route(schema, where, params_w, plan):
@@ -501,13 +487,11 @@ def select_many(
         return finish_mask(mask, idx, present, count)
 
     def probe_route(r):
-        safe, ok = _probe_candidates(schema, state, r, params_w, w)
-        if active is not None:
-            ok = ok & active[:, None]
-        ids, present, count = _probe_ids(safe, ok, limit, cap)
+        safe, ok, count, ids = _probe_candidates(
+            schema, state, r, params_w, w, active=active, limit=limit)
         acc = (_drop_scatter(accessed, torch.where(ok, safe, cap), now)
                if touch else accessed)
-        return acc, ids, present, count
+        return acc, ids, _present(count, limit), count
 
     if order_by is not None:
         # ranked reads stay on the scan path: the ranking needs the mask
@@ -614,19 +598,23 @@ def update(
         if isinstance(r, PL.FusedScan):
             fused = _fused_scan(schema, state, r.scan, pw, 1, limit=1,
                                 want_ids=False)
-        mask = (fused[2] if fused is not None
-                else _match_mask(schema, state, where, pw, 1))[0]
+        if fused is not None:
+            mask, n = fused[2][0], fused[3][0]   # the scan's own count
+        else:
+            mask = _match_mask(schema, state, where, pw, 1)[0]
+            n = None
         if extra_mask is not None:
             mask = mask & to_device(extra_mask, dev, torch.bool)
+            n = None
         cols = dict(state["cols"])
         for tgt, expr in set_items:
             newv = new_values(expr, state["cols"], cols[tgt].dtype, cap)
             cols[tgt] = torch.where(mask, newv, cols[tgt])
-        return cols, mask.sum(dtype=torch.int32)
+        return cols, mask.sum(dtype=torch.int32) if n is None else n
 
     def probe_route(r):
-        safe, ok = _probe_candidates(schema, state, r, pw, 1,
-                                     extra_mask=extra_mask)
+        safe, ok, n, _ = _probe_candidates(schema, state, r, pw, 1,
+                                           extra_mask=extra_mask)
         safe, ok = safe[0], ok[0]
         gathered = {c: v[safe] for c, v in state["cols"].items()}
         tgt_rows = torch.where(ok, safe, cap)
@@ -635,7 +623,7 @@ def update(
             newv = new_values(expr, gathered, cols[tgt].dtype,
                               safe.shape[0])
             cols[tgt] = _drop_scatter(cols[tgt], tgt_rows, newv)
-        return cols, ok.sum(dtype=torch.int32)
+        return cols, n[0]
 
     route, forced = _route(schema, where, pw, plan)
     if isinstance(route, PL.IndexProbe):
@@ -679,36 +667,36 @@ def _delete_core(schema, state, where, params, *, want_ids, limit,
             fused = _fused_scan(schema, state, r.scan, pw, 1, limit=limit,
                                 want_ids=kernel_ids)
         if fused is not None:
-            ids, present, mask, _ = fused
-            mask = mask[0]
+            ids, present, mask, n = fused
+            mask, n = mask[0], n[0]   # the scan's own count
             if ids is not None:
                 ids, present = ids[0], present[0]
         else:
             mask = _match_mask(schema, state, where, pw, 1)[0]
-            ids = present = None
+            ids = present = n = None
         if extra_mask is not None:
             mask = mask & to_device(extra_mask, dev, torch.bool)
+            n = None
         if want_ids and ids is None:
             ids, present, n = _compact(mask[None], limit, cap)
             ids, present, n = ids[0], present[0], n[0]
-        else:
+        elif n is None:
             n = mask.sum(dtype=torch.int32)
         if not want_ids:
             ids, present = no_ids
         return state["valid"] & ~mask, n, ids, present
 
     def probe_route(r):
-        safe, ok = _probe_candidates(schema, state, r, pw, 1,
-                                     extra_mask=extra_mask)
-        n = ok.sum(dtype=torch.int32)
+        safe, ok, n, ids = _probe_candidates(
+            schema, state, r, pw, 1, extra_mask=extra_mask,
+            limit=limit if want_ids else 0)
         valid = _drop_scatter(state["valid"], torch.where(ok, safe, cap),
                               False)
         if want_ids:
-            ids, present, _ = _probe_ids(safe, ok, limit, cap)
-            ids, present = ids[0], present[0]
+            ids, present = ids[0], _present(n, limit)[0]
         else:
             ids, present = no_ids
-        return valid, n, ids, present
+        return valid, n[0], ids, present
 
     route, forced = _route(schema, where, pw, plan)
     if isinstance(route, PL.IndexProbe):
@@ -831,13 +819,17 @@ def aggregate_many(schema: TableSchema, state: dict, agg: str,
         if isinstance(r, PL.FusedScan):
             fused = _fused_scan(schema, state, r.scan, params_w, w, limit=1,
                                 want_ids=False)
+        if fused is not None and (agg == "COUNT" or vals is None):
+            return fused[3]   # the scan's own count
         mask = (fused[2] if fused is not None
                 else _match_mask(schema, state, where, params_w, w))
         return _reduce(agg, vals, mask)
 
     def probe_route(r):
-        safe, ok = _probe_candidates(schema, state, r, params_w, w)
-        return _reduce(agg, vals[safe] if vals is not None else None, ok)
+        safe, ok, count, _ = _probe_candidates(schema, state, r, params_w, w)
+        if agg == "COUNT" or vals is None:
+            return count
+        return _reduce(agg, vals[safe], ok)
 
     route, forced = _route(schema, where, params_w, plan)
     if isinstance(route, PL.IndexProbe):

@@ -12,6 +12,10 @@
 // visible score arrives and its correction factor exp(-1e30 - m) wipes
 // them; the kernels keep that arithmetic.
 constexpr float ATT_NEG_INF = -1e30f;
+// A position past the keys (a tile's zero-filled tail) weighs nothing even
+// in a row that sees no key, where the masked keys share the weight (the
+// reference's softmax over sk masked scores: the mean of V).
+constexpr float ATT_NONE = -__builtin_huge_valf();
 constexpr unsigned ATT_FULL = 0xffffffffu;
 
 // dtype codes of the C entry points

@@ -8,9 +8,34 @@
 
 #define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
 
-// Rows handled by one block of the relscan kernels: one row per thread.
+// Rows of one block of the relscan scan's per-block counts
+// (kernels/relscan.py BLOCK).
 constexpr int RS_BLOCK = 256;
-constexpr int RS_WARPS = RS_BLOCK / 32;
+
+// Comparison codes of the relscan and hash-probe terms
+// (kernels/relscan.py OP_CODES).
+enum : int { OP_EQ = 0, OP_NE = 1, OP_LT = 2, OP_LE = 3, OP_GT = 4, OP_GE = 5 };
+
+template <int OP>
+__device__ __forceinline__ bool cmp_op(int32_t a, int32_t b) {
+  if constexpr (OP == OP_EQ) return a == b;
+  else if constexpr (OP == OP_NE) return a != b;
+  else if constexpr (OP == OP_LT) return a < b;
+  else if constexpr (OP == OP_LE) return a <= b;
+  else if constexpr (OP == OP_GT) return a > b;
+  else return a >= b;
+}
+
+__device__ __forceinline__ bool compare(int op, int32_t a, int32_t b) {
+  switch (op) {
+    case OP_EQ: return a == b;
+    case OP_NE: return a != b;
+    case OP_LT: return a < b;
+    case OP_LE: return a <= b;
+    case OP_GT: return a > b;
+    default:    return a >= b;
+  }
+}
 
 // Lanes of one hash-index bucket (kernels/hashidx.py BUCKET_CAP).
 constexpr int HX_LANES = 128;

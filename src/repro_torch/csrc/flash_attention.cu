@@ -88,7 +88,13 @@
 // Both take any sq and sk (the TPU wrapper asserts sq % block_q == 0): the
 // ragged tails of the last Q and K/V tiles are masked in the kernel, rows
 // past sq are neither read nor written. Head dims 8, 16, 32, 64, 80, 128
-// and 256 are compiled for each.
+// and 256 are compiled for each. A row that sees no key (a window ending
+// before the first key: q_offset + row >= sk + window - 1) gets what the
+// plain version's softmax over sk masked scores gives, the mean of V: a
+// tile (and a warp) holding such a row walks every key instead of its
+// window, and positions past sk weigh nothing. Which tiles do is known
+// from q_offset, window and sk before any load; the prefill (q_offset 0,
+// sq = sk) has none.
 #include "attention_common.cuh"
 
 namespace {
@@ -140,11 +146,13 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // keys any row of this tile can see: causal upper bound, window lower
-  // bound (rounded down to a tile start)
+  // bound (rounded down to a tile start). A tile with a blind row (one
+  // the window leaves no key: q_pos >= sk + window - 1) walks every key
   const int q_first = q_offset + q0;
   const int q_last = q_offset + min(q0 + FA_BQ, sq) - 1;
+  const bool blind = window > 0 && q_last >= sk + window - 1;
   const int kv_hi = causal ? min(sk, q_last + 1) : sk;
-  int kv_lo = window > 0 ? max(0, q_first - window + 1) : 0;
+  int kv_lo = window > 0 && !blind ? max(0, q_first - window + 1) : 0;
   kv_lo = (kv_lo / FA_BK) * FA_BK;
 
   float m[FA_ROWS], l[FA_ROWS], acc[FA_ROWS][DPL];
@@ -184,6 +192,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (causal) ok = ok && qpos >= kpos;
       if (window > 0) ok = ok && (qpos - kpos) < window;
       s = ok ? s : ATT_NEG_INF;
+      if (blind && kpos >= sk) s = ATT_NONE;
       const float m_new = fmaxf(m[rr], att_warp_max(s));
       const float p = expf(s - m_new);
       const float corr = expf(m[rr] - m_new);
@@ -374,8 +383,9 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // bound (rounded down to a tile start)
   const int q_first = q_offset + q0;
   const int q_last = q_offset + min(q0 + TC_BQ, sq) - 1;
+  const bool blind = window > 0 && q_last >= sk + window - 1;
   const int kv_hi = causal ? min(sk, q_last + 1) : sk;
-  int kv_lo = window > 0 ? max(0, q_first - window + 1) : 0;
+  int kv_lo = window > 0 && !blind ? max(0, q_first - window + 1) : 0;
   kv_lo = (kv_lo / BK) * BK;
   const int nsteps = kv_hi > kv_lo ? (kv_hi - kv_lo + STEP - 1) / STEP : 0;
 
@@ -398,6 +408,7 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool warp_live = row0 < sq;
   const int wq_first = q_offset + row0;
   const int wq_last = q_offset + min(row0 + 16, sq) - 1;
+  const bool warp_blind = window > 0 && wq_last >= sk + window - 1;
   float m[2] = {ATT_NEG_INF, ATT_NEG_INF};
   float l[2] = {0.f, 0.f};
   float acc[OT][4];
@@ -433,7 +444,8 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const bool skip = !warp_live || k0 >= kv_hi ||
                       (causal && k0 > wq_last) ||
-                      (window > 0 && k0 + BK - 1 <= wq_first - window);
+                      (window > 0 && !warp_blind &&
+                       k0 + BK - 1 <= wq_first - window);
     if (!skip) {
       const uint32_t k_base = smem_u32(ks + stage * STEP * LDS + k_off);
       const uint32_t v_base = smem_u32(vs + stage * STEP * LDS + v_off);
@@ -482,6 +494,15 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
             if (window > 0) ok = ok && (qpos - kpos) < window;
             s[j][e] = ok ? s[j][e] : ATT_NEG_INF;
           }
+        // past the keys: no weight, even in a row that sees no key (where
+        // a row that sees one gets 0 there from its own maximum anyway)
+        if (warp_blind && k0 + BK > sk) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (k0 + j * 8 + tg * 2 + (e & 1) >= sk) s[j][e] = ATT_NONE;
+        }
       }
 
       // online softmax of rows g (r = 0) and g + 8 (r = 1): tree max over

@@ -16,11 +16,26 @@
 // Design. The TPU kernel tiles 2048 rows into (16, 128) VMEM blocks and
 // runs the grid in order, carrying the id output across grid steps. Here
 // blocks run in any order on 132 SMs, so:
-//   * scan: one thread per row, 256 rows a block, coalesced int32 loads;
-//     the ragged edge is masked in the kernel (no padded copies of
-//     columns); the <= 4 operator codes arrive as kernel arguments and are
-//     uniform across the grid, so the switch never diverges; per-block
-//     match counts come from warp ballots + popc;
+//   * scan: ONE launch gives the mask, the per-block counts and each
+//     statement's total. A thread owns 8 consecutive rows: two 16-byte
+//     loads a column and one 8-byte load of the validity bytes, all issued
+//     before the first compare, and one 8-byte store of the mask. A warp
+//     then covers exactly one 256-row block, so a block's count is one warp
+//     reduction (__reduce_add_sync), written by lane 0: no shared memory
+//     and no barrier on that path. The ragged tail, a cap that is not a
+//     multiple of 8 and a mask row that does not start on 8 bytes (w > 1)
+//     are handled row by row in the kernel, and a column (or the validity
+//     vector) off its 16-byte (8-byte) alignment is read row by row: never
+//     padded, copied or refused. The <= 4 operator codes are kernel
+//     arguments, uniform across the grid, so the switch never diverges. A
+//     CTA evaluates its rows for 8 statements (rows of the [w, nterms]
+//     value matrix) from one load of the columns; grid.y covers the rest. Each statement's total comes from the same launch:
+//     every CTA adds its count and its arrival to the statement's 64-bit
+//     word in ONE atomic (count in the low half, arrivals in the high
+//     half), and the CTA that arrives last writes the total and zeroes the
+//     word. The words are the caller's scratch, zeroed once per device and
+//     stream, never per call, and zero again after every launch, so a
+//     CUDA graph replay finds them ready;
 //   * compaction: ONE launch and no other device op (no prefix of block
 //     counts, no zero fill): one CTA of 1024 threads per statement walks
 //     its mask row in row order, 64 bytes a thread a step (four 16-byte
@@ -37,58 +52,150 @@
 //     reads ~64 KiB a step: 2 steps at the main path's cap of 131,072,
 //     64 at 4,194,304 (a decoupled look-back over many CTAs would spread
 //     that; see PERF.md for the times of both caps);
-//   * a second grid dimension (scan) / the grid (compaction) runs w
-//     statements (one row of the [w, nterms] value matrix each) over the
-//     same columns in one launch: the batched SELECT / aggregate executors
+//   * the compaction's grid runs w statements over their mask rows in one
+//     launch, as the scan does: the batched SELECT / aggregate executors
 //     use it; w = 1 is the TPU kernel's contract.
 #include "common.cuh"
 
 namespace {
 
-enum : int { OP_EQ = 0, OP_NE = 1, OP_LT = 2, OP_LE = 3, OP_GT = 4, OP_GE = 5 };
-
 struct Cols { const int32_t* c[4]; };
 struct Ops { int op[4]; };
 
-__device__ __forceinline__ bool compare(int op, int32_t a, int32_t b) {
+// one bit per nonzero byte of w (bit i = byte i)
+__device__ __forceinline__ uint32_t nz_bits4(uint32_t w) {
+  const uint32_t f = __vcmpne4(w, 0u) & 0x01010101u;
+  return (f * 0x01020408u) >> 24;  // the four byte flags land in bits 24-27
+}
+
+// 8 rows a thread measured faster on an H100 than 16 (at 131,072 rows,
+// 4,194,304 rows and 32 statements)
+constexpr int SC_ROWS = 8;                       // rows a thread
+constexpr int SC_THREADS = 256;                  // threads a CTA
+constexpr int SC_WARPS = SC_THREADS / 32;
+constexpr int SC_TILE = SC_THREADS * SC_ROWS;    // rows a CTA: 8 blocks
+// statements a CTA evaluates from one load of its rows; grid.y covers the
+// rest (8 measured faster on an H100 than 1, 2, 4, 16 or 32 at w = 32)
+constexpr int SC_STMTS = 8;
+static_assert(32 * SC_ROWS == RS_BLOCK, "one warp covers one block");
+
+template <int OP>
+__device__ __forceinline__ uint32_t cmp_rows_op(const int32_t (&x)[SC_ROWS],
+                                                int32_t v) {
+  uint32_t b = 0;
+#pragma unroll
+  for (int j = 0; j < SC_ROWS; ++j) b |= (uint32_t)cmp_op<OP>(x[j], v) << j;
+  return b;
+}
+
+// compare bits (bit j: row j) of one term over a thread's rows; the
+// operator is uniform across the grid, so the switch never diverges
+__device__ __forceinline__ uint32_t cmp_rows(int op,
+                                             const int32_t (&x)[SC_ROWS],
+                                             int32_t v) {
   switch (op) {
-    case OP_EQ: return a == b;
-    case OP_NE: return a != b;
-    case OP_LT: return a < b;
-    case OP_LE: return a <= b;
-    case OP_GT: return a > b;
-    default:    return a >= b;
+    case OP_EQ: return cmp_rows_op<OP_EQ>(x, v);
+    case OP_NE: return cmp_rows_op<OP_NE>(x, v);
+    case OP_LT: return cmp_rows_op<OP_LT>(x, v);
+    case OP_LE: return cmp_rows_op<OP_LE>(x, v);
+    case OP_GT: return cmp_rows_op<OP_GT>(x, v);
+    default:    return cmp_rows_op<OP_GE>(x, v);
   }
 }
 
-__global__ void __launch_bounds__(RS_BLOCK)
+// bits 0-3 of b as the bytes 0/1 of a 32-bit word (byte j = bit j)
+__device__ __forceinline__ uint32_t bits_to_bytes4(uint32_t b) {
+  return ((b & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
+// Grid (ceil(cap / SC_TILE), ceil(w / SC_STMTS)). Thread g of the grid's x
+// axis owns rows [8 g, 8 g + 8), so warp v covers block v. acc [w]
+// (uint64: matches so far | CTAs arrived << 32) is the caller's persistent
+// scratch, zero between launches.
+__global__ void __launch_bounds__(SC_THREADS)
 scan_kernel(Cols cols, Ops ops, int nterms, const uint8_t* __restrict__ valid,
-            const int32_t* __restrict__ vals, int cap, int nblk,
-            uint8_t* __restrict__ mask, int32_t* __restrict__ cnt) {
-  const int blk = blockIdx.x;
-  const int q = blockIdx.y;
-  const int row = blk * RS_BLOCK + threadIdx.x;
-  bool m = false;
-  if (row < cap) {
-    m = valid[row] != 0;
-    const int32_t* v = vals + (size_t)q * nterms;
+            const int32_t* __restrict__ vals, int cap, int nblk, int w,
+            int vec, uint8_t* __restrict__ mask,
+            int32_t* __restrict__ cnt, int32_t* __restrict__ count,
+            unsigned long long* __restrict__ acc) {
+  __shared__ int part[SC_STMTS][SC_WARPS];
+  const int lane = threadIdx.x & 31;
+  const long long r0 =
+      ((long long)blockIdx.x * SC_THREADS + threadIdx.x) * SC_ROWS;
+  const long long blk = r0 / RS_BLOCK;
+  const int q0 = blockIdx.y * SC_STMTS;
+  const int nq = min(SC_STMTS, w - q0);
+
+  // every load before the first compare: two 16-byte loads a column and
+  // one 8-byte load of the validity bytes; a ragged tail (or a column not
+  // on 16 bytes) is read row by row, rows past cap as invalid
+  int32_t x[4][SC_ROWS];
+  uint32_t vbits = 0;
+  if (vec && r0 + SC_ROWS <= cap) {
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      if (t < nterms) m = m & compare(ops.op[t], cols.c[t][row], v[t]);
+      if (t < nterms) {
+        const int4* p = reinterpret_cast<const int4*>(cols.c[t] + r0);
+        const int4 a = __ldg(p), b = __ldg(p + 1);
+        x[t][0] = a.x; x[t][1] = a.y; x[t][2] = a.z; x[t][3] = a.w;
+        x[t][4] = b.x; x[t][5] = b.y; x[t][6] = b.z; x[t][7] = b.w;
+      }
     }
-    mask[(size_t)q * cap + row] = m;
+    const uint2 vb = __ldg(reinterpret_cast<const uint2*>(valid + r0));
+    vbits = nz_bits4(vb.x) | (nz_bits4(vb.y) << 4);
+  } else {
+#pragma unroll
+    for (int j = 0; j < SC_ROWS; ++j) {
+      const long long r = r0 + j;
+      const bool in = r < cap;
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (t < nterms) x[t][j] = in ? __ldg(cols.c[t] + r) : 0;
+      vbits |= (uint32_t)(in && __ldg(valid + r) != 0) << j;
+    }
   }
-  const unsigned bits = __ballot_sync(0xffffffffu, m);
-  __shared__ int warp_count[RS_WARPS];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_count[warp] = __popc(bits);
+
+  for (int i = 0; i < nq; ++i) {
+    const int q = q0 + i;
+    const int32_t* v = vals + (size_t)q * nterms;
+    uint32_t bits = vbits;
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (t < nterms) bits &= cmp_rows(ops.op[t], x[t], __ldg(v + t));
+    uint8_t* m = mask + (size_t)q * cap + r0;
+    if (r0 + SC_ROWS <= cap && ((uintptr_t)m & 7) == 0) {
+      *reinterpret_cast<uint2*>(m) =
+          make_uint2(bits_to_bytes4(bits), bits_to_bytes4(bits >> 4));
+    } else {
+#pragma unroll
+      for (int j = 0; j < SC_ROWS; ++j)
+        if (r0 + j < cap) m[j] = (bits >> j) & 1;
+    }
+    // the block's count: one warp reduction
+    const int c = __reduce_add_sync(0xffffffffu, __popc(bits));
+    if (lane == 0) {
+      if (blk < nblk) cnt[(size_t)q * nblk + blk] = c;
+      part[i][threadIdx.x >> 5] = c;
+    }
+  }
+
+  // the statement's total: each CTA adds its count and its arrival to the
+  // statement's word in one atomic; the CTA that arrives last writes the
+  // total and zeroes the word for the next launch (so a CUDA graph replay
+  // also finds it zero)
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (threadIdx.x < nq) {
+    const int i = threadIdx.x;
     int s = 0;
 #pragma unroll
-    for (int i = 0; i < RS_WARPS; ++i) s += warp_count[i];
-    cnt[(size_t)q * nblk + blk] = s;
+    for (int p = 0; p < SC_WARPS; ++p) s += part[i][p];
+    unsigned long long* a = acc + q0 + i;
+    const unsigned long long old =
+        atomicAdd(a, (1ull << 32) | (unsigned long long)(unsigned)s);
+    if ((old >> 32) == gridDim.x - 1) {
+      count[q0 + i] = (int32_t)(uint32_t)old + s;
+      *a = 0ull;
+    }
   }
 }
 
@@ -98,12 +205,6 @@ constexpr int CP_TILE = CP_THREADS * CP_BYTES;     // 16 KiB of a row a CTA
 constexpr unsigned long long CP_AGG = 1;           // flag: tile's own count
 constexpr unsigned long long CP_PREFIX = 2;        // flag: inclusive prefix
 constexpr unsigned long long CP_VALUE = (1ull << 30) - 1;
-
-// one bit per nonzero byte of w (bit i = byte i)
-__device__ __forceinline__ uint32_t nz_bits4(uint32_t w) {
-  const uint32_t f = __vcmpne4(w, 0u) & 0x01010101u;
-  return (f * 0x01020408u) >> 24;  // the four byte flags land in bits 24-27
-}
 
 // the four 16-byte chunks [c0, c0 + 4) of a row, zeros past nchunks
 __device__ __forceinline__ void load_chunks(uint4 (&c)[4], const uint4* base,
@@ -260,20 +361,30 @@ compact_kernel(const uint8_t* __restrict__ mask, long long row_stride, int cap,
 
 }  // namespace
 
-// mask [w, cap] uint8 and cnt [w, nblk] int32 out; vals [w, nterms] int32.
+// mask [w, cap] uint8, cnt [w, nblk] int32 (nblk = ceil(cap / 256)) and
+// count [w] int32 out; vals [w, nterms] int32. acc (>= w uint64) is the
+// caller's persistent scratch, zeroed once when allocated and used by one
+// stream's launches only.
 REPRO_EXPORT int relscan_scan(const void* c0, const void* c1, const void* c2,
                               const void* c3, int op0, int op1, int op2, int op3,
                               int nterms, const void* valid, const void* vals,
-                              int cap, int w, void* mask, void* cnt,
+                              int cap, int w, void* mask,
+                              void* cnt, void* count, void* acc,
                               void* stream) {
+  if (cap <= 0 || w <= 0 || nterms < 1 || nterms > 4)
+    return (int)cudaErrorInvalidValue;
   const int nblk = (cap + RS_BLOCK - 1) / RS_BLOCK;
+  const void* cs[4] = {c0, c1, c2, c3};
+  int vec = ((uintptr_t)valid & 7) == 0;
+  for (int t = 0; t < nterms; ++t) vec &= ((uintptr_t)cs[t] & 15) == 0;
   Cols cols = {{(const int32_t*)c0, (const int32_t*)c1, (const int32_t*)c2,
                 (const int32_t*)c3}};
   Ops ops = {{op0, op1, op2, op3}};
-  dim3 grid(nblk, w);
-  scan_kernel<<<grid, RS_BLOCK, 0, (cudaStream_t)stream>>>(
-      cols, ops, nterms, (const uint8_t*)valid, (const int32_t*)vals, cap, nblk,
-      (uint8_t*)mask, (int32_t*)cnt);
+  dim3 grid((cap + SC_TILE - 1) / SC_TILE, (w + SC_STMTS - 1) / SC_STMTS);
+  scan_kernel<<<grid, SC_THREADS, 0, (cudaStream_t)stream>>>(
+      cols, ops, nterms, (const uint8_t*)valid, (const int32_t*)vals, cap,
+      nblk, w, vec, (uint8_t*)mask, (int32_t*)cnt, (int32_t*)count,
+      (unsigned long long*)acc);
   return (int)cudaGetLastError();
 }
 

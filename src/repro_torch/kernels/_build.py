@@ -111,11 +111,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     stream as c_void_p (a bare Python int would be cut to 32 bits)."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     L = ctypes.c_longlong
+    PP = ctypes.POINTER(P)
     sigs = {
-        "relscan_scan": [P, P, P, P, I, I, I, I, I, P, P, I, I, P, P, P],
+        "relscan_scan": [P, P, P, P, I, I, I, I, I, P, P, I, I, P, P, P, P,
+                         P],
         "relscan_compact": [P, L, I, I, I, P, P, P, P, P],
         "hash_build": [P, P, P, P, I, I, P, P, P],
         "hash_probe": [P, P, P, I, I, P, P, P],
+        "hash_probe_verify": [P, P, P, I, I, P, P, PP, PP,
+                              ctypes.POINTER(I), I, P, P, I, I, P, P, P, P,
+                              P],
         "flash_attention": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, F, I,
                             ctypes.POINTER(L), P],
         "paged_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,

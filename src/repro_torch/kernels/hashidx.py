@@ -11,16 +11,24 @@ Index layout (one per indexed column, inside the table state), as in
 
 Two kernels, in ``csrc/hashidx.cu``, each with its plain PyTorch version
 beside it: ``build`` (after a stable sort that groups rows by bucket) and
-``probe`` (one bucket row per query key). A wrapper serves a CPU tensor
+the probe (one bucket row per query key). The probe kernel serves two
+wrappers: ``probe`` (the TPU kernel's contract: candidates and hit bits)
+and ``probe_verify`` (the executors' whole IndexProbe route in the same
+launch: candidate verification against the table, the match count and
+the first ``limit`` matches in row order). A wrapper serves a CPU tensor
 with the plain version and a CUDA tensor with its kernel.
 ``insert_update_batched`` is plain PyTorch on every device (it was no
 Pallas kernel in the reference either).
 """
 from __future__ import annotations
 
+import ctypes
+from typing import Sequence
+
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.relscan import _CMP, OP_CODES
 
 LANES = 128
 BUCKET_CAP = LANES
@@ -172,13 +180,152 @@ def probe(rid: torch.Tensor, key: torch.Tensor, qkeys: torch.Tensor):
     lg = rid.shape[0].bit_length() - 1
     cand = torch.empty((w, BUCKET_CAP), dtype=torch.int32, device=rid.device)
     hit = torch.empty((w, BUCKET_CAP), dtype=torch.bool, device=rid.device)
+    if w == 0:
+        return cand, hit
     err = _build.lib("hashidx").hash_probe(
-        rid.contiguous().data_ptr(), key.contiguous().data_ptr(),
+        _lanes(rid).data_ptr(), _lanes(key).data_ptr(),
         qkeys.contiguous().data_ptr(), w, lg, cand.data_ptr(), hit.data_ptr(),
         _build.stream_ptr(rid.device))
     _build.check(err, "hash_probe")
     _build.launches["hash_probe"] += 1
     return cand, hit
+
+
+def _lanes(t: torch.Tensor) -> torch.Tensor:
+    """An index array as the probe kernel reads it: contiguous, starting on
+    16 bytes (a bucket row is one 16-byte load a lane)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# residual terms the verified probe takes (core/planner.py MAX_RESIDUAL;
+# csrc/hashidx.cu PV_TERMS)
+MAX_RESIDUAL = 8
+
+
+def _check_verify(rid, key, qkeys, valid, keycol, residual, extra_mask,
+                  active, limit):
+    _check_probe(rid, key, qkeys)
+    cap = valid.shape[0]
+    w = qkeys.shape[0]
+    if valid.dim() != 1 or valid.dtype != torch.bool:
+        raise TypeError("valid must be a [cap] bool tensor")
+    if keycol.shape != (cap,) or keycol.dtype != torch.int32:
+        raise TypeError("keycol must be a [cap] int32 tensor")
+    if len(residual) > MAX_RESIDUAL:
+        raise ValueError(f"at most {MAX_RESIDUAL} residual terms")
+    for col, op, vals in residual:
+        if op not in OP_CODES:
+            raise ValueError(f"unknown comparison {op!r}")
+        if col.shape != (cap,) or col.dtype != torch.int32:
+            raise TypeError("a residual column must be a [cap] int32 tensor")
+        if vals.shape != (w,) or vals.dtype != torch.int32:
+            raise TypeError("a residual term's values must be [w] int32")
+    if extra_mask is not None and (extra_mask.shape != (cap,)
+                                   or extra_mask.dtype != torch.bool):
+        raise TypeError("extra_mask must be a [cap] bool tensor")
+    if active is not None and (active.shape != (w,)
+                               or active.dtype != torch.bool):
+        raise TypeError("active must be a [w] bool tensor")
+    if cap < 1 or limit < 0:
+        raise ValueError("need cap >= 1 and limit >= 0")
+    tensors = [valid, keycol, *(t for c, _, v in residual for t in (c, v))]
+    tensors += [t for t in (extra_mask, active) if t is not None]
+    if any(t.device != rid.device for t in tensors):
+        raise ValueError("the index, the table and the terms must share a "
+                         "device")
+
+
+def probe_verify_ref(rid: torch.Tensor, key: torch.Tensor,
+                     qkeys: torch.Tensor, *, valid: torch.Tensor,
+                     keycol: torch.Tensor,
+                     residual: Sequence[tuple] = (),
+                     extra_mask: torch.Tensor | None = None,
+                     active: torch.Tensor | None = None, limit: int = 0):
+    """Plain version of the verified probe (the reference executors'
+    ``_probe_candidates`` + ``_probe_ids`` arithmetic, over ``w`` keys).
+
+    valid [cap] bool and keycol [cap] int32 are the table's validity and
+    indexed column; residual holds (column [cap] int32, op, values [w]
+    int32) terms; extra_mask [cap] bool and active [w] bool gate the
+    matches. Returns (safe [w, 128] int32: the candidates clamped to
+    [0, cap); ok [w, 128] bool: hit AND valid AND key equal AND every
+    term AND the masks; count [w] int32; ids [w, limit] int32: the first
+    ``limit`` matching row ids in row order, 0-padded, or None when limit
+    is 0)."""
+    _check_verify(rid, key, qkeys, valid, keycol, residual, extra_mask,
+                  active, limit)
+    cap = valid.shape[0]
+    w = qkeys.shape[0]
+    cand, hit = probe_ref(rid, key, qkeys)
+    safe = cand.clamp(0, cap - 1)
+    si = safe.long()
+    ok = hit & valid[si] & (keycol[si] == qkeys[:, None])
+    for col, op, vals in residual:
+        ok = ok & _CMP[op](col[si], vals[:, None])
+    if extra_mask is not None:
+        ok = ok & extra_mask[si]
+    if active is not None:
+        ok = ok & active[:, None]
+    count = ok.sum(dim=1, dtype=torch.int32)
+    if limit == 0:
+        return safe, ok, count, None
+    ordered = torch.sort(torch.where(ok, safe, cap), dim=1).values
+    if limit <= BUCKET_CAP:
+        ordered = ordered[:, :limit]
+    else:
+        ordered = torch.cat([ordered, torch.full(
+            (w, limit - BUCKET_CAP), cap, dtype=ordered.dtype,
+            device=ordered.device)], dim=1)
+    present = torch.arange(limit, device=rid.device)[None, :] < count[:, None]
+    return safe, ok, count, torch.where(present, ordered, 0).to(torch.int32)
+
+
+_PTRS = ctypes.c_void_p * MAX_RESIDUAL
+_OPS = ctypes.c_int * MAX_RESIDUAL
+
+
+def probe_verify(rid: torch.Tensor, key: torch.Tensor, qkeys: torch.Tensor,
+                 *, valid: torch.Tensor, keycol: torch.Tensor,
+                 residual: Sequence[tuple] = (),
+                 extra_mask: torch.Tensor | None = None,
+                 active: torch.Tensor | None = None, limit: int = 0):
+    """The IndexProbe route of ``w`` statements: on CUDA tensors one launch
+    of the probe kernel and no other device op. Contract of
+    :func:`probe_verify_ref`."""
+    if rid.device.type == "cpu":
+        return probe_verify_ref(rid, key, qkeys, valid=valid, keycol=keycol,
+                                residual=residual, extra_mask=extra_mask,
+                                active=active, limit=limit)
+    _build.require_cuda(rid, "hash_probe")
+    _check_verify(rid, key, qkeys, valid, keycol, residual, extra_mask,
+                  active, limit)
+    cap = valid.shape[0]
+    w = qkeys.shape[0]
+    dev = rid.device
+    safe = torch.empty((w, BUCKET_CAP), dtype=torch.int32, device=dev)
+    ok = torch.empty((w, BUCKET_CAP), dtype=torch.bool, device=dev)
+    count = torch.empty((w,), dtype=torch.int32, device=dev)
+    ids = (torch.empty((w, limit), dtype=torch.int32, device=dev)
+           if limit else None)
+    if w == 0:
+        return safe, ok, count, ids
+    residual = [(c.contiguous(), op, v.contiguous()) for c, op, v in residual]
+    cols = _PTRS(*(c.data_ptr() for c, _, _ in residual))
+    vals = _PTRS(*(v.data_ptr() for _, _, v in residual))
+    ops = _OPS(*(OP_CODES[op] for _, op, _ in residual))
+    opt = [None if t is None else t.contiguous() for t in (extra_mask, active)]
+    err = _build.lib("hashidx").hash_probe_verify(
+        _lanes(rid).data_ptr(), _lanes(key).data_ptr(),
+        qkeys.contiguous().data_ptr(), w, rid.shape[0].bit_length() - 1,
+        valid.contiguous().data_ptr(), keycol.contiguous().data_ptr(), cols,
+        vals, ops, len(residual), *(None if t is None else t.data_ptr()
+                                    for t in opt),
+        cap, limit, safe.data_ptr(), ok.data_ptr(), count.data_ptr(),
+        None if ids is None else ids.data_ptr(), _build.stream_ptr(dev))
+    _build.check(err, "hash_probe")
+    _build.launches["hash_probe"] += 1
+    return safe, ok, count, ids
 
 
 # ------------------------------------------------- incremental maintenance

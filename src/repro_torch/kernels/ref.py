@@ -14,8 +14,7 @@ def relscan_ref(cols, valid, vals, *, ops, limit, want_ids=True):
     """Fused-conjunction oracle with the :func:`relscan.relscan` contract
     (batched over the rows of ``vals [w, nterms]``), built only from the
     plain versions, whatever the device."""
-    mask, cnt = RS.scan_ref(cols, valid, vals, ops)
-    count = cnt.sum(dim=1, dtype=torch.int32)
+    mask, _, count = RS.scan_ref(cols, valid, vals, ops)
     if not want_ids:
         return None, None, mask, count
     ids, _ = RS.compact_ref(mask, limit)

@@ -5,10 +5,11 @@ Two kernels, in ``csrc/relscan.cu``, each with its plain PyTorch version
 beside it in this module:
 
 ``scan``     AND of 1..4 ``col OP value`` terms with the validity bitmap ->
-             match mask ``[w, cap]`` + per-block match counts
-             ``[w, nblk]`` (``BLOCK`` rows a block). ``vals`` is a
-             ``[w, nterms]`` value matrix: ``w`` statements scan the same
-             columns in one launch.
+             match mask ``[w, cap]``, per-block match counts
+             ``[w, nblk]`` (``BLOCK`` rows a block) and each row's total
+             ``count [w]``, in one launch. ``vals`` is a ``[w, nterms]``
+             value matrix: ``w`` statements scan the same columns in one
+             launch.
 ``compact``  the first ``limit`` set bits of every mask row as row ids,
              in row order, 0-padded, and the unclamped count of each row
              (the JAX package's ``compact(mask, *, limit)`` helper, with
@@ -79,18 +80,19 @@ def _check_scan(cols, valid, vals, ops):
 def scan_ref(cols: Sequence[torch.Tensor], valid: torch.Tensor,
              vals: torch.Tensor, ops: tuple[str, ...]):
     """Plain version of the scan kernel: (mask [w, cap] bool,
-    cnt [w, nblk] int32)."""
+    cnt [w, nblk] int32, count [w] int32 = cnt's row sums)."""
     _check_scan(cols, valid, vals, ops)
     mask = valid[None, :].expand(vals.shape[0], -1)
     for t, op in enumerate(ops):
         mask = mask & _CMP[op](cols[t][None, :], vals[:, t:t + 1])
-    return mask, block_counts(mask)
+    cnt = block_counts(mask)
+    return mask, cnt, cnt.sum(dim=1, dtype=torch.int32)
 
 
 def scan(cols: Sequence[torch.Tensor], valid: torch.Tensor,
          vals: torch.Tensor, ops: tuple[str, ...]):
-    """Fused conjunction scan (kernel on CUDA tensors). Contract of
-    :func:`scan_ref`."""
+    """Fused conjunction scan; on CUDA tensors one kernel launch and no
+    other device op. Contract of :func:`scan_ref`."""
     if valid.device.type == "cpu":
         return scan_ref(cols, valid, vals, ops)
     _build.require_cuda(valid, "relscan_scan")
@@ -98,19 +100,24 @@ def scan(cols: Sequence[torch.Tensor], valid: torch.Tensor,
     cols = [c.contiguous() for c in cols]
     vals = vals.contiguous()
     cap, w = valid.shape[0], vals.shape[0]
-    mask = torch.empty((w, cap), dtype=torch.bool, device=valid.device)
-    cnt = torch.empty((w, n_blocks(cap)), dtype=torch.int32,
-                      device=valid.device)
+    dev = valid.device
+    mask = torch.empty((w, cap), dtype=torch.bool, device=dev)
+    cnt = torch.empty((w, n_blocks(cap)), dtype=torch.int32, device=dev)
+    count = torch.empty((w,), dtype=torch.int32, device=dev)
+    if w == 0 or cap == 0:
+        return mask, cnt, count.zero_()
+    stream = _build.stream_ptr(dev)
+    acc = _zeroed_scratch("scan", dev, stream, w)
     ptrs = [c.data_ptr() for c in cols] + [cols[0].data_ptr()] * (
         MAX_TERMS - len(cols))
     codes = [OP_CODES[o] for o in ops] + [0] * (MAX_TERMS - len(ops))
     err = _build.lib("relscan").relscan_scan(
         *ptrs, *codes, len(ops), valid.contiguous().data_ptr(),
-        vals.data_ptr(), cap, w, mask.data_ptr(), cnt.data_ptr(),
-        _build.stream_ptr(valid.device))
+        vals.data_ptr(), cap, w, mask.data_ptr(),
+        cnt.data_ptr(), count.data_ptr(), acc.data_ptr(), stream)
     _build.check(err, "relscan_scan")
     _build.launches["relscan_scan"] += 1
-    return mask, cnt
+    return mask, cnt, count
 
 
 def _check_compact(mask, limit):
@@ -141,17 +148,18 @@ COMPACT_TILE = 16384
 _scratch: dict = {}
 
 
-def _compact_scratch(device, stream: int, n_flags: int) -> torch.Tensor:
-    """The compaction's persistent scratch for one device and stream: two
-    uint32 control words (the launch epoch, CTAs done) in element 0, then
-    ``n_flags`` look-back flags. Zeroed once when it is allocated (a larger
-    one replaces it), never per call: each flag carries the epoch of the
-    launch that wrote it, and each launch moves the epoch on."""
-    key = (device.index, stream)
+def _zeroed_scratch(kind: str, device, stream: int, n: int) -> torch.Tensor:
+    """A kernel's persistent int64 scratch of at least ``n`` words for one
+    device and stream, zeroed once when it is allocated (a larger one
+    replaces it), never per call. The scan's words (one a statement) are
+    zero again after every launch. The compaction's hold two uint32
+    control words (the launch epoch, CTAs done) in word 0, then look-back
+    flags: each flag carries the epoch of the launch that wrote it, and
+    each launch moves the epoch on."""
+    key = (kind, device.index, stream)
     buf = _scratch.get(key)
-    if buf is None or buf.numel() < n_flags + 1:
-        buf = torch.zeros(max(n_flags + 1, 1024), dtype=torch.int64,
-                          device=device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int64, device=device)
         _scratch[key] = buf
     return buf
 
@@ -172,8 +180,8 @@ def compact(mask: torch.Tensor, limit: int):
     if w == 0:
         return ids, count
     stream = _build.stream_ptr(mask.device)
-    scratch = _compact_scratch(mask.device, stream,
-                               w * -(-(cap + 15) // COMPACT_TILE))
+    scratch = _zeroed_scratch("compact", mask.device, stream,
+                              w * -(-(cap + 15) // COMPACT_TILE) + 1)
     err = _build.lib("relscan").relscan_compact(
         mask.data_ptr(), mask.stride(0), cap, w, limit, ids.data_ptr(),
         count.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 8, stream)
@@ -194,8 +202,7 @@ def relscan(cols: Sequence[torch.Tensor], valid: torch.Tensor,
     0-padded; present [w, limit] bool; mask [w, cap] bool; count [w]
     int32, unclamped). ``want_ids=False`` skips the compaction and returns
     None for ids and present."""
-    mask, cnt = scan(cols, valid, vals, ops)
-    count = cnt.sum(dim=1, dtype=torch.int32)
+    mask, _, count = scan(cols, valid, vals, ops)
     if not want_ids:
         return None, None, mask, count
     ids, _ = compact(mask, limit)

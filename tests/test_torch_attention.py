@@ -129,6 +129,37 @@ def test_flash_plain_takes_ragged_lengths(s, h, kh, hd, window, softcap,
                                    **TOLS["float32"])
 
 
+@pytest.mark.parametrize("q_offset,window", [(40, 8), (20, 8), (8, 4)])
+def test_flash_plain_rows_that_see_no_key_match_reference(q_offset, window):
+    """Causal, a window, and query rows past sk + window - 1, which see no
+    key: the plain version, the reference oracle and the Pallas kernel (in
+    interpret mode) all give the mean of V over the sk keys there. The
+    card's kernels are held to the plain version on such rows in
+    tests/test_torch_gpu.py."""
+    rng = np.random.default_rng(q_offset + window)
+    b, h, kh, sq, sk, hd = 1, 4, 2, 16, 16, 32
+    q = rng.standard_normal((b, h, sq, hd)).astype(np.float32)
+    k = rng.standard_normal((b, kh, sk, hd)).astype(np.float32)
+    v = rng.standard_normal((b, kh, sk, hd)).astype(np.float32)
+    kw = dict(scale=hd ** -0.5, causal=True, window=window, softcap=0.0,
+              q_offset=q_offset)
+    got = TR.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), **kw).numpy()
+    want = JR.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), **kw)
+    pallas = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     block_q=16, block_kv=16, interpret=True, **kw)
+    np.testing.assert_allclose(got, np.asarray(want), **TOLS["float32"])
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOLS["float32"])
+    blind = q_offset + np.arange(sq) >= sk + window - 1
+    assert blind.any()
+    mean_v = np.repeat(v, h // kh, axis=1).mean(axis=2)     # [b, h, hd]
+    np.testing.assert_allclose(
+        got[:, :, blind], np.broadcast_to(mean_v[:, :, None],
+                                          got[:, :, blind].shape),
+        **TOLS["float32"])
+
+
 # ------------------------------------------------------------------- paged
 def _paged_case(rng, b, h, kh, hd, block, nblk):
     """tests/test_kernels.py's construction: random rows per sequence,

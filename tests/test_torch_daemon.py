@@ -321,3 +321,62 @@ def test_state_carried_across_with_convert():
     same_tables(dbs, "p")
     with pytest.raises(ValueError):
         tdb.swap_table_state("p", {"valid": torch.zeros(3)})
+
+
+def _pow2_batches(rows):
+    """``rows`` split into power-of-two batches, largest first: each fits
+    its own bucket, so the reference takes them at any capacity."""
+    out, i, n = [], 0, len(rows)
+    while i < n:
+        b = 1 << ((n - i).bit_length() - 1)
+        out.append(rows[i:i + b])
+        i += b
+    return out
+
+
+@pytest.mark.parametrize("cap,n", [(48, 40), (100, 65), (1000, 600)])
+def test_insert_batch_whose_bucket_exceeds_capacity(cap, n):
+    """n rows in one executemany whose power-of-two bucket is larger than
+    CAPACITY: the port takes them in one statement; the reference, fed the
+    same rows in batches that fit its buckets, gives the same contents,
+    row ids and counts."""
+    jdb, tdb = pair()
+    ddl = (f"CREATE TABLE t (k INT, w INT, s TEXT, INDEX(k)) CAPACITY {cap} "
+           f"MAX_SELECT 64")
+    jdb.execute(ddl)
+    tdb.execute(ddl)
+    rng = np.random.default_rng(cap)
+    rows = [(int(rng.integers(0, 9)), i, f"s{i}") for i in range(n)]
+    sql = "INSERT INTO t (k, w, s) VALUES (?, ?, ?)"
+    got = snap(tdb.executemany(sql, rows))
+    want_ids, want_count = [], 0
+    for batch in _pow2_batches(rows):
+        r = snap(jdb.executemany(sql, batch))
+        want_ids += r["row_ids"]
+        want_count += r["count"]
+    assert got["count"] == want_count == n
+    assert got["row_ids"] == want_ids
+    assert tdb.live_rows("t") == jdb.live_rows("t") == n
+    want = jax.tree.map(np.asarray, jdb.table_state("t"))
+    have = CV.state_to_numpy(tdb.table_state("t"))
+    for c in ("k", "w", "s"):
+        np.testing.assert_array_equal(have["cols"][c], want["cols"][c])
+    np.testing.assert_array_equal(have["valid"], want["valid"])
+    for k in range(9):
+        same(snap(jdb.execute("SELECT w, s FROM t WHERE k = ?", (k,))),
+             snap(tdb.execute("SELECT w, s FROM t WHERE k = ?", (k,))))
+
+
+def test_insert_wider_than_capacity_is_refused_unchanged():
+    """More rows than CAPACITY in one statement raise SQLError, and the
+    table is left as it was."""
+    db = TDB(device="cpu")
+    db.execute("CREATE TABLE t (k INT, w INT, INDEX(k)) CAPACITY 48")
+    db.executemany("INSERT INTO t (k, w) VALUES (?, ?)",
+                   [(i % 5, i) for i in range(30)])
+    before = CV.state_to_numpy(db.table_state("t"))
+    with pytest.raises(TS.SQLError, match="exceeds CAPACITY 48"):
+        db.executemany("INSERT INTO t (k, w) VALUES (?, ?)",
+                       [(1, i) for i in range(49)])
+    np.testing.assert_equal(CV.state_to_numpy(db.table_state("t")), before)
+    assert db.execute("SELECT COUNT(*) FROM t").value == 30

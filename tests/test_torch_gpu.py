@@ -47,16 +47,66 @@ def _scan_case(rng, cap, nterms, w, dev):
 def test_scan_and_compact_match_plain(cuda, cap, nterms, w):
     rng = np.random.default_rng(cap * 10 + nterms * 3 + w)
     cols, valid, vals, ops = _scan_case(rng, cap, nterms, w, cuda)
-    mask, cnt = RS.scan(cols, valid, vals, ops)
-    mask_r, cnt_r = RS.scan_ref(cols, valid, vals, ops)
+    mask, cnt, n = RS.scan(cols, valid, vals, ops)
+    mask_r, cnt_r, n_r = RS.scan_ref(cols, valid, vals, ops)
     torch.cuda.synchronize()
     assert torch.equal(mask, mask_r) and torch.equal(cnt, cnt_r)
+    assert torch.equal(n, n_r)
     for limit in (1, 64, 1000):
         ids, count = RS.compact(mask, limit)
         ids_r, count_r = RS.compact_ref(mask_r, limit)
         torch.cuda.synchronize()
         assert torch.equal(ids, ids_r) and torch.equal(count, count_r)
         assert torch.equal(count, cnt.sum(dim=1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("cap", [1, 7, 255, 257, 100_003])
+@pytest.mark.parametrize("w", [1, 3, 32, 33])
+@pytest.mark.parametrize("nterms", [1, 2, 3, 4])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_scan_edges_match_plain(cuda, cap, w, nterms, offset):
+    """The one-launch scan at its edges: caps that are no multiple of its
+    8 rows a thread or 256 rows a warp, w beyond the statements one CTA
+    takes (mask rows off 8-byte alignment), and with ``offset`` 1 columns
+    and validity that start off their 16-byte alignment (views one row
+    into longer tensors). Mask, per-block counts and totals exact; a
+    second call gives the same totals (the accumulator words are zero
+    again after each launch)."""
+    rng = np.random.default_rng(cap * 7 + w * 5 + nterms + offset)
+    cols, valid, vals, ops = _scan_case(rng, cap + offset, nterms, w, cuda)
+    cols = [c[offset:] for c in cols]
+    valid = valid[offset:]
+    want = RS.scan_ref(cols, valid, vals, ops)
+    for _ in range(2):
+        got = RS.scan(cols, valid, vals, ops)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def _one_call_events(fn):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def test_scan_and_probe_are_one_launch(cuda):
+    """A scan call (mask, counts and totals) and a verified probe call
+    each put one kernel on the card, and no memset or copy."""
+    rng = np.random.default_rng(0)
+    cols, valid, vals, ops = _scan_case(rng, 131_072, 2, 1, cuda)
+    names = _one_call_events(lambda: RS.scan(cols, valid, vals, ops))
+    assert len(names) == 1 and "scan_kernel" in names[0], names
+    rid, key, keys, valid = _probe_index(cuda, 131_072, 0.9)
+    q = keys[:32].clone()
+    names = _one_call_events(lambda: HX.probe_verify(
+        rid, key, q, valid=valid, keycol=keys, limit=64))
+    assert len(names) == 1 and "probe_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("cap", [1, 255, 256, 100_003, 131_072, 4_194_304])
@@ -129,6 +179,96 @@ def test_probe_matches_plain(cuda, w):
     assert bool(got[1].any())  # hits and misses both present
 
 
+def _probe_index(dev, cap, frac, seed=0, key_hi=30_000):
+    """A table column, its validity and the index built over it."""
+    rng = np.random.default_rng(seed)
+    keys = torch.tensor(rng.integers(0, key_hi, cap), dtype=torch.int32,
+                        device=dev)
+    valid = torch.tensor(rng.random(cap) < frac, device=dev)
+    rid, key, _ = HX.build_ref(keys, valid, n_buckets=HX.n_buckets_for(cap))
+    return rid, key, keys, valid
+
+
+@pytest.mark.parametrize("w", [1, 32, 4096])
+@pytest.mark.parametrize("nres", [0, 1, 2, 3, 4, 8])
+@pytest.mark.parametrize("limit", [1, 64, 200])
+@pytest.mark.parametrize("gates", [False, True])
+def test_probe_verify_matches_plain(cuda, w, nres, limit, gates):
+    """The verified probe against its plain version, exactly: 0-4 and 8
+    residual terms (both instances of the kernel), an extra mask and an
+    active flag (``gates``), limits below and beyond the bucket's 128
+    lanes, buckets in row order and out of it. Keys repeat (up to ~30 rows
+    a key) and some rows of the index are dead, so candidates fail every
+    check. Beyond 3 terms each term passes most rows (an ``==`` term
+    compares the key column with the query key), so matches remain."""
+    rng = np.random.default_rng(w * 10 + nres + limit)
+    cap = 131_072
+    rid, key, keys, valid = _probe_index(cuda, cap, 0.8, seed=w, key_hi=5000)
+    valid[rng.integers(0, cap, 2000)] = False   # rows dead after the build
+    q = torch.tensor(rng.integers(-5, 5200, w), dtype=torch.int32,
+                     device=cuda)
+    q[0] = keys[int(torch.nonzero(valid)[0])]
+    ops = list(RS.OP_CODES)
+    if nres <= 3:
+        residual = [(torch.tensor(rng.integers(-20, 20, cap),
+                                  dtype=torch.int32, device=cuda),
+                     ops[(t + nres) % 6],
+                     torch.tensor(rng.integers(-5, 5, w), dtype=torch.int32,
+                                  device=cuda)) for t in range(nres)]
+    else:
+        lo_hi = {"!=": (-5, 5), "<": (10, 20), "<=": (10, 20),
+                 ">": (-20, -10), ">=": (-20, -10)}
+        residual = []
+        for t in range(nres):
+            op = ops[(t + nres) % 6]
+            if op == "==":
+                residual.append((keys, op, q))
+                continue
+            residual.append((
+                torch.tensor(rng.integers(-20, 20, cap), dtype=torch.int32,
+                             device=cuda), op,
+                torch.tensor(rng.integers(*lo_hi[op], w), dtype=torch.int32,
+                             device=cuda)))
+    kw = dict(valid=valid, keycol=keys, residual=residual, limit=limit)
+    if gates:
+        kw["extra_mask"] = torch.tensor(rng.random(cap) < 0.6, device=cuda)
+        kw["active"] = torch.tensor(rng.random(w) < 0.8, device=cuda)
+        kw["active"][0] = True
+    # the built layout (each bucket in row order) and the same index with
+    # every bucket's lanes permuted, as insertions may leave them
+    perm = torch.from_numpy(rng.permutation(HX.BUCKET_CAP)).to(cuda)
+    for r, k in ((rid, key), (rid[:, perm].contiguous(),
+                              key[:, perm].contiguous())):
+        got = HX.probe_verify(r, k, q, **kw)
+        want = HX.probe_verify_ref(r, k, q, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert int(got[2].sum()) > 0
+
+
+def test_probe_verify_on_a_stale_bucket(cuda):
+    """A key with more rows than a bucket's 128 lanes (the index is stale):
+    the probe sees the 128 it holds, in row order, as the plain version."""
+    cap = 4096
+    keys = torch.full((cap,), 7, dtype=torch.int32, device=cuda)
+    keys[::3] = torch.arange(0, cap, 3, dtype=torch.int32, device=cuda)
+    valid = torch.ones(cap, dtype=torch.bool, device=cuda)
+    rid, key, overflow = HX.build_ref(keys, valid,
+                                      n_buckets=HX.n_buckets_for(cap))
+    assert int(overflow) > 0
+    q = torch.tensor([7, 0, 3, 9], dtype=torch.int32, device=cuda)
+    for limit in (1, 64, 200):
+        got = HX.probe_verify(rid, key, q, valid=valid, keycol=keys,
+                              limit=limit)
+        want = HX.probe_verify_ref(rid, key, q, valid=valid, keycol=keys,
+                                   limit=limit)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert int(got[2][0]) == 128
+
+
 def test_cuda_tensor_never_takes_plain_version(cuda):
     from repro_torch.kernels import _build
     _build.reset_launches()
@@ -139,6 +279,8 @@ def test_cuda_tensor_never_takes_plain_version(cuda):
                ops=("==",), limit=8)
     rid, key, _ = HX.build(c, v, n_buckets=HX.n_buckets_for(cap))
     HX.probe(rid, key, torch.zeros(3, dtype=torch.int32, device=cuda))
+    HX.probe_verify(rid, key, torch.zeros(3, dtype=torch.int32, device=cuda),
+                    valid=v, keycol=c, limit=4)
     f = torch.rand((1, 5, 2), device=cuda)
     MS.mamba2_scan(torch.randn((1, 5, 2, 8), device=cuda), f, -f,
                    torch.randn((1, 5, 4), device=cuda),
@@ -150,7 +292,8 @@ def test_cuda_tensor_never_takes_plain_version(cuda):
                        torch.tensor([[2, 0]], dtype=torch.int32, device=cuda),
                        torch.tensor([6], dtype=torch.int32, device=cuda),
                        scale=0.125)
-    assert all(n == 1 for n in _build.launches.values()), _build.launches
+    want = dict.fromkeys(_build.launches, 1) | {"hash_probe": 2}
+    assert _build.launches == want, _build.launches
 
 
 def test_daemon_dispatch_is_sync_free(cuda):
@@ -263,6 +406,32 @@ def test_flash_bf16_options(cuda, hd, b, h, kh, sq, sk, causal, window,
     want = FA.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+# query rows that see no key (q_offset + row >= sk + window - 1): the
+# plain version gives the mean of V over the sk keys there
+BLIND_ROW_CASES = [
+    (1, 4, 2, 16, 16, True, 8, 0.0, 40),      # every row blind
+    (1, 4, 2, 16, 16, True, 8, 0.0, 20),
+    (1, 4, 2, 16, 16, True, 4, 0.0, 8),       # blind from row 11 on
+    (2, 8, 2, 100, 16, True, 4, 0.0, 8),      # tiles of both kinds
+    (1, 4, 4, 30, 20, False, 6, 10.0, 5),     # not causal, softcap
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("b,h,kh,sq,sk,causal,window,softcap,q_offset",
+                         BLIND_ROW_CASES)
+def test_flash_rows_that_see_no_key(cuda, dtype, hd, b, h, kh, sq, sk,
+                                    causal, window, softcap, q_offset):
+    q, k, v = _flash_case(cuda, dtype, b, h, kh, sq, sk, hd, q_offset + hd)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+              softcap=softcap, q_offset=q_offset)
+    got = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= ATT_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

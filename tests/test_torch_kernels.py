@@ -54,6 +54,30 @@ def test_relscan_matches_pallas_interpret(cap, limit):
             _eq(w, g)
 
 
+@pytest.mark.parametrize("cap", [100, 2500])
+def test_scan_ref_count_matches_pallas_interpret(cap):
+    """The scan's third output, the total each statement matched, against
+    the count the reference's relscan returns (its Pallas kernels in
+    interpret mode), one statement a row of the [w, nterms] values."""
+    rng = np.random.default_rng(cap + 1)
+    cols = [rng.integers(0, 5, cap).astype(np.int32) for _ in range(4)]
+    valid = rng.random(cap) < 0.8
+    for ops, vals in CASES:
+        nt = len(ops)
+        batch = np.stack([vals, np.roll(vals, 1)]).astype(np.int32)
+        mask, cnt, count = TRS.scan_ref([_t(c) for c in cols[:nt]],
+                                        _t(valid), torch.from_numpy(batch),
+                                        ops)
+        assert count.dtype == torch.int32 and count.shape == (2,)
+        assert torch.equal(count, cnt.sum(dim=1, dtype=torch.int32))
+        for i in range(2):
+            want = j_relscan(tuple(jnp.asarray(c) for c in cols[:nt]),
+                             jnp.asarray(valid), jnp.asarray(batch[i]),
+                             ops=ops, limit=1, interpret=True)
+            assert int(want[3]) == int(count[i])
+            _eq(want[2], mask[i])
+
+
 def test_relscan_batched_rows_match_single_statements():
     rng = np.random.default_rng(5)
     cap = 3000

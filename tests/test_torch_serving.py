@@ -215,6 +215,28 @@ def test_page_table_rebuild_and_increments_match_reference(smoke):
     np.testing.assert_array_equal(full.numpy(), tpt.numpy())
 
 
+def test_engine_admits_a_prompt_whose_block_bucket_exceeds_capacity(smoke):
+    """One slot of max_seq 160 at block 16 gives the kv table CAPACITY 12;
+    a 150-token prompt takes 10 blocks (bucket 16). The port admits it and
+    generates what the reference engine generates with two slots (whose
+    table, CAPACITY 25, fits the bucket)."""
+    jcfg, tcfg, jp, tp = smoke
+    prompt = np.random.default_rng(3).integers(0, jcfg.vocab, 150).astype(
+        np.int32)
+    eng = TEngine(tcfg, tp, max_slots=1, max_seq=160, block=16, device="cpu")
+    assert eng.cap == 12
+    ref = JEngine(jcfg, jp, max_slots=2, max_seq=160, block=16)
+    slot = eng.add_request(prompt, user_id=1)
+    rslot = ref.add_request(prompt, user_id=1)
+    assert eng.live_blocks() == ref.live_blocks() == 10
+    for _ in range(3):
+        eng.decode_round()
+        ref.decode_round()
+    assert eng.requests[slot].generated == ref.requests[rslot].generated
+    assert eng.live_blocks() == ref.live_blocks() == 10
+    assert eng.finish_request(slot) == 10 and eng.live_blocks() == 0
+
+
 @pytest.fixture(scope="module")
 def zamba():
     """zamba2 SMOKE, drawn by the reference and carried across, with

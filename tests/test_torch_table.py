@@ -201,6 +201,49 @@ def test_delete_update_aggregate_every_route(seed):
             assert np.asarray(jv).dtype == tv.numpy().dtype
 
 
+@pytest.mark.parametrize("name", ["eq", "eq_plus_residual",
+                                  "eq_plus_range"])
+@pytest.mark.parametrize("limit,gate", [(1, False), (5, True), (200, False)])
+def test_probe_verify_ref_matches_reference_probe_helpers(name, limit, gate):
+    """HX.probe_verify_ref over w keys against the reference's
+    _probe_candidates + _probe_ids, one statement at a time, on the index
+    both packages built from the same seeded rows: the clamped candidates,
+    the match bits, the count and the first ``limit`` ids (limit 200 is
+    past the bucket's 128 lanes); ``gate`` adds an extra mask."""
+    from repro_torch.kernels import hashidx as HX
+    fn, params = WHERES[name]
+    jsch, tsch, js, ts = random_states(0)
+    jw, tw = both(fn)
+    jplan, tplan = JPL.plan_where(jsch, jw), TPL.plan_where(tsch, tw)
+    keys = [params[0] if params else 5, 0, 7, 42]
+    rows = [(k,) + tuple(params[1:]) if params else () for k in keys]
+    if not params:   # eq_const: the key is the plan's constant
+        keys, rows = [5], [()]
+    gate_np = np.random.default_rng(1).random(jsch.capacity) < 0.7
+    em = torch.from_numpy(gate_np) if gate else None
+    w = len(keys)
+    vals = lambda t: torch.tensor(  # noqa: E731
+        [r[t.value[1]] if t.value[0] == "param" else t.value[1]
+         for r in rows], dtype=torch.int32)
+    idx = ts["indexes"]["k"]
+    safe, ok, count, ids = HX.probe_verify_ref(
+        idx["rid"], idx["key"], torch.tensor(keys, dtype=torch.int32),
+        valid=ts["valid"], keycol=ts["cols"]["k"],
+        residual=[(ts["cols"][t.col], t.op, vals(t)) for t in tplan.residual],
+        extra_mask=em, limit=limit)
+    assert safe.shape == ok.shape == (w, 128) and ids.shape == (w, limit)
+    for i, r in enumerate(rows):
+        jsafe, jok = JT._probe_candidates(
+            jsch, js, jplan, r,
+            extra_mask=jnp.asarray(gate_np) if gate else None)
+        jids, _, jcount = JT._probe_ids(jsafe, jok, limit, jsch.capacity)
+        np.testing.assert_array_equal(np.asarray(jsafe), safe[i].numpy())
+        np.testing.assert_array_equal(np.asarray(jok), ok[i].numpy())
+        assert int(jcount) == int(count[i])
+        np.testing.assert_array_equal(np.asarray(jids), ids[i].numpy())
+    assert int(count.sum()) > 0
+
+
 def test_float_param_demotes_to_scan_and_matches():
     jsch, tsch, js, ts = random_states(1)
     jw, tw = both(WHERES["eq"][0])
