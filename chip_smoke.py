@@ -15,23 +15,31 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
    comparable -- right after the build (torch.profiler): the device time
               and launches of whole calls that this tree and its parent
               both offer (``comparable_rows``: the scan with its totals,
-              the bare probe, the executors' verified probe route), and
+              the hash build, the bare probe, the executors' verified
+              probe route), and
               kernels, copies, device time and idle share per Table 2
               DELETE / SELECT statement, plain and indexed.
 2. kernels -- every relscan / hash-index kernel against its plain PyTorch
               version on the card, exact equality, at the main path's
               shapes and beyond: the scan's mask, block counts and totals
               also at caps off its 8-row and 256-row tiles (1-100,003),
-              w 1-33 and columns off 16 bytes, each twice; the verified
+              w 1-33 and columns off 16 bytes, each twice; the hash
+              build over Table 2's page_id and user_id columns and at its
+              edges (every row in one bucket, buckets of 128 and 129 rows,
+              3, 40 and 100 buckets over 128, cap 4,194,304, 12 buckets,
+              caps 1 and 100,003, no valid row), each twice on one
+              scratch; the verified
               probe at w 1/32/4,096 with 0-4 and 8 residual terms, an
               extra mask and active flags, limits 1/64/200, on a fresh
               and a stale index. Then each kernel's time (CUDA events),
               its plain version's time and its bound: the scan at 1 and 2
               terms (cap 131,072), 4 terms (cap 4,194,304) and w = 32, the
+              build as a whole call (both launches) on page_id, user_id
+              and at cap 4,194,304, the
               probe bare and verified at w 1 and 32, the compaction also
               at cap 4,194,304. One scan, one probe and one compaction call under
               the profiler must each show one device kernel and no memset
-              or copy.
+              or copy, one build call its two kernels and nothing else.
    kernels_attention -- the flash- and paged-attention kernels against
               their plain versions (fp32 within 1e-5, bf16 within 2e-2)
               at tests/test_kernels.py's shapes, head dims 8-256, both
@@ -253,8 +261,8 @@ def phase_device() -> str:
     return smi
 
 
-KERNEL_NAME = re.compile(r"(ms_state|ms_chunk|scan|compact|build|probe|flash|"
-                         r"paged_split)_kernel(_tc)?")
+KERNEL_NAME = re.compile(r"(ms_state|ms_chunk|build_rows|build_buckets|scan|"
+                         r"compact|probe|flash|paged_split)_kernel(_tc)?")
 
 
 def kernel_key(fn: str) -> str:
@@ -397,21 +405,74 @@ def check_scan_compact(rng, dev):
     return cases, errs
 
 
+def build_edge_cases(rng, dev):
+    """(label, keys, valid, n_buckets) of the build's edges: every valid
+    row in one bucket, buckets of exactly 128 and 129 rows, 3, 40 and 100
+    buckets over 128 (a bucket's rows walked in chunks, or whole buckets
+    a CTA), 4,194,304 rows in 131,072 buckets, 12 buckets (no power of
+    two: 8-11 stay empty), caps 1 and 100,003 (no multiple of a CTA's
+    rows or a walk's 4,096-row step), no valid row, negative keys
+    throughout."""
+    def one_hot(cap, n_hot):
+        # n_hot rows of key 7; every other key outside 7's bucket
+        nb = HX.n_buckets_for(cap)
+        b7 = int(HX.bucket_of(torch.tensor([7], dtype=torch.int32), nb)[0])
+        pool = np.arange(-50_000, 50_000, dtype=np.int32)
+        pool = pool[HX.bucket_of(torch.from_numpy(pool), nb).numpy() != b7]
+        keys = rng.choice(pool, cap).astype(np.int32)
+        keys[rng.choice(cap, n_hot, replace=False)] = 7
+        return keys
+
+    def rand(cap):
+        return rng.integers(-2**31, 2**31 - 1, cap).astype(np.int32)
+
+    def hot(n_hot):
+        # keys 0 .. n_hot - 1 on 300 rows each: n_hot buckets over 128
+        keys = rand(131_072)
+        for h in range(n_hot):
+            keys[rng.choice(131_072, 300, replace=False)] = h
+        return keys
+
+    cases = [("one bucket, cap 4096", np.full(4096, -3, np.int32), 1.0),
+             ("one bucket, cap 131072", np.full(131_072, -3, np.int32), 1.0),
+             ("a bucket of 128", one_hot(4096, 128), 1.0),
+             ("a bucket of 129", one_hot(4096, 129), 1.0),
+             ("3 buckets over 128", hot(3), 0.9),
+             ("40 buckets over 128", hot(40), 0.9),
+             ("100 buckets over 128", hot(100), 0.9),
+             ("cap 4194304", rand(4_194_304), 0.9),
+             ("cap 1", rand(1), 1.0), ("cap 100003", rand(100_003), 0.5),
+             ("no valid row", rand(131_072), 0.0)]
+    for label, keys, frac in cases:
+        valid = rng.random(keys.shape[0]) < frac
+        yield (label, torch.from_numpy(keys).to(dev),
+               torch.from_numpy(valid).to(dev), HX.n_buckets_for(len(keys)))
+    keys = rand(300)
+    yield ("12 buckets", torch.from_numpy(keys).to(dev),
+           torch.from_numpy(rng.random(300) < 0.8).to(dev), 12)
+
+
 def check_build_probe(dev):
     pages, users, _ = table2_data()
     cap = 131_072
     nb = HX.n_buckets_for(cap)
     overflow = {}
     errs = {"hash_build": 0, "hash_probe": 0}
-    for name, vals in (("page_id", pages), ("user_id", users)):
-        keys, valid = table_column(vals, cap, dev)
-        got = HX.build(keys, valid, n_buckets=nb)
-        want = HX.build_ref(keys, valid, n_buckets=nb)
-        sync()
-        errs["hash_build"] = max(errs["hash_build"],
-                                 max_err(list(zip(got, want))))
-        overflow[name] = int(got[2])
-    if overflow["page_id"] != 0 or overflow["user_id"] == 0:
+    # the Table 2 columns, then the edges; builds back to back on one
+    # scratch, each twice (its counters must be zero again after a call)
+    cases = [(name, *table_column(vals, cap, dev), nb)
+             for name, vals in (("page_id", pages), ("user_id", users))]
+    for label, keys, valid, n_b in cases + list(
+            build_edge_cases(np.random.default_rng(SEED + 2), dev)):
+        want = HX.build_ref(keys, valid, n_buckets=n_b)
+        for _ in range(2):
+            got = HX.build(keys, valid, n_buckets=n_b)
+            sync()
+            errs["hash_build"] = max(errs["hash_build"],
+                                     max_err(list(zip(got, want))))
+        overflow[label] = int(got[2])
+    if overflow["page_id"] != 0 or overflow["user_id"] == 0 or overflow[
+            "a bucket of 129"] != 1 or overflow["a bucket of 128"] != 0:
         raise AssertionError(f"unexpected overflow counts {overflow}")
     keys, valid = table_column(pages, cap, dev)
     rid, key, _ = HX.build(keys, valid, n_buckets=nb)
@@ -585,25 +646,45 @@ def phase_kernels(dev, card):
         timings.append(out[key])
     del bcols, bvalid, big_mask
 
-    # build: the bulk load's index build (4096 buckets)
-    nb = HX.n_buckets_for(cap)
-    k_ms = time_ms(lambda: HX.build(page_col, valid, n_buckets=nb), iters=50)
-    p_ms = time_ms(lambda: HX.build_ref(page_col, valid, n_buckets=nb),
-                   iters=50)
-    d_ms = device_ms(lambda: HX.build(page_col, valid, n_buckets=nb),
-                     "build_kernel", iters=20)
-    n_valid = int(valid.sum())
-    b_ms, b_by = bound(2 * 4 * cap + 4 * nb + 4 * n_valid
-                       + 2 * 4 * nb * HX.BUCKET_CAP, nb * HX.BUCKET_CAP)
-    out["build"] = {"kernel": "hash_build", "shape": "cap 131072, 4096 "
-                    "buckets", "ms": k_ms, "device_ms": d_ms,
-                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
-    timings.append(out["build"])
+    # build: the bulk load's index builds (page_id, user_id: 4096 buckets)
+    # and 4,194,304 rows in 131,072 buckets; the whole call (both launches)
+    big = 4_194_304
+    bkeys = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, big)
+                             .astype(np.int32)).to(dev)
+    bvalid = torch.from_numpy(rng.random(big) < 0.9).to(dev)
+    for key, label, col, vld in (
+            ("build", "page_id, cap 131072, 4096 buckets", page_col, valid),
+            ("build_user", "user_id, cap 131072, 4096 buckets", user_col,
+             valid),
+            ("build_4m", "cap 4194304, 131072 buckets", bkeys, bvalid)):
+        n, n_b = vld.shape[0], HX.n_buckets_for(vld.shape[0])
+        run = lambda: HX.build(col, vld, n_buckets=n_b)  # noqa: E731
+        names = [e.name for e in device_events(run)]
+        if len(names) > 2 or not all("build_" in x for x in names):
+            raise AssertionError(f"one build call ({label}) ran {names} on "
+                                 f"the card, not its two kernels alone")
+        # keys and validity read once, rid / key and the overflow written
+        # once; a hash, a compare and a slot per row, a rank per lane
+        b_ms, b_by = bound(5 * n + 8 * n_b * HX.BUCKET_CAP + 4,
+                           3 * n + n_b * HX.BUCKET_CAP)
+        out[key] = {"kernel": "hash_build", "shape": label,
+                    "ms": time_ms(run, iters=50),
+                    "device_ms": call_device_ms(run, iters=20),
+                    "device_launches": device_launches(run),
+                    "plain_ms": time_ms(lambda: HX.build_ref(
+                        col, vld, n_buckets=n_b), iters=20 if n == big else 50),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "library": "none: no single PyTorch call builds the "
+                               "bucketed index",
+                    "overflow": int(run()[2]),
+                    "device_events_one_call": names}
+        timings.append(out[key])
+    del bkeys, bvalid
 
     # probe: one key (the singleton IndexProbe) and 32 keys (a batch),
     # bare (the TPU kernel's contract) and verified (the executors'
     # IndexProbe route: the SELECT's limit of 64, no residual term)
-    rid, key, _ = HX.build(page_col, valid, n_buckets=nb)
+    rid, key, _ = HX.build(page_col, valid, n_buckets=HX.n_buckets_for(cap))
     lanes = HX.BUCKET_CAP
     for w in (1, 32):
         q = torch.from_numpy(pages[2:2 + w].copy()).to(dev)
@@ -1720,8 +1801,9 @@ def comparable_rows(dev):
     """Whole calls that this tree's package and its parent's both offer,
     timed by what they put on the card (every kernel, memset and copy of
     one call): the scan with each statement's total (``relscan`` without
-    the compaction), the bare probe, the executors' verified IndexProbe
-    route (its ids, presence and count from core/table.py), and
+    the compaction), the hash build, the bare probe, the executors'
+    verified IndexProbe route (its ids, presence and count from
+    core/table.py), and
     per statement on the Table 2 table (plain and indexed) kernels, device
     time and idle share. Run it in a fresh process per tree to compare
     this package with another checkout's, within one call."""
@@ -1759,7 +1841,17 @@ def comparable_rows(dev):
         add(f"scan + totals, {what}", lambda: RS.relscan(
             cols, vld, v, ops=ops, limit=1, want_ids=False),
             iters=20 if vld.shape[0] == big else 50)
-    del bcols, bvalid
+    # the hash build as a call: the Table 2 bulk load's two index builds
+    # (user_id overflows) and 4,194,304 full-range keys in 131,072 buckets
+    bkeys = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, big)
+                             .astype(np.int32)).to(dev)
+    for what, col, vld in (("page_id, cap 131072", page_col, valid),
+                           ("user_id, cap 131072", user_col, valid),
+                           ("cap 4194304", bkeys, bvalid)):
+        n_b = HX.n_buckets_for(vld.shape[0])
+        add(f"build, {what}", lambda: HX.build(col, vld, n_buckets=n_b),
+            iters=20 if vld.shape[0] == big else 50)
+    del bcols, bvalid, bkeys
 
     db = table2_db(", INDEX(page_id)")
     t = db.tables["cache"]

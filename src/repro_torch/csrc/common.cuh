@@ -16,6 +16,17 @@ constexpr int RS_BLOCK = 256;
 // (kernels/relscan.py OP_CODES).
 enum : int { OP_EQ = 0, OP_NE = 1, OP_LT = 2, OP_LE = 3, OP_GT = 4, OP_GE = 5 };
 
+// one bit per nonzero byte of w (bit i = byte i)
+__device__ __forceinline__ uint32_t nz_bits4(uint32_t w) {
+  const uint32_t f = __vcmpne4(w, 0u) & 0x01010101u;
+  return (f * 0x01020408u) >> 24;  // the four byte flags land in bits 24-27
+}
+
+// bits 0-3 of b as the bytes 0/1 of a 32-bit word (byte j = bit j)
+__device__ __forceinline__ uint32_t bits_to_bytes4(uint32_t b) {
+  return ((b & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
 template <int OP>
 __device__ __forceinline__ bool cmp_op(int32_t a, int32_t b) {
   if constexpr (OP == OP_EQ) return a == b;

@@ -5,21 +5,46 @@
 //   hash_probe  <- _probe_kernel (hashidx.py:207, launched at :237)
 //
 // What bounds them on an H100: memory, and at the daemon's sizes launch
-// latency. The build writes the [n_buckets, 128] rid and key arrays
-// (4.2 MB for 4,096 buckets) and gathers from the sorted order; at
-// 3.35 TB/s that is ~1.6 us. A probe of w keys reads w * 128 lanes of
-// rid and key (~1 KB for w = 1), and with verification gathers the
-// candidates' rows: a chain of three dependent loads (the key, its
-// bucket, the candidates' rows), so its floor is one launch's latency.
+// latency. The build reads the keys and their validity (5 bytes a row)
+// and writes the [n_buckets, 128] rid and key arrays (4.2 MB for 4,096
+// buckets): ~1.45 us at 3.35 TB/s for 131,072 rows. A probe of w keys
+// reads w * 128 lanes of rid and key (~1 KB for w = 1), and with
+// verification gathers the candidates' rows: a chain of three dependent
+// loads (the key, its bucket, the candidates' rows), so its floor is one
+// launch's latency.
 //
-// Design. The sort that groups rows by bucket stays in PyTorch (a stable
-// sort + searchsorted, as the JAX package leaves it to XLA); the kernels
-// only do the per-bucket work the TPU did one bucket tile at a time:
-//   * build: one warp per bucket; lane l copies sorted positions
-//     start[b] + l, l + 32, l + 64, l + 96 (coalesced), keeps those whose
-//     bucket id is b, and writes EMPTY / 0 elsewhere. The ragged end of
-//     the sorted arrays is masked here, so nothing is padded. Because the
-//     sort is stable the rows come out lane for lane as in build_ref.
+// Design. The TPU grouped rows by bucket with an XLA sort and gathered
+// each bucket's segment; a general sort costs ~100x the gather here. The
+// key space of a build is only n_buckets and a bucket keeps 128 rows, so
+// the build is a counting sort in two launches, with no sort, memset or
+// copy around them:
+//   * build, pass 1 (rows): a thread a row; a valid row takes the next
+//     slot of its bucket from a per-bucket counter (one per 32-byte
+//     sector), one atomic per bucket and warp (__match_any_sync groups
+//     the warp's rows of a bucket, the slot is the group's base plus the
+//     row's rank in the group), and a slot under 128 stages the pair
+//     (row, key) as one 8-byte store into the outputs' own row b (slots
+//     0-63 in rid, 64-127 in key). Rows past 128 slots add to the
+//     overflow word; the row that takes slot 128 lists its bucket.
+//   * build, pass 2 (buckets): a warp reads a bucket's count with its
+//     first 32 staged pairs and zeroes the counter. A bucket of n <= 128
+//     rows ranks its staged pairs by row id (each lane holds up to 4, the
+//     n row ids broadcast one by one), lays rid / key out in shared
+//     memory at their ranks, EMPTY / 0 after n, and stores each row with
+//     one 16-byte store a lane: the order the atomics handed out never
+//     reaches the output. A bucket
+//     of n > 128 must hold its 128 LOWEST rows, which the atomics did not
+//     keep. 64 more CTAs at the front of the grid serve the listed
+//     buckets: a bucket's rows are split into 64 / (listed buckets)
+//     chunks, a CTA walks its chunk in row order (4,096 rows a step, a
+//     block-wide exclusive scan places each row of the bucket, the step
+//     that reaches the chunk's 128th row is the last), and the chunk CTA
+//     that arrives last concatenates the chunks' rows up to 128. A walk
+//     reads 5 bytes a row of keys / valid, which stay in L2 after pass 1.
+//     CTA 0 writes the overflow and zeroes its word.
+//   The counters, the overflow word, the list's length and the arrival
+//   counts are the caller's scratch, zeroed once when allocated and zero
+//   again after every call, so a CUDA graph replay finds them ready.
 //   * probe: one warp per query key, all w keys in one launch; the bucket
 //     id is the top lg bits of the 32-bit product key * 2654435761
 //     (uint32_t wraparound, the same bits as the JAX bucket_of for
@@ -45,25 +70,348 @@
 
 namespace {
 
-__global__ void build_kernel(const int32_t* __restrict__ order,
-                             const int32_t* __restrict__ sb,
-                             const int32_t* __restrict__ start,
-                             const int32_t* __restrict__ keys, int cap, int nb,
-                             int32_t* __restrict__ rid, int32_t* __restrict__ key) {
-  const int b = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (b >= nb) return;
-  const int s = start[b];
+constexpr int BR_THREADS = 256;            // pass 1: threads a CTA (a row each)
+constexpr int BB_THREADS = 512;            // pass 2: threads a CTA
+constexpr int BB_WARPS = BB_THREADS / 32;  // pass 2: buckets a CTA
+constexpr int BW_CTAS = 64;                // pass 2: CTAs for buckets over 128
+// pass 2: bucket CTAs; with the walk CTAs 3 an SM on an H100's 132 SMs,
+// so the whole grid is resident at once
+constexpr int BN_CTAS = 3 * 132 - BW_CTAS;
+// ints between two bucket counters: one counter a 32-byte sector, so the
+// atomics of a line's buckets do not queue behind each other in L2
+constexpr int HX_CNT_STRIDE = 8;
+constexpr int BW_ROWS = 8;                 // a walk: rows a thread a step
+constexpr int BW_STEP = BB_THREADS * BW_ROWS;
+constexpr int HX_HALF = HX_LANES / 2;      // staged pairs a row holds
+
+// The build's scratch. Zero between calls (each call leaves them zero):
+// the overflow word, the overflow list's length, the walk CTAs' arrival
+// count, one arrival count per listed bucket, the bucket counters. Free
+// between calls: the list of buckets over 128 rows and the walk CTAs'
+// first rows (row ids, keys, how many).
+struct BuildScratch {
+  int* acc;
+  int* list_n;
+  unsigned* arrive_all;
+  unsigned* arrive;     // [BW_CTAS]
+  int* cnt;             // [nb * HX_CNT_STRIDE]
+  int* list;            // [max(nb, BW_CTAS)]
+  int* chunk_rows;      // [BW_CTAS][128]
+  int* chunk_keys;      // [BW_CTAS][128]
+  int* chunk_n;         // [BW_CTAS]
+};
+
+// a key's bucket: the top lg bits of the 32-bit product (sh = 32 - lg)
+__device__ __forceinline__ uint32_t bucket_id(int32_t k, int sh) {
+  return ((uint32_t)k * HX_PRIME) >> sh;
+}
+
+// rows [r0, r0 + 8) of keys, and their validity as bits (bit j: row
+// r0 + j, rows from `end` on invalid); vec: keys on 16 bytes, valid on 8
+__device__ __forceinline__ uint32_t load_rows8(const int32_t* __restrict__ keys,
+                                               const uint8_t* __restrict__ valid,
+                                               long long r0, long long end,
+                                               int vec, int32_t (&k)[8]) {
+  uint32_t vb = 0;
+  if (vec && r0 + 8 <= end) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(keys + r0));
+    const int4 c = __ldg(reinterpret_cast<const int4*>(keys + r0) + 1);
+    k[0] = a.x; k[1] = a.y; k[2] = a.z; k[3] = a.w;
+    k[4] = c.x; k[5] = c.y; k[6] = c.z; k[7] = c.w;
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(valid + r0));
+    vb = nz_bits4(v.x) | (nz_bits4(v.y) << 4);
+  } else {
 #pragma unroll
-  for (int j = lane; j < HX_LANES; j += 32) {
-    const int pos = s + j;
-    int32_t r = HX_EMPTY, k = 0;
-    if (pos < cap && sb[pos] == b) {
-      r = order[pos];
-      k = keys[r];
+    for (int j = 0; j < 8; ++j) {
+      const long long r = r0 + j;
+      const bool in = r < end;
+      k[j] = in ? __ldg(keys + r) : 0;
+      vb |= (uint32_t)(in && __ldg(valid + r) != 0) << j;
     }
-    rid[(size_t)b * HX_LANES + j] = r;
-    key[(size_t)b * HX_LANES + j] = k;
+  }
+  return vb;
+}
+
+// Pass 1. Grid: ceil(cap / 256) CTAs, a thread a row (one row a thread
+// measured faster on an H100 than 2 or 4: more warps hide the atomic's
+// round trip).
+__global__ void __launch_bounds__(BR_THREADS)
+build_rows_kernel(const int32_t* __restrict__ keys,
+                  const uint8_t* __restrict__ valid, int cap, int sh,
+                  int32_t* __restrict__ rid, int32_t* __restrict__ key,
+                  BuildScratch sc) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * BR_THREADS + threadIdx.x;
+  int32_t k = 0;
+  bool in = false;
+  if (row < cap) {  // both loads in flight together
+    k = __ldg(keys + row);
+    in = __ldg(valid + row) != 0;
+  }
+  // an invalid row carries an id no bucket has, and takes no slot
+  const uint32_t b = in ? bucket_id(k, sh) : 0xFFFFFFFFu;
+  const unsigned peers = __match_any_sync(0xffffffffu, b);
+  const int leader = __ffs(peers) - 1;
+  int base = 0;
+  if (in && lane == leader)
+    base = atomicAdd(sc.cnt + (size_t)b * HX_CNT_STRIDE, __popc(peers));
+  const int slot = __shfl_sync(0xffffffffu, base, leader) +
+                   __popc(peers & ((1u << lane) - 1));
+  int over = 0;
+  if (in) {
+    if (slot < HX_LANES) {
+      int32_t* r = (slot < HX_HALF ? rid : key) + (size_t)b * HX_LANES;
+      reinterpret_cast<int2*>(r)[slot & (HX_HALF - 1)] =
+          make_int2((int32_t)row, k);
+    } else {
+      over = 1;
+      if (slot == HX_LANES)  // once per bucket: the row that fills it up
+        sc.list[atomicAdd(sc.list_n, 1)] = (int)b;
+    }
+  }
+  over = __reduce_add_sync(0xffffffffu, over);
+  if (lane == 0 && over) atomicAdd(sc.acc, over);
+}
+
+// The first 128 rows of bucket b in [lo, hi), in row order, into rrow /
+// krow (row ids, keys); returns how many there are, at most 128. The CTA
+// walks BW_STEP rows a step; a block-wide exclusive scan of each thread's
+// matches gives every match its place, and the walk ends with the step
+// that reaches the 128th. tot: two buffers of warp totals, alternating by
+// step, so a step takes two barriers.
+__device__ __forceinline__ int walk_rows(
+    const int32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
+    int vec, int sh, uint32_t b, long long lo, long long hi, int32_t* rrow,
+    int32_t* krow, int (*tot)[BB_WARPS]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int found = 0;  // uniform: rows of b in the steps before
+  for (long long base = lo, step = 0; found < HX_LANES && base < hi;
+       base += BW_STEP, ++step) {
+    const long long r0 = base + (long long)threadIdx.x * BW_ROWS;
+    int32_t k[BW_ROWS];
+    uint32_t m = load_rows8(keys, valid, r0, hi, vec, k);
+#pragma unroll
+    for (int j = 0; j < BW_ROWS; ++j)
+      if (bucket_id(k[j], sh) != b) m &= ~(1u << j);
+    const int c = __popc(m);
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int* t = tot[step & 1];
+    if (lane == 31) t[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int x = lane < BB_WARPS ? t[lane] : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+      }
+      if (lane < BB_WARPS) t[lane] = x;  // inclusive prefix over warps
+    }
+    __syncthreads();
+    int place = found + (warp ? t[warp - 1] : 0) + incl - c;
+    while (m && place < HX_LANES) {
+      const int j = __ffs((int)m) - 1;
+      m &= m - 1;
+      rrow[place] = (int32_t)(r0 + j);
+      krow[place] = k[j];
+      ++place;
+    }
+    found += t[BB_WARPS - 1];
+  }
+  __syncthreads();  // the next walk reuses tot
+  return min(found, HX_LANES);
+}
+
+// rank[i] = the staged row ids below r[i] (row ids are distinct), for the
+// NR registers a lane holds (n <= 32 NR); n row ids broadcast one by one
+template <int NR>
+__device__ __forceinline__ void rank_staged(const int32_t (&r)[4], int n,
+                                            int (&rank)[4]) {
+#pragma unroll
+  for (int i2 = 0; i2 < NR; ++i2) {
+    const int m = min(32, n - 32 * i2);
+    for (int src = 0; src < m; ++src) {
+      const int32_t v = __shfl_sync(0xffffffffu, r[i2], src);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) rank[i] += v < r[i];
+    }
+  }
+}
+
+// serve_overflow's walks and merges: nl listed buckets, the first
+// BW_CTAS of them in s_list
+__device__ __forceinline__ void serve_listed(
+    const int32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
+    int cap, int vec, int sh, int32_t* __restrict__ rid,
+    int32_t* __restrict__ key, const BuildScratch& sc, int (*tot)[BB_WARPS],
+    int nl, const int* s_list) {
+  __shared__ int s_pref[BW_CTAS + 1];
+  __shared__ int s_last;
+  const int g = nl > 0 && nl <= BW_CTAS ? BW_CTAS / nl : 1;
+  if (g == 1) {
+    for (int i = blockIdx.x; i < nl; i += BW_CTAS) {
+      const uint32_t ob = (uint32_t)(i < BW_CTAS ? s_list[i] : sc.list[i]);
+      walk_rows(keys, valid, vec, sh, ob, 0, cap, rid + (size_t)ob * HX_LANES,
+                key + (size_t)ob * HX_LANES, tot);
+    }
+    return;
+  }
+  const int i = blockIdx.x / g;
+  const int e = blockIdx.x % g;
+  if (i >= nl) return;
+  const uint32_t ob = (uint32_t)s_list[i];
+  const long long steps = (cap + BW_STEP - 1) / BW_STEP;
+  const long long per = (steps + g - 1) / g;
+  const long long lo = min((long long)cap, e * per * BW_STEP);
+  const long long hi = min((long long)cap, lo + per * BW_STEP);
+  const int own = blockIdx.x;  // this CTA's chunk buffers
+  const int n = walk_rows(keys, valid, vec, sh, ob, lo, hi,
+                          sc.chunk_rows + own * HX_LANES,
+                          sc.chunk_keys + own * HX_LANES, tot);
+  if (threadIdx.x == 0) sc.chunk_n[own] = n;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicInc(sc.arrive + i, (unsigned)g - 1) == (unsigned)g - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const int c0 = i * g;  // the bucket's first chunk CTA
+  if (threadIdx.x < g) s_pref[threadIdx.x + 1] = __ldcg(sc.chunk_n + c0 + threadIdx.x);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_pref[0] = 0;
+    for (int c = 1; c <= g; ++c) s_pref[c] += s_pref[c - 1];
+  }
+  __syncthreads();
+  int32_t* rrow = rid + (size_t)ob * HX_LANES;
+  int32_t* krow = key + (size_t)ob * HX_LANES;
+  for (int x = threadIdx.x; x < g * HX_LANES; x += BB_THREADS) {
+    const int c = x / HX_LANES, t = x % HX_LANES;
+    if (t < s_pref[c + 1] - s_pref[c] && s_pref[c] + t < HX_LANES) {
+      rrow[s_pref[c] + t] = __ldcg(sc.chunk_rows + c0 * HX_LANES + x);
+      krow[s_pref[c] + t] = __ldcg(sc.chunk_keys + c0 * HX_LANES + x);
+    }
+  }
+}
+
+// A bucket of n > 128 rows (list entry i of K) by the BW_CTAS walk CTAs:
+// with K <= BW_CTAS, G = BW_CTAS / K CTAs split the rows into G chunks,
+// each finds its chunk's first 128 rows of the bucket, and the CTA that
+// arrives last (atomicInc on the bucket's arrival count, which wraps to
+// 0) concatenates the chunks' rows in chunk order up to 128; with more
+// buckets, each CTA walks whole buckets alone. The list is loaded beside
+// its length (one L2 round trip for both).
+__device__ __forceinline__ void serve_overflow(
+    const int32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
+    int cap, int vec, int sh, int32_t* __restrict__ rid,
+    int32_t* __restrict__ key, const BuildScratch& sc, int (*tot)[BB_WARPS]) {
+  __shared__ int s_list[BW_CTAS];
+  if (threadIdx.x < BW_CTAS) s_list[threadIdx.x] = sc.list[threadIdx.x];
+  const int nl = *sc.list_n;  // pass 1 has ended: the list is whole
+  __syncthreads();
+  // the walk CTA that reads the list last zeroes its length; the atomic's
+  // answer is waited for only at the end, so its round trip overlaps
+  unsigned arrived = 0;
+  if (threadIdx.x == 0) arrived = atomicInc(sc.arrive_all, BW_CTAS - 1);
+  serve_listed(keys, valid, cap, vec, sh, rid, key, sc, tot, nl, s_list);
+  if (threadIdx.x == 0 && arrived == BW_CTAS - 1) *sc.list_n = 0;
+}
+
+// Pass 2. Grid: BW_CTAS + min(ceil(nb / 16), BN_CTAS) CTAs. The first
+// BW_CTAS serve the buckets over 128 rows (serve_overflow) and then leave
+// the list and their arrival count zero. In the others each warp takes
+// buckets b, b + stride, ... (buckets >= 2^lg took no row), with the next
+// bucket's count loaded ahead: it zeroes the counter and, if the bucket
+// has at most 128 rows, orders them, lays the rows out in shared memory
+// and stores each of rid's and key's rows as one 16-byte store a lane.
+__global__ void __launch_bounds__(BB_THREADS, 3)
+build_buckets_kernel(const int32_t* __restrict__ keys,
+                     const uint8_t* __restrict__ valid, int cap, int vec,
+                     int sh, int nb, int32_t* __restrict__ rid,
+                     int32_t* __restrict__ key, BuildScratch sc,
+                     int32_t* __restrict__ overflow) {
+  __shared__ int tot[2][BB_WARPS];
+  __shared__ int4 stage[BB_WARPS][2][HX_LANES / 4];  // a warp's rid, key rows
+  if (blockIdx.x < BW_CTAS) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) {  // pass 1 has ended
+      *overflow = *sc.acc;
+      *sc.acc = 0;
+    }
+    serve_overflow(keys, valid, cap, vec, sh, rid, key, sc, tot);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int stride = (gridDim.x - BW_CTAS) * BB_WARPS;
+  int* srid = reinterpret_cast<int*>(stage[warp][0]);
+  int* skey = reinterpret_cast<int*>(stage[warp][1]);
+  int b = (blockIdx.x - BW_CTAS) * BB_WARPS + warp;
+  // a bucket's count and its first 32 staged pairs are loaded together
+  // (most buckets hold at most 32 rows), the next bucket's ahead of time;
+  // pairs past the count are never used
+  int n_next = 0;
+  int2 v0_next = make_int2(0, 0);
+  if (b < nb) {
+    if (lane == 0) n_next = sc.cnt[(size_t)b * HX_CNT_STRIDE];
+    v0_next = reinterpret_cast<const int2*>(rid + (size_t)b * HX_LANES)[lane];
+  }
+  for (; b < nb; b += stride) {
+    const int n = __shfl_sync(0xffffffffu, n_next, 0);
+    const int2 v0 = v0_next;
+    const int bn = b + stride;
+    if (lane == 0) sc.cnt[(size_t)b * HX_CNT_STRIDE] = 0;
+    if (bn < nb) {
+      if (lane == 0) n_next = sc.cnt[(size_t)bn * HX_CNT_STRIDE];
+      v0_next = reinterpret_cast<const int2*>(rid + (size_t)bn * HX_LANES)[lane];
+    }
+    if (n > HX_LANES) continue;  // a walk CTA writes this bucket
+    int32_t* rrow = rid + (size_t)b * HX_LANES;
+    int32_t* krow = key + (size_t)b * HX_LANES;
+    // staged slot p = lane + 32 i: i = 0, 1 in rid's row, 2, 3 in key's
+    int32_t r[4], kv[4];
+    int rank[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = lane + 32 * i;
+      r[i] = 0x7fffffff;
+      kv[i] = 0;
+      rank[i] = 0;
+      if (p < n) {
+        const int2 v = i == 0 ? v0 : reinterpret_cast<const int2*>(
+            i < 2 ? rrow : krow)[p & (HX_HALF - 1)];
+        r[i] = v.x;
+        kv[i] = v.y;
+      }
+    }
+    switch ((n + 31) >> 5) {
+      case 1: rank_staged<1>(r, n, rank); break;
+      case 2: rank_staged<2>(r, n, rank); break;
+      case 3: rank_staged<3>(r, n, rank); break;
+      case 4: rank_staged<4>(r, n, rank); break;
+      default: break;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = lane + 32 * i;
+      if (p < n) {
+        srid[rank[i]] = r[i];
+        skey[rank[i]] = kv[i];
+      } else {
+        srid[p] = HX_EMPTY;
+        skey[p] = 0;
+      }
+    }
+    __syncwarp();  // the rows are laid out (and every staged pair was read)
+    reinterpret_cast<int4*>(rrow)[lane] = stage[warp][0][lane];
+    reinterpret_cast<int4*>(krow)[lane] = stage[warp][1][lane];
+    __syncwarp();  // before the next bucket's layout
   }
 }
 
@@ -96,11 +444,6 @@ __device__ __forceinline__ uint32_t cmp4(int op, const int32_t (&x)[4],
     case OP_GT: return cmp4_op<OP_GT>(x, v);
     default:    return cmp4_op<OP_GE>(x, v);
   }
-}
-
-// bits 0-3 of b as the bytes 0/1 of a 32-bit word (byte j = bit j)
-__device__ __forceinline__ uint32_t bits_to_bytes4(uint32_t b) {
-  return ((b & 0xFu) * 0x00204081u) & 0x01010101u;
 }
 
 // Grid: one warp per query key. verify = 0: cand = rid lanes, hit =
@@ -237,19 +580,57 @@ probe_kernel(const int32_t* __restrict__ rid, const int32_t* __restrict__ key,
   for (int p = min(n, limit) + lane; p < limit; p += 32) row[p] = 0;
 }
 
-constexpr int kThreads = 256;  // 8 warps = 8 buckets (or queries) a block
+constexpr int kThreads = 256;  // 8 warps = 8 queries a block
 
 }  // namespace
 
-// order/sb [cap] int32 (rows sorted by bucket, sentinel nb for invalid
-// rows), start [nb] int32, keys [cap] int32 -> rid/key [nb, 128] int32.
-REPRO_EXPORT int hash_build(const void* order, const void* sb, const void* start,
-                            const void* keys, int cap, int nb, void* rid,
-                            void* key, void* stream) {
-  const int blocks = (int)(((size_t)nb * 32 + kThreads - 1) / kThreads);
-  build_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)order, (const int32_t*)sb, (const int32_t*)start,
-      (const int32_t*)keys, cap, nb, (int32_t*)rid, (int32_t*)key);
+// Ints of the build's two scratch buffers for nb buckets: the one that
+// must be zero when a call starts (and is zero again after it) and the
+// one whose contents do not matter.
+REPRO_EXPORT long long hash_build_scratch(int nb, int zeroed) {
+  return zeroed ? 3 + BW_CTAS + (long long)HX_CNT_STRIDE * nb
+                : 2LL * BW_CTAS * HX_LANES + BW_CTAS + (nb > BW_CTAS ? nb : BW_CTAS);
+}
+
+// keys [cap] int32, valid [cap] uint8 -> rid / key [nb, 128] int32 (each
+// bucket's first 128 valid rows in row order, EMPTY / 0 after) and
+// overflow [] int32 (the rows past 128 over all buckets). zeroed and free
+// are the caller's scratch (hash_build_scratch ints each), used by one
+// stream's launches only; zeroed is zero when allocated, and the two
+// launches leave it zero. rid and key must start on 8 bytes.
+REPRO_EXPORT int hash_build(const void* keys, const void* valid, int cap,
+                            int nb, void* rid, void* key, void* overflow,
+                            void* zeroed, void* free, void* stream) {
+  if (cap < 0 || nb < 2) return (int)cudaErrorInvalidValue;
+  const int lg = 31 - __builtin_clz((unsigned)nb);  // bit_length(nb) - 1
+  int* z = (int*)zeroed;
+  int* f = (int*)free;
+  BuildScratch sc;
+  sc.acc = z;
+  sc.list_n = z + 1;
+  sc.arrive_all = (unsigned*)(z + 2);
+  sc.arrive = (unsigned*)(z + 3);
+  sc.cnt = z + 3 + BW_CTAS;
+  sc.chunk_rows = f;
+  sc.chunk_keys = f + BW_CTAS * HX_LANES;
+  sc.chunk_n = f + 2 * BW_CTAS * HX_LANES;
+  sc.list = f + 2 * BW_CTAS * HX_LANES + BW_CTAS;
+  const int vec = ((uintptr_t)keys & 15) == 0 && ((uintptr_t)valid & 7) == 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (cap > 0) {
+    build_rows_kernel<<<(unsigned)((cap + BR_THREADS - 1LL) / BR_THREADS),
+                        BR_THREADS, 0, s>>>(
+        (const int32_t*)keys, (const uint8_t*)valid, cap, 32 - lg,
+        (int32_t*)rid, (int32_t*)key, sc);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int bucket_ctas = (nb + BB_WARPS - 1) / BB_WARPS;
+  build_buckets_kernel<<<BW_CTAS + (bucket_ctas < BN_CTAS ? bucket_ctas
+                                                          : BN_CTAS),
+                         BB_THREADS, 0, s>>>((const int32_t*)keys, (const uint8_t*)valid,
+                                 cap, vec, 32 - lg, nb, (int32_t*)rid,
+                                 (int32_t*)key, sc, (int32_t*)overflow);
   return (int)cudaGetLastError();
 }
 

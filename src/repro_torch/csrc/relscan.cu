@@ -62,12 +62,6 @@ namespace {
 struct Cols { const int32_t* c[4]; };
 struct Ops { int op[4]; };
 
-// one bit per nonzero byte of w (bit i = byte i)
-__device__ __forceinline__ uint32_t nz_bits4(uint32_t w) {
-  const uint32_t f = __vcmpne4(w, 0u) & 0x01010101u;
-  return (f * 0x01020408u) >> 24;  // the four byte flags land in bits 24-27
-}
-
 // 8 rows a thread measured faster on an H100 than 16 (at 131,072 rows,
 // 4,194,304 rows and 32 statements)
 constexpr int SC_ROWS = 8;                       // rows a thread
@@ -101,11 +95,6 @@ __device__ __forceinline__ uint32_t cmp_rows(int op,
     case OP_GT: return cmp_rows_op<OP_GT>(x, v);
     default:    return cmp_rows_op<OP_GE>(x, v);
   }
-}
-
-// bits 0-3 of b as the bytes 0/1 of a 32-bit word (byte j = bit j)
-__device__ __forceinline__ uint32_t bits_to_bytes4(uint32_t b) {
-  return ((b & 0xFu) * 0x00204081u) & 0x01010101u;
 }
 
 // Grid (ceil(cap / SC_TILE), ceil(w / SC_STMTS)). Thread g of the grid's x

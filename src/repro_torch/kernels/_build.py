@@ -116,7 +116,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "relscan_scan": [P, P, P, P, I, I, I, I, I, P, P, I, I, P, P, P, P,
                          P],
         "relscan_compact": [P, L, I, I, I, P, P, P, P, P],
-        "hash_build": [P, P, P, P, I, I, P, P, P],
+        "hash_build": [P, P, I, I, P, P, P, P, P, P],
+        "hash_build_scratch": [I, I],
         "hash_probe": [P, P, P, I, I, P, P, P],
         "hash_probe_verify": [P, P, P, I, I, P, P, PP, PP,
                               ctypes.POINTER(I), I, P, P, I, I, P, P, P, P,

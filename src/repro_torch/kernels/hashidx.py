@@ -10,8 +10,9 @@ Index layout (one per indexed column, inside the table state), as in
                                          every probe takes the scan path
 
 Two kernels, in ``csrc/hashidx.cu``, each with its plain PyTorch version
-beside it: ``build`` (after a stable sort that groups rows by bucket) and
-the probe (one bucket row per query key). The probe kernel serves two
+beside it: ``build`` (a counting sort by bucket in two launches: rows take
+slots, then each bucket orders its rows) and the probe (one bucket row per
+query key). The probe kernel serves two
 wrappers: ``probe`` (the TPU kernel's contract: candidates and hit bits)
 and ``probe_verify`` (the executors' whole IndexProbe route in the same
 launch: candidate verification against the table, the match count and
@@ -28,7 +29,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.relscan import _CMP, OP_CODES
+from repro_torch.kernels.relscan import _CMP, OP_CODES, _zeroed_scratch
 
 LANES = 128
 BUCKET_CAP = LANES
@@ -72,10 +73,10 @@ def empty_index(n_buckets: int, device) -> dict:
 # ------------------------------------------------------------------- build
 
 def _build_sorted(keys: torch.Tensor, valid: torch.Tensor, n_buckets: int):
-    """Build prologue: one stable sort groups row ids by bucket (invalid
-    rows last under sentinel ``n_buckets``). Returns (order, sb, start,
-    overflow) as ``repro.kernels.hashidx._build_sorted``: the sort must be
-    stable, or lane layouts differ from the reference."""
+    """The plain build's prologue: one stable sort groups row ids by bucket
+    (invalid rows last under sentinel ``n_buckets``). Returns (order, sb,
+    start, overflow) as ``repro.kernels.hashidx._build_sorted``: the sort
+    must be stable, or lane layouts differ from the reference."""
     cap = keys.shape[0]
     dev = keys.device
     b = torch.where(valid, bucket_of(keys, n_buckets), n_buckets)
@@ -91,19 +92,27 @@ def _build_sorted(keys: torch.Tensor, valid: torch.Tensor, n_buckets: int):
     return order.to(torch.int32), sb, start, overflow
 
 
-def _check_build(keys, valid):
+def _check_build(keys, valid, n_buckets):
     if keys.dim() != 1 or keys.dtype != torch.int32:
         raise TypeError("keys must be a [cap] int32 tensor")
     if valid.shape != keys.shape or valid.dtype != torch.bool:
         raise TypeError("valid must be a [cap] bool tensor")
     if valid.device != keys.device:
         raise ValueError("keys and valid must share a device")
+    if n_buckets < 2:
+        raise ValueError("n_buckets must be >= 2 (the bucket id is the top "
+                         "bit_length(n_buckets) - 1 bits of the hash)")
 
 
 def build_ref(keys: torch.Tensor, valid: torch.Tensor, *, n_buckets: int):
     """Plain version: gather each bucket's sorted segment. Returns
-    (rid [nb, 128], key [nb, 128], overflow [] int32)."""
-    _check_build(keys, valid)
+    (rid [nb, 128]: each bucket's first 128 valid rows in row order,
+    ``EMPTY`` after; key [nb, 128]: their keys, 0 after; overflow [] int32:
+    the valid rows past 128 summed over the buckets). Only the top
+    ``bit_length(nb) - 1`` bits of the hash pick a bucket, so when ``nb``
+    is no power of two the buckets from the largest power of two below it
+    stay empty."""
+    _check_build(keys, valid, n_buckets)
     cap = keys.shape[0]
     dev = keys.device
     order, sb, start, overflow = _build_sorted(keys, valid, n_buckets)
@@ -122,22 +131,30 @@ def build_ref(keys: torch.Tensor, valid: torch.Tensor, *, n_buckets: int):
 
 
 def build(keys: torch.Tensor, valid: torch.Tensor, *, n_buckets: int):
-    """Bulk (re)build (kernel on CUDA tensors). Contract of
-    :func:`build_ref`."""
+    """Bulk (re)build. On CUDA tensors two kernel launches and no other
+    device op (the per-bucket counters are a persistent scratch the kernels
+    leave zero). Contract of :func:`build_ref`."""
     if keys.device.type == "cpu":
         return build_ref(keys, valid, n_buckets=n_buckets)
     _build.require_cuda(keys, "hash_build")
-    _check_build(keys, valid)
-    cap = keys.shape[0]
-    order, sb, start, overflow = _build_sorted(keys, valid, n_buckets)
-    keys = keys.contiguous()
-    rid = torch.empty((n_buckets, BUCKET_CAP), dtype=torch.int32,
-                      device=keys.device)
+    _check_build(keys, valid, n_buckets)
+    dev = keys.device
+    keys, valid = keys.contiguous(), valid.contiguous()
+    rid = torch.empty((n_buckets, BUCKET_CAP), dtype=torch.int32, device=dev)
     key = torch.empty_like(rid)
-    err = _build.lib("hashidx").hash_build(
-        order.contiguous().data_ptr(), sb.data_ptr(),
-        start.contiguous().data_ptr(), keys.data_ptr(), cap, n_buckets,
-        rid.data_ptr(), key.data_ptr(), _build.stream_ptr(keys.device))
+    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    stream = _build.stream_ptr(dev)
+    lib = _build.lib("hashidx")
+    # the kernels' int32 scratch, in int64 words: "build" is zero when a
+    # call starts and the call leaves it so; "build_free" holds nothing
+    # from one call to the next
+    zeroed, free = (_zeroed_scratch(
+        kind, dev, stream, lib.hash_build_scratch(n_buckets, part) // 2 + 1)
+        for kind, part in (("build", 1), ("build_free", 0)))
+    err = lib.hash_build(
+        keys.data_ptr(), valid.data_ptr(), keys.shape[0], n_buckets,
+        rid.data_ptr(), key.data_ptr(), overflow.data_ptr(),
+        zeroed.data_ptr(), free.data_ptr(), stream)
     _build.check(err, "hash_build")
     _build.launches["hash_build"] += 1
     return rid, key, overflow

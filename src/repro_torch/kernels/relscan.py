@@ -152,10 +152,12 @@ def _zeroed_scratch(kind: str, device, stream: int, n: int) -> torch.Tensor:
     """A kernel's persistent int64 scratch of at least ``n`` words for one
     device and stream, zeroed once when it is allocated (a larger one
     replaces it), never per call. The scan's words (one a statement) are
-    zero again after every launch. The compaction's hold two uint32
-    control words (the launch epoch, CTAs done) in word 0, then look-back
-    flags: each flag carries the epoch of the launch that wrote it, and
-    each launch moves the epoch on."""
+    zero again after every launch, and so are the hash build's (its bucket
+    counters, overflow word and arrival counts, as int32; its other
+    buffer's contents do not matter). The compaction's hold two
+    uint32 control words (the launch epoch, CTAs done) in word 0, then
+    look-back flags: each flag carries the epoch of the launch that wrote
+    it, and each launch moves the epoch on."""
     key = (kind, device.index, stream)
     buf = _scratch.get(key)
     if buf is None or buf.numel() < n:

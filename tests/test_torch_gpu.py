@@ -144,19 +144,167 @@ def test_compact_is_one_launch(cuda):
     assert len(names) == 1 and "compact_kernel" in names[0], names
 
 
-@pytest.mark.parametrize("cap,frac", [(131_072, 0.76), (4096, 0.0),
-                                      (4096, 1.0), (100_003, 0.5)])
-def test_build_matches_plain(cuda, cap, frac):
-    rng = np.random.default_rng(cap)
-    keys = torch.tensor(rng.integers(-2**31, 2**31 - 1, cap),
-                        dtype=torch.int32, device=cuda)
-    keys[: cap // 3] = torch.tensor(rng.integers(0, 1000, cap // 3),
-                                    dtype=torch.int32, device=cuda)
-    valid = torch.tensor(rng.random(cap) < frac, device=cuda)
+def _hot_bucket_keys(rng, cap, nb, n_hot, hot=7):
+    """cap keys: ``hot`` at n_hot random rows, and at every other row a key
+    whose bucket is not the hot key's, so that bucket holds exactly n_hot
+    rows."""
+    hot_b = int(HX.bucket_of(torch.tensor([hot], dtype=torch.int32), nb)[0])
+    pool = np.arange(-50_000, 50_000, dtype=np.int32)
+    pool = pool[HX.bucket_of(torch.from_numpy(pool), nb).numpy() != hot_b]
+    keys = rng.choice(pool, cap).astype(np.int32)
+    keys[rng.choice(cap, n_hot, replace=False)] = hot
+    return keys
+
+
+def _build_case(case):
+    """(keys [cap] int32, valid [cap] bool, n_buckets) as numpy, for one
+    named build case."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    kind, _, arg = case.partition(" ")
+    if kind == "mixed":             # full-range keys, a third of them small
+        cap, frac = int(arg.split("/")[0]), float(arg.split("/")[1])
+        keys = rng.integers(-2**31, 2**31 - 1, cap).astype(np.int32)
+        keys[: cap // 3] = rng.integers(0, 1000, cap // 3)
+        return keys, rng.random(cap) < frac, HX.n_buckets_for(cap)
+    cap = int(arg) if arg else 131_072
     nb = HX.n_buckets_for(cap)
+    ones = np.ones(cap, bool)
+    if kind == "one_bucket":        # every valid row in one bucket
+        return np.full(cap, -3, np.int32), ones, nb
+    if kind in ("bucket_128", "bucket_129"):
+        return _hot_bucket_keys(rng, cap, nb, int(kind[-3:])), ones, nb
+    if kind == "user_id":           # Table 2's users: buckets over 128
+        table = np.random.default_rng(0)
+        table.integers(0, 30_000, 100_000)  # the page_id column comes first
+        col = np.zeros(cap, np.int32)
+        col[:100_000] = table.integers(0, 1_000, 100_000)
+        return col, np.arange(cap) < 100_000, nb
+    keys = rng.integers(-2**31, 2**31 - 1, cap).astype(np.int32)
+    if kind.startswith("hot_"):     # hot keys 0, 1, ... of 300 rows each
+        for h in range(int(kind[4:])):
+            keys[rng.choice(cap, 300, replace=False)] = h
+        return keys, rng.random(cap) < 0.9, nb
+    if kind == "random":
+        return keys, rng.random(cap) < 0.9, nb
+    if kind == "nb_12":             # no power of two: buckets 8-11 empty
+        return keys, rng.random(cap) < 0.8, 12
+    if kind == "all_invalid":
+        return keys, np.zeros(cap, bool), nb
+    raise ValueError(case)
+
+
+BUILD_CASES = ["mixed 131072/0.76", "mixed 4096/0.0", "mixed 4096/1.0",
+               "mixed 100003/0.5", "one_bucket 4096", "one_bucket",
+               "bucket_128 4096", "bucket_129 4096", "user_id", "hot_3",
+               "hot_40", "hot_100",
+               "random 4194304", "nb_12 300", "random 1", "random 100003",
+               "all_invalid"]
+
+
+@pytest.mark.parametrize("case", BUILD_CASES)
+def test_build_matches_plain(cuda, case):
+    """The two-launch build against its plain version, lane for lane and
+    overflow included: mixed key ranges and valid fractions, every row in
+    one bucket, buckets of exactly 128 and 129 rows, Table 2's user_id
+    column (2 buckets over 128), 3, 40 and 100 buckets over 128 (the
+    walk CTAs split a bucket's rows into chunks, or walk whole buckets
+    when more than 32 are listed), 4,194,304 rows in 131,072 buckets, 12
+    buckets (no power of two), caps 1 and 100,003 (no multiple of a
+    CTA's rows or a walk's 4,096-row step), no valid row."""
+    keys, valid, nb = _build_case(case)
+    keys = torch.from_numpy(keys).to(cuda)
+    valid = torch.from_numpy(valid).to(cuda)
     got = HX.build(keys, valid, n_buckets=nb)
     want = HX.build_ref(keys, valid, n_buckets=nb)
     torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    if case.startswith(("one_bucket", "bucket_129", "user_id", "hot_")):
+        assert int(got[2]) > 0
+
+
+def test_build_back_to_back_on_one_scratch(cuda):
+    """Builds that overflow and builds that do not, back to back on one
+    stream and its one scratch, each equal to the plain version: the
+    counters and the overflow word are zero again after every call; and
+    a build off 16-byte alignment (a view one row in) reads row by row."""
+    outs, wants = [], []
+    for case in ("user_id", "random 131072", "one_bucket 4096",
+                 "bucket_128 4096", "user_id"):
+        keys, valid, nb = _build_case(case)
+        keys = torch.from_numpy(keys).to(cuda)
+        valid = torch.from_numpy(valid).to(cuda)
+        outs.append(HX.build(keys, valid, n_buckets=nb))
+        wants.append(HX.build_ref(keys, valid, n_buckets=nb))
+        outs.append(HX.build(keys[1:], valid[1:], n_buckets=nb))
+        wants.append(HX.build_ref(keys[1:], valid[1:], n_buckets=nb))
+    torch.cuda.synchronize()
+    for got, want in zip(outs, wants):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_build_replays_in_a_cuda_graph(cuda):
+    """A build captured in a CUDA graph and replayed over new keys and
+    validity gives the plain version's outputs each time (the scratch is
+    made before the capture; the kernels leave it zero)."""
+    keys, valid, nb = _build_case("user_id")
+    keys = torch.from_numpy(keys).to(cuda)
+    valid = torch.from_numpy(valid).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        HX.build(keys, valid, n_buckets=nb)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = HX.build(keys, valid, n_buckets=nb)
+    try:
+        for case in ("random 131072", "user_id", "mixed 131072/0.76"):
+            k, v, _ = _build_case(case)
+            keys.copy_(torch.from_numpy(k))
+            valid.copy_(torch.from_numpy(v))
+            graph.replay()
+            torch.cuda.synchronize()
+            want = HX.build_ref(keys, valid, n_buckets=nb)
+            for a, b in zip(out, want):
+                assert torch.equal(a, b), case
+    finally:
+        # hand the graph's pool and this test's cached blocks back, so
+        # later tests that count the allocator's bytes see no leftovers
+        del out, graph
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def test_build_is_two_launches_and_sync_free(cuda):
+    """A build call puts its two kernels on the card and nothing else (no
+    memset, no copy, no sort): 10 calls under the profiler show both
+    kernels and at most 20 records, every one a build kernel (a profiled
+    window may lose a record, never gain one). A call never waits for
+    the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    keys, valid, nb = _build_case("user_id")
+    keys = torch.from_numpy(keys).to(cuda)
+    valid = torch.from_numpy(valid).to(cuda)
+    HX.build(keys, valid, n_buckets=nb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            HX.build(keys, valid, n_buckets=nb)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) <= 20 and all("build_" in n for n in names), names
+    assert {"build_rows_kernel", "build_buckets_kernel"} <= {
+        re.search(r"build_\w+_kernel", n).group(0) for n in names}, names
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = HX.build(keys, valid, n_buckets=nb)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = HX.build_ref(keys, valid, n_buckets=nb)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 

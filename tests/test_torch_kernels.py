@@ -164,6 +164,74 @@ def test_build_overflow_matches():
         _eq(w, g)
 
 
+def _hot_bucket_keys(rng, cap, nb, n_hot, hot=7):
+    """cap keys: ``hot`` at n_hot random rows, and at every other row a key
+    whose bucket is not the hot key's, so that bucket holds exactly n_hot
+    rows."""
+    hot_b = int(TH.bucket_of(torch.tensor([hot], dtype=torch.int32), nb)[0])
+    pool = np.arange(-5000, 5000, dtype=np.int32)
+    pool = pool[TH.bucket_of(torch.from_numpy(pool), nb).numpy() != hot_b]
+    keys = rng.choice(pool, cap).astype(np.int32)
+    keys[rng.choice(cap, n_hot, replace=False)] = hot
+    return keys
+
+
+def _build_edge(kind):
+    """(keys, valid, n_buckets, the overflow it must give or None) of one
+    build edge case, at small cap."""
+    rng = np.random.default_rng(len(kind))
+    cap = 512
+    nb = JH.n_buckets_for(cap)
+    valid = np.ones(cap, bool)
+    if kind == "one_bucket":        # every valid row in one bucket
+        return np.full(cap, 7, np.int32), valid, nb, cap - 128
+    if kind in ("bucket_128", "bucket_129"):
+        n = int(kind[-3:])
+        return _hot_bucket_keys(rng, cap, nb, n), valid, nb, n - 128
+    keys = rng.integers(-50, 50, cap).astype(np.int32)
+    if kind == "nb_12":             # not a power of two: buckets 8-11 empty
+        return keys[:300], rng.random(300) < 0.8, 12, None
+    if kind == "all_invalid":
+        return keys, np.zeros(cap, bool), nb, 0
+    if kind == "cap_1":
+        return keys[:1], valid[:1], JH.n_buckets_for(1), 0
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["one_bucket", "bucket_128", "bucket_129",
+                                  "nb_12", "all_invalid", "cap_1"])
+def test_build_edges_match_pallas_interpret(kind):
+    """The build's edges: a bucket of exactly 128 and of 129 rows, every
+    row in one bucket, a bucket count that is no power of two, no valid
+    row, one row. The port's plain build equals the reference's Pallas
+    build (interpret mode) and its oracle lane for lane, overflow
+    included."""
+    keys, valid, nb, overflow = _build_edge(kind)
+    got = TH.build(_t(keys), _t(valid), n_buckets=nb)
+    for want in (JH.build(jnp.asarray(keys), jnp.asarray(valid),
+                          n_buckets=nb, interpret=True),
+                 JH.build_ref(jnp.asarray(keys), jnp.asarray(valid),
+                              n_buckets=nb)):
+        for w, g in zip(want, got):
+            _eq(w, g)
+    if overflow is not None:
+        assert int(got[2]) == overflow
+    if kind == "nb_12":
+        assert bool((got[0][8:] == TH.EMPTY).all())
+
+
+@pytest.mark.parametrize("n_buckets", [0, 1])
+def test_build_refuses_fewer_than_two_buckets(n_buckets):
+    """A bucket id is the top bit_length(n_buckets) - 1 bits of the hash:
+    with fewer than two buckets that is no bit (a shift by 32 in the
+    kernel), so both paths refuse it, as the probe does."""
+    keys = torch.zeros(16, dtype=torch.int32)
+    valid = torch.ones(16, dtype=torch.bool)
+    for fn in (TH.build, TH.build_ref):
+        with pytest.raises(ValueError, match="n_buckets"):
+            fn(keys, valid, n_buckets=n_buckets)
+
+
 def test_probe_matches_pallas_interpret():
     rng = np.random.default_rng(3)
     keys = rng.integers(-60, 60, 512).astype(np.int32)
