@@ -17,8 +17,9 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               both offer (``comparable_rows``: the scan with its totals,
               the hash build, the bare probe, the executors' verified
               probe route), and
-              kernels, copies, device time and idle share per Table 2
-              DELETE / SELECT statement, plain and indexed.
+              kernels, copies, host launch calls, device time, idle share
+              and wall p50 per Table 2 DELETE / SELECT statement, plain
+              and indexed.
 2. kernels -- every relscan / hash-index kernel against its plain PyTorch
               version on the card, exact equality, at the main path's
               shapes and beyond: the scan's mask, block counts and totals
@@ -80,7 +81,19 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               daemon.
 5. wire    -- one tagged/untagged socket script against a ThreadedServer
               on the card daemon and one on a CPU daemon: the response
-              bytes must match (the ``device`` field of SHOW STATS aside).
+              bytes must match (SHOW STATS's ``device`` and
+              ``compile_ms_total`` aside).
+   graphs  -- pre-planned statements (core/execache.py): the Table 2
+              indexed table and Fig. 1's read warmed at CREATE and by
+              WARMUP; every warm statement must replay with no miss and
+              no sync and equal the CPU daemon, a cold shape capture on
+              its miss with no sync, a warm statement be one
+              cudaGraphLaunch and no kernel launch; a WARMUP of new
+              shapes in another thread races replays, an executemany
+              grows the compaction's scratch under an older graph, and a
+              REINDEX retires every plan, each followed by statements
+              that must equal the CPU daemon's. Reports capture ms, the
+              Table 2 table's graph-pool bytes and wall p50s.
 6. serve   -- the paged-KV serving engine with yi-6b at full width (bf16,
               random weights from a seeded torch.Generator) on the card:
               launch/serve.py's default traffic (6 requests of 8-24
@@ -100,12 +113,14 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
 7. profile -- after the main paths (torch.profiler): per decode round of
               both serve paths, and for zamba2's 300-token prefill.
 
-Phases 3-6 are six main paths (Table 2 plain, Table 2 indexed, Fig. 1,
-wire, serve, serve_zamba2). The launch counters are zeroed right before
+Phases 3-6 are seven main paths (Table 2 plain, Table 2 indexed, Fig. 1,
+wire, graphs, serve, serve_zamba2). A statement kernel that runs inside a
+captured graph counts once per launch on the card: the plan's prime run,
+then each replay's captured launches. The launch counters are zeroed right before
 each path and read right after it, and each path must have launched
 every kernel it runs: scan and compact on the statement paths, build and
-probe on the indexed Table 2 table, probe in the wire script (its table
-has INDEX(k)); flash attention, paged attention and the relscan scan on
+probe on the indexed Table 2 table and in graphs, probe in the wire
+script (its table has INDEX(k)); flash attention, paged attention and the relscan scan on
 both serve paths, and the Mamba2 scan on zamba2's, each an exact number
 of times (per attention layer or shared-block application and prefill or
 round; per Mamba2 layer and prefill). Then comes a ``kernels`` line
@@ -1206,9 +1221,9 @@ class Pair:
     """The card daemon and a CPU daemon taking the same statements; every
     result must match exactly."""
 
-    def __init__(self):
-        self.gpu = D.SQLCached()
-        self.cpu = D.SQLCached(device="cpu")
+    def __init__(self, **kw):
+        self.gpu = D.SQLCached(**kw)
+        self.cpu = D.SQLCached(device="cpu", **kw)
         self.lat: dict[str, list] = {}
 
     def run(self, kind, sql, *args, label=None, **kw):
@@ -1384,13 +1399,16 @@ def phase_wire(card):
               b"ARG#bad Z 1\r\nARG#bad I 2\r\nGO#bad\r\n"
     script += frame("SELECT COUNT(*) FROM w")
     outs = {}
-    for name, db in (("gpu", D.SQLCached()),
-                     ("cpu", D.SQLCached(device="cpu"))):
+    # no CREATE-time warm-up here: SHOW STATS's executor counts must not
+    # depend on how far a background warm-up got
+    for name, db in (("gpu", D.SQLCached(warmup=False)),
+                     ("cpu", D.SQLCached(device="cpu", warmup=False))):
         with PR.ThreadedServer(db=db) as srv:
             t0 = time.perf_counter()
             outs[name] = exchange(srv.addr, script)
             outs[name + "_s"] = time.perf_counter() - t0
-    mask = lambda b: re.sub(rb'"device": "[^"]*"', b'"device": "-"', b)
+    mask = lambda b: re.sub(  # noqa: E731
+        rb'"(device|compile_ms_total)": [^,}]*', rb'"\1": "-"', b)
     if mask(outs["gpu"]) != mask(outs["cpu"]):
         raise AssertionError("wire responses differ between the card and "
                              "the CPU daemon")
@@ -1665,24 +1683,250 @@ def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
           "teacher_forced": tf})
 
 
+# ------------------------------------------------------------ graphs
+
+# Table 2's single statements with their bound values for round i
+GRAPH_STMTS = (
+    ("page_delete", "DELETE FROM cache WHERE page_id = ?",
+     lambda p, u, i: (p[2 + i],)),
+    ("user_delete", "DELETE FROM cache WHERE user_id = ?",
+     lambda p, u, i: (u[1 + 3 * i],)),
+    ("page_select", "SELECT * FROM cache WHERE page_id = ? LIMIT 64",
+     lambda p, u, i: (p[130 + i],)),
+    ("two_term_select", "SELECT page_id, data FROM cache WHERE "
+     "user_id = ? AND page_id < ?", lambda p, u, i: (u[200 + i], 15_000)),
+    ("update", "UPDATE cache SET data = data + 1 WHERE page_id = ?",
+     lambda p, u, i: (p[300 + i],)),
+    ("count", "SELECT COUNT(*) FROM cache WHERE user_id = ?",
+     lambda p, u, i: (u[400 + i],)),
+)
+
+
+def executors(db, table):
+    return json.loads(db.execute(f"SHOW STATS {table}").value)["executors"]
+
+
+def pool_bytes(db, table) -> int:
+    """Device bytes held in the table's CUDA-graph memory pool."""
+    pool = db.tables[table].execs._pool
+    if pool is None:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory._snapshot()[
+        "segments"] if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def launch_calls(fn, n):
+    """Host launch calls (kernels, graphs, copies) of ``n`` statements."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    calls = dict.fromkeys(LAUNCH_CALLS, 0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA and e.name in calls:
+            calls[e.name] += 1
+    return {k: v / n for k, v in calls.items()}
+
+
+def phase_graphs(card):
+    """Pre-planned statements (core/execache.py): the Table 2 indexed
+    table and Fig. 1's read, warmed at CREATE and by WARMUP, on the card
+    and on a CPU daemon. Every warm statement replays a captured CUDA
+    graph with no miss and no sync; a cold shape captures on its miss with
+    no sync; a warm statement is one graph launch; WARMUP of new shapes in
+    another thread while this one replays, and a graph captured before an
+    executemany that grows the compaction's scratch, still equal the CPU
+    daemon, and so does REINDEX (an epoch bump) and what follows it.
+    Reports each statement's capture time and wall p50, and the graphs'
+    pool bytes."""
+    pages, users, payload = table2_data()
+    p, u = pages.tolist(), users.tolist()
+    pr = Pair(warmup=True)
+    pr.run("execute", "CREATE TABLE cache (page_id INT, user_id INT, data "
+                      "BIGINT, INDEX(page_id), INDEX(user_id)) "
+                      "CAPACITY 131072 MAX_SELECT 64")
+    for db in (pr.gpu, pr.cpu):
+        db.drain_warmup()
+    canonical = executors(pr.gpu, "cache")
+    if canonical["cached"] != 5 or canonical["misses"] != 0:
+        raise AssertionError(f"CREATE-time warm-up: {canonical}")
+    pr.run("executemany",
+           "INSERT INTO cache (page_id, user_id, data) VALUES (?, ?, ?)",
+           list(zip(p, u, payload.tolist())))
+    capture_ms = {}
+    for label, sql, _ in GRAPH_STMTS:
+        ms0 = executors(pr.gpu, "cache")["compile_ms_total"]
+        counts = [db.execute(f"WARMUP cache LIKE '{sql}'").count
+                  for db in (pr.gpu, pr.cpu)]
+        if counts[0] != counts[1]:
+            raise AssertionError(f"WARMUP counts differ on {sql!r}: {counts}")
+        capture_ms[label] = executors(pr.gpu, "cache")["compile_ms_total"] \
+            - ms0
+    st0 = executors(pr.gpu, "cache")
+    for i in range(20):
+        for label, sql, args in GRAPH_STMTS:
+            pr.run("execute", sql, args(p, u, i), label=label)
+    st1 = executors(pr.gpu, "cache")
+    if st1["misses"] != st0["misses"]:
+        raise AssertionError(f"warmed shapes missed: {st0} -> {st1}")
+    # a cold shape: captured on its miss, no sync (Pair.run checks)
+    pr.run("execute", "SELECT data FROM cache WHERE page_id = ? AND "
+           "user_id = ?", (p[500], u[500]))
+    if executors(pr.gpu, "cache")["misses"] != st1["misses"] + 1:
+        raise AssertionError("the cold shape did not miss once")
+
+    # a warm statement is one graph launch (and its two copies); the CPU
+    # daemon then takes the same statements, to stay in step
+    round_ = [(sql, args(p, u, 20 + i)) for i in range(10)
+              for _, sql, args in GRAPH_STMTS[:4]]
+    calls = launch_calls(lambda: [pr.gpu.execute(*x) for x in round_],
+                         len(round_))
+    if calls["cudaGraphLaunch"] != 1 or any(
+            calls[k] for k in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                               "cuLaunchKernel")):
+        raise AssertionError(f"a warm statement is not one graph: {calls}")
+    for x in round_:
+        pr.cpu.execute(*x)
+
+    # WARMUP of new shapes in another thread while this one replays
+    import threading
+    new = ("SELECT data FROM cache WHERE user_id = ? AND data > ?",
+           "SELECT MAX(data) FROM cache WHERE page_id < ?",
+           "DELETE FROM cache WHERE data = ?",
+           "UPDATE cache SET data = data - 1 WHERE user_id = ?")
+    errors = []
+
+    def warm_new():
+        try:
+            for sql in new:
+                pr.gpu.execute(f"WARMUP cache LIKE '{sql}'")
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    th = threading.Thread(target=warm_new)
+    th.start()
+    for i in range(100):
+        pr.run("execute", "SELECT * FROM cache WHERE page_id = ? LIMIT 64",
+               (p[600 + i],))
+        pr.run("execute", "UPDATE cache SET data = data + 1 WHERE "
+               "page_id = ?", (p[700 + i],))
+    th.join()
+    if errors:
+        raise errors[0]
+    st2 = executors(pr.gpu, "cache")
+    for sql, args in zip(new, ((u[9], 500), (2_000,), (77,), (u[10],))):
+        pr.run("execute", sql, args)
+    if executors(pr.gpu, "cache")["misses"] != st2["misses"]:
+        raise AssertionError("shapes warmed in the background missed")
+
+    # a graph captured before a wider executemany grows the scratch
+    sql = "SELECT * FROM cache WHERE page_id = ? LIMIT 64"
+    pr.run("executemany", sql, [(x,) for x in p[800:1056]])
+    for x in p[1100:1140]:
+        pr.run("execute", sql, (x,))
+
+    st = executors(pr.gpu, "cache")
+    pool_t2 = pool_bytes(pr.gpu, "cache")
+    # REINDEX bumps the epoch: every plan goes, the next statements
+    # capture again against the rebuilt indexes. (REINDEX itself reads
+    # the residual overflow back, an admin statement's sync.)
+    epoch = st["epoch"]
+    got, want = (snap(db.execute("REINDEX cache")) for db in (pr.gpu, pr.cpu))
+    if got != want or executors(pr.gpu, "cache")["epoch"] != epoch + 1:
+        raise AssertionError(f"REINDEX: {got} vs {want}, or no epoch bump")
+    for i in range(10):
+        pr.run("execute", sql, (p[1200 + i],))
+        pr.run("execute", "DELETE FROM cache WHERE user_id = ?",
+               (u[1300 + i],))
+    for k in ("valid", "clock"):
+        if not torch.equal(pr.gpu.table_state("cache")[k].cpu(),
+                           pr.cpu.table_state("cache")[k]):
+            raise AssertionError(f"graphs: {k} differs from the CPU daemon")
+    for col, g in pr.gpu.table_state("cache")["cols"].items():
+        if not torch.equal(g.cpu(), pr.cpu.table_state("cache")["cols"][col]):
+            raise AssertionError(f"graphs: column {col} differs")
+
+    # Fig. 1's read, warmed
+    rng = np.random.default_rng(SEED)
+    sizes = [16, 64, 256, 1024, 4096]
+    idx = np.minimum(rng.geometric(0.5, size=512) - 1, len(sizes) - 1)
+    values = {f"k{i}": "x" * sizes[j] for i, j in enumerate(idx)}
+    fig = Pair(warmup=True)
+    fig.run("execute", "CREATE TABLE kv (k TEXT, v TEXT) CAPACITY 1024 "
+                       "MAX_SELECT 8")
+    for db in (fig.gpu, fig.cpu):
+        db.drain_warmup()
+    fig.run("executemany", "INSERT INTO kv (k, v) VALUES (?, ?)",
+            list(values.items()))
+    read = "SELECT v FROM kv WHERE k = ? LIMIT 1"
+    for db in (fig.gpu, fig.cpu):
+        db.execute(f"WARMUP kv LIKE '{read}'")
+    keys = [f"k{int(i)}" for i in rng.integers(0, 512, 512)]
+    fig.run("executemany", read, [(k,) for k in keys[:32]])
+    f0 = executors(fig.gpu, "kv")
+    for k in keys:
+        r = fig.run("execute", read, (k,), label="single_read")
+        if r["rows"] != [{"v": values[k]}]:
+            raise AssertionError(f"wrong value for {k}")
+    for i in range(0, 512, 32):
+        fig.run("executemany", read, [(k,) for k in keys[i:i + 32]],
+                label="batch_read")
+    if executors(fig.gpu, "kv")["misses"] != f0["misses"]:
+        raise AssertionError("Fig. 1's warmed reads missed")
+    emit({"phase": "graphs", "card": card,
+          "executors": st, "executors_fig1": executors(fig.gpu, "kv"),
+          "executors_after_reindex": executors(pr.gpu, "cache"),
+          "capture_ms": {k: round(v, 3) for k, v in capture_ms.items()},
+          "capture_ms_mean": round(st["compile_ms_total"]
+                                   / max(st["compiles"], 1), 3),
+          "pool_bytes_table2": pool_t2,
+          "pool_bytes_fig1": pool_bytes(fig.gpu, "kv"),
+          "launch_calls_per_warm_stmt": calls,
+          "wall_p50_us": {k: round(p50(v), 1) for k, v in pr.lat.items()},
+          "fig1_single_read_p50_us": round(p50(fig.lat["single_read"]), 1),
+          "fig1_batched_read_p50_us_per_read":
+              round(p50(fig.lat["batch_read"]) / 32, 2)})
+
+
 # ------------------------------------------------------------ profile
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def profile_statements(db, sql, params_list):
-    """Per statement: host wall time (drained), CUDA kernels and copies
-    launched, their device time and the card's idle share of the wall."""
+    """Per statement: host wall time (drained), CUDA kernels and copies on
+    the card, the launch calls the host made for them, their device time
+    and the card's idle share of the wall, over the first half of
+    ``params_list`` under the profiler; then the p50 of each statement's
+    own wall time (dispatch, and the Result's copy back) over the second
+    half, unprofiled."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     db.execute(sql, params_list[0])
     db.drain()
+    half = len(params_list) // 2
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for pr in params_list:
+        for pr in params_list[:half]:
             _ = db.execute(sql, pr).count
         db.drain()
         wall_us = (time.perf_counter() - t0) * 1e6
-    n = len(params_list)
+    walls = []
+    for pr in params_list[half:]:
+        t1 = time.perf_counter()
+        _ = db.execute(sql, pr).count
+        walls.append((time.perf_counter() - t1) * 1e6)
+    n = half
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    calls = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA and e.name in LAUNCH_CALLS:
+            calls[e.name] = calls.get(e.name, 0) + 1
     def t_of(e):
         if hasattr(e, "self_device_time_total"):
             return e.self_device_time_total
@@ -1694,8 +1938,11 @@ def profile_statements(db, sql, params_list):
     for e in kernels:
         top[e.name[:60]] = top.get(e.name[:60], 0.0) + t_of(e)
     return {"wall_us_per_stmt": round(wall_us / n, 1),
+            "wall_us_p50": round(p50(walls), 1),
             "kernels_per_stmt": round(len(kernels) / n, 2),
             "copies_per_stmt": round(len(copies) / n, 2),
+            "launch_calls_per_stmt": {k: round(v / n, 2)
+                                      for k, v in sorted(calls.items())},
             "device_us_per_stmt": round(busy / n, 2),
             "idle_share": round(1 - busy / wall_us, 4) if wall_us else None,
             "top_kernels_us": {k: round(v / n, 2) for k, v in
@@ -1794,6 +2041,10 @@ def table2_db(extra):
     db.executemany("INSERT INTO cache (page_id, user_id, data) VALUES "
                    "(?, ?, ?)", list(zip(pages.tolist(), users.tolist(),
                                          payload.tolist())))
+    drain_warmup = getattr(db, "drain_warmup", None)   # a parent tree's
+    if drain_warmup is not None:                       # daemon has none
+        drain_warmup()
+    db.drain()
     return db
 
 
@@ -1868,13 +2119,16 @@ def comparable_rows(dev):
             return ids, T._present(count, 64), count
         add(f"verified probe route, w = {w}, limit 64", route)
 
+    # per statement: the first 20 under the profiler, 20 more for the
+    # wall p50; on a tree that pre-plans statements each is one graph
+    # replay after the first call captures it
     for variant, dbx in (("plain", table2_db("")), ("indexed", db)):
         rows[f"{variant}_page_delete"] = profile_statements(
             dbx, "DELETE FROM cache WHERE page_id = ?",
-            [(int(p),) for p in pages[400:420]])
+            [(int(p),) for p in pages[400:440]])
         rows[f"{variant}_page_select"] = profile_statements(
             dbx, "SELECT * FROM cache WHERE page_id = ? LIMIT 64",
-            [(int(p),) for p in pages[500:520]])
+            [(int(p),) for p in pages[500:540]])
     return rows
 
 
@@ -1940,6 +2194,8 @@ def main():
          scan_compact + ("hash_build", "hash_probe")),
         ("fig1", lambda: phase_fig1(card), scan_compact),
         ("wire", lambda: phase_wire(card), scan_compact + ("hash_probe",)),
+        ("graphs", lambda: phase_graphs(card),
+         scan_compact + ("hash_build", "hash_probe")),
         ("serve", lambda: phase_serve(card, dev, serve), serve_need),
         ("serve_zamba2", lambda: phase_serve(
             card, dev, zamba, "zamba2-2.7b", max_seq=512,

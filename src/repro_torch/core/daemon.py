@@ -4,9 +4,14 @@ single-node monolithic tables).
 Clients speak a subset of SQL (``execute`` / ``executemany``, or over TCP
 through ``core/protocol.py``). Statements are parsed once and planned once
 (``core/planner``); each statement shape gets one executor, a Python
-closure kept in its table's executor dict. TEXT values are interned on the
-host to int32 ids and turned back into strings in results. A table's state
-lives on the daemon's device as a dict of tensors (``core/table.py``).
+closure kept in its table's executor cache (``core/execache.py``), which
+pre-plans it: on the card each shape (and type class of its bound values)
+is captured once as a CUDA graph and every later dispatch replays it. TEXT
+values are interned on the host to int32 ids and turned back into strings
+in results. A table's state lives on the daemon's device as a dict of
+tensors (``core/table.py``) that keep their addresses: every statement
+writes its new state into them in place (a captured graph reads and
+writes fixed addresses), and only REINDEX bumps the cache's epoch.
 
 Devices are explicit: ``SQLCached()`` runs on ``"cuda"`` and raises when
 no CUDA device is present; ``SQLCached(device="cpu")`` runs every kernel's
@@ -17,7 +22,8 @@ Sync-free execution: ``execute`` / ``executemany`` never wait for the
 device. Every dispatch returns a lazy :class:`Result` whose device outputs
 reach the host on first access, in ONE device-to-host copy of all of them
 (``_host_tree``); ``payloads`` and the ``*_device`` accessors never sync.
-Executors return fresh tensors, so a Result never aliases table state.
+A Result reads its own copy of the statement's outputs (one
+device-to-device copy after the replay), never table state.
 ``executemany`` runs W same-shape statements in one dispatch: SELECTs and
 aggregates launch each kernel once for all W (``table.select_many`` /
 ``aggregate_many``), single-column eq DELETEs take one pass over the
@@ -28,14 +34,23 @@ The paper's third automatic expiry condition (every N cache operations)
 is counted on the host (``_expire_flag``, one flag per dispatch, the
 same cadence as the reference) and runs inside the same executor call.
 
+Pre-planning (the reference's AOT executor cache): ``CREATE TABLE`` starts
+a background warm-up of the table's canonical hot shapes (``warmup=``,
+default from ``REPRO_WARMUP``; ``drain_warmup()`` joins it), ``WARMUP t
+[LIKE '<stmt>']`` plans shapes synchronously, ``EXPLAIN`` reports
+``preplanned``, ``SHOW STATS`` the ``executors`` block, and the batch
+scheduler keeps cold groups out of warm waves (:meth:`SQLCached.group_warm`).
+Warm-up ticks no clock and no op count and never touches table contents.
+
 Not in this port yet, and refused with ``SQLError``: ``SHARDS n>1`` /
-``PARTITION BY``, ``ALTER TABLE ... RESHARD`` / ``RETAIN SLOTS``,
-``CHECKPOINT`` / ``RESTORE`` and ``WARMUP``.
+``PARTITION BY``, ``ALTER TABLE ... RESHARD`` / ``RETAIN SLOTS`` and
+``CHECKPOINT`` / ``RESTORE``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import threading
 from typing import Any, Mapping, Sequence
 
@@ -47,6 +62,7 @@ from repro_torch.core import predicate as P
 from repro_torch.core import sqlparse as S
 from repro_torch.core import table as T
 from repro_torch.core import telemetry as TEL
+from repro_torch.core.execache import ExecutorCache
 from repro_torch.core.schema import ExpiryPolicy, TableSchema, make_schema
 from repro_torch.lint import lockorder as LK
 
@@ -95,10 +111,30 @@ class Interner:
 _UNSET = object()
 
 
+def _np_dtype(dt: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dt).numpy().dtype
+
+
+def _packed(leaves: list) -> bool:
+    """Do these card tensors lie in one small buffer (a statement's packed
+    outputs), so that copying the buffer whole copies at most 4 KB more
+    than them and their alignment gaps?"""
+    if not leaves or leaves[0].device.type == "cpu":
+        return False
+    ptr = leaves[0].untyped_storage().data_ptr()
+    need = 0
+    for t in leaves:
+        if t.untyped_storage().data_ptr() != ptr or not t.is_contiguous():
+            return False
+        need += -(-t.numel() * t.element_size() // 16) * 16
+    return leaves[0].untyped_storage().nbytes() <= need + 4096
+
+
 def _host_tree(tree: dict) -> dict:
     """Numpy copy of a nested dict of tensors. Tensors on a card travel in
-    ONE device-to-host copy: their bytes are concatenated on the device,
-    copied once, and cut apart on the host."""
+    ONE device-to-host copy: a statement's outputs are views of one packed
+    buffer (``core/execache.py``), which is copied whole; other tensors
+    are concatenated on the device first. The host cuts the bytes apart."""
     leaves: list[torch.Tensor] = []
 
     def collect(x):
@@ -108,14 +144,22 @@ def _host_tree(tree: dict) -> dict:
         return len(leaves) - 1
 
     skel = collect(tree)
-    if any(t.device.type != "cpu" for t in leaves):
+    if _packed(leaves):
+        st = leaves[0].untyped_storage()
+        buf = torch.empty(0, dtype=torch.uint8, device=leaves[0].device) \
+            .set_(st).cpu().numpy()
+        arrays = []
+        for t in leaves:
+            off = t.storage_offset() * t.element_size()
+            arrays.append(buf[off:off + t.numel() * t.element_size()]
+                          .view(_np_dtype(t.dtype)).reshape(tuple(t.shape)))
+    elif any(t.device.type != "cpu" for t in leaves):
         flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in leaves]
         buf = torch.cat(flat).cpu().numpy()
         arrays, off = [], 0
         for t in leaves:
             nbytes = t.numel() * t.element_size()
-            np_dt = torch.empty(0, dtype=t.dtype).numpy().dtype
-            arrays.append(buf[off:off + nbytes].view(np_dt)
+            arrays.append(buf[off:off + nbytes].view(_np_dtype(t.dtype))
                           .reshape(tuple(t.shape)))
             off += nbytes
     else:
@@ -284,53 +328,17 @@ class Result:
         return f"Result(lazy=[{lazy}])"
 
 
-class _Executors:
-    """Per-table executor dict: one Python closure per statement shape,
-    plus the host-side set of dispatch signatures already served
-    (EXPLAIN's ``preplanned``) and hit/miss counters."""
-
-    def __init__(self):
-        self._entries: dict[Any, Any] = {}
-        self.sigs: set = set()
-        self._lock = LK.make_lock("daemon.executors")
-        self.counters = TEL.Counters({"hits": 0, "misses": 0})
-
-    def get(self, key, builder):
-        fn = self._entries.get(key)
-        if fn is not None:
-            self.counters.add("hits")
-            TEL.note_exec("hit")
-            return fn
-        with self._lock:
-            fn = self._entries.get(key)
-            if fn is None:
-                fn = builder()
-                self._entries[key] = fn
-        self.counters.add("misses")
-        TEL.note_exec("miss")
-        return fn
-
-    def forget_sigs(self) -> None:
-        with self._lock:
-            self.sigs.clear()
-
-    def stats_dict(self) -> dict:
-        """The ``executors`` block of ``SHOW STATS t``."""
-        return {"entries": len(self._entries),
-                "hits": self.counters["hits"],
-                "misses": self.counters["misses"]}
-
-
 @dataclasses.dataclass
 class _Table:
     """One live table: its schema, its device state (a dict of tensors,
-    ``core/table.py`` layout) and its host-side bookkeeping."""
+    ``core/table.py`` layout, whose tensors keep their addresses), its
+    executor cache and its host-side bookkeeping."""
 
     schema: TableSchema
     state: dict
     host_ops: int = 0
     lock: Any = dataclasses.field(default_factory=threading.Lock)
-    execs: _Executors = dataclasses.field(default_factory=_Executors)
+    execs: ExecutorCache = dataclasses.field(default_factory=ExecutorCache)
     stmt_routed: Any = None
     writes_routed: Any = None
     rows_in: Any = None
@@ -379,13 +387,13 @@ _UNSUPPORTED = {
     S.AlterRetain: "ALTER TABLE ... RETAIN SLOTS",
     S.Checkpoint: "CHECKPOINT",
     S.Restore: "RESTORE",
-    S.Warmup: "WARMUP",
 }
 
 
 class SQLCached:
     def __init__(self, auto_expire: bool = True,
-                 slow_ms: float | None = None, *, device=None):
+                 slow_ms: float | None = None, *, warmup: bool | None = None,
+                 device=None):
         self.device = resolve_device(device)
         self.tables: dict[str, _Table] = {}
         self.interner = Interner()
@@ -393,8 +401,16 @@ class SQLCached:
         # histograms, slow-statement ring
         self.telemetry = TEL.Telemetry(slow_ms=slow_ms)
         self.auto_expire = auto_expire
+        # warmup=None defers to REPRO_WARMUP (default on): CREATE TABLE
+        # pre-plans the canonical hot shapes in a background thread; the
+        # WARMUP statement works regardless
+        if warmup is None:
+            warmup = os.environ.get("REPRO_WARMUP", "1") != "0"
+        self.warmup = warmup
+        self._warm_threads: dict[str, threading.Thread] = {}
         self._stmts: dict[str, S.Statement] = {}
         self._shapes: dict[str, StatementShape] = {}
+        self._interned: dict[int, tuple] = {}
 
     # ------------------------------------------------------------- plumbing
     def _parse(self, sql: str) -> S.Statement:
@@ -411,9 +427,16 @@ class SQLCached:
         return t
 
     def _intern_ast(self, node):
-        return P.map_consts(
+        """``node`` with its TEXT constants interned, memoized per parsed
+        node (ids never change once given)."""
+        hit = self._interned.get(id(node))
+        if hit is not None and hit[0] is node:
+            return hit[1]
+        out = P.map_consts(
             node, lambda v: self.interner.intern(v) if isinstance(v, str) else v
         )
+        self._interned[id(node)] = (node, out)
+        return out
 
     def _prep_params(self, params: Sequence[Any]) -> tuple:
         out = []
@@ -424,19 +447,47 @@ class SQLCached:
         return tuple(out)
 
     def _param_cols(self, params_list, n: int, b: int, n_params: int):
-        """Host [b]-columns of the bound values (rows past n repeat the
-        last statement's, as padding) and their device tensors."""
+        """Host [b]-columns of the bound values with the executors' 32-bit
+        widths (rows past n repeat the last statement's, as padding). The
+        executor cache stages them; executors see device tensors."""
         pm = [self._prep_params(params_list[min(i, n - 1)])
               for i in range(b)]
-        host = tuple(np.asarray([pm[i][j] for i in range(b)])
+        return tuple(T.host_column([pm[i][j] for i in range(b)])
                      for j in range(n_params))
-        return pm, host, tuple(T.param_column(c, self.device) for c in host)
 
-    def _executor(self, t: _Table, key: tuple, builder):
-        return t.execs.get(key, builder)
+    @staticmethod
+    def _host_params(params: tuple) -> tuple:
+        """One statement's bound values as 0-d host arrays (staged by the
+        executor cache, never turned into tensors inside an executor)."""
+        return tuple(T.host_column(p) for p in params)
+
+    def _executor(self, t: _Table, key: tuple, builder, expiry: bool = True):
+        """The table's :class:`ExecEntry` for ``key`` under the current
+        schema epoch (core/execache.py). An entry built through
+        :meth:`_with_expiry` plans both expiry variants when the flag can
+        fire."""
+        fires = (expiry and self.auto_expire
+                 and t.schema.expiry.ops_interval > 0)
+        return t.execs.get(key, builder, (False, True) if fires else (False,))
+
+    def _sig(self, t: _Table, stmt, kind: str, b) -> tuple:
+        """The dispatch signature recorded in ``t.execs.sigs`` once a shape
+        is planned: (kind, parsed stmt, bucket, mode, placement), the
+        reference's shape; the port's tables are monolithic on one device.
+        ``b`` is None on the singleton executors, the power-of-two bucket
+        on the executemany family (INSERT always buckets)."""
+        return (kind, stmt, b, "mono", ("dev", str(self.device)))
 
     def _note_sig(self, t: _Table, stmt, kind: str, b) -> None:
-        t.execs.sigs.add((kind, stmt, b))
+        t.execs.note_sig(self._sig(t, stmt, kind, b))
+
+    def _finish_warm(self, t: _Table, entry, stmt, kind: str, b,
+                     args: tuple) -> int:
+        """Shared tail of every site's warm branch: plan the entry for
+        these placeholder values and record the signature."""
+        new = entry.warm(t.state, args)
+        self._note_sig(t, stmt, kind, b)
+        return int(new)
 
     def _with_expiry(self, schema: TableSchema, base):
         """Wrap ``base(state, *args) -> (state, *outs)`` with the §4.3
@@ -466,12 +517,11 @@ class SQLCached:
                         and before // iv != t.host_ops // iv)
 
     def _run_state(self, t: _Table, fn, flag: bool, args: tuple):
-        """Run an executor against the table's state and install the new
-        state. Returns the executor's other outputs."""
+        """Run an executor entry against the table's state, which it updates
+        in place; ``args`` is a host tree of numpy arrays (the bound
+        values). Returns the executor's other outputs, as fresh tensors."""
         TEL.note_mode("mono")
-        out = fn(t.state, flag, *args)
-        t.state = out[0]
-        return out[1:]
+        return fn(t.state, flag, args)
 
     def _note_route(self, t: _Table, n: int, is_write: bool,
                     rows_in: int | None = None) -> None:
@@ -515,7 +565,9 @@ class SQLCached:
         if isinstance(stmt, S.CreateTable):
             return self._do_create(stmt)
         if isinstance(stmt, S.DropTable):
-            self.tables.pop(stmt.table, None)
+            t = self.tables.pop(stmt.table, None)
+            if t is not None:
+                t.execs.close()
             return Result()
         if isinstance(stmt, S.Insert):
             return self._do_insert_batch(stmt, [tuple(params)],
@@ -542,6 +594,8 @@ class SQLCached:
             return self._do_explain(stmt.inner)
         if isinstance(stmt, S.ExplainAnalyze):
             return self._do_explain_analyze(stmt, params)
+        if isinstance(stmt, S.Warmup):
+            return self._do_warmup(stmt)
         name = _UNSUPPORTED.get(type(stmt))
         if name is not None:
             raise S.SQLError(f"{name} is not supported by this port yet "
@@ -646,37 +700,64 @@ class SQLCached:
             indexes=stmt.indexes,
             replicas=stmt.replicas,
         )
+        old = self.tables.get(stmt.table)
         self.tables[stmt.table] = self._make_table(schema)
+        if old is not None:
+            old.execs.close()
+        if self.warmup:
+            # pre-plan the canonical hot shapes off the dispatch thread
+            th = threading.Thread(target=self._warm_table_bg,
+                                  args=(stmt.table,),
+                                  name=f"warmup-{stmt.table}", daemon=True)
+            self._warm_threads[stmt.table] = th
+            th.start()
         return Result()
 
     def _make_table(self, schema: TableSchema) -> _Table:
-        return _Table(schema, T.init_state(schema, self.device),
+        dev = self.device
+        return _Table(schema, T.init_state(schema, dev),
                       lock=LK.make_lock(f"table:{schema.name}"),
+                      execs=ExecutorCache(
+                          dev, lambda: T.init_state(schema, dev)),
                       stmt_routed=np.zeros(1, np.int64),
                       writes_routed=np.zeros(1, np.int64),
                       rows_in=np.zeros(1, np.int64))
 
+    def _run_admin(self, t: _Table, key: tuple, body):
+        """An admin statement (FLUSH / EXPIRE / REINDEX) as an executor
+        entry like any other: ``body(state) -> (state, *outs)``."""
+        fn = self._executor(t, key + (t.schema,),
+                            lambda: lambda st, flag: body(st),
+                            expiry=False)
+        return self._run_state(t, fn, False, ())
+
     def _do_reindex(self, name: str) -> Result:
         """REINDEX t: rebuild every hash index from the live rows (the
         recovery path after a bucket overflow). ``value`` is the residual
-        overflow (0 = probes are back)."""
+        overflow (0 = probes are back). Rebuilt indexes change probe
+        behaviour for every cached plan, so the schema epoch is bumped
+        first, as in the reference."""
         t = self._table(name)
         if not t.schema.indexes:
             return Result(count=0, value=0)
-        t.execs.forget_sigs()
-        t.state = T.build_index(t.schema, t.state)
+        t.execs.bump()
+        self._run_admin(t, ("reindex",),
+                        lambda st: (T.build_index(t.schema, st),))
         residual = sum(int(t.state["indexes"][c]["stale"])
                        for c in t.schema.indexes)
         return Result(count=len(t.schema.indexes), value=residual)
 
     def _do_flush(self, name: str) -> Result:
+        """FLUSH keeps the schema epoch: it changes contents, not shapes,
+        so every pre-planned executor stays valid."""
         t = self._table(name)
-        t.state, n = T.flush(t.schema, t.state)
+        n, = self._run_admin(t, ("flush",), lambda st: T.flush(t.schema, st))
         return Result(dev={"count": n})
 
     def _do_expire(self, name: str) -> Result:
         t = self._table(name)
-        t.state, n = T.expire(t.schema, t.state)
+        n, = self._run_admin(t, ("expire",),
+                             lambda st: T.expire(t.schema, st))
         return Result(dev={"count": n})
 
     def _do_show_stats(self, name: str | None) -> Result:
@@ -707,13 +788,18 @@ class SQLCached:
 
     def _do_show_stats_all(self) -> Result:
         tables = {}
-        exec_totals = {"entries": 0, "hits": 0, "misses": 0}
+        exec_totals: dict[str, Any] = {"cached": 0, "entries": 0, "hits": 0,
+                                       "misses": 0, "compiles": 0,
+                                       "fallbacks": 0,
+                                       "compile_ms_total": 0.0}
         for name, t in sorted(self.tables.items()):
             ed = t.execs.stats_dict()
             for k in exec_totals:
                 exec_totals[k] += ed[k]
             tables[name] = {"shards": 1, "live_rows": self.live_rows(name),
                             "host_ops": t.host_ops}
+        exec_totals["compile_ms_total"] = round(
+            exec_totals["compile_ms_total"], 3)
         info = {"tables": tables,
                 "executors": exec_totals,
                 "device": str(self.device),
@@ -774,12 +860,106 @@ class SQLCached:
             info["wave"] = tr.wave
         return Result(count=count, value=json.dumps(info, sort_keys=True))
 
+    # -------------------------------------------------- executor warm-up
+    def _warm_statement(self, t: _Table, stmt) -> int:
+        """Pre-plan one statement's executor (monolithic tables have one
+        placement). Returns the number of newly planned executables."""
+        if isinstance(stmt, S.Insert):
+            return self._do_insert_batch(stmt, [], None, _warm=True)
+        if isinstance(stmt, S.Select):
+            return self._do_select(stmt, (), _warm=True)
+        if isinstance(stmt, S.Update):
+            return self._do_update(stmt, (), _warm=True)
+        if isinstance(stmt, S.Delete):
+            return self._do_delete(stmt, (), _warm=True)
+        raise S.SQLError("WARMUP supports SELECT/INSERT/UPDATE/DELETE shapes")
+
+    def _canonical_warm_sqls(self, schema: TableSchema) -> list[str]:
+        """The canonical hot shapes CREATE-time warm-up pre-plans: the
+        full-row INSERT plus an eq-SELECT and eq-DELETE on the partition /
+        index columns (the first column when there are none): the paper's
+        GET / SET / DELETE triple."""
+        cols = schema.column_names
+        out = [f"INSERT INTO {schema.name} ({', '.join(cols)}) "
+               f"VALUES ({', '.join('?' for _ in cols)})"]
+        keys = [c for c in (schema.partition_by, *schema.indexes)
+                if c is not None]
+        if not keys and cols:
+            keys = [cols[0]]
+        for c in dict.fromkeys(keys):
+            out.append(f"SELECT * FROM {schema.name} WHERE {c} = ?")
+            out.append(f"DELETE FROM {schema.name} WHERE {c} = ?")
+        return out
+
+    def _do_warmup(self, stmt: S.Warmup) -> Result:
+        """WARMUP t [LIKE '<stmt>']: synchronously pre-plan executors, the
+        given statement's shape or the canonical hot set. ``count`` is the
+        number of newly planned executables (0 = all were planned),
+        ``value`` the schema epoch."""
+        t = self._table(stmt.table)
+        sqls = ([stmt.like] if stmt.like is not None
+                else self._canonical_warm_sqls(t.schema))
+        new = 0
+        for sql in sqls:
+            self.shape_key(sql)  # prime the scheduler's admission cache
+            new += self._warm_statement(t, self._parse(sql))
+        return Result(count=new, value=t.execs.epoch)
+
+    def _warm_table_bg(self, name: str) -> None:
+        """CREATE-time background warm-up of the canonical hot shapes, off
+        the dispatch thread. Best effort: a statement that raced a DROP
+        just stops; warm-up never takes serving down."""
+        t = self.tables.get(name)
+        if t is None:
+            return
+        for sql in self._canonical_warm_sqls(t.schema):
+            if self.tables.get(name) is not t:
+                return  # dropped or recreated under us
+            try:
+                self.shape_key(sql)
+                self._warm_statement(t, self._parse(sql))
+            except Exception:  # noqa: BLE001 — warm-up is best effort
+                return
+
+    def drain_warmup(self, table: str | None = None) -> None:
+        """Join the CREATE-time background warm-up thread(s): callers start
+        timing from a planned state."""
+        for nm, th in list(self._warm_threads.items()):
+            if table is None or nm == table:
+                th.join()
+
+    def group_warm(self, shape: StatementShape | None,
+                   params_list: Sequence[Sequence[Any]]) -> bool:
+        """Scheduler admission hook: will this group's dispatch replay an
+        already-planned executable? A host-side signature lookup (never a
+        device sync, never an op-count tick). Unknown shapes report warm:
+        admin statements and unroutable groups must never serialize a
+        wave."""
+        if shape is None or shape.table is None or len(shape.key) != 2:
+            return True
+        if shape.kind not in ("select", "insert", "delete", "update"):
+            return True
+        t = self.tables.get(shape.table)
+        if t is None:
+            return True
+        kind, stmt = shape.key
+        n = len(params_list)
+        try:
+            if kind == "insert":
+                b = min(_bucket(max(n, 1)), t.schema.capacity)
+            else:
+                b = _bucket(n) if n > 1 else None
+            return t.execs.has_sig(self._sig(t, stmt, kind, b))
+        except Exception:  # noqa: BLE001 — admission is best effort
+            return True
+
     def _preplanned(self, t: _Table, stmt) -> bool:
-        """EXPLAIN's ``preplanned`` bit: this statement shape has already
-        been served (host signature set only, no device sync)."""
+        """EXPLAIN's ``preplanned`` bit: the statement's single-statement
+        dispatch already has a planned executable (host signature set
+        only, no device sync)."""
         kind = type(stmt).__name__.lower()
         b = 1 if kind == "insert" else None
-        return (kind, stmt, b) in t.execs.sigs
+        return t.execs.has_sig(self._sig(t, stmt, kind, b))
 
     def _do_explain(self, stmt: S.Statement) -> Result:
         """EXPLAIN <stmt>: report (don't run) the inner statement's plan
@@ -837,41 +1017,45 @@ class SQLCached:
     def _do_insert_batch(self, stmt: S.Insert,
                          params_list: Sequence[Sequence[Any]],
                          payloads_list=None, *,
-                         per_statement: bool = False
-                         ) -> "Result | list[Result]":
+                         per_statement: bool = False, _warm: bool = False
+                         ) -> "Result | list[Result] | int":
         """The INSERT arm of :meth:`executemany` (single INSERTs come here
-        as a batch of one)."""
+        as a batch of one). ``_warm=True`` pre-plans the b=1 executor from
+        placeholder values instead of running (no clock tick, no op
+        count; returns the number of new plans)."""
         t = self._table(stmt.table)
         schema = t.schema
         cols = stmt.columns or schema.column_names[: len(stmt.values)]
         if len(cols) != len(stmt.values):
             raise S.SQLError("INSERT column/value count mismatch")
-        n = len(params_list)
-        if n == 0:
-            return [] if per_statement else Result(count=0)
+        n_params = max((P.collect_params(v) for v in stmt.values), default=0)
+        if stmt.ttl is not None:
+            n_params = max(n_params, P.collect_params(stmt.ttl))
+        if _warm:
+            n = 1
+            params_list = [(0,) * n_params]
+        else:
+            n = len(params_list)
+            if n == 0:
+                return [] if per_statement else Result(count=0)
         if n > schema.capacity:
             raise S.SQLError(f"INSERT of {n} rows exceeds CAPACITY "
                              f"{schema.capacity}")
         # the padded batch takes one slot a row, so it never outgrows the
         # table (padding rows are masked off)
         b = min(_bucket(n), schema.capacity)
-        n_params = max((P.collect_params(v) for v in stmt.values), default=0)
-        if stmt.ttl is not None:
-            n_params = max(n_params, P.collect_params(stmt.ttl))
-        _, _, param_cols = self._param_cols(params_list, n, b, n_params)
-        row_mask = torch.arange(b, device=self.device) < n
+        param_cols = self._param_cols(params_list, n, b, n_params)
+        row_mask = np.arange(b) < n
 
         pl_args = {}
         for p in schema.payloads:
             if payloads_list and p.name in (payloads_list[0] or {}):
                 arrs = [np.asarray(pl[p.name]) for pl in payloads_list]
                 # stack rows (padding repeats the last one)
-                pl_args[p.name] = T.to_device(
-                    np.stack(arrs + [arrs[-1]] * (b - n)), self.device)
+                pl_args[p.name] = np.stack(arrs + [arrs[-1]] * (b - n))
 
         values_ast = tuple(self._intern_ast(v) for v in stmt.values)
         ttl_ast = self._intern_ast(stmt.ttl) if stmt.ttl is not None else None
-        flag = self._expire_flag(t, n)
         key = ("insert", schema, values_ast, ttl_ast, tuple(cols), b,
                tuple(sorted(pl_args)))
         dev = self.device
@@ -892,8 +1076,11 @@ class SQLCached:
             return self._with_expiry(schema, base)
 
         fn = self._executor(t, key, build)
-        slots, evicted = self._run_state(t, fn, flag,
-                                         (param_cols, pl_args, row_mask))
+        args = (param_cols, pl_args, row_mask)
+        if _warm:
+            return self._finish_warm(t, fn, stmt, "insert", b, args)
+        flag = self._expire_flag(t, n)
+        slots, evicted = self._run_state(t, fn, flag, args)
         self._note_sig(t, stmt, "insert", b)
         self._note_route(t, n, True, rows_in=n)
         if per_statement:
@@ -927,9 +1114,8 @@ class SQLCached:
             sets = tuple((c, self._intern_ast(e)) for c, e in stmt.sets)
             for _, e in sets:
                 n_params = max(n_params, P.collect_params(e))
-        _, host_cols, param_cols = self._param_cols(params_list, n, b,
-                                                    n_params)
-        active = torch.arange(b, device=self.device) < n
+        host_cols = self._param_cols(params_list, n, b, n_params)
+        active = np.arange(b) < n
         fused = T._fused_plan(schema, where) if is_delete else None
         eq_term = (fused.terms[0]
                    if fused is not None and len(fused.terms) == 1
@@ -962,7 +1148,7 @@ class SQLCached:
             if eq_term is not None:
                 kind, v = eq_term.value
 
-                def base(state, param_cols, active, n_real):
+                def base(state, param_cols, active):
                     vals = (param_cols[v].to(torch.int32) if kind == "param"
                             else torch.full((b,), v, dtype=torch.int32,
                                             device=dev))
@@ -972,7 +1158,7 @@ class SQLCached:
 
                 return self._with_expiry(schema, base)
 
-            def base(state, param_cols, active, n_real):
+            def base(state, param_cols, active):
                 if is_delete:
                     m = (T._match_mask(schema, state, where, param_cols, b)
                          & active[:, None])
@@ -989,12 +1175,19 @@ class SQLCached:
                     return state, n_hit, ns
 
                 def run(route):
+                    # every lane of the bucket runs; a padding lane matches
+                    # no row, and the clock then takes back its tick, so
+                    # one executor serves any count in the bucket
                     st, parts = state, []
-                    for i in range(n_real):
+                    for i in range(b):
                         pr = tuple(c[i] for c in param_cols)
                         st, k = T.update(schema, st, where, dict(sets), pr,
-                                         plan=route, maintain_indexes=False)
+                                         extra_mask=active[i], plan=route,
+                                         maintain_indexes=False)
                         parts.append(k)
+                    pad = b - active.sum(dtype=torch.int32)
+                    st = dict(st, clock=st["clock"] - pad,
+                              ops=st["ops"] - pad)
                     return st, torch.stack(parts)
 
                 if isinstance(update_plan, PL.IndexProbe):
@@ -1014,7 +1207,7 @@ class SQLCached:
 
         fn = self._executor(t, key, build)
         kind = "delete" if is_delete else "update"
-        outs = self._run_state(t, fn, flag, (param_cols, active, n))
+        outs = self._run_state(t, fn, flag, (host_cols, active))
         self._note_sig(t, stmt, kind, b)
         self._note_route(t, n, True)
         if per_statement:
@@ -1045,10 +1238,12 @@ class SQLCached:
         columns = stmt.columns or schema.column_names
         limit = stmt.limit if stmt.limit is not None else schema.max_select
         n_params = P.collect_params(where)
-        _, _, param_cols = self._param_cols(params_list, n, b, n_params)
-        active = torch.arange(b, device=self.device) < n
+        param_cols = self._param_cols(params_list, n, b, n_params)
+        active = np.arange(b) < n
         key = ("select_batch", schema, where, tuple(columns), stmt.payloads,
-               stmt.order_by, stmt.descending, limit, b)
+               stmt.order_by, stmt.descending, limit, b,
+               self._probes(schema, where, param_cols,
+                            stmt.order_by is not None))
 
         def build():
             def base(state, param_cols, active):
@@ -1077,6 +1272,15 @@ class SQLCached:
             ctx["payload_stack"] = dict(res["payloads"])
         return [Result(ctx=dict(ctx, index=i)) for i in range(n)]
 
+    @staticmethod
+    def _probes(schema: TableSchema, where, host_cols,
+                ranked: bool = False) -> bool:
+        """Does a batch take the IndexProbe route (part of its executor's
+        key, as in the reference): every probe term bound to an integer."""
+        plan = T.plan_for(schema, where, ranked)
+        return (isinstance(plan, PL.IndexProbe)
+                and _np_terms_int((plan.key,) + plan.residual, host_cols))
+
     def _do_batch_agg(self, stmt: S.Select,
                       params_list: Sequence[Sequence[Any]]) -> list[Result]:
         """W same-shape aggregate SELECTs in ONE dispatch; the clock
@@ -1091,9 +1295,10 @@ class SQLCached:
         agg, col = stmt.agg
         where = self._intern_ast(stmt.where)
         n_params = P.collect_params(where)
-        _, _, param_cols = self._param_cols(params_list, n, b, n_params)
-        active = torch.arange(b, device=self.device) < n
-        key = ("agg_batch", schema, agg, col, where, b)
+        param_cols = self._param_cols(params_list, n, b, n_params)
+        active = np.arange(b) < n
+        key = ("agg_batch", schema, agg, col, where, b,
+               self._probes(schema, where, param_cols))
 
         def build():
             def base(state, param_cols, active):
@@ -1110,11 +1315,17 @@ class SQLCached:
         stack = _HostStack({"value": vals})
         return [Result(ctx={"stack": stack, "index": i}) for i in range(n)]
 
-    def _do_select(self, stmt: S.Select, params: tuple) -> Result:
+    def _do_select(self, stmt: S.Select, params: tuple,
+                   _warm: bool = False) -> "Result | int":
+        """One SELECT. ``_warm=True`` pre-plans its executor from
+        placeholder values (one int 0 per ``?``: the plan is keyed by the
+        values' types, not the values) instead of running."""
         t = self._table(stmt.table)
         schema = t.schema
         where = self._intern_ast(stmt.where)
-        flag = self._expire_flag(t, 1)
+        if _warm:
+            params = (0,) * P.collect_params(where)
+        args = (self._host_params(params),)
         if stmt.agg is not None:
             agg, col = stmt.agg
             key = ("agg", schema, agg, col, where)
@@ -1124,7 +1335,9 @@ class SQLCached:
                     schema,
                     lambda st, pr: T.aggregate(schema, st, agg, col, where,
                                                pr)))
-            val, = self._run_state(t, fn, flag, (params,))
+            if _warm:
+                return self._finish_warm(t, fn, stmt, "select", None, args)
+            val, = self._run_state(t, fn, self._expire_flag(t, 1), args)
             self._note_sig(t, stmt, "select", None)
             self._note_route(t, 1, False)
             return Result(dev={"value": val})
@@ -1143,7 +1356,9 @@ class SQLCached:
             return self._with_expiry(schema, base)
 
         fn = self._executor(t, key, build)
-        res, = self._run_state(t, fn, flag, (params,))
+        if _warm:
+            return self._finish_warm(t, fn, stmt, "select", None, args)
+        res, = self._run_state(t, fn, self._expire_flag(t, 1), args)
         self._note_sig(t, stmt, "select", None)
         self._note_route(t, 1, False)
         return Result(
@@ -1155,27 +1370,38 @@ class SQLCached:
                  "interner": self.interner},
         )
 
-    def _do_update(self, stmt: S.Update, params: tuple) -> Result:
+    def _do_update(self, stmt: S.Update, params: tuple,
+                   _warm: bool = False) -> "Result | int":
         t = self._table(stmt.table)
         schema = t.schema
         where = self._intern_ast(stmt.where)
         sets = tuple((c, self._intern_ast(e)) for c, e in stmt.sets)
-        flag = self._expire_flag(t, 1)
+        if _warm:
+            n_params = P.collect_params(where)
+            for _, e in sets:
+                n_params = max(n_params, P.collect_params(e))
+            params = (0,) * n_params
+        args = (self._host_params(params),)
         key = ("update", schema, where, sets)
         fn = self._executor(
             t, key, lambda: self._with_expiry(
                 schema,
                 lambda st, pr: T.update(schema, st, where, dict(sets), pr)))
-        n, = self._run_state(t, fn, flag, (params,))
+        if _warm:
+            return self._finish_warm(t, fn, stmt, "update", None, args)
+        n, = self._run_state(t, fn, self._expire_flag(t, 1), args)
         self._note_sig(t, stmt, "update", None)
         self._note_route(t, 1, True)
         return Result(dev={"count": n})
 
-    def _do_delete(self, stmt: S.Delete, params: tuple) -> Result:
+    def _do_delete(self, stmt: S.Delete, params: tuple,
+                   _warm: bool = False) -> "Result | int":
         t = self._table(stmt.table)
         schema = t.schema
         where = self._intern_ast(stmt.where)
-        flag = self._expire_flag(t, 1)
+        if _warm:
+            params = (0,) * P.collect_params(where)
+        args = (self._host_params(params),)
         # fusable deletes on payload-bearing tables also report WHICH rows
         # went (row ids feed incremental index maintenance); scalar tables
         # keep the mask-only path
@@ -1192,7 +1418,9 @@ class SQLCached:
             return self._with_expiry(schema, base)
 
         fn = self._executor(t, key, build)
-        outs = self._run_state(t, fn, flag, (params,))
+        if _warm:
+            return self._finish_warm(t, fn, stmt, "delete", None, args)
+        outs = self._run_state(t, fn, self._expire_flag(t, 1), args)
         self._note_sig(t, stmt, "delete", None)
         self._note_route(t, 1, True)
         if returning:
@@ -1204,18 +1432,22 @@ class SQLCached:
 
     # ----------------------------------------------------- serving-plane API
     def table_state(self, name: str) -> dict:
-        """The table's device state (a dict of tensors; executors never
-        write into it, so it stays a consistent snapshot)."""
+        """The table's device state: a dict of the table's own tensors,
+        which every later statement updates in place (their addresses stay
+        until the table is dropped). A caller reads it on the daemon's
+        stream right after the statement it follows (the serving engine's
+        page-table upkeep); a snapshot is a copy."""
         return self._table(name).state
 
     def swap_table_state(self, name: str, state: dict) -> None:
         """Install a state (``convert.state_from_numpy`` turns the
-        reference's pytree into one). Its tensors must lie on this
-        daemon's device and match the table's layout."""
+        reference's pytree into one) by copying it into the table's own
+        tensors. Its tensors must lie on this daemon's device and match
+        the table's layout."""
         t = self._table(name)
         want = T.init_state(t.schema, "meta")
         _check_layout(want, state, self.device, name)
-        t.state = state
+        _copy_into(t.state, state)
 
     def schema(self, name: str) -> TableSchema:
         return self._table(name).schema
@@ -1227,8 +1459,15 @@ class SQLCached:
         """Advance the logical clock (tests / wall-time sync)."""
         names = [table] if table else list(self.tables)
         for nm in names:
-            t = self._table(nm)
-            t.state = dict(t.state, clock=t.state["clock"] + ticks)
+            self._table(nm).state["clock"].add_(ticks)
+
+
+def _copy_into(dst: dict, src: dict) -> None:
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _copy_into(v, src[k])
+        else:
+            v.copy_(src[k])
 
 
 def _check_layout(want, got, device, name: str, path: str = "") -> None:

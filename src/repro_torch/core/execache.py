@@ -1,0 +1,584 @@
+"""Executor cache: pre-planned statement serving (port of
+``repro.core.execache``).
+
+The reference compiles each statement shape ahead of time into one XLA
+executable and replays it. On the card the counterpart of a compiled
+executable is a captured CUDA graph: an :class:`ExecEntry` holds, per
+*type class* of its bound values (the reference's avals: a float bound to
+an int column takes another route), one :class:`_Plan` whose graph runs the
+whole statement (its kernels, the copy of the new state into the table's
+own tensors, and the packing of its outputs) in one ``cudaGraphLaunch``.
+A warm dispatch is then
+
+1. one host-to-device copy of the dispatch's bound values, packed into one
+   pinned staging slot (``_Staging``), into the plan's static input buffer;
+2. one graph replay;
+3. one device-to-device copy of the packed outputs, which the lazy
+   ``Result`` reads (a graph's outputs are static: the next replay
+   overwrites them).
+
+What this asks of the rest of the port:
+
+* **State keeps its addresses.** Between two epoch bumps every tensor of a
+  table's state stays where it is: the executors stay functional (they
+  return new tensors and never write into the state they are given), and
+  the plan copies each new leaf into the table's tensor, inside the graph.
+* **Bound values enter from outside the graph.** Executors receive device
+  views of the static input buffer, never host values (a value turned into
+  a tensor inside the body would be baked into the graph).
+* **Capture never syncs.** It runs on a side stream fenced against the
+  serving stream with events both ways, through ``CUDAGraph.capture_begin``
+  / ``capture_end`` (the ``torch.cuda.graph`` context manager synchronizes
+  and empties the cache on entry). Before capturing, the closure runs once
+  on a zeroed shadow state of the table's layout (the reference's
+  ``_prime``): that loads the kernels, which build at first use, and sizes
+  their scratch. A kernel scratch that a graph captured lives as long as
+  the graph (``kernels._build.recording``).
+* **One device at a time.** Replays, primes and captures of one device
+  serialize on one lock: the graphs read the side stream's kernel scratch,
+  so no prime may run beside a replay.
+
+The §4.3 op-count expiry flag is the one host branch that depends on data:
+when the table has an op interval, a plan captures both variants and
+counts as one executable (a runtime argument in the reference).
+
+On the CPU a plan is the eager closure, staged, run and packed the same
+way, with identical counting. Nothing falls back: a graph that fails to
+capture or replay raises, and no path runs the eager closure on the card
+(``fallbacks`` exists for the reference's stats and stays 0).
+
+A cache-wide schema epoch retires every plan at once (REINDEX); FLUSH
+keeps it. Retired graphs, their pools and buffers are released once the
+device has passed the point where they were retired.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import telemetry as TEL
+from repro_torch.kernels import _build
+from repro_torch.lint import lockorder as LK
+
+__all__ = ["ExecEntry", "ExecutorCache"]
+
+_ALIGN = 16
+
+# per device: the lock every replay, prime and capture takes, the side
+# stream captures run on, the pinned staging ring, retired objects
+_DEVICE_LOCKS: dict[str, Any] = {}
+_SIDE: dict[int, Any] = {}
+_STAGING: dict[int, "_Staging"] = {}
+_GRAVE: list = []
+
+
+def _device_lock(device: torch.device):
+    key = str(device)
+    lk = _DEVICE_LOCKS.get(key)
+    if lk is None:
+        lk = _DEVICE_LOCKS.setdefault(key, LK.make_lock("execache.device"))
+    return lk
+
+
+def _side_stream(device: torch.device):
+    s = _SIDE.get(device.index)
+    if s is None:
+        s = _SIDE[device.index] = torch.cuda.Stream(device)
+    return s
+
+
+def _retire(device: torch.device, objs) -> None:
+    """Drop ``objs`` (plans, shadow states) once the device has run what
+    was enqueued so far (caller holds the device lock)."""
+    if device.type != "cuda":
+        return
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    _GRAVE.append((ev, objs))
+
+
+def _sweep() -> None:
+    _GRAVE[:] = [(ev, o) for ev, o in _GRAVE if not ev.query()]
+
+
+# --------------------------------------------------------------- layouts
+
+_TORCH_DTYPE: dict = {}
+
+
+def _torch_dtype(dt: np.dtype) -> torch.dtype:
+    td = _TORCH_DTYPE.get(dt)
+    if td is None:
+        td = _TORCH_DTYPE[dt] = torch.from_numpy(np.empty(0, dt)).dtype
+    return td
+
+
+def _spec(tree):
+    """Hashable structure and leaf type classes (dtype, shape) of a host
+    argument tree of tuples, dicts and numpy arrays."""
+    if isinstance(tree, (tuple, list)):
+        return ("t", tuple(_spec(x) for x in tree))
+    if isinstance(tree, dict):
+        return ("d", tuple((k, _spec(v)) for k, v in tree.items()))
+    if isinstance(tree, np.ndarray):
+        return (tree.dtype.str, tree.shape)
+    raise TypeError(f"executor argument {type(tree).__name__} is not a "
+                    f"numpy array")
+
+
+def _host_leaves(tree, out: list) -> list:
+    if isinstance(tree, (tuple, list)):
+        for x in tree:
+            _host_leaves(x, out)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _host_leaves(v, out)
+    else:
+        out.append(tree)
+    return out
+
+
+def _rebuild(tree, it):
+    """``tree`` with each array leaf replaced by the next item of ``it``."""
+    if isinstance(tree, (tuple, list)):
+        return tuple(_rebuild(x, it) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, it) for k, v in tree.items()}
+    return next(it)
+
+
+def _layout(items) -> tuple[list, int]:
+    """(offset, nbytes, torch dtype, shape) of each (torch dtype, shape,
+    nbytes) item, every offset 16-byte aligned, and the total bytes."""
+    out, off = [], 0
+    for dt, shape, nb in items:
+        out.append((off, nb, dt, shape))
+        off += -(-nb // _ALIGN) * _ALIGN
+    return out, off
+
+
+def _views(buf: torch.Tensor, layout) -> list:
+    return [buf[off:off + nb].view(dt).reshape(shape)
+            for off, nb, dt, shape in layout]
+
+
+def _out_skeleton(tree, leaves: list):
+    """(skeleton, tensor leaves) of an executor's outputs."""
+    if isinstance(tree, (tuple, list)):
+        return ("t", tuple(_out_skeleton(x, leaves) for x in tree))
+    if isinstance(tree, dict):
+        return ("d", tuple((k, _out_skeleton(v, leaves))
+                           for k, v in tree.items()))
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return ("x", len(leaves) - 1)
+    return ("c", tree)
+
+
+def _fill(skel, arrs):
+    tag, body = skel
+    if tag == "t":
+        return tuple(_fill(x, arrs) for x in body)
+    if tag == "d":
+        return {k: _fill(v, arrs) for k, v in body}
+    if tag == "x":
+        return arrs[body]
+    return body
+
+
+def _pack(leaves: list, layout, total: int, device) -> torch.Tensor:
+    """The output tensors' bytes in one uint8 tensor (``layout``'s
+    offsets; the gaps hold garbage). One output is its own bytes."""
+    if len(leaves) == 1:
+        return leaves[0].contiguous().reshape(-1).view(torch.uint8)
+    parts, pos = [], 0
+    pad = torch.empty((_ALIGN,), dtype=torch.uint8, device=device)
+    for t, (off, nb, _, _) in zip(leaves, layout):
+        if off > pos:
+            parts.append(pad[:off - pos])
+        parts.append(t.contiguous().reshape(-1).view(torch.uint8))
+        pos = off + nb
+    if total > pos:
+        parts.append(pad[:total - pos])
+    return torch.cat(parts)
+
+
+def _write_back(state: dict, new: dict) -> None:
+    """Copy every leaf of ``new`` that is not the table's own tensor into
+    it: the table's tensors keep their addresses."""
+    pairs: list = []
+
+    def walk(dst, src, path):
+        if isinstance(dst, dict):
+            if not isinstance(src, dict) or set(src) != set(dst):
+                raise ValueError(f"executor changed the state's layout at "
+                                 f"{path or 'state'}")
+            for k in dst:
+                walk(dst[k], src[k], f"{path}/{k}")
+        elif src is not dst:
+            pairs.append((dst, src))
+
+    walk(state, new, "")
+    if not pairs:
+        return
+    own = {d.untyped_storage().data_ptr() for d, _ in pairs}
+    # a view of a leaf that another copy overwrites is copied first
+    srcs = [src.clone() if src.untyped_storage().data_ptr() in own else src
+            for _, src in pairs]
+    # one plain copy a leaf, a copy node each on the card: a multi-tensor
+    # copy kernel is slower on a column of 131,072 ints (PERF.md §6)
+    for (dst, _), src in zip(pairs, srcs):
+        dst.copy_(src)
+
+
+# --------------------------------------------------------------- staging
+
+class _Slot:
+    __slots__ = ("buf", "np", "event")
+
+    def __init__(self, nbytes: int):
+        self.buf = torch.empty((nbytes,), dtype=torch.uint8, pin_memory=True)
+        self.np = self.buf.numpy()
+        self.event = None
+
+
+class _Staging:
+    """Ring of pinned host slots for bound values. A slot is rewritten only
+    after the copy that read it has run (its event, tested with
+    ``query()``); when every slot is busy the ring grows."""
+
+    def __init__(self):
+        self.slots: list[_Slot] = []
+
+    def acquire(self, nbytes: int) -> _Slot:
+        for i, s in enumerate(self.slots):
+            if s.event is None or s.event.query():
+                if s.buf.numel() < nbytes:
+                    s = self.slots[i] = _Slot(max(nbytes, 2 * s.buf.numel()))
+                return s
+        s = _Slot(max(nbytes, 4096))
+        self.slots.append(s)
+        return s
+
+
+def _stage_np(dst: np.ndarray, layout, leaves) -> None:
+    for (off, nb, _, _), a in zip(layout, leaves):
+        if nb:
+            dst[off:off + nb].view(a.dtype)[...] = a.reshape(-1)
+
+
+# ----------------------------------------------------------------- plans
+
+class _Plan:
+    """One entry at one type class of its bound values: the static input
+    buffer and its views, and on the card one captured graph per expiry
+    flag with its static packed outputs."""
+
+    __slots__ = ("fn", "device", "in_layout", "in_total", "in_buf", "views",
+                 "graphs", "out_layout", "out_total", "out_skel",
+                 "kernel_launches", "keep")
+
+    def __init__(self, fn: Callable, device: torch.device, args):
+        self.fn = fn
+        self.device = device
+        leaves = _host_leaves(args, [])
+        self.in_layout, self.in_total = _layout(
+            (_torch_dtype(a.dtype), a.shape, a.nbytes) for a in leaves)
+        self.in_buf = (torch.empty((self.in_total,), dtype=torch.uint8,
+                                   device=device)
+                       if self.in_total else None)
+        self.views = _rebuild(args, iter(
+            _views(self.in_buf, self.in_layout) if self.in_total else ()))
+        self.graphs: dict[bool, Any] = {}
+        self.out_layout = None
+        self.out_total = 0
+        self.out_skel = None
+        self.kernel_launches: dict[bool, dict] = {}
+        self.keep: list = []
+
+    # ---------------------------------------------------------- staging
+    def stage(self, leaves) -> None:
+        """The dispatch's bound values into the static input buffer: on the
+        card one pinned slot and one non-blocking copy."""
+        if not self.in_total:
+            return
+        if self.device.type != "cuda":
+            _stage_np(self.in_buf.numpy(), self.in_layout, leaves)
+            return
+        ring = _STAGING.get(self.device.index)
+        if ring is None:
+            ring = _STAGING[self.device.index] = _Staging()
+        slot = ring.acquire(self.in_total)
+        _stage_np(slot.np, self.in_layout, leaves)
+        self.in_buf.copy_(slot.buf[:self.in_total], non_blocking=True)
+        if slot.event is None:
+            slot.event = torch.cuda.Event()
+        slot.event.record(torch.cuda.current_stream(self.device))
+
+    # ------------------------------------------------------------- body
+    def _body(self, state: dict, flag: bool) -> torch.Tensor | None:
+        """Run the closure against the table's tensors: outputs packed
+        first, then the new state copied into the table's tensors."""
+        out = self.fn(state, flag, *self.views)
+        leaves: list = []
+        skel = _out_skeleton(tuple(out[1:]), leaves)
+        if self.out_skel is None:
+            self.out_skel = skel
+            self.out_layout, self.out_total = _layout(
+                (t.dtype, tuple(t.shape), t.numel() * t.element_size())
+                for t in leaves)
+        packed = (_pack(leaves, self.out_layout, self.out_total, self.device)
+                  if self.out_total else None)
+        _write_back(state, out[0])
+        return packed
+
+    def _outputs(self, packed) -> tuple:
+        arrs = _views(packed, self.out_layout) if self.out_total else []
+        return _fill(self.out_skel, arrs)
+
+    # --------------------------------------------------------- planning
+    def prime(self, shadow: dict, flags) -> None:
+        """Run the closure on a zeroed shadow state of the table's layout
+        (never the table's): loads and builds the kernels, sizes their
+        scratch, and raises on a bad binding before anything is kept."""
+        for f in flags:
+            self.fn(shadow, f, *self.views)
+
+    def capture(self, state: dict, flags, pool) -> None:
+        """One graph per flag against the table's own tensors (nothing
+        runs: capturing only records), each with its static packed
+        outputs in the table's pool. Caller has primed on this stream."""
+        for f in flags:
+            g = torch.cuda.CUDAGraph()
+            with _build.recording() as rec:
+                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    packed = self._body(state, f)
+                except BaseException:
+                    try:
+                        g.capture_end()
+                    except Exception:  # noqa: BLE001 — the body's error wins
+                        pass
+                    raise
+                g.capture_end()
+            self.graphs[f] = (g, packed)
+            self.kernel_launches[f] = dict(rec["launches"])
+            self.keep.extend(rec["keep"])
+
+    # ----------------------------------------------------------- serving
+    def run(self, state: dict, flag: bool, leaves) -> tuple:
+        """Stage ``leaves`` (None: already staged) and run; on the card one
+        replay and one copy of the packed outputs."""
+        if leaves is not None:
+            self.stage(leaves)
+        if self.device.type != "cuda":
+            return self._outputs(self._body(state, flag))
+        g, packed = self.graphs[flag]
+        g.replay()
+        _build.add_launches(self.kernel_launches[flag])
+        return self._outputs(None if packed is None else packed.clone())
+
+
+class ExecEntry:
+    """One statement shape's executor: the closure ``fn(state, flag,
+    *args)`` and its plans, one per type class of its bound values. The
+    daemon calls an entry with the table's state, the expiry flag and a
+    host tree of numpy arrays; it returns the closure's outputs as fresh
+    tensors and has updated the state in place."""
+
+    __slots__ = ("_cache", "fn", "flags", "compiled")
+
+    def __init__(self, cache: "ExecutorCache", fn: Callable, flags):
+        self._cache = cache
+        self.fn = fn
+        self.flags = flags
+        self.compiled: dict[Any, _Plan] = {}
+
+    def __call__(self, state: dict, flag: bool, args) -> tuple:
+        """Hit: stage and replay the plan of these bound values' type
+        class. Miss: plan it (prime and capture on the card), then run."""
+        cache = self._cache
+        spec = _spec(args)
+        leaves = _host_leaves(args, [])
+        with _device_lock(cache.device):
+            plan = self.compiled.get(spec)
+            if plan is None:
+                cache.counters.add("misses")
+                plan, ms = self._plan(state, args, leaves)
+                TEL.note_exec("compile", ms)
+                self.compiled[spec] = plan
+                leaves = None   # _plan staged them
+            else:
+                cache.counters.add("hits")
+                TEL.note_exec("hit")
+            return plan.run(state, bool(flag), leaves)
+
+    def warm(self, state: dict, args) -> bool:
+        """Pre-plan this entry for ``args``' type class from placeholder
+        values (never touching the table's contents). True when a new
+        plan was made, False when one existed."""
+        spec = _spec(args)
+        with _device_lock(self._cache.device):
+            if spec in self.compiled:
+                return False
+            plan, _ = self._plan(state, args, _host_leaves(args, []),
+                                 warm=True)
+            self.compiled[spec] = plan
+            return True
+
+    def _plan(self, state: dict, args, leaves, warm: bool = False):
+        """Make one plan (caller holds the device lock): stage the values,
+        prime on the shadow state and, on the card, capture every flag
+        variant on the side stream."""
+        cache = self._cache
+        dev = cache.device
+        t0 = time.perf_counter()
+        plan = _Plan(self.fn, dev, args)
+        plan.stage(leaves)
+        if dev.type == "cuda":
+            _sweep()
+            serving = torch.cuda.current_stream(dev)
+            side = _side_stream(dev)
+            side.wait_stream(serving)
+            try:
+                with torch.cuda.stream(side):
+                    plan.prime(cache.shadow(), self.flags)
+                    plan.capture(state, self.flags, cache.pool())
+            finally:
+                serving.wait_stream(side)
+        elif warm:
+            plan.prime(cache.shadow(), self.flags)
+        ms = (time.perf_counter() - t0) * 1e3
+        cache.counters.add("compiles")
+        cache.counters.add("compile_ms_total", ms)
+        return plan, ms
+
+
+class ExecutorCache:
+    """Per-table executor registry: epoch-keyed entries and counters.
+
+    ``get(key, builder)`` memoizes one entry per ``(epoch, key)``; after
+    :meth:`bump` every old plan is unreachable by construction. ``device``
+    is the table's; ``shadow`` builds a zeroed state of the table's layout
+    on it (the prime's input)."""
+
+    def __init__(self, device="cpu", shadow: Callable[[], dict] | None = None):
+        self.device = torch.device(device)
+        self.epoch = 0
+        self._entries: dict[Any, ExecEntry] = {}
+        # dispatch signatures already pre-planned (kind, stmt, bucket,
+        # mode, placement); host only, read by scheduler admission and
+        # EXPLAIN, cleared by bump() with the entries they describe
+        self.sigs: set = set()
+        self._lock = LK.make_lock("execache.entries")
+        self.counters = TEL.Counters({"hits": 0, "misses": 0, "compiles": 0,
+                                      "fallbacks": 0, "compile_ms_total": 0.0})
+        self._shadow_fn = shadow
+        self._shadow = None
+        self._pool = None
+
+    @property
+    def hits(self) -> int:
+        return self.counters["hits"]
+
+    @property
+    def misses(self) -> int:
+        return self.counters["misses"]
+
+    @property
+    def compiles(self) -> int:
+        return self.counters["compiles"]
+
+    @property
+    def fallbacks(self) -> int:
+        return self.counters["fallbacks"]
+
+    @property
+    def compile_ms_total(self) -> float:
+        return self.counters["compile_ms_total"]
+
+    # ------------------------------------------- device-side resources
+    def shadow(self) -> dict:
+        """The zeroed shadow state (made on the current stream, which is
+        the side stream on the card; caller holds the device lock)."""
+        if self._shadow is None:
+            if self._shadow_fn is None:
+                raise RuntimeError("ExecutorCache has no shadow-state builder")
+            self._shadow = self._shadow_fn()
+        return self._shadow
+
+    def pool(self):
+        """The table's graph memory pool for this epoch."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    # ------------------------------------------------------------- entries
+    def get(self, key: Any, builder: Callable[[], Callable],
+            flags: tuple = (False,)) -> ExecEntry:
+        """The entry for ``key`` under the current epoch, building its
+        closure on first use. ``flags``: the expiry-flag variants a plan
+        captures."""
+        ek = (self.epoch, key)
+        entry = self._entries.get(ek)
+        if entry is None:
+            with self._lock:
+                entry = self._entries.get(ek)
+                if entry is None:
+                    entry = ExecEntry(self, builder(), flags)
+                    self._entries[ek] = entry
+        return entry
+
+    def _take(self, bump: bool) -> list:
+        """Empty the cache under its lock; returns what it held. A bump
+        moves the epoch on and keeps the shadow state (same layout)."""
+        with self._lock:
+            if bump:
+                self.epoch += 1
+            old = list(self._entries.values())
+            self._entries = {}
+            self.sigs.clear()
+            self._pool = None
+            if not bump:
+                old.append(self._shadow)
+                self._shadow = None
+        return old
+
+    def _release(self, old: list) -> None:
+        with _device_lock(self.device):
+            _retire(self.device, [getattr(e, "compiled", e) for e in old])
+            _sweep()
+
+    def bump(self) -> int:
+        """Retire every plan (schema epoch bump; REINDEX)."""
+        self._release(self._take(bump=True))
+        return self.epoch
+
+    def close(self) -> None:
+        """Release every plan, the pool and the shadow state (DROP)."""
+        self._release(self._take(bump=False))
+
+    # ---------------------------------------------------------- signatures
+    def note_sig(self, sig: tuple) -> None:
+        self.sigs.add(sig)
+
+    def has_sig(self, sig: tuple) -> bool:
+        return sig in self.sigs
+
+    # --------------------------------------------------------------- stats
+    def stats_dict(self) -> dict:
+        """The ``executors`` block of ``SHOW STATS t``."""
+        entries = list(self._entries.values())
+        return {
+            "cached": sum(len(e.compiled) for e in entries),
+            "entries": len(entries),
+            "epoch": self.epoch,
+            "hits": self.hits,
+            "misses": self.misses,
+            "compiles": self.compiles,
+            "fallbacks": self.fallbacks,
+            "compile_ms_total": round(self.compile_ms_total, 3),
+        }

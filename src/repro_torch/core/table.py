@@ -137,20 +137,20 @@ def param_tensor(v: Any, device) -> torch.Tensor:
     raise TypeError(f"unsupported parameter {v!r}")
 
 
-def param_column(arr: np.ndarray, device) -> torch.Tensor:
-    """A host column of bound values ([b]) as a tensor with the
+def host_column(arr) -> np.ndarray:
+    """Bound values (a scalar or a [b] column) as a numpy array with the
     reference's 32-bit widths (int64 wraps to int32, float64 rounds to
-    float32, as the reference's 64-bit-off conversion does)."""
+    float32, as the reference's 64-bit-off conversion does; TEXT arrives
+    interned, as an int). The daemon stages these; executors see them as
+    device tensors."""
     arr = np.asarray(arr)
     if arr.dtype == np.bool_:
-        out = arr
-    elif np.issubdtype(arr.dtype, np.integer):
-        out = arr.astype(np.int32)
-    elif np.issubdtype(arr.dtype, np.floating):
-        out = arr.astype(np.float32)
-    else:
-        raise TypeError(f"unsupported parameter column dtype {arr.dtype}")
-    return to_device(out, device)
+        return arr
+    if np.issubdtype(arr.dtype, np.integer):
+        return arr.astype(np.int32)
+    if np.issubdtype(arr.dtype, np.floating):
+        return arr.astype(np.float32)
+    raise TypeError(f"unsupported parameter dtype {arr.dtype}")
 
 
 def _one(params: Sequence[Any], device) -> tuple:

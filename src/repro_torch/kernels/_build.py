@@ -14,11 +14,18 @@ kernel never loads a stale library. Only sources inside this package are
 compiled.
 
 ``launches`` counts kernel launches per kernel name: each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels (``reset_launches`` zeroes them).
+where it launches its kernel (``count_launch``) and nowhere else, so a run
+can show that its main path went through the kernels (``reset_launches``
+zeroes them). A wrapper called while a CUDA graph is being captured
+launches nothing: under :func:`recording` its count goes to the capture's
+record instead, and each replay of the graph adds the record
+(``add_launches``), since each replay launches those kernels. A kernel
+scratch that such a call uses is kept in the record too (``keep_alive``):
+it must live as long as the graph that captured it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -43,9 +50,47 @@ _libs: dict[str, ctypes.CDLL] = {}
 ptxas_log: dict[str, str] = {}
 
 
+_tls = threading.local()
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name`` (into the capture's record while this
+    thread captures a graph)."""
+    rec = getattr(_tls, "rec", None)
+    if rec is None:
+        launches[name] += 1
+    else:
+        rec["launches"][name] = rec["launches"].get(name, 0) + 1
+
+
+def keep_alive(t) -> None:
+    """A scratch buffer this thread's capture uses (no-op otherwise)."""
+    rec = getattr(_tls, "rec", None)
+    if rec is not None:
+        rec["keep"].append(t)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record this thread's launches and scratch buffers (a capture)."""
+    prev = getattr(_tls, "rec", None)
+    rec = {"launches": {}, "keep": []}
+    _tls.rec = rec
+    try:
+        yield rec
+    finally:
+        _tls.rec = prev
+
+
+def add_launches(counts: dict) -> None:
+    """The launches of one replay of a captured graph."""
+    for k, n in counts.items():
+        launches[k] += n
 
 
 def _nvcc() -> str:

@@ -114,5 +114,5 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
         int(window), float(softcap), int(q_offset), strides,
         _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
-    _build.launches["flash_attention"] += 1
+    _build.count_launch("flash_attention")
     return out

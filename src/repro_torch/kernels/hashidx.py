@@ -156,7 +156,7 @@ def build(keys: torch.Tensor, valid: torch.Tensor, *, n_buckets: int):
         rid.data_ptr(), key.data_ptr(), overflow.data_ptr(),
         zeroed.data_ptr(), free.data_ptr(), stream)
     _build.check(err, "hash_build")
-    _build.launches["hash_build"] += 1
+    _build.count_launch("hash_build")
     return rid, key, overflow
 
 
@@ -204,7 +204,7 @@ def probe(rid: torch.Tensor, key: torch.Tensor, qkeys: torch.Tensor):
         qkeys.contiguous().data_ptr(), w, lg, cand.data_ptr(), hit.data_ptr(),
         _build.stream_ptr(rid.device))
     _build.check(err, "hash_probe")
-    _build.launches["hash_probe"] += 1
+    _build.count_launch("hash_probe")
     return cand, hit
 
 
@@ -341,7 +341,7 @@ def probe_verify(rid: torch.Tensor, key: torch.Tensor, qkeys: torch.Tensor,
         cap, limit, safe.data_ptr(), ok.data_ptr(), count.data_ptr(),
         None if ids is None else ids.data_ptr(), _build.stream_ptr(dev))
     _build.check(err, "hash_probe")
-    _build.launches["hash_probe"] += 1
+    _build.count_launch("hash_probe")
     return safe, ok, count, ids
 
 

@@ -106,5 +106,5 @@ def mamba2_scan(x, dt, dA, B, C, h0=None):
         h_last.data_ptr(), None if scratch is None else scratch.data_ptr(),
         b, s, nh, dh, st, DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
     _build.check(err, "mamba2_scan")
-    _build.launches["mamba2_scan"] += 1
+    _build.count_launch("mamba2_scan")
     return y, h_last

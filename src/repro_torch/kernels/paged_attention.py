@@ -131,5 +131,5 @@ def paged_attention(q, arena, pages, lengths, *, scale: float,
         nblk, DTYPE_CODES[q.dtype], float(scale), float(softcap),
         int(window), stream)
     _build.check(err, "paged_attention")
-    _build.launches["paged_attention"] += 1
+    _build.count_launch("paged_attention")
     return out

@@ -116,7 +116,7 @@ def scan(cols: Sequence[torch.Tensor], valid: torch.Tensor,
         vals.data_ptr(), cap, w, mask.data_ptr(),
         cnt.data_ptr(), count.data_ptr(), acc.data_ptr(), stream)
     _build.check(err, "relscan_scan")
-    _build.launches["relscan_scan"] += 1
+    _build.count_launch("relscan_scan")
     return mask, cnt, count
 
 
@@ -157,12 +157,15 @@ def _zeroed_scratch(kind: str, device, stream: int, n: int) -> torch.Tensor:
     buffer's contents do not matter). The compaction's hold two
     uint32 control words (the launch epoch, CTAs done) in word 0, then
     look-back flags: each flag carries the epoch of the launch that wrote
-    it, and each launch moves the epoch on."""
+    it, and each launch moves the epoch on. A CUDA graph that captures a
+    call keeps the buffer it used (``_build.keep_alive``): a replaced
+    buffer lives on for the graphs that still read it."""
     key = (kind, device.index, stream)
     buf = _scratch.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 1024), dtype=torch.int64, device=device)
         _scratch[key] = buf
+    _build.keep_alive(buf)
     return buf
 
 
@@ -188,7 +191,7 @@ def compact(mask: torch.Tensor, limit: int):
         mask.data_ptr(), mask.stride(0), cap, w, limit, ids.data_ptr(),
         count.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 8, stream)
     _build.check(err, "relscan_compact")
-    _build.launches["relscan_compact"] += 1
+    _build.count_launch("relscan_compact")
     return ids, count
 
 

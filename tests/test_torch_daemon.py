@@ -274,7 +274,6 @@ def test_lazy_results_and_executor_reuse():
     "ALTER TABLE c RETAIN SLOTS 0 OF 2",
     "CHECKPOINT c TO 'somewhere'",
     "RESTORE c FROM 'somewhere'",
-    "WARMUP c",
 ])
 def test_out_of_slice_statements_refused(sql):
     db = TDB(device="cpu")

@@ -6,7 +6,10 @@ the output), and for the Mamba2 scan y within 1e-4 and h_last within
 1e-3 in fp32 (relative and absolute: summation order over up to 64-step
 tiles and the tensor cores' 3-term TF32 products, ~3e-5), bf16 y within
 2e-2. The paged-attention and scan cases include the edges of their split
-and chunk designs, and a second call must give the same bits. Every test
+and chunk designs, and a second call must give the same bits. The daemon
+tests hold the card daemon, whose statements replay captured CUDA graphs,
+against a CPU daemon: equal results and states, no sync, no miss after a
+warm-up, one graph launch a warm statement. Every test
 skips with a reason where no CUDA card is present; run them on the card
 with ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import re
@@ -478,6 +481,254 @@ def test_daemon_dispatch_is_sync_free(cuda):
     for r in rs:
         for x in (r if isinstance(r, list) else [r]):
             assert x.count >= 0
+    _release(db)
+
+
+def _release(*dbs):
+    """Drop the daemons' tables and hand their graphs' pools and cached
+    blocks back (later tests count the allocator's bytes)."""
+    import gc
+
+    from repro_torch.core import execache as EC
+    for db in dbs:
+        for name in list(db.tables):
+            db.execute(f"DROP TABLE {name}")
+    torch.cuda.synchronize()
+    EC._sweep()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _graph_pair(ddl, warmup=True):
+    """A card daemon and a CPU daemon holding the same table, their
+    CREATE-time warm-ups drained."""
+    from repro_torch.core import SQLCached
+    dbs = (SQLCached(warmup=warmup), SQLCached(device="cpu", warmup=warmup))
+    for db in dbs:
+        db.execute(ddl)
+        db.drain_warmup()
+    return dbs
+
+
+def _snap(r):
+    if isinstance(r, list):
+        return [_snap(x) for x in r]
+    ids = r.row_ids
+    return {"count": r.count, "value": r.value, "rows": r.rows,
+            "row_ids": None if ids is None else np.asarray(ids).tolist()}
+
+
+def _both(dbs, kind, sql, *args):
+    """One statement on both daemons (the card's dispatch under sync
+    debugging set to "error"); the results must be equal."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = getattr(dbs[0], kind)(sql, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got, want = _snap(got), _snap(getattr(dbs[1], kind)(sql, *args))
+    assert got == want, sql
+    return got
+
+
+def _executors(db, table):
+    import json
+    return json.loads(db.execute(f"SHOW STATS {table}").value)["executors"]
+
+
+def _same_state(dbs, table):
+    from repro_torch import convert as CV
+    got, want = (CV.state_to_numpy(db.table_state(table)) for db in dbs)
+    np.testing.assert_equal(got, want)
+
+
+T2_SINGLES = (   # (statement, its bound values for round i)
+    ("DELETE FROM c WHERE page_id = ?", lambda p, u, i: (p[7 * i],)),
+    ("DELETE FROM c WHERE user_id = ?", lambda p, u, i: (u[3 * i],)),
+    ("SELECT * FROM c WHERE page_id = ? LIMIT 64",
+     lambda p, u, i: (p[7 * i + 1],)),
+    ("SELECT page_id, data FROM c WHERE user_id = ? AND page_id < ?",
+     lambda p, u, i: (u[i + 50], 3_000)),
+    ("UPDATE c SET data = data + 1 WHERE page_id = ?",
+     lambda p, u, i: (p[7 * i + 2],)),
+    ("SELECT COUNT(*) FROM c WHERE user_id = ?", lambda p, u, i: (u[i],)),
+)
+
+
+@pytest.mark.parametrize("extra", ["", ", INDEX(page_id), INDEX(user_id)"])
+def test_graphs_table2_warmed_equal_cpu(cuda, extra):
+    """Table 2's statements, planned by WARMUP, replay with no miss and no
+    sync, and equal a CPU daemon; the table's tensors keep their
+    addresses; a cold shape (a capture on a miss) syncs no more than a
+    warm one."""
+    rng = np.random.default_rng(1)
+    n, cap = 20_000, 32_768
+    pages = rng.integers(0, 6_000, n)
+    users = rng.integers(0, 200, n)
+    dbs = _graph_pair(f"CREATE TABLE c (page_id INT, user_id INT, data "
+                      f"BIGINT{extra}) CAPACITY {cap} MAX_SELECT 64")
+    _both(dbs, "executemany",
+          "INSERT INTO c (page_id, user_id, data) VALUES (?, ?, ?)",
+          [(int(p), int(u), i) for i, (p, u) in enumerate(zip(pages, users))])
+    ptrs = [t.data_ptr() for t in _leaves(dbs[0].table_state("c"))]
+    for sql, _ in T2_SINGLES:
+        counts = [db.execute(f"WARMUP c LIKE '{sql}'").count for db in dbs]
+        assert counts[0] == counts[1], sql
+    st0 = _executors(dbs[0], "c")
+    assert st0 == _executors(dbs[1], "c") | {
+        "compile_ms_total": st0["compile_ms_total"]}
+    p, u = pages.tolist(), users.tolist()
+    for i in range(6):
+        for sql, args in T2_SINGLES:
+            _both(dbs, "execute", sql, args(p, u, i))
+    st1 = _executors(dbs[0], "c")
+    assert st1["misses"] == st0["misses"]
+    assert st1["hits"] == st0["hits"] + 6 * len(T2_SINGLES)
+    # a cold shape: one miss, captured and replayed without a sync
+    _both(dbs, "execute", "SELECT data FROM c WHERE page_id = ?",
+          (int(pages[5]),))
+    assert _executors(dbs[0], "c")["misses"] == st0["misses"] + 1
+    _both(dbs, "execute", "EXPIRE c")
+    _both(dbs, "execute", "SELECT COUNT(*) FROM c")
+    _same_state(dbs, "c")
+    # REINDEX retires every plan (an epoch bump; it reads the residual
+    # overflow back, an admin statement's sync); swap_table_state copies a
+    # state into the table's tensors; the statements after both still
+    # equal the CPU daemon's
+    got, want = (_snap(db.execute("REINDEX c")) for db in dbs)
+    assert got == want
+    assert _executors(dbs[0], "c")["epoch"] == st0["epoch"] + (
+        1 if extra else 0)
+    dbs[0].swap_table_state("c", _to_cuda(dbs[1].table_state("c")))
+    for sql, args in T2_SINGLES:
+        _both(dbs, "execute", sql, args(p, u, 7))
+    _same_state(dbs, "c")
+    assert [t.data_ptr() for t in _leaves(dbs[0].table_state("c"))] == ptrs
+    _release(*dbs)
+
+
+def _to_cuda(tree):
+    return {k: _to_cuda(v) if isinstance(v, dict) else v.cuda()
+            for k, v in tree.items()}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def test_graphs_fig1_warmed_equal_cpu(cuda):
+    """Fig. 1's key-value read, single and W = 32, warmed, equal a CPU
+    daemon with no miss after the warm-up."""
+    rng = np.random.default_rng(2)
+    sizes = [16, 64, 256, 1024, 4096]
+    idx = np.minimum(rng.geometric(0.5, size=128) - 1, len(sizes) - 1)
+    values = {f"k{i}": "x" * sizes[j] for i, j in enumerate(idx)}
+    dbs = _graph_pair("CREATE TABLE kv (k TEXT, v TEXT) CAPACITY 256 "
+                      "MAX_SELECT 8")
+    _both(dbs, "executemany", "INSERT INTO kv (k, v) VALUES (?, ?)",
+          list(values.items()))
+    sql = "SELECT v FROM kv WHERE k = ? LIMIT 1"
+    for db in dbs:
+        db.execute(f"WARMUP kv LIKE '{sql}'")
+    keys = [f"k{int(i)}" for i in rng.integers(0, 128, 64)]
+    _both(dbs, "executemany", sql, [(k,) for k in keys[:32]])
+    st0 = _executors(dbs[0], "kv")
+    for k in keys:
+        assert _both(dbs, "execute", sql, (k,))["rows"] == [{"v": values[k]}]
+    _both(dbs, "executemany", sql, [(k,) for k in keys[32:]])
+    assert _executors(dbs[0], "kv")["misses"] == st0["misses"]
+    _same_state(dbs, "kv")
+    _release(*dbs)
+
+
+def test_warm_statement_is_one_graph_launch(cuda):
+    """A warm statement puts one cudaGraphLaunch and no kernel launch on
+    the card (besides its two copies: bound values in, outputs out)."""
+    from torch.profiler import ProfilerActivity, profile
+    dbs = _graph_pair("CREATE TABLE t (k INT, v INT, INDEX(k)) "
+                      "CAPACITY 4096 MAX_SELECT 16")
+    _both(dbs, "executemany", "INSERT INTO t (k, v) VALUES (?, ?)",
+          [(i % 97, i) for i in range(3000)])
+    sqls = ("SELECT * FROM t WHERE k = ?", "DELETE FROM t WHERE v = ?",
+            "UPDATE t SET v = v + 1 WHERE k = ?")
+    db = dbs[0]
+    for sql in sqls:
+        db.execute(sql, (1,))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(10):
+            for sql in sqls:
+                db.execute(sql, (i,))
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert names.count("cudaGraphLaunch") == 30, names.count(
+        "cudaGraphLaunch")
+    assert not [x for x in names if x in ("cudaLaunchKernel",
+                                          "cuLaunchKernel",
+                                          "cudaLaunchKernelExC")]
+    _release(*dbs)
+
+
+def test_background_capture_races_replays(cuda):
+    """WARMUP of new shapes in another thread captures while this thread
+    replays another shape of the same table: every replay equals a CPU
+    daemon's answer, and so do the new shapes afterwards."""
+    import threading
+    dbs = _graph_pair("CREATE TABLE t (k INT, v INT, s TEXT, INDEX(k)) "
+                      "CAPACITY 8192 MAX_SELECT 16")
+    _both(dbs, "executemany", "INSERT INTO t (k, v, s) VALUES (?, ?, ?)",
+          [(i % 301, i, f"s{i % 7}") for i in range(6000)])
+    new = ("SELECT v FROM t WHERE s = ? AND v < ?",
+           "SELECT SUM(v) FROM t WHERE k < ?",
+           "DELETE FROM t WHERE v = ?",
+           "UPDATE t SET v = v + 2 WHERE s = ?",
+           "SELECT k, s FROM t WHERE v > ? LIMIT 8")
+    errors = []
+
+    def warm():
+        try:
+            for sql in new:
+                dbs[0].execute(f"WARMUP t LIKE '{sql}'")
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    th = threading.Thread(target=warm)
+    th.start()
+    for i in range(200):
+        _both(dbs, "execute", "SELECT v, s FROM t WHERE k = ?", (i % 301,))
+        _both(dbs, "execute", "UPDATE t SET v = v + 1 WHERE k = ?", (i,))
+    th.join()
+    assert not errors, errors
+    st = _executors(dbs[0], "t")
+    for sql, args in zip(new, (("s3", 2000), (40,), (17,), ("s5",), (5990,))):
+        _both(dbs, "execute", sql, args)
+    assert _executors(dbs[0], "t")["misses"] == st["misses"]
+    _same_state(dbs, "t")
+    _release(*dbs)
+
+
+def test_graph_survives_scratch_growth(cuda):
+    """A SELECT captured before a wider executemany grows the compaction's
+    scratch still answers right afterwards: the graph keeps the buffer it
+    captured."""
+    dbs = _graph_pair("CREATE TABLE t (k INT, v INT) CAPACITY 131072 "
+                      "MAX_SELECT 64")
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 20_000, 100_000)
+    _both(dbs, "executemany", "INSERT INTO t (k, v) VALUES (?, ?)",
+          [(int(k), i) for i, k in enumerate(keys)])
+    sql = "SELECT * FROM t WHERE k = ? LIMIT 64"
+    _both(dbs, "execute", sql, (int(keys[0]),))
+    _both(dbs, "executemany", sql, [(int(k),) for k in keys[:256]])
+    for k in keys[300:340]:
+        _both(dbs, "execute", sql, (int(k),))
+    _same_state(dbs, "t")
+    _release(*dbs)
 
 
 ATT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}

@@ -105,8 +105,17 @@ def test_port_clients_on_port_server():
         assert [r["count"] for r in p.results] == [1] * 6
         assert c.execute("SELECT COUNT(*) FROM q WHERE b = ?",
                          [1])["value"] == 3
-        with pytest.raises(RuntimeError, match="not supported by this port"):
-            c.execute("WARMUP q")
+        # WARMUP over the wire plans the canonical shapes: the reference's
+        # count on the same table, then nothing new
+        ddl = "CREATE TABLE w (a INT, b INT, INDEX(a)) CAPACITY 64"
+        c.execute(ddl)
+        ref = JDB(mesh_exec=False, warmup=False)
+        ref.execute(ddl)
+        want = ref.execute("WARMUP w").count
+        assert want > 0
+        assert c.execute("WARMUP w")["count"] == want
+        assert c.execute("WARMUP w")["count"] == ref.execute(
+            "WARMUP w").count == 0
         assert srv.server.scheduler.stats["max_group"] >= 2
         c.close()
 
