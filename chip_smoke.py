@@ -101,8 +101,13 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               one evict_user and one flush. Logits are checked teacher-
               forced against a dense, kernel-free reference on the card;
               every block count against a CPU daemon's replay of the
-              ``kv`` table's statements; block allocation and the step's
-              dispatch run with sync debugging set to "error".
+              ``kv`` table's statements; block allocation and the round
+              (its staging, the capture's prime round, the capture and
+              every replay: a decode round is one captured CUDA graph)
+              run with sync debugging set to "error". One warm round with
+              no block boundary must be one cudaGraphLaunch, one
+              host-to-device and one device-to-host copy and no kernel
+              launch; reports the capture's ms and the graph pool's bytes.
    serve_zamba2 -- the same engine with zamba2-2.7b at full width (54
               Mamba2 layers, one shared attention+MLP block after every
               6th; bf16, random weights): the launcher's 6 prompts plus
@@ -111,7 +116,9 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               extra requests, evict_user and flush, with the same checks
               (the dense reference's SSM recurrence uses no scan kernel).
 7. profile -- after the main paths (torch.profiler): per decode round of
-              both serve paths, and for zamba2's 300-token prefill.
+              both serve paths (host launch calls, kernels on the card,
+              device time by family, idle share), and for zamba2's
+              300-token prefill.
 
 Phases 3-6 are seven main paths (Table 2 plain, Table 2 indexed, Fig. 1,
 wire, graphs, serve, serve_zamba2). A statement kernel that runs inside a
@@ -123,7 +130,8 @@ probe on the indexed Table 2 table and in graphs, probe in the wire
 script (its table has INDEX(k)); flash attention, paged attention and the relscan scan on
 both serve paths, and the Mamba2 scan on zamba2's, each an exact number
 of times (per attention layer or shared-block application and prefill or
-round; per Mamba2 layer and prefill). Then comes a ``kernels`` line
+round, the capture's prime round included; per Mamba2 layer and
+prefill). Then comes a ``kernels`` line
 (launches summed over the paths), the ``nvidia-smi`` line, and the final
 status line.
 Any failure raises: the script exits non-zero and prints no status line,
@@ -1592,9 +1600,10 @@ def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
     eng = ServeEngine(cfg, params, max_slots=4, max_seq=max_seq,
                       block=SERVE_BLOCK, device=dev)
     log = KvLog(eng.daemon)
+    graph = eng._step   # the decode round's ServeGraph
     host = {}
     guard(eng, "_insert_blocks", host)
-    guard(eng, "_step", host)
+    guard(eng, "_step", host)   # staging, prime, capture and replays
 
     pending = serve_prompts(cfg)
     if long_prompt:
@@ -1645,6 +1654,8 @@ def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
         eng.add_request(prompt, user_id=100 + (i % 2))
     for _ in range(3):
         eng.decode_round()
+    warm, warm_rounds = warm_round_calls(eng)
+    extra_rounds = 3 + warm_rounds
     evicted = eng.evict_user(100)
     flushed = eng.flush()
     if eng.live_blocks() != 0 or eng.requests:
@@ -1655,10 +1666,12 @@ def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
     peak_gb = (torch.cuda.max_memory_allocated(dev) - resident) / 1e9
     tf = teacher_forced(cfg, params, dev, records, atol)
     n_rounds = len(round_ms)
-    prefills, rounds = len(records) + len(extra), n_rounds + 3
+    prefills, rounds = len(records) + len(extra), n_rounds + extra_rounds
     attn = TF.n_attn_layers(cfg) + cfg.n_shared_applications()
+    # paged attention: every replayed round, and the capture's prime round
     hold.update(eng=eng, cfg=cfg, want={
-        "flash_attention": attn * prefills, "paged_attention": attn * rounds,
+        "flash_attention": attn * prefills,
+        "paged_attention": attn * (rounds + 1),
         "mamba2_scan": len(cfg.ssm_layer_ids) * prefills})
     lens = [len(r["prompt"]) for r in records]
     emit({"phase": name, "card": card, "arch": cfg.name,
@@ -1676,6 +1689,10 @@ def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
           "tokens_per_s": tokens_out / serve_s,
           "host_ms_in_insert_blocks": host.get("_insert_blocks", 0) * 1e3,
           "host_ms_in_step_dispatch": host.get("_step", 0) * 1e3,
+          "graph_capture_ms": graph.capture_ms,
+          "graph_pool_bytes": graph_pool_bytes(graph.pool),
+          "graph_launches_per_round": graph.launches,
+          "warm_round_launch_calls": warm,
           "finish_request_ms": [round(x, 3) for x in finish_ms],
           "freed_blocks": freed, "evict_user_blocks": evicted,
           "flush_blocks": flushed, "kv_replay": replay,
@@ -1706,13 +1723,17 @@ def executors(db, table):
     return json.loads(db.execute(f"SHOW STATS {table}").value)["executors"]
 
 
-def pool_bytes(db, table) -> int:
-    """Device bytes held in the table's CUDA-graph memory pool."""
-    pool = db.tables[table].execs._pool
+def graph_pool_bytes(pool) -> int:
+    """Device bytes held in one CUDA-graph memory pool."""
     if pool is None:
         return 0
     return sum(seg["total_size"] for seg in torch.cuda.memory._snapshot()[
         "segments"] if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def pool_bytes(db, table) -> int:
+    """Device bytes held in the table's CUDA-graph memory pool."""
+    return graph_pool_bytes(db.tables[table].execs._pool)
 
 
 def launch_calls(fn, n):
@@ -1729,6 +1750,63 @@ def launch_calls(fn, n):
         if e.device_type != DeviceType.CUDA and e.name in calls:
             calls[e.name] += 1
     return {k: v / n for k, v in calls.items()}
+
+
+def round_calls(eng) -> tuple[dict, dict]:
+    """One decode round under the profiler: the host's launch calls made
+    inside the round, and the copies on the card by direction. A small
+    kernel and a sync open the window first: the card's record of the
+    first activity in a fresh window is sometimes lost."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        sync()
+        with record_function("decode_round"):
+            eng.decode_round()
+        sync()
+    events = prof.events()
+    span = next(e for e in events if e.name == "decode_round"
+                and e.device_type != DeviceType.CUDA).time_range
+    calls = dict.fromkeys(LAUNCH_CALLS, 0)
+    copies = {"HtoD": 0, "DtoH": 0, "DtoD": 0}
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            if (e.name in calls
+                    and span.start <= e.time_range.start <= span.end):
+                calls[e.name] += 1
+        elif "Memcpy" in e.name:
+            for k in copies:
+                copies[k] += k in e.name
+    return calls, copies
+
+
+def warm_round_calls(eng, tries=3) -> tuple[dict, int]:
+    """A decode round with no block boundary must be one graph launch,
+    one copy in and one copy of the next tokens out, and no kernel
+    launch. The host's calls must be exact in every profiled round; a
+    round whose two copies did not both show on the card (a lost record)
+    is profiled again, up to ``tries`` times. Returns (what the round
+    made, rounds run)."""
+    want = dict.fromkeys(LAUNCH_CALLS, 0) | {"cudaGraphLaunch": 1,
+                                             "cudaMemcpyAsync": 2}
+    rounds = 0
+    for attempt in range(1, tries + 1):
+        while any(eng.lengths[s] % SERVE_BLOCK == 0 for s in eng.requests):
+            eng.decode_round()
+            rounds += 1
+        calls, copies = round_calls(eng)
+        rounds += 1
+        if calls != want:
+            raise AssertionError(f"a warm round made {calls}; expected "
+                                 f"{want}")
+        if copies["HtoD"] == 1 and copies["DtoH"] == 1:
+            return {**calls, "device_copies": copies,
+                    "profiled_rounds": attempt}, rounds
+    raise AssertionError(f"no profiled warm round showed one HtoD and one "
+                         f"DtoH copy in {tries} tries (last: {copies})")
 
 
 def phase_graphs(card):
@@ -1994,8 +2072,9 @@ def device_families(prof, wall_us, n):
 
 def profile_rounds(eng, cfg, n_rounds=4):
     """Decode rounds of a serve path under the profiler: per round the
-    host wall time, the card's busy time and idle share, launches, and
-    device time by kernel family."""
+    host wall time, the card's busy time and idle share, kernels on the
+    card, the host's launch calls, and device time by kernel family."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i, prompt in enumerate(serve_prompts(cfg, 4, seed=SEED + 2)):
         eng.add_request(prompt, user_id=200 + i)
@@ -2009,7 +2088,13 @@ def profile_rounds(eng, cfg, n_rounds=4):
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     eng.flush()
-    return {"rounds": n_rounds, **device_families(prof, wall_us, n_rounds)}
+    calls = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA and e.name in LAUNCH_CALLS:
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return {"rounds": n_rounds, **device_families(prof, wall_us, n_rounds),
+            "launch_calls_per_round": {k: v / n_rounds
+                                       for k, v in sorted(calls.items())}}
 
 
 def profile_prefill(eng, cfg, n_tokens):

@@ -63,7 +63,8 @@ from repro_torch.core import telemetry as TEL
 from repro_torch.kernels import _build
 from repro_torch.lint import lockorder as LK
 
-__all__ = ["ExecEntry", "ExecutorCache"]
+__all__ = ["ExecEntry", "ExecutorCache", "device_lock", "side_stream",
+           "stage_array"]
 
 _ALIGN = 16
 
@@ -75,7 +76,7 @@ _STAGING: dict[int, "_Staging"] = {}
 _GRAVE: list = []
 
 
-def _device_lock(device: torch.device):
+def device_lock(device: torch.device):
     key = str(device)
     lk = _DEVICE_LOCKS.get(key)
     if lk is None:
@@ -83,7 +84,7 @@ def _device_lock(device: torch.device):
     return lk
 
 
-def _side_stream(device: torch.device):
+def side_stream(device: torch.device):
     s = _SIDE.get(device.index)
     if s is None:
         s = _SIDE[device.index] = torch.cuda.Stream(device)
@@ -270,6 +271,33 @@ def _stage_np(dst: np.ndarray, layout, leaves) -> None:
             dst[off:off + nb].view(a.dtype)[...] = a.reshape(-1)
 
 
+def _stage(buf: torch.Tensor, layout, leaves) -> None:
+    """Host arrays into the device byte buffer ``buf`` at ``layout``'s
+    offsets: on the card through one pinned slot of the device's ring and
+    one non-blocking copy, on the CPU by a plain copy."""
+    if buf.device.type != "cuda":
+        _stage_np(buf.numpy(), layout, leaves)
+        return
+    ring = _STAGING.get(buf.device.index)
+    if ring is None:
+        ring = _STAGING[buf.device.index] = _Staging()
+    nbytes = buf.numel()
+    slot = ring.acquire(nbytes)
+    _stage_np(slot.np, layout, leaves)
+    buf.copy_(slot.buf[:nbytes], non_blocking=True)
+    if slot.event is None:
+        slot.event = torch.cuda.Event()
+    slot.event.record(torch.cuda.current_stream(buf.device))
+
+
+def stage_array(dst: torch.Tensor, host: np.ndarray) -> None:
+    """``host`` (the same bytes as the contiguous tensor ``dst``) into
+    ``dst`` through one pinned staging slot: one host-to-device copy that
+    does not wait for the card."""
+    buf = dst.view(torch.uint8).reshape(-1)
+    _stage(buf, ((0, buf.numel(), None, None),), [host])
+
+
 # ----------------------------------------------------------------- plans
 
 class _Plan:
@@ -303,20 +331,8 @@ class _Plan:
     def stage(self, leaves) -> None:
         """The dispatch's bound values into the static input buffer: on the
         card one pinned slot and one non-blocking copy."""
-        if not self.in_total:
-            return
-        if self.device.type != "cuda":
-            _stage_np(self.in_buf.numpy(), self.in_layout, leaves)
-            return
-        ring = _STAGING.get(self.device.index)
-        if ring is None:
-            ring = _STAGING[self.device.index] = _Staging()
-        slot = ring.acquire(self.in_total)
-        _stage_np(slot.np, self.in_layout, leaves)
-        self.in_buf.copy_(slot.buf[:self.in_total], non_blocking=True)
-        if slot.event is None:
-            slot.event = torch.cuda.Event()
-        slot.event.record(torch.cuda.current_stream(self.device))
+        if self.in_total:
+            _stage(self.in_buf, self.in_layout, leaves)
 
     # ------------------------------------------------------------- body
     def _body(self, state: dict, flag: bool) -> torch.Tensor | None:
@@ -403,7 +419,7 @@ class ExecEntry:
         cache = self._cache
         spec = _spec(args)
         leaves = _host_leaves(args, [])
-        with _device_lock(cache.device):
+        with device_lock(cache.device):
             plan = self.compiled.get(spec)
             if plan is None:
                 cache.counters.add("misses")
@@ -421,7 +437,7 @@ class ExecEntry:
         values (never touching the table's contents). True when a new
         plan was made, False when one existed."""
         spec = _spec(args)
-        with _device_lock(self._cache.device):
+        with device_lock(self._cache.device):
             if spec in self.compiled:
                 return False
             plan, _ = self._plan(state, args, _host_leaves(args, []),
@@ -441,7 +457,7 @@ class ExecEntry:
         if dev.type == "cuda":
             _sweep()
             serving = torch.cuda.current_stream(dev)
-            side = _side_stream(dev)
+            side = side_stream(dev)
             side.wait_stream(serving)
             try:
                 with torch.cuda.stream(side):
@@ -548,7 +564,7 @@ class ExecutorCache:
         return old
 
     def _release(self, old: list) -> None:
-        with _device_lock(self.device):
+        with device_lock(self.device):
             _retire(self.device, [getattr(e, "compiled", e) for e in old])
             _sweep()
 

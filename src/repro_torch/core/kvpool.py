@@ -1,28 +1,26 @@
-"""KV-block pool metadata: the paper's cache table specialized for
-transformer KV (port of ``repro.core.kvpool``, the parts the serving
-engine uses).
+"""KV-block pool: the paper's cache table specialized for transformer KV
+(port of ``repro.core.kvpool``).
 
 One row of the ``kv`` table is one block of ``block_size`` token
-positions of one sequence; its columns (slot, seq_id, user_id, pos_block,
-prefix_hash) are the queryable metadata, and the fine-grained expiry of
-the paper's Table 2 is plain SQL against them::
+positions of one sequence across every layer; its columns (slot, seq_id,
+user_id, pos_block, prefix_hash) are the queryable metadata, its payload
+the block's K/V, and the fine-grained expiry of the paper's Table 2 is
+plain SQL against them (``delete_seq`` / ``delete_user`` here run the
+same WHERE through the table executors)::
 
     DELETE FROM kv WHERE seq_id = ?     -- finish one request   (~"one page")
     DELETE FROM kv WHERE user_id = ?    -- end one user session (~"one user")
     FLUSH kv                            -- the memcached way
 
 The page table maps (slot, pos_block) to the row id holding that block
-(``capacity`` = missing). It is maintained incrementally from the row ids
-an INSERT reports, and rebuilt from the columns after a DELETE whose row
-ids were not reported. Where the reference branches on device with
-``lax.cond`` (an insert that evicted live rows forces a rebuild), both
-results are computed and one is selected with ``torch.where``: no host
-sync. The reference's dropped scatters (``mode="drop"``) land in a
-scratch row past the end that is sliced off.
-
-Not in this port yet: ``init_pool`` / ``append_blocks`` / ``gather_blocks``,
-the per-slot length vector, ``delete_seq`` / ``delete_user`` (the engine
-issues the SQL itself) and ``find_prefix``.
+(``capacity`` = missing), and the length vector counts each slot's cached
+tokens. Both are maintained incrementally from the row ids an INSERT or a
+DELETE reports, and rebuilt from the columns otherwise. Where the
+reference branches on device with ``lax.cond`` (an insert that evicted
+live rows forces a rebuild), both results are computed and one is
+selected with ``torch.where``: no host sync. The reference's dropped
+scatters (``mode="drop"``) land in a scratch entry past the end that is
+sliced off.
 """
 from __future__ import annotations
 
@@ -30,6 +28,9 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import predicate as P
+from repro_torch.core import table as T
+from repro_torch.core.daemon import resolve_device
 from repro_torch.core.schema import ExpiryPolicy, TableSchema, make_schema
 
 KV_COLUMNS = (
@@ -69,6 +70,21 @@ def kv_schema(
     )
 
 
+def init_pool(schema: TableSchema, device=None) -> dict:
+    """An empty pool on ``device`` (None: the card)."""
+    return T.init_state(schema, resolve_device(device))
+
+
+def append_blocks(schema: TableSchema, state: dict, *, slot, seq_id,
+                  user_id, pos_block, prefix_hash, kv, row_mask=None,
+                  ttl=0):
+    """Insert ``n`` KV blocks (each column [n], ``kv`` [n, layers, 2,
+    block, kv_heads, head_dim]); returns (state, rows, evicted)."""
+    values = {"slot": slot, "seq_id": seq_id, "user_id": user_id,
+              "pos_block": pos_block, "prefix_hash": prefix_hash}
+    return T.insert(schema, state, values, {"kv": kv}, row_mask, ttl)
+
+
 def _scatter_pt(pt: torch.Tensor, s: torch.Tensor, b: torch.Tensor,
                 vals, max_slots: int) -> torch.Tensor:
     """``pt`` with ``pt[s, b] = vals``; entries with ``s == max_slots``
@@ -99,6 +115,24 @@ def page_table(schema: TableSchema, state: dict, *, max_slots: int,
                     device=valid.device)
     rows = torch.arange(cap, dtype=torch.int32, device=valid.device)
     return _scatter_pt(pt, s, b, rows, max_slots)
+
+
+def _add_per_slot(lengths: torch.Tensor, slot: torch.Tensor, ok, delta,
+                  max_slots: int) -> torch.Tensor:
+    """``lengths`` plus ``delta`` for each ``ok`` entry of ``slot`` (the
+    others go to a scratch entry that is sliced off)."""
+    s = torch.where(ok, slot, max_slots).long()
+    padded = torch.cat([lengths, lengths.new_zeros((1,))])
+    return padded.index_add(0, s, ok.to(lengths.dtype) * delta)[:max_slots]
+
+
+def seq_lengths(schema: TableSchema, state: dict, *, max_slots: int,
+                block_size: int) -> torch.Tensor:
+    """Per-slot cached length in tokens = (#blocks) * block_size."""
+    slot = state["cols"]["slot"]
+    ok = state["valid"] & (slot >= 0) & (slot < max_slots)
+    zeros = torch.zeros((max_slots,), dtype=torch.int32, device=slot.device)
+    return _add_per_slot(zeros, slot, ok, block_size, max_slots)
 
 
 def _pt_coords(state: dict, row_ids, ok, *, max_slots: int, max_blocks: int):
@@ -142,6 +176,71 @@ def page_table_delete(
     s, b = _pt_coords(state, row_ids, present, max_slots=max_slots,
                       max_blocks=max_blocks)
     return _scatter_pt(pt, s, b, schema.capacity, max_slots)
+
+
+def seq_lengths_insert(
+    schema: TableSchema, state: dict, lengths: torch.Tensor,
+    row_ids: torch.Tensor, evicted: torch.Tensor, *, block_size: int,
+    max_slots: int,
+) -> torch.Tensor:
+    """Length vector after inserting ``row_ids``: O(k) adds, or the full
+    recount when the insert evicted live rows (both computed, one picked
+    on the device, as :func:`page_table_insert` does)."""
+    slot = state["cols"]["slot"][row_ids.long()]
+    ok = (slot >= 0) & (slot < max_slots)
+    inc = _add_per_slot(lengths, slot, ok, block_size, max_slots)
+    rebuild = seq_lengths(schema, state, max_slots=max_slots,
+                          block_size=block_size)
+    return torch.where(evicted > 0, rebuild, inc)
+
+
+def seq_lengths_delete(
+    schema: TableSchema, state: dict, lengths: torch.Tensor,
+    row_ids: torch.Tensor, present: torch.Tensor, *, block_size: int,
+    max_slots: int,
+) -> torch.Tensor:
+    """Length vector after a DELETE that reported its row ids (``present``
+    masks the padded tail)."""
+    slot = state["cols"]["slot"][row_ids.long()]
+    ok = present & (slot >= 0) & (slot < max_slots)
+    return _add_per_slot(lengths, slot, ok, -block_size, max_slots)
+
+
+def gather_blocks(state: dict, pages: torch.Tensor) -> torch.Tensor:
+    """KV payloads through a page table. pages: [slots, blocks] row ids
+    (the sentinel ``capacity`` gives zeros). Returns [slots, blocks,
+    layers, 2, block, kv_heads, head_dim]."""
+    pool = state["payloads"]["kv"]
+    cap = pool.shape[0]
+    out = pool[torch.clamp(pages, max=cap - 1).long()]
+    keep = (pages < cap).reshape(pages.shape + (1,) * (pool.dim() - 1))
+    return torch.where(keep, out, torch.zeros((), dtype=pool.dtype,
+                                              device=pool.device))
+
+
+def _eq(column: str) -> P.Node:
+    return P.BinOp("=", P.Col(column), P.Param(0))
+
+
+def delete_seq(schema: TableSchema, state: dict, seq_id):
+    """Fine-grained expiry: one request's blocks (the paper's 'single
+    page'). Returns (state, n)."""
+    return T.delete(schema, state, _eq("seq_id"), (seq_id,))
+
+
+def delete_user(schema: TableSchema, state: dict, user_id):
+    """Fine-grained expiry: one user's sessions (the paper's 'single
+    user'). Returns (state, n)."""
+    return T.delete(schema, state, _eq("user_id"), (user_id,))
+
+
+def find_prefix(schema: TableSchema, state: dict, prefix_hash, *,
+                limit: int = 64):
+    """Prefix-cache lookup: every block whose prefix hash matches. Returns
+    (state, result) with the row ids and the pos_block and seq_id
+    columns."""
+    return T.select(schema, state, _eq("prefix_hash"), (prefix_hash,),
+                    columns=("pos_block", "seq_id"), limit=limit)
 
 
 def rolling_prefix_hashes(tokens: torch.Tensor,

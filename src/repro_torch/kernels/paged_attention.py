@@ -18,7 +18,9 @@ The kernel splits each sequence's pages over CTAs (64 positions a split)
 and, where more than one split sees something, merges their partial
 softmax results by their log-sum-exp in the same launch; the wrapper keeps
 the partials' buffer (sized by the library's ``paged_attention_scratch``)
-and the zeroed-once split counters per device and stream.
+and the zeroed-once split counters per device and stream. A CUDA graph
+that captured a call keeps the two buffers it captured alive
+(``_build.keep_alive``).
 """
 from __future__ import annotations
 
@@ -125,6 +127,10 @@ def paged_attention(q, arena, pages, lengths, *, scale: float,
     if n_part:  # more than one split a sequence: partials and counters
         part, counters = _scratch_for(q.device, stream, n_part, b * kh)
         part_ptr, counters_ptr = part.data_ptr(), counters.data_ptr()
+        # a graph that captures this call reads them on every replay, even
+        # after a wider call has replaced them here
+        _build.keep_alive(part)
+        _build.keep_alive(counters)
     err = lib.paged_attention(
         q.data_ptr(), arena.data_ptr(), pages.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), part_ptr, counters_ptr, b, h, kh, hd, cap, block,

@@ -9,33 +9,43 @@ Layering (top to bottom):
   table of the port's ``SQLCached`` (``DELETE FROM kv WHERE seq_id=?``
   finishes a request; ``... WHERE user_id=?`` ends a session; ``FLUSH``
   is the memcached strawman the paper benchmarks against).
+- ``ServeGraph`` (device): the decode round as one captured CUDA graph,
+  the counterpart of the reference's jitted step. Its inputs are static
+  buffers shaped by ``serve_input_specs``; the engine writes them in
+  place (the page table and tail rows from the SQL plane, the tokens,
+  lengths and write offsets through one staged copy a round), and a warm
+  round is one copy in, one ``cudaGraphLaunch`` and one copy of the next
+  tokens back. ``lower_serve_step`` builds one outside an engine.
 - ``make_serve_step`` (device): one decode token for every slot. Each
   attention layer, and each application of zamba2's shared block, writes
   the new token's K/V into its arena and reads the pool through the page
   table with the paged-attention kernel (``serving/paged.py``); Mamba2
   layers advance their O(1) states. Prefill runs the flash-attention and
-  Mamba2 scan kernels (``models/transformer.prefill``).
+  Mamba2 scan kernels (``models/transformer.prefill``) eagerly.
 
 Host syncs are the reference's: the first token of a prefill
 (``argmax``), the tokens of a decode round, and the count of a DELETE or
-FLUSH. Block allocation (``_insert_blocks``) and the step's dispatch do
-not wait on the device: parameters travel through pinned non-blocking
-uploads and row ids stay on the device. Every state tensor (arenas, SSM
-states) is updated in place.
+FLUSH. Block allocation (``_insert_blocks``) and the round's prime,
+capture and replay do not wait on the device: parameters travel through
+pinned non-blocking uploads and row ids stay on the device. Every state
+tensor (arenas, SSM states) is updated in place.
 
-Not in this port yet: a device mesh, the int8 arena, Mamba1 / MoE /
-encoder-decoder / frontend configs and ``lower_serve_step``.
+Not in this port yet: a device mesh, the int8 arena and Mamba1 / MoE /
+encoder-decoder / frontend configs.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
+from repro_torch.core import execache as EC
 from repro_torch.core import kvpool
 from repro_torch.core import table as T
 from repro_torch.core.daemon import SQLCached, resolve_device
+from repro_torch.kernels import _build
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import MAMBA2, ModelConfig, NotPorted
 from repro_torch.models.layers import ssm as SSM
@@ -127,6 +137,179 @@ def serve_state_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
     return specs
 
 
+def serve_input_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
+    """{name: (shape, dtype)} of the serve step's inputs: the reference's
+    ShapeDtypeStructs without a mesh (``stripe_total`` 1, ``nblk_local``
+    ``nblk``). They are the decode graph's static input buffers."""
+    TF.check_supported(cfg)
+    if mesh is not None:
+        raise NotPorted("a device mesh for the serve inputs")
+    b, nblk = geom.batch, geom.nblk
+    specs = {name: ((b,), torch.int32)
+             for name in ("tokens", "lengths", "write_off")}
+    if TF.n_attn_layers(cfg) > 0 or cfg.shared_attn_every > 0:
+        specs["pt"] = ((b, 1, nblk), torch.int32)
+        specs["blk_start"] = ((b, 1, nblk), torch.int32)
+        specs["write_rows"] = ((b, 1), torch.int32)
+    return specs
+
+
+def init_serve_state(cfg: ModelConfig, geom: PagedGeom, rows: int,
+                     device) -> dict:
+    """Zeroed serve state with ``rows`` arena rows plus the scratch row of
+    the dropped writes."""
+    state = {}
+    for name, spec in serve_state_specs(cfg, geom).items():
+        if name == "ssm":
+            state[name] = {k: torch.zeros(shape, dtype=dtype, device=device)
+                           for k, (shape, dtype) in spec.items()}
+        else:
+            shape, dtype = spec
+            state[name] = torch.zeros((shape[0], rows + 1) + shape[2:],
+                                      dtype=dtype, device=device)
+    return state
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+class ServeGraph:
+    """The decode round over static buffers: on the card one captured CUDA
+    graph, on the CPU the same body run eagerly.
+
+    ``inputs`` are the step's static input buffers (``serve_input_specs``):
+    ``tokens``, ``lengths`` and ``write_off`` are the rows of one ``[3, b]``
+    buffer (``vec``) that a round fills with one staged copy; ``pt`` holds
+    ``cap`` where a block is missing and is mapped to the kernel's ``-1``
+    inside the round; ``write_rows`` is ``-1`` for a slot without a
+    request. The caller updates ``pt``, ``write_rows`` and ``state`` in
+    place: the graph reads fixed addresses.
+
+    The graph is captured at the first call (or by :meth:`capture`) on
+    the side stream of ``core/execache.py``, with that module's device
+    lock held, as its statement graphs are: first a prime round against a
+    zeroed copy of the state loads the kernels and sizes their scratch on
+    that stream, then the capture records the round against the real
+    state. Replays take the same lock. A failed capture raises; nothing
+    runs the round eagerly on the card. The round's outputs live in the
+    graph's pool and the next replay overwrites them."""
+
+    def __init__(self, cfg: ModelConfig, geom: PagedGeom, params: dict,
+                 state: dict, cap: int, device):
+        self.device = torch.device(device)
+        self.params = params
+        self.state = state
+        self.cap = cap
+        self._step_fn = make_serve_step(cfg, geom)
+        specs = serve_input_specs(cfg, geom)
+        b = geom.batch
+        self.vec = torch.zeros((3, b), dtype=torch.int32, device=self.device)
+        self.inputs = {"tokens": self.vec[0], "lengths": self.vec[1],
+                       "write_off": self.vec[2]}
+        if "pt" in specs:
+            self.inputs["pt"] = torch.full(specs["pt"][0], cap,
+                                           dtype=torch.int32,
+                                           device=self.device)
+            self.inputs["blk_start"] = T.to_device(build_blk_start(geom),
+                                                   self.device)
+            self.inputs["write_rows"] = torch.full(
+                specs["write_rows"][0], -1, dtype=torch.int32,
+                device=self.device)
+        self.graph = None
+        self.pool = None
+        self.out = None
+        self.launches: dict = {}
+        self.keep: list = []
+        self.capture_ms = None
+
+    def _body(self, state: dict):
+        inputs = dict(self.inputs)
+        if "pt" in inputs:
+            pt = inputs["pt"]
+            inputs["pt"] = torch.where(pt >= self.cap, -1, pt)
+        nxt, _, logits = self._step_fn(self.params, state, inputs)
+        return nxt, logits
+
+    def capture(self) -> None:
+        """Prime, then capture the round (a no-op once captured)."""
+        if self.device.type != "cuda":
+            raise RuntimeError("ServeGraph.capture needs a CUDA device")
+        with EC.device_lock(self.device):
+            if self.graph is not None:
+                return
+            t0 = time.perf_counter()
+            serving = torch.cuda.current_stream(self.device)
+            side = EC.side_stream(self.device)
+            side.wait_stream(serving)
+            graph = torch.cuda.CUDAGraph()
+            pool = torch.cuda.graph_pool_handle()
+            try:
+                with torch.cuda.stream(side):
+                    self._body(_tree_map(torch.zeros_like, self.state))
+                    with _build.recording() as rec:
+                        graph.capture_begin(pool=pool,
+                                            capture_error_mode="thread_local")
+                        try:
+                            out = self._body(self.state)
+                        except BaseException:
+                            try:
+                                graph.capture_end()
+                            except Exception:  # noqa: BLE001 — the body's error wins
+                                pass
+                            raise
+                        graph.capture_end()
+            finally:
+                serving.wait_stream(side)
+            self.graph, self.pool, self.out = graph, pool, out
+            self.launches = dict(rec["launches"])
+            self.keep = rec["keep"]
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def __call__(self, host_vec: np.ndarray):
+        """One round: ``host_vec`` ([3, b] int32: tokens, lengths, write
+        offsets) staged into ``vec``, then the round. Returns (next tokens
+        [b] int32, logits [b, padded_vocab] fp32)."""
+        if self.device.type == "cuda" and self.graph is None:
+            self.capture()
+        with EC.device_lock(self.device):
+            EC.stage_array(self.vec, host_vec)
+            if self.device.type != "cuda":
+                return self._body(self.state)
+            self.graph.replay()
+            _build.add_launches(self.launches)
+            return self.out
+
+
+def lower_serve_step(cfg: ModelConfig, shape, params: dict, mesh=None, *,
+                     device=None):
+    """The port's counterpart of the reference's ``lower_serve_step``: the
+    decode step for ``shape.global_batch`` slots of ``shape.seq_len``
+    tokens, on zeroed state and static inputs, captured as one CUDA graph
+    on the card (on the CPU the step body, run eagerly when called).
+    ``params`` must be on ``device`` (None: the card). Returns
+    ``(graph_step, extra)``: the :class:`ServeGraph` (write its ``state``
+    and its ``pt`` / ``write_rows`` inputs in place, then call it with a
+    round's tokens, lengths and write offsets) and the paged geometry the
+    reference reports."""
+    if mesh is not None:
+        raise NotPorted("a device mesh for the serve step")
+    dev = resolve_device(device)
+    geom = plan_geometry(
+        batch=shape.global_batch, seq_len=shape.seq_len,
+        kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, q_heads=cfg.n_heads)
+    state = init_serve_state(cfg, geom, geom.cap, dev)
+    step = ServeGraph(cfg, geom, params, state, geom.cap, dev)
+    if dev.type == "cuda":
+        step.capture()
+    extra = {"paged_geom": {
+        "block": geom.block, "nblk": geom.nblk, "cap": geom.cap,
+        "batch_axes": (), "head_axes": (), "stripe_axes": ()}}
+    return step, extra
+
+
 # ================================================================ host side
 @dataclasses.dataclass
 class Request:
@@ -167,34 +350,35 @@ class ServeEngine:
             "pos_block INT, prefix_hash INT) "
             f"CAPACITY {cap} MAX_SELECT 256")
         self.cap = cap
-        self.state = {}
-        for name, spec in serve_state_specs(cfg, self.geom).items():
-            if name == "ssm":
-                self.state[name] = {
-                    k: torch.zeros(shape, dtype=dtype, device=self.device)
-                    for k, (shape, dtype) in spec.items()}
-                continue
-            shape, dtype = spec
-            # arenas: cap rows + the scratch row of the dropped writes
-            self.state[name] = torch.zeros((shape[0], cap + 1) + shape[2:],
-                                           dtype=dtype, device=self.device)
-        self._step = make_serve_step(cfg, self.geom)
+        self.state = init_serve_state(cfg, self.geom, cap, self.device)
+        # the round over static buffers (captured at the first round on
+        # the card); the page table (cap = missing) and each slot's tail
+        # row are views of them, maintained in place from the row ids each
+        # INSERT reports
+        self._step = ServeGraph(cfg, self.geom, params, self.state, cap,
+                                self.device)
         self.requests: dict[int, Request] = {}   # slot -> request
         self.lengths = np.zeros(max_slots, np.int32)
-        # device-resident tick state: page table (cap = missing) and each
-        # slot's tail row, maintained from the row ids each INSERT reports
         self._sch = self.daemon.schema("kv")
-        self.tail_row = torch.full((max_slots,), -1, dtype=torch.int32,
-                                   device=self.device)
-        self._pt = torch.full((max_slots, self.geom.nblk), cap,
-                              dtype=torch.int32, device=self.device)
-        self._blk_start = T.to_device(build_blk_start(self.geom), self.device)
+        self._pt = self._step.inputs["pt"][:, 0]
+        self.tail_row = self._step.inputs["write_rows"][:, 0]
         self._next_seq = 1
         self.decode_steps = 0
-        # the last prefill's and the last round's logits (device tensors;
-        # reading them is the caller's sync)
+        # the last prefill's logits (a device tensor; reading it is the
+        # caller's sync) and the last round's, in the round's output buffer
         self.prefill_logits: torch.Tensor | None = None
-        self.logits: torch.Tensor | None = None
+        self._round_logits: torch.Tensor | None = None
+        self._logits: torch.Tensor | None = None
+
+    @property
+    def logits(self) -> torch.Tensor | None:
+        """The last round's logits [max_slots, padded_vocab] (fp32), a
+        tensor the caller may keep: copied out of the round's output buffer
+        at the first read after the round (the next replay overwrites that
+        buffer)."""
+        if self._logits is None and self._round_logits is not None:
+            self._logits = self._round_logits.clone()
+        return self._logits
 
     # ------------------------------------------------------------ plumbing
     def _free_slot(self) -> int:
@@ -215,10 +399,10 @@ class ServeEngine:
             "INSERT INTO kv (slot, seq_id, user_id, pos_block, prefix_hash)"
             " VALUES (?, ?, ?, ?, ?)", params_list)
         rows = res.row_ids_device[: len(params_list)]
-        self._pt = kvpool.page_table_insert(
+        self._pt.copy_(kvpool.page_table_insert(
             self._sch, self.daemon.table_state("kv"), self._pt, rows,
             res.value_device, max_slots=self.max_slots,
-            max_blocks=self.geom.nblk)
+            max_blocks=self.geom.nblk))
         return rows
 
     def _blockify(self, k: torch.Tensor, v: torch.Tensor,
@@ -269,38 +453,30 @@ class ServeEngine:
                                       [first])
         return slot
 
-    def _build_inputs(self) -> dict:
-        b = self.max_slots
-        tokens = np.zeros(b, np.int32)
-        lengths = np.zeros(b, np.int32)
+    def _build_inputs(self) -> np.ndarray:
+        """The round's tokens, lengths and write offsets ([3, b] int32,
+        staged into the graph's ``vec`` by the step); the write row of
+        each slot at a block boundary is allocated here, its device row id
+        flowing straight into the page table and the tail rows."""
+        vec = np.zeros((3, self.max_slots), np.int32)
         for s, r in self.requests.items():
-            tokens[s] = r.generated[-1]
-            lengths[s] = self.lengths[s]
-        dev = self.device
-        inputs = {"tokens": T.to_device(tokens, dev),
-                  "lengths": T.to_device(lengths, dev),
-                  "write_off": T.to_device(lengths % self.block, dev)}
-        # allocate the write row of slots at a block boundary: device row
-        # ids flow straight into the page table and the tail rows
+            vec[0, s] = r.generated[-1]
+            vec[1, s] = self.lengths[s]
+        vec[2] = vec[1] % self.block
         for s, r in self.requests.items():
             if self.lengths[s] % self.block == 0:
                 rows = self._insert_blocks(
                     s, r.seq_id, r.user_id,
                     [self.lengths[s] // self.block])
                 self.tail_row[s] = rows[-1]
-        pt = torch.where(self._pt >= self.cap, -1, self._pt)
-        inputs["pt"] = pt[:, None, :]
-        inputs["blk_start"] = self._blk_start
-        inputs["write_rows"] = self.tail_row[:, None]
-        return inputs
+        return vec
 
     def decode_round(self) -> dict[int, int]:
         """One token for every active request. Returns {slot: token}."""
         if not self.requests:
             return {}
-        inputs = self._build_inputs()
-        nxt, self.state, self.logits = self._step(self.params, self.state,
-                                                  inputs)
+        nxt, self._round_logits = self._step(self._build_inputs())
+        self._logits = None
         nxt = nxt.cpu().numpy()
         out = {}
         for s, r in self.requests.items():
@@ -322,13 +498,13 @@ class ServeEngine:
         ts = self.daemon.table_state("kv")
         ids = res.row_ids_device
         if ids is not None and res.count <= int(ids.shape[0]):
-            self._pt = kvpool.page_table_delete(
+            pt = kvpool.page_table_delete(
                 self._sch, ts, self._pt, ids, res.present_device,
                 max_slots=self.max_slots, max_blocks=self.geom.nblk)
         else:
-            self._pt = kvpool.page_table(self._sch, ts,
-                                         max_slots=self.max_slots,
-                                         max_blocks=self.geom.nblk)
+            pt = kvpool.page_table(self._sch, ts, max_slots=self.max_slots,
+                                   max_blocks=self.geom.nblk)
+        self._pt.copy_(pt)
 
     def finish_request(self, slot: int) -> int:
         """Paper Table 2 'single page': expire one request's blocks."""

@@ -9,7 +9,11 @@ tiles and the tensor cores' 3-term TF32 products, ~3e-5), bf16 y within
 and chunk designs, and a second call must give the same bits. The daemon
 tests hold the card daemon, whose statements replay captured CUDA graphs,
 against a CPU daemon: equal results and states, no sync, no miss after a
-warm-up, one graph launch a warm statement. Every test
+warm-up, one graph launch a warm statement. The serving engines, whose
+decode round replays one captured CUDA graph, are held against CPU
+engines the same way: equal tokens and logits within 1e-4, no sync from
+the capture on, one graph launch and two copies a warm round, exact
+launch counts. Every test
 skips with a reason where no CUDA card is present; run them on the card
 with ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import re
@@ -1006,76 +1010,237 @@ def test_mamba2_scan_matches_plain(cuda, b, s, nh, dh, st, dtype, h0):
     assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
-def test_serve_engine_on_card_matches_cpu(cuda):
-    """yi-6b SMOKE (fp32) through the paged engine on the card and on the
-    CPU with the same weights: the same tokens, logits within 1e-4."""
-    from repro_torch import configs
-    from repro_torch.kernels import _build
-    from repro_torch.models import transformer as TF
-    from repro_torch.serving.engine import ServeEngine
-    cfg = configs.get_smoke("yi-6b")
-    params = TF.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
-    on_card = _to(params, cuda)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
-               for n in (9, 17, 8)]
-    engines = [ServeEngine(cfg, params, max_slots=4, max_seq=64, block=8,
-                           device="cpu"),
-               ServeEngine(cfg, on_card, max_slots=4, max_seq=64, block=8,
-                           device=cuda)]
-    _build.reset_launches()
-    for e in engines:
-        for i, p in enumerate(prompts):
-            e.add_request(p, user_id=i)
-    for _ in range(9):
-        outs = [e.decode_round() for e in engines]
-        assert outs[0] == outs[1]
-        assert float((engines[0].logits - engines[1].logits.cpu())
-                     .abs().max()) <= 1e-4
-    assert [e.finish_request(1) for e in engines] == [4, 4]  # 26 tokens
-    assert engines[1].live_blocks() == engines[0].live_blocks()
-    assert _build.launches["flash_attention"] == 3 * cfg.n_layers
-    assert _build.launches["paged_attention"] == 9 * cfg.n_layers
-
-
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
 
 
-def test_zamba2_engine_on_card_matches_cpu(cuda):
-    """zamba2 SMOKE (fp32) through the paged engine on the card and on the
-    CPU with the same weights: the same tokens, logits within 1e-4; the
-    scan once per Mamba2 layer and prefill, flash attention once per
-    shared-block application and prefill, paged attention once per
-    application and round."""
+def _serve_engines(cuda, arch, max_seq, lens, seed=0):
+    """A CPU engine and a card engine over the same fp32 SMOKE weights,
+    and seeded prompts of ``lens`` tokens. The card engine's round and
+    block allocation run with sync debugging set to "error"."""
     from repro_torch import configs
-    from repro_torch.kernels import _build
     from repro_torch.models import transformer as TF
     from repro_torch.serving.engine import ServeEngine
-    cfg = configs.get_smoke("zamba2-2.7b")
+    cfg = configs.get_smoke(arch)
     params = TF.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
-               for n in (9, 70, 8)]
-    engines = [ServeEngine(cfg, params, max_slots=4, max_seq=128, block=8,
-                           device="cpu"),
-               ServeEngine(cfg, _to(params, cuda), max_slots=4, max_seq=128,
-                           block=8, device=cuda)]
-    _build.reset_launches()
-    for e in engines:
-        for i, p in enumerate(prompts):
-            e.add_request(p, user_id=i)
-    assert float((engines[0].prefill_logits
-                  - engines[1].prefill_logits.cpu()).abs().max()) <= 1e-4
-    for _ in range(9):
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    engines = [ServeEngine(cfg, params, max_slots=4, max_seq=max_seq,
+                           block=8, device="cpu"),
+               ServeEngine(cfg, _to(params, cuda), max_slots=4,
+                           max_seq=max_seq, block=8, device=cuda)]
+    card = engines[1]
+    for name in ("_step", "_insert_blocks"):
+        fn = getattr(card, name)
+
+        def guarded(*a, _fn=fn, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        guarded.__wrapped__ = fn
+        setattr(card, name, guarded)
+    return cfg, engines, prompts
+
+
+def _release_engines(engines):
+    """Drop the engines (the card engine's graph and its pool with them)
+    and hand the cached blocks back."""
+    db = engines[1].daemon
+    engines.clear()
+    _release(db)
+
+
+def _rounds(engines, n):
+    for _ in range(n):
         outs = [e.decode_round() for e in engines]
         assert outs[0] == outs[1]
         assert float((engines[0].logits - engines[1].logits.cpu())
                      .abs().max()) <= 1e-4
-    assert [e.finish_request(1) for e in engines] == [10, 10]  # 79 tokens
+
+
+def _serve_stream(engines, prompts, n_rounds):
+    """Admissions, ``n_rounds`` rounds, then finish_request, an admission
+    into the freed slot, evict_user, flush and re-admission, each equal on
+    both engines. Returns the rounds run."""
+    for e in engines:
+        for i, p in enumerate(prompts):
+            e.add_request(p, user_id=i % 2)
+    _rounds(engines, n_rounds)
+    assert len({e.finish_request(1) for e in engines}) == 1
+    for e in engines:
+        e.add_request(prompts[0], user_id=3)
+    _rounds(engines, 2)
+    assert len({e.evict_user(0) for e in engines}) == 1
+    _rounds(engines, 1)
+    assert len({e.flush() for e in engines}) == 1
+    for e in engines:
+        e.add_request(prompts[1], user_id=4)
+    _rounds(engines, 1)
+    assert engines[1].live_blocks() == engines[0].live_blocks()
+    return n_rounds + 4
+
+
+def test_serve_engine_on_card_matches_cpu(cuda):
+    """yi-6b SMOKE (fp32) through the paged engine, its decode round one
+    captured CUDA graph, on the card and on the CPU with the same weights:
+    the same tokens, logits within 1e-4, over admissions, block
+    boundaries, finish_request, evict_user, flush and re-admission, with
+    no sync from the capture on; flash attention once per layer and
+    prefill, paged attention once per layer and round (the capture's
+    prime round included)."""
+    from repro_torch.kernels import _build
+    cfg, engines, prompts = _serve_engines(cuda, "yi-6b", 64, (9, 17, 8))
+    _build.reset_launches()
+    rounds = _serve_stream(engines, prompts, 9)
+    assert _build.launches["flash_attention"] == 5 * cfg.n_layers
+    assert _build.launches["paged_attention"] == (rounds + 1) * cfg.n_layers
+    _release_engines(engines)
+
+
+def test_zamba2_engine_on_card_matches_cpu(cuda):
+    """zamba2 SMOKE (fp32) through the paged engine, its decode round one
+    captured CUDA graph, on the card and on the CPU with the same weights:
+    the same tokens, logits within 1e-4 (prefill's too) over the stream of
+    the yi-6b test; the scan once per Mamba2 layer and prefill, flash
+    attention once per shared-block application and prefill, paged
+    attention once per application and round (the prime round
+    included)."""
+    from repro_torch.kernels import _build
+    cfg, engines, prompts = _serve_engines(cuda, "zamba2-2.7b", 128,
+                                           (9, 70, 8))
+    _build.reset_launches()
+    for e in engines:
+        e.add_request(prompts[1], user_id=5)
+    assert float((engines[0].prefill_logits
+                  - engines[1].prefill_logits.cpu()).abs().max()) <= 1e-4
+    for e in engines:
+        e.finish_request(0)
+    rounds = _serve_stream(engines, prompts, 9)
     napps = cfg.n_shared_applications()
-    assert _build.launches["mamba2_scan"] == 3 * cfg.n_layers
-    assert _build.launches["flash_attention"] == 3 * napps
-    assert _build.launches["paged_attention"] == 9 * napps
+    assert _build.launches["mamba2_scan"] == 6 * cfg.n_layers
+    assert _build.launches["flash_attention"] == 6 * napps
+    assert _build.launches["paged_attention"] == (rounds + 1) * napps
+    _release_engines(engines)
+
+
+@pytest.mark.parametrize("arch,max_seq,lens", [("yi-6b", 64, (9, 17, 8)),
+                                               ("zamba2-2.7b", 128,
+                                                (9, 70, 8))])
+def test_serve_graph_warm_round(cuda, monkeypatch, arch, max_seq, lens):
+    """The round is captured while the kv table's CREATE-time warm-up
+    still captures its statements on the same device, and its replays
+    equal the CPU engine. A warm round with no block boundary is one
+    cudaGraphLaunch,
+    one host-to-device and one device-to-host copy, and no kernel launch;
+    N replays launch paged attention exactly N times a layer; a round's
+    logits stay as they were after the next round."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import _build
+    monkeypatch.setenv("REPRO_WARMUP", "1")
+    cfg, engines, prompts = _serve_engines(cuda, arch, max_seq, lens)
+    graph, db = engines[1]._step.__wrapped__, engines[1].daemon
+    assert db._warm_threads["kv"].is_alive()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.capture()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    db.drain_warmup()
+    for e in engines:
+        for i, p in enumerate(prompts):
+            e.add_request(p, user_id=i)
+    _rounds(engines, 1)
+    # the host's calls inside the round must be exact in every profiled
+    # round; the card's record of a window's first activity is sometimes
+    # lost, so a small kernel opens the window, and a round whose copies
+    # did not both show is profiled again
+    for _ in range(3):
+        while any(n % 8 == 0 for n in engines[1].lengths[:len(prompts)]):
+            _rounds(engines, 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device=cuda)
+            torch.cuda.synchronize()
+            with record_function("decode_round"):
+                engines[1].decode_round()
+            torch.cuda.synchronize()
+        engines[0].decode_round()
+        span = next(e for e in prof.events()
+                    if e.name == "decode_round"
+                    and e.device_type != DeviceType.CUDA).time_range
+        host = [e.name for e in prof.events()
+                if e.device_type != DeviceType.CUDA
+                and span.start <= e.time_range.start <= span.end]
+        copies = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and "Memcpy" in e.name]
+        assert host.count("cudaGraphLaunch") == 1
+        assert host.count("cudaMemcpyAsync") == 2
+        assert not [x for x in host if x in ("cudaLaunchKernel",
+                                             "cuLaunchKernel",
+                                             "cudaLaunchKernelExC")]
+        if (sum("HtoD" in c for c in copies) == 1
+                and sum("DtoH" in c for c in copies) == 1):
+            break
+    else:
+        raise AssertionError(f"no profiled round showed one HtoD and one "
+                             f"DtoH copy: {copies}")
+    kept = engines[1].logits
+    before = kept.clone()
+    _build.reset_launches()
+    _rounds(engines, 5)
+    assert torch.equal(kept, before)
+    attn = cfg.n_layers if arch == "yi-6b" else cfg.n_shared_applications()
+    assert _build.launches["paged_attention"] == 5 * attn
+    _release_engines(engines)
+
+
+def test_kvpool_delete_and_find_prefix_on_card(cuda):
+    """Part of core/kvpool.py on the card (the DELETEs and the lookup
+    reach the relscan kernels through the executors) against the CPU:
+    equal counts, rows, page tables, lengths, gathered blocks and states."""
+    from repro_torch import convert as CV
+    from repro_torch.core import kvpool as KV
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(4)
+    n = 96
+    cell = rng.permutation(n)   # one row a (slot, pos_block): 8 x 12
+    cols = {"slot": cell // 12, "seq_id": rng.integers(0, 12, n),
+            "user_id": rng.integers(0, 5, n), "pos_block": cell % 12,
+            "prefix_hash": rng.integers(0, 20, n)}
+    cols = {k: v.astype(np.int32) for k, v in cols.items()}
+    kv = rng.standard_normal((n, 2, 2, 4, 2, 8)).astype(np.float32)
+    out = []
+    _build.reset_launches()
+    for dev in ("cpu", cuda):
+        sch = KV.kv_schema(layers=2, block_size=4, kv_heads=2, head_dim=8,
+                           capacity=128, dtype=torch.float32)
+        st = KV.init_pool(sch, dev)
+        st, rows, ev = KV.append_blocks(
+            sch, st, **{k: torch.from_numpy(v).to(dev)
+                        for k, v in cols.items()},
+            kv=torch.from_numpy(kv).to(dev))
+        obs = [rows, ev]
+        for seq in (3, 7, 11):
+            st, cnt = KV.delete_seq(sch, st, seq)
+            obs.append(cnt)
+        st, cnt = KV.delete_user(sch, st, 2)
+        obs.append(cnt)
+        for h in (0, 5, 19):
+            st, res = KV.find_prefix(sch, st, h, limit=16)
+            obs += [res["count"], res["row_ids"], res["present"],
+                    res["rows"]["pos_block"], res["rows"]["seq_id"]]
+        pt = KV.page_table(sch, st, max_slots=8, max_blocks=16)
+        obs += [pt, KV.seq_lengths(sch, st, max_slots=8, block_size=4),
+                KV.gather_blocks(st, pt)]
+        out.append(([o.cpu().numpy() for o in obs], CV.state_to_numpy(st)))
+    for want, got in zip(*(o[0] for o in out)):
+        np.testing.assert_array_equal(want, got)
+    np.testing.assert_equal(out[0][1], out[1][1])
+    assert _build.launches["relscan_scan"] > 0
