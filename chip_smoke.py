@@ -41,6 +41,14 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               at cap 4,194,304. One scan, one probe and one compaction call under
               the profiler must each show one device kernel and no memset
               or copy, one build call its two kernels and nothing else.
+              The shard axis of the scan, the compaction, the build and
+              the verified probe (sharded tables): equal to the plain
+              versions at S 1, 2, 3, 8 and cap_s 1, 25, 16,384, 100,003,
+              fan-out and routed ``sid``, w 1 and 32, a shard with no valid
+              row and a bucket over 128 in one shard, each call one scan,
+              two build or one probe launch whatever S; then each
+              shard-axis call's device time at S = 8, cap_s 16,384, its
+              bound, and the time of the same work as 8 separate calls.
    kernels_attention -- the flash- and paged-attention kernels against
               their plain versions (fp32 within 1e-5, bf16 within 2e-2)
               at tests/test_kernels.py's shapes, head dims 8-256, both
@@ -83,6 +91,19 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               on the card daemon and one on a CPU daemon: the response
               bytes must match (SHOW STATS's ``device`` and
               ``compile_ms_total`` aside).
+   shards  -- sharded tables (core/shards.py): Table 2 in CAPACITY
+              131072 SHARDS 8 PARTITION BY user_id, with and without
+              INDEX(page_id), on the card daemon and on a CPU daemon: the
+              bulk load, per-user statements (one lane), per-page ones
+              (fan-out over 8 shards), EXPIRE, REINDEX, SHOW STATS's skew,
+              RESHARD 4 and the statements again, a WARMUP of a pruned
+              shape (a plan a lane) and a fan-out shape with warm replays,
+              four threads of pruned writes through the BatchScheduler,
+              FLUSH. Every result and the final state equal the CPU
+              daemon's, no dispatch syncs, a warm pruned statement is one
+              graph launch and no kernel launch, and a fan-out's scan,
+              probe and build launch once a call. Reports the graph pool's
+              bytes and wall p50s.
    graphs  -- pre-planned statements (core/execache.py): the Table 2
               indexed table and Fig. 1's read warmed at CREATE and by
               WARMUP; every warm statement must replay with no miss and
@@ -120,14 +141,15 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               device time by family, idle share), and for zamba2's
               300-token prefill.
 
-Phases 3-6 are seven main paths (Table 2 plain, Table 2 indexed, Fig. 1,
-wire, graphs, serve, serve_zamba2). A statement kernel that runs inside a
+Phases 3-6 are eight main paths (Table 2 plain, Table 2 indexed, Fig. 1,
+wire, graphs, shards, serve, serve_zamba2). A statement kernel that runs inside a
 captured graph counts once per launch on the card: the plan's prime run,
 then each replay's captured launches. The launch counters are zeroed right before
 each path and read right after it, and each path must have launched
 every kernel it runs: scan and compact on the statement paths, build and
 probe on the indexed Table 2 table and in graphs, probe in the wire
-script (its table has INDEX(k)); flash attention, paged attention and the relscan scan on
+script (its table has INDEX(k)), all four in shards; flash attention,
+paged attention and the relscan scan on
 both serve paths, and the Mamba2 scan on zamba2's, each an exact number
 of times (per attention layer or shared-block application and prefill or
 round, the capture's prime round included; per Mamba2 layer and
@@ -568,6 +590,238 @@ def check_build_probe(dev):
     return overflow, hits, verified, errs
 
 
+SHARD_CAPS = (1, 25, 16_384, 100_003)
+SHARD_COUNTS = (1, 2, 3, 8)
+
+
+def shard_stack(rng, n_sh, cap_s, dev, hot=False):
+    """[S, cap_s] int32 keys and validity for the shard-axis checks: shard 1
+    (of 2 or more) holds no valid row. With ``hot`` the keys spread over
+    100,000 values (buckets of ~32 rows at the index's sizing) and shard 0
+    holds 300 rows of key 7: one bucket over 128 in one shard only."""
+    span = 50_000 if hot else 200
+    keys = rng.integers(-span, span, (n_sh, cap_s)).astype(np.int32)
+    if hot and cap_s >= 300:
+        keys[0, rng.choice(cap_s, 300, replace=False)] = 7
+    valid = rng.random((n_sh, cap_s)) < 0.8
+    if n_sh > 1:
+        valid[1] = False
+    return (torch.from_numpy(keys).to(dev), torch.from_numpy(valid).to(dev))
+
+
+def shard_sids(rng, n_sh, w, fanout, dev):
+    """A fan-out's pairs (every shard for each of ``w`` statements, shard
+    by shard) or ``w`` statements routed to random shards."""
+    if fanout:
+        sid = np.repeat(np.arange(n_sh), w)
+    else:
+        sid = rng.integers(0, n_sh, w)
+    return torch.from_numpy(sid.astype(np.int32)).to(dev)
+
+
+def check_shard_kernels(dev):
+    """The shard axis of the scan, the compaction, the build and the
+    verified probe, each equal to its plain version on the card, at S 1, 2,
+    3 and 8 and cap_s 1, 25, 16,384 and 100,003; fan-out and routed sid,
+    w 1 and 32; a shard with no valid row and a bucket over 128 in one
+    shard. Each call must be one scan launch, two build launches and one
+    probe launch, whatever S. Returns (cases, errs, overflow per shard of
+    the hot build)."""
+    rng = np.random.default_rng(SEED + 5)
+    errs = {"relscan_scan": 0, "relscan_compact": 0, "hash_build": 0,
+            "hash_probe": 0}
+    cases = 0
+    hot_overflow = None
+    ops_sets = [("==",), ("!=", "<"), ("<=", ">", ">="),
+                ("==", "!=", "<", ">=")]
+    for n_sh in SHARD_COUNTS:
+        for cap_s in SHARD_CAPS:
+            keys, valid = shard_stack(rng, n_sh, cap_s, dev, hot=True)
+            cols = [keys] + [shard_stack(rng, n_sh, cap_s, dev)[0]
+                             for _ in range(3)]
+            for fanout in (True, False):
+                for w in (1, 32):
+                    sid = shard_sids(rng, n_sh, w, fanout, dev)
+                    n = sid.shape[0]
+                    for ops in ops_sets:
+                        nt = len(ops)
+                        vals = torch.from_numpy(rng.integers(
+                            -150, 150, (n, nt)).astype(np.int32)).to(dev)
+                        want = RS.scan_ref(cols[:nt], valid, vals, ops,
+                                           sid=sid)
+                        _build.reset_launches()
+                        got = RS.scan(cols[:nt], valid, vals, ops, sid=sid,
+                                      run=w if fanout else 1)
+                        sync()
+                        if _build.launches["relscan_scan"] != 1:
+                            raise AssertionError("a shard-axis scan was not "
+                                                 "one launch")
+                        errs["relscan_scan"] = max(
+                            errs["relscan_scan"],
+                            max_err(list(zip(got, want))))
+                        for limit in (1, 64):
+                            ids, cnt = RS.compact(got[0], limit)
+                            ids_r, cnt_r = RS.compact_ref(want[0], limit)
+                            sync()
+                            errs["relscan_compact"] = max(
+                                errs["relscan_compact"],
+                                max_err([(ids, ids_r), (cnt, cnt_r)]))
+                        cases += 1
+            nb = HX.n_buckets_for(cap_s)
+            want = HX.build_ref(keys, valid, n_buckets=nb)
+            for _ in range(2):   # twice: the scratch must be zero again
+                _build.reset_launches()
+                got = HX.build(keys, valid, n_buckets=nb)
+                sync()
+                if _build.launches["hash_build"] != 1:
+                    raise AssertionError("a shard-axis build was not one call")
+                errs["hash_build"] = max(errs["hash_build"],
+                                         max_err(list(zip(got, want))))
+            if cap_s >= 300:
+                ov = got[2].cpu().tolist()
+                if ov[0] == 0 or any(ov[1:2]):
+                    raise AssertionError(f"hot build overflow {ov}")
+                hot_overflow = ov
+            rid, key, _ = got
+            live = valid.clone()
+            live[:, ::7] = False    # rows dead after the build
+            extra = torch.from_numpy(rng.random((n_sh, cap_s)) < 0.7).to(dev)
+            for fanout in (True, False):
+                for w in (1, 32):
+                    sid = shard_sids(rng, n_sh, w, fanout, dev)
+                    n = sid.shape[0]
+                    # keys of live rows of the pair's shard (and some misses)
+                    kh = keys.cpu().numpy()
+                    q = kh[sid.cpu().numpy(), rng.integers(0, cap_s, n)]
+                    q[::5] = rng.integers(-50_000, 50_000, len(q[::5]))
+                    q[0] = 7
+                    qk = torch.from_numpy(q).to(dev)
+                    for nres in (0, 2):
+                        residual = [(cols[1 + t], ("<", ">=")[t],
+                                     torch.from_numpy(rng.integers(
+                                         -100, 100, n).astype(np.int32))
+                                     .to(dev)) for t in range(nres)]
+                        for limit in (0, 64):
+                            for gated in (False, True):
+                                kw = dict(valid=live, keycol=keys,
+                                          residual=residual, limit=limit,
+                                          sid=sid)
+                                if gated:
+                                    kw.update(extra_mask=extra,
+                                              active=torch.from_numpy(
+                                                  rng.random(n) < 0.8)
+                                              .to(dev))
+                                want = HX.probe_verify_ref(rid, key, qk, **kw)
+                                _build.reset_launches()
+                                got = HX.probe_verify(rid, key, qk, **kw)
+                                sync()
+                                if _build.launches["hash_probe"] != 1:
+                                    raise AssertionError(
+                                        "a shard-axis probe was not one "
+                                        "launch")
+                                pairs = [(a, b) for a, b in zip(got, want)
+                                         if a is not None]
+                                errs["hash_probe"] = max(
+                                    errs["hash_probe"], max_err(pairs))
+                                cases += 1
+    # S = 1 with sid = 0 is the unsharded call: the same outputs
+    keys, valid = shard_stack(rng, 1, 16_384, dev)
+    v = torch.tensor([[3]], dtype=torch.int32, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    a = RS.scan([keys[0]], valid[0], v, ("<",))
+    b = RS.scan([keys], valid, v, ("<",), sid=zero)
+    nb = HX.n_buckets_for(16_384)
+    c = HX.build(keys[0], valid[0], n_buckets=nb)
+    d = HX.build(keys, valid, n_buckets=nb)
+    sync()
+    max_err(list(zip(a, b)) + [(x[None], y) for x, y in zip(c, d)])
+    return cases, errs, hot_overflow
+
+
+def shard_kernel_timing(dev, card):
+    """Device time of each shard-axis call at S = 8, cap_s 16,384 (the
+    ``shards`` phase's table: 131,072 rows), its bound and the time of the
+    same work as 8 separate S = 1 calls: the fan-out scan (w 1 and 32),
+    the compaction of its mask, the stacked build, the fan-out verified
+    probe and a routed probe of 32 statements."""
+    rng = np.random.default_rng(SEED + 6)
+    n_sh, cap_s = 8, 16_384
+    pages, users, _ = table2_data()
+    valid = torch.zeros((n_sh, cap_s), dtype=torch.bool, device=dev)
+    page = torch.zeros((n_sh, cap_s), dtype=torch.int32, device=dev)
+    # Table 2's rows spread over 8 shards by user_id, as the daemon does
+    from repro_torch.core import shards as SH
+    sid_rows = SH.shard_of(torch.from_numpy(users), n_sh).numpy()
+    for s in range(n_sh):
+        rows = pages[sid_rows == s][:cap_s]
+        page[s, : len(rows)] = torch.from_numpy(rows).to(dev)
+        valid[s, : len(rows)] = True
+    rows_out = []
+
+    def row(label, kernel, run, separate, nbytes, ops, launches):
+        names = [e.name for e in device_events(run)]
+        if len(names) != launches:
+            raise AssertionError(f"{label}: one call ran {names}")
+        b_ms, b_by = bound(nbytes, ops)
+        rows_out.append({
+            "kernel": kernel, "shape": label, "ms": time_ms(run),
+            "device_ms": call_device_ms(run),
+            "separate_calls_device_ms": call_device_ms(separate),
+            "separate_calls_ms": time_ms(separate),
+            "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "device_events_one_call": names})
+
+    n = n_sh * cap_s
+    for w in (1, 32):
+        sid = shard_sids(rng, n_sh, w, True, dev)
+        vals = torch.from_numpy(np.tile(pages[2:2 + w], n_sh).reshape(-1, 1)
+                                .astype(np.int32)).to(dev)
+        run = lambda: RS.scan([page], valid, vals, ("==",),  # noqa: E731
+                              sid=sid, run=w)
+        views = [(page[s], valid[s], vals[s * w:(s + 1) * w])
+                 for s in range(n_sh)]
+        sep = lambda: [RS.scan([c], v, x, ("==",)) for c, v, x in views]  # noqa
+        nblk = RS.n_blocks(cap_s)
+        row(f"fan-out, S = 8, cap_s 16384, w = {w}", "relscan_scan", run, sep,
+            (4 + 1) * n + 4 * n_sh * w + w * n + 4 * n_sh * w * nblk
+            + 4 * n_sh * w + 4 * n_sh * w, 2 * w * n, 1)
+        mask = run()[0]
+        views_m = [mask[s * w:(s + 1) * w] for s in range(n_sh)]
+        row(f"fan-out mask [8 * {w}, 16384], limit 64", "relscan_compact",
+            lambda: RS.compact(mask, 64),
+            lambda: [RS.compact(m, 64) for m in views_m],
+            w * n + 4 * n_sh * w * 64 + 4 * n_sh * w, w * n, 1)
+    nb = HX.n_buckets_for(cap_s)
+    run = lambda: HX.build(page, valid, n_buckets=nb)  # noqa: E731
+    sep = lambda: [HX.build(page[s], valid[s], n_buckets=nb)  # noqa: E731
+                   for s in range(n_sh)]
+    row("S = 8, cap_s 16384, 512 buckets a shard", "hash_build", run, sep,
+        5 * n + 8 * n_sh * nb * HX.BUCKET_CAP + 4 * n_sh,
+        3 * n + n_sh * nb * HX.BUCKET_CAP, 2)
+    rid, key, _ = HX.build(page, valid, n_buckets=nb)
+    lanes = HX.BUCKET_CAP
+    for label, w, fanout in (("fan-out, S = 8, w = 1", 1, True),
+                             ("routed, 32 statements on 8 shards", 32, False)):
+        sid = shard_sids(rng, n_sh, w, fanout, dev)
+        nq = sid.shape[0]
+        q = torch.from_numpy(np.resize(pages[2:2 + w], nq).astype(np.int32)
+                             ).to(dev)
+        kw = dict(valid=valid, keycol=page, limit=64)
+        run = lambda: HX.probe_verify(rid, key, q, sid=sid, **kw)  # noqa
+        sids = sid.cpu().tolist()
+        one = [(q[i:i + 1], s) for i, s in enumerate(sids)]
+        sep = lambda: [HX.probe_verify(  # noqa: E731
+            rid[s], key[s], qq, valid=valid[s], keycol=page[s], limit=64)
+            for qq, s in one]
+        n_hit = int(run()[2].sum())
+        row(f"verified, {label}, limit 64", "hash_probe", run, sep,
+            4 * nq + 4 * nq + 8 * nq * lanes + 5 * n_hit + 5 * nq * lanes
+            + 4 * nq + 4 * nq * 64, 2 * nq * lanes, 1)
+    for r in rows_out:
+        emit({"phase": "kernel_timing_shards", "card": card, **r})
+    return rows_out
+
+
 def phase_kernels(dev, card):
     rng = np.random.default_rng(SEED)
     cases, errs = check_scan_compact(rng, dev)
@@ -576,6 +830,12 @@ def phase_kernels(dev, card):
     emit({"phase": "kernels_exact", "scan_compact_cases": cases,
           "build_overflow": overflow, "probe_queries_with_hits": hits,
           "probe_verify_cases": verified, "max_abs_err": errs})
+    sh_cases, sh_errs, hot = check_shard_kernels(dev)
+    for k, e in sh_errs.items():
+        errs[k] = max(errs[k], e)
+    emit({"phase": "kernels_exact_shards", "cases": sh_cases,
+          "shard_counts": SHARD_COUNTS, "shard_caps": SHARD_CAPS,
+          "hot_build_overflow_per_shard": hot, "max_abs_err": sh_errs})
 
     # timings at the main path's shapes
     pages, users, _ = table2_data()
@@ -741,6 +1001,7 @@ def phase_kernels(dev, card):
                 out["probe"] = timings[-1]
     for t in timings:
         emit({"phase": "kernel_timing", "card": card, **t})
+    out["shard_axis"] = shard_kernel_timing(dev, card)
     return out, errs
 
 
@@ -1969,6 +2230,235 @@ def phase_graphs(card):
               round(p50(fig.lat["batch_read"]) / 32, 2)})
 
 
+# ------------------------------------------------------------- shards
+
+SHARD_DDL = ("CREATE TABLE sh (page_id INT, user_id INT, data BIGINT{extra}) "
+             "CAPACITY 131072 MAX_SELECT 64 SHARDS 8 PARTITION BY user_id")
+# (label, sql, args(pages, users, i), pruned): Table 2's statements on the
+# sharded table; per-user statements prune to one lane, per-page ones fan
+# out over every shard
+SHARD_STMTS = (
+    ("user_select", "SELECT * FROM sh WHERE user_id = ? LIMIT 64",
+     lambda p, u, i: (u[20 + i],), True),
+    ("user_delete", "DELETE FROM sh WHERE user_id = ? AND page_id < ?",
+     lambda p, u, i: (u[40 + i], 10_000), True),
+    ("page_select", "SELECT * FROM sh WHERE page_id = ? LIMIT 64",
+     lambda p, u, i: (p[130 + i],), False),
+    ("page_delete", "DELETE FROM sh WHERE page_id = ?",
+     lambda p, u, i: (p[2 + i],), False),
+    ("page_count", "SELECT COUNT(*) FROM sh WHERE page_id = ?",
+     lambda p, u, i: (p[600 + i],), False),
+)
+
+
+def admin_pair(pr, sql):
+    """An admin statement (it reads its result back: a sync by design) on
+    both daemons; the results must agree."""
+    got, want = (snap(db.execute(sql)) for db in (pr.gpu, pr.cpu))
+    if got != want:
+        raise AssertionError(f"{sql!r}: card {got} vs CPU {want}")
+    return got
+
+
+def stats_pair(pr, table):
+    """SHOW STATS on both daemons: equal but for the executors block and
+    the device name."""
+    out = []
+    for db in (pr.gpu, pr.cpu):
+        info = json.loads(db.execute(f"SHOW STATS {table}").value)
+        info.pop("executors"), info.pop("device")
+        out.append(info)
+    if out[0] != out[1]:
+        raise AssertionError(f"SHOW STATS {table}: {out[0]} vs {out[1]}")
+    return out[0]
+
+
+def same_state(pr, table, what):
+    g = pr.gpu.table_state(table)
+    c = pr.cpu.table_state(table)
+    for k in ("valid", "clock", "ops"):
+        if not torch.equal(g[k].cpu(), c[k]):
+            raise AssertionError(f"{what}: {k} differs")
+    for col in g["cols"]:
+        if not torch.equal(g["cols"][col].cpu(), c["cols"][col]):
+            raise AssertionError(f"{what}: column {col} differs")
+    for ix in g["indexes"]:
+        for k in ("rid", "key", "stale"):
+            if not torch.equal(g["indexes"][ix][k].cpu(),
+                               c["indexes"][ix][k]):
+                raise AssertionError(f"{what}: index {ix} {k} differs")
+
+
+def shard_statements(pr, p, u, base):
+    """Every SHARD_STMTS statement a few times (labels for the p50s)."""
+    for i in range(8):
+        for label, sql, args, _ in SHARD_STMTS:
+            pr.run("execute", sql, args(p, u, base + i), label=label)
+    pr.run("executemany", "SELECT * FROM sh WHERE user_id = ? LIMIT 64",
+           [(x,) for x in u[300:316]], label="user_select_x16")
+    pr.run("executemany", "DELETE FROM sh WHERE page_id = ?",
+           [(x,) for x in p[700:764]], label="page_delete_x64")
+
+
+def scheduler_writes(pr, p, u):
+    """Four threads submit pruned writes (per-user UPDATE / DELETE) to a
+    BatchScheduler over the card daemon, each on its own users; the CPU
+    daemon then takes the same statements one by one. The writes commute,
+    so every count and the final state must agree. Dispatch runs with
+    sync debugging set to "error"."""
+    import asyncio
+    import threading
+    from repro_torch.core.scheduler import BatchScheduler
+    loop = asyncio.new_event_loop()
+    th_loop = threading.Thread(target=loop.run_forever, daemon=True)
+    th_loop.start()
+    sched = BatchScheduler(pr.gpu, concurrency=True)
+    asyncio.run_coroutine_threadsafe(sched.start(), loop).result(60)
+    # distinct users: each thread's writes touch users no other thread does
+    users = list(dict.fromkeys(u[500:]))[:48]
+    jobs = [[(sql, args) for i in range(t, 48, 4)
+             for sql, args in (
+                 ("UPDATE sh SET data = data + 1 WHERE user_id = ?",
+                  (users[i],)),
+                 ("DELETE FROM sh WHERE user_id = ? AND page_id > ?",
+                  (users[i], 25_000)))] for t in range(4)]
+    results: dict = {}
+
+    async def one(sql, args):
+        return await sched.submit(sql, args)
+
+    def worker(t):
+        results[t] = [asyncio.run_coroutine_threadsafe(one(*job), loop)
+                      .result(120) for job in jobs[t]]
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    asyncio.run_coroutine_threadsafe(sched.stop(), loop).result(60)
+    stats = dict(sched.stats)
+    loop.call_soon_threadsafe(loop.stop)
+    th_loop.join(60)
+    if len(results) != 4:
+        raise AssertionError("a scheduler thread did not finish")
+    for t in range(4):
+        for (sql, args), r in zip(jobs[t], results[t]):
+            want = pr.cpu.execute(sql, args).count
+            if r.count != want:
+                raise AssertionError(f"scheduled {sql} {args}: {r.count} vs "
+                                     f"{want}")
+    pr.gpu.drain()
+    same_state(pr, "sh", "after the scheduler's writes")
+    if not stats.get("lane_dispatches"):
+        raise AssertionError(f"no lane lock was taken: {stats}")
+    return {k: stats[k] for k in ("lane_dispatches", "lane_splits")
+            if k in stats}
+
+
+def fanout_launches(pr, sql, args):
+    """Kernel launches of one warm replay of a fan-out statement (its
+    graph's record): the scan and the probe each at most once."""
+    pr.run("execute", sql, args)   # planned (captured) by now
+    before = dict(_build.launches)   # the path's counts keep running
+    pr.gpu.execute(sql, args)
+    pr.gpu.drain()
+    got = {k: v - before[k] for k, v in _build.launches.items()
+           if v != before[k]}
+    pr.cpu.execute(sql, args)
+    if got.get("relscan_scan", 0) > 1 or got.get("hash_probe", 0) > 1 or \
+            got.get("hash_build", 0) > 1:
+        raise AssertionError(f"a fan-out of 8 shards launched {got}")
+    return got
+
+
+def phase_shards(card):
+    """Table 2 (100,000 records over 30,000 pages and 1,000 users) in
+    ``CAPACITY 131072 SHARDS 8 PARTITION BY user_id`` (16,384 rows a
+    shard), with and without INDEX(page_id), on the card daemon and on a
+    CPU daemon: the bulk load (the device split), per-user statements
+    (one lane each) and per-page statements (fan-out over 8 shards),
+    EXPIRE, REINDEX, SHOW STATS's skew, RESHARD 4 and the same statements
+    again, a WARMUP of a pruned and a fan-out shape and warm replays (a
+    warm pruned statement is one graph launch and no kernel launch), four
+    threads of pruned writes through the BatchScheduler, and FLUSH. Every
+    count, row, row id and value equals the CPU daemon's, every dispatch
+    runs with sync debugging set to "error", and a fan-out's scan, probe
+    and build each launch once per call. Reports the graph pool's bytes
+    and wall p50s of pruned and fan-out statements."""
+    pages, users, payload = table2_data()
+    p, u = pages.tolist(), users.tolist()
+    report = {"phase": "shards", "card": card}
+    for variant, extra in (("plain", ""), ("indexed", ", INDEX(page_id)")):
+        pr = Pair(warmup=False)
+        pr.run("execute", SHARD_DDL.format(extra=extra))
+        t0 = time.perf_counter()
+        pr.run("executemany",
+               "INSERT INTO sh (page_id, user_id, data) VALUES (?, ?, ?)",
+               list(zip(p, u, payload.tolist())), label="bulk_load")
+        load_s = time.perf_counter() - t0
+        skew = stats_pair(pr, "sh")["per_shard"]
+        shard_statements(pr, p, u, 0)
+        launches = {"page_select": fanout_launches(
+            pr, SHARD_STMTS[2][1], (p[140],)),
+            "page_delete": fanout_launches(pr, SHARD_STMTS[3][1], (p[12],)),
+            "page_count": fanout_launches(pr, SHARD_STMTS[4][1], (p[610],))}
+        admin_pair(pr, "EXPIRE sh")
+        admin_pair(pr, "REINDEX sh")
+        same_state(pr, "sh", f"{variant} before RESHARD")
+        admin_pair(pr, "ALTER TABLE sh RESHARD 4")
+        skew4 = stats_pair(pr, "sh")["per_shard"]
+        same_state(pr, "sh", f"{variant} after RESHARD 4")
+        shard_statements(pr, p, u, 20)
+        # WARMUP of two new shapes: the pruned one plans every lane (4
+        # after the RESHARD), the fan-out one plan; then warm replays
+        warm_stmts = (("SELECT data FROM sh WHERE user_id = ?",
+                       lambda i: (u[100 + i],), 4),
+                      ("SELECT user_id FROM sh WHERE page_id = ?",
+                       lambda i: (p[900 + i],), 1))
+        for sql, _, want in warm_stmts:
+            counts = [db.execute(f"WARMUP sh LIKE '{sql}'").count
+                      for db in (pr.gpu, pr.cpu)]
+            if counts != [want, want]:
+                raise AssertionError(f"WARMUP {sql}: {counts} plans, "
+                                     f"expected {want}")
+        st0 = executors(pr.gpu, "sh")
+        for i in range(20):
+            for label, (sql, args, _) in zip(("warm_pruned", "warm_fanout"),
+                                             warm_stmts):
+                pr.run("execute", sql, args(i), label=label)
+        if executors(pr.gpu, "sh")["misses"] != st0["misses"]:
+            raise AssertionError("warmed shapes missed")
+        rnd = [(warm_stmts[0][0], (u[200 + i],)) for i in range(20)]
+        calls = launch_calls(lambda: [pr.gpu.execute(*x) for x in rnd],
+                             len(rnd))
+        if calls["cudaGraphLaunch"] != 1 or any(
+                calls[k] for k in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                   "cuLaunchKernel")):
+            raise AssertionError(f"a warm pruned statement: {calls}")
+        for x in rnd:
+            pr.cpu.execute(*x)
+        sched = scheduler_writes(pr, p, u)
+        n_flush = admin_pair(pr, "FLUSH sh")["count"]
+        same_state(pr, "sh", f"{variant} at the end")
+        report[variant] = {
+            "load_s": round(load_s, 3), "skew_live_rows_8": [
+                x["live_rows"] for x in skew],
+            "skew_live_rows_4": [x["live_rows"] for x in skew4],
+            "fanout_launches_per_call": launches,
+            "executors": executors(pr.gpu, "sh"),
+            "pool_bytes": pool_bytes(pr.gpu, "sh"),
+            "launch_calls_per_warm_pruned_stmt": calls,
+            "scheduler": sched, "flushed_rows": n_flush,
+            "wall_p50_us": {k: round(p50(v), 1) for k, v in pr.lat.items()}}
+    emit(report)
+
+
 # ------------------------------------------------------------ profile
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -2281,6 +2771,8 @@ def main():
         ("wire", lambda: phase_wire(card), scan_compact + ("hash_probe",)),
         ("graphs", lambda: phase_graphs(card),
          scan_compact + ("hash_build", "hash_probe")),
+        ("shards", lambda: phase_shards(card),
+         scan_compact + ("hash_build", "hash_probe")),
         ("serve", lambda: phase_serve(card, dev, serve), serve_need),
         ("serve_zamba2", lambda: phase_serve(
             card, dev, zamba, "zamba2-2.7b", max_seq=512,
@@ -2319,6 +2811,14 @@ def main():
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
                         "library_ms": t.get("library_ms")})
+        # the shard axis (S = 8 shards of 16,384 rows, one call) beside
+        # the same work as 8 separate unsharded calls
+        rows = [r for r in timing["shard_axis"] if r["kernel"] == name]
+        if rows:
+            kernels[-1]["shard_axis"] = [
+                {k: r[k] for k in ("shape", "device_ms", "bound_ms",
+                                   "separate_calls_device_ms")}
+                for r in rows]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

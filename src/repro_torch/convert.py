@@ -12,6 +12,14 @@ same way.
 TEXT columns hold interner ids, so the strings must agree too:
 :func:`copy_interner` replays one daemon's string table into another's.
 
+A sharded table is more than its state: the reference keeps one state per
+shard (``t.lanes``) and lazy-clock bookkeeping beside them (the ticks
+applied to each lane, the expiries a lane still owes, the per-shard
+counters), and the port one stacked state with the same bookkeeping.
+:func:`table_snapshot` reads either daemon's table into numpy and
+:func:`load_table` installs a snapshot into either, so both daemons start
+from the same contents.
+
 Model weights travel the same way: the reference's parameter tree (after
 ``repro.models.params.split``, every leaf through ``numpy.asarray``) has
 the port's names and stacked layout, so :func:`params_from_numpy` is one
@@ -39,6 +47,66 @@ def state_to_numpy(state: Any) -> Any:
     if isinstance(state, dict):
         return {k: state_to_numpy(v) for k, v in state.items()}
     return state.detach().cpu().numpy()
+
+
+_BOOKKEEPING = ("host_ops", "ticks_total", "lane_ticks", "expire_due",
+                "stmt_routed", "writes_routed", "rows_in")
+
+
+def _numpy(tree: Any) -> Any:
+    """Nested dict of arrays (JAX's or the port's tensors) -> numpy."""
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.array(tree, copy=True)
+
+
+def table_snapshot(t) -> dict:
+    """One daemon's live table (the reference's or the port's ``_Table``)
+    as numpy: ``lanes`` (one state a shard, raw: no catch-up applied) for
+    a sharded table, else ``state``, plus the bookkeeping."""
+    out = {k: (np.array(v, copy=True) if isinstance(v, np.ndarray)
+               else (list(v) if isinstance(v, list) else v))
+           for k in _BOOKKEEPING for v in (getattr(t, k),)}
+    if t.lanes is None:
+        out["state"] = _numpy(t.state)
+    else:
+        out["lanes"] = [_numpy(lane) for lane in t.lanes]
+    return out
+
+
+def load_table(db, name: str, snap: dict, array=None) -> None:
+    """Install :func:`table_snapshot`'s ``snap`` into table ``name`` of
+    ``db``, which must have the snapshot's schema. ``array`` is None for
+    the port (the lanes are stacked and copied into the table's tensors)
+    and the reference's array constructor (``jax.numpy.asarray``) for the
+    reference daemon, whose lanes stay separate."""
+    t = db.tables[name]
+    if array is None:
+        state = snap["state"] if "state" in snap else _stack(snap["lanes"])
+        db.swap_table_state(name, state_from_numpy(state, db.device))
+    elif "state" in snap:
+        t.state = _map(array, snap["state"])
+    else:
+        t.lanes = [_map(array, lane) for lane in snap["lanes"]]
+    with t.lock:
+        for k in _BOOKKEEPING:
+            v = snap[k]
+            setattr(t, k, np.array(v, copy=True) if isinstance(v, np.ndarray)
+                    else (list(v) if isinstance(v, list) else v))
+
+
+def _stack(lanes: list) -> dict:
+    if isinstance(lanes[0], dict):
+        return {k: _stack([lane[k] for lane in lanes]) for k in lanes[0]}
+    return np.stack(lanes)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def copy_interner(src, dst) -> None:

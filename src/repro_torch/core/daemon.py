@@ -1,5 +1,5 @@
 """SQLCached: the cache daemon object (port of ``repro.core.daemon``, for
-single-node monolithic tables).
+single-node tables, monolithic or sharded).
 
 Clients speak a subset of SQL (``execute`` / ``executemany``, or over TCP
 through ``core/protocol.py``). Statements are parsed once and planned once
@@ -42,9 +42,24 @@ default from ``REPRO_WARMUP``; ``drain_warmup()`` joins it), ``WARMUP t
 scheduler keeps cold groups out of warm waves (:meth:`SQLCached.group_warm`).
 Warm-up ticks no clock and no op count and never touches table contents.
 
-Not in this port yet, and refused with ``SQLError``: ``SHARDS n>1`` /
-``PARTITION BY``, ``ALTER TABLE ... RESHARD`` / ``RETAIN SLOTS`` and
-``CHECKPOINT`` / ``RESTORE``.
+Sharded tables (``CREATE TABLE t (...) SHARDS n [PARTITION BY col]``,
+``core/shards.py``) keep one stacked state (every leaf ``[n, ...]``) and
+``n`` execution LANES, each a dict of views ``leaf[i]``. A dispatch picks a
+shape (``_exec_mode``): a statement (group) whose shard route is provable
+on the host and lands on one shard runs the monolithic executors on that
+lane (``lane``: one CUDA graph per statement shape and lane, over that
+lane's views, row ids globalized in the graph); everything else runs the
+stacked executors of ``core/shards.py`` on the whole stack (``stacked``),
+whose kernels take the shards on one axis. Clocks stay in logical
+lockstep through lazy catch-up deltas, and an op-count expiry that fires
+during a lane dispatch is replayed by every other lane on its next
+dispatch at the recorded time (``_Table``), as in the reference.
+``SQLCached(lane_exec=False)`` sends every sharded statement to the
+stacked path. EXPLAIN reports the shard route, ``SHOW STATS t`` the
+per-shard skew, and ``ALTER TABLE t RESHARD n`` re-partitions live.
+
+Not in this port yet, and refused with ``SQLError``: ``ALTER TABLE ...
+RETAIN SLOTS`` and ``CHECKPOINT`` / ``RESTORE``.
 """
 from __future__ import annotations
 
@@ -59,6 +74,7 @@ import torch
 
 from repro_torch.core import planner as PL
 from repro_torch.core import predicate as P
+from repro_torch.core import shards as SH
 from repro_torch.core import sqlparse as S
 from repro_torch.core import table as T
 from repro_torch.core import telemetry as TEL
@@ -330,15 +346,35 @@ class Result:
 
 @dataclasses.dataclass
 class _Table:
-    """One live table: its schema, its device state (a dict of tensors,
-    ``core/table.py`` layout, whose tensors keep their addresses), its
-    executor cache and its host-side bookkeeping."""
+    """One live table: its schema, its device state (a dict of tensors
+    whose tensors keep their addresses: ``core/table.py``'s layout, or
+    for a sharded table ``core/shards.py``'s stack), its executor cache
+    and its host-side bookkeeping. ``eng`` is the module that executes
+    whole-table statements against ``state`` (``core.table`` or
+    ``core.shards``).
+
+    A sharded table also has ``lanes``: lane ``i`` is shard ``i`` of the
+    stack as views, which the monolithic executors take. Clock lockstep
+    is LAZY, as in the reference: ``ticks_total`` counts the table's
+    logical ticks, ``lane_ticks[i]`` those applied to lane i's clock, and
+    every dispatch first adds the lane's deficit in the same executor
+    call. ``expire_due[i]`` is None or the ``ticks_total`` at which a
+    table-wide op-count expiry fired while lane i was not dispatched: its
+    next dispatch replays that expiry at that time (validity only).
+    ``stmt_routed`` / ``writes_routed`` / ``rows_in`` are per-shard skew
+    counters (``SHOW STATS t``): pruned statements count for their shard,
+    fan-out for every shard."""
 
     schema: TableSchema
     state: dict
     host_ops: int = 0
+    eng: Any = T
+    lanes: list | None = None
     lock: Any = dataclasses.field(default_factory=threading.Lock)
     execs: ExecutorCache = dataclasses.field(default_factory=ExecutorCache)
+    ticks_total: int = 0
+    lane_ticks: list = dataclasses.field(default_factory=list)
+    expire_due: list = dataclasses.field(default_factory=list)
     stmt_routed: Any = None
     writes_routed: Any = None
     rows_in: Any = None
@@ -383,15 +419,35 @@ def _np_terms_int(terms, param_cols) -> bool:
 
 
 _UNSUPPORTED = {
-    S.AlterReshard: "ALTER TABLE ... RESHARD",
     S.AlterRetain: "ALTER TABLE ... RETAIN SLOTS",
     S.Checkpoint: "CHECKPOINT",
     S.Restore: "RESTORE",
 }
 
 
+def _i32(x) -> np.ndarray:
+    """A host int32 array (0-d for a scalar) the executor cache stages."""
+    return np.asarray(x, np.int32)
+
+
+def _replay_expiry(eng, xsch: TableSchema, state: dict,
+                   pre_delta: torch.Tensor) -> dict:
+    """``state`` with the op-count expiries its lanes still owe replayed:
+    where ``pre_delta >= 0`` (0-d for a lane, [S] for the stack), the
+    lane's validity after an expiry run ``pre_delta`` ticks ago (ages at
+    the firing time; only validity changes, the firing dispatch already
+    ticked)."""
+    d = pre_delta.clamp(min=0)
+    aged = dict(state, clock=state["clock"] - d, ops=state["ops"] - d)
+    due = pre_delta >= 0
+    if due.dim():
+        due = due[:, None]
+    return dict(state, valid=torch.where(
+        due, eng.expire(xsch, aged)[0]["valid"], state["valid"]))
+
+
 class SQLCached:
-    def __init__(self, auto_expire: bool = True,
+    def __init__(self, auto_expire: bool = True, lane_exec: bool = True,
                  slow_ms: float | None = None, *, warmup: bool | None = None,
                  device=None):
         self.device = resolve_device(device)
@@ -401,6 +457,9 @@ class SQLCached:
         # histograms, slow-statement ring
         self.telemetry = TEL.Telemetry(slow_ms=slow_ms)
         self.auto_expire = auto_expire
+        # lane_exec=False sends every sharded statement to the stacked
+        # executors (the reference's baseline regime for lane locks)
+        self.lane_exec = lane_exec
         # warmup=None defers to REPRO_WARMUP (default on): CREATE TABLE
         # pre-plans the canonical hot shapes in a background thread; the
         # WARMUP statement works regardless
@@ -461,45 +520,92 @@ class SQLCached:
         executor cache, never turned into tensors inside an executor)."""
         return tuple(T.host_column(p) for p in params)
 
-    def _executor(self, t: _Table, key: tuple, builder, expiry: bool = True):
+    def _executor(self, t: _Table, key: tuple, builder, expiry: bool = True,
+                  sid: int | None = None):
         """The table's :class:`ExecEntry` for ``key`` under the current
         schema epoch (core/execache.py). An entry built through
-        :meth:`_with_expiry` plans both expiry variants when the flag can
-        fire."""
+        :meth:`_build_exec` plans both expiry variants when the flag can
+        fire; a lane's entry (``sid``) primes on that lane of the shadow
+        state."""
         fires = (expiry and self.auto_expire
                  and t.schema.expiry.ops_interval > 0)
-        return t.execs.get(key, builder, (False, True) if fires else (False,))
+        view = None if sid is None else (lambda sh: SH.lane_view(sh, sid))
+        return t.execs.get(key, builder, (False, True) if fires else (False,),
+                           view=view)
 
-    def _sig(self, t: _Table, stmt, kind: str, b) -> tuple:
+    def _sig(self, t: _Table, stmt, kind: str, b, mode: str, sid) -> tuple:
         """The dispatch signature recorded in ``t.execs.sigs`` once a shape
         is planned: (kind, parsed stmt, bucket, mode, placement), the
-        reference's shape; the port's tables are monolithic on one device.
-        ``b`` is None on the singleton executors, the power-of-two bucket
-        on the executemany family (INSERT always buckets)."""
-        return (kind, stmt, b, "mono", ("dev", str(self.device)))
+        reference's shape. A lane has plans of its own, so its placement
+        names the lane. ``b`` is None on the singleton executors, the
+        power-of-two bucket on the executemany family (INSERT always
+        buckets)."""
+        place = ("dev", str(self.device))
+        if mode == "lane":
+            place += (sid,)
+        return (kind, stmt, b, mode, place)
 
-    def _note_sig(self, t: _Table, stmt, kind: str, b) -> None:
-        t.execs.note_sig(self._sig(t, stmt, kind, b))
+    def _note_sig(self, t: _Table, stmt, kind: str, b, mode: str,
+                  sid) -> None:
+        t.execs.note_sig(self._sig(t, stmt, kind, b, mode, sid))
 
-    def _finish_warm(self, t: _Table, entry, stmt, kind: str, b,
-                     args: tuple) -> int:
+    def _target(self, t: _Table, mode: str, sid) -> dict:
+        """The state a dispatch of ``mode`` runs on: a lane's views or the
+        table's own state."""
+        return t.lanes[sid] if mode == "lane" else t.state
+
+    def _finish_warm(self, t: _Table, entry, stmt, kind: str, b, mode: str,
+                     sid, site_args: tuple) -> int:
         """Shared tail of every site's warm branch: plan the entry for
-        these placeholder values and record the signature."""
-        new = entry.warm(t.state, args)
-        self._note_sig(t, stmt, kind, b)
+        placeholder values whose types match what ``_run_state`` passes
+        (the clock catch-up deltas included), and record the signature."""
+        if mode == "lane":
+            lead = (_i32(0), _i32(-1))
+        elif mode == "stacked":
+            n = t.schema.shards
+            lead = (_i32(np.zeros(n)), _i32(np.full(n, -1)))
+        else:
+            lead = ()
+        new = entry.warm(self._target(t, mode, sid), lead + tuple(site_args))
+        self._note_sig(t, stmt, kind, b, mode, sid)
         return int(new)
 
-    def _with_expiry(self, schema: TableSchema, base):
-        """Wrap ``base(state, *args) -> (state, *outs)`` with the §4.3
-        op-count expiry: the flag is computed on the host before the
-        dispatch (``_expire_flag``), so choosing the expiry is no device
-        sync, and the expiry runs in the same executor call."""
-        iv = schema.expiry.ops_interval
+    def _build_exec(self, xsch: TableSchema, base, mode: str, eng):
+        """Wrap ``base(state, *args) -> (state, *outs)`` for one dispatch
+        shape with the §4.3 op-count expiry (the flag is computed on the
+        host before the dispatch, ``_expire_flag``, so choosing it is no
+        device sync) and, on a sharded table, the lazy clock catch-up:
 
-        def fn(state, expire_flag, *args):
+        * ``mono``:    ``fn(state, flag, *args)``;
+        * ``lane``:    ``fn(lane, flag, delta, pre_delta, *args)``: ``delta``
+          catches the lane's clock up to the table's logical time, and a
+          ``pre_delta >= 0`` replays a table-wide expiry this lane missed,
+          ``pre_delta`` ticks ago (validity only). The fired expiry covers
+          this lane only;
+        * ``stacked``: ``fn(stack, flag, deltas, pre_deltas, *args)``, the
+          same for every shard at once.
+
+        The replay is computed on every dispatch of a table with an op
+        interval and kept where due (a device select, no host branch on
+        a device value)."""
+        iv = xsch.expiry.ops_interval
+        if mode == "mono":
+            def fn(state, expire_flag, *args):
+                out = base(state, *args)
+                if iv > 0 and expire_flag:
+                    out = (T.expire(xsch, out[0])[0],) + tuple(out[1:])
+                return out
+
+            return fn
+
+        def fn(state, expire_flag, delta, pre_delta, *args):
+            state = dict(state, clock=state["clock"] + delta,
+                         ops=state["ops"] + delta)
+            if iv > 0:
+                state = _replay_expiry(eng, xsch, state, pre_delta)
             out = base(state, *args)
             if iv > 0 and expire_flag:
-                out = (T.expire(schema, out[0])[0],) + tuple(out[1:])
+                out = (eng.expire(xsch, out[0])[0],) + tuple(out[1:])
             return out
 
         return fn
@@ -516,34 +622,289 @@ class SQLCached:
             return bool(self.auto_expire and iv > 0
                         and before // iv != t.host_ops // iv)
 
-    def _run_state(self, t: _Table, fn, flag: bool, args: tuple):
-        """Run an executor entry against the table's state, which it updates
-        in place; ``args`` is a host tree of numpy arrays (the bound
-        values). Returns the executor's other outputs, as fresh tensors."""
-        TEL.note_mode("mono")
-        return fn(t.state, flag, args)
-
-    def _note_route(self, t: _Table, n: int, is_write: bool,
-                    rows_in: int | None = None) -> None:
-        """Statement counters of ``SHOW STATS t`` (one entry: the port's
-        tables are monolithic)."""
+    def _run_state(self, t: _Table, fn, mode: str, sid, flag: bool,
+                   ticks: int, args: tuple):
+        """Run an executor entry against the right state (the table's, or
+        one lane's views), which it updates in place, booking the lazy
+        clock catch-up. ``args`` is a host tree of numpy arrays (the bound
+        values); ``ticks`` the clock ticks the executor performs. Returns
+        the executor's other outputs, as fresh tensors."""
+        TEL.note_mode(mode)
+        if mode == "mono":
+            return fn(t.state, flag, args)
+        n_sh = t.schema.shards
+        # a fired expiry ticks the clock once more than the base executor
+        total = ticks + (1 if flag else 0)
         with t.lock:
-            t.stmt_routed += n
-            if is_write:
-                t.writes_routed += n
+            g0 = t.ticks_total
+            t.ticks_total = g0 + total
+            fire_at = g0 + ticks if flag else None
+            if mode == "lane":
+                old_tick = t.lane_ticks[sid]
+                t.lane_ticks[sid] = g0 + total
+                pre_at = t.expire_due[sid]
+                t.expire_due[sid] = None
+            else:
+                old_ticks = list(t.lane_ticks)
+                deltas = _i32([g0 - lt for lt in t.lane_ticks])
+                t.lane_ticks = [g0 + total] * n_sh
+                pre_ats = list(t.expire_due)
+                t.expire_due = [None] * n_sh
+        if mode == "lane":
+            lead = (_i32(g0 - old_tick),
+                    _i32(-1 if pre_at is None else g0 - pre_at))
+        else:
+            lead = (deltas,
+                    _i32([-1 if at is None else g0 - at for at in pre_ats]))
+        try:
+            out = fn(self._target(t, mode, sid), flag, lead + tuple(args))
+        except Exception:
+            # the executor raised before it wrote the state (a bad
+            # binding): un-book the ticks so the clocks do not drift
+            with t.lock:
+                if mode == "lane":
+                    t.lane_ticks[sid] = old_tick
+                    t.expire_due[sid] = pre_at
+                else:
+                    t.lane_ticks = old_ticks
+                    t.expire_due = pre_ats
+                if t.ticks_total == g0 + total:
+                    t.ticks_total = g0
+            raise
+        if mode == "lane" and flag:
+            # the boundary fired and ran on this lane: every other lane
+            # replays it on its own next dispatch (armed only once the
+            # dispatch has succeeded)
+            with t.lock:
+                for i in range(n_sh):
+                    if i != sid:
+                        t.expire_due[i] = fire_at
+        return out
+
+    def _note_route(self, t: _Table, sid, n: int, is_write: bool,
+                    rows_in=None) -> None:
+        """Per-shard skew counters of ``SHOW STATS t``: pruned traffic
+        counts for its shard, fan-out (``sid`` None) for every shard."""
+        with t.lock:
+            if sid is None:
+                t.stmt_routed += n
+                if is_write:
+                    t.writes_routed += n
+            else:
+                t.stmt_routed[sid] += n
+                if is_write:
+                    t.writes_routed[sid] += n
             if rows_in is not None:
                 t.rows_in += rows_in
 
+    @staticmethod
+    def _insert_sids(t: _Table, pvals, n_rows: int):
+        """Per-shard inserted-row counts from the host-read partition
+        values (None = not readable); a monolithic table counts every row
+        into its one entry."""
+        if t.lanes is None:
+            return np.asarray([n_rows], np.int64)
+        if pvals is None:
+            return None
+        n_sh = t.schema.shards
+        out = np.zeros(n_sh, np.int64)
+        for v in pvals:
+            out[SH.shard_of_host(v, n_sh)] += 1
+        return out
+
+    @staticmethod
+    def _check_partition_update(t: _Table, set_cols) -> None:
+        """Refuse an UPDATE of a sharded table's partition column before
+        anything is counted (the lane path runs the monolithic executors,
+        which know no partition)."""
+        if t.lanes is None:
+            return
+        cols = {("_ttl" if c.upper() == "TTL" else c) for c in set_cols}
+        if t.schema.partition_by in cols:
+            raise ValueError(
+                f"cannot UPDATE partition column "
+                f"{t.schema.partition_by!r} of sharded table "
+                f"{t.schema.name!r} (DELETE + INSERT instead)")
+
+    def _caught_up(self, t: _Table) -> dict:
+        """A stacked SNAPSHOT of a sharded table at its logical time: every
+        lane's clock caught up and every deferred expiry replayed (validity
+        only), so it never shows rows the lockstep engine already dropped.
+        Reads the live state and writes nothing back."""
+        with t.lock:
+            g0 = t.ticks_total
+            deltas = [g0 - lt for lt in t.lane_ticks]
+            pre = [-1 if due is None else g0 - due for due in t.expire_due]
+        dev = self.device
+        st = SH._tree(lambda x: x.clone(), t.state)
+        d = T.to_device(_i32(deltas), dev)
+        st["clock"] = st["clock"] + d
+        st["ops"] = st["ops"] + d
+        if t.schema.expiry.ops_interval > 0 and max(pre) >= 0:
+            st = _replay_expiry(SH, t.schema, st, T.to_device(_i32(pre), dev))
+        return st
+
     # ------------------------------------------- scheduler routing hooks
-    def group_lane(self, shape, params_list) -> None:
-        """Monolithic tables have no execution lanes."""
-        return None
+    def _lane_of(self, t: _Table, stmt, params_list,
+                 pvals=None) -> int | None:
+        """THE lane-route decision: the one lane this statement (group)
+        executes on, or None for a whole-table dispatch. The scheduler's
+        lock (:meth:`group_lane`) and the dispatch shape
+        (:meth:`_exec_mode`) both read it, so they cannot disagree."""
+        if t.lanes is None or not self.lane_exec or stmt is None:
+            return None
+        try:
+            ids = self._shard_ids_of(t, stmt, params_list, pvals=pvals)
+        except Exception:  # noqa: BLE001 — routing is best effort
+            return None
+        if ids is None or len(ids) != 1:
+            return None
+        if isinstance(stmt, S.Insert) and _bucket(
+                len(params_list)) > SH.shard_capacity(t.schema):
+            # a padded batch wider than one shard goes through the stacked
+            # split, which chunks it
+            return None
+        return next(iter(ids))
 
-    def item_lanes(self, shape, params_list) -> None:
-        return None
+    def group_lane(self, shape: StatementShape | None,
+                   params_list: Sequence[Sequence[Any]]) -> int | None:
+        """The execution lane a batch of same-shape statements runs on
+        (None = the dispatch takes the whole table); the BatchScheduler
+        locks exactly what this reports."""
+        if shape is None or shape.table is None:
+            return None
+        t = self.tables.get(shape.table)
+        if t is None:
+            return None
+        stmt = shape.key[1] if len(shape.key) == 2 else None
+        return self._lane_of(t, stmt, params_list)
 
-    def group_shard_ids(self, shape, params_list) -> None:
-        return None
+    def item_lanes(self, shape: StatementShape | None,
+                   params_list: Sequence[Sequence[Any]]) -> list | None:
+        """Per-statement lane routes of one group (entry i: the lane
+        statement i dispatches on, None when it fans out), or None when
+        lane routing does not apply. The scheduler splits a multi-lane
+        group into per-lane sub-batches with it."""
+        if shape is None or shape.table is None:
+            return None
+        t = self.tables.get(shape.table)
+        if t is None or t.lanes is None or not self.lane_exec:
+            return None
+        stmt = shape.key[1] if len(shape.key) == 2 else None
+        if stmt is None:
+            return None
+        return [self._lane_of(t, stmt, [pr]) for pr in params_list]
+
+    def group_shard_ids(self, shape: StatementShape | None,
+                        params_list: Sequence[Sequence[Any]]
+                        ) -> frozenset | None:
+        """The shard ids a batch of same-shape statements touches, when the
+        host can prove them (sharded table, every statement prunes or an
+        INSERT's partition values are readable); None = every shard. Two
+        groups with disjoint sets commute at the scheduler."""
+        if shape is None or shape.table is None:
+            return None
+        t = self.tables.get(shape.table)
+        if t is None or not SH.is_sharded(t.schema):
+            return None
+        stmt = shape.key[1] if len(shape.key) == 2 else None
+        if stmt is None:
+            return None
+        return self._shard_ids_of(t, stmt, params_list)
+
+    def _shard_ids_of(self, t: _Table, stmt,
+                      params_list: Sequence[Sequence[Any]],
+                      pvals=None) -> frozenset | None:
+        """Host-side shard routing of one statement (group), shared by
+        :meth:`group_shard_ids` and the lane route. ``pvals`` reuses an
+        INSERT's extraction."""
+        n = t.schema.shards
+        if isinstance(stmt, S.Insert):
+            if pvals is None:
+                pvals = self._insert_pvals(t, stmt, params_list)
+            if pvals is None:
+                return None
+            return frozenset(SH.shard_of_host(v, n) for v in pvals)
+        if not isinstance(stmt, (S.Select, S.Update, S.Delete)):
+            return None
+        route = PL.plan_shards(t.schema, self._intern_ast(stmt.where))
+        if route.key is None:
+            return None
+        kind, v = route.key.value
+        out = set()
+        for pr in params_list:
+            if kind == "const":
+                val = v
+            else:
+                if v >= len(pr):
+                    return None
+                val = self._host_pval(pr[v])
+                if val is None:
+                    return None
+            out.add(SH.shard_of_host(int(val), n))
+        return frozenset(out)
+
+    def _host_pval(self, val) -> int | None:
+        """One bound partition-key value for host routing: TEXT interned,
+        ints passed through, anything else (floats keep exact-compare
+        semantics) None. The one value rule of every host router."""
+        if isinstance(val, str):
+            val = self.interner.intern(val)
+        if isinstance(val, bool) or not isinstance(val, (int, np.integer)):
+            return None
+        return int(val)
+
+    def _insert_pvals(self, t: _Table, stmt,
+                      params_list: Sequence[Sequence[Any]]) -> list | None:
+        """The host-readable partition value of every row of an INSERT
+        batch, or None when it is not provable (a computed expression, a
+        non-integer binding)."""
+        pcol = t.schema.partition_by
+        cols = stmt.columns or t.schema.column_names[: len(stmt.values)]
+        if pcol not in cols:
+            return [0] * len(params_list)  # the column's default
+        vast = stmt.values[list(cols).index(pcol)]
+        if isinstance(vast, P.Const) and isinstance(vast.value, int) \
+                and not isinstance(vast.value, bool):
+            return [int(vast.value)] * len(params_list)
+        if not isinstance(vast, P.Param):
+            return None
+        j = vast.index
+        out = []
+        for pr in params_list:
+            if j >= len(pr):
+                return None
+            val = self._host_pval(pr[j])
+            if val is None:
+                return None
+            out.append(val)
+        return out
+
+    def _exec_mode(self, t: _Table, stmt, params_list, n_stmts: int,
+                   pvals=None):
+        """The dispatch shape of one statement (group), consuming the §4.3
+        op-count interval: ``(mode, eng, xsch, sid, flag)`` with mode
+        ``mono`` (unsharded), ``lane`` (every statement provably on shard
+        ``sid``: the monolithic executors on that lane) or ``stacked``
+        (fan-out, several shards or an unknown route)."""
+        sid = self._lane_of(t, stmt, params_list, pvals=pvals)
+        fired = self._expire_flag(t, n_stmts)
+        if t.lanes is None:
+            return "mono", T, t.schema, None, fired
+        if sid is not None:
+            return "lane", T, SH.shard_schema(t.schema), sid, fired
+        return "stacked", SH, t.schema, None, fired
+
+    def _warm_env(self, t: _Table, mode: str):
+        """(eng, xsch) of a forced dispatch mode: the warm paths' twin of
+        :meth:`_exec_mode`, which would consume the op interval."""
+        if mode == "lane":
+            return T, SH.shard_schema(t.schema)
+        return t.eng, t.schema
+
+    def _lane_offset(self, t: _Table, mode: str, sid) -> int:
+        """The first global row id of a lane dispatch's shard (0 else)."""
+        return sid * SH.shard_capacity(t.schema) if mode == "lane" else 0
 
     # ----------------------------------------------------------- statements
     def execute(
@@ -590,6 +951,8 @@ class SQLCached:
             return self._do_show_metrics(stmt)
         if isinstance(stmt, S.ShowSlow):
             return self._do_show_slow()
+        if isinstance(stmt, S.AlterReshard):
+            return self._do_reshard(stmt)
         if isinstance(stmt, S.Explain):
             return self._do_explain(stmt.inner)
         if isinstance(stmt, S.ExplainAnalyze):
@@ -599,7 +962,7 @@ class SQLCached:
         name = _UNSUPPORTED.get(type(stmt))
         if name is not None:
             raise S.SQLError(f"{name} is not supported by this port yet "
-                             f"(single-node tables only)")
+                             f"(no cluster or snapshot statements)")
         raise S.SQLError(f"unhandled statement {stmt!r}")
 
     @staticmethod
@@ -687,9 +1050,6 @@ class SQLCached:
     def _do_create(self, stmt: S.CreateTable) -> Result:
         from repro_torch.core.sqlparse import _PAYLOAD_DTYPES
 
-        if stmt.shards > 1 or stmt.partition_by is not None:
-            raise S.SQLError("SHARDS / PARTITION BY are not supported by "
-                             "this port yet (single-node tables only)")
         schema = make_schema(
             stmt.table,
             list(stmt.columns),
@@ -698,6 +1058,8 @@ class SQLCached:
             max_select=stmt.max_select,
             expiry=ExpiryPolicy(stmt.ttl, stmt.max_rows, stmt.ops_interval),
             indexes=stmt.indexes,
+            shards=stmt.shards,
+            partition_by=stmt.partition_by,
             replicas=stmt.replicas,
         )
         old = self.tables.get(stmt.table)
@@ -713,27 +1075,52 @@ class SQLCached:
             th.start()
         return Result()
 
-    def _make_table(self, schema: TableSchema) -> _Table:
+    def _layout(self, schema: TableSchema):
+        """(engine, state builder) of a schema's layout on this device."""
         dev = self.device
-        return _Table(schema, T.init_state(schema, dev),
-                      lock=LK.make_lock(f"table:{schema.name}"),
-                      execs=ExecutorCache(
-                          dev, lambda: T.init_state(schema, dev)),
-                      stmt_routed=np.zeros(1, np.int64),
-                      writes_routed=np.zeros(1, np.int64),
-                      rows_in=np.zeros(1, np.int64))
+        if SH.is_sharded(schema):
+            return SH, lambda: SH.init_state(schema, dev)
+        return T, lambda: T.init_state(schema, dev)
+
+    def _make_table(self, schema: TableSchema) -> _Table:
+        n = schema.shards
+        eng, init = self._layout(schema)
+        state = init()
+        t = _Table(schema, state, eng=eng,
+                   lock=LK.make_lock(f"table:{schema.name}"),
+                   execs=ExecutorCache(self.device, init),
+                   stmt_routed=np.zeros(n, np.int64),
+                   writes_routed=np.zeros(n, np.int64),
+                   rows_in=np.zeros(n, np.int64))
+        if n > 1:
+            t.lanes = [SH.lane_view(state, i) for i in range(n)]
+            t.lane_ticks = [0] * n
+            t.expire_due = [None] * n
+        return t
 
     def _run_admin(self, t: _Table, key: tuple, body):
-        """An admin statement (FLUSH / EXPIRE / REINDEX) as an executor
-        entry like any other: ``body(state) -> (state, *outs)``."""
+        """An admin statement that reads no clock (REINDEX) as an executor
+        entry on the table's state: ``body(state) -> (state, *outs)``."""
         fn = self._executor(t, key + (t.schema,),
                             lambda: lambda st, flag: body(st),
                             expiry=False)
-        return self._run_state(t, fn, False, ())
+        return self._run_state(t, fn, "mono", None, False, 0, ())
+
+    def _run_stacked_admin(self, t: _Table, key: tuple, body):
+        """FLUSH / EXPIRE: ``body(state) -> (state, *outs)`` on the whole
+        table, as a dispatch of its layout (a sharded table's clocks catch
+        up and its deferred expiries replay first; one tick)."""
+        mode = "mono" if t.lanes is None else "stacked"
+        fn = self._executor(
+            t, (mode, None) + key + (t.schema,),
+            lambda: self._build_exec(t.schema, body, mode, t.eng),
+            expiry=False)
+        return self._run_state(t, fn, mode, None, False, 1, ())
 
     def _do_reindex(self, name: str) -> Result:
         """REINDEX t: rebuild every hash index from the live rows (the
-        recovery path after a bucket overflow). ``value`` is the residual
+        recovery path after a bucket overflow); a sharded table rebuilds
+        every shard's in one call of the build. ``value`` is the residual
         overflow (0 = probes are back). Rebuilt indexes change probe
         behaviour for every cached plan, so the schema epoch is bumped
         first, as in the reference."""
@@ -742,8 +1129,8 @@ class SQLCached:
             return Result(count=0, value=0)
         t.execs.bump()
         self._run_admin(t, ("reindex",),
-                        lambda st: (T.build_index(t.schema, st),))
-        residual = sum(int(t.state["indexes"][c]["stale"])
+                        lambda st: (t.eng.build_index(t.schema, st),))
+        residual = sum(int(t.state["indexes"][c]["stale"].sum())
                        for c in t.schema.indexes)
         return Result(count=len(t.schema.indexes), value=residual)
 
@@ -751,40 +1138,51 @@ class SQLCached:
         """FLUSH keeps the schema epoch: it changes contents, not shapes,
         so every pre-planned executor stays valid."""
         t = self._table(name)
-        n, = self._run_admin(t, ("flush",), lambda st: T.flush(t.schema, st))
+        n, = self._run_stacked_admin(t, ("flush",),
+                                     lambda st: t.eng.flush(t.schema, st))
         return Result(dev={"count": n})
 
     def _do_expire(self, name: str) -> Result:
         t = self._table(name)
-        n, = self._run_admin(t, ("expire",),
-                             lambda st: T.expire(t.schema, st))
+        n, = self._run_stacked_admin(t, ("expire",),
+                                     lambda st: t.eng.expire(t.schema, st))
         return Result(dev={"count": n})
 
     def _do_show_stats(self, name: str | None) -> Result:
-        """SHOW STATS t (= ``EXPLAIN t``): live rows and statement counters
-        as one JSON ``VALUE`` row; without a table, the daemon-wide
-        roll-up."""
+        """SHOW STATS t (= ``EXPLAIN t``): the per-shard skew report, live
+        rows (of the caught-up snapshot: deferred expiries applied) and
+        the routed-statement counters, as one JSON ``VALUE`` row; without
+        a table, the daemon-wide roll-up."""
         if name is None:
             return self._do_show_stats_all()
         t = self._table(name)
-        live = self.live_rows(name)
+        n = t.schema.shards
+        if t.lanes is None:
+            live = [int(T.live_count(t.state))]
+        else:
+            live = self._caught_up(t)["valid"].sum(
+                dim=1, dtype=torch.int32).tolist()
         with t.lock:
             stmts = t.stmt_routed.tolist()
             writes = t.writes_routed.tolist()
             rows_in = t.rows_in.tolist()
             host_ops = t.host_ops
-        per = [{"shard": 0, "live_rows": live, "statements": stmts[0],
-                "writes": writes[0], "inserted_rows": rows_in[0]}]
-        info = {"table": name, "shards": 1, "devices": 1,
+        lane_dev = ({"device": self.device.index or 0} if t.lanes is not None
+                    else {})
+        per = [{"shard": i, "live_rows": live[i], "statements": stmts[i],
+                "writes": writes[i], "inserted_rows": rows_in[i], **lane_dev}
+               for i in range(n)]
+        info = {"table": name, "shards": n, "devices": 1,
                 "device": str(self.device),
                 "replicas": t.schema.replicas,
                 "partition_by": t.schema.partition_by,
                 "capacity": t.schema.capacity,
-                "shard_capacity": t.schema.capacity,
+                "shard_capacity": (SH.shard_capacity(t.schema) if n > 1
+                                   else t.schema.capacity),
                 "host_ops": host_ops,
                 "executors": t.execs.stats_dict(),
                 "per_shard": per}
-        return Result(count=1, value=json.dumps(info, sort_keys=True))
+        return Result(count=n, value=json.dumps(info, sort_keys=True))
 
     def _do_show_stats_all(self) -> Result:
         tables = {}
@@ -796,7 +1194,8 @@ class SQLCached:
             ed = t.execs.stats_dict()
             for k in exec_totals:
                 exec_totals[k] += ed[k]
-            tables[name] = {"shards": 1, "live_rows": self.live_rows(name),
+            tables[name] = {"shards": t.schema.shards,
+                            "live_rows": self.live_rows(name),
                             "host_ops": t.host_ops}
         exec_totals["compile_ms_total"] = round(
             exec_totals["compile_ms_total"], 3)
@@ -860,19 +1259,98 @@ class SQLCached:
             info["wave"] = tr.wave
         return Result(count=count, value=json.dumps(info, sort_keys=True))
 
+    def _do_reshard(self, stmt: S.AlterReshard) -> Result:
+        """ALTER TABLE t RESHARD n: live re-partition through one device
+        re-split of every live row of the caught-up snapshot (row metadata
+        and TTL stamps ride along, so contents round-trip exactly) and one
+        stacked index build. ``n = 1`` makes the table monolithic. Refused,
+        the table untouched, when the skew would overflow a new shard.
+        The new layout has new tensors, so every plan is retired (epoch
+        bump with a new shadow state); the skew counters keep their
+        totals, spread evenly over the new shards."""
+        t = self._table(stmt.table)
+        old_schema = t.schema
+        new_n = stmt.shards
+        if new_n == old_schema.shards:
+            return Result(count=self.live_rows(stmt.table), value=new_n)
+        try:
+            new_schema = dataclasses.replace(old_schema, shards=new_n)
+        except (ValueError, KeyError) as e:
+            raise S.SQLError(str(e)) from e
+        src = self._caught_up(t) if t.lanes is not None else t.state
+        state, counts = SH.reshard(old_schema, new_schema, src)
+        counts = counts.cpu().numpy()   # an admin statement: the sync is fine
+        cap_new = (SH.shard_capacity(new_schema) if new_n > 1
+                   else new_schema.capacity)
+        if int(counts.max()) > cap_new:
+            raise S.SQLError(
+                f"RESHARD {new_n}: {int(counts.max())} live rows hash to "
+                f"one shard but a shard holds only {cap_new}; resolve the "
+                f"skew (or raise CAPACITY) first")
+        eng, init = self._layout(new_schema)
+        with t.lock:
+            g0 = t.ticks_total
+            t.state = state
+            t.eng = eng
+            t.schema = new_schema
+            t.lanes = ([SH.lane_view(state, i) for i in range(new_n)]
+                       if new_n > 1 else None)
+            t.lane_ticks = [g0] * new_n
+            t.expire_due = [None] * new_n
+            t.stmt_routed = self._respread(t.stmt_routed, new_n)
+            t.writes_routed = self._respread(t.writes_routed, new_n)
+            t.rows_in = self._respread(t.rows_in, new_n)
+        t.execs.bump(shadow=init)
+        return Result(count=int(counts.sum()), value=new_n)
+
+    @staticmethod
+    def _respread(old: np.ndarray, new_n: int) -> np.ndarray:
+        """A per-shard counter through a RESHARD: the total spread evenly
+        over the new shards (remainder to the low ones)."""
+        total = int(old.sum())
+        out = np.full(new_n, total // new_n, np.int64)
+        out[: total % new_n] += 1
+        return out
+
     # -------------------------------------------------- executor warm-up
-    def _warm_statement(self, t: _Table, stmt) -> int:
-        """Pre-plan one statement's executor (monolithic tables have one
-        placement). Returns the number of newly planned executables."""
+    def _prunable(self, t: _Table, stmt) -> bool:
+        """Can this statement take a lane route? (INSERTs route row by
+        row; a WHERE prunes on a partition-key equality.)"""
         if isinstance(stmt, S.Insert):
-            return self._do_insert_batch(stmt, [], None, _warm=True)
-        if isinstance(stmt, S.Select):
-            return self._do_select(stmt, (), _warm=True)
-        if isinstance(stmt, S.Update):
-            return self._do_update(stmt, (), _warm=True)
-        if isinstance(stmt, S.Delete):
-            return self._do_delete(stmt, (), _warm=True)
-        raise S.SQLError("WARMUP supports SELECT/INSERT/UPDATE/DELETE shapes")
+            return True
+        if not isinstance(stmt, (S.Select, S.Update, S.Delete)):
+            return False
+        route = PL.plan_shards(t.schema, self._intern_ast(stmt.where))
+        return route.key is not None
+
+    def _warm_modes(self, t: _Table, stmt) -> list:
+        """The (mode, sid) dispatch shapes to pre-plan for ``stmt``: a
+        prunable statement on a sharded table plans every lane (a graph
+        binds its lane's views), anything else the one whole-table
+        shape."""
+        if t.lanes is None:
+            return [("mono", None)]
+        if self.lane_exec and self._prunable(t, stmt):
+            return [("lane", i) for i in range(t.schema.shards)]
+        return [("stacked", None)]
+
+    def _warm_statement(self, t: _Table, stmt) -> int:
+        """Pre-plan one statement's executors for every dispatch shape it
+        can take. Returns the number of newly planned executables."""
+        new = 0
+        for warm in self._warm_modes(t, stmt):
+            if isinstance(stmt, S.Insert):
+                new += self._do_insert_batch(stmt, [], None, _warm=warm)
+            elif isinstance(stmt, S.Select):
+                new += self._do_select(stmt, (), _warm=warm)
+            elif isinstance(stmt, S.Update):
+                new += self._do_update(stmt, (), _warm=warm)
+            elif isinstance(stmt, S.Delete):
+                new += self._do_delete(stmt, (), _warm=warm)
+            else:
+                raise S.SQLError(
+                    "WARMUP supports SELECT/INSERT/UPDATE/DELETE shapes")
+        return new
 
     def _canonical_warm_sqls(self, schema: TableSchema) -> list[str]:
         """The canonical hot shapes CREATE-time warm-up pre-plans: the
@@ -945,25 +1423,32 @@ class SQLCached:
         kind, stmt = shape.key
         n = len(params_list)
         try:
+            prepped = [self._prep_params(p) for p in params_list]
+            sid = self._lane_of(t, stmt, prepped)
+            mode = ("mono" if t.lanes is None
+                    else "lane" if sid is not None else "stacked")
             if kind == "insert":
-                b = min(_bucket(max(n, 1)), t.schema.capacity)
+                b = _bucket(max(n, 1))
+                if mode == "mono":
+                    b = min(b, t.schema.capacity)
             else:
                 b = _bucket(n) if n > 1 else None
-            return t.execs.has_sig(self._sig(t, stmt, kind, b))
+            return t.execs.has_sig(self._sig(t, stmt, kind, b, mode, sid))
         except Exception:  # noqa: BLE001 — admission is best effort
             return True
 
     def _preplanned(self, t: _Table, stmt) -> bool:
-        """EXPLAIN's ``preplanned`` bit: the statement's single-statement
-        dispatch already has a planned executable (host signature set
+        """EXPLAIN's ``preplanned`` bit: every dispatch shape this
+        statement can take has a planned executable (host signature set
         only, no device sync)."""
         kind = type(stmt).__name__.lower()
         b = 1 if kind == "insert" else None
-        return t.execs.has_sig(self._sig(t, stmt, kind, b))
+        return all(t.execs.has_sig(self._sig(t, stmt, kind, b, mode, sid))
+                   for mode, sid in self._warm_modes(t, stmt))
 
     def _do_explain(self, stmt: S.Statement) -> Result:
         """EXPLAIN <stmt>: report (don't run) the inner statement's plan
-        as one VALUE row of JSON."""
+        (and a sharded table's shard route) as one VALUE row of JSON."""
         if isinstance(stmt, (S.Select, S.Update, S.Delete)):
             t = self._table(stmt.table)
             where = self._intern_ast(stmt.where)
@@ -973,8 +1458,9 @@ class SQLCached:
             info["preplanned"] = self._preplanned(t, stmt)
             if info["plan"] == "index-probe":
                 # stale > 0: every probe currently takes the scan fallback
+                # (a sharded table reports the total over its shards)
                 info["stale"] = int(
-                    t.state["indexes"][info["index"]]["stale"])
+                    t.state["indexes"][info["index"]]["stale"].sum())
             return Result(count=1, value=json.dumps(info, sort_keys=True))
         info = {"statement": type(stmt).__name__.lower(),
                 "plan": "insert" if isinstance(stmt, S.Insert) else "admin"}
@@ -984,6 +1470,10 @@ class SQLCached:
             t = self.tables.get(table)
             if t is not None and isinstance(stmt, S.Insert):
                 info["preplanned"] = self._preplanned(t, stmt)
+                if SH.is_sharded(t.schema):
+                    # inserts hash-route row by row (one device split)
+                    info["shards"] = t.schema.shards
+                    info["shard_route"] = f"split x {t.schema.shards}"
         return Result(count=1, value=json.dumps(info, sort_keys=True))
 
     def executemany(
@@ -1017,12 +1507,13 @@ class SQLCached:
     def _do_insert_batch(self, stmt: S.Insert,
                          params_list: Sequence[Sequence[Any]],
                          payloads_list=None, *,
-                         per_statement: bool = False, _warm: bool = False
+                         per_statement: bool = False, _warm=None
                          ) -> "Result | list[Result] | int":
         """The INSERT arm of :meth:`executemany` (single INSERTs come here
-        as a batch of one). ``_warm=True`` pre-plans the b=1 executor from
-        placeholder values instead of running (no clock tick, no op
-        count; returns the number of new plans)."""
+        as a batch of one). ``_warm=(mode, sid)`` pre-plans the b=1
+        executor of that dispatch shape from placeholder values instead of
+        running (no clock tick, no op count; returns the number of new
+        plans)."""
         t = self._table(stmt.table)
         schema = t.schema
         cols = stmt.columns or schema.column_names[: len(stmt.values)]
@@ -1031,7 +1522,7 @@ class SQLCached:
         n_params = max((P.collect_params(v) for v in stmt.values), default=0)
         if stmt.ttl is not None:
             n_params = max(n_params, P.collect_params(stmt.ttl))
-        if _warm:
+        if _warm is not None:
             n = 1
             params_list = [(0,) * n_params]
         else:
@@ -1041,9 +1532,23 @@ class SQLCached:
         if n > schema.capacity:
             raise S.SQLError(f"INSERT of {n} rows exceeds CAPACITY "
                              f"{schema.capacity}")
-        # the padded batch takes one slot a row, so it never outgrows the
-        # table (padding rows are masked off)
-        b = min(_bucket(n), schema.capacity)
+        pvals = None
+        if _warm is not None:
+            mode, sid = _warm
+            eng, xsch = self._warm_env(t, mode)
+        else:
+            if t.lanes is not None:
+                # ONE partition-value extraction: the lane route and the
+                # inserted_rows counter both read it
+                pvals = self._insert_pvals(
+                    t, stmt, [self._prep_params(p) for p in params_list])
+            mode, eng, xsch, sid, flag = self._exec_mode(t, stmt, params_list,
+                                                         n, pvals=pvals)
+        # the padded batch takes one slot a row, so on a monolithic table
+        # it never outgrows the table (padding rows are masked off); the
+        # stacked insert chunks a batch wider than a shard
+        b = _bucket(n) if mode == "stacked" else min(_bucket(n),
+                                                     xsch.capacity)
         param_cols = self._param_cols(params_list, n, b, n_params)
         row_mask = np.arange(b) < n
 
@@ -1056,9 +1561,10 @@ class SQLCached:
 
         values_ast = tuple(self._intern_ast(v) for v in stmt.values)
         ttl_ast = self._intern_ast(stmt.ttl) if stmt.ttl is not None else None
-        key = ("insert", schema, values_ast, ttl_ast, tuple(cols), b,
+        key = (mode, sid, "insert", xsch, values_ast, ttl_ast, tuple(cols), b,
                tuple(sorted(pl_args)))
         dev = self.device
+        off = self._lane_offset(t, mode, sid)
 
         def build():
             def base(state, param_cols, pl_args, row_mask):
@@ -1070,19 +1576,21 @@ class SQLCached:
                 ttl = 0
                 if ttl_ast is not None:
                     ttl = P.eval_expr(ttl_ast, {}, param_cols)
-                return T.insert(schema, state, values, pl_args, row_mask,
-                                ttl)
+                state, slots, ev = eng.insert(xsch, state, values, pl_args,
+                                              row_mask, ttl)
+                return state, slots + off, ev
 
-            return self._with_expiry(schema, base)
+            return self._build_exec(xsch, base, mode, eng)
 
-        fn = self._executor(t, key, build)
+        fn = self._executor(t, key, build, sid=sid)
         args = (param_cols, pl_args, row_mask)
-        if _warm:
-            return self._finish_warm(t, fn, stmt, "insert", b, args)
-        flag = self._expire_flag(t, n)
-        slots, evicted = self._run_state(t, fn, flag, args)
-        self._note_sig(t, stmt, "insert", b)
-        self._note_route(t, n, True, rows_in=n)
+        if _warm is not None:
+            return self._finish_warm(t, fn, stmt, "insert", b, mode, sid,
+                                     args)
+        slots, evicted = self._run_state(t, fn, mode, sid, flag, 1, args)
+        self._note_sig(t, stmt, "insert", b, mode, sid)
+        self._note_route(t, sid, n, True,
+                         rows_in=self._insert_sids(t, pvals, n))
         if per_statement:
             # one row per statement; each Result reports the batch's
             # eviction total as its value
@@ -1094,18 +1602,19 @@ class SQLCached:
     def _do_batch_dml(self, stmt, params_list: Sequence[Sequence[Any]],
                       per_statement: bool = False) -> "Result | list[Result]":
         """W same-shape DELETE/UPDATE statements in one dispatch.
-        Single-column equality DELETEs take ONE pass over the table
-        (``table.delete_many_eq``); other DELETEs one [W, capacity] mask
+        Single-column equality DELETEs take ONE pass over the table (or
+        lane) (``delete_many_eq``); other DELETEs one [W, rows] mask
         (deletes commute, so the union count equals the sequential total;
         ``per_statement`` credits a row to the earliest statement). UPDATEs
         run one after another so later statements see earlier SETs."""
         t = self._table(stmt.table)
-        schema = t.schema
         n = len(params_list)
         if n == 0:
             return [] if per_statement else Result(count=0)
         is_delete = isinstance(stmt, S.Delete)
-        flag = self._expire_flag(t, n)
+        if not is_delete:
+            self._check_partition_update(t, (c for c, _ in stmt.sets))
+        mode, eng, xsch, sid, flag = self._exec_mode(t, stmt, params_list, n)
         b = _bucket(n)
         where = self._intern_ast(stmt.where)
         sets = ()
@@ -1116,7 +1625,7 @@ class SQLCached:
                 n_params = max(n_params, P.collect_params(e))
         host_cols = self._param_cols(params_list, n, b, n_params)
         active = np.arange(b) < n
-        fused = T._fused_plan(schema, where) if is_delete else None
+        fused = eng._fused_plan(xsch, where) if is_delete else None
         eq_term = (fused.terms[0]
                    if fused is not None and len(fused.terms) == 1
                    and fused.terms[0].op == "==" else None)
@@ -1129,8 +1638,8 @@ class SQLCached:
         if not is_delete:
             set_cols = {("_ttl" if c.upper() == "TTL" else c)
                         for c, _ in sets}
-            idx_rebuild = tuple(c for c in schema.indexes if c in set_cols)
-            update_plan = T.plan_for(schema, where)
+            idx_rebuild = tuple(c for c in xsch.indexes if c in set_cols)
+            update_plan = eng.plan_for(xsch, where)
             if isinstance(update_plan, PL.IndexProbe) and (
                     idx_rebuild
                     or not _np_terms_int(
@@ -1140,7 +1649,7 @@ class SQLCached:
                 # index entries later statements probe: scan, and rebuild
                 # once after the batch
                 update_plan = update_plan.fallback
-        key = ("dml", schema, is_delete, where, sets, b, eq_term,
+        key = (mode, sid, "dml", xsch, is_delete, where, sets, b, eq_term,
                update_plan, per_statement)
         dev = self.device
 
@@ -1152,16 +1661,18 @@ class SQLCached:
                     vals = (param_cols[v].to(torch.int32) if kind == "param"
                             else torch.full((b,), v, dtype=torch.int32,
                                             device=dev))
-                    return T.delete_many_eq(schema, state, eq_term.col,
-                                            vals, active,
-                                            per_statement=per_statement)
+                    return eng.delete_many_eq(xsch, state, eq_term.col,
+                                              vals, active,
+                                              per_statement=per_statement)
 
-                return self._with_expiry(schema, base)
+                return self._build_exec(xsch, base, mode, eng)
 
             def base(state, param_cols, active):
                 if is_delete:
-                    m = (T._match_mask(schema, state, where, param_cols, b)
-                         & active[:, None])
+                    # [b, rows]: the rows of a table, a lane or the whole
+                    # flattened stack; the union / claim math is the same
+                    m = (self._match_rows(eng, xsch, state, where,
+                                          param_cols, b) & active[:, None])
                     hit = m.any(dim=0)
                     n_hit = hit.sum(dtype=torch.int32)
                     # a row hit by several statements counts for the
@@ -1170,8 +1681,9 @@ class SQLCached:
                     claimed = (torch.cumsum(mi, dim=0) - mi) > 0
                     ns = (m & ~claimed).sum(dim=1, dtype=torch.int32)
                     nact = active.sum(dtype=torch.int32)
-                    state = T._tick(dict(state, valid=state["valid"] & ~hit),
-                                    nact)
+                    valid = state["valid"] & ~hit.reshape(
+                        state["valid"].shape)
+                    state = T._tick(dict(state, valid=valid), nact)
                     return state, n_hit, ns
 
                 def run(route):
@@ -1181,9 +1693,9 @@ class SQLCached:
                     st, parts = state, []
                     for i in range(b):
                         pr = tuple(c[i] for c in param_cols)
-                        st, k = T.update(schema, st, where, dict(sets), pr,
-                                         extra_mask=active[i], plan=route,
-                                         maintain_indexes=False)
+                        st, k = eng.update(xsch, st, where, dict(sets), pr,
+                                           extra_mask=active[i], plan=route,
+                                           maintain_indexes=False)
                         parts.append(k)
                     pad = b - active.sum(dtype=torch.int32)
                     st = dict(st, clock=st["clock"] - pad,
@@ -1195,32 +1707,46 @@ class SQLCached:
                     # freshness flag picks the probe run or the scan run
                     # (both computed: no host sync)
                     st, ns = T._select_fresh(
-                        T.index_fresh(state, update_plan.column),
+                        eng.index_fresh(state, update_plan.column),
                         run(update_plan), run(update_plan.fallback))
                 else:
                     st, ns = run(update_plan)
                 for c in idx_rebuild:  # deferred: ONE rebuild per dispatch
-                    st = T.build_index(schema, st, c)
+                    st = eng.build_index(xsch, st, c)
                 return st, ns.sum(dtype=torch.int32), ns
 
-            return self._with_expiry(schema, base)
+            return self._build_exec(xsch, base, mode, eng)
 
-        fn = self._executor(t, key, build)
+        fn = self._executor(t, key, build, sid=sid)
         kind = "delete" if is_delete else "update"
-        outs = self._run_state(t, fn, flag, (host_cols, active))
-        self._note_sig(t, stmt, kind, b)
-        self._note_route(t, n, True)
+        outs = self._run_state(t, fn, mode, sid, flag, n, (host_cols, active))
+        self._note_sig(t, stmt, kind, b, mode, sid)
+        self._note_route(t, sid, n, True)
         if per_statement:
             stack = _HostStack({"count": outs[1]})
             return [Result(ctx={"stack": stack, "index": i})
                     for i in range(n)]
         return Result(dev={"count": outs[0]})
 
+    @staticmethod
+    def _match_rows(eng, xsch, state, where, param_cols, w: int):
+        """GenericScan mask of ``w`` statements over every row of the
+        dispatch's state: [w, cap] (a table or lane) or [w, shards *
+        shard_capacity] (the flattened stack)."""
+        if eng is T:
+            return T._match_mask(xsch, state, where, param_cols, w)
+        flat = dict(state, cols=SH.flat_cols(state),
+                    valid=state["valid"].reshape(-1))
+        return T._match_mask(dataclasses.replace(
+            xsch, capacity=flat["valid"].shape[0], shards=1,
+            partition_by=None), flat, where, param_cols, w)
+
     def _do_batch_select(self, stmt: S.Select,
                          params_list: Sequence[Sequence[Any]]
                          ) -> list[Result]:
         """W same-statement SELECTs in ONE dispatch: each kernel launches
-        once for all W (``table.select_many``). Reads in a batch don't
+        once for all W (``select_many``; on a sharded table once for all
+        W statements on all their shards). Reads in a batch don't
         interleave with writes, the clock advances by the batch size, and
         the touch covers the RETURNED rows. Returns one lazy Result per
         statement, all views into one stacked transfer. Aggregates batch
@@ -1232,7 +1758,7 @@ class SQLCached:
         n = len(params_list)
         if n == 0:
             return []
-        flag = self._expire_flag(t, n)
+        mode, eng, xsch, sid, flag = self._exec_mode(t, stmt, params_list, n)
         b = _bucket(n)
         where = self._intern_ast(stmt.where)
         columns = stmt.columns or schema.column_names
@@ -1240,28 +1766,34 @@ class SQLCached:
         n_params = P.collect_params(where)
         param_cols = self._param_cols(params_list, n, b, n_params)
         active = np.arange(b) < n
-        key = ("select_batch", schema, where, tuple(columns), stmt.payloads,
-               stmt.order_by, stmt.descending, limit, b,
-               self._probes(schema, where, param_cols,
+        key = (mode, sid, "select_batch", xsch, where, tuple(columns),
+               stmt.payloads, stmt.order_by, stmt.descending, limit, b,
+               self._probes(eng, xsch, where, param_cols,
                             stmt.order_by is not None))
+        off = self._lane_offset(t, mode, sid)
 
         def build():
             def base(state, param_cols, active):
-                _, res = T.select_many(
-                    schema, state, where, param_cols, b, columns=columns,
+                _, res = eng.select_many(
+                    xsch, state, where, param_cols, b, columns=columns,
                     order_by=stmt.order_by, descending=stmt.descending,
                     limit=limit, with_payloads=stmt.payloads, active=active,
                     touch=False)
                 # one epilogue for the batch: touch the returned rows and
                 # advance the clock by the REAL statement count
-                return T.batch_touch(schema, state, res, active), res
+                state = eng.batch_touch(xsch, state, res, active)
+                if mode == "lane":
+                    res = dict(res, row_ids=torch.where(
+                        res["present"], res["row_ids"] + off, 0))
+                return state, res
 
-            return self._with_expiry(schema, base)
+            return self._build_exec(xsch, base, mode, eng)
 
-        fn = self._executor(t, key, build)
-        res, = self._run_state(t, fn, flag, (param_cols, active))
-        self._note_sig(t, stmt, "select", b)
-        self._note_route(t, n, False)
+        fn = self._executor(t, key, build, sid=sid)
+        res, = self._run_state(t, fn, mode, sid, flag, n,
+                               (param_cols, active))
+        self._note_sig(t, stmt, "select", b, mode, sid)
+        self._note_route(t, sid, n, False)
         stack = _HostStack({"count": res["count"], "rows": res["rows"],
                             "present": res["present"],
                             "row_ids": res["row_ids"]})
@@ -1273,11 +1805,11 @@ class SQLCached:
         return [Result(ctx=dict(ctx, index=i)) for i in range(n)]
 
     @staticmethod
-    def _probes(schema: TableSchema, where, host_cols,
+    def _probes(eng, xsch: TableSchema, where, host_cols,
                 ranked: bool = False) -> bool:
         """Does a batch take the IndexProbe route (part of its executor's
         key, as in the reference): every probe term bound to an integer."""
-        plan = T.plan_for(schema, where, ranked)
+        plan = eng.plan_for(xsch, where, ranked)
         return (isinstance(plan, PL.IndexProbe)
                 and _np_terms_int((plan.key,) + plan.residual, host_cols))
 
@@ -1286,81 +1818,94 @@ class SQLCached:
         """W same-shape aggregate SELECTs in ONE dispatch; the clock
         advances by the number of ACTIVE statements."""
         t = self._table(stmt.table)
-        schema = t.schema
         n = len(params_list)
         if n == 0:
             return []
-        flag = self._expire_flag(t, n)
+        mode, eng, xsch, sid, flag = self._exec_mode(t, stmt, params_list, n)
         b = _bucket(n)
         agg, col = stmt.agg
         where = self._intern_ast(stmt.where)
         n_params = P.collect_params(where)
         param_cols = self._param_cols(params_list, n, b, n_params)
         active = np.arange(b) < n
-        key = ("agg_batch", schema, agg, col, where, b,
-               self._probes(schema, where, param_cols))
+        key = (mode, sid, "agg_batch", xsch, agg, col, where, b,
+               self._probes(eng, xsch, where, param_cols))
 
         def build():
             def base(state, param_cols, active):
-                _, vals = T.aggregate_many(schema, state, agg, col, where,
-                                           param_cols, b)
+                _, vals = eng.aggregate_many(xsch, state, agg, col, where,
+                                             param_cols, b)
                 return T._tick(state, active.sum(dtype=torch.int32)), vals
 
-            return self._with_expiry(schema, base)
+            return self._build_exec(xsch, base, mode, eng)
 
-        fn = self._executor(t, key, build)
-        vals, = self._run_state(t, fn, flag, (param_cols, active))
-        self._note_sig(t, stmt, "select", b)
-        self._note_route(t, n, False)
+        fn = self._executor(t, key, build, sid=sid)
+        vals, = self._run_state(t, fn, mode, sid, flag, n,
+                                (param_cols, active))
+        self._note_sig(t, stmt, "select", b, mode, sid)
+        self._note_route(t, sid, n, False)
         stack = _HostStack({"value": vals})
         return [Result(ctx={"stack": stack, "index": i}) for i in range(n)]
 
     def _do_select(self, stmt: S.Select, params: tuple,
-                   _warm: bool = False) -> "Result | int":
-        """One SELECT. ``_warm=True`` pre-plans its executor from
+                   _warm=None) -> "Result | int":
+        """One SELECT. ``_warm=(mode, sid)`` pre-plans its executor from
         placeholder values (one int 0 per ``?``: the plan is keyed by the
         values' types, not the values) instead of running."""
         t = self._table(stmt.table)
         schema = t.schema
         where = self._intern_ast(stmt.where)
-        if _warm:
+        if _warm is None:
+            mode, eng, xsch, sid, flag = self._exec_mode(t, stmt, [params], 1)
+        else:
+            mode, sid = _warm
+            eng, xsch = self._warm_env(t, mode)
             params = (0,) * P.collect_params(where)
         args = (self._host_params(params),)
         if stmt.agg is not None:
             agg, col = stmt.agg
-            key = ("agg", schema, agg, col, where)
+            key = (mode, sid, "agg", xsch, agg, col, where)
             fn = self._executor(
                 t, key,
-                lambda: self._with_expiry(
-                    schema,
-                    lambda st, pr: T.aggregate(schema, st, agg, col, where,
-                                               pr)))
-            if _warm:
-                return self._finish_warm(t, fn, stmt, "select", None, args)
-            val, = self._run_state(t, fn, self._expire_flag(t, 1), args)
-            self._note_sig(t, stmt, "select", None)
-            self._note_route(t, 1, False)
+                lambda: self._build_exec(
+                    xsch,
+                    lambda st, pr: eng.aggregate(xsch, st, agg, col, where,
+                                                 pr),
+                    mode, eng),
+                sid=sid)
+            if _warm is not None:
+                return self._finish_warm(t, fn, stmt, "select", None, mode,
+                                         sid, args)
+            val, = self._run_state(t, fn, mode, sid, flag, 1, args)
+            self._note_sig(t, stmt, "select", None, mode, sid)
+            self._note_route(t, sid, 1, False)
             return Result(dev={"value": val})
         columns = stmt.columns or schema.column_names
         limit = stmt.limit if stmt.limit is not None else schema.max_select
-        key = ("select", schema, where, tuple(columns), stmt.payloads,
-               stmt.order_by, stmt.descending, limit)
+        key = (mode, sid, "select", xsch, where, tuple(columns),
+               stmt.payloads, stmt.order_by, stmt.descending, limit)
+        off = self._lane_offset(t, mode, sid)
 
         def build():
             def base(st, pr):
-                return T.select(schema, st, where, pr, columns=columns,
-                                order_by=stmt.order_by,
-                                descending=stmt.descending, limit=limit,
-                                with_payloads=stmt.payloads)
+                st, res = eng.select(xsch, st, where, pr, columns=columns,
+                                     order_by=stmt.order_by,
+                                     descending=stmt.descending, limit=limit,
+                                     with_payloads=stmt.payloads)
+                if mode == "lane":
+                    res = dict(res, row_ids=torch.where(
+                        res["present"], res["row_ids"] + off, 0))
+                return st, res
 
-            return self._with_expiry(schema, base)
+            return self._build_exec(xsch, base, mode, eng)
 
-        fn = self._executor(t, key, build)
-        if _warm:
-            return self._finish_warm(t, fn, stmt, "select", None, args)
-        res, = self._run_state(t, fn, self._expire_flag(t, 1), args)
-        self._note_sig(t, stmt, "select", None)
-        self._note_route(t, 1, False)
+        fn = self._executor(t, key, build, sid=sid)
+        if _warm is not None:
+            return self._finish_warm(t, fn, stmt, "select", None, mode, sid,
+                                     args)
+        res, = self._run_state(t, fn, mode, sid, flag, 1, args)
+        self._note_sig(t, stmt, "select", None, mode, sid)
+        self._note_route(t, sid, 1, False)
         return Result(
             payloads=dict(res["payloads"]),
             dev={"count": res["count"], "rows": res["rows"],
@@ -1371,58 +1916,77 @@ class SQLCached:
         )
 
     def _do_update(self, stmt: S.Update, params: tuple,
-                   _warm: bool = False) -> "Result | int":
+                   _warm=None) -> "Result | int":
         t = self._table(stmt.table)
-        schema = t.schema
         where = self._intern_ast(stmt.where)
         sets = tuple((c, self._intern_ast(e)) for c, e in stmt.sets)
-        if _warm:
+        self._check_partition_update(t, (c for c, _ in sets))
+        if _warm is None:
+            mode, eng, xsch, sid, flag = self._exec_mode(t, stmt, [params], 1)
+        else:
+            mode, sid = _warm
+            eng, xsch = self._warm_env(t, mode)
             n_params = P.collect_params(where)
             for _, e in sets:
                 n_params = max(n_params, P.collect_params(e))
             params = (0,) * n_params
         args = (self._host_params(params),)
-        key = ("update", schema, where, sets)
+        key = (mode, sid, "update", xsch, where, sets)
         fn = self._executor(
-            t, key, lambda: self._with_expiry(
-                schema,
-                lambda st, pr: T.update(schema, st, where, dict(sets), pr)))
-        if _warm:
-            return self._finish_warm(t, fn, stmt, "update", None, args)
-        n, = self._run_state(t, fn, self._expire_flag(t, 1), args)
-        self._note_sig(t, stmt, "update", None)
-        self._note_route(t, 1, True)
+            t, key, lambda: self._build_exec(
+                xsch,
+                lambda st, pr: eng.update(xsch, st, where, dict(sets), pr),
+                mode, eng),
+            sid=sid)
+        if _warm is not None:
+            return self._finish_warm(t, fn, stmt, "update", None, mode, sid,
+                                     args)
+        n, = self._run_state(t, fn, mode, sid, flag, 1, args)
+        self._note_sig(t, stmt, "update", None, mode, sid)
+        self._note_route(t, sid, 1, True)
         return Result(dev={"count": n})
 
     def _do_delete(self, stmt: S.Delete, params: tuple,
-                   _warm: bool = False) -> "Result | int":
+                   _warm=None) -> "Result | int":
         t = self._table(stmt.table)
         schema = t.schema
         where = self._intern_ast(stmt.where)
-        if _warm:
+        if _warm is None:
+            mode, eng, xsch, sid, flag = self._exec_mode(t, stmt, [params], 1)
+        else:
+            mode, sid = _warm
+            eng, xsch = self._warm_env(t, mode)
             params = (0,) * P.collect_params(where)
         args = (self._host_params(params),)
         # fusable deletes on payload-bearing tables also report WHICH rows
         # went (row ids feed incremental index maintenance); scalar tables
-        # keep the mask-only path
-        returning = (T._fused_plan(schema, where) is not None
+        # keep the mask-only path. Sharded tables report global row ids.
+        fused_sch = (SH.shard_schema(schema) if t.lanes is not None
+                     else schema)
+        returning = (T._fused_plan(fused_sch, where) is not None
                      and bool(schema.payloads))
-        key = ("delete", schema, where, returning)
+        key = (mode, sid, "delete", xsch, where, returning)
+        off = self._lane_offset(t, mode, sid)
 
         def build():
             def base(st, pr):
                 if returning:
-                    return T.delete_returning(schema, st, where, pr)
-                return T.delete(schema, st, where, pr)
+                    st, n, ids, present = eng.delete_returning(xsch, st,
+                                                               where, pr)
+                    if mode == "lane":
+                        ids = torch.where(present, ids + off, 0)
+                    return st, n, ids, present
+                return eng.delete(xsch, st, where, pr)
 
-            return self._with_expiry(schema, base)
+            return self._build_exec(xsch, base, mode, eng)
 
-        fn = self._executor(t, key, build)
-        if _warm:
-            return self._finish_warm(t, fn, stmt, "delete", None, args)
-        outs = self._run_state(t, fn, self._expire_flag(t, 1), args)
-        self._note_sig(t, stmt, "delete", None)
-        self._note_route(t, 1, True)
+        fn = self._executor(t, key, build, sid=sid)
+        if _warm is not None:
+            return self._finish_warm(t, fn, stmt, "delete", None, mode, sid,
+                                     args)
+        outs = self._run_state(t, fn, mode, sid, flag, 1, args)
+        self._note_sig(t, stmt, "delete", None, mode, sid)
+        self._note_route(t, sid, 1, True)
         if returning:
             n, ids, present = outs
             return Result(dev={"count": n, "row_ids": ids,
@@ -1432,34 +1996,53 @@ class SQLCached:
 
     # ----------------------------------------------------- serving-plane API
     def table_state(self, name: str) -> dict:
-        """The table's device state: a dict of the table's own tensors,
-        which every later statement updates in place (their addresses stay
-        until the table is dropped). A caller reads it on the daemon's
-        stream right after the statement it follows (the serving engine's
-        page-table upkeep); a snapshot is a copy."""
-        return self._table(name).state
+        """The table's device state. A monolithic table returns its live
+        dict of tensors, which every later statement updates in place
+        (their addresses stay until the table is dropped); a caller reads
+        it on the daemon's stream right after the statement it follows (the
+        serving engine's page-table upkeep). A sharded table returns a
+        stacked snapshot at the table's logical time (clocks caught up,
+        deferred expiries applied), as the reference does."""
+        t = self._table(name)
+        if t.lanes is None:
+            return t.state
+        return self._caught_up(t)
 
     def swap_table_state(self, name: str, state: dict) -> None:
         """Install a state (``convert.state_from_numpy`` turns the
         reference's pytree into one) by copying it into the table's own
         tensors. Its tensors must lie on this daemon's device and match
-        the table's layout."""
+        the table's layout (the stacked one for a sharded table, whose
+        clocks it then takes as caught up)."""
         t = self._table(name)
-        want = T.init_state(t.schema, "meta")
+        want = self._layout(t.schema)[0].init_state(t.schema, "meta")
         _check_layout(want, state, self.device, name)
         _copy_into(t.state, state)
+        if t.lanes is not None:
+            with t.lock:
+                t.lane_ticks = [t.ticks_total] * t.schema.shards
 
     def schema(self, name: str) -> TableSchema:
         return self._table(name).schema
 
     def live_rows(self, name: str) -> int:
-        return int(T.live_count(self._table(name).state))
+        t = self._table(name)
+        if t.lanes is None:
+            return int(T.live_count(t.state))
+        return int(SH.live_count(self._caught_up(t)))
 
     def advance_clock(self, ticks: int, table: str | None = None) -> None:
-        """Advance the logical clock (tests / wall-time sync)."""
+        """Advance the logical clock (tests / wall-time sync); on a
+        sharded table every lane's clock and both sides of the catch-up
+        bookkeeping, with no dispatch in flight."""
         names = [table] if table else list(self.tables)
         for nm in names:
-            self._table(nm).state["clock"].add_(ticks)
+            t = self._table(nm)
+            with t.lock:
+                if t.lanes is not None:
+                    t.ticks_total += ticks
+                    t.lane_ticks = [lt + ticks for lt in t.lane_ticks]
+                t.state["clock"].add_(ticks)
 
 
 def _copy_into(dst: dict, src: dict) -> None:

@@ -47,8 +47,9 @@ way, with identical counting. Nothing falls back: a graph that fails to
 capture or replay raises, and no path runs the eager closure on the card
 (``fallbacks`` exists for the reference's stats and stays 0).
 
-A cache-wide schema epoch retires every plan at once (REINDEX); FLUSH
-keeps it. Retired graphs, their pools and buffers are released once the
+A cache-wide schema epoch retires every plan at once (REINDEX, RESHARD);
+FLUSH keeps it. A sharded table's lane plans are one per statement shape
+and lane: a graph binds the addresses of its lane's views. Retired graphs, their pools and buffers are released once the
 device has passed the point where they were retired.
 """
 from __future__ import annotations
@@ -405,12 +406,14 @@ class ExecEntry:
     host tree of numpy arrays; it returns the closure's outputs as fresh
     tensors and has updated the state in place."""
 
-    __slots__ = ("_cache", "fn", "flags", "compiled")
+    __slots__ = ("_cache", "fn", "flags", "view", "compiled")
 
-    def __init__(self, cache: "ExecutorCache", fn: Callable, flags):
+    def __init__(self, cache: "ExecutorCache", fn: Callable, flags,
+                 view: Callable[[dict], dict] | None = None):
         self._cache = cache
         self.fn = fn
         self.flags = flags
+        self.view = view
         self.compiled: dict[Any, _Plan] = {}
 
     def __call__(self, state: dict, flag: bool, args) -> tuple:
@@ -445,6 +448,12 @@ class ExecEntry:
             self.compiled[spec] = plan
             return True
 
+    def _shadow(self) -> dict:
+        """The shadow state in the layout this entry's closure takes (one
+        lane of a sharded table's for a lane entry)."""
+        sh = self._cache.shadow()
+        return sh if self.view is None else self.view(sh)
+
     def _plan(self, state: dict, args, leaves, warm: bool = False):
         """Make one plan (caller holds the device lock): stage the values,
         prime on the shadow state and, on the card, capture every flag
@@ -461,12 +470,12 @@ class ExecEntry:
             side.wait_stream(serving)
             try:
                 with torch.cuda.stream(side):
-                    plan.prime(cache.shadow(), self.flags)
+                    plan.prime(self._shadow(), self.flags)
                     plan.capture(state, self.flags, cache.pool())
             finally:
                 serving.wait_stream(side)
         elif warm:
-            plan.prime(cache.shadow(), self.flags)
+            plan.prime(self._shadow(), self.flags)
         ms = (time.perf_counter() - t0) * 1e3
         cache.counters.add("compiles")
         cache.counters.add("compile_ms_total", ms)
@@ -534,23 +543,26 @@ class ExecutorCache:
 
     # ------------------------------------------------------------- entries
     def get(self, key: Any, builder: Callable[[], Callable],
-            flags: tuple = (False,)) -> ExecEntry:
+            flags: tuple = (False,),
+            view: Callable[[dict], dict] | None = None) -> ExecEntry:
         """The entry for ``key`` under the current epoch, building its
         closure on first use. ``flags``: the expiry-flag variants a plan
-        captures."""
+        captures; ``view``: the part of the shadow state the closure
+        takes (a sharded table's lane entries)."""
         ek = (self.epoch, key)
         entry = self._entries.get(ek)
         if entry is None:
             with self._lock:
                 entry = self._entries.get(ek)
                 if entry is None:
-                    entry = ExecEntry(self, builder(), flags)
+                    entry = ExecEntry(self, builder(), flags, view)
                     self._entries[ek] = entry
         return entry
 
-    def _take(self, bump: bool) -> list:
+    def _take(self, bump: bool, shadow=None) -> list:
         """Empty the cache under its lock; returns what it held. A bump
-        moves the epoch on and keeps the shadow state (same layout)."""
+        moves the epoch on and keeps the shadow state unless the layout
+        changed (``shadow``: the new layout's builder)."""
         with self._lock:
             if bump:
                 self.epoch += 1
@@ -558,9 +570,11 @@ class ExecutorCache:
             self._entries = {}
             self.sigs.clear()
             self._pool = None
-            if not bump:
+            if not bump or shadow is not None:
                 old.append(self._shadow)
                 self._shadow = None
+            if shadow is not None:
+                self._shadow_fn = shadow
         return old
 
     def _release(self, old: list) -> None:
@@ -568,9 +582,10 @@ class ExecutorCache:
             _retire(self.device, [getattr(e, "compiled", e) for e in old])
             _sweep()
 
-    def bump(self) -> int:
-        """Retire every plan (schema epoch bump; REINDEX)."""
-        self._release(self._take(bump=True))
+    def bump(self, shadow: Callable[[], dict] | None = None) -> int:
+        """Retire every plan (schema epoch bump: REINDEX; RESHARD, which
+        also hands the new layout's shadow builder)."""
+        self._release(self._take(bump=True, shadow=shadow))
         return self.epoch
 
     def close(self) -> None:

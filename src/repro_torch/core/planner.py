@@ -17,8 +17,9 @@ A WHERE lowers to exactly one of:
                  ``predicate.eval_predicate``.
 
 Plans are frozen dataclasses; :func:`plan_where` is memoized per
-(schema, where). Shard routing (``plan_shards``) arrives with the
-sharding slice of the port.
+(schema, where). A sharded table adds the layer above the plan:
+:func:`plan_shards` lowers the WHERE to a :class:`ShardRoute` (pruned to
+the shard of a partition-key equality, or fan-out to every shard).
 """
 from __future__ import annotations
 
@@ -80,6 +81,27 @@ class IndexProbe:
 Plan = IndexProbe | FusedScan | GenericScan
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardRoute:
+    """Shard routing for one WHERE against a sharded table (the layer
+    ABOVE the Plan IR): ``key`` is the equality term on the partition
+    column when the statement prunes to the one shard holding that key's
+    hash (None = fan-out across all ``n_shards``). The within-shard
+    execution still follows a :data:`Plan` (``plan_where``)."""
+
+    column: str                    # the partition column
+    key: P.FusedTerm | None        # eq term on it, None -> fan-out
+    n_shards: int
+
+    @property
+    def pruned(self) -> bool:
+        return self.key is not None
+
+    @property
+    def kind(self) -> str:
+        return "pruned" if self.pruned else f"fan-out x {self.n_shards}"
+
+
 def int_columns(schema: TableSchema) -> frozenset:
     """The relscan/hashidx-eligible column set: int32-typed user columns
     (INT and interned TEXT) plus the reserved clock columns."""
@@ -117,6 +139,41 @@ def plan_where(schema: TableSchema, where: P.Node | None,
     if small is not None:
         return FusedScan(small)
     return GenericScan("conjunction exceeds the 4-term kernel")
+
+
+def _coerce_int_literals(node: P.Node | None) -> P.Node | None:
+    """Numerically integral float literals coerced to int for ROUTING
+    only: an int32 partition column compared with ``5.0`` matches exactly
+    the rows ``5`` matches, so the route may hash the int; the
+    within-shard predicate keeps the original literal. Other floats stay:
+    they match nothing on an int column, and any route is right for an
+    empty result."""
+    def coerce(v):
+        if isinstance(v, float) and v.is_integer() and abs(v) < 2 ** 31:
+            return int(v)
+        return v
+
+    return P.map_consts(node, coerce)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_shards(schema: TableSchema, where: P.Node | None) -> ShardRoute:
+    """Lower ``where`` to a ShardRoute for a sharded ``schema`` (memoized
+    like :func:`plan_where`). A statement prunes iff a top-level equality
+    conjunct anchors the partition column; ranges on it, ORs and no WHERE
+    visit every shard. The shard itself is computed from the bound value
+    at execution time, so batched statements route one by one."""
+    col = schema.partition_by
+    n = schema.shards
+    if where is None or col is None:
+        return ShardRoute(col or "", None, n)
+    fused = P.classify_fusable(_coerce_int_literals(where), int_columns(schema),
+                               max_terms=1 + MAX_RESIDUAL)
+    key = None
+    if fused is not None:
+        key = next((t for t in fused.terms if t.op == "==" and t.col == col),
+                   None)
+    return ShardRoute(col, key, n)
 
 
 def as_fused(plan: Plan) -> P.FusedScan | None:
@@ -162,7 +219,10 @@ def columns_of(node: P.Node | None) -> frozenset:
 def explain(schema: TableSchema, where: P.Node | None,
             ranked: bool = False) -> dict:
     """EXPLAIN payload for one WHERE clause against ``schema``: the chosen
-    plan, the columns it reads and (for probes) the fallback."""
+    plan, the columns it reads, (for probes) the fallback, and (for
+    sharded tables) the shard route: ``pruned -> shard k`` when the key is
+    a constant, ``pruned`` when it binds a ``?``, ``fan-out x n``
+    otherwise."""
     plan = plan_where(schema, where, ranked)
     out = {"plan": plan.kind, "table": schema.name,
            "columns": sorted(columns_of(where))}
@@ -174,4 +234,17 @@ def explain(schema: TableSchema, where: P.Node | None,
         out["terms"] = [f"{t.col} {t.op}" for t in plan.scan.terms]
     elif plan.reason:
         out["reason"] = plan.reason
+    if schema.shards > 1:
+        from repro_torch.core import shards as SH  # shards imports planner
+
+        route = plan_shards(schema, where)
+        out["shards"] = schema.shards
+        out["partition_by"] = route.column
+        if route.pruned:
+            kind, v = route.key.value
+            out["shard_route"] = (f"pruned -> shard "
+                                  f"{SH.shard_of_host(int(v), schema.shards)}"
+                                  if kind == "const" else "pruned")
+        else:
+            out["shard_route"] = route.kind
     return out

@@ -1,7 +1,9 @@
 """Port copy of ``repro.core.scheduler`` (host Python) with its imports
-redirected to ``repro_torch``. Every table of the port is monolithic, so
-``group_lane`` / ``item_lanes`` / ``group_shard_ids`` report no lanes and
-the per-shard lock paths below always take the table's single lock.
+redirected to ``repro_torch``. The port's daemon reports execution lanes
+for sharded tables (``group_lane`` / ``item_lanes`` / ``group_shard_ids``),
+so the per-shard lock paths below run as in the reference; on one card
+lanes overlap their host-side dispatch, and their device work runs on one
+stream.
 
 Cross-connection batch scheduler — the daemon's admission queue.
 

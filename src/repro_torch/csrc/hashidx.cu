@@ -66,6 +66,17 @@
 //     kernel is compiled for 0 and for up to 8 residual terms: on an H100
 //     the unrolled code of 8 unused terms cost a lone warp more than its
 //     gathers did.
+//   * shard axis (sharded tables; the TPU ran both kernels under a vmap
+//     over the stacked shards). The build takes S shards of cap_s rows
+//     ([S, cap_s] keys and validity) and writes [S, nb, 128] rid / key
+//     and overflow [S] in the same two launches: pass 1 runs over the
+//     S * cap_s rows and a row's bucket is (shard, bucket), so the
+//     counters, the list of buckets over 128 rows and the walks are per
+//     (shard, bucket) and a walk reads its own shard's rows; row ids stay
+//     the shard's own. The probe takes sid [w], the shard of each query:
+//     its bucket row is read from shard sid's index and its candidates
+//     from shard sid's rows, so one launch probes every shard of a
+//     fan-out, or each pruned statement of a micro-batch on its shard.
 #include "common.cuh"
 
 namespace {
@@ -85,17 +96,18 @@ constexpr int BW_STEP = BB_THREADS * BW_ROWS;
 constexpr int HX_HALF = HX_LANES / 2;      // staged pairs a row holds
 
 // The build's scratch. Zero between calls (each call leaves them zero):
-// the overflow word, the overflow list's length, the walk CTAs' arrival
-// count, one arrival count per listed bucket, the bucket counters. Free
-// between calls: the list of buckets over 128 rows and the walk CTAs'
-// first rows (row ids, keys, how many).
+// the overflow list's length, the walk CTAs' arrival count, one arrival
+// count per listed bucket, the overflow words (one a shard), the bucket
+// counters. Free between calls: the list of buckets over 128 rows and the
+// walk CTAs' first rows (row ids, keys, how many). A bucket is numbered
+// shard * nb + bucket throughout.
 struct BuildScratch {
-  int* acc;
+  int* acc;             // [S]
   int* list_n;
   unsigned* arrive_all;
   unsigned* arrive;     // [BW_CTAS]
-  int* cnt;             // [nb * HX_CNT_STRIDE]
-  int* list;            // [max(nb, BW_CTAS)]
+  int* cnt;             // [S * nb * HX_CNT_STRIDE]
+  int* list;            // [max(S * nb, BW_CTAS)]
   int* chunk_rows;      // [BW_CTAS][128]
   int* chunk_keys;      // [BW_CTAS][128]
   int* chunk_n;         // [BW_CTAS]
@@ -132,24 +144,29 @@ __device__ __forceinline__ uint32_t load_rows8(const int32_t* __restrict__ keys,
   return vb;
 }
 
-// Pass 1. Grid: ceil(cap / 256) CTAs, a thread a row (one row a thread
-// measured faster on an H100 than 2 or 4: more warps hide the atomic's
-// round trip).
+// Pass 1. Grid: ceil(S * cap / 256) CTAs, a thread a row of the S shards
+// (one row a thread measured faster on an H100 than 2 or 4: more warps
+// hide the atomic's round trip).
 __global__ void __launch_bounds__(BR_THREADS)
 build_rows_kernel(const int32_t* __restrict__ keys,
-                  const uint8_t* __restrict__ valid, int cap, int sh,
-                  int32_t* __restrict__ rid, int32_t* __restrict__ key,
-                  BuildScratch sc) {
+                  const uint8_t* __restrict__ valid, int cap, int nsh,
+                  int sh, int nb, int32_t* __restrict__ rid,
+                  int32_t* __restrict__ key, BuildScratch sc) {
   const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * BR_THREADS + threadIdx.x;
+  const long long g = (long long)blockIdx.x * BR_THREADS + threadIdx.x;
+  // 32-bit division (the host keeps nsh * cap below 2^31), none unsharded
+  const int shard = nsh == 1 ? (g >= cap ? 1 : 0)
+                             : (int)((unsigned)g / (unsigned)cap);
+  const long long row = g - (long long)shard * cap;
   int32_t k = 0;
   bool in = false;
-  if (row < cap) {  // both loads in flight together
-    k = __ldg(keys + row);
-    in = __ldg(valid + row) != 0;
+  if (shard < nsh) {  // both loads in flight together
+    k = __ldg(keys + g);
+    in = __ldg(valid + g) != 0;
   }
   // an invalid row carries an id no bucket has, and takes no slot
-  const uint32_t b = in ? bucket_id(k, sh) : 0xFFFFFFFFu;
+  const uint32_t b =
+      in ? (uint32_t)shard * nb + bucket_id(k, sh) : 0xFFFFFFFFu;
   const unsigned peers = __match_any_sync(0xffffffffu, b);
   const int leader = __ffs(peers) - 1;
   int base = 0;
@@ -169,8 +186,13 @@ build_rows_kernel(const int32_t* __restrict__ keys,
         sc.list[atomicAdd(sc.list_n, 1)] = (int)b;
     }
   }
-  over = __reduce_add_sync(0xffffffffu, over);
-  if (lane == 0 && over) atomicAdd(sc.acc, over);
+  // one atomic per shard and warp (a warp may span two shards)
+  if (__ballot_sync(0xffffffffu, over)) {
+    const unsigned peers_s =
+        __match_any_sync(0xffffffffu, over ? (unsigned)shard : 0xFFFFFFFFu);
+    if (over && lane == __ffs(peers_s) - 1)
+      atomicAdd(sc.acc + shard, __popc(peers_s));
+  }
 }
 
 // The first 128 rows of bucket b in [lo, hi), in row order, into rrow /
@@ -248,7 +270,7 @@ __device__ __forceinline__ void rank_staged(const int32_t (&r)[4], int n,
 // BW_CTAS of them in s_list
 __device__ __forceinline__ void serve_listed(
     const int32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
-    int cap, int vec, int sh, int32_t* __restrict__ rid,
+    int cap, int vec, int sh, int nb, int32_t* __restrict__ rid,
     int32_t* __restrict__ key, const BuildScratch& sc, int (*tot)[BB_WARPS],
     int nl, const int* s_list) {
   __shared__ int s_pref[BW_CTAS + 1];
@@ -257,8 +279,10 @@ __device__ __forceinline__ void serve_listed(
   if (g == 1) {
     for (int i = blockIdx.x; i < nl; i += BW_CTAS) {
       const uint32_t ob = (uint32_t)(i < BW_CTAS ? s_list[i] : sc.list[i]);
-      walk_rows(keys, valid, vec, sh, ob, 0, cap, rid + (size_t)ob * HX_LANES,
-                key + (size_t)ob * HX_LANES, tot);
+      const long long off = (long long)(ob / nb) * cap;  // the shard's rows
+      walk_rows(keys + off, valid + off, vec, sh, ob % nb, 0, cap,
+                rid + (size_t)ob * HX_LANES, key + (size_t)ob * HX_LANES,
+                tot);
     }
     return;
   }
@@ -266,12 +290,13 @@ __device__ __forceinline__ void serve_listed(
   const int e = blockIdx.x % g;
   if (i >= nl) return;
   const uint32_t ob = (uint32_t)s_list[i];
+  const long long off = (long long)(ob / nb) * cap;
   const long long steps = (cap + BW_STEP - 1) / BW_STEP;
   const long long per = (steps + g - 1) / g;
   const long long lo = min((long long)cap, e * per * BW_STEP);
   const long long hi = min((long long)cap, lo + per * BW_STEP);
   const int own = blockIdx.x;  // this CTA's chunk buffers
-  const int n = walk_rows(keys, valid, vec, sh, ob, lo, hi,
+  const int n = walk_rows(keys + off, valid + off, vec, sh, ob % nb, lo, hi,
                           sc.chunk_rows + own * HX_LANES,
                           sc.chunk_keys + own * HX_LANES, tot);
   if (threadIdx.x == 0) sc.chunk_n[own] = n;
@@ -310,7 +335,7 @@ __device__ __forceinline__ void serve_listed(
 // its length (one L2 round trip for both).
 __device__ __forceinline__ void serve_overflow(
     const int32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
-    int cap, int vec, int sh, int32_t* __restrict__ rid,
+    int cap, int vec, int sh, int nb, int32_t* __restrict__ rid,
     int32_t* __restrict__ key, const BuildScratch& sc, int (*tot)[BB_WARPS]) {
   __shared__ int s_list[BW_CTAS];
   if (threadIdx.x < BW_CTAS) s_list[threadIdx.x] = sc.list[threadIdx.x];
@@ -320,33 +345,37 @@ __device__ __forceinline__ void serve_overflow(
   // answer is waited for only at the end, so its round trip overlaps
   unsigned arrived = 0;
   if (threadIdx.x == 0) arrived = atomicInc(sc.arrive_all, BW_CTAS - 1);
-  serve_listed(keys, valid, cap, vec, sh, rid, key, sc, tot, nl, s_list);
+  serve_listed(keys, valid, cap, vec, sh, nb, rid, key, sc, tot, nl, s_list);
   if (threadIdx.x == 0 && arrived == BW_CTAS - 1) *sc.list_n = 0;
 }
 
-// Pass 2. Grid: BW_CTAS + min(ceil(nb / 16), BN_CTAS) CTAs. The first
+// Pass 2. Grid: BW_CTAS + min(ceil(S * nb / 16), BN_CTAS) CTAs. The first
 // BW_CTAS serve the buckets over 128 rows (serve_overflow) and then leave
 // the list and their arrival count zero. In the others each warp takes
-// buckets b, b + stride, ... (buckets >= 2^lg took no row), with the next
-// bucket's count loaded ahead: it zeroes the counter and, if the bucket
-// has at most 128 rows, orders them, lays the rows out in shared memory
-// and stores each of rid's and key's rows as one 16-byte store a lane.
+// buckets b, b + stride, ... of the S * nb (buckets >= 2^lg of a shard
+// took no row), with the next bucket's count loaded ahead: it zeroes the
+// counter and, if the bucket has at most 128 rows, orders them, lays the
+// rows out in shared memory and stores each of rid's and key's rows as
+// one 16-byte store a lane.
 __global__ void __launch_bounds__(BB_THREADS, 3)
 build_buckets_kernel(const int32_t* __restrict__ keys,
-                     const uint8_t* __restrict__ valid, int cap, int vec,
-                     int sh, int nb, int32_t* __restrict__ rid,
+                     const uint8_t* __restrict__ valid, int cap, int nsh,
+                     int vec, int sh, int nb, int32_t* __restrict__ rid,
                      int32_t* __restrict__ key, BuildScratch sc,
                      int32_t* __restrict__ overflow) {
   __shared__ int tot[2][BB_WARPS];
   __shared__ int4 stage[BB_WARPS][2][HX_LANES / 4];  // a warp's rid, key rows
   if (blockIdx.x < BW_CTAS) {
-    if (blockIdx.x == 0 && threadIdx.x == 0) {  // pass 1 has ended
-      *overflow = *sc.acc;
-      *sc.acc = 0;
+    if (blockIdx.x == 0) {  // pass 1 has ended
+      for (int i = threadIdx.x; i < nsh; i += BB_THREADS) {
+        overflow[i] = sc.acc[i];
+        sc.acc[i] = 0;
+      }
     }
-    serve_overflow(keys, valid, cap, vec, sh, rid, key, sc, tot);
+    serve_overflow(keys, valid, cap, vec, sh, nb, rid, key, sc, tot);
     return;
   }
+  nb *= nsh;  // from here on a bucket is numbered shard * nb + bucket
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int stride = (gridDim.x - BW_CTAS) * BB_WARPS;
@@ -450,13 +479,15 @@ __device__ __forceinline__ uint32_t cmp4(int op, const int32_t (&x)[4],
 // occupied and stored key == query. verify = 1: cand = the lanes clamped
 // to [0, cap) ("safe"), hit = verified matches ("ok"), count [w], and
 // when limit > 0 ids [w, limit]: the matches' row ids in row order,
-// 0-padded. NRES: residual terms compiled in (0, or PV_TERMS >= nres); the
+// 0-padded. sid [w] (or null): query q reads shard sid[q]'s index
+// (2^lg buckets a shard) and shard sid[q]'s rows (cap a shard). NRES: residual terms compiled in (0, or PV_TERMS >= nres); the
 // common probe without any is compiled without their code, which costs a
 // warp alone on its SM more than a load does.
 template <int NRES>
 __global__ void __launch_bounds__(256)
 probe_kernel(const int32_t* __restrict__ rid, const int32_t* __restrict__ key,
-             const int32_t* __restrict__ qkeys, int w, int lg, int verify,
+             const int32_t* __restrict__ qkeys,
+             const int32_t* __restrict__ sid, int w, int lg, int verify,
              const uint8_t* __restrict__ valid,
              const int32_t* __restrict__ keycol, Terms terms, int nres,
              const uint8_t* __restrict__ extra,
@@ -467,9 +498,10 @@ probe_kernel(const int32_t* __restrict__ rid, const int32_t* __restrict__ key,
   const int lane = threadIdx.x & 31;
   if (q >= w) return;
   const int32_t k = __ldg(qkeys + q);
-  const uint32_t b = ((uint32_t)k * HX_PRIME) >> (32 - lg);
-  const int4 r4 = __ldg(reinterpret_cast<const int4*>(rid + (size_t)b * HX_LANES) + lane);
-  const int4 k4 = __ldg(reinterpret_cast<const int4*>(key + (size_t)b * HX_LANES) + lane);
+  const long long s = sid != nullptr ? __ldg(sid + q) : 0;
+  const size_t b = ((size_t)s << lg) + (((uint32_t)k * HX_PRIME) >> (32 - lg));
+  const int4 r4 = __ldg(reinterpret_cast<const int4*>(rid + b * HX_LANES) + lane);
+  const int4 k4 = __ldg(reinterpret_cast<const int4*>(key + b * HX_LANES) + lane);
   const int32_t r[4] = {r4.x, r4.y, r4.z, r4.w};
   const int32_t kk[4] = {k4.x, k4.y, k4.z, k4.w};
   uint32_t ok = 0;  // bit j: bucket lane 4 * lane + j
@@ -486,6 +518,10 @@ probe_kernel(const int32_t* __restrict__ rid, const int32_t* __restrict__ key,
   int32_t sf[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) sf[j] = min(max(r[j], 0), cap - 1);
+  const long long off = s * cap;  // shard s's rows
+  valid += off;
+  keycol += off;
+  if (extra != nullptr) extra += off;
   int32_t rv[NRES > 0 ? NRES : 1];
 #pragma unroll
   for (int t = 0; t < NRES; ++t)
@@ -502,7 +538,7 @@ probe_kernel(const int32_t* __restrict__ rid, const int32_t* __restrict__ key,
       if (extra != nullptr) xb[j] = __ldg(extra + sf[j]);
 #pragma unroll
       for (int t = 0; t < NRES; ++t)
-        if (t < nres) rc[t][j] = __ldg(terms.col[t] + sf[j]);
+        if (t < nres) rc[t][j] = __ldg(terms.col[t] + off + sf[j]);
     } else {
 #pragma unroll
       for (int t = 0; t < NRES; ++t) rc[t][j] = 0;
@@ -584,52 +620,62 @@ constexpr int kThreads = 256;  // 8 warps = 8 queries a block
 
 }  // namespace
 
-// Ints of the build's two scratch buffers for nb buckets: the one that
-// must be zero when a call starts (and is zero again after it) and the
-// one whose contents do not matter.
-REPRO_EXPORT long long hash_build_scratch(int nb, int zeroed) {
-  return zeroed ? 3 + BW_CTAS + (long long)HX_CNT_STRIDE * nb
-                : 2LL * BW_CTAS * HX_LANES + BW_CTAS + (nb > BW_CTAS ? nb : BW_CTAS);
+// Ints of the build's two scratch buffers for nsh shards of nb buckets:
+// the one that must be zero when a call starts (and is zero again after
+// it) and the one whose contents do not matter.
+REPRO_EXPORT long long hash_build_scratch(int nb, int nsh, int zeroed) {
+  const long long nbt = (long long)nb * nsh;
+  return zeroed ? 2 + BW_CTAS + nsh + (long long)HX_CNT_STRIDE * nbt
+                : 2LL * BW_CTAS * HX_LANES + BW_CTAS +
+                      (nbt > BW_CTAS ? nbt : BW_CTAS);
 }
 
-// keys [cap] int32, valid [cap] uint8 -> rid / key [nb, 128] int32 (each
-// bucket's first 128 valid rows in row order, EMPTY / 0 after) and
-// overflow [] int32 (the rows past 128 over all buckets). zeroed and free
-// are the caller's scratch (hash_build_scratch ints each), used by one
-// stream's launches only; zeroed is zero when allocated, and the two
-// launches leave it zero. rid and key must start on 8 bytes.
-REPRO_EXPORT int hash_build(const void* keys, const void* valid, int cap,
-                            int nb, void* rid, void* key, void* overflow,
-                            void* zeroed, void* free, void* stream) {
-  if (cap < 0 || nb < 2) return (int)cudaErrorInvalidValue;
+// keys [nsh, cap] int32, valid [nsh, cap] uint8 -> rid / key
+// [nsh, nb, 128] int32 (each shard's buckets: the first 128 valid rows of
+// the shard in row order, as the shard's own row ids, EMPTY / 0 after)
+// and overflow [nsh] int32 (each shard's rows past 128 over its buckets).
+// nsh = 1 is the unsharded build. zeroed and free are the caller's
+// scratch (hash_build_scratch ints each), used by one stream's launches
+// only; zeroed is zero when allocated, and the two launches leave it
+// zero. rid and key must start on 8 bytes.
+REPRO_EXPORT int hash_build(const void* keys, const void* valid, int nsh,
+                            int cap, int nb, void* rid, void* key,
+                            void* overflow, void* zeroed, void* free,
+                            void* stream) {
+  if (cap < 0 || nb < 2 || nsh < 1 || (long long)nsh * cap > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   const int lg = 31 - __builtin_clz((unsigned)nb);  // bit_length(nb) - 1
   int* z = (int*)zeroed;
   int* f = (int*)free;
   BuildScratch sc;
-  sc.acc = z;
-  sc.list_n = z + 1;
-  sc.arrive_all = (unsigned*)(z + 2);
-  sc.arrive = (unsigned*)(z + 3);
-  sc.cnt = z + 3 + BW_CTAS;
+  sc.list_n = z;
+  sc.arrive_all = (unsigned*)(z + 1);
+  sc.arrive = (unsigned*)(z + 2);
+  sc.acc = z + 2 + BW_CTAS;
+  sc.cnt = z + 2 + BW_CTAS + nsh;
   sc.chunk_rows = f;
   sc.chunk_keys = f + BW_CTAS * HX_LANES;
   sc.chunk_n = f + 2 * BW_CTAS * HX_LANES;
   sc.list = f + 2 * BW_CTAS * HX_LANES + BW_CTAS;
-  const int vec = ((uintptr_t)keys & 15) == 0 && ((uintptr_t)valid & 7) == 0;
+  // a shard's rows start on 16 (8) bytes when the base does and cap is a
+  // multiple of 8
+  const int vec = ((uintptr_t)keys & 15) == 0 && ((uintptr_t)valid & 7) == 0 &&
+                  (nsh == 1 || cap % 8 == 0);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (cap > 0) {
-    build_rows_kernel<<<(unsigned)((cap + BR_THREADS - 1LL) / BR_THREADS),
+  const long long rows = (long long)nsh * cap;
+  if (rows > 0) {
+    build_rows_kernel<<<(unsigned)((rows + BR_THREADS - 1LL) / BR_THREADS),
                         BR_THREADS, 0, s>>>(
-        (const int32_t*)keys, (const uint8_t*)valid, cap, 32 - lg,
+        (const int32_t*)keys, (const uint8_t*)valid, cap, nsh, 32 - lg, nb,
         (int32_t*)rid, (int32_t*)key, sc);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const int bucket_ctas = (nb + BB_WARPS - 1) / BB_WARPS;
-  build_buckets_kernel<<<BW_CTAS + (bucket_ctas < BN_CTAS ? bucket_ctas
-                                                          : BN_CTAS),
+  const long long bucket_ctas = ((long long)nb * nsh + BB_WARPS - 1) / BB_WARPS;
+  build_buckets_kernel<<<BW_CTAS + (int)(bucket_ctas < BN_CTAS ? bucket_ctas
+                                                               : BN_CTAS),
                          BB_THREADS, 0, s>>>((const int32_t*)keys, (const uint8_t*)valid,
-                                 cap, vec, 32 - lg, nb, (int32_t*)rid,
+                                 cap, nsh, vec, 32 - lg, nb, (int32_t*)rid,
                                  (int32_t*)key, sc, (int32_t*)overflow);
   return (int)cudaGetLastError();
 }
@@ -643,8 +689,8 @@ REPRO_EXPORT int hash_probe(const void* rid, const void* key, const void* qkeys,
   const int blocks = (int)(((size_t)w * 32 + kThreads - 1) / kThreads);
   Terms none = {};
   probe_kernel<0><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)rid, (const int32_t*)key, (const int32_t*)qkeys, w, lg,
-      0, nullptr, nullptr, none, 0, nullptr, nullptr, 1, 0, (int32_t*)cand,
+      (const int32_t*)rid, (const int32_t*)key, (const int32_t*)qkeys, nullptr,
+      w, lg, 0, nullptr, nullptr, none, 0, nullptr, nullptr, 1, 0, (int32_t*)cand,
       (uint8_t*)hit, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
@@ -655,9 +701,12 @@ REPRO_EXPORT int hash_probe(const void* rid, const void* key, const void* qkeys,
 // uint8 and active [w] uint8 (either may be null). Out: safe [w, 128]
 // int32 (lanes clamped to [0, cap)), ok [w, 128] uint8, count [w] int32
 // and, when limit > 0, ids [w, limit] int32 (matches in row order,
-// 0-padded).
+// 0-padded). With sid [w] (else null) the index is [S, 2^lg, 128] and
+// valid, keycol, the terms' columns and extra are [S, cap]: query q
+// probes shard sid[q] and its row ids are that shard's own.
 REPRO_EXPORT int hash_probe_verify(
-    const void* rid, const void* key, const void* qkeys, int w, int lg,
+    const void* rid, const void* key, const void* qkeys, const void* sid,
+    int w, int lg,
     const void* valid, const void* keycol, const void* const* cols,
     const void* const* vals, const int* ops, int nres, const void* extra,
     const void* active, int cap, int limit, void* safe, void* ok,
@@ -674,8 +723,8 @@ REPRO_EXPORT int hash_probe_verify(
   const int blocks = (int)(((size_t)w * 32 + kThreads - 1) / kThreads);
   auto kernel = nres == 0 ? probe_kernel<0> : probe_kernel<PV_TERMS>;
   kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)rid, (const int32_t*)key, (const int32_t*)qkeys, w, lg,
-      1, (const uint8_t*)valid, (const int32_t*)keycol, terms, nres,
+      (const int32_t*)rid, (const int32_t*)key, (const int32_t*)qkeys,
+      (const int32_t*)sid, w, lg, 1, (const uint8_t*)valid, (const int32_t*)keycol, terms, nres,
       (const uint8_t*)extra, (const uint8_t*)active, cap, limit,
       (int32_t*)safe, (uint8_t*)ok, (int32_t*)count, (int32_t*)ids);
   return (int)cudaGetLastError();

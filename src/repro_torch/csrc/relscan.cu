@@ -54,7 +54,21 @@
 //     that; see PERF.md for the times of both caps);
 //   * the compaction's grid runs w statements over their mask rows in one
 //     launch, as the scan does: the batched SELECT / aggregate executors
-//     use it; w = 1 is the TPU kernel's contract.
+//     use it; w = 1 is the TPU kernel's contract. A sharded table's
+//     fan-out hands it the scan's [S * w, cap_s] mask, one row a (shard,
+//     statement) pair, and gets each shard's first candidates;
+//   * shard axis (sharded tables): the scan takes sid [n], the shard of
+//     each (shard, statement) pair, and reads the columns of a [S, cap_s]
+//     stack at base + sid * cap_s. One launch serves a fan-out (every
+//     shard for every statement) or a micro-batch of pruned statements
+//     (each on its own shard), with no gathered copy of a shard: the
+//     counterpart of the TPU's vmap of the kernel over the stacked state.
+//     A CTA takes `per` consecutive pairs (8 unsharded; with sid, the
+//     caller's run of pairs on one shard, at most 8: a fan-out of w
+//     statements lists its pairs shard by shard) and loads its rows again
+//     only where the shard changes, so a one-statement fan-out spreads its
+//     shards over CTAs instead of loading them one after another in one.
+//     sid = null is the unsharded call.
 #include "common.cuh"
 
 namespace {
@@ -97,40 +111,28 @@ __device__ __forceinline__ uint32_t cmp_rows(int op,
   }
 }
 
-// Grid (ceil(cap / SC_TILE), ceil(w / SC_STMTS)). Thread g of the grid's x
-// axis owns rows [8 g, 8 g + 8), so warp v covers block v. acc [w]
-// (uint64: matches so far | CTAs arrived << 32) is the caller's persistent
-// scratch, zero between launches.
-__global__ void __launch_bounds__(SC_THREADS)
-scan_kernel(Cols cols, Ops ops, int nterms, const uint8_t* __restrict__ valid,
-            const int32_t* __restrict__ vals, int cap, int nblk, int w,
-            int vec, uint8_t* __restrict__ mask,
-            int32_t* __restrict__ cnt, int32_t* __restrict__ count,
-            unsigned long long* __restrict__ acc) {
-  __shared__ int part[SC_STMTS][SC_WARPS];
-  const int lane = threadIdx.x & 31;
-  const long long r0 =
-      ((long long)blockIdx.x * SC_THREADS + threadIdx.x) * SC_ROWS;
-  const long long blk = r0 / RS_BLOCK;
-  const int q0 = blockIdx.y * SC_STMTS;
-  const int nq = min(SC_STMTS, w - q0);
-
-  // every load before the first compare: two 16-byte loads a column and
-  // one 8-byte load of the validity bytes; a ragged tail (or a column not
-  // on 16 bytes) is read row by row, rows past cap as invalid
-  int32_t x[4][SC_ROWS];
+// a thread's SC_ROWS rows [r0, r0 + 8) of the columns at off (a shard's
+// first row) into x, and their validity as bits (bit j: row r0 + j, rows
+// past cap invalid): two 16-byte loads a column and one 8-byte load of
+// the validity bytes, all before the first compare; a ragged tail (or a
+// column not on 16 bytes) is read row by row
+__device__ __forceinline__ uint32_t load_rows(const Cols& cols,
+                                              const uint8_t* __restrict__ valid,
+                                              long long off, long long r0,
+                                              int cap, int nterms, int vec,
+                                              int32_t (&x)[4][SC_ROWS]) {
   uint32_t vbits = 0;
   if (vec && r0 + SC_ROWS <= cap) {
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       if (t < nterms) {
-        const int4* p = reinterpret_cast<const int4*>(cols.c[t] + r0);
+        const int4* p = reinterpret_cast<const int4*>(cols.c[t] + off + r0);
         const int4 a = __ldg(p), b = __ldg(p + 1);
         x[t][0] = a.x; x[t][1] = a.y; x[t][2] = a.z; x[t][3] = a.w;
         x[t][4] = b.x; x[t][5] = b.y; x[t][6] = b.z; x[t][7] = b.w;
       }
     }
-    const uint2 vb = __ldg(reinterpret_cast<const uint2*>(valid + r0));
+    const uint2 vb = __ldg(reinterpret_cast<const uint2*>(valid + off + r0));
     vbits = nz_bits4(vb.x) | (nz_bits4(vb.y) << 4);
   } else {
 #pragma unroll
@@ -139,13 +141,49 @@ scan_kernel(Cols cols, Ops ops, int nterms, const uint8_t* __restrict__ valid,
       const bool in = r < cap;
 #pragma unroll
       for (int t = 0; t < 4; ++t)
-        if (t < nterms) x[t][j] = in ? __ldg(cols.c[t] + r) : 0;
-      vbits |= (uint32_t)(in && __ldg(valid + r) != 0) << j;
+        if (t < nterms) x[t][j] = in ? __ldg(cols.c[t] + off + r) : 0;
+      vbits |= (uint32_t)(in && __ldg(valid + off + r) != 0) << j;
     }
   }
+  return vbits;
+}
 
+// Grid (ceil(cap / SC_TILE), ceil(w / per)). Thread g of the grid's x
+// axis owns rows [8 g, 8 g + 8), so warp v covers block v. acc [w]
+// (uint64: matches so far | CTAs arrived << 32) is the caller's persistent
+// scratch, zero between launches. SHARDED = 0: one table, its rows loaded
+// once for the CTA's statements; SHARDED = 1: row q of vals reads shard
+// sid[q], loaded again where the shard changes.
+template <int SHARDED>
+__global__ void __launch_bounds__(SC_THREADS)
+scan_kernel(Cols cols, Ops ops, int nterms, const uint8_t* __restrict__ valid,
+            const int32_t* __restrict__ vals,
+            const int32_t* __restrict__ sid, int per, int cap, int nblk,
+            int w, int vec, uint8_t* __restrict__ mask,
+            int32_t* __restrict__ cnt, int32_t* __restrict__ count,
+            unsigned long long* __restrict__ acc) {
+  __shared__ int part[SC_STMTS][SC_WARPS];
+  const int lane = threadIdx.x & 31;
+  const long long r0 =
+      ((long long)blockIdx.x * SC_THREADS + threadIdx.x) * SC_ROWS;
+  const long long blk = r0 / RS_BLOCK;
+  const int q0 = blockIdx.y * per;
+  const int nq = min(per, w - q0);
+
+  int32_t x[4][SC_ROWS];
+  uint32_t vbits = 0;
+  int shard = -1;  // the shard whose rows x / vbits hold (uniform)
+  if (!SHARDED) vbits = load_rows(cols, valid, 0, r0, cap, nterms, vec, x);
   for (int i = 0; i < nq; ++i) {
     const int q = q0 + i;
+    if (SHARDED) {
+      const int s = __ldg(sid + q);
+      if (s != shard) {
+        shard = s;
+        vbits = load_rows(cols, valid, (long long)s * cap, r0, cap, nterms,
+                          vec, x);
+      }
+    }
     const int32_t* v = vals + (size_t)q * nterms;
     uint32_t bits = vbits;
 #pragma unroll
@@ -351,28 +389,37 @@ compact_kernel(const uint8_t* __restrict__ mask, long long row_stride, int cap,
 }  // namespace
 
 // mask [w, cap] uint8, cnt [w, nblk] int32 (nblk = ceil(cap / 256)) and
-// count [w] int32 out; vals [w, nterms] int32. acc (>= w uint64) is the
-// caller's persistent scratch, zeroed once when allocated and used by one
+// count [w] int32 out; vals [w, nterms] int32. sid [w] int32 (or null):
+// the shard of row q of vals; then the columns and valid are [S, cap]
+// stacks and row q reads shard sid[q], and per (1-8) is the number of
+// rows a CTA takes (ignored without sid). acc (>= w uint64) is the caller's
+// persistent scratch, zeroed once when allocated and used by one
 // stream's launches only.
 REPRO_EXPORT int relscan_scan(const void* c0, const void* c1, const void* c2,
                               const void* c3, int op0, int op1, int op2, int op3,
                               int nterms, const void* valid, const void* vals,
-                              int cap, int w, void* mask,
+                              const void* sid, int per, int cap, int w,
+                              void* mask,
                               void* cnt, void* count, void* acc,
                               void* stream) {
-  if (cap <= 0 || w <= 0 || nterms < 1 || nterms > 4)
+  if (sid == nullptr) per = SC_STMTS;
+  if (cap <= 0 || w <= 0 || nterms < 1 || nterms > 4 || per < 1 ||
+      per > SC_STMTS)
     return (int)cudaErrorInvalidValue;
   const int nblk = (cap + RS_BLOCK - 1) / RS_BLOCK;
   const void* cs[4] = {c0, c1, c2, c3};
-  int vec = ((uintptr_t)valid & 7) == 0;
+  // a shard's rows start on 16 (8) bytes when its base does and cap is a
+  // multiple of 8
+  int vec = ((uintptr_t)valid & 7) == 0 && (sid == nullptr || cap % 8 == 0);
   for (int t = 0; t < nterms; ++t) vec &= ((uintptr_t)cs[t] & 15) == 0;
   Cols cols = {{(const int32_t*)c0, (const int32_t*)c1, (const int32_t*)c2,
                 (const int32_t*)c3}};
   Ops ops = {{op0, op1, op2, op3}};
-  dim3 grid((cap + SC_TILE - 1) / SC_TILE, (w + SC_STMTS - 1) / SC_STMTS);
-  scan_kernel<<<grid, SC_THREADS, 0, (cudaStream_t)stream>>>(
-      cols, ops, nterms, (const uint8_t*)valid, (const int32_t*)vals, cap,
-      nblk, w, vec, (uint8_t*)mask, (int32_t*)cnt, (int32_t*)count,
+  dim3 grid((cap + SC_TILE - 1) / SC_TILE, (w + per - 1) / per);
+  auto kernel = sid != nullptr ? scan_kernel<1> : scan_kernel<0>;
+  kernel<<<grid, SC_THREADS, 0, (cudaStream_t)stream>>>(
+      cols, ops, nterms, (const uint8_t*)valid, (const int32_t*)vals,
+      (const int32_t*)sid, per, cap, nblk, w, vec, (uint8_t*)mask, (int32_t*)cnt, (int32_t*)count,
       (unsigned long long*)acc);
   return (int)cudaGetLastError();
 }

@@ -158,13 +158,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     L = ctypes.c_longlong
     PP = ctypes.POINTER(P)
     sigs = {
-        "relscan_scan": [P, P, P, P, I, I, I, I, I, P, P, I, I, P, P, P, P,
-                         P],
+        "relscan_scan": [P, P, P, P, I, I, I, I, I, P, P, P, I, I, I, P, P,
+                         P, P, P],
         "relscan_compact": [P, L, I, I, I, P, P, P, P, P],
-        "hash_build": [P, P, I, I, P, P, P, P, P, P],
-        "hash_build_scratch": [I, I],
+        "hash_build": [P, P, I, I, I, P, P, P, P, P, P],
+        "hash_build_scratch": [I, I, I],
         "hash_probe": [P, P, P, I, I, P, P, P],
-        "hash_probe_verify": [P, P, P, I, I, P, P, PP, PP,
+        "hash_probe_verify": [P, P, P, P, I, I, P, P, PP, PP,
                               ctypes.POINTER(I), I, P, P, I, I, P, P, P, P,
                               P],
         "flash_attention": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, F, I,

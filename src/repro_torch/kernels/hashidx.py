@@ -18,6 +18,12 @@ and ``probe_verify`` (the executors' whole IndexProbe route in the same
 launch: candidate verification against the table, the match count and
 the first ``limit`` matches in row order). A wrapper serves a CPU tensor
 with the plain version and a CUDA tensor with its kernel.
+
+Sharded tables (``core/shards.py``) keep one index per shard, stacked:
+``rid`` / ``key`` ``[S, n_buckets, 128]`` and ``stale [S]``. The build
+takes ``[S, cap_s]`` keys and validity and rebuilds every shard's index
+in the same two launches; the verified probe takes ``sid [w]``, the shard
+of each query, and probes every query on its own shard in one launch.
 ``insert_update_batched`` is plain PyTorch on every device (it was no
 Pallas kernel in the reference either).
 """
@@ -48,15 +54,20 @@ def n_buckets_for(capacity: int) -> int:
     return nb
 
 
-def bucket_of(keys: torch.Tensor, n_buckets: int) -> torch.Tensor:
-    """Multiplicative hash -> bucket id: the top ``lg`` bits of the 32-bit
-    product ``uint32(key) * _PRIME``. Computed in int64 from two 16-bit
-    halves of the multiplier, so no product leaves the int64 range and
-    negative keys wrap exactly as the uint32 cast does."""
-    lg = n_buckets.bit_length() - 1
+def hash32(keys: torch.Tensor) -> torch.Tensor:
+    """The 32-bit product ``uint32(key) * _PRIME`` (uint32 wraparound) as
+    int64. Computed from two 16-bit halves of the multiplier, so no
+    product leaves the int64 range and negative keys wrap exactly as the
+    uint32 cast does."""
     k = keys.to(torch.int64) & 0xFFFFFFFF
-    prod = (k * _PRIME_LO + (((k * _PRIME_HI) & 0xFFFF) << 16)) & 0xFFFFFFFF
-    return (prod >> (32 - lg)).to(torch.int32)
+    return (k * _PRIME_LO + (((k * _PRIME_HI) & 0xFFFF) << 16)) & 0xFFFFFFFF
+
+
+def bucket_of(keys: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """Multiplicative hash -> bucket id: the top ``lg`` bits of
+    :func:`hash32`."""
+    lg = n_buckets.bit_length() - 1
+    return (hash32(keys) >> (32 - lg)).to(torch.int32)
 
 
 def empty_index(n_buckets: int, device) -> dict:
@@ -93,8 +104,8 @@ def _build_sorted(keys: torch.Tensor, valid: torch.Tensor, n_buckets: int):
 
 
 def _check_build(keys, valid, n_buckets):
-    if keys.dim() != 1 or keys.dtype != torch.int32:
-        raise TypeError("keys must be a [cap] int32 tensor")
+    if keys.dim() not in (1, 2) or keys.dtype != torch.int32:
+        raise TypeError("keys must be a [cap] or [S, cap_s] int32 tensor")
     if valid.shape != keys.shape or valid.dtype != torch.bool:
         raise TypeError("valid must be a [cap] bool tensor")
     if valid.device != keys.device:
@@ -111,8 +122,14 @@ def build_ref(keys: torch.Tensor, valid: torch.Tensor, *, n_buckets: int):
     the valid rows past 128 summed over the buckets). Only the top
     ``bit_length(nb) - 1`` bits of the hash pick a bucket, so when ``nb``
     is no power of two the buckets from the largest power of two below it
-    stay empty."""
+    stay empty. ``[S, cap_s]`` keys and validity build each shard's index
+    alone: rid / key ``[S, nb, 128]`` in the shard's own row ids,
+    overflow ``[S]``."""
     _check_build(keys, valid, n_buckets)
+    if keys.dim() == 2:
+        outs = [build_ref(k, v, n_buckets=n_buckets)
+                for k, v in zip(keys, valid)]
+        return tuple(torch.stack(x) for x in zip(*outs))
     cap = keys.shape[0]
     dev = keys.device
     order, sb, start, overflow = _build_sorted(keys, valid, n_buckets)
@@ -131,28 +148,33 @@ def build_ref(keys: torch.Tensor, valid: torch.Tensor, *, n_buckets: int):
 
 
 def build(keys: torch.Tensor, valid: torch.Tensor, *, n_buckets: int):
-    """Bulk (re)build. On CUDA tensors two kernel launches and no other
-    device op (the per-bucket counters are a persistent scratch the kernels
+    """Bulk (re)build, of one index or of every shard's. On CUDA tensors
+    two kernel launches and no other device op, whatever the number of
+    shards (the per-bucket counters are a persistent scratch the kernels
     leave zero). Contract of :func:`build_ref`."""
     if keys.device.type == "cpu":
         return build_ref(keys, valid, n_buckets=n_buckets)
     _build.require_cuda(keys, "hash_build")
     _check_build(keys, valid, n_buckets)
     dev = keys.device
+    lead = tuple(keys.shape[:-1])
+    nsh = keys.shape[0] if lead else 1
     keys, valid = keys.contiguous(), valid.contiguous()
-    rid = torch.empty((n_buckets, BUCKET_CAP), dtype=torch.int32, device=dev)
+    rid = torch.empty(lead + (n_buckets, BUCKET_CAP), dtype=torch.int32,
+                      device=dev)
     key = torch.empty_like(rid)
-    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    overflow = torch.empty(lead, dtype=torch.int32, device=dev)
     stream = _build.stream_ptr(dev)
     lib = _build.lib("hashidx")
     # the kernels' int32 scratch, in int64 words: "build" is zero when a
     # call starts and the call leaves it so; "build_free" holds nothing
     # from one call to the next
     zeroed, free = (_zeroed_scratch(
-        kind, dev, stream, lib.hash_build_scratch(n_buckets, part) // 2 + 1)
+        kind, dev, stream,
+        lib.hash_build_scratch(n_buckets, nsh, part) // 2 + 1)
         for kind, part in (("build", 1), ("build_free", 0)))
     err = lib.hash_build(
-        keys.data_ptr(), valid.data_ptr(), keys.shape[0], n_buckets,
+        keys.data_ptr(), valid.data_ptr(), nsh, keys.shape[-1], n_buckets,
         rid.data_ptr(), key.data_ptr(), overflow.data_ptr(),
         zeroed.data_ptr(), free.data_ptr(), stream)
     _build.check(err, "hash_build")
@@ -162,10 +184,12 @@ def build(keys: torch.Tensor, valid: torch.Tensor, *, n_buckets: int):
 
 # ------------------------------------------------------------------- probe
 
-def _check_probe(rid, key, qkeys):
-    nb = rid.shape[0]
-    if rid.dim() != 2 or rid.shape[1] != BUCKET_CAP or rid.dtype != torch.int32:
-        raise TypeError("rid must be a [n_buckets, 128] int32 tensor")
+def _check_probe(rid, key, qkeys, sharded=False):
+    nb = rid.shape[-2] if rid.dim() >= 2 else 0
+    if (rid.dim() != (3 if sharded else 2) or rid.shape[-1] != BUCKET_CAP
+            or rid.dtype != torch.int32):
+        raise TypeError("rid must be a [n_buckets, 128] (with sid: "
+                        "[S, n_buckets, 128]) int32 tensor")
     if key.shape != rid.shape or key.dtype != torch.int32:
         raise TypeError("key must match rid")
     if nb & (nb - 1) or nb < 2:
@@ -221,33 +245,42 @@ MAX_RESIDUAL = 8
 
 
 def _check_verify(rid, key, qkeys, valid, keycol, residual, extra_mask,
-                  active, limit):
-    _check_probe(rid, key, qkeys)
-    cap = valid.shape[0]
+                  active, limit, sid=None):
+    _check_probe(rid, key, qkeys, sid is not None)
+    rows = tuple(valid.shape)
+    cap = rows[-1] if rows else 0
     w = qkeys.shape[0]
-    if valid.dim() != 1 or valid.dtype != torch.bool:
-        raise TypeError("valid must be a [cap] bool tensor")
-    if keycol.shape != (cap,) or keycol.dtype != torch.int32:
-        raise TypeError("keycol must be a [cap] int32 tensor")
+    if sid is None:
+        if valid.dim() != 1 or valid.dtype != torch.bool:
+            raise TypeError("valid must be a [cap] bool tensor")
+    else:
+        if (valid.dim() != 2 or valid.shape[0] != rid.shape[0]
+                or valid.dtype != torch.bool):
+            raise TypeError("valid must be a [S, cap_s] bool tensor")
+        if sid.shape != (w,) or sid.dtype != torch.int32:
+            raise TypeError("sid must be a [w] int32 tensor")
+    if keycol.shape != rows or keycol.dtype != torch.int32:
+        raise TypeError("keycol must be an int32 tensor shaped like valid")
     if len(residual) > MAX_RESIDUAL:
         raise ValueError(f"at most {MAX_RESIDUAL} residual terms")
     for col, op, vals in residual:
         if op not in OP_CODES:
             raise ValueError(f"unknown comparison {op!r}")
-        if col.shape != (cap,) or col.dtype != torch.int32:
-            raise TypeError("a residual column must be a [cap] int32 tensor")
+        if col.shape != rows or col.dtype != torch.int32:
+            raise TypeError("a residual column must be an int32 tensor "
+                            "shaped like valid")
         if vals.shape != (w,) or vals.dtype != torch.int32:
             raise TypeError("a residual term's values must be [w] int32")
-    if extra_mask is not None and (extra_mask.shape != (cap,)
+    if extra_mask is not None and (extra_mask.shape != rows
                                    or extra_mask.dtype != torch.bool):
-        raise TypeError("extra_mask must be a [cap] bool tensor")
+        raise TypeError("extra_mask must be a bool tensor shaped like valid")
     if active is not None and (active.shape != (w,)
                                or active.dtype != torch.bool):
         raise TypeError("active must be a [w] bool tensor")
     if cap < 1 or limit < 0:
         raise ValueError("need cap >= 1 and limit >= 0")
     tensors = [valid, keycol, *(t for c, _, v in residual for t in (c, v))]
-    tensors += [t for t in (extra_mask, active) if t is not None]
+    tensors += [t for t in (extra_mask, active, sid) if t is not None]
     if any(t.device != rid.device for t in tensors):
         raise ValueError("the index, the table and the terms must share a "
                          "device")
@@ -258,7 +291,8 @@ def probe_verify_ref(rid: torch.Tensor, key: torch.Tensor,
                      keycol: torch.Tensor,
                      residual: Sequence[tuple] = (),
                      extra_mask: torch.Tensor | None = None,
-                     active: torch.Tensor | None = None, limit: int = 0):
+                     active: torch.Tensor | None = None, limit: int = 0,
+                     sid: torch.Tensor | None = None):
     """Plain version of the verified probe (the reference executors'
     ``_probe_candidates`` + ``_probe_ids`` arithmetic, over ``w`` keys).
 
@@ -269,19 +303,35 @@ def probe_verify_ref(rid: torch.Tensor, key: torch.Tensor,
     [0, cap); ok [w, 128] bool: hit AND valid AND key equal AND every
     term AND the masks; count [w] int32; ids [w, limit] int32: the first
     ``limit`` matching row ids in row order, 0-padded, or None when limit
-    is 0)."""
+    is 0).
+
+    With ``sid`` ([w] int32) the index is ``[S, nb, 128]`` and valid,
+    keycol, the residual columns and extra_mask are ``[S, cap]``: query
+    ``q`` probes shard ``sid[q]``, and its row ids are the shard's own."""
     _check_verify(rid, key, qkeys, valid, keycol, residual, extra_mask,
-                  active, limit)
-    cap = valid.shape[0]
+                  active, limit, sid)
+    cap = valid.shape[-1]
     w = qkeys.shape[0]
-    cand, hit = probe_ref(rid, key, qkeys)
+    if sid is None:
+        cand, hit = probe_ref(rid, key, qkeys)
+
+        def at(t, ix):
+            return t[ix]
+    else:
+        s = sid.long()
+        b = bucket_of(qkeys, rid.shape[1]).long()
+        cand = rid[s, b]
+        hit = (cand != EMPTY) & (key[s, b] == qkeys[:, None])
+
+        def at(t, ix):
+            return t[s[:, None], ix]
     safe = cand.clamp(0, cap - 1)
     si = safe.long()
-    ok = hit & valid[si] & (keycol[si] == qkeys[:, None])
+    ok = hit & at(valid, si) & (at(keycol, si) == qkeys[:, None])
     for col, op, vals in residual:
-        ok = ok & _CMP[op](col[si], vals[:, None])
+        ok = ok & _CMP[op](at(col, si), vals[:, None])
     if extra_mask is not None:
-        ok = ok & extra_mask[si]
+        ok = ok & at(extra_mask, si)
     if active is not None:
         ok = ok & active[:, None]
     count = ok.sum(dim=1, dtype=torch.int32)
@@ -306,18 +356,19 @@ def probe_verify(rid: torch.Tensor, key: torch.Tensor, qkeys: torch.Tensor,
                  *, valid: torch.Tensor, keycol: torch.Tensor,
                  residual: Sequence[tuple] = (),
                  extra_mask: torch.Tensor | None = None,
-                 active: torch.Tensor | None = None, limit: int = 0):
-    """The IndexProbe route of ``w`` statements: on CUDA tensors one launch
-    of the probe kernel and no other device op. Contract of
-    :func:`probe_verify_ref`."""
+                 active: torch.Tensor | None = None, limit: int = 0,
+                 sid: torch.Tensor | None = None):
+    """The IndexProbe route of ``w`` statements (each on its own shard
+    with ``sid``): on CUDA tensors one launch of the probe kernel and no
+    other device op. Contract of :func:`probe_verify_ref`."""
     if rid.device.type == "cpu":
         return probe_verify_ref(rid, key, qkeys, valid=valid, keycol=keycol,
                                 residual=residual, extra_mask=extra_mask,
-                                active=active, limit=limit)
+                                active=active, limit=limit, sid=sid)
     _build.require_cuda(rid, "hash_probe")
     _check_verify(rid, key, qkeys, valid, keycol, residual, extra_mask,
-                  active, limit)
-    cap = valid.shape[0]
+                  active, limit, sid)
+    cap = valid.shape[-1]
     w = qkeys.shape[0]
     dev = rid.device
     safe = torch.empty((w, BUCKET_CAP), dtype=torch.int32, device=dev)
@@ -334,7 +385,9 @@ def probe_verify(rid: torch.Tensor, key: torch.Tensor, qkeys: torch.Tensor,
     opt = [None if t is None else t.contiguous() for t in (extra_mask, active)]
     err = _build.lib("hashidx").hash_probe_verify(
         _lanes(rid).data_ptr(), _lanes(key).data_ptr(),
-        qkeys.contiguous().data_ptr(), w, rid.shape[0].bit_length() - 1,
+        qkeys.contiguous().data_ptr(),
+        None if sid is None else sid.contiguous().data_ptr(), w,
+        rid.shape[-2].bit_length() - 1,
         valid.contiguous().data_ptr(), keycol.contiguous().data_ptr(), cols,
         vals, ops, len(residual), *(None if t is None else t.data_ptr()
                                     for t in opt),

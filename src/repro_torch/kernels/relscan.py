@@ -9,11 +9,18 @@ beside it in this module:
              ``[w, nblk]`` (``BLOCK`` rows a block) and each row's total
              ``count [w]``, in one launch. ``vals`` is a ``[w, nterms]``
              value matrix: ``w`` statements scan the same columns in one
-             launch.
+             launch. With ``sid [w]`` (a sharded table) the columns and
+             validity are ``[S, cap_s]`` stacks and statement row ``q``
+             scans shard ``sid[q]``: a fan-out passes every (shard,
+             statement) pair, a micro-batch of pruned statements one
+             shard each, still in one launch.
 ``compact``  the first ``limit`` set bits of every mask row as row ids,
              in row order, 0-padded, and the unclamped count of each row
              (the JAX package's ``compact(mask, *, limit)`` helper, with
-             the count beside the ids): one launch, nothing else.
+             the count beside the ids): one launch, nothing else. A
+             sharded fan-out passes the scan's ``[S * w, cap_s]`` mask,
+             one row a (shard, statement) pair, and gets each shard's
+             candidates in its own row ids.
 
 A wrapper serves a CPU tensor with the plain version and a CUDA tensor
 with its kernel; there is no other route. :func:`relscan` chains the two
@@ -21,6 +28,7 @@ with the contract of ``repro.kernels.relscan.relscan``, batched over ``w``.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -29,6 +37,7 @@ from repro_torch.kernels import _build
 
 MAX_TERMS = 4
 BLOCK = 256  # rows a block; csrc/common.cuh RS_BLOCK
+SC_STMTS = 8  # statements a scan CTA takes at most; csrc/relscan.cu
 
 OP_CODES = {"==": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
 
@@ -57,20 +66,25 @@ def block_counts(mask: torch.Tensor) -> torch.Tensor:
     return padded.view(w, nblk, BLOCK).sum(dim=2, dtype=torch.int32)
 
 
-def _check_scan(cols, valid, vals, ops):
+def _check_scan(cols, valid, vals, ops, sid):
     if not 1 <= len(ops) <= MAX_TERMS or len(cols) != len(ops):
         raise ValueError(f"relscan supports 1..{MAX_TERMS} terms")
     for op in ops:
         if op not in OP_CODES:
             raise ValueError(f"unknown comparison {op!r}")
-    cap = valid.shape[0]
-    if valid.dtype != torch.bool or valid.dim() != 1:
-        raise TypeError("valid must be a [cap] bool tensor")
+    if valid.dtype != torch.bool or valid.dim() != (1 if sid is None else 2):
+        raise TypeError("valid must be a [cap] (with sid: [S, cap_s]) bool "
+                        "tensor")
     if vals.dim() != 2 or vals.shape[1] != len(ops) or vals.dtype != torch.int32:
         raise TypeError("vals must be a [w, nterms] int32 tensor")
+    if sid is not None and (sid.shape != (vals.shape[0],)
+                            or sid.dtype != torch.int32
+                            or sid.device != valid.device):
+        raise TypeError("sid must be a [w] int32 tensor beside valid")
     for c in cols:
-        if c.shape != (cap,) or c.dtype != torch.int32:
-            raise TypeError("every column must be a [cap] int32 tensor")
+        if c.shape != valid.shape or c.dtype != torch.int32:
+            raise TypeError("every column must be an int32 tensor shaped "
+                            "like valid")
         if c.device != valid.device:
             raise ValueError("columns and validity must share a device")
     if vals.device != valid.device:
@@ -78,28 +92,39 @@ def _check_scan(cols, valid, vals, ops):
 
 
 def scan_ref(cols: Sequence[torch.Tensor], valid: torch.Tensor,
-             vals: torch.Tensor, ops: tuple[str, ...]):
+             vals: torch.Tensor, ops: tuple[str, ...], sid=None):
     """Plain version of the scan kernel: (mask [w, cap] bool,
-    cnt [w, nblk] int32, count [w] int32 = cnt's row sums)."""
-    _check_scan(cols, valid, vals, ops)
-    mask = valid[None, :].expand(vals.shape[0], -1)
+    cnt [w, nblk] int32, count [w] int32 = cnt's row sums). With ``sid``
+    ([w] int32) the columns and validity are ``[S, cap]`` stacks and row
+    ``q`` reads shard ``sid[q]``."""
+    _check_scan(cols, valid, vals, ops, sid)
+    if sid is None:
+        mask = valid[None, :].expand(vals.shape[0], -1)
+        rows = [c[None, :] for c in cols]
+    else:
+        s = sid.long()
+        mask, rows = valid[s], [c[s] for c in cols]
     for t, op in enumerate(ops):
-        mask = mask & _CMP[op](cols[t][None, :], vals[:, t:t + 1])
+        mask = mask & _CMP[op](rows[t], vals[:, t:t + 1])
     cnt = block_counts(mask)
     return mask, cnt, cnt.sum(dim=1, dtype=torch.int32)
 
 
 def scan(cols: Sequence[torch.Tensor], valid: torch.Tensor,
-         vals: torch.Tensor, ops: tuple[str, ...]):
+         vals: torch.Tensor, ops: tuple[str, ...], sid=None, run: int = 1):
     """Fused conjunction scan; on CUDA tensors one kernel launch and no
-    other device op. Contract of :func:`scan_ref`."""
+    other device op, whatever the number of shards. Contract of
+    :func:`scan_ref`. ``run`` tells the kernel that the rows of ``vals``
+    come in runs of that many on one shard (a fan-out's statement count):
+    a CTA then takes a run's rows (up to 8) from one load of the shard.
+    It changes no result."""
     if valid.device.type == "cpu":
-        return scan_ref(cols, valid, vals, ops)
+        return scan_ref(cols, valid, vals, ops, sid)
     _build.require_cuda(valid, "relscan_scan")
-    _check_scan(cols, valid, vals, ops)
+    _check_scan(cols, valid, vals, ops, sid)
     cols = [c.contiguous() for c in cols]
     vals = vals.contiguous()
-    cap, w = valid.shape[0], vals.shape[0]
+    cap, w = valid.shape[-1], vals.shape[0]
     dev = valid.device
     mask = torch.empty((w, cap), dtype=torch.bool, device=dev)
     cnt = torch.empty((w, n_blocks(cap)), dtype=torch.int32, device=dev)
@@ -113,7 +138,8 @@ def scan(cols: Sequence[torch.Tensor], valid: torch.Tensor,
     codes = [OP_CODES[o] for o in ops] + [0] * (MAX_TERMS - len(ops))
     err = _build.lib("relscan").relscan_scan(
         *ptrs, *codes, len(ops), valid.contiguous().data_ptr(),
-        vals.data_ptr(), cap, w, mask.data_ptr(),
+        vals.data_ptr(), None if sid is None else sid.contiguous().data_ptr(),
+        math.gcd(run, SC_STMTS), cap, w, mask.data_ptr(),
         cnt.data_ptr(), count.data_ptr(), acc.data_ptr(), stream)
     _build.check(err, "relscan_scan")
     _build.count_launch("relscan_scan")

@@ -268,9 +268,6 @@ def test_lazy_results_and_executor_reuse():
 
 
 @pytest.mark.parametrize("sql", [
-    "CREATE TABLE x (a INT) SHARDS 4",
-    "CREATE TABLE x (a INT) PARTITION BY a",
-    "ALTER TABLE c RESHARD 2",
     "ALTER TABLE c RETAIN SLOTS 0 OF 2",
     "CHECKPOINT c TO 'somewhere'",
     "RESTORE c FROM 'somewhere'",

@@ -738,6 +738,129 @@ def test_graph_survives_scratch_growth(cuda):
 ATT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
+# ------------------------------------------------------------- shard axis
+
+def _shard_case(rng, n_sh, cap_s, dev):
+    keys = rng.integers(-50_000, 50_000, (n_sh, cap_s)).astype(np.int32)
+    if cap_s >= 300:   # one bucket over 128 rows, in shard 0 only
+        keys[0, rng.choice(cap_s, 300, replace=False)] = 7
+    cols = [torch.tensor(keys, device=dev)] + [
+        torch.tensor(rng.integers(-50, 50, (n_sh, cap_s)), dtype=torch.int32,
+                     device=dev) for _ in range(3)]
+    valid = rng.random((n_sh, cap_s)) < 0.8
+    valid[1:2] = False   # a shard with no valid row
+    return cols, torch.tensor(valid, device=dev)
+
+
+def _sids(rng, n_sh, w, fanout, dev):
+    sid = (np.repeat(np.arange(n_sh), w) if fanout
+           else rng.integers(0, n_sh, w))
+    return torch.tensor(sid, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("n_sh", [1, 2, 3, 8])
+@pytest.mark.parametrize("cap_s", [1, 25, 16_384, 100_003])
+@pytest.mark.parametrize("fanout", [True, False])
+def test_shard_axis_scan_and_compact_match_plain(cuda, n_sh, cap_s, fanout):
+    rng = np.random.default_rng(n_sh * 7 + cap_s)
+    cols, valid = _shard_case(rng, n_sh, cap_s, cuda)
+    for w in (1, 32):
+        sid = _sids(rng, n_sh, w, fanout, cuda)
+        for nt in (1, 2, 4):
+            ops = tuple(rng.choice(list(RS.OP_CODES), nt))
+            vals = torch.tensor(rng.integers(-60, 60, (sid.shape[0], nt)),
+                                dtype=torch.int32, device=cuda)
+            got = RS.scan(cols[4 - nt:], valid, vals, ops, sid=sid,
+                          run=w if fanout else 1)
+            want = RS.scan_ref(cols[4 - nt:], valid, vals, ops, sid=sid)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            for limit in (1, 64):
+                for a, b in zip(RS.compact(got[0], limit),
+                                RS.compact_ref(want[0], limit)):
+                    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_sh", [1, 2, 3, 8])
+@pytest.mark.parametrize("cap_s", [1, 25, 16_384, 100_003])
+def test_shard_axis_build_and_probe_match_plain(cuda, n_sh, cap_s):
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(n_sh * 11 + cap_s)
+    cols, valid = _shard_case(rng, n_sh, cap_s, cuda)
+    nb = HX.n_buckets_for(cap_s)
+    want = HX.build_ref(cols[0], valid, n_buckets=nb)
+    for _ in range(2):   # back to back: the scratch is zero again
+        _build.reset_launches()
+        got = HX.build(cols[0], valid, n_buckets=nb)
+        assert _build.launches["hash_build"] == 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    rid, key, _ = got
+    for fanout in (True, False):
+        for w in (1, 32):
+            sid = _sids(rng, n_sh, w, fanout, cuda)
+            n = sid.shape[0]
+            q = cols[0][sid.long(), torch.tensor(
+                rng.integers(0, cap_s, n), device=cuda)]
+            q[0] = 7
+            residual = [(cols[1], "<", torch.tensor(
+                rng.integers(-40, 40, n), dtype=torch.int32, device=cuda))]
+            kw = dict(valid=valid, keycol=cols[0], residual=residual,
+                      extra_mask=torch.tensor(rng.random((n_sh, cap_s)) < .7,
+                                              device=cuda),
+                      active=torch.tensor(rng.random(n) < .8, device=cuda),
+                      limit=64, sid=sid)
+            _build.reset_launches()
+            got = HX.probe_verify(rid, key, q, **kw)
+            assert _build.launches["hash_probe"] == 1
+            for a, b in zip(got, HX.probe_verify_ref(rid, key, q, **kw)):
+                assert torch.equal(a, b)
+
+
+def test_sharded_daemon_equals_cpu(cuda):
+    """A sharded table (lanes and fan-out, indexed off the partition
+    column) on the card equals a CPU daemon, with no sync, a warm pruned
+    statement replaying its lane's graph, and RESHARD."""
+    rng = np.random.default_rng(5)
+    n = 20_000
+    pages = rng.integers(0, 6_000, n).tolist()
+    users = rng.integers(0, 200, n).tolist()
+    dbs = _graph_pair("CREATE TABLE c (page_id INT, user_id INT, data BIGINT, "
+                      "INDEX(page_id)) CAPACITY 32768 MAX_SELECT 64 "
+                      "SHARDS 8 PARTITION BY user_id", warmup=False)
+    _both(dbs, "executemany",
+          "INSERT INTO c (page_id, user_id, data) VALUES (?, ?, ?)",
+          [(p, u, i) for i, (p, u) in enumerate(zip(pages, users))])
+    stmts = (("SELECT * FROM c WHERE user_id = ? LIMIT 64",
+              lambda i: (users[i],)),
+             ("DELETE FROM c WHERE user_id = ? AND page_id < ?",
+              lambda i: (users[50 + i], 1_000)),
+             ("SELECT * FROM c WHERE page_id = ? LIMIT 64",
+              lambda i: (pages[i],)),
+             ("DELETE FROM c WHERE page_id = ?", lambda i: (pages[100 + i],)),
+             ("SELECT COUNT(*) FROM c WHERE page_id = ?",
+              lambda i: (pages[200 + i],)),
+             ("UPDATE c SET data = data + 1 WHERE page_id = ?",
+              lambda i: (pages[300 + i],)))
+    for rnd in range(2):
+        for i in range(6):
+            for sql, args in stmts:
+                _both(dbs, "execute", sql, args(i + 10 * rnd))
+        _both(dbs, "executemany", "SELECT data FROM c WHERE user_id = ?",
+              [(u,) for u in users[400:432]])
+        _same_state(dbs, "c")
+        got, want = (_snap(db.execute(f"ALTER TABLE c RESHARD {4 - 2 * rnd}"))
+                     for db in dbs)
+        assert got == want
+    _both(dbs, "execute", stmts[0][0], (users[3],))
+    st0 = _executors(dbs[0], "c")
+    _both(dbs, "execute", stmts[0][0], (users[3],))
+    st1 = _executors(dbs[0], "c")
+    assert (st1["misses"], st1["hits"]) == (st0["misses"], st0["hits"] + 1)
+    _same_state(dbs, "c")
+    _release(*dbs)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "b,h,kh,sq,sk,hd,causal,window,softcap,q_offset",
