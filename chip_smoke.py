@@ -136,19 +136,51 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               tiles), 16 new tokens each, max_seq 512, then the same
               extra requests, evict_user and flush, with the same checks
               (the dense reference's SSM recurrence uses no scan kernel).
+   snapshot -- phase shards's deployment, with and without INDEX(page_id):
+              CHECKPOINT (the card's files must equal the CPU daemon's),
+              RESTORE into fresh tables of 8, 4 and 1 shards and from 1
+              shard back into 8 (RESTORE's re-split runs the hash build),
+              then ALTER TABLE ... RETAIN SLOTS of a random half of 64
+              (one graph that writes validity in place; the statements
+              after it replay plans captured before it). Every count,
+              every restored table's statements (no sync) and whole state
+              equal the CPU daemon's. Reports the card's wall ms of
+              CHECKPOINT, RESTORE and RETAIN (p50 of several).
+   cluster -- benchmarks/cluster_bench.py's deployment (its CREATE:
+              SHARDS 2, REPLICAS 2) over three in-process daemons on the
+              card behind the port's ClusterClient, against the same
+              stream through three CPU daemons: 4,096 rows, pruned and
+              fan-out reads, the aggregates, writes, add_node of a fourth
+              daemon (its bootstrap: CHECKPOINT / RESTORE / RETAIN SLOTS
+              on the card), remove_node, SHOW CLUSTER; every result equal.
+   cluster_chaos -- the cluster bench's kill window over three daemon
+              child processes on the card (``python -m
+              repro_torch.core.protocol --port 0``; each SHOW STATS must
+              name a cuda device): 200 seed rows, 600 healthy reads, 300
+              mixed ops with a SIGKILL of one child a third of the way
+              in, 600 reads after it; every acknowledged write is read
+              back from every live replica (zero lost), and remove_node
+              leaves COUNT(*) equal to the acknowledged writes. Reports
+              the healthy and post-kill read p50 / p99 and the kill
+              window's max (wall µs).
 7. profile -- after the main paths (torch.profiler): per decode round of
               both serve paths (host launch calls, kernels on the card,
               device time by family, idle share), and for zamba2's
               300-token prefill.
 
-Phases 3-6 are eight main paths (Table 2 plain, Table 2 indexed, Fig. 1,
-wire, graphs, shards, serve, serve_zamba2). A statement kernel that runs inside a
+Phases 3-6 are eleven main paths (Table 2 plain, Table 2 indexed, Fig.
+1, wire, graphs, shards, serve, serve_zamba2, snapshot, cluster,
+cluster_chaos; the last three run after the serve paths, whose warm
+round check reads the card's copy records, which a longer profiled
+process was seen to lose). A statement kernel that runs inside a
 captured graph counts once per launch on the card: the plan's prime run,
 then each replay's captured launches. The launch counters are zeroed right before
 each path and read right after it, and each path must have launched
 every kernel it runs: scan and compact on the statement paths, build and
 probe on the indexed Table 2 table and in graphs, probe in the wire
-script (its table has INDEX(k)), all four in shards; flash attention,
+script (its table has INDEX(k)), all four in shards, snapshot and
+cluster (cluster_chaos's kernels run in child processes, which the
+counters cannot see: that path checks results only); flash attention,
 paged attention and the relscan scan on
 both serve paths, and the Mamba2 scan on zamba2's, each an exact number
 of times (per attention layer or shared-block application and prefill or
@@ -2459,6 +2491,412 @@ def phase_shards(card):
     emit(report)
 
 
+# ------------------------------------------- snapshots and the cluster
+
+SNAP_DIR = ROOT / "build" / "chip_smoke_snapshots"
+SNAP_COLS = "(page_id INT, user_id INT, data BIGINT{extra})"
+
+
+def snap_statements(pr, table, p, u, base):
+    """SHARD_STMTS on ``table``, twice each, and checked like every
+    statement (equal to the CPU daemon, no sync on the card)."""
+    for i in range(2):
+        for label, sql, args, _ in SHARD_STMTS:
+            pr.run("execute", sql.replace(" sh ", f" {table} "),
+                   args(p, u, base + i), label=label)
+
+
+def timed(pr, label, sqls):
+    """One admin statement a daemon (``sqls``: the card's, the CPU's: they
+    differ only in a directory); the card's wall time (drained, its
+    result read) goes to ``pr.lat[label]`` in ms; the counts must agree.
+    Returns the card's result."""
+    t0 = time.perf_counter()
+    got = snap(pr.gpu.execute(sqls[0]))
+    pr.gpu.drain()
+    pr.lat.setdefault(label, []).append((time.perf_counter() - t0) * 1e3)
+    want = snap(pr.cpu.execute(sqls[1]))
+    if got["count"] != want["count"]:
+        raise AssertionError(f"{sqls[0]!r}: card {got} vs CPU {want}")
+    return got
+
+
+def checkpoint_pair(pr, table, name, reps=1):
+    """CHECKPOINT ``table`` on both daemons, each into its own directory;
+    the two must hold the same meta.json and the same arrays (the card's
+    one copy to the host is the statement's sanctioned sync)."""
+    dirs = [SNAP_DIR / f"{name}-{tag}" for tag in ("card", "cpu")]
+    for _ in range(reps):
+        got = timed(pr, "checkpoint_ms", [f"CHECKPOINT {table} TO '{d}'"
+                                          for d in dirs])
+    metas = [json.loads((d / "step_0" / "meta.json").read_text())
+             for d in dirs]
+    if metas[0] != metas[1]:
+        raise AssertionError(f"{name}: checkpoint metas differ")
+    for leaf in metas[0]["names"].values():
+        a, b = (np.load(d / "step_0" / leaf) for d in dirs)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{name}: checkpoint leaf {leaf} differs")
+    return dirs, got["count"]
+
+
+def phase_snapshot(card):
+    """Table 2 in SHARDS 8 PARTITION BY user_id (phase ``shards``'s
+    deployment), with and without INDEX(page_id), on the card daemon and
+    a CPU daemon: the bulk load and the per-user / per-page statements,
+    CHECKPOINT (the card's and the CPU's files must be the same), RESTORE
+    into fresh tables of 8, 4 and 1 shards, a CHECKPOINT of the 1-shard
+    table restored into 8 shards again, and RETAIN SLOTS of a random half
+    of 64 on the 8-shard table (its graph's first run and replays; then
+    the statements again on plans captured before it). Every count and
+    the statements on every restored table equal the CPU daemon's (the
+    statements under sync debugging "error"; the admin statements read
+    their results back and are exempt, as RESHARD is), and each table's
+    whole state too. Reports the card's wall ms of CHECKPOINT, RESTORE
+    and RETAIN (p50 of several)."""
+    import shutil
+    shutil.rmtree(SNAP_DIR, ignore_errors=True)
+    pages, users, payload = table2_data()
+    p, u = pages.tolist(), users.tolist()
+    rng = np.random.default_rng(SEED)
+    report = {"phase": "snapshot", "card": card}
+    for variant, extra in (("plain", ""), ("indexed", ", INDEX(page_id)")):
+        pr = Pair(warmup=False)
+        cols = SNAP_COLS.format(extra=extra)
+        pr.run("execute", SHARD_DDL.format(extra=extra))
+        pr.run("executemany",
+               "INSERT INTO sh (page_id, user_id, data) VALUES (?, ?, ?)",
+               list(zip(p, u, payload.tolist())))
+        snap_statements(pr, "sh", p, u, 0)
+        dirs, live = checkpoint_pair(pr, "sh", f"{variant}-sh", reps=3)
+        restored = {}
+        for n in (8, 4, 1):
+            pr.run("execute", f"CREATE TABLE r{n} {cols} CAPACITY 131072 "
+                              f"MAX_SELECT 64 SHARDS {n} PARTITION BY user_id")
+            for _ in range(3):
+                got = timed(pr, f"restore_{n}_ms",
+                            [f"RESTORE r{n} FROM '{d}'" for d in dirs])
+            restored[n] = got["count"]
+            same_state(pr, f"r{n}", f"{variant}: RESTORE into {n} shards")
+            snap_statements(pr, f"r{n}", p, u, 10)
+        dirs1, _ = checkpoint_pair(pr, "r1", f"{variant}-r1")
+        pr.run("execute", f"CREATE TABLE b8 {cols} CAPACITY 131072 "
+                          f"MAX_SELECT 64 SHARDS 8 PARTITION BY user_id")
+        for _ in range(3):
+            got = timed(pr, "restore_1_to_8_ms",
+                        [f"RESTORE b8 FROM '{d}'" for d in dirs1])
+        restored["1_to_8"] = got["count"]
+        same_state(pr, "b8", f"{variant}: RESTORE 1 -> 8 shards")
+        snap_statements(pr, "b8", p, u, 20)
+        slots = sorted(rng.choice(64, 32, replace=False).tolist())
+        sql = (f"ALTER TABLE r8 RETAIN SLOTS {','.join(map(str, slots))} "
+               f"OF 64")
+        dropped = [timed(pr, "retain_ms", [sql, sql])["count"]
+                   for _ in range(5)]
+        if dropped[0] <= 0 or any(dropped[1:]):
+            raise AssertionError(f"RETAIN dropped {dropped}")
+        same_state(pr, "r8", f"{variant}: RETAIN")
+        snap_statements(pr, "r8", p, u, 10)   # plans captured before RETAIN
+        same_state(pr, "r8", f"{variant}: statements after RETAIN")
+        lat = pr.lat
+        report[variant] = {
+            "live_rows": live, "restored_rows": restored,
+            "retain_dropped": dropped[0],
+            "checkpoint_ms_p50": round(p50(lat["checkpoint_ms"][:3]), 3),
+            **{f"{k}_p50": round(p50(lat[k]), 3) for k in (
+                "restore_8_ms", "restore_4_ms", "restore_1_ms",
+                "restore_1_to_8_ms")},
+            "retain_first_ms": round(lat["retain_ms"][0], 3),
+            "retain_replay_ms_p50": round(p50(lat["retain_ms"][1:]), 3)}
+    emit(report)
+
+
+CLUSTER_DDL = ("CREATE TABLE c (id INT, score FLOAT, INDEX (id)) "
+               "CAPACITY 8192 MAX_SELECT 4096 SHARDS 2 PARTITION BY id "
+               "REPLICAS 2")    # benchmarks/cluster_bench.py's deployment
+CLUSTER_ROWS = 4096             # half the capacity: a bootstrap moves data
+
+
+def cluster_result(res):
+    """A cluster result without what ring placement decides (fan-out rows
+    without ORDER BY arrive in node order: sorted here)."""
+    if isinstance(res, Exception):
+        return ("error", type(res).__name__, str(res)[:200])
+    rows = res.get("rows") or []
+    return {"count": res["count"], "value": res["value"],
+            "rows": sorted(rows, key=lambda r: sorted(r.items()))}
+
+
+def cluster_reads(ids, rng, n):
+    """Pruned and fan-out reads and the aggregates of the cluster stream."""
+    out = []
+    for _ in range(n):
+        k = ids[int(rng.integers(0, len(ids)))]
+        x = float(rng.random())
+        out += [("SELECT * FROM c WHERE id = ?", (k,)),
+                ("SELECT id, score FROM c WHERE score >= ? ORDER BY id "
+                 "DESC LIMIT 50", (x,)),
+                ("SELECT COUNT(*) FROM c WHERE score < ?", (x,))]
+    out += [("SELECT * FROM c WHERE score < ?", (0.25,)),
+            ("SELECT COUNT(*) FROM c", ()), ("SELECT SUM(id) FROM c", ()),
+            ("SELECT MIN(id) FROM c", ()), ("SELECT MAX(score) FROM c", ()),
+            ("SELECT AVG(id) FROM c WHERE score >= ?", (0.5,))]
+    return out
+
+
+def phase_cluster(card):
+    """benchmarks/cluster_bench.py's deployment (its CREATE: SHARDS 2,
+    REPLICAS 2) over three in-process port daemons on the card, each a
+    ThreadedServer of its own SQLCached on cuda:0, behind the port's
+    ClusterClient; the same stream goes through a cluster of three CPU
+    port daemons and every result must be equal (fan-out rows compared as
+    sets: placement follows the ports). 4,096 rows (half the capacity),
+    pruned and fan-out reads, the aggregates, pruned and fan-out writes,
+    add_node of a fourth daemon (CHECKPOINT / RESTORE / RETAIN SLOTS on
+    the card), remove_node of a first one, SHOW CLUSTER."""
+    from repro_torch.core.cluster import NSLOTS, ClusterClient
+    rng = np.random.default_rng(SEED)
+    ids = rng.choice(np.arange(-2**20, 2**20), CLUSTER_ROWS,
+                     replace=False).tolist()
+    scores = rng.random(CLUSTER_ROWS).tolist()
+    fleets = {"card": [], "cpu": []}
+    ccs = {}
+    try:
+        for _ in range(4):
+            fleets["card"].append(PR.ThreadedServer(db=D.SQLCached()))
+            fleets["cpu"].append(PR.ThreadedServer(
+                db=D.SQLCached(device="cpu")))
+        names = {k: [f"{s.addr[0]}:{s.addr[1]}" for s in f]
+                 for k, f in fleets.items()}
+        for k in fleets:
+            ccs[k] = ClusterClient(names[k][:3], statement_retries=3,
+                                   retry_base=0.01, retry_cap=0.05,
+                                   checkpoint_dir=str(SNAP_DIR / f"cl-{k}"))
+
+        def both(stmts, what):
+            for sql, args in stmts:
+                got = {k: cluster_result(cc.execute(sql, args))
+                       for k, cc in ccs.items()}
+                if got["card"] != got["cpu"]:
+                    raise AssertionError(
+                        f"cluster {what}: {sql} {args}: card "
+                        f"{str(got['card'])[:300]} vs CPU "
+                        f"{str(got['cpu'])[:300]}")
+
+        both([(CLUSTER_DDL, ())], "create")
+        t0 = time.perf_counter()
+        for k, cc in ccs.items():
+            with cc.pipeline() as pl:
+                for i, s in zip(ids, scores):
+                    pl.execute("INSERT INTO c (id, score) VALUES (?, ?)",
+                               (i, s))
+            if not all(isinstance(r, dict) and r["count"] == 1
+                       for r in pl.results):
+                raise AssertionError(f"cluster load ({k}) not acknowledged")
+            if k == "card":
+                load_s = time.perf_counter() - t0
+        both(cluster_reads(ids, rng, 40), "reads")
+        both([("UPDATE c SET score = ? WHERE id = ?", (0.5, ids[7])),
+              ("UPDATE c SET score = 0.75 WHERE score > ?", (0.98,)),
+              ("DELETE FROM c WHERE id = ?", (ids[11],)),
+              ("DELETE FROM c WHERE score < ?", (0.01,))], "writes")
+        walls = {}
+        for what, fn in (("add_node", lambda cc, nm: cc.add_node(nm[3])),
+                         ("remove_node",
+                          lambda cc, nm: cc.remove_node(nm[0]))):
+            reports = {}
+            for k, cc in ccs.items():
+                t0 = time.perf_counter()
+                reports[k] = fn(cc, names[k])
+                walls.setdefault(f"{what}_s", {})[k] = round(
+                    time.perf_counter() - t0, 3)
+            if what == "add_node" and not reports["card"]["c"]["moved_rows"]:
+                raise AssertionError(f"add_node moved no rows: {reports}")
+            both(cluster_reads(ids, rng, 20), f"reads after {what}")
+        shown = {k: cc.execute("SHOW CLUSTER")["value"]
+                 for k, cc in ccs.items()}
+        for k, v in shown.items():
+            if [n["status"] for n in v["nodes"]] != ["up"] * 3 or sum(
+                    v["tables"]["c"]["primary_of"].values()) != NSLOTS:
+                raise AssertionError(f"SHOW CLUSTER ({k}): {v}")
+        count = ccs["card"].execute("SELECT COUNT(*) FROM c")["value"]
+    finally:
+        for cc in ccs.values():
+            cc.close()
+        for f in fleets.values():
+            for s in f:
+                s.stop()
+    emit({"phase": "cluster", "card": card, "rows_loaded": CLUSTER_ROWS,
+          "rows_at_end": count, "load_s": round(load_s, 3), **walls})
+
+
+def spawn_card_daemons(n, log_dir, boot_timeout=180.0):
+    """``n`` daemon child processes on the card (``python -m
+    repro_torch.core.protocol --port 0``, the default device), booted in
+    parallel; returns [(process, "host:port")]. A child that exits or
+    stays silent before its READY line fails the phase."""
+    import os
+    import select
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    procs = []
+    for i in range(n):
+        with open(log_dir / f"daemon{i}.err", "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.core.protocol",
+                 "--host", "127.0.0.1", "--port", "0"],
+                stdout=subprocess.PIPE, stderr=err, env=env, cwd=str(ROOT)))
+    out = []
+    deadline = time.monotonic() + boot_timeout
+    try:
+        for i, proc in enumerate(procs):
+            fd, buf = proc.stdout.fileno(), b""
+            while re.search(rb"SQLCACHED READY [^\n]*\n", buf) is None:
+                ready, _, _ = select.select(
+                    [fd], [], [], max(0.0, deadline - time.monotonic()))
+                if not ready:
+                    raise AssertionError(f"daemon {i} did not boot in "
+                                         f"{boot_timeout} s")
+                chunk = os.read(fd, 4096)
+                if not chunk:
+                    proc.wait(30)
+                    tail = (log_dir / f"daemon{i}.err").read_text()[-2000:]
+                    raise AssertionError(f"daemon {i} exited before READY "
+                                         f"(code {proc.returncode}): {tail}")
+                buf += chunk
+            line = next(x for x in buf.decode().splitlines()
+                        if x.startswith("SQLCACHED READY"))
+            _, _, host, port = line.split()
+            out.append((proc, f"{host}:{int(port)}"))
+    except BaseException:
+        for proc in procs:
+            proc.kill()
+            proc.wait(30)
+        raise
+    return out
+
+
+def read_phase(cc, n, rows):
+    """cluster_bench's read loop: n pruned reads, each must find its row;
+    wall µs each."""
+    lat = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        r = cc.execute("SELECT * FROM c WHERE id = ?", (i % rows,))
+        lat.append((time.perf_counter() - t0) * 1e6)
+        if not r["rows"]:
+            raise AssertionError(f"row {i % rows} unreadable")
+    return lat
+
+
+def pcts(us):
+    return {"p50_us": float(np.percentile(us, 50)),
+            "p99_us": float(np.percentile(us, 99)), "ops": len(us)}
+
+
+def phase_cluster_chaos(card):
+    """benchmarks/cluster_bench.py's kill window on the card: three daemon
+    child processes (each takes its own CUDA context on the card; SHOW
+    STATS must name a cuda device), its CREATE, 200 seed rows, WARMUP,
+    600 healthy pruned reads, 300 mixed ops (a third of them INSERTs)
+    with a SIGKILL of one child a third of the way in, 600 reads after
+    the kill, then the audit: every acknowledged write read back from
+    every live replica of its slot (zero lost), and remove_node of the
+    dead child leaves COUNT(*) equal to the acknowledged writes. The
+    launch counters cannot see the children: this phase checks results
+    only."""
+    import signal
+    from repro_torch.core.cluster import ClusterClient
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    if "Exclusive_Process" in mode:
+        raise AssertionError("the card is in Exclusive_Process compute "
+                             "mode: daemon child processes cannot share it")
+    log_dir = SNAP_DIR / "daemons"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fleet = spawn_card_daemons(3, log_dir)
+    boot_s = time.perf_counter() - t0
+    cc = None
+    seed_rows, n_reads, n_kill = 200, 600, 300
+    try:
+        cc = ClusterClient([name for _, name in fleet], statement_retries=4,
+                           retry_base=0.02, retry_cap=0.2,
+                           checkpoint_dir=str(SNAP_DIR / "chaos"))
+        devices = [cc._exec_on(name, "SHOW STATS")["value"]["device"]
+                   for _, name in fleet]
+        if not all(str(d).startswith("cuda") for d in devices):
+            raise AssertionError(f"child daemons not on the card: {devices}")
+        cc.execute(CLUSTER_DDL)
+        with cc.pipeline() as pl:
+            for i in range(seed_rows):
+                pl.execute("INSERT INTO c (id, score) VALUES (?, ?)",
+                           (i, float(i)))
+        if not all(isinstance(r, dict) and r["count"] == 1
+                   for r in pl.results):
+            raise AssertionError("seed rows not acknowledged")
+        acked = list(range(seed_rows))
+        cc.warmup("c")
+        read_phase(cc, 24, seed_rows)
+        healthy = read_phase(cc, n_reads, seed_rows)
+        victim_proc, victim = fleet[0]
+        errors, window, next_id = 0, [], seed_rows
+        for op in range(n_kill):
+            if op == n_kill // 3:
+                victim_proc.send_signal(signal.SIGKILL)
+                victim_proc.wait(30)
+            t1 = time.perf_counter()
+            try:
+                if op % 3 == 0:
+                    r = cc.execute("INSERT INTO c (id, score) VALUES (?, ?)",
+                                   (next_id, 1.0))
+                    if r["count"] == 1:
+                        acked.append(next_id)
+                    next_id += 1
+                else:
+                    cc.execute("SELECT * FROM c WHERE id = ?",
+                               (op % seed_rows,))
+            except Exception:  # noqa: BLE001 — an unacknowledged op
+                errors += 1
+                if op % 3 == 0:
+                    next_id += 1
+            window.append((time.perf_counter() - t1) * 1e6)
+        if victim not in cc._down:
+            raise AssertionError("the killed daemon was not marked down")
+        post = read_phase(cc, n_reads, seed_rows)
+        lost, reads_back = [], 0
+        groups = cc._tables["c"].groups
+        for i in acked:
+            for node in cc._live(groups[cc._slot_of(i)]):
+                reads_back += 1
+                if not cc._exec_on(node, "SELECT * FROM c WHERE id = ?",
+                                   (i,))["rows"]:
+                    lost.append((i, node))
+        if lost:
+            raise AssertionError(f"lost acknowledged writes: {lost[:20]}")
+        cc.remove_node(victim)
+        count = cc.execute("SELECT COUNT(*) FROM c")["value"]
+        if count != len(acked):
+            raise AssertionError(f"COUNT(*) {count} after remove_node, "
+                                 f"{len(acked)} acknowledged")
+    finally:
+        if cc is not None:
+            cc.close()
+        for proc, _ in fleet:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(30)
+    emit({"phase": "cluster_chaos", "card": card, "daemons": 3,
+          "devices": devices, "boot_s": round(boot_s, 3),
+          "healthy": pcts(healthy),
+          "kill_window": dict(pcts(window), errors=errors,
+                              max_us=float(max(window))),
+          "post_kill": pcts(post), "acked_writes": len(acked),
+          "replica_reads": reads_back, "lost_acked_writes": 0,
+          "count_after_remove_node": count})
+
+
 # ------------------------------------------------------------ profile
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -2778,6 +3216,12 @@ def main():
             card, dev, zamba, "zamba2-2.7b", max_seq=512,
             long_prompt=ZAMBA_LONG_PROMPT, name="serve_zamba2", atol=None),
          serve_need + ("mamba2_scan",)),
+        ("snapshot", lambda: phase_snapshot(card),
+         scan_compact + ("hash_build", "hash_probe")),
+        ("cluster", lambda: phase_cluster(card),
+         scan_compact + ("hash_build", "hash_probe")),
+        # the daemons are child processes: no launch of theirs is counted
+        ("cluster_chaos", lambda: phase_cluster_chaos(card), ()),
     )
     launches = {k: 0 for k in _build.KERNELS}
     for path, drive, need in paths:

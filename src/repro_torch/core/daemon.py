@@ -58,20 +58,27 @@ dispatch at the recorded time (``_Table``), as in the reference.
 stacked path. EXPLAIN reports the shard route, ``SHOW STATS t`` the
 per-shard skew, and ``ALTER TABLE t RESHARD n`` re-partitions live.
 
-Not in this port yet, and refused with ``SQLError``: ``ALTER TABLE ...
-RETAIN SLOTS`` and ``CHECKPOINT`` / ``RESTORE``.
+Snapshots and the cluster tier's handover (``core/cluster.py`` drives
+them): ``CHECKPOINT t TO 'dir'`` writes the table (a sharded table's
+caught-up stack) and the interner's strings in ``checkpoint/store.py``'s
+format, which the reference reads too; ``RESTORE t FROM 'dir'`` loads a
+snapshot of any shard count, re-interns its TEXT ids and re-splits it
+into the table's layout; ``ALTER TABLE t RETAIN SLOTS ... OF m`` masks
+dead every row whose partition value hashes outside the listed slots.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
+import pathlib
 import threading
 from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store as CK
 from repro_torch.core import planner as PL
 from repro_torch.core import predicate as P
 from repro_torch.core import shards as SH
@@ -416,13 +423,6 @@ def _np_terms_int(terms, param_cols) -> bool:
                                                  np.integer):
             return False
     return True
-
-
-_UNSUPPORTED = {
-    S.AlterRetain: "ALTER TABLE ... RETAIN SLOTS",
-    S.Checkpoint: "CHECKPOINT",
-    S.Restore: "RESTORE",
-}
 
 
 def _i32(x) -> np.ndarray:
@@ -959,10 +959,12 @@ class SQLCached:
             return self._do_explain_analyze(stmt, params)
         if isinstance(stmt, S.Warmup):
             return self._do_warmup(stmt)
-        name = _UNSUPPORTED.get(type(stmt))
-        if name is not None:
-            raise S.SQLError(f"{name} is not supported by this port yet "
-                             f"(no cluster or snapshot statements)")
+        if isinstance(stmt, S.AlterRetain):
+            return self._do_retain(stmt)
+        if isinstance(stmt, S.Checkpoint):
+            return self._do_checkpoint(stmt)
+        if isinstance(stmt, S.Restore):
+            return self._do_restore(stmt)
         raise S.SQLError(f"unhandled statement {stmt!r}")
 
     @staticmethod
@@ -1287,21 +1289,31 @@ class SQLCached:
                 f"RESHARD {new_n}: {int(counts.max())} live rows hash to "
                 f"one shard but a shard holds only {cap_new}; resolve the "
                 f"skew (or raise CAPACITY) first")
-        eng, init = self._layout(new_schema)
+        self._install(t, new_schema, state,
+                      stmt_routed=self._respread(t.stmt_routed, new_n),
+                      writes_routed=self._respread(t.writes_routed, new_n),
+                      rows_in=self._respread(t.rows_in, new_n))
+        return Result(count=int(counts.sum()), value=new_n)
+
+    def _install(self, t: _Table, schema: TableSchema, state: dict,
+                 **bookkeeping) -> None:
+        """Install new tensors in ``schema``'s layout (RESHARD, RESTORE)
+        under the table's lock, with their lanes and every lane's clock
+        taken as caught up (``bookkeeping``: more of the table's fields
+        to set there); then retire every plan, whose graphs bound the old
+        tensors (epoch bump with the layout's shadow builder)."""
+        n = schema.shards
+        eng, init = self._layout(schema)
         with t.lock:
             g0 = t.ticks_total
-            t.state = state
-            t.eng = eng
-            t.schema = new_schema
-            t.lanes = ([SH.lane_view(state, i) for i in range(new_n)]
-                       if new_n > 1 else None)
-            t.lane_ticks = [g0] * new_n
-            t.expire_due = [None] * new_n
-            t.stmt_routed = self._respread(t.stmt_routed, new_n)
-            t.writes_routed = self._respread(t.writes_routed, new_n)
-            t.rows_in = self._respread(t.rows_in, new_n)
+            t.state, t.eng, t.schema = state, eng, schema
+            t.lanes = ([SH.lane_view(state, i) for i in range(n)]
+                       if n > 1 else None)
+            t.lane_ticks = [g0] * n
+            t.expire_due = [None] * n
+            for k, v in bookkeeping.items():
+                setattr(t, k, v)
         t.execs.bump(shadow=init)
-        return Result(count=int(counts.sum()), value=new_n)
 
     @staticmethod
     def _respread(old: np.ndarray, new_n: int) -> np.ndarray:
@@ -1311,6 +1323,118 @@ class SQLCached:
         out = np.full(new_n, total // new_n, np.int64)
         out[: total % new_n] += 1
         return out
+
+    # ------------------------------------------- snapshots and handover
+    def _do_retain(self, stmt: S.AlterRetain) -> Result:
+        """ALTER TABLE t RETAIN SLOTS i,j,... OF m: keep only the rows whose
+        partition value, cast to int32, hashes (``shards.shard_of`` at
+        modulus m) into one of the listed slots; every other row is masked
+        dead. The cluster tier's handover primitive: after a ring change a
+        node keeps the slots it still owns. Validity only, as in the
+        reference: indexes and TTL stamps are untouched (probes mask dead
+        rows) and no clock ticks. A sharded table takes one masked pass
+        over its stacked ``valid``, which its lanes see (they are views);
+        the pass is one executor entry (one graph on the card) that writes
+        ``valid`` in place. ``count`` is the rows dropped, ``value`` the
+        number of slots listed."""
+        t = self._table(stmt.table)
+        pby = t.schema.partition_by
+        if pby is None:
+            raise S.SQLError(
+                f"RETAIN: table {stmt.table!r} has no PARTITION BY column "
+                f"(cluster slot ownership needs a partition key)")
+        of = stmt.of
+
+        def body(st, slots):
+            # ``slots`` is staged sorted: membership is one binary search
+            slot = SH.shard_of(st["cols"][pby].to(torch.int32), of)
+            at = torch.searchsorted(slots, slot).clamp(max=slots.shape[0] - 1)
+            keep = st["valid"] & (slots[at] == slot)
+            dropped = (st["valid"] & ~keep).sum(dtype=torch.int32)
+            return dict(st, valid=keep), dropped
+
+        fn = self._executor(t, ("retain", pby, stmt.slots, of, t.schema),
+                            lambda: lambda st, flag, slots: body(st, slots),
+                            expiry=False)
+        d, = self._run_state(t, fn, "mono", None, False, 0,
+                             (_i32(sorted(stmt.slots)),))
+        return Result(value=len(stmt.slots), dev={"count": d})
+
+    def _do_checkpoint(self, stmt: S.Checkpoint) -> Result:
+        """CHECKPOINT t TO 'dir': an atomic snapshot of the table as step 0
+        of ``checkpoint/store.py`` (written to ``step_0.tmp/``, renamed to
+        ``step_0/``, one .npy a leaf: the reference's format). A sharded
+        table saves its stack caught up to the table's logical time. TEXT
+        columns hold this daemon's interner ids, so the interner's strings
+        ride along in the meta and RESTORE re-interns them. An admin
+        statement: the state reaches the host in one copy, its one sync.
+        ``count`` is the live rows saved, ``value`` the directory."""
+        t = self._table(stmt.table)
+        state = CK.host_copy(t.state if t.lanes is None
+                             else self._caught_up(t))
+        live = int(state["valid"].sum())
+        meta = {"table": stmt.table, "shards": t.schema.shards,
+                "capacity": t.schema.capacity, "live_rows": live,
+                "strings": list(self.interner._rev)}
+        CK.save(stmt.path, 0, state, meta=meta)
+        return Result(count=live, value=stmt.path)
+
+    def _do_restore(self, stmt: S.Restore) -> Result:
+        """RESTORE t FROM 'dir': replace the table's contents with a
+        CHECKPOINT snapshot, written by this package or by the reference
+        (the replica bootstrap of the cluster tier). The table exists with
+        a matching schema; the snapshot may have any shard count (its meta
+        says which): it is loaded in ITS layout, each saved string is
+        re-interned here (id 0 stays 0) and a lut rewrites every TEXT
+        column, then :func:`shards.reshard` re-splits every live row into
+        the table's layout and rebuilds its indexes (an equal count too,
+        as the reference does: rows come out in (shard, slot) order). A
+        skew that overflows a shard is refused before the table is
+        touched. The new tensors are installed as RESHARD installs them
+        (:meth:`_install`: every plan retired). ``count`` is the rows
+        restored, ``value`` the directory."""
+        t = self._table(stmt.table)
+        try:
+            raw = json.loads((pathlib.Path(stmt.path) / "step_0" /
+                              "meta.json").read_text())
+        except FileNotFoundError as e:
+            raise S.SQLError(f"RESTORE: no checkpoint at {stmt.path!r} "
+                             f"({e})") from e
+        saved_n = int(raw.get("meta", {}).get("shards", t.schema.shards))
+        try:
+            saved_sch = (t.schema if saved_n == t.schema.shards
+                         else dataclasses.replace(t.schema, shards=saved_n))
+            like = self._layout(saved_sch)[0].init_state(saved_sch, "meta")
+            state, info = CK.restore(stmt.path, 0, like, device=self.device)
+        except FileNotFoundError as e:
+            raise S.SQLError(f"RESTORE: no checkpoint at {stmt.path!r} "
+                             f"({e})") from e
+        except (KeyError, ValueError) as e:
+            raise S.SQLError(
+                f"RESTORE: checkpoint at {stmt.path!r} does not match "
+                f"table {stmt.table!r}'s schema ({e})") from e
+        strings = info.get("meta", {}).get("strings") or [""]
+        text_cols = t.schema.text_columns()
+        if text_cols:
+            lut = np.zeros(len(strings), np.int32)
+            for i, s in enumerate(strings):
+                if i:   # id 0 is the empty / NULL string on every daemon
+                    lut[i] = self.interner.intern(s)
+            lut = T.to_device(lut, self.device)
+            cols = dict(state["cols"])
+            for c in text_cols:
+                cols[c] = lut[cols[c].clamp(0, lut.shape[0] - 1).long()]
+            state = dict(state, cols=cols)
+        new_state, counts = SH.reshard(saved_sch, t.schema, state)
+        counts = counts.cpu().numpy()   # an admin statement: the sync is fine
+        n = t.schema.shards
+        cap = SH.shard_capacity(t.schema) if n > 1 else t.schema.capacity
+        if int(counts.max()) > cap:
+            raise S.SQLError(
+                f"RESTORE: {int(counts.max())} restored rows hash to one "
+                f"shard but a shard holds only {cap}")
+        self._install(t, t.schema, new_state)
+        return Result(count=int(counts.sum()), value=stmt.path)
 
     # -------------------------------------------------- executor warm-up
     def _prunable(self, t: _Table, stmt) -> bool:

@@ -406,14 +406,15 @@ class ExecEntry:
     host tree of numpy arrays; it returns the closure's outputs as fresh
     tensors and has updated the state in place."""
 
-    __slots__ = ("_cache", "fn", "flags", "view", "compiled")
+    __slots__ = ("_cache", "fn", "flags", "view", "epoch", "compiled")
 
     def __init__(self, cache: "ExecutorCache", fn: Callable, flags,
-                 view: Callable[[dict], dict] | None = None):
+                 view: Callable[[dict], dict] | None = None, epoch: int = 0):
         self._cache = cache
         self.fn = fn
         self.flags = flags
         self.view = view
+        self.epoch = epoch   # the epoch it was made in
         self.compiled: dict[Any, _Plan] = {}
 
     def __call__(self, state: dict, flag: bool, args) -> tuple:
@@ -441,7 +442,8 @@ class ExecEntry:
         plan was made, False when one existed."""
         spec = _spec(args)
         with device_lock(self._cache.device):
-            if spec in self.compiled:
+            # an entry retired while a warm-up held it plans nothing more
+            if spec in self.compiled or self.epoch != self._cache.epoch:
                 return False
             plan, _ = self._plan(state, args, _host_leaves(args, []),
                                  warm=True)
@@ -471,7 +473,7 @@ class ExecEntry:
             try:
                 with torch.cuda.stream(side):
                     plan.prime(self._shadow(), self.flags)
-                    plan.capture(state, self.flags, cache.pool())
+                    plan.capture(state, self.flags, cache.pool(self.epoch))
             finally:
                 serving.wait_stream(side)
         elif warm:
@@ -535,11 +537,18 @@ class ExecutorCache:
             self._shadow = self._shadow_fn()
         return self._shadow
 
-    def pool(self):
-        """The table's graph memory pool for this epoch."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        return self._pool
+    def pool(self, epoch: int):
+        """The graph memory pool for a capture of an entry made in
+        ``epoch``: the table's pool while that epoch is current, else a
+        pool of its own. (A retired entry's graphs are freed with it; had
+        they shared the current pool, freeing them could leave that pool
+        with no graph while later captures still share it.)"""
+        with self._lock:
+            if epoch != self.epoch:
+                return torch.cuda.graph_pool_handle()
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            return self._pool
 
     # ------------------------------------------------------------- entries
     def get(self, key: Any, builder: Callable[[], Callable],
@@ -555,7 +564,8 @@ class ExecutorCache:
             with self._lock:
                 entry = self._entries.get(ek)
                 if entry is None:
-                    entry = ExecEntry(self, builder(), flags, view)
+                    entry = ExecEntry(self, builder(), flags, view,
+                                      epoch=ek[0])
                     self._entries[ek] = entry
         return entry
 

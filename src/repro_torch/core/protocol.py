@@ -1,8 +1,7 @@
 """Port copy of ``repro.core.protocol`` (host Python) with its imports
 redirected to ``repro_torch``; the wire grammar is byte for byte the
-reference's. Sharding, WARMUP, CHECKPOINT/RESTORE and the cluster tier
-described below are not in the port yet: the port's daemon answers those
-statements with ERR.
+reference's. ``python -m repro_torch.core.protocol`` serves a daemon on
+the CUDA card; ``--device cpu`` serves one on the CPU.
 
 The "web-enabling" layer: a memcached-style text protocol carrying SQL.
 
@@ -492,12 +491,16 @@ class SQLCachedServer:
     async def stop(self) -> None:
         for srv in self._servers:
             srv.close()
-            await srv.wait_closed()
-        self._servers.clear()
+        # end the open connections before waiting for the listeners: from
+        # Python 3.12 ``wait_closed`` also waits for every connection, so
+        # a client that stays connected would hold the stop forever
         for t in list(self._conn_tasks):
             t.cancel()
         if self._conn_tasks:
             await asyncio.gather(*self._conn_tasks, return_exceptions=True)
+        for srv in self._servers:
+            await srv.wait_closed()
+        self._servers.clear()
         await self.scheduler.stop()
 
     # ------------------------------------------------------------- protocol
@@ -1087,6 +1090,11 @@ class ThreadedServer:
             self._loop.run_forever()
 
     def stop(self) -> None:
+        """Stop serving and join the loop's thread; a second call returns
+        at once."""
+        if not self._thread.is_alive():
+            return
+
         async def down():
             await self.server.stop()
 
@@ -1130,5 +1138,7 @@ if __name__ == "__main__":
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=11222)
     ap.add_argument("--unix", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="the daemon's device (default: the CUDA card)")
     a = ap.parse_args()
-    run_server_forever(a.host, a.port, a.unix)
+    run_server_forever(a.host, a.port, a.unix, SQLCached(device=a.device))

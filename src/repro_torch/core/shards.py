@@ -676,8 +676,24 @@ def update(schema: TableSchema, state: dict, where, set_exprs, params=(), *,
         written = {c for c, _ in set_items}
         for ixc in s_sch.indexes:
             if ixc in written:
-                state = build_index(schema, state, ixc)
+                state = (build_index(schema, state, ixc) if pairs.fanout
+                         else _rebuild_shards(s_sch, state, ixc, pairs.sid))
     return _tick_all(state), n
+
+
+def _rebuild_shards(s_sch: TableSchema, state: dict, column: str,
+                    sid: torch.Tensor) -> dict:
+    """Rebuild ``column``'s index on the shards ``sid`` names only (a
+    pruned UPDATE's): one build over their ``[len(sid), cap_s]`` slice,
+    scattered back; every other shard keeps its index as it was."""
+    s = sid.long()
+    rid, key, overflow = HX.build(state["cols"][column][s], state["valid"][s],
+                                  n_buckets=HX.n_buckets_for(s_sch.capacity))
+    old = state["indexes"][column]
+    new = {"rid": old["rid"].index_copy(0, s, rid),
+           "key": old["key"].index_copy(0, s, key),
+           "stale": old["stale"].index_copy(0, s, overflow)}
+    return dict(state, indexes=dict(state["indexes"], **{column: new}))
 
 
 def _delete_core(schema, state, where, params, *, want_ids, limit,

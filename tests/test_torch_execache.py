@@ -392,3 +392,24 @@ def test_ops_interval_plans_both_variants_as_one():
     st = same_block(dbs)
     assert st["misses"] == 1 and st["cached"] == st["compiles"] == 4
     same_tables(dbs, "t")
+
+
+def test_retired_entry_warms_nothing():
+    """An entry a warm-up still holds when the epoch moves on (RESTORE or
+    RESHARD while a CREATE-time warm-up runs) plans nothing more; the
+    current epoch's entry for the same key plans as usual."""
+    import torch
+
+    def body(st, flag, a):
+        return dict(st, x=st["x"] + a), st["x"].sum()
+
+    cache = TCache("cpu", lambda: {"x": torch.zeros(4)})
+    state = {"x": torch.zeros(4)}
+    args = (np.ones(4, np.float32),)
+    old = cache.get("k", lambda: body)
+    cache.bump()
+    assert old.warm(state, args) is False and not old.compiled
+    new = cache.get("k", lambda: body)
+    assert new is not old and new.epoch == old.epoch + 1
+    assert new.warm(state, args) is True
+    assert torch.equal(state["x"], torch.zeros(4))   # warm-up wrote nothing

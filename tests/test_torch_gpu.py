@@ -861,6 +861,126 @@ def test_sharded_daemon_equals_cpu(cuda):
     _release(*dbs)
 
 
+SNAP_DDL = ("CREATE TABLE c (id INT, v INT, INDEX(v)) CAPACITY 16384 "
+            "MAX_SELECT 64 SHARDS 4 PARTITION BY id")
+SNAP_STMTS = (("SELECT * FROM c WHERE id = ? LIMIT 64", lambda i: (i,)),
+              ("SELECT id FROM c WHERE v = ?", lambda i: (i % 97,)),
+              ("SELECT COUNT(*) FROM c WHERE v < ?", lambda i: (i % 97,)))
+
+
+def _snap_pair(rng, warmup):
+    dbs = _graph_pair(SNAP_DDL, warmup=warmup)
+    _both(dbs, "executemany", "INSERT INTO c (id, v) VALUES (?, ?)",
+          [(int(k), int(v)) for k, v in zip(rng.integers(-3000, 3000, 8000),
+                                            rng.integers(0, 97, 8000))])
+    return dbs
+
+
+def _snap_round(dbs, base):
+    for i in range(4):
+        for sql, args in SNAP_STMTS:
+            _both(dbs, "execute", sql, args(base + i))
+
+
+def test_retired_entry_captures_into_a_pool_of_its_own(cuda):
+    """An entry held across an epoch bump (a warm-up racing RESTORE or
+    RESHARD) that still plans captures into a pool of its own, so freeing
+    it leaves the current epoch's pool with its graphs: capturing into a
+    shared pool whose graphs were all freed fails in PyTorch's caching
+    allocator."""
+    import gc
+
+    from repro_torch.core import execache as EC
+
+    def body(st, flag, a):
+        return dict(st, x=st["x"] + a), st["x"].sum()
+
+    cache = EC.ExecutorCache(cuda, lambda: {"x": torch.zeros(4, device=cuda)})
+    state = {"x": torch.zeros(4, device=cuda)}
+    args = (np.ones(4, np.float32),)
+    stale = cache.get("k", lambda: body)
+    cache.bump()
+    stale(state, False, args)   # plans and replays in the retired entry
+    del stale
+    torch.cuda.synchronize()
+    EC._sweep()
+    gc.collect()
+    for key in ("k", "j"):   # two captures that share the current pool
+        cache.get(key, lambda: body)(state, False, args)
+    torch.cuda.synchronize()
+    assert torch.equal(state["x"], torch.full((4,), 3.0, device=cuda))
+    cache.close()
+    _release()
+
+
+def test_retain_writes_valid_in_place_under_warm_plans(cuda):
+    """RETAIN SLOTS on the card is one masked pass, one graph, that writes
+    the stacked ``valid`` in place: lane and fan-out plans captured BEFORE
+    it still answer correctly after it (no epoch bump, no new capture),
+    equal to a CPU daemon, and it dispatches without a sync."""
+    rng = np.random.default_rng(17)
+    dbs = _snap_pair(rng, warmup=False)
+    _snap_round(dbs, 0)
+    _snap_round(dbs, 0)   # every shape planned (captured) by now
+    valid = dbs[0].tables["c"].state["valid"]
+    ptr = valid.data_ptr()
+    st0 = _executors(dbs[0], "c")
+    for r in range(2):
+        slots = sorted(rng.choice(64, 32, replace=False).tolist())
+        got = _both(dbs, "execute", f"ALTER TABLE c RETAIN SLOTS "
+                                    f"{','.join(map(str, slots))} OF 64")
+        assert got["count"] > 0 and got["value"] == 32
+        _same_state(dbs, "c")
+        assert dbs[0].tables["c"].state["valid"].data_ptr() == ptr
+        before = _executors(dbs[0], "c")
+        _snap_round(dbs, 0)
+        after = _executors(dbs[0], "c")
+        assert after["misses"] == before["misses"], "a warm plan re-planned"
+    st1 = _executors(dbs[0], "c")
+    assert st1["epoch"] == st0["epoch"]
+    _same_state(dbs, "c")
+    _release(*dbs)
+
+
+def test_restore_retires_plans_and_replans(cuda, tmp_path):
+    """RESTORE on the card installs new tensors, so every plan is retired
+    (a new epoch, no cached plan) and re-planned on first use; the
+    statements then equal a CPU daemon that restored the same files, at
+    the table's shard count and after a RESHARD to another one. The card
+    and the CPU daemon write the same checkpoint."""
+    import json
+    rng = np.random.default_rng(19)
+    dbs = _snap_pair(rng, warmup=True)
+    _snap_round(dbs, 0)
+    dirs = [tmp_path / "card", tmp_path / "cpu"]
+    counts = [db.execute(f"CHECKPOINT c TO '{d}'").count
+              for db, d in zip(dbs, dirs)]
+    assert counts[0] == counts[1] > 0
+    metas = [json.loads((d / "step_0" / "meta.json").read_text())
+             for d in dirs]
+    assert metas[0] == metas[1]
+    for leaf in metas[0]["names"].values():
+        np.testing.assert_array_equal(np.load(dirs[0] / "step_0" / leaf),
+                                      np.load(dirs[1] / "step_0" / leaf))
+    for shards in (4, 2):
+        if shards != 4:
+            for db in dbs:
+                db.execute(f"ALTER TABLE c RESHARD {shards}")
+        _both(dbs, "execute", "FLUSH c")
+        e0 = _executors(dbs[0], "c")["epoch"]
+        got = [db.execute(f"RESTORE c FROM '{dirs[0]}'").count for db in dbs]
+        assert got == [counts[0]] * 2
+        st = _executors(dbs[0], "c")
+        assert (st["epoch"], st["cached"]) == (e0 + 1, 0)
+        _same_state(dbs, "c")
+        _snap_round(dbs, 40)
+        m0 = _executors(dbs[0], "c")["misses"]
+        _snap_round(dbs, 40)
+        assert _executors(dbs[0], "c")["misses"] == m0
+        _same_state(dbs, "c")
+    _release(*dbs)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "b,h,kh,sq,sk,hd,causal,window,softcap,q_offset",

@@ -580,3 +580,52 @@ def test_scheduler_keeps_fanout_group_whole():
     fan = db.shape_key("SELECT w FROM s WHERE w = ?")
     assert db.group_lane(fan, [(1,)]) is None
     assert db.group_shard_ids(fan, [(1,)]) is None
+
+
+# ------------------------------------- pruned indexed UPDATE, lanes off
+
+def test_pruned_indexed_update_rebuilds_only_its_shard():
+    """With lane_exec=False a pruned UPDATE of an indexed column rebuilds
+    that index on the routed shard only, as the reference does: shard 0's
+    overflowed index keeps its 12 overflow rows (EXPLAIN's ``stale``)
+    while the UPDATE lands on shard 1."""
+    dbs = pair(lane_exec=False)
+    run(dbs, "execute", "CREATE TABLE t (k INT, w INT, INDEX(w)) CAPACITY "
+                        "1024 MAX_SELECT 8 SHARDS 2 PARTITION BY k")
+    s0 = [k for k in range(4000) if TSH.shard_of_host(k, 2) == 0][:140]
+    s1 = [k for k in range(s0[30], 4000)
+          if TSH.shard_of_host(k, 2) == 1][:20]
+    run(dbs, "executemany", "INSERT INTO t (k, w) VALUES (?, ?)",
+        [(k, 7) for k in s0 + s1])
+    assert run(dbs, "execute", "DELETE FROM t WHERE k < ?",
+               (s0[30],))["count"] == 30
+    run(dbs, "execute", "UPDATE t SET w = w + 1 WHERE k = ?", (s1[3],))
+    plan = same_json(dbs, "EXPLAIN SELECT k FROM t WHERE w = ?")
+    assert plan["stale"] == 12
+    assert run(dbs, "execute", "SELECT COUNT(*) FROM t WHERE w = ?",
+               (7,))["value"] == 129
+    same_shards(dbs, "t")
+
+
+@pytest.mark.parametrize("index", ["w", "v"])
+def test_pruned_indexed_updates_keep_every_shard_lanes_off(index):
+    """A stream of pruned UPDATEs that write an indexed column (and some
+    that do not) between DELETEs and narrow INSERTs that reuse freed
+    slots (so index upkeep order is not row order), under
+    lane_exec=False: each shard's whole state, its index lanes included,
+    equals the reference's after every UPDATE."""
+    rng = np.random.default_rng(61)
+    dbs = pair(lane_exec=False)
+    make_t(dbs, 4, index)
+    for _ in range(3):
+        insert_batch(dbs, rng)
+    for i in range(10):
+        run(dbs, "execute", "DELETE FROM t WHERE w < ?",
+            (int(rng.integers(0, 8)),))
+        insert_batch(dbs, rng)
+        k = int(rng.integers(0, 12))
+        col = index if i % 3 else ("v" if index == "w" else "w")
+        run(dbs, "execute", f"UPDATE t SET {col} = {col} + ? WHERE k = ?",
+            (int(rng.integers(1, 4)), k))
+        same_shards(dbs, "t")
+    run(dbs, "execute", f"SELECT k, w, v FROM t WHERE {index} = ?", (3,))
