@@ -7,7 +7,7 @@ Run from a checkout of the repository on a machine with a CUDA card and
 the CUDA toolkit. Phases (one JSON line each on stdout):
 
 0. device  -- the card's name and power limit (``nvidia-smi``).
-1. build   -- compile the seven CUDA kernels from the five sources in
+1. build   -- compile the seven CUDA kernels from the six sources in
               ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
               parallel) and report registers, shared memory and spills
               per kernel instance, and the tensor-core (HMMA) and cp.async
@@ -69,6 +69,14 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               computes the same function (scaled_dot_product_attention), at
               the serve shapes and at one 2,048-token prompt with yi-6b's
               heads.
+              The int8 read path (``kernels_attention`` too): an int8
+              arena quantized per token as the serve engine writes it,
+              its fp32 scales, q in fp32 and bf16, with and without the
+              unquantized self term (a slot at -1 attends nothing, one at
+              0 only itself), at the paged cases' shapes (yi-6b's hd 128,
+              zamba2's hd 80, hd 8, split edges, windows, softcap), within
+              the same tolerances; then its time at both serve shapes
+              beside its bound and the bf16 call on the same shape.
    kernels_mamba -- the Mamba2 scan kernel against its plain version
               (y within 1e-4 fp32 / 2e-2 bf16, h_last within 1e-3,
               relative and absolute) at tests/test_kernels.py's shapes,
@@ -104,6 +112,16 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               graph launch and no kernel launch, and a fan-out's scan,
               probe and build launch once a call. Reports the graph pool's
               bytes and wall p50s.
+   mesh    -- phase shards's deployment PLACED over lane meshes of 2 and
+              4 entries (launch/mesh.py: distinct cards where there are
+              that many, else cuda:0 repeated; prints ``distinct_devices``
+              on a line of its own), against an unplaced CPU daemon: the
+              bulk load, pruned and fan-out statements, SHOW STATS's
+              placement, warm replays (a fan-out: one graph launch a block
+              plus the merge's, no kernel launch; its scan or probe once a
+              block), four scheduler threads, CHECKPOINT, RESTORE into the
+              other mesh size, RESHARD 4 and 1. Every result and state
+              equal, no dispatch syncs; reports warm p50s.
    graphs  -- pre-planned statements (core/execache.py): the Table 2
               indexed table and Fig. 1's read warmed at CREATE and by
               WARMUP; every warm statement must replay with no miss and
@@ -136,6 +154,16 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               tiles), 16 new tokens each, max_seq 512, then the same
               extra requests, evict_user and flush, with the same checks
               (the dense reference's SSM recurrence uses no scan kernel).
+   serve_int8, serve_int8_zamba2 -- both serve paths again on the same
+              weights and traffic with the int8 arena (``kv_quant_int8``):
+              logits teacher-forced against the dense reference that
+              quantizes K/V as the engine does (a prompt's when it is
+              installed, each later token's after its own step), yi-6b
+              within 0.05 and zamba2 within its bound measured in the same
+              call (by serve_zamba2: its fp32 run is not repeated); the
+              same CPU replay and warm-round checks; reports
+              the arena and scale bytes beside the bf16 engine's, the
+              round's p50 and how many greedy tokens agree with it.
    snapshot -- phase shards's deployment, with and without INDEX(page_id):
               CHECKPOINT (the card's files must equal the CPU daemon's),
               RESTORE into fresh tables of 8, 4 and 1 shards and from 1
@@ -163,26 +191,29 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               leaves COUNT(*) equal to the acknowledged writes. Reports
               the healthy and post-kill read p50 / p99 and the kill
               window's max (wall µs).
+   profiler_edges -- how many of a short profiled window's 10 device
+              records the profiler keeps this late in the process.
 7. profile -- after the main paths (torch.profiler): per decode round of
               both serve paths (host launch calls, kernels on the card,
               device time by family, idle share), and for zamba2's
               300-token prefill.
 
-Phases 3-6 are eleven main paths (Table 2 plain, Table 2 indexed, Fig.
-1, wire, graphs, shards, serve, serve_zamba2, snapshot, cluster,
-cluster_chaos; the last three run after the serve paths, whose warm
-round check reads the card's copy records, which a longer profiled
-process was seen to lose). A statement kernel that runs inside a
+Phases 3-6 are fourteen main paths (serve, serve_zamba2, serve_int8,
+serve_int8_zamba2, Table 2 plain, Table 2 indexed, Fig. 1, wire, graphs,
+shards, mesh, snapshot, cluster, cluster_chaos; the four serve
+paths run first, since their warm round check reads the card's copy
+records, which a longer profiled process was seen to lose). A statement kernel that runs inside a
 captured graph counts once per launch on the card: the plan's prime run,
 then each replay's captured launches. The launch counters are zeroed right before
 each path and read right after it, and each path must have launched
 every kernel it runs: scan and compact on the statement paths, build and
 probe on the indexed Table 2 table and in graphs, probe in the wire
-script (its table has INDEX(k)), all four in shards, snapshot and
+script (its table has INDEX(k)), all four in shards, mesh, snapshot and
 cluster (cluster_chaos's kernels run in child processes, which the
 counters cannot see: that path checks results only); flash attention,
 paged attention and the relscan scan on
-both serve paths, and the Mamba2 scan on zamba2's, each an exact number
+the four serve paths, and the Mamba2 scan on zamba2's two, each an exact
+number
 of times (per attention layer or shared-block application and prefill or
 round, the capture's prime round included; per Mamba2 layer and
 prefill). Then comes a ``kernels`` line
@@ -216,13 +247,16 @@ if not torch.cuda.is_available():
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import daemon as D  # noqa: E402
 from repro_torch.core import protocol as PR  # noqa: E402
+from repro_torch.core import shards as SH  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import hashidx as HX  # noqa: E402
 from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import relscan as RS  # noqa: E402
+from repro_torch.launch import mesh as MESH  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
+from repro_torch.serving import paged as PG  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
@@ -345,15 +379,19 @@ KERNEL_NAME = re.compile(r"(ms_state|ms_chunk|build_rows|build_buckets|scan|"
 def kernel_key(fn: str) -> str:
     """A readable name for a mangled kernel symbol: the kernel and its
     template arguments (dtype, head dim), e.g. ``flash_kernel_tc<80>``
-    (the bf16 tensor-core kernel) or ``paged_split_kernel<bf16,128>``."""
+    (the bf16 tensor-core kernel) or ``paged_split_kernel<bf16,i8,128>``."""
     name = KERNEL_NAME.search(fn)
     if not name:
         return fn
-    inst = re.search(r"_kernel(?:_tc)?I((?:f|13__nv_bfloat16|Li\d+E)+)E", fn)
+    inst = re.search(r"_kernel(?:_tc)?I((?:f|a|S0_|13__nv_bfloat16|Li\d+E)+)E",
+                     fn)
     if not inst:
         return name.group(0)
-    args = [t.group(2) or ("bf16" if t.group(1) else "f32") for t in
-            re.finditer(r"(13__nv_bfloat16)|Li(\d+)E|f", inst.group(1))]
+    # f fp32, a int8, 13__nv_bfloat16 bf16 (S0_: bf16 again), Li<n>E a dim
+    args = [t.group(2) or ("i8" if t.group(3) else "bf16" if t.group(1)
+                           else "f32") for t in
+            re.finditer(r"(13__nv_bfloat16|S0_)|Li(\d+)E|(a)|f",
+                        inst.group(1))]
     return name.group(0) + "<" + ",".join(args) + ">"
 
 
@@ -1170,6 +1208,101 @@ def paged_inputs(rng, gen, dev, dtype, b, h, kh, hd, block, nblk, lengths,
             torch.from_numpy(lens).to(dev))
 
 
+def paged_int8_inputs(rng, gen, dev, dtype, b, h, kh, hd, block, nblk,
+                      lengths, holes=(), self_term=True):
+    """``paged_inputs``' construction over an int8 arena: random rows
+    quantized per (row, k/v, position, kv head) as the serve engine writes
+    them (``serving/paged.quantize_kv``), their fp32 scales, and the
+    unquantized self term's k / v in q's dtype (or None)."""
+    q, arena, pages, lens = paged_inputs(rng, gen, dev, torch.float32, b, h,
+                                         kh, hd, block, nblk, lengths, holes)
+    arena_q, scales = PG.quantize_kv(arena)
+    kv_self = None
+    if self_term:
+        kv_self = tuple(torch.randn((b, kh, hd), generator=gen,
+                                    device=dev).to(dtype) for _ in range(2))
+    return q.to(dtype), arena_q, scales, pages, lens, kv_self
+
+
+def check_paged_int8(rng, gen, dev, per_case):
+    """The int8 read path against ``paged_attention_ref`` with scales at
+    PAGED_CASES's shapes (yi-6b's hd 128 / kh 4, zamba2's hd 80 / kh 32,
+    hd 8, one split and several, windows, softcap, missing pages), q in
+    fp32 and bf16, with the self term (lengths as given, plus a slot at
+    -1 that attends nothing and one at 0 that sees only its own token)
+    and without it. A second call must give the same bits. Returns the
+    largest error per q dtype."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        errs[dname] = 0.0
+        for (b, h, kh, hd, block, nblk, window, softcap, lengths,
+             holes) in PAGED_CASES:
+            for self_term in (True, False):
+                q, arena, scales, pages, lens, kv_self = paged_int8_inputs(
+                    rng, gen, dev, dtype, b, h, kh, hd, block, nblk, lengths,
+                    holes, self_term)
+                if self_term and b >= 3:   # a slot without a request, and
+                    lens[-1] = -1          # one that sees only itself
+                    lens[-2] = 0
+                kw = dict(scale=hd ** -0.5, softcap=softcap, window=window,
+                          scales=scales, kv_self=kv_self)
+                got = PA.paged_attention(q, arena, pages, lens, **kw)
+                want = PA.paged_attention_ref(q, arena, pages, lens, **kw)
+                again = PA.paged_attention(q, arena, pages, lens, **kw)
+                sync()
+                shape = (f"{b}x{h}/{kh}x{hd} blk{block}x{nblk} w{window} "
+                         f"c{softcap} lengths {lens.tolist()} holes "
+                         f"{list(holes)} int8 arena, self term {self_term}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"paged_attention {shape} {dname}: "
+                                         f"a second call differs")
+                e = att_err(got, want, dtype,
+                            f"paged_attention {shape} {dname}")
+                errs[dname] = max(errs[dname], e)
+                per_case.append(["paged_int8", dname, shape, e])
+    return errs
+
+
+def paged_int8_work(h, kh, hd, nblk, lengths, q_elem):
+    """(bytes, FLOP) of one int8 decode call with the self term: q and out
+    once (q's type), each visible K/V row once (1 byte an element) with
+    its two fp32 scales, the self term's k / v, pages and lengths."""
+    b = len(lengths)
+    tokens = int(sum(lengths))
+    nbytes = (2 * b * h * hd + 2 * b * kh * hd) * q_elem \
+        + 2 * tokens * kh * (hd + 4) + 4 * b * nblk + 4 * b
+    return nbytes, 4 * h * hd * (tokens + b)
+
+
+def paged_int8_timing(rng, gen, dev, h, kh, hd, nblk, lengths, what):
+    """One int8 decode call (bf16 q, the self term) at a serve path's
+    shape beside the bf16 call on the same shape: times, device time,
+    launches, plain time and bound."""
+    q, arena, scales, pages, lens, kv_self = paged_int8_inputs(
+        rng, gen, dev, torch.bfloat16, 4, h, kh, hd, 16, nblk, lengths)
+    kw = dict(scale=hd ** -0.5, scales=scales, kv_self=kv_self)
+    run = lambda: PA.paged_attention(q, arena, pages, lens, **kw)  # noqa: E731
+    arena_bf = (arena.float() * scales[..., None]).to(torch.bfloat16)
+    run_bf = lambda: PA.paged_attention(  # noqa: E731
+        q, arena_bf, pages, lens, scale=hd ** -0.5)
+    b_ms, b_by = bound(*paged_int8_work(h, kh, hd, nblk, lengths, 2),
+                       BF16_OPS_S)
+    return {
+        "kernel": "paged_attention", "shape": f"b4 h{h}/kh{kh} hd{hd} "
+        f"block16 nblk{nblk} lengths {lengths} int8 arena, bf16 q, self "
+        f"term{what}",
+        "ms": time_ms(run), "device_ms": call_device_ms(run),
+        "device_launches": device_launches(run),
+        "plain_ms": time_ms(lambda: PA.paged_attention_ref(
+            q, arena, pages, lens, **kw)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library": "none: no single PyTorch call gathers K/V through a page "
+                   "table",
+        "bf16_arena_ms": time_ms(run_bf),
+        "bf16_arena_device_ms": call_device_ms(run_bf)}
+
+
 def paged_timing(rng, gen, dev, h, kh, hd, nblk, lengths, what):
     """One decode call of paged attention at a serve path's shape: its
     time, the device time of the whole call and its device launches, the
@@ -1281,10 +1414,14 @@ def phase_kernels_attention(dev, card):
             errs["flash_attention"] = max(errs["flash_attention"], e)
             per_case.append(["flash", dname, shape, e,
                              f"allocated {grown} bytes"])
+    int8_errs = check_paged_int8(rng, gen, dev, per_case)
+    errs["paged_attention"] = max(errs["paged_attention"],
+                                  *int8_errs.values())
     emit({"phase": "kernels_attention", "card": card, "cases": len(per_case),
           "tolerance": {"float32": ATT_TOL[torch.float32],
                         "bfloat16": ATT_TOL[torch.bfloat16]},
-          "max_abs_err": errs, "per_case": per_case})
+          "max_abs_err": errs, "max_abs_err_int8_arena": int8_errs,
+          "per_case": per_case})
 
     # timings at the serve path's shapes (yi-6b, bf16)
     out = {}
@@ -1362,6 +1499,9 @@ def phase_kernels_attention(dev, card):
             "library": "torch.nn.functional.scaled_dot_product_attention",
             "library_max_abs_diff": lib_diff}
     out["paged_attention_hd80"] = paged_timing(rng, gen, dev, *PAGED_ZAMBA)
+    out["paged_attention_int8"] = paged_int8_timing(rng, gen, dev, *PAGED_YI)
+    out["paged_attention_int8_hd80"] = paged_int8_timing(rng, gen, dev,
+                                                         *PAGED_ZAMBA)
     for t in out.values():
         emit({"phase": "kernel_timing", "card": card, **t})
     return out, errs
@@ -1794,7 +1934,71 @@ def guard(obj, name, timer=None):
             if timer is not None:
                 timer[name] = timer.get(name, 0.0) + time.perf_counter() - t0
 
+    guarded.__wrapped__ = fn
     setattr(obj, name, guarded)
+
+
+class Int8Reference:
+    """The int8 engine's arithmetic in the dense, kernel-free reference:
+    while active, ``TF.decode_step``'s attention (``attention_decode``)
+    attends its own token unquantized (the island's self term) and then
+    stores it quantized and dequantized (``serving/paged.quantize_kv``, as
+    the island writes it) for the later steps of the sequences in ``on``;
+    :meth:`install` quantizes a sequence's prompt positions, as the
+    engine's prefill installs them. The dense cache holds fp32, so the
+    dequantized values are the kernel's."""
+
+    def __init__(self):
+        self.on = None   # [b] bool: sequences past their prompt
+
+    def install(self, cache, seq: int, n: int):
+        for k, v in (("k", "v"), ("shared_k", "shared_v")):
+            if k in cache:
+                kv = torch.stack([cache[k][:, seq, :n], cache[v][:, seq, :n]],
+                                 dim=2)
+                q, sc = PG.quantize_kv(kv)
+                deq = q.float() * sc[..., None]
+                cache[k][:, seq, :n] = deq[:, :, 0]
+                cache[v][:, seq, :n] = deq[:, :, 1]
+
+    def __enter__(self):
+        from repro_torch.models.layers import attention as AT
+
+        def attention_decode(params, cfg, x, cache_k, cache_v, lengths, *,
+                             theta, window=0):
+            # models/layers/attention.attention_decode over an fp32 cache
+            b, L, kh, hd = cache_k.shape
+            q, k, v = AT.qkv_project(params, cfg, x, lengths[:, None], theta)
+            bi = torch.arange(b, device=x.device)
+            kv = torch.stack([k[:, 0], v[:, 0]], 1).float()
+            cache_k[bi, lengths] = kv[:, 0]   # its own token, unquantized
+            cache_v[bi, lengths] = kv[:, 1]
+            g = cfg.n_heads // kh
+            qg = q.reshape(b, kh, g, hd).float() * AT._scale(cfg)
+            s = AT._softcap(torch.einsum("bkgd,bskd->bkgs", qg, cache_k),
+                            cfg.attn_softcap)
+            pos = torch.arange(L, device=x.device)
+            mask = pos[None, :] <= lengths[:, None]
+            if window and window > 0:
+                mask &= (lengths[:, None] - pos[None, :]) < window
+            p = torch.softmax(torch.where(mask[:, None, None], s, AT.NEG_INF),
+                              dim=-1)
+            o = torch.einsum("bkgs,bskd->bkgd", p, cache_v)
+            o = o.reshape(b, 1, cfg.n_heads, hd).to(x.dtype)
+            # later steps read it as the island wrote it
+            qz, sc = PG.quantize_kv(kv)
+            deq = qz.float() * sc[..., None]
+            m = self.on[:, None, None]
+            cache_k[bi, lengths] = torch.where(m, deq[:, 0], kv[:, 0])
+            cache_v[bi, lengths] = torch.where(m, deq[:, 1], kv[:, 1])
+            return AT.out_project(params, o), cache_k, cache_v
+
+        self._orig = TF.attention_decode
+        TF.attention_decode = attention_decode
+        return self
+
+    def __exit__(self, *exc):
+        TF.attention_decode = self._orig
 
 
 def teacher_forced(cfg, params, dev, records, atol=SERVE_LOGIT_ATOL):
@@ -1811,7 +2015,12 @@ def teacher_forced(cfg, params, dev, records, atol=SERVE_LOGIT_ATOL):
     kernel path may differ from the bf16 reference by at most twice the
     bf16 reference's largest distance from the fp32 run on the checked
     steps (the kernel path then computes no worse than a kernel-free bf16
-    evaluation of the same model, within a factor of two)."""
+    evaluation of the same model, within a factor of two).
+
+    With ``cfg.kv_quant_int8`` both runs quantize K/V as the int8 engine
+    does (:class:`Int8Reference`): a prompt's K/V when it ends, each later
+    token's after its own step."""
+    quant = cfg.kv_quant_int8
     seqs = [list(r["prompt"]) + r["generated"][:-1] for r in records]
     steps = max(len(x) for x in seqs)
     runs = [(cfg, params)]
@@ -1819,13 +2028,28 @@ def teacher_forced(cfg, params, dev, records, atol=SERVE_LOGIT_ATOL):
         runs.append((dataclasses.replace(cfg, dtype=torch.float32),
                      tree_map(lambda t: t.float(), params)))
     caches = [TF.init_cache(c, len(seqs), steps + 1, dev) for c, _ in runs]
+    int8 = Int8Reference()
+    if quant:   # fp32 caches: the dequantized values are the kernel's
+        caches = [{k: (v.float() if k != "ssm" else v) for k, v in c.items()}
+                  for c in caches]
     pairs = []   # (request, step, kernel path's logits, reference, fp32 run)
     for t in range(steps):
         toks = torch.tensor([x[t] if t < len(x) else 0 for x in seqs],
                             device=dev)
         lengths = torch.full((len(seqs),), t, device=dev)
-        outs = [TF.decode_step(p, c, toks, cache, lengths)[0][:, :cfg.vocab]
-                for (c, p), cache in zip(runs, caches)]
+        if quant:
+            for i, r in enumerate(records):
+                if t == len(r["prompt"]):   # the prompt was installed
+                    for cache in caches:
+                        int8.install(cache, i, t)
+            int8.on = torch.tensor([t >= len(r["prompt"]) for r in records],
+                                   device=dev)
+            with int8:
+                outs = [TF.decode_step(p, c, toks, cache, lengths)[0][
+                    :, :cfg.vocab] for (c, p), cache in zip(runs, caches)]
+        else:
+            outs = [TF.decode_step(p, c, toks, cache, lengths)[0][
+                :, :cfg.vocab] for (c, p), cache in zip(runs, caches)]
         for i, r in enumerate(records):
             j = t - (len(r["prompt"]) - 1)
             if 0 <= j < len(r["logits"]):
@@ -1876,18 +2100,23 @@ def tree_map(fn, tree):
 
 
 def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
-                name="serve", atol=SERVE_LOGIT_ATOL):
+                name="serve", atol=SERVE_LOGIT_ATOL, bf16=None):
     """``arch`` at full width through ServeEngine, as launch/serve.py
     drives it (plus, with ``long_prompt``, one prompt of that many tokens,
     admitted first), then one evict_user and one flush. ``hold`` keeps
     the engine for the profile phase and the launch counts the path must
-    show."""
+    show. ``bf16``: the ``hold`` of the same arch's bf16 path, whose
+    weights this path reuses with the int8 arena (``kv_quant_int8``, as
+    the reference reaches it), comparing arenas and greedy tokens."""
     cfg = configs.get_config(arch)
+    if bf16 is not None:
+        cfg = dataclasses.replace(cfg, kv_quant_int8=True)
     torch.cuda.reset_peak_memory_stats(dev)
     resident = torch.cuda.memory_allocated(dev)   # earlier paths' engines
     t0 = time.perf_counter()
-    params = TF.init_model(torch.Generator(device=dev).manual_seed(SEED),
-                           cfg, dev)
+    params = (bf16["params"] if bf16 is not None else
+              TF.init_model(torch.Generator(device=dev).manual_seed(SEED),
+                            cfg, dev))
     sync()
     init_s = time.perf_counter() - t0
     eng = ServeEngine(cfg, params, max_slots=4, max_seq=max_seq,
@@ -1957,12 +2186,23 @@ def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
     if replay["cpu_live_rows"] != 0:
         raise AssertionError("the CPU replay kept live rows")
     peak_gb = (torch.cuda.max_memory_allocated(dev) - resident) / 1e9
+    if atol is None and bf16 is not None:
+        # the bound the bf16 path measured in this run on the same weights
+        # (twice the bf16 reference's distance from fp32): the fp32 run is
+        # not repeated
+        atol = bf16["atol"]
+    t0 = time.perf_counter()
     tf = teacher_forced(cfg, params, dev, records, atol)
+    tf_s = time.perf_counter() - t0
     n_rounds = len(round_ms)
     prefills, rounds = len(records) + len(extra), n_rounds + extra_rounds
     attn = TF.n_attn_layers(cfg) + cfg.n_shared_applications()
     # paged attention: every replayed round, and the capture's prime round
-    hold.update(eng=eng, cfg=cfg, want={
+    quant = {}
+    if bf16 is not None:
+        quant = int8_report(eng, bf16, records)
+    hold.update(eng=eng, cfg=cfg, params=params, records=records,
+                atol=tf["atol"], want={
         "flash_attention": attn * prefills,
         "paged_attention": attn * (rounds + 1),
         "mamba2_scan": len(cfg.ssm_layer_ids) * prefills})
@@ -1990,7 +2230,42 @@ def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
           "freed_blocks": freed, "evict_user_blocks": evicted,
           "flush_blocks": flushed, "kv_replay": replay,
           "peak_memory_gb": peak_gb, "resident_before_gb": resident / 1e9,
-          "teacher_forced": tf})
+          "teacher_forced": tf, "teacher_forced_s": tf_s, **quant})
+
+
+def int8_report(eng, bf16, records) -> dict:
+    """The int8 engine beside the bf16 one of the same weights and
+    traffic: arena and scale bytes per token, and how many greedy tokens
+    agree (prompt by prompt, position by position)."""
+    ref = bf16["eng"]
+    cfg = eng.cfg
+    out = {"arena_bytes": {}, "arena_bytes_bf16": {}}
+    for name in ("arena", "shared_arena"):
+        if name in eng.state:
+            a, sc = eng.state[name], eng.state[name + "_scale"]
+            out["arena_bytes"][name] = a.numel() * a.element_size()
+            out["arena_bytes"][name + "_scale"] = (sc.numel()
+                                                   * sc.element_size())
+            b = ref.state[name]
+            out["arena_bytes_bf16"][name] = b.numel() * b.element_size()
+    total = sum(out["arena_bytes"].values())
+    out["bytes_ratio_to_bf16"] = total / sum(out["arena_bytes_bf16"].values())
+    hd = cfg.head_dim
+    out["bytes_ratio_formula"] = f"(hd + 4) / (2 hd) = {(hd + 4) / (2 * hd)}"
+    want = {tuple(r["prompt"].tolist()): r["generated"]
+            for r in bf16["records"]}
+    agree = n = 0
+    first = []   # each request's first position where the two part
+    for r in records:
+        other = want[tuple(r["prompt"].tolist())]
+        pairs = list(zip(r["generated"], other))
+        n += len(pairs)
+        agree += sum(a == b for a, b in pairs)
+        first.append(next((j for j, (a, b) in enumerate(pairs) if a != b),
+                          None))
+    out["greedy_tokens_agree_with_bf16"] = [agree, n]
+    out["first_disagreement_per_request"] = first
+    return out
 
 
 # ------------------------------------------------------------ graphs
@@ -2025,8 +2300,10 @@ def graph_pool_bytes(pool) -> int:
 
 
 def pool_bytes(db, table) -> int:
-    """Device bytes held in the table's CUDA-graph memory pool."""
-    return graph_pool_bytes(db.tables[table].execs._pool)
+    """Device bytes held in the table's CUDA-graph memory pools (one a
+    device its plans run on)."""
+    return sum(graph_pool_bytes(p)
+               for p in db.tables[table].execs._pools.values())
 
 
 def launch_calls(fn, n):
@@ -2045,35 +2322,70 @@ def launch_calls(fn, n):
     return {k: v / n for k, v in calls.items()}
 
 
-def round_calls(eng) -> tuple[dict, dict]:
-    """One decode round under the profiler: the host's launch calls made
-    inside the round, and the copies on the card by direction. A small
-    kernel and a sync open the window first: the card's record of the
-    first activity in a fresh window is sometimes lost."""
+def profiler_edges(n=4) -> dict:
+    """How many of a short window's device records the profiler keeps,
+    late in the process: ``n`` windows of 5 kernels and 5 host-to-device
+    copies (10 records) each. Reported, not checked: it says how far this
+    run's short timing windows can be trusted (PERF.md §7)."""
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def window() -> int:
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                torch.zeros(1, device="cuda")
+                torch.ones(1).pin_memory().to("cuda", non_blocking=True)
+            sync()
+        return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+    return {"records_a_window": 10, "kept": [window() for _ in range(n)]}
+
+
+def round_copies(prof, span: str) -> tuple[dict, dict]:
+    """The host's launch calls made inside the window's ``span`` (a
+    ``record_function`` name), and the card's copies by direction that
+    those calls issued, matched by correlation id, not by time: late in a
+    long process the profiler dates a window's early device records up
+    to milliseconds early (PERF.md §7)."""
+    from torch.autograd import DeviceType
+    evs = prof.profiler.kineto_results.events()
+    s = next(e for e in evs if e.name() == span
+             and e.device_type() != DeviceType.CUDA)
+    calls = dict.fromkeys(LAUNCH_CALLS, 0)
+    issued = set()
+    for e in evs:
+        if (e.device_type() != DeviceType.CUDA and e.name() in calls
+                and s.start_ns() <= e.start_ns() <= s.end_ns()):
+            calls[e.name()] += 1
+            issued.add(e.correlation_id())
+    copies = {"HtoD": 0, "DtoH": 0, "DtoD": 0}
+    for e in evs:
+        if (e.device_type() == DeviceType.CUDA and "Memcpy" in e.name()
+                and e.correlation_id() in issued):
+            for k in copies:
+                copies[k] += k in e.name()
+    return calls, copies
+
+
+def round_calls(eng) -> tuple[dict, dict]:
+    """Two decode rounds under the profiler, the second measured
+    (:func:`round_copies`): a record the profiler dates before its
+    window's start is dropped, and late in a long process what a window
+    does before its first graph launch is dated that early (the int8
+    rounds' HtoD; PERF.md §7), so the first round's graph launch opens
+    the window."""
     from torch.profiler import ProfilerActivity, profile, record_function
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device="cuda")
+        eng.decode_round()
         sync()
         with record_function("decode_round"):
             eng.decode_round()
         sync()
-    events = prof.events()
-    span = next(e for e in events if e.name == "decode_round"
-                and e.device_type != DeviceType.CUDA).time_range
-    calls = dict.fromkeys(LAUNCH_CALLS, 0)
-    copies = {"HtoD": 0, "DtoH": 0, "DtoD": 0}
-    for e in events:
-        if e.device_type != DeviceType.CUDA:
-            if (e.name in calls
-                    and span.start <= e.time_range.start <= span.end):
-                calls[e.name] += 1
-        elif "Memcpy" in e.name:
-            for k in copies:
-                copies[k] += k in e.name
-    return calls, copies
+    return round_copies(prof, "decode_round")
 
 
 def warm_round_calls(eng, tries=3) -> tuple[dict, int]:
@@ -2087,11 +2399,13 @@ def warm_round_calls(eng, tries=3) -> tuple[dict, int]:
                                              "cudaMemcpyAsync": 2}
     rounds = 0
     for attempt in range(1, tries + 1):
-        while any(eng.lengths[s] % SERVE_BLOCK == 0 for s in eng.requests):
+        # neither of round_calls' two rounds may start a block
+        while any(eng.lengths[s] % SERVE_BLOCK in (0, SERVE_BLOCK - 1)
+                  for s in eng.requests):
             eng.decode_round()
             rounds += 1
         calls, copies = round_calls(eng)
-        rounds += 1
+        rounds += 2
         if calls != want:
             raise AssertionError(f"a warm round made {calls}; expected "
                                  f"{want}")
@@ -2488,6 +2802,173 @@ def phase_shards(card):
             "launch_calls_per_warm_pruned_stmt": calls,
             "scheduler": sched, "flushed_rows": n_flush,
             "wall_p50_us": {k: round(p50(v), 1) for k, v in pr.lat.items()}}
+    emit(report)
+
+
+# ---------------------------------------------------------------- mesh
+
+# (variant, INDEX, mesh entries, the other mesh size RESTORE goes into)
+MESH_VARIANTS = (("plain", "", 2, 4), ("indexed", ", INDEX(page_id)", 4, 2))
+
+
+def mesh_pair(d):
+    """The card daemon with ``d`` devices visible (a SHARDS 8 table is
+    placed over a lane mesh of ``d`` entries: distinct cards where there
+    are ``d``, else cuda:0 repeated) and an unplaced CPU daemon."""
+    pr = Pair.__new__(Pair)
+    with MESH.force_device_count(d):
+        pr.gpu = D.SQLCached(warmup=False)
+    pr.cpu = D.SQLCached(device="cpu", warmup=False, mesh_exec=False)
+    pr.lat = {}
+    return pr
+
+
+def mesh_stats_pair(pr, table, d):
+    """SHOW STATS on both daemons: equal but for the executors block and
+    the placement, which must name the card daemon's mesh."""
+    out = []
+    for db in (pr.gpu, pr.cpu):
+        info = json.loads(db.execute(f"SHOW STATS {table}").value)
+        info.pop("executors"), info.pop("device"), info.pop("devices")
+        for x in info["per_shard"]:
+            x.pop("device")
+        out.append(info)
+    if out[0] != out[1]:
+        raise AssertionError(f"SHOW STATS {table}: {out[0]} vs {out[1]}")
+    mesh = pr.gpu.tables[table].mesh
+    want = [dv.index or 0 for dv in SH.lane_devices(mesh, 8)]
+    stats = json.loads(pr.gpu.execute(f"SHOW STATS {table}").value)
+    if stats["devices"] != d or [x["device"] for x in
+                                 stats["per_shard"]] != want:
+        raise AssertionError(f"SHOW STATS {table}: devices {stats['devices']}"
+                             f" / {[x['device'] for x in stats['per_shard']]}"
+                             f", mesh {mesh}")
+    return out[0]
+
+
+def mesh_fanout_checks(pr, d, p, u, indexed):
+    """A warm fan-out is one graph launch a block plus the merge's, no
+    kernel launch, and 2 d + 1 copies (a block's bound values in, its
+    packed outputs into the merge's input, the merge's outputs out); its
+    replay launches the scan (or the verified probe) once a block and the
+    compaction twice a block plus once in the merge. A warm pruned
+    statement is one graph launch and two copies."""
+    fan = "SELECT * FROM sh WHERE page_id = ? LIMIT 64"
+    pruned = "SELECT * FROM sh WHERE user_id = ? LIMIT 64"
+    for sql in (fan, pruned):   # the fan-out's blocks and merge, every lane
+        for db in (pr.gpu, pr.cpu):
+            db.execute(f"WARMUP sh LIKE '{sql}'")
+    out = {}
+    for label, sql, args, want, copies in (
+            ("fanout", fan, [(x,) for x in p[3000:3020]], d + 1, 2 * d + 1),
+            ("pruned", pruned, [(x,) for x in u[3000:3020]], 1, 2)):
+        pr.run("execute", sql, args[0])       # planned by now
+        calls = launch_calls(lambda: [pr.gpu.execute(sql, a) for a in args],
+                             len(args))
+        for a in args:
+            pr.cpu.execute(sql, a)
+        if calls["cudaGraphLaunch"] != want or any(
+                calls[k] for k in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                   "cuLaunchKernel")) or (
+                calls["cudaMemcpyAsync"] != copies):
+            raise AssertionError(f"a warm {label} statement over {d} "
+                                 f"blocks: {calls}")
+        out[f"launch_calls_per_warm_{label}"] = calls
+    before = dict(_build.launches)
+    pr.gpu.execute(fan, (p[3100],))
+    pr.gpu.drain()
+    pr.cpu.execute(fan, (p[3100],))
+    got = {k: v - before[k] for k, v in _build.launches.items()
+           if v != before[k]}
+    # the scan (or the probe) once a block; the compaction twice a block
+    # (its pairs' candidates, the block's merge) and once in the home merge
+    route = "hash_probe" if indexed else "relscan_scan"
+    if got.get(route) != d or got.get("relscan_compact", 0) != 2 * d + 1:
+        raise AssertionError(f"a fan-out over {d} blocks launched {got}")
+    out["kernel_launches_per_fanout"] = got
+    return out
+
+
+def phase_mesh(card):
+    """Phase ``shards``'s deployment (Table 2 in SHARDS 8 PARTITION BY
+    user_id, without and with INDEX(page_id)) PLACED over lane meshes of
+    2 and 4 entries (``launch/mesh.py``; one card: cuda:0 repeated), held
+    against an unplaced CPU daemon: the bulk load, per-user (pruned, one
+    lane on its block's device) and per-page (fan-out: the stacked
+    executors once a block, merged on the home device) statements, SHOW
+    STATS's placement, warm replays (a fan-out is one graph launch a
+    block plus the merge), four scheduler threads, CHECKPOINT and RESTORE
+    into the other mesh size, RESHARD 4 and RESHARD 1. Every result and
+    state equals the CPU daemon's and no dispatch syncs. Reports the warm
+    p50s of phase ``shards``'s two warmed shapes, pruned and fan-out
+    (that phase gives the unplaced table's in the same run)."""
+    n_cards = torch.cuda.device_count()
+    pages, users, payload = table2_data()
+    p, u = pages.tolist(), users.tolist()
+    report = {"phase": "mesh", "card": card, "cards": n_cards}
+    distinct = 0
+    for variant, extra, d, d_other in MESH_VARIANTS:
+        pr = mesh_pair(d)
+        with MESH.force_device_count(d):
+            pr.run("execute", SHARD_DDL.format(extra=extra))
+            mesh = pr.gpu.tables["sh"].mesh
+            if mesh is None or len(mesh) != d:
+                raise AssertionError(f"SHARDS 8 over {d} devices: mesh {mesh}")
+            distinct = max(distinct, len(set(mesh)))
+            t0 = time.perf_counter()
+            pr.run("executemany",
+                   "INSERT INTO sh (page_id, user_id, data) VALUES (?, ?, ?)",
+                   list(zip(p, u, payload.tolist())), label="bulk_load")
+            load_s = time.perf_counter() - t0
+            mesh_stats_pair(pr, "sh", d)
+            shard_statements(pr, p, u, 0)
+            warm = mesh_fanout_checks(pr, d, p, u, bool(extra))
+            # warm p50s of phase shards's warmed shapes, as it times them
+            warm_stmts = (("warm_pruned", "SELECT data FROM sh WHERE "
+                           "user_id = ?", lambda i: (u[100 + i],)),
+                          ("warm_fanout", "SELECT user_id FROM sh WHERE "
+                           "page_id = ?", lambda i: (p[900 + i],)))
+            for _, sql, _ in warm_stmts:
+                for db in (pr.gpu, pr.cpu):
+                    db.execute(f"WARMUP sh LIKE '{sql}'")
+            for i in range(20):
+                for label, sql, args in warm_stmts:
+                    pr.run("execute", sql, args(i), label=label)
+            sched = scheduler_writes(pr, p, u)
+            dirs, _ = checkpoint_pair(pr, "sh", f"mesh-{variant}")
+            # RESTORE into the other mesh size (a fresh card daemon)
+            other = mesh_pair(d_other)
+            with MESH.force_device_count(d_other):
+                other.run("execute", SHARD_DDL.format(extra=extra)
+                          .replace(" sh ", " r8 "))
+                if len(other.gpu.tables["r8"].mesh) != d_other:
+                    raise AssertionError("RESTORE's table is not placed")
+                timed(other, "restore_ms",
+                      [f"RESTORE r8 FROM '{dd}'" for dd in dirs])
+                same_state(other, "r8", f"mesh {variant}: RESTORE into "
+                                        f"{d_other} blocks")
+                snap_statements(other, "r8", p, u, 30)
+            del other
+            admin_pair(pr, "ALTER TABLE sh RESHARD 4")
+            if len(pr.gpu.tables["sh"].mesh) != min(d, 4):
+                raise AssertionError("RESHARD 4 did not re-place the table")
+            same_state(pr, "sh", f"mesh {variant} after RESHARD 4")
+            snap_statements(pr, "sh", p, u, 40)
+            admin_pair(pr, "ALTER TABLE sh RESHARD 1")
+            if pr.gpu.tables["sh"].mesh is not None:
+                raise AssertionError("RESHARD 1 left a mesh")
+            snap_statements(pr, "sh", p, u, 50)
+            same_state(pr, "sh", f"mesh {variant} at the end")
+        report[variant] = {
+            "mesh": [str(x) for x in mesh], "load_s": round(load_s, 3),
+            **warm, "scheduler": sched,
+            "executors": executors(pr.gpu, "sh"),
+            "wall_p50_us": {k: round(p50(v), 1) for k, v in pr.lat.items()
+                            if not k.endswith("_ms")}}
+        for db in (pr.gpu, pr.cpu):
+            db.execute("DROP TABLE sh")
+    report["distinct_devices"] = distinct
+    print(f"distinct_devices {distinct}", flush=True)
     emit(report)
 
 
@@ -3196,10 +3677,28 @@ def main():
     scan_compact = ("relscan_scan", "relscan_compact")
     serve: dict = {}   # each serve path's engine, for the profile phase
     zamba: dict = {}
+    int8_yi: dict = {}
+    int8_zamba: dict = {}
     # the kv table has no payload, so the serve paths' DELETEs take the
     # mask-only route (the scan, no compaction), as in the reference
     serve_need = ("flash_attention", "paged_attention", "relscan_scan")
     paths = (
+        # the serve paths first: their warm-round check reads the card's
+        # copy records, which a longer profiled process was seen to lose
+        ("serve", lambda: phase_serve(card, dev, serve), serve_need),
+        ("serve_zamba2", lambda: phase_serve(
+            card, dev, zamba, "zamba2-2.7b", max_seq=512,
+            long_prompt=ZAMBA_LONG_PROMPT, name="serve_zamba2", atol=None),
+         serve_need + ("mamba2_scan",)),
+        # the int8 arena, on the bf16 paths' weights and traffic
+        ("serve_int8", lambda: phase_serve(card, dev, int8_yi,
+                                           name="serve_int8", bf16=serve),
+         serve_need),
+        ("serve_int8_zamba2", lambda: phase_serve(
+            card, dev, int8_zamba, "zamba2-2.7b", max_seq=512,
+            long_prompt=ZAMBA_LONG_PROMPT, name="serve_int8_zamba2",
+            atol=None, bf16=zamba),
+         serve_need + ("mamba2_scan",)),
         ("table2_plain", lambda: phase_table2(card, "plain", ""),
          scan_compact),
         ("table2_indexed", lambda: phase_table2(
@@ -3211,11 +3710,8 @@ def main():
          scan_compact + ("hash_build", "hash_probe")),
         ("shards", lambda: phase_shards(card),
          scan_compact + ("hash_build", "hash_probe")),
-        ("serve", lambda: phase_serve(card, dev, serve), serve_need),
-        ("serve_zamba2", lambda: phase_serve(
-            card, dev, zamba, "zamba2-2.7b", max_seq=512,
-            long_prompt=ZAMBA_LONG_PROMPT, name="serve_zamba2", atol=None),
-         serve_need + ("mamba2_scan",)),
+        ("mesh", lambda: phase_mesh(card),
+         scan_compact + ("hash_build", "hash_probe")),
         ("snapshot", lambda: phase_snapshot(card),
          scan_compact + ("hash_build", "hash_probe")),
         ("cluster", lambda: phase_cluster(card),
@@ -3225,22 +3721,29 @@ def main():
     )
     launches = {k: 0 for k in _build.KERNELS}
     for path, drive, need in paths:
+        t_path = time.perf_counter()
         _build.reset_launches()
         drive()
         got = dict(_build.launches)
-        emit({"phase": "launches", "path": path, "launches": got})
+        emit({"phase": "launches", "path": path, "launches": got,
+              "seconds": round(time.perf_counter() - t_path, 1)})
         missing = [k for k in need if got[k] == 0]
         if missing:
             raise AssertionError(f"{path}: kernels never launched on this "
                                  f"path: {missing} ({got})")
-        held = {"serve": serve, "serve_zamba2": zamba}.get(path)
+        held = {"serve": serve, "serve_zamba2": zamba, "serve_int8": int8_yi,
+                "serve_int8_zamba2": int8_zamba}.get(path)
         if held is not None:  # one launch per layer per prefill / round
             if any(got[k] != n for k, n in held["want"].items()):
                 raise AssertionError(f"{path}: launches {got}, expected "
                                      f"{held['want']}")
         for k, n in got.items():
             launches[k] += n
+        if path == "serve_int8_zamba2":   # hand the int8 engines back
+            int8_yi.clear(), int8_zamba.clear()
+            torch.cuda.empty_cache()
     emit({"phase": "main_path_launches", **launches})
+    emit({"phase": "profiler_edges", **profiler_edges()})
     phase_profile(card, serve, zamba)
 
     keymap = {"relscan_scan": "scan", "relscan_compact": "compact",
@@ -3255,6 +3758,12 @@ def main():
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
                         "library_ms": t.get("library_ms")})
+        if name == "paged_attention":   # the int8 read path (serve_int8)
+            kernels[-1]["int8_arena"] = {
+                "source": "src/repro_torch/csrc/paged_attention_int8.cu",
+                **{k: timing["paged_attention_int8"][k]
+                   for k in ("shape", "ms", "device_ms", "plain_ms",
+                             "bound_ms", "bound_by", "bf16_arena_device_ms")}}
         # the shard axis (S = 8 shards of 16,384 rows, one call) beside
         # the same work as 8 separate unsharded calls
         rows = [r for r in timing["shard_axis"] if r["kernel"] == name]

@@ -58,6 +58,22 @@ dispatch at the recorded time (``_Table``), as in the reference.
 stacked path. EXPLAIN reports the shard route, ``SHOW STATS t`` the
 per-shard skew, and ``ALTER TABLE t RESHARD n`` re-partitions live.
 
+Mesh placement (as in the reference): when more than one device is
+visible (``launch/mesh.visible_devices``), a sharded table is PLACED over
+``lane_mesh_for(n)``: its stack is split into contiguous blocks, one on
+each mesh device (``shards.place_lanes``), and a lane is a view of its
+block. A pruned route runs the monolithic executors on its lane's device
+(one graph a shape and lane, captured there); a fan-out is the fourth
+dispatch shape, ``mesh``: the stacked executors run once a block on its
+device and the blocks' results merge on the home device, the mesh's
+first entry (``execache.MeshEntry``; a batched SELECT then touches its
+returned rows block by block). RESHARD re-splits through the home device
+and places the new count's mesh; CHECKPOINT saves the gathered stack (one
+copy to the host a device); RESTORE places onto this daemon's mesh, so a
+snapshot moves across mesh sizes. SHOW STATS and EXPLAIN report devices
+from host metadata. ``SQLCached(mesh_exec=False)`` or ``REPRO_MESH=0``
+keeps every table unplaced (one stack on the daemon's device).
+
 Snapshots and the cluster tier's handover (``core/cluster.py`` drives
 them): ``CHECKPOINT t TO 'dir'`` writes the table (a sharded table's
 caught-up stack) and the interner's strings in ``checkpoint/store.py``'s
@@ -86,7 +102,9 @@ from repro_torch.core import sqlparse as S
 from repro_torch.core import table as T
 from repro_torch.core import telemetry as TEL
 from repro_torch.core.execache import ExecutorCache
+from repro_torch.core.execache import MeshEntry
 from repro_torch.core.schema import ExpiryPolicy, TableSchema, make_schema
+from repro_torch.launch.mesh import lane_mesh_for
 from repro_torch.lint import lockorder as LK
 
 
@@ -370,15 +388,22 @@ class _Table:
     next dispatch replays that expiry at that time (validity only).
     ``stmt_routed`` / ``writes_routed`` / ``rows_in`` are per-shard skew
     counters (``SHOW STATS t``): pruned statements count for their shard,
-    fan-out for every shard."""
+    fan-out for every shard.
+
+    ``mesh`` is the table's placement (``launch.mesh.lane_mesh_for``; None:
+    unplaced). A placed table has no single ``state``: ``blocks[k]`` is the
+    stack's k-th block on ``mesh[k]``, and its lanes are views of the
+    blocks."""
 
     schema: TableSchema
-    state: dict
+    state: dict | None
+    execs: ExecutorCache
     host_ops: int = 0
     eng: Any = T
     lanes: list | None = None
+    mesh: tuple | None = None
+    blocks: list | None = None
     lock: Any = dataclasses.field(default_factory=threading.Lock)
-    execs: ExecutorCache = dataclasses.field(default_factory=ExecutorCache)
     ticks_total: int = 0
     lane_ticks: list = dataclasses.field(default_factory=list)
     expire_due: list = dataclasses.field(default_factory=list)
@@ -449,7 +474,7 @@ def _replay_expiry(eng, xsch: TableSchema, state: dict,
 class SQLCached:
     def __init__(self, auto_expire: bool = True, lane_exec: bool = True,
                  slow_ms: float | None = None, *, warmup: bool | None = None,
-                 device=None):
+                 device=None, mesh_exec: bool = True):
         self.device = resolve_device(device)
         self.tables: dict[str, _Table] = {}
         self.interner = Interner()
@@ -460,6 +485,10 @@ class SQLCached:
         # lane_exec=False sends every sharded statement to the stacked
         # executors (the reference's baseline regime for lane locks)
         self.lane_exec = lane_exec
+        # mesh_exec=False (or REPRO_MESH=0) keeps every sharded table on
+        # the daemon's device (the reference's baseline for its mesh bench)
+        self.mesh_exec = mesh_exec and os.environ.get("REPRO_MESH",
+                                                      "1") != "0"
         # warmup=None defers to REPRO_WARMUP (default on): CREATE TABLE
         # pre-plans the canonical hot shapes in a background thread; the
         # WARMUP statement works regardless
@@ -521,17 +550,61 @@ class SQLCached:
         return tuple(T.host_column(p) for p in params)
 
     def _executor(self, t: _Table, key: tuple, builder, expiry: bool = True,
-                  sid: int | None = None):
+                  sid: int | None = None, merge=None, post=None):
         """The table's :class:`ExecEntry` for ``key`` under the current
         schema epoch (core/execache.py). An entry built through
         :meth:`_build_exec` plans both expiry variants when the flag can
         fire; a lane's entry (``sid``) primes on that lane of the shadow
-        state."""
+        state, on the lane's device. A ``mesh`` dispatch (``key[0]``) is a
+        :class:`MeshEntry` (:meth:`_mesh_entry`): ``merge`` combines the
+        blocks' outputs, ``post`` = (body, args) runs after it."""
         fires = (expiry and self.auto_expire
                  and t.schema.expiry.ops_interval > 0)
-        view = None if sid is None else (lambda sh: SH.lane_view(sh, sid))
-        return t.execs.get(key, builder, (False, True) if fires else (False,),
-                           view=view)
+        flags = (False, True) if fires else (False,)
+        if key[0] == "mesh":
+            return self._mesh_entry(t, key, builder, flags, merge, post)
+        view = dev = None
+        if sid is not None:
+            per = t.schema.shards // (len(t.mesh) if t.mesh else 1)
+            view = (lambda sh: SH.lane_view(sh, sid % per))
+            dev = t.mesh[sid // per] if t.mesh else None
+        return t.execs.get(key, builder, flags, view=view, device=dev)
+
+    def _mesh_entry(self, t: _Table, key: tuple, builder, flags, merge,
+                    post=None) -> MeshEntry:
+        """A mesh fan-out's entries: the closure ``builder()`` makes, one
+        entry a block (run on the block's device, on the block marked
+        with its first global shard: ``shards.as_block``), ``merge(list of
+        block outputs) -> outputs`` on the home device, and ``post = (body,
+        args)``: ``body(block, flag, *args(rest, merged))`` a block, where
+        the statement writes what the merge decides. Each part is keyed by
+        the dispatch's key and its place."""
+        mesh = t.mesh
+        per = t.schema.shards // len(mesh)
+
+        def in_block(k: int, fn):
+            def run(st, *a):
+                out = fn(SH.as_block(st, k * per), *a)
+                return (SH.unblock(out[0]),) + tuple(out[1:])
+            return run
+
+        blocks = [t.execs.get(key + ("block", k, str(dev)),
+                              lambda k=k: in_block(k, builder()),
+                              (False,) if post else flags, device=dev)
+                  for k, dev in enumerate(mesh)]
+
+        def merge_entry(sig, build):   # views of the blocks' packed bytes
+            return t.execs.get(key + ("merge", str(mesh[0]), sig), build,
+                               view=lambda sh: {}, device=mesh[0])
+        posts = post_args = None
+        if post is not None:
+            body, post_args = post
+            posts = [t.execs.get(key + ("post", k, str(dev)),
+                                 lambda k=k: in_block(k, body), flags,
+                                 device=dev)
+                     for k, dev in enumerate(mesh)]
+        return MeshEntry(blocks, mesh[0], merge, merge_entry, posts,
+                         post_args)
 
     def _sig(self, t: _Table, stmt, kind: str, b, mode: str, sid) -> tuple:
         """The dispatch signature recorded in ``t.execs.sigs`` once a shape
@@ -540,19 +613,25 @@ class SQLCached:
         names the lane. ``b`` is None on the singleton executors, the
         power-of-two bucket on the executemany family (INSERT always
         buckets)."""
-        place = ("dev", str(self.device))
-        if mode == "lane":
-            place += (sid,)
+        if mode == "mesh":
+            place = ("mesh", tuple(str(d) for d in t.mesh))
+        elif mode == "lane":
+            devs = SH.lane_devices(t.mesh, t.schema.shards)
+            place = ("dev", str(devs[sid] if devs else self.device), sid)
+        else:
+            place = ("dev", str(self.device))
         return (kind, stmt, b, mode, place)
 
     def _note_sig(self, t: _Table, stmt, kind: str, b, mode: str,
                   sid) -> None:
         t.execs.note_sig(self._sig(t, stmt, kind, b, mode, sid))
 
-    def _target(self, t: _Table, mode: str, sid) -> dict:
-        """The state a dispatch of ``mode`` runs on: a lane's views or the
-        table's own state."""
-        return t.lanes[sid] if mode == "lane" else t.state
+    def _target(self, t: _Table, mode: str, sid):
+        """The state a dispatch of ``mode`` runs on: a lane's views, a
+        placed table's blocks or the table's own state."""
+        if mode == "lane":
+            return t.lanes[sid]
+        return t.blocks if mode == "mesh" else t.state
 
     def _finish_warm(self, t: _Table, entry, stmt, kind: str, b, mode: str,
                      sid, site_args: tuple) -> int:
@@ -561,7 +640,7 @@ class SQLCached:
         (the clock catch-up deltas included), and record the signature."""
         if mode == "lane":
             lead = (_i32(0), _i32(-1))
-        elif mode == "stacked":
+        elif mode in ("stacked", "mesh"):
             n = t.schema.shards
             lead = (_i32(np.zeros(n)), _i32(np.full(n, -1)))
         else:
@@ -583,7 +662,9 @@ class SQLCached:
           ``pre_delta`` ticks ago (validity only). The fired expiry covers
           this lane only;
         * ``stacked``: ``fn(stack, flag, deltas, pre_deltas, *args)``, the
-          same for every shard at once.
+          same for every shard at once;
+        * ``mesh``: the ``stacked`` closure of one block (its slices of the
+          deltas), which :meth:`_mesh_entry` runs once a block.
 
         The replay is computed on every dispatch of a table with an op
         interval and kept where due (a device select, no host branch on
@@ -726,8 +807,9 @@ class SQLCached:
                 f"{t.schema.partition_by!r} of sharded table "
                 f"{t.schema.name!r} (DELETE + INSERT instead)")
 
-    def _caught_up(self, t: _Table) -> dict:
-        """A stacked SNAPSHOT of a sharded table at its logical time: every
+    def _caught_up_blocks(self, t: _Table) -> list:
+        """A SNAPSHOT of a sharded table at its logical time, as its blocks
+        on their devices (an unplaced table: one block, the stack): every
         lane's clock caught up and every deferred expiry replayed (validity
         only), so it never shows rows the lockstep engine already dropped.
         Reads the live state and writes nothing back."""
@@ -735,14 +817,29 @@ class SQLCached:
             g0 = t.ticks_total
             deltas = [g0 - lt for lt in t.lane_ticks]
             pre = [-1 if due is None else g0 - due for due in t.expire_due]
-        dev = self.device
-        st = SH._tree(lambda x: x.clone(), t.state)
-        d = T.to_device(_i32(deltas), dev)
-        st["clock"] = st["clock"] + d
-        st["ops"] = st["ops"] + d
-        if t.schema.expiry.ops_interval > 0 and max(pre) >= 0:
-            st = _replay_expiry(SH, t.schema, st, T.to_device(_i32(pre), dev))
-        return st
+        srcs = t.blocks if t.mesh is not None else [t.state]
+        per = t.schema.shards // len(srcs)
+        out = []
+        for k, blk in enumerate(srcs):
+            dev = blk["valid"].device
+            dk, pk = deltas[k * per:(k + 1) * per], pre[k * per:(k + 1) * per]
+            st = SH._tree(lambda x: x.clone(), blk)
+            d = T.to_device(_i32(dk), dev)
+            st["clock"] = st["clock"] + d
+            st["ops"] = st["ops"] + d
+            if t.schema.expiry.ops_interval > 0 and max(pk) >= 0:
+                st = _replay_expiry(SH, t.schema, st,
+                                    T.to_device(_i32(pk), dev))
+            out.append(st)
+        return out
+
+    def _caught_up(self, t: _Table) -> dict:
+        """The caught-up snapshot as one stack on the daemon's device (a
+        placed table's blocks gathered there)."""
+        blocks = self._caught_up_blocks(t)
+        if len(blocks) == 1:
+            return blocks[0]
+        return SH.gather_lanes(blocks, self.device)
 
     # ------------------------------------------- scheduler routing hooks
     def _lane_of(self, t: _Table, stmt, params_list,
@@ -885,14 +982,17 @@ class SQLCached:
         """The dispatch shape of one statement (group), consuming the §4.3
         op-count interval: ``(mode, eng, xsch, sid, flag)`` with mode
         ``mono`` (unsharded), ``lane`` (every statement provably on shard
-        ``sid``: the monolithic executors on that lane) or ``stacked``
-        (fan-out, several shards or an unknown route)."""
+        ``sid``: the monolithic executors on that lane), ``stacked``
+        (fan-out, several shards or an unknown route) or, on a placed
+        table, ``mesh`` (the same routes, a block at a time)."""
         sid = self._lane_of(t, stmt, params_list, pvals=pvals)
         fired = self._expire_flag(t, n_stmts)
         if t.lanes is None:
             return "mono", T, t.schema, None, fired
         if sid is not None:
             return "lane", T, SH.shard_schema(t.schema), sid, fired
+        if t.mesh is not None:
+            return "mesh", SH, t.schema, None, fired
         return "stacked", SH, t.schema, None, fired
 
     def _warm_env(self, t: _Table, mode: str):
@@ -1077,32 +1177,84 @@ class SQLCached:
             th.start()
         return Result()
 
+    def _mesh_for(self, schema: TableSchema):
+        """The placement mesh this daemon gives ``schema`` (None: unplaced:
+        an unsharded table, placement off, or one visible device)."""
+        if not SH.is_sharded(schema) or not self.mesh_exec:
+            return None
+        return lane_mesh_for(schema.shards, home=self.device)
+
     def _layout(self, schema: TableSchema):
-        """(engine, state builder) of a schema's layout on this device."""
+        """(engine, shadow builder) of a schema's layout on this device:
+        the shadow is the whole state, or one block of a placed table."""
         dev = self.device
         if SH.is_sharded(schema):
-            return SH, lambda: SH.init_state(schema, dev)
+            mesh = self._mesh_for(schema)
+            per = schema.shards // (len(mesh) if mesh else 1)
+            return SH, lambda: SH.init_state(schema, dev, per)
         return T, lambda: T.init_state(schema, dev)
+
+    def _place(self, t: _Table, schema: TableSchema, state: dict) -> None:
+        """Set ``t``'s storage to ``state`` (``schema``'s stacked layout on
+        any device) placed as this daemon places ``schema``: the state and
+        its lane views, or the mesh's blocks and their lane views."""
+        n = schema.shards
+        mesh = self._mesh_for(schema)
+        t.mesh = mesh
+        if mesh is None:
+            t.state, t.blocks = state, None
+            t.lanes = ([SH.lane_view(state, i) for i in range(n)]
+                       if n > 1 else None)
+        else:
+            t.blocks = SH.place_lanes(mesh, state)
+            t.state = None
+            t.lanes = SH.disassemble_lanes(mesh, n, t.blocks)
 
     def _make_table(self, schema: TableSchema) -> _Table:
         n = schema.shards
         eng, init = self._layout(schema)
-        state = init()
-        t = _Table(schema, state, eng=eng,
+        t = _Table(schema, None, eng=eng,
                    lock=LK.make_lock(f"table:{schema.name}"),
                    execs=ExecutorCache(self.device, init),
                    stmt_routed=np.zeros(n, np.int64),
                    writes_routed=np.zeros(n, np.int64),
                    rows_in=np.zeros(n, np.int64))
+        self._place(t, schema, (SH if n > 1 else T).init_state(schema,
+                                                               self.device))
         if n > 1:
-            t.lanes = [SH.lane_view(state, i) for i in range(n)]
             t.lane_ticks = [0] * n
             t.expire_due = [None] * n
         return t
 
+    def _run_blocks(self, t: _Table, key: tuple, body, args: tuple = ()):
+        """An admin statement that reads no clock, on every block of a
+        placed table: ``body(block, *args) -> (block, *outs)`` as one
+        executor entry a block on its device. Returns each block's outs."""
+        outs = []
+        per = t.schema.shards // len(t.mesh)
+        for k, (dev, blk) in enumerate(SH.assemble_lanes(t.mesh, t.blocks)):
+            def build(k=k):
+                def fn(st, flag, *a):
+                    out = body(SH.as_block(st, k * per), *a)
+                    return (SH.unblock(out[0]),) + tuple(out[1:])
+                return fn
+
+            e = t.execs.get(key + ("block", k, str(dev)), build, device=dev)
+            outs.append(e(blk, False, args))
+        return outs
+
+    def _stale(self, t: _Table, column: str) -> int:
+        """The overflow count of ``column``'s index, summed over shards
+        (an admin read: one sync)."""
+        srcs = t.blocks if t.mesh is not None else [t.state]
+        return sum(int(b["indexes"][column]["stale"].sum()) for b in srcs)
+
     def _run_admin(self, t: _Table, key: tuple, body):
         """An admin statement that reads no clock (REINDEX) as an executor
-        entry on the table's state: ``body(state) -> (state, *outs)``."""
+        entry on the table's state: ``body(state) -> (state, *outs)`` (a
+        placed table: on each block)."""
+        if t.mesh is not None:
+            return self._run_blocks(t, key + (t.schema,), body)
         fn = self._executor(t, key + (t.schema,),
                             lambda: lambda st, flag: body(st),
                             expiry=False)
@@ -1112,11 +1264,12 @@ class SQLCached:
         """FLUSH / EXPIRE: ``body(state) -> (state, *outs)`` on the whole
         table, as a dispatch of its layout (a sharded table's clocks catch
         up and its deferred expiries replay first; one tick)."""
-        mode = "mono" if t.lanes is None else "stacked"
+        mode = ("mono" if t.lanes is None
+                else "mesh" if t.mesh is not None else "stacked")
         fn = self._executor(
             t, (mode, None) + key + (t.schema,),
             lambda: self._build_exec(t.schema, body, mode, t.eng),
-            expiry=False)
+            expiry=False, merge=SH.merge_sum)
         return self._run_state(t, fn, mode, None, False, 1, ())
 
     def _do_reindex(self, name: str) -> Result:
@@ -1132,8 +1285,7 @@ class SQLCached:
         t.execs.bump()
         self._run_admin(t, ("reindex",),
                         lambda st: (t.eng.build_index(t.schema, st),))
-        residual = sum(int(t.state["indexes"][c]["stale"].sum())
-                       for c in t.schema.indexes)
+        residual = sum(self._stale(t, c) for c in t.schema.indexes)
         return Result(count=len(t.schema.indexes), value=residual)
 
     def _do_flush(self, name: str) -> Result:
@@ -1169,12 +1321,15 @@ class SQLCached:
             writes = t.writes_routed.tolist()
             rows_in = t.rows_in.tolist()
             host_ops = t.host_ops
-        lane_dev = ({"device": self.device.index or 0} if t.lanes is not None
-                    else {})
+        # each lane's device from host placement metadata (no sync)
+        devs = (SH.lane_devices(t.mesh, n) or [self.device] * n
+                if t.lanes is not None else None)
         per = [{"shard": i, "live_rows": live[i], "statements": stmts[i],
-                "writes": writes[i], "inserted_rows": rows_in[i], **lane_dev}
+                "writes": writes[i], "inserted_rows": rows_in[i],
+                **({"device": devs[i].index or 0} if devs else {})}
                for i in range(n)]
-        info = {"table": name, "shards": n, "devices": 1,
+        info = {"table": name, "shards": n,
+                "devices": len(t.mesh) if t.mesh is not None else 1,
                 "device": str(self.device),
                 "replicas": t.schema.replicas,
                 "partition_by": t.schema.partition_by,
@@ -1297,8 +1452,9 @@ class SQLCached:
 
     def _install(self, t: _Table, schema: TableSchema, state: dict,
                  **bookkeeping) -> None:
-        """Install new tensors in ``schema``'s layout (RESHARD, RESTORE)
-        under the table's lock, with their lanes and every lane's clock
+        """Install new tensors in ``schema``'s layout (RESHARD, RESTORE),
+        placed on ``schema``'s mesh, under the table's lock, with their
+        lanes and every lane's clock
         taken as caught up (``bookkeeping``: more of the table's fields
         to set there); then retire every plan, whose graphs bound the old
         tensors (epoch bump with the layout's shadow builder)."""
@@ -1306,9 +1462,8 @@ class SQLCached:
         eng, init = self._layout(schema)
         with t.lock:
             g0 = t.ticks_total
-            t.state, t.eng, t.schema = state, eng, schema
-            t.lanes = ([SH.lane_view(state, i) for i in range(n)]
-                       if n > 1 else None)
+            t.eng, t.schema = eng, schema
+            self._place(t, schema, state)
             t.lane_ticks = [g0] * n
             t.expire_due = [None] * n
             for k, v in bookkeeping.items():
@@ -1353,11 +1508,16 @@ class SQLCached:
             dropped = (st["valid"] & ~keep).sum(dtype=torch.int32)
             return dict(st, valid=keep), dropped
 
-        fn = self._executor(t, ("retain", pby, stmt.slots, of, t.schema),
+        key = ("retain", pby, stmt.slots, of, t.schema)
+        slots = _i32(sorted(stmt.slots))
+        if t.mesh is not None:
+            outs = self._run_blocks(t, key, body, (slots,))
+            d = SH.merge_sum([o[0].to(self.device) for o in outs])
+            return Result(value=len(stmt.slots), dev={"count": d})
+        fn = self._executor(t, key,
                             lambda: lambda st, flag, slots: body(st, slots),
                             expiry=False)
-        d, = self._run_state(t, fn, "mono", None, False, 0,
-                             (_i32(sorted(stmt.slots)),))
+        d, = self._run_state(t, fn, "mono", None, False, 0, (slots,))
         return Result(value=len(stmt.slots), dev={"count": d})
 
     def _do_checkpoint(self, stmt: S.Checkpoint) -> Result:
@@ -1370,8 +1530,13 @@ class SQLCached:
         statement: the state reaches the host in one copy, its one sync.
         ``count`` is the live rows saved, ``value`` the directory."""
         t = self._table(stmt.table)
-        state = CK.host_copy(t.state if t.lanes is None
-                             else self._caught_up(t))
+        if t.lanes is None:
+            state = CK.host_copy(t.state)
+        else:   # one copy to the host a device, stacked there
+            blocks = CK.host_copy({str(k): b for k, b in
+                                   enumerate(self._caught_up_blocks(t))})
+            state = SH.gather_lanes([blocks[str(k)] for k in
+                                     range(len(blocks))], "cpu")
         live = int(state["valid"].sum())
         meta = {"table": stmt.table, "shards": t.schema.shards,
                 "capacity": t.schema.capacity, "live_rows": live,
@@ -1456,7 +1621,7 @@ class SQLCached:
             return [("mono", None)]
         if self.lane_exec and self._prunable(t, stmt):
             return [("lane", i) for i in range(t.schema.shards)]
-        return [("stacked", None)]
+        return [("mesh" if t.mesh is not None else "stacked", None)]
 
     def _warm_statement(self, t: _Table, stmt) -> int:
         """Pre-plan one statement's executors for every dispatch shape it
@@ -1550,7 +1715,8 @@ class SQLCached:
             prepped = [self._prep_params(p) for p in params_list]
             sid = self._lane_of(t, stmt, prepped)
             mode = ("mono" if t.lanes is None
-                    else "lane" if sid is not None else "stacked")
+                    else "lane" if sid is not None
+                    else "mesh" if t.mesh is not None else "stacked")
             if kind == "insert":
                 b = _bucket(max(n, 1))
                 if mode == "mono":
@@ -1580,11 +1746,22 @@ class SQLCached:
             info = PL.explain(t.schema, where, ranked=ranked)
             info["statement"] = type(stmt).__name__.lower()
             info["preplanned"] = self._preplanned(t, stmt)
+            if t.mesh is not None:
+                # placement from host metadata only (no sync): a
+                # const-pruned route names its lane's device, anything
+                # else the whole mesh
+                route = PL.plan_shards(t.schema, where)
+                if route.key is not None and route.key.value[0] == "const":
+                    sid = SH.shard_of_host(int(route.key.value[1]),
+                                           t.schema.shards)
+                    info["device"] = SH.lane_devices(
+                        t.mesh, t.schema.shards)[sid].index or 0
+                else:
+                    info["devices"] = len(t.mesh)
             if info["plan"] == "index-probe":
                 # stale > 0: every probe currently takes the scan fallback
                 # (a sharded table reports the total over its shards)
-                info["stale"] = int(
-                    t.state["indexes"][info["index"]]["stale"].sum())
+                info["stale"] = self._stale(t, info["index"])
             return Result(count=1, value=json.dumps(info, sort_keys=True))
         info = {"statement": type(stmt).__name__.lower(),
                 "plan": "insert" if isinstance(stmt, S.Insert) else "admin"}
@@ -1706,7 +1883,7 @@ class SQLCached:
 
             return self._build_exec(xsch, base, mode, eng)
 
-        fn = self._executor(t, key, build, sid=sid)
+        fn = self._executor(t, key, build, sid=sid, merge=SH.merge_sum)
         args = (param_cols, pl_args, row_mask)
         if _warm is not None:
             return self._finish_warm(t, fn, stmt, "insert", b, mode, sid,
@@ -1841,7 +2018,7 @@ class SQLCached:
 
             return self._build_exec(xsch, base, mode, eng)
 
-        fn = self._executor(t, key, build, sid=sid)
+        fn = self._executor(t, key, build, sid=sid, merge=SH.merge_sum)
         kind = "delete" if is_delete else "update"
         outs = self._run_state(t, fn, mode, sid, flag, n, (host_cols, active))
         self._note_sig(t, stmt, kind, b, mode, sid)
@@ -1895,6 +2072,7 @@ class SQLCached:
                self._probes(eng, xsch, where, param_cols,
                             stmt.order_by is not None))
         off = self._lane_offset(t, mode, sid)
+        mesh = mode == "mesh"
 
         def build():
             def base(state, param_cols, active):
@@ -1903,6 +2081,8 @@ class SQLCached:
                     order_by=stmt.order_by, descending=stmt.descending,
                     limit=limit, with_payloads=stmt.payloads, active=active,
                     touch=False)
+                if mesh:   # the touch waits for the merge (post, below)
+                    return state, res
                 # one epilogue for the batch: touch the returned rows and
                 # advance the clock by the REAL statement count
                 state = eng.batch_touch(xsch, state, res, active)
@@ -1913,7 +2093,21 @@ class SQLCached:
 
             return self._build_exec(xsch, base, mode, eng)
 
-        fn = self._executor(t, key, build, sid=sid)
+        def touch(state, flag, active, present, row_ids):
+            # a placed table's epilogue, a block at a time: the rows the
+            # merge returned, then the expiry this dispatch fires
+            state = SH.batch_touch(xsch, state, {"present": present,
+                                                 "row_ids": row_ids}, active)
+            if flag and xsch.expiry.ops_interval > 0:
+                state = SH.expire(xsch, state)[0]
+            return (state,)
+
+        fn = self._executor(
+            t, key, build, sid=sid,
+            merge=lambda outs: (SH.merge_select(
+                [o[0] for o in outs], limit, stmt.order_by is not None),),
+            post=(touch, lambda rest, merged: (
+                rest[1], merged[0]["present"], merged[0]["row_ids"])))
         res, = self._run_state(t, fn, mode, sid, flag, n,
                                (param_cols, active))
         self._note_sig(t, stmt, "select", b, mode, sid)
@@ -1957,13 +2151,19 @@ class SQLCached:
 
         def build():
             def base(state, param_cols, active):
-                _, vals = eng.aggregate_many(xsch, state, agg, col, where,
-                                             param_cols, b)
+                # a placed table's blocks give partials, merged at home
+                _, vals = (SH.aggregate_parts if mode == "mesh"
+                           else eng.aggregate_many)(xsch, state, agg, col,
+                                                    where, param_cols, b)
                 return T._tick(state, active.sum(dtype=torch.int32)), vals
 
             return self._build_exec(xsch, base, mode, eng)
 
-        fn = self._executor(t, key, build, sid=sid)
+        count_only = agg.upper() == "COUNT" or col is None
+        fn = self._executor(
+            t, key, build, sid=sid,
+            merge=lambda outs: (SH.merge_aggregate(
+                [o[0] for o in outs], agg, count_only),))
         vals, = self._run_state(t, fn, mode, sid, flag, n,
                                 (param_cols, active))
         self._note_sig(t, stmt, "select", b, mode, sid)
@@ -1989,14 +2189,21 @@ class SQLCached:
         if stmt.agg is not None:
             agg, col = stmt.agg
             key = (mode, sid, "agg", xsch, agg, col, where)
+
+            def agg_one(st, pr):
+                if mode != "mesh":
+                    return eng.aggregate(xsch, st, agg, col, where, pr)
+                # a placed table's blocks give partials, merged at home
+                return SH.aggregate_parts(xsch, st, agg, col, where,
+                                          T._one(pr, st["valid"].device), 1)
+
             fn = self._executor(
                 t, key,
-                lambda: self._build_exec(
-                    xsch,
-                    lambda st, pr: eng.aggregate(xsch, st, agg, col, where,
-                                                 pr),
-                    mode, eng),
-                sid=sid)
+                lambda: self._build_exec(xsch, agg_one, mode, eng),
+                sid=sid,
+                merge=lambda outs: (SH.merge_aggregate(
+                    [o[0] for o in outs], agg,
+                    agg.upper() == "COUNT" or col is None, batched=False),))
             if _warm is not None:
                 return self._finish_warm(t, fn, stmt, "select", None, mode,
                                          sid, args)
@@ -2023,7 +2230,11 @@ class SQLCached:
 
             return self._build_exec(xsch, base, mode, eng)
 
-        fn = self._executor(t, key, build, sid=sid)
+        fn = self._executor(
+            t, key, build, sid=sid,
+            merge=lambda outs: (SH.merge_select(
+                [o[0] for o in outs], limit, stmt.order_by is not None,
+                batched=False),))
         if _warm is not None:
             return self._finish_warm(t, fn, stmt, "select", None, mode, sid,
                                      args)
@@ -2061,7 +2272,7 @@ class SQLCached:
                 xsch,
                 lambda st, pr: eng.update(xsch, st, where, dict(sets), pr),
                 mode, eng),
-            sid=sid)
+            sid=sid, merge=SH.merge_sum)
         if _warm is not None:
             return self._finish_warm(t, fn, stmt, "update", None, mode, sid,
                                      args)
@@ -2104,7 +2315,10 @@ class SQLCached:
 
             return self._build_exec(xsch, base, mode, eng)
 
-        fn = self._executor(t, key, build, sid=sid)
+        fn = self._executor(
+            t, key, build, sid=sid,
+            merge=((lambda outs: SH.merge_delete_returning(
+                outs, schema.max_select)) if returning else SH.merge_sum))
         if _warm is not None:
             return self._finish_warm(t, fn, stmt, "delete", None, mode, sid,
                                      args)
@@ -2141,7 +2355,13 @@ class SQLCached:
         t = self._table(name)
         want = self._layout(t.schema)[0].init_state(t.schema, "meta")
         _check_layout(want, state, self.device, name)
-        _copy_into(t.state, state)
+        if t.mesh is None:
+            _copy_into(t.state, state)
+        else:
+            per = t.schema.shards // len(t.mesh)
+            for k, blk in enumerate(t.blocks):
+                _copy_into(blk, SH._tree(
+                    lambda x, k=k: x[k * per:(k + 1) * per], state))
         if t.lanes is not None:
             with t.lock:
                 t.lane_ticks = [t.ticks_total] * t.schema.shards
@@ -2166,7 +2386,8 @@ class SQLCached:
                 if t.lanes is not None:
                     t.ticks_total += ticks
                     t.lane_ticks = [lt + ticks for lt in t.lane_ticks]
-                t.state["clock"].add_(ticks)
+                for st in (t.blocks if t.mesh is not None else [t.state]):
+                    st["clock"].add_(ticks)
 
 
 def _copy_into(dst: dict, src: dict) -> None:

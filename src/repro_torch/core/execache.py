@@ -51,9 +51,21 @@ A cache-wide schema epoch retires every plan at once (REINDEX, RESHARD);
 FLUSH keeps it. A sharded table's lane plans are one per statement shape
 and lane: a graph binds the addresses of its lane's views. Retired graphs, their pools and buffers are released once the
 device has passed the point where they were retired.
+
+Placement (a table placed over a lane mesh, ``core/shards.py``): an entry
+lives on one device (a lane's, or a block's), where its plans stage,
+prime, capture and replay under that device's lock, on that device's
+shadow state (a copy of the table's) and graph pool; the placement is
+part of the daemon's key. A mesh fan-out is a :class:`MeshEntry`: one
+entry a block, each on its device, then a merge entry on the home device
+whose bound values are the blocks' outputs (device tensors, copied into
+its static inputs), then, where the statement writes what the merge
+decides (a batched SELECT's touch), one entry a block again. A warm
+mesh fan-out is so one graph launch a block plus the merge's.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable
 
@@ -64,8 +76,8 @@ from repro_torch.core import telemetry as TEL
 from repro_torch.kernels import _build
 from repro_torch.lint import lockorder as LK
 
-__all__ = ["ExecEntry", "ExecutorCache", "device_lock", "side_stream",
-           "stage_array"]
+__all__ = ["ExecEntry", "ExecutorCache", "MeshEntry", "device_lock",
+           "side_stream", "stage_array"]
 
 _ALIGN = 16
 
@@ -106,6 +118,13 @@ def _sweep() -> None:
     _GRAVE[:] = [(ev, o) for ev, o in _GRAVE if not ev.query()]
 
 
+def _tree_to(tree, device):
+    """A copy of a state tree on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
 # --------------------------------------------------------------- layouts
 
 _TORCH_DTYPE: dict = {}
@@ -127,8 +146,10 @@ def _spec(tree):
         return ("d", tuple((k, _spec(v)) for k, v in tree.items()))
     if isinstance(tree, np.ndarray):
         return (tree.dtype.str, tree.shape)
+    if isinstance(tree, torch.Tensor):   # a device value (a merge's input)
+        return ("T", str(tree.dtype), tuple(tree.shape))
     raise TypeError(f"executor argument {type(tree).__name__} is not a "
-                    f"numpy array")
+                    f"numpy array or a tensor")
 
 
 def _host_leaves(tree, out: list) -> list:
@@ -178,6 +199,16 @@ def _out_skeleton(tree, leaves: list):
         leaves.append(tree)
         return ("x", len(leaves) - 1)
     return ("c", tree)
+
+
+def _out_sig(outs) -> tuple:
+    """(skeleton, layout, total bytes, tensor leaves) of a closure's
+    outputs ``outs`` packed into one byte buffer (:func:`_pack`)."""
+    leaves: list = []
+    skel = _out_skeleton(outs, leaves)
+    layout, total = _layout((t.dtype, tuple(t.shape),
+                             t.numel() * t.element_size()) for t in leaves)
+    return skel, tuple(layout), total, leaves
 
 
 def _fill(skel, arrs):
@@ -275,7 +306,8 @@ def _stage_np(dst: np.ndarray, layout, leaves) -> None:
 def _stage(buf: torch.Tensor, layout, leaves) -> None:
     """Host arrays into the device byte buffer ``buf`` at ``layout``'s
     offsets: on the card through one pinned slot of the device's ring and
-    one non-blocking copy, on the CPU by a plain copy."""
+    one non-blocking copy (of the whole buffer: device values are copied
+    over their places after it), on the CPU by a plain copy."""
     if buf.device.type != "cuda":
         _stage_np(buf.numpy(), layout, leaves)
         return
@@ -315,7 +347,9 @@ class _Plan:
         self.device = device
         leaves = _host_leaves(args, [])
         self.in_layout, self.in_total = _layout(
-            (_torch_dtype(a.dtype), a.shape, a.nbytes) for a in leaves)
+            (a.dtype, tuple(a.shape), a.numel() * a.element_size())
+            if isinstance(a, torch.Tensor)
+            else (_torch_dtype(a.dtype), a.shape, a.nbytes) for a in leaves)
         self.in_buf = (torch.empty((self.in_total,), dtype=torch.uint8,
                                    device=device)
                        if self.in_total else None)
@@ -330,23 +364,31 @@ class _Plan:
 
     # ---------------------------------------------------------- staging
     def stage(self, leaves) -> None:
-        """The dispatch's bound values into the static input buffer: on the
-        card one pinned slot and one non-blocking copy."""
-        if self.in_total:
-            _stage(self.in_buf, self.in_layout, leaves)
+        """The dispatch's bound values into the static input buffer: host
+        values through one pinned slot and one non-blocking copy (on the
+        card), then each device value by one device-to-device copy (from
+        any device: stream-ordered on both)."""
+        if not self.in_total:
+            return
+        host = [(lay, a) for lay, a in zip(self.in_layout, leaves)
+                if not isinstance(a, torch.Tensor)]
+        if host:
+            _stage(self.in_buf, [h[0] for h in host], [h[1] for h in host])
+        if len(host) < len(leaves):
+            views = _views(self.in_buf, self.in_layout)
+            for v, a in zip(views, leaves):
+                if isinstance(a, torch.Tensor):
+                    v.copy_(a, non_blocking=True)
 
     # ------------------------------------------------------------- body
     def _body(self, state: dict, flag: bool) -> torch.Tensor | None:
         """Run the closure against the table's tensors: outputs packed
         first, then the new state copied into the table's tensors."""
         out = self.fn(state, flag, *self.views)
-        leaves: list = []
-        skel = _out_skeleton(tuple(out[1:]), leaves)
+        skel, layout, total, leaves = _out_sig(tuple(out[1:]))
         if self.out_skel is None:
-            self.out_skel = skel
-            self.out_layout, self.out_total = _layout(
-                (t.dtype, tuple(t.shape), t.numel() * t.element_size())
-                for t in leaves)
+            self.out_skel, self.out_layout, self.out_total = (skel, layout,
+                                                              total)
         packed = (_pack(leaves, self.out_layout, self.out_total, self.device)
                   if self.out_total else None)
         _write_back(state, out[0])
@@ -386,62 +428,82 @@ class _Plan:
             self.keep.extend(rec["keep"])
 
     # ----------------------------------------------------------- serving
-    def run(self, state: dict, flag: bool, leaves) -> tuple:
+    def run(self, state: dict, flag: bool, leaves, raw: bool = False):
         """Stage ``leaves`` (None: already staged) and run; on the card one
-        replay and one copy of the packed outputs."""
+        replay and one copy of the packed outputs. ``raw``: the packed
+        output bytes instead, uncopied (on the card the graph's own
+        buffer, which its next replay overwrites)."""
         if leaves is not None:
             self.stage(leaves)
         if self.device.type != "cuda":
-            return self._outputs(self._body(state, flag))
-        g, packed = self.graphs[flag]
-        g.replay()
-        _build.add_launches(self.kernel_launches[flag])
-        return self._outputs(None if packed is None else packed.clone())
+            packed = self._body(state, flag)
+        else:
+            g, packed = self.graphs[flag]
+            with torch.cuda.device(self.device):
+                g.replay()
+            _build.add_launches(self.kernel_launches[flag])
+            if not raw and packed is not None:
+                packed = packed.clone()
+        if raw:
+            return (torch.empty((0,), dtype=torch.uint8, device=self.device)
+                    if packed is None else packed)
+        return self._outputs(packed)
 
 
 class ExecEntry:
-    """One statement shape's executor: the closure ``fn(state, flag,
-    *args)`` and its plans, one per type class of its bound values. The
-    daemon calls an entry with the table's state, the expiry flag and a
-    host tree of numpy arrays; it returns the closure's outputs as fresh
-    tensors and has updated the state in place."""
+    """One statement shape's executor on one device: the closure ``fn(state,
+    flag, *args)`` and its plans, one per type class of its bound values.
+    The daemon calls an entry with the state it runs on, the expiry flag
+    and a tree of bound values (host numpy arrays, or device tensors for a
+    merge); it returns the closure's outputs as fresh tensors and has
+    updated the state in place."""
 
-    __slots__ = ("_cache", "fn", "flags", "view", "epoch", "compiled")
+    __slots__ = ("_cache", "fn", "flags", "view", "epoch", "compiled",
+                 "device")
 
     def __init__(self, cache: "ExecutorCache", fn: Callable, flags,
-                 view: Callable[[dict], dict] | None = None, epoch: int = 0):
+                 view: Callable[[dict], dict] | None = None, epoch: int = 0,
+                 device: torch.device | None = None):
         self._cache = cache
         self.fn = fn
         self.flags = flags
         self.view = view
         self.epoch = epoch   # the epoch it was made in
         self.compiled: dict[Any, _Plan] = {}
+        self.device = cache.device if device is None else device
 
     def __call__(self, state: dict, flag: bool, args) -> tuple:
         """Hit: stage and replay the plan of these bound values' type
         class. Miss: plan it (prime and capture on the card), then run."""
+        with device_lock(self.device):
+            return self.call_locked(state, flag, args)
+
+    def call_locked(self, state: dict, flag: bool, args, raw: bool = False):
+        """:meth:`__call__` with the device lock held by the caller.
+        ``raw``: (the plan, its packed output bytes uncopied), which the
+        caller reads before it lets go of the lock."""
         cache = self._cache
         spec = _spec(args)
         leaves = _host_leaves(args, [])
-        with device_lock(cache.device):
-            plan = self.compiled.get(spec)
-            if plan is None:
-                cache.counters.add("misses")
-                plan, ms = self._plan(state, args, leaves)
-                TEL.note_exec("compile", ms)
-                self.compiled[spec] = plan
-                leaves = None   # _plan staged them
-            else:
-                cache.counters.add("hits")
-                TEL.note_exec("hit")
-            return plan.run(state, bool(flag), leaves)
+        plan = self.compiled.get(spec)
+        if plan is None:
+            cache.counters.add("misses")
+            plan, ms = self._plan(state, args, leaves)
+            TEL.note_exec("compile", ms)
+            self.compiled[spec] = plan
+            leaves = None   # _plan staged them
+        else:
+            cache.counters.add("hits")
+            TEL.note_exec("hit")
+        out = plan.run(state, bool(flag), leaves, raw)
+        return (plan, out) if raw else out
 
     def warm(self, state: dict, args) -> bool:
         """Pre-plan this entry for ``args``' type class from placeholder
         values (never touching the table's contents). True when a new
         plan was made, False when one existed."""
         spec = _spec(args)
-        with device_lock(self._cache.device):
+        with device_lock(self.device):
             # an entry retired while a warm-up held it plans nothing more
             if spec in self.compiled or self.epoch != self._cache.epoch:
                 return False
@@ -450,10 +512,19 @@ class ExecEntry:
             self.compiled[spec] = plan
             return True
 
+    def dry_run(self, args) -> tuple:
+        """The closure's outputs on the shadow state (placeholder values of
+        the right types and shapes, for the warm-up of what consumes
+        them); the table is not touched."""
+        with device_lock(self.device):
+            plan = _Plan(self.fn, self.device, args)
+            plan.stage(_host_leaves(args, []))
+            return tuple(self.fn(self._shadow(), False, *plan.views)[1:])
+
     def _shadow(self) -> dict:
         """The shadow state in the layout this entry's closure takes (one
         lane of a sharded table's for a lane entry)."""
-        sh = self._cache.shadow()
+        sh = self._cache.shadow(self.device)
         return sh if self.view is None else self.view(sh)
 
     def _plan(self, state: dict, args, leaves, warm: bool = False):
@@ -461,7 +532,7 @@ class ExecEntry:
         prime on the shadow state and, on the card, capture every flag
         variant on the side stream."""
         cache = self._cache
-        dev = cache.device
+        dev = self.device
         t0 = time.perf_counter()
         plan = _Plan(self.fn, dev, args)
         plan.stage(leaves)
@@ -471,9 +542,10 @@ class ExecEntry:
             side = side_stream(dev)
             side.wait_stream(serving)
             try:
-                with torch.cuda.stream(side):
+                with torch.cuda.device(dev), torch.cuda.stream(side):
                     plan.prime(self._shadow(), self.flags)
-                    plan.capture(state, self.flags, cache.pool(self.epoch))
+                    plan.capture(state, self.flags,
+                                 cache.pool(self.epoch, dev))
             finally:
                 serving.wait_stream(side)
         elif warm:
@@ -484,15 +556,101 @@ class ExecEntry:
         return plan, ms
 
 
+class MeshEntry:
+    """A mesh fan-out: ``blocks[k]`` runs on block ``k`` (its device's
+    entry), a merge entry combines their outputs on the home device, and
+    ``post[k]`` (optional) runs on block ``k`` again with the merged
+    outputs. Called like an :class:`ExecEntry` with the blocks as the
+    state and ``args`` = (deltas, pre_deltas, *rest): the lazy clock's
+    [n_shards] catch-up vectors, each block taking its slice; the blocks
+    then take ``rest``, the post entries ``post_args(rest, merged)``. The
+    expiry flag goes to the post entries where there are any, else to the
+    blocks.
+
+    Each block's packed output bytes reach the merge's input by one copy
+    (no copy a leaf), with every device of the mesh locked from the
+    blocks' replays to that copy. ``merge(list of block outputs) ->
+    outputs`` runs on views of those bytes, in the entry ``merge_entry(
+    sig, builder)`` gives for the blocks' output layouts ``sig``."""
+
+    def __init__(self, blocks: list, home: torch.device, merge: Callable,
+                 merge_entry: Callable, post=None,
+                 post_args: Callable | None = None):
+        self.blocks = blocks
+        self.home = home
+        self.merge = merge
+        self.merge_entry = merge_entry
+        self.post = post
+        self.post_args = post_args
+        self._devices = sorted({e.device for e in blocks} | {home}, key=str)
+
+    def _split(self, args, n_blocks: int):
+        deltas, pre, *rest = args
+        per = deltas.shape[0] // n_blocks
+        return [(deltas[k * per:(k + 1) * per], pre[k * per:(k + 1) * per])
+                for k in range(n_blocks)], tuple(rest)
+
+    def _merger(self, sig: tuple) -> ExecEntry:
+        """The merge entry for block outputs laid out as ``sig`` (one
+        (skeleton, layout) a block): it takes each block's bytes."""
+        def build():
+            def fn(st, flag, *bufs):
+                outs = [_fill(skel, _views(b, lay))
+                        for b, (skel, lay) in zip(bufs, sig)]
+                return ({},) + tuple(self.merge(outs))
+            return fn
+        return self.merge_entry(sig, build)
+
+    def __call__(self, blocks: list, flag: bool, args) -> tuple:
+        lead, rest = self._split(args, len(blocks))
+        bflag = flag and self.post is None
+        with contextlib.ExitStack() as held:
+            for dev in self._devices:
+                held.enter_context(device_lock(dev))
+            ran = [e.call_locked(st, bflag, lead[k] + rest, raw=True)
+                   for k, (e, st) in enumerate(zip(self.blocks, blocks))]
+            sig = tuple((p.out_skel, p.out_layout) for p, _ in ran)
+            merged = self._merger(sig).call_locked(
+                {}, False, tuple(b for _, b in ran))
+            if self.post is not None:
+                extra = self.post_args(rest, merged)
+                for e, st in zip(self.post, blocks):
+                    e.call_locked(st, flag, extra)
+        return merged
+
+    def warm(self, blocks: list, args) -> bool:
+        """Pre-plan every part from placeholder values: the blocks', then
+        the merge's on zeroed bytes of the blocks' output layouts, then
+        the post entries' on the merge's outputs. True when any plan was
+        new."""
+        lead, rest = self._split(args, len(blocks))
+        new = False
+        sig, bufs = [], []
+        for k, (e, st) in enumerate(zip(self.blocks, blocks)):
+            new |= e.warm(st, lead[k] + rest)
+            skel, layout, total, _ = _out_sig(e.dry_run(lead[k] + rest))
+            sig.append((skel, layout))
+            bufs.append(torch.zeros((total,), dtype=torch.uint8,
+                                    device=self.home))
+        merger = self._merger(tuple(sig))
+        new |= merger.warm({}, tuple(bufs))
+        if self.post is not None:
+            extra = self.post_args(rest, merger.dry_run(tuple(bufs)))
+            for e, st in zip(self.post, blocks):
+                new |= e.warm(st, extra)
+        return new
+
+
 class ExecutorCache:
     """Per-table executor registry: epoch-keyed entries and counters.
 
     ``get(key, builder)`` memoizes one entry per ``(epoch, key)``; after
     :meth:`bump` every old plan is unreachable by construction. ``device``
-    is the table's; ``shadow`` builds a zeroed state of the table's layout
-    on it (the prime's input)."""
+    is the table's (its home); ``shadow`` builds a zeroed state of the
+    table's layout on it (the prime's input), of which every other device
+    an entry lives on gets a copy."""
 
-    def __init__(self, device="cpu", shadow: Callable[[], dict] | None = None):
+    def __init__(self, device, shadow: Callable[[], dict] | None = None):
         self.device = torch.device(device)
         self.epoch = 0
         self._entries: dict[Any, ExecEntry] = {}
@@ -504,8 +662,9 @@ class ExecutorCache:
         self.counters = TEL.Counters({"hits": 0, "misses": 0, "compiles": 0,
                                       "fallbacks": 0, "compile_ms_total": 0.0})
         self._shadow_fn = shadow
-        self._shadow = None
-        self._pool = None
+        self._shadows: dict = {}   # device -> shadow state
+        self._pools: dict = {}     # device -> graph pool of this epoch
+        self._devices = {self.device}
 
     @property
     def hits(self) -> int:
@@ -528,36 +687,48 @@ class ExecutorCache:
         return self.counters["compile_ms_total"]
 
     # ------------------------------------------- device-side resources
-    def shadow(self) -> dict:
-        """The zeroed shadow state (made on the current stream, which is
-        the side stream on the card; caller holds the device lock)."""
-        if self._shadow is None:
-            if self._shadow_fn is None:
-                raise RuntimeError("ExecutorCache has no shadow-state builder")
-            self._shadow = self._shadow_fn()
-        return self._shadow
+    def shadow(self, device: torch.device | None = None) -> dict:
+        """The zeroed shadow state on ``device`` (default: the table's;
+        made on the current stream, which is the side stream on the card;
+        caller holds the device lock)."""
+        device = self.device if device is None else device
+        sh = self._shadows.get(device)
+        if sh is None:
+            if device == self.device:
+                if self._shadow_fn is None:
+                    raise RuntimeError("ExecutorCache has no shadow-state "
+                                       "builder")
+                sh = self._shadow_fn()
+            else:
+                sh = _tree_to(self.shadow(), device)
+            self._shadows[device] = sh
+        return sh
 
-    def pool(self, epoch: int):
-        """The graph memory pool for a capture of an entry made in
-        ``epoch``: the table's pool while that epoch is current, else a
-        pool of its own. (A retired entry's graphs are freed with it; had
-        they shared the current pool, freeing them could leave that pool
-        with no graph while later captures still share it.)"""
+    def pool(self, epoch: int, device: torch.device | None = None):
+        """The graph memory pool of ``device`` (default: the table's) for a
+        capture of an entry made in ``epoch``: the table's pool while that
+        epoch is current, else a pool of its own. (A retired entry's
+        graphs are freed with it; had they shared the current pool,
+        freeing them could leave that pool with no graph while later
+        captures still share it.)"""
+        device = self.device if device is None else device
         with self._lock:
             if epoch != self.epoch:
                 return torch.cuda.graph_pool_handle()
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            return self._pool
+            if device not in self._pools:
+                self._pools[device] = torch.cuda.graph_pool_handle()
+            return self._pools[device]
 
     # ------------------------------------------------------------- entries
     def get(self, key: Any, builder: Callable[[], Callable],
             flags: tuple = (False,),
-            view: Callable[[dict], dict] | None = None) -> ExecEntry:
+            view: Callable[[dict], dict] | None = None,
+            device: torch.device | None = None) -> ExecEntry:
         """The entry for ``key`` under the current epoch, building its
         closure on first use. ``flags``: the expiry-flag variants a plan
         captures; ``view``: the part of the shadow state the closure
-        takes (a sharded table's lane entries)."""
+        takes (a sharded table's lane entries); ``device``: where it runs
+        (default: the table's). The key names the placement."""
         ek = (self.epoch, key)
         entry = self._entries.get(ek)
         if entry is None:
@@ -565,8 +736,9 @@ class ExecutorCache:
                 entry = self._entries.get(ek)
                 if entry is None:
                     entry = ExecEntry(self, builder(), flags, view,
-                                      epoch=ek[0])
+                                      epoch=ek[0], device=device)
                     self._entries[ek] = entry
+                    self._devices.add(entry.device)
         return entry
 
     def _take(self, bump: bool, shadow=None) -> list:
@@ -579,18 +751,22 @@ class ExecutorCache:
             old = list(self._entries.values())
             self._entries = {}
             self.sigs.clear()
-            self._pool = None
+            self._pools = {}
             if not bump or shadow is not None:
-                old.append(self._shadow)
-                self._shadow = None
+                old.append(self._shadows)
+                self._shadows = {}
             if shadow is not None:
                 self._shadow_fn = shadow
         return old
 
     def _release(self, old: list) -> None:
-        with device_lock(self.device):
-            _retire(self.device, [getattr(e, "compiled", e) for e in old])
-            _sweep()
+        """Retire ``old`` once every device the table's entries ran on has
+        passed this point."""
+        objs = [getattr(e, "compiled", e) for e in old]
+        for dev in sorted(self._devices, key=str):
+            with device_lock(dev):
+                _retire(dev, objs)
+                _sweep()
 
     def bump(self, shadow: Callable[[], dict] | None = None) -> int:
         """Retire every plan (schema epoch bump: REINDEX; RESHARD, which

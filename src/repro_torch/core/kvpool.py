@@ -135,6 +135,19 @@ def seq_lengths(schema: TableSchema, state: dict, *, max_slots: int,
     return _add_per_slot(zeros, slot, ok, block_size, max_slots)
 
 
+def _on_state_device(state: dict, *arrs):
+    """``arrs`` on the device of ``state``'s tensors (a pruned statement's
+    row-id handles live on its lane's device, a flattened sharded state on
+    the home device); tensors already there pass through. The copies are
+    device to device and do not wait for the card). Nothing places a kv
+    table yet, so it passes everything through until the mesh serve step
+    does (ROADMAP Queue 1 item 5)."""
+    dev = state["valid"].device
+    return tuple(a.to(dev, non_blocking=True)
+                 if isinstance(a, torch.Tensor) and a.device != dev else a
+                 for a in arrs)
+
+
 def _pt_coords(state: dict, row_ids, ok, *, max_slots: int, max_blocks: int):
     row_ids = row_ids.long()
     slot = state["cols"]["slot"][row_ids]
@@ -156,6 +169,7 @@ def page_table_insert(
     allocator evicted live rows their old coordinates are gone from the
     state, so the full rebuild is the answer; both are computed and
     ``torch.where`` picks one on the device (the reference's ``lax.cond``)."""
+    pt, row_ids, evicted = _on_state_device(state, pt, row_ids, evicted)
     ok = torch.ones(row_ids.shape, dtype=torch.bool, device=pt.device)
     s, b = _pt_coords(state, row_ids, ok, max_slots=max_slots,
                       max_blocks=max_blocks)
@@ -173,6 +187,7 @@ def page_table_delete(
     """Page table after a DELETE that reported its row ids: clear their
     entries (``present`` masks the padded tail). DELETE only flips
     validity bits, so the rows' coordinates are still readable."""
+    pt, row_ids, present = _on_state_device(state, pt, row_ids, present)
     s, b = _pt_coords(state, row_ids, present, max_slots=max_slots,
                       max_blocks=max_blocks)
     return _scatter_pt(pt, s, b, schema.capacity, max_slots)
@@ -186,6 +201,8 @@ def seq_lengths_insert(
     """Length vector after inserting ``row_ids``: O(k) adds, or the full
     recount when the insert evicted live rows (both computed, one picked
     on the device, as :func:`page_table_insert` does)."""
+    lengths, row_ids, evicted = _on_state_device(state, lengths, row_ids,
+                                                 evicted)
     slot = state["cols"]["slot"][row_ids.long()]
     ok = (slot >= 0) & (slot < max_slots)
     inc = _add_per_slot(lengths, slot, ok, block_size, max_slots)
@@ -201,6 +218,8 @@ def seq_lengths_delete(
 ) -> torch.Tensor:
     """Length vector after a DELETE that reported its row ids (``present``
     masks the padded tail)."""
+    lengths, row_ids, present = _on_state_device(state, lengths, row_ids,
+                                                 present)
     slot = state["cols"]["slot"][row_ids.long()]
     ok = present & (slot >= 0) & (slot < max_slots)
     return _add_per_slot(lengths, slot, ok, -block_size, max_slots)

@@ -1,9 +1,13 @@
 """Port copy of ``repro.core.scheduler`` (host Python) with its imports
 redirected to ``repro_torch``. The port's daemon reports execution lanes
 for sharded tables (``group_lane`` / ``item_lanes`` / ``group_shard_ids``),
-so the per-shard lock paths below run as in the reference; on one card
-lanes overlap their host-side dispatch, and their device work runs on one
-stream.
+so the per-shard lock paths below run as in the reference. Where a table
+is placed over a lane mesh (``launch/mesh.py``), a lane's statements run
+on its block's device under that device's lock (``core/execache.py``), so
+groups on lanes of disjoint devices dispatch concurrently on the device
+side too; on one card (a mesh repeating it) lanes overlap their host-side
+dispatch and their device work runs on one stream. ``lane_locks=False``
+keeps the single table lock either way.
 
 Cross-connection batch scheduler — the daemon's admission queue.
 

@@ -1,5 +1,5 @@
 """Sharded tables: hash-partitioned storage over N shard tables (port of
-``repro.core.shards``, without its multi-device mesh helpers).
+``repro.core.shards``).
 
 A table created with ``SHARDS n [PARTITION BY col]`` splits its rows across
 ``n`` shards of ``shard_capacity`` rows; each shard has its own validity,
@@ -36,6 +36,20 @@ follows (shard, slot). Every statement advances EVERY shard's clock by
 what the unsharded table would add. As in the reference, LRU eviction
 and ``MAX_ROWS`` act per shard, and the partition column cannot be
 UPDATEd (DELETE + INSERT moves a row).
+
+Mesh placement (the reference's ``shard_map`` placement): a
+table whose shard count admits it gets a lane mesh
+(``launch/mesh.lane_mesh_for``), and its stack is split into contiguous
+BLOCKS of ``n // d`` shards, block ``k`` on mesh device ``k``
+(:func:`place_lanes`). A lane is then a view of its block. A fan-out runs
+the stacked executors above once per block, on the block marked with
+its first global shard (:func:`as_block`): their pairs are the block's
+shards, a pruned pair whose shard lies in another
+block is inactive, and row ids stay global. The blocks' results move to
+the home device (the mesh's first entry), where the ``merge_*`` functions
+below combine them: counts add, each block's first ``limit`` candidates
+(rows and sort keys with them) merge through one compaction or one sort,
+and the aggregates merge their per-shard partials as one stack would.
 """
 from __future__ import annotations
 
@@ -99,10 +113,12 @@ def _tree(fn, x):
     return fn(x)
 
 
-def init_state(schema: TableSchema, device="cpu") -> dict:
-    """The stacked state: every leaf of a shard's state, ``[shards, ...]``."""
+def init_state(schema: TableSchema, device, n: int | None = None) -> dict:
+    """The stacked state: every leaf of a shard's state, ``[shards, ...]``
+    (``n``: that many shards of the layout, one block of a placed
+    table)."""
     one = T.init_state(shard_schema(schema), device)
-    n = schema.shards
+    n = schema.shards if n is None else n
     return _tree(lambda x: x[None].repeat((n,) + (1,) * x.dim()).contiguous(),
                  one)
 
@@ -117,6 +133,118 @@ def flat_cols(state: dict) -> dict:
     indexes them directly."""
     return {c: v.reshape((-1,) + tuple(v.shape[2:]))
             for c, v in state["cols"].items()}
+
+
+# ----------------------------------------------------------- mesh placement
+
+BASE = "shard_base"   # the key that marks one block of a placed table
+
+
+def as_block(state: dict, base: int) -> dict:
+    """Block ``state`` of a table placed over a mesh (the stack's shards
+    ``[base, base + n)``), marked for the executors below: their pairs are
+    the block's shards, a pruned pair whose shard lies in another block is
+    inactive, and their row ids stay GLOBAL. The daemon marks each block
+    it runs and strips what comes back (:func:`unblock`)."""
+    return dict(state, **{BASE: int(base)})
+
+
+def unblock(state: dict) -> dict:
+    """``state`` without the mark :func:`as_block` gave it."""
+    return {k: v for k, v in state.items() if k != BASE}
+
+
+def _base(state: dict) -> int:
+    """The first GLOBAL shard of the state an executor runs on: 0 for a
+    whole stack, the block's first for a marked block."""
+    return state.get(BASE, 0)
+
+
+def lane_devices(mesh, n_shards: int):
+    """Device of each lane under ``mesh`` placement (contiguous blocks of
+    ``n_shards // len(mesh)`` lanes a device), or None when unplaced."""
+    if mesh is None:
+        return None
+    per = n_shards // len(mesh)
+    return [mesh[i // per] for i in range(n_shards)]
+
+
+def place_lanes(mesh, state: dict) -> list:
+    """A stacked state (on any device) -> its blocks, block ``k`` the
+    contiguous shards ``[k * per, (k + 1) * per)`` as new tensors on
+    ``mesh[k]`` (a copy even where the device is the same: each block owns
+    its storage, as on distinct cards)."""
+    d = len(mesh)
+    per = state["valid"].shape[0] // d
+    return [_tree(lambda x, k=k: x[k * per:(k + 1) * per].to(
+        mesh[k], copy=True).contiguous(), state) for k in range(d)]
+
+
+def assemble_lanes(mesh, blocks: list) -> list:
+    """The inputs of a mesh fan-out: ``(device, block)`` of every mesh
+    entry, in mesh order (a listing, no copy); each block must lie on its
+    entry's device (:func:`constrain_lanes`)."""
+    constrain_lanes(mesh, blocks)
+    return list(zip(mesh, blocks))
+
+
+def disassemble_lanes(mesh, n_shards: int, blocks: list) -> list:
+    """Lane ``i`` of a placed table: views of shard ``i % per`` of block
+    ``i // per`` (writes land in the block)."""
+    per = n_shards // len(mesh)
+    return [lane_view(blocks[i // per], i % per) for i in range(n_shards)]
+
+
+def constrain_lanes(mesh, blocks: list) -> None:
+    """Raise unless block ``k`` lies on ``mesh[k]`` (the counterpart of
+    the reference's sharding constraint on the mesh executor's output)."""
+    if len(blocks) != len(mesh):
+        raise ValueError(f"{len(blocks)} blocks for a mesh of {len(mesh)}")
+    for k, (dev, blk) in enumerate(zip(mesh, blocks)):
+        if blk["valid"].device != dev:
+            raise ValueError(f"block {k} lies on {blk['valid'].device}, its "
+                             f"mesh entry is {dev}")
+
+
+def gather_lanes(blocks: list, device) -> dict:
+    """The blocks stacked into one state on ``device`` (RESHARD's and
+    CHECKPOINT's input; one copy a block)."""
+    def cat(*xs):
+        return torch.cat([x.to(device) for x in xs])
+
+    def walk(trees):
+        if isinstance(trees[0], dict):
+            return {k: walk([t[k] for t in trees]) for k in trees[0]}
+        return cat(*trees)
+
+    return walk(blocks)
+
+
+def flat_schema(schema: TableSchema) -> TableSchema:
+    """Monolithic-layout schema whose capacity covers the flattened shard
+    stack (``shards * shard_capacity``: global row ids index it
+    directly), for row-id readers of :func:`flat_state`. Only tests call
+    it until a sharded kv table serves (ROADMAP Queue 1 item 5)."""
+    cap = shard_capacity(schema) * schema.shards
+    return dataclasses.replace(schema, capacity=cap, shards=1,
+                               partition_by=None)
+
+
+def flat_state(state: dict) -> dict:
+    """Monolithic-layout view of a stacked state: columns, validity and
+    payloads flattened along (shard, slot), so GLOBAL row ids index them
+    like an unsharded table's (the serving page table's bridge to a
+    sharded metadata table; only tests call it until a sharded kv table
+    serves, ROADMAP Queue 1 item 5)."""
+    return dict(
+        state,
+        cols=flat_cols(state),
+        payloads={p: v.reshape((-1,) + tuple(v.shape[2:]))
+                  for p, v in state["payloads"].items()},
+        valid=state["valid"].reshape(-1),
+        clock=state["clock"][0],
+        ops=state["ops"][0],
+    )
 
 
 def _tick_all(state: dict, n=1) -> dict:
@@ -143,6 +271,105 @@ def index_fresh(state: dict, column: str) -> torch.Tensor:
     return (state["indexes"][column]["stale"] == 0).all()
 
 
+# ------------------------------------------------------- mesh merges (home)
+#
+# A mesh fan-out's block results, moved to the home device, merge into the
+# one result the whole stack gives. Pruned statements are owned by one
+# block: the others report nothing for them (count 0, no row present).
+
+
+def _cat_rows(outs: list, key: str) -> torch.Tensor:
+    return torch.cat([o[key] for o in outs], dim=1)
+
+
+def _take(x: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """``x[i, sel[i, j]]`` for a [w, m, ...] candidate tensor."""
+    idx = sel.reshape(tuple(sel.shape) + (1,) * (x.dim() - 2))
+    return x.gather(1, idx.expand(tuple(sel.shape) + tuple(x.shape[2:])))
+
+
+def _pick(present: torch.Tensor, limit: int, keys=None):
+    """The first ``limit`` candidates of every statement: present ones in
+    block order (a compaction), or with ``keys`` the largest keys first
+    (present before absent on a tie, then block order: a stable sort as
+    the stack's own re-rank). Returns (sel [w, limit], present)."""
+    m = present.shape[1]
+    if keys is None:
+        sel, pres, _ = T._compact(present, limit, m)
+        return sel.long(), pres
+    fill = (-torch.inf if keys.dtype.is_floating_point
+            else torch.iinfo(keys.dtype).min)
+    k = torch.where(present, keys, fill)
+    first = torch.sort(present.to(torch.int8), dim=1, descending=True,
+                       stable=True).indices
+    order = torch.sort(k.gather(1, first), dim=1, descending=True,
+                       stable=True).indices
+    sel = first.gather(1, order)[:, :limit]
+    return sel, present.gather(1, sel)
+
+
+def merge_select(outs: list, limit: int, ordered: bool,
+                 batched: bool = True) -> dict:
+    """Block results of ``select_many`` (``select`` when not ``batched``)
+    -> the table's: counts add, and each statement's first ``limit``
+    candidates (ORDER BY: re-ranked by the blocks' sort keys) carry their
+    rows, row ids and payloads along."""
+    if not batched:
+        outs = [_tree(lambda x: x[None], o) for o in outs]
+    present = _cat_rows(outs, "present")
+    sel, pres = _pick(present, limit,
+                      _cat_rows(outs, "keys") if ordered else None)
+    res = {"count": merge_sum([o["count"] for o in outs]),
+           "present": pres,
+           "row_ids": torch.where(pres, _cat_rows(outs, "row_ids").gather(
+               1, sel), 0),
+           "rows": {c: _take(torch.cat([o["rows"][c] for o in outs], 1), sel)
+                    for c in outs[0]["rows"]},
+           "payloads": {p: _take(torch.cat([o["payloads"][p] for o in outs],
+                                           1), sel)
+                        for p in outs[0]["payloads"]}}
+    return res if batched else _tree(lambda x: x[0], res)
+
+
+def merge_delete_returning(outs: list, limit: int) -> tuple:
+    """Block results ``(n, ids [limit], present [limit])`` of
+    ``delete_returning`` -> the table's: counts add, the first ``limit``
+    deleted row ids in (shard, slot) order."""
+    present = torch.cat([o[2] for o in outs])[None]
+    sel, pres = _pick(present, limit)
+    ids = torch.cat([o[1] for o in outs])[None].gather(1, sel)
+    return (merge_sum([o[0] for o in outs]), torch.where(pres, ids, 0)[0],
+            pres[0])
+
+
+def merge_aggregate(outs: list, agg: str, count_only: bool,
+                    batched: bool = True) -> torch.Tensor:
+    """Partials of :func:`aggregate_parts` (one for a whole stack, one a
+    block, in mesh order, for a placed table) -> the table's values: a
+    fan-out's per-shard partials stacked in shard order and merged; a
+    pruned statement's value from the block that owns it."""
+    if "parts" in outs[0]:
+        per = [torch.cat(p) if len(p) > 1 else p[0]
+               for p in zip(*(o["parts"] for o in outs))]
+        val = _merge_agg(agg.upper(), count_only, per)
+    else:
+        val = outs[0]["value"]
+        for o in outs[1:]:
+            val = torch.where(o["live"], o["value"], val)
+    return val if batched else val[0]
+
+
+def merge_sum(outs: list):
+    """Block results that add (row counts, slots of rows that one block
+    wrote and the others left 0, evictions): element-wise sums."""
+    if isinstance(outs[0], (tuple, list)):
+        return tuple(merge_sum([o[i] for o in outs])
+                     for i in range(len(outs[0])))
+    if isinstance(outs[0], dict):
+        return {k: merge_sum([o[k] for o in outs]) for k in outs[0]}
+    return sum(outs[1:], outs[0])
+
+
 # ------------------------------------------------------------------ pairs
 
 @dataclasses.dataclass(frozen=True)
@@ -152,10 +379,14 @@ class _Pairs:
     a pruned dispatch has one pair per statement, on its own shard."""
 
     fanout: bool
-    n_shards: int
+    n_shards: int        # shards of the state (a block's inside a mesh)
     w: int
-    sid: torch.Tensor    # [n] int32: the pair's shard
+    sid: torch.Tensor    # [n] int32: the pair's shard (local)
     stmt: torch.Tensor   # [n] int64: the pair's statement
+    base: int = 0        # the state's first global shard (_base)
+    # [n] bool: the pair's shard lies in this block (pruned pairs of a
+    # block only; None: every pair)
+    live: torch.Tensor | None = None
 
     @property
     def n(self) -> int:
@@ -173,15 +404,29 @@ def _route_key(schema: TableSchema, where, params_w):
 
 def _pairs(schema: TableSchema, state: dict, where, params_w,
            w: int) -> _Pairs:
-    n_sh = schema.shards
+    n_sh = state["valid"].shape[0]
+    base = _base(state)
     dev = state["valid"].device
     key = _route_key(schema, where, params_w)
     if key is not None:
-        sid = shard_of(T._term_vals(key, params_w, w, dev), n_sh)
-        return _Pairs(False, n_sh, w, sid, torch.arange(w, device=dev))
+        sid = shard_of(T._term_vals(key, params_w, w, dev), schema.shards)
+        stmt = torch.arange(w, device=dev)
+        if n_sh == schema.shards:   # the whole stack
+            return _Pairs(False, n_sh, w, sid, stmt)
+        live = (sid >= base) & (sid < base + n_sh)
+        return _Pairs(False, n_sh, w, torch.where(live, sid - base, 0), stmt,
+                      base, live)
     sid = torch.arange(n_sh, dtype=torch.int32,
                        device=dev)[:, None].expand(n_sh, w).reshape(-1)
-    return _Pairs(True, n_sh, w, sid, torch.arange(w, device=dev).repeat(n_sh))
+    return _Pairs(True, n_sh, w, sid, torch.arange(w, device=dev).repeat(n_sh),
+                  base)
+
+
+def _gate_live(mask: torch.Tensor, pairs: _Pairs) -> torch.Tensor:
+    """A [n, ...] pair mask with the pairs of other blocks cleared."""
+    if pairs.live is None:
+        return mask
+    return mask & pairs.live.reshape((-1,) + (1,) * (mask.dim() - 1))
 
 
 def _pair_rows(x: torch.Tensor, pairs: _Pairs) -> torch.Tensor:
@@ -238,10 +483,13 @@ def _scan_pairs(state: dict, where, route, params_w, pairs: _Pairs):
 
 
 def _probe_pairs(state: dict, plan: PL.IndexProbe, params_w, pairs: _Pairs,
-                 *, extra_mask=None, active=None, limit: int = 0):
+                 *, extra_mask=None, active_p=None, limit: int = 0):
     """The IndexProbe route of every pair in one launch of the verified
     probe (``HX.probe_verify`` on its shard axis): (safe [n, 128] shard
-    row ids, ok [n, 128], count [n], ids [n, limit] or None)."""
+    row ids, ok [n, 128], count [n], ids [n, limit] or None).
+    ``active_p`` [n] gates pairs (with the pairs of other blocks)."""
+    if pairs.live is not None:
+        active_p = pairs.live if active_p is None else active_p & pairs.live
     dev = state["valid"].device
     idx = state["indexes"][plan.column]
     st = pairs.stmt
@@ -252,9 +500,8 @@ def _probe_pairs(state: dict, plan: PL.IndexProbe, params_w, pairs: _Pairs,
         idx["rid"], idx["key"], T._term_vals(plan.key, params_w, pairs.w,
                                              dev)[st],
         valid=state["valid"], keycol=state["cols"][plan.column],
-        residual=residual, extra_mask=extra_mask,
-        active=None if active is None else active[st], limit=limit,
-        sid=pairs.sid)
+        residual=residual, extra_mask=extra_mask, active=active_p,
+        limit=limit, sid=pairs.sid)
 
 
 def _fresh(state: dict, column: str, pairs: _Pairs) -> torch.Tensor:
@@ -268,7 +515,7 @@ def _fresh(state: dict, column: str, pairs: _Pairs) -> torch.Tensor:
 
 
 def _global_ids(ids: torch.Tensor, pairs: _Pairs, cap_s: int):
-    return ids + (pairs.sid * cap_s)[:, None]
+    return ids + ((pairs.sid + pairs.base) * cap_s)[:, None]
 
 
 def _flat_scatter(x: torch.Tensor, sid, rows, ok, src) -> torch.Tensor:
@@ -344,7 +591,8 @@ def insert(schema: TableSchema, state: dict, values: Mapping[str, Any],
     (0). A batch wider than a shard goes in chunks of the shard's width,
     as the reference's does; the clock still moves once."""
     s_sch = shard_schema(schema)
-    n_sh, cap_s = schema.shards, s_sch.capacity
+    n_sh, cap_s = state["valid"].shape[0], s_sch.capacity
+    base = _base(state)
     payloads = payloads or {}
     dev = state["valid"].device
     b = None
@@ -360,14 +608,19 @@ def insert(schema: TableSchema, state: dict, values: Mapping[str, Any],
     pkeys = (torch.zeros((b,), dtype=torch.int32, device=dev) if pkeys is None
              else torch.broadcast_to(T.to_device(pkeys, dev, torch.int32),
                                      (b,)))
-    rows, mask = OPS.shard_split(shard_of(pkeys, n_sh), n_sh, row_mask)
+    # on a placed table the whole batch reaches every block, which takes
+    # the rows of its own shards (the reference broadcasts it the same way)
+    sid = shard_of(pkeys, schema.shards) - base
+    rows, mask = OPS.shard_split(sid, n_sh,
+                                 row_mask & (sid >= 0) & (sid < n_sh))
     vals_b = {c.name: torch.broadcast_to(
         T.to_device(values[c.name], dev, c.dtype), (b,))
         for c in schema.columns if c.name in values}
     pls_b = {p.name: T.to_device(payloads[p.name], dev, p.dtype)
              for p in schema.payloads if p.name in payloads}
     ttl_b = torch.broadcast_to(T.to_device(ttl, dev, torch.int32), (b,))
-    offs = (torch.arange(n_sh, dtype=torch.int32, device=dev) * cap_s)[:, None]
+    offs = ((torch.arange(n_sh, dtype=torch.int32, device=dev) + base)
+            * cap_s)[:, None]
     w = min(b, cap_s)
     n_chunks = -(-b // w)
     slots_out = torch.zeros((b,), dtype=torch.int32, device=dev)
@@ -435,10 +688,12 @@ def _insert_chunk(schema, s_sch, state, r, m, vals_b, pls_b, ttl_b, w):
 # ------------------------------------------------------------------ select
 
 def _gather_rows(state: dict, gid: torch.Tensor, columns, with_payloads):
-    """Columns / payloads of GLOBAL row ids (clamped; absent rows read row
-    0 and are never shown)."""
+    """Columns / payloads of GLOBAL row ids of this state (clamped; absent
+    rows read row 0 and are never shown)."""
     flat = flat_cols(state)
-    gi = gid.long()
+    n_rows = state["valid"].numel()
+    gi = (gid.long() - _base(state) * state["valid"].shape[1]).clamp(
+        0, n_rows - 1)
     rows = {c: flat[c][gi] for c in columns}
     pls = {p: state["payloads"][p].reshape(
         (-1,) + tuple(state["payloads"][p].shape[2:]))[gi]
@@ -489,6 +744,8 @@ def select_many(schema: TableSchema, state: dict, where, params_w, w: int,
     columns = tuple(columns) if columns is not None else schema.column_names
     pairs = _pairs(schema, state, where, params_w, w)
     act_p = None if active is None else active[pairs.stmt]
+    if pairs.live is not None:
+        act_p = pairs.live if act_p is None else act_p & pairs.live
     now = state["clock"][:, None]
     accessed = state["cols"]["_accessed"]
 
@@ -528,9 +785,11 @@ def select_many(schema: TableSchema, state: dict, where, params_w, w: int,
                 torch.arange(sel.shape[1], device=sel.device)[None, :]
                 < count[:, None])
             gid = torch.where(present, gid.gather(1, sel), 0)
+            keys = ck.gather(1, sel)
         else:
             gid = torch.where(pres, _global_ids(idx, pairs, cap_s), 0)
             present = pres
+            keys = top.values[:, :s_limit]
         hits = _pair_hits(mask, pairs)
         acc = torch.where(hits, now, accessed) if touch else accessed
     else:
@@ -546,7 +805,7 @@ def select_many(schema: TableSchema, state: dict, where, params_w, w: int,
 
         def probe_route(r):
             safe, ok, count, ids = _probe_pairs(state, r, params_w, pairs,
-                                                active=active,
+                                                active_p=act_p,
                                                 limit=s_limit)
             acc = (_flat_scatter(accessed, pairs.sid, safe, ok,
                                  now[pairs.sid.long()].expand(
@@ -574,8 +833,11 @@ def select_many(schema: TableSchema, state: dict, where, params_w, w: int,
     if touch:
         state = dict(state, cols=dict(state["cols"], _accessed=acc))
     state = _tick_all(state)
-    return state, {"count": count, "rows": rows, "present": present,
-                   "row_ids": gid.to(torch.int32), "payloads": pls}
+    res = {"count": count, "rows": rows, "present": present,
+           "row_ids": gid.to(torch.int32), "payloads": pls}
+    if order_by is not None:   # a placed table's merge re-ranks by them
+        res["keys"] = _pad(keys, limit)
+    return state, res
 
 
 def select(schema: TableSchema, state: dict, where, params: Sequence[Any] = (),
@@ -587,11 +849,14 @@ def select(schema: TableSchema, state: dict, where, params: Sequence[Any] = (),
            else T.to_device(active, dev, torch.bool).reshape(1))
     state, res = select_many(schema, state, where, T._one(params, dev), 1,
                              active=act, **kw)
-    return state, {"count": res["count"][0],
-                   "rows": {c: v[0] for c, v in res["rows"].items()},
-                   "present": res["present"][0],
-                   "row_ids": res["row_ids"][0],
-                   "payloads": {k: v[0] for k, v in res["payloads"].items()}}
+    out = {"count": res["count"][0],
+           "rows": {c: v[0] for c, v in res["rows"].items()},
+           "present": res["present"][0],
+           "row_ids": res["row_ids"][0],
+           "payloads": {k: v[0] for k, v in res["payloads"].items()}}
+    if "keys" in res:
+        out["keys"] = res["keys"][0]
+    return state, out
 
 
 def batch_touch(schema: TableSchema, state: dict, res: dict,
@@ -601,7 +866,9 @@ def batch_touch(schema: TableSchema, state: dict, res: dict,
     statement count."""
     n_sh, cap_s = state["valid"].shape
     acc = state["cols"]["_accessed"]
-    tgt = torch.where(res["present"], res["row_ids"], n_sh * cap_s)
+    rid = res["row_ids"] - _base(state) * cap_s   # this block's rows
+    ours = res["present"] & (rid >= 0) & (rid < n_sh * cap_s)
+    tgt = torch.where(ours, rid, n_sh * cap_s)
     flat = T._drop_scatter(acc.reshape(-1), tgt, state["clock"][0])
     nact = active.to(torch.bool).sum(dtype=torch.int32)
     state = dict(state, cols=dict(state["cols"], _accessed=flat.reshape(
@@ -636,7 +903,7 @@ def update(schema: TableSchema, state: dict, where, set_exprs, params=(), *,
 
     def scan_route(r):
         mask, _ = _scan_pairs(state, where, r, pw, pairs)
-        hit = _pair_hits(mask, pairs)
+        hit = _pair_hits(_gate_live(mask, pairs), pairs)
         if em is not None:
             hit = hit & em
         cols = dict(state["cols"])
@@ -677,19 +944,25 @@ def update(schema: TableSchema, state: dict, where, set_exprs, params=(), *,
         for ixc in s_sch.indexes:
             if ixc in written:
                 state = (build_index(schema, state, ixc) if pairs.fanout
-                         else _rebuild_shards(s_sch, state, ixc, pairs.sid))
+                         else _rebuild_shards(s_sch, state, ixc, pairs.sid,
+                                              pairs.live))
     return _tick_all(state), n
 
 
 def _rebuild_shards(s_sch: TableSchema, state: dict, column: str,
-                    sid: torch.Tensor) -> dict:
+                    sid: torch.Tensor, live=None) -> dict:
     """Rebuild ``column``'s index on the shards ``sid`` names only (a
     pruned UPDATE's): one build over their ``[len(sid), cap_s]`` slice,
-    scattered back; every other shard keeps its index as it was."""
+    scattered back; every other shard keeps its index as it was (as does
+    a pair of another block: ``live`` False)."""
     s = sid.long()
     rid, key, overflow = HX.build(state["cols"][column][s], state["valid"][s],
                                   n_buckets=HX.n_buckets_for(s_sch.capacity))
     old = state["indexes"][column]
+    if live is not None:
+        rid = torch.where(live[:, None, None], rid, old["rid"][s])
+        key = torch.where(live[:, None, None], key, old["key"][s])
+        overflow = torch.where(live, overflow, old["stale"][s])
     new = {"rid": old["rid"].index_copy(0, s, rid),
            "key": old["key"].index_copy(0, s, key),
            "stale": old["stale"].index_copy(0, s, overflow)}
@@ -727,6 +1000,8 @@ def _delete_core(schema, state, where, params, *, want_ids, limit,
         if em is not None:
             mask = mask & _pair_rows(torch.broadcast_to(
                 em, state["valid"].shape), pairs)
+        if em is not None or pairs.live is not None:
+            mask = _gate_live(mask, pairs)
             count = mask.sum(dim=1, dtype=torch.int32)
         hit = _pair_hits(mask, pairs)
         ids = RS.compact(mask, s_limit)[0] if want_ids else None
@@ -792,13 +1067,16 @@ def delete_many_eq(schema: TableSchema, state: dict, column: str,
 
 # --------------------------------------------------------------- aggregate
 
-def aggregate_many(schema: TableSchema, state: dict, agg: str,
-                   column: str | None, where, params_w, w: int, *,
-                   plan: PL.Plan | None = None):
-    """``w`` aggregates with shard routing: pruned statements aggregate
-    their shard; a fan-out merges per-shard partials (COUNT / SUM add,
-    MIN / MAX fold, AVG = sum of sums / max(sum of counts, 1), as the
-    reference merges). Returns (state, values [w])."""
+def aggregate_parts(schema: TableSchema, state: dict, agg: str,
+                    column: str | None, where, params_w, w: int, *,
+                    plan: PL.Plan | None = None):
+    """``w`` aggregates with shard routing, before the merge: pruned
+    statements aggregate their shard (``{"value": [w], "live": [w] bool
+    or None}``, live: the shard lies in this block), a fan-out gives its
+    per-shard partials (``{"parts": ([shards, w], ...)}``: the value, or
+    SUM and COUNT for AVG). :func:`merge_aggregate` folds a list of them:
+    one for a whole stack, one a block for a placed table. Returns
+    (state, partials)."""
     agg = agg.upper()
     s_sch = shard_schema(schema)
     pairs = _pairs(schema, state, where, params_w, w)
@@ -813,6 +1091,9 @@ def aggregate_many(schema: TableSchema, state: dict, agg: str,
 
     def scan_route(r):
         mask, count = _scan_pairs(state, where, r, params_w, pairs)
+        if pairs.live is not None:
+            mask = _gate_live(mask, pairs)
+            count = mask.sum(dim=1, dtype=torch.int32)
         vals = None if count_only else _pair_rows(col, pairs)
         return reduce(vals, mask, count)
 
@@ -833,8 +1114,29 @@ def aggregate_many(schema: TableSchema, state: dict, agg: str,
     else:
         out = scan_route(route)
     if not pairs.fanout:
-        return _tick_all(state), out[0]
-    per = [o.reshape(pairs.n_shards, w) for o in out]
+        return _tick_all(state), {"value": out[0], "live": pairs.live}
+    return _tick_all(state), {"parts": tuple(o.reshape(pairs.n_shards, w)
+                                             for o in out)}
+
+
+def aggregate_many(schema: TableSchema, state: dict, agg: str,
+                   column: str | None, where, params_w, w: int, *,
+                   plan: PL.Plan | None = None):
+    """``w`` aggregates with shard routing: pruned statements aggregate
+    their shard; a fan-out merges per-shard partials (COUNT / SUM add,
+    MIN / MAX fold, AVG = sum of sums / max(sum of counts, 1), as the
+    reference merges). Returns (state, values [w])."""
+    state, part = aggregate_parts(schema, state, agg, column, where,
+                                  params_w, w, plan=plan)
+    return state, merge_aggregate(
+        [part], agg, agg.upper() == "COUNT" or column is None)
+
+
+
+
+def _merge_agg(agg: str, count_only: bool, per) -> torch.Tensor:
+    """The fan-out merge of per-shard aggregate partials (``per``: one
+    [shards, w] tensor a part: the value, or SUM and COUNT for AVG)."""
     if count_only or agg == "COUNT":
         val = per[0].sum(dim=0, dtype=torch.int32)
     elif agg == "AVG":
@@ -849,7 +1151,7 @@ def aggregate_many(schema: TableSchema, state: dict, agg: str,
         val = per[0].amax(dim=0)
     else:
         raise ValueError(f"unknown aggregate {agg!r}")
-    return _tick_all(state), val
+    return val
 
 
 def aggregate(schema: TableSchema, state: dict, agg: str, column, where,

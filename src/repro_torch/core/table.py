@@ -60,7 +60,7 @@ _EQ_DIRECT_MAX = 16
 BULK_INDEX_THRESHOLD = 64
 
 
-def init_state(schema: TableSchema, device="cpu") -> dict:
+def init_state(schema: TableSchema, device) -> dict:
     cap = schema.capacity
     dev = torch.device(device)
     cols = {c.name: torch.zeros((cap,), dtype=c.dtype, device=dev)

@@ -36,7 +36,7 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("relscan", "hashidx", "flash_attention", "paged_attention",
-           "mamba_scan")
+           "paged_attention_int8", "mamba_scan")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -169,8 +169,10 @@ def _declare(lib: ctypes.CDLL) -> None:
                               P],
         "flash_attention": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, F, I,
                             ctypes.POINTER(L), P],
-        "paged_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
-                            F, I, P],
+        "paged_attention": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                            I, I, I, F, F, I, P],
+        "paged_attention_int8": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                 I, I, I, I, F, F, I, P],
         "paged_attention_scratch": [I, I, I, I, I],
         "mamba2_scan": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
         "mamba2_scan_scratch": [I, I, I, I, I],

@@ -1,7 +1,9 @@
 """Decode attention over the paged KV arena through a page table (port of
 ``repro.kernels.paged_attention``).
 
-The kernel is ``csrc/paged_attention.cu``; :func:`paged_attention_ref`
+The kernel is ``csrc/paged_attention.cuh``, exported by
+``csrc/paged_attention.cu`` (arenas of q's dtype) and
+``csrc/paged_attention_int8.cu`` (int8 arenas); :func:`paged_attention_ref`
 beside it is its plain PyTorch version (the counterpart of
 ``repro.kernels.ref.paged_attention_ref``). The wrapper serves a CPU
 tensor with the plain version and a CUDA tensor with the kernel; there is
@@ -13,6 +15,15 @@ missing; the first ``lengths[b]`` positions are visible, and with
 ``window > 0`` only those with ``lengths[b] - pos < window``. A sequence
 with no visible position gives 0 (the reference's masking gives a mean of
 masked rows there, which no caller reads).
+
+The int8 arena (``scales`` given): the arena is int8 and ``scales``
+``[cap, 2, block, kh]`` fp32 holds one dequantization scale a (row, k/v,
+position, kv head); q is fp32 or bf16 and the math fp32, the K/V rows
+dequantized as they are read. The self term (``kv_self = (k, v)``, each
+``[b, kh, hd]`` in q's dtype) is one more key outside the arena, the
+reference island's unquantized new token: with it, a sequence with
+``lengths >= 0`` attends its ``lengths`` pool positions and that key, and
+one with ``lengths < 0`` nothing (0).
 
 The kernel splits each sequence's pages over CTAs (64 positions a split)
 and, where more than one split sees something, merges their partial
@@ -30,6 +41,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPE_CODES, HEAD_DIMS
 
 NEG_INF = -1e30
+ARENA_INT8 = 2   # the C entry's arena dtype code of an int8 arena
 _scratch: dict = {}
 
 
@@ -50,7 +62,7 @@ def _scratch_for(device, stream: int, n_part: int, n_counters: int):
     return part, counters
 
 
-def _check(q, arena, pages, lengths):
+def _check(q, arena, pages, lengths, scales=None, kv_self=None):
     if q.dim() != 3 or arena.dim() != 5 or arena.shape[1] != 2:
         raise TypeError("q must be [b, h, hd] and arena [cap, 2, block, kh, "
                         "hd]")
@@ -62,34 +74,62 @@ def _check(q, arena, pages, lengths):
         raise TypeError("pages must be a [b, nblk] int32 tensor")
     if lengths.shape != (b,) or lengths.dtype != torch.int32:
         raise TypeError("lengths must be a [b] int32 tensor")
-    if q.dtype != arena.dtype:
+    dev = {q.device, arena.device, pages.device, lengths.device}
+    if arena.dtype == torch.int8:
+        if scales is None or scales.dtype != torch.float32 \
+                or scales.shape != arena.shape[:4]:
+            raise TypeError("an int8 arena needs fp32 scales [cap, 2, block, "
+                            "kh]")
+        if q.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError("q must be fp32 or bf16 over an int8 arena")
+        dev.add(scales.device)
+    elif scales is not None:
+        raise TypeError("scales belong to an int8 arena")
+    elif q.dtype != arena.dtype:
         raise TypeError("q and the arena must share a dtype")
-    if not (q.device == arena.device == pages.device == lengths.device):
-        raise ValueError("q, arena, pages and lengths must share a device")
+    if kv_self is not None:
+        for t in kv_self:
+            if t.shape != (b, arena.shape[3], hd) or t.dtype != q.dtype:
+                raise TypeError("the self term's k and v must be [b, kh, hd] "
+                                "in q's dtype")
+            dev.add(t.device)
+    if len(dev) != 1:
+        raise ValueError("q, arena, pages, lengths (and scales, the self "
+                         "term) must share a device")
 
 
 def paged_attention_ref(q, arena, pages, lengths, *, scale: float,
-                        softcap: float = 0.0, window: int = 0):
-    """Plain version: gathers every page's K/V and takes one masked
-    softmax. Returns [b, h, hd] in q's dtype (fp32 math)."""
-    _check(q, arena, pages, lengths)
+                        softcap: float = 0.0, window: int = 0, scales=None,
+                        kv_self=None):
+    """Plain version: gathers every page's K/V (dequantized by ``scales``
+    over an int8 arena) and takes one masked softmax, the self term as one
+    more key. Returns [b, h, hd] in q's dtype (fp32 math)."""
+    _check(q, arena, pages, lengths, scales, kv_self)
     b, h, hd = q.shape
     cap, _, block, kh, _ = arena.shape
     nblk = pages.shape[1]
     g = h // kh
     present = (pages >= 0) & (pages < cap)
-    blk = arena[pages.clamp(0, cap - 1).long()]      # [b, nblk, 2, blk, kh, hd]
-    k = blk[:, :, 0].reshape(b, nblk * block, kh, hd).float()
-    v = blk[:, :, 1].reshape(b, nblk * block, kh, hd).float()
+    safe = pages.clamp(0, cap - 1).long()
+    blk = arena[safe].float()                        # [b, nblk, 2, blk, kh, hd]
+    if scales is not None:
+        blk = blk * scales[safe][..., None]
+    k = blk[:, :, 0].reshape(b, nblk * block, kh, hd)
+    v = blk[:, :, 1].reshape(b, nblk * block, kh, hd)
     qg = q.reshape(b, kh, g, hd).float() * scale
     s = torch.einsum("bkgd,btkd->bkgt", qg, k)
-    if softcap and softcap > 0:
-        s = torch.tanh(s / softcap) * softcap
     pos = torch.arange(nblk * block, device=q.device)
     ok = pos[None] < lengths[:, None]
     ok &= present.repeat_interleave(block, dim=1)
     if window and window > 0:
         ok &= (lengths[:, None] - pos[None]) < window
+    if kv_self is not None:   # one more key: the new token, unquantized
+        ks, vs = (t.float()[:, None] for t in kv_self)
+        s = torch.cat([s, torch.einsum("bkgd,btkd->bkgt", qg, ks)], dim=-1)
+        v = torch.cat([v, vs], dim=1)
+        ok = torch.cat([ok, (lengths >= 0)[:, None]], dim=1)
+    if softcap and softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
     s = torch.where(ok[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1) * ok.any(dim=1)[:, None, None, None]
     o = torch.einsum("bkgt,btkd->bkgd", p, v)
@@ -97,27 +137,36 @@ def paged_attention_ref(q, arena, pages, lengths, *, scale: float,
 
 
 def paged_attention(q, arena, pages, lengths, *, scale: float,
-                    softcap: float = 0.0, window: int = 0):
+                    softcap: float = 0.0, window: int = 0, scales=None,
+                    kv_self=None):
     """Contract of :func:`paged_attention_ref` (kernel on CUDA tensors:
-    fp32 or bf16, head dim in ``HEAD_DIMS``). ``arena`` must be
-    contiguous (a layer of a layer-major arena is): it is read in place."""
+    fp32 or bf16 q over an arena of q's dtype or an int8 one, head dim in
+    ``HEAD_DIMS``). ``arena`` (and ``scales``) must be contiguous (a layer
+    of a layer-major arena is): they are read in place."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, arena, pages, lengths, scale=scale,
-                                   softcap=softcap, window=window)
+                                   softcap=softcap, window=window,
+                                   scales=scales, kv_self=kv_self)
     _build.require_cuda(q, "paged_attention")
-    _check(q, arena, pages, lengths)
+    _check(q, arena, pages, lengths, scales, kv_self)
     b, h, hd = q.shape
     cap, _, block, kh, _ = arena.shape
     if q.dtype not in DTYPE_CODES or hd not in HEAD_DIMS:
         raise TypeError(f"paged_attention takes fp32/bf16 and head dims "
                         f"{HEAD_DIMS}, not {q.dtype} / {hd}")
-    if not arena.is_contiguous():
+    if not arena.is_contiguous() or (scales is not None
+                                     and not scales.is_contiguous()):
         raise ValueError("paged_attention reads the arena in place: pass a "
-                         "contiguous arena")
-    if arena.data_ptr() % 16:
-        raise ValueError("paged_attention reads the arena with 16-byte "
-                         "loads: its storage must start 16-byte aligned")
+                         "contiguous arena (and scales)")
+    align = min(16, hd * arena.element_size())
+    if arena.data_ptr() % align:
+        raise ValueError(f"paged_attention reads the arena with {align}-byte "
+                         f"loads: its storage must start {align}-byte aligned")
     q, pages, lengths = q.contiguous(), pages.contiguous(), lengths.contiguous()
+    ks_ptr = vs_ptr = None
+    if kv_self is not None:
+        kv_self = tuple(t.contiguous() for t in kv_self)
+        ks_ptr, vs_ptr = kv_self[0].data_ptr(), kv_self[1].data_ptr()
     out = torch.empty_like(q)
     nblk = pages.shape[1]
     lib = _build.lib("paged_attention")
@@ -131,11 +180,17 @@ def paged_attention(q, arena, pages, lengths, *, scale: float,
         # after a wider call has replaced them here
         _build.keep_alive(part)
         _build.keep_alive(counters)
-    err = lib.paged_attention(
-        q.data_ptr(), arena.data_ptr(), pages.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), part_ptr, counters_ptr, b, h, kh, hd, cap, block,
-        nblk, DTYPE_CODES[q.dtype], float(scale), float(softcap),
-        int(window), stream)
+    # an int8 arena's instantiations are a library of their own
+    # (csrc/paged_attention_int8.cu), built beside the others
+    entry = (_build.lib("paged_attention_int8").paged_attention_int8
+             if scales is not None else lib.paged_attention)
+    err = entry(
+        q.data_ptr(), arena.data_ptr(),
+        None if scales is None else scales.data_ptr(), ks_ptr, vs_ptr,
+        pages.data_ptr(), lengths.data_ptr(), out.data_ptr(), part_ptr,
+        counters_ptr, b, h, kh, hd, cap, block, nblk, DTYPE_CODES[q.dtype],
+        ARENA_INT8 if scales is not None else DTYPE_CODES[q.dtype],
+        float(scale), float(softcap), int(window), stream)
     _build.check(err, "paged_attention")
     _build.count_launch("paged_attention")
     return out

@@ -23,6 +23,13 @@ Layering (top to bottom):
   layers advance their O(1) states. Prefill runs the flash-attention and
   Mamba2 scan kernels (``models/transformer.prefill``) eagerly.
 
+``cfg.kv_quant_int8`` (reached as the reference reaches it, through
+``dataclasses.replace(cfg, kv_quant_int8=True)``) makes every arena int8
+with fp32 scales beside it (``arena_scale`` / ``shared_arena_scale``,
+``[L, rows + 1, 2, block, kh]``): the island quantizes the new token at
+write time, and a prefill's K/V are quantized in one pass on the device
+as they are installed.
+
 Host syncs are the reference's: the first token of a prefill
 (``argmax``), the tokens of a decode round, and the count of a DELETE or
 FLUSH. Block allocation (``_insert_blocks``) and the round's prime,
@@ -30,8 +37,8 @@ capture and replay do not wait on the device: parameters travel through
 pinned non-blocking uploads and row ids stay on the device. Every state
 tensor (arenas, SSM states) is updated in place.
 
-Not in this port yet: a device mesh, the int8 arena and Mamba1 / MoE /
-encoder-decoder / frontend configs.
+Not in this port yet: a device mesh and Mamba1 / MoE / encoder-decoder /
+frontend configs.
 """
 from __future__ import annotations
 
@@ -54,7 +61,8 @@ from repro_torch.models.layers.attention import (_scale, out_project,
 from repro_torch.models.layers.mlp import mlp_forward
 from repro_torch.models.layers.norms import rms_norm
 from repro_torch.serving.paged import (PagedGeom, build_blk_start,
-                                       make_paged_island, plan_geometry)
+                                       make_paged_island, plan_geometry,
+                                       quantize_kv)
 
 
 # ============================================================== serve step
@@ -65,24 +73,27 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
     TF.check_supported(cfg)
     if mesh is not None:
         raise NotPorted("a device mesh for the serve step")
+    quant = cfg.kv_quant_int8
     islands: dict[int, object] = {}
 
     def island_for(window: int):
         if window not in islands:
             islands[window] = make_paged_island(
                 geom, None, scale=_scale(cfg), softcap=cfg.attn_softcap,
-                window=window)
+                window=window, quant=quant)
         return islands[window]
 
-    def attn_mlp(p, x, arena_l, inputs, *, window, theta):
-        """Attention through the paged island, then the MLP."""
+    def attn_mlp(p, x, arena_l, scale_l, inputs, *, window, theta):
+        """Attention through the paged island, then the MLP (``scale_l``:
+        the int8 arena's scales, else None)."""
         lengths = inputs["lengths"]
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         q, k, v = qkv_project(p["attn"], cfg, h, lengths[:, None], theta)
-        a, _ = island_for(window)(
+        extra = (scale_l,) if quant else ()
+        a = island_for(window)(
             q[:, 0], k[:, 0], v[:, 0], arena_l, inputs["pt"],
             inputs["blk_start"], lengths, inputs["write_rows"],
-            inputs["write_off"])
+            inputs["write_off"], *extra)[0]
         x = x + out_project(p["attn"], a[:, None])
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         return x + mlp_forward(p["mlp"], cfg, h)
@@ -98,13 +109,16 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
                 si += 1
             else:
                 window, theta = TF.layer_attrs(cfg, i)
-                x = attn_mlp(p, x, state["arena"][ai], inputs, window=window,
-                             theta=theta)
+                x = attn_mlp(p, x, state["arena"][ai],
+                             state["arena_scale"][ai] if quant else None,
+                             inputs, window=window, theta=theta)
                 ai += 1
             g = TF.shared_app(cfg, i)
             if g >= 0:
                 x = attn_mlp(params["shared"], x, state["shared_arena"][g],
-                             inputs, window=0, theta=TF.global_theta(cfg))
+                             state["shared_arena_scale"][g] if quant
+                             else None, inputs, window=0,
+                             theta=TF.global_theta(cfg))
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = TF.logits_fn(params, cfg, x[:, 0])
         return torch.argmax(logits, dim=-1).to(torch.int32), state, logits
@@ -117,18 +131,27 @@ def serve_state_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
     """{name: (shape, dtype)} of the serve state at ``geom.cap`` arena rows
     (the engine adds its slack and the arenas' scratch row); ``"ssm"`` maps
     each Mamba2 state to its (shape, dtype), stacked over the SSM layers
-    and batched over the slots."""
+    and batched over the slots. With ``kv_quant_int8`` the arenas are int8
+    and ``arena_scale`` / ``shared_arena_scale`` hold their fp32 scales
+    (one a row, k/v, position and kv head), as in the reference."""
     TF.check_supported(cfg)
     if mesh is not None:
         raise NotPorted("a device mesh for the serve state")
     row = (2, geom.block, cfg.n_kv_heads, cfg.head_dim)
+    quant = cfg.kv_quant_int8
+    kv_dtype = torch.int8 if quant else cfg.dtype
     la = TF.n_attn_layers(cfg)
     specs = {}
     if la:
-        specs["arena"] = ((la, geom.cap) + row, cfg.dtype)
+        specs["arena"] = ((la, geom.cap) + row, kv_dtype)
+        if quant:
+            specs["arena_scale"] = ((la, geom.cap) + row[:-1], torch.float32)
     if cfg.shared_attn_every > 0:
-        specs["shared_arena"] = ((cfg.n_shared_applications(), geom.cap)
-                                 + row, cfg.dtype)
+        napps = cfg.n_shared_applications()
+        specs["shared_arena"] = ((napps, geom.cap) + row, kv_dtype)
+        if quant:
+            specs["shared_arena_scale"] = ((napps, geom.cap) + row[:-1],
+                                           torch.float32)
     if cfg.ssm_layer_ids:
         n = len(cfg.ssm_layer_ids)
         one = SSM.mamba2_init_state(cfg, geom.batch, "meta")
@@ -442,8 +465,13 @@ class ServeEngine:
         for arena, k, v in (("arena", "k", "v"),
                             ("shared_arena", "shared_k", "shared_v")):
             if k in cache:
-                self.state[arena][:, rows.long()] = self._blockify(
-                    cache[k], cache[v], nblk)
+                kv = self._blockify(cache[k], cache[v], nblk)
+                if self.cfg.kv_quant_int8:
+                    # one quantizing pass on the device (the reference's
+                    # install_q): per token, k/v and kv head
+                    kv, sc = quantize_kv(kv)
+                    self.state[arena + "_scale"][:, rows.long()] = sc
+                self.state[arena][:, rows.long()] = kv
         for name, t in cache.get("ssm", {}).items():
             self.state["ssm"][name][:, slot] = t[:, 0]
         self.lengths[slot] = n

@@ -17,9 +17,14 @@ position (``lengths + 1``) and, with a window, one more window position
 before the new one plus itself. The arena is updated in place (the
 reference's jitted step donates it).
 
+The int8 arena (``quant=True``) keeps the reference's order instead: the
+kernel reads the int8 pool (dequantized with its per-token-slot scales)
+and takes the new token as a separate, unquantized self term, so the
+token's own quantization error never enters its step; then the token is
+quantized with its own scale (:func:`quantize_kv`) and written.
+
 Not in this port yet: a device mesh (sharded slots, heads or striped
-blocks) and the int8 arena (``quant=True``); both raise
-:class:`~repro_torch.models.config.NotPorted`.
+blocks) raises :class:`~repro_torch.models.config.NotPorted`.
 """
 from __future__ import annotations
 
@@ -65,11 +70,22 @@ def build_blk_start(geom: PagedGeom) -> np.ndarray:
     return np.broadcast_to(per, (geom.batch, 1, geom.nblk)).astype(np.int32)
 
 
+def quantize_kv(kv: torch.Tensor):
+    """Per-token int8 quantization over the last axis (the reference's
+    write-time rule): ``scale = max(amax, 1e-8) / 127`` in fp32, values
+    rounded half to even and clipped to +-127. Returns (int8 values,
+    fp32 scales without the last axis)."""
+    kv = kv.float()
+    sc = torch.clamp(kv.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.round(kv / sc[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, sc
+
+
 def make_paged_island(geom: PagedGeom, mesh=None, *, scale: float,
                       softcap: float = 0.0, window: int = 0,
                       quant: bool = False):
     """Returns island(q, k_new, v_new, arena_l, pt, blk_start, lengths,
-    write_rows, write_off) -> (attn_out, arena_l).
+    write_rows, write_off[, scale_l]) -> (attn_out, arena_l[, scale_l]).
 
     q [b, h, hd]; k_new/v_new [b, kh, hd]; arena_l [cap + 1, 2, block, kh,
     hd] (row ``cap`` scratch, written in place); pt [b, 1, nblk] pool rows
@@ -77,11 +93,31 @@ def make_paged_island(geom: PagedGeom, mesh=None, *, scale: float,
     starts at j * block, the only layout without a mesh); lengths [b]
     tokens in the pool; write_rows [b, 1] the new token's block row (-1:
     the slot has no request, attends to nothing and gives 0);
-    write_off [b] its offset in the block."""
-    if quant:
-        raise NotPorted("the int8 KV arena")
+    write_off [b] its offset in the block. ``quant=True``: the arena is
+    int8 and ``scale_l`` [cap + 1, 2, block, kh] fp32 its scales, both
+    written in place."""
     if mesh is not None:
         raise NotPorted("a device mesh for the paged island")
+    if quant:
+        def island_q(q, k_new, v_new, arena_l, pt, blk_start, lengths,
+                     write_rows, write_off, scale_l):
+            del blk_start  # positions are j * block without a mesh
+            b = q.shape[0]
+            cap = arena_l.shape[0] - 1
+            own = write_rows.reshape(b) >= 0
+            out = paged_attention(
+                q, arena_l[:cap], pt.reshape(b, -1).to(torch.int32),
+                torch.where(own, lengths, -1).to(torch.int32), scale=scale,
+                softcap=softcap, window=window, scales=scale_l[:cap],
+                kv_self=(k_new, v_new))
+            tgt = torch.where(own, write_rows.reshape(b), cap).long()
+            qv, sc = quantize_kv(torch.stack([k_new, v_new], dim=1))
+            off = write_off.long()
+            arena_l[tgt, :, off] = qv
+            scale_l[tgt, :, off] = sc
+            return out, arena_l, scale_l
+
+        return island_q
     kwin = window + 1 if window and window > 0 else 0
 
     def island(q, k_new, v_new, arena_l, pt, blk_start, lengths,

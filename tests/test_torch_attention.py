@@ -223,7 +223,7 @@ def test_paged_plain_gives_zero_where_nothing_is_visible():
                                **TOLS["float32"])
 
 
-SPLIT_POSITIONS = 64  # positions of one split (csrc/paged_attention.cu)
+SPLIT_POSITIONS = 64  # positions of one split (csrc/paged_attention.cuh)
 
 
 def _split_merge(q, arena, pages, lengths, *, scale, softcap, window, pps):
@@ -395,8 +395,12 @@ def test_island_refuses_what_is_not_ported():
     from repro_torch.models.config import NotPorted
     geom = TPG.plan_geometry(batch=2, seq_len=32, kv_heads=2, head_dim=8,
                              q_heads=4, block=8)
-    with pytest.raises(NotPorted):
-        TPG.make_paged_island(geom, None, scale=1.0, quant=True)
+    # the int8 arena is ported (tests/test_torch_kv_quant.py); a mesh is
+    # not, with or without it
+    assert callable(TPG.make_paged_island(geom, None, scale=1.0, quant=True))
+    for quant in (False, True):
+        with pytest.raises(NotPorted):
+            TPG.make_paged_island(geom, object(), scale=1.0, quant=quant)
     with pytest.raises(NotPorted):
         TPG.plan_geometry(batch=2, seq_len=32, kv_heads=2, head_dim=8,
                           q_heads=4, mesh=object())

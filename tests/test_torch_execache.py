@@ -85,9 +85,10 @@ def fill(dbs, n=24):
 
 # ------------------------------------------------------- cache unit tests
 
-@pytest.mark.parametrize("cls", [JCache, TCache], ids=["ref", "port"])
+@pytest.mark.parametrize("cls", [JCache, lambda: TCache("cpu")],
+                         ids=["ref", "port"])
 def test_cache_get_memoizes_and_bump_retires(cls):
-    c = cls()
+    c = cls()   # the port's cache takes its device explicitly
     built = []
 
     def builder():
@@ -106,7 +107,7 @@ def test_cache_get_memoizes_and_bump_retires(cls):
 
 
 def test_cache_stats_shape():
-    want, got = JCache().stats_dict(), TCache().stats_dict()
+    want, got = JCache().stats_dict(), TCache("cpu").stats_dict()
     assert got == want
     assert got["cached"] == 0 and got["epoch"] == 0
 

@@ -2,7 +2,8 @@
 card: exact equality for the relscan and hash-index kernels (ids, masks,
 counts and index lanes are integers and bits), and for the attention
 kernels fp32 1e-5 (summation order) and bf16 2e-2 (one bf16 rounding of
-the output), and for the Mamba2 scan y within 1e-4 and h_last within
+the output; the int8 read path the same), and for the Mamba2 scan y
+within 1e-4 and h_last within
 1e-3 in fp32 (relative and absolute: summation order over up to 64-step
 tiles and the tensor cores' 3-term TF32 products, ~3e-5), bf16 y within
 2e-2. The paged-attention and scan cases include the edges of their split
@@ -1206,6 +1207,67 @@ def test_paged_attention_matches_plain(cuda, b, h, kh, hd, block, nblk,
         assert not got[torch.from_numpy(lens == 0).to(cuda)].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("self_term", [True, False])
+@pytest.mark.parametrize(
+    "b,h,kh,hd,block,nblk,window,softcap,lengths",
+    [
+        (4, 32, 4, 128, 16, 16, 0, 0.0, [24, 31, 0, 40]),     # yi-6b decode
+        (4, 32, 32, 80, 16, 32, 0, 0.0, [24, 31, 0, 310]),    # zamba2's
+        (3, 8, 4, 8, 8, 6, 0, 0.0, [5, 17, 48]),              # hd 8: 8 bytes
+        (4, 32, 4, 128, 16, 16, 0, 0.0, [64, 128, 65, 63]),   # split edges
+        (3, 32, 32, 80, 16, 64, 0, 0.0, [1024, 0, 1]),        # many splits
+        (2, 8, 8, 80, 8, 40, 33, 20.0, [310, 64]),            # window+softcap
+        (2, 4, 4, 128, 32, 3, 0, 50.0, [70, 9]),              # softcap
+        (2, 8, 2, 256, 8, 5, 9, 30.0, [33, 40]),              # hd 256
+    ])
+def test_paged_attention_int8_matches_plain(cuda, b, h, kh, hd, block, nblk,
+                                            window, softcap, lengths,
+                                            self_term, dtype):
+    """The int8 read path (an int8 arena quantized per token as the serve
+    engine writes it, its fp32 scales, q in fp32 or bf16) against the
+    plain version with scales, with and without the unquantized self term;
+    with it, a slot at -1 attends nothing (0) and a slot at 0 only its
+    own token."""
+    from repro_torch.serving.paged import quantize_kv
+    rng = np.random.default_rng(b * 100 + nblk + hd)
+    cap = b * nblk + 4
+    pages = np.full((b, nblk), -1, np.int32)
+    perm = rng.permutation(cap)
+    pi = 0
+    for i, n_tok in enumerate(lengths):
+        n = -(-n_tok // block)
+        pages[i, :n] = perm[pi:pi + n]
+        pi += n
+    lens = np.asarray(lengths, np.int32)
+    if self_term and b >= 3:
+        lens[-1], lens[-2] = -1, 0
+    g = torch.Generator(device=cuda).manual_seed(hd + nblk)
+    q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
+    arena, scales = quantize_kv(torch.randn((cap, 2, block, kh, hd),
+                                            generator=g, device=cuda))
+    kv_self = (tuple(torch.randn((b, kh, hd), generator=g,
+                                 device=cuda).to(dtype) for _ in range(2))
+               if self_term else None)
+    pt = torch.from_numpy(pages).to(cuda)
+    ln = torch.from_numpy(lens).to(cuda)
+    kw = dict(scale=hd ** -0.5, softcap=softcap, window=window,
+              scales=scales, kv_self=kv_self)
+    got = PA.paged_attention(q, arena, pt, ln, **kw)
+    want = PA.paged_attention_ref(q, arena, pt, ln, **kw)
+    again = PA.paged_attention(q, arena, pt, ln, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) <= ATT_TOL[dtype]
+    assert torch.equal(got, again)
+    if self_term and b >= 3:
+        assert not got[-1].any()
+        np.testing.assert_allclose(
+            got[-2].float().cpu().numpy(), kv_self[1][-2].repeat_interleave(
+                h // kh, dim=0).float().cpu().numpy(), rtol=0,
+            atol=ATT_TOL[dtype])
+
+
 SCAN_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 1e-3)}
 
 
@@ -1259,14 +1321,17 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def _serve_engines(cuda, arch, max_seq, lens, seed=0):
-    """A CPU engine and a card engine over the same fp32 SMOKE weights,
-    and seeded prompts of ``lens`` tokens. The card engine's round and
-    block allocation run with sync debugging set to "error"."""
+def _serve_engines(cuda, arch, max_seq, lens, seed=0, quant=False):
+    """A CPU engine and a card engine over the same fp32 SMOKE weights
+    (``quant``: with the int8 arena), and seeded prompts of ``lens``
+    tokens. The card engine's round and block allocation run with sync
+    debugging set to "error"."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.models import transformer as TF
     from repro_torch.serving.engine import ServeEngine
-    cfg = configs.get_smoke(arch)
+    cfg = dataclasses.replace(configs.get_smoke(arch), kv_quant_int8=quant)
     params = TF.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
@@ -1487,3 +1552,99 @@ def test_kvpool_delete_and_find_prefix_on_card(cuda):
         np.testing.assert_array_equal(want, got)
     np.testing.assert_equal(out[0][1], out[1][1])
     assert _build.launches["relscan_scan"] > 0
+
+
+def test_int8_engine_on_card_matches_cpu(cuda):
+    """yi-6b SMOKE (fp32) with the int8 arena, its decode round one
+    captured CUDA graph on the card: the same tokens as the CPU engine
+    over 9 rounds, logits within 1e-2 (the two devices' fp32 K/V differ
+    by a few ulp, so a value on a rounding boundary quantizes one step
+    apart), int8 arenas equal but for such steps and scales within 1e-5;
+    no sync from the capture on; the paged kernel once per layer and
+    round (the prime round included)."""
+    from repro_torch.kernels import _build
+    cfg, engines, prompts = _serve_engines(cuda, "yi-6b", 64, (9, 17, 8),
+                                           quant=True)
+    cpu, card = engines
+    assert card.state["arena"].dtype == torch.int8
+    _build.reset_launches()
+    for e in engines:
+        for i, p in enumerate(prompts):
+            e.add_request(p, user_id=i)
+    for _ in range(9):
+        assert cpu.decode_round() == card.decode_round()
+        assert float((cpu.logits - card.logits.cpu()).abs().max()) <= 1e-2
+    assert _build.launches["paged_attention"] == 10 * cfg.n_layers
+    got = card.state["arena"].cpu().to(torch.int32)
+    want = cpu.state["arena"].to(torch.int32)
+    assert int((got - want).abs().max()) <= 1
+    assert int((got != want).sum()) <= got.numel() // 1000
+    np.testing.assert_allclose(card.state["arena_scale"].cpu().numpy(),
+                               cpu.state["arena_scale"].numpy(), rtol=1e-5,
+                               atol=0)
+    _release_engines(engines)
+
+
+def test_mesh_fanout_on_card_equals_cpu(cuda):
+    """A SHARDS 8 table placed over a lane mesh of 4 entries (cuda:0
+    repeated on one card, distinct cards where there are four) against an
+    unplaced CPU daemon: pruned and fan-out statements, batched ones,
+    RESHARD 2 and 1, equal results and states and no sync; a warm fan-out
+    is one graph launch a block plus the merge's, no kernel launch, and
+    2 d + 1 copies (each block's bound values in and its packed outputs
+    into the merge's input, the merge's outputs out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import SQLCached
+    from repro_torch.launch import mesh as M
+    with M.force_device_count(4):
+        dbs = (SQLCached(warmup=False),
+               SQLCached(device="cpu", warmup=False, mesh_exec=False))
+        ddl = ("CREATE TABLE m (k INT, p INT, v INT, INDEX(p)) CAPACITY 4096 "
+               "MAX_SELECT 64 SHARDS 8 PARTITION BY k")
+        for db in dbs:
+            db.execute(ddl)
+        assert len(dbs[0].tables["m"].mesh) == 4
+        rng = np.random.default_rng(3)
+        rows = [(int(rng.integers(0, 300)), int(rng.integers(0, 100)), i)
+                for i in range(3000)]
+        _both(dbs, "executemany", "INSERT INTO m (k, p, v) VALUES (?, ?, ?)",
+              rows)
+        for i in range(6):
+            _both(dbs, "execute", "SELECT * FROM m WHERE k = ?", (i,))
+            _both(dbs, "execute", "SELECT * FROM m WHERE p = ? LIMIT 20",
+                  (i,))
+            _both(dbs, "execute",
+                  "SELECT k, v FROM m WHERE v > ? ORDER BY v DESC LIMIT 9",
+                  (i * 100,))
+            _both(dbs, "execute", "SELECT AVG(v) FROM m WHERE p = ?", (i,))
+            _both(dbs, "execute", "UPDATE m SET v = v + 1 WHERE p = ?", (i,))
+            _both(dbs, "execute", "DELETE FROM m WHERE p = ?", (50 + i,))
+        _both(dbs, "executemany", "SELECT * FROM m WHERE p = ? LIMIT 8",
+              [(x,) for x in range(10, 26)])
+        _same_state(dbs, "m")
+        sql, args = "SELECT COUNT(*) FROM m WHERE p = ?", (7,)
+        _both(dbs, "execute", sql, args)    # planned (captured)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                dbs[0].execute(sql, args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type != DeviceType.CUDA]
+        assert names.count("cudaGraphLaunch") == 5 * (4 + 1)
+        assert names.count("cudaMemcpyAsync") == 5 * (2 * 4 + 1)
+        assert not any(n in names for n in ("cudaLaunchKernel",
+                                            "cudaLaunchKernelExC",
+                                            "cuLaunchKernel"))
+        for _ in range(5):
+            dbs[1].execute(sql, args)
+        for n in (2, 1):   # an admin statement reads its count back
+            assert len({db.execute(f"ALTER TABLE m RESHARD {n}").count
+                        for db in dbs}) == 1
+            _both(dbs, "execute", "SELECT * FROM m WHERE p = ? LIMIT 20",
+                  (3,))
+            _same_state(dbs, "m")
+    _release(*dbs)

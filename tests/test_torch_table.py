@@ -82,7 +82,7 @@ def random_states(seed, ttl=False, n_ops=7):
     given, so tests may share one)."""
     rng = np.random.default_rng(seed)
     jsch, tsch = schemas(ttl=1 if ttl else 0)
-    js, ts = JT.init_state(jsch), TT.init_state(tsch)
+    js, ts = JT.init_state(jsch), TT.init_state(tsch, "cpu")
     for _ in range(n_ops):
         op = rng.integers(0, 5)
         if op <= 1:
@@ -259,7 +259,7 @@ def test_lru_eviction_with_tied_stamps():
     test here uses capacity 192, so the reference's compiled ops are
     shared between tests.)"""
     jsch, tsch = schemas(max_select=16)
-    js, ts = JT.init_state(jsch), TT.init_state(tsch)
+    js, ts = JT.init_state(jsch), TT.init_state(tsch, "cpu")
     rng = np.random.default_rng(0)
     js, ts = insert_both(jsch, tsch, js, ts, rng, 192)      # one stamp
     js, ts = insert_both(jsch, tsch, js, ts, rng, 8)        # evicts 8
@@ -273,7 +273,7 @@ def test_lru_eviction_with_tied_stamps():
 
 def test_bulk_insert_stale_index_and_fallback():
     jsch, tsch = schemas(max_select=192)
-    js, ts = JT.init_state(jsch), TT.init_state(tsch)
+    js, ts = JT.init_state(jsch), TT.init_state(tsch, "cpu")
     n = 150  # one key past the bucket's 128 lanes -> stale
     k = np.full(n, 7, np.int32)
     w = np.arange(n, dtype=np.int32)
@@ -295,7 +295,7 @@ def test_bulk_insert_stale_index_and_fallback():
 
 def test_int32_sum_wraps_like_the_reference():
     jsch, tsch = schemas(indexes=())
-    js, ts = JT.init_state(jsch), TT.init_state(tsch)
+    js, ts = JT.init_state(jsch), TT.init_state(tsch, "cpu")
     w = np.full(10, 2**31 - 5, np.int32)
     js, _, _ = JT.insert(jsch, js, {"w": jnp.asarray(w)})
     ts, _, _ = TT.insert(tsch, ts, {"w": torch.from_numpy(w)})
@@ -306,7 +306,7 @@ def test_int32_sum_wraps_like_the_reference():
 
 def test_max_rows_expiry_and_order_by():
     jsch, tsch = schemas(max_select=16, indexes=(), max_rows=10)
-    js, ts = JT.init_state(jsch), TT.init_state(tsch)
+    js, ts = JT.init_state(jsch), TT.init_state(tsch, "cpu")
     rng = np.random.default_rng(9)
     for m in (8, 8, 8):
         js, ts = insert_both(jsch, tsch, js, ts, rng, m)
