@@ -51,9 +51,12 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               bound, and the time of the same work as 8 separate calls.
    kernels_attention -- the flash- and paged-attention kernels against
               their plain versions (fp32 within 1e-5, bf16 within 2e-2)
-              at tests/test_kernels.py's shapes, head dims 8-256, both
+              at tests/test_kernels.py's shapes, head dims 8-256, the
               serve paths' own shapes (yi-6b at head dim 128, zamba2's
-              shared block at 80), the flash kernels' tile edges (lengths
+              shared block at 80, gemma2's hd 256 with softcap 50,
+              starcoder2's 36 / 4 heads, gemma3's 1,200-token prompt
+              and its 1,024-token window crossed in the decode), the
+              flash kernels' tile edges (lengths
               1-300 around the 16-row warp, 64-row CTA and 64-key tiles,
               each head dim, GQA 8:1, windows, softcap, q_offset), query
               rows that see no key (a window past the last key: the mean
@@ -133,7 +136,24 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               REINDEX retires every plan, each followed by statements
               that must equal the CPU daemon's. Reports capture ms, the
               Table 2 table's graph-pool bytes and wall p50s.
-6. serve   -- the paged-KV serving engine with yi-6b at full width (bf16,
+6. serve_gemma3, serve_gemma2, serve_starcoder2, serve_falcon_mamba --
+              the paged-KV serving engine with the four other archs it
+              serves, each at its published width and depth (bf16, random
+              weights from a seeded torch.Generator), run first, one at a
+              time (each engine and its weights released after its
+              checks; gemma3-27b's weights alone take 54 GB): gemma3-27b
+              (62 layers, 5 local : 1 global, q/k and sandwich norms; the
+              launcher's prompts plus one of 1,200 tokens, so that the
+              local layers' 1,024-token window binds in the flash prefill
+              and the paged decode; max_seq 1,536), gemma2-2b (26 layers,
+              hd 256, both softcaps), starcoder2-7b (36 / 4 heads) and
+              falcon-mamba-7b (64 Mamba1 layers, no arena; plus a
+              300-token prompt, so that its scan crosses a 256-step
+              chunk), with serve's traffic and checks (below): logits
+              within 0.05 of the dense reference, the CPU replay, the warm
+              round, exact launch counts (falcon-mamba: no flash or paged
+              launch), peak memory.
+   serve   -- the paged-KV serving engine with yi-6b at full width (bf16,
               random weights from a seeded torch.Generator) on the card:
               launch/serve.py's default traffic (6 requests of 8-24
               tokens, 16 new tokens, 4 slots, block 16, max_seq 256), then
@@ -198,9 +218,10 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               device time by family, idle share), and for zamba2's
               300-token prefill.
 
-Phases 3-6 are fourteen main paths (serve, serve_zamba2, serve_int8,
+Phases 3-6 are eighteen main paths (serve_gemma3, serve_gemma2,
+serve_starcoder2, serve_falcon_mamba, serve, serve_zamba2, serve_int8,
 serve_int8_zamba2, Table 2 plain, Table 2 indexed, Fig. 1, wire, graphs,
-shards, mesh, snapshot, cluster, cluster_chaos; the four serve
+shards, mesh, snapshot, cluster, cluster_chaos; the eight serve
 paths run first, since their warm round check reads the card's copy
 records, which a longer profiled process was seen to lose). A statement kernel that runs inside a
 captured graph counts once per launch on the card: the plan's prime run,
@@ -212,17 +233,18 @@ script (its table has INDEX(k)), all four in shards, mesh, snapshot and
 cluster (cluster_chaos's kernels run in child processes, which the
 counters cannot see: that path checks results only); flash attention,
 paged attention and the relscan scan on
-the four serve paths, and the Mamba2 scan on zamba2's two, each an exact
-number
-of times (per attention layer or shared-block application and prefill or
-round, the capture's prime round included; per Mamba2 layer and
-prefill). Then comes a ``kernels`` line
+the serve paths of attention archs, the relscan scan alone on
+falcon-mamba's (the DELETEs of its empty kv table), and the Mamba2 scan on
+zamba2's two, each an exact number of times (per attention layer or
+shared-block application and prefill or round, the capture's prime round
+included; per Mamba2 layer and prefill; zero where the arch has none). Then comes a ``kernels`` line
 (launches summed over the paths), the ``nvidia-smi`` line, and the final
 status line.
 Any failure raises: the script exits non-zero and prints no status line,
 and so it does without a CUDA card or outside a checkout of the repo.
 """
 import dataclasses
+import gc
 import json
 import pathlib
 import re
@@ -246,6 +268,7 @@ if not torch.cuda.is_available():
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import daemon as D  # noqa: E402
+from repro_torch.core import execache as EC  # noqa: E402
 from repro_torch.core import protocol as PR  # noqa: E402
 from repro_torch.core import shards as SH  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -256,6 +279,7 @@ from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import relscan as RS  # noqa: E402
 from repro_torch.launch import mesh as MESH  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
+from repro_torch.models.config import MAMBA2  # noqa: E402
 from repro_torch.serving import paged as PG  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
@@ -1098,6 +1122,17 @@ FLASH_CASES = [
     (1, 32, 32, 24, 24, 80, True, 0, 0.0, 0),
     (1, 32, 32, 300, 300, 80, True, 0, 0.0, 0),
     (2, 4, 4, 37, 37, 80, True, 9, 15.0, 0),
+    # gemma2's prefills: hd 256, 8 / 4 heads, softcap 50, window 4096 (and
+    # one that binds)
+    (1, 8, 4, 23, 23, 256, True, 4096, 50.0, 0),
+    (1, 8, 4, 300, 300, 256, True, 100, 50.0, 0),
+    # starcoder2's: 36 / 4 heads (GQA group 9)
+    (1, 36, 4, 23, 23, 128, True, 0, 0.0, 0),
+    (1, 36, 4, 300, 300, 128, True, 0, 0.0, 0),
+    # gemma3's 1,200-token prompt: a local layer (window 1,024) and a
+    # global one, 32 / 16 heads
+    (1, 32, 16, 1200, 1200, 128, True, 1024, 0.0, 0),
+    (1, 32, 16, 1200, 1200, 128, True, 0, 0.0, 0),
 ]
 # the flash kernels' tile edges at every compiled head dim: lengths around
 # the 16-row warp tile, the 64-row CTA tile and the 64-key (32 at hd 256)
@@ -1122,7 +1157,8 @@ FLASH_EDGE_CASES = [(1, 8, 1, n, n, hd, True, 0, 0.0, 0)
 # (b, h, kh, s, hd) of the strided case: q/k/v as attention_prefill passes
 # them, [b, s, heads, hd] projections transposed to [b, heads, s, hd]
 FLASH_VIEW_CASES = [(1, 32, 32, 300, 80), (1, 32, 4, 24, 128),
-                    (2, 8, 2, 37, 8)]
+                    (2, 8, 2, 37, 8), (1, 36, 4, 23, 128),
+                    (1, 8, 4, 23, 256), (1, 32, 16, 1200, 128)]
 
 # (b, h, kh, hd, block, nblk, window, softcap, lengths or None, holes):
 # holes are (sequence, page) entries of the page table set to -1
@@ -1155,6 +1191,16 @@ PAGED_CASES = [
     (2, 8, 2, 64, 8, 12, 0, 0.0, [90, 70], ((0, 9), (1, 2))),
     (2, 8, 8, 80, 16, 16, 0, 0.0, [250, 100], ((0, 4), (0, 5), (0, 6),
                                                (0, 7), (1, 2))),
+    # the new serve paths' decode (the island passes window + 1): gemma2
+    # (hd 256, softcap 50, window 4096; and one that binds), starcoder2
+    # (36 / 4 heads), gemma3 (32 / 16 heads, max_seq 1,536, a local
+    # layer's window of 1,024 crossed, and a global layer)
+    (4, 8, 4, 256, 16, 16, 4097, 50.0, [24, 31, 0, 40], ()),
+    (4, 8, 4, 256, 16, 20, 101, 50.0, [300, 31, 100, 102], ()),
+    (4, 36, 4, 128, 16, 16, 0, 0.0, [24, 31, 0, 40], ()),
+    (4, 36, 4, 128, 16, 16, 0, 0.0, [9, 17, 33, 256], ()),
+    (4, 32, 16, 128, 16, 96, 1025, 0.0, [1216, 1025, 17, 0], ()),
+    (4, 32, 16, 128, 16, 96, 0, 0.0, [1216, 1025, 17, 0], ()),
 ]
 SERVE_DECODE_LENGTHS = [24, 31, 17, 40]
 ZAMBA_DECODE_LENGTHS = [24, 31, 17, 310]
@@ -1162,6 +1208,13 @@ ZAMBA_DECODE_LENGTHS = [24, 31, 17, 310]
 # zamba2's shared block (4 slots, block 16, bf16)
 PAGED_YI = (32, 4, 128, 16, SERVE_DECODE_LENGTHS, "")
 PAGED_ZAMBA = (32, 32, 80, 32, ZAMBA_DECODE_LENGTHS, " (zamba2's shared block)")
+# the new serve paths' decode shapes: gemma2 (hd 256, softcap 50),
+# starcoder2 (GQA group 9) and a gemma3 local layer (window 1,024 crossed
+# by its 1,200-token prompt)
+PAGED_GEMMA2 = (8, 4, 256, 16, SERVE_DECODE_LENGTHS, " (gemma2)", 0, 50.0)
+PAGED_STARCODER2 = (36, 4, 128, 16, SERVE_DECODE_LENGTHS, " (starcoder2)")
+PAGED_GEMMA3 = (32, 16, 128, 96, [1216, 24, 31, 17],
+                " (gemma3, a local layer)", 1025)
 
 
 def att_err(got, want, dtype, what) -> float:
@@ -1303,23 +1356,26 @@ def paged_int8_timing(rng, gen, dev, h, kh, hd, nblk, lengths, what):
         "bf16_arena_device_ms": call_device_ms(run_bf)}
 
 
-def paged_timing(rng, gen, dev, h, kh, hd, nblk, lengths, what):
+def paged_timing(rng, gen, dev, h, kh, hd, nblk, lengths, what, window=0,
+                 softcap=0.0):
     """One decode call of paged attention at a serve path's shape: its
     time, the device time of the whole call and its device launches, the
-    plain version's time and the bound."""
+    plain version's time and the bound (over the positions the window
+    leaves visible)."""
     q, arena, pages, lens = paged_inputs(rng, gen, dev, torch.bfloat16, 4, h,
                                          kh, hd, 16, nblk, lengths)
-    scale = hd ** -0.5
-    run = lambda: PA.paged_attention(  # noqa: E731
-        q, arena, pages, lens, scale=scale)
-    b_ms, b_by = bound(*paged_work(h, kh, hd, nblk, lengths, 2), BF16_OPS_S)
+    kw = dict(scale=hd ** -0.5, window=window, softcap=softcap)
+    run = lambda: PA.paged_attention(q, arena, pages, lens, **kw)  # noqa: E731
+    seen = [min(n, window - 1) if window else n for n in lengths]
+    b_ms, b_by = bound(*paged_work(h, kh, hd, nblk, seen, 2), BF16_OPS_S)
     return {
         "kernel": "paged_attention", "shape": f"b4 h{h}/kh{kh} hd{hd} "
-        f"block16 nblk{nblk} lengths {lengths} bf16{what}",
+        f"block16 nblk{nblk} lengths {lengths} window {window} softcap "
+        f"{softcap} bf16{what}",
         "ms": time_ms(run), "device_ms": call_device_ms(run),
         "device_launches": device_launches(run),
         "plain_ms": time_ms(lambda: PA.paged_attention_ref(
-            q, arena, pages, lens, scale=scale)),
+            q, arena, pages, lens, **kw)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "library": "none: no single PyTorch call gathers K/V through a page "
                    "table"}
@@ -1475,7 +1531,13 @@ def phase_kernels_attention(dev, card):
             ("flash_attention_hd80_s300", 32, 32, 300, 80,
              "zamba2's shared block"),
             ("flash_attention_s2048", 32, 4, 2048, 128,
-             "yi-6b's heads, one long prompt")):
+             "yi-6b's heads, one long prompt"),
+            ("flash_attention_g9_s300", 36, 4, 300, 128,
+             "starcoder2's heads"),
+            ("flash_attention_hd256_s300", 8, 4, 300, 256,
+             "gemma2's heads, no softcap"),
+            ("flash_attention_gemma3_s1200", 32, 16, 1200, 128,
+             "gemma3's heads, a global layer of its 1,200-token prompt")):
         scale = hd ** -0.5
         q, k, v = flash_inputs(gen, dev, bf, 1, h, kh, s, s, hd)
         run = lambda: FA.flash_attention(q, k, v, scale=scale)  # noqa: E731
@@ -1499,6 +1561,10 @@ def phase_kernels_attention(dev, card):
             "library": "torch.nn.functional.scaled_dot_product_attention",
             "library_max_abs_diff": lib_diff}
     out["paged_attention_hd80"] = paged_timing(rng, gen, dev, *PAGED_ZAMBA)
+    out["paged_attention_hd256"] = paged_timing(rng, gen, dev, *PAGED_GEMMA2)
+    out["paged_attention_g9"] = paged_timing(rng, gen, dev,
+                                             *PAGED_STARCODER2)
+    out["paged_attention_w1024"] = paged_timing(rng, gen, dev, *PAGED_GEMMA3)
     out["paged_attention_int8"] = paged_int8_timing(rng, gen, dev, *PAGED_YI)
     out["paged_attention_int8_hd80"] = paged_int8_timing(rng, gen, dev,
                                                          *PAGED_ZAMBA)
@@ -1866,6 +1932,20 @@ def phase_wire(card):
 SERVE_LOGIT_ATOL = 0.05   # yi-6b's; zamba2's is measured (teacher_forced)
 SERVE_BLOCK = 16
 ZAMBA_LONG_PROMPT = 300   # tokens: the scan carries its state over 5 tiles
+# the new archs' serve paths at full width (phase_serve's arguments), run
+# before the others: gemma3's 1,200-token prompt crosses its local layers'
+# 1,024-token window in the flash prefill and the paged decode;
+# falcon-mamba's 300-token prompt crosses its Mamba1 scan's 256-step chunk.
+# The three attention archs are held to the fixed logit bound;
+# falcon-mamba to the bound measured in the same call (as zamba2): the
+# fixed 0.05 did not hold there (0.051-0.061 over 112 steps, on the card).
+NEW_SERVE = {
+    "serve_gemma3": ("gemma3-27b", dict(max_seq=1536, long_prompt=1200)),
+    "serve_gemma2": ("gemma2-2b", dict(max_seq=256)),
+    "serve_starcoder2": ("starcoder2-7b", dict(max_seq=256)),
+    "serve_falcon_mamba": ("falcon-mamba-7b",
+                           dict(max_seq=512, long_prompt=300, atol=None)),
+}
 
 
 def serve_prompts(cfg, n=6, seed=SEED):
@@ -2001,11 +2081,42 @@ class Int8Reference:
         TF.attention_decode = self._orig
 
 
+class DenseStep:
+    """``TF.decode_step`` for ``b`` sequences over static token and length
+    buffers, captured as one CUDA graph: the same plain PyTorch ops,
+    replayed (an eager step of a deep model is bound by the host's
+    launches: 127-160 ms a step of gemma3-27b, whose weights take 16 ms to
+    read). The warm-up step's writes into ``cache`` are zeroed. A call
+    returns the step's logits as a tensor of its own."""
+
+    def __init__(self, cfg, params, cache, b, dev):
+        self.toks = torch.zeros(b, dtype=torch.long, device=dev)
+        self.lens = torch.zeros(b, dtype=torch.long, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            TF.decode_step(params, cfg, self.toks, cache, self.lens)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = TF.decode_step(params, cfg, self.toks, cache,
+                                      self.lens)[0]
+        tree_map(lambda t: t.zero_(), cache)
+
+    def __call__(self, toks, lengths):
+        self.toks.copy_(toks)
+        self.lens.copy_(lengths)
+        self.graph.replay()
+        return self.out.clone()
+
+
 def teacher_forced(cfg, params, dev, records, atol=SERVE_LOGIT_ATOL):
     """The kernel path's tokens through a dense, kernel-free reference on
     the card: every prompt and its generated tokens go one token a step
     through ``decode_step`` (dense cache, plain attention, the SSM
-    recurrence) in one batch. The reference's logits after token n-1 must
+    recurrence) in one batch, each step one replay of a CUDA graph of its
+    plain ops (:class:`DenseStep`; eager with ``kv_quant_int8``, whose
+    reference changes per step). The reference's logits after token n-1 must
     match the prefill's, and after each generated token the next round's,
     within ``atol``; where the reference's top-2 margin exceeds that
     tolerance the kernel path must have picked the reference's token.
@@ -2032,6 +2143,9 @@ def teacher_forced(cfg, params, dev, records, atol=SERVE_LOGIT_ATOL):
     if quant:   # fp32 caches: the dequantized values are the kernel's
         caches = [{k: (v.float() if k != "ssm" else v) for k, v in c.items()}
                   for c in caches]
+    else:
+        dense = [DenseStep(c, p, cache, len(seqs), dev)
+                 for (c, p), cache in zip(runs, caches)]
     pairs = []   # (request, step, kernel path's logits, reference, fp32 run)
     for t in range(steps):
         toks = torch.tensor([x[t] if t < len(x) else 0 for x in seqs],
@@ -2048,8 +2162,7 @@ def teacher_forced(cfg, params, dev, records, atol=SERVE_LOGIT_ATOL):
                 outs = [TF.decode_step(p, c, toks, cache, lengths)[0][
                     :, :cfg.vocab] for (c, p), cache in zip(runs, caches)]
         else:
-            outs = [TF.decode_step(p, c, toks, cache, lengths)[0][
-                :, :cfg.vocab] for (c, p), cache in zip(runs, caches)]
+            outs = [step(toks, lengths)[:, :cfg.vocab] for step in dense]
         for i, r in enumerate(records):
             j = t - (len(r["prompt"]) - 1)
             if 0 <= j < len(r["logits"]):
@@ -2093,6 +2206,17 @@ def teacher_forced(cfg, params, dev, records, atol=SERVE_LOGIT_ATOL):
             "ref_logit_max_abs": float(refs.abs().max())}
 
 
+def release(db) -> None:
+    """Drop ``db``'s tables and hand the graphs' pools and the cached
+    blocks of everything no longer referenced back to the card."""
+    for name in list(db.tables):
+        db.execute(f"DROP TABLE {name}")
+    sync()
+    EC._sweep()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
@@ -2100,14 +2224,17 @@ def tree_map(fn, tree):
 
 
 def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
-                name="serve", atol=SERVE_LOGIT_ATOL, bf16=None):
+                name="serve", atol=SERVE_LOGIT_ATOL, bf16=None, keep=True):
     """``arch`` at full width through ServeEngine, as launch/serve.py
     drives it (plus, with ``long_prompt``, one prompt of that many tokens,
     admitted first), then one evict_user and one flush. ``hold`` keeps
     the engine for the profile phase and the launch counts the path must
     show. ``bf16``: the ``hold`` of the same arch's bf16 path, whose
     weights this path reuses with the int8 arena (``kv_quant_int8``, as
-    the reference reaches it), comparing arenas and greedy tokens."""
+    the reference reaches it), comparing arenas and greedy tokens.
+    ``keep=False``: the engine (its decode graph and pool) is dropped
+    before the dense reference runs and ``hold`` keeps no engine or
+    weights, so that the card's memory holds one large model at a time."""
     cfg = configs.get_config(arch)
     if bf16 is not None:
         cfg = dataclasses.replace(cfg, kv_quant_int8=True)
@@ -2158,7 +2285,9 @@ def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
             t0 = time.perf_counter()
             n = eng.finish_request(s)
             finish_ms.append((time.perf_counter() - t0) * 1e3)
-            if n != -(-n_tok // SERVE_BLOCK):
+            # an attention-free stack allocates no block (the reference's
+            # engine neither)
+            if n != (-(-n_tok // SERVE_BLOCK) if eng.attends else 0):
                 raise AssertionError(f"finish_request freed {n} blocks for "
                                      f"{n_tok} tokens")
             freed.append(n)
@@ -2186,6 +2315,13 @@ def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
     if replay["cpu_live_rows"] != 0:
         raise AssertionError("the CPU replay kept live rows")
     peak_gb = (torch.cuda.max_memory_allocated(dev) - resident) / 1e9
+    graph_info = {"graph_capture_ms": graph.capture_ms,
+                  "graph_pool_bytes": graph_pool_bytes(graph.pool),
+                  "graph_launches_per_round": graph.launches}
+    daemon = eng.daemon
+    if not keep:   # the dense reference runs without the engine beside it
+        del eng, graph, log
+        release(daemon)
     if atol is None and bf16 is not None:
         # the bound the bf16 path measured in this run on the same weights
         # (twice the bf16 reference's distance from fp32): the fp32 run is
@@ -2194,6 +2330,7 @@ def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
     t0 = time.perf_counter()
     tf = teacher_forced(cfg, params, dev, records, atol)
     tf_s = time.perf_counter() - t0
+    peak_tf_gb = (torch.cuda.max_memory_allocated(dev) - resident) / 1e9
     n_rounds = len(round_ms)
     prefills, rounds = len(records) + len(extra), n_rounds + extra_rounds
     attn = TF.n_attn_layers(cfg) + cfg.n_shared_applications()
@@ -2201,11 +2338,12 @@ def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
     quant = {}
     if bf16 is not None:
         quant = int8_report(eng, bf16, records)
-    hold.update(eng=eng, cfg=cfg, params=params, records=records,
-                atol=tf["atol"], want={
-        "flash_attention": attn * prefills,
-        "paged_attention": attn * (rounds + 1),
-        "mamba2_scan": len(cfg.ssm_layer_ids) * prefills})
+    want = {"flash_attention": attn * prefills,
+            "paged_attention": attn * (rounds + 1),
+            "mamba2_scan": cfg.layer_pattern.count(MAMBA2) * prefills}
+    if keep:
+        hold.update(eng=eng, cfg=cfg, params=params, records=records)
+    hold.update(atol=tf["atol"], want=want)
     lens = [len(r["prompt"]) for r in records]
     emit({"phase": name, "card": card, "arch": cfg.name,
           "params_b": cfg.param_count() / 1e9,
@@ -2222,14 +2360,15 @@ def phase_serve(card, dev, hold, arch="yi-6b", max_seq=256, long_prompt=0,
           "tokens_per_s": tokens_out / serve_s,
           "host_ms_in_insert_blocks": host.get("_insert_blocks", 0) * 1e3,
           "host_ms_in_step_dispatch": host.get("_step", 0) * 1e3,
-          "graph_capture_ms": graph.capture_ms,
-          "graph_pool_bytes": graph_pool_bytes(graph.pool),
-          "graph_launches_per_round": graph.launches,
+          **graph_info,
           "warm_round_launch_calls": warm,
           "finish_request_ms": [round(x, 3) for x in finish_ms],
           "freed_blocks": freed, "evict_user_blocks": evicted,
           "flush_blocks": flushed, "kv_replay": replay,
-          "peak_memory_gb": peak_gb, "resident_before_gb": resident / 1e9,
+          "peak_memory_gb": peak_gb,
+          "peak_memory_gb_with_dense_reference": peak_tf_gb,
+          "resident_before_gb": resident / 1e9,
+          "launches_expected": want,
           "teacher_forced": tf, "teacher_forced_s": tf_s, **quant})
 
 
@@ -3682,7 +3821,23 @@ def main():
     # the kv table has no payload, so the serve paths' DELETEs take the
     # mask-only route (the scan, no compaction), as in the reference
     serve_need = ("flash_attention", "paged_attention", "relscan_scan")
-    paths = (
+    # the new archs' engines are not held: each path's model takes the
+    # card alone (gemma3-27b's weights 54 GB), and ends with its engine
+    # and weights released
+    new = {name: {} for name in NEW_SERVE}
+    paths = tuple(
+        (name, lambda name=name: phase_serve(
+            card, dev, new[name], NEW_SERVE[name][0], name=name,
+            keep=False, **NEW_SERVE[name][1]),
+         # falcon-mamba is attention-free: no flash or paged launch (its
+         # Mamba1 scan is plain PyTorch, as the reference's is jnp); its
+         # requests allocate no block, but finish_request and evict_user
+         # still run their DELETEs on the kv table, as the reference's
+         # engine does, and each one scans the table (so does the prime
+         # run of the DELETE plan that the table's CREATE-time warm-up
+         # captures)
+         ("relscan_scan",) if name == "serve_falcon_mamba" else serve_need)
+        for name in NEW_SERVE) + (
         # the serve paths first: their warm-round check reads the card's
         # copy records, which a longer profiled process was seen to lose
         ("serve", lambda: phase_serve(card, dev, serve), serve_need),
@@ -3732,7 +3887,7 @@ def main():
             raise AssertionError(f"{path}: kernels never launched on this "
                                  f"path: {missing} ({got})")
         held = {"serve": serve, "serve_zamba2": zamba, "serve_int8": int8_yi,
-                "serve_int8_zamba2": int8_zamba}.get(path)
+                "serve_int8_zamba2": int8_zamba, **new}.get(path)
         if held is not None:  # one launch per layer per prefill / round
             if any(got[k] != n for k, n in held["want"].items()):
                 raise AssertionError(f"{path}: launches {got}, expected "
@@ -3741,6 +3896,9 @@ def main():
             launches[k] += n
         if path == "serve_int8_zamba2":   # hand the int8 engines back
             int8_yi.clear(), int8_zamba.clear()
+            torch.cuda.empty_cache()
+        if path in new:   # its weights are garbage now: hand them back
+            gc.collect()
             torch.cuda.empty_cache()
     emit({"phase": "main_path_launches", **launches})
     emit({"phase": "profiler_edges", **profiler_edges()})

@@ -26,7 +26,8 @@ ARCHS: dict[str, str] = {
     "gemma2-2b": "gemma2_2b",
 }
 
-PORTED = frozenset({"yi-6b", "zamba2-2.7b"})
+PORTED = frozenset({"yi-6b", "zamba2-2.7b", "gemma2-2b", "gemma3-27b",
+                    "starcoder2-7b", "falcon-mamba-7b"})
 
 
 def _module(arch: str):

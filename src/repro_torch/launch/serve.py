@@ -6,6 +6,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b
+
+Every ported arch is served: yi-6b, gemma2-2b, gemma3-27b,
+starcoder2-7b, falcon-mamba-7b and zamba2-2.7b (``configs.PORTED``).
 
 Weights are random, drawn from a ``torch.Generator`` seeded with 0 on the
 target device (the reference draws them from ``PRNGKey(0)``); the

@@ -1,5 +1,5 @@
-"""SSM blocks (port of ``repro.models.layers.ssm``, the Mamba2 / SSD half
-that zamba2-2.7b runs).
+"""SSM blocks (port of ``repro.models.layers.ssm``): Mamba1
+(falcon-mamba-7b) and Mamba2 / SSD (zamba2-2.7b).
 
 Prefill (``mamba2_forward``) computes the chunked SSD scan where the
 reference computes it in jnp (``ssm.py:264-285``): here it calls the
@@ -13,8 +13,12 @@ PyTorch: the state ``h [b, nh, dh, st]`` (fp32) plus a depthwise-conv
 tail of ``conv_width - 1`` tokens; the reference has no kernel there
 either.
 
-Mamba1 (falcon-mamba-7b) is not ported: its functions raise
-:class:`~repro_torch.models.config.NotPorted`.
+Mamba1 has no kernel in the reference: its selective scan is jnp (an
+associative scan within fixed chunks), and here plain PyTorch
+(:func:`linear_scan`, a doubling scan within chunks of
+``cfg.ssm_chunk``; any length is tiled, where the reference shrinks the
+chunk until it divides the length). Its decode is the O(1) recurrence
+over ``h [b, d_inner, state]`` (fp32) and a conv tail.
 """
 from __future__ import annotations
 
@@ -22,7 +26,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import mamba2_scan
-from repro_torch.models.config import NotPorted
 from repro_torch.models.params import dense_init, ones_init, zeros_init
 
 # leaves the reference keeps in fp32 whatever the model's dtype
@@ -63,20 +66,106 @@ def conv_step(x1, w, b, tail):
 
 
 # ============================================================= Mamba1 block
-def init_mamba1(gen, cfg, device, *, layers: int = 0):
-    raise NotPorted(f"{cfg.name}: Mamba1 layers")
+def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """h_t = a_t * h_{t-1} + b_t along axis 1, given h0.
+
+    a, b: [b, s, ...] fp32; h0: [b, ...]. Returns (h [b, s, ...],
+    h_last). A log-depth doubling (Hillis-Steele) scan over the
+    reference's combine ``(A1, B1) then (A2, B2) = (A1 A2, B2 + A2 B1)``:
+    ceil(log2 s) elementwise steps, after which (A_t, B_t) is the prefix
+    and h_t = A_t h0 + B_t. Nothing is divided, so a decay that underflows
+    fp32 gives 0, never inf or NaN (a ``cumprod`` then a division would)."""
+    a, b = a.clone(), b.clone()
+    n, d = a.shape[1], 1
+    while d < n:
+        b[:, d:] = b[:, d:] + a[:, d:] * b[:, :-d]
+        a[:, d:] = a[:, d:] * a[:, :-d]
+        d *= 2
+    h = a * h0[:, None] + b
+    return h, h[:, -1]
 
 
-def mamba1_init_state(cfg, batch: int, device):
-    raise NotPorted(f"{cfg.name}: Mamba1 layers")
+def init_mamba1(gen, cfg, device, *, layers: int = 0) -> dict:
+    d, di, st, dr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank
+    cw, dt, f32 = cfg.ssm_conv, cfg.dtype, torch.float32
+    kw = dict(layers=layers)
+    # S4D-real init for A: A[n] = -(n + 1), stored as its log (fp32)
+    a0 = torch.log(torch.arange(1, st + 1, dtype=f32, device=device))
+    a_log = a0.expand(((layers,) if layers else ()) + (di, st)).contiguous()
+    return {
+        "in_x": dense_init(gen, (d, di), dt, device, **kw),
+        "in_z": dense_init(gen, (d, di), dt, device, **kw),
+        "conv_w": dense_init(gen, (di, cw), dt, device, **kw),
+        "conv_b": zeros_init((di,), dt, device, **kw),
+        "x_proj": dense_init(gen, (di, dr + 2 * st), dt, device, **kw),
+        "dt_proj": dense_init(gen, (dr, di), dt, device, **kw),
+        "dt_bias": zeros_init((di,), f32, device, **kw),
+        "A_log": a_log,
+        "D": ones_init((di,), f32, device, **kw),
+        "out_proj": dense_init(gen, (di, d), dt, device, **kw),
+    }
+
+
+def mamba1_init_state(cfg, batch: int, device) -> dict:
+    di, st, cw = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    return {
+        "h": torch.zeros((batch, di, st), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cw - 1, di), dtype=cfg.dtype,
+                            device=device),
+    }
+
+
+def _mamba1_ssm_inputs(params, cfg, xc):
+    """Shared pre-scan math. xc: [b, s, di] (post-conv, post-silu).
+    Returns (dt [b, s, di] fp32 after softplus, B, C [b, s, st] fp32)."""
+    dr, st = cfg.ssm_dt_rank, cfg.ssm_state
+    dbc = (xc @ params["x_proj"]).float()
+    dt_lr, B, C = dbc.split([dr, st, st], dim=-1)
+    dt = dt_lr @ params["dt_proj"].float()
+    return F.softplus(dt + params["dt_bias"]), B, C
 
 
 def mamba1_forward(params, cfg, x, state=None):
-    raise NotPorted(f"{cfg.name}: Mamba1 layers")
+    """Selective scan over the prompt. x: [b, s, d] -> (y [b, s, d],
+    new_state); ``state`` None = zeros. Any ``s`` is taken in chunks of
+    ``cfg.ssm_chunk`` (the last one ragged), each one :func:`linear_scan`
+    over a ``[b, chunk, d_inner, state]`` working set carrying h."""
+    bsz, s, _ = x.shape
+    if state is None:
+        state = mamba1_init_state(cfg, bsz, x.device)
+    xi, z = x @ params["in_x"], x @ params["in_z"]
+    xc, conv_tail = causal_conv(xi, params["conv_w"], params["conv_b"],
+                                state["conv"])
+    xc = silu(xc)
+    dt, B, C = _mamba1_ssm_inputs(params, cfg, xc)
+    A = -torch.exp(params["A_log"].float())             # [di, st]
+    xcf = xc.float()
+    h, ys = state["h"], []
+    for c0 in range(0, s, cfg.ssm_chunk):
+        c = slice(c0, c0 + cfg.ssm_chunk)
+        a = torch.exp(dt[:, c, :, None] * A)            # [b, c, di, st]
+        bx = (dt[:, c] * xcf[:, c])[..., None] * B[:, c, None, :]
+        hs, h = linear_scan(a, bx, h)
+        ys.append(torch.einsum("bcis,bcs->bci", hs, C[:, c]))
+    y = torch.cat(ys, dim=1) + params["D"] * xcf
+    y = (y * silu(z.float())).to(x.dtype)
+    return y @ params["out_proj"], {"h": h, "conv": conv_tail}
 
 
 def mamba1_decode(params, cfg, x1, state):
-    raise NotPorted(f"{cfg.name}: Mamba1 layers")
+    """One token. x1: [b, 1, d] -> (y [b, 1, d], new_state)."""
+    xi, z = (x1 @ params["in_x"])[:, 0], (x1 @ params["in_z"])[:, 0]
+    xc, conv_tail = conv_step(xi, params["conv_w"], params["conv_b"],
+                              state["conv"])
+    xc = silu(xc)
+    dt, B, C = (t[:, 0] for t in _mamba1_ssm_inputs(params, cfg, xc[:, None]))
+    A = -torch.exp(params["A_log"].float())
+    xf = xc.float()
+    h = torch.exp(dt[..., None] * A) * state["h"] + (dt * xf)[..., None] * \
+        B[:, None, :]
+    y = torch.einsum("bis,bs->bi", h, C) + params["D"] * xf
+    y = (y * silu(z.float())).to(x1.dtype)
+    return (y @ params["out_proj"])[:, None], {"h": h, "conv": conv_tail}
 
 
 # ========================================================= Mamba2 (SSD) block

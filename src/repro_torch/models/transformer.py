@@ -1,5 +1,5 @@
-"""Decoder stack (port of ``repro.models.transformer``: dense decoders and
-the zamba2 hybrid).
+"""Decoder stack (port of ``repro.models.transformer``: dense decoders,
+Mamba1 stacks and the zamba2 hybrid).
 
 The reference runs a ``lax.scan`` over layer groups with stacked
 parameters; here a Python loop walks the same stacked tensors layer by
@@ -8,10 +8,14 @@ reference's layout and names. Layers past the last full scan unit live
 in ``tail_<t>`` as in the reference.
 
 Ported: dense decoders with global and sliding-window attention layers,
-attention and logit softcaps, scaled or tied embeddings; Mamba2 layers
-and zamba2's single shared attention+MLP block, which closes every scan
-unit (its KV is collected per application as ``shared_k/v``). A Mamba1,
-MoE, encoder-decoder, frontend, sandwich-norm or q/k-norm config raises
+attention and logit softcaps, sandwich norms (gemma2/3: a norm after
+the attention and after the MLP, before each residual add), per-head q/k
+norms (gemma3), scaled or tied embeddings; attention-free Mamba1 stacks
+(falcon-mamba); Mamba2 layers and zamba2's single shared attention+MLP
+block, which closes every scan unit (its KV is collected per application
+as ``shared_k/v``). An MoE, encoder-decoder or frontend config, or a
+stack that mixes attention and SSM layers (outside zamba2's shared-block
+form) or Mamba1 and Mamba2 layers, raises
 :class:`~repro_torch.models.config.NotPorted`.
 
 Entry points
@@ -38,17 +42,19 @@ from repro_torch.models.layers.norms import init_rmsnorm, rms_norm
 from repro_torch.models.params import dense_init
 
 
+SSM_KINDS = (MAMBA1, MAMBA2)
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is a config this port runs."""
+    kinds = set(cfg.layer_pattern)
     unsupported = {
-        "Mamba1 layers": MAMBA1 in cfg.layer_pattern,
         "MoE layers": cfg.is_moe,
         "encoder-decoder": cfg.is_encdec,
         f"the {cfg.frontend!r} frontend": cfg.frontend != "none",
-        "sandwich norms": cfg.sandwich_norm,
-        "q/k norms": cfg.qk_norm,
         "attention and SSM layers in one stack": len(
-            {k == MAMBA2 for k in cfg.layer_pattern}) > 1,
+            {k in SSM_KINDS for k in kinds}) > 1,
+        "Mamba1 and Mamba2 layers in one stack": {MAMBA1, MAMBA2} <= kinds,
     }
     for what, on in unsupported.items():
         if on:
@@ -126,20 +132,25 @@ def init_block(gen, cfg: ModelConfig, kind: str, device, *,
                layers: int = 0) -> dict:
     """One layer of ``kind`` (``layers > 0`` stacks that many)."""
     d, dt = cfg.d_model, cfg.dtype
-    if kind == MAMBA2:
+    if kind in SSM_KINDS:
+        init = ssm.init_mamba1 if kind == MAMBA1 else ssm.init_mamba2
         return {"norm1": init_rmsnorm(d, dt, device, layers=layers),
-                "mamba": ssm.init_mamba2(gen, cfg, device, layers=layers)}
-    return {
+                "mamba": init(gen, cfg, device, layers=layers)}
+    p = {
         "norm1": init_rmsnorm(d, dt, device, layers=layers),
         "attn": init_attention(gen, cfg, device, layers=layers),
         "norm2": init_rmsnorm(d, dt, device, layers=layers),
         "mlp": init_mlp(gen, cfg, device, layers=layers),
     }
+    if cfg.sandwich_norm:
+        p["norm1_post"] = init_rmsnorm(d, dt, device, layers=layers)
+        p["norm2_post"] = init_rmsnorm(d, dt, device, layers=layers)
+    return p
 
 
 def init_model(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     """Parameter tree with the reference's names and layout, drawn from
-    ``gen`` on ``device`` in ``cfg.dtype`` (the Mamba2 leaves in
+    ``gen`` on ``device`` in ``cfg.dtype`` (the SSM leaves in
     ``ssm.FP32_LEAVES`` in fp32, as the reference's)."""
     check_supported(cfg)
     d, dt = cfg.d_model, cfg.dtype
@@ -197,15 +208,26 @@ def attn_block_fwd(p: dict, cfg: ModelConfig, x, positions, *, window: int,
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     a, kv = attention_prefill(p["attn"], cfg, h, positions, theta=theta,
                               window=window)
-    x = x + a
+    return mlp_sublayer(p, cfg, x + post_norm(p, cfg, "norm1_post", a)), kv
+
+
+def post_norm(p: dict, cfg: ModelConfig, name: str, y):
+    """The sandwich norm ``name`` of ``y`` (gemma2/3), else ``y``."""
+    return rms_norm(y, p[name], cfg.norm_eps) if cfg.sandwich_norm else y
+
+
+def mlp_sublayer(p: dict, cfg: ModelConfig, x):
+    """x + post-norm(MLP(norm2(x)))."""
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp_forward(p["mlp"], cfg, h), kv
+    return x + post_norm(p, cfg, "norm2_post", mlp_forward(p["mlp"], cfg, h))
 
 
-def mamba_block_fwd(p: dict, cfg: ModelConfig, x, state=None):
-    """One Mamba2 block over the prompt. Returns (x, new_state)."""
+def mamba_block_fwd(p: dict, cfg: ModelConfig, kind: str, x, state=None):
+    """One SSM block of ``kind`` over the prompt. Returns (x,
+    new_state)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    y, st = ssm.mamba2_forward(p["mamba"], cfg, h, state)
+    fwd = ssm.mamba1_forward if kind == MAMBA1 else ssm.mamba2_forward
+    y, st = fwd(p["mamba"], cfg, h, state)
     return x + y, st
 
 
@@ -213,7 +235,7 @@ def run_stack(params: dict, cfg: ModelConfig, x, positions, *,
               collect: bool = False):
     """Decoder stack. Returns (hidden, collected); ``collect=True``
     gathers the prefill cache: every attention layer's KV as ``{"k",
-    "v": [La, b, s, kh, hd]}``, every Mamba2 layer's final state as
+    "v": [La, b, s, kh, hd]}``, every SSM layer's final state as
     ``{"ssm": {name: [n_ssm, b, ...]}}`` and each application of the
     shared block's KV as ``{"shared_k", "shared_v": [n_groups, b, s, kh,
     hd]}``."""
@@ -222,8 +244,9 @@ def run_stack(params: dict, cfg: ModelConfig, x, positions, *,
     states = []
     for i in range(cfg.n_layers):
         p = layer_params(params, cfg, i)
-        if cfg.layer_pattern[i] == MAMBA2:
-            x, st = mamba_block_fwd(p, cfg, x)
+        kind = cfg.layer_pattern[i]
+        if kind in SSM_KINDS:
+            x, st = mamba_block_fwd(p, cfg, kind, x)
             states.append(st)
         else:
             window, theta = layer_attrs(cfg, i)
@@ -260,7 +283,7 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     """Dense decode cache (the paged layout lives in ``serving/``): the
-    attention layers' and the shared block's KV, and the Mamba2 states."""
+    attention layers' and the shared block's KV, and the SSM states."""
     check_supported(cfg)
     kh, hd = cfg.n_kv_heads, cfg.head_dim
     cache: dict[str, Any] = {}
@@ -275,10 +298,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
         na = cfg.n_shared_applications()
         cache["shared_k"], cache["shared_v"] = kv(na), kv(na)
     if cfg.ssm_layer_ids:
-        one = ssm.mamba2_init_state(cfg, batch, device)
+        one = ssm_init_state(cfg, batch, device)
         n = len(cfg.ssm_layer_ids)
         cache["ssm"] = {k: a.new_zeros((n,) + a.shape) for k, a in one.items()}
     return cache
+
+
+def ssm_init_state(cfg: ModelConfig, batch: int, device) -> dict:
+    """One SSM layer's zeroed decode state for ``batch`` sequences, of the
+    stack's SSM kind (Mamba1: ``h``, ``conv``; Mamba2: ``h``, ``conv_x``,
+    ``conv_bc``)."""
+    if MAMBA1 in cfg.layer_pattern:
+        return ssm.mamba1_init_state(cfg, batch, device)
+    return ssm.mamba2_init_state(cfg, batch, device)
 
 
 def attn_block_decode(p: dict, cfg: ModelConfig, x1, cache_k, cache_v,
@@ -288,17 +320,17 @@ def attn_block_decode(p: dict, cfg: ModelConfig, x1, cache_k, cache_v,
     h = rms_norm(x1, p["norm1"], cfg.norm_eps)
     a, _, _ = attention_decode(p["attn"], cfg, h, cache_k, cache_v, lengths,
                                theta=theta, window=window)
-    x1 = x1 + a
-    h = rms_norm(x1, p["norm2"], cfg.norm_eps)
-    return x1 + mlp_forward(p["mlp"], cfg, h)
+    return mlp_sublayer(p, cfg, x1 + post_norm(p, cfg, "norm1_post", a))
 
 
-def mamba_block_decode(p: dict, cfg: ModelConfig, x1, state: dict):
-    """One-token decode through a Mamba2 block. ``state`` (h, conv_x,
-    conv_bc of one layer, e.g. views into a stacked cache) is updated in
+def mamba_block_decode(p: dict, cfg: ModelConfig, kind: str, x1,
+                       state: dict):
+    """One-token decode through an SSM block of ``kind``. ``state`` (one
+    layer's tensors, e.g. views into a stacked cache) is updated in
     place. Returns (x1, state)."""
     h = rms_norm(x1, p["norm1"], cfg.norm_eps)
-    y, new = ssm.mamba2_decode(p["mamba"], cfg, h, state)
+    step = ssm.mamba1_decode if kind == MAMBA1 else ssm.mamba2_decode
+    y, new = step(p["mamba"], cfg, h, state)
     for name, t in new.items():
         state[name].copy_(t)
     return x1 + y, state
@@ -317,9 +349,10 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     ai = si = 0
     for i in range(cfg.n_layers):
         p = layer_params(params, cfg, i)
-        if cfg.layer_pattern[i] == MAMBA2:
+        kind = cfg.layer_pattern[i]
+        if kind in SSM_KINDS:
             x, _ = mamba_block_decode(
-                p, cfg, x, {n: t[si] for n, t in cache["ssm"].items()})
+                p, cfg, kind, x, {n: t[si] for n, t in cache["ssm"].items()})
             si += 1
         else:
             window, theta = layer_attrs(cfg, i)

@@ -1,6 +1,6 @@
 """Serving engine: continuous batching on top of the paged KV pool (port
-of ``repro.serving.engine``, single device: dense decoders and the zamba2
-hybrid).
+of ``repro.serving.engine``, single device: dense decoders, Mamba1 stacks
+and the zamba2 hybrid).
 
 Layering (top to bottom):
 
@@ -19,9 +19,15 @@ Layering (top to bottom):
 - ``make_serve_step`` (device): one decode token for every slot. Each
   attention layer, and each application of zamba2's shared block, writes
   the new token's K/V into its arena and reads the pool through the page
-  table with the paged-attention kernel (``serving/paged.py``); Mamba2
+  table with the paged-attention kernel (``serving/paged.py``); SSM
   layers advance their O(1) states. Prefill runs the flash-attention and
   Mamba2 scan kernels (``models/transformer.prefill``) eagerly.
+
+An attention-free stack (falcon-mamba) has no arena, no page-table
+inputs and no block to allocate: as in the reference, its requests
+INSERT nothing into the ``kv`` table, and finishing, evicting or
+flushing them still runs the DELETE / FLUSH (a count of 0) and keeps the
+page table and tail rows that no step reads.
 
 ``cfg.kv_quant_int8`` (reached as the reference reaches it, through
 ``dataclasses.replace(cfg, kv_quant_int8=True)``) makes every arena int8
@@ -37,8 +43,8 @@ capture and replay do not wait on the device: parameters travel through
 pinned non-blocking uploads and row ids stay on the device. Every state
 tensor (arenas, SSM states) is updated in place.
 
-Not in this port yet: a device mesh and Mamba1 / MoE / encoder-decoder /
-frontend configs.
+Not in this port yet: a device mesh and MoE / encoder-decoder / frontend
+configs.
 """
 from __future__ import annotations
 
@@ -54,11 +60,9 @@ from repro_torch.core import table as T
 from repro_torch.core.daemon import SQLCached, resolve_device
 from repro_torch.kernels import _build
 from repro_torch.models import transformer as TF
-from repro_torch.models.config import MAMBA2, ModelConfig, NotPorted
-from repro_torch.models.layers import ssm as SSM
+from repro_torch.models.config import ModelConfig, NotPorted
 from repro_torch.models.layers.attention import (_scale, out_project,
                                                  qkv_project)
-from repro_torch.models.layers.mlp import mlp_forward
 from repro_torch.models.layers.norms import rms_norm
 from repro_torch.serving.paged import (PagedGeom, build_blk_start,
                                        make_paged_island, plan_geometry,
@@ -84,8 +88,10 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
         return islands[window]
 
     def attn_mlp(p, x, arena_l, scale_l, inputs, *, window, theta):
-        """Attention through the paged island, then the MLP (``scale_l``:
-        the int8 arena's scales, else None)."""
+        """Attention through the paged island, then the MLP, each with its
+        sandwich norm where the config has them (``scale_l``: the int8
+        arena's scales, else None). The arena receives the new token's k
+        as ``qkv_project`` gives it: normed (q/k norms), then roped."""
         lengths = inputs["lengths"]
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         q, k, v = qkv_project(p["attn"], cfg, h, lengths[:, None], theta)
@@ -94,18 +100,20 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
             q[:, 0], k[:, 0], v[:, 0], arena_l, inputs["pt"],
             inputs["blk_start"], lengths, inputs["write_rows"],
             inputs["write_off"], *extra)[0]
-        x = x + out_project(p["attn"], a[:, None])
-        h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        return x + mlp_forward(p["mlp"], cfg, h)
+        a = TF.post_norm(p, cfg, "norm1_post", out_project(p["attn"],
+                                                           a[:, None]))
+        return TF.mlp_sublayer(p, cfg, x + a)
 
     def serve_step(params, state, inputs):
         x = TF.embed_tokens(params, cfg, inputs["tokens"][:, None])
         ai = si = 0
         for i in range(cfg.n_layers):
             p = TF.layer_params(params, cfg, i)
-            if cfg.layer_pattern[i] == MAMBA2:
+            kind = cfg.layer_pattern[i]
+            if kind in TF.SSM_KINDS:
                 x, _ = TF.mamba_block_decode(
-                    p, cfg, x, {n: t[si] for n, t in state["ssm"].items()})
+                    p, cfg, kind, x,
+                    {n: t[si] for n, t in state["ssm"].items()})
                 si += 1
             else:
                 window, theta = TF.layer_attrs(cfg, i)
@@ -130,10 +138,13 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
 def serve_state_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
     """{name: (shape, dtype)} of the serve state at ``geom.cap`` arena rows
     (the engine adds its slack and the arenas' scratch row); ``"ssm"`` maps
-    each Mamba2 state to its (shape, dtype), stacked over the SSM layers
-    and batched over the slots. With ``kv_quant_int8`` the arenas are int8
-    and ``arena_scale`` / ``shared_arena_scale`` hold their fp32 scales
-    (one a row, k/v, position and kv head), as in the reference."""
+    each SSM state (Mamba1: ``h [n_ssm, b, d_inner, state]`` fp32, ``conv
+    [n_ssm, b, conv - 1, d_inner]``; Mamba2: ``h``, ``conv_x``,
+    ``conv_bc``) to its (shape, dtype), stacked over the SSM layers and
+    batched over the slots. An attention-free stack has no arena. With
+    ``kv_quant_int8`` the arenas are int8 and ``arena_scale`` /
+    ``shared_arena_scale`` hold their fp32 scales (one a row, k/v,
+    position and kv head), as in the reference."""
     TF.check_supported(cfg)
     if mesh is not None:
         raise NotPorted("a device mesh for the serve state")
@@ -154,10 +165,16 @@ def serve_state_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
                                            torch.float32)
     if cfg.ssm_layer_ids:
         n = len(cfg.ssm_layer_ids)
-        one = SSM.mamba2_init_state(cfg, geom.batch, "meta")
+        one = TF.ssm_init_state(cfg, geom.batch, "meta")
         specs["ssm"] = {k: ((n,) + tuple(a.shape), a.dtype)
                         for k, a in one.items()}
     return specs
+
+
+def has_attention(cfg: ModelConfig) -> bool:
+    """Whether the stack attends (attention layers or a shared block),
+    hence has arenas and page-table inputs."""
+    return TF.n_attn_layers(cfg) > 0 or cfg.shared_attn_every > 0
 
 
 def serve_input_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
@@ -170,7 +187,7 @@ def serve_input_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
     b, nblk = geom.batch, geom.nblk
     specs = {name: ((b,), torch.int32)
              for name in ("tokens", "lengths", "write_off")}
-    if TF.n_attn_layers(cfg) > 0 or cfg.shared_attn_every > 0:
+    if has_attention(cfg):
         specs["pt"] = ((b, 1, nblk), torch.int32)
         specs["blk_start"] = ((b, 1, nblk), torch.int32)
         specs["write_rows"] = ((b, 1), torch.int32)
@@ -383,8 +400,15 @@ class ServeEngine:
         self.requests: dict[int, Request] = {}   # slot -> request
         self.lengths = np.zeros(max_slots, np.int32)
         self._sch = self.daemon.schema("kv")
-        self._pt = self._step.inputs["pt"][:, 0]
-        self.tail_row = self._step.inputs["write_rows"][:, 0]
+        self.attends = has_attention(cfg)
+        if self.attends:
+            self._pt = self._step.inputs["pt"][:, 0]
+            self.tail_row = self._step.inputs["write_rows"][:, 0]
+        else:   # kept as the reference keeps them; no step reads them
+            self._pt = torch.full((max_slots, self.geom.nblk), cap,
+                                  dtype=torch.int32, device=self.device)
+            self.tail_row = torch.full((max_slots,), -1, dtype=torch.int32,
+                                       device=self.device)
         self._next_seq = 1
         self.decode_steps = 0
         # the last prefill's logits (a device tensor; reading it is the
@@ -452,6 +476,21 @@ class ServeEngine:
         n = len(toks)
         logits, cache = TF.prefill(self.params, self.cfg, {
             "tokens": T.to_device(toks[None], self.device)})
+        if self.attends:
+            self._install_kv(slot, seq_id, user_id, toks, cache)
+        for name, t in cache.get("ssm", {}).items():
+            self.state["ssm"][name][:, slot] = t[:, 0]
+        self.lengths[slot] = n
+        self.prefill_logits = logits[0]
+        first = int(torch.argmax(logits[0]))
+        self.requests[slot] = Request(seq_id, user_id, slot, list(toks),
+                                      [first])
+        return slot
+
+    def _install_kv(self, slot, seq_id, user_id, toks, cache) -> None:
+        """A prefill's blocks: one INSERT, then its K/V into the arenas at
+        the rows the INSERT reports."""
+        n = len(toks)
         nblk = -(-n // self.block)
         pad = nblk * self.block
         hashes = None
@@ -472,26 +511,19 @@ class ServeEngine:
                     kv, sc = quantize_kv(kv)
                     self.state[arena + "_scale"][:, rows.long()] = sc
                 self.state[arena][:, rows.long()] = kv
-        for name, t in cache.get("ssm", {}).items():
-            self.state["ssm"][name][:, slot] = t[:, 0]
-        self.lengths[slot] = n
-        self.prefill_logits = logits[0]
-        first = int(torch.argmax(logits[0]))
-        self.requests[slot] = Request(seq_id, user_id, slot, list(toks),
-                                      [first])
-        return slot
 
     def _build_inputs(self) -> np.ndarray:
         """The round's tokens, lengths and write offsets ([3, b] int32,
         staged into the graph's ``vec`` by the step); the write row of
-        each slot at a block boundary is allocated here, its device row id
-        flowing straight into the page table and the tail rows."""
+        each slot at a block boundary is allocated here (where the stack
+        attends), its device row id flowing straight into the page table
+        and the tail rows."""
         vec = np.zeros((3, self.max_slots), np.int32)
         for s, r in self.requests.items():
             vec[0, s] = r.generated[-1]
             vec[1, s] = self.lengths[s]
         vec[2] = vec[1] % self.block
-        for s, r in self.requests.items():
+        for s, r in (self.requests.items() if self.attends else ()):
             if self.lengths[s] % self.block == 0:
                 rows = self._insert_blocks(
                     s, r.seq_id, r.user_id,

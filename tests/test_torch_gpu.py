@@ -1321,17 +1321,19 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def _serve_engines(cuda, arch, max_seq, lens, seed=0, quant=False):
+def _serve_engines(cuda, arch, max_seq, lens, seed=0, quant=False,
+                   **overrides):
     """A CPU engine and a card engine over the same fp32 SMOKE weights
-    (``quant``: with the int8 arena), and seeded prompts of ``lens``
-    tokens. The card engine's round and block allocation run with sync
-    debugging set to "error"."""
+    (``quant``: with the int8 arena; ``overrides``: config fields
+    replaced), and seeded prompts of ``lens`` tokens. The card engine's
+    round and block allocation run with sync debugging set to "error"."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.models import transformer as TF
     from repro_torch.serving.engine import ServeEngine
-    cfg = dataclasses.replace(configs.get_smoke(arch), kv_quant_int8=quant)
+    cfg = dataclasses.replace(configs.get_smoke(arch), kv_quant_int8=quant,
+                              **overrides)
     params = TF.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
@@ -1433,6 +1435,119 @@ def test_zamba2_engine_on_card_matches_cpu(cuda):
     assert _build.launches["flash_attention"] == 6 * napps
     assert _build.launches["paged_attention"] == (rounds + 1) * napps
     _release_engines(engines)
+
+
+# starcoder2's SMOKE head dim 4 is below the kernels' smallest (8): its
+# card test takes 8, and the wrappers keep refusing 4
+NEW_ARCH_CASES = [("gemma2-2b", {}), ("gemma3-27b", {}),
+                  ("starcoder2-7b", {"head_dim": 8}),
+                  ("falcon-mamba-7b", {})]
+
+
+@pytest.mark.parametrize("arch,overrides", NEW_ARCH_CASES)
+def test_new_arch_engine_on_card_matches_cpu(cuda, arch, overrides):
+    """gemma2-2b, gemma3-27b (SMOKE window 8: the prompts cross it),
+    starcoder2-7b (36 / 4 heads) and falcon-mamba-7b (Mamba1, no arena)
+    SMOKE (fp32) through the paged engine, its decode round one captured
+    CUDA graph, on the card and on the CPU with the same weights: the
+    prefill's logits within 1e-4, then the yi-6b test's stream with the
+    same tokens and logits within 1e-4, no sync from the capture on; flash
+    attention once per attention layer and prefill, paged attention once
+    per attention layer and round (the prime round included), and none of
+    either on falcon-mamba."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as TF
+    cfg, engines, prompts = _serve_engines(cuda, arch, 64, (9, 17, 12),
+                                           **overrides)
+    _build.reset_launches()
+    for e in engines:
+        e.add_request(prompts[1], user_id=5)
+    assert float((engines[0].prefill_logits
+                  - engines[1].prefill_logits.cpu()).abs().max()) <= 1e-4
+    for e in engines:
+        e.finish_request(0)
+    rounds = _serve_stream(engines, prompts, 9)
+    attn = TF.n_attn_layers(cfg)
+    assert _build.launches["flash_attention"] == 6 * attn
+    assert _build.launches["paged_attention"] == (rounds + 1) * attn
+    assert _build.launches["mamba2_scan"] == 0
+    if arch == "falcon-mamba-7b":
+        assert "arena" not in engines[1].state
+        assert engines[1].live_blocks() == 0
+    _release_engines(engines)
+
+
+def test_kernels_refuse_head_dim_4(cuda):
+    """starcoder2's SMOKE head dim (4) is not one the kernels take: the
+    wrappers refuse it on the card rather than run a plain version."""
+    q = torch.zeros((1, 36, 5, 4), device=cuda)
+    k = torch.zeros((1, 4, 5, 4), device=cuda)
+    with pytest.raises(TypeError):
+        FA.flash_attention(q, k, k, scale=0.5)
+    arena = torch.zeros((3, 2, 8, 4, 4), device=cuda)
+    with pytest.raises(TypeError):
+        PA.paged_attention(q[:, :, 0], arena,
+                           torch.zeros((1, 2), dtype=torch.int32,
+                                       device=cuda),
+                           torch.ones(1, dtype=torch.int32, device=cuda),
+                           scale=0.5)
+
+
+# the new archs' attention shapes at full width: starcoder2's 36 / 4 heads
+# (GQA group 9), gemma2's hd 256 with softcap 50 and a window that binds,
+# gemma3's 1,024-token window with lengths past it (the island passes
+# window + 1 to the paged kernel)
+NEW_FLASH_SHAPES = [(1, 36, 4, 300, 128, 0, 0.0),
+                    (1, 8, 4, 300, 256, 100, 50.0),
+                    (1, 32, 16, 1200, 128, 1024, 0.0)]
+NEW_PAGED_SHAPES = [(36, 4, 128, 16, 0, 0.0, [24, 31, 17, 40]),
+                    (8, 4, 256, 20, 101, 50.0, [300, 31, 100, 102]),
+                    (32, 16, 128, 76, 1025, 0.0, [1200, 1025, 17, 1030])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,s,hd,window,softcap", NEW_FLASH_SHAPES)
+def test_flash_at_new_arch_shapes(cuda, b, h, kh, s, hd, window, softcap,
+                                  dtype):
+    q, k, v = _flash_case(cuda, dtype, b, h, kh, s, s, hd, s + hd)
+    # the [b, s, h, hd]-transposed views attention_prefill passes
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in (q, k, v))
+    kw = dict(scale=hd ** -0.5, window=window, softcap=softcap)
+    got = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= ATT_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kh,hd,nblk,window,softcap,lengths",
+                         NEW_PAGED_SHAPES)
+def test_paged_at_new_arch_shapes(cuda, h, kh, hd, nblk, window, softcap,
+                                  lengths, dtype):
+    b, block = len(lengths), 16
+    rng = np.random.default_rng(h + hd)
+    cap = b * nblk + 3
+    pages = np.full((b, nblk), -1, np.int32)
+    perm = rng.permutation(cap)
+    pi = 0
+    for i, n_tok in enumerate(lengths):
+        n = -(-n_tok // block)
+        pages[i, :n] = perm[pi:pi + n]
+        pi += n
+    g = torch.Generator(device=cuda).manual_seed(hd + nblk)
+    q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
+    arena = torch.randn((cap, 2, block, kh, hd), generator=g,
+                        device=cuda).to(dtype)
+    pt = torch.from_numpy(pages).to(cuda)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
+    got = PA.paged_attention(q, arena, pt, ln, **kw)
+    want = PA.paged_attention_ref(q, arena, pt, ln, **kw)
+    again = PA.paged_attention(q, arena, pt, ln, **kw)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= ATT_TOL[dtype]
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("arch,max_seq,lens", [("yi-6b", 64, (9, 17, 8)),

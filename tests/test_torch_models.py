@@ -135,9 +135,9 @@ def test_padded_vocab_is_masked(smoke):
 
 def test_unported_configs_raise():
     with pytest.raises(NotPorted):
-        TC.get_config("gemma2-2b")
+        TC.get_config("granite-moe-1b-a400m")
     with pytest.raises(NotPorted):
-        TC.get_smoke("falcon-mamba-7b")
+        TC.get_smoke("seamless-m4t-large-v2")
     with pytest.raises(KeyError):
         TC.get_config("no-such-arch")
     assert set(TC.all_archs()) == set(JC.all_archs())

@@ -261,10 +261,19 @@ def test_mamba2_prefill_then_decode_continues(smoke):
 
 
 def test_mamba1_is_not_ported():
+    """Mamba1 runs in an attention-free stack of its own (falcon-mamba,
+    tests/test_torch_mamba1.py); a stack that mixes it with Mamba2 or with
+    attention layers is not ported, and the stack refuses it."""
+    import dataclasses
+
+    from repro_torch.models import transformer as TTF
+    from repro_torch.models.config import GLOBAL, MAMBA1, MAMBA2
     cfg = TC.get_smoke("zamba2-2.7b")
-    for call in (lambda: TS.init_mamba1(torch.Generator(), cfg, "cpu"),
-                 lambda: TS.mamba1_init_state(cfg, 1, "cpu"),
-                 lambda: TS.mamba1_forward({}, cfg, None),
-                 lambda: TS.mamba1_decode({}, cfg, None, {})):
-        with pytest.raises(NotPorted):
-            call()
+    for pattern in ((MAMBA1, MAMBA2, MAMBA2, MAMBA2),
+                    (MAMBA1, GLOBAL, MAMBA1, GLOBAL)):
+        mixed = dataclasses.replace(cfg, layer_pattern=pattern,
+                                    shared_attn_every=0, scan_group=1)
+        for call in (lambda: TTF.init_model(torch.Generator(), mixed, "cpu"),
+                     lambda: TTF.init_cache(mixed, 1, 8, "cpu")):
+            with pytest.raises(NotPorted):
+                call()
