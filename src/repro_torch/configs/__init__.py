@@ -1,17 +1,14 @@
 """Assigned-architecture registry (port of ``repro.configs``): ``--arch
 <id>`` resolves here.
 
-Every arch of the reference is listed; only the ported ones have a
-module here, each defining ``CONFIG`` (the exact published shape) and
-``SMOKE`` (a reduced same-family config that runs on the CPU), exactly
-as the reference defines them. Asking for any other arch raises
-:class:`~repro_torch.models.config.NotPorted`.
+Every arch of the reference is listed and ported (``PORTED`` is all of
+``ARCHS``): each has a module here defining ``CONFIG`` (the exact
+published shape) and ``SMOKE`` (a reduced same-family config that runs
+on the CPU), exactly as the reference defines them.
 """
 from __future__ import annotations
 
 import importlib
-
-from repro_torch.models.config import NotPorted
 
 ARCHS: dict[str, str] = {
     "internvl2-1b": "internvl2_1b",
@@ -26,15 +23,12 @@ ARCHS: dict[str, str] = {
     "gemma2-2b": "gemma2_2b",
 }
 
-PORTED = frozenset({"yi-6b", "zamba2-2.7b", "gemma2-2b", "gemma3-27b",
-                    "starcoder2-7b", "falcon-mamba-7b"})
+PORTED = frozenset(ARCHS)
 
 
 def _module(arch: str):
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; choose from {sorted(ARCHS)}")
-    if arch not in PORTED:
-        raise NotPorted(f"arch {arch!r}")
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
 
 

@@ -22,8 +22,10 @@ from the same contents.
 
 Model weights travel the same way: the reference's parameter tree (after
 ``repro.models.params.split``, every leaf through ``numpy.asarray``) has
-the port's names and stacked layout, so :func:`params_from_numpy` is one
-mapping and :func:`params_to_numpy` its inverse.
+the port's names and stacked layout (an MoE's ``[layers, e, ...]`` expert
+leaves and router, an encoder-decoder's ``encoder`` subtree and each
+decoder layer's ``norm_x`` and ``cross``), so :func:`params_from_numpy`
+is one mapping and :func:`params_to_numpy` its inverse.
 """
 from __future__ import annotations
 

@@ -7,9 +7,15 @@
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch granite-moe-1b-a400m
 
-Every ported arch is served: yi-6b, gemma2-2b, gemma3-27b,
-starcoder2-7b, falcon-mamba-7b and zamba2-2.7b (``configs.PORTED``).
+Every arch of the reference is ported (``configs.PORTED``). The
+launcher sends text prompts with no request extras, as the reference's
+does: internvl2-1b is then served without its frontend, and
+seamless-m4t-large-v2, whose prefill needs ``enc_frames``, stops at its
+first request (a ``KeyError``, as in the reference). phi3.5-moe's 41.7 B
+bf16 parameters do not fit one 80 GB card.
 
 Weights are random, drawn from a ``torch.Generator`` seeded with 0 on the
 target device (the reference draws them from ``PRNGKey(0)``); the

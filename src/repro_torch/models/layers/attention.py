@@ -1,19 +1,26 @@
-"""GQA attention (port of ``repro.models.layers.attention``, the parts the
-dense decoder uses): projections with the optional per-head q/k norms,
-prefill through the flash-attention kernel, and dense-cache and
-paged-pool decode in plain PyTorch.
+"""GQA attention (port of ``repro.models.layers.attention``):
+projections with the optional per-head q/k norms, causal prefill and
+non-causal self and cross attention through the flash-attention kernel,
+and dense-cache and paged-pool decode in plain PyTorch.
 
-``attention_prefill`` is where the reference calls its chunked jnp flash
-attention (``chunked_attention``, whose contract the Pallas kernel in
-``repro.kernels.flash_attention`` implements); here it calls the wrapper
+``attention_prefill``, ``attention_forward`` and ``cross_attention`` are
+where the reference calls its chunked jnp flash attention
+(``chunked_attention``, whose contract the Pallas kernel in
+``repro.kernels.flash_attention`` implements); here they call the wrapper
 of the port's flash-attention kernel (``kernels/flash_attention.py``),
 which launches the CUDA kernel for CUDA tensors and takes its plain
-version for CPU tensors. The serving engine decodes against the paged
-arena through ``serving/paged.py``'s island and the paged-attention
-kernel; :func:`attention_decode_paged` is the reference's plain
-counterpart over the pool's own layout, which neither main path calls.
+version for CPU tensors. That kernel has no tail mask over the keys: a
+``kv_valid`` (the reference's optional per-sequence count of valid keys,
+which neither its prefill nor its training loss passes) is computed by a
+plain masked softmax on the CPU and refused on the card. The serving
+engine decodes against the paged arena through ``serving/paged.py``'s
+island and the paged-attention kernel; :func:`attention_decode_paged` is
+the reference's plain counterpart over the pool's own layout, which
+neither main path calls. Cross attention (the encoder-decoder) takes no
+RoPE and no q/k norms: its K/V come from :func:`cross_kv` of the encoder
+output.
 
-Not in this port yet: sequence parallelism and cross attention.
+Not in this port yet: sequence parallelism.
 """
 from __future__ import annotations
 
@@ -83,10 +90,57 @@ def attention_prefill(params: dict, cfg, x: torch.Tensor,
     """Causal self-attention over the prompt + its KV contribution.
     Returns (out [b, s, d], (k, v) [b, s, kh, hd])."""
     q, k, v = qkv_project(params, cfg, x, positions, theta)
+    o = _attend(cfg, q, k, v, causal=True, window=window)
+    return out_project(params, o), (k, v)
+
+
+def _attend(cfg, q, k, v, *, causal: bool, window: int = 0,
+            kv_valid=None) -> torch.Tensor:
+    """q [b, sq, h, hd], k/v [b, sk, kh, hd] -> [b, sq, h, hd] through the
+    flash kernel (the ``[b, heads, s, hd]``-transposed views it reads in
+    place); with ``kv_valid`` [b] only each sequence's first
+    ``kv_valid`` keys count (plain, CPU tensors only)."""
+    if kv_valid is not None:
+        if q.device.type != "cpu":
+            raise ValueError("kv_valid: the flash kernel has no tail mask "
+                             "over the keys")
+        return _masked_attention(cfg, q, k, v, causal=causal, window=window,
+                                 kv_valid=kv_valid)
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), scale=_scale(cfg), causal=True,
+                        v.transpose(1, 2), scale=_scale(cfg), causal=causal,
                         window=window, softcap=cfg.attn_softcap)
-    return out_project(params, o.transpose(1, 2)), (k, v)
+    return o.transpose(1, 2)
+
+
+def _masked_attention(cfg, q, k, v, *, causal, window, kv_valid):
+    """The reference's ``chunked_attention`` with its ``kv_valid`` tail
+    mask, as one masked softmax (fp32 math, output in q's dtype)."""
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, kh, h // kh, hd).float() * _scale(cfg)
+    s = _softcap(torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()),
+                 cfg.attn_softcap)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window and window > 0:
+        mask &= (q_pos - k_pos) < window
+    mask = mask & (k_pos < kv_valid.reshape(b, 1, 1))   # [b, sq, sk]
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    o = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, dim=-1), v.float())
+    return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def attention_forward(params: dict, cfg, x: torch.Tensor,
+                      positions: torch.Tensor, *, theta: float,
+                      window: int = 0, causal: bool = True, kv_valid=None):
+    """Self-attention sub-layer over [b, s, d], causal or not (the
+    encoder's), without its KV (no residual or norm here)."""
+    q, k, v = qkv_project(params, cfg, x, positions, theta)
+    return out_project(params, _attend(cfg, q, k, v, causal=causal,
+                                       window=window, kv_valid=kv_valid))
 
 
 def attention_decode(params: dict, cfg, x: torch.Tensor,
@@ -158,3 +212,25 @@ def attention_decode_paged(params: dict, cfg, x: torch.Tensor,
     p = torch.softmax(torch.where(ok[:, None, None], s, NEG_INF), dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", p, vb).reshape(b, 1, h, hd)
     return out_project(params, o.to(x.dtype)), k[:, 0], v[:, 0]
+
+
+# ------------------------------------------------------- cross attention
+def init_cross_attention(gen, cfg, device, *, layers: int = 0) -> dict:
+    return init_attention(gen, cfg, device, layers=layers)
+
+
+def cross_attention(params: dict, cfg, x: torch.Tensor, enc_k: torch.Tensor,
+                    enc_v: torch.Tensor, *, enc_valid=None) -> torch.Tensor:
+    """Decoder cross attention over the prompt: q from x [b, sq, d] (no
+    RoPE), K/V precomputed from the encoder output [b, se, kh, hd]
+    (:func:`cross_kv`), every key visible (non-causal; ``enc_valid``: the
+    reference's tail mask, see the module docstring)."""
+    q = _proj(x, params["wq"])
+    return out_project(params, _attend(cfg, q, enc_k, enc_v, causal=False,
+                                       kv_valid=enc_valid))
+
+
+def cross_kv(params: dict, cfg, enc_out: torch.Tensor):
+    """Cross-attention K/V [b, se, kh, hd] of the encoder output (no
+    RoPE)."""
+    return _proj(enc_out, params["wk"]), _proj(enc_out, params["wv"])

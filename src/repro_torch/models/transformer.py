@@ -1,5 +1,5 @@
-"""Decoder stack (port of ``repro.models.transformer``: dense decoders,
-Mamba1 stacks and the zamba2 hybrid).
+"""Model stack (port of ``repro.models.transformer``): decoders, the
+encoder-decoder, Mamba1 stacks and the zamba2 hybrid.
 
 The reference runs a ``lax.scan`` over layer groups with stacked
 parameters; here a Python loop walks the same stacked tensors layer by
@@ -10,22 +10,33 @@ in ``tail_<t>`` as in the reference.
 Ported: dense decoders with global and sliding-window attention layers,
 attention and logit softcaps, sandwich norms (gemma2/3: a norm after
 the attention and after the MLP, before each residual add), per-head q/k
-norms (gemma3), scaled or tied embeddings; attention-free Mamba1 stacks
+norms (gemma3), scaled or tied embeddings; MoE feed-forwards in place of
+the MLP (granite-moe, phi3.5-moe: ``layers/moe.py``, the dispatch picked
+by ``REPRO_MOE_RAGGED`` as in the reference; the router's aux loss is
+summed over the layers and returned by :func:`run_stack`); frontend
+embeddings placed before the tokens (internvl2's vision stub,
+``batch["frontend"]``); the encoder-decoder (seamless-m4t: a
+bidirectional encoder over ``batch["enc_frames"]``, each decoder layer's
+cross-attention K/V precomputed from its output, a cross sublayer between
+each decoder layer's attention and MLP); attention-free Mamba1 stacks
 (falcon-mamba); Mamba2 layers and zamba2's single shared attention+MLP
 block, which closes every scan unit (its KV is collected per application
-as ``shared_k/v``). An MoE, encoder-decoder or frontend config, or a
-stack that mixes attention and SSM layers (outside zamba2's shared-block
-form) or Mamba1 and Mamba2 layers, raises
-:class:`~repro_torch.models.config.NotPorted`.
+as ``shared_k/v``). A stack that mixes attention and SSM layers (outside
+zamba2's shared-block form) or Mamba1 and Mamba2 layers raises
+:class:`~repro_torch.models.config.NotPorted`. Not in this port yet:
+training (``train_loss``, ``lm_loss``).
 
 Entry points
     init_model(gen, cfg, device)     -> parameter tree
     prefill(params, cfg, batch)      -> (last-token logits, cache)
-    init_cache(cfg, batch, max_len, device) -> dense decode cache
-    decode_step(params, cfg, tokens, cache, lengths) -> (logits, cache)
+    init_cache(cfg, batch, max_len, device, enc_len=0) -> dense decode cache
+    decode_step(params, cfg, tokens, cache, lengths, enc_valid=None)
+                                     -> (logits, cache)
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Any
 
 import torch
@@ -33,11 +44,16 @@ import torch
 from repro_torch.models.config import (GLOBAL, LOCAL, MAMBA1, MAMBA2,
                                        ModelConfig, NotPorted)
 from repro_torch.models.layers import ssm
-from repro_torch.models.layers.attention import (NEG_INF, _softcap,
-                                                 attention_decode,
+from repro_torch.models.layers.attention import (NEG_INF, _proj, _scale,
+                                                 _softcap, attention_decode,
+                                                 attention_forward,
                                                  attention_prefill,
-                                                 init_attention)
+                                                 cross_attention, cross_kv,
+                                                 init_attention,
+                                                 init_cross_attention,
+                                                 out_project)
 from repro_torch.models.layers.mlp import init_mlp, mlp_forward
+from repro_torch.models.layers.moe import init_moe, moe_forward
 from repro_torch.models.layers.norms import init_rmsnorm, rms_norm
 from repro_torch.models.params import dense_init
 
@@ -49,9 +65,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is a config this port runs."""
     kinds = set(cfg.layer_pattern)
     unsupported = {
-        "MoE layers": cfg.is_moe,
-        "encoder-decoder": cfg.is_encdec,
-        f"the {cfg.frontend!r} frontend": cfg.frontend != "none",
         "attention and SSM layers in one stack": len(
             {k in SSM_KINDS for k in kinds}) > 1,
         "Mamba1 and Mamba2 layers in one stack": {MAMBA1, MAMBA2} <= kinds,
@@ -129,8 +142,9 @@ def _index_tree(tree: dict, i: int) -> dict:
 
 # ============================================================== init model
 def init_block(gen, cfg: ModelConfig, kind: str, device, *,
-               layers: int = 0) -> dict:
-    """One layer of ``kind`` (``layers > 0`` stacks that many)."""
+               layers: int = 0, cross: bool = False) -> dict:
+    """One layer of ``kind`` (``layers > 0`` stacks that many; ``cross``:
+    with the decoder's cross-attention sublayer and its norm)."""
     d, dt = cfg.d_model, cfg.dtype
     if kind in SSM_KINDS:
         init = ssm.init_mamba1 if kind == MAMBA1 else ssm.init_mamba2
@@ -140,11 +154,15 @@ def init_block(gen, cfg: ModelConfig, kind: str, device, *,
         "norm1": init_rmsnorm(d, dt, device, layers=layers),
         "attn": init_attention(gen, cfg, device, layers=layers),
         "norm2": init_rmsnorm(d, dt, device, layers=layers),
-        "mlp": init_mlp(gen, cfg, device, layers=layers),
+        "mlp": (init_moe if cfg.is_moe else init_mlp)(gen, cfg, device,
+                                                      layers=layers),
     }
     if cfg.sandwich_norm:
         p["norm1_post"] = init_rmsnorm(d, dt, device, layers=layers)
         p["norm2_post"] = init_rmsnorm(d, dt, device, layers=layers)
+    if cross:
+        p["norm_x"] = init_rmsnorm(d, dt, device, layers=layers)
+        p["cross"] = init_cross_attention(gen, cfg, device, layers=layers)
     return p
 
 
@@ -160,14 +178,20 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     }
     gs, ng, tail = scan_layout(cfg)
     _unit_pattern(cfg)
+    cross = cfg.is_encdec
     if ng > 0:
         tree["layers"] = init_block(gen, cfg, cfg.layer_pattern[0], device,
-                                    layers=ng * gs)
+                                    layers=ng * gs, cross=cross)
     for t in range(tail):
         tree[f"tail_{t}"] = init_block(gen, cfg, cfg.layer_pattern[ng * gs + t],
-                                       device)
+                                       device, cross=cross)
     if cfg.shared_attn_every > 0:  # zamba2: one shared attention+MLP block
         tree["shared"] = init_block(gen, cfg, GLOBAL, device)
+    if cross:   # the encoder: GLOBAL blocks without a cross sublayer
+        tree["encoder"] = {
+            "layers": init_block(gen, cfg, GLOBAL, device,
+                                 layers=cfg.enc_layers),
+            "final_norm": init_rmsnorm(d, dt, device)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = dense_init(gen, (d, cfg.padded_vocab), dt, device)
     return tree
@@ -184,8 +208,13 @@ def embed_tokens(params: dict, cfg: ModelConfig,
 
 
 def assemble_inputs(params: dict, cfg: ModelConfig, batch: dict):
-    """tokens -> hidden [b, s, d] (frontends are not ported)."""
-    return embed_tokens(params, cfg, batch["tokens"])
+    """tokens (and the frontend's embeddings [b, fl, d] before them, where
+    the config has a frontend and the batch carries them) -> hidden [b,
+    s_total, d]."""
+    x = embed_tokens(params, cfg, batch["tokens"])
+    if cfg.frontend != "none" and "frontend" in batch:
+        x = torch.cat([batch["frontend"].to(x.dtype), x], dim=1)
+    return x
 
 
 def logits_fn(params: dict, cfg: ModelConfig,
@@ -202,13 +231,38 @@ def logits_fn(params: dict, cfg: ModelConfig,
 
 
 # ========================================================== stack (forward)
+def _mlp_or_moe(p: dict, cfg: ModelConfig, h):
+    """A block's feed-forward: (out, aux), aux the MoE router's loss (a
+    plain 0.0 for an MLP). ``REPRO_MOE_RAGGED=1`` picks the ragged
+    dispatch; it is read at every call, as the reference reads it at
+    every trace (in the decode graph: at its capture)."""
+    if cfg.is_moe:
+        ragged = os.environ.get("REPRO_MOE_RAGGED") == "1"
+        return moe_forward(p["mlp"], cfg, h, ragged=ragged)
+    return mlp_forward(p["mlp"], cfg, h), 0.0
+
+
 def attn_block_fwd(p: dict, cfg: ModelConfig, x, positions, *, window: int,
-                   theta: float):
-    """One attention + MLP block over the prompt. Returns (x, (k, v))."""
+                   theta: float, causal: bool = True, collect_kv: bool = True,
+                   enc_kv=None, enc_valid=None):
+    """One attention + feed-forward block over the sequence (causal, with
+    its KV when ``collect_kv``; else causal or not, without), with the
+    cross sublayer over ``enc_kv`` ((k, v) [b, se, kh, hd]) between the
+    two. Returns (x, aux, (k, v) or None)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    a, kv = attention_prefill(p["attn"], cfg, h, positions, theta=theta,
-                              window=window)
-    return mlp_sublayer(p, cfg, x + post_norm(p, cfg, "norm1_post", a)), kv
+    if collect_kv:
+        a, kv = attention_prefill(p["attn"], cfg, h, positions, theta=theta,
+                                  window=window)
+    else:
+        a, kv = attention_forward(p["attn"], cfg, h, positions, theta=theta,
+                                  window=window, causal=causal), None
+    x = x + post_norm(p, cfg, "norm1_post", a)
+    if enc_kv is not None:
+        h = rms_norm(x, p["norm_x"], cfg.norm_eps)
+        x = x + cross_attention(p["cross"], cfg, h, *enc_kv,
+                                enc_valid=enc_valid)
+    x, aux = mlp_sublayer(p, cfg, x)
+    return x, aux, kv
 
 
 def post_norm(p: dict, cfg: ModelConfig, name: str, y):
@@ -217,9 +271,39 @@ def post_norm(p: dict, cfg: ModelConfig, name: str, y):
 
 
 def mlp_sublayer(p: dict, cfg: ModelConfig, x):
-    """x + post-norm(MLP(norm2(x)))."""
+    """x + post-norm(FFN(norm2(x))), the FFN an MLP or an MoE. Returns
+    (x, aux)."""
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + post_norm(p, cfg, "norm2_post", mlp_forward(p["mlp"], cfg, h))
+    m, aux = _mlp_or_moe(p, cfg, h)
+    return x + post_norm(p, cfg, "norm2_post", m), aux
+
+
+def cross_sublayer(p: dict, cfg: ModelConfig, x1, enc_k, enc_v,
+                   enc_valid=None):
+    """One token's cross sublayer: x1 + cross attention of norm_x(x1)
+    over enc_k / enc_v [b, se, kh, hd] (:func:`_cross_decode`)."""
+    h = rms_norm(x1, p["norm_x"], cfg.norm_eps)
+    return x1 + _cross_decode(p["cross"], cfg, h, enc_k, enc_v,
+                              enc_valid=enc_valid)
+
+
+def _cross_decode(p: dict, cfg: ModelConfig, x1, enc_k, enc_v, *,
+                  enc_valid=None):
+    """Single-token cross attention in plain PyTorch (the reference's is
+    plain jnp). x1 [b, 1, d]; enc_k/v [b, se, kh, hd]; ``enc_valid`` [b]:
+    only each sequence's first ``enc_valid`` encoder positions count."""
+    b = x1.shape[0]
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qg = _proj(x1, p["wq"]).reshape(b, kh, h // kh, hd).float() * _scale(cfg)
+    s = _softcap(torch.einsum("bkgd,bskd->bkgs", qg, enc_k.float()),
+                 cfg.attn_softcap)
+    if enc_valid is not None:
+        k_pos = torch.arange(enc_k.shape[1], device=x1.device)
+        s = torch.where((k_pos[None, :] < enc_valid[:, None])[:, None, None],
+                        s, NEG_INF)
+    o = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, dim=-1),
+                     enc_v.float())
+    return out_project(p, o.reshape(b, 1, h, hd).to(x1.dtype))
 
 
 def mamba_block_fwd(p: dict, cfg: ModelConfig, kind: str, x, state=None):
@@ -232,16 +316,20 @@ def mamba_block_fwd(p: dict, cfg: ModelConfig, kind: str, x, state=None):
 
 
 def run_stack(params: dict, cfg: ModelConfig, x, positions, *,
-              collect: bool = False):
-    """Decoder stack. Returns (hidden, collected); ``collect=True``
-    gathers the prefill cache: every attention layer's KV as ``{"k",
-    "v": [La, b, s, kh, hd]}``, every SSM layer's final state as
-    ``{"ssm": {name: [n_ssm, b, ...]}}`` and each application of the
+              collect: bool = False, enc_kv=None, enc_valid=None,
+              causal: bool = True):
+    """Decoder (or encoder: ``causal=False``) stack. Returns (hidden, aux,
+    collected): aux the MoE router losses summed over the layers;
+    ``collect=True`` gathers the prefill cache: every attention layer's KV
+    as ``{"k", "v": [La, b, s, kh, hd]}``, every SSM layer's final state
+    as ``{"ssm": {name: [n_ssm, b, ...]}}`` and each application of the
     shared block's KV as ``{"shared_k", "shared_v": [n_groups, b, s, kh,
-    hd]}``."""
+    hd]}``. ``enc_kv``: the cross K/V (k, v) stacked [L, b, se, kh,
+    hd]."""
     check_supported(cfg)
     kv: dict[str, list] = {"k": [], "v": [], "shared_k": [], "shared_v": []}
     states = []
+    aux = 0.0
     for i in range(cfg.n_layers):
         p = layer_params(params, cfg, i)
         kind = cfg.layer_pattern[i]
@@ -250,46 +338,95 @@ def run_stack(params: dict, cfg: ModelConfig, x, positions, *,
             states.append(st)
         else:
             window, theta = layer_attrs(cfg, i)
-            x, (k, v) = attn_block_fwd(p, cfg, x, positions, window=window,
-                                       theta=theta)
-            kv["k"].append(k)
-            kv["v"].append(v)
+            ek = None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i])
+            x, a, kvi = attn_block_fwd(p, cfg, x, positions, window=window,
+                                       theta=theta, causal=causal,
+                                       collect_kv=collect, enc_kv=ek,
+                                       enc_valid=enc_valid)
+            aux = aux + a
+            if collect:
+                kv["k"].append(kvi[0])
+                kv["v"].append(kvi[1])
         if shared_app(cfg, i) >= 0:
-            x, (k, v) = attn_block_fwd(params["shared"], cfg, x, positions,
-                                       window=0, theta=global_theta(cfg))
-            kv["shared_k"].append(k)
-            kv["shared_v"].append(v)
+            x, a, kvi = attn_block_fwd(params["shared"], cfg, x, positions,
+                                       window=0, theta=global_theta(cfg),
+                                       causal=causal, collect_kv=collect)
+            aux = aux + a
+            if collect:
+                kv["shared_k"].append(kvi[0])
+                kv["shared_v"].append(kvi[1])
     if not collect:
-        return x, {}
+        return x, aux, {}
     collected = {n: torch.stack(t) for n, t in kv.items() if t}
     if states:
         collected["ssm"] = {n: torch.stack([st[n] for st in states])
                             for n in states[0]}
-    return x, collected
+    return x, aux, collected
+
+
+# ============================================================ encoder side
+def run_encoder(params: dict, cfg: ModelConfig, frames):
+    """The bidirectional encoder over precomputed frame embeddings [b, se,
+    d] (cast to the model's dtype): :func:`run_stack` with a GLOBAL-only
+    view of the config, non-causal, then its final norm. Returns the
+    encoder output [b, se, d]."""
+    enc = params["encoder"]
+    b, se, _ = frames.shape
+    positions = torch.arange(se, device=frames.device)[None].expand(b, se)
+    enc_cfg = dataclasses.replace(
+        cfg, n_layers=cfg.enc_layers, layer_pattern=(GLOBAL,) * cfg.enc_layers,
+        scan_group=1, shared_attn_every=0, enc_layers=0, n_experts=0,
+        top_k=0)
+    x, _, _ = run_stack({"layers": enc["layers"]}, enc_cfg,
+                        frames.to(cfg.dtype), positions, causal=False)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def encoder_cross_kv(params: dict, cfg: ModelConfig, enc_out):
+    """Each decoder layer's cross K/V of the encoder output: (k, v)
+    stacked [L_dec, b, se, kh, hd], the fragment the serving engine keeps
+    per request."""
+    ks, vs = zip(*(cross_kv(layer_params(params, cfg, i)["cross"], cfg,
+                            enc_out) for i in range(cfg.n_layers)))
+    return torch.stack(ks), torch.stack(vs)
 
 
 # ============================================================== public API
 def prefill(params: dict, cfg: ModelConfig, batch: dict):
-    """Run the full prompt; returns (last-token logits [b, V], cache) with
-    the cache of :func:`run_stack`. The serving engine re-blocks the KV
-    into the paged arenas and copies the SSM states into its slots."""
+    """Run the full prompt (frontend embeddings first where given; the
+    encoder over ``batch["enc_frames"]`` for an encoder-decoder); returns
+    (last-token logits [b, V], cache) with the cache of :func:`run_stack`
+    plus ``enc_k`` / ``enc_v`` [L, b, se, kh, hd] for an encoder-decoder.
+    The serving engine re-blocks the KV into the paged arenas and copies
+    the SSM states and the cross K/V into its slots."""
     x = assemble_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    x, cache = run_stack(params, cfg, x, positions, collect=True)
+    enc_kv = None
+    if cfg.is_encdec:
+        enc_kv = encoder_cross_kv(params, cfg,
+                                  run_encoder(params, cfg,
+                                              batch["enc_frames"]))
+    x, _, cache = run_stack(params, cfg, x, positions, collect=True,
+                            enc_kv=enc_kv)
+    if enc_kv is not None:
+        cache["enc_k"], cache["enc_v"] = enc_kv
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_fn(params, cfg, x[:, -1]), cache
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,
+               enc_len: int = 0) -> dict:
     """Dense decode cache (the paged layout lives in ``serving/``): the
-    attention layers' and the shared block's KV, and the SSM states."""
+    attention layers' and the shared block's KV, the SSM states, and for
+    an encoder-decoder with ``enc_len > 0`` the cross K/V ``enc_k`` /
+    ``enc_v`` [L, batch, enc_len, kh, hd]."""
     check_supported(cfg)
     kh, hd = cfg.n_kv_heads, cfg.head_dim
     cache: dict[str, Any] = {}
 
-    def kv(n):
-        return torch.zeros((n, batch, max_len, kh, hd), dtype=cfg.dtype,
+    def kv(n, length=max_len):
+        return torch.zeros((n, batch, length, kh, hd), dtype=cfg.dtype,
                            device=device)
     la = n_attn_layers(cfg)
     if la:
@@ -301,6 +438,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
         one = ssm_init_state(cfg, batch, device)
         n = len(cfg.ssm_layer_ids)
         cache["ssm"] = {k: a.new_zeros((n,) + a.shape) for k, a in one.items()}
+    if cfg.is_encdec and enc_len > 0:
+        cache["enc_k"] = kv(cfg.n_layers, enc_len)
+        cache["enc_v"] = kv(cfg.n_layers, enc_len)
     return cache
 
 
@@ -314,13 +454,18 @@ def ssm_init_state(cfg: ModelConfig, batch: int, device) -> dict:
 
 
 def attn_block_decode(p: dict, cfg: ModelConfig, x1, cache_k, cache_v,
-                      lengths, *, window: int, theta: float):
+                      lengths, *, window: int, theta: float,
+                      cross_kv_pair=None, enc_valid=None):
     """One-token decode through an attention block (dense cache, updated
-    in place). Returns x1."""
+    in place; ``cross_kv_pair``: the layer's (enc_k, enc_v) for the cross
+    sublayer). Returns x1."""
     h = rms_norm(x1, p["norm1"], cfg.norm_eps)
     a, _, _ = attention_decode(p["attn"], cfg, h, cache_k, cache_v, lengths,
                                theta=theta, window=window)
-    return mlp_sublayer(p, cfg, x1 + post_norm(p, cfg, "norm1_post", a))
+    x1 = x1 + post_norm(p, cfg, "norm1_post", a)
+    if cross_kv_pair is not None:
+        x1 = cross_sublayer(p, cfg, x1, *cross_kv_pair, enc_valid)
+    return mlp_sublayer(p, cfg, x1)[0]
 
 
 def mamba_block_decode(p: dict, cfg: ModelConfig, kind: str, x1,
@@ -337,12 +482,14 @@ def mamba_block_decode(p: dict, cfg: ModelConfig, kind: str, x1,
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: dict, lengths: torch.Tensor):
+                cache: dict, lengths: torch.Tensor, *, enc_valid=None):
     """One decode token for the whole batch (dense-cache reference path;
     it reaches no kernel).
 
-    tokens: [b] int; lengths: [b] tokens already in cache. Returns
-    (logits [b, V], cache); the cache's tensors are written in place."""
+    tokens: [b] int; lengths: [b] tokens already in cache; ``enc_valid``
+    [b]: valid encoder positions of each sequence (None: all of
+    ``enc_k``). Returns (logits [b, V], cache); the cache's tensors are
+    written in place."""
     check_supported(cfg)
     x = embed_tokens(params, cfg, tokens[:, None])
     lengths = lengths.long()
@@ -356,8 +503,11 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             si += 1
         else:
             window, theta = layer_attrs(cfg, i)
+            cross = ((cache["enc_k"][i], cache["enc_v"][i])
+                     if "enc_k" in cache else None)
             x = attn_block_decode(p, cfg, x, cache["k"][ai], cache["v"][ai],
-                                  lengths, window=window, theta=theta)
+                                  lengths, window=window, theta=theta,
+                                  cross_kv_pair=cross, enc_valid=enc_valid)
             ai += 1
         g = shared_app(cfg, i)
         if g >= 0:

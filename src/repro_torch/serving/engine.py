@@ -1,6 +1,7 @@
 """Serving engine: continuous batching on top of the paged KV pool (port
-of ``repro.serving.engine``, single device: dense decoders, Mamba1 stacks
-and the zamba2 hybrid).
+of ``repro.serving.engine``, single device: dense and MoE decoders, the
+vision-frontend decoder, the encoder-decoder, Mamba1 stacks and the zamba2
+hybrid).
 
 Layering (top to bottom):
 
@@ -19,9 +20,13 @@ Layering (top to bottom):
 - ``make_serve_step`` (device): one decode token for every slot. Each
   attention layer, and each application of zamba2's shared block, writes
   the new token's K/V into its arena and reads the pool through the page
-  table with the paged-attention kernel (``serving/paged.py``); SSM
-  layers advance their O(1) states. Prefill runs the flash-attention and
-  Mamba2 scan kernels (``models/transformer.prefill``) eagerly.
+  table with the paged-attention kernel (``serving/paged.py``); an
+  encoder-decoder's layer then attends its slot's cross K/V (``enc_k`` /
+  ``enc_v`` in the state, plain PyTorch as in the reference) before its
+  MLP; the MLP is an MoE where the config has experts; SSM layers advance
+  their O(1) states. Prefill runs the flash-attention and Mamba2 scan
+  kernels (``models/transformer.prefill``: the encoder, the decoder's
+  self and cross attention) eagerly.
 
 An attention-free stack (falcon-mamba) has no arena, no page-table
 inputs and no block to allocate: as in the reference, its requests
@@ -43,8 +48,13 @@ capture and replay do not wait on the device: parameters travel through
 pinned non-blocking uploads and row ids stay on the device. Every state
 tensor (arenas, SSM states) is updated in place.
 
-Not in this port yet: a device mesh and MoE / encoder-decoder / frontend
-configs.
+A request's ``extras`` are the reference's: ``frontend`` ([frontend_len,
+d] patch embeddings placed before the prompt: the sequence holds
+``frontend_len + n`` positions) and ``enc_frames`` ([frontend_len, d]
+frames for the encoder, whose cross K/V are copied into the slot's rows of
+the static ``enc_k`` / ``enc_v`` state).
+
+Not in this port yet: a device mesh.
 """
 from __future__ import annotations
 
@@ -87,11 +97,14 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
                 window=window, quant=quant)
         return islands[window]
 
-    def attn_mlp(p, x, arena_l, scale_l, inputs, *, window, theta):
-        """Attention through the paged island, then the MLP, each with its
-        sandwich norm where the config has them (``scale_l``: the int8
-        arena's scales, else None). The arena receives the new token's k
-        as ``qkv_project`` gives it: normed (q/k norms), then roped."""
+    def attn_mlp(p, x, arena_l, scale_l, inputs, *, window, theta,
+                 cross=None):
+        """Attention through the paged island, the cross sublayer over
+        ``cross`` ((enc_k, enc_v) of the layer, an encoder-decoder's),
+        then the MLP or MoE, each with its sandwich norm where the config
+        has them (``scale_l``: the int8 arena's scales, else None). The
+        arena receives the new token's k as ``qkv_project`` gives it:
+        normed (q/k norms), then roped."""
         lengths = inputs["lengths"]
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         q, k, v = qkv_project(p["attn"], cfg, h, lengths[:, None], theta)
@@ -100,9 +113,11 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
             q[:, 0], k[:, 0], v[:, 0], arena_l, inputs["pt"],
             inputs["blk_start"], lengths, inputs["write_rows"],
             inputs["write_off"], *extra)[0]
-        a = TF.post_norm(p, cfg, "norm1_post", out_project(p["attn"],
-                                                           a[:, None]))
-        return TF.mlp_sublayer(p, cfg, x + a)
+        x = x + TF.post_norm(p, cfg, "norm1_post",
+                             out_project(p["attn"], a[:, None]))
+        if cross is not None:
+            x = TF.cross_sublayer(p, cfg, x, *cross, inputs["enc_valid"])
+        return TF.mlp_sublayer(p, cfg, x)[0]
 
     def serve_step(params, state, inputs):
         x = TF.embed_tokens(params, cfg, inputs["tokens"][:, None])
@@ -117,9 +132,11 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
                 si += 1
             else:
                 window, theta = TF.layer_attrs(cfg, i)
+                cross = ((state["enc_k"][i], state["enc_v"][i])
+                         if "enc_k" in state else None)
                 x = attn_mlp(p, x, state["arena"][ai],
                              state["arena_scale"][ai] if quant else None,
-                             inputs, window=window, theta=theta)
+                             inputs, window=window, theta=theta, cross=cross)
                 ai += 1
             g = TF.shared_app(cfg, i)
             if g >= 0:
@@ -135,7 +152,8 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
 
 
 # =========================================================== state builders
-def serve_state_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
+def serve_state_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None,
+                      enc_len: int = 0) -> dict:
     """{name: (shape, dtype)} of the serve state at ``geom.cap`` arena rows
     (the engine adds its slack and the arenas' scratch row); ``"ssm"`` maps
     each SSM state (Mamba1: ``h [n_ssm, b, d_inner, state]`` fp32, ``conv
@@ -144,7 +162,9 @@ def serve_state_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
     batched over the slots. An attention-free stack has no arena. With
     ``kv_quant_int8`` the arenas are int8 and ``arena_scale`` /
     ``shared_arena_scale`` hold their fp32 scales (one a row, k/v,
-    position and kv head), as in the reference."""
+    position and kv head), as in the reference. An encoder-decoder with
+    ``enc_len > 0`` adds each slot's cross K/V, ``enc_k`` / ``enc_v``
+    ``[L, b, enc_len, kh, hd]``."""
     TF.check_supported(cfg)
     if mesh is not None:
         raise NotPorted("a device mesh for the serve state")
@@ -168,6 +188,10 @@ def serve_state_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
         one = TF.ssm_init_state(cfg, geom.batch, "meta")
         specs["ssm"] = {k: ((n,) + tuple(a.shape), a.dtype)
                         for k, a in one.items()}
+    if cfg.is_encdec and enc_len > 0:
+        shape = (cfg.n_layers, geom.batch, enc_len, cfg.n_kv_heads,
+                 cfg.head_dim)
+        specs["enc_k"] = specs["enc_v"] = (shape, cfg.dtype)
     return specs
 
 
@@ -180,7 +204,9 @@ def has_attention(cfg: ModelConfig) -> bool:
 def serve_input_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
     """{name: (shape, dtype)} of the serve step's inputs: the reference's
     ShapeDtypeStructs without a mesh (``stripe_total`` 1, ``nblk_local``
-    ``nblk``). They are the decode graph's static input buffers."""
+    ``nblk``; an encoder-decoder's ``enc_valid``, the encoder positions
+    each slot attends). They are the decode graph's static input
+    buffers."""
     TF.check_supported(cfg)
     if mesh is not None:
         raise NotPorted("a device mesh for the serve inputs")
@@ -191,22 +217,31 @@ def serve_input_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
         specs["pt"] = ((b, 1, nblk), torch.int32)
         specs["blk_start"] = ((b, 1, nblk), torch.int32)
         specs["write_rows"] = ((b, 1), torch.int32)
+    if cfg.is_encdec:
+        specs["enc_valid"] = ((b,), torch.int32)
     return specs
+
+
+ARENAS = ("arena", "arena_scale", "shared_arena", "shared_arena_scale")
 
 
 def init_serve_state(cfg: ModelConfig, geom: PagedGeom, rows: int,
                      device) -> dict:
     """Zeroed serve state with ``rows`` arena rows plus the scratch row of
-    the dropped writes."""
+    the dropped writes (and an encoder-decoder's ``enc_k`` / ``enc_v`` of
+    ``frontend_len`` positions, as the reference's engine sizes them)."""
     state = {}
-    for name, spec in serve_state_specs(cfg, geom).items():
+    specs = serve_state_specs(
+        cfg, geom, enc_len=cfg.frontend_len if cfg.is_encdec else 0)
+    for name, spec in specs.items():
         if name == "ssm":
             state[name] = {k: torch.zeros(shape, dtype=dtype, device=device)
                            for k, (shape, dtype) in spec.items()}
         else:
             shape, dtype = spec
-            state[name] = torch.zeros((shape[0], rows + 1) + shape[2:],
-                                      dtype=dtype, device=device)
+            if name in ARENAS:
+                shape = (shape[0], rows + 1) + shape[2:]
+            state[name] = torch.zeros(shape, dtype=dtype, device=device)
     return state
 
 
@@ -225,8 +260,10 @@ class ServeGraph:
     buffer (``vec``) that a round fills with one staged copy; ``pt`` holds
     ``cap`` where a block is missing and is mapped to the kernel's ``-1``
     inside the round; ``write_rows`` is ``-1`` for a slot without a
-    request. The caller updates ``pt``, ``write_rows`` and ``state`` in
-    place: the graph reads fixed addresses.
+    request; an encoder-decoder's ``enc_valid`` holds ``frontend_len``
+    for every slot, as the reference's engine passes it. The caller
+    updates ``pt``, ``write_rows`` and ``state`` in place: the graph reads
+    fixed addresses.
 
     The graph is captured at the first call (or by :meth:`capture`) on
     the side stream of ``core/execache.py``, with that module's device
@@ -257,6 +294,10 @@ class ServeGraph:
                                                    self.device)
             self.inputs["write_rows"] = torch.full(
                 specs["write_rows"][0], -1, dtype=torch.int32,
+                device=self.device)
+        if "enc_valid" in specs:
+            self.inputs["enc_valid"] = torch.full(
+                specs["enc_valid"][0], cfg.frontend_len, dtype=torch.int32,
                 device=self.device)
         self.graph = None
         self.pool = None
@@ -466,32 +507,43 @@ class ServeEngine:
     # ------------------------------------------------------------- publics
     def add_request(self, prompt_tokens, *, user_id: int = 0,
                     extras: dict | None = None) -> int:
-        """Prefill a prompt into a fresh slot. Returns the slot id."""
-        if extras:
-            raise NotPorted("frontend / encoder inputs")
+        """Prefill a prompt into a fresh slot. ``extras``: host arrays of
+        one request (``frontend`` / ``enc_frames``, module docstring).
+        Returns the slot id."""
+        cfg = self.cfg
         slot = self._free_slot()
         seq_id = self._next_seq
         self._next_seq += 1
         toks = np.asarray(prompt_tokens, np.int32)
         n = len(toks)
-        logits, cache = TF.prefill(self.params, self.cfg, {
-            "tokens": T.to_device(toks[None], self.device)})
+        batch = {"tokens": T.to_device(toks[None], self.device)}
+        for k, v in (extras or {}).items():
+            batch[k] = T.to_device(np.asarray(v)[None], self.device)
+        logits, cache = TF.prefill(self.params, cfg, batch)
+        total = n + (cfg.frontend_len if cfg.frontend == "vision"
+                     and extras and "frontend" in extras else 0)
         if self.attends:
-            self._install_kv(slot, seq_id, user_id, toks, cache)
+            self._install_kv(slot, seq_id, user_id, toks, total, cache)
         for name, t in cache.get("ssm", {}).items():
             self.state["ssm"][name][:, slot] = t[:, 0]
-        self.lengths[slot] = n
+        for name in ("enc_k", "enc_v"):
+            if name in cache:   # into the static state the graph reads
+                self.state[name][:, slot].copy_(cache[name][:, 0])
+        self.lengths[slot] = total
         self.prefill_logits = logits[0]
         first = int(torch.argmax(logits[0]))
         self.requests[slot] = Request(seq_id, user_id, slot, list(toks),
                                       [first])
         return slot
 
-    def _install_kv(self, slot, seq_id, user_id, toks, cache) -> None:
-        """A prefill's blocks: one INSERT, then its K/V into the arenas at
-        the rows the INSERT reports."""
+    def _install_kv(self, slot, seq_id, user_id, toks, total, cache) -> None:
+        """A prefill's blocks (``total`` positions: the frontend's and the
+        prompt's): one INSERT, then its K/V into the arenas at the rows
+        the INSERT reports. As in the reference, the prefix hashes are of
+        the prompt's tokens alone, zero-padded to the blocks of
+        ``total``, and only for a prompt of a block or more."""
         n = len(toks)
-        nblk = -(-n // self.block)
+        nblk = -(-total // self.block)
         pad = nblk * self.block
         hashes = None
         if n >= self.block:  # on the host: the prompt is host data

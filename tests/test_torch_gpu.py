@@ -14,7 +14,9 @@ warm-up, one graph launch a warm statement. The serving engines, whose
 decode round replays one captured CUDA graph, are held against CPU
 engines the same way: equal tokens and logits within 1e-4, no sync from
 the capture on, one graph launch and two copies a warm round, exact
-launch counts. Every test
+launch counts; the MoE, frontend and encoder-decoder engines the same
+way, and the MoE router's top-k keeps ties in index order on the card.
+Every test
 skips with a reason where no CUDA card is present; run them on the card
 with ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import re
@@ -1372,23 +1374,25 @@ def _rounds(engines, n):
                      .abs().max()) <= 1e-4
 
 
-def _serve_stream(engines, prompts, n_rounds):
+def _serve_stream(engines, prompts, n_rounds, extras=None):
     """Admissions, ``n_rounds`` rounds, then finish_request, an admission
     into the freed slot, evict_user, flush and re-admission, each equal on
-    both engines. Returns the rounds run."""
+    both engines (``extras``: each prompt's request extras). Returns the
+    rounds run."""
+    ex = extras or [None] * len(prompts)
     for e in engines:
         for i, p in enumerate(prompts):
-            e.add_request(p, user_id=i % 2)
+            e.add_request(p, user_id=i % 2, extras=ex[i])
     _rounds(engines, n_rounds)
     assert len({e.finish_request(1) for e in engines}) == 1
     for e in engines:
-        e.add_request(prompts[0], user_id=3)
+        e.add_request(prompts[0], user_id=3, extras=ex[0])
     _rounds(engines, 2)
     assert len({e.evict_user(0) for e in engines}) == 1
     _rounds(engines, 1)
     assert len({e.flush() for e in engines}) == 1
     for e in engines:
-        e.add_request(prompts[1], user_id=4)
+        e.add_request(prompts[1], user_id=4, extras=ex[1])
     _rounds(engines, 1)
     assert engines[1].live_blocks() == engines[0].live_blocks()
     return n_rounds + 4
@@ -1763,3 +1767,177 @@ def test_mesh_fanout_on_card_equals_cpu(cuda):
                   (3,))
             _same_state(dbs, "m")
     _release(*dbs)
+
+
+# ------------------------------------------------- MoE, frontend, enc-dec
+def _extras(cfg, n, seed):
+    """Each request's extras as the reference's serving test draws them:
+    a vision frontend's embeddings or an encoder-decoder's frames,
+    [frontend_len, d] × 0.02; None for a text-only arch."""
+    if cfg.frontend != "vision" and not cfg.is_encdec:
+        return [None] * n
+    key = "enc_frames" if cfg.is_encdec else "frontend"
+    rng = np.random.default_rng(seed)
+    return [{key: (rng.standard_normal((cfg.frontend_len, cfg.d_model))
+                   * 0.02).astype(np.float32)} for _ in range(n)]
+
+
+@pytest.mark.parametrize("arch,ragged", [
+    ("granite-moe-1b-a400m", False), ("granite-moe-1b-a400m", True),
+    ("phi3.5-moe-42b-a6.6b", False), ("internvl2-1b", False),
+    ("seamless-m4t-large-v2", False)])
+def test_moe_frontend_encdec_engine_on_card_matches_cpu(cuda, monkeypatch,
+                                                        arch, ragged):
+    """granite-moe and phi3.5-moe (the dense dispatch, and granite's
+    ragged one with ``REPRO_MOE_RAGGED=1``: sort, cumsum and index_copy_
+    inside the captured round), internvl2 (a frontend before every
+    prompt) and seamless (encoder frames on every request, their cross
+    K/V copied into the static state) SMOKE (fp32) through the paged
+    engine, its decode round one captured CUDA graph, on the card and on
+    the CPU with the same weights: the prefill's logits within 1e-4, then
+    the yi-6b test's stream with the same tokens and logits within 1e-4,
+    no sync from the capture on; flash attention once per decoder layer
+    and prefill (seamless: and once per encoder layer and cross
+    attention), paged attention once per decoder layer and round (the
+    prime round included)."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as TF
+    if ragged:
+        monkeypatch.setenv("REPRO_MOE_RAGGED", "1")
+    cfg, engines, prompts = _serve_engines(cuda, arch, 64, (9, 17, 12))
+    extras = _extras(cfg, len(prompts), 11)
+    _build.reset_launches()
+    for e in engines:
+        e.add_request(prompts[1], user_id=5, extras=extras[1])
+    assert float((engines[0].prefill_logits
+                  - engines[1].prefill_logits.cpu()).abs().max()) <= 1e-4
+    for e in engines:
+        e.finish_request(0)
+    rounds = _serve_stream(engines, prompts, 9, extras)
+    attn = TF.n_attn_layers(cfg)
+    flash = attn + (cfg.enc_layers + cfg.n_layers if cfg.is_encdec else 0)
+    assert _build.launches["flash_attention"] == 6 * flash
+    assert _build.launches["paged_attention"] == (rounds + 1) * attn
+    if cfg.is_encdec:
+        st = [e.state["enc_k"] for e in engines]
+        assert float((st[0] - st[1].cpu()).abs().max()) <= 1e-4
+    _release_engines(engines)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_router_ties_choose_the_lower_index_on_card(cuda, dtype):
+    """``torch.topk`` promises no order among ties on CUDA; the port's
+    ``moe.top_k`` (a stable descending sort) must keep equal values in
+    index order there, as ``jax.lax.top_k`` does: equal to the CPU's
+    choice on rows full of ties, and, at granite's router width (d 1,024,
+    32 experts, top 8) with columns repeated in groups of three (exact
+    ties in every group), every token's chosen members of a group are
+    that group's lowest indices."""
+    from repro_torch.models.layers import moe as MOE
+    rng = np.random.default_rng(0)
+    vals = torch.from_numpy(rng.integers(0, 4, (4096, 32)).astype(
+        np.float32)).to(dtype)
+    for k in (1, 2, 8, 32):
+        got = MOE.top_k(vals.to(cuda), k)
+        want = MOE.top_k(vals, k)
+        assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(got[0].cpu(), want[0])
+
+    class Cfg:
+        n_experts, top_k = 32, 8
+    g = torch.Generator(device=cuda).manual_seed(1)
+    router = torch.randn((1024, 11), generator=g, device=cuda)
+    router = router.repeat_interleave(3, dim=1)[:, :32].to(dtype) / 32
+    x = torch.randn((1, 4096, 1024), generator=g, device=cuda).to(dtype)
+    w, _ = MOE.router_probs({"router": router}, Cfg, x)
+    chosen = (w[0] > 0).cpu().numpy()
+    assert (chosen.sum(axis=-1) == 8).all()
+    for lo in range(0, 32, 3):
+        grp = chosen[:, lo:lo + 3]
+        m = grp.sum(axis=-1)
+        want = np.arange(grp.shape[1])[None, :] < m[:, None]
+        np.testing.assert_array_equal(grp, want)
+
+
+def test_ragged_equals_dense_dispatch_at_granite_width(cuda):
+    """One MoE layer at granite-moe-1b's published widths (d 1,024, 32
+    experts of d_ff 512, top 8, bf16) over a prefill of 8 tokens (each
+    expert's capacity is then every token: nothing dropped): the ragged
+    dispatch equals the dense one within bf16's 2e-2 (summation order and
+    one rounding of each weighted expert output), and its aux loss is the
+    dense one's over top_k (the reference's two formulas differ so)."""
+    from repro_torch import configs
+    from repro_torch.models.layers import moe as MOE
+    cfg = configs.get_config("granite-moe-1b-a400m")
+    g = torch.Generator(device=cuda).manual_seed(2)
+    p = MOE.init_moe(g, cfg, cuda)
+    x = torch.randn((1, 8, cfg.d_model), generator=g, device=cuda).to(
+        cfg.dtype)
+    dense, aux_d = MOE.moe_forward(p, cfg, x)
+    ragged, aux_r = MOE.moe_forward(p, cfg, x, ragged=True)
+    torch.cuda.synchronize()
+    assert dense.dtype == ragged.dtype == torch.bfloat16
+    assert float((dense.float() - ragged.float()).abs().max()) <= 2e-2
+    assert abs(float(aux_d) - cfg.top_k * float(aux_r)) <= 1e-5
+
+
+# the MoE, vision and encoder-decoder archs' attention shapes at full
+# width: seamless's encoder
+# (non-causal, 1,024 frames) and cross attention (8 / 24 queries over
+# them), internvl2's prefill (GQA group 7 over 256 + 24 positions),
+# granite's (hd 64, group 2)
+MOE_ENCDEC_FLASH_SHAPES = [(1, 16, 16, 1024, 1024, 64, False),
+                     (1, 16, 16, 24, 1024, 64, False),
+                     (1, 16, 16, 8, 1024, 64, False),
+                     (1, 14, 2, 280, 280, 64, True),
+                     (1, 16, 8, 23, 23, 64, True)]
+# (h, kh, hd, nblk, lengths): internvl2 (group 7, max_seq 512), seamless
+# (group 1), granite (group 2), phi3.5 (group 4, hd 128)
+MOE_ENCDEC_PAGED_SHAPES = [(14, 2, 64, 32, [280, 287, 0, 296]),
+                     (14, 2, 64, 32, [257, 320, 64, 512]),
+                     (16, 16, 64, 16, [24, 31, 0, 40]),
+                     (16, 8, 64, 16, [9, 17, 33, 256]),
+                     (32, 8, 128, 16, [24, 31, 0, 40])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,sq,sk,hd,causal", MOE_ENCDEC_FLASH_SHAPES)
+def test_flash_at_moe_encdec_shapes(cuda, b, h, kh, sq, sk, hd, causal,
+                                    dtype):
+    q, k, v = _flash_case(cuda, dtype, b, h, kh, sq, sk, hd, sq + sk + hd)
+    # the [b, s, h, hd]-transposed views attention_forward passes
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in (q, k, v))
+    kw = dict(scale=hd ** -0.5, causal=causal)
+    got = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= ATT_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kh,hd,nblk,lengths", MOE_ENCDEC_PAGED_SHAPES)
+def test_paged_at_moe_encdec_shapes(cuda, h, kh, hd, nblk, lengths, dtype):
+    b, block = len(lengths), 16
+    rng = np.random.default_rng(h + hd + nblk)
+    cap = b * nblk + 3
+    pages = np.full((b, nblk), -1, np.int32)
+    perm = rng.permutation(cap)
+    pi = 0
+    for i, n_tok in enumerate(lengths):
+        n = -(-n_tok // block)
+        pages[i, :n] = perm[pi:pi + n]
+        pi += n
+    g = torch.Generator(device=cuda).manual_seed(hd + nblk + h)
+    q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
+    arena = torch.randn((cap, 2, block, kh, hd), generator=g,
+                        device=cuda).to(dtype)
+    pt = torch.from_numpy(pages).to(cuda)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kw = dict(scale=hd ** -0.5)
+    got = PA.paged_attention(q, arena, pt, ln, **kw)
+    want = PA.paged_attention_ref(q, arena, pt, ln, **kw)
+    again = PA.paged_attention(q, arena, pt, ln, **kw)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= ATT_TOL[dtype]
+    assert torch.equal(got, again)

@@ -134,17 +134,29 @@ def test_padded_vocab_is_masked(smoke):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotPorted):
-        TC.get_config("granite-moe-1b-a400m")
-    with pytest.raises(NotPorted):
-        TC.get_smoke("seamless-m4t-large-v2")
+    """Every arch of the reference is served now (``PORTED`` is all of
+    ``ARCHS``); what the port still refuses raises ``NotPorted``: a
+    device mesh for the serve state, and a stack of Mamba1 and Mamba2
+    layers."""
+    assert TC.PORTED == set(TC.ARCHS)
+    assert set(TC.all_archs()) == set(JC.all_archs())
+    for arch in TC.ARCHS:
+        assert TC.get_smoke(arch).name == JC.get_smoke(arch).name
     with pytest.raises(KeyError):
         TC.get_config("no-such-arch")
-    assert set(TC.all_archs()) == set(JC.all_archs())
     import dataclasses
-    moe = dataclasses.replace(TC.get_smoke("yi-6b"), n_experts=4, top_k=2)
+
+    from repro_torch.serving import engine as TE
+    from repro_torch.serving.paged import PagedGeom
+    cfg = TC.get_smoke("yi-6b")
+    geom = PagedGeom(8, 4, 2, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads)
     with pytest.raises(NotPorted):
-        TTF.init_model(torch.Generator(), moe, "cpu")
+        TE.serve_state_specs(cfg, geom, mesh=object())
+    mixed = dataclasses.replace(TC.get_smoke("zamba2-2.7b"),
+                                layer_pattern=("mamba1",) + ("mamba2",) * 3,
+                                shared_attn_every=0, scan_group=1)
+    with pytest.raises(NotPorted):
+        TTF.init_model(torch.Generator(), mixed, "cpu")
 
 
 # ------------------------------------------------------------------ zamba2
