@@ -7,7 +7,7 @@ Run from a checkout of the repository on a machine with a CUDA card and
 the CUDA toolkit. Phases (one JSON line each on stdout):
 
 0. device  -- the card's name and power limit (``nvidia-smi``).
-1. build   -- compile the seven CUDA kernels from the six sources in
+1. build   -- compile the CUDA kernels from the seven sources in
               ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
               parallel) and report registers, shared memory and spills
               per kernel instance, and the tensor-core (HMMA) and cp.async
@@ -95,6 +95,25 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               time at s 300 and s 24 (the device time of the whole call,
               2 launches and 1), bound and plain time (no PyTorch call
               computes this function).
+   kernels_attention_bwd -- the flash-attention backward
+              (``csrc/flash_attention_bwd.cu``: delta, dK/dV, dQ) against
+              its plain version on the card, fp32 within 1e-4 and bf16
+              within 2e-2 of the largest gradient, from the forward
+              kernel's own output and log-sum-exp: kernels_attention's
+              flash shapes and tile edges (head dims 8-256, causal and
+              not, q_offset, windows crossed, softcap 50, GQA groups 1-9,
+              sq != sk, rows that see no key), GQA 7 and 8, cross
+              attention, gemma2's window at 4,608 tokens and the
+              transposed views (dq in q's layout); a second call
+              bit-equal, autograd (FlashAttention) equal to the wrapper,
+              the stored lse against the plain one. Then at gemma2-2b's
+              training shape (b 1, s 8,192, h 8 / kh 4, hd 256, softcap
+              50; window 4,096 and global): each launch's device time,
+              the backward call's, the plain version's, the bound (10 ·
+              visible pairs · hd FLOP at 989 TFLOP/s for the whole
+              backward) and scaled_dot_product_attention's backward
+              (without the softcap, the window as a mask); the forward
+              with and without its lse store.
 3. table2  -- the paper's Table 2 deployment (100,000 records over 30,000
               pages and 1,000 users, CAPACITY 131072), with and without
               INDEX(page_id), INDEX(user_id), on the card daemon and on a
@@ -141,6 +160,20 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               REINDEX retires every plan, each followed by statements
               that must equal the CPU daemon's. Reports capture ms, the
               Table 2 table's graph-pool bytes and wall p50s.
+   train   -- training through the port, first of the main paths: (i)
+              gemma2-2b at full width with 2 layers (local, global), b 1,
+              s 4,608: the loss and every gradient leaf through the
+              kernels against the same with the plain attention swapped
+              in under autograd (loss within 1e-2 relative, each leaf
+              within 5e-2 of its largest entry); (ii) gemma2-2b at its 26
+              layers, 3 AdamW steps of launch/train.py (b 1, s 8,192,
+              remat full): finite losses, the third below the first,
+              step time, tokens/s, peak memory against the 31.4 GB of
+              state; (iii) yi-6b, granite-moe-1b, seamless-m4t-v2 and
+              internvl2-1b SMOKE (fp32): 3 steps, then a resume from the
+              step-2 checkpoint whose step 3 repeats the loss within 1e-4
+              relative; (iv) zamba2 refused (NotPorted) by the launcher
+              and by the Mamba2 scan asked for a gradient.
 6. serve_gemma3, serve_gemma2, serve_starcoder2, serve_falcon_mamba --
               the paged-KV serving engine with the four other archs it
               serves, each at its published width and depth (bf16, random
@@ -238,7 +271,7 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               device time by family, idle share), and for zamba2's
               300-token prefill.
 
-Phases 3-6 are twenty-two main paths (serve_gemma3, serve_gemma2,
+Phases 3-6 are twenty-three main paths (train, serve_gemma3, serve_gemma2,
 serve_starcoder2, serve_falcon_mamba, serve_granite_moe, serve_phi35_moe,
 serve_internvl2, serve_seamless, serve, serve_zamba2, serve_int8,
 serve_int8_zamba2, Table 2 plain, Table 2 indexed, Fig. 1, wire, graphs,
@@ -254,7 +287,8 @@ script (its table has INDEX(k)), all four in shards, mesh, snapshot and
 cluster (cluster_chaos's kernels run in child processes, which the
 counters cannot see: that path checks results only); flash attention,
 paged attention and the relscan scan on
-the serve paths of attention archs, the relscan scan alone on
+the serve paths of attention archs, the forward with its lse store and
+the three backward kernels on train, the relscan scan alone on
 falcon-mamba's (the DELETEs of its empty kv table), and the Mamba2 scan on
 zamba2's two, each an exact number of times (per attention layer or
 shared-block application and prefill or round, the capture's prime round
@@ -3859,8 +3893,8 @@ def device_families(prof, wall_us, n):
         return e.self_cuda_time_total
 
     fam = {"gemm": 0.0, "mamba2_scan": 0.0, "flash_attention": 0.0,
-           "paged_attention": 0.0, "sql_kernels": 0.0, "copies": 0.0,
-           "other": 0.0}
+           "flash_attention_bwd": 0.0, "paged_attention": 0.0,
+           "sql_kernels": 0.0, "copies": 0.0, "other": 0.0}
     top = {}
     for e in dev:
         name, t = e.name, t_of(e)
@@ -3872,6 +3906,9 @@ def device_families(prof, wall_us, n):
             fam["paged_attention"] += t
         elif "flash_kernel" in name:
             fam["flash_attention"] += t
+        elif any(w in name for w in ("dkdv_kernel", "dq_kernel",
+                                     "delta_kernel")):
+            fam["flash_attention_bwd"] += t
         elif "scan_kernel" in name or "compact_kernel" in name:
             fam["sql_kernels"] += t
         elif any(w in name.lower() for w in ("gemm", "gemv", "nvjet",
@@ -4047,6 +4084,441 @@ def phase_profile(card, serve, zamba):
     emit({"phase": "profile", "card": card, **out})
 
 
+# ------------------------------------- phase 2d: attention backward
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # of the largest
+# gradient: fp32 sums in another order; in bf16 the output's rounding
+# (dq, dk, dv are rounded once to bf16, ~2^-9 of the largest)
+# the backward's own cases beside the forward's: GQA groups 1, 2, 7 and 8,
+# sq != sk (cross attention), ragged tails
+BWD_CASES = FLASH_CASES + FLASH_EDGE_CASES + [
+    (1, 14, 2, 40, 40, 64, True, 0, 0.0, 0),      # GQA 7 (internvl2)
+    (1, 8, 1, 70, 70, 128, True, 0, 0.0, 0),      # GQA 8
+    (1, 16, 16, 24, 1024, 64, False, 0, 0.0, 0),  # cross attention
+    (1, 8, 4, 4608, 4608, 256, True, 4096, 50.0, 0)]  # gemma2, window crossed
+GEMMA2_TRAIN = (1, 8, 4, 8192, 256)   # b, h, kh, s, hd at full width
+
+
+def visible_pairs(b, h, sq, sk, causal, window, q_offset) -> int:
+    """(query, key) pairs the mask lets through, over every head."""
+    q = q_offset + np.arange(sq)
+    hi = np.minimum(sk, q + 1) if causal else np.full(sq, sk)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(sq, int)
+    return int(b * h * np.maximum(hi - lo, 0).sum())
+
+
+def bwd_case(gen, dev, dtype, case, views=False):
+    """One backward case: the kernels' (dq, dk, dv) from the forward
+    kernel's own output and log-sum-exp against the plain version on the
+    same tensors, a second call bit-equal, the same gradients through
+    autograd (FlashAttention), the stored lse against the plain one, and
+    the delta kernel's D on its own against rowsum(dO * O). Returns the
+    error relative to the largest gradient, each kernel's absolute error
+    (the lse store, delta, dK/dV, dQ) and the delta's error relative to
+    its largest row."""
+    b, h, kh, sq, sk, hd, causal, window, softcap, q_offset = case
+    shapes = ((b, h, sq, hd), (b, kh, sk, hd), (b, kh, sk, hd),
+              (b, h, sq, hd))
+    if views:   # [b, s, heads, hd] projections, as attention_prefill's
+        q, k, v, do = (torch.randn((s[0], s[2], s[1], s[3]), generator=gen,
+                                   device=dev).to(dtype).transpose(1, 2)
+                       for s in shapes)
+    else:
+        q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                       for s in shapes)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+              softcap=softcap, q_offset=q_offset)
+    o, lse = FA._forward(q, k, v, with_lse=True, **kw)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = FA.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    delta = FA.flash_attention_bwd_delta(o, do)
+    delta_ref = (do.float() * o.float()).sum(dim=-1)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    FA.flash_attention(qg, kg, vg, **kw).backward(do)
+    lse_ref = FA.attention_lse_ref(q, k, **kw)
+    sync()
+    what = (f"flash backward {b}x{h}/{kh}x{sq}x{sk}x{hd} c{causal} "
+            f"w{window} cap{softcap} off{q_offset} "
+            f"{str(dtype)[6:]}{' views' if views else ''}")
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"{what}: a second call differs")
+    if not all(torch.equal(a, t.grad) for a, t in zip(got, (qg, kg, vg))):
+        raise AssertionError(f"{what}: autograd's gradients differ")
+    if views and got[0].stride() != q.stride():
+        raise AssertionError(f"{what}: dq is not in q's layout")
+    top = max(float(w.abs().max()) for w in want)
+    err = max(float((a.float() - w).abs().max())
+              for a, w in zip(got, want)) / max(top, 1e-30)
+    if not err <= BWD_TOL[dtype]:
+        raise AssertionError(f"{what}: kernels differ from the plain "
+                             f"version by {err} of the largest gradient")
+    seen = lse_ref > -1e29
+    lse_err = float((lse - lse_ref).abs()[seen].max()) if seen.any() else 0.0
+    if not lse_err <= (1e-4 if dtype == torch.float32 else 2e-2):
+        raise AssertionError(f"{what}: stored lse off by {lse_err}")
+    d_err = float((delta - delta_ref).abs().max()) if sq else 0.0
+    d_rel = d_err / max(float(delta_ref.abs().max()) if sq else 0.0, 1e-30)
+    if not d_rel <= BWD_TOL[dtype]:
+        raise AssertionError(f"{what}: delta kernel off by {d_rel} of the "
+                             f"largest row")
+    ab = [float((a.float() - w).abs().max()) for a, w in zip(got, want)]
+    return err, {"flash_attention_lse": lse_err,
+                 "flash_attention_bwd_delta": d_err,
+                 "flash_attention_bwd_dkdv": max(ab[1], ab[2]),
+                 "flash_attention_bwd_dq": ab[0]}, d_rel
+
+
+def phase_kernels_attention_bwd(dev, card):
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    errs = {k: 0.0 for k in ("flash_attention_lse",
+                             "flash_attention_bwd_delta",
+                             "flash_attention_bwd_dkdv",
+                             "flash_attention_bwd_dq")}
+    rel, delta_rel = 0.0, 0.0
+    n = 0
+    cases = [(dtype, case, False) for dtype in (torch.float32, torch.bfloat16)
+             for case in BWD_CASES] + [
+        (dtype, (b, h, kh, s, s, hd, True, 0, 0.0, 0), True)
+        for dtype in (torch.float32, torch.bfloat16)
+        for b, h, kh, s, hd in FLASH_VIEW_CASES]
+    for dtype, case, views in cases:
+        e, a, d = bwd_case(gen, dev, dtype, case, views=views)
+        rel, delta_rel, n = max(rel, e), max(delta_rel, d), n + 1
+        for k in errs:
+            errs[k] = max(errs[k], a[k])
+    # max_abs_err: each kernel's own output (lse; D; dK and dV; dQ)
+    emit({"phase": "kernels_attention_bwd", "card": card, "cases": n,
+          "tolerance_of_largest_gradient": {"float32": 1e-4,
+                                            "bfloat16": 2e-2},
+          "max_err_of_largest_gradient": rel,
+          "delta_max_err_of_largest_row": delta_rel, "max_abs_err": errs,
+          "repeat_runs": "bit-equal"})
+
+    # gemma2-2b's full training shape, window 4,096 and global, bf16
+    out = {}
+    b, h, kh, s, hd = GEMMA2_TRAIN
+    bf = torch.bfloat16
+    q, k, v = flash_inputs(gen, dev, bf, b, h, kh, s, s, hd)
+    do = torch.randn((b, h, s, hd), generator=gen, device=dev).to(bf)
+    elem = 2
+    for window in (4096, 0):
+        tag = f"w{window}" if window else "global"
+        kw = dict(scale=hd ** -0.5, causal=True, window=window, softcap=50.0,
+                  q_offset=0)
+        pairs = visible_pairs(b, h, s, s, True, window, 0)
+        shape = (f"b{b} h{h}/kh{kh} s{s} hd{hd} bf16 causal softcap 50 "
+                 + (f"window {window}" if window else "global")
+                 + " (gemma2-2b's training shape)")
+        o, lse = FA._forward(q, k, v, with_lse=True, **kw)
+        fwd = lambda: FA._forward(q, k, v, with_lse=False, **kw)  # noqa: E731
+        fwd_lse = lambda: FA._forward(q, k, v, with_lse=True, **kw)  # noqa
+        bwd = lambda: FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa
+        events = device_events(bwd, iters=3)
+        dev_ms = {}
+        for name, sym in (("flash_attention_bwd_delta", "delta_kernel"),
+                          ("flash_attention_bwd_dkdv", "dkdv_kernel"),
+                          ("flash_attention_bwd_dq", "dq_kernel")):
+            t = [device_us(e) for e in events if sym in e.name]
+            dev_ms[name] = sum(t) / len(t) / 1e3 if t else None
+        bwd_ms = time_ms(bwd, iters=3, warm=1)
+        plain_ms = time_ms(lambda: FA.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, **kw), iters=2, warm=1)
+        # the library's backward: dq, dk, dv of SDPA at the same shape,
+        # without the softcap (SDPA has none); the window as a mask
+        lib_ms, lib_err = None, None
+        try:
+            import torch.nn.functional as F
+            ql, kl, vl = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            mask = None
+            if window:
+                pos = torch.arange(s, device=dev)
+                mask = ((pos[:, None] >= pos[None, :])
+                        & (pos[:, None] - pos[None, :] < window))
+            ol = F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask, is_causal=mask is None,
+                scale=kw["scale"], enable_gqa=True)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                ol, (ql, kl, vl), do, retain_graph=True), iters=3, warm=1)
+            del ol, ql, kl, vl
+        except (TypeError, RuntimeError) as e:
+            lib_err = f"{type(e).__name__}: {e}"[:300]
+        fwd_flops = 4 * pairs * hd
+        rows = {
+            "flash_attention_lse": dict(
+                ms=time_ms(fwd_lse, iters=5, warm=1),
+                device_ms=device_ms(fwd_lse, "flash_kernel", iters=3),
+                ms_without_lse=time_ms(fwd, iters=5, warm=1),
+                device_ms_without_lse=device_ms(fwd, "flash_kernel",
+                                                iters=3),
+                plain_ms=time_ms(lambda: FA.flash_attention_ref(
+                    q, k, v, **kw), iters=2, warm=1),
+                bound=bound((2 * b * h + 2 * b * kh) * s * hd * elem
+                            + 4 * b * h * s, fwd_flops, BF16_OPS_S),
+                library_ms=None,
+                library="none at this shape: SDPA has no softcap (the "
+                        "forward's library time is in kernels_attention)"),
+            "flash_attention_bwd_delta": dict(
+                bound=bound(2 * b * h * s * hd * elem + 4 * b * h * s, 0.0)),
+            "flash_attention_bwd_dkdv": dict(
+                bound=bound(0.0, 8 * pairs * hd, BF16_OPS_S)),
+            "flash_attention_bwd_dq": dict(
+                bound=bound(0.0, 6 * pairs * hd, BF16_OPS_S)),
+        }
+        for name, r in rows.items():
+            bound_ms, bound_by = r.pop("bound")
+            if name != "flash_attention_lse":
+                r.update(ms=bwd_ms, device_ms=dev_ms[name],
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         library="scaled_dot_product_attention's backward "
+                         "(dq, dk, dv together: the three launches' work), "
+                         "no softcap", library_error=lib_err,
+                         ms_covers="the whole backward call (3 launches)")
+            out[f"{name}_{tag}"] = {"kernel": name, "shape": shape,
+                                    "bound_ms": bound_ms,
+                                    "bound_by": bound_by, **r}
+        whole, whole_by = bound(0.0, 10 * pairs * hd, BF16_OPS_S)
+        emit({"phase": "kernel_timing", "card": card,
+              "kernel": "flash_attention backward (all three launches)",
+              "shape": shape, "ms": bwd_ms,
+              "device_ms": sum(x for x in dev_ms.values() if x),
+              "plain_ms": plain_ms, "bound_ms": whole, "bound_by": whole_by,
+              "library_ms": lib_ms, "visible_pairs": pairs})
+        del o, lse
+        torch.cuda.empty_cache()
+    for t in out.values():
+        emit({"phase": "kernel_timing", "card": card, **t})
+    return out, errs
+
+
+# ------------------------------------------------------- phase: train
+
+TRAIN_NEED = ("flash_attention_lse", "flash_attention_bwd_delta",
+              "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+TRAIN_LOSS_TOL = 1e-2    # relative: bf16 weights and activations, the
+# plain path rounds P and O at other places
+TRAIN_GRAD_TOL = 5e-2    # of each leaf's largest entry: a bf16 gradient
+# through two layers of bf16 activations
+STATE_GB = 31.4          # gemma2-2b's bf16 params + grads, fp32 mu and nu
+
+
+def attention_launches(cfg, remat: str, steps: int) -> tuple[int, int]:
+    """(forwards, backwards) of the flash kernels in ``steps`` training
+    steps of ``cfg``: one of each for every self-attention (a shared
+    block's too), cross attention and encoder layer a step; under remat
+    "full" the forwards of the scan units' layers run twice (the backward
+    recomputes them; the tail layers and the encoder are not
+    checkpointed)."""
+    if remat not in ("none", "full"):
+        raise ValueError(f"no launch count for remat {remat!r}")
+    gs, ng, _ = TF.scan_layout(cfg)
+    per = [(0 if kind in TF.SSM_KINDS else 1 + int(cfg.is_encdec))
+           + int(TF.shared_app(cfg, i) >= 0)
+           for i, kind in enumerate(cfg.layer_pattern)]
+    once = sum(per) + (cfg.enc_layers if cfg.is_encdec else 0)
+    again = sum(per[:ng * gs]) if remat == "full" else 0
+    return steps * (once + again), steps * once
+
+
+def expect_launches(want: dict, cfg, remat: str, steps: int) -> None:
+    """Add ``steps`` training steps of ``cfg`` to the launch counts
+    ``want`` of phase train."""
+    fwd, bwd = attention_launches(cfg, remat, steps)
+    want["flash_attention_lse"] += fwd
+    for k in TRAIN_NEED[1:]:
+        want[k] += bwd
+
+
+def leaf_grads(params, cfg, batch):
+    from repro_torch.optim.adamw import tree_leaves
+    flat = tree_leaves(params)
+    for x in flat:
+        x.requires_grad_(True)
+    loss, _ = TF.train_loss(params, cfg, batch, remat="none")
+    grads = torch.autograd.grad(loss, flat)
+    for x in flat:
+        x.requires_grad_(False)
+    return float(loss), grads
+
+
+def train_two_layers(card, dev, want):
+    """(i) gemma2-2b at full width, one local and one global layer, s
+    4,608 (its 4,096-token window masks): loss and every gradient through
+    the kernels against the same with the plain attention under
+    autograd."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.training.loop import to_device
+    full = configs.get_config("gemma2-2b")
+    cfg = dataclasses.replace(full, n_layers=2,
+                              layer_pattern=full.layer_pattern[:2])
+    params = TF.init_model(torch.Generator(device=dev).manual_seed(SEED),
+                           cfg, dev)
+    batch = to_device(make_batch(cfg, 1, 4608, seed=SEED), dev)
+    before = dict(_build.launches)
+    loss_k, g_k = leaf_grads(params, cfg, batch)
+    launched = {k: n - before[k] for k, n in _build.launches.items()}
+    with patched(AT, "flash_attention", FA.flash_attention_ref):
+        loss_p, g_p = leaf_grads(params, cfg, batch)
+    mine = dict.fromkeys(_build.KERNELS, 0)
+    expect_launches(mine, cfg, "none", 1)
+    if launched != mine:
+        raise AssertionError(f"train (i): launches {launched}, expected "
+                             f"{mine}")
+    expect_launches(want, cfg, "none", 1)
+    names = list(_flat_names(params))
+    errs = {}
+    for name, a, c in zip(names, g_k, g_p):
+        top = float(c.float().abs().max())
+        errs[name] = float((a.float() - c.float()).abs().max()) / max(top,
+                                                                      1e-30)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = max(errs.values())
+    emit({"phase": "train_two_layers", "card": card,
+          "shape": "gemma2-2b full width, layers (local, global), b1 s4608",
+          "loss_kernels": loss_k, "loss_plain": loss_p,
+          "loss_rel_diff": loss_rel, "loss_tol": TRAIN_LOSS_TOL,
+          "grad_rel_err": errs, "grad_rel_err_max": worst,
+          "grad_tol": TRAIN_GRAD_TOL, "launches": launched})
+    if not (loss_rel <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"train (i): kernels' loss / gradients differ "
+                             f"from the plain attention's: {loss_rel}, "
+                             f"{worst}")
+    del params, g_k, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _flat_names(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_names(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k
+
+
+def train_full_width(card, dev, want):
+    """(ii) gemma2-2b at its full 26 layers: 3 AdamW steps through
+    launch/train.py's main (b 1, s 8,192, remat full), with the step-2
+    checkpoint of the whole state (params and moments) written on the
+    way, then one step more under the profiler."""
+    import shutil
+    from repro_torch.launch import train as LT
+    from repro_torch.optim.adamw import tree_leaves
+    ckpt = ROOT / "build" / "chip_smoke_train" / "gemma2"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    loop = LT.main(["--arch", "gemma2-2b", "--batch", "1", "--seq", "8192",
+                    "--remat", "full", "--steps", "3", "--ckpt-every", "2",
+                    "--ckpt-dir", str(ckpt), "--seed", str(SEED)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [h["loss"] for h in loop.history]
+    dts = [h["dt"] for h in loop.history]
+    # the checkpoint holds every leaf of the state, and the step it names
+    meta = json.loads((ckpt / "step_2" / "meta.json").read_text())
+    n_leaves = len(tree_leaves(loop.params)) + len(tree_leaves(loop.opt))
+    count = int(np.load(ckpt / "step_2" / meta["names"]["opt/.count"]))
+    ckpt_gb = sum(f.stat().st_size for f in (ckpt / "step_2").iterdir()) / 1e9
+    shutil.rmtree(ckpt)
+    if len(meta["names"]) != n_leaves or count != 2:
+        raise AssertionError(f"train (ii): step-2 checkpoint holds "
+                             f"{len(meta['names'])} of {n_leaves} leaves, "
+                             f"count {count}")
+    # one more step under the profiler: the step's device time by family
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.loop import to_device
+    batch = to_device(loop.data.batch_at(3), dev)
+    sync()
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loop.params, loop.opt, m = loop.step_fn(loop.params, loop.opt, batch,
+                                                3)
+        float(m["loss"])
+        sync()
+    step_profile = device_families(prof, (time.perf_counter() - t1) * 1e6, 1)
+    emit({"phase": "train_full_width", "card": card,
+          "arch": "gemma2-2b", "layers": 26, "batch": 1, "seq": 8192,
+          "remat": "full",
+          "params_b": sum(x.numel() for x in tree_leaves(loop.params)) / 1e9,
+          "losses": losses, "step_s": dts,
+          "tokens_per_s": [8192 / d for d in dts],
+          "peak_memory_gb": peak, "state_gb": STATE_GB, "wall_s": wall,
+          "checkpoint_step": 2, "checkpoint_gb": ckpt_gb,
+          "checkpoint_host_copy_s": loop.history[1].get("ckpt_copy_s"),
+          "profiled_step": step_profile})
+    if not (all(np.isfinite(losses)) and losses[2] < losses[0]):
+        raise AssertionError(f"train (ii): losses {losses}")
+    if not STATE_GB * 0.95 <= peak <= 80:
+        raise AssertionError(f"train (ii): peak {peak} GB beside "
+                             f"{STATE_GB} GB of state")
+    expect_launches(want, configs.get_config("gemma2-2b"), "full", 4)
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_smoke_resume(card, dev, want):
+    """(iii) yi-6b, granite-moe-1b, seamless-m4t-v2 and internvl2-1b at
+    their SMOKE sizes: 3 steps, then a resume from the step-2 checkpoint
+    whose step 3 must repeat the first run's loss."""
+    import shutil
+    from repro_torch.launch import train as LT
+    out = {}
+    for arch in ("yi-6b", "granite-moe-1b-a400m", "seamless-m4t-large-v2",
+                 "internvl2-1b"):
+        ckpt = ROOT / "build" / "chip_smoke_train" / arch
+        shutil.rmtree(ckpt, ignore_errors=True)
+        common = ["--arch", arch, "--smoke", "--batch", "4", "--seq", "32",
+                  "--ckpt-every", "1", "--ckpt-dir", str(ckpt), "--seed",
+                  str(SEED)]
+        first = LT.main(common + ["--steps", "3"])
+        shutil.rmtree(ckpt / "step_3")
+        again = LT.main(common + ["--steps", "3", "--resume"])
+        expect_launches(want, configs.get_smoke(arch), "none", 3 + 1)
+        a, c = first.history[-1]["loss"], again.history[-1]["loss"]
+        out[arch] = {"losses": [h["loss"] for h in first.history],
+                     "resumed_from": again.start_step,
+                     "step3_resumed": c,
+                     "rel_diff": abs(a - c) / abs(a)}
+        if again.start_step != 2 or not out[arch]["rel_diff"] <= 1e-4:
+            raise AssertionError(f"train (iii) {arch}: {out[arch]}")
+    emit({"phase": "train_smoke_resume", "card": card, **out})
+
+
+def train_zamba2_refused(card, dev):
+    """(iv) zamba2 on the card is refused: the launcher, and the Mamba2
+    scan kernel itself when asked for a gradient."""
+    from repro_torch.launch import train as LT
+    from repro_torch.models.config import NotPorted
+    said = {}
+    try:
+        LT.main(["--arch", "zamba2-2.7b", "--smoke", "--steps", "1"])
+    except NotPorted as e:
+        said["launcher"] = str(e)
+    x = torch.randn((1, 5, 2, 8), device=dev, requires_grad=True)
+    f = torch.rand((1, 5, 2), device=dev)
+    try:
+        MS.mamba2_scan(x, f, -f, torch.randn((1, 5, 4), device=dev),
+                       torch.randn((1, 5, 4), device=dev))
+    except NotPorted as e:
+        said["mamba2_scan"] = str(e)
+    emit({"phase": "train_zamba2_refused", "card": card, **said})
+    if len(said) != 2:
+        raise AssertionError(f"train (iv): zamba2 was not refused: {said}")
+
+
+def phase_train(card, dev, held):
+    """The training path; ``held["want"]`` gets the launches its runs
+    must make."""
+    want = held["want"] = dict.fromkeys(_build.KERNELS, 0)
+    train_two_layers(card, dev, want)
+    train_full_width(card, dev, want)
+    train_smoke_resume(card, dev, want)
+    train_zamba2_refused(card, dev)
+
+
 # ------------------------------------------------------------------- main
 
 SOURCES = {
@@ -4065,6 +4537,20 @@ SOURCES = {
     "mamba2_scan": ("src/repro_torch/csrc/mamba_scan.cu",
                     "src/repro/kernels/mamba_scan.py:23"),
 }
+# the training path's kernels: no Pallas counterpart (the reference takes
+# jax.grad of its jnp chunked_attention)
+NO_PALLAS = "none: jax.grad of src/repro/models/layers/attention.py:84"
+TRAIN_SOURCES = {
+    "flash_attention_lse": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:28 "
+                            "(the forward; the lse store has none)"),
+    "flash_attention_bwd_delta": ("src/repro_torch/csrc/"
+                                  "flash_attention_bwd.cu", NO_PALLAS),
+    "flash_attention_bwd_dkdv": ("src/repro_torch/csrc/"
+                                 "flash_attention_bwd.cu", NO_PALLAS),
+    "flash_attention_bwd_dq": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                               NO_PALLAS),
+}
 
 
 def main():
@@ -4076,7 +4562,8 @@ def main():
     # profiled windows were seen to lose some kernel records
     phase_comparable(dev, card)
     timing, errs = phase_kernels(dev, card)
-    for phase in (phase_kernels_attention, phase_kernels_mamba):
+    for phase in (phase_kernels_attention, phase_kernels_mamba,
+                  phase_kernels_attention_bwd):
         t, e = phase(dev, card)
         timing.update(t)
         errs.update(e)
@@ -4095,7 +4582,11 @@ def main():
     # card alone (gemma3-27b's weights 54 GB), and ends with its engine
     # and weights released
     new = {name: {} for name in NEW_SERVE}
-    paths = tuple(
+    trained: dict = {}
+    paths = (
+        # training first: its gemma2-2b state takes ~45 GB of the card
+        ("train", lambda: phase_train(card, dev, trained), TRAIN_NEED),
+    ) + tuple(
         (name, lambda name=name: phase_serve(
             card, dev, new[name], NEW_SERVE[name][0], name=name,
             keep=False, **NEW_SERVE[name][1]),
@@ -4157,8 +4648,10 @@ def main():
             raise AssertionError(f"{path}: kernels never launched on this "
                                  f"path: {missing} ({got})")
         held = {"serve": serve, "serve_zamba2": zamba, "serve_int8": int8_yi,
-                "serve_int8_zamba2": int8_zamba, **new}.get(path)
-        if held is not None:  # one launch per layer per prefill / round
+                "serve_int8_zamba2": int8_zamba, "train": trained,
+                **new}.get(path)
+        if held is not None:  # one launch per layer per prefill / round /
+            # training step (and recompute)
             if any(got[k] != n for k, n in held["want"].items()):
                 raise AssertionError(f"{path}: launches {got}, expected "
                                      f"{held['want']}")
@@ -4200,6 +4693,18 @@ def main():
                 {k: r[k] for k in ("shape", "device_ms", "bound_ms",
                                    "separate_calls_device_ms")}
                 for r in rows]
+    for name, (src, replaces) in TRAIN_SOURCES.items():
+        t = timing[f"{name}_global"]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": errs[name], "ms": t["ms"],
+                        "device_ms": t["device_ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"],
+                        "library_ms": t["library_ms"], "shape": t["shape"],
+                        "window_4096": {k: timing[f"{name}_w4096"][k] for k
+                                        in ("ms", "device_ms", "plain_ms",
+                                            "bound_ms", "library_ms")}})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -12,10 +12,12 @@ other.
   ``step``, ``names`` (leaf key -> file), ``dtypes`` (leaf key -> numpy
   dtype name) and the caller's ``meta``. A leaf's key is its dict path
   joined by ``/`` (``cols/page_id``, ``indexes/page_id/rid``, ``valid``),
-  the names ``jax.tree_util.tree_flatten_with_path`` gives; leaves are
-  numbered in sorted key order. An empty dict has no leaves. bfloat16 is
-  stored as float32 with ``"bfloat16"`` in ``dtypes`` and restored to the
-  dtype of the ``like`` tree's leaf.
+  the names ``jax.tree_util.tree_flatten_with_path`` gives, with a list or
+  plain tuple entry by its index and a NamedTuple field (the optimizer's
+  ``AdamWState``) as ``.<field>``: ``opt/.mu/embed``, ``opt/.count``;
+  leaves are numbered in sorted key order. An empty dict has no leaves.
+  bfloat16 is stored as float32 with ``"bfloat16"`` in ``dtypes`` and
+  restored to the dtype of the ``like`` tree's leaf.
 """
 from __future__ import annotations
 
@@ -30,18 +32,27 @@ import numpy as np
 import torch
 
 
-def _flatten(tree, path: tuple = ()) -> dict[str, Any]:
-    """``{key: leaf}`` of a nested dict / list / tuple; None and empty
-    containers have no leaves."""
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def _children(tree):
+    """(path entry, child) pairs of a container: a dict's keys, a
+    NamedTuple's ``.<field>``, a list's or tuple's index."""
     if isinstance(tree, dict):
+        return list(tree.items())
+    if _is_namedtuple(tree):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    return list(enumerate(tree))
+
+
+def _flatten(tree, path: tuple = ()) -> dict[str, Any]:
+    """``{key: leaf}`` of a nested dict / NamedTuple / list / tuple; None
+    and empty containers have no leaves."""
+    if isinstance(tree, (dict, list, tuple)):
         out = {}
-        for k in sorted(tree):
-            out.update(_flatten(tree[k], path + (k,)))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = {}
-        for i, v in enumerate(tree):
-            out.update(_flatten(v, path + (i,)))
+        for k, v in _children(tree):
+            out.update(_flatten(v, path + (k,)))
         return out
     if tree is None:
         return {}
@@ -50,11 +61,13 @@ def _flatten(tree, path: tuple = ()) -> dict[str, Any]:
 
 def _rebuild(tree, fn: Callable[[str, Any], Any], path: tuple = ()):
     """``tree``'s structure with each leaf replaced by ``fn(key, leaf)``."""
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, fn, path + (k,)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, fn, path + (i,))
-                          for i, v in enumerate(tree))
+    if isinstance(tree, (dict, list, tuple)):
+        kids = [_rebuild(v, fn, path + (k,)) for k, v in _children(tree)]
+        if isinstance(tree, dict):
+            return dict(zip(tree, kids))
+        if _is_namedtuple(tree):
+            return type(tree)(*kids)
+        return type(tree)(kids)
     if tree is None:
         return None
     return fn("/".join(str(p) for p in path), tree)
@@ -133,21 +146,39 @@ def restore(path: str | os.PathLike, step: int, like, device=None):
     return _rebuild(like, load), info
 
 
+CHUNK_BYTES = 1 << 30
+
+
 def host_copy(tree):
     """``tree`` with every leaf copied to the host (it shares no memory
-    with ``tree``). The tensors of each card travel in ONE device-to-host
-    copy: their bytes are concatenated on the card first."""
+    with ``tree``). The tensors of each card travel in few device-to-host
+    copies: their bytes are concatenated on the card into runs of at most
+    ``CHUNK_BYTES`` first (a table's state is one run, one copy), and a
+    leaf larger than that travels alone. So the card holds at most
+    ``CHUNK_BYTES`` more than the tree while it copies, even for a
+    training state as large as the card allows."""
+    chunk_bytes = CHUNK_BYTES
     flat = _flatten(tree)
     out: dict[str, Any] = {}
-    on_card: dict[torch.device, list[str]] = {}
+    runs: list[list[str]] = []
+    open_run: dict[torch.device, tuple[list[str], int]] = {}
     for k, x in flat.items():
         if isinstance(x, torch.Tensor) and x.device.type != "cpu":
-            on_card.setdefault(x.device, []).append(k)
+            n = x.numel() * x.element_size()
+            if n > chunk_bytes:
+                out[k] = x.detach().cpu()
+                continue
+            keys, size = open_run.get(x.device, (None, 0))
+            if keys is None or size + n > chunk_bytes:
+                keys, size = [], 0
+                runs.append(keys)
+            keys.append(k)
+            open_run[x.device] = (keys, size + n)
         elif isinstance(x, torch.Tensor):
             out[k] = x.detach().clone()
         else:
             out[k] = np.array(x, copy=True)
-    for keys in on_card.values():
+    for keys in runs:
         buf = torch.cat([flat[k].detach().contiguous().reshape(-1)
                          .view(torch.uint8) for k in keys]).cpu()
         off = 0

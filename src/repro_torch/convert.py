@@ -25,7 +25,11 @@ Model weights travel the same way: the reference's parameter tree (after
 the port's names and stacked layout (an MoE's ``[layers, e, ...]`` expert
 leaves and router, an encoder-decoder's ``encoder`` subtree and each
 decoder layer's ``norm_x`` and ``cross``), so :func:`params_from_numpy`
-is one mapping and :func:`params_to_numpy` its inverse.
+is one mapping and :func:`params_to_numpy` its inverse;
+:func:`opt_from_numpy` and :func:`opt_to_numpy` do the same for the
+optimizer's state (``AdamWState``: fp32 moments of the parameters' tree
+and an int32 step count), so both packages can start training from the
+same state.
 """
 from __future__ import annotations
 
@@ -155,3 +159,25 @@ def params_to_numpy(params: Any) -> Any:
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
     return params.detach().float().cpu().numpy()
+
+
+def opt_from_numpy(state, device):
+    """The reference's ``AdamWState`` (leaves through ``numpy.asarray``) ->
+    the port's ``AdamWState`` on ``device``: fp32 moments, int32 count."""
+    from repro_torch.optim.adamw import AdamWState
+
+    def f32(node):
+        if isinstance(node, dict):
+            return {k: f32(v) for k, v in node.items()}
+        return _tensor(np.asarray(node)).to(device=device,
+                                             dtype=torch.float32)
+    return AdamWState(mu=f32(state.mu), nu=f32(state.nu),
+                      count=torch.tensor(int(np.asarray(state.count)),
+                                         dtype=torch.int32, device=device))
+
+
+def opt_to_numpy(state):
+    """The port's ``AdamWState`` -> (mu, nu, count) as numpy: fp32 moment
+    trees and an int32 scalar, for the reference's ``AdamWState``."""
+    return (params_to_numpy(state.mu), params_to_numpy(state.nu),
+            np.asarray(state.count.detach().cpu().numpy(), dtype=np.int32))

@@ -73,6 +73,15 @@
 //   * At hd 256 the O fragment is 128 registers a lane, so key tiles are
 //     32 keys there; Q fragments are reloaded from shared memory at every
 //     step rather than held in registers.
+// The row log-sum-exp (training): with a non-null lse pointer ([b, h, sq]
+// fp32, contiguous) each kernel also stores lse = m + log(l) of every row
+// in natural-log units, from the softmax state it keeps anyway (the tc
+// kernel's m is in its log2-scaled score units and is converted); the
+// backward kernels (flash_attention_bwd.cu) recompute P = exp(s - lse)
+// from it. The tc kernel's l sums the bf16-rounded P, so the recomputed
+// fp32 P of a row sums to 1 within 2^-8. Null stores nothing: the serve
+// paths pass null and their launches do not change.
+//
 // What is left for a later step: wgmma with TMA loads and warp
 // specialisation (a producer warp, consumer warpgroups on 64-row tiles),
 // which pays once a prompt long enough to be bound by operations is on a
@@ -96,6 +105,7 @@
 // from q_offset, window and sk before any load; the prefill (q_offset 0,
 // sq = sk) has none.
 #include "attention_common.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -118,7 +128,8 @@ constexpr size_t fa_smem_bytes() {
 template <int HD>
 __global__ void __launch_bounds__(FA_WARPS * 32)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, FaStrides st,
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, FaStrides st,
              int h, int kh, int sq, int sk, float scale, int causal,
              int window, float softcap, int q_offset) {
   constexpr int DPL = (HD + 31) / 32;  // head dims a lane accumulates
@@ -221,6 +232,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int t = 0; t < DPL; ++t)
       if (HD % 32 == 0 || lane + 32 * t < HD)
         op[r * st.o.s + lane + 32 * t] = acc[rr][t] * inv;
+    if (lse != nullptr && lane == 0)
+      lse[((long long)bb * h + head) * sq + r] = m[rr] + logf(l[rr]);
   }
 }
 
@@ -235,6 +248,7 @@ constexpr int TC_BQ = 16 * TC_RG;       // query rows a CTA
 // CTA runs per SM (see the note at the head of the file)
 constexpr size_t TC_SMEM_MIN = 120 * 1024;
 constexpr float TC_LOG2E = 1.4426950408889634f;
+constexpr float TC_LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct Tc {
@@ -246,68 +260,6 @@ struct Tc {
   static constexpr int CH = HD / 8;              // 16-byte chunks a row
   static constexpr size_t smem = sizeof(bf16) * LDS * (TC_BQ + 4 * STEP);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte global -> shared copy; zero-fills the destination when !valid
-// (src must still be a readable address)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr)
-      : "memory");
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // 2^x in one MUFU instruction (the scores are kept in log2 units)
 __device__ __forceinline__ float ex2(float x) {
@@ -335,7 +287,7 @@ template <int HD>
 __global__ void __launch_bounds__(Tc<HD>::WARPS * 32)
 flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                FaStrides st, int h, int kh, int sq, int sk, float scale,
+                float* __restrict__ lse, FaStrides st, int h, int kh, int sq, int sk, float scale,
                 int causal, int window, float softcap, int q_offset) {
   using S = Tc<HD>;
   constexpr int HDP = S::HDP, LDS = S::LDS, BK = S::BK, CH = S::CH;
@@ -602,6 +554,7 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 1; i < TC_KG; ++i)
       m_all = fmaxf(m_all, xs[(i - 1) * TC_RG * 32 * XS + r]);
     const float a0 = ex2((m[r] - m_all) * c2);
+    m[r] = m_all;
     l[r] *= a0;
 #pragma unroll
     for (int d = 0; d < OT; ++d) {
@@ -626,6 +579,9 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = row0 + g + r * 8;
     if (row >= sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    // m in score units: a score x weighs 2^((x - m) c2) = e^((x - m) c2 ln2)
+    if (lse != nullptr && tg == 0)
+      lse[((long long)bb * h + head) * sq + row] = m[r] * c2 * TC_LN2 + logf(l[r]);
     bf16* orow = op + row * st.o.s + tg * 2;
 #pragma unroll
     for (int d = 0; d < OT; ++d)
@@ -639,6 +595,7 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;
   FaStrides st;
   int b, h, kh, sq, sk;
   float scale;
@@ -656,7 +613,7 @@ int launch_f32(const Args& a) {
   dim3 grid((a.sq + FA_BQ - 1) / FA_BQ, a.h, a.b);
   flash_kernel<HD><<<grid, FA_WARPS * 32, smem, a.stream>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o,
-      a.st, a.h, a.kh, a.sq, a.sk, a.scale, a.causal, a.window, a.softcap,
+      a.lse, a.st, a.h, a.kh, a.sq, a.sk, a.scale, a.causal, a.window, a.softcap,
       a.q_offset);
   return (int)cudaGetLastError();
 }
@@ -669,7 +626,8 @@ int launch_tc(const Args& a) {
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.h, a.b, (a.sq + TC_BQ - 1) / TC_BQ);
   flash_kernel_tc<HD><<<grid, Tc<HD>::WARPS * 32, smem, a.stream>>>(
-      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (bf16*)a.o, a.st,
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (bf16*)a.o, a.lse,
+      a.st,
       a.h, a.kh, a.sq, a.sk, a.scale, a.causal, a.window, a.softcap,
       a.q_offset);
   return (int)cudaGetLastError();
@@ -688,15 +646,16 @@ int launch(const Args& a, int dtype) {
 // (0 = fp32 on the SIMT kernel, 1 = bf16 on the tensor-core kernel), head
 // dim contiguous; strides: 12 element strides (batch, head, sequence) of
 // q, k, v and o in that order. bf16 needs every row on 16 bytes.
-// hd in {8, 16, 32, 64, 80, 128, 256}.
+// hd in {8, 16, 32, 64, 80, 128, 256}. lse: null, or [b, h, sq] fp32
+// contiguous for the rows' log-sum-exp.
 REPRO_EXPORT int flash_attention(const void* q, const void* k, const void* v,
-                                 void* o, int b, int h, int kh, int sq, int sk,
+                                 void* o, float* lse, int b, int h, int kh, int sq, int sk,
                                  int hd, int dtype, float scale, int causal,
                                  int window, float softcap, int q_offset,
                                  const long long* strides, void* stream) {
   if (sq <= 0 || kh <= 0 || h % kh != 0) return (int)cudaErrorInvalidValue;
   const long long* s = strides;
-  Args a = {q, k, v, o,
+  Args a = {q, k, v, o, lse,
             {{s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
              {s[9], s[10], s[11]}},
             b, h, kh, sq, sk, scale, causal, window, softcap, q_offset,

@@ -35,14 +35,18 @@ import subprocess
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("relscan", "hashidx", "flash_attention", "paged_attention",
-           "paged_attention_int8", "mamba_scan")
+SOURCES = ("relscan", "hashidx", "flash_attention", "flash_attention_bwd",
+           "paged_attention", "paged_attention_int8", "mamba_scan")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("relscan_scan", "relscan_compact", "hash_build", "hash_probe",
-           "flash_attention", "paged_attention", "mamba2_scan")
+           "flash_attention", "paged_attention", "mamba2_scan",
+           # training: the forward that also stores the rows' log-sum-exp,
+           # and the three launches of its backward
+           "flash_attention_lse", "flash_attention_bwd_delta",
+           "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 launches = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -167,8 +171,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         "hash_probe_verify": [P, P, P, P, I, I, P, P, PP, PP,
                               ctypes.POINTER(I), I, P, P, I, I, P, P, P, P,
                               P],
-        "flash_attention": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, F, I,
-                            ctypes.POINTER(L), P],
+        "flash_attention": [P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, F,
+                            I, ctypes.POINTER(L), P],
+        "flash_attention_bwd_delta": [P, P, P, I, I, I, I, I,
+                                      ctypes.POINTER(L), P],
+        "flash_attention_bwd_dkdv": [P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                     I, I, F, I, I, F, I, ctypes.POINTER(L),
+                                     P],
+        "flash_attention_bwd_dq": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                   F, I, I, F, I, ctypes.POINTER(L), P],
         "paged_attention": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                             I, I, I, F, F, I, P],
         "paged_attention_int8": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,

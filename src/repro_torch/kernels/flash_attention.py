@@ -17,6 +17,16 @@ head and sequence strides, so the ``[b, s, h, hd]``-transposed views that
 ``attention_prefill`` passes need no copy; the output keeps q's strides
 (``torch.empty_like``). A tensor whose head dim is not contiguous or
 whose rows do not start on 16 bytes is copied to a contiguous one first.
+
+Training: on CUDA tensors :func:`flash_attention` goes through
+:class:`FlashAttention`, an autograd function. Where a gradient is needed
+its forward launches the kernel with the rows' log-sum-exp stored beside
+the output, and its backward launches ``csrc/flash_attention_bwd.cu``
+(three kernels: ``D = rowsum(dO o O)``, dK/dV summed over each GQA group,
+dQ) through :func:`flash_attention_bwd`; elsewhere nothing more is stored
+or launched. :func:`flash_attention_bwd_ref` is the backward's plain
+version, by the same formulas in fp32. On CPU tensors the plain forward
+is differentiated by autograd, as the reference differentiates its jnp.
 """
 from __future__ import annotations
 
@@ -70,6 +80,81 @@ def flash_attention_ref(q, k, v, *, scale: float, causal: bool = True,
     return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
 
 
+def _masks(sq, sk, causal, window, q_offset, device):
+    """(visible [sq, sk], blind [sq]: rows that see no key) of the
+    forward's mask."""
+    q_pos = q_offset + torch.arange(sq, device=device)
+    k_pos = torch.arange(sk, device=device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window and window > 0:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        blind = q_pos >= sk + window - 1
+    else:
+        blind = torch.zeros(sq, dtype=torch.bool, device=device)
+    return mask, blind
+
+
+def _capped_scores(q, k, *, scale, softcap):
+    """fp32 (softcapped) scores [b, h, sq, sk] with k's heads repeated."""
+    g = q.shape[1] // k.shape[1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale,
+                     k.repeat_interleave(g, dim=1).float())
+    if softcap and softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    return s
+
+
+def attention_lse_ref(q, k, *, scale: float, causal: bool = True,
+                      window: int = 0, softcap: float = 0.0,
+                      q_offset: int = 0) -> torch.Tensor:
+    """The rows' log-sum-exp [b, h, sq] fp32 that the forward kernels store
+    (natural log; -1e30 for a row that sees no key, where fp32 -1e30
+    absorbs log sk)."""
+    _check(q, k, k)
+    mask, _ = _masks(q.shape[2], k.shape[2], causal, window, q_offset,
+                     q.device)
+    s = torch.where(mask, _capped_scores(q, k, scale=scale, softcap=softcap),
+                    NEG_INF)
+    return torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, scale: float,
+                            causal: bool = True, window: int = 0,
+                            softcap: float = 0.0, q_offset: int = 0):
+    """Plain version of the backward kernels: (dq, dk, dv) in fp32 from the
+    forward's inputs, its output ``o`` and row log-sum-exp ``lse`` [b, h,
+    sq] and the output's gradient ``do``, by the kernels' formulas: P =
+    exp(s_c - lse), D = rowsum(do * o), dS = P (dP - D) (1 - (s_c /
+    cap)^2) scale on visible pairs (0 elsewhere), dV = P^T dO and dK = dS^T
+    Q summed over each kv head's query heads, dQ = dS K; a row that sees no
+    key has P = 1 / sk over the keys and dS = 0."""
+    _check(q, k, v)
+    b, h, sq, hd = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    g = h // kh
+    mask, blind = _masks(sq, sk, causal, window, q_offset, q.device)
+    sc = _capped_scores(q, k, scale=scale, softcap=softcap)
+    vis = mask & ~blind[:, None]
+    p = torch.where(vis, torch.exp(sc - lse.float()[..., None]), 0.0)
+    p = torch.where(blind[:, None], 1.0 / sk, p)
+    dof = do.float()
+    delta = (dof * o.float()).sum(dim=-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof,
+                      v.repeat_interleave(g, dim=1).float())
+    ds = torch.where(vis, p * (dp - delta[..., None]), 0.0)
+    if softcap and softcap > 0:
+        ds = ds * (1.0 - (sc / softcap) ** 2)
+    ds = ds * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds,
+                      k.repeat_interleave(g, dim=1).float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    fold = lambda t: t.reshape(b, kh, g, sk, hd).sum(dim=2)  # noqa: E731
+    return dq, fold(dk), fold(dv)
+
+
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernels can read it through its strides (head
     dim contiguous, every row starting on 16 bytes), else a contiguous
@@ -83,36 +168,147 @@ def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-_STRIDES = ctypes.c_longlong * 12
+def _strides(*ts) -> ctypes.Array:
+    """The batch, head and sequence element strides of each tensor."""
+    out = []
+    for t in ts:
+        out += t.stride()[:3]
+    return (ctypes.c_longlong * len(out))(*out)
+
+
+def _forward(q, k, v, *, scale, causal, window, softcap, q_offset,
+             with_lse: bool):
+    """One launch of the forward kernel on kernel views of q, k, v:
+    (out, lse [b, h, sq] fp32 or None)."""
+    b, h, sq, hd = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if sq == 0:
+        return out, lse
+    err = _build.lib("flash_attention").flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, h, kh, sq, sk, hd,
+        DTYPE_CODES[q.dtype], float(scale), int(bool(causal)), int(window),
+        float(softcap), int(q_offset), _strides(q, k, v, out),
+        _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention")
+    _build.count_launch("flash_attention_lse" if with_lse
+                        else "flash_attention")
+    return out, lse
+
+
+def _check_kernel_args(q, k, v):
+    _build.require_cuda(q, "flash_attention")
+    _check(q, k, v)
+    if q.dtype not in DTYPE_CODES or q.shape[3] not in HEAD_DIMS:
+        raise TypeError(f"flash_attention takes fp32/bf16 and head dims "
+                        f"{HEAD_DIMS}, not {q.dtype} / {q.shape[3]}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel, and the backward kernels for its gradient (CUDA
+    tensors). q, k, v, the output and the row log-sum-exp are saved only
+    when a gradient is needed; under ``torch.utils.checkpoint`` the
+    recompute launches the forward again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, softcap, q_offset):
+        grad = any(ctx.needs_input_grad[:3])
+        q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
+        out, lse = _forward(q, k, v, scale=scale, causal=causal,
+                            window=window, softcap=softcap,
+                            q_offset=q_offset, with_lse=grad)
+        if grad:
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.opts = dict(scale=scale, causal=causal, window=window,
+                            softcap=softcap, q_offset=q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_bwd_delta(o, do) -> torch.Tensor:
+    """D = rowsum(do * o), [b, h, sq] fp32: the first of the backward's
+    launches on CUDA tensors (the plain sum on the CPU)."""
+    if o.device.type == "cpu":
+        return (do.float() * o.float()).sum(dim=-1)
+    _build.require_cuda(o, "flash_attention_bwd_delta")
+    if o.dtype not in DTYPE_CODES:
+        raise TypeError(f"flash_attention_bwd_delta takes fp32/bf16, not "
+                        f"{o.dtype}")
+    b, h, sq, hd = o.shape
+    o, do = _kernel_view(o), _kernel_view(do.to(o.dtype))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=o.device)
+    if sq == 0:
+        return delta
+    err = _build.lib("flash_attention_bwd").flash_attention_bwd_delta(
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, h, sq, hd,
+        DTYPE_CODES[o.dtype], _strides(o, do), _build.stream_ptr(o.device))
+    _build.check(err, "flash_attention_bwd_delta")
+    _build.count_launch("flash_attention_bwd_delta")
+    return delta
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, q_offset: int = 0):
+    """(dq, dk, dv) in the input dtype and each input's layout, by the
+    contract of :func:`flash_attention_bwd_ref` (kernels on CUDA tensors:
+    three launches, fp32 sums; the plain version, rounded, on the CPU)."""
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    if q.device.type == "cpu":
+        dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    _check_kernel_args(q, k, v)
+    b, h, sq, hd = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    do = _kernel_view(do.to(q.dtype))
+    o = _kernel_view(o)
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise TypeError("lse must be [b, h, sq] fp32")
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if sq == 0 or sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lib = _build.lib("flash_attention_bwd")
+    stream = _build.stream_ptr(q.device)
+    code = DTYPE_CODES[q.dtype]
+    delta = flash_attention_bwd_delta(o, do)
+    strides = _strides(q, k, v, o, do, dq, dk, dv)
+    mask = (float(scale), int(bool(causal)), int(window), float(softcap),
+            int(q_offset), strides, stream)
+    err = lib.flash_attention_bwd_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
+        kh, sq, sk, hd, code, *mask)
+    _build.check(err, "flash_attention_bwd_dkdv")
+    _build.count_launch("flash_attention_bwd_dkdv")
+    err = lib.flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, kh, sq, sk,
+        hd, code, *mask)
+    _build.check(err, "flash_attention_bwd_dq")
+    _build.count_launch("flash_attention_bwd_dq")
+    return dq, dk, dv
 
 
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,
                     window: int = 0, softcap: float = 0.0,
                     q_offset: int = 0) -> torch.Tensor:
     """Contract of :func:`flash_attention_ref` (kernels on CUDA tensors:
-    bf16 on tensor cores, fp32 SIMT; head dim in ``HEAD_DIMS``)."""
+    bf16 on tensor cores, fp32 SIMT; head dim in ``HEAD_DIMS``), with its
+    gradient through :class:`FlashAttention`."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                    window=window, softcap=softcap,
                                    q_offset=q_offset)
-    _build.require_cuda(q, "flash_attention")
-    _check(q, k, v)
-    b, h, sq, hd = q.shape
-    kh, sk = k.shape[1], k.shape[2]
-    if q.dtype not in DTYPE_CODES or hd not in HEAD_DIMS:
-        raise TypeError(f"flash_attention takes fp32/bf16 and head dims "
-                        f"{HEAD_DIMS}, not {q.dtype} / {hd}")
-    q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
-    out = torch.empty_like(q)
-    if sq == 0:
-        return out
-    strides = _STRIDES(*(q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
-                         + out.stride()[:3]))
-    err = _build.lib("flash_attention").flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kh,
-        sq, sk, hd, DTYPE_CODES[q.dtype], float(scale), int(bool(causal)),
-        int(window), float(softcap), int(q_offset), strides,
-        _build.stream_ptr(q.device))
-    _build.check(err, "flash_attention")
-    _build.count_launch("flash_attention")
-    return out
+    _check_kernel_args(q, k, v)
+    return FlashAttention.apply(q, k, v, scale, causal, window, softcap,
+                                q_offset)

@@ -12,12 +12,19 @@ depend on the tile length). For ``s > CHUNK`` a call is two device
 launches: the states entering every chunk (walked along the chunks) and
 ``C B^T`` of every chunk, into a scratch this wrapper allocates; then every
 chunk's ``y`` at once. For ``s <= CHUNK`` it is one.
+
+The kernel has no backward yet: on CUDA tensors a call that autograd would
+have to differentiate (grad mode on and an input that requires a
+gradient) raises :class:`~repro_torch.models.config.NotPorted` rather than
+return a result detached from its inputs. On the CPU the plain version is
+differentiated by autograd.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.models.config import NotPorted
 
 CHUNK = 64          # steps a tile, in the kernel and by default in the plain version
 MAX_STATE = 256     # the kernel's largest ``st`` (shared memory)
@@ -85,6 +92,10 @@ def mamba2_scan(x, dt, dA, B, C, h0=None):
         return mamba2_scan_ref(x, dt, dA, B, C, h0)
     _build.require_cuda(x, "mamba2_scan")
     _check(x, dt, dA, B, C, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, dA, B, C, h0)):
+        raise NotPorted("a gradient through the Mamba2 scan kernel (the "
+                        "Mamba2 scan has no backward kernel yet)")
     b, s, nh, dh = x.shape
     st = B.shape[2]
     if x.dtype not in DTYPE_CODES or st > MAX_STATE:

@@ -74,12 +74,13 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     reference's combine ``(A1, B1) then (A2, B2) = (A1 A2, B2 + A2 B1)``:
     ceil(log2 s) elementwise steps, after which (A_t, B_t) is the prefix
     and h_t = A_t h0 + B_t. Nothing is divided, so a decay that underflows
-    fp32 gives 0, never inf or NaN (a ``cumprod`` then a division would)."""
-    a, b = a.clone(), b.clone()
+    fp32 gives 0, never inf or NaN (a ``cumprod`` then a division would).
+    Each step builds new tensors, so autograd can record the scan
+    (training): nothing its backward needs is overwritten."""
     n, d = a.shape[1], 1
     while d < n:
-        b[:, d:] = b[:, d:] + a[:, d:] * b[:, :-d]
-        a[:, d:] = a[:, d:] * a[:, :-d]
+        b = torch.cat([b[:, :d], b[:, d:] + a[:, d:] * b[:, :-d]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
         d *= 2
     h = a * h0[:, None] + b
     return h, h[:, -1]

@@ -23,11 +23,25 @@ each decoder layer's attention and MLP); attention-free Mamba1 stacks
 block, which closes every scan unit (its KV is collected per application
 as ``shared_k/v``). A stack that mixes attention and SSM layers (outside
 zamba2's shared-block form) or Mamba1 and Mamba2 layers raises
-:class:`~repro_torch.models.config.NotPorted`. Not in this port yet:
-training (``train_loss``, ``lm_loss``).
+:class:`~repro_torch.models.config.NotPorted`.
+
+Training: :func:`train_loss` (the frontend, the encoder, the MoE aux
+term) runs :func:`run_stack` with the reference's remat policies
+(``remat="full"``: ``torch.utils.checkpoint`` of each scan unit;
+``"dots"``: a selective checkpoint that saves the outputs of ``mm`` /
+``addmm``, as ``dots_with_no_batch_dims_saveable`` does) and
+:func:`lm_loss`, the cross entropy one ``loss_block`` of the sequence at
+a time, each block checkpointed so that the backward holds one block's
+fp32 logits. Autograd differentiates it; on the card each attention
+layer's gradient is the flash backward kernel. The stacked ``[L, ...]``
+leaves are split with one ``torch.unbind`` a leaf a call (one ``stack``
+in the backward, where ``[i]`` would make a full-size zero gradient per
+layer). zamba2 trains on the CPU only: the Mamba2 scan kernel has no
+backward yet and refuses a gradient on the card.
 
 Entry points
     init_model(gen, cfg, device)     -> parameter tree
+    train_loss(params, cfg, batch, remat="none") -> (loss, metrics)
     prefill(params, cfg, batch)      -> (last-token logits, cache)
     init_cache(cfg, batch, max_len, device, enc_len=0) -> dense decode cache
     decode_step(params, cfg, tokens, cache, lengths, enc_valid=None)
@@ -36,10 +50,12 @@ Entry points
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as CK
 
 from repro_torch.models.config import (GLOBAL, LOCAL, MAMBA1, MAMBA2,
                                        ModelConfig, NotPorted)
@@ -217,17 +233,59 @@ def assemble_inputs(params: dict, cfg: ModelConfig, batch: dict):
     return x
 
 
+def _head(params: dict) -> torch.Tensor:
+    """The output projection [d, padded_vocab] (the tied embedding's
+    transpose where there is no ``lm_head``)."""
+    return params["lm_head"] if "lm_head" in params else params["embed"].T
+
+
 def logits_fn(params: dict, cfg: ModelConfig,
               hidden: torch.Tensor) -> torch.Tensor:
     """hidden [..., d] -> fp32 logits [..., padded_vocab] (softcapped,
     padded ids masked). The product runs in fp32, as the reference's."""
-    head = params["lm_head"] if "lm_head" in params else params["embed"].T
-    logits = hidden.float() @ head.float()
+    return _head_logits(_head(params).float(), cfg, hidden)
+
+
+def _head_logits(head32: torch.Tensor, cfg: ModelConfig,
+                 hidden: torch.Tensor) -> torch.Tensor:
+    logits = hidden.float() @ head32
     logits = _softcap(logits, cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab:
         ids = torch.arange(cfg.padded_vocab, device=logits.device)
         logits = torch.where(ids < cfg.vocab, logits, NEG_INF)
     return logits
+
+
+def _block_ce(head32, cfg: ModelConfig, h, y, m):
+    """Summed masked cross entropy of one sequence block: h [b, blk, d],
+    labels y [b, blk], fp32 mask m [b, blk]."""
+    lg = _head_logits(head32, cfg, h)
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = lg.gather(-1, y.long()[..., None])[..., 0]
+    return ((lse - ll) * m).sum()
+
+
+def lm_loss(params: dict, cfg: ModelConfig, hidden, labels, loss_mask):
+    """Chunked-vocab cross entropy: logits made one ``loss_block`` of the
+    sequence at a time ([b, blk, padded_vocab] fp32), never the full [b,
+    s, V]. With autograd on, each block runs under
+    ``torch.utils.checkpoint``: its backward recomputes its logits, so one
+    block's are held at a time. The head is cast to fp32 once a call."""
+    b, s, _ = hidden.shape
+    blk = min(cfg.loss_block, s)
+    while s % blk:
+        blk //= 2
+    mask = loss_mask.float()
+    head32 = _head(params).float()
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(s // blk):
+        sl = slice(i * blk, (i + 1) * blk)
+        args = (head32, cfg, hidden[:, sl], labels[:, sl], mask[:, sl])
+        if torch.is_grad_enabled():
+            tot = tot + CK.checkpoint(_block_ce, *args, use_reentrant=False)
+        else:
+            tot = tot + _block_ce(*args)
+    return tot / torch.clamp(mask.sum(), min=1.0)
 
 
 # ========================================================== stack (forward)
@@ -315,9 +373,45 @@ def mamba_block_fwd(p: dict, cfg: ModelConfig, kind: str, x, state=None):
     return x + y, st
 
 
+def _unbind_tree(tree: dict, n: int) -> list[dict]:
+    """The ``n`` per-layer slices of a stacked ``[n, ...]`` tree, one
+    ``torch.unbind`` a leaf."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unbind_tree(v, n) if isinstance(v, dict) else v.unbind(0)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs
+    of the products without batch dims (``mm``, ``addmm``), recompute the
+    rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CK.CheckpointPolicy.MUST_SAVE
+    return CK.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMATS = ("none", "dots", "full")
+
+
+def _remat(fn, remat: str, *args):
+    """``fn(*args)`` under the remat policy (plain where autograd is
+    off)."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if remat == "full":
+        return CK.checkpoint(fn, *args, use_reentrant=False)
+    return CK.checkpoint(fn, *args, use_reentrant=False,
+                         context_fn=functools.partial(
+                             CK.create_selective_checkpoint_contexts,
+                             _dots_policy))
+
+
 def run_stack(params: dict, cfg: ModelConfig, x, positions, *,
               collect: bool = False, enc_kv=None, enc_valid=None,
-              causal: bool = True):
+              causal: bool = True, remat: str = "none"):
     """Decoder (or encoder: ``causal=False``) stack. Returns (hidden, aux,
     collected): aux the MoE router losses summed over the layers;
     ``collect=True`` gathers the prefill cache: every attention layer's KV
@@ -325,25 +419,35 @@ def run_stack(params: dict, cfg: ModelConfig, x, positions, *,
     as ``{"ssm": {name: [n_ssm, b, ...]}}`` and each application of the
     shared block's KV as ``{"shared_k", "shared_v": [n_groups, b, s, kh,
     hd]}``. ``enc_kv``: the cross K/V (k, v) stacked [L, b, se, kh,
-    hd]."""
+    hd]. ``remat`` ("none", "dots", "full") wraps each scan unit (its
+    layers and the shared block that closes it; not the tail layers, as
+    in the reference) for training."""
     check_supported(cfg)
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, not {remat!r}")
+    if collect and remat != "none":
+        raise ValueError("collect (prefill) runs without remat")
+    gs, ng, _ = scan_layout(cfg)
+    stacked = _unbind_tree(params["layers"], ng * gs) if ng else []
     kv: dict[str, list] = {"k": [], "v": [], "shared_k": [], "shared_v": []}
     states = []
-    aux = 0.0
-    for i in range(cfg.n_layers):
-        p = layer_params(params, cfg, i)
+
+    def layer(i, x):
+        """Layer ``i`` (and the shared block after it): (x, aux)."""
+        p = stacked[i] if i < ng * gs else params[f"tail_{i - ng * gs}"]
         kind = cfg.layer_pattern[i]
+        aux = 0.0
         if kind in SSM_KINDS:
             x, st = mamba_block_fwd(p, cfg, kind, x)
-            states.append(st)
+            if collect:
+                states.append(st)
         else:
             window, theta = layer_attrs(cfg, i)
             ek = None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i])
-            x, a, kvi = attn_block_fwd(p, cfg, x, positions, window=window,
-                                       theta=theta, causal=causal,
-                                       collect_kv=collect, enc_kv=ek,
-                                       enc_valid=enc_valid)
-            aux = aux + a
+            x, aux, kvi = attn_block_fwd(p, cfg, x, positions, window=window,
+                                         theta=theta, causal=causal,
+                                         collect_kv=collect, enc_kv=ek,
+                                         enc_valid=enc_valid)
             if collect:
                 kv["k"].append(kvi[0])
                 kv["v"].append(kvi[1])
@@ -355,6 +459,22 @@ def run_stack(params: dict, cfg: ModelConfig, x, positions, *,
             if collect:
                 kv["shared_k"].append(kvi[0])
                 kv["shared_v"].append(kvi[1])
+        return x, aux
+
+    def unit(u, x):
+        aux = 0.0
+        for i in range(u * gs, (u + 1) * gs):
+            x, a = layer(i, x)
+            aux = aux + a
+        return x, aux
+
+    aux = 0.0
+    for u in range(ng):
+        x, a = _remat(functools.partial(unit, u), remat, x)
+        aux = aux + a
+    for i in range(ng * gs, cfg.n_layers):
+        x, a = layer(i, x)
+        aux = aux + a
     if not collect:
         return x, aux, {}
     collected = {n: torch.stack(t) for n, t in kv.items() if t}
@@ -386,12 +506,40 @@ def encoder_cross_kv(params: dict, cfg: ModelConfig, enc_out):
     """Each decoder layer's cross K/V of the encoder output: (k, v)
     stacked [L_dec, b, se, kh, hd], the fragment the serving engine keeps
     per request."""
-    ks, vs = zip(*(cross_kv(layer_params(params, cfg, i)["cross"], cfg,
-                            enc_out) for i in range(cfg.n_layers)))
+    gs, ng, _ = scan_layout(cfg)
+    cross = ((_unbind_tree(params["layers"]["cross"], ng * gs) if ng else [])
+             + [params[f"tail_{t}"]["cross"]
+                for t in range(cfg.n_layers - ng * gs)])
+    ks, vs = zip(*(cross_kv(p, cfg, enc_out) for p in cross))
     return torch.stack(ks), torch.stack(vs)
 
 
 # ============================================================== public API
+def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+               remat: str = "none"):
+    """batch: tokens [b, st], labels [b, s_total], loss_mask [b, s_total]
+    (+ frontend [b, fl, d] | enc_frames [b, se, d]) as tensors on the
+    parameters' device. Returns (loss, {"ce", "aux"}): the masked cross
+    entropy plus, for an MoE, ``router_aux_coef`` times the router loss
+    averaged over the layers."""
+    x = assemble_inputs(params, cfg, batch)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    enc_kv = None
+    if cfg.is_encdec:
+        enc_kv = encoder_cross_kv(params, cfg,
+                                  run_encoder(params, cfg,
+                                              batch["enc_frames"]))
+    x, aux, _ = run_stack(params, cfg, x, positions, enc_kv=enc_kv,
+                          remat=remat)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    ce = lm_loss(params, cfg, x, batch["labels"], batch["loss_mask"])
+    loss = ce
+    if cfg.is_moe:
+        loss = loss + cfg.router_aux_coef * aux / max(cfg.n_layers, 1)
+    return loss, {"ce": ce, "aux": aux}
+
+
 def prefill(params: dict, cfg: ModelConfig, batch: dict):
     """Run the full prompt (frontend embeddings first where given; the
     encoder over ``batch["enc_frames"]`` for an encoder-decoder); returns

@@ -41,3 +41,44 @@ def test_torch_serve_paged_defaults_to_the_card():
     else:
         assert out.returncode != 0
         assert "no CUDA device" in out.stderr
+
+
+def test_torch_train_launcher_on_the_cpu(tmp_path):
+    """python -m repro_torch.launch.train --smoke --device cpu: gemma2-2b
+    SMOKE (window, softcaps, remat full) for 6 steps with a checkpoint at
+    step 3, then 2 more steps resumed from the step-6 checkpoint."""
+    common = ["-m", "repro_torch.launch.train", "--arch", "gemma2-2b",
+              "--smoke", "--device", "cpu", "--batch", "2", "--seq", "32",
+              "--remat", "full", "--ckpt-dir", str(tmp_path),
+              "--ckpt-every", "3"]
+    out = _run(*common, "--steps", "6")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[0].startswith("arch=gemma2-2b-smoke")
+    assert out.stdout.splitlines()[-1].startswith("finished at step 6; loss")
+    out = _run(*common, "--steps", "8", "--resume")
+    assert out.returncode == 0, out.stderr
+    assert "resumed from step 6" in out.stdout
+    assert out.stdout.splitlines()[-1].startswith("finished at step 8")
+
+
+def test_torch_train_launcher_refusals():
+    """The production mesh and zamba2 on the card are not ported: both
+    raise NotPorted (zamba2 trains on the CPU)."""
+    import pytest
+    from repro_torch.launch.train import main
+    from repro_torch.models.config import NotPorted
+    with pytest.raises(NotPorted):
+        main(["--mesh", "single", "--smoke", "--device", "cpu"])
+    if torch.cuda.is_available():
+        with pytest.raises(NotPorted):
+            main(["--arch", "zamba2-2.7b", "--smoke"])
+
+
+def test_torch_train_small_on_the_cpu(tmp_path):
+    """examples/torch_train_small.py at 8 steps: the loss falls, and the
+    restart resumes from the step-8 checkpoint and trains to step 10."""
+    out = _run("examples/torch_train_small.py", "--steps", "8", "--device",
+               "cpu", "--ckpt-dir", str(tmp_path / "ck"))
+    assert out.returncode == 0, out.stderr
+    assert "resumed from step 8" in out.stdout
+    assert out.stdout.splitlines()[-1] == "resumed at step 8, continued to 10"

@@ -16,7 +16,12 @@ engines the same way: equal tokens and logits within 1e-4, no sync from
 the capture on, one graph launch and two copies a warm round, exact
 launch counts; the MoE, frontend and encoder-decoder engines the same
 way, and the MoE router's top-k keeps ties in index order on the card.
-Every test
+The flash backward kernels are held against
+their plain version (fp32 within 1e-4, bf16 within 2e-2 of the largest
+gradient), bit-equal on a second call; autograd reaches them through
+FlashAttention, and the Mamba2 scan refuses a gradient; a SMOKE gemma2-2b
+training step through the kernels is held against the same step with the
+plain attention. Every test
 skips with a reason where no CUDA card is present; run them on the card
 with ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import re
@@ -450,6 +455,9 @@ def test_cuda_tensor_never_takes_plain_version(cuda):
                        torch.tensor([[2, 0]], dtype=torch.int32, device=cuda),
                        torch.tensor([6], dtype=torch.int32, device=cuda),
                        scale=0.125)
+    # a gradient: the forward with its lse store, the three backward ones
+    qg = q.clone().requires_grad_()
+    FA.flash_attention(qg, k, k, scale=0.125).sum().backward()
     want = dict.fromkeys(_build.launches, 1) | {"hash_probe": 2}
     assert _build.launches == want, _build.launches
 
@@ -1941,3 +1949,164 @@ def test_paged_at_moe_encdec_shapes(cuda, h, kh, hd, nblk, lengths, dtype):
     torch.cuda.synchronize()
     assert float((got.float() - want.float()).abs().max()) <= ATT_TOL[dtype]
     assert torch.equal(got, again)
+
+
+# ------------------------------------------------- training: the backward
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# (b, h, kh, sq, sk, hd, causal, window, softcap, q_offset): causal and
+# not, q_offset, a window crossed, softcap 50, GQA groups 1, 2, 7 and 8,
+# sq != sk, ragged tails, rows that see no key, every head dim
+BWD_CASES = [
+    (2, 4, 4, 128, 128, 64, True, 0, 0.0, 0),
+    (1, 8, 4, 256, 256, 256, True, 96, 50.0, 0),
+    (2, 4, 2, 128, 256, 32, False, 0, 0.0, 0),
+    (1, 14, 2, 40, 40, 64, True, 0, 0.0, 0),
+    (1, 8, 1, 70, 70, 128, True, 0, 0.0, 0),
+    (1, 4, 2, 13, 40, 256, True, 7, 20.0, 27),
+    (2, 8, 4, 13, 13, 8, True, 0, 0.0, 0),
+    (1, 4, 2, 37, 37, 16, True, 5, 10.0, 0),
+    (1, 32, 32, 300, 300, 80, True, 0, 0.0, 0),
+    (1, 16, 16, 24, 1024, 64, False, 0, 0.0, 0),
+    (1, 4, 2, 16, 16, 16, True, 4, 0.0, 8),
+    (1, 4, 4, 30, 20, 8, False, 6, 10.0, 5),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,sq,sk,hd,causal,window,softcap,q_offset",
+                         BWD_CASES)
+def test_flash_backward_matches_plain(cuda, b, h, kh, sq, sk, hd, causal,
+                                      window, softcap, q_offset, dtype):
+    q, k, v = _flash_case(cuda, dtype, b, h, kh, sq, sk, hd, sq + hd)
+    do = _flash_case(cuda, dtype, b, h, h, sq, sq, hd, hd)[0]
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+              softcap=softcap, q_offset=q_offset)
+    o, lse = FA._forward(q, k, v, with_lse=True, **kw)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = FA.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    top = max(float(w.abs().max()) for w in want)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        assert float((a.float() - w).abs().max()) <= BWD_TOL[dtype] * top
+    # the delta kernel alone: D = rowsum(dO * O)
+    d = FA.flash_attention_bwd_delta(o, do)
+    d_ref = (do.float() * o.float()).sum(dim=-1)
+    assert float((d - d_ref).abs().max()) <= (
+        BWD_TOL[dtype] * float(d_ref.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_gives_qkv_gradients(cuda, dtype):
+    """Autograd reaches the kernels: the gradients of a CUDA flash call
+    (transposed views, as attention_prefill passes them) are the backward
+    kernels', in each input's layout."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn((1, 40, n, 64), generator=g, device=cuda)
+               .to(dtype).transpose(1, 2).requires_grad_()
+               for n in (8, 2, 2))
+    kw = dict(scale=0.125, causal=True, window=16, softcap=30.0, q_offset=0)
+    out = FA.flash_attention(q, k, v, **kw)
+    assert out.grad_fn is not None
+    do = torch.randn(out.shape, generator=g, device=cuda).to(dtype)
+    out.backward(do)
+    o, lse = FA._forward(q.detach(), k.detach(), v.detach(), with_lse=True,
+                         **kw)
+    want = FA.flash_attention_bwd(q.detach(), k.detach(), v.detach(), o, lse,
+                                  do, **kw)
+    for t, w in zip((q, k, v), want):
+        assert t.grad is not None and torch.equal(t.grad, w)
+        assert t.grad.stride() == t.stride()
+
+
+def test_cuda_mamba2_scan_refuses_a_gradient(cuda):
+    from repro_torch.models.config import NotPorted
+    x = torch.randn((1, 5, 2, 8), device=cuda, requires_grad=True)
+    f = torch.rand((1, 5, 2), device=cuda)
+    B, C = torch.randn((1, 5, 4), device=cuda), torch.randn((1, 5, 4),
+                                                           device=cuda)
+    with pytest.raises(NotPorted, match="no backward kernel"):
+        MS.mamba2_scan(x, f, -f, B, C)
+    with torch.no_grad():
+        MS.mamba2_scan(x, f, -f, B, C)   # inference still runs
+
+
+def test_train_step_on_card_matches_plain_attention(cuda, monkeypatch):
+    """SMOKE gemma2-2b (window, both softcaps, remat full, fp32) on the
+    card through the flash kernels, against the same with the plain
+    attention under autograd: the loss within 1e-5 and every gradient
+    leaf within 1e-4 of its largest entry; then one AdamW step, the
+    updated parameters within 1e-4."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.layers import attention as AT
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.training.loop import to_device
+    from repro_torch.training.step import make_train_step
+    cfg = configs.get_smoke("gemma2-2b")
+    batch = to_device(make_batch(cfg, 2, 32, seed=4), cuda)
+
+    def init():
+        return TF.init_model(torch.Generator(device=cuda).manual_seed(0),
+                             cfg, cuda)
+
+    def grads():
+        params = init()
+        leaves = tree_leaves(params)
+        for x in leaves:
+            x.requires_grad_(True)
+        loss, _ = TF.train_loss(params, cfg, batch, remat="full")
+        return float(loss), torch.autograd.grad(loss, leaves)
+
+    def one_step():
+        step = make_train_step(cfg, remat="full", peak_lr=1e-3, warmup=0,
+                               total_steps=10)
+        params = init()
+        params, _, m = step(params, adamw_init(params), batch, 1)
+        return float(m["loss"]), tree_leaves(params)
+
+    _build.reset_launches()
+    loss_k, g_k = grads()
+    step_k, p_k = one_step()
+    for name in ("flash_attention_lse", "flash_attention_bwd_delta",
+                 "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        assert _build.launches[name] > 0, name
+    monkeypatch.setattr(AT, "flash_attention", FA.flash_attention_ref)
+    loss_p, g_p = grads()
+    step_p, p_p = one_step()
+    assert abs(loss_k - loss_p) <= 1e-5 and abs(step_k - step_p) <= 1e-5
+    assert len(g_k) == len(g_p)
+    for a, c in zip(g_k, g_p):
+        top = float(c.abs().max())
+        assert float((a - c).abs().max()) <= 1e-4 * max(top, 1e-30)
+    for a, c in zip(p_k, p_p):
+        assert float((a - c).abs().max()) <= 1e-4
+
+
+def test_host_copy_bounds_its_card_buffer(cuda, monkeypatch):
+    """A tree larger than ``CHUNK_BYTES`` reaches the host whole, leaf for
+    leaf, while the card holds at most ``CHUNK_BYTES`` more than the tree
+    (a leaf larger than a chunk travels alone)."""
+    from repro_torch.checkpoint import store as TCK
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tree = {"a": [torch.randn((1 << 18,), generator=g, device=cuda)
+                  for _ in range(6)],
+            "big": torch.randn((1 << 21,), generator=g, device=cuda),
+            "i": torch.arange(7, dtype=torch.int32, device=cuda),
+            "h": torch.randn((1 << 18,), generator=g, device=cuda)
+            .bfloat16()}
+    chunk = 3 << 20   # three of the 1 MiB leaves; "big" is 8 MiB
+    monkeypatch.setattr(TCK, "CHUNK_BYTES", chunk)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    host = TCK.host_copy(tree)
+    assert torch.cuda.max_memory_allocated(cuda) - base <= chunk
+    for a, c in zip(TCK._flatten(host).values(), TCK._flatten(tree).values()):
+        assert a.device.type == "cpu" and a.dtype == c.dtype
+        assert torch.equal(a, c.cpu())
