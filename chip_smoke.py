@@ -7,7 +7,7 @@ Run from a checkout of the repository on a machine with a CUDA card and
 the CUDA toolkit. Phases (one JSON line each on stdout):
 
 0. device  -- the card's name and power limit (``nvidia-smi``).
-1. build   -- compile the CUDA kernels from the seven sources in
+1. build   -- compile the CUDA kernels from the eight sources in
               ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
               parallel) and report registers, shared memory and spills
               per kernel instance, and the tensor-core (HMMA) and cp.async
@@ -114,6 +114,22 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               backward) and scaled_dot_product_attention's backward
               (without the softcap, the window as a mask); the forward
               with and without its lse store.
+   kernels_mamba_bwd -- the Mamba2 scan's backward
+              (``csrc/mamba_scan_bwd.cu``: the walks and C B^T, the
+              chunk-parallel gradients, the sum over the heads) against
+              its plain version (``mamba2_scan_bwd_ref``): s 1, 24, 63,
+              64, 65, 100, 130, 300 and 4,608; dh 16 and 64; st 8, 64 and
+              256; nh 1-80; b 1-2; a zero, a random and no h0; dh_last
+              none and random; x fp32 and bf16; in one variant every
+              input a strided view; each gradient within 1e-4 of its largest entry (bf16
+              dx 2e-2), a second call bit-equal, autograd (Mamba2Scan)
+              equal to the wrapper. Then at zamba2's training shape (b 1,
+              s 8,192, nh 80, dh 64, st 64) and its 300-token prefill:
+              the six gradients against the plain version's (1e-4 of
+              each one's largest entry), the call's device time and each
+              launch's, the wrapper's,
+              the plain version's, the bound (no PyTorch call computes
+              this function).
 3. table2  -- the paper's Table 2 deployment (100,000 records over 30,000
               pages and 1,000 users, CAPACITY 131072), with and without
               INDEX(page_id), INDEX(user_id), on the card daemon and on a
@@ -172,8 +188,17 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               state; (iii) yi-6b, granite-moe-1b, seamless-m4t-v2 and
               internvl2-1b SMOKE (fp32): 3 steps, then a resume from the
               step-2 checkpoint whose step 3 repeats the loss within 1e-4
-              relative; (iv) zamba2 refused (NotPorted) by the launcher
-              and by the Mamba2 scan asked for a gradient.
+              relative, now also zamba2, falcon-mamba-7b, gemma3-27b and
+              phi3.5-moe; starcoder2-7b SMOKE (head dim 4, which the flash
+              kernels do not take) must be refused by the launcher with
+              NotPorted; (iv') zamba2-2.7b
+              at full width, its first scan unit (6 Mamba2 layers and the
+              shared block), s 4,608, against the plain scan and plain
+              attention as in (i); (v) zamba2-2.7b at its 54 layers, 3
+              AdamW steps of launch/train.py (b 1, s 8,192, remat full,
+              no checkpoint) and a profiled step, as (ii). (ii) and (v)
+              report the model-FLOP share of the card's bf16 peak
+              (repro_torch.roofline).
 6. serve_gemma3, serve_gemma2, serve_starcoder2, serve_falcon_mamba --
               the paged-KV serving engine with the four other archs it
               serves, each at its published width and depth (bf16, random
@@ -288,7 +313,8 @@ cluster (cluster_chaos's kernels run in child processes, which the
 counters cannot see: that path checks results only); flash attention,
 paged attention and the relscan scan on
 the serve paths of attention archs, the forward with its lse store and
-the three backward kernels on train, the relscan scan alone on
+the three backward kernels, the Mamba2 scan and its backward on train,
+the relscan scan alone on
 falcon-mamba's (the DELETEs of its empty kv table), and the Mamba2 scan on
 zamba2's two, each an exact number of times (per attention layer or
 shared-block application and prefill or round, the capture's prime round
@@ -335,16 +361,20 @@ from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import relscan as RS  # noqa: E402
 from repro_torch.launch import mesh as MESH  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
-from repro_torch.models.config import MAMBA2  # noqa: E402
+from repro_torch.models.config import MAMBA2, NotPorted  # noqa: E402
 from repro_torch.models.layers import attention as AT  # noqa: E402
 from repro_torch.models.layers import moe as MOE  # noqa: E402
+from repro_torch.models.layers import ssm as SSM  # noqa: E402
+from repro_torch.roofline import analysis as RF  # noqa: E402
 from repro_torch.serving import paged as PG  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
-HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
-SIMT_OPS_S = 67e12      # H100 SXM non-tensor-core 32-bit rate (data sheet)
-BF16_OPS_S = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
-TF32_OPS_S = 495e12     # H100 SXM dense TF32 tensor-core rate (data sheet)
+# the card's figures (repro_torch.roofline's table, by the name the card
+# reports; a card not in it raises)
+CARD_HW = RF.device_hw(0)
+SIMT_OPS_S = CARD_HW.fp32_flops    # 32-bit rate outside the tensor cores
+BF16_OPS_S = CARD_HW.peak_flops    # dense bf16 tensor-core rate
+TF32_OPS_S = CARD_HW.tf32_flops    # dense TF32 tensor-core rate
 ATT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SEED = 0
 
@@ -389,12 +419,14 @@ def device_us(event) -> float:
             else event.self_cuda_time_total)
 
 
-def device_events(fn, iters=1, tries=3):
+def device_events(fn, iters=1, tries=8):
     """The CUDA activities (kernels, memsets, copies) of ``iters`` calls of
     ``fn`` after one warm-up call, from the profiler. Every ``fn`` timed
     here puts work on the card, yet on the H100 the profiler now and then
-    returned a window with no CUDA activity at all (cause unknown): such a
-    window is profiled again, up to ``tries`` times."""
+    returned a window with no CUDA activity at all (cause unknown; late in
+    a run every other short window came back empty, and once three in a
+    row did, early): such a window is profiled again, up to ``tries``
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -423,8 +455,9 @@ def device_launches(fn, iters=10):
 
 
 def bound(nbytes: float, ops: float, ops_rate: float = SIMT_OPS_S):
-    t_b, t_o = nbytes / HBM_BYTES_S, ops / ops_rate
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+    """(ms, "bytes" or "operations"): ``RF.kernel_bound`` on this card."""
+    t, by = RF.kernel_bound(nbytes, ops, ops_rate, CARD_HW)
+    return t * 1e3, by
 
 
 def max_err(pairs) -> int:
@@ -454,7 +487,8 @@ def phase_device() -> str:
     return smi
 
 
-KERNEL_NAME = re.compile(r"(ms_state|ms_chunk|build_rows|build_buckets|scan|"
+KERNEL_NAME = re.compile(r"(ms_state|ms_chunk|msb_walk|msb_chunk|msb_sum|"
+                         r"build_rows|build_buckets|scan|"
                          r"compact|probe|flash|paged_split)_kernel(_tc)?")
 
 
@@ -1815,6 +1849,189 @@ def mamba_short_prefills(gen, dev):
     return {"kernel": "mamba2_scan", "prompt_lens": lengths,
             "mamba2_layers": layers, "launches": layers * len(lengths),
             "per_length": per, "all_launches": total}
+
+
+# --------------------------------------- phase 2c': the Mamba2 backward
+
+# (b, s, nh, dh, st): one step, a short tile, one tile and a step either
+# side, zamba2's 300-token prefill, a ragged third tile at st 256, the
+# training length of phase train's zamba2 unit (4,608) at zamba2's width;
+# dh 16 and 64, st 8 / 64 / 256, nh 1-80, b 1-2
+MAMBA_BWD_CASES = [(1, 1, 1, 16, 8), (2, 24, 3, 16, 8), (1, 63, 80, 64, 64),
+                   (1, 64, 80, 64, 64), (2, 65, 4, 64, 64),
+                   (1, 300, 80, 64, 64), (2, 300, 5, 16, 256),
+                   (1, 130, 7, 64, 256), (2, 100, 2, 16, 64),
+                   (1, 4608, 80, 64, 64)]
+# (h0, dh_last, views): a zero state and no gradient of h_last (what the
+# model's training passes), both random, h0 absent with dh_last random;
+# the views variant reads every input and dy through strides (x and dy
+# [b, nh, s, dh] transposed, dt and dA slices of [b, s, 2 nh], B and C the
+# two halves of [b, s, 2 st], as mamba2_forward passes them)
+MAMBA_BWD_VARIANTS = [("zero", False, False), ("random", True, False),
+                      (None, True, True)]
+# of each gradient's largest entry: fp32 sums in another order; bf16 dx
+# is rounded once (every other gradient is fp32 whatever x is)
+MAMBA_BWD_TOL = {"float32": 1e-4, "bfloat16_dx": 2e-2}
+MAMBA_TRAIN = (1, 8192, 80, 64, 64)   # zamba2's training shape (phase train)
+MAMBA_BWD_NAMES = ("dx", "ddt", "ddA", "dB", "dC", "dh0")
+
+
+def mamba_bwd_inputs(gen, dev, dtype, shape, h0, dh_last, views):
+    b, s, nh, dh, st = shape
+
+    def n(*sh):
+        return torch.randn(sh, generator=gen, device=dev)
+    sp = torch.nn.functional.softplus
+    if views:
+        x = n(b, nh, s, dh).to(dtype).transpose(1, 2)
+        dy = n(b, nh, s, dh).to(dtype).transpose(1, 2)
+        dt = sp(n(b, s, 2 * nh))[..., :nh]
+        dA = -sp(n(b, s, 2 * nh))[..., nh:]
+        B, C = n(b, s, 2 * st).chunk(2, dim=-1)
+    else:
+        x, dy = n(b, s, nh, dh).to(dtype), n(b, s, nh, dh).to(dtype)
+        dt, dA = sp(n(b, s, nh)), -sp(n(b, s, nh))
+        B, C = n(b, s, st), n(b, s, st)
+    h = {"zero": torch.zeros((b, nh, dh, st), device=dev),
+         "random": n(b, nh, dh, st), None: None}[h0]
+    return (x, dt, dA, B, C, h), dy, (n(b, nh, dh, st) if dh_last else None)
+
+
+def mamba_bwd_case(gen, dev, dtype, shape, h0, dh_last, views):
+    """One case: the kernels' six gradients against the plain version's,
+    a second call bit-equal, and the same gradients through autograd
+    (Mamba2Scan). Returns (the error relative to each gradient's largest
+    entry, the largest absolute error)."""
+    ins, dy, dhl = mamba_bwd_inputs(gen, dev, dtype, shape, h0, dh_last,
+                                    views)
+    got = MS.mamba2_scan_bwd(*ins, dy, dhl)
+    again = MS.mamba2_scan_bwd(*ins, dy, dhl)
+    want = MS.mamba2_scan_bwd_ref(*ins, dy, dhl)
+    leaves = [None if t is None else t.detach().clone().requires_grad_()
+              for t in ins]
+    y, h_last = MS.mamba2_scan(*leaves)
+    torch.autograd.backward((y, h_last) if dhl is not None else (y,),
+                            (dy, dhl) if dhl is not None else (dy,))
+    sync()
+    what = (f"mamba2_scan_bwd {'x'.join(map(str, shape))} "
+            f"{str(dtype)[6:]} h0={h0} dh_last="
+            f"{'random' if dh_last else 'none'}{' views' if views else ''}")
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"{what}: a second call differs")
+    for i, t in enumerate(leaves):
+        if t is not None and not torch.equal(t.grad, got[i]):
+            raise AssertionError(f"{what}: autograd's {MAMBA_BWD_NAMES[i]} "
+                                 f"differs from the wrapper's")
+    if got[0].dtype != dtype:
+        raise AssertionError(f"{what}: dx is {got[0].dtype}")
+    rel = []
+    for i, (a, w) in enumerate(zip(got, want)):
+        top = max(float(w.float().abs().max()), 1e-30)
+        e = float((a.float() - w.float()).abs().max()) / top
+        tol = (MAMBA_BWD_TOL["bfloat16_dx"]
+               if i == 0 and dtype == torch.bfloat16
+               else MAMBA_BWD_TOL["float32"])
+        if not e <= tol:
+            raise AssertionError(f"{what}: {MAMBA_BWD_NAMES[i]} differs "
+                                 f"from the plain version by {e} of its "
+                                 f"largest entry (tolerance {tol})")
+        rel.append(e)
+    ab = max(float((a.float() - w.float()).abs().max())
+             for a, w in zip(got, want))
+    return rel, ab
+
+
+def mamba_bwd_work(b, s, nh, dh, st, elem, h0=True, dh_last=False,
+                   chunk=MS.CHUNK):
+    """(bytes, FLOP) of one backward call: x, dy, dt, dA, B, C (and h0,
+    dh_last where given) read once, dx, ddt, ddA, dB, dC, dh0 written
+    once; per tile of n steps the causal pairs' products (C B^T, shared
+    by the heads; dy x^T and P^T dy over dh; Q B and Q^T C over st, a
+    head each), and per step and head five [dh, st] products (the states
+    walked forward again, the gradients walked back, B G^T, dy H, x G)."""
+    nbytes = (3 * b * s * nh * dh * elem + 4 * (4 * b * s * nh
+              + 4 * b * s * st + (1 + int(h0) + int(dh_last)) * b * nh * dh
+              * st))
+    pairs = sum(n * (n + 1) // 2 for n in
+                [chunk] * (s // chunk) + ([s % chunk] if s % chunk else []))
+    flop = (2 * b * pairs * (st + nh * (2 * dh + 2 * st))
+            + 5 * 2 * b * s * nh * dh * st)
+    return nbytes, flop
+
+
+def mamba_bwd_timing(gen, dev, shape, what):
+    """One backward call as the model's training makes it (fp32 x, a zero
+    h0, no gradient of h_last): its six gradients against the plain
+    version's on the same inputs (MAMBA_BWD_TOL of each one's largest
+    entry), its time, the device time of the whole call and of each
+    launch, the forward's device time on the same inputs, the plain
+    version's time and the bound."""
+    ins, dy, _ = mamba_bwd_inputs(gen, dev, torch.float32, shape, "zero",
+                                  False, False)
+    run = lambda: MS.mamba2_scan_bwd(*ins, dy, None)  # noqa: E731
+    got, want = run(), MS.mamba2_scan_bwd_ref(*ins, dy, None)
+    rel, ab = {}, 0.0
+    for k, a, w in zip(MAMBA_BWD_NAMES, got, want):
+        d = float((a - w).abs().max())
+        rel[k] = d / max(float(w.abs().max()), 1e-30)
+        ab = max(ab, d)
+        if not rel[k] <= MAMBA_BWD_TOL["float32"]:
+            raise AssertionError(f"mamba2_scan_bwd at {what}: {k} differs "
+                                 f"from the plain version by {rel[k]} of "
+                                 f"its largest entry")
+    del got, want
+    events = device_events(run, iters=5)
+    per = {}
+    for sym in ("msb_walk_kernel", "msb_chunk_kernel", "msb_sum_kernel"):
+        t = [device_us(e) for e in events if sym in e.name]
+        per[sym] = sum(t) / len(t) / 1e3 if t else None
+    b_ms, b_by = bound(*mamba_bwd_work(*shape, 4))
+    b, s, nh, dh, st = shape
+    return {"kernel": "mamba2_scan_bwd", "shape": f"b{b} s{s} nh{nh} dh{dh} "
+            f"st{st} fp32 x, zero h0, no dh_last ({what})",
+            "ms": time_ms(run, iters=10, warm=2),
+            "device_ms": call_device_ms(run, iters=5),
+            "device_launches": device_launches(run, iters=5),
+            "device_ms_by_launch": per,
+            "forward_device_ms": call_device_ms(
+                lambda: MS.mamba2_scan(*ins), iters=5),
+            "plain_ms": time_ms(lambda: MS.mamba2_scan_bwd_ref(
+                *ins, dy, None), iters=2, warm=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_tc_ms": bound(*mamba_bwd_work(*shape, 4),
+                                 TF32_OPS_S / 3)[0],
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the SSD scan "
+                       "or its gradient",
+            "max_err_of_largest_entry": rel, "max_abs_err": ab}
+
+
+def phase_kernels_mamba_bwd(dev, card):
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rel = dict.fromkeys(MAMBA_BWD_NAMES, 0.0)
+    err, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in MAMBA_BWD_CASES:
+            for h0, dh_last, views in MAMBA_BWD_VARIANTS:
+                r, a = mamba_bwd_case(gen, dev, dtype, shape, h0, dh_last,
+                                      views)
+                for k, e in zip(MAMBA_BWD_NAMES, r):
+                    rel[k] = max(rel[k], e)
+                err, n = max(err, a), n + 1
+    emit({"phase": "kernels_mamba_bwd", "card": card, "cases": n,
+          "tolerance_of_largest_entry": MAMBA_BWD_TOL,
+          "max_err_of_largest_entry": rel, "max_abs_err": err,
+          "repeat_runs": "bit-equal", "autograd": "equal to the wrapper"})
+    rows = {"mamba2_scan_bwd_main": mamba_bwd_timing(
+                gen, dev, MAMBA_TRAIN, "zamba2's training shape"),
+            "mamba2_scan_bwd_alt": dict(mamba_bwd_timing(
+                gen, dev, MAMBA_SERVE, "zamba2's 300-token serve prefill"),
+                alt="s300")}
+    for row in rows.values():
+        emit({"phase": "kernel_timing", "card": card, **row})
+        err = max(err, row["max_abs_err"])
+    torch.cuda.empty_cache()
+    return rows, {"mamba2_scan_bwd": err}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -3892,7 +4109,8 @@ def device_families(prof, wall_us, n):
             return e.self_device_time_total
         return e.self_cuda_time_total
 
-    fam = {"gemm": 0.0, "mamba2_scan": 0.0, "flash_attention": 0.0,
+    fam = {"gemm": 0.0, "mamba2_scan": 0.0, "mamba2_scan_bwd": 0.0,
+           "flash_attention": 0.0,
            "flash_attention_bwd": 0.0, "paged_attention": 0.0,
            "sql_kernels": 0.0, "copies": 0.0, "other": 0.0}
     top = {}
@@ -3902,6 +4120,9 @@ def device_families(prof, wall_us, n):
             fam["copies"] += t
         elif "ms_state_kernel" in name or "ms_chunk_kernel" in name:
             fam["mamba2_scan"] += t
+        elif any(w in name for w in ("msb_walk_kernel", "msb_chunk_kernel",
+                                     "msb_sum_kernel")):
+            fam["mamba2_scan_bwd"] += t
         elif "paged_split_kernel" in name:
             fam["paged_attention"] += t
         elif "flash_kernel" in name:
@@ -4203,7 +4424,7 @@ def phase_kernels_attention_bwd(dev, card):
     do = torch.randn((b, h, s, hd), generator=gen, device=dev).to(bf)
     elem = 2
     for window in (4096, 0):
-        tag = f"w{window}" if window else "global"
+        tag = "alt" if window else "main"
         kw = dict(scale=hd ** -0.5, causal=True, window=window, softcap=50.0,
                   q_offset=0)
         pairs = visible_pairs(b, h, s, s, True, window, 0)
@@ -4278,6 +4499,8 @@ def phase_kernels_attention_bwd(dev, card):
             out[f"{name}_{tag}"] = {"kernel": name, "shape": shape,
                                     "bound_ms": bound_ms,
                                     "bound_by": bound_by, **r}
+            if window:
+                out[f"{name}_{tag}"]["alt"] = f"window_{window}"
         whole, whole_by = bound(0.0, 10 * pairs * hd, BF16_OPS_S)
         emit({"phase": "kernel_timing", "card": card,
               "kernel": "flash_attention backward (all three launches)",
@@ -4294,40 +4517,51 @@ def phase_kernels_attention_bwd(dev, card):
 
 # ------------------------------------------------------- phase: train
 
-TRAIN_NEED = ("flash_attention_lse", "flash_attention_bwd_delta",
-              "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+FLASH_TRAIN = ("flash_attention_lse", "flash_attention_bwd_delta",
+               "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+TRAIN_NEED = FLASH_TRAIN + ("mamba2_scan", "mamba2_scan_bwd")
 TRAIN_LOSS_TOL = 1e-2    # relative: bf16 weights and activations, the
 # plain path rounds P and O at other places
 TRAIN_GRAD_TOL = 5e-2    # of each leaf's largest entry: a bf16 gradient
 # through two layers of bf16 activations
-STATE_GB = 31.4          # gemma2-2b's bf16 params + grads, fp32 mu and nu
 
 
-def attention_launches(cfg, remat: str, steps: int) -> tuple[int, int]:
-    """(forwards, backwards) of the flash kernels in ``steps`` training
-    steps of ``cfg``: one of each for every self-attention (a shared
-    block's too), cross attention and encoder layer a step; under remat
-    "full" the forwards of the scan units' layers run twice (the backward
-    recomputes them; the tail layers and the encoder are not
-    checkpointed)."""
+def state_gb(cfg) -> float:
+    """GB of training state: bf16 params and grads, fp32 mu and nu."""
+    return cfg.param_count() * 12 / 1e9
+
+
+def train_launches(cfg, remat: str, steps: int) -> dict:
+    """Launches of the training kernels in ``steps`` training steps of
+    ``cfg``. Flash: a forward (with its lse) and one of each backward
+    kernel for every self-attention (a shared block's too), cross
+    attention and encoder layer a step. Mamba2 scan: a forward and a
+    backward call for every Mamba2 layer a step. Under remat "full" the
+    forwards of the scan units' layers run twice (the backward recomputes
+    them; the tail layers and the encoder are not checkpointed)."""
     if remat not in ("none", "full"):
         raise ValueError(f"no launch count for remat {remat!r}")
     gs, ng, _ = TF.scan_layout(cfg)
-    per = [(0 if kind in TF.SSM_KINDS else 1 + int(cfg.is_encdec))
+    att = [(0 if kind in TF.SSM_KINDS else 1 + int(cfg.is_encdec))
            + int(TF.shared_app(cfg, i) >= 0)
            for i, kind in enumerate(cfg.layer_pattern)]
-    once = sum(per) + (cfg.enc_layers if cfg.is_encdec else 0)
-    again = sum(per[:ng * gs]) if remat == "full" else 0
-    return steps * (once + again), steps * once
+    m2 = [int(kind == MAMBA2) for kind in cfg.layer_pattern]
+
+    def again(per):
+        return sum(per[:ng * gs]) if remat == "full" else 0
+    att_once = sum(att) + (cfg.enc_layers if cfg.is_encdec else 0)
+    out = {k: steps * att_once for k in FLASH_TRAIN[1:]}
+    out["flash_attention_lse"] = steps * (att_once + again(att))
+    out["mamba2_scan"] = steps * (sum(m2) + again(m2))
+    out["mamba2_scan_bwd"] = steps * sum(m2)
+    return out
 
 
 def expect_launches(want: dict, cfg, remat: str, steps: int) -> None:
     """Add ``steps`` training steps of ``cfg`` to the launch counts
     ``want`` of phase train."""
-    fwd, bwd = attention_launches(cfg, remat, steps)
-    want["flash_attention_lse"] += fwd
-    for k in TRAIN_NEED[1:]:
-        want[k] += bwd
+    for k, n in train_launches(cfg, remat, steps).items():
+        want[k] += n
 
 
 def leaf_grads(params, cfg, batch):
@@ -4342,28 +4576,32 @@ def leaf_grads(params, cfg, batch):
     return float(loss), grads
 
 
-def train_two_layers(card, dev, want):
-    """(i) gemma2-2b at full width, one local and one global layer, s
-    4,608 (its 4,096-token window masks): loss and every gradient through
-    the kernels against the same with the plain attention under
-    autograd."""
+def train_against_plain(card, dev, want, tag, phase, arch, n_layers,
+                        shape, plain):
+    """A cut of ``arch`` at full width (its first ``n_layers`` layers), b
+    1, s 4,608: the loss and every gradient leaf through the kernels
+    against the same with the plain versions ``plain`` ((module, name,
+    function) triples) swapped in under autograd; the kernels' launches
+    exactly those reckoned from the config."""
     from repro_torch.data.synthetic import make_batch
     from repro_torch.training.loop import to_device
-    full = configs.get_config("gemma2-2b")
-    cfg = dataclasses.replace(full, n_layers=2,
-                              layer_pattern=full.layer_pattern[:2])
+    full = configs.get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers,
+                              layer_pattern=full.layer_pattern[:n_layers])
     params = TF.init_model(torch.Generator(device=dev).manual_seed(SEED),
                            cfg, dev)
     batch = to_device(make_batch(cfg, 1, 4608, seed=SEED), dev)
     before = dict(_build.launches)
     loss_k, g_k = leaf_grads(params, cfg, batch)
     launched = {k: n - before[k] for k, n in _build.launches.items()}
-    with patched(AT, "flash_attention", FA.flash_attention_ref):
+    with contextlib.ExitStack() as stack:
+        for obj, name, fn in plain:
+            stack.enter_context(patched(obj, name, fn))
         loss_p, g_p = leaf_grads(params, cfg, batch)
     mine = dict.fromkeys(_build.KERNELS, 0)
     expect_launches(mine, cfg, "none", 1)
     if launched != mine:
-        raise AssertionError(f"train (i): launches {launched}, expected "
+        raise AssertionError(f"train {tag}: launches {launched}, expected "
                              f"{mine}")
     expect_launches(want, cfg, "none", 1)
     names = list(_flat_names(params))
@@ -4374,19 +4612,39 @@ def train_two_layers(card, dev, want):
                                                                       1e-30)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     worst = max(errs.values())
-    emit({"phase": "train_two_layers", "card": card,
-          "shape": "gemma2-2b full width, layers (local, global), b1 s4608",
+    emit({"phase": phase, "card": card, "shape": shape,
           "loss_kernels": loss_k, "loss_plain": loss_p,
           "loss_rel_diff": loss_rel, "loss_tol": TRAIN_LOSS_TOL,
           "grad_rel_err": errs, "grad_rel_err_max": worst,
           "grad_tol": TRAIN_GRAD_TOL, "launches": launched})
     if not (loss_rel <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
-        raise AssertionError(f"train (i): kernels' loss / gradients differ "
-                             f"from the plain attention's: {loss_rel}, "
+        raise AssertionError(f"train {tag}: kernels' loss / gradients "
+                             f"differ from the plain versions': {loss_rel}, "
                              f"{worst}")
     del params, g_k, g_p
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def train_two_layers(card, dev, want):
+    """(i) gemma2-2b at full width, one local and one global layer, s
+    4,608 (its 4,096-token window masks), against the plain attention."""
+    train_against_plain(
+        card, dev, want, "(i)", "train_two_layers", "gemma2-2b", 2,
+        "gemma2-2b full width, layers (local, global), b1 s4608",
+        [(AT, "flash_attention", FA.flash_attention_ref)])
+
+
+def train_zamba2_unit(card, dev, want):
+    """(iv') zamba2-2.7b at full width, its first scan unit (6 Mamba2
+    layers and the shared attention+MLP block that closes it), s 4,608,
+    against the plain scan and the plain attention."""
+    train_against_plain(
+        card, dev, want, "(iv')", "train_zamba2_unit", "zamba2-2.7b", 6,
+        "zamba2-2.7b full width, its first scan unit (6 Mamba2 layers and "
+        "the shared block), b1 s4608",
+        [(AT, "flash_attention", FA.flash_attention_ref),
+         (SSM, "mamba2_scan", MS.mamba2_scan_ref)])
 
 
 def _flat_names(tree, prefix=""):
@@ -4397,6 +4655,38 @@ def _flat_names(tree, prefix=""):
             yield prefix + k
 
 
+def profiled_step(loop, dev, step):
+    """One more step of ``loop`` under the profiler: its device time by
+    family and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.loop import to_device
+    batch = to_device(loop.data.batch_at(step), dev)
+    sync()
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loop.params, loop.opt, m = loop.step_fn(loop.params, loop.opt, batch,
+                                                step)
+        float(m["loss"])
+        sync()
+    return device_families(prof, (time.perf_counter() - t1) * 1e6, 1)
+
+
+def full_width_report(loop, cfg, seq, wall, peak, dts) -> dict:
+    """What a full-width run reports beside its checks: step times,
+    tokens/s, the model-FLOP share of the card's bf16 peak
+    (``RF.model_flops_per_step``), peak memory against the state."""
+    from repro_torch.optim.adamw import tree_leaves
+    flops = RF.model_flops_per_step(cfg, seq)
+    return {"params_b": sum(x.numel() for x in tree_leaves(loop.params))
+            / 1e9, "losses": [h["loss"] for h in loop.history],
+            "step_s": dts, "tokens_per_s": [seq / d for d in dts],
+            "model_flops_per_step": flops,
+            "model_flop_share_of_bf16_peak": [
+                RF.peak_share(flops, d, CARD_HW) for d in dts],
+            "peak_memory_gb": peak, "state_gb": state_gb(cfg),
+            "wall_s": wall}
+
+
 def train_full_width(card, dev, want):
     """(ii) gemma2-2b at its full 26 layers: 3 AdamW steps through
     launch/train.py's main (b 1, s 8,192, remat full), with the step-2
@@ -4405,6 +4695,7 @@ def train_full_width(card, dev, want):
     import shutil
     from repro_torch.launch import train as LT
     from repro_torch.optim.adamw import tree_leaves
+    cfg = configs.get_config("gemma2-2b")
     ckpt = ROOT / "build" / "chip_smoke_train" / "gemma2"
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4426,48 +4717,84 @@ def train_full_width(card, dev, want):
         raise AssertionError(f"train (ii): step-2 checkpoint holds "
                              f"{len(meta['names'])} of {n_leaves} leaves, "
                              f"count {count}")
-    # one more step under the profiler: the step's device time by family
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.training.loop import to_device
-    batch = to_device(loop.data.batch_at(3), dev)
-    sync()
-    t1 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        loop.params, loop.opt, m = loop.step_fn(loop.params, loop.opt, batch,
-                                                3)
-        float(m["loss"])
-        sync()
-    step_profile = device_families(prof, (time.perf_counter() - t1) * 1e6, 1)
+    step_profile = profiled_step(loop, dev, 3)
     emit({"phase": "train_full_width", "card": card,
           "arch": "gemma2-2b", "layers": 26, "batch": 1, "seq": 8192,
           "remat": "full",
-          "params_b": sum(x.numel() for x in tree_leaves(loop.params)) / 1e9,
-          "losses": losses, "step_s": dts,
-          "tokens_per_s": [8192 / d for d in dts],
-          "peak_memory_gb": peak, "state_gb": STATE_GB, "wall_s": wall,
+          **full_width_report(loop, cfg, 8192, wall, peak, dts),
           "checkpoint_step": 2, "checkpoint_gb": ckpt_gb,
           "checkpoint_host_copy_s": loop.history[1].get("ckpt_copy_s"),
           "profiled_step": step_profile})
     if not (all(np.isfinite(losses)) and losses[2] < losses[0]):
         raise AssertionError(f"train (ii): losses {losses}")
-    if not STATE_GB * 0.95 <= peak <= 80:
+    if not state_gb(cfg) * 0.95 <= peak <= 80:
         raise AssertionError(f"train (ii): peak {peak} GB beside "
-                             f"{STATE_GB} GB of state")
-    expect_launches(want, configs.get_config("gemma2-2b"), "full", 4)
+                             f"{state_gb(cfg)} GB of state")
+    expect_launches(want, cfg, "full", 4)
     del loop
     gc.collect()
     torch.cuda.empty_cache()
 
 
+def train_zamba2_full(card, dev, want):
+    """(v) zamba2-2.7b at its 54 layers: 3 AdamW steps through
+    launch/train.py's main (b 1, s 8,192, remat full; no checkpoint:
+    gemma2's run writes the full-width one), then one step more under the
+    profiler."""
+    from repro_torch.launch import train as LT
+    cfg = configs.get_config("zamba2-2.7b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    loop = LT.main(["--arch", "zamba2-2.7b", "--batch", "1", "--seq", "8192",
+                    "--remat", "full", "--steps", "3", "--ckpt-every",
+                    "1000", "--ckpt-dir",
+                    str(ROOT / "build" / "chip_smoke_train" / "zamba2"),
+                    "--seed", str(SEED)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [h["loss"] for h in loop.history]
+    dts = [h["dt"] for h in loop.history]
+    step_profile = profiled_step(loop, dev, 3)
+    emit({"phase": "train_zamba2_full", "card": card,
+          "arch": "zamba2-2.7b", "layers": 54, "batch": 1, "seq": 8192,
+          "remat": "full",
+          **full_width_report(loop, cfg, 8192, wall, peak, dts),
+          "profiled_step": step_profile})
+    if not (all(np.isfinite(losses)) and losses[2] < losses[0]):
+        raise AssertionError(f"train (v): losses {losses}")
+    if not state_gb(cfg) * 0.95 <= peak <= 80:
+        raise AssertionError(f"train (v): peak {peak} GB beside "
+                             f"{state_gb(cfg)} GB of state")
+    expect_launches(want, cfg, "full", 4)
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# the SMOKE archs trained with a resume in (iii): every arch of the port
+# but starcoder2-7b, whose SMOKE head dim 4 the flash kernels do not take
+# (the launcher refuses it on the card: SMOKE_REFUSED)
+SMOKE_TRAIN = ("yi-6b", "granite-moe-1b-a400m", "seamless-m4t-large-v2",
+               "internvl2-1b", "zamba2-2.7b", "falcon-mamba-7b",
+               "gemma3-27b", "phi3.5-moe-42b-a6.6b")
+SMOKE_REFUSED = ("starcoder2-7b",)
+
+
 def train_smoke_resume(card, dev, want):
-    """(iii) yi-6b, granite-moe-1b, seamless-m4t-v2 and internvl2-1b at
-    their SMOKE sizes: 3 steps, then a resume from the step-2 checkpoint
-    whose step 3 must repeat the first run's loss."""
+    """(iii) the SMOKE archs (fp32) through the launcher: 3 steps, then a
+    resume from the step-2 checkpoint whose step 3 must repeat the first
+    run's loss; the refused ones must raise NotPorted before a step."""
     import shutil
     from repro_torch.launch import train as LT
     out = {}
-    for arch in ("yi-6b", "granite-moe-1b-a400m", "seamless-m4t-large-v2",
-                 "internvl2-1b"):
+    for arch in SMOKE_REFUSED:
+        try:
+            LT.main(["--arch", arch, "--smoke", "--steps", "1"])
+        except NotPorted as e:
+            out[arch] = {"refused": str(e)}
+        else:
+            raise AssertionError(f"train (iii) {arch}: not refused")
+    for arch in SMOKE_TRAIN:
         ckpt = ROOT / "build" / "chip_smoke_train" / arch
         shutil.rmtree(ckpt, ignore_errors=True)
         common = ["--arch", arch, "--smoke", "--batch", "4", "--seq", "32",
@@ -4476,6 +4803,7 @@ def train_smoke_resume(card, dev, want):
         first = LT.main(common + ["--steps", "3"])
         shutil.rmtree(ckpt / "step_3")
         again = LT.main(common + ["--steps", "3", "--resume"])
+        shutil.rmtree(ckpt)
         expect_launches(want, configs.get_smoke(arch), "none", 3 + 1)
         a, c = first.history[-1]["loss"], again.history[-1]["loss"]
         out[arch] = {"losses": [h["loss"] for h in first.history],
@@ -4487,36 +4815,15 @@ def train_smoke_resume(card, dev, want):
     emit({"phase": "train_smoke_resume", "card": card, **out})
 
 
-def train_zamba2_refused(card, dev):
-    """(iv) zamba2 on the card is refused: the launcher, and the Mamba2
-    scan kernel itself when asked for a gradient."""
-    from repro_torch.launch import train as LT
-    from repro_torch.models.config import NotPorted
-    said = {}
-    try:
-        LT.main(["--arch", "zamba2-2.7b", "--smoke", "--steps", "1"])
-    except NotPorted as e:
-        said["launcher"] = str(e)
-    x = torch.randn((1, 5, 2, 8), device=dev, requires_grad=True)
-    f = torch.rand((1, 5, 2), device=dev)
-    try:
-        MS.mamba2_scan(x, f, -f, torch.randn((1, 5, 4), device=dev),
-                       torch.randn((1, 5, 4), device=dev))
-    except NotPorted as e:
-        said["mamba2_scan"] = str(e)
-    emit({"phase": "train_zamba2_refused", "card": card, **said})
-    if len(said) != 2:
-        raise AssertionError(f"train (iv): zamba2 was not refused: {said}")
-
-
 def phase_train(card, dev, held):
     """The training path; ``held["want"]`` gets the launches its runs
     must make."""
     want = held["want"] = dict.fromkeys(_build.KERNELS, 0)
     train_two_layers(card, dev, want)
     train_full_width(card, dev, want)
+    train_zamba2_unit(card, dev, want)
+    train_zamba2_full(card, dev, want)
     train_smoke_resume(card, dev, want)
-    train_zamba2_refused(card, dev)
 
 
 # ------------------------------------------------------------------- main
@@ -4550,6 +4857,10 @@ TRAIN_SOURCES = {
                                  "flash_attention_bwd.cu", NO_PALLAS),
     "flash_attention_bwd_dq": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                                NO_PALLAS),
+    # the reference takes jax.grad of its jnp SSD
+    "mamba2_scan_bwd": ("src/repro_torch/csrc/mamba_scan_bwd.cu",
+                        "none: jax.grad of src/repro/models/layers/"
+                        "ssm.py:266"),
 }
 
 
@@ -4563,7 +4874,7 @@ def main():
     phase_comparable(dev, card)
     timing, errs = phase_kernels(dev, card)
     for phase in (phase_kernels_attention, phase_kernels_mamba,
-                  phase_kernels_attention_bwd):
+                  phase_kernels_attention_bwd, phase_kernels_mamba_bwd):
         t, e = phase(dev, card)
         timing.update(t)
         errs.update(e)
@@ -4693,8 +5004,10 @@ def main():
                 {k: r[k] for k in ("shape", "device_ms", "bound_ms",
                                    "separate_calls_device_ms")}
                 for r in rows]
+    # each training kernel at its training shape, with a second shape (the
+    # row's "alt": gemma2's window 4,096; zamba2's 300-token prefill)
     for name, (src, replaces) in TRAIN_SOURCES.items():
-        t = timing[f"{name}_global"]
+        t, alt = timing[f"{name}_main"], timing[f"{name}_alt"]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": t["ms"],
@@ -4702,9 +5015,9 @@ def main():
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"], "shape": t["shape"],
-                        "window_4096": {k: timing[f"{name}_w4096"][k] for k
-                                        in ("ms", "device_ms", "plain_ms",
-                                            "bound_ms", "library_ms")}})
+                        alt["alt"]: {k: alt[k] for k in (
+                            "ms", "device_ms", "plain_ms", "bound_ms",
+                            "library_ms")}})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

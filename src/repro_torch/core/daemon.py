@@ -1442,8 +1442,8 @@ class SQLCached:
         if int(counts.max()) > cap_new:
             raise S.SQLError(
                 f"RESHARD {new_n}: {int(counts.max())} live rows hash to "
-                f"one shard but a shard holds only {cap_new}; resolve the "
-                f"skew (or raise CAPACITY) first")
+                f"one shard but a shard holds only {cap_new} — resolve "
+                f"the skew (or raise CAPACITY) first")
         self._install(t, new_schema, state,
                       stmt_routed=self._respread(t.stmt_routed, new_n),
                       writes_routed=self._respread(t.writes_routed, new_n),

@@ -50,264 +50,15 @@
 //     conflict-free.
 //   * A ragged last chunk is masked by its length (any s is one call); dt
 //     and dA are read with stride nh.
-#include "attention_common.cuh"
+#include "mamba_scan.cuh"
 
 namespace {
 
-constexpr int MS_CHUNK = 64;            // steps a chunk
-constexpr int MS_DB = 64;               // rows of dh a CTA
-constexpr int MS_LD = MS_CHUNK + 8;     // padded row of x and W^T
-constexpr int MS_THREADS = 256;         // 8 warps, 16 x 32 outputs each
-constexpr int MS_CB = MS_CHUNK * MS_CHUNK;
-
-__host__ __device__ inline int ms_max(int a, int b) { return a > b ? a : b; }
-__host__ __device__ inline int ms_st8(int st) { return (st + 7) & ~7; }
-// Rows of the shared tiles (floats): whole 64-column blocks plus 4 for the
-// C, B and h tiles, whose mma fragments run along the row (rows 4 banks
-// apart), plus 8 for x, W^T and the walk's B tile, whose fragments run
-// down the column (rows 8 banks apart): conflict-free fragment reads.
-__host__ __device__ inline int ms_lds(int st) { return (st + 63) / 64 * 64 + 4; }
-__host__ __device__ inline int ms_ldw(int st) { return (st + 63) / 64 * 64 + 8; }
-
-// Shared memory: the fp64 cumsum [64], then floats: ec, dts, sw and T
-// [64 each], x [u][d] (rows of MS_LD), C [t][n] (then W^T [u][t], rows of
-// MS_LD), h_prev [d][n] and, for one chunk, B [u][n] (rows of ms_lds).
-struct MsLayout {
-  int x, c, h, b, floats;
-  __host__ __device__ MsLayout(int st, bool one_chunk) {
-    const int tile = MS_CHUNK * ms_lds(st);
-    x = 4 * MS_CHUNK;
-    c = x + MS_CHUNK * MS_LD;
-    h = c + ms_max(tile, MS_CHUNK * MS_LD);
-    b = h + tile;
-    floats = b + (one_chunk ? tile : 0);
-  }
-  size_t bytes() const { return sizeof(double) * MS_CHUNK + sizeof(float) * floats; }
-};
-
-// cp.async of 4 or 16 bytes, global -> shared; ok == false zero-fills
-// (no byte is read: src is then any valid address)
-__device__ __forceinline__ void ms_cp4(float* dst, const float* src, bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void ms_cp16(float* dst, const float* src, bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void ms_cp_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// 64 rows of `cols` floats into shared rows of `ld`: source row r at
-// src + r * sld, present for r < rows, its first vcols columns real, the
-// rest (to cols) zero.
-__device__ __forceinline__ void ms_cp_tile(float* dst, int ld, const float* src,
-                                           size_t sld, int rows, int vcols, int cols) {
-  const int c4 = cols >> 2;
-  const bool vec = (vcols & 3) == 0 && (sld & 3) == 0 && ((uintptr_t)src & 15) == 0;
-  if (vec && cols == 64) {  // the common tile: 4 copies a thread, no division
-    const int r0 = threadIdx.x >> 4, c = (threadIdx.x & 15) * 4;
-    const float* sp = src + r0 * sld + c;
-#pragma unroll
-    for (int k = 0; k < MS_CHUNK * 16 / MS_THREADS; ++k) {
-      const int r = r0 + k * (MS_THREADS / 16);
-      const bool ok = r < rows && c < vcols;
-      ms_cp16(dst + r * ld + c, ok ? sp + (size_t)k * (MS_THREADS / 16) * sld : src, ok);
-    }
-  } else if (vec) {
-    for (int i = threadIdx.x; i < MS_CHUNK * c4; i += MS_THREADS) {
-      const int r = i / c4, c = (i % c4) * 4;
-      const bool ok = r < rows && c < vcols;
-      ms_cp16(dst + r * ld + c, ok ? src + r * sld + c : src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < MS_CHUNK * cols; i += MS_THREADS) {
-      const int r = i / cols, c = i % cols;
-      const bool ok = r < rows && c < vcols;
-      ms_cp4(dst + r * ld + c, ok ? src + r * sld + c : src, ok);
-    }
-  }
-}
-
-__device__ __forceinline__ void ms_zero(float (&acc)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-}
-
-// fp32 products on the tensor cores: mma.sync m16n8k8 TF32 in the split
-// form a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi (a_hi: a's top 10 mantissa
-// bits, a_lo = a - a_hi exactly, of which the mma reads the top bits),
-// which keeps about fp32's accuracy where plain TF32 keeps ~3 digits.
-__device__ __forceinline__ void ms_split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(v) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void ms_mma(float (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A warp's 16 x 32 output tile, four 16 x 8 mma tiles: acc[nt][i] is row
-// r0 + g + 8 (i / 2), column c0 + 8 nt + 2 q + i % 2 (g = lane / 4,
-// q = lane % 4). acc += sum_{k < K} A(row, k) B(k, column) (* bs[k]), K a
-// multiple of 8, A(r, k) = A[r * ars + k * aks], B(k, n) = Bm[n * bns +
-// k * bks]; the small terms go to their own accumulators (three
-// independent chains).
-template <bool SCALE_B = false>
-__device__ __forceinline__ void ms_mma_tile(float (&acc)[4][4], const float* A,
-                                            int ars, int aks, const float* Bm,
-                                            int bns, int bks, int K, int r0,
-                                            int c0, const float* bs = nullptr) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const float* ap = A + (r0 + g) * ars + q * aks;
-  const float* bp = Bm + (c0 + g) * bns + q * bks;
-  float sm[4][4];
-  ms_zero(sm);
-  for (int k = 0; k < K; k += 8) {
-    uint32_t ah[4], al[4];
-    ms_split(ap[k * aks], ah[0], al[0]);
-    ms_split(ap[k * aks + 8 * ars], ah[1], al[1]);
-    ms_split(ap[(k + 4) * aks], ah[2], al[2]);
-    ms_split(ap[(k + 4) * aks + 8 * ars], ah[3], al[3]);
-    const float s0 = SCALE_B ? bs[k + q] : 1.f, s1 = SCALE_B ? bs[k + q + 4] : 1.f;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      uint32_t bh0, bl0, bh1, bl1;
-      ms_split(bp[nt * 8 * bns + k * bks] * s0, bh0, bl0);
-      ms_split(bp[nt * 8 * bns + (k + 4) * bks] * s1, bh1, bl1);
-      ms_mma(sm[nt], al, bh0, bh1);
-      ms_mma(sm[nt], ah, bl0, bl1);
-      ms_mma(acc[nt], ah, bh0, bh1);
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] += sm[nt][i];
-}
-
-// dA and dt of steps 2 lane and 2 lane + 1 of a chunk (0 past L)
-__device__ __forceinline__ float4 ms_stats_load(const float* __restrict__ dt,
-                                                const float* __restrict__ dA,
-                                                size_t base, int nh, int L) {
-  const int t0 = 2 * (threadIdx.x & 31), t1 = t0 + 1;
-  return make_float4(t0 < L ? dA[base + (size_t)t0 * nh] : 0.f,
-                     t1 < L ? dA[base + (size_t)t1 * nh] : 0.f,
-                     t0 < L ? dt[base + (size_t)t0 * nh] : 0.f,
-                     t1 < L ? dt[base + (size_t)t1 * nh] : 0.f);
-}
-
-// The inclusive cumsum of dA over the chunk (fp64, one warp, two steps a
-// lane; steps past L add 0, so cum[63] is the total T), dt, exp(cum_t) and
-// sw_u = exp(T - cum_u) dt_u, into shared memory. Warp 0 only.
-__device__ __forceinline__ void ms_stats(float4 v, double* cum, float* ec,
-                                         float* dts, float* sw, float* Ts) {
-  const int lane = threadIdx.x;
-  const int t0 = 2 * lane, t1 = t0 + 1;
-  const double a0 = v.x, a1 = v.y;
-  double incl = a0 + a1;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const double u = __shfl_up_sync(ATT_FULL, incl, o);
-    if (lane >= o) incl += u;
-  }
-  double excl = __shfl_up_sync(ATT_FULL, incl, 1);
-  if (lane == 0) excl = 0.0;
-  const double c0 = excl + a0, c1 = c0 + a1;
-  const double total = __shfl_sync(ATT_FULL, c1, 31);
-  cum[t0] = c0;
-  cum[t1] = c1;
-  ec[t0] = expf((float)c0);
-  ec[t1] = expf((float)c1);
-  dts[t0] = v.z;
-  dts[t1] = v.w;
-  sw[t0] = expf((float)(total - c0)) * v.z;
-  sw[t1] = expf((float)(total - c1)) * v.w;
-  if (lane == 0) *Ts = (float)total;
-}
-
-// x [u][d] of (rows row0.., head, d0..) into xs (rows of MS_LD)
-__device__ __forceinline__ void ms_cp_x(float* xs, const float* __restrict__ x,
-                                        size_t row0, int L, int nh, int head,
-                                        int dh, int d0) {
-  ms_cp_tile(xs, MS_LD, x + (row0 * nh + head) * dh + d0, (size_t)nh * dh, L,
-             min(MS_DB, dh - d0), MS_DB);
-}
-__device__ __forceinline__ void ms_cp_x(float* xs, const __nv_bfloat16* __restrict__ x,
-                                        size_t row0, int L, int nh, int head,
-                                        int dh, int d0) {
-#pragma unroll
-  for (int k = 0; k < MS_CB / MS_THREADS; ++k) {
-    const int i = threadIdx.x + k * MS_THREADS;
-    const int u = i >> 6, d = i & 63;
-    xs[u * MS_LD + d] = (u < L && d0 + d < dh)
-        ? __bfloat162float(x[((row0 + u) * nh + head) * dh + d0 + d]) : 0.f;
-  }
-}
-
-// The warp's part of S[d][n] = sum_u sw_u x_u[d] B_u[n] for the 64-column
-// block nb of the state (x [u][d] rows of MS_LD, B [u][n] rows of ldb)
-__device__ __forceinline__ void ms_state_tile(float (&acc)[4][4], const float* xs,
-                                              const float* Bs, int ldb,
-                                              const float* sw, int L, int nb) {
-  const int warp = threadIdx.x >> 5;
-  ms_zero(acc);
-  ms_mma_tile<true>(acc, xs, 1, MS_LD, Bs + nb, 1, ldb, ms_st8(L),
-                    (warp & 3) * 16, (warp >> 2) * 32, sw);
-}
-
-// Two neighbouring elements (p[0], p[1]) of which `left` (> 0) lie in the
-// row: one 8-byte store where they are aligned, else one or two scalars.
-template <typename T>
-__device__ __forceinline__ void ms_store2(T* p, float a, float b, int left) {
-  if (left <= 0) return;
-  if (left >= 2 && ((uintptr_t)p & (2 * sizeof(T) - 1)) == 0) {
-    if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<float2*>(p) = make_float2(a, b);
-    } else {
-      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-    }
-    return;
-  }
-  att_store(p, a);
-  if (left >= 2) att_store(p + 1, b);
-}
-
-// Element i of a warp tile: its row and column within the [64][64] block
-__device__ __forceinline__ int ms_row(int i) {
-  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) + 8 * (i >> 1);
-}
-__device__ __forceinline__ int ms_col(int nt, int i) {
-  return (threadIdx.x >> 7) * 32 + 8 * nt + 2 * (threadIdx.x & 3) + (i & 1);
-}
-
 // State launch (s > 64). Grid (ndb, nh + nch, b). y < nh: the walk of
-// (64 rows of dh, head) along the chunks: h_c = exp(T_c) h_{c-1} + S_c
-// from h0, S_c = sum_u sw_u x_u B_u^T, with h in registers (mma fragments)
-// and the next chunk's x, B, dA and dt arriving (cp.async, two slots)
-// while this chunk's product runs; it writes the state entering every
-// chunk but the first, and h_last. y = nh + c, x == 0: the C B^T tile of
-// chunk c, for every head. Scratch: CB [b][nch][64][64], H [b][nch - 1]
-// [nh][ndb][64][st].
-__host__ __device__ inline int ms_slot(int st) {  // floats of a slot
-  return MS_CHUNK * (MS_LD + ms_ldw(st)) + 2 * MS_CHUNK;
-}
-size_t ms_state_smem(int st) {
-  const size_t walk = 4 * MS_CHUNK + 2 * (size_t)ms_slot(st);
-  const size_t cb = 2 * (size_t)MS_CHUNK * ms_lds(st);
-  return sizeof(double) * MS_CHUNK + sizeof(float) * (walk > cb ? walk : cb);
-}
-
+// (64 rows of dh, head) along the chunks (ms_walk): it writes the state
+// entering every chunk but the first, and h_last. y = nh + c, x == 0: the
+// C B^T tile of chunk c, for every head. Scratch: CB [b][nch][64][64], H
+// [b][nch - 1][nh][ndb][64][st].
 template <typename T>
 __global__ void __launch_bounds__(MS_THREADS)
 ms_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
@@ -316,115 +67,13 @@ ms_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 float* __restrict__ cbg, float* __restrict__ H,
                 float* __restrict__ h_last, int s, int nh, int dh, int st) {
   extern __shared__ double smem[];
-  const int lds = ms_lds(st), ldw = ms_ldw(st), st8 = ms_st8(st);
-  float* f = reinterpret_cast<float*>(smem + MS_CHUNK);
-  const int nch = (s + MS_CHUNK - 1) / MS_CHUNK;
-  const int ndb = (dh + MS_DB - 1) / MS_DB;
   const int head = blockIdx.y, bb = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5;
-
   if (head >= nh) {  // C B^T of chunk head - nh, shared by every head
-    const int c = head - nh, L = min(MS_CHUNK, s - c * MS_CHUNK);
-    if (blockIdx.x != 0) return;
-    const size_t row0 = (size_t)bb * s + c * MS_CHUNK;
-    float *Cs = f, *Bs = f + MS_CHUNK * lds;
-    ms_cp_tile(Cs, lds, C + row0 * st, st, L, st, st8);
-    ms_cp_tile(Bs, lds, B + row0 * st, st, L, st, st8);
-    ms_cp_wait();
-    __syncthreads();
-    float acc[4][4];
-    ms_zero(acc);
-    ms_mma_tile(acc, Cs, lds, 1, Bs, lds, 1, st8, (warp & 3) * 16, (warp >> 2) * 32);
-    float* out = cbg + ((size_t)bb * nch + c) * MS_CB;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; i += 2)
-        *reinterpret_cast<float2*>(out + ms_row(i) * MS_CHUNK + ms_col(nt, i)) =
-            make_float2(acc[nt][i], acc[nt][i + 1]);
+    if (blockIdx.x == 0)
+      ms_cb_tile(B, C, cbg, s, st, head - nh, bb, reinterpret_cast<float*>(smem + MS_CHUNK));
     return;
   }
-
-  const int dblk = blockIdx.x, d0 = dblk * MS_DB;
-  double* cum = smem;
-  float *ec = f, *dts = f + MS_CHUNK, *sw = f + 2 * MS_CHUNK, *Ts = f + 3 * MS_CHUNK;
-  float* slots = f + 4 * MS_CHUNK;  // two slots: x [64][MS_LD], B [64][ldw], dA, dt
-  const int slot = ms_slot(st);
-  const int dh_left = dh - d0;
-  const size_t hrow = ((size_t)bb * nh + head) * dh + d0;  // h row of d = 0
-  const size_t tile_h = (size_t)MS_DB * st;
-
-  float h[4][4][4];  // the 64-column blocks q < 4 (st <= 256), mma fragments
-#pragma unroll
-  for (int qb = 0; qb < 4; ++qb)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int d = ms_row(i), n = qb * 64 + ms_col(nt, i);
-        h[qb][nt][i] = (h0 != nullptr && n < st && d < dh_left) ? h0[(hrow + d) * st + n] : 0.f;
-      }
-
-  // chunk c into slot c % 2; warp 0 copies dA and dt itself, so its
-  // statistics need only its own wait
-  auto issue = [&](int c) {
-    const int L = min(MS_CHUNK, s - c * MS_CHUNK);
-    const size_t row0 = (size_t)bb * s + c * MS_CHUNK;
-    float* sl = slots + (c & 1) * slot;
-    ms_cp_x(sl, x, row0, L, nh, head, dh, d0);
-    ms_cp_tile(sl + MS_CHUNK * MS_LD, ldw, B + row0 * st, st, L, st, ldw - 8);
-    if (tid < 32) {
-      float* st_a = sl + MS_CHUNK * (MS_LD + ldw);
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int t = 2 * tid + k;
-        const size_t gi = (row0 + t) * nh + head;
-        ms_cp4(st_a + t, t < L ? dA + gi : dA, t < L);
-        ms_cp4(st_a + MS_CHUNK + t, t < L ? dt + gi : dt, t < L);
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  };
-  issue(0);
-  for (int c = 0; c < nch; ++c) {
-    const int L = min(MS_CHUNK, s - c * MS_CHUNK);
-    if (c + 1 < nch) {
-      issue(c + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    } else {
-      ms_cp_wait();
-    }
-    float* sl = slots + (c & 1) * slot;
-    if (tid < 32) {
-      const float* st_a = sl + MS_CHUNK * (MS_LD + ldw);
-      ms_stats(make_float4(st_a[2 * tid], st_a[2 * tid + 1], st_a[MS_CHUNK + 2 * tid],
-                           st_a[MS_CHUNK + 2 * tid + 1]),
-               cum, ec, dts, sw, Ts);
-    }
-    __syncthreads();
-    const float e = expf(*Ts);
-    float* out = c + 1 < nch
-        ? H + ((((size_t)bb * (nch - 1) + c) * nh + head) * ndb + dblk) * tile_h
-        : h_last + hrow * st;
-#pragma unroll
-    for (int qb = 0; qb < 4; ++qb) {
-      if (qb * 64 >= st) break;
-      float acc[4][4];
-      ms_state_tile(acc, sl, sl + MS_CHUNK * MS_LD, ldw, sw, L, qb * 64);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; i += 2) {
-          h[qb][nt][i] = fmaf(e, h[qb][nt][i], acc[nt][i]);
-          h[qb][nt][i + 1] = fmaf(e, h[qb][nt][i + 1], acc[nt][i + 1]);
-          const int d = ms_row(i), n = qb * 64 + ms_col(nt, i);
-          // H rows past dh stay zero (the chunk kernel reads 64 rows)
-          if (c + 1 < nch || d < dh_left)
-            ms_store2(out + (size_t)d * st + n, h[qb][nt][i], h[qb][nt][i + 1], st - n);
-        }
-    }
-    __syncthreads();  // this slot and the statistics are spent
-  }
+  ms_walk<T, false>(x, dt, dA, B, h0, H, h_last, s, nh, dh, st, head, bb, blockIdx.x, smem);
 }
 
 // Chunk launch. Grid (ndb, nh, b * nch). One chunk (cbg null): C B^T, y

@@ -36,7 +36,8 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("relscan", "hashidx", "flash_attention", "flash_attention_bwd",
-           "paged_attention", "paged_attention_int8", "mamba_scan")
+           "paged_attention", "paged_attention_int8", "mamba_scan",
+           "mamba_scan_bwd")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,7 +47,9 @@ KERNELS = ("relscan_scan", "relscan_compact", "hash_build", "hash_probe",
            # training: the forward that also stores the rows' log-sum-exp,
            # and the three launches of its backward
            "flash_attention_lse", "flash_attention_bwd_delta",
-           "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+           "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
+           # the Mamba2 scan's backward (three launches a call)
+           "mamba2_scan_bwd")
 launches = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -187,6 +190,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "paged_attention_scratch": [I, I, I, I, I],
         "mamba2_scan": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
         "mamba2_scan_scratch": [I, I, I, I, I],
+        "mamba2_scan_bwd": [P] * 15 + [I, I, I, I, I, I, P],
+        "mamba2_scan_bwd_scratch": [I, I, I, I, I],
     }
     for fn, args in sigs.items():
         if hasattr(lib, fn):

@@ -1,6 +1,6 @@
 """Chunked Mamba2 SSD scan (port of ``repro.kernels.mamba_scan``, with
 the initial state of the reference oracle ``repro.kernels.ref.
-mamba2_scan_ref``).
+mamba2_scan_ref``), and its gradient.
 
 The kernel is ``csrc/mamba_scan.cu``; :func:`mamba2_scan_ref` beside it
 is its plain PyTorch version: the same chunked dual form, in torch. The
@@ -13,21 +13,22 @@ launches: the states entering every chunk (walked along the chunks) and
 ``C B^T`` of every chunk, into a scratch this wrapper allocates; then every
 chunk's ``y`` at once. For ``s <= CHUNK`` it is one.
 
-The kernel has no backward yet: on CUDA tensors a call that autograd would
-have to differentiate (grad mode on and an input that requires a
-gradient) raises :class:`~repro_torch.models.config.NotPorted` rather than
-return a result detached from its inputs. On the CPU the plain version is
-differentiated by autograd.
+The gradient (the reference takes ``jax.grad`` of its jnp chunked scan):
+on CUDA tensors a call that autograd has to differentiate goes through
+:class:`Mamba2Scan`, whose backward is ``csrc/mamba_scan_bwd.cu`` (three
+launches, :func:`mamba2_scan_bwd`); its plain version is
+:func:`mamba2_scan_bwd_ref`, written out tile by tile. On the CPU the
+plain forward is differentiated by autograd.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.models.config import NotPorted
 
 CHUNK = 64          # steps a tile, in the kernel and by default in the plain version
 MAX_STATE = 256     # the kernel's largest ``st`` (shared memory)
+MAX_HEAD_DIM = 64   # the backward's largest ``dh`` (one 64-row block)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -85,24 +86,103 @@ def mamba2_scan_ref(x, dt, dA, B, C, h0=None, *, chunk: int = CHUNK):
     return y.to(x.dtype), h
 
 
-def mamba2_scan(x, dt, dA, B, C, h0=None):
-    """Contract of :func:`mamba2_scan_ref` (kernel on CUDA tensors: x fp32
-    or bf16, ``st <= MAX_STATE``)."""
-    if x.device.type == "cpu":
-        return mamba2_scan_ref(x, dt, dA, B, C, h0)
+def mamba2_scan_bwd_ref(x, dt, dA, B, C, h0, dy, dh_last, *,
+                        chunk: int = CHUNK):
+    """Plain version of the gradient of :func:`mamba2_scan_ref`: for the
+    gradients ``dy`` of y and ``dh_last`` of h_last (None = zeros), returns
+    (dx in x's dtype, ddt, ddA, dB, dC, dh0), the rest fp32. The states
+    entering each tile are walked forward again, then the tiles in reverse.
+    Within a tile (cum the inclusive cumsum of dA, T its total, H the state
+    entering, G the gradient of the state leaving; dec_tu = exp(cum_t -
+    cum_u) for u <= t, else 0):
+
+      dx_u   = dt_u Z_u,  Z_u = sum_t (C_t.B_u) dec_tu dy_t
+                                + exp(T - cum_u) G B_u;  ddt_u = x_u . Z_u
+      Q_tu   = dec_tu dt_u (dy_t . x_u)
+      dC_t   = sum_u Q_tu B_u + exp(cum_t) dy_t^T H          (over heads)
+      dB_u   = sum_t Q_tu C_t + exp(T - cum_u) dt_u x_u^T G  (over heads)
+      dcum_t = sum_u S_tu - sum_u S_ut + exp(cum_t) C_t.(dy_t^T H) - V_t,
+               S = Q (C.B), V_u = exp(T - cum_u) dt_u B_u.(x_u^T G),
+               and on the last step dT = exp(T) <G, H> + sum_u V_u
+      ddA    = the reverse cumsum of dcum over the tile
+      G_prev = exp(T) G + sum_t exp(cum_t) dy_t C_t^T   (the last is dh0)
+
+    fp32 math, the cumsum and its differences in fp64 as in the forward."""
+    _check(x, dt, dA, B, C, h0)
+    b, s, nh, dh = x.shape
+    st = B.shape[2]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    xf, dyf = x.float(), dy.float()
+    h = torch.zeros((b, nh, dh, st), **f32) if h0 is None else h0.float()
+    tiles = []
+    for c0 in range(0, s, chunk):    # the state entering every tile
+        sl = slice(c0, min(c0 + chunk, s))
+        cum = torch.cumsum(dA[:, sl].double(), dim=1)            # [b, n, nh]
+        tiles.append((sl, cum, h))
+        total = cum[:, -1]
+        sdecay = torch.exp((total[:, None] - cum).float())
+        h = (torch.exp(total.float())[..., None, None] * h
+             + torch.einsum("buh,buh,buhd,bus->bhds", sdecay, dt[:, sl],
+                            xf[:, sl], B[:, sl]))
+    g = (torch.zeros((b, nh, dh, st), **f32) if dh_last is None
+         else dh_last.float())
+    parts = []
+    for sl, cum, H in reversed(tiles):
+        xc, dyc, dtc, Bc, Cc = xf[:, sl], dyf[:, sl], dt[:, sl], B[:, sl], \
+            C[:, sl]
+        n = xc.shape[1]
+        total = cum[:, -1]                                       # [b, nh]
+        tri = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()
+        dec = torch.where(tri[None, :, :, None], torch.exp(
+            (cum[:, :, None, :] - cum[:, None, :, :]).float()), 0.0)
+        ec = torch.exp(cum.float())                              # [b, t, nh]
+        sdec = torch.exp((total[:, None] - cum).float())         # [b, u, nh]
+        e_t = torch.exp(total.float())
+        sw = sdec * dtc
+        cb = torch.einsum("bts,bus->btu", Cc, Bc)
+        P = cb[..., None] * dec                                  # [b,t,u,nh]
+        Q = dec * dtc[:, None] * torch.einsum("bthd,buhd->btuh", dyc, xc)
+        Z = (torch.einsum("btuh,bthd->buhd", P, dyc)
+             + sdec[..., None] * torch.einsum("bus,bhds->buhd", Bc, g))
+        dyH = torch.einsum("bthd,bhds->bths", dyc, H)
+        xG = torch.einsum("buhd,bhds->buhs", xc, g)
+        dC = (torch.einsum("btuh,bus->bts", Q, Bc)
+              + torch.einsum("bth,bths->bts", ec, dyH))
+        dB = (torch.einsum("btuh,bts->bus", Q, Cc)
+              + torch.einsum("buh,buhs->bus", sw, xG))
+        S = Q * cb[..., None]
+        V = sw * torch.einsum("bus,buhs->buh", Bc, xG)
+        dcum = (S.sum(dim=2) - S.sum(dim=1) - V
+                + ec * torch.einsum("bts,bths->bth", Cc, dyH))
+        dcum[:, -1] += e_t * (g * H).sum(dim=(-2, -1)) + V.sum(dim=1)
+        ddA = torch.flip(torch.cumsum(torch.flip(dcum.double(), [1]), 1),
+                         [1]).float()
+        parts.append((dtc[..., None] * Z, (xc * Z).sum(dim=-1), ddA, dB, dC))
+        g = e_t[..., None, None] * g + torch.einsum("bth,bthd,bts->bhds",
+                                                    ec, dyc, Cc)
+    dx, ddt, ddA, dB, dC = (torch.cat(t, dim=1) for t in zip(*parts[::-1]))
+    return dx.to(x.dtype), ddt, ddA, dB, dC, g
+
+
+def _kernel_args(x, dt, dA, B, C, h0):
     _build.require_cuda(x, "mamba2_scan")
     _check(x, dt, dA, B, C, h0)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, dt, dA, B, C, h0)):
-        raise NotPorted("a gradient through the Mamba2 scan kernel (the "
-                        "Mamba2 scan has no backward kernel yet)")
-    b, s, nh, dh = x.shape
     st = B.shape[2]
     if x.dtype not in DTYPE_CODES or st > MAX_STATE:
         raise TypeError(f"mamba2_scan takes fp32/bf16 x and st <= "
                         f"{MAX_STATE}, not {x.dtype} / {st}")
-    x, dt, dA, B, C = (t.contiguous() for t in (x, dt, dA, B, C))
-    h0 = None if h0 is None else h0.contiguous()
+    return tuple(t.contiguous() for t in (x, dt, dA, B, C)) + (
+        None if h0 is None else h0.contiguous(),)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _forward(x, dt, dA, B, C, h0):
+    """One kernel call on contiguous, checked CUDA inputs."""
+    b, s, nh, dh = x.shape
+    st = B.shape[2]
     y = torch.empty_like(x)
     h_last = torch.empty((b, nh, dh, st), dtype=torch.float32,
                          device=x.device)
@@ -113,9 +193,88 @@ def mamba2_scan(x, dt, dA, B, C, h0=None):
                               dtype=torch.float32, device=x.device)
     err = lib.mamba2_scan(
         x.data_ptr(), dt.data_ptr(), dA.data_ptr(), B.data_ptr(),
-        C.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h_last.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        b, s, nh, dh, st, DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
+        C.data_ptr(), _ptr(h0), y.data_ptr(), h_last.data_ptr(),
+        _ptr(scratch), b, s, nh, dh, st, DTYPE_CODES[x.dtype],
+        _build.stream_ptr(x.device))
     _build.check(err, "mamba2_scan")
     _build.count_launch("mamba2_scan")
     return y, h_last
+
+
+def mamba2_scan_bwd(x, dt, dA, B, C, h0, dy, dh_last):
+    """(dx, ddt, ddA, dB, dC, dh0) by the contract of
+    :func:`mamba2_scan_bwd_ref` (the kernels on CUDA tensors: x fp32 or
+    bf16, ``s >= 1``, ``dh <= MAX_HEAD_DIM``, ``st <= MAX_STATE``; dy is
+    read in x's dtype). One call is three launches: the walks and C B^T; every tile's
+    gradients with per-head partials of dB and dC; their sum over the
+    heads (fixed order: repeats are bit-equal)."""
+    if x.device.type == "cpu":
+        return mamba2_scan_bwd_ref(x, dt, dA, B, C, h0, dy, dh_last)
+    x, dt, dA, B, C, h0 = _kernel_args(x, dt, dA, B, C, h0)
+    b, s, nh, dh = x.shape
+    st = B.shape[2]
+    if dh > MAX_HEAD_DIM:
+        raise TypeError(f"mamba2_scan_bwd takes dh <= {MAX_HEAD_DIM}, not "
+                        f"{dh}")
+    if dy.shape != x.shape or (dh_last is not None
+                               and dh_last.shape != (b, nh, dh, st)):
+        raise TypeError("dy must be shaped as x and dh_last as h0")
+    if any(t is not None and t.device != x.device for t in (dy, dh_last)):
+        raise ValueError("dy and dh_last must be on x's device")
+    dy = dy.to(x.dtype).contiguous()
+    dh_last = None if dh_last is None else dh_last.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    ddt, ddA = torch.empty((b, s, nh), **f32), torch.empty((b, s, nh), **f32)
+    dB, dC = torch.empty((b, s, st), **f32), torch.empty((b, s, st), **f32)
+    dh0 = torch.empty((b, nh, dh, st), **f32)
+    lib = _build.lib("mamba_scan_bwd")
+    scratch = torch.empty(lib.mamba2_scan_bwd_scratch(b, s, nh, dh, st),
+                          **f32)
+    err = lib.mamba2_scan_bwd(
+        x.data_ptr(), dt.data_ptr(), dA.data_ptr(), B.data_ptr(),
+        C.data_ptr(), _ptr(h0), dy.data_ptr(), _ptr(dh_last), dx.data_ptr(),
+        ddt.data_ptr(), ddA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dh0.data_ptr(), scratch.data_ptr(), b, s, nh, dh, st,
+        DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
+    _build.check(err, "mamba2_scan_bwd")
+    _build.count_launch("mamba2_scan_bwd")
+    return dx, ddt, ddA, dB, dC, dh0
+
+
+class Mamba2Scan(torch.autograd.Function):
+    """The scan kernel, and the backward kernels for its gradient (CUDA
+    tensors). The inputs are saved only when a gradient is needed (under
+    ``torch.utils.checkpoint`` the recompute launches the forward again);
+    the backward walks the entering states again rather than keep the
+    forward's scratch."""
+
+    @staticmethod
+    def forward(ctx, x, dt, dA, B, C, h0):
+        x, dt, dA, B, C, h0 = _kernel_args(x, dt, dA, B, C, h0)
+        y, h_last = _forward(x, dt, dA, B, C, h0)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(x, dt, dA, B, C, h0)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, dt, dA, B, C, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = mamba2_scan_bwd(x, dt, dA, B, C, h0, dy, dh_last)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def mamba2_scan(x, dt, dA, B, C, h0=None):
+    """Contract of :func:`mamba2_scan_ref` (kernel on CUDA tensors: x fp32
+    or bf16, ``st <= MAX_STATE``), with its gradient through
+    :class:`Mamba2Scan` (``dh <= MAX_HEAD_DIM``)."""
+    if x.device.type == "cpu":
+        return mamba2_scan_ref(x, dt, dA, B, C, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, dA, B, C, h0)):
+        return Mamba2Scan.apply(x, dt, dA, B, C, h0)
+    return _forward(*_kernel_args(x, dt, dA, B, C, h0))

@@ -10,10 +10,11 @@ Parameters come from ``init_model`` with a ``torch.Generator`` seeded
 with ``--seed`` on the target device (the reference draws them from
 ``PRNGKey(0)``), batches from the synthetic pipeline seeded the same way.
 The default device is the CUDA card; without one it raises unless
-``--device cpu`` is given. Not in this port yet: the production mesh
-(``--mesh single|multi``) and training zamba2 on the card (the Mamba2
-scan kernel has no backward); both raise
-:class:`~repro_torch.models.config.NotPorted`.
+``--device cpu`` is given. Not in this port yet, each raising
+:class:`~repro_torch.models.config.NotPorted`: the production mesh
+(``--mesh single|multi``), and on the card an attention head dim the
+flash kernels do not take (starcoder2-7b's SMOKE head dim 4; see
+:func:`refuse_on_card`).
 """
 from __future__ import annotations
 
@@ -24,11 +25,24 @@ import torch
 from repro_torch import configs
 from repro_torch.core.daemon import resolve_device
 from repro_torch.data.synthetic import SyntheticDataset
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import transformer as TF
-from repro_torch.models.config import MAMBA2, NotPorted
+from repro_torch.models.config import NotPorted
 from repro_torch.optim.adamw import adamw_init
 from repro_torch.training.loop import LoopConfig, TrainLoop
 from repro_torch.training.step import make_train_step
+
+
+def refuse_on_card(cfg):
+    """Raise NotPorted where ``cfg`` attends at a head dim the flash
+    kernels do not take (``HEAD_DIMS``): its attention cannot run on the
+    card."""
+    attends = (bool(cfg.attn_layer_ids) or cfg.shared_attn_every > 0
+               or cfg.is_encdec)
+    if attends and cfg.head_dim not in HEAD_DIMS:
+        raise NotPorted(f"training {cfg.name} on the card: attention head "
+                        f"dim {cfg.head_dim} (the flash kernels take "
+                        f"{HEAD_DIMS})")
 
 
 def main(argv=None):
@@ -56,10 +70,9 @@ def main(argv=None):
         raise NotPorted(f"--mesh {args.mesh} (the production mesh)")
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
+    if torch.device(args.device).type == "cuda":
+        refuse_on_card(cfg)
     dev = resolve_device(args.device)
-    if dev.type == "cuda" and MAMBA2 in cfg.layer_pattern:
-        raise NotPorted(f"training {cfg.name} on the card (the Mamba2 scan "
-                        f"has no backward kernel yet)")
     print(f"arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M "
           f"active~{cfg.active_param_count()/1e6:.1f}M", flush=True)
 

@@ -36,8 +36,8 @@ fp32 logits. Autograd differentiates it; on the card each attention
 layer's gradient is the flash backward kernel. The stacked ``[L, ...]``
 leaves are split with one ``torch.unbind`` a leaf a call (one ``stack``
 in the backward, where ``[i]`` would make a full-size zero gradient per
-layer). zamba2 trains on the CPU only: the Mamba2 scan kernel has no
-backward yet and refuses a gradient on the card.
+layer). Each Mamba2 layer's gradient on the card is the scan's backward
+kernel (``kernels/mamba_scan.py``: ``Mamba2Scan``).
 
 Entry points
     init_model(gen, cfg, device)     -> parameter tree
@@ -261,8 +261,12 @@ def _block_ce(head32, cfg: ModelConfig, h, y, m):
     labels y [b, blk], fp32 mask m [b, blk]."""
     lg = _head_logits(head32, cfg, h)
     lse = torch.logsumexp(lg, dim=-1)
-    ll = lg.gather(-1, y.long()[..., None])[..., 0]
-    return ((lse - ll) * m).sum()
+    # the label's logit where 0 <= y < padded_vocab and 0 elsewhere, as
+    # the reference's masked sum gives (a masked label may be -1 or -100)
+    y = y.long()
+    ok = (y >= 0) & (y < lg.shape[-1])
+    ll = lg.gather(-1, torch.where(ok, y, 0)[..., None])[..., 0]
+    return ((lse - torch.where(ok, ll, 0.0)) * m).sum()
 
 
 def lm_loss(params: dict, cfg: ModelConfig, hidden, labels, loss_mask):

@@ -6,7 +6,10 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
 import torch
+
+from repro_torch import configs
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -61,17 +64,35 @@ def test_torch_train_launcher_on_the_cpu(tmp_path):
     assert out.stdout.splitlines()[-1].startswith("finished at step 8")
 
 
-def test_torch_train_launcher_refusals():
-    """The production mesh and zamba2 on the card are not ported: both
-    raise NotPorted (zamba2 trains on the CPU)."""
-    import pytest
+def test_torch_train_launcher_refusals(tmp_path):
+    """The production mesh is not ported: it raises NotPorted. zamba2
+    trains on the card (its Mamba2 layers through the scan's backward
+    kernel) as on the CPU."""
     from repro_torch.launch.train import main
     from repro_torch.models.config import NotPorted
     with pytest.raises(NotPorted):
         main(["--mesh", "single", "--smoke", "--device", "cpu"])
     if torch.cuda.is_available():
-        with pytest.raises(NotPorted):
-            main(["--arch", "zamba2-2.7b", "--smoke"])
+        loop = main(["--arch", "zamba2-2.7b", "--smoke", "--steps", "1",
+                     "--batch", "2", "--seq", "16", "--ckpt-dir",
+                     str(tmp_path / "ck")])
+        assert len(loop.history) == 1
+
+
+@pytest.mark.parametrize("arch", sorted(configs.ARCHS))
+def test_torch_train_launcher_refuses_head_dims_the_card_lacks(arch):
+    """On the card the launcher refuses, before it touches the device, a
+    config whose attention head dim the flash kernels do not take: only
+    starcoder2-7b's SMOKE config (head dim 4). Every full config and every
+    other SMOKE config passes the check."""
+    from repro_torch.launch.train import main, refuse_on_card
+    from repro_torch.models.config import NotPorted
+    refuse_on_card(configs.get_config(arch))
+    if arch != "starcoder2-7b":
+        refuse_on_card(configs.get_smoke(arch))
+        return
+    with pytest.raises(NotPorted, match="head dim 4"):
+        main(["--arch", arch, "--smoke", "--device", "cuda"])
 
 
 def test_torch_train_small_on_the_cpu(tmp_path):

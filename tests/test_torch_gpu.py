@@ -19,9 +19,11 @@ way, and the MoE router's top-k keeps ties in index order on the card.
 The flash backward kernels are held against
 their plain version (fp32 within 1e-4, bf16 within 2e-2 of the largest
 gradient), bit-equal on a second call; autograd reaches them through
-FlashAttention, and the Mamba2 scan refuses a gradient; a SMOKE gemma2-2b
-training step through the kernels is held against the same step with the
-plain attention. Every test
+FlashAttention; the Mamba2 scan's backward kernel is held against its
+plain version the same way and autograd reaches it through Mamba2Scan; a
+SMOKE gemma2-2b training step through the kernels is held against the
+same step with the plain attention, and a SMOKE zamba2 step on the card
+against the same step on the CPU. Every test
 skips with a reason where no CUDA card is present; run them on the card
 with ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import re
@@ -445,9 +447,10 @@ def test_cuda_tensor_never_takes_plain_version(cuda):
     HX.probe_verify(rid, key, torch.zeros(3, dtype=torch.int32, device=cuda),
                     valid=v, keycol=c, limit=4)
     f = torch.rand((1, 5, 2), device=cuda)
-    MS.mamba2_scan(torch.randn((1, 5, 2, 8), device=cuda), f, -f,
-                   torch.randn((1, 5, 4), device=cuda),
-                   torch.randn((1, 5, 4), device=cuda))
+    # a gradient: the scan's forward and its backward
+    xg = torch.randn((1, 5, 2, 8), device=cuda, requires_grad=True)
+    MS.mamba2_scan(xg, f, -f, torch.randn((1, 5, 4), device=cuda),
+                   torch.randn((1, 5, 4), device=cuda))[0].sum().backward()
     q = torch.randn((1, 4, 5, 64), device=cuda)
     k = torch.randn((1, 2, 5, 64), device=cuda)
     FA.flash_attention(q, k, k, scale=0.125)
@@ -2022,16 +2025,131 @@ def test_cuda_flash_attention_gives_qkv_gradients(cuda, dtype):
         assert t.grad.stride() == t.stride()
 
 
-def test_cuda_mamba2_scan_refuses_a_gradient(cuda):
-    from repro_torch.models.config import NotPorted
-    x = torch.randn((1, 5, 2, 8), device=cuda, requires_grad=True)
-    f = torch.rand((1, 5, 2), device=cuda)
-    B, C = torch.randn((1, 5, 4), device=cuda), torch.randn((1, 5, 4),
-                                                           device=cuda)
-    with pytest.raises(NotPorted, match="no backward kernel"):
-        MS.mamba2_scan(x, f, -f, B, C)
+MAMBA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # of the
+# largest entry of each gradient: fp32 sums in another order; bf16 dx is
+# rounded once (the other gradients stay fp32 whatever x is)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,dh,st,h0", [
+    (1, 1, 2, 16, 8, False), (2, 24, 3, 16, 8, True),
+    (1, 64, 80, 64, 64, False), (1, 65, 4, 64, 64, True),
+    (2, 300, 5, 16, 256, True), (1, 300, 80, 64, 64, False)])
+def test_mamba2_backward_matches_plain(cuda, b, s, nh, dh, st, h0, dtype):
+    """The three backward launches against mamba2_scan_bwd_ref on the
+    same inputs (a random dh_last where h0 is random), each gradient
+    within its tolerance of its largest entry; a second call bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(s + nh + st)
+    args = _ssd_case(gen, cuda, b, s, nh, dh, st, dtype, h0)
+    dy = torch.randn((b, s, nh, dh), generator=gen, device=cuda).to(dtype)
+    dhl = (torch.randn((b, nh, dh, st), generator=gen, device=cuda) if h0
+           else None)
+    got = MS.mamba2_scan_bwd(*args, dy, dhl)
+    again = MS.mamba2_scan_bwd(*args, dy, dhl)
+    want = MS.mamba2_scan_bwd_ref(*args, dy, dhl)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert got[0].dtype == dtype
+    for i, (a, w) in enumerate(zip(got, want)):
+        tol = MAMBA_BWD_TOL[dtype] if i == 0 else MAMBA_BWD_TOL[torch.float32]
+        top = float(w.float().abs().max())
+        assert float((a.float() - w.float()).abs().max()) <= tol * max(
+            top, 1e-30), i
+
+
+def test_cuda_mamba2_scan_gives_gradients(cuda):
+    """Autograd reaches the backward kernel through Mamba2Scan: the
+    gradients of every input (h0 included, h_last's gradient given) are
+    the wrapper's; without a gradient a call launches the forward alone."""
+    from repro_torch.kernels import _build
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x, dt, dA, B, C, h0 = _ssd_case(g, cuda, 1, 130, 4, 32, 16,
+                                    torch.float32, True)
+    ins = [t.clone().requires_grad_() for t in (x, dt, dA, B, C, h0)]
+    _build.reset_launches()
+    y, h_last = MS.mamba2_scan(*ins)
+    dy = torch.randn(y.shape, generator=g, device=cuda)
+    dhl = torch.randn(h_last.shape, generator=g, device=cuda)
+    torch.autograd.backward((y, h_last), (dy, dhl))
+    assert _build.launches["mamba2_scan"] == 1
+    assert _build.launches["mamba2_scan_bwd"] == 1
+    want = MS.mamba2_scan_bwd(x, dt, dA, B, C, h0, dy, dhl)
+    for t, w in zip(ins, want):
+        assert t.grad is not None and torch.equal(t.grad, w)
+    _build.reset_launches()
     with torch.no_grad():
-        MS.mamba2_scan(x, f, -f, B, C)   # inference still runs
+        MS.mamba2_scan(*ins)
+    assert _build.launches["mamba2_scan"] == 1
+    assert _build.launches["mamba2_scan_bwd"] == 0
+
+
+def test_zamba2_train_step_on_card_matches_cpu(cuda):
+    """zamba2 SMOKE (Mamba2 layers and the shared block, fp32, remat
+    full) on the card through the scan and flash kernels against the
+    same weights and batch on the CPU (plain versions under autograd):
+    the loss within 1e-5, every gradient leaf within 1e-4 of its largest
+    entry, and one AdamW step's parameters within 1e-4."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.training.loop import to_device
+    from repro_torch.training.step import make_train_step
+    cfg = configs.get_smoke("zamba2-2.7b")
+    cpu = torch.device("cpu")
+    params = TF.init_model(torch.Generator().manual_seed(0), cfg, cpu)
+    host = make_batch(cfg, 2, 80, seed=4)
+
+    def run(dev):
+        p = _to(params, dev)
+        batch = to_device(host, dev)
+        leaves = tree_leaves(p)
+        for x in leaves:
+            x.requires_grad_(True)
+        loss, _ = TF.train_loss(p, cfg, batch, remat="full")
+        grads = torch.autograd.grad(loss, leaves)
+        for x in leaves:
+            x.requires_grad_(False)
+        step = make_train_step(cfg, remat="full", peak_lr=1e-3, warmup=0,
+                               total_steps=10)
+        p, _, m = step(p, adamw_init(p), batch, 1)
+        return float(loss), [g.cpu() for g in grads], float(m["loss"]), [
+            x.cpu() for x in tree_leaves(p)]
+
+    _build.reset_launches()
+    loss_k, g_k, step_k, p_k = run(cuda)
+    assert _build.launches["mamba2_scan_bwd"] > 0
+    assert _build.launches["flash_attention_bwd_dq"] > 0
+    loss_c, g_c, step_c, p_c = run(cpu)
+    assert abs(loss_k - loss_c) <= 1e-5 and abs(step_k - step_c) <= 1e-5
+    for a, c in zip(g_k, g_c):
+        top = float(c.abs().max())
+        assert float((a - c).abs().max()) <= 1e-4 * max(top, 1e-30)
+    for a, c in zip(p_k, p_c):
+        assert float((a - c).abs().max()) <= 1e-4
+
+
+def test_lm_loss_takes_masked_out_of_range_labels_on_card(cuda):
+    """Labels -1, -100 and padded_vocab under a zero mask: no device-side
+    assert, and the CPU's loss."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as TF
+    cfg = configs.get_smoke("yi-6b")
+    params = TF.init_model(torch.Generator().manual_seed(0), cfg,
+                           torch.device("cpu"))
+    g = torch.Generator().manual_seed(1)
+    h = torch.randn((2, 16, cfg.d_model), generator=g)
+    y = torch.randint(0, cfg.vocab, (2, 16), generator=g)
+    m = torch.ones((2, 16))
+    for (i, j), lab in zip([(0, 3), (0, 9), (1, 0), (1, 15)],
+                           [-1, -100, cfg.padded_vocab, -1]):
+        y[i, j], m[i, j] = lab, 0.0
+    want = TF.lm_loss(params, cfg, h, y, m)
+    got = TF.lm_loss(_to(params, cuda), cfg, h.to(cuda), y.to(cuda),
+                     m.to(cuda))
+    assert torch.isfinite(got)
+    assert abs(float(got) - float(want)) <= 1e-5
 
 
 def test_train_step_on_card_matches_plain_attention(cuda, monkeypatch):

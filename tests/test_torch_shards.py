@@ -320,6 +320,24 @@ def test_reshard_refuses_overflowing_skew():
     same_shards(dbs, "t")
 
 
+def test_reshard_skew_refusal_text_matches_reference():
+    """The refusal goes out on the wire in an ERR line: the port's text is
+    the reference's, letter for letter."""
+    dbs = pair()
+    run(dbs, "execute", "CREATE TABLE t (k INT, w INT) CAPACITY 32 "
+                        "SHARDS 2 PARTITION BY k")
+    k0 = next(k for k in range(100) if TSH.shard_of_host(k, 2) == 0)
+    run(dbs, "executemany", "INSERT INTO t (k, w) VALUES (?, ?)",
+        [(k0, i) for i in range(16)])
+    texts = []
+    for db, err in zip(dbs, (JS.SQLError, TS.SQLError)):
+        with pytest.raises(err) as info:
+            db.execute("ALTER TABLE t RESHARD 4")
+        texts.append(str(info.value))
+    assert texts[0] == texts[1]
+    assert "resolve the skew" in texts[1]
+
+
 def test_update_partition_column_refused():
     dbs = pair()
     make_t(dbs, 4)

@@ -12,9 +12,10 @@ causal and not, ``q_offset``, windows, softcap 50, GQA groups 1, 2, 7 and
 8, sq != sk, ragged lengths and rows that see no key (the reference's
 ``chunked_attention`` runs with whole-sequence blocks there: its block
 skipping drops such rows' keys, where its own Pallas kernel, the port's
-kernels and the plain version give them the mean of V). The Mamba2 scan
-kernel refuses a gradient on the card only: on the CPU its plain version
-is differentiated."""
+kernels and the plain version give them the mean of V). On the CPU the
+Mamba2 scan's plain version is differentiated by autograd (on the card
+its gradient is the backward kernel's: ``tests/test_torch_mamba2_bwd.py``
+holds its plain version)."""
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -63,3 +63,28 @@ def test_lm_loss_matches_reference_in_blocks(block):
     got = TTF.lm_loss(tp, tcfg, torch.tensor(h), torch.tensor(y),
                       torch.tensor(m))
     assert abs(float(got) - float(want)) <= LOSS_TOL
+
+
+@pytest.mark.parametrize("case", ["masked_out_of_range", "in_range"])
+def test_lm_loss_takes_out_of_range_labels_as_the_reference(case):
+    """yi-6b SMOKE, b 2, s 16: labels -1, -100 and ``padded_vocab`` under
+    a zero mask give the reference's loss (its masked sum over the vocab
+    ids takes 0 for an id outside it) instead of an out-of-bounds gather;
+    in-range labels under a partial mask are unchanged."""
+    jcfg, tcfg, jp, tp, _, _ = setup("yi-6b")
+    rng = np.random.default_rng(26)
+    h = rng.standard_normal((2, 16, tcfg.d_model)).astype(np.float32)
+    y = rng.integers(0, tcfg.vocab, (2, 16)).astype(np.int32)
+    m = np.ones((2, 16), np.float32)
+    if case == "masked_out_of_range":
+        for (i, j), lab in zip([(0, 3), (0, 9), (1, 0), (1, 15)],
+                               [-1, -100, tcfg.padded_vocab, -1]):
+            y[i, j], m[i, j] = lab, 0.0
+    else:
+        m[rng.random((2, 16)) < 0.3] = 0.0
+    want = JTF.lm_loss(jp, jcfg, jnp.asarray(h), jnp.asarray(y),
+                       jnp.asarray(m))
+    got = TTF.lm_loss(tp, tcfg, torch.tensor(h), torch.tensor(y),
+                      torch.tensor(m))
+    assert np.isfinite(float(got))
+    assert abs(float(got) - float(want)) <= LOSS_TOL
