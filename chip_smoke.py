@@ -85,6 +85,20 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               zamba2's hd 80, hd 8, split edges, windows, softcap), within
               the same tolerances; then its time at both serve shapes
               beside its bound and the bf16 call on the same shape.
+              The paged kernel's striped call form (``kernels_attention``
+              too: the serving mesh's stripes): every stripe of 1, 2, 4
+              and 8 stripes with ``blk_start`` and ``return_lse`` at
+              yi-6b's and zamba2's mesh pools (block 256), gemma3's local
+              layer (window 1,025, softcap 50) and internvl2's group 7,
+              bf16 and fp32 q over arenas of q's dtype and int8 ones (the
+              self term at one stripe), slots without a request and ones
+              whose later stripes see nothing: out within the tolerances
+              above, lse within 1e-4 of max(1, |lse|), the stripes'
+              combine within the tolerances of the unstriped plain call, a
+              second call bit-equal, ``blk_start=None`` bit-equal to the
+              call without it; then one stripe's call timed at yi-6b's
+              layout (b) beside its bound (the pages it reads and its
+              lse), all eight stripes' and the unstriped call's.
    kernels_mamba -- the Mamba2 scan kernel against its plain version
               (y within 1e-4 fp32 / 2e-2 bf16, h_last within 1e-3,
               relative and absolute) at tests/test_kernels.py's shapes,
@@ -262,6 +276,31 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               same CPU replay and warm-round checks; reports
               the arena and scale bytes beside the bf16 engine's, the
               round's p50 and how many greedy tokens agree with it.
+   serve_mesh -- the serving mesh (serving/paged.py, serving/engine.py
+              over launch/mesh.make_debug_mesh of repeated cuda:0; every
+              coordinate checked to be on the card): yi-6b at full width
+              over (data 2, model 2) with 4 slots (slots over 'data',
+              heads over 'model'), over (data 1, model 8) with 4 slots (8
+              stripes, the LSE combine), over (data 2, model 2) with one
+              slot of 8,184 tokens (seq 8,192, stripes over 'data'), (b)
+              again on the int8 arena, and zamba2-2.7b's shared block over
+              (2, 2) with 2 slots. Pools of 24 / 310 / 1,030 / 4,088
+              tokens (seq 4,096, block 256), random K/V; 8 rounds each of
+              the mesh step and the mesh-free step from the same params
+              and pool, teacher-forced on the mesh-free tokens: logits
+              within the arch's serve bound (yi-6b 0.05; zamba2 the bound
+              serve_zamba2 measured), greedy tokens equal where the
+              mesh-free top-2 gap exceeds it, the joined bf16 arenas
+              within 2e-2 of their largest entry, paged launches exact (a
+              coordinate a layer a round, plus the mesh-free step's);
+              reports round p50s beside each other and peak memory.
+   train_seqpar -- one gemma2-2b training step at full width (b 1, s
+              8,192, remat full) with ``attn_seq_shard`` over a 'model'
+              axis of 4 entries (cuda:0 repeated) against the same step
+              without the mesh: loss within 1e-3 relative, every
+              gradient leaf's norm within 1e-2 relative, flash launches
+              exactly 4 times the mesh-free step's; step times and peak
+              memory.
    snapshot -- phase shards's deployment, with and without INDEX(page_id):
               CHECKPOINT (the card's files must equal the CPU daemon's),
               RESTORE into fresh tables of 8, 4 and 1 shards and from 1
@@ -296,10 +335,11 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               device time by family, idle share), and for zamba2's
               300-token prefill.
 
-Phases 3-6 are twenty-three main paths (train, serve_gemma3, serve_gemma2,
+Phases 3-6 are twenty-five main paths (train, serve_gemma3, serve_gemma2,
 serve_starcoder2, serve_falcon_mamba, serve_granite_moe, serve_phi35_moe,
 serve_internvl2, serve_seamless, serve, serve_zamba2, serve_int8,
-serve_int8_zamba2, Table 2 plain, Table 2 indexed, Fig. 1, wire, graphs,
+serve_int8_zamba2, serve_mesh, train_seqpar, Table 2 plain, Table 2
+indexed, Fig. 1, wire, graphs,
 shards, mesh, snapshot, cluster, cluster_chaos; the twelve serve
 paths run first, since their warm round check reads the card's copy
 records, which a longer profiled process was seen to lose). A statement kernel that runs inside a
@@ -367,6 +407,7 @@ from repro_torch.models.layers import moe as MOE  # noqa: E402
 from repro_torch.models.layers import ssm as SSM  # noqa: E402
 from repro_torch.roofline import analysis as RF  # noqa: E402
 from repro_torch.serving import paged as PG  # noqa: E402
+from repro_torch.serving import engine as SE  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 # the card's figures (repro_torch.roofline's table, by the name the card
@@ -1550,7 +1591,8 @@ def check_flash_views(gen, dev, dtype, b, h, kh, s, hd, what):
 def phase_kernels_attention(dev, card):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
-    errs = {"flash_attention": 0.0, "paged_attention": 0.0}
+    errs = {"flash_attention": 0.0, "paged_attention": 0.0,
+            "paged_attention_wide": 0.0}
     per_case = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -1594,11 +1636,15 @@ def phase_kernels_attention(dev, card):
     int8_errs = check_paged_int8(rng, gen, dev, per_case)
     errs["paged_attention"] = max(errs["paged_attention"],
                                   *int8_errs.values())
+    errs["paged_attention_wide"] = check_paged_wide(rng, gen, dev, per_case)
+    errs["paged_attention_lse"], lse_err_max = check_paged_striped(
+        rng, gen, dev, per_case, errs)
     emit({"phase": "kernels_attention", "card": card, "cases": len(per_case),
           "tolerance": {"float32": ATT_TOL[torch.float32],
-                        "bfloat16": ATT_TOL[torch.bfloat16]},
+                        "bfloat16": ATT_TOL[torch.bfloat16],
+                        "lse_relative": LSE_TOL},
           "max_abs_err": errs, "max_abs_err_int8_arena": int8_errs,
-          "per_case": per_case})
+          "max_rel_err_lse": lse_err_max, "per_case": per_case})
 
     # timings at the serve path's shapes (yi-6b, bf16)
     out = {}
@@ -1705,9 +1751,321 @@ def phase_kernels_attention(dev, card):
     out["paged_attention_int8"] = paged_int8_timing(rng, gen, dev, *PAGED_YI)
     out["paged_attention_int8_hd80"] = paged_int8_timing(rng, gen, dev,
                                                          *PAGED_ZAMBA)
+    out["paged_attention_wide"] = paged_wide_timing(rng, gen, dev)
+    out["paged_attention_lse"] = paged_striped_timing(rng, gen, dev)
     for t in out.values():
         emit({"phase": "kernel_timing", "card": card, **t})
     return out, errs
+
+
+# ------------------------ phase 2b': the paged kernel's block-256 form
+# Pages longer than a split (64 positions) whose length is a multiple of
+# it are cut into 64-position parts, each a split of its own; with no
+# block starts and no lse the call launches paged_wide_kernel with an
+# output of q's dtype (``paged_attention_wide``): every mesh-free step of
+# serve_mesh and every head-sharded coordinate there. (b, h, kh, hd,
+# block, nblk, window, softcap, lengths, holes): yi-6b's mesh-free step
+# (serve_mesh (a), (b)), a layout (a) coordinate (2 slots, 16 / 2
+# heads), layout (c)'s mesh-free step (8,184 tokens), zamba2's mesh-free
+# step and a coordinate of its (2, 2) mesh, lengths either side of a
+# part's and a page's edge, gemma2's hd 256 with softcap 50 and a window
+# that crosses parts, block 128 (two parts a page), and missing pages.
+PA_SPLIT = 64
+# the serve_mesh phase's yi-6b pool (its (a), (b) and int8 cases)
+YI_MESH_LENGTHS = [24, 310, 1030, 4088]
+PAGED_WIDE_CASES = [
+    (4, 32, 4, 128, 256, 16, 0, 0.0, YI_MESH_LENGTHS, ()),
+    (2, 16, 2, 128, 256, 16, 0, 0.0, [24, 4088], ()),
+    (1, 32, 4, 128, 256, 32, 0, 0.0, [8184], ()),
+    (2, 32, 32, 80, 256, 16, 0, 0.0, [310, 1030], ()),
+    (1, 16, 16, 80, 256, 16, 0, 0.0, [1030], ()),
+    (4, 32, 4, 128, 256, 4, 0, 0.0, [64, 256, 257, 63], ()),
+    (4, 8, 4, 256, 256, 8, 101, 50.0, [300, 1500, 24, 0], ()),
+    (3, 8, 2, 64, 128, 6, 0, 0.0, [700, 128, 1], ()),
+    (2, 8, 2, 64, 256, 4, 0, 0.0, [900, 600], ((0, 1), (1, 0))),
+]
+
+
+def check_paged_wide(rng, gen, dev, per_case) -> float:
+    """The block-256 form (no block starts, no lse) against
+    ``paged_attention_ref`` at PAGED_WIDE_CASES: fp32 and bf16 q over an
+    arena of q's dtype and over an int8 one with the self term (the
+    mesh-free int8 step's call), within ATT_TOL; a second call bit-equal;
+    each call one ``paged_attention_wide`` launch. Returns the largest
+    error."""
+    err = 0.0
+    for (b, h, kh, hd, block, nblk, window, softcap, lengths,
+         holes) in PAGED_WIDE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            for int8 in (False, True):
+                if int8:
+                    q, arena, scales, pages, lens, kv_self = \
+                        paged_int8_inputs(rng, gen, dev, dtype, b, h, kh, hd,
+                                          block, nblk, lengths, holes)
+                else:
+                    q, arena, pages, lens = paged_inputs(
+                        rng, gen, dev, dtype, b, h, kh, hd, block, nblk,
+                        lengths, holes)
+                    scales = kv_self = None
+                kw = dict(scale=hd ** -0.5, softcap=softcap, window=window,
+                          scales=scales, kv_self=kv_self)
+                before = _build.launches["paged_attention_wide"]
+                got = PA.paged_attention(q, arena, pages, lens, **kw)
+                if _build.launches["paged_attention_wide"] != before + 1:
+                    raise AssertionError(f"paged_attention_wide {block}: "
+                                         f"not counted as its form")
+                again = PA.paged_attention(q, arena, pages, lens, **kw)
+                want = PA.paged_attention_ref(q, arena, pages, lens, **kw)
+                sync()
+                shape = (f"{b}x{h}/{kh}x{hd} blk{block}x{nblk} w{window} "
+                         f"c{softcap} lengths {lengths} holes {list(holes)} "
+                         f"{'int8 arena, self term' if int8 else dname}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"paged_attention_wide {shape} "
+                                         f"{dname}: a second call differs")
+                e = att_err(got, want, dtype,
+                            f"paged_attention_wide {shape} {dname}")
+                err = max(err, e)
+                per_case.append(["paged_wide", dname, shape, e])
+    return err
+
+
+def paged_wide_timing(rng, gen, dev):
+    """The block-256 form at yi-6b's mesh-free step in serve_mesh (a) and
+    (b): 4 slots of 24 / 310 / 1,030 / 4,088 tokens, 16 pages of 256
+    (64 splits of 64 positions a slot), bf16."""
+    h, kh, hd, block, nblk = 32, 4, 128, 256, 16
+    q, arena, pages, lens = paged_inputs(rng, gen, dev, torch.bfloat16, 4, h,
+                                         kh, hd, block, nblk,
+                                         YI_MESH_LENGTHS)
+    kw = dict(scale=hd ** -0.5)
+    run = lambda: PA.paged_attention(q, arena, pages, lens, **kw)  # noqa: E731
+    b_ms, b_by = bound(*paged_work(h, kh, hd, nblk, YI_MESH_LENGTHS, 2),
+                       BF16_OPS_S)
+    return {
+        "kernel": "paged_attention_wide", "shape": f"b4 h{h}/kh{kh} hd{hd} "
+        f"block{block} nblk{nblk} lengths {YI_MESH_LENGTHS} bf16 (serve_mesh's "
+        f"mesh-free yi-6b step)", "ms": time_ms(run),
+        "device_ms": call_device_ms(run),
+        "device_launches": device_launches(run),
+        "plain_ms": time_ms(lambda: PA.paged_attention_ref(
+            q, arena, pages, lens, **kw), iters=50),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library": "none: no single PyTorch call gathers K/V through a page "
+                   "table"}
+
+
+# ----------------------------- phase 2b'': the paged kernel's striped form
+# The serving mesh's call form (serving/paged.py over a mesh): each stripe
+# holds every S-th block of a sequence, so its pages start at the global
+# positions (j * S + stripe) * block (``blk_start``), and it returns the
+# rows' log-sum-exp for the combine across stripes. (h, kh, hd, block,
+# nblk, lengths, window, softcap, what): the serve paths' shapes with
+# yi-6b's and zamba2's mesh pools (block 256), gemma3's local layer (a
+# 1,025-token window with softcap 50), internvl2's group 7 (block 16) and
+# gemma2's hd 256 with softcap 50 at block 256 (64-position parts of a
+# page: a whole page would not fit shared memory); each has a slot
+# without a request (0) or a short one whose tokens lie on the first
+# stripes only, so that later stripes see nothing.
+STRIPE_COUNTS = (1, 2, 4, 8)
+STRIPED_SHAPES = [
+    (32, 4, 128, 256, 16, [24, 310, 1030, 4088], 0, 0.0, "yi-6b"),
+    (32, 32, 80, 256, 16, [24, 310, 0, 1030], 0, 0.0, "zamba2"),
+    (32, 16, 128, 16, 96, [1216, 1025, 17, 5], 1025, 50.0,
+     "gemma3 local, window 1,025, softcap 50"),
+    (14, 2, 64, 16, 32, [280, 287, 0, 296], 0, 0.0, "internvl2, group 7"),
+    (8, 4, 256, 256, 8, [300, 24, 0, 1500], 0, 50.0, "gemma2, hd 256"),
+]
+LSE_TOL = 1e-4   # relative to max(1, |lse|): fp32 sums in either order
+
+
+def stripe_pages(pages, block, S):
+    """A page table [b, nblk] cut into S stripes: stripe s holds blocks
+    s, s + S, ... ([b, nblk / S] each) and their global starts."""
+    b, nblk = pages.shape
+    out = []
+    for s in range(S):
+        jl = torch.arange(nblk // S, device=pages.device)
+        start = ((jl * S + s) * block).to(torch.int32)
+        out.append((pages[:, s::S].contiguous(),
+                    start.expand(b, -1).contiguous()))
+    return out
+
+
+def combine_stripes(parts):
+    """The island's combine of (out, lse) partials: [b, h, hd] fp32."""
+    o = torch.stack([p[0].float() for p in parts])
+    lse = torch.stack([p[1] for p in parts])
+    w = torch.exp(lse - lse.max(dim=0).values)
+    return (w[..., None] * o).sum(0) / w.sum(0)[..., None]
+
+
+def lse_err(got, want, what) -> float:
+    """The rows that see nothing are -1e30 in both; the others within
+    LSE_TOL of max(1, |lse|)."""
+    none_g, none_w = got <= -1e29, want <= -1e29
+    if not torch.equal(none_g, none_w):
+        raise AssertionError(f"{what}: rows that see nothing differ")
+    if bool(none_w.all()):
+        return 0.0
+    live = ~none_w
+    err = float(((got - want).abs() / want.abs().clamp(min=1.0))[live].max())
+    if not err <= LSE_TOL:
+        raise AssertionError(f"{what}: lse differs from the plain version's "
+                             f"by {err} (tolerance {LSE_TOL})")
+    return err
+
+
+def check_paged_striped(rng, gen, dev, per_case, errs):
+    """The striped call form against ``paged_attention_ref`` with the same
+    ``blk_start`` / ``return_lse``: every stripe of S = 1, 2, 4, 8 at
+    STRIPED_SHAPES, bf16 and fp32 q over arenas of q's dtype and int8
+    ones (with the self term at S = 1, where its lse counts it), out
+    within ATT_TOL and lse within LSE_TOL; the stripes' combine within
+    ATT_TOL of the plain unstriped call on the whole sequence; a second
+    call bit-equal; the unstriped kernel call (``paged_attention`` at
+    block 16, ``paged_attention_wide`` at block 256) and the one with
+    ``blk_start`` of j * block (``paged_attention_wide``) each within
+    ATT_TOL of that plain call, their errors added to ``errs``;
+    ``blk_start=None`` bit-equal to the call without it. Returns the
+    largest striped output error and the largest lse error."""
+    err, lerr = 0.0, 0.0
+    for h, kh, hd, block, nblk, lengths, window, softcap, what in \
+            STRIPED_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            for int8 in (False, True):
+                if int8:
+                    q, arena, scales, pages, lens, kv_self = \
+                        paged_int8_inputs(rng, gen, dev, dtype, 4, h, kh, hd,
+                                          block, nblk, lengths)
+                else:
+                    q, arena, pages, lens = paged_inputs(
+                        rng, gen, dev, dtype, 4, h, kh, hd, block, nblk,
+                        lengths)
+                    scales = kv_self = None
+                kw = dict(scale=hd ** -0.5, softcap=softcap, window=window,
+                          scales=scales)
+                whole = PA.paged_attention_ref(q, arena, pages, lens, **kw)
+                for S in STRIPE_COUNTS:
+                    selfs = (None, kv_self) if int8 and S == 1 else (None,)
+                    for ks in selfs:
+                        parts = []
+                        for s, (pg, bs) in enumerate(stripe_pages(
+                                pages, block, S)):
+                            kws = dict(kw, kv_self=ks, blk_start=bs,
+                                       return_lse=True)
+                            got = PA.paged_attention(q, arena, pg, lens,
+                                                     **kws)
+                            want = PA.paged_attention_ref(q, arena, pg, lens,
+                                                          **kws)
+                            again = PA.paged_attention(q, arena, pg, lens,
+                                                       **kws)
+                            sync()
+                            shape = (f"{what} {dname} "
+                                     f"{'int8' if int8 else dname} arena "
+                                     f"S{S} stripe {s} lengths {lengths} "
+                                     f"self term {ks is not None}")
+                            if not (torch.equal(got[0], again[0])
+                                    and torch.equal(got[1], again[1])):
+                                raise AssertionError(f"paged_attention_lse "
+                                                     f"{shape}: a second "
+                                                     f"call differs")
+                            e = att_err(got[0], want[0], dtype,
+                                        f"paged_attention_lse {shape}")
+                            le = lse_err(got[1], want[1],
+                                         f"paged_attention_lse {shape}")
+                            err, lerr = max(err, e), max(lerr, le)
+                            per_case.append(["paged_lse", dname, shape, e,
+                                             le])
+                            parts.append(got)
+                        if ks is None:   # the stripes make the whole
+                            att_err(combine_stripes(parts), whole.float(),
+                                    dtype, f"paged_attention_lse {what} "
+                                    f"{dname} S{S}: the combined stripes")
+                # the earlier call form: unchanged by the new arguments
+                plain = PA.paged_attention(q, arena, pages, lens, **kw)
+                none = PA.paged_attention(q, arena, pages, lens,
+                                          blk_start=None, **kw)
+                jb = stripe_pages(pages, block, 1)[0][1]
+                explicit = PA.paged_attention(q, arena, pages, lens,
+                                              blk_start=jb, **kw)
+                sync()
+                if not torch.equal(plain, none):
+                    raise AssertionError(f"paged_attention {what}: "
+                                         f"blk_start=None changed the bits")
+                form = ("paged_attention_wide" if block > PA_SPLIT
+                        else "paged_attention")
+                tag = f"{what} {dname} {'int8' if int8 else dname} arena"
+                e = att_err(plain, whole, dtype, f"{form} {tag}: unstriped")
+                errs[form] = max(errs[form], e)
+                ew = att_err(explicit, whole, dtype, f"paged_attention_wide "
+                             f"{tag}: blk_start = j * block")
+                errs["paged_attention_wide"] = max(
+                    errs["paged_attention_wide"], ew)
+                per_case.append([form, dname, f"{tag} unstriped", e])
+                per_case.append(["paged_wide", dname,
+                                 f"{tag} blk_start = j * block", ew])
+    return err, lerr
+
+
+def striped_work(h, kh, hd, block, lengths, stripe, S, nblk_l, elem,
+                 kv_elem=None):
+    """(bytes, FLOP) of one stripe's call: q and out once, the K/V rows of
+    the positions its pages hold that are visible, pages, starts and
+    lengths, and its lse; QK^T and PV over those positions."""
+    kv_elem = elem if kv_elem is None else kv_elem
+    b = len(lengths)
+    seen = sum(max(0, min(block, n - (jl * S + stripe) * block))
+               for n in lengths for jl in range(nblk_l))
+    nbytes = (2 * b * h * hd * elem + 2 * seen * kh * hd * kv_elem
+              + 8 * b * nblk_l + 4 * b + 4 * b * h)
+    return nbytes, 4 * h * hd * seen
+
+
+def paged_striped_timing(rng, gen, dev):
+    """The striped call at yi-6b's mesh layout (b): 4 slots of 24 / 310 /
+    1,030 / 4,088 tokens, block 256, 16 blocks over 8 stripes (2 pages a
+    stripe), bf16: stripe 0's call (time, device time, launches, plain
+    time, bound), all 8 stripes' calls one after another, and the
+    unstriped call on the same pool."""
+    h, kh, hd, block, nblk, lengths = 32, 4, 128, 256, 16, \
+        [24, 310, 1030, 4088]
+    S = 8
+    q, arena, pages, lens = paged_inputs(rng, gen, dev, torch.bfloat16, 4, h,
+                                         kh, hd, block, nblk, lengths)
+    cuts = stripe_pages(pages, block, S)
+    kw = dict(scale=hd ** -0.5, return_lse=True)
+    pg, bs = cuts[0]
+    run = lambda: PA.paged_attention(q, arena, pg, lens,  # noqa: E731
+                                     blk_start=bs, **kw)
+
+    def run_all():
+        for pg_s, bs_s in cuts:
+            PA.paged_attention(q, arena, pg_s, lens, blk_start=bs_s, **kw)
+    whole = lambda: PA.paged_attention(q, arena, pages, lens,  # noqa: E731
+                                       scale=hd ** -0.5)
+    b_ms, b_by = bound(*striped_work(h, kh, hd, block, lengths, 0, S,
+                                     nblk // S, 2), BF16_OPS_S)
+    all_ms = sum(bound(*striped_work(h, kh, hd, block, lengths, s, S,
+                                     nblk // S, 2), BF16_OPS_S)[0]
+                 for s in range(S))
+    return {
+        "kernel": "paged_attention_lse", "shape": f"b4 h{h}/kh{kh} hd{hd} "
+        f"block{block}, stripe 0 of {S} (2 pages a stripe), lengths "
+        f"{lengths}, bf16, blk_start and lse (the serving mesh's layout "
+        f"(b))", "ms": time_ms(run), "device_ms": call_device_ms(run),
+        "device_launches": device_launches(run),
+        "plain_ms": time_ms(lambda: PA.paged_attention_ref(
+            q, arena, pg, lens, blk_start=bs, **kw), iters=50),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library": "none: no single PyTorch call gathers K/V through a page "
+                   "table",
+        "all_stripes_ms": time_ms(run_all, iters=50),
+        "all_stripes_device_ms": call_device_ms(run_all, iters=20),
+        "all_stripes_bound_ms": all_ms,
+        "unstriped_device_ms": call_device_ms(whole)}
 
 
 # ------------------------------------------------ phase 2c: Mamba2 scan
@@ -4826,6 +5184,347 @@ def phase_train(card, dev, held):
     train_smoke_resume(card, dev, want)
 
 
+# ------------------------------------------------ phase: the serving mesh
+# (name, arch, mesh shape, slots, pool lengths, seq, int8 arena): yi-6b's
+# three placements over debug meshes of repeated cuda:0 — (a) slots over
+# 'data', its 4 kv heads over 'model' 2; (b) kv heads 4 do not divide
+# 'model' 8: 8 stripes; (c) one slot does not cover 'data': 2 stripes over
+# 'data', heads over 'model' — (b) again on the int8 arena, and zamba2's
+# shared block (kh 32) over (2, 2). Each pool fills every block of seq
+# positions a slot can reach; the longest slot starts 8 tokens short of
+# seq, so that the 8 rounds write its last block to its last position.
+MESH_BLOCK = 256
+MESH_ROUNDS = 8
+MESH_CASES = [
+    ("a", "yi-6b", (2, 2), 4, YI_MESH_LENGTHS, 4096, False),
+    ("b", "yi-6b", (1, 8), 4, YI_MESH_LENGTHS, 4096, False),
+    ("c", "yi-6b", (2, 2), 1, [8184], 8192, False),
+    ("b_int8", "yi-6b", (1, 8), 4, YI_MESH_LENGTHS, 4096, True),
+    ("zamba2", "zamba2-2.7b", (2, 2), 2, [310, 1030], 4096, False),
+]
+ARENA_REL_TOL = ATT_TOL[torch.bfloat16]   # of the arena's largest entry:
+# a K/V entry written a round later from a hidden state one bf16 rounding
+# apart; an absolute bound would be under one ulp of the largest entries
+# round 1's first island, mesh against mesh-free on the same inputs: both
+# sum in fp32 (in other orders) and round once to bf16, so an entry may
+# differ by one bf16 ulp of the larger (2^-7 of it, and ISLAND_ATOL near
+# 0, where the fp32 sums' own rounding is what is left); a stripe dropped
+# or counted twice moves entries by far more
+ISLAND_ULP = 2.0 ** -7
+ISLAND_ATOL = 1e-5
+
+
+def island_round1(cfg, geom, free, mesh, placed, glob, inputs, free_in,
+                  int8, dev):
+    """The first island of round 1 (layer 0's arena, or zamba2's first
+    shared application), the mesh island against the mesh-free one on
+    the same seeded q / k / v [b, h | kh, hd] (bf16) and the round's page
+    inputs, each on the copy of that layer's arena (and scales) taken
+    before round 1, which it writes: the largest difference in units of
+    ISLAND_ULP * max(|a|, |b|) + ISLAND_ATOL (<= 1 passes), the largest
+    absolute one and the largest entry. Its kernel calls count on no
+    path: the launch counts are put back as they were."""
+    key = "arena" if "arena" in glob else "shared_arena"
+    b, h, kh, hd = geom.batch, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    q, k_new, v_new = (torch.randn((b, n, hd), generator=g, device=dev)
+                       .to(cfg.dtype) for n in (h, kh, kh))
+    kw = dict(scale=hd ** -0.5, quant=int8)
+    args_m = [placed[key].layer(0), inputs["pt"], inputs["blk_start"],
+              inputs["lengths"], inputs["write_rows"], inputs["write_off"]]
+    args_f = [glob[key][0], free_in["pt"], free_in["blk_start"],
+              free_in["lengths"], free_in["write_rows"],
+              free_in["write_off"]]
+    if int8:
+        args_m.append(placed[key + "_scale"].layer(0))
+        args_f.append(glob[key + "_scale"][0])
+    counts = dict(_build.launches)
+    a = PG.make_paged_island(geom, mesh, **kw)(q, k_new, v_new, *args_m)[0]
+    c = PG.make_paged_island(free, None, **kw)(q, k_new, v_new, *args_f)[0]
+    sync()
+    _build.launches.update(counts)   # a comparison: no path's launches
+    a, c = a.float(), c.float()
+    diff = (a - c).abs()
+    ulps = diff / (ISLAND_ULP * torch.maximum(a.abs(), c.abs())
+                   + ISLAND_ATOL)
+    return float(ulps.max()), float(diff.max()), float(c.abs().max())
+
+
+def mesh_pool(geom, dev, seed):
+    """The mesh's page table [b, stripe_total, nblk_local]: every block of
+    every slot gets a row of its (batch shard, stripe) shard, in a seeded
+    random order."""
+    rng = np.random.default_rng(seed)
+    st, cl, bl = geom.stripe_total, geom.cap_local, geom.batch_local
+    free = [list(rng.permutation(cl)) for _ in range(geom.cap // cl)]
+    pt = np.full((geom.batch, st, geom.nblk_local), -1, np.int32)
+    for i in range(geom.batch):
+        for j in range(geom.nblk):
+            pt[i, j % st, j // st] = free[(i // bl) * st + j % st].pop()
+    return torch.from_numpy(pt).to(dev)
+
+
+def serve_mesh_case(card, dev, params, cfg, name, mshape, b, lengths, seq,
+                    int8, want, atol):
+    """One case: the mesh step and the mesh-free step from the same params
+    and pool, MESH_ROUNDS rounds teacher-forced on the mesh-free step's
+    tokens; each round's logits within ``atol`` (the arch's serve phase's
+    bound), greedy tokens equal wherever the mesh-free top-2 gap exceeds
+    it, the bf16 arenas joined back within ARENA_REL_TOL of their largest
+    entry at the end; and round 1's first island held within one bf16 ulp
+    of the mesh-free island on the same inputs (:func:`island_round1`).
+    Adds the paged launches the two steps make to ``want``."""
+    if int8:
+        cfg = dataclasses.replace(cfg, kv_quant_int8=True)
+    n = int(np.prod(mshape))
+    with MESH.force_device_count(n):
+        mesh = MESH.make_debug_mesh(*mshape)
+    if any(d != dev for d in mesh.devices.flat):
+        raise AssertionError(f"serve_mesh {name}: a coordinate is not on "
+                             f"{dev}: {list(mesh.devices.flat)}")
+    geo = dict(batch=b, seq_len=seq, kv_heads=cfg.n_kv_heads,
+               head_dim=cfg.head_dim, q_heads=cfg.n_heads, block=MESH_BLOCK)
+    geom = PG.plan_geometry(mesh=mesh, **geo)
+    free = PG.plan_geometry(**geo)
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)   # weights, held engines
+    glob = SE.init_serve_state(cfg, free, free.cap, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    for key in ("arena", "shared_arena"):
+        if key not in glob:
+            continue
+        kv = torch.randn(glob[key][:, :free.cap].shape, generator=g,
+                         device=dev)
+        if int8:
+            qv, sc = PG.quantize_kv(kv)
+            glob[key][:, :free.cap] = qv
+            glob[key + "_scale"][:, :free.cap] = sc
+        else:
+            glob[key][:, :free.cap] = kv.to(glob[key].dtype)
+        del kv
+    placed = SE.place_state(glob, geom, mesh)
+    mesh_step = SE.make_serve_step(cfg, geom, mesh)
+    free_step = SE.make_serve_step(cfg, free)
+    pt = mesh_pool(geom, dev, SEED + len(name))
+    pt_free = PG.global_page_table(geom, pt)[:, None]
+    bs = torch.from_numpy(PG.build_blk_start(geom)).to(dev)
+    bs_free = torch.from_numpy(PG.build_blk_start(free)).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab, b).astype(np.int32)).to(dev)
+    before = dict(_build.launches)
+    mesh_ms, free_ms, errs, scale, flips, near = [], [], [], [], 0, 0
+    first = None   # round 1's inputs and the first island's arena copies
+    for _ in range(MESH_ROUNDS):
+        active = lens < seq
+        wr = PG.mesh_write_rows(geom, pt, lens, active)
+        inputs = {"tokens": tokens, "lengths": lens,
+                  "write_off": lens % MESH_BLOCK, "pt": pt,
+                  "blk_start": bs, "write_rows": wr}
+        free_in = dict(inputs, pt=pt_free, blk_start=bs_free,
+                       write_rows=PG.global_write_rows(geom, wr))
+        if first is None:
+            key = "arena" if "arena" in glob else "shared_arena"
+            keys = (key, key + "_scale") if int8 else (key,)
+            first = (dict(inputs), dict(free_in),
+                     {k: PG.Shards({c: t[:1].clone() for c, t in
+                                    placed[k].items()}) for k in keys},
+                     {k: glob[k][:1].clone() for k in keys})
+        sync()
+        t0 = time.perf_counter()
+        nxt_m, _, lg_m = mesh_step(params, placed, inputs)
+        sync()
+        t1 = time.perf_counter()
+        nxt_f, _, lg_f = free_step(params, glob, free_in)
+        sync()
+        mesh_ms.append((t1 - t0) * 1e3)
+        free_ms.append((time.perf_counter() - t1) * 1e3)
+        live = active.cpu()
+        a, c = lg_m[:, :cfg.vocab].float().cpu(), lg_f[:, :cfg.vocab].float().cpu()
+        errs.append(float((a - c).abs()[live].max()))
+        top2 = c.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1])
+        differ = (nxt_m.cpu() != nxt_f.cpu()) & live
+        near += int((differ & (gap <= atol)).sum())
+        flips += int((differ & (gap > atol)).sum())
+        scale.append(float(c[live].std()))
+        tokens = torch.where(active, nxt_f, 0).to(torch.int32)
+        lens = lens + active.to(torch.int32)
+    launched = {k: v - before[k] for k, v in _build.launches.items()
+                if v != before[k]}
+    isl_ulps, isl_diff, isl_max = island_round1(
+        cfg, geom, free, mesh, first[2], first[3], first[0], first[1], int8,
+        dev)
+    first = None
+    joined = SE.join_state(placed, geom, mesh)
+    arena_err = {k: float((joined[k].float() - glob[k][:, :free.cap]
+                           .float()).abs().max()) / float(
+                               glob[k][:, :free.cap].float().abs().max())
+                 for k in ("arena", "shared_arena", "arena_scale",
+                           "shared_arena_scale") if k in joined}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    apps = (TF.n_attn_layers(cfg) + (cfg.n_shared_applications()
+                                     if cfg.shared_attn_every else 0))
+    coords = len(PG.coordinates(geom, mesh))
+    # pages of 256 launch paged_wide_kernel: with the lse where stripes
+    # are combined, else (head-sharded coordinates, the mesh-free step)
+    # with an output of q's dtype
+    form = "paged_attention_lse" if geom.stripe_total > 1 \
+        else "paged_attention_wide"
+    mine = {form: MESH_ROUNDS * apps * coords}
+    mine["paged_attention_wide"] = mine.get("paged_attention_wide", 0) \
+        + MESH_ROUNDS * apps
+    report = {
+        "phase": "serve_mesh", "case": name, "card": card, "arch": cfg.name,
+        "mesh": mesh.shape, "distinct_devices": len(set(mesh.devices.flat)),
+        "slots": b, "pool_lengths": lengths, "seq": seq,
+        "block": MESH_BLOCK, "int8_arena": int8,
+        "geometry": {"batch_axes": geom.batch_axes,
+                     "head_axes": geom.head_axes,
+                     "stripe_axes": geom.stripe_axes,
+                     "stripe_total": geom.stripe_total,
+                     "nblk_local": geom.nblk_local,
+                     "cap_local": geom.cap_local},
+        "rounds": MESH_ROUNDS, "round_ms_p50": p50(mesh_ms),
+        "mesh_free_round_ms_p50": p50(free_ms), "round_ms": mesh_ms,
+        "logit_max_abs_diff": max(errs), "logit_bound": atol,
+        "logit_max_abs_diff_by_round": errs,
+        "round1_island_max_ulps": isl_ulps,
+        "round1_island_max_abs_diff": isl_diff,
+        "round1_island_max_abs": isl_max,
+        "round1_island_bound": {"ulp": ISLAND_ULP, "atol": ISLAND_ATOL},
+        "mesh_free_logit_std": max(scale),
+        "token_flips_beyond_bound": flips, "token_flips_near_tie": near,
+        "arena_max_rel_diff": arena_err, "arena_rel_tol": ARENA_REL_TOL,
+        "peak_gb": peak,
+        "resident_gb_at_start": resident / 1e9,
+        "launches": launched, "launches_expected": mine}
+    emit(report)
+    if launched != mine:
+        raise AssertionError(f"serve_mesh {name}: launches {launched}, "
+                             f"expected {mine}")
+    if not isl_ulps <= 1.0:
+        raise AssertionError(f"serve_mesh {name}: round 1's first island "
+                             f"differs from the mesh-free one by "
+                             f"{isl_ulps} bf16 ulps ({isl_diff})")
+    if not (max(errs) <= atol and flips == 0):
+        raise AssertionError(f"serve_mesh {name}: logits {max(errs)} / "
+                             f"{flips} flips against the mesh-free step")
+    if not int8 and not max(arena_err.values()) <= ARENA_REL_TOL:
+        raise AssertionError(f"serve_mesh {name}: arenas {arena_err}")
+    for k, v in mine.items():
+        want[k] = want.get(k, 0) + v
+    del placed, glob
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_mesh(card, dev, held, bounds):
+    """The serving mesh at full width (MESH_CASES): yi-6b's weights for
+    its four cases, then zamba2-2.7b's; each case against the mesh-free
+    step on the same card, within ``bounds[arch]``, the logit bound the
+    arch's serve phase held (yi-6b's fixed 0.05; zamba2's measured in the
+    same call)."""
+    want = held["want"] = dict.fromkeys(_build.KERNELS, 0)
+    params, arch = None, None
+    for name, a, mshape, b, lengths, seq, int8 in MESH_CASES:
+        if a != arch:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg = configs.get_config(a)
+            params = TF.init_model(
+                torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+            arch = a
+        serve_mesh_case(card, dev, params, cfg, name, mshape, b, lengths,
+                        seq, int8, want, bounds[a])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# --------------------------------- phase: sequence-parallel attention
+SEQPAR_LOSS_TOL = 1e-3    # relative
+SEQPAR_NORM_TOL = 1e-2    # relative, each gradient leaf's norm: the K/V
+# gradients are summed over the four query slices' backward calls
+
+
+def phase_train_seqpar(card, dev, held):
+    """gemma2-2b at full width, one training step (b 1, s 8,192, remat
+    full) with ``attn_seq_shard`` over a 'model' axis of 4 entries
+    (cuda:0 repeated) against the same step without the mesh: the loss
+    and each gradient leaf's norm; the step times and peak memory."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import sharding as SHD
+    from repro_torch.training.loop import to_device
+    cfg = configs.get_config("gemma2-2b")
+    params = TF.init_model(torch.Generator(device=dev).manual_seed(SEED),
+                           cfg, dev)
+    batch = to_device(make_batch(cfg, 1, 8192, seed=SEED), dev)
+    flat = tree_leaves(params)
+    names = list(_flat_names(params))
+    with MESH.force_device_count(4):
+        mesh = MESH.make_mesh((4,), ("model",))
+    if any(d != dev for d in mesh.devices.flat):
+        raise AssertionError(f"train_seqpar: a coordinate is not on {dev}: "
+                             f"{list(mesh.devices.flat)}")
+
+    def step(c, m):
+        for x in flat:
+            x.requires_grad_(True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        sync()
+        t0 = time.perf_counter()
+        with SHD.axis_rules(SHD.DEFAULT_RULES if m is not None else None, m):
+            loss, _ = TF.train_loss(params, c, batch, remat="full")
+            grads = torch.autograd.grad(loss, flat)
+        sync()
+        dt = time.perf_counter() - t0
+        for x in flat:
+            x.requires_grad_(False)
+        norms = [float(gr.float().norm()) for gr in grads]
+        return float(loss.detach()), norms, dt, torch.cuda.max_memory_allocated(
+            dev) / 1e9
+
+    def launched(fn):
+        before = dict(_build.launches)
+        out = fn()
+        return out, {k: v - before[k] for k, v in _build.launches.items()
+                     if v != before[k]}
+    base, base_launch = launched(lambda: step(cfg, None))
+    shard, shard_launch = launched(lambda: step(
+        dataclasses.replace(cfg, attn_seq_shard=True), mesh))
+    rel = {n: abs(a - b) / max(b, 1e-30)
+           for n, a, b in zip(names, shard[1], base[1])}
+    loss_rel = abs(shard[0] - base[0]) / abs(base[0])
+    emit({"phase": "train_seqpar", "card": card, "arch": "gemma2-2b",
+          "layers": cfg.n_layers, "batch": 1, "seq": 8192, "remat": "full",
+          "mesh": mesh.shape, "loss_mesh": shard[0], "loss_mesh_free":
+          base[0], "loss_rel_diff": loss_rel, "loss_tol": SEQPAR_LOSS_TOL,
+          "grad_norm_rel_diff_max": max(rel.values()),
+          "grad_norm_tol": SEQPAR_NORM_TOL, "step_s_mesh": shard[2],
+          "step_s_mesh_free": base[2], "peak_gb_mesh": shard[3],
+          "peak_gb_mesh_free": base[3], "launches_mesh": shard_launch,
+          "launches_mesh_free": base_launch})
+    # the mesh splits every flash launch of the step (the forward, its
+    # recompute under remat and the three backward kernels) into 4
+    once = {k: v for k, v in train_launches(cfg, "full", 1).items() if v}
+    expect = {k: 4 * v for k, v in once.items()}
+    if shard_launch != expect or base_launch != once:
+        raise AssertionError(f"train_seqpar: launches {shard_launch} / "
+                             f"{base_launch}, expected {expect} / {once}")
+    if not (loss_rel <= SEQPAR_LOSS_TOL
+            and max(rel.values()) <= SEQPAR_NORM_TOL):
+        raise AssertionError(f"train_seqpar: loss {loss_rel}, gradient "
+                             f"norms {max(rel.values())}")
+    held["want"] = dict(dict.fromkeys(_build.KERNELS, 0),
+                        **{k: v + once[k] for k, v in expect.items()})
+    del params, batch, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------- main
 
 SOURCES = {
@@ -4841,6 +5540,18 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:28"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:27"),
+    # the same kernel's block-256 form (paged_wide_kernel, no block
+    # starts, no lse): the mesh-free steps and head-sharded coordinates
+    # of serve_mesh
+    "paged_attention_wide": ("src/repro_torch/csrc/paged_attention.cu",
+                             "src/repro/kernels/paged_attention.py:27"),
+    # the same kernel's striped call form (block starts and the rows'
+    # log-sum-exp): the mesh island's attention over its stripe, whose
+    # reference is the island's jnp body and combine
+    "paged_attention_lse": ("src/repro_torch/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:27 (the "
+                            "mesh island's stripes: src/repro/serving/"
+                            "paged.py:228-240)"),
     "mamba2_scan": ("src/repro_torch/csrc/mamba_scan.cu",
                     "src/repro/kernels/mamba_scan.py:23"),
 }
@@ -4886,6 +5597,8 @@ def main():
     zamba: dict = {}
     int8_yi: dict = {}
     int8_zamba: dict = {}
+    mesh_held: dict = {}
+    seqpar_held: dict = {}
     # the kv table has no payload, so the serve paths' DELETEs take the
     # mask-only route (the scan, no compaction), as in the reference
     serve_need = ("flash_attention", "paged_attention", "relscan_scan")
@@ -4926,6 +5639,14 @@ def main():
             long_prompt=ZAMBA_LONG_PROMPT, name="serve_int8_zamba2",
             atol=None, bf16=zamba),
          serve_need + ("mamba2_scan",)),
+        # the serving mesh over repeated cuda:0, and sequence-parallel
+        # attention in a training step
+        ("serve_mesh", lambda: phase_serve_mesh(
+            card, dev, mesh_held, {"yi-6b": serve["atol"],
+                                   "zamba2-2.7b": zamba["atol"]}),
+         ("paged_attention_wide", "paged_attention_lse")),
+        ("train_seqpar", lambda: phase_train_seqpar(card, dev, seqpar_held),
+         FLASH_TRAIN),
         ("table2_plain", lambda: phase_table2(card, "plain", ""),
          scan_compact),
         ("table2_indexed", lambda: phase_table2(
@@ -4960,6 +5681,7 @@ def main():
                                  f"path: {missing} ({got})")
         held = {"serve": serve, "serve_zamba2": zamba, "serve_int8": int8_yi,
                 "serve_int8_zamba2": int8_zamba, "train": trained,
+                "serve_mesh": mesh_held, "train_seqpar": seqpar_held,
                 **new}.get(path)
         if held is not None:  # one launch per layer per prefill / round /
             # training step (and recompute)

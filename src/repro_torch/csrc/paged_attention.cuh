@@ -39,8 +39,13 @@
 // Design (flash-decoding, one launch):
 //   * Grid (kv head, sequence, split): a split is 64 positions of whole
 //     pages (pa_pages_per_split, from block alone), so a long sequence's
-//     pages are spread over CTAs. The grid comes from nblk, which the host
-//     knows; lengths stay on the device, so the step needs no sync.
+//     pages are spread over CTAs; a page longer than 64 positions whose
+//     length is a multiple of 64 (the serving mesh's block 256) is cut
+//     into 64-position parts, a split each (pa_splits_per_page), so that a
+//     split's K/V tile stays 64 rows (at block 256 as whole pages, hd 128
+//     fp32 or hd 256 bf16 would ask 266 KB of shared memory). The grid
+//     comes from nblk, which the host knows; lengths stay on the device,
+//     so the step needs no sync.
 //   * Every CTA of a sequence reads lengths and the sequence's page ids and
 //     finds the same splits with a visible position (a page present, not
 //     past lengths[b], not older than the window). A split with none exits
@@ -65,6 +70,31 @@
 //     and wraps the counter back to 0 in the same operation, so no call
 //     clears it and a graph replay finds it at 0. Only splits that saw
 //     something write partials or count.
+//
+// Block starts and the log-sum-exp (the serving mesh's striped call form,
+// serving/paged.py's island over a device mesh; the reference's island is
+// src/repro/serving/paged.py:208-277, whose shard_map body attends its
+// stripe's pages at their global positions and combines the stripes'
+// softmax statistics with pmax / psum, :235-240). Both are optional and
+// null on every earlier call, which launches paged_split_kernel, the
+// earlier kernel with its parameters; a call with either (or with pages
+// cut into parts, below) launches paged_wide_kernel, the same body with
+// the new code compiled in (pa_body<WIDE>):
+//   * blk_start [b, nblk] int32: the global position of page j's first
+//     token (a stripe's pages are every stripe_total-th block of the
+//     sequence). The visibility test, the window and the scores' mask read
+//     it; a split's visible range [t0, t1) is the hull of its pages'
+//     visible ranges, positions inside it but outside a page's own range
+//     masked. It costs one more int of shared memory a page.
+//   * lse [b, h] fp32: log of the row's softmax sum in the scaled,
+//     softcapped score domain (m + log l, the self term folded in where it
+//     is given); the output is then fp32 too, a partial rounded once after
+//     the combine. The lse is written by the thread that writes the row's
+//     output: the
+//     only split that sees something, the merging split, or split 0 of a
+//     sequence that sees nothing, which writes -1e30 (the self score where
+//     the self term alone is visible), so that the stripes' combine weighs
+//     it exp(-1e30 - max) = 0 with no inf - inf.
 #pragma once
 
 #include "attention_common.cuh"
@@ -82,9 +112,44 @@ int pa_pages_per_split(int block) {
   return block >= PA_SPLIT_POSITIONS ? 1 : PA_SPLIT_POSITIONS / block;
 }
 
+// splits of one page: a page longer than a split whose length is a
+// multiple of it (block 256, the serving mesh's) is cut into
+// PA_SPLIT_POSITIONS-position parts, each a split of its own; else 1
+int pa_splits_per_page(int block) {
+  return block > PA_SPLIT_POSITIONS && block % PA_SPLIT_POSITIONS == 0
+             ? block / PA_SPLIT_POSITIONS
+             : 1;
+}
+
 int pa_nsplit(int block, int nblk) {
+  const int spp = pa_splits_per_page(block);
+  if (spp > 1) return nblk > 0 ? nblk * spp : 1;
   const int pps = pa_pages_per_split(block);
   return nblk > pps ? (nblk + pps - 1) / pps : 1;
+}
+
+// positions of one split, and the pages the page table spans in shared
+// memory (padded to whole splits)
+int pa_split_positions(int block) {
+  return pa_splits_per_page(block) > 1 ? PA_SPLIT_POSITIONS
+                                       : pa_pages_per_split(block) * block;
+}
+
+// the call form, which picks the kernel: PA_FORM_SPLIT (no block starts,
+// no lse, pages of at most a split: paged_split_kernel, the earlier
+// kernel), PA_FORM_WIDE (block starts or parts of a page, q's dtype out)
+// or PA_FORM_LSE (the lse and an fp32 output); both paged_wide_kernel
+constexpr int PA_FORM_SPLIT = 0, PA_FORM_WIDE = 1, PA_FORM_LSE = 2;
+
+int pa_form(int block, bool starts, bool with_lse) {
+  if (with_lse) return PA_FORM_LSE;
+  return starts || pa_splits_per_page(block) > 1 ? PA_FORM_WIDE
+                                                 : PA_FORM_SPLIT;
+}
+
+int pa_smem_pages(int block, int nsplit) {
+  const int spp = pa_splits_per_page(block);
+  return spp > 1 ? nsplit / spp : nsplit * pa_pages_per_split(block);
 }
 
 // bytes of one copy of a K/V row piece: 16, or the whole row when it is
@@ -98,17 +163,18 @@ __host__ __device__ constexpr int pa_piece_bytes() {
 // [g][np], l, m and the self score [g], the K and V scales [np] (int8);
 // then K [np][HD + one piece] and V [np][HD] in the arena's type; then
 // ints: the arena row of every page of the sequence (-1: missing or
-// nothing visible), the splits that see something
+// nothing visible), the splits that see something, and with block starts
+// every page's first position
 __host__ __device__ inline size_t pa_float_words(int g, int HD, int np) {
   return ((size_t)g * HD + (size_t)g * np + 3 * (size_t)g + 2 * (size_t)np + 3) & ~(size_t)3;
 }
 
 template <typename TA, int HD>
-size_t pa_smem_bytes(int g, int np, int nsplit, int pps) {
+size_t pa_smem_bytes(int g, int np, int nsplit, int npages, bool starts) {
   constexpr int EPC = pa_piece_bytes<TA, HD>() / (int)sizeof(TA);
   return sizeof(float) * pa_float_words(g, HD, np) +
          sizeof(TA) * ((size_t)np * (HD + EPC) + (size_t)np * HD) +
-         sizeof(int) * ((size_t)nsplit * pps + nsplit);
+         sizeof(int) * ((size_t)npages * (starts ? 2 : 1) + nsplit);
 }
 
 // one piece of a K or V row (EPC elements) as fp32
@@ -174,16 +240,34 @@ __device__ __forceinline__ void pa_self_scores(const float* qs, const T* ksp,
   }
 }
 
-template <typename T, typename TA, int HD>
-__global__ void __launch_bounds__(PA_THREADS)
-paged_split_kernel(const T* __restrict__ q, const TA* __restrict__ arena,
-                   const float* __restrict__ scales,
-                   const T* __restrict__ kself, const T* __restrict__ vself,
-                   const int32_t* __restrict__ pages,
-                   const int32_t* __restrict__ lengths, T* __restrict__ out,
-                   float* __restrict__ part, unsigned int* __restrict__ counters,
-                   int h, int kh, int cap, int block, int nblk, int pps,
-                   float scale, float softcap, int window) {
+// whether the part of page p from offset off, n positions long, holds a
+// visible position (its row kept by the page filter; the window and
+// length bound the part itself)
+__device__ __forceinline__ bool pa_part_seen(const int* prow, const int* pstart,
+                                             bool starts, int p, int off, int n,
+                                             int block, int len, int lo) {
+  const int st = (starts ? pstart[p] : p * block) + off;
+  return prow[p] >= 0 && st < len && st + n > lo;
+}
+
+// The kernel's body. WIDE: the form that reads block starts, writes the
+// lse and cuts pages into parts (paged_wide_kernel); the earlier call
+// form (none of the three) is paged_split_kernel, with the earlier
+// kernel's parameters, where all of it folds away, so that its code and
+// time stay the earlier ones. TO: the output's type, fp32 where the lse is
+// asked for (a partial that the stripes' combine reads, rounded once
+// after it, as the reference's fp32 partials are), else q's
+template <typename T, typename TA, int HD, bool WIDE, typename TO>
+__device__ __forceinline__ void
+pa_body(const T* __restrict__ q, const TA* __restrict__ arena,
+        const float* __restrict__ scales, const T* __restrict__ kself,
+        const T* __restrict__ vself, const int32_t* __restrict__ pages,
+        const int32_t* __restrict__ lengths,
+        const int32_t* __restrict__ blk_start, TO* __restrict__ out,
+        float* __restrict__ lse, float* __restrict__ part,
+        unsigned int* __restrict__ counters, int h, int kh, int cap,
+        int block, int nblk, int pps, int spp_arg, float scale,
+        float softcap, int window) {
   constexpr bool QUANT = sizeof(TA) == 1;
   constexpr int PB = pa_piece_bytes<TA, HD>();
   constexpr int EPC = PB / (int)sizeof(TA);  // elements of one piece
@@ -193,7 +277,13 @@ paged_split_kernel(const T* __restrict__ q, const TA* __restrict__ arena,
   const int g = h / kh;
   const int kvh = blockIdx.x, bb = blockIdx.y, split = blockIdx.z;
   const int nsplit = gridDim.z;
-  const int np = pps * block, pos0 = split * np;
+  const int spp = WIDE ? spp_arg : 1;
+  // a split: pps whole pages (spp 1), or the part soff.. of page pg0
+  const int np = spp > 1 ? block / spp : pps * block, pos0 = split * np;
+  const int pg0 = spp > 1 ? split / spp : split * pps;
+  const int soff = spp > 1 ? (split % spp) * np : 0;
+  const int npages = spp > 1 ? nsplit / spp : nsplit * pps;
+  const int span = spp > 1 ? np : block;  // positions of a page in a split
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
@@ -205,8 +295,10 @@ paged_split_kernel(const T* __restrict__ q, const TA* __restrict__ arena,
   float* vsc = ksc + np;
   TA* ks = reinterpret_cast<TA*>(qs + pa_float_words(g, HD, np));  // 16-byte aligned
   TA* vs = ks + np * KLD;
-  int* prow = reinterpret_cast<int*>(vs + np * HD);  // [nsplit * pps]
-  int* nzl = prow + nsplit * pps;                    // [nsplit]
+  int* prow = reinterpret_cast<int*>(vs + np * HD);  // [npages]
+  int* nzl = prow + npages;                          // [nsplit]
+  int* pstart = nzl + nsplit;  // [npages], with block starts only
+  const bool starts = WIDE && blk_start != nullptr;
   __shared__ int s_nnz, s_last;
 
   // the sequence's page table: every CTA of it finds the same splits
@@ -215,9 +307,13 @@ paged_split_kernel(const T* __restrict__ q, const TA* __restrict__ arena,
   const int lo = window > 0 ? max(0, len - window + 1) : 0;  // first visible
   // the self term: given, and the sequence attends (lengths >= 0)
   const bool self_on = kself != nullptr && len >= 0;
-  for (int p = tid; p < nsplit * pps; p += PA_THREADS) {
+  for (int p = tid; p < npages; p += PA_THREADS) {
     int row = p < nblk ? pages[(size_t)bb * nblk + p] : -1;
-    const int start = p * block;
+    int start = p * block;
+    if constexpr (WIDE) if (starts) {
+      start = p < nblk ? blk_start[(size_t)bb * nblk + p] : 0;
+      pstart[p] = start;
+    }
     if (row >= cap || start >= len || start + block <= lo) row = -1;
     prow[p] = row;
   }
@@ -231,41 +327,64 @@ paged_split_kernel(const T* __restrict__ q, const TA* __restrict__ arena,
     for (int j0 = 0; j0 < nsplit; j0 += 32) {
       const int j = j0 + lane;
       bool seen = false;
-      for (int k = 0; j < nsplit && k < pps; ++k) seen |= prow[j * pps + k] >= 0;
+      if (spp > 1 && j < nsplit)
+        seen = pa_part_seen(prow, pstart, starts, j / spp, (j % spp) * np, np, block, len, lo);
+      for (int k = 0; spp == 1 && j < nsplit && k < pps; ++k) seen |= prow[j * pps + k] >= 0;
       const unsigned mask = __ballot_sync(ATT_FULL, seen);
       if (seen) nzl[nnz + __popc(mask & ((1u << lane) - 1))] = j;
       nnz += __popc(mask);
     }
     if (lane == 0) s_nnz = nnz;
   }
-  const int* rows = prow + split * pps;
+  const int* rows = prow + pg0;
   bool any = false;
-  for (int k = 0; k < pps; ++k) any |= rows[k] >= 0;
-  T* op = out + ((size_t)bb * h + (size_t)kvh * g) * HD;
+  if (spp > 1)
+    any = pa_part_seen(prow, pstart, starts, pg0, soff, np, block, len, lo);
+  for (int k = 0; spp == 1 && k < pps; ++k) any |= rows[k] >= 0;
+  TO* op = out + ((size_t)bb * h + (size_t)kvh * g) * HD;
+  float* lsep = !WIDE || lse == nullptr ? nullptr : lse + (size_t)bb * h + (size_t)kvh * g;
   if (!any) {  // split 0 writes a sequence that sees no pool position
     __syncthreads();
-    if (split == 0 && s_nnz == 0)  // the self term alone, or nothing: 0
+    if (split == 0 && s_nnz == 0) {  // the self term alone, or nothing: 0
       for (int i = tid; i < g * HD; i += PA_THREADS)
         att_store(op + i, self_on ? att_load(vself + self_off + i % HD) : 0.f);
+      if (lsep != nullptr) {  // the self score, or nothing: -1e30
+        if (self_on) {
+          pa_self_scores<T, HD>(qs, kself + self_off, sself, g, softcap, warp, lane);
+          __syncthreads();
+        }
+        for (int r = tid; r < g; r += PA_THREADS) lsep[r] = self_on ? sself[r] : ATT_NEG_INF;
+      }
+    }
     return;
   }
   if (self_on) pa_self_scores<T, HD>(qs, kself + self_off, sself, g, softcap, warp, lane);
 
   // the split's visible positions lie in [t0, t1); K and V rows of its
   // pages, all copies in flight at once (missing pages zeroed), and the
-  // int8 rows' scales
-  const int t0 = max(0, lo - pos0), t1 = min(np, len - pos0);
+  // int8 rows' scales. With block starts: the hull of its pages' ranges
+  int t0 = max(0, lo - pos0), t1 = min(np, len - pos0);
+  if constexpr (WIDE) if (starts) {
+    t0 = np;
+    t1 = 0;
+    for (int k = 0; k < (spp > 1 ? 1 : pps); ++k) {
+      if (rows[k] < 0) continue;
+      const int st = pstart[pg0 + k] + soff;
+      t0 = min(t0, k * block + max(0, lo - st));
+      t1 = max(t1, k * block + min(span, len - st));
+    }
+  }
   for (int i = tid; i < (t1 - t0) * CPR; i += PA_THREADS) {
     const int t = t0 + i / CPR, e = (i % CPR) * EPC;
     const int row = rows[t / block];
-    const size_t kk = ((((size_t)max(row, 0) * 2) * block + t % block) * kh + kvh) * HD + e;
+    const size_t kk = ((((size_t)max(row, 0) * 2) * block + soff + t % block) * kh + kvh) * HD + e;
     pa_cp<PB>(ks + t * KLD + e, arena + kk, row >= 0);
     pa_cp<PB>(vs + t * HD + e, arena + kk + (size_t)block * kh * HD, row >= 0);
   }
   if (QUANT) {
     for (int t = t0 + tid; t < t1; t += PA_THREADS) {
       const int row = rows[t / block];
-      const size_t si = (((size_t)max(row, 0) * 2) * block + t % block) * kh + kvh;
+      const size_t si = (((size_t)max(row, 0) * 2) * block + soff + t % block) * kh + kvh;
       ksc[t] = row >= 0 ? scales[si] : 0.f;
       vsc[t] = row >= 0 ? scales[si + (size_t)block * kh] : 0.f;
     }
@@ -304,7 +423,7 @@ paged_split_kernel(const T* __restrict__ q, const TA* __restrict__ arena,
     float sc = s0 + s1;
     for (int o = LG / 2; o > 0; o >>= 1) sc += __shfl_xor_sync(ATT_FULL, sc, o);
     if (p < pairs && part_i == 0) {
-      const int pos = pos0 + t;
+      const int pos = starts ? pstart[pg0 + t / block] + soff + t % block : pos0 + t;
       const bool ok = rows[t / block] >= 0 && pos < len && pos >= lo;
       if (QUANT) sc *= ksc[t];
       ps[r * np + t] = ok ? att_softcap(sc, softcap) : ATT_NEG_INF;
@@ -373,6 +492,11 @@ paged_split_kernel(const T* __restrict__ q, const TA* __restrict__ arena,
           c1 = expf(sself[r] - mn);
         }
         const float il = 1.f / fmaf(ltot[r], c0, c1);
+        if constexpr (WIDE) {
+          if (lsep != nullptr && c == 0)
+            lsep[r] = (self_on ? fmaxf(mtot[r], sself[r]) : mtot[r]) +
+                      logf(fmaf(ltot[r], c0, c1));
+        }
 #pragma unroll
         for (int k = 0; k < EPC; ++k) {
           const int d = c * EPC + k;
@@ -429,9 +553,11 @@ paged_split_kernel(const T* __restrict__ q, const TA* __restrict__ arena,
       a.y *= c0;
       a.z *= c0;
       a.w *= c0;
+      if constexpr (WIDE) m = mn;
     }
     const float il = 1.f / l;
-    T* o = op + i * 4;
+    if (lsep != nullptr && i % Q4 == 0) lsep[r] = m + logf(l);
+    TO* o = op + i * 4;
     att_store(o, (a.x + vn[0]) * il);
     att_store(o + 1, (a.y + vn[1]) * il);
     att_store(o + 2, (a.z + vn[2]) * il);
@@ -440,35 +566,108 @@ paged_split_kernel(const T* __restrict__ q, const TA* __restrict__ arena,
 }
 
 template <typename T, typename TA, int HD>
+__global__ void __launch_bounds__(PA_THREADS)
+paged_split_kernel(const T* __restrict__ q, const TA* __restrict__ arena,
+                   const float* __restrict__ scales,
+                   const T* __restrict__ kself, const T* __restrict__ vself,
+                   const int32_t* __restrict__ pages,
+                   const int32_t* __restrict__ lengths, T* __restrict__ out,
+                   float* __restrict__ part, unsigned int* __restrict__ counters,
+                   int h, int kh, int cap, int block, int nblk, int pps,
+                   float scale, float softcap, int window) {
+  pa_body<T, TA, HD, false, T>(q, arena, scales, kself, vself, pages, lengths,
+                               nullptr, out, nullptr, part, counters, h, kh,
+                               cap, block, nblk, pps, 1, scale, softcap,
+                               window);
+}
+
+template <typename T, typename TA, int HD, typename TO>
+__global__ void __launch_bounds__(PA_THREADS)
+paged_wide_kernel(const T* __restrict__ q, const TA* __restrict__ arena,
+                  const float* __restrict__ scales,
+                  const T* __restrict__ kself, const T* __restrict__ vself,
+                  const int32_t* __restrict__ pages,
+                  const int32_t* __restrict__ lengths,
+                  const int32_t* __restrict__ blk_start, TO* __restrict__ out,
+                  float* __restrict__ lse, float* __restrict__ part,
+                  unsigned int* __restrict__ counters, int h, int kh, int cap,
+                  int block, int nblk, int pps, int spp, float scale,
+                  float softcap, int window) {
+  pa_body<T, TA, HD, true, TO>(q, arena, scales, kself, vself, pages, lengths,
+                               blk_start, out, lse, part, counters, h, kh,
+                               cap, block, nblk, pps, spp, scale, softcap,
+                               window);
+}
+
+template <typename T, typename TA, int HD, typename TO>
+int launch_form(bool wide, const void* q, const void* arena,
+                const void* scales, const void* kself, const void* vself,
+                const void* pages, const void* lengths, const void* blk_start,
+                void* out, void* lse, void* part, void* counters, int b, int h,
+                int kh, int cap, int block, int nblk, float scale,
+                float softcap, int window, cudaStream_t stream) {
+  const int pps = pa_pages_per_split(block), spp = pa_splits_per_page(block);
+  const int nsplit = pa_nsplit(block, nblk);
+  const size_t smem = pa_smem_bytes<TA, HD>(h / kh, pa_split_positions(block), nsplit,
+                                            pa_smem_pages(block, nsplit),
+                                            blk_start != nullptr);
+  const dim3 grid(kh, b, nsplit);
+  cudaError_t err;
+  if (wide) {
+    err = att_smem_attr(paged_wide_kernel<T, TA, HD, TO>, smem);
+    if (err != cudaSuccess) return (int)err;
+    paged_wide_kernel<T, TA, HD, TO><<<grid, PA_THREADS, smem, stream>>>(
+        (const T*)q, (const TA*)arena, (const float*)scales, (const T*)kself,
+        (const T*)vself, (const int32_t*)pages, (const int32_t*)lengths,
+        (const int32_t*)blk_start, (TO*)out, (float*)lse, (float*)part,
+        (unsigned int*)counters, h, kh, cap, block, nblk, pps, spp, scale,
+        softcap, window);
+  } else {
+    err = att_smem_attr(paged_split_kernel<T, TA, HD>, smem);
+    if (err != cudaSuccess) return (int)err;
+    paged_split_kernel<T, TA, HD><<<grid, PA_THREADS, smem, stream>>>(
+        (const T*)q, (const TA*)arena, (const float*)scales, (const T*)kself,
+        (const T*)vself, (const int32_t*)pages, (const int32_t*)lengths,
+        (T*)out, (float*)part, (unsigned int*)counters, h, kh, cap, block,
+        nblk, pps, scale, softcap, window);
+  }
+  return (int)cudaGetLastError();
+}
+
+// the call form picks the instantiation: the lse (an fp32 output), block
+// starts or parts of a page (WIDE), or none of them (the earlier kernel)
+template <typename T, typename TA, int HD>
 int launch(const void* q, const void* arena, const void* scales,
            const void* kself, const void* vself, const void* pages,
-           const void* lengths, void* out, void* part, void* counters, int b,
-           int h, int kh, int cap, int block, int nblk, float scale,
-           float softcap, int window, cudaStream_t stream) {
-  const int pps = pa_pages_per_split(block), nsplit = pa_nsplit(block, nblk);
-  const size_t smem = pa_smem_bytes<TA, HD>(h / kh, pps * block, nsplit, pps);
-  cudaError_t err = att_smem_attr(paged_split_kernel<T, TA, HD>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(kh, b, nsplit);
-  paged_split_kernel<T, TA, HD><<<grid, PA_THREADS, smem, stream>>>(
-      (const T*)q, (const TA*)arena, (const float*)scales, (const T*)kself,
-      (const T*)vself, (const int32_t*)pages, (const int32_t*)lengths, (T*)out,
-      (float*)part, (unsigned int*)counters, h, kh, cap, block, nblk, pps,
-      scale, softcap, window);
-  return (int)cudaGetLastError();
+           const void* lengths, const void* blk_start, void* out, void* lse,
+           void* part, void* counters, int b, int h, int kh, int cap,
+           int block, int nblk, float scale, float softcap, int window,
+           cudaStream_t stream) {
+#define PA_FORM(WIDE, TO)                                                      \
+  launch_form<T, TA, HD, TO>(WIDE, q, arena, scales, kself, vself, pages,      \
+                             lengths, blk_start, out, lse, part, counters, b,  \
+                             h, kh, cap, block, nblk, scale, softcap, window,  \
+                             stream)
+  switch (pa_form(block, blk_start != nullptr, lse != nullptr)) {
+    case PA_FORM_LSE: return PA_FORM(true, float);
+    case PA_FORM_WIDE: return PA_FORM(true, T);
+    default: return PA_FORM(false, T);
+  }
+#undef PA_FORM
 }
 
 template <typename T, typename TA>
 int dispatch_hd(const void* q, const void* arena, const void* scales,
                 const void* kself, const void* vself, const void* pages,
-                const void* lengths, void* out, void* part, void* counters,
-                int b, int h, int kh, int hd, int cap, int block, int nblk,
-                float scale, float softcap, int window, cudaStream_t s) {
+                const void* lengths, const void* blk_start, void* out,
+                void* lse, void* part, void* counters, int b, int h, int kh,
+                int hd, int cap, int block, int nblk, float scale,
+                float softcap, int window, cudaStream_t s) {
 #define PA_CASE(HD)                                                            \
   case HD:                                                                     \
     return launch<T, TA, HD>(q, arena, scales, kself, vself, pages, lengths,   \
-                             out, part, counters, b, h, kh, cap, block, nblk,  \
-                             scale, softcap, window, s);
+                             blk_start, out, lse, part, counters, b, h, kh,    \
+                             cap, block, nblk, scale, softcap, window, s);
   switch (hd) {
     PA_CASE(8) PA_CASE(16) PA_CASE(32) PA_CASE(64) PA_CASE(80) PA_CASE(128)
     PA_CASE(256)
@@ -483,10 +682,10 @@ int dispatch_hd(const void* q, const void* arena, const void* scales,
 template <bool QUANT>
 int pa_entry(const void* q, const void* arena, const void* scales,
              const void* kself, const void* vself, const void* pages,
-             const void* lengths, void* out, void* part, void* counters, int b,
-             int h, int kh, int hd, int cap, int block, int nblk, int dtype,
-             int arena_dtype, float scale, float softcap, int window,
-             void* stream) {
+             const void* lengths, const void* blk_start, void* out, void* lse,
+             void* part, void* counters, int b, int h, int kh, int hd, int cap,
+             int block, int nblk, int dtype, int arena_dtype, float scale,
+             float softcap, int window, void* stream) {
   if (b <= 0 || kh <= 0 || h % kh != 0 || block <= 0 || nblk < 0)
     return (int)cudaErrorInvalidValue;
   if (pa_nsplit(block, nblk) > 1 && (part == nullptr || counters == nullptr))
@@ -497,8 +696,8 @@ int pa_entry(const void* q, const void* arena, const void* scales,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define PA_ARGS                                                                \
-  q, arena, scales, kself, vself, pages, lengths, out, part, counters, b, h,   \
-      kh, hd, cap, block, nblk, scale, softcap, window, s
+  q, arena, scales, kself, vself, pages, lengths, blk_start, out, lse, part,  \
+      counters, b, h, kh, hd, cap, block, nblk, scale, softcap, window, s
   if constexpr (QUANT) {
     if (dtype == ATT_F32) return dispatch_hd<float, int8_t>(PA_ARGS);
     if (dtype == ATT_BF16) return dispatch_hd<__nv_bfloat16, int8_t>(PA_ARGS);

@@ -10,17 +10,20 @@
 // paged_attention's contract (paged_attention.cu) with an int8 arena:
 // arena_dtype 2, scales [cap, 2, block, kh] fp32 (one a row, k/v,
 // position and kv head), the arena 16-byte aligned (8 for hd 8); q fp32 or
-// bf16. Scratch sizes are paged_attention_scratch()'s.
+// bf16; blk_start and lse as there. Scratch sizes are
+// paged_attention_scratch()'s.
 REPRO_EXPORT int paged_attention_int8(const void* q, const void* arena,
                                       const void* scales, const void* kself,
                                       const void* vself, const void* pages,
-                                      const void* lengths, void* out,
-                                      void* part, void* counters, int b, int h,
-                                      int kh, int hd, int cap, int block,
-                                      int nblk, int dtype, int arena_dtype,
-                                      float scale, float softcap, int window,
-                                      void* stream) {
-  return pa_entry<true>(q, arena, scales, kself, vself, pages, lengths, out,
-                        part, counters, b, h, kh, hd, cap, block, nblk, dtype,
-                        arena_dtype, scale, softcap, window, stream);
+                                      const void* lengths,
+                                      const void* blk_start, void* out,
+                                      void* lse, void* part, void* counters,
+                                      int b, int h, int kh, int hd, int cap,
+                                      int block, int nblk, int dtype,
+                                      int arena_dtype, float scale,
+                                      float softcap, int window, void* stream) {
+  return pa_entry<true>(q, arena, scales, kself, vself, pages, lengths,
+                        blk_start, out, lse, part, counters, b, h, kh, hd, cap,
+                        block, nblk, dtype, arena_dtype, scale, softcap,
+                        window, stream);
 }

@@ -49,7 +49,12 @@ KERNELS = ("relscan_scan", "relscan_compact", "hash_build", "hash_probe",
            "flash_attention_lse", "flash_attention_bwd_delta",
            "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
            # the Mamba2 scan's backward (three launches a call)
-           "mamba2_scan_bwd")
+           "mamba2_scan_bwd",
+           # the paged kernel's other two call forms, each launching
+           # paged_wide_kernel: pages of 256 (the serving mesh's block) or
+           # block starts, an output of q's dtype; and the striped form
+           # with the rows' log-sum-exp (the serving mesh's island)
+           "paged_attention_wide", "paged_attention_lse")
 launches = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -183,11 +188,12 @@ def _declare(lib: ctypes.CDLL) -> None:
                                      P],
         "flash_attention_bwd_dq": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                                    F, I, I, F, I, ctypes.POINTER(L), P],
-        "paged_attention": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                            I, I, I, F, F, I, P],
-        "paged_attention_int8": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                                 I, I, I, I, F, F, I, P],
+        "paged_attention": [P] * 12 + [I, I, I, I, I, I, I, I, I, F, F, I,
+                                       P],
+        "paged_attention_int8": [P] * 12 + [I, I, I, I, I, I, I, I, I, F, F,
+                                            I, P],
         "paged_attention_scratch": [I, I, I, I, I],
+        "paged_attention_form": [I, I, I],
         "mamba2_scan": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
         "mamba2_scan_scratch": [I, I, I, I, I],
         "mamba2_scan_bwd": [P] * 15 + [I, I, I, I, I, I, P],

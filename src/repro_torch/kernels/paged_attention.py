@@ -25,6 +25,27 @@ reference island's unquantized new token: with it, a sequence with
 ``lengths >= 0`` attends its ``lengths`` pool positions and that key, and
 one with ``lengths < 0`` nothing (0).
 
+The serving mesh's striped call form (``serving/paged.py``'s island over
+a device mesh, where each stripe holds every ``stripe_total``-th block of
+a sequence): ``blk_start`` [b, nblk] int32 gives the global position of
+each page's first token, so that page ``j``'s position ``t`` is
+``blk_start[b, j] + t`` (None: ``j * block``); the visibility test, the
+window and the softcap read those positions. ``return_lse=True`` also
+returns each row's log-sum-exp [b, h] fp32 (``m + log l`` of the scaled,
+softcapped scores, the self term included), -1e30 for a row that sees
+nothing (the self score where only the self term is visible), and then
+the output is fp32: a partial that the island's combine across stripes
+reads and rounds once, as the reference combines fp32 partials.
+
+Each launch counts under the kernel it runs, as the library's
+``paged_attention_form`` says: ``paged_attention`` (paged_split_kernel:
+no ``blk_start``, no lse, pages of up to 64 positions, every earlier
+caller's form, whose code, output and time are the kernel's earlier
+ones), ``paged_attention_wide`` (paged_wide_kernel with an output of q's
+dtype: ``blk_start`` given, or a longer page whose length is a multiple
+of 64, the serving mesh's block 256, cut into 64-position parts) and
+``paged_attention_lse`` (paged_wide_kernel with the lse).
+
 The kernel splits each sequence's pages over CTAs (64 positions a split)
 and, where more than one split sees something, merges their partial
 softmax results by their log-sum-exp in the same launch; the wrapper keeps
@@ -42,6 +63,9 @@ from repro_torch.kernels.flash_attention import DTYPE_CODES, HEAD_DIMS
 
 NEG_INF = -1e30
 ARENA_INT8 = 2   # the C entry's arena dtype code of an int8 arena
+# the launch counter of each call form (``paged_attention_form``'s codes)
+FORM_COUNTERS = ("paged_attention", "paged_attention_wide",
+                 "paged_attention_lse")
 _scratch: dict = {}
 
 
@@ -62,7 +86,8 @@ def _scratch_for(device, stream: int, n_part: int, n_counters: int):
     return part, counters
 
 
-def _check(q, arena, pages, lengths, scales=None, kv_self=None):
+def _check(q, arena, pages, lengths, scales=None, kv_self=None,
+           blk_start=None):
     if q.dim() != 3 or arena.dim() != 5 or arena.shape[1] != 2:
         raise TypeError("q must be [b, h, hd] and arena [cap, 2, block, kh, "
                         "hd]")
@@ -75,6 +100,10 @@ def _check(q, arena, pages, lengths, scales=None, kv_self=None):
     if lengths.shape != (b,) or lengths.dtype != torch.int32:
         raise TypeError("lengths must be a [b] int32 tensor")
     dev = {q.device, arena.device, pages.device, lengths.device}
+    if blk_start is not None:
+        if blk_start.shape != pages.shape or blk_start.dtype != torch.int32:
+            raise TypeError("blk_start must be a [b, nblk] int32 tensor")
+        dev.add(blk_start.device)
     if arena.dtype == torch.int8:
         if scales is None or scales.dtype != torch.float32 \
                 or scales.shape != arena.shape[:4]:
@@ -95,16 +124,19 @@ def _check(q, arena, pages, lengths, scales=None, kv_self=None):
             dev.add(t.device)
     if len(dev) != 1:
         raise ValueError("q, arena, pages, lengths (and scales, the self "
-                         "term) must share a device")
+                         "term, blk_start) must share a device")
 
 
 def paged_attention_ref(q, arena, pages, lengths, *, scale: float,
                         softcap: float = 0.0, window: int = 0, scales=None,
-                        kv_self=None):
+                        kv_self=None, blk_start=None,
+                        return_lse: bool = False):
     """Plain version: gathers every page's K/V (dequantized by ``scales``
     over an int8 arena) and takes one masked softmax, the self term as one
-    more key. Returns [b, h, hd] in q's dtype (fp32 math)."""
-    _check(q, arena, pages, lengths, scales, kv_self)
+    more key, at the positions ``blk_start`` gives. Returns [b, h, hd] in
+    q's dtype (fp32 math), and with ``return_lse`` (out [b, h, hd] fp32,
+    lse [b, h] fp32)."""
+    _check(q, arena, pages, lengths, scales, kv_self, blk_start)
     b, h, hd = q.shape
     cap, _, block, kh, _ = arena.shape
     nblk = pages.shape[1]
@@ -118,11 +150,14 @@ def paged_attention_ref(q, arena, pages, lengths, *, scale: float,
     v = blk[:, :, 1].reshape(b, nblk * block, kh, hd)
     qg = q.reshape(b, kh, g, hd).float() * scale
     s = torch.einsum("bkgd,btkd->bkgt", qg, k)
-    pos = torch.arange(nblk * block, device=q.device)
-    ok = pos[None] < lengths[:, None]
+    pos = torch.arange(nblk * block, device=q.device)[None]
+    if blk_start is not None:   # [b, nblk * block] global positions
+        pos = (blk_start[:, :, None] + torch.arange(
+            block, device=q.device)).reshape(b, nblk * block)
+    ok = pos < lengths[:, None]
     ok &= present.repeat_interleave(block, dim=1)
     if window and window > 0:
-        ok &= (lengths[:, None] - pos[None]) < window
+        ok &= (lengths[:, None] - pos) < window
     if kv_self is not None:   # one more key: the new token, unquantized
         ks, vs = (t.float()[:, None] for t in kv_self)
         s = torch.cat([s, torch.einsum("bkgd,btkd->bkgt", qg, ks)], dim=-1)
@@ -131,14 +166,19 @@ def paged_attention_ref(q, arena, pages, lengths, *, scale: float,
     if softcap and softcap > 0:
         s = torch.tanh(s / softcap) * softcap
     s = torch.where(ok[:, None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1) * ok.any(dim=1)[:, None, None, None]
-    o = torch.einsum("bkgt,btkd->bkgd", p, v)
-    return o.reshape(b, h, hd).to(q.dtype)
+    seen = ok.any(dim=1)
+    p = torch.softmax(s, dim=-1) * seen[:, None, None, None]
+    o = torch.einsum("bkgt,btkd->bkgd", p, v).reshape(b, h, hd)
+    if not return_lse:
+        return o.to(q.dtype)
+    lse = torch.where(seen[:, None], torch.logsumexp(s, dim=-1).reshape(
+        b, h), NEG_INF)
+    return o, lse
 
 
 def paged_attention(q, arena, pages, lengths, *, scale: float,
                     softcap: float = 0.0, window: int = 0, scales=None,
-                    kv_self=None):
+                    kv_self=None, blk_start=None, return_lse: bool = False):
     """Contract of :func:`paged_attention_ref` (kernel on CUDA tensors:
     fp32 or bf16 q over an arena of q's dtype or an int8 one, head dim in
     ``HEAD_DIMS``). ``arena`` (and ``scales``) must be contiguous (a layer
@@ -146,9 +186,11 @@ def paged_attention(q, arena, pages, lengths, *, scale: float,
     if q.device.type == "cpu":
         return paged_attention_ref(q, arena, pages, lengths, scale=scale,
                                    softcap=softcap, window=window,
-                                   scales=scales, kv_self=kv_self)
+                                   scales=scales, kv_self=kv_self,
+                                   blk_start=blk_start,
+                                   return_lse=return_lse)
     _build.require_cuda(q, "paged_attention")
-    _check(q, arena, pages, lengths, scales, kv_self)
+    _check(q, arena, pages, lengths, scales, kv_self, blk_start)
     b, h, hd = q.shape
     cap, _, block, kh, _ = arena.shape
     if q.dtype not in DTYPE_CODES or hd not in HEAD_DIMS:
@@ -167,7 +209,12 @@ def paged_attention(q, arena, pages, lengths, *, scale: float,
     if kv_self is not None:
         kv_self = tuple(t.contiguous() for t in kv_self)
         ks_ptr, vs_ptr = kv_self[0].data_ptr(), kv_self[1].data_ptr()
-    out = torch.empty_like(q)
+    if blk_start is not None:
+        blk_start = blk_start.contiguous()
+    out = torch.empty(q.shape, dtype=torch.float32 if return_lse
+                      else q.dtype, device=q.device)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     nblk = pages.shape[1]
     lib = _build.lib("paged_attention")
     stream = _build.stream_ptr(q.device)
@@ -187,10 +234,13 @@ def paged_attention(q, arena, pages, lengths, *, scale: float,
     err = entry(
         q.data_ptr(), arena.data_ptr(),
         None if scales is None else scales.data_ptr(), ks_ptr, vs_ptr,
-        pages.data_ptr(), lengths.data_ptr(), out.data_ptr(), part_ptr,
-        counters_ptr, b, h, kh, hd, cap, block, nblk, DTYPE_CODES[q.dtype],
+        pages.data_ptr(), lengths.data_ptr(),
+        None if blk_start is None else blk_start.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), part_ptr, counters_ptr, b,
+        h, kh, hd, cap, block, nblk, DTYPE_CODES[q.dtype],
         ARENA_INT8 if scales is not None else DTYPE_CODES[q.dtype],
         float(scale), float(softcap), int(window), stream)
     _build.check(err, "paged_attention")
-    _build.count_launch("paged_attention")
-    return out
+    _build.count_launch(FORM_COUNTERS[lib.paged_attention_form(
+        block, blk_start is not None, return_lse)])
+    return (out, lse) if return_lse else out

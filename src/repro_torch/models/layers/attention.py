@@ -20,7 +20,16 @@ neither main path calls. Cross attention (the encoder-decoder) takes no
 RoPE and no q/k norms: its K/V come from :func:`cross_kv` of the encoder
 output.
 
-Not in this port yet: sequence parallelism.
+Sequence parallelism (the reference's lever for head counts that do not
+divide the model axis): with ``cfg.attn_seq_shard``, a current mesh
+(``parallel.sharding.axis_rules(rules, mesh)``) with a ``model`` axis and
+no ``kv_valid``, :func:`attention_forward` splits the query sequence into
+``n_model`` slices and runs each through the flash-attention kernel on
+its ``model`` coordinate's device, with ``q_offset`` at the slice's first
+position, over the full K/V; the slices meet on the query's device. A
+sequence that does not split evenly takes the path without a mesh, as in
+the reference. The gradient flows through the kernel's backward
+(``FlashAttention``).
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers.norms import rms_norm_gain
 from repro_torch.models.layers.rope import apply_rope
 from repro_torch.models.params import dense_init, ones_init
+from repro_torch.parallel import sharding as SHD
 
 NEG_INF = -1e30
 
@@ -133,12 +143,47 @@ def _masked_attention(cfg, q, k, v, *, causal, window, kv_valid):
     return o.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def _seqpar_attention(cfg, q, k, v, *, causal: bool, window: int, mesh):
+    """The query sequence split over the mesh's ``model`` axis: slice
+    ``i`` of ``sq / n_model`` queries attends the full K/V through the
+    flash kernel with ``q_offset = i * s_local``, on the device of
+    ``model`` coordinate ``i`` (the other axes at index 0); the slices are
+    concatenated on q's device. None where ``sq`` does not split evenly
+    (the caller then takes the path without a mesh)."""
+    n_model = int(mesh.shape["model"])
+    sq = q.shape[1]
+    if sq % n_model:
+        return None
+    mesh.require_runnable("sequence-parallel attention")
+    s_local = sq // n_model
+    outs = []
+    for i in range(n_model):
+        dev = mesh.device_at({"model": i})
+        ql = q[:, i * s_local:(i + 1) * s_local].to(dev)
+        o = flash_attention(ql.transpose(1, 2), k.to(dev).transpose(1, 2),
+                            v.to(dev).transpose(1, 2), scale=_scale(cfg),
+                            causal=causal, window=window,
+                            softcap=cfg.attn_softcap, q_offset=i * s_local)
+        outs.append(o.transpose(1, 2).to(q.device))
+    return torch.cat(outs, dim=1)
+
+
 def attention_forward(params: dict, cfg, x: torch.Tensor,
                       positions: torch.Tensor, *, theta: float,
                       window: int = 0, causal: bool = True, kv_valid=None):
     """Self-attention sub-layer over [b, s, d], causal or not (the
-    encoder's), without its KV (no residual or norm here)."""
+    encoder's), without its KV (no residual or norm here); sequence-
+    parallel where ``cfg.attn_seq_shard`` and the current mesh say so
+    (module docstring)."""
     q, k, v = qkv_project(params, cfg, x, positions, theta)
+    if cfg.attn_seq_shard:
+        mesh = SHD.current_mesh()
+        if (mesh is not None and "model" in mesh.axis_names
+                and kv_valid is None):
+            o = _seqpar_attention(cfg, q, k, v, causal=causal,
+                                  window=window, mesh=mesh)
+            if o is not None:
+                return out_project(params, o)
     return out_project(params, _attend(cfg, q, k, v, causal=causal,
                                        window=window, kv_valid=kv_valid))
 

@@ -72,6 +72,7 @@ from repro_torch.models.layers.mlp import init_mlp, mlp_forward
 from repro_torch.models.layers.moe import init_moe, moe_forward
 from repro_torch.models.layers.norms import init_rmsnorm, rms_norm
 from repro_torch.models.params import dense_init
+from repro_torch.parallel import sharding as SHD
 
 
 SSM_KINDS = (MAMBA1, MAMBA2)
@@ -402,12 +403,19 @@ REMATS = ("none", "dots", "full")
 
 def _remat(fn, remat: str, *args):
     """``fn(*args)`` under the remat policy (plain where autograd is
-    off)."""
+    off). The recompute runs under the axis rules and mesh of the forward
+    (``parallel.sharding.axis_rules``, thread-local): a CUDA backward runs
+    on autograd's own thread, where none are installed."""
     if remat == "none" or not torch.is_grad_enabled():
         return fn(*args)
+    rules, mesh = SHD.current_rules(), SHD.current_mesh()
+
+    def under_rules(*a):
+        with SHD.axis_rules(rules, mesh):
+            return fn(*a)
     if remat == "full":
-        return CK.checkpoint(fn, *args, use_reentrant=False)
-    return CK.checkpoint(fn, *args, use_reentrant=False,
+        return CK.checkpoint(under_rules, *args, use_reentrant=False)
+    return CK.checkpoint(under_rules, *args, use_reentrant=False,
                          context_fn=functools.partial(
                              CK.create_selective_checkpoint_contexts,
                              _dots_policy))

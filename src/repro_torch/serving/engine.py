@@ -1,7 +1,7 @@
 """Serving engine: continuous batching on top of the paged KV pool (port
-of ``repro.serving.engine``, single device: dense and MoE decoders, the
-vision-frontend decoder, the encoder-decoder, Mamba1 stacks and the zamba2
-hybrid).
+of ``repro.serving.engine``: dense and MoE decoders, the vision-frontend
+decoder, the encoder-decoder, Mamba1 stacks and the zamba2 hybrid; the
+engine on one device, the serve step also over a device mesh).
 
 Layering (top to bottom):
 
@@ -27,6 +27,18 @@ Layering (top to bottom):
   their O(1) states. Prefill runs the flash-attention and Mamba2 scan
   kernels (``models/transformer.prefill``: the encoder, the decoder's
   self and cross attention) eagerly.
+- Over a device mesh (``launch/mesh.Mesh``), ``make_serve_step`` runs
+  each attention layer's island over the mesh (``serving/paged.py``: the
+  arenas are :class:`~repro_torch.serving.paged.Shards`, one tensor a
+  coordinate on its device) and everything around it (embedding,
+  projections, MLP / MoE, Mamba states, logits) on the mesh's home entry,
+  with the weights whole there; ``serve_state_specs`` /
+  ``serve_input_specs`` give the reference's specs beside the shapes,
+  ``init_serve_state(mesh=)`` / ``place_state`` / ``join_state`` build and
+  move a placed state, and ``lower_serve_step(mesh=)`` returns a
+  :class:`MeshServeStep` (eager: no CUDA graph; over the production
+  mesh's ``meta`` plan, shapes only). The live ``ServeEngine`` stays
+  mesh-free, as the reference's does.
 
 An attention-free stack (falcon-mamba) has no arena, no page-table
 inputs and no block to allocate: as in the reference, its requests
@@ -53,8 +65,6 @@ d] patch embeddings placed before the prompt: the sequence holds
 ``frontend_len + n`` positions) and ``enc_frames`` ([frontend_len, d]
 frames for the encoder, whose cross K/V are copied into the slot's rows of
 the static ``enc_k`` / ``enc_v`` state).
-
-Not in this port yet: a device mesh.
 """
 from __future__ import annotations
 
@@ -69,32 +79,45 @@ from repro_torch.core import kvpool
 from repro_torch.core import table as T
 from repro_torch.core.daemon import SQLCached, resolve_device
 from repro_torch.kernels import _build
+from repro_torch.launch.mesh import check_mesh
 from repro_torch.models import transformer as TF
-from repro_torch.models.config import ModelConfig, NotPorted
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import (_scale, out_project,
                                                  qkv_project)
 from repro_torch.models.layers.norms import rms_norm
-from repro_torch.serving.paged import (PagedGeom, build_blk_start,
+from repro_torch.parallel.sharding import spec_entry
+from repro_torch.serving.paged import (PagedGeom, Shards, build_blk_start,
+                                       join_arena, localize,
                                        make_paged_island, plan_geometry,
-                                       quantize_kv)
+                                       quantize_kv, split_arena, zero_shards)
 
 
 # ============================================================== serve step
+def _layer(t, i: int):
+    """Layer ``i`` of a layer-major arena, whole or placed."""
+    return t.layer(i) if isinstance(t, Shards) else t[i]
+
+
 def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
     """Build serve_step(params, state, inputs) -> (next_tokens, state,
     logits): one new token per slot against the paged arenas. The arenas
-    and SSM states in ``state`` are updated in place."""
+    and SSM states in ``state`` are updated in place. Over ``mesh`` (with
+    ``geom`` planned on it) the arenas are placed (:func:`place_state`),
+    the page inputs are the mesh's (:func:`serve_input_specs`) and
+    everything else, ``params`` included, lies on the mesh's home entry."""
     TF.check_supported(cfg)
-    if mesh is not None:
-        raise NotPorted("a device mesh for the serve step")
+    check_mesh(mesh)
+    placed = mesh is not None and bool(geom.manual_axes)
+    if placed:
+        mesh.require_runnable("the serve step")
     quant = cfg.kv_quant_int8
     islands: dict[int, object] = {}
 
     def island_for(window: int):
         if window not in islands:
             islands[window] = make_paged_island(
-                geom, None, scale=_scale(cfg), softcap=cfg.attn_softcap,
-                window=window, quant=quant)
+                geom, mesh if placed else None, scale=_scale(cfg),
+                softcap=cfg.attn_softcap, window=window, quant=quant)
         return islands[window]
 
     def attn_mlp(p, x, arena_l, scale_l, inputs, *, window, theta,
@@ -109,10 +132,11 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         q, k, v = qkv_project(p["attn"], cfg, h, lengths[:, None], theta)
         extra = (scale_l,) if quant else ()
+        kw = {"local": inputs["_local"]} if placed else {}
         a = island_for(window)(
             q[:, 0], k[:, 0], v[:, 0], arena_l, inputs["pt"],
             inputs["blk_start"], lengths, inputs["write_rows"],
-            inputs["write_off"], *extra)[0]
+            inputs["write_off"], *extra, **kw)[0]
         x = x + TF.post_norm(p, cfg, "norm1_post",
                              out_project(p["attn"], a[:, None]))
         if cross is not None:
@@ -120,6 +144,10 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
         return TF.mlp_sublayer(p, cfg, x)[0]
 
     def serve_step(params, state, inputs):
+        if placed and has_attention(cfg):   # cut once for every layer
+            inputs = dict(inputs, _local=localize(
+                geom, mesh, inputs["pt"], inputs["blk_start"],
+                inputs["lengths"], inputs["write_rows"], inputs["write_off"]))
         x = TF.embed_tokens(params, cfg, inputs["tokens"][:, None])
         ai = si = 0
         for i in range(cfg.n_layers):
@@ -134,14 +162,16 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
                 window, theta = TF.layer_attrs(cfg, i)
                 cross = ((state["enc_k"][i], state["enc_v"][i])
                          if "enc_k" in state else None)
-                x = attn_mlp(p, x, state["arena"][ai],
-                             state["arena_scale"][ai] if quant else None,
-                             inputs, window=window, theta=theta, cross=cross)
+                x = attn_mlp(p, x, _layer(state["arena"], ai),
+                             _layer(state["arena_scale"], ai) if quant
+                             else None, inputs, window=window, theta=theta,
+                             cross=cross)
                 ai += 1
             g = TF.shared_app(cfg, i)
             if g >= 0:
-                x = attn_mlp(params["shared"], x, state["shared_arena"][g],
-                             state["shared_arena_scale"][g] if quant
+                x = attn_mlp(params["shared"], x,
+                             _layer(state["shared_arena"], g),
+                             _layer(state["shared_arena_scale"], g) if quant
                              else None, inputs, window=0,
                              theta=TF.global_theta(cfg))
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -164,10 +194,16 @@ def serve_state_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None,
     ``shared_arena_scale`` hold their fp32 scales (one a row, k/v,
     position and kv head), as in the reference. An encoder-decoder with
     ``enc_len > 0`` adds each slot's cross K/V, ``enc_k`` / ``enc_v``
-    ``[L, b, enc_len, kh, hd]``."""
+    ``[L, b, enc_len, kh, hd]``.
+
+    With a ``mesh`` each entry is ``(shape, dtype, spec)`` (``"ssm"``: a
+    dict of them), ``spec`` the reference's spec of that leaf as a tuple:
+    the arenas and their scales by ``geom.arena_spec()``, which is where
+    the port places them (:func:`place_state`); Mamba states and
+    ``enc_k`` / ``enc_v`` get the reference's specs too, but the port keeps
+    them whole on the mesh's home entry, as it keeps the weights."""
     TF.check_supported(cfg)
-    if mesh is not None:
-        raise NotPorted("a device mesh for the serve state")
+    check_mesh(mesh)
     row = (2, geom.block, cfg.n_kv_heads, cfg.head_dim)
     quant = cfg.kv_quant_int8
     kv_dtype = torch.int8 if quant else cfg.dtype
@@ -192,7 +228,41 @@ def serve_state_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None,
         shape = (cfg.n_layers, geom.batch, enc_len, cfg.n_kv_heads,
                  cfg.head_dim)
         specs["enc_k"] = specs["enc_v"] = (shape, cfg.dtype)
-    return specs
+    if mesh is None:
+        return specs
+    return _with_specs(specs, geom, mesh)
+
+
+def _with_specs(specs: dict, geom: PagedGeom, mesh) -> dict:
+    """The reference's specs beside each state leaf's shape and dtype
+    (``serving/engine.py:serve_state_specs``)."""
+    bax = spec_entry(geom.batch_axes)
+    nm = int(mesh.shape.get("model", 1))
+
+    def ssm_spec(shape):
+        parts = [None, bax] + [None] * (len(shape) - 2)
+        if len(shape) == 5:   # Mamba2 h [n, b, nh, dh, st]
+            if shape[2] % nm == 0:
+                parts[2] = "model"
+        else:   # Mamba1 h [n, b, di, st] / conv tails [n, b, cw - 1, di]
+            big = -1 if shape[-1] >= shape[-2] else -2
+            if shape[big] % nm == 0:
+                parts[big] = "model"
+        return tuple(parts)
+
+    out = {}
+    for name, spec in specs.items():
+        if name == "ssm":
+            out[name] = {k: (shape, dt, ssm_spec(shape))
+                         for k, (shape, dt) in spec.items()}
+        elif name in ("arena", "shared_arena"):
+            out[name] = spec + (geom.arena_spec(),)
+        elif name in ARENAS:   # the int8 scales: no head-dim axis
+            out[name] = spec + (geom.arena_spec()[:5],)
+        else:   # enc_k / enc_v [L, b, enc_len, kh, hd]
+            out[name] = spec + ((None, bax, None,
+                                 spec_entry(geom.head_axes), None),)
+    return out
 
 
 def has_attention(cfg: ModelConfig) -> bool:
@@ -202,23 +272,27 @@ def has_attention(cfg: ModelConfig) -> bool:
 
 
 def serve_input_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None) -> dict:
-    """{name: (shape, dtype)} of the serve step's inputs: the reference's
-    ShapeDtypeStructs without a mesh (``stripe_total`` 1, ``nblk_local``
-    ``nblk``; an encoder-decoder's ``enc_valid``, the encoder positions
-    each slot attends). They are the decode graph's static input
-    buffers."""
+    """{name: (shape, dtype)} of the serve step's inputs, the reference's
+    ShapeDtypeStructs: ``pt`` and ``blk_start`` ``[b, stripe_total,
+    nblk_local]``, ``write_rows`` ``[b, stripe_total]`` (without a mesh
+    ``stripe_total`` 1 and ``nblk_local`` ``nblk``: the decode graph's
+    static input buffers); an encoder-decoder's ``enc_valid``, the encoder
+    positions each slot attends. With a ``mesh``, ``(shape, dtype,
+    spec)``, the reference's spec of each (the port cuts them per
+    coordinate on the home entry: ``serving/paged.localize``)."""
     TF.check_supported(cfg)
-    if mesh is not None:
-        raise NotPorted("a device mesh for the serve inputs")
-    b, nblk = geom.batch, geom.nblk
-    specs = {name: ((b,), torch.int32)
+    check_mesh(mesh)
+    b, st, nl = geom.batch, geom.stripe_total, geom.nblk_local
+    specs = {name: ((b,), torch.int32, geom.vec_spec())
              for name in ("tokens", "lengths", "write_off")}
     if has_attention(cfg):
-        specs["pt"] = ((b, 1, nblk), torch.int32)
-        specs["blk_start"] = ((b, 1, nblk), torch.int32)
-        specs["write_rows"] = ((b, 1), torch.int32)
+        specs["pt"] = ((b, st, nl), torch.int32, geom.pt_spec())
+        specs["blk_start"] = ((b, st, nl), torch.int32, geom.pt_spec())
+        specs["write_rows"] = ((b, st), torch.int32, geom.wrows_spec())
     if cfg.is_encdec:
-        specs["enc_valid"] = ((b,), torch.int32)
+        specs["enc_valid"] = ((b,), torch.int32, geom.vec_spec())
+    if mesh is None:
+        return {k: v[:2] for k, v in specs.items()}
     return specs
 
 
@@ -226,10 +300,18 @@ ARENAS = ("arena", "arena_scale", "shared_arena", "shared_arena_scale")
 
 
 def init_serve_state(cfg: ModelConfig, geom: PagedGeom, rows: int,
-                     device) -> dict:
+                     device, mesh=None) -> dict:
     """Zeroed serve state with ``rows`` arena rows plus the scratch row of
     the dropped writes (and an encoder-decoder's ``enc_k`` / ``enc_v`` of
-    ``frontend_len`` positions, as the reference's engine sizes them)."""
+    ``frontend_len`` positions, as the reference's engine sizes them).
+    Over a ``mesh`` (``rows`` must be ``geom.cap``) the arenas are placed
+    (:func:`place_state`) and the rest lies on the mesh's home entry."""
+    if mesh is not None:
+        if rows != geom.cap:
+            raise ValueError(f"a placed state holds geom.cap = {geom.cap} "
+                             f"rows, not {rows}")
+        return place_state(init_serve_state(cfg, geom, rows, "meta"), geom,
+                           mesh, zeros=True)
     state = {}
     specs = serve_state_specs(
         cfg, geom, enc_len=cfg.frontend_len if cfg.is_encdec else 0)
@@ -243,6 +325,42 @@ def init_serve_state(cfg: ModelConfig, geom: PagedGeom, rows: int,
                 shape = (shape[0], rows + 1) + shape[2:]
             state[name] = torch.zeros(shape, dtype=dtype, device=device)
     return state
+
+
+def place_state(state: dict, geom: PagedGeom, mesh, *,
+                zeros: bool = False) -> dict:
+    """A mesh-free serve state (arenas ``[L, rows(+1), ...]``, their first
+    ``geom.cap`` rows in the mesh's row layout: row ``shard * cap_local +
+    r`` is row r of shard ``batch shard * stripe_total + stripe``) -> the
+    mesh's: each arena split over the coordinates
+    (``serving/paged.split_arena``), every other leaf copied to the mesh's
+    home entry: the placed state shares no storage with ``state``.
+    ``zeros``: build zeroed leaves of the same shapes (``state`` may then
+    be on the ``meta`` device)."""
+    home = mesh.home
+
+    def move(t):
+        if zeros:
+            return torch.zeros(t.shape, dtype=t.dtype, device=home)
+        return t.to(home, copy=True)
+
+    out = {}
+    for name, t in state.items():
+        if name in ARENAS:
+            t = t[:, :geom.cap]
+            out[name] = (zero_shards(t.shape, t.dtype, geom, mesh) if zeros
+                         else split_arena(t, geom, mesh))
+        else:
+            out[name] = _tree_map(move, t)
+    return out
+
+
+def join_state(state: dict, geom: PagedGeom, mesh) -> dict:
+    """The inverse of :func:`place_state` for the arenas: each one joined
+    back to ``[L, geom.cap, ...]`` on the home entry (no scratch row);
+    other leaves as they are."""
+    return {name: join_arena(t, geom, mesh) if isinstance(t, Shards) else t
+            for name, t in state.items()}
 
 
 def _tree_map(fn, tree):
@@ -364,30 +482,80 @@ class ServeGraph:
             return self.out
 
 
+class MeshServeStep:
+    """The decode round over a device mesh (``lower_serve_step(mesh=)``):
+    the placed state and the round's static inputs on the mesh's home
+    entry (``serve_input_specs``: write ``pt``, ``blk_start`` and
+    ``write_rows`` in place), run eagerly, one kernel launch a coordinate
+    a layer (no CUDA graph: a mesh's coordinates may be other cards). Over
+    a plan-only mesh (``make_production_mesh``) it holds the specs alone,
+    and calling it raises."""
+
+    def __init__(self, cfg: ModelConfig, geom: PagedGeom, params, mesh):
+        self.mesh, self.geom, self.params = mesh, geom, params
+        self.state_specs = serve_state_specs(
+            cfg, geom, mesh, enc_len=cfg.frontend_len if cfg.is_encdec
+            else 0)
+        self.input_specs = serve_input_specs(cfg, geom, mesh)
+        self.state = self.inputs = None
+        if mesh.is_plan:
+            return
+        home = mesh.home
+        self._step_fn = make_serve_step(cfg, geom, mesh)
+        self.state = init_serve_state(cfg, geom, geom.cap, home, mesh=mesh)
+        self.vec = torch.zeros((3, geom.batch), dtype=torch.int32,
+                               device=home)
+        self.inputs = {"tokens": self.vec[0], "lengths": self.vec[1],
+                       "write_off": self.vec[2]}
+        for name, (shape, _, _) in self.input_specs.items():
+            if name in ("pt", "write_rows"):
+                self.inputs[name] = torch.full(shape, -1, dtype=torch.int32,
+                                               device=home)
+            elif name == "blk_start":
+                self.inputs[name] = T.to_device(build_blk_start(geom), home)
+            elif name == "enc_valid":
+                self.inputs[name] = torch.full(shape, cfg.frontend_len,
+                                               dtype=torch.int32, device=home)
+
+    def __call__(self, host_vec: np.ndarray):
+        """One round: ``host_vec`` ([3, b] int32: tokens, lengths, write
+        offsets) copied into ``vec``, then the step. Returns (next tokens
+        [b] int32, logits [b, padded_vocab] fp32) on the home entry."""
+        self.mesh.require_runnable("MeshServeStep")
+        self.vec.copy_(torch.from_numpy(np.asarray(host_vec, np.int32)))
+        nxt, _, logits = self._step_fn(self.params, self.state, self.inputs)
+        return nxt, logits
+
+
 def lower_serve_step(cfg: ModelConfig, shape, params: dict, mesh=None, *,
                      device=None):
     """The port's counterpart of the reference's ``lower_serve_step``: the
     decode step for ``shape.global_batch`` slots of ``shape.seq_len``
-    tokens, on zeroed state and static inputs, captured as one CUDA graph
-    on the card (on the CPU the step body, run eagerly when called).
-    ``params`` must be on ``device`` (None: the card). Returns
-    ``(graph_step, extra)``: the :class:`ServeGraph` (write its ``state``
-    and its ``pt`` / ``write_rows`` inputs in place, then call it with a
-    round's tokens, lengths and write offsets) and the paged geometry the
-    reference reports."""
-    if mesh is not None:
-        raise NotPorted("a device mesh for the serve step")
-    dev = resolve_device(device)
+    tokens, on zeroed state and static inputs. Without a mesh it is
+    captured as one CUDA graph on the card (on the CPU the step body, run
+    eagerly when called); ``params`` must be on ``device`` (None: the
+    card). Over a ``mesh`` it is a :class:`MeshServeStep` (``params`` on
+    the mesh's home entry; over the production mesh's ``meta`` plan,
+    shapes and specs only, and ``params`` may be None). Returns
+    ``(step, extra)``: the step (write its ``state`` and its ``pt`` /
+    ``write_rows`` inputs in place, then call it with a round's tokens,
+    lengths and write offsets) and the paged geometry the reference
+    reports."""
     geom = plan_geometry(
         batch=shape.global_batch, seq_len=shape.seq_len,
-        kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, q_heads=cfg.n_heads)
+        kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, q_heads=cfg.n_heads,
+        mesh=mesh)
+    extra = {"paged_geom": {
+        "block": geom.block, "nblk": geom.nblk, "cap": geom.cap,
+        "batch_axes": geom.batch_axes, "head_axes": geom.head_axes,
+        "stripe_axes": geom.stripe_axes}}
+    if mesh is not None:
+        return MeshServeStep(cfg, geom, params, mesh), extra
+    dev = resolve_device(device)
     state = init_serve_state(cfg, geom, geom.cap, dev)
     step = ServeGraph(cfg, geom, params, state, geom.cap, dev)
     if dev.type == "cuda":
         step.capture()
-    extra = {"paged_geom": {
-        "block": geom.block, "nblk": geom.nblk, "cap": geom.cap,
-        "batch_axes": (), "head_axes": (), "stripe_axes": ()}}
     return step, extra
 
 

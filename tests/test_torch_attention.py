@@ -392,15 +392,22 @@ def test_island_matches_reference(window, softcap):
 
 
 def test_island_refuses_what_is_not_ported():
-    from repro_torch.models.config import NotPorted
+    from repro_torch.launch.mesh import make_production_mesh
     geom = TPG.plan_geometry(batch=2, seq_len=32, kv_heads=2, head_dim=8,
                              q_heads=4, block=8)
-    # the int8 arena is ported (tests/test_torch_kv_quant.py); a mesh is
-    # not, with or without it
+    # the int8 arena (tests/test_torch_kv_quant.py) and a device mesh
+    # (tests/test_torch_serve_mesh.py) are ported; refused: a mesh that is
+    # not a launch.mesh.Mesh, with or without the int8 arena, and a step
+    # over the production mesh, which is a plan on the meta device
     assert callable(TPG.make_paged_island(geom, None, scale=1.0, quant=True))
+    prod = make_production_mesh()
+    planned = TPG.plan_geometry(batch=16, seq_len=4096, kv_heads=4,
+                                head_dim=128, q_heads=32, mesh=prod)
     for quant in (False, True):
-        with pytest.raises(NotPorted):
+        with pytest.raises(TypeError):
             TPG.make_paged_island(geom, object(), scale=1.0, quant=quant)
-    with pytest.raises(NotPorted):
+        with pytest.raises(RuntimeError, match="plan"):
+            TPG.make_paged_island(planned, prod, scale=1.0, quant=quant)
+    with pytest.raises(TypeError):
         TPG.plan_geometry(batch=2, seq_len=32, kv_heads=2, head_dim=8,
                           q_heads=4, mesh=object())

@@ -454,10 +454,17 @@ def test_cuda_tensor_never_takes_plain_version(cuda):
     q = torch.randn((1, 4, 5, 64), device=cuda)
     k = torch.randn((1, 2, 5, 64), device=cuda)
     FA.flash_attention(q, k, k, scale=0.125)
-    PA.paged_attention(q[:, :, 0], torch.randn((3, 2, 4, 2, 64), device=cuda),
-                       torch.tensor([[2, 0]], dtype=torch.int32, device=cuda),
-                       torch.tensor([6], dtype=torch.int32, device=cuda),
-                       scale=0.125)
+    arena = torch.randn((3, 2, 4, 2, 64), device=cuda)
+    pages = torch.tensor([[2, 0]], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([6], dtype=torch.int32, device=cuda)
+    PA.paged_attention(q[:, :, 0], arena, pages, lens, scale=0.125)
+    # the serving mesh's call forms: block starts and the lse; block
+    # starts alone (paged_wide_kernel, an output of q's dtype)
+    starts = torch.tensor([[0, 4]], dtype=torch.int32, device=cuda)
+    PA.paged_attention(q[:, :, 0], arena, pages, lens, scale=0.125,
+                       blk_start=starts, return_lse=True)
+    PA.paged_attention(q[:, :, 0], arena, pages, lens, scale=0.125,
+                       blk_start=starts)
     # a gradient: the forward with its lse store, the three backward ones
     qg = q.clone().requires_grad_()
     FA.flash_attention(qg, k, k, scale=0.125).sum().backward()
@@ -1153,6 +1160,38 @@ def test_flash_dtype_picks_the_kernel(cuda):
         FA.flash_attention(q.half(), k.half(), v.half(), scale=0.125)
 
 
+# pages longer than a split (64 positions): paged_wide_kernel cuts each
+# into 64-position parts (the serving mesh's block 256, which its
+# mesh-free steps and head-sharded coordinates run): yi-6b's mesh-free
+# step and a head-sharded coordinate, layout (c)'s 8,184-token slot,
+# zamba2's mesh-free step and a coordinate of its (2, 2) mesh, lengths
+# either side of a part's and a page's edge, gemma2's hd 256 with softcap
+# 50 and a window across parts, block 128 (two parts a page), and
+# missing pages
+WIDE_CASES = [
+    (4, 32, 4, 128, 256, 16, 0, 0.0, [24, 310, 1030, 4088], ()),
+    (2, 16, 2, 128, 256, 16, 0, 0.0, [24, 4088], ()),
+    (1, 32, 4, 128, 256, 32, 0, 0.0, [8184], ()),
+    (2, 32, 32, 80, 256, 16, 0, 0.0, [310, 1030], ()),
+    (1, 16, 16, 80, 256, 16, 0, 0.0, [1030], ()),
+    (4, 32, 4, 128, 256, 4, 0, 0.0, [64, 256, 257, 63], ()),
+    (4, 8, 4, 256, 256, 8, 101, 50.0, [300, 1500, 24, 0], ()),
+    (3, 8, 2, 64, 128, 6, 0, 0.0, [700, 128, 1], ()),
+    (2, 8, 2, 64, 256, 4, 0, 0.0, [900, 600], ((0, 1), (1, 0))),
+]
+
+
+def _form(block: int) -> str:
+    """The launch counter of an unstriped call without the lse."""
+    return "paged_attention_wide" if block > 64 else "paged_attention"
+
+
+def _launched(before: dict) -> dict:
+    from repro_torch.kernels import _build
+    return {k: v - before[k] for k, v in _build.launches.items()
+            if v != before[k]}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "b,h,kh,hd,block,nblk,window,softcap,lengths,holes",
@@ -1179,10 +1218,13 @@ def test_flash_dtype_picks_the_kernel(cuda):
         (2, 8, 2, 64, 8, 12, 0, 0.0, [90, 70], ((0, 9), (1, 2))),
         (2, 8, 8, 80, 16, 16, 0, 0.0, [250, 100],
          ((0, 4), (0, 5), (0, 6), (0, 7), (1, 2))),
-    ])
+    ] + WIDE_CASES)
 def test_paged_attention_matches_plain(cuda, b, h, kh, hd, block, nblk,
                                        window, softcap, lengths, holes,
                                        dtype):
+    """Against the plain version; a second call bit-equal (the split
+    counters wrap); each call one launch of its form's counter."""
+    from repro_torch.kernels import _build
     rng = np.random.default_rng(b * 100 + nblk)
     cap = b * nblk + 4
     pages = np.full((b, nblk), -1, np.int32)
@@ -1209,7 +1251,9 @@ def test_paged_attention_matches_plain(cuda, b, h, kh, hd, block, nblk,
     pt = torch.from_numpy(pages).to(cuda)
     ln = torch.from_numpy(lens).to(cuda)
     kw = dict(scale=hd ** -0.5, softcap=softcap, window=window)
+    before = dict(_build.launches)
     got = PA.paged_attention(q, arena, pt, ln, **kw)
+    assert _launched(before) == {_form(block): 1}
     want = PA.paged_attention_ref(q, arena, pt, ln, **kw)
     again = PA.paged_attention(q, arena, pt, ln, **kw)  # counters wrapped
     torch.cuda.synchronize()
@@ -1233,7 +1277,7 @@ def test_paged_attention_matches_plain(cuda, b, h, kh, hd, block, nblk,
         (2, 8, 8, 80, 8, 40, 33, 20.0, [310, 64]),            # window+softcap
         (2, 4, 4, 128, 32, 3, 0, 50.0, [70, 9]),              # softcap
         (2, 8, 2, 256, 8, 5, 9, 30.0, [33, 40]),              # hd 256
-    ])
+    ] + [c[:-1] for c in WIDE_CASES if not c[-1]])
 def test_paged_attention_int8_matches_plain(cuda, b, h, kh, hd, block, nblk,
                                             window, softcap, lengths,
                                             self_term, dtype):
@@ -1242,6 +1286,7 @@ def test_paged_attention_int8_matches_plain(cuda, b, h, kh, hd, block, nblk,
     plain version with scales, with and without the unquantized self term;
     with it, a slot at -1 attends nothing (0) and a slot at 0 only its
     own token."""
+    from repro_torch.kernels import _build
     from repro_torch.serving.paged import quantize_kv
     rng = np.random.default_rng(b * 100 + nblk + hd)
     cap = b * nblk + 4
@@ -1266,7 +1311,9 @@ def test_paged_attention_int8_matches_plain(cuda, b, h, kh, hd, block, nblk,
     ln = torch.from_numpy(lens).to(cuda)
     kw = dict(scale=hd ** -0.5, softcap=softcap, window=window,
               scales=scales, kv_self=kv_self)
+    before = dict(_build.launches)
     got = PA.paged_attention(q, arena, pt, ln, **kw)
+    assert _launched(before) == {_form(block): 1}
     want = PA.paged_attention_ref(q, arena, pt, ln, **kw)
     again = PA.paged_attention(q, arena, pt, ln, **kw)
     torch.cuda.synchronize()
@@ -2223,8 +2270,241 @@ def test_host_copy_bounds_its_card_buffer(cuda, monkeypatch):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(cuda)
     torch.cuda.reset_peak_memory_stats(cuda)
-    host = TCK.host_copy(tree)
+    # a pool of its own: a free block that earlier tests left in a live
+    # segment could hand the chunk's buffer up to 1 MiB more than it asks
+    # (the allocator splits off no remainder of 1 MiB or less)
+    with torch.cuda.use_mem_pool(torch.cuda.MemPool()):
+        host = TCK.host_copy(tree)
     assert torch.cuda.max_memory_allocated(cuda) - base <= chunk
     for a, c in zip(TCK._flatten(host).values(), TCK._flatten(tree).values()):
         assert a.device.type == "cpu" and a.dtype == c.dtype
         assert torch.equal(a, c.cpu())
+
+
+# ------------------------------------------- the serving mesh on the card
+def _striped(pages, block, S):
+    """Stripe s of S: blocks s, s + S, ... of each sequence and their
+    global starts."""
+    b, nblk = pages.shape
+    out = []
+    for s in range(S):
+        start = ((torch.arange(nblk // S, device=pages.device) * S + s)
+                 * block).to(torch.int32)
+        out.append((pages[:, s::S].contiguous(),
+                    start.expand(b, -1).contiguous()))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+@pytest.mark.parametrize(
+    "h,kh,hd,block,nblk,window,softcap,lengths",
+    [
+        (32, 4, 128, 256, 16, 0, 0.0, [24, 310, 1030, 4088]),  # yi-6b
+        (32, 32, 80, 256, 16, 0, 0.0, [24, 310, 0, 1030]),     # zamba2
+        (32, 16, 128, 16, 96, 1025, 50.0, [1216, 1025, 17, 5]),  # gemma3
+        (14, 2, 64, 16, 32, 0, 0.0, [280, 287, 0, 296]),       # internvl2
+        (8, 4, 256, 256, 8, 0, 50.0, [300, 24, 0, 1500]),      # gemma2
+    ])
+def test_paged_attention_striped_matches_plain(cuda, h, kh, hd, block, nblk,
+                                               window, softcap, lengths, S,
+                                               int8, dtype):
+    """The serving mesh's call form: each stripe's pages at their global
+    starts (``blk_start``) with the rows' log-sum-exp, against the plain
+    version; rows that see nothing give 0 and lse -1e30; the stripes'
+    combine equals the unstriped plain call; a second call bit-equal."""
+    from repro_torch.serving.paged import quantize_kv
+    b = len(lengths)
+    rng = np.random.default_rng(hd + S)
+    cap = b * nblk
+    pages = torch.from_numpy(rng.permutation(cap).reshape(b, nblk)
+                             .astype(np.int32)).to(cuda)
+    for i, n in enumerate(lengths):   # pages past the length: missing
+        pages[i, -(-n // block):] = -1
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
+    arena = torch.randn((cap, 2, block, kh, hd), generator=g, device=cuda)
+    scales = None
+    if int8:
+        arena, scales = quantize_kv(arena)
+    else:
+        arena = arena.to(dtype)
+    kw = dict(scale=hd ** -0.5, softcap=softcap, window=window,
+              scales=scales)
+    whole = PA.paged_attention_ref(q, arena, pages, lens, **kw)
+    parts = []
+    for pg, bs in _striped(pages, block, S):
+        got = PA.paged_attention(q, arena, pg, lens, blk_start=bs,
+                                 return_lse=True, **kw)
+        want = PA.paged_attention_ref(q, arena, pg, lens, blk_start=bs,
+                                      return_lse=True, **kw)
+        again = PA.paged_attention(q, arena, pg, lens, blk_start=bs,
+                                   return_lse=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                            again[1])
+        assert float((got[0].float() - want[0].float()).abs().max()) \
+            <= ATT_TOL[dtype]
+        none = want[1] <= -1e29
+        assert torch.equal(got[1] <= -1e29, none)
+        assert not got[0][none].any()
+        if not bool(none.all()):
+            rel = (got[1] - want[1]).abs() / want[1].abs().clamp(min=1.0)
+            assert float(rel[~none].max()) <= 1e-4
+        parts.append(got)
+    o = torch.stack([p[0].float() for p in parts])
+    lse = torch.stack([p[1] for p in parts])
+    w = torch.exp(lse - lse.max(0).values)
+    comb = (w[..., None] * o).sum(0) / w.sum(0)[..., None]
+    assert float((comb - whole.float()).abs().max()) <= ATT_TOL[dtype]
+    # the unstriped call (paged_split_kernel at block 16, paged_wide_kernel
+    # at block 256) against the plain version, and untouched by the new
+    # arguments
+    from repro_torch.kernels import _build
+    before = dict(_build.launches)
+    plain = PA.paged_attention(q, arena, pages, lens, **kw)
+    assert _launched(before) == {_form(block): 1}
+    assert float((plain.float() - whole.float()).abs().max()) \
+        <= ATT_TOL[dtype]
+    assert torch.equal(plain, PA.paged_attention(q, arena, pages, lens,
+                                                 blk_start=None, **kw))
+
+
+@pytest.mark.parametrize("starts", [False, True])
+def test_paged_attention_striped_self_term_lse(cuda, starts):
+    """Over an int8 arena with the self term (the int8 island without
+    stripes) the lse counts it: a slot at 0 sees only its own key (lse =
+    its score), one at -1 nothing (-1e30); with and without block starts
+    (j * block)."""
+    from repro_torch.serving.paged import quantize_kv
+    b, h, kh, hd, block, nblk = 3, 8, 2, 64, 16, 4
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((b, h, hd), generator=g, device=cuda)
+    arena, scales = quantize_kv(torch.randn((b * nblk, 2, block, kh, hd),
+                                            generator=g, device=cuda))
+    pages = torch.arange(b * nblk, dtype=torch.int32,
+                         device=cuda).reshape(b, nblk)
+    lens = torch.tensor([37, 0, -1], dtype=torch.int32, device=cuda)
+    ks = tuple(torch.randn((b, kh, hd), generator=g, device=cuda)
+               for _ in range(2))
+    kw = dict(scale=0.125, scales=scales, kv_self=ks, return_lse=True,
+              blk_start=_striped(pages, block, 1)[0][1] if starts else None)
+    got = PA.paged_attention(q, arena, pages, lens, **kw)
+    want = PA.paged_attention_ref(q, arena, pages, lens, **kw)
+    torch.cuda.synchronize()
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5
+    assert float((got[1] - want[1]).abs().max()) <= 1e-4
+    assert bool((got[1][2] <= -1e29).all()) and not got[0][2].any()
+
+
+@pytest.mark.parametrize("arch,shape,b", [("yi-6b", (2, 2), 4),
+                                          ("yi-6b", (1, 8), 4),
+                                          ("yi-6b", (2, 2), 1),
+                                          ("zamba2-2.7b", (2, 2), 2)])
+def test_serve_mesh_step_on_card_matches_mesh_free(cuda, arch, shape, b):
+    """The mesh serve step over a debug mesh of repeated cuda:0 (every
+    coordinate on the card) against the mesh-free step on the same card,
+    3 rounds of SMOKE weights (fp32; yi-6b's 4 kv heads over 'model' 8:
+    8 stripes): logits within 1e-4, tokens equal, joined arenas within
+    1e-5; each coordinate launches its own kernel."""
+    from repro_torch import configs as TC
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as TM
+    from repro_torch.models import transformer as TTF
+    from repro_torch.serving import engine as TE
+    from repro_torch.serving import paged as TP
+    cfg = TC.get_smoke(arch)
+    with TM.force_device_count(int(np.prod(shape))):
+        mesh = TM.make_debug_mesh(*shape)
+    assert all(d.type == "cuda" for d in mesh.devices.flat)
+    params = TTF.init_model(torch.Generator(device=cuda).manual_seed(0),
+                            cfg, cuda)
+    geo = dict(batch=b, seq_len=64, kv_heads=cfg.n_kv_heads,
+               head_dim=cfg.head_dim, q_heads=cfg.n_heads, block=8)
+    geom = TP.plan_geometry(mesh=mesh, **geo)
+    free = TP.plan_geometry(**geo)
+    glob = TE.init_serve_state(cfg, free, free.cap, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for k in ("arena", "shared_arena"):
+        if k in glob:
+            glob[k][:, :free.cap] = torch.randn(
+                glob[k][:, :free.cap].shape, generator=g, device=cuda)
+    placed = TE.place_state(glob, geom, mesh)
+    rng = np.random.default_rng(2)
+    st, cl, bl = geom.stripe_total, geom.cap_local, geom.batch_local
+    free_rows = [list(rng.permutation(cl)) for _ in range(geom.cap // cl)]
+    pt = np.full((b, st, geom.nblk_local), -1, np.int32)
+    for i in range(b):
+        for j in range(geom.nblk):
+            pt[i, j % st, j // st] = free_rows[(i // bl) * st + j % st].pop()
+    pt = torch.from_numpy(pt).to(cuda)
+    lens = torch.tensor([5, 17, 40, 9][:b], dtype=torch.int32, device=cuda)
+    tokens = torch.tensor([3, 1, 4, 1][:b], dtype=torch.int32, device=cuda)
+    active = torch.ones(b, dtype=torch.bool, device=cuda)
+    mesh_step = TE.make_serve_step(cfg, geom, mesh)
+    free_step = TE.make_serve_step(cfg, free)
+    for _ in range(3):
+        wr = TP.mesh_write_rows(geom, pt, lens, active)
+        inputs = {"tokens": tokens, "lengths": lens, "write_off": lens % 8,
+                  "pt": pt, "blk_start": torch.from_numpy(
+                      TP.build_blk_start(geom)).to(cuda), "write_rows": wr}
+        before = dict(_build.launches)
+        nm, _, lm = mesh_step(params, placed, inputs)
+        torch.cuda.synchronize()
+        n_paged = sum(_build.launches[k] - before[k] for k in (
+            "paged_attention", "paged_attention_wide", "paged_attention_lse"))
+        apps = TTF.n_attn_layers(cfg) + (cfg.n_shared_applications()
+                                         if cfg.shared_attn_every else 0)
+        assert n_paged == apps * len(TP.coordinates(geom, mesh))
+        nf, _, lf = free_step(params, glob, dict(
+            inputs, pt=TP.global_page_table(geom, pt)[:, None],
+            blk_start=torch.from_numpy(TP.build_blk_start(free)).to(cuda),
+            write_rows=TP.global_write_rows(geom, wr)))
+        assert float((lm - lf).abs().max()) <= 1e-4
+        assert torch.equal(nm, nf)
+        tokens, lens = nf, lens + 1
+    joined = TE.join_state(placed, geom, mesh)
+    for k in ("arena", "shared_arena"):
+        if k in glob:
+            assert float((joined[k] - glob[k][:, :free.cap]).abs().max()) \
+                <= 1e-5
+
+
+def test_seqpar_attention_on_card_matches_mesh_free(cuda):
+    """Sequence-parallel attention over a 'model' axis of 4 (cuda:0
+    repeated) through the flash kernel, forward and backward, against the
+    same sub-layer without the mesh (bf16 within 2e-2 of the largest)."""
+    import dataclasses
+
+    from repro_torch import configs as TC
+    from repro_torch.launch import mesh as TM
+    from repro_torch.models.layers import attention as TA
+    from repro_torch.parallel import sharding as TS
+    cfg = TC.get_config("gemma2-2b")
+    p = TA.init_attention(torch.Generator(device=cuda).manual_seed(0), cfg,
+                          cuda)
+    p = {k: v.requires_grad_(True) for k, v in p.items()}
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((1, 2048, cfg.d_model), generator=g, device=cuda
+                    ).bfloat16().requires_grad_(True)
+    pos = torch.arange(2048, device=cuda)[None]
+    with TM.force_device_count(4):
+        mesh = TM.make_mesh((4,), ("model",))
+
+    def run(c, m):
+        with TS.axis_rules(TS.DEFAULT_RULES if m else None, m):
+            o = TA.attention_forward(p, c, x, pos, theta=1e4,
+                                     window=cfg.window)
+            grads = torch.autograd.grad(o.float().square().sum(),
+                                        [x] + list(p.values()))
+        return o, grads
+    o0, g0 = run(cfg, None)
+    o1, g1 = run(dataclasses.replace(cfg, attn_seq_shard=True), mesh)
+    torch.cuda.synchronize()
+    top = float(o0.float().abs().max())
+    assert float((o1.float() - o0.float()).abs().max()) <= 2e-2 * top
+    for a, c in zip(g1, g0):
+        top = float(c.float().abs().max())
+        assert float((a.float() - c.float()).abs().max()) <= 2e-2 * top

@@ -136,8 +136,9 @@ def test_padded_vocab_is_masked(smoke):
 def test_unported_configs_raise():
     """Every arch of the reference is served now (``PORTED`` is all of
     ``ARCHS``); what the port still refuses raises ``NotPorted``: a
-    device mesh for the serve state, and a stack of Mamba1 and Mamba2
-    layers."""
+    stack of Mamba1 and Mamba2 layers. A device mesh for the serve state
+    is ported (tests/test_torch_serve_mesh.py); one that is not a
+    ``launch.mesh.Mesh`` raises TypeError."""
     assert TC.PORTED == set(TC.ARCHS)
     assert set(TC.all_archs()) == set(JC.all_archs())
     for arch in TC.ARCHS:
@@ -150,7 +151,7 @@ def test_unported_configs_raise():
     from repro_torch.serving.paged import PagedGeom
     cfg = TC.get_smoke("yi-6b")
     geom = PagedGeom(8, 4, 2, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads)
-    with pytest.raises(NotPorted):
+    with pytest.raises(TypeError):
         TE.serve_state_specs(cfg, geom, mesh=object())
     mixed = dataclasses.replace(TC.get_smoke("zamba2-2.7b"),
                                 layer_pattern=("mamba1",) + ("mamba2",) * 3,

@@ -27,7 +27,6 @@ from repro.serving import engine as JE
 from repro.serving.paged import plan_geometry as j_plan
 from repro_torch import configs as TC
 from repro_torch import convert
-from repro_torch.models.config import NotPorted
 from repro_torch.serving import engine as TE
 from repro_torch.serving.paged import plan_geometry as t_plan
 
@@ -129,7 +128,8 @@ def test_serve_input_specs_match_reference(arch, batch, seq_len, block):
         shape, dtype = got[name]
         assert shape == sds.shape, name
         assert torch.empty(0, dtype=dtype).numpy().dtype == sds.dtype, name
-    with pytest.raises(NotPorted):
+    # a mesh is ported (tests/test_torch_serve_mesh.py): only a Mesh
+    with pytest.raises(TypeError):
         TE.serve_input_specs(tcfg, t_plan(**geo), mesh=object())
 
 
@@ -140,7 +140,7 @@ def test_lower_serve_step_on_the_cpu(arch):
     zeroed state and idle slots."""
     jcfg, tcfg, _, tp = weights(arch)
     shape = ShapeSpec("decode_small", 512, 3, "decode")
-    with pytest.raises(NotPorted):
+    with pytest.raises(TypeError):   # a mesh must be a launch.mesh.Mesh
         TE.lower_serve_step(tcfg, shape, tp, mesh=object(), device="cpu")
     step, extra = TE.lower_serve_step(tcfg, shape, tp, device="cpu")
     g = j_plan(batch=shape.global_batch, seq_len=shape.seq_len,
