@@ -284,16 +284,50 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               stripes, the LSE combine), over (data 2, model 2) with one
               slot of 8,184 tokens (seq 8,192, stripes over 'data'), (b)
               again on the int8 arena, and zamba2-2.7b's shared block over
-              (2, 2) with 2 slots. Pools of 24 / 310 / 1,030 / 4,088
-              tokens (seq 4,096, block 256), random K/V; 8 rounds each of
-              the mesh step and the mesh-free step from the same params
-              and pool, teacher-forced on the mesh-free tokens: logits
-              within the arch's serve bound (yi-6b 0.05; zamba2 the bound
-              serve_zamba2 measured), greedy tokens equal where the
-              mesh-free top-2 gap exceeds it, the joined bf16 arenas
-              within 2e-2 of their largest entry, paged launches exact (a
-              coordinate a layer a round, plus the mesh-free step's);
-              reports round p50s beside each other and peak memory.
+              (2, 2) with 2 slots, each with its weights placed by
+              SERVE_PARAM_RULES. Pools of 24 / 310 / 1,030 / 4,088
+              tokens (seq 4,096, block 256), random K/V and SSM states; 8
+              rounds each of the placed step, the mesh-free step and the
+              mesh-free step in fp32 (weights and pools cast up) from the
+              same params and pool, teacher-forced on the mesh-free
+              tokens: logits within twice the bf16 mesh-free step's
+              largest distance from the fp32 one (bf16's own error, the
+              rule serve_zamba2's bound follows), greedy tokens equal
+              where the mesh-free top-2 gap exceeds that, the joined bf16
+              arenas within 2e-2 of their largest entry, round 1's first
+              island within one bf16 ulp of the mesh-free island, round
+              1's collective bytes by kind equal to the phase's own
+              reckoning from the config (tp_round_collectives), paged
+              launches exact (a coordinate a layer a round, plus the two
+              mesh-free steps'); reports round p50s beside each other,
+              each step's distance from fp32 and peak memory.
+   serve_tp -- tensor-parallel weights (parallel/sharding.place_params by
+              SERVE_PARAM_RULES, the step over them coordinate by
+              coordinate with parallel/collectives.py's collectives),
+              each case held as serve_mesh holds its own: yi-6b at full
+              width over (2, 2) (heads over 'model') and (1, 8) (4 kv
+              heads replicated, 8 stripes, q gathered for the island),
+              zamba2-2.7b over (2, 2) (its SSM states placed by the
+              reference's spec), granite-moe-1b-a400m over (1, 4)
+              (experts over 'model'), 4 slots, the pools above (other
+              seeds); and a 300-token yi-6b prefill over (1, 4) (flash a
+              coordinate a layer), logits within 0.05. Reports each
+              coordinate's placed bytes, round p50s, the collective
+              bytes and peak memory.
+   train_tp -- gemma2-2b at full width (b 2, s 4,096, remat full) with
+              weights and moments placed by TRAIN_PARAM_RULES over (2, 2)
+              (FSDP 'embed' over 'data', heads / mlp / vocab over
+              'model'): loss within 1e-2 relative and every gradient leaf
+              but the tied embedding's within 5e-2 of its largest entry
+              against the mesh-free step; the embedding's (whose
+              mesh-free lookup sums its gradient in bf16) within 5e-2
+              against the mesh-free step with that sum in fp32, its
+              distance from the step as it ships reported; then one
+              AdamW update at step 1 and every parameter against the
+              mesh-free step's; step seconds, peak memory, collective
+              bytes. Then one yi-6b SMOKE step through
+              parallel/compression.make_compressed_grad_fn over (pod 2,
+              data 1, model 2) against the same on the CPU.
    train_seqpar -- one gemma2-2b training step at full width (b 1, s
               8,192, remat full) with ``attn_seq_shard`` over a 'model'
               axis of 4 entries (cuda:0 repeated) against the same step
@@ -335,10 +369,11 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               device time by family, idle share), and for zamba2's
               300-token prefill.
 
-Phases 3-6 are twenty-five main paths (train, serve_gemma3, serve_gemma2,
+Phases 3-6 are twenty-seven main paths (train, serve_gemma3, serve_gemma2,
 serve_starcoder2, serve_falcon_mamba, serve_granite_moe, serve_phi35_moe,
 serve_internvl2, serve_seamless, serve, serve_zamba2, serve_int8,
-serve_int8_zamba2, serve_mesh, train_seqpar, Table 2 plain, Table 2
+serve_int8_zamba2, serve_mesh, train_seqpar, serve_tp, train_tp,
+Table 2 plain, Table 2
 indexed, Fig. 1, wire, graphs,
 shards, mesh, snapshot, cluster, cluster_chaos; the twelve serve
 paths run first, since their warm round check reads the card's copy
@@ -368,6 +403,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import pathlib
 import re
 import socket
@@ -405,6 +441,9 @@ from repro_torch.models.config import MAMBA2, NotPorted  # noqa: E402
 from repro_torch.models.layers import attention as AT  # noqa: E402
 from repro_torch.models.layers import moe as MOE  # noqa: E402
 from repro_torch.models.layers import ssm as SSM  # noqa: E402
+from repro_torch.models.params import param_axes  # noqa: E402
+from repro_torch.parallel import collectives as CO  # noqa: E402
+from repro_torch.parallel import sharding as SHD  # noqa: E402
 from repro_torch.roofline import analysis as RF  # noqa: E402
 from repro_torch.serving import paged as PG  # noqa: E402
 from repro_torch.serving import engine as SE  # noqa: E402
@@ -460,27 +499,31 @@ def device_us(event) -> float:
             else event.self_cuda_time_total)
 
 
-def device_events(fn, iters=1, tries=8):
+def device_events(fn, iters=1, tries=8, want=1, windows=None):
     """The CUDA activities (kernels, memsets, copies) of ``iters`` calls of
     ``fn`` after one warm-up call, from the profiler. Every ``fn`` timed
     here puts work on the card, yet on the H100 the profiler now and then
     returned a window with no CUDA activity at all (cause unknown; late in
     a run every other short window came back empty, and once three in a
-    row did, early): such a window is profiled again, up to ``tries``
-    times."""
+    row did, early), or with one record of a call's two kernels: a window
+    with fewer than ``want`` activities is profiled again, up to ``tries``
+    times (the windows it took are appended to ``windows``, where given,
+    for the caller to report)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
-    for _ in range(tries):
+    for n in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             sync()
         events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
-        if events:
+        if len(events) >= want:
             break
+    if windows is not None:
+        windows.append(n)
     return events
 
 
@@ -986,7 +1029,9 @@ def shard_kernel_timing(dev, card):
     rows_out = []
 
     def row(label, kernel, run, separate, nbytes, ops, launches):
-        names = [e.name for e in device_events(run)]
+        windows = []
+        names = [e.name for e in device_events(run, want=launches,
+                                               windows=windows)]
         if len(names) != launches:
             raise AssertionError(f"{label}: one call ran {names}")
         b_ms, b_by = bound(nbytes, ops)
@@ -996,7 +1041,8 @@ def shard_kernel_timing(dev, card):
             "separate_calls_device_ms": call_device_ms(separate),
             "separate_calls_ms": time_ms(separate),
             "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "device_events_one_call": names})
+            "library_ms": None, "device_events_one_call": names,
+            "profile_windows": windows[0]})
 
     n = n_sh * cap_s
     for w in (1, 32):
@@ -5239,7 +5285,8 @@ def island_round1(cfg, geom, free, mesh, placed, glob, inputs, free_in,
         args_m.append(placed[key + "_scale"].layer(0))
         args_f.append(glob[key + "_scale"][0])
     counts = dict(_build.launches)
-    a = PG.make_paged_island(geom, mesh, **kw)(q, k_new, v_new, *args_m)[0]
+    a = PG.gather_heads(geom, mesh, PG.make_paged_island(geom, mesh, **kw)(
+        *PG.scatter_heads(geom, mesh, q, k_new, v_new), *args_m)[0])
     c = PG.make_paged_island(free, None, **kw)(q, k_new, v_new, *args_f)[0]
     sync()
     _build.launches.update(counts)   # a comparison: no path's launches
@@ -5264,32 +5311,66 @@ def mesh_pool(geom, dev, seed):
     return torch.from_numpy(pt).to(dev)
 
 
-def serve_mesh_case(card, dev, params, cfg, name, mshape, b, lengths, seq,
-                    int8, want, atol):
-    """One case: the mesh step and the mesh-free step from the same params
-    and pool, MESH_ROUNDS rounds teacher-forced on the mesh-free step's
-    tokens; each round's logits within ``atol`` (the arch's serve phase's
-    bound), greedy tokens equal wherever the mesh-free top-2 gap exceeds
-    it, the bf16 arenas joined back within ARENA_REL_TOL of their largest
-    entry at the end; and round 1's first island held within one bf16 ulp
-    of the mesh-free island on the same inputs (:func:`island_round1`).
-    Adds the paged launches the two steps make to ``want``."""
+def _clone_state(state):
+    """A deep copy of a mesh-free serve state."""
+    return tree_map(lambda t: t.clone(), state)
+
+
+def _rounds(step, params, state, inputs_of, rounds, log=False):
+    """``rounds`` steps of ``step`` on ``inputs_of(r)``: each round's
+    next tokens and logits (on the CPU), its milliseconds, and round 1's
+    collective log where ``log``."""
+    nxt, logits, ms, first = [], [], [], None
+    for r in range(rounds):
+        inputs = inputs_of(r)
+        sync()
+        t0 = time.perf_counter()
+        with CO.recording() as rec:
+            n, _, lg = step(params, state, inputs)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if log and first is None:
+            first = rec
+        nxt.append(n.cpu())
+        logits.append(lg.float().cpu())
+    return nxt, logits, ms, first
+
+
+def placed_serve_case(phase, card, dev, params, cfg, name, mshape, b,
+                      lengths, seq, int8, want, seeds):
+    """One case of ``serve_mesh`` / ``serve_tp``: the weights placed by
+    SERVE_PARAM_RULES over the mesh (``cuda:0`` repeated), the placed step
+    against the mesh-free step from the same weights, pools and SSM states
+    (``seeds``: the pools' and the first tokens'), MESH_ROUNDS rounds
+    teacher-forced on the mesh-free step's tokens. The logit bound is
+    bf16's own error, measured here as the serve phases measure zamba2's
+    (``teacher_forced`` with ``atol=None``): the same mesh-free step in
+    fp32 (weights and pools cast up; an int8 arena kept) on the same
+    tokens, and the placed step may differ from the bf16 mesh-free step
+    by at most twice the latter's largest distance from the fp32 one. Also
+    held: no token flip where the mesh-free top-2 gap exceeds that bound;
+    the bf16 arenas joined back within ARENA_REL_TOL of their largest
+    entry; round 1's first island within one bf16 ulp of the mesh-free
+    island on the same inputs (:func:`island_round1`); round 1's
+    collectives equal to :func:`tp_round_collectives`; the paged launches
+    exactly one a coordinate an attention application a round (the two
+    mesh-free steps' one an application). Adds the launches to ``want``."""
     if int8:
         cfg = dataclasses.replace(cfg, kv_quant_int8=True)
     n = int(np.prod(mshape))
     with MESH.force_device_count(n):
         mesh = MESH.make_debug_mesh(*mshape)
     if any(d != dev for d in mesh.devices.flat):
-        raise AssertionError(f"serve_mesh {name}: a coordinate is not on "
+        raise AssertionError(f"{phase} {name}: a coordinate is not on "
                              f"{dev}: {list(mesh.devices.flat)}")
     geo = dict(batch=b, seq_len=seq, kv_heads=cfg.n_kv_heads,
                head_dim=cfg.head_dim, q_heads=cfg.n_heads, block=MESH_BLOCK)
     geom = PG.plan_geometry(mesh=mesh, **geo)
     free = PG.plan_geometry(**geo)
-    torch.cuda.reset_peak_memory_stats(dev)
     resident = torch.cuda.memory_allocated(dev)   # weights, held engines
+    torch.cuda.reset_peak_memory_stats(dev)
     glob = SE.init_serve_state(cfg, free, free.cap, dev)
-    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    g = torch.Generator(device=dev).manual_seed(seeds[0])
     for key in ("arena", "shared_arena"):
         if key not in glob:
             continue
@@ -5302,59 +5383,91 @@ def serve_mesh_case(card, dev, params, cfg, name, mshape, b, lengths, seq,
         else:
             glob[key][:, :free.cap] = kv.to(glob[key].dtype)
         del kv
-    placed = SE.place_state(glob, geom, mesh)
-    mesh_step = SE.make_serve_step(cfg, geom, mesh)
-    free_step = SE.make_serve_step(cfg, free)
+    for t in glob.get("ssm", {}).values():
+        t.copy_((torch.randn(t.shape, generator=g, device=dev) * 0.1)
+                .to(t.dtype))
+    start = _clone_state(glob)
     pt = mesh_pool(geom, dev, SEED + len(name))
     pt_free = PG.global_page_table(geom, pt)[:, None]
     bs = torch.from_numpy(PG.build_blk_start(geom)).to(dev)
     bs_free = torch.from_numpy(PG.build_blk_start(free)).to(dev)
-    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    tokens = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
-        0, cfg.vocab, b).astype(np.int32)).to(dev)
+    apps = (TF.n_attn_layers(cfg) + (cfg.n_shared_applications()
+                                     if cfg.shared_attn_every else 0))
     before = dict(_build.launches)
-    mesh_ms, free_ms, errs, scale, flips, near = [], [], [], [], 0, 0
-    first = None   # round 1's inputs and the first island's arena copies
+
+    # the mesh-free step picks the tokens; every run is fed them
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(seeds[1]).integers(
+        0, cfg.vocab, b).astype(np.int32)).to(dev)
+    mesh_in, free_in, live = [], [], []
+    free_step = SE.make_serve_step(cfg, free)
+    nxt_f, lg_f, free_ms = [], [], []
     for _ in range(MESH_ROUNDS):
         active = lens < seq
         wr = PG.mesh_write_rows(geom, pt, lens, active)
-        inputs = {"tokens": tokens, "lengths": lens,
-                  "write_off": lens % MESH_BLOCK, "pt": pt,
-                  "blk_start": bs, "write_rows": wr}
-        free_in = dict(inputs, pt=pt_free, blk_start=bs_free,
-                       write_rows=PG.global_write_rows(geom, wr))
-        if first is None:
-            key = "arena" if "arena" in glob else "shared_arena"
-            keys = (key, key + "_scale") if int8 else (key,)
-            first = (dict(inputs), dict(free_in),
-                     {k: PG.Shards({c: t[:1].clone() for c, t in
-                                    placed[k].items()}) for k in keys},
-                     {k: glob[k][:1].clone() for k in keys})
-        sync()
-        t0 = time.perf_counter()
-        nxt_m, _, lg_m = mesh_step(params, placed, inputs)
-        sync()
-        t1 = time.perf_counter()
-        nxt_f, _, lg_f = free_step(params, glob, free_in)
-        sync()
-        mesh_ms.append((t1 - t0) * 1e3)
-        free_ms.append((time.perf_counter() - t1) * 1e3)
-        live = active.cpu()
-        a, c = lg_m[:, :cfg.vocab].float().cpu(), lg_f[:, :cfg.vocab].float().cpu()
-        errs.append(float((a - c).abs()[live].max()))
-        top2 = c.topk(2, dim=-1).values
-        gap = (top2[:, 0] - top2[:, 1])
-        differ = (nxt_m.cpu() != nxt_f.cpu()) & live
-        near += int((differ & (gap <= atol)).sum())
-        flips += int((differ & (gap > atol)).sum())
-        scale.append(float(c[live].std()))
-        tokens = torch.where(active, nxt_f, 0).to(torch.int32)
+        mesh_in.append({"tokens": tokens, "lengths": lens,
+                        "write_off": lens % MESH_BLOCK, "pt": pt,
+                        "blk_start": bs, "write_rows": wr})
+        free_in.append(dict(mesh_in[-1], pt=pt_free, blk_start=bs_free,
+                            write_rows=PG.global_write_rows(geom, wr)))
+        live.append(active.cpu())
+        nx, lg, ms, _ = _rounds(free_step, params, glob,
+                                lambda r: free_in[-1], 1)
+        nxt_f += nx
+        lg_f += lg
+        free_ms += ms
+        tokens = torch.where(active, nx[0].to(dev), 0).to(torch.int32)
         lens = lens + active.to(torch.int32)
+
+    # the same mesh-free step in fp32 on the same tokens
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = tree_map(lambda t: t.float(), params)
+    s32 = SE.init_serve_state(cfg32, free, free.cap, dev)
+    for key, t in start.items():
+        if key == "ssm":
+            for k, v in t.items():
+                s32["ssm"][k].copy_(v)
+        else:
+            s32[key].copy_(t)
+    _, lg_32, _, _ = _rounds(SE.make_serve_step(cfg32, free), p32, s32,
+                             lambda r: free_in[r], MESH_ROUNDS)
+    del p32, s32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the placed step
+    placed = SE.place_state(start, geom, mesh)
+    key = "arena" if "arena" in start else "shared_arena"
+    keys = (key, key + "_scale") if int8 else (key,)
+    first = ({k: PG.Shards({c: t[:1].clone() for c, t in placed[k].items()})
+              for k in keys}, {k: start[k][:1].clone() for k in keys})
+    del start
+    weights = SHD.place_params(params, param_axes(cfg),
+                               SHD.SERVE_PARAM_RULES, mesh)
+    per_coord = placed_bytes(weights)
+    nxt_m, lg_m, mesh_ms, log1 = _rounds(
+        SE.make_serve_step(cfg, geom, mesh), weights, placed,
+        lambda r: mesh_in[r], MESH_ROUNDS, log=True)
     launched = {k: v - before[k] for k, v in _build.launches.items()
                 if v != before[k]}
+
+    def dist(xs, ys):
+        return [float((x[:, :cfg.vocab] - y[:, :cfg.vocab]).abs()[lv].max())
+                for x, y, lv in zip(xs, ys, live)]
+    errs, free_vs_32, placed_vs_32 = (dist(lg_m, lg_f), dist(lg_f, lg_32),
+                                      dist(lg_m, lg_32))
+    atol = 2 * max(free_vs_32)
+    flips = near = 0
+    for nm, nf, lf, lv in zip(nxt_m, nxt_f, lg_f, live):
+        top2 = lf[:, :cfg.vocab].topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        differ = (nm != nf) & lv
+        near += int((differ & (gap <= atol)).sum())
+        flips += int((differ & (gap > atol)).sum())
+    scale = max(float(lf[lv, :cfg.vocab].std()) for lf, lv in zip(lg_f, live))
     isl_ulps, isl_diff, isl_max = island_round1(
-        cfg, geom, free, mesh, first[2], first[3], first[0], first[1], int8,
-        dev)
+        cfg, geom, free, mesh, first[0], first[1], mesh_in[0], free_in[0],
+        int8, dev)
     first = None
     joined = SE.join_state(placed, geom, mesh)
     arena_err = {k: float((joined[k].float() - glob[k][:, :free.cap]
@@ -5363,68 +5476,85 @@ def serve_mesh_case(card, dev, params, cfg, name, mshape, b, lengths, seq,
                  for k in ("arena", "shared_arena", "arena_scale",
                            "shared_arena_scale") if k in joined}
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    apps = (TF.n_attn_layers(cfg) + (cfg.n_shared_applications()
-                                     if cfg.shared_attn_every else 0))
     coords = len(PG.coordinates(geom, mesh))
     # pages of 256 launch paged_wide_kernel: with the lse where stripes
-    # are combined, else (head-sharded coordinates, the mesh-free step)
-    # with an output of q's dtype
-    form = "paged_attention_lse" if geom.stripe_total > 1 \
-        else "paged_attention_wide"
-    mine = {form: MESH_ROUNDS * apps * coords}
-    mine["paged_attention_wide"] = mine.get("paged_attention_wide", 0) \
-        + MESH_ROUNDS * apps
-    report = {
-        "phase": "serve_mesh", "case": name, "card": card, "arch": cfg.name,
-        "mesh": mesh.shape, "distinct_devices": len(set(mesh.devices.flat)),
-        "slots": b, "pool_lengths": lengths, "seq": seq,
-        "block": MESH_BLOCK, "int8_arena": int8,
-        "geometry": {"batch_axes": geom.batch_axes,
-                     "head_axes": geom.head_axes,
-                     "stripe_axes": geom.stripe_axes,
-                     "stripe_total": geom.stripe_total,
-                     "nblk_local": geom.nblk_local,
-                     "cap_local": geom.cap_local},
-        "rounds": MESH_ROUNDS, "round_ms_p50": p50(mesh_ms),
-        "mesh_free_round_ms_p50": p50(free_ms), "round_ms": mesh_ms,
-        "logit_max_abs_diff": max(errs), "logit_bound": atol,
-        "logit_max_abs_diff_by_round": errs,
-        "round1_island_max_ulps": isl_ulps,
-        "round1_island_max_abs_diff": isl_diff,
-        "round1_island_max_abs": isl_max,
-        "round1_island_bound": {"ulp": ISLAND_ULP, "atol": ISLAND_ATOL},
-        "mesh_free_logit_std": max(scale),
-        "token_flips_beyond_bound": flips, "token_flips_near_tie": near,
-        "arena_max_rel_diff": arena_err, "arena_rel_tol": ARENA_REL_TOL,
-        "peak_gb": peak,
-        "resident_gb_at_start": resident / 1e9,
-        "launches": launched, "launches_expected": mine}
-    emit(report)
+    # are combined, else (head-sharded coordinates, the two mesh-free
+    # steps) with an output of q's dtype
+    form = ("paged_attention_lse" if geom.stripe_total > 1
+            else "paged_attention_wide")
+    mine = {}
+    if apps:
+        mine = {form: MESH_ROUNDS * apps * coords}
+        mine["paged_attention_wide"] = (mine.get("paged_attention_wide", 0)
+                                        + 2 * MESH_ROUNDS * apps)
+    got_cb = RF.collective_bytes(log1)
+    want_cb = tp_round_collectives(cfg, geom, mesh)
+    from repro_torch.roofline.profile import top_collectives
+    rows, _ = top_collectives(log1, 5)
+    emit({"phase": phase, "case": name, "card": card, "arch": cfg.name,
+          "mesh": mesh.shape, "distinct_devices": len(set(mesh.devices.flat)),
+          "slots": b, "pool_lengths": lengths, "seq": seq,
+          "block": MESH_BLOCK, "int8_arena": int8,
+          "geometry": {"batch_axes": geom.batch_axes,
+                       "head_axes": geom.head_axes,
+                       "stripe_axes": geom.stripe_axes,
+                       "stripe_total": geom.stripe_total,
+                       "nblk_local": geom.nblk_local,
+                       "cap_local": geom.cap_local},
+          "placed_bytes_per_coordinate": per_coord,
+          "whole_bytes": sum(t.numel() * t.element_size() for t in
+                             _tree_leaves(params)),
+          "rounds": MESH_ROUNDS, "round_ms_p50": p50(mesh_ms),
+          "mesh_free_round_ms_p50": p50(free_ms), "round_ms": mesh_ms,
+          "logit_max_abs_diff": max(errs), "logit_bound": atol,
+          "logit_max_abs_diff_by_round": errs,
+          "mesh_free_vs_fp32_max_abs": max(free_vs_32),
+          "placed_vs_fp32_max_abs": max(placed_vs_32),
+          "mesh_free_vs_fp32_by_round": free_vs_32,
+          "placed_vs_fp32_by_round": placed_vs_32,
+          "mesh_free_logit_std": scale,
+          "token_flips_beyond_bound": flips, "token_flips_near_tie": near,
+          "round1_island_max_ulps": isl_ulps,
+          "round1_island_max_abs_diff": isl_diff,
+          "round1_island_max_abs": isl_max,
+          "round1_island_bound": {"ulp": ISLAND_ULP, "atol": ISLAND_ATOL},
+          "arena_max_rel_diff": arena_err, "arena_rel_tol": ARENA_REL_TOL,
+          "collective_bytes_round": got_cb,
+          "collective_bytes_reckoned": want_cb,
+          "collectives_a_round": len(log1),
+          "top_collectives": [list(r) for r in rows],
+          "peak_gb": peak, "resident_gb_at_start": resident / 1e9,
+          "launches": launched, "launches_expected": mine,
+          "paged_launches_per_coordinate_round": apps})
     if launched != mine:
-        raise AssertionError(f"serve_mesh {name}: launches {launched}, "
+        raise AssertionError(f"{phase} {name}: launches {launched}, "
                              f"expected {mine}")
-    if not isl_ulps <= 1.0:
-        raise AssertionError(f"serve_mesh {name}: round 1's first island "
+    if got_cb != want_cb:
+        raise AssertionError(f"{phase} {name}: collectives {got_cb}, "
+                             f"reckoned {want_cb}")
+    if apps and not isl_ulps <= 1.0:
+        raise AssertionError(f"{phase} {name}: round 1's first island "
                              f"differs from the mesh-free one by "
                              f"{isl_ulps} bf16 ulps ({isl_diff})")
     if not (max(errs) <= atol and flips == 0):
-        raise AssertionError(f"serve_mesh {name}: logits {max(errs)} / "
-                             f"{flips} flips against the mesh-free step")
-    if not int8 and not max(arena_err.values()) <= ARENA_REL_TOL:
-        raise AssertionError(f"serve_mesh {name}: arenas {arena_err}")
+        raise AssertionError(f"{phase} {name}: logits {max(errs)} (bound "
+                             f"{atol}) / {flips} flips against the "
+                             f"mesh-free step")
+    if not int8 and arena_err and not max(arena_err.values()) <= \
+            ARENA_REL_TOL:
+        raise AssertionError(f"{phase} {name}: arenas {arena_err}")
     for k, v in mine.items():
         want[k] = want.get(k, 0) + v
-    del placed, glob
+    del placed, glob, weights
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def phase_serve_mesh(card, dev, held, bounds):
+def phase_serve_mesh(card, dev, held):
     """The serving mesh at full width (MESH_CASES): yi-6b's weights for
-    its four cases, then zamba2-2.7b's; each case against the mesh-free
-    step on the same card, within ``bounds[arch]``, the logit bound the
-    arch's serve phase held (yi-6b's fixed 0.05; zamba2's measured in the
-    same call)."""
+    its four cases, then zamba2-2.7b's; each case placed by
+    SERVE_PARAM_RULES against the mesh-free step on the same card
+    (:func:`placed_serve_case`)."""
     want = held["want"] = dict.fromkeys(_build.KERNELS, 0)
     params, arch = None, None
     for name, a, mshape, b, lengths, seq, int8 in MESH_CASES:
@@ -5436,8 +5566,8 @@ def phase_serve_mesh(card, dev, held, bounds):
             params = TF.init_model(
                 torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
             arch = a
-        serve_mesh_case(card, dev, params, cfg, name, mshape, b, lengths,
-                        seq, int8, want, bounds[a])
+        placed_serve_case("serve_mesh", card, dev, params, cfg, name, mshape,
+                          b, lengths, seq, int8, want, (SEED + 11, SEED + 2))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5575,6 +5705,359 @@ TRAIN_SOURCES = {
 }
 
 
+
+# ------------------------------------ phases: tensor-parallel weights
+TP_CASES = [
+    # name, arch, mesh (data, model), slots, pool lengths, seq
+    ("yi_2x2", "yi-6b", (2, 2), 4, YI_MESH_LENGTHS, 4096),
+    ("yi_1x8", "yi-6b", (1, 8), 4, YI_MESH_LENGTHS, 4096),
+    ("zamba2_2x2", "zamba2-2.7b", (2, 2), 4, YI_MESH_LENGTHS, 4096),
+    ("granite_1x4", "granite-moe-1b-a400m", (1, 4), 4, YI_MESH_LENGTHS,
+     4096),
+]
+TP_PREFILL = ("yi-6b", (1, 4), 300)
+TP_TRAIN = ("gemma2-2b", (2, 2), 2, 4096)      # arch, mesh, b, s
+TP_COMPRESS = ("yi-6b", (2, 1, 2))              # SMOKE, (pod, data, model)
+
+
+def tp_round_collectives(cfg, geom, mesh) -> dict:
+    """The collectives a placed serve round issues, per participant, by
+    kind, reckoned from the config and the paged plan (the rules of
+    ``parallel/sharding.place_params`` and the TP step): the embedding's
+    fp32 psum and the logits' all-gather where 'model' cuts the
+    vocabulary; a layer's fp32 partial sums of wo / w_down / the experts /
+    out_proj where 'model' cuts their rows; q gathered over 'model' where
+    the island's heads are all of them (striped blocks) but the weights
+    cut them; the stripes' lse max and two sums; the MoE router's logits
+    gathered and its fractions summed over the batch axes; Mamba2's gated
+    norm sum and its conv_bc tail gathered where the state's spec cuts
+    it."""
+    m = int(mesh.shape["model"])
+    bax = [a for a in geom.batch_axes if int(mesh.shape[a]) > 1]
+    bl = geom.batch // math.prod(int(mesh.shape[a]) for a in bax)
+    d, item = cfg.d_model, torch.finfo(cfg.dtype).bits // 8
+    ar = ag = 0
+    if cfg.padded_vocab % m == 0:
+        ar += bl * d * 4
+        ag += bl * cfg.padded_vocab * 4
+    h, hd = cfg.n_heads, cfg.head_dim
+    hi = h // geom.head_shards                    # the island's heads
+    per_attn = ag_q = 0
+    if h % m == 0:
+        per_attn += bl * d * 4                    # wo
+        if m > 1 and "model" not in geom.head_axes:
+            ag_q = bl * h * hd * item             # q for the island
+    stripe_ar = 0
+    if geom.stripe_total > 1:
+        stripe_ar = bl * hi * 4 * 2 + bl * hi * hd * 4
+    ffn_ar, ffn_ag = 0, 0
+    if cfg.is_moe:
+        e = cfg.n_experts
+        if e % m == 0:
+            ffn_ag += bl * e * 4
+            ffn_ar += bl * d * 4
+        if bax:
+            ffn_ar += 2 * e * 4
+    elif cfg.d_ff % m == 0:
+        ffn_ar += bl * d * 4
+    apps = TF.n_attn_layers(cfg) + (cfg.n_shared_applications()
+                                    if cfg.shared_attn_every else 0)
+    ar += apps * (per_attn + stripe_ar + ffn_ar)
+    ag += apps * (ag_q + ffn_ag)
+    n_m2 = sum(k == MAMBA2 for k in cfg.layer_pattern)
+    if n_m2:
+        di, st2 = cfg.d_inner, 2 * cfg.ssm_state
+        if di % m == 0:
+            ar += n_m2 * (bl * 4 + bl * d * 4)
+        if st2 % m == 0:
+            ag += n_m2 * bl * (cfg.ssm_conv - 1) * st2 * item
+    out = {k: 0 for k in CO.KINDS}
+    out["all-reduce"], out["all-gather"] = ar, ag
+    out["total"] = ar + ag
+    return out
+
+
+def placed_bytes(tree) -> dict:
+    """Bytes each coordinate holds of a placed tree."""
+    out: dict = {}
+    for leaf in _placed_leaves(tree):
+        for key, t in leaf.items():
+            out[str(key)] = out.get(str(key), 0) + t.numel() * t.element_size()
+    return out
+
+
+def _placed_leaves(tree):
+    if isinstance(tree, SHD.Placed):
+        return [tree]
+    return [x for v in tree.values() for x in _placed_leaves(v)]
+
+
+def _tree_leaves(tree):
+    from repro_torch.optim.adamw import tree_leaves
+    return tree_leaves(tree)
+
+
+def serve_tp_prefill(card, dev, params, cfg, want, atol):
+    """yi-6b's 300-token prefill with weights placed over (1, 4): every
+    coordinate's heads through the flash kernel (one launch a coordinate
+    a layer), logits against the mesh-free prefill within ``atol``."""
+    arch, mshape, n_tok = TP_PREFILL
+    with MESH.force_device_count(int(np.prod(mshape))):
+        mesh = MESH.make_debug_mesh(*mshape)
+    weights = SHD.place_params(params, param_axes(cfg),
+                               SHD.SERVE_PARAM_RULES, mesh)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 4).integers(
+        0, cfg.vocab, (1, n_tok)).astype(np.int32)).to(dev)
+    before = dict(_build.launches)
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        with CO.recording() as log:
+            lt, _ = TF.prefill(weights, cfg, {"tokens": tokens})
+        sync()
+        t1 = time.perf_counter()
+        lf, _ = TF.prefill(params, cfg, {"tokens": tokens})
+        sync()
+        t2 = time.perf_counter()
+    launched = {k: v - before[k] for k, v in _build.launches.items()
+                if v != before[k]}
+    la = TF.n_attn_layers(cfg)
+    mine = {"flash_attention": la * mesh.size + la}
+    err = float((lt[:, :cfg.vocab].float() - lf[:, :cfg.vocab].float())
+                .abs().max())
+    emit({"phase": "serve_tp", "case": "prefill", "card": card,
+          "arch": cfg.name, "mesh": mesh.shape, "tokens": n_tok,
+          "prefill_ms": (t1 - t0) * 1e3, "mesh_free_prefill_ms":
+          (t2 - t1) * 1e3, "logit_max_abs_diff": err, "logit_bound": atol,
+          "collective_bytes": RF.collective_bytes(log), "launches": launched,
+          "launches_expected": mine})
+    if launched != mine:
+        raise AssertionError(f"serve_tp prefill: launches {launched}, "
+                             f"expected {mine}")
+    if not err <= atol:
+        raise AssertionError(f"serve_tp prefill: logits {err} > {atol}")
+    for k, v in mine.items():
+        want[k] = want.get(k, 0) + v
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_tp(card, dev, held):
+    """Tensor-parallel weights in the serve step (TP_CASES,
+    :func:`placed_serve_case`) and a placed prefill, each against the
+    mesh-free step from the same weights on the same card (every
+    coordinate cuda:0)."""
+    want = held["want"] = dict.fromkeys(_build.KERNELS, 0)
+    params, arch = None, None
+    for name, a, mshape, b, lengths, seq in TP_CASES:
+        if a != arch:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg = configs.get_config(a)
+            params = TF.init_model(
+                torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+            arch = a
+        placed_serve_case("serve_tp", card, dev, params, cfg, name, mshape,
+                          b, lengths, seq, False, want, (SEED + 21, SEED + 3))
+        if name == "yi_1x8":
+            serve_tp_prefill(card, dev, params, cfg, want, SERVE_LOGIT_ATOL)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+TP_LOSS_TOL = TRAIN_LOSS_TOL     # relative (phase train's bounds)
+TP_GRAD_TOL = TRAIN_GRAD_TOL     # of each leaf's largest entry
+
+
+def _leaf_errs(names, got, want) -> dict:
+    """Each leaf's largest difference over ``want``'s largest entry
+    (``got`` may be a generator: one leaf at a time)."""
+    out = {}
+    for name, a, c in zip(names, got, want):
+        top = float(c.float().abs().max())
+        out[name] = float((a.float() - c.float()).abs().max()) / max(top,
+                                                                     1e-30)
+    return out
+
+
+def embed_tokens_fp32_grad(params, cfg, tokens):
+    """``TF.embed_tokens`` with its gradient summed in fp32: the rows read
+    from an fp32 copy of the table (the same values), as the placed
+    lookup reads them under autograd. The mesh-free lookup's bf16
+    scatter-add loses much of a frequent token's gradient (ROADMAP Queue
+    3), so ``train_tp`` holds the placed ``embed`` gradient against the
+    mesh-free step with this lookup and reports its distance from the
+    mesh-free step as it ships."""
+    x = params["embed"].float()[tokens.long()].to(params["embed"].dtype)
+    if cfg.scale_embeddings:
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                           device=x.device)
+    return x
+
+
+def phase_train_tp(card, dev, held):
+    """gemma2-2b at full width (b 2, s 4,096, remat full) with weights and
+    moments placed by TRAIN_PARAM_RULES over (data 2, model 2) of cuda:0:
+    the loss and every gradient leaf but ``embed`` against the mesh-free
+    step on the same batch; ``embed`` (whose mesh-free lookup sums its
+    gradient in bf16) against the mesh-free step with its lookup's
+    gradient summed in fp32 (:func:`embed_tokens_fp32_grad`), its
+    distance from the mesh-free step as it ships reported beside; then
+    one AdamW update at step 1 and every parameter against the mesh-free
+    step's; the step's seconds, peak memory and collective bytes. Then
+    one SMOKE step through ``make_compressed_grad_fn`` over (pod 2, data
+    1, model 2) against the same on the CPU."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.schedule import cosine_schedule
+    from repro_torch.training.loop import to_device
+    from repro_torch.training.step import make_loss_grad_fn, make_train_step
+    want = held["want"] = dict.fromkeys(_build.KERNELS, 0)
+    arch, mshape, b, s = TP_TRAIN
+    cfg = configs.get_config(arch)
+    with MESH.force_device_count(int(np.prod(mshape))):
+        mesh = MESH.make_debug_mesh(*mshape)
+    params = TF.init_model(torch.Generator(device=dev).manual_seed(SEED),
+                           cfg, dev)
+    batch = to_device(make_batch(cfg, b, s, seed=SEED), dev)
+    names = list(_flat_names(params))
+    torch.cuda.reset_peak_memory_stats(dev)
+    grad_fn = make_loss_grad_fn(cfg, remat="full")
+    step_fn = make_train_step(cfg, remat="full")
+    with patched(TF, "embed_tokens", embed_tokens_fp32_grad):
+        embed32 = grad_fn(params, batch)[1]["embed"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    (loss_f, _), g_f = grad_fn(params, batch)
+    g_f = _tree_leaves(g_f)
+    upd_f = SHD._tree_map(lambda t: t.clone(), params)
+    opt = adamw_init(upd_f)
+    sync()
+    t0 = time.perf_counter()
+    _, _, m_f = step_fn(upd_f, opt, batch, 1)
+    sync()
+    free_s = time.perf_counter() - t0
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    placed = SHD.place_params(params, param_axes(cfg),
+                              SHD.TRAIN_PARAM_RULES, mesh)
+    del params   # the whole copy (upd_f is the mesh-free step's)
+    per_coord = placed_bytes(placed)
+    (loss_p, _), g_p = grad_fn(placed, batch)
+    g_errs = _leaf_errs(names, (SHD.join_placed(x) for x in
+                                _placed_leaves(g_p)), g_f)
+    embed_p = SHD.join_placed(g_p["embed"])
+    embed_errs = {
+        "placed_vs_fp32_lookup": _leaf_errs(["e"], [embed_p], [embed32])["e"],
+        "mesh_free_vs_fp32_lookup": _leaf_errs(
+            ["e"], [g_f[names.index("embed")]], [embed32])["e"]}
+    del g_p, g_f, embed_p, embed32
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt_p = adamw_init(placed)
+    sync()
+    t0 = time.perf_counter()
+    with CO.recording() as log:
+        _, _, m_p = step_fn(placed, opt_p, batch, 1)
+    sync()
+    tp_s = time.perf_counter() - t0
+    p_errs = _leaf_errs(names, (SHD.join_placed(x) for x in
+                                _placed_leaves(placed)),
+                        _tree_leaves(upd_f))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    for _ in range(5):   # the three mesh-free grads and the two steps
+        expect_launches(want, cfg, "full", 1)
+    for _ in range(2 * (mesh.size - 1)):   # the placed ones: a coordinate
+        expect_launches(want, cfg, "full", 1)
+    loss_rel = abs(float(loss_p) - float(loss_f)) / abs(float(loss_f))
+    step_rel = abs(float(m_p["loss"]) - float(m_f["loss"])) / abs(
+        float(m_f["loss"]))
+    checked = {k: v for k, v in g_errs.items() if k != "embed"}
+    report = {"phase": "train_tp", "card": card, "arch": cfg.name,
+              "mesh": mesh.shape, "batch": b, "seq": s, "remat": "full",
+              "lr_step1": cosine_schedule(1),
+              "loss_placed": float(loss_p), "loss_mesh_free": float(loss_f),
+              "loss_rel_diff": max(loss_rel, step_rel),
+              "loss_tol": TP_LOSS_TOL,
+              "grad_norm_placed": float(m_p["grad_norm"]),
+              "grad_norm_mesh_free": float(m_f["grad_norm"]),
+              "grad_rel_err_max_but_embed": max(checked.values()),
+              "grad_rel_err": g_errs,
+              "grad_excluded": {"embed": g_errs["embed"]},
+              "embed_grad_rel_err": embed_errs,
+              "param_rel_err_max": max(p_errs.values()),
+              "grad_tol": TP_GRAD_TOL, "step_s": tp_s,
+              "mesh_free_step_s": free_s, "peak_gb": peak,
+              "placed_bytes_per_coordinate": per_coord,
+              "collective_bytes_step": RF.collective_bytes(log),
+              "collectives_a_step": len(log)}
+    del placed, opt_p, upd_f
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["compressed"] = compressed_step(dev, want)
+    emit(report)
+    if not (report["loss_rel_diff"] <= TP_LOSS_TOL
+            and report["grad_rel_err_max_but_embed"] <= TP_GRAD_TOL
+            and embed_errs["placed_vs_fp32_lookup"] <= TP_GRAD_TOL
+            and report["param_rel_err_max"] <= TP_GRAD_TOL):
+        raise AssertionError(f"train_tp: placed step against the mesh-free "
+                             f"one: {report['loss_rel_diff']}, "
+                             f"{report['grad_rel_err_max_but_embed']}, "
+                             f"{embed_errs}, "
+                             f"{report['param_rel_err_max']}")
+    if not report["compressed"]["ok"]:
+        raise AssertionError(f"train_tp: the compressed step "
+                             f"{report['compressed']}")
+
+
+def compressed_step(dev, want) -> dict:
+    """One SMOKE step through ``make_compressed_grad_fn`` over (pod 2,
+    data 1, model 2) of cuda:0 against the same on the CPU: the loss
+    within 1e-4 (relative) and every gradient within 2/63 of the CPU's
+    largest entry of its leaf (a value of either pod may round across an
+    int8 boundary: a quantum is 1/63 of the largest there)."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.parallel import compression as COMP
+    from repro_torch.training.loop import to_device
+    from repro_torch.training.step import make_loss_grad_fn
+    arch, mshape = TP_COMPRESS
+    cfg = configs.get_smoke(arch)
+    out = {}
+    for where in (torch.device("cpu"), dev):
+        with MESH.force_device_count(int(np.prod(mshape))):
+            mesh = MESH.make_debug_mesh(*mshape[1:], pods=mshape[0],
+                                        device=where)
+        params = TF.init_model(torch.Generator().manual_seed(SEED), cfg,
+                               "cpu")
+        params = SHD._tree_map(lambda t: t.to(where), params)
+        batch = to_device(make_batch(cfg, 4, 64, seed=SEED), where)
+        pl = SHD.place_params(params, param_axes(cfg),
+                              SHD.TRAIN_PARAM_RULES, mesh)
+        run = COMP.make_compressed_grad_fn(make_loss_grad_fn(cfg), mesh)
+        loss, g, _ = run(pl, batch, COMP.init_error_state(pl, mesh))
+        out[str(where)] = (float(loss), [SHD.join_placed(x, "cpu") for x in
+                                         _placed_leaves(g)])
+    if dev.type == "cuda":   # two layers a pod, a coordinate: fwd + bwd
+        n = 2 * 2 * cfg.n_layers
+        for k in FLASH_TRAIN:
+            want[k] += n
+    (lc, g_cpu), (ld, gd) = out["cpu"], out[str(dev)]
+    worst = 0.0
+    for a, c in zip(gd, g_cpu):
+        quantum = float(c.abs().max()) * 2 / 63 + 1e-12
+        worst = max(worst, float((a - c).abs().max()) / quantum)
+    rel = abs(ld - lc) / abs(lc)
+    return {"arch": cfg.name, "mesh": dict(zip(("pod", "data", "model"),
+                                               mshape)),
+            "loss_card": ld, "loss_cpu": lc, "loss_rel_diff": rel,
+            "grad_max_diff_in_quanta": worst,
+            "ok": rel <= 1e-4 and worst <= 1.0}
+
+
 def main():
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -5599,6 +6082,8 @@ def main():
     int8_zamba: dict = {}
     mesh_held: dict = {}
     seqpar_held: dict = {}
+    tp_held: dict = {}
+    train_tp_held: dict = {}
     # the kv table has no payload, so the serve paths' DELETEs take the
     # mask-only route (the scan, no compaction), as in the reference
     serve_need = ("flash_attention", "paged_attention", "relscan_scan")
@@ -5641,11 +6126,15 @@ def main():
          serve_need + ("mamba2_scan",)),
         # the serving mesh over repeated cuda:0, and sequence-parallel
         # attention in a training step
-        ("serve_mesh", lambda: phase_serve_mesh(
-            card, dev, mesh_held, {"yi-6b": serve["atol"],
-                                   "zamba2-2.7b": zamba["atol"]}),
+        ("serve_mesh", lambda: phase_serve_mesh(card, dev, mesh_held),
          ("paged_attention_wide", "paged_attention_lse")),
         ("train_seqpar", lambda: phase_train_seqpar(card, dev, seqpar_held),
+         FLASH_TRAIN),
+        # tensor-parallel weights over repeated cuda:0: the serve step and
+        # prefill, then a training step and the compressed gradients
+        ("serve_tp", lambda: phase_serve_tp(card, dev, tp_held),
+         ("paged_attention_wide", "paged_attention_lse", "flash_attention")),
+        ("train_tp", lambda: phase_train_tp(card, dev, train_tp_held),
          FLASH_TRAIN),
         ("table2_plain", lambda: phase_table2(card, "plain", ""),
          scan_compact),
@@ -5682,6 +6171,7 @@ def main():
         held = {"serve": serve, "serve_zamba2": zamba, "serve_int8": int8_yi,
                 "serve_int8_zamba2": int8_zamba, "train": trained,
                 "serve_mesh": mesh_held, "train_seqpar": seqpar_held,
+                "serve_tp": tp_held, "train_tp": train_tp_held,
                 **new}.get(path)
         if held is not None:  # one launch per layer per prefill / round /
             # training step (and recompute)
@@ -5724,7 +6214,8 @@ def main():
         if rows:
             kernels[-1]["shard_axis"] = [
                 {k: r[k] for k in ("shape", "device_ms", "bound_ms",
-                                   "separate_calls_device_ms")}
+                                   "separate_calls_device_ms",
+                                   "profile_windows")}
                 for r in rows]
     # each training kernel at its training shape, with a second shape (the
     # row's "alt": gemma2's window 4,096; zamba2's 300-token prefill)

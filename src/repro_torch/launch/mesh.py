@@ -139,6 +139,13 @@ class Mesh:
         for idx in np.ndindex(*self.devices.shape):
             yield dict(zip(self.axis_names, idx))
 
+    def sub(self, axis: str, i: int) -> "Mesh":
+        """The mesh of the entries at index ``i`` of ``axis``, without that
+        axis (e.g. one pod's ``(data, model)`` mesh)."""
+        pos = self.axis_names.index(axis)
+        return Mesh(tuple(a for a in self.axis_names if a != axis),
+                    np.take(self.devices, i, axis=pos))
+
     def require_runnable(self, what: str) -> None:
         """Raise where ``what`` would run on a plan-only mesh."""
         if self.is_plan:

@@ -10,11 +10,12 @@ Parameters come from ``init_model`` with a ``torch.Generator`` seeded
 with ``--seed`` on the target device (the reference draws them from
 ``PRNGKey(0)``), batches from the synthetic pipeline seeded the same way.
 The default device is the CUDA card; without one it raises unless
-``--device cpu`` is given. Not in this port yet, each raising
-:class:`~repro_torch.models.config.NotPorted`: the production mesh
-(``--mesh single|multi``), and on the card an attention head dim the
-flash kernels do not take (starcoder2-7b's SMOKE head dim 4; see
-:func:`refuse_on_card`).
+``--device cpu`` is given. ``--mesh single|multi`` is parsed and, as in
+the reference's launcher, trains exactly as ``--mesh none`` does (the
+reference never reads it). Not in this port yet, raising
+:class:`~repro_torch.models.config.NotPorted`: on the card an attention
+head dim the flash kernels do not take (starcoder2-7b's SMOKE head dim
+4; see :func:`refuse_on_card`).
 """
 from __future__ import annotations
 
@@ -60,14 +61,13 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default="none",
                     choices=["none", "single", "multi"],
-                    help="production mesh; 'none' = one device")
+                    help="parsed and unused, as in the reference: every "
+                    "value trains on one device")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise NotPorted(f"--mesh {args.mesh} (the production mesh)")
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
     if torch.device(args.device).type == "cuda":

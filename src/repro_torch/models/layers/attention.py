@@ -30,6 +30,15 @@ position, over the full K/V; the slices meet on the query's device. A
 sequence that does not split evenly takes the path without a mesh, as in
 the reference. The gradient flows through the kernel's backward
 (``FlashAttention``).
+
+Tensor parallelism (weights placed by ``parallel/sharding.place_params``):
+:func:`attention_tp` and :func:`cross_attention_tp` run every mesh
+coordinate's q / k / v columns (its heads, by ``wq`` / ``wk`` / ``wv``'s
+placement over 'model') through the flash kernel on that coordinate, and
+sum the rows of ``wo`` with a ``psum`` over the axes that cut its heads.
+Where the kv heads do not divide 'model' the reference's ``specs_for_tree``
+keeps ``wk`` / ``wv`` whole, and a coordinate's q heads read kv head
+``q_head // (h / kh)`` of its whole copy (:func:`kv_slice`).
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from repro_torch.models.layers.norms import rms_norm_gain
 from repro_torch.models.layers.rope import apply_rope
 from repro_torch.models.params import dense_init, ones_init
 from repro_torch.parallel import sharding as SHD
+from repro_torch.parallel.collectives import Shards
 
 NEG_INF = -1e30
 
@@ -279,3 +289,78 @@ def cross_kv(params: dict, cfg, enc_out: torch.Tensor):
     """Cross-attention K/V [b, se, kh, hd] of the encoder output (no
     RoPE)."""
     return _proj(enc_out, params["wk"]), _proj(enc_out, params["wv"])
+
+
+# ------------------------------------------------------ tensor parallel
+def kv_slice(cfg, q_range: tuple, k_range: tuple) -> slice:
+    """The held kv heads ``k_range`` (global [k0, k1)) that serve the q
+    heads ``q_range`` under GQA (q head j reads kv head ``j // (h /
+    kh)``), as a slice of the held ones; raises where the q heads do not
+    read whole, equal groups of them (the flash kernel's own mapping)."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    (q0, q1), (k0, k1) = q_range, k_range
+    lo, hi = q0 // g, (q1 - 1) // g + 1
+    n, nk = q1 - q0, hi - lo
+    if (lo < k0 or hi > k1 or n % nk
+            or any((q0 + j) // g - lo != j // (n // nk) for j in range(n))):
+        raise ValueError(f"q heads [{q0}, {q1}) over kv heads [{k0}, {k1}) "
+                         f"with {g} q heads a kv head: not a GQA grouping "
+                         f"the kernels take")
+    return slice(lo - k0, hi - k0)
+
+
+def attention_tp(P: dict, cfg, h: Shards, positions: Shards, tp, *,
+                 theta: float, window: int = 0, causal: bool = True,
+                 collect_kv: bool = False, origin: str):
+    """Self-attention over placed weights ``P`` (one layer's ``attn``
+    tree of ``Placed`` leaves): each coordinate's heads through the flash
+    kernel, then ``wo``'s rows summed over the axes that cut its heads.
+    ``h`` [b_local, s, d] and ``positions`` are Shards. Returns (out
+    Shards, Shards of each coordinate's (k, v) [b_local, s, kh_local, hd]
+    or None)."""
+    outs, kvs = Shards(), Shards()
+    for key in tp.keys:
+        p = SHD.local_tree(P, key)
+        q, k, v = qkv_project(p, cfg, h[key], positions[key], theta)
+        sl = kv_slice(cfg, P["wq"].range_of(-2, key),
+                      P["wk"].range_of(-2, key))
+        outs[key] = _attend(cfg, q, k[:, :, sl], v[:, :, sl], causal=causal,
+                            window=window).flatten(-2)
+        if collect_kv:
+            kvs[key] = (k, v)
+    return wo_tp(P["wo"], outs, tp, origin), (kvs if collect_kv else None)
+
+
+def wo_tp(wo, heads: Shards, tp, origin: str) -> Shards:
+    """``out_project`` over placed ``wo`` of each coordinate's heads
+    ([..., h_local * hd]): its rows' partials summed over the axes that
+    cut its heads, rounded once."""
+    w = Shards({k: wo[k].reshape(-1, wo[k].shape[-1]) for k in tp.keys})
+    dtype = next(iter(heads.values())).dtype
+    return tp.rows(heads, w, wo.axes_of(-3), origin + ".wo", dtype)
+
+
+def cross_kv_tp(P: dict, enc_out: Shards, tp) -> Shards:
+    """Each coordinate's cross K/V (its ``wk`` / ``wv`` columns) of the
+    encoder output: Shards of (k, v) [b_local, se, kh_local, hd]."""
+    return Shards({key: (_proj(enc_out[key], P["wk"][key]),
+                         _proj(enc_out[key], P["wv"][key]))
+                   for key in tp.keys})
+
+
+def cross_attention_tp(P: dict, cfg, h: Shards, enc_kv: Shards, tp, *,
+                       origin: str, enc_valid=None) -> Shards:
+    """Cross attention over placed weights: each coordinate's q heads
+    against its kv heads of ``enc_kv`` (:func:`cross_kv_tp`), non-causal,
+    then ``wo``'s rows summed. ``enc_valid``: Shards of [b_local] or
+    None."""
+    outs = Shards()
+    for key in tp.keys:
+        q = _proj(h[key], P["wq"][key])
+        k, v = enc_kv[key]
+        sl = kv_slice(cfg, P["wq"].range_of(-2, key),
+                      P["wk"].range_of(-2, key))
+        outs[key] = _attend(cfg, q, k[:, :, sl], v[:, :, sl], causal=False,
+                            kv_valid=None if enc_valid is None
+                            else enc_valid[key]).flatten(-2)
+    return wo_tp(P["wo"], outs, tp, origin)

@@ -16,6 +16,15 @@ a tie toward the lower expert index, while ``torch.topk`` promises no
 order on CUDA; :func:`top_k` takes the first k of a stable descending
 sort, which keeps equal values in index order.
 
+Over placed weights (:func:`moe_tp`) the experts are cut over 'model'
+(``expert`` takes 'model', so ``mlp`` stays whole: a mesh axis cuts one
+dimension). Each coordinate's router columns give its experts' logits,
+which an ``all_gather`` joins before the fp32 softmax and the stable-sort
+``top_k`` (the same logits at every coordinate, so the ties rule holds);
+each coordinate runs its experts, and a ``psum`` combines them. The
+load-balance fractions are summed over the batch axes first. The ragged
+dispatch is not placed (it raises ``NotPorted`` over a mesh).
+
 Both dispatches keep every shape static for a given token count (the
 ragged buffer is ``[e * cap + 1, d]``, its last row the drop target), so
 either one can run inside the captured decode graph.
@@ -26,6 +35,8 @@ import torch
 
 from repro_torch.models.layers.mlp import _ACTS
 from repro_torch.models.params import dense_init
+from repro_torch.parallel.collectives import Shards
+from repro_torch.parallel.sharding import local_tree
 
 CAPACITY_FACTOR = 1.25   # the reference's default, the one its callers use
 
@@ -51,20 +62,29 @@ def top_k(probs: torch.Tensor, k: int):
 def _route(params: dict, cfg, xf: torch.Tensor):
     """xf [..., d] -> (fp32 probs [..., e], renormalised top-k values and
     their expert ids [..., k])."""
-    logits = (xf @ params["router"]).float()
+    return _route_logits((xf @ params["router"]).float(), cfg)
+
+
+def _route_logits(logits: torch.Tensor, cfg):
     probs = torch.softmax(logits, dim=-1)
     topv, topi = top_k(probs, cfg.top_k)
     return probs, topv / topv.sum(dim=-1, keepdim=True), topi
 
 
-def router_probs(params: dict, cfg, x: torch.Tensor):
-    """x [b, s, d] -> (weights [b, s, e] in x's dtype, only the top k
-    nonzero; the Switch load-balance aux loss, fp32 scalar)."""
-    probs, topv, topi = _route(params, cfg, x)
+def _weights_fracs(probs, topv, topi):
+    """(top-k weights [b, s, e] fp32, the fractions of tokens and of
+    probability each expert takes, [2, e])."""
     weights = torch.zeros_like(probs).scatter(-1, topi, topv)
     frac_tokens = (weights > 0).float().mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
-    aux = cfg.n_experts * (frac_tokens * frac_probs).sum()
+    return weights, torch.stack([frac_tokens, frac_probs])
+
+
+def router_probs(params: dict, cfg, x: torch.Tensor):
+    """x [b, s, d] -> (weights [b, s, e] in x's dtype, only the top k
+    nonzero; the Switch load-balance aux loss, fp32 scalar)."""
+    weights, fr = _weights_fracs(*_route(params, cfg, x))
+    aux = cfg.n_experts * (fr[0] * fr[1]).sum()
     return weights.to(x.dtype), aux
 
 
@@ -125,3 +145,37 @@ def moe_forward(params: dict, cfg, x: torch.Tensor, *, ragged: bool = False):
     if ragged:
         return moe_forward_ragged(params, cfg, x)
     return moe_forward_dense(params, cfg, x)
+
+
+def moe_tp(P: dict, cfg, x: Shards, tp, *, origin: str):
+    """The dense dispatch over placed weights ``P``: each coordinate's
+    router columns -> ``all_gather`` of the logits over the axes that cut
+    ``expert`` -> routing at every coordinate -> its experts (``w_up``'s
+    expert slice) -> ``psum`` of the weighted outputs. Returns (out
+    Shards [b_local, s, d], aux Shards of the load-balance loss: the
+    fractions averaged over the batch axes first, as over the global
+    batch)."""
+    ex_axes = P["w_up"].axes_of(-3)
+    logits = tp.all_gather(
+        Shards({k: (x[k] @ P["router"][k]).float() for k in tp.keys}),
+        P["router"].axes_of(-1), -1, origin + ".router")
+    outs, fracs, weights = Shards(), Shards(), {}
+    for k in tp.keys:
+        w, fracs[k] = _weights_fracs(*_route_logits(logits[k], cfg))
+        weights[k] = w.to(x[k].dtype)
+    n_dp = 1
+    for a in tp.batch_axes:
+        n_dp *= int(tp.mesh.shape[a])
+    fracs = tp.psum(fracs, tp.batch_axes, origin + ".router_fractions")
+    aux = Shards({k: cfg.n_experts * (f[0] * f[1]).sum() / (n_dp * n_dp)
+                  for k, f in fracs.items()})
+    for k in tp.keys:
+        b, s, d = x[k].shape
+        e0, e1 = P["w_up"].range_of(-3, k)
+        y = _experts(local_tree(P, k), cfg, x[k].reshape(b * s, d))
+        # the experts' weighted sum as an fp32 partial, rounded once
+        # after the psum (collectives.partial_product's rule)
+        outs[k] = torch.einsum("end,ne->nd", y.float(), weights[k].reshape(
+            b * s, -1)[:, e0:e1].float()).reshape(b, s, d)
+    out = tp.psum(outs, ex_axes, origin + ".experts")
+    return Shards({k: t.to(x[k].dtype) for k, t in out.items()}), aux

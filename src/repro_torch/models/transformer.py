@@ -39,6 +39,24 @@ in the backward, where ``[i]`` would make a full-size zero gradient per
 layer). Each Mamba2 layer's gradient on the card is the scan's backward
 kernel (``kernels/mamba_scan.py``: ``Mamba2Scan``).
 
+Over a mesh: :func:`train_loss` and :func:`prefill` take a parameter
+tree placed by ``parallel/sharding.place_params`` (``TRAIN_PARAM_RULES``
+or ``SERVE_PARAM_RULES``) and run it coordinate by coordinate
+(``parallel/sharding.TP``): the batch cut over ('pod', 'data') where it
+divides them, each layer's weights cut over 'model' as their specs say
+(``layers/attention.py``, ``mlp.py``, ``moe.py``, ``ssm.py``: each
+coordinate's heads, columns, experts and SSM shards, the rows' partials
+summed by ``psum``), a weight cut over 'data' (FSDP) gathered before its
+use (its gradient a ``reduce-scatter``). The vocabulary-sharded embedding
+is the reference's manual lookup (clamp, mask, ``psum``); the logits are
+made on vocabulary shards, their padded ids masked by global id, and
+``all_gather``-ed; :func:`lm_loss` over shards is a vocabulary-parallel
+cross entropy (``pmax`` of the rows' max, ``psum`` of the exp-sums, the
+label's logit from the shard that owns it with a ``psum``). The
+sequence-parallel lever (``cfg.attn_seq_shard``) and the ragged MoE
+dispatch take no placed weights; :func:`decode_step` (the dense-cache
+reference path) neither.
+
 Entry points
     init_model(gen, cfg, device)     -> parameter tree
     train_loss(params, cfg, batch, remat="none") -> (loss, metrics)
@@ -64,15 +82,19 @@ from repro_torch.models.layers.attention import (NEG_INF, _proj, _scale,
                                                  _softcap, attention_decode,
                                                  attention_forward,
                                                  attention_prefill,
-                                                 cross_attention, cross_kv,
+                                                 attention_tp,
+                                                 cross_attention,
+                                                 cross_attention_tp,
+                                                 cross_kv, cross_kv_tp,
                                                  init_attention,
                                                  init_cross_attention,
                                                  out_project)
-from repro_torch.models.layers.mlp import init_mlp, mlp_forward
-from repro_torch.models.layers.moe import init_moe, moe_forward
+from repro_torch.models.layers.mlp import init_mlp, mlp_forward, mlp_tp
+from repro_torch.models.layers.moe import init_moe, moe_forward, moe_tp
 from repro_torch.models.layers.norms import init_rmsnorm, rms_norm
 from repro_torch.models.params import dense_init
 from repro_torch.parallel import sharding as SHD
+from repro_torch.parallel.collectives import Shards, pmax
 
 
 SSM_KINDS = (MAMBA1, MAMBA2)
@@ -355,9 +377,18 @@ def _cross_decode(p: dict, cfg: ModelConfig, x1, enc_k, enc_v, *,
     """Single-token cross attention in plain PyTorch (the reference's is
     plain jnp). x1 [b, 1, d]; enc_k/v [b, se, kh, hd]; ``enc_valid`` [b]:
     only each sequence's first ``enc_valid`` encoder positions count."""
+    return out_project(p, _cross_decode_heads(p["wq"], cfg, x1, enc_k,
+                                              enc_v, enc_valid))
+
+
+def _cross_decode_heads(wq, cfg: ModelConfig, x1, enc_k, enc_v, enc_valid):
+    """The attention of :func:`_cross_decode` before ``wo``, for the q
+    heads of ``wq`` over the kv heads of ``enc_k`` / ``enc_v`` (all of
+    them, or one coordinate's): [b, 1, h, hd] in x1's dtype."""
     b = x1.shape[0]
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    qg = _proj(x1, p["wq"]).reshape(b, kh, h // kh, hd).float() * _scale(cfg)
+    q = _proj(x1, wq)
+    h, kh, hd = q.shape[2], enc_k.shape[2], cfg.head_dim
+    qg = q.reshape(b, kh, h // kh, hd).float() * _scale(cfg)
     s = _softcap(torch.einsum("bkgd,bskd->bkgs", qg, enc_k.float()),
                  cfg.attn_softcap)
     if enc_valid is not None:
@@ -366,7 +397,7 @@ def _cross_decode(p: dict, cfg: ModelConfig, x1, enc_k, enc_v, *,
                         s, NEG_INF)
     o = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, dim=-1),
                      enc_v.float())
-    return out_project(p, o.reshape(b, 1, h, hd).to(x1.dtype))
+    return o.reshape(b, 1, h, hd).to(x1.dtype)
 
 
 def mamba_block_fwd(p: dict, cfg: ModelConfig, kind: str, x, state=None):
@@ -505,13 +536,18 @@ def run_encoder(params: dict, cfg: ModelConfig, frames):
     enc = params["encoder"]
     b, se, _ = frames.shape
     positions = torch.arange(se, device=frames.device)[None].expand(b, se)
-    enc_cfg = dataclasses.replace(
-        cfg, n_layers=cfg.enc_layers, layer_pattern=(GLOBAL,) * cfg.enc_layers,
-        scan_group=1, shared_attn_every=0, enc_layers=0, n_experts=0,
-        top_k=0)
+    enc_cfg = _encoder_cfg(cfg)
     x, _, _ = run_stack({"layers": enc["layers"]}, enc_cfg,
                         frames.to(cfg.dtype), positions, causal=False)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's view of the config: GLOBAL layers, one a unit."""
+    return dataclasses.replace(
+        cfg, n_layers=cfg.enc_layers, layer_pattern=(GLOBAL,) * cfg.enc_layers,
+        scan_group=1, shared_attn_every=0, enc_layers=0, n_experts=0,
+        top_k=0)
 
 
 def encoder_cross_kv(params: dict, cfg: ModelConfig, enc_out):
@@ -528,12 +564,18 @@ def encoder_cross_kv(params: dict, cfg: ModelConfig, enc_out):
 
 # ============================================================== public API
 def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
-               remat: str = "none"):
+               remat: str = "none", unroll: bool = False):
     """batch: tokens [b, st], labels [b, s_total], loss_mask [b, s_total]
     (+ frontend [b, fl, d] | enc_frames [b, se, d]) as tensors on the
     parameters' device. Returns (loss, {"ce", "aux"}): the masked cross
     entropy plus, for an MoE, ``router_aux_coef`` times the router loss
-    averaged over the layers."""
+    averaged over the layers. Over placed parameters (module docstring)
+    the batch lies on the mesh's home entry and the loss comes back
+    there. ``unroll`` is the reference's analysis switch; the port's
+    loops are always unrolled, so it changes nothing."""
+    del unroll
+    if SHD.is_placed(params):
+        return train_loss_tp(params, cfg, batch, remat=remat)
     x = assemble_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -552,13 +594,21 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
     return loss, {"ce": ce, "aux": aux}
 
 
-def prefill(params: dict, cfg: ModelConfig, batch: dict):
+def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
+            unroll: bool = False):
     """Run the full prompt (frontend embeddings first where given; the
     encoder over ``batch["enc_frames"]`` for an encoder-decoder); returns
     (last-token logits [b, V], cache) with the cache of :func:`run_stack`
     plus ``enc_k`` / ``enc_v`` [L, b, se, kh, hd] for an encoder-decoder.
     The serving engine re-blocks the KV into the paged arenas and copies
-    the SSM states and the cross K/V into its slots."""
+    the SSM states and the cross K/V into its slots. Over placed
+    parameters the batch lies on the mesh's home entry, the logits come
+    back there and every cache leaf is a Shards of each coordinate's
+    slots and heads (:func:`prefill_tp`). ``unroll`` changes nothing (as
+    in :func:`train_loss`)."""
+    del unroll
+    if SHD.is_placed(params):
+        return prefill_tp(params, cfg, batch)
     x = assemble_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -676,3 +726,407 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                   lengths, window=0, theta=global_theta(cfg))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_fn(params, cfg, x[:, 0]), cache
+
+
+# ========================================================= over a mesh (TP)
+def _add(a: Shards, b: Shards) -> Shards:
+    return Shards({k: a[k] + b[k] for k in a})
+
+
+def _sum_aux(a, b):
+    """Two aux losses, each a Shards or None."""
+    if a is None or b is None:
+        return b if a is None else a
+    return _add(a, b)
+
+
+def norm_tp(P: dict, cfg: ModelConfig, x: Shards, tp) -> Shards:
+    """:func:`rms_norm` at every coordinate with its copy of the scale."""
+    return tp.map(lambda t, sc: rms_norm(t, {"scale": sc}, cfg.norm_eps), x,
+                  P["scale"])
+
+
+def _post_norm_tp(P: dict, cfg: ModelConfig, name: str, y: Shards, tp):
+    return norm_tp(P[name], cfg, y, tp) if cfg.sandwich_norm else y
+
+
+def mlp_sublayer_tp(P: dict, cfg: ModelConfig, x: Shards, tp, origin: str):
+    """:func:`mlp_sublayer` over placed weights: (x, aux Shards or
+    None)."""
+    h = norm_tp(P["norm2"], cfg, x, tp)
+    if cfg.is_moe:
+        if os.environ.get("REPRO_MOE_RAGGED") == "1":
+            raise NotPorted("the ragged MoE dispatch over placed weights")
+        m, aux = moe_tp(P["mlp"], cfg, h, tp, origin=origin + ".mlp")
+    else:
+        m, aux = mlp_tp(P["mlp"], cfg, h, tp, origin=origin + ".mlp"), None
+    return _add(x, _post_norm_tp(P, cfg, "norm2_post", m, tp)), aux
+
+
+def attn_block_tp(P: dict, cfg: ModelConfig, x: Shards, positions: Shards,
+                  tp, *, window: int, theta: float, causal: bool = True,
+                  collect_kv: bool = False, enc_kv=None, enc_valid=None,
+                  origin: str):
+    """:func:`attn_block_fwd` over one layer's placed weights (gathered
+    over the batch axes first where FSDP cut them). Returns (x, aux, kv
+    Shards or None)."""
+    P = tp.use_tree(P, origin)
+    h = norm_tp(P["norm1"], cfg, x, tp)
+    a, kv = attention_tp(P["attn"], cfg, h, positions, tp, theta=theta,
+                         window=window, causal=causal, collect_kv=collect_kv,
+                         origin=origin + ".attn")
+    x = _add(x, _post_norm_tp(P, cfg, "norm1_post", a, tp))
+    if enc_kv is not None:
+        h = norm_tp(P["norm_x"], cfg, x, tp)
+        x = _add(x, cross_attention_tp(P["cross"], cfg, h, enc_kv, tp,
+                                       origin=origin + ".cross",
+                                       enc_valid=enc_valid))
+    x, aux = mlp_sublayer_tp(P, cfg, x, tp, origin)
+    return x, aux, kv
+
+
+def mamba_block_tp(P: dict, cfg: ModelConfig, kind: str, x: Shards, tp, *,
+                   origin: str):
+    """:func:`mamba_block_fwd` over placed weights from zero states:
+    (x, Shards of the final states)."""
+    P = tp.use_tree(P, origin)
+    h = norm_tp(P["norm1"], cfg, x, tp)
+    fwd = ssm.mamba1_forward_tp if kind == MAMBA1 else ssm.mamba2_forward_tp
+    y, st = fwd(P["mamba"], cfg, h, tp, origin=origin + ".mamba")
+    return _add(x, y), st
+
+
+def unbind_placed(tree: dict) -> list:
+    """The per-layer views of a placed stacked ``[L, ...]`` tree (one
+    ``unbind`` a leaf a coordinate)."""
+    leaves = {k: (unbind_placed(v) if isinstance(v, dict)
+                  and not isinstance(v, Shards) else v.unbind())
+              for k, v in tree.items()}
+    n = len(next(iter(leaves.values())))
+    return [{k: v[i] for k, v in leaves.items()} for i in range(n)]
+
+
+def layer_params_tp(params: dict, cfg: ModelConfig, i: int) -> dict:
+    """Layer ``i``'s placed weights (views of the stacked tree or its
+    ``tail_<t>``)."""
+    gs, ng, _ = scan_layout(cfg)
+    if i < ng * gs:
+        return _layer_tree(params["layers"], i)
+    return params[f"tail_{i - ng * gs}"]
+
+
+def _layer_tree(tree: dict, i: int) -> dict:
+    return {k: v.layer(i) if isinstance(v, Shards) else _layer_tree(v, i)
+            for k, v in tree.items()}
+
+
+def layer_name(cfg: ModelConfig, i: int, prefix: str = "") -> str:
+    gs, ng, _ = scan_layout(cfg)
+    return (f"{prefix}layers.{i}" if i < ng * gs
+            else f"{prefix}tail_{i - ng * gs}")
+
+
+def run_stack_tp(params: dict, cfg: ModelConfig, x: Shards,
+                 positions: Shards, tp, *, collect: bool = False,
+                 enc_kv=None, enc_valid=None, causal: bool = True,
+                 remat: str = "none", prefix: str = ""):
+    """:func:`run_stack` over placed weights; ``x`` / ``positions`` are
+    Shards of each coordinate's slots; ``enc_kv`` a list of each decoder
+    layer's cross K/V Shards. Returns (hidden Shards, aux Shards or None,
+    collected: each cache leaf a Shards of the coordinate's stacked
+    [n, b_local, ...] tensors)."""
+    check_supported(cfg)
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, not {remat!r}")
+    gs, ng, _ = scan_layout(cfg)
+    stacked = unbind_placed(params["layers"]) if ng else []
+    kv: dict[str, list] = {"k": [], "v": [], "shared_k": [], "shared_v": []}
+    states = []
+
+    def keep(name, kvi):
+        kv["k" if name == "self" else "shared_k"].append(
+            Shards({k: t[0] for k, t in kvi.items()}))
+        kv["v" if name == "self" else "shared_v"].append(
+            Shards({k: t[1] for k, t in kvi.items()}))
+
+    def layer(i, x):
+        p = stacked[i] if i < ng * gs else params[f"tail_{i - ng * gs}"]
+        name = layer_name(cfg, i, prefix)
+        kind = cfg.layer_pattern[i]
+        aux = None
+        if kind in SSM_KINDS:
+            x, st = mamba_block_tp(p, cfg, kind, x, tp, origin=name)
+            if collect:
+                states.append(st)
+        else:
+            window, theta = layer_attrs(cfg, i)
+            x, aux, kvi = attn_block_tp(
+                p, cfg, x, positions, tp, window=window, theta=theta,
+                causal=causal, collect_kv=collect,
+                enc_kv=None if enc_kv is None else enc_kv[i],
+                enc_valid=enc_valid, origin=name)
+            if collect:
+                keep("self", kvi)
+        if shared_app(cfg, i) >= 0:
+            x, a, kvi = attn_block_tp(
+                params["shared"], cfg, x, positions, tp, window=0,
+                theta=global_theta(cfg), causal=causal, collect_kv=collect,
+                origin=f"{prefix}shared.{shared_app(cfg, i)}")
+            aux = _sum_aux(aux, a)
+            if collect:
+                keep("shared", kvi)
+        return x, aux
+
+    def unit(u, x):
+        aux = None
+        for i in range(u * gs, (u + 1) * gs):
+            x, a = layer(i, x)
+            aux = _sum_aux(aux, a)
+        return x, aux
+
+    aux = None
+    for u in range(ng):
+        x, a = _remat(functools.partial(unit, u), remat, x)
+        aux = _sum_aux(aux, a)
+    for i in range(ng * gs, cfg.n_layers):
+        x, a = layer(i, x)
+        aux = _sum_aux(aux, a)
+    collected = {}
+    if collect:
+        collected = {n: Shards({k: torch.stack([s[k] for s in t])
+                                for k in tp.keys})
+                     for n, t in kv.items() if t}
+        if states:
+            collected["ssm"] = {n: Shards({k: torch.stack(
+                [st[k][n] for st in states]) for k in tp.keys})
+                for n in states[0][tp.keys[0]]}
+    return x, aux, collected
+
+
+def embed_tokens_tp(params: dict, cfg: ModelConfig, tokens: Shards, tp,
+                    origin: str = "embed") -> Shards:
+    """The token lookup over a placed table: where 'model' cuts the
+    vocabulary, the reference's manual lookup (each coordinate's rows of
+    its own ids, clamped and masked, an fp32 ``psum``), else a plain
+    lookup of the whole copy. Under autograd the rows are read from an
+    fp32 copy of the table (the same values), so that the lookup's
+    gradient, a scatter-add of one row a token, sums in fp32 and is
+    rounded once: summed in bf16, a frequent token's row loses most of
+    its gradient."""
+    emb = tp.use(params["embed"], origin)
+    vax = emb.axes_of(0)
+
+    def rows(e, ids):
+        if torch.is_grad_enabled() and e.requires_grad:
+            return e.float()[ids]
+        return e[ids].float()
+    if not vax:
+        x = tp.map(lambda e, t: rows(e, t.long()).to(e.dtype), emb, tokens)
+    else:
+        parts = Shards()
+        for k in tp.keys:
+            lo, hi = emb.range_of(0, k)
+            t = tokens[k].long()
+            out = rows(emb[k], torch.clamp(t - lo, 0, hi - lo - 1))
+            parts[k] = torch.where(((t >= lo) & (t < hi))[..., None], out,
+                                   0.0)
+        x = tp.map(lambda t: t.to(emb.dtype),
+                   tp.psum(parts, vax, origin + ".lookup"))
+    if cfg.scale_embeddings:
+        x = tp.map(lambda t: t * torch.full((), cfg.d_model ** 0.5,
+                                            dtype=t.dtype, device=t.device),
+                   x)
+    return x
+
+
+def _assemble_tp(params: dict, cfg: ModelConfig, batch: dict, tp) -> Shards:
+    x = embed_tokens_tp(params, cfg, batch["tokens"], tp)
+    if cfg.frontend != "none" and "frontend" in batch:
+        x = tp.map(lambda f, t: torch.cat([f.to(t.dtype), t], dim=1),
+                   batch["frontend"], x)
+    return x
+
+
+def _heads_tp(params: dict, tp):
+    """Each coordinate's output head: (fp32 [d, v_local], its vocabulary
+    range), and the mesh axes that cut the vocabulary."""
+    if "lm_head" in params:
+        head = tp.use(params["lm_head"], "lm_head")
+        return ({k: (head[k].float(), head.range_of(1, k)) for k in tp.keys},
+                head.axes_of(1))
+    emb = tp.use(params["embed"], "embed")
+    return ({k: (emb[k].T.float(), emb.range_of(0, k)) for k in tp.keys},
+            emb.axes_of(0))
+
+
+def _local_logits(head32, vrange, cfg: ModelConfig, hidden):
+    """:func:`_head_logits` on one vocabulary slice: the padded ids
+    masked by their global id."""
+    logits = _softcap(hidden.float() @ head32, cfg.logit_softcap)
+    if cfg.padded_vocab != cfg.vocab:
+        ids = torch.arange(*vrange, device=logits.device)
+        logits = torch.where(ids < cfg.vocab, logits, NEG_INF)
+    return logits
+
+
+def logits_tp(params: dict, cfg: ModelConfig, hidden: Shards, tp,
+              origin: str = "logits") -> Shards:
+    """:func:`logits_fn` over placed weights: each coordinate's vocabulary
+    slice, then an ``all_gather`` of the slices (every coordinate holds
+    its slots' whole fp32 logits)."""
+    heads, vax = _heads_tp(params, tp)
+    parts = Shards({k: _local_logits(*heads[k], cfg, hidden[k])
+                    for k in tp.keys})
+    return tp.all_gather(parts, vax, -1, origin)
+
+
+def lm_loss_tp(params: dict, cfg: ModelConfig, hidden: Shards,
+               labels: Shards, loss_mask: Shards, tp):
+    """:func:`lm_loss` as a vocabulary-parallel cross entropy: a block's
+    logits at each coordinate are its vocabulary slice; ``pmax`` of the
+    rows' max and ``psum`` of the exp-sums give the log-sum-exp, the
+    label's logit comes from the slice that holds it (a ``psum``), and a
+    label outside ``[0, padded_vocab)`` counts 0 (:func:`_block_ce`'s
+    rule). The masked sums are summed over the batch axes. Returns the
+    loss on the first coordinate's device."""
+    heads, vax = _heads_tp(params, tp)
+    k0 = tp.keys[0]
+    s = hidden[k0].shape[1]
+    blk = min(cfg.loss_block, s)
+    while s % blk:
+        blk //= 2
+    masks = tp.map(lambda m: m.float(), loss_mask)
+
+    def block(sl, hidden):
+        lg = {k: _local_logits(*heads[k], cfg, hidden[k][:, sl])
+              for k in tp.keys}
+        mx = pmax(Shards({k: t.max(dim=-1).values for k, t in lg.items()}),
+                  tp.mesh, vax, "lm_loss.max")
+        se = tp.psum(Shards({k: torch.exp(lg[k] - mx[k][..., None]).sum(
+            dim=-1) for k in tp.keys}), vax, "lm_loss.sumexp")
+        ll = Shards()
+        for k in tp.keys:
+            v0, v1 = heads[k][1]
+            y = labels[k][:, sl].long()
+            own = (y >= v0) & (y < v1)
+            got = lg[k].gather(-1, torch.clamp(y - v0, 0, v1 - v0 - 1)[
+                ..., None])[..., 0]
+            ll[k] = torch.where(own, got, 0.0)
+        ll = tp.psum(ll, vax, "lm_loss.label")
+        out = Shards()
+        for k in tp.keys:
+            y = labels[k][:, sl].long()
+            ok = (y >= 0) & (y < cfg.padded_vocab)
+            lse = torch.log(se[k]) + mx[k]
+            out[k] = ((lse - torch.where(ok, ll[k], 0.0))
+                      * masks[k][:, sl]).sum()
+        return out
+
+    tot = None
+    for i in range(s // blk):
+        sl = slice(i * blk, (i + 1) * blk)
+        part = (CK.checkpoint(block, sl, hidden, use_reentrant=False)
+                if torch.is_grad_enabled() else block(sl, hidden))
+        tot = part if tot is None else _add(tot, part)
+    tot = tp.psum(tot, tp.batch_axes, "lm_loss.total")
+    cnt = tp.psum(tp.map(lambda m: m.sum(), masks), tp.batch_axes,
+                  "lm_loss.count")
+    return tot[k0] / torch.clamp(cnt[k0], min=1.0)
+
+
+def _encoder_tp(params: dict, cfg: ModelConfig, frames: Shards, tp):
+    """:func:`run_encoder` and :func:`encoder_cross_kv` over placed
+    weights: a list of each decoder layer's cross K/V Shards."""
+    enc = params["encoder"]
+    pos = tp.map(lambda f: torch.arange(f.shape[1], device=f.device)[
+        None].expand(f.shape[0], f.shape[1]), frames)
+    x, _, _ = run_stack_tp({"layers": enc["layers"]}, _encoder_cfg(cfg),
+                           tp.map(lambda f: f.to(cfg.dtype), frames), pos,
+                           tp, causal=False, prefix="encoder.")
+    x = norm_tp(tp.use_tree(enc["final_norm"], "encoder.final_norm"), cfg, x,
+                tp)
+    return [cross_kv_tp(tp.use_tree(layer_params_tp(params, cfg, i)["cross"],
+                                    layer_name(cfg, i) + ".cross"), x, tp)
+            for i in range(cfg.n_layers)]
+
+
+def _batch_tp(batch: dict, tp) -> dict:
+    return {k: tp.scatter(v) for k, v in batch.items()}
+
+
+def _positions(x: Shards, tp) -> Shards:
+    return tp.map(lambda t: torch.arange(t.shape[1], device=t.device)[
+        None].expand(t.shape[0], t.shape[1]), x)
+
+
+def train_loss_tp(params: dict, cfg: ModelConfig, batch: dict, *,
+                  remat: str = "none", tp=None):
+    """:func:`train_loss` over placed weights (``batch`` on the mesh's home
+    entry, cut over the batch axes where it divides them)."""
+    if tp is None:
+        tp = SHD.TP.for_batch(SHD.placed_mesh(params),
+                              batch["tokens"].shape[0])
+    bt = _batch_tp(batch, tp)
+    x = _assemble_tp(params, cfg, bt, tp)
+    enc_kv = (_encoder_tp(params, cfg, bt["enc_frames"], tp)
+              if cfg.is_encdec else None)
+    x, aux, _ = run_stack_tp(params, cfg, x, _positions(x, tp), tp,
+                             enc_kv=enc_kv, remat=remat)
+    x = norm_tp(tp.use_tree(params["final_norm"], "final_norm"), cfg, x, tp)
+    ce = lm_loss_tp(params, cfg, x, bt["labels"], bt["loss_mask"], tp)
+    loss = ce
+    aux0 = 0.0 if aux is None else aux[tp.keys[0]]
+    if cfg.is_moe:
+        loss = loss + cfg.router_aux_coef * aux0 / max(cfg.n_layers, 1)
+    return loss, {"ce": ce, "aux": aux0}
+
+
+def prefill_tp(params: dict, cfg: ModelConfig, batch: dict, *, tp=None):
+    """:func:`prefill` over placed weights. Returns (last-token logits [b,
+    V] on the home entry, cache: each leaf a Shards of the coordinate's
+    slots and heads, stacked over the layers as :func:`prefill`'s)."""
+    if tp is None:
+        tp = SHD.TP.for_batch(SHD.placed_mesh(params),
+                              batch["tokens"].shape[0])
+    bt = _batch_tp(batch, tp)
+    x = _assemble_tp(params, cfg, bt, tp)
+    enc_kv = (_encoder_tp(params, cfg, bt["enc_frames"], tp)
+              if cfg.is_encdec else None)
+    x, _, cache = run_stack_tp(params, cfg, x, _positions(x, tp), tp,
+                               collect=True, enc_kv=enc_kv)
+    if enc_kv is not None:
+        cache["enc_k"] = Shards({k: torch.stack([e[k][0] for e in enc_kv])
+                                 for k in tp.keys})
+        cache["enc_v"] = Shards({k: torch.stack([e[k][1] for e in enc_kv])
+                                 for k in tp.keys})
+    x = norm_tp(tp.use_tree(params["final_norm"], "final_norm"), cfg, x, tp)
+    last = tp.map(lambda t: t[:, -1], x)
+    return tp.join_batch(logits_tp(params, cfg, last, tp)), cache
+
+
+def cross_sublayer_tp(P: dict, cfg: ModelConfig, x1: Shards, enc_k, enc_v,
+                      enc_valid, tp, *, origin: str) -> Shards:
+    """:func:`cross_sublayer` of one token over placed weights: each
+    coordinate's q heads against the kv heads it holds of ``enc_k`` /
+    ``enc_v`` (one layer's ``Placed`` [b_local, se, kh_local, hd]), then
+    ``wo``'s rows summed."""
+    from repro_torch.models.layers.attention import kv_slice, wo_tp
+    h = norm_tp(P["norm_x"], cfg, x1, tp)
+    wq = P["cross"]["wq"]
+    heads = Shards()
+    for k in tp.keys:
+        sl = kv_slice(cfg, wq.range_of(-2, k), enc_k.range_of(-2, k))
+        heads[k] = _cross_decode_heads(
+            wq[k], cfg, h[k], enc_k[k][:, :, sl], enc_v[k][:, :, sl],
+            None if enc_valid is None else enc_valid[k]).flatten(-2)
+    return _add(x1, wo_tp(P["cross"]["wo"], heads, tp, origin + ".cross"))
+
+
+def mamba_block_decode_tp(P: dict, cfg: ModelConfig, kind: str, x1: Shards,
+                          state: dict, tp, *, origin: str) -> Shards:
+    """:func:`mamba_block_decode` over placed weights and one layer's
+    placed state (updated in place)."""
+    h = norm_tp(P["norm1"], cfg, x1, tp)
+    step = ssm.mamba1_decode_tp if kind == MAMBA1 else ssm.mamba2_decode_tp
+    return _add(x1, step(P["mamba"], cfg, h, state, tp,
+                         origin=origin + ".mamba"))

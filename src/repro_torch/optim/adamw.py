@@ -8,13 +8,20 @@ IN PLACE, leaf by leaf, and returns the same tensors: at gemma2-2b's
 width a second copy of the moments would be 20.9 GB. The global norm is
 taken first, then each leaf is clipped and updated on its own, so an
 fp32 copy of every gradient (10.5 GB there) never exists at once.
-Parameter trees are nested dicts of tensors.
+Parameter trees are nested dicts of tensors, or of ``Placed`` leaves
+(``parallel/sharding.place_params``): then every coordinate's slice is a
+leaf of its own here, updated on its device with the same clip scale, and
+the moments are placed as the parameters are (:func:`adamw_init`). The
+caller gives the global norm of a placed tree (``grad_norm=``:
+``training/step.py`` counts each distinct element once, not once a copy).
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import torch
+
+from repro_torch.parallel.sharding import Placed
 
 
 class AdamWState(NamedTuple):
@@ -34,6 +41,11 @@ def tree_leaves(tree) -> list:
 
 
 def tree_map(fn, tree):
+    """``fn`` of every leaf; a ``Placed`` leaf maps coordinate by
+    coordinate and stays placed."""
+    if isinstance(tree, Placed):
+        parts = {k: fn(v) for k, v in tree.items()}
+        return tree.with_parts(parts, dtype=next(iter(parts.values())).dtype)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
@@ -76,11 +88,14 @@ def clip_by_global_norm(grads, max_norm: float):
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, lr, *, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, max_grad_norm: float = 1.0):
+                 weight_decay: float = 0.1, max_grad_norm: float = 1.0,
+                 grad_norm=None):
     """Returns (params, state, metrics); ``params``, ``state.mu`` and
     ``state.nu`` are updated in place (the returned trees are the same
-    tensors), the count is a new tensor."""
-    gn = global_norm(grads)
+    tensors), the count is a new tensor. ``grad_norm``: the global norm
+    when the caller has it (a placed tree's), else :func:`global_norm`
+    of ``grads``."""
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = _clip_scale(gn, max_norm=max_grad_norm)
     count = state.count + 1
     c = count.float()
@@ -88,11 +103,12 @@ def adamw_update(grads, state: AdamWState, params, lr, *, b1: float = 0.9,
     bc2 = 1.0 - b2 ** c
     for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
                           tree_leaves(state.nu), tree_leaves(params)):
-        g32 = g.float() * scale
+        g32 = g.float() * scale.to(g.device)
         m.mul_(b1).add_((1.0 - b1) * g32)
         v.mul_(b2).add_((1.0 - b2) * g32.square_())
         del g32
-        upd = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
+        upd = (m / bc1.to(m.device)).div_((v / bc2.to(m.device)).sqrt_()
+                                          .add_(eps))
         p32 = p.float()
         upd.add_(weight_decay * p32)
         p.copy_(p32.sub_(lr * upd))

@@ -11,12 +11,18 @@ table raises (there is no default card). ``peak_flops`` is the dense bf16
 tensor-core rate, the one ``roofline_terms`` and a model-FLOP share of
 peak use; ``tf32_flops`` and ``fp32_flops`` (the 32-bit rate outside the
 tensor cores) bound kernels that compute in those types
-(:func:`kernel_bound`). The reference's HLO side (``collective_bytes``,
-``profile.py``) waits for the port's parallel layer.
+(:func:`kernel_bound`). :func:`collective_bytes` sums a collective log
+(``parallel/collectives.recording``: what the port's mesh code issues)
+where the reference parses the collectives of its compiled HLO; the
+reference's HLO cost analysis (FLOPs and bytes of a lowered step) waits
+for ``launch/dryrun.py``.
 """
 from __future__ import annotations
 
 import dataclasses
+
+
+from repro_torch.parallel.collectives import KINDS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +55,22 @@ def device_hw(device=0) -> HW:
     """The figures of a CUDA card by the name it reports."""
     import torch
     return hw_for(torch.cuda.get_device_properties(device).name)
+
+
+def collective_bytes(log) -> dict[str, int]:
+    """Per-participant output bytes of a collective log
+    (``parallel/collectives.Record`` s) by kind: the reference's five
+    kinds (``all-reduce``, ``all-gather``, ``reduce-scatter``,
+    ``all-to-all``, ``collective-permute``) plus ``total``, their sum. A
+    ``broadcast`` (the port's copy of a home tensor to every coordinate,
+    which the reference's compiled programs do not contain) is not
+    counted."""
+    out = {k: 0 for k in KINDS}
+    for rec in log:
+        if rec.kind in out:
+            out[rec.kind] += rec.nbytes
+    out["total"] = sum(out[k] for k in KINDS)
+    return out
 
 
 def roofline_terms(*, flops: float, nbytes: float, coll_bytes: float,

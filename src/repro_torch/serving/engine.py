@@ -27,12 +27,20 @@ Layering (top to bottom):
   their O(1) states. Prefill runs the flash-attention and Mamba2 scan
   kernels (``models/transformer.prefill``: the encoder, the decoder's
   self and cross attention) eagerly.
-- Over a device mesh (``launch/mesh.Mesh``), ``make_serve_step`` runs
-  each attention layer's island over the mesh (``serving/paged.py``: the
-  arenas are :class:`~repro_torch.serving.paged.Shards`, one tensor a
-  coordinate on its device) and everything around it (embedding,
-  projections, MLP / MoE, Mamba states, logits) on the mesh's home entry,
-  with the weights whole there; ``serve_state_specs`` /
+- Over a device mesh (``launch/mesh.Mesh``), ``make_serve_step`` takes
+  parameters placed by ``SERVE_PARAM_RULES``
+  (``parallel/sharding.place_params``) and runs every coordinate's part
+  on its device: its slots (cut over the batch axes), its vocabulary rows
+  of the embedding (the reference's clamp, mask and ``psum``), its heads'
+  q / k / v columns, the island over its arena shard
+  (``serving/paged.py``: each arena a
+  :class:`~repro_torch.parallel.collectives.Shards`, one tensor a
+  coordinate; where the island's heads are not the ones the weights made,
+  as with striped blocks, q is gathered over 'model' first), ``wo``'s and
+  ``w_down``'s rows and the MoE's experts with a ``psum`` after them, its
+  Mamba shards with their states placed by the reference's spec, and its
+  vocabulary slice of the logits, ``all_gather``-ed. The logits and next
+  tokens come back to the home entry. ``serve_state_specs`` /
   ``serve_input_specs`` give the reference's specs beside the shapes,
   ``init_serve_state(mesh=)`` / ``place_state`` / ``join_state`` build and
   move a placed state, and ``lower_serve_step(mesh=)`` returns a
@@ -83,11 +91,13 @@ from repro_torch.launch.mesh import check_mesh
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import (_scale, out_project,
-                                                 qkv_project)
+                                                 qkv_project, wo_tp)
 from repro_torch.models.layers.norms import rms_norm
+from repro_torch.models.params import param_axes
+from repro_torch.parallel import sharding as SHD
 from repro_torch.parallel.sharding import spec_entry
 from repro_torch.serving.paged import (PagedGeom, Shards, build_blk_start,
-                                       join_arena, localize,
+                                       coordinates, join_arena, localize,
                                        make_paged_island, plan_geometry,
                                        quantize_kv, split_arena, zero_shards)
 
@@ -102,13 +112,14 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
     """Build serve_step(params, state, inputs) -> (next_tokens, state,
     logits): one new token per slot against the paged arenas. The arenas
     and SSM states in ``state`` are updated in place. Over ``mesh`` (with
-    ``geom`` planned on it) the arenas are placed (:func:`place_state`),
-    the page inputs are the mesh's (:func:`serve_input_specs`) and
-    everything else, ``params`` included, lies on the mesh's home entry."""
+    ``geom`` planned on it) the step takes ``params`` placed by
+    ``SERVE_PARAM_RULES`` (``parallel/sharding.place_params``), a state
+    placed by :func:`place_state` and the mesh's inputs
+    (:func:`serve_input_specs`) on its home entry, and runs coordinate by
+    coordinate (:func:`_tp_step`)."""
     TF.check_supported(cfg)
     check_mesh(mesh)
-    placed = mesh is not None and bool(geom.manual_axes)
-    if placed:
+    if mesh is not None:
         mesh.require_runnable("the serve step")
     quant = cfg.kv_quant_int8
     islands: dict[int, object] = {}
@@ -116,7 +127,7 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
     def island_for(window: int):
         if window not in islands:
             islands[window] = make_paged_island(
-                geom, mesh if placed else None, scale=_scale(cfg),
+                geom, mesh, scale=_scale(cfg),
                 softcap=cfg.attn_softcap, window=window, quant=quant)
         return islands[window]
 
@@ -132,11 +143,10 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         q, k, v = qkv_project(p["attn"], cfg, h, lengths[:, None], theta)
         extra = (scale_l,) if quant else ()
-        kw = {"local": inputs["_local"]} if placed else {}
         a = island_for(window)(
             q[:, 0], k[:, 0], v[:, 0], arena_l, inputs["pt"],
             inputs["blk_start"], lengths, inputs["write_rows"],
-            inputs["write_off"], *extra, **kw)[0]
+            inputs["write_off"], *extra)[0]
         x = x + TF.post_norm(p, cfg, "norm1_post",
                              out_project(p["attn"], a[:, None]))
         if cross is not None:
@@ -144,10 +154,6 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
         return TF.mlp_sublayer(p, cfg, x)[0]
 
     def serve_step(params, state, inputs):
-        if placed and has_attention(cfg):   # cut once for every layer
-            inputs = dict(inputs, _local=localize(
-                geom, mesh, inputs["pt"], inputs["blk_start"],
-                inputs["lengths"], inputs["write_rows"], inputs["write_off"]))
         x = TF.embed_tokens(params, cfg, inputs["tokens"][:, None])
         ai = si = 0
         for i in range(cfg.n_layers):
@@ -178,6 +184,116 @@ def make_serve_step(cfg: ModelConfig, geom: PagedGeom, mesh=None):
         logits = TF.logits_fn(params, cfg, x[:, 0])
         return torch.argmax(logits, dim=-1).to(torch.int32), state, logits
 
+    if mesh is None:
+        return serve_step
+    return _tp_step(cfg, geom, mesh, island_for)
+
+
+def _cut_heads(tp, vals: dict, leaf, want, origin: str) -> dict:
+    """Each coordinate's heads ``want(key)`` (global [h0, h1)) of ``vals``
+    ([b, n, hd]: the heads ``leaf``'s placement gave it along its dim -2),
+    gathered over the axes that cut them where a coordinate lacks some."""
+    held = {k: leaf.range_of(-2, k) for k in tp.keys}
+    if not all(held[k][0] <= want(k)[0] and want(k)[1] <= held[k][1]
+               for k in tp.keys):
+        vals = tp.all_gather(Shards(vals), leaf.axes_of(-2), 1, origin)
+        held = {k: (0, leaf.shape[-2]) for k in tp.keys}
+    return Shards({k: vals[k][:, want(k)[0] - held[k][0]:
+                              want(k)[1] - held[k][0]] for k in tp.keys})
+
+
+def _tp_step(cfg: ModelConfig, geom: PagedGeom, mesh, island_for):
+    """The serve step over placed weights (:func:`make_serve_step`)."""
+    quant = cfg.kv_quant_int8
+    tp = SHD.TP(mesh, geom.batch_axes)
+    if len(coordinates(geom, mesh)) != mesh.size:
+        raise ValueError(f"the paged plan {geom.manual_axes} leaves mesh "
+                         f"axes of {mesh.shape} unused")
+
+    def attn_mlp(P, x, arena_l, scale_l, inputs, local, *, window, theta,
+                 cross, origin):
+        P = tp.use_tree(P, origin)
+        lengths = inputs["lengths"]
+        h = TF.norm_tp(P["norm1"], cfg, x, tp)
+        qkv = {k: qkv_project(SHD.local_tree(P["attn"], k), cfg, h[k],
+                              lengths[k][:, None], theta) for k in tp.keys}
+        at = P["attn"]
+        cs = {c.index: c for c in local.coords}
+        q = _cut_heads(tp, {k: t[0][:, 0] for k, t in qkv.items()}, at["wq"],
+                       lambda k: (cs[k].h0, cs[k].h1), origin + ".attn.q")
+        kn = _cut_heads(tp, {k: t[1][:, 0] for k, t in qkv.items()},
+                        at["wk"], lambda k: (cs[k].k0, cs[k].k1),
+                        origin + ".attn.k")
+        vn = _cut_heads(tp, {k: t[2][:, 0] for k, t in qkv.items()},
+                        at["wv"], lambda k: (cs[k].k0, cs[k].k1),
+                        origin + ".attn.v")
+        extra = (scale_l,) if quant else ()
+        out = island_for(window)(q, kn, vn, arena_l, None, None, None, None,
+                                 None, *extra, local=local)[0]
+        heads = Shards()
+        for k in tp.keys:
+            o0, o1 = at["wo"].range_of(-3, k)
+            heads[k] = out[k][:, None, o0 - cs[k].h0:o1 - cs[k].h0].flatten(-2)
+        a = wo_tp(at["wo"], heads, tp, origin + ".attn")
+        x = TF._add(x, TF._post_norm_tp(P, cfg, "norm1_post", a, tp))
+        if cross is not None:
+            x = TF.cross_sublayer_tp(P, cfg, x, *cross, inputs.get(
+                "enc_valid"), tp, origin=origin)
+        return TF.mlp_sublayer_tp(P, cfg, x, tp, origin)[0]
+
+    def serve_step(params, state, inputs):
+        if not SHD.is_placed(params):
+            raise TypeError("over a mesh the serve step takes params placed "
+                            "by SERVE_PARAM_RULES (parallel/sharding."
+                            "place_params)")
+        for t in state.get("ssm", {}).values():
+            if not isinstance(t, SHD.Placed):
+                raise TypeError("the serve step over a mesh takes a state "
+                                "placed by place_state")
+        local = (localize(geom, mesh, inputs["pt"], inputs["blk_start"],
+                          inputs["lengths"], inputs["write_rows"],
+                          inputs["write_off"])
+                 if has_attention(cfg) else None)
+        loc = {n: tp.scatter(inputs[n]) for n in ("tokens", "lengths",
+                                                  "enc_valid")
+               if n in inputs}
+        x = TF.embed_tokens_tp(params, cfg,
+                               tp.map(lambda t: t[:, None], loc["tokens"]),
+                               tp)
+        ai = si = 0
+        for i in range(cfg.n_layers):
+            P = TF.layer_params_tp(params, cfg, i)
+            name = TF.layer_name(cfg, i)
+            kind = cfg.layer_pattern[i]
+            if kind in TF.SSM_KINDS:
+                x = TF.mamba_block_decode_tp(
+                    tp.use_tree(P, name), cfg, kind, x,
+                    {n: t.layer(si) for n, t in state["ssm"].items()}, tp,
+                    origin=name)
+                si += 1
+            else:
+                window, theta = TF.layer_attrs(cfg, i)
+                cross = ((state["enc_k"].layer(i), state["enc_v"].layer(i))
+                         if "enc_k" in state else None)
+                x = attn_mlp(P, x, _layer(state["arena"], ai),
+                             _layer(state["arena_scale"], ai) if quant
+                             else None, loc, local, window=window,
+                             theta=theta, cross=cross, origin=name)
+                ai += 1
+            g = TF.shared_app(cfg, i)
+            if g >= 0:
+                x = attn_mlp(params["shared"], x,
+                             _layer(state["shared_arena"], g),
+                             _layer(state["shared_arena_scale"], g) if quant
+                             else None, loc, local, window=0,
+                             theta=TF.global_theta(cfg), cross=None,
+                             origin=f"shared.{g}")
+        x = TF.norm_tp(tp.use_tree(params["final_norm"], "final_norm"), cfg,
+                       x, tp)
+        logits = tp.join_batch(TF.logits_tp(
+            params, cfg, tp.map(lambda t: t[:, 0], x), tp))
+        return torch.argmax(logits, dim=-1).to(torch.int32), state, logits
+
     return serve_step
 
 
@@ -198,10 +314,9 @@ def serve_state_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None,
 
     With a ``mesh`` each entry is ``(shape, dtype, spec)`` (``"ssm"``: a
     dict of them), ``spec`` the reference's spec of that leaf as a tuple:
-    the arenas and their scales by ``geom.arena_spec()``, which is where
-    the port places them (:func:`place_state`); Mamba states and
-    ``enc_k`` / ``enc_v`` get the reference's specs too, but the port keeps
-    them whole on the mesh's home entry, as it keeps the weights."""
+    the arenas and their scales by ``geom.arena_spec()``, the Mamba states
+    and ``enc_k`` / ``enc_v`` by the reference's specs: where the port
+    places them (:func:`place_state`)."""
     TF.check_supported(cfg)
     check_mesh(mesh)
     row = (2, geom.block, cfg.n_kv_heads, cfg.head_dim)
@@ -233,35 +348,43 @@ def serve_state_specs(cfg: ModelConfig, geom: PagedGeom, mesh=None,
     return _with_specs(specs, geom, mesh)
 
 
+def _ssm_spec(shape: tuple, geom: PagedGeom, mesh) -> tuple:
+    """The reference's spec of a stacked SSM state [n, b, ...]: the slots
+    over the batch axes, and 'model' on Mamba2's heads or Mamba1's (and
+    the conv tails') larger trailing dimension where it divides."""
+    nm = int(mesh.shape.get("model", 1))
+    parts = [None, spec_entry(geom.batch_axes)] + [None] * (len(shape) - 2)
+    if len(shape) == 5:   # Mamba2 h [n, b, nh, dh, st]
+        if shape[2] % nm == 0:
+            parts[2] = "model"
+    else:   # Mamba1 h [n, b, di, st] / conv tails [n, b, cw - 1, di]
+        big = -1 if shape[-1] >= shape[-2] else -2
+        if shape[big] % nm == 0:
+            parts[big] = "model"
+    return tuple(parts)
+
+
+def _enc_spec(geom: PagedGeom) -> tuple:
+    """enc_k / enc_v [L, b, enc_len, kh, hd]: slots and kv heads as the
+    arena's."""
+    return (None, spec_entry(geom.batch_axes), None,
+            spec_entry(geom.head_axes), None)
+
+
 def _with_specs(specs: dict, geom: PagedGeom, mesh) -> dict:
     """The reference's specs beside each state leaf's shape and dtype
     (``serving/engine.py:serve_state_specs``)."""
-    bax = spec_entry(geom.batch_axes)
-    nm = int(mesh.shape.get("model", 1))
-
-    def ssm_spec(shape):
-        parts = [None, bax] + [None] * (len(shape) - 2)
-        if len(shape) == 5:   # Mamba2 h [n, b, nh, dh, st]
-            if shape[2] % nm == 0:
-                parts[2] = "model"
-        else:   # Mamba1 h [n, b, di, st] / conv tails [n, b, cw - 1, di]
-            big = -1 if shape[-1] >= shape[-2] else -2
-            if shape[big] % nm == 0:
-                parts[big] = "model"
-        return tuple(parts)
-
     out = {}
     for name, spec in specs.items():
         if name == "ssm":
-            out[name] = {k: (shape, dt, ssm_spec(shape))
+            out[name] = {k: (shape, dt, _ssm_spec(shape, geom, mesh))
                          for k, (shape, dt) in spec.items()}
         elif name in ("arena", "shared_arena"):
             out[name] = spec + (geom.arena_spec(),)
         elif name in ARENAS:   # the int8 scales: no head-dim axis
             out[name] = spec + (geom.arena_spec()[:5],)
         else:   # enc_k / enc_v [L, b, enc_len, kh, hd]
-            out[name] = spec + ((None, bax, None,
-                                 spec_entry(geom.head_axes), None),)
+            out[name] = spec + (_enc_spec(geom),)
     return out
 
 
@@ -304,8 +427,8 @@ def init_serve_state(cfg: ModelConfig, geom: PagedGeom, rows: int,
     """Zeroed serve state with ``rows`` arena rows plus the scratch row of
     the dropped writes (and an encoder-decoder's ``enc_k`` / ``enc_v`` of
     ``frontend_len`` positions, as the reference's engine sizes them).
-    Over a ``mesh`` (``rows`` must be ``geom.cap``) the arenas are placed
-    (:func:`place_state`) and the rest lies on the mesh's home entry."""
+    Over a ``mesh`` (``rows`` must be ``geom.cap``) the state is placed
+    (:func:`place_state`)."""
     if mesh is not None:
         if rows != geom.cap:
             raise ValueError(f"a placed state holds geom.cap = {geom.cap} "
@@ -333,16 +456,17 @@ def place_state(state: dict, geom: PagedGeom, mesh, *,
     ``geom.cap`` rows in the mesh's row layout: row ``shard * cap_local +
     r`` is row r of shard ``batch shard * stripe_total + stripe``) -> the
     mesh's: each arena split over the coordinates
-    (``serving/paged.split_arena``), every other leaf copied to the mesh's
-    home entry: the placed state shares no storage with ``state``.
-    ``zeros``: build zeroed leaves of the same shapes (``state`` may then
-    be on the ``meta`` device)."""
-    home = mesh.home
+    (``serving/paged.split_arena``), the SSM states and ``enc_k`` /
+    ``enc_v`` placed by the reference's specs (``parallel/sharding.Placed``:
+    each coordinate's slots and heads or ``d_inner`` slice on its device).
+    The placed state shares
+    no storage with ``state``. ``zeros``: build zeroed leaves of the same
+    shapes (``state`` may then be on the ``meta`` device)."""
 
-    def move(t):
+    def place(t, spec):
         if zeros:
-            return torch.zeros(t.shape, dtype=t.dtype, device=home)
-        return t.to(home, copy=True)
+            return SHD.zeros_by_spec(t.shape, t.dtype, spec, mesh)
+        return SHD.split_by_spec(t, spec, mesh)
 
     out = {}
     for name, t in state.items():
@@ -350,17 +474,27 @@ def place_state(state: dict, geom: PagedGeom, mesh, *,
             t = t[:, :geom.cap]
             out[name] = (zero_shards(t.shape, t.dtype, geom, mesh) if zeros
                          else split_arena(t, geom, mesh))
+        elif name == "ssm":
+            out[name] = {k: place(v, _ssm_spec(tuple(v.shape), geom, mesh))
+                         for k, v in t.items()}
         else:
-            out[name] = _tree_map(move, t)
+            out[name] = place(t, _enc_spec(geom))
     return out
 
 
 def join_state(state: dict, geom: PagedGeom, mesh) -> dict:
-    """The inverse of :func:`place_state` for the arenas: each one joined
-    back to ``[L, geom.cap, ...]`` on the home entry (no scratch row);
-    other leaves as they are."""
-    return {name: join_arena(t, geom, mesh) if isinstance(t, Shards) else t
-            for name, t in state.items()}
+    """The inverse of :func:`place_state`: each arena joined back to
+    ``[L, geom.cap, ...]`` on the home entry (no scratch row), every
+    placed leaf whole on the home entry."""
+    def join(t):
+        if isinstance(t, SHD.Placed):
+            return SHD.join_placed(t)
+        if isinstance(t, Shards):
+            return join_arena(t, geom, mesh)
+        if isinstance(t, dict):
+            return {k: join(v) for k, v in t.items()}
+        return t
+    return {name: join(t) for name, t in state.items()}
 
 
 def _tree_map(fn, tree):
@@ -484,15 +618,22 @@ class ServeGraph:
 
 class MeshServeStep:
     """The decode round over a device mesh (``lower_serve_step(mesh=)``):
-    the placed state and the round's static inputs on the mesh's home
-    entry (``serve_input_specs``: write ``pt``, ``blk_start`` and
+    the weights placed by ``SERVE_PARAM_RULES`` (whole ones are placed
+    here, as the reference's ``in_shardings`` place them), the placed
+    state and the round's static inputs on the mesh's
+    home entry (``serve_input_specs``: write ``pt``, ``blk_start`` and
     ``write_rows`` in place), run eagerly, one kernel launch a coordinate
     a layer (no CUDA graph: a mesh's coordinates may be other cards). Over
     a plan-only mesh (``make_production_mesh``) it holds the specs alone,
     and calling it raises."""
 
     def __init__(self, cfg: ModelConfig, geom: PagedGeom, params, mesh):
-        self.mesh, self.geom, self.params = mesh, geom, params
+        self.mesh, self.geom = mesh, geom
+        if params is not None and not mesh.is_plan and not SHD.is_placed(
+                params):
+            params = SHD.place_params(params, param_axes(cfg),
+                                      SHD.SERVE_PARAM_RULES, mesh)
+        self.params = params
         self.state_specs = serve_state_specs(
             cfg, geom, mesh, enc_len=cfg.frontend_len if cfg.is_encdec
             else 0)
@@ -534,9 +675,11 @@ def lower_serve_step(cfg: ModelConfig, shape, params: dict, mesh=None, *,
     tokens, on zeroed state and static inputs. Without a mesh it is
     captured as one CUDA graph on the card (on the CPU the step body, run
     eagerly when called); ``params`` must be on ``device`` (None: the
-    card). Over a ``mesh`` it is a :class:`MeshServeStep` (``params`` on
-    the mesh's home entry; over the production mesh's ``meta`` plan,
-    shapes and specs only, and ``params`` may be None). Returns
+    card). Over a ``mesh`` it is a :class:`MeshServeStep` (``params``
+    placed by ``SERVE_PARAM_RULES``, or whole, and then placed by it, as
+    the reference's ``in_shardings`` place them; over the production
+    mesh's ``meta`` plan, shapes and specs only, and ``params`` may be
+    None). Returns
     ``(step, extra)``: the step (write its ``state`` and its ``pt`` /
     ``write_rows`` inputs in place, then call it with a round's tokens,
     lengths and write offsets) and the paged geometry the reference

@@ -39,15 +39,22 @@ Each mesh coordinate holds its slots', heads' and stripe's share of every
 arena as one tensor on its own device (``[L, cap_local + 1, 2, block,
 kh_local, hd]``, a scratch row last: a :class:`Shards`, built from a
 global arena by :func:`split_arena`, joined back by :func:`join_arena`).
-The island runs the kernel once a coordinate on that coordinate's device,
-over its stripe's pages at their global start positions (the kernel's
-``blk_start``). Without stripes each coordinate's output is its slots'
-and heads' final output. With stripes the kernel also returns each row's
-log-sum-exp, and the partials are combined on the mesh's home entry with
-plain torch ops, as the reference combines them with ``pmax`` / ``psum``
-outside any kernel: the max of the lse values, each partial rescaled by
-``exp(lse - max)``, summed and divided by the summed weights. A stripe
-that sees nothing gives 0 and lse -1e30, which weighs 0 (no ``inf - inf``).
+The island takes each coordinate's own q / k_new / v_new (:class:`Shards`
+of its slots and of the heads :func:`coordinates` gives it; the serve
+step over placed weights, ``serving/engine.make_serve_step``, cuts or
+gathers them from the heads its weights made, and :func:`scatter_heads`
+cuts them from global tensors) and runs the kernel once a coordinate on
+that coordinate's device, over its stripe's pages at their global start
+positions (the kernel's ``blk_start``). Without stripes each
+coordinate's output is its slots' and heads' final output, and no
+collective runs. With stripes the kernel also returns each row's
+log-sum-exp, and the partials are combined with the reference's
+collectives over the stripe axes (``parallel/collectives.py``): a
+``pmax`` of the lse values, each partial rescaled by ``exp(lse - max)``,
+and two ``psum`` calls (the weighted partials and the weights), whose
+quotient every coordinate gets. A stripe that sees nothing gives 0 and
+lse -1e30, which weighs 0 (no ``inf - inf``). :func:`gather_heads` joins
+the output back to a global tensor.
 
 Only the owner stripe writes the new token: the one whose
 ``write_rows[b, stripe] >= 0`` (the reference's ``own``). With the bf16
@@ -66,8 +73,7 @@ request (``write_rows`` -1 on every stripe) attends to nothing and gives
 0, as without a mesh.
 
 One process drives every coordinate; on one card the mesh repeats
-``cuda:0`` and the placement code runs in full. The projections around
-the island run on the home entry (``serving/engine.py``).
+``cuda:0`` and the placement code runs in full.
 """
 from __future__ import annotations
 
@@ -79,6 +85,7 @@ import torch
 
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.launch.mesh import check_mesh
+from repro_torch.parallel.collectives import Shards, pmax, psum
 from repro_torch.parallel.sharding import spec_entry
 
 
@@ -228,15 +235,6 @@ def quantize_kv(kv: torch.Tensor):
 
 
 # ------------------------------------------------------ mesh coordinates
-class Shards(dict):
-    """One tensor per mesh coordinate: {index tuple (mesh axis order):
-    tensor on that coordinate's device}."""
-
-    def layer(self, i: int) -> "Shards":
-        """Every shard's ``[i]`` (one layer of a layer-major arena)."""
-        return Shards({c: t[i] for c, t in self.items()})
-
-
 @dataclasses.dataclass
 class Coord:
     """Where one mesh coordinate's work lies: its index, device, stripe,
@@ -298,6 +296,30 @@ def split_arena(arena: torch.Tensor, geom: PagedGeom, mesh) -> Shards:
         t[:, :cl] = part
         out[c.index] = t
     return out
+
+
+def scatter_heads(geom: PagedGeom, mesh, q: torch.Tensor,
+                  k_new: torch.Tensor, v_new: torch.Tensor):
+    """Global q [b, h, hd] and k_new / v_new [b, kh, hd] -> the mesh
+    island's inputs: :class:`Shards` of each coordinate's slots and heads
+    (:func:`coordinates`) on its device."""
+    cs = coordinates(geom, mesh)
+    return (Shards({c.index: q[c.b0:c.b1, c.h0:c.h1].to(c.device)
+                    for c in cs}),
+            *(Shards({c.index: t[c.b0:c.b1, c.k0:c.k1].to(c.device)
+                      for c in cs}) for t in (k_new, v_new)))
+
+
+def gather_heads(geom: PagedGeom, mesh, out: Shards) -> torch.Tensor:
+    """The inverse of :func:`scatter_heads` for the island's output: [b, h,
+    hd] on the mesh's home entry."""
+    cs = coordinates(geom, mesh)
+    first = out[cs[0].index]
+    whole = torch.empty((geom.batch, geom.q_heads) + tuple(first.shape[2:]),
+                        dtype=first.dtype, device=mesh.home)
+    for c in cs:
+        whole[c.b0:c.b1, c.h0:c.h1] = out[c.index].to(mesh.home)
+    return whole
 
 
 def zero_shards(shape, dtype, geom: PagedGeom, mesh) -> Shards:
@@ -431,12 +453,19 @@ def localize(geom: PagedGeom, mesh, pt, blk_start, lengths, write_rows,
     return MeshInputs(coords, local, active)
 
 
-def _combine(parts_o: torch.Tensor, parts_l: torch.Tensor) -> torch.Tensor:
-    """The reference's cross-stripe combine: partials [S, b, h, hd] (each
-    normalised) and their log-sum-exps [S, b, h] -> [b, h, hd] fp32."""
-    mg = parts_l.max(dim=0).values
-    w = torch.exp(parts_l - mg)
-    return (w[..., None] * parts_o).sum(dim=0) / w.sum(dim=0)[..., None]
+def _combine(geom: PagedGeom, mesh, outs: Shards, lses: Shards,
+              dtype) -> Shards:
+    """The reference's cross-stripe combine of each coordinate's partial
+    [b_local, h, hd] (normalised, fp32) and its log-sum-exps [b_local, h],
+    with collectives over the stripe axes: every coordinate gets its
+    slots' combined output in ``dtype``."""
+    ax = geom.stripe_axes
+    mg = pmax(lses, mesh, ax, "paged.lse_max")
+    w = Shards({k: torch.exp(t - mg[k]) for k, t in lses.items()})
+    num = psum(Shards({k: w[k][..., None] * outs[k] for k in outs}), mesh,
+               ax, "paged.combine")
+    den = psum(w, mesh, ax, "paged.weights")
+    return Shards({k: (num[k] / den[k][..., None]).to(dtype) for k in outs})
 
 
 def make_paged_island(geom: PagedGeom, mesh=None, *, scale: float,
@@ -455,13 +484,15 @@ def make_paged_island(geom: PagedGeom, mesh=None, *, scale: float,
     ``scale_l`` [cap + 1, 2, block, kh] fp32 its scales, both written in
     place.
 
-    Over a mesh (module docstring): q, k_new, v_new, lengths and the page
-    inputs are global tensors on the mesh's home entry (pt / blk_start
-    [b, stripe_total, nblk_local] of local rows, write_rows [b,
+    Over a mesh (module docstring): q, k_new and v_new are :class:`Shards`
+    (each coordinate's slots and heads, :func:`scatter_heads`), lengths
+    and the page inputs global tensors on the mesh's home entry (pt /
+    blk_start [b, stripe_total, nblk_local] of local rows, write_rows [b,
     stripe_total]); arena_l (and scale_l) are :class:`Shards` of one
-    layer, written in place; the output is on home. The mesh island also
-    takes ``local=``, the round's :func:`localize` result, so that a step
-    cuts its inputs once for every layer."""
+    layer, written in place; the output is :class:`Shards` like q
+    (:func:`gather_heads`). The mesh island also takes ``local=``, the
+    round's :func:`localize` result, so that a step cuts its inputs once
+    for every layer."""
     check_mesh(mesh)
     if mesh is None or not geom.manual_axes:
         return _local_island(scale=scale, softcap=softcap, window=window,
@@ -523,20 +554,10 @@ def _mesh_island(geom, mesh, *, scale, softcap, window, quant):
         if local is None:
             local = localize(geom, mesh, pt, blk_start, lengths, write_rows,
                              write_off)
-        home = mesh.home
-        b, h, hd = q.shape
-        out = torch.empty_like(q, device=home)
-        if st > 1:   # the stripes' partials
-            parts_o = torch.empty((st, b, h, hd), dtype=torch.float32,
-                                  device=home)
-            parts_l = torch.empty((st, b, h), dtype=torch.float32,
-                                  device=home)
+        outs, lses = Shards(), Shards()
         for c in local.coords:
             loc = local.local[c.index]
-            dev = c.device
-            ql = q[c.b0:c.b1, c.h0:c.h1].to(dev)
-            kl = k_new[c.b0:c.b1, c.k0:c.k1].to(dev)
-            vl = v_new[c.b0:c.b1, c.k0:c.k1].to(dev)
+            ql, kl, vl = q[c.index], k_new[c.index], v_new[c.index]
             a = arena_l[c.index]
             cl = a.shape[0] - 1
             kw = dict(scale=scale, softcap=softcap,
@@ -558,12 +579,11 @@ def _mesh_island(geom, mesh, *, scale, softcap, window, quant):
                 res = paged_attention(ql, a[:cl], loc["pt"], loc["visible"],
                                       window=kwin, **kw)
             if st == 1:
-                out[c.b0:c.b1, c.h0:c.h1] = res.to(home)
+                outs[c.index] = res
             else:
-                parts_o[c.stripe, c.b0:c.b1, c.h0:c.h1] = res[0].to(home)
-                parts_l[c.stripe, c.b0:c.b1, c.h0:c.h1] = res[1].to(home)
-        if st > 1:
-            out.copy_(_combine(parts_o, parts_l))
+                outs[c.index], lses[c.index] = res
+        out = outs if st == 1 else _combine(
+            geom, mesh, outs, lses, next(iter(q.values())).dtype)
         return (out, arena_l, scale_l) if quant else (out, arena_l)
 
     return island

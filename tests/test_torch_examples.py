@@ -65,13 +65,17 @@ def test_torch_train_launcher_on_the_cpu(tmp_path):
 
 
 def test_torch_train_launcher_refusals(tmp_path):
-    """The production mesh is not ported: it raises NotPorted. zamba2
-    trains on the card (its Mamba2 layers through the scan's backward
-    kernel) as on the CPU."""
+    """``--mesh single`` is parsed and trains as ``--mesh none`` does,
+    as the reference's launcher (which never reads the flag) does; it
+    used to raise NotPorted. zamba2 trains on the card (its Mamba2 layers
+    through the scan's backward kernel) as on the CPU."""
     from repro_torch.launch.train import main
-    from repro_torch.models.config import NotPorted
-    with pytest.raises(NotPorted):
-        main(["--mesh", "single", "--smoke", "--device", "cpu"])
+    argv = ["--smoke", "--device", "cpu", "--steps", "1", "--batch", "2",
+            "--seq", "16"]
+    runs = [main(argv + ["--mesh", m, "--ckpt-dir", str(tmp_path / m)])
+            for m in ("single", "none")]
+    assert [float(h["loss"]) for h in runs[0].history] == \
+        [float(h["loss"]) for h in runs[1].history]
     if torch.cuda.is_available():
         loop = main(["--arch", "zamba2-2.7b", "--smoke", "--steps", "1",
                      "--batch", "2", "--seq", "16", "--ckpt-dir",

@@ -2405,7 +2405,8 @@ def test_paged_attention_striped_self_term_lse(cuda, starts):
                                           ("zamba2-2.7b", (2, 2), 2)])
 def test_serve_mesh_step_on_card_matches_mesh_free(cuda, arch, shape, b):
     """The mesh serve step over a debug mesh of repeated cuda:0 (every
-    coordinate on the card) against the mesh-free step on the same card,
+    coordinate on the card), its weights placed by SERVE_PARAM_RULES,
+    against the mesh-free step on the same card,
     3 rounds of SMOKE weights (fp32; yi-6b's 4 kv heads over 'model' 8:
     8 stripes): logits within 1e-4, tokens equal, joined arenas within
     1e-5; each coordinate launches its own kernel."""
@@ -2413,6 +2414,8 @@ def test_serve_mesh_step_on_card_matches_mesh_free(cuda, arch, shape, b):
     from repro_torch.kernels import _build
     from repro_torch.launch import mesh as TM
     from repro_torch.models import transformer as TTF
+    from repro_torch.models.params import param_axes
+    from repro_torch.parallel import sharding as SH
     from repro_torch.serving import engine as TE
     from repro_torch.serving import paged as TP
     cfg = TC.get_smoke(arch)
@@ -2432,6 +2435,8 @@ def test_serve_mesh_step_on_card_matches_mesh_free(cuda, arch, shape, b):
             glob[k][:, :free.cap] = torch.randn(
                 glob[k][:, :free.cap].shape, generator=g, device=cuda)
     placed = TE.place_state(glob, geom, mesh)
+    weights = SH.place_params(params, param_axes(cfg), SH.SERVE_PARAM_RULES,
+                              mesh)
     rng = np.random.default_rng(2)
     st, cl, bl = geom.stripe_total, geom.cap_local, geom.batch_local
     free_rows = [list(rng.permutation(cl)) for _ in range(geom.cap // cl)]
@@ -2451,7 +2456,7 @@ def test_serve_mesh_step_on_card_matches_mesh_free(cuda, arch, shape, b):
                   "pt": pt, "blk_start": torch.from_numpy(
                       TP.build_blk_start(geom)).to(cuda), "write_rows": wr}
         before = dict(_build.launches)
-        nm, _, lm = mesh_step(params, placed, inputs)
+        nm, _, lm = mesh_step(weights, placed, inputs)
         torch.cuda.synchronize()
         n_paged = sum(_build.launches[k] - before[k] for k in (
             "paged_attention", "paged_attention_wide", "paged_attention_lse"))

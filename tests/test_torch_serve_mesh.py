@@ -14,11 +14,14 @@
   over 'model') and five variants (fp32, bf16, the int8 arena, a window,
   a softcap), every case with a slot whose pages lie on one stripe (the
   others see nothing) and, with four slots, one without a request:
-  the output within 1e-5 of the largest (fp32; bf16 2e-2) and the joined
+  each coordinate's q / k / v cut by ``scatter_heads`` and the output
+  joined by ``gather_heads``: the output within 1e-5 of the largest
+  (fp32; bf16 2e-2) and the joined
   arena (and int8 scales) equal to the reference's; each also within
   1e-5 of the port's mesh-free island on the same global pool.
 * The whole serve step of yi-6b (4 slots, and 1 slot striped) and
-  zamba2-2.7b (4 slots) SMOKE over ``make_debug_mesh(2, 2)``: 3 rounds,
+  zamba2-2.7b (4 slots) SMOKE over ``make_debug_mesh(2, 2)``, the weights
+  placed by ``SERVE_PARAM_RULES``: 3 rounds,
   logits within 1e-5 of the largest against the reference's mesh step and
   against the port's mesh-free step, greedy tokens equal, the joined
   arenas equal the reference's within 1e-5.
@@ -42,6 +45,8 @@ from repro.serving import paged as JP
 from repro_torch import configs as TC
 from repro_torch import convert
 from repro_torch.launch import mesh as TM
+from repro_torch.models.params import param_axes
+from repro_torch.parallel import sharding as SH
 from repro_torch.serving import engine as TE
 from repro_torch.serving import paged as TP
 
@@ -218,8 +223,9 @@ def test_island_matches_reference_mesh(ref, layout, variant):
     if quant:
         scales = TP.split_arena(t(c["scales"])[None], geom, mesh)
         extra = (scales.layer(0),)
-    out = TP.make_paged_island(geom, mesh, **kw)(
-        q, kn, vn, shards.layer(0), *page_in, *extra)[0]
+    out = TP.gather_heads(geom, mesh, TP.make_paged_island(geom, mesh, **kw)(
+        *TP.scatter_heads(geom, mesh, q, kn, vn), shards.layer(0), *page_in,
+        *extra)[0])
     key = f"island/{layout}/{variant}"
     # a slot without a request gives 0 (the reference's masked softmax
     # leaves a mean of masked rows there, which no caller reads)
@@ -273,7 +279,8 @@ def test_island_without_stripes_launches_like_the_mesh_free_island():
         TP.paged_attention = spy
         try:
             TP.make_paged_island(geom, mesh, scale=0.25)(
-                *(t(c[k]) for k in ("q", "kn", "vn")), shards.layer(0),
+                *TP.scatter_heads(geom, mesh, *(t(c[k]) for k in (
+                    "q", "kn", "vn"))), shards.layer(0),
                 *(t(c[k]) for k in ("pt", "bs", "lengths", "wr", "off")))
         finally:
             TP.paged_attention = real
@@ -309,6 +316,8 @@ def test_serve_step_matches_reference_mesh(ref, arch, b):
     for name in arenas:
         glob[name][:, :free.cap] = torch.from_numpy(c[name])
     placed = TE.place_state(glob, geom, mesh)
+    weights = SH.place_params(tp, param_axes(tcfg), SH.SERVE_PARAM_RULES,
+                              mesh)
     mesh_step = TE.make_serve_step(tcfg, geom, mesh)
     free_step = TE.make_serve_step(tcfg, free)
     key = f"step/{arch}/{b}"
@@ -324,7 +333,7 @@ def test_serve_step_matches_reference_mesh(ref, arch, b):
         inputs = {"tokens": tokens, "lengths": lens,
                   "write_off": lens % M.STEP_BLOCK, "pt": pt,
                   "blk_start": torch.from_numpy(c["bs"]), "write_rows": wr}
-        nxt, _, logits = mesh_step(tp, placed, inputs)
+        nxt, _, logits = mesh_step(weights, placed, inputs)
         free_in = dict(inputs, pt=TP.global_page_table(geom, pt)[:, None],
                        blk_start=torch.from_numpy(TP.build_blk_start(free)),
                        write_rows=TP.global_write_rows(geom, wr))
