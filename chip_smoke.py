@@ -144,6 +144,11 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               launch's, the wrapper's,
               the plain version's, the bound (no PyTorch call computes
               this function).
+   bound_checks -- every model kernel's bound above reads its wrapper's
+              reckoning (FA.flash_cost / flash_bwd_cost, PA.paged_cost,
+              MS.scan_cost / scan_bwd_cost: the dry run's counts too),
+              each held equal to the count this script kept before, the
+              striped call's excepted (its fp32 output, counted now).
 3. table2  -- the paper's Table 2 deployment (100,000 records over 30,000
               pages and 1,000 users, CAPACITY 131072), with and without
               INDEX(page_id), INDEX(user_id), on the card daemon and on a
@@ -318,16 +323,33 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               weights and moments placed by TRAIN_PARAM_RULES over (2, 2)
               (FSDP 'embed' over 'data', heads / mlp / vocab over
               'model'): loss within 1e-2 relative and every gradient leaf
-              but the tied embedding's within 5e-2 of its largest entry
-              against the mesh-free step; the embedding's (whose
-              mesh-free lookup sums its gradient in bf16) within 5e-2
-              against the mesh-free step with that sum in fp32, its
-              distance from the step as it ships reported; then one
-              AdamW update at step 1 and every parameter against the
-              mesh-free step's; step seconds, peak memory, collective
+              within 5e-2 of its largest entry against the mesh-free
+              step, the tied embedding's within twice the mesh-free
+              step's distance from the same step in fp32 if that is
+              larger (both lookups sum their gradient in bf16, as the
+              reference's do, the placed one a batch slice at a time);
+              then one AdamW update at step 1 and every parameter against
+              the mesh-free step's; step seconds, peak memory, collective
               bytes. Then one yi-6b SMOKE step through
               parallel/compression.make_compressed_grad_fn over (pod 2,
               data 1, model 2) against the same on the CPU.
+   dryrun -- the dry run (launch/dryrun.py) against the card: (i)
+              train_tp's gemma2-2b step walked on meta over (2, 2) and
+              the same step on the card under one cost counter
+              (roofline/cost.py): FLOPs, bytes moved, argument bytes (=
+              the placed tensors' bytes), kernel calls and every
+              coordinate's FLOPs equal, the collective logs equal as
+              multisets (their order reported); the walk's peak live
+              bytes over the mesh within 0.8-1.25 of the card's
+              allocated rise over the step; (ii) the same counts for
+              yi-6b's placed serve round (4 slots of 4,096 over (2, 2)),
+              its peak ratio reported; (iii) gemma2-2b train_4k over the
+              16 x 16 production mesh: its two-point probe's costs,
+              roofline terms and wall seconds.
+   examples -- examples/torch_quickstart.py (its rows and counts, a CUDA
+              payload) and examples/torch_cms_cache_sim.py (2,000
+              requests: each cache's hits and request p50 / p99, wall
+              µs) on the card, the relscan launches counted.
    train_seqpar -- one gemma2-2b training step at full width (b 1, s
               8,192, remat full) with ``attn_seq_shard`` over a 'model'
               axis of 4 entries (cuda:0 repeated) against the same step
@@ -369,11 +391,11 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               device time by family, idle share), and for zamba2's
               300-token prefill.
 
-Phases 3-6 are twenty-seven main paths (train, serve_gemma3, serve_gemma2,
+Phases 3-6 are twenty-nine main paths (train, serve_gemma3, serve_gemma2,
 serve_starcoder2, serve_falcon_mamba, serve_granite_moe, serve_phi35_moe,
 serve_internvl2, serve_seamless, serve, serve_zamba2, serve_int8,
-serve_int8_zamba2, serve_mesh, train_seqpar, serve_tp, train_tp,
-Table 2 plain, Table 2
+serve_int8_zamba2, serve_mesh, train_seqpar, serve_tp, train_tp, dryrun,
+examples, Table 2 plain, Table 2
 indexed, Fig. 1, wire, graphs,
 shards, mesh, snapshot, cluster, cluster_chaos; the twelve serve
 paths run first, since their warm round check reads the card's copy
@@ -538,10 +560,44 @@ def device_launches(fn, iters=10):
     return len(device_events(fn, iters)) / iters
 
 
+# Every model kernel's bound reads its wrapper's reckoning (``FA.flash_cost``
+# and ``flash_bwd_cost``, ``PA.paged_cost``, ``MS.scan_cost`` and
+# ``scan_bwd_cost``: the dry run's count too). Each ``*_work`` below also
+# gives the count this script kept before (``_legacy``), and ``bound``
+# holds the two bounds equal (``BOUND_CHECKS``, the ``bound_checks`` line):
+# the one deliberate change is the striped call's fp32 output.
+BOUND_CHECKS: list = []
+_legacy: list = []
+
+
 def bound(nbytes: float, ops: float, ops_rate: float = SIMT_OPS_S):
     """(ms, "bytes" or "operations"): ``RF.kernel_bound`` on this card."""
     t, by = RF.kernel_bound(nbytes, ops, ops_rate, CARD_HW)
+    if _legacy:
+        name, old_bytes, old_ops = _legacy.pop()
+        t0, by0 = RF.kernel_bound(old_bytes, old_ops, ops_rate, CARD_HW)
+        BOUND_CHECKS.append({"work": name, "bound_ms": t * 1e3,
+                             "bound_ms_before": t0 * 1e3, "bound_by": by,
+                             "bound_by_before": by0})
     return t * 1e3, by
+
+
+def reckoned(name, new, old):
+    """The reckoning's (bytes, FLOP) of a ``*_work``, with the count it
+    replaces noted for the next ``bound``."""
+    _legacy.append((name,) + tuple(old))
+    return new
+
+
+def check_bounds() -> None:
+    """Every bound read the same before and after the kernels' reckonings
+    (within 1e-9 relative), the striped call's excepted."""
+    emit({"phase": "bound_checks", "rows": BOUND_CHECKS})
+    bad = [r for r in BOUND_CHECKS if r["work"] != "striped" and (
+        abs(r["bound_ms"] - r["bound_ms_before"])
+        > 1e-9 * r["bound_ms_before"] or r["bound_by"] != r["bound_by_before"])]
+    if bad:
+        raise AssertionError(f"bounds moved with the reckonings: {bad}")
 
 
 def max_err(pairs) -> int:
@@ -1531,9 +1587,12 @@ def paged_int8_work(h, kh, hd, nblk, lengths, q_elem):
     its two fp32 scales, the self term's k / v, pages and lengths."""
     b = len(lengths)
     tokens = int(sum(lengths))
-    nbytes = (2 * b * h * hd + 2 * b * kh * hd) * q_elem \
-        + 2 * tokens * kh * (hd + 4) + 4 * b * nblk + 4 * b
-    return nbytes, 4 * h * hd * (tokens + b)
+    old = ((2 * b * h * hd + 2 * b * kh * hd) * q_elem
+           + 2 * tokens * kh * (hd + 4) + 4 * b * nblk + 4 * b,
+           4 * h * hd * (tokens + b))
+    flops, nbytes = PA.paged_cost(b, h, kh, hd, 0, nblk, q_elem, 1,
+                                  tokens=tokens, self_term=True, scales=True)
+    return reckoned("paged_int8", (nbytes, flops), old)
 
 
 def paged_int8_timing(rng, gen, dev, h, kh, hd, nblk, lengths, what):
@@ -1592,10 +1651,13 @@ def paged_timing(rng, gen, dev, h, kh, hd, nblk, lengths, what, window=0,
 def flash_work(b, h, kh, sq, sk, hd, elem, causal=True, q_offset=0):
     """(bytes, FLOP) one flash call must move and do: q, k, v read once,
     the output written once; QK^T and PV over the visible (q, k) pairs."""
-    nbytes = (2 * b * h * sq * hd + 2 * b * kh * sk * hd) * elem
     pairs = sum(min(sk, q_offset + i + 1) if causal else sk
                 for i in range(sq))
-    return nbytes, 4 * b * h * pairs * hd
+    old = ((2 * b * h * sq * hd + 2 * b * kh * sk * hd) * elem,
+           4 * b * h * pairs * hd)
+    flops, nbytes = FA.flash_cost(b, h, kh, sq, sk, hd, elem, causal=causal,
+                                  q_offset=q_offset)
+    return reckoned("flash", (nbytes, flops), old)
 
 
 def paged_work(h, kh, hd, nblk, lengths, elem):
@@ -1603,9 +1665,11 @@ def paged_work(h, kh, hd, nblk, lengths, elem):
     row once, pages and lengths; QK^T and PV over the visible tokens."""
     b = len(lengths)
     tokens = int(sum(lengths))
-    nbytes = (2 * b * h * hd + 2 * tokens * kh * hd) * elem \
-        + 4 * b * nblk + 4 * b
-    return nbytes, 4 * h * hd * tokens
+    old = ((2 * b * h * hd + 2 * tokens * kh * hd) * elem + 4 * b * nblk
+           + 4 * b, 4 * h * hd * tokens)
+    flops, nbytes = PA.paged_cost(b, h, kh, hd, 0, nblk, elem,
+                                  tokens=tokens)
+    return reckoned("paged", (nbytes, flops), old)
 
 
 def check_flash_views(gen, dev, dtype, b, h, kh, s, hd, what):
@@ -2058,16 +2122,20 @@ def check_paged_striped(rng, gen, dev, per_case, errs):
 
 def striped_work(h, kh, hd, block, lengths, stripe, S, nblk_l, elem,
                  kv_elem=None):
-    """(bytes, FLOP) of one stripe's call: q and out once, the K/V rows of
-    the positions its pages hold that are visible, pages, starts and
-    lengths, and its lse; QK^T and PV over those positions."""
+    """(bytes, FLOP) of one stripe's call: q read and its fp32 output
+    written once, the K/V rows of the positions its pages hold that are
+    visible, pages, starts and lengths, and its lse; QK^T and PV over
+    those positions (the count before this reckoning took the output at
+    q's width)."""
     kv_elem = elem if kv_elem is None else kv_elem
     b = len(lengths)
     seen = sum(max(0, min(block, n - (jl * S + stripe) * block))
                for n in lengths for jl in range(nblk_l))
-    nbytes = (2 * b * h * hd * elem + 2 * seen * kh * hd * kv_elem
-              + 8 * b * nblk_l + 4 * b + 4 * b * h)
-    return nbytes, 4 * h * hd * seen
+    old = (2 * b * h * hd * elem + 2 * seen * kh * hd * kv_elem
+           + 8 * b * nblk_l + 4 * b + 4 * b * h, 4 * h * hd * seen)
+    flops, nbytes = PA.paged_cost(b, h, kh, hd, block, nblk_l, elem, kv_elem,
+                                  tokens=seen, starts=True, lse=True)
+    return reckoned("striped", (nbytes, flops), old)
 
 
 def paged_striped_timing(rng, gen, dev):
@@ -2165,7 +2233,8 @@ def mamba_work(b, s, nh, dh, st, elem, chunk=MS.CHUNK):
     pairs = sum(n * (n + 1) // 2 for n in
                 [chunk] * (s // chunk) + ([s % chunk] if s % chunk else []))
     flop = 2 * b * pairs * (st + nh * dh) + 2 * 2 * b * s * nh * dh * st
-    return nbytes, flop
+    new_flops, new_bytes = MS.scan_cost(b, s, nh, dh, st, elem, h0=True)
+    return reckoned("mamba", (new_bytes, new_flops), (nbytes, flop))
 
 
 def phase_kernels_mamba(dev, card):
@@ -2360,7 +2429,9 @@ def mamba_bwd_work(b, s, nh, dh, st, elem, h0=True, dh_last=False,
                 [chunk] * (s // chunk) + ([s % chunk] if s % chunk else []))
     flop = (2 * b * pairs * (st + nh * (2 * dh + 2 * st))
             + 5 * 2 * b * s * nh * dh * st)
-    return nbytes, flop
+    new_flops, new_bytes = MS.scan_bwd_cost(b, s, nh, dh, st, elem, h0=h0,
+                                            dh_last=dh_last)
+    return reckoned("mamba_bwd", (new_bytes, new_flops), (nbytes, flop))
 
 
 def mamba_bwd_timing(gen, dev, shape, what):
@@ -4870,6 +4941,12 @@ def phase_kernels_attention_bwd(dev, card):
         except (TypeError, RuntimeError) as e:
             lib_err = f"{type(e).__name__}: {e}"[:300]
         fwd_flops = 4 * pairs * hd
+        shp = (b, h, kh, s, s, hd, elem)
+        fwd_work = FA.flash_cost(*shp, window=window, with_lse=True)
+
+        def bwd_work(name, old, rate=SIMT_OPS_S):
+            f, n = FA.flash_bwd_cost(name, *shp, window=window)
+            return bound(*reckoned(name, (n, f), old), rate)
         rows = {
             "flash_attention_lse": dict(
                 ms=time_ms(fwd_lse, iters=5, warm=1),
@@ -4879,17 +4956,22 @@ def phase_kernels_attention_bwd(dev, card):
                                                 iters=3),
                 plain_ms=time_ms(lambda: FA.flash_attention_ref(
                     q, k, v, **kw), iters=2, warm=1),
-                bound=bound((2 * b * h + 2 * b * kh) * s * hd * elem
-                            + 4 * b * h * s, fwd_flops, BF16_OPS_S),
+                bound=bound(*reckoned(
+                    "flash_lse", fwd_work[::-1],
+                    ((2 * b * h + 2 * b * kh) * s * hd * elem
+                     + 4 * b * h * s, fwd_flops)), BF16_OPS_S),
                 library_ms=None,
                 library="none at this shape: SDPA has no softcap (the "
                         "forward's library time is in kernels_attention)"),
-            "flash_attention_bwd_delta": dict(
-                bound=bound(2 * b * h * s * hd * elem + 4 * b * h * s, 0.0)),
-            "flash_attention_bwd_dkdv": dict(
-                bound=bound(0.0, 8 * pairs * hd, BF16_OPS_S)),
-            "flash_attention_bwd_dq": dict(
-                bound=bound(0.0, 6 * pairs * hd, BF16_OPS_S)),
+            "flash_attention_bwd_delta": dict(bound=bwd_work(
+                "flash_attention_bwd_delta",
+                (2 * b * h * s * hd * elem + 4 * b * h * s, 0.0))),
+            "flash_attention_bwd_dkdv": dict(bound=bwd_work(
+                "flash_attention_bwd_dkdv", (0.0, 8 * pairs * hd),
+                BF16_OPS_S)),
+            "flash_attention_bwd_dq": dict(bound=bwd_work(
+                "flash_attention_bwd_dq", (0.0, 6 * pairs * hd),
+                BF16_OPS_S)),
         }
         for name, r in rows.items():
             bound_ms, bound_by = r.pop("bound")
@@ -5883,33 +5965,20 @@ def _leaf_errs(names, got, want) -> dict:
     return out
 
 
-def embed_tokens_fp32_grad(params, cfg, tokens):
-    """``TF.embed_tokens`` with its gradient summed in fp32: the rows read
-    from an fp32 copy of the table (the same values), as the placed
-    lookup reads them under autograd. The mesh-free lookup's bf16
-    scatter-add loses much of a frequent token's gradient (ROADMAP Queue
-    3), so ``train_tp`` holds the placed ``embed`` gradient against the
-    mesh-free step with this lookup and reports its distance from the
-    mesh-free step as it ships."""
-    x = params["embed"].float()[tokens.long()].to(params["embed"].dtype)
-    if cfg.scale_embeddings:
-        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
-                           device=x.device)
-    return x
-
-
 def phase_train_tp(card, dev, held):
     """gemma2-2b at full width (b 2, s 4,096, remat full) with weights and
     moments placed by TRAIN_PARAM_RULES over (data 2, model 2) of cuda:0:
-    the loss and every gradient leaf but ``embed`` against the mesh-free
-    step on the same batch; ``embed`` (whose mesh-free lookup sums its
-    gradient in bf16) against the mesh-free step with its lookup's
-    gradient summed in fp32 (:func:`embed_tokens_fp32_grad`), its
-    distance from the mesh-free step as it ships reported beside; then
-    one AdamW update at step 1 and every parameter against the mesh-free
-    step's; the step's seconds, peak memory and collective bytes. Then
-    one SMOKE step through ``make_compressed_grad_fn`` over (pod 2, data
-    1, model 2) against the same on the CPU."""
+    the loss and every gradient leaf against the mesh-free step on the
+    same batch, within TP_GRAD_TOL of each leaf's largest entry; the tied
+    ``embed``'s bound is at least twice the bf16 mesh-free step's distance
+    from the same step in fp32 (weights cast up), the serve phases' rule:
+    both steps sum the lookup's gradient in bf16, as the reference does,
+    the placed one a batch slice at a time, and so a frequent token's row
+    rounds differently; then one AdamW update at step 1 and every
+    parameter against the mesh-free step's; the step's seconds, peak
+    memory and collective bytes. Then one SMOKE step through
+    ``make_compressed_grad_fn`` over (pod 2, data 1, model 2) against the
+    same on the CPU."""
     from repro_torch.data.synthetic import make_batch
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.optim.schedule import cosine_schedule
@@ -5927,8 +5996,10 @@ def phase_train_tp(card, dev, held):
     torch.cuda.reset_peak_memory_stats(dev)
     grad_fn = make_loss_grad_fn(cfg, remat="full")
     step_fn = make_train_step(cfg, remat="full")
-    with patched(TF, "embed_tokens", embed_tokens_fp32_grad):
-        embed32 = grad_fn(params, batch)[1]["embed"]
+    p32 = SHD._tree_map(lambda t: t.float(), params)
+    embed32 = make_loss_grad_fn(dataclasses.replace(
+        cfg, dtype=torch.float32), remat="full")(p32, batch)[1]["embed"]
+    del p32
     gc.collect()
     torch.cuda.empty_cache()
     (loss_f, _), g_f = grad_fn(params, batch)
@@ -5952,9 +6023,10 @@ def phase_train_tp(card, dev, held):
                                 _placed_leaves(g_p)), g_f)
     embed_p = SHD.join_placed(g_p["embed"])
     embed_errs = {
-        "placed_vs_fp32_lookup": _leaf_errs(["e"], [embed_p], [embed32])["e"],
-        "mesh_free_vs_fp32_lookup": _leaf_errs(
+        "placed_vs_fp32": _leaf_errs(["e"], [embed_p], [embed32])["e"],
+        "mesh_free_vs_fp32": _leaf_errs(
             ["e"], [g_f[names.index("embed")]], [embed32])["e"]}
+    embed_bound = max(TP_GRAD_TOL, 2 * embed_errs["mesh_free_vs_fp32"])
     del g_p, g_f, embed_p, embed32
     gc.collect()
     torch.cuda.empty_cache()
@@ -5969,14 +6041,16 @@ def phase_train_tp(card, dev, held):
                                 _placed_leaves(placed)),
                         _tree_leaves(upd_f))
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    for _ in range(5):   # the three mesh-free grads and the two steps
+    for _ in range(5):   # the mesh-free grads (fp32, bf16), its step and
+        # the first coordinate of the two placed ones
         expect_launches(want, cfg, "full", 1)
     for _ in range(2 * (mesh.size - 1)):   # the placed ones: a coordinate
         expect_launches(want, cfg, "full", 1)
     loss_rel = abs(float(loss_p) - float(loss_f)) / abs(float(loss_f))
     step_rel = abs(float(m_p["loss"]) - float(m_f["loss"])) / abs(
         float(m_f["loss"]))
-    checked = {k: v for k, v in g_errs.items() if k != "embed"}
+    bounds = {k: embed_bound if k == "embed" else TP_GRAD_TOL
+              for k in g_errs}
     report = {"phase": "train_tp", "card": card, "arch": cfg.name,
               "mesh": mesh.shape, "batch": b, "seq": s, "remat": "full",
               "lr_step1": cosine_schedule(1),
@@ -5985,10 +6059,10 @@ def phase_train_tp(card, dev, held):
               "loss_tol": TP_LOSS_TOL,
               "grad_norm_placed": float(m_p["grad_norm"]),
               "grad_norm_mesh_free": float(m_f["grad_norm"]),
-              "grad_rel_err_max_but_embed": max(checked.values()),
+              "grad_rel_err_max": max(g_errs.values()),
               "grad_rel_err": g_errs,
-              "grad_excluded": {"embed": g_errs["embed"]},
               "embed_grad_rel_err": embed_errs,
+              "embed_grad_tol": embed_bound,
               "param_rel_err_max": max(p_errs.values()),
               "grad_tol": TP_GRAD_TOL, "step_s": tp_s,
               "mesh_free_step_s": free_s, "peak_gb": peak,
@@ -6000,18 +6074,239 @@ def phase_train_tp(card, dev, held):
     torch.cuda.empty_cache()
     report["compressed"] = compressed_step(dev, want)
     emit(report)
-    if not (report["loss_rel_diff"] <= TP_LOSS_TOL
-            and report["grad_rel_err_max_but_embed"] <= TP_GRAD_TOL
-            and embed_errs["placed_vs_fp32_lookup"] <= TP_GRAD_TOL
+    over = {k: v for k, v in g_errs.items() if v > bounds[k]}
+    if not (report["loss_rel_diff"] <= TP_LOSS_TOL and not over
             and report["param_rel_err_max"] <= TP_GRAD_TOL):
         raise AssertionError(f"train_tp: placed step against the mesh-free "
-                             f"one: {report['loss_rel_diff']}, "
-                             f"{report['grad_rel_err_max_but_embed']}, "
-                             f"{embed_errs}, "
+                             f"one: {report['loss_rel_diff']}, {over} "
+                             f"(embed bound {embed_bound}, {embed_errs}), "
                              f"{report['param_rel_err_max']}")
     if not report["compressed"]["ok"]:
         raise AssertionError(f"train_tp: the compressed step "
                              f"{report['compressed']}")
+
+
+DRY_SERVE = ("yi-6b", (2, 2), 4, 4096)   # arch, mesh, slots, seq
+DRY_CELL = ("gemma2-2b", "train_4k")
+DRY_PEAK = (0.8, 1.25)   # the walk's peak over the card's, both all-mesh
+
+
+def _same_walk(what, meta, card_w, args_want) -> dict:
+    """The meta walk against the card's walk of the same step: FLOPs,
+    bytes moved and argument bytes a device equal, every coordinate's
+    FLOPs equal, the collective logs equal record by record, and the
+    arguments equal to the placed tensors' bytes (``args_want``)."""
+    rec = lambda w: [(r.kind, r.axes, r.nbytes, r.origin)  # noqa: E731
+                     for r in w.log]
+    out = {"flops": [meta.cost["flops"], card_w.cost["flops"]],
+           "bytes": [meta.cost["bytes"], card_w.cost["bytes"]],
+           "argument_bytes": [meta.cost["argument_bytes"],
+                              card_w.cost["argument_bytes"], args_want],
+           "unattributed": [meta.cost["unattributed"],
+                            card_w.cost["unattributed"]],
+           "collectives": len(meta.log),
+           "collective_bytes": RF.collective_bytes(meta.log),
+           "kernel_calls": [meta.cost["kernel_calls"],
+                            card_w.cost["kernel_calls"]],
+           "walk_s": meta.seconds, "card_s": card_w.seconds,
+           "flops_spread": meta.cost["spread"]["flops"]}
+    bad = [k for k in ("flops", "bytes") if out[k][0] != out[k][1]]
+    if len(set(out["argument_bytes"])) != 1:
+        bad.append("argument_bytes")
+    a, c = rec(meta), rec(card_w)
+    out["log_same_order"] = a == c
+    if a != c:   # where the two orders part, and whether as many of each
+        i = next((i for i, (x, y) in enumerate(zip(a, c)) if x != y),
+                 min(len(a), len(c)))
+        out["log_first_difference"] = [i, a[i:i + 3], c[i:i + 3]]
+    if sorted(a) != sorted(c):
+        bad.append("collective log")
+    if out["flops_spread"][0] != out["flops_spread"][1]:
+        bad.append("coordinates' FLOPs")
+    if out["kernel_calls"][0] != out["kernel_calls"][1]:
+        bad.append("kernel calls")
+    if bad:
+        raise AssertionError(f"dryrun {what}: the meta walk and the card "
+                             f"step differ in {bad}: {out}")
+    return out
+
+
+def _shard_bytes(sh, key) -> int:
+    return sh[key].numel() * sh[key].element_size()
+
+
+def phase_dryrun(card, dev, held):
+    """The dry run (``launch/dryrun.py``) against the card. (i) gemma2-2b
+    at full width (b 2, s 4,096, remat full, weights and moments placed by
+    TRAIN_PARAM_RULES over (data 2, model 2)): the walk on meta and the
+    same step on the card under the same cost counter count the same
+    FLOPs, bytes moved, argument bytes (the placed tensors' bytes and the
+    two step scalars) and collectives; the walk's peak live bytes over the
+    whole mesh lie within DRY_PEAK of the card's allocated rise over the
+    step. (ii) The same for yi-6b's placed serve round (SERVE_PARAM_RULES,
+    4 slots of 4,096 over (2, 2)), its peak ratio reported. (iii) The
+    production cell gemma2-2b train_4k over the 16x16 mesh: its two-point
+    probe's record (the whole cell's production walk takes minutes on the
+    host; PERF.md has its record from a CPU run)."""
+    from repro_torch.configs import shapes as SHP
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.optim.adamw import adamw_init
+    want = held["want"] = dict.fromkeys(_build.KERNELS, 0)
+    report = {"phase": "dryrun", "card": card}
+
+    # (i) the train step
+    arch, mshape, b, s = TP_TRAIN
+    cfg = configs.get_config(arch)
+    shape = SHP.ShapeSpec("dryrun_train", s, b, "train")
+    meta = DR._walk_train(cfg, shape, MESH.make_debug_mesh(
+        *mshape, device="meta"), 1)
+    with MESH.force_device_count(int(np.prod(mshape))):
+        mesh = MESH.make_debug_mesh(*mshape)
+    placed = SHD.place_params(
+        TF.init_model(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                      dev), param_axes(cfg), SHD.TRAIN_PARAM_RULES, mesh)
+    tp = SHD.TP.for_batch(mesh, b)
+    data = make_batch(cfg, b, s, seed=SEED)
+    batch = {k: tp.scatter(torch.from_numpy(np.asarray(data[k])).to(
+        dev, v.dtype)) for k, v in SHP.train_specs(cfg, shape).items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    k0 = tp.keys[0]
+    # each leaf's slice and its two fp32 moments, the batch slice, the
+    # step scalars
+    args = (sum(x[k0].numel() * (x[k0].element_size() + 8)
+                for x in _placed_leaves(placed))
+            + sum(_shard_bytes(v, k0) for v in batch.values())
+            + DR.STEP_SCALARS)
+    opt = adamw_init(placed)
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    card_w = DR.train_walk(cfg, placed, batch, mesh, opt=opt)
+    sync()
+    rise = torch.cuda.max_memory_allocated(dev) - base
+    for _ in range(mesh.size):
+        expect_launches(want, cfg, "full", 1)
+    r = _same_walk("train", meta, card_w, args)
+    r["peak_walk_bytes"] = meta.cost["peak_live_bytes_all"]
+    r["peak_card_bytes"] = int(rise)
+    r["peak_ratio"] = r["peak_walk_bytes"] / max(rise, 1)
+    r["peak_temp_bytes_per_coordinate"] = meta.cost["peak_temp_bytes"]
+    report["train"] = {"arch": arch, "mesh": mesh.shape, "batch": b,
+                       "seq": s, **r}
+    del placed, batch, card_w, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not DRY_PEAK[0] <= r["peak_ratio"] <= DRY_PEAK[1]:
+        raise AssertionError(f"dryrun train: the walk's peak {r}")
+
+    # (ii) the serve round
+    arch, mshape, b, s = DRY_SERVE
+    cfg = configs.get_config(arch)
+    shape = SHP.ShapeSpec("dryrun_decode", s, b, "decode")
+    meta, _ = DR.lower_decode(cfg, shape, MESH.make_debug_mesh(
+        *mshape, device="meta"))
+    with MESH.force_device_count(int(np.prod(mshape))):
+        mesh = MESH.make_debug_mesh(*mshape)
+    placed = SHD.place_params(
+        TF.init_model(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                      dev), param_axes(cfg), SHD.SERVE_PARAM_RULES, mesh)
+    step, _ = SE.lower_serve_step(cfg, shape, placed, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    before = dict(_build.launches)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    card_w, _ = DR.decode_walk(cfg, shape, placed, mesh, step=step)
+    sync()
+    rise = torch.cuda.max_memory_allocated(dev) - base
+    got = {k: _build.launches[k] - before[k] for k in before}
+    paged = sum(got[k] for k in PA.FORM_COUNTERS)
+    if paged != mesh.size * len(cfg.attn_layer_ids):
+        raise AssertionError(f"dryrun serve: {got} paged launches, "
+                             f"expected one a layer a coordinate")
+    for k in PA.FORM_COUNTERS:
+        want[k] += got[k]
+    k0 = SHD.coord_keys(mesh)[0]
+    r = _same_walk("serve", meta, card_w, card_w.cost["argument_bytes"])
+    r["peak_walk_bytes"] = meta.cost["peak_live_bytes_all"]
+    r["peak_card_bytes"] = int(rise)
+    r["peak_ratio"] = r["peak_walk_bytes"] / max(rise, 1)
+    r["placed_weight_bytes_a_coordinate"] = sum(
+        _shard_bytes(x, k0) for x in _placed_leaves(placed))
+    report["serve"] = {"arch": arch, "mesh": mesh.shape, "slots": b,
+                       "seq": s, **r}
+    del placed, card_w, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (iii) the production cell's two-point probe
+    arch, shape_name = DRY_CELL
+    cfg = configs.get_config(arch)
+    shape = SHP.SHAPES[shape_name]
+    prod = MESH.make_production_mesh()
+    t0 = time.perf_counter()
+    _, ng, _ = TF.scan_layout(cfg)
+    tpc = DR.two_point_costs(
+        lambda c: DR.lower_train(c, shape, prod, True), cfg, ng)
+    probe_s = time.perf_counter() - t0
+    terms = RF.roofline_terms(flops=tpc["flops"], nbytes=tpc["bytes"],
+                              coll_bytes=tpc["coll"]["total"],
+                              chips=prod.size, per_device=True, hw=CARD_HW)
+    mf = RF.model_flops_per_step(cfg, shape.global_batch * shape.seq_len)
+    report["cell"] = {"arch": arch, "shape": shape_name, "mesh": prod.shape,
+                      "status": "ok", "probe_wall_s": probe_s,
+                      "hlo_flops_per_device": tpc["flops"],
+                      "hlo_bytes_per_device": tpc["bytes"],
+                      "collective_bytes_per_device": tpc["coll"],
+                      "roofline": terms, "model_flops_total": mf,
+                      "useful_flops_ratio": mf / prod.size / tpc["flops"]}
+    emit(report)
+
+
+def phase_examples(card):
+    """The port's two examples on the card, as a user starts them
+    (``examples/torch_quickstart.py``: its rows, counts and a CUDA
+    payload; ``examples/torch_cms_cache_sim.py`` at its 2,000 requests:
+    each cache's hits and request latency p50 / p99, wall us on the
+    host's clock)."""
+    import contextlib as _cl
+    import io
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_cms_cache_sim as CMS
+    import torch_quickstart as QS
+    made = []   # the daemons the simulation makes, released below
+
+    class Kept(D.SQLCached):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+    buf = io.StringIO()
+    with _cl.redirect_stdout(buf), patched(CMS, "SQLCached", Kept):
+        db = QS.main([])
+        cms = CMS.main([])
+    lines = buf.getvalue().splitlines()
+    pay = db.execute("SELECT PAYLOAD(emb) FROM fragments WHERE page_id = 1")
+    if pay.payloads["emb"].device.type != "cuda":
+        raise AssertionError(f"examples: the payload came back on "
+                             f"{pay.payloads['emb'].device}")
+    # their graphs go now, not when a later phase's collection finds them
+    # (a graph reset while another daemon captures breaks that capture)
+    for d in [db] + made:
+        d.drain_warmup()
+        release(d)
+    want = ["page 1 fragments: [{'page_id': 1, 'user_id': 10, 'kind': "
+            "'header'}, {'page_id': 1, 'user_id': 11, 'kind': 'body'}]",
+            "avg weight: 0.5625", "expire page 2   -> 2 rows",
+            "expire user 11  -> 1 rows", "rows left: 1"]
+    if lines[:5] != want:
+        raise AssertionError(f"examples: quickstart printed {lines[:5]}")
+    del db, made, pay
+    gc.collect()
+    emit({"phase": "examples", "card": card, "quickstart": lines[:6],
+          "cms": cms, "cms_requests": CMS.REQUESTS})
 
 
 def compressed_step(dev, want) -> dict:
@@ -6072,6 +6367,7 @@ def main():
         t, e = phase(dev, card)
         timing.update(t)
         errs.update(e)
+    check_bounds()
 
     # each main path runs with the launch counts zeroed right before it and
     # read right after it; every kernel that path must run has to show up
@@ -6084,6 +6380,7 @@ def main():
     seqpar_held: dict = {}
     tp_held: dict = {}
     train_tp_held: dict = {}
+    dryrun_held: dict = {}
     # the kv table has no payload, so the serve paths' DELETEs take the
     # mask-only route (the scan, no compaction), as in the reference
     serve_need = ("flash_attention", "paged_attention", "relscan_scan")
@@ -6136,6 +6433,12 @@ def main():
          ("paged_attention_wide", "paged_attention_lse", "flash_attention")),
         ("train_tp", lambda: phase_train_tp(card, dev, train_tp_held),
          FLASH_TRAIN),
+        # the dry run's walks against the same steps on the card
+        ("dryrun", lambda: phase_dryrun(card, dev, dryrun_held),
+         FLASH_TRAIN),
+        # the port's two examples, as a user runs them (their daemons
+        # released at the end)
+        ("examples", lambda: phase_examples(card), scan_compact),
         ("table2_plain", lambda: phase_table2(card, "plain", ""),
          scan_compact),
         ("table2_indexed", lambda: phase_table2(
@@ -6162,6 +6465,10 @@ def main():
         _build.reset_launches()
         drive()
         got = dict(_build.launches)
+        # collect the path's garbage now: a CUDA graph of its daemons or
+        # engines that a later collection resets while another thread
+        # captures breaks that capture
+        gc.collect()
         emit({"phase": "launches", "path": path, "launches": got,
               "seconds": round(time.perf_counter() - t_path, 1)})
         missing = [k for k in need if got[k] == 0]
@@ -6172,7 +6479,7 @@ def main():
                 "serve_int8_zamba2": int8_zamba, "train": trained,
                 "serve_mesh": mesh_held, "train_seqpar": seqpar_held,
                 "serve_tp": tp_held, "train_tp": train_tp_held,
-                **new}.get(path)
+                "dryrun": dryrun_held, **new}.get(path)
         if held is not None:  # one launch per layer per prefill / round /
             # training step (and recompute)
             if any(got[k] != n for k, n in held["want"].items()):

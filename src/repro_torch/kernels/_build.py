@@ -22,6 +22,16 @@ record instead, and each replay of the graph adds the record
 (``add_launches``), since each replay launches those kernels. A kernel
 scratch that such a call uses is kept in the record too (``keep_alive``):
 it must live as long as the graph that captured it.
+
+**Meta tensors.** The model kernels' wrappers (flash attention and its
+backward, paged attention, the Mamba2 scan and its backward) also take
+``meta`` tensors, the device of a dry run (``launch/dryrun.py``): they
+allocate on ``meta`` what their CUDA branch allocates (outputs and
+scratch), launch nothing and count no launch. On CUDA and on meta alike
+each call hands its work, (FLOPs, bytes: each input read once, each output
+written once) by the kernel's own reckoning, to every open cost counter
+(:func:`reckon`; ``roofline/cost.py`` opens one), so a walk on meta and
+the same step on the card count the same.
 """
 from __future__ import annotations
 
@@ -221,13 +231,61 @@ def check(err: int, kernel: str) -> None:
         raise RuntimeError(f"CUDA launch of {kernel} failed: cudaError {err}")
 
 
-def require_cuda(t, kernel: str) -> None:
+def require_cuda(t, kernel: str, *, meta: bool = False) -> None:
     """A wrapper serves CPU tensors with its plain version and CUDA tensors
-    with its kernel; anything else is refused."""
-    if t.device.type != "cuda":
+    with its kernel; where ``meta``, also meta tensors (the kernel's
+    allocations, no launch) and, under an open cost counter, CPU tensors
+    on the kernel's route (:func:`counting`); anything else is refused."""
+    kind = t.device.type
+    if kind != "cuda" and not (meta and (kind == "meta" or (
+            kind == "cpu" and counting()))):
         raise RuntimeError(f"{kernel}: tensors on {t.device} are not served "
                            f"(CPU tensors take the plain version, CUDA "
                            f"tensors the kernel)")
+
+
+def on_meta(t) -> bool:
+    """Whether a wrapper's call is a dry run's (``meta`` tensors: allocate,
+    reckon, launch nothing)."""
+    return t.device.type == "meta"
+
+
+# the open cost counters (roofline/cost.py); one process-wide list, since a
+# card's backward runs on autograd's device thread
+_counters: list = []
+_quiet = threading.local()
+
+
+def counting() -> bool:
+    """Whether a cost counter is open. Under one, a model kernel's wrapper
+    takes its kernel's route on CPU tensors too (its plain version
+    computing inside :func:`uncounted`), so that a CPU step counts what the
+    card's does."""
+    return bool(_counters)
+
+
+def counted() -> bool:
+    """False inside :func:`uncounted` on this thread."""
+    return not getattr(_quiet, "depth", 0)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Work that a cost counter leaves out of its FLOPs and bytes: a
+    collective's copies and sums, a plain version standing in for its
+    kernel (whose reckoning counts it)."""
+    _quiet.depth = getattr(_quiet, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _quiet.depth -= 1
+
+
+def reckon(kernel: str, flops: float, nbytes: float, like) -> None:
+    """Hand one kernel call's work to every open cost counter; ``like`` is
+    a tensor of the call (its mesh coordinate is the call's)."""
+    for c in _counters:
+        c.kernel(kernel, flops, nbytes, like)
 
 
 def stream_ptr(device) -> int:

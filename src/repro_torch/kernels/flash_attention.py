@@ -27,10 +27,18 @@ dQ) through :func:`flash_attention_bwd`; elsewhere nothing more is stored
 or launched. :func:`flash_attention_bwd_ref` is the backward's plain
 version, by the same formulas in fp32. On CPU tensors the plain forward
 is differentiated by autograd, as the reference differentiates its jnp.
+
+On ``meta`` tensors (a dry run) every wrapper allocates what its CUDA
+branch allocates and launches nothing (``_build``'s module docstring);
+under an open cost counter CPU tensors take the kernels' route too, the
+plain versions computing each call uncounted.
+:func:`flash_cost` and :func:`flash_bwd_cost` are the kernels' work, one
+count for the dry run's cost counter and ``chip_smoke.py``'s bounds.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -155,6 +163,53 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, scale: float,
     return dq, fold(dk), fold(dv)
 
 
+@functools.lru_cache(maxsize=None)
+def visible_pairs(sq: int, sk: int, causal: bool = True, window: int = 0,
+                  q_offset: int = 0) -> int:
+    """(query, key) pairs of one (sequence, head) that the mask lets
+    through: key ``j`` is visible to query row ``i`` (position ``q_offset
+    + i``) where ``j <= q_offset + i`` (causal) and ``q_offset + i - j <
+    window`` (window > 0)."""
+    total = 0
+    for i in range(sq):
+        q = q_offset + i
+        hi = min(sk, q + 1) if causal else sk
+        lo = max(0, q - window + 1) if window and window > 0 else 0
+        total += max(hi - lo, 0)
+    return total
+
+
+def flash_cost(b, h, kh, sq, sk, hd, elem, *, causal=True, window=0,
+               q_offset=0, with_lse=False) -> tuple[float, float]:
+    """(FLOPs, bytes) of one forward call: q, k, v read once, the output
+    (and the fp32 lse) written once; QK^T and PV over the visible pairs."""
+    nbytes = (2 * b * h * sq * hd + 2 * b * kh * sk * hd) * elem
+    if with_lse:
+        nbytes += 4 * b * h * sq
+    pairs = b * h * visible_pairs(sq, sk, causal, window, q_offset)
+    return float(4 * pairs * hd), float(nbytes)
+
+
+def flash_bwd_cost(kernel, b, h, kh, sq, sk, hd, elem, *, causal=True,
+                   window=0, q_offset=0) -> tuple[float, float]:
+    """(FLOPs, bytes) of one of the backward's three launches: ``delta``
+    (o and dO read, D written: a multiply-add an element), ``dkdv`` (q, k,
+    v, dO, lse and D read, dK and dV written; QK^T, dO V^T, P^T dO and
+    dS^T Q over the visible pairs) and ``dq`` (the same reads, dQ written;
+    QK^T, dO V^T and dS K)."""
+    rows = b * h * sq
+    if kernel == "flash_attention_bwd_delta":
+        return float(2 * rows * hd), float(2 * rows * hd * elem + 4 * rows)
+    pairs = b * h * visible_pairs(sq, sk, causal, window, q_offset)
+    reads = (2 * rows * hd + 2 * b * kh * sk * hd) * elem + 8 * rows
+    if kernel == "flash_attention_bwd_dkdv":
+        return float(8 * pairs * hd), float(reads + 2 * b * kh * sk * hd
+                                            * elem)
+    if kernel == "flash_attention_bwd_dq":
+        return float(6 * pairs * hd), float(reads + rows * hd * elem)
+    raise ValueError(f"not a backward launch: {kernel}")
+
+
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernels can read it through its strides (head
     dim contiguous, every row starting on 16 bytes), else a contiguous
@@ -185,7 +240,21 @@ def _forward(q, k, v, *, scale, causal, window, softcap, q_offset,
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    if sq == 0:
+    name = "flash_attention_lse" if with_lse else "flash_attention"
+    _build.reckon(name, *flash_cost(
+        b, h, kh, sq, sk, hd, q.element_size(), causal=causal, window=window,
+        q_offset=q_offset, with_lse=with_lse), q)
+    if sq == 0 or _build.on_meta(q):
+        return out, lse
+    if q.device.type == "cpu":   # under a cost counter: the plain version
+        with _build.uncounted():
+            out.copy_(flash_attention_ref(
+                q, k, v, scale=scale, causal=causal, window=window,
+                softcap=softcap, q_offset=q_offset))
+            if lse is not None:
+                lse.copy_(attention_lse_ref(
+                    q, k, scale=scale, causal=causal, window=window,
+                    softcap=softcap, q_offset=q_offset))
         return out, lse
     err = _build.lib("flash_attention").flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -194,13 +263,12 @@ def _forward(q, k, v, *, scale, causal, window, softcap, q_offset,
         float(softcap), int(q_offset), _strides(q, k, v, out),
         _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
-    _build.count_launch("flash_attention_lse" if with_lse
-                        else "flash_attention")
+    _build.count_launch(name)
     return out, lse
 
 
 def _check_kernel_args(q, k, v):
-    _build.require_cuda(q, "flash_attention")
+    _build.require_cuda(q, "flash_attention", meta=True)
     _check(q, k, v)
     if q.dtype not in DTYPE_CODES or q.shape[3] not in HEAD_DIMS:
         raise TypeError(f"flash_attention takes fp32/bf16 and head dims "
@@ -236,17 +304,23 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention_bwd_delta(o, do) -> torch.Tensor:
     """D = rowsum(do * o), [b, h, sq] fp32: the first of the backward's
     launches on CUDA tensors (the plain sum on the CPU)."""
-    if o.device.type == "cpu":
+    if o.device.type == "cpu" and not _build.counting():
         return (do.float() * o.float()).sum(dim=-1)
-    _build.require_cuda(o, "flash_attention_bwd_delta")
+    _build.require_cuda(o, "flash_attention_bwd_delta", meta=True)
     if o.dtype not in DTYPE_CODES:
         raise TypeError(f"flash_attention_bwd_delta takes fp32/bf16, not "
                         f"{o.dtype}")
     b, h, sq, hd = o.shape
     o, do = _kernel_view(o), _kernel_view(do.to(o.dtype))
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=o.device)
-    if sq == 0:
+    _build.reckon("flash_attention_bwd_delta", *flash_bwd_cost(
+        "flash_attention_bwd_delta", b, h, h, sq, sq, hd, o.element_size()),
+        o)
+    if sq == 0 or _build.on_meta(o):
         return delta
+    if o.device.type == "cpu":   # under a cost counter: the plain sum
+        with _build.uncounted():
+            return delta.copy_((do.float() * o.float()).sum(dim=-1))
     err = _build.lib("flash_attention_bwd").flash_attention_bwd_delta(
         o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, h, sq, hd,
         DTYPE_CODES[o.dtype], _strides(o, do), _build.stream_ptr(o.device))
@@ -263,7 +337,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
     three launches, fp32 sums; the plain version, rounded, on the CPU)."""
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
               q_offset=q_offset)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not _build.counting():
         dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
     _check_kernel_args(q, k, v)
@@ -277,10 +351,23 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if sq == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = flash_attention_bwd_delta(o, do)
+    for name in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        _build.reckon(name, *flash_bwd_cost(
+            name, b, h, kh, sq, sk, hd, q.element_size(), causal=causal,
+            window=window, q_offset=q_offset), q)
+    if _build.on_meta(q):
+        return dq, dk, dv
+    if q.device.type == "cpu":   # under a cost counter: the plain version
+        with _build.uncounted():
+            for t, g in zip((dq, dk, dv),
+                            flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                    **kw)):
+                t.copy_(g)
+        return dq, dk, dv
     lib = _build.lib("flash_attention_bwd")
     stream = _build.stream_ptr(q.device)
     code = DTYPE_CODES[q.dtype]
-    delta = flash_attention_bwd_delta(o, do)
     strides = _strides(q, k, v, o, do, dq, dk, dv)
     mask = (float(scale), int(bool(causal)), int(window), float(softcap),
             int(q_offset), strides, stream)
@@ -303,9 +390,10 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
                     window: int = 0, softcap: float = 0.0,
                     q_offset: int = 0) -> torch.Tensor:
     """Contract of :func:`flash_attention_ref` (kernels on CUDA tensors:
-    bf16 on tensor cores, fp32 SIMT; head dim in ``HEAD_DIMS``), with its
-    gradient through :class:`FlashAttention`."""
-    if q.device.type == "cpu":
+    bf16 on tensor cores, fp32 SIMT; head dim in ``HEAD_DIMS``; meta
+    tensors: the allocations alone), with its gradient through
+    :class:`FlashAttention`."""
+    if q.device.type == "cpu" and not _build.counting():
         return flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                    window=window, softcap=softcap,
                                    q_offset=q_offset)

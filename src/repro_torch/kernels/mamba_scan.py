@@ -19,6 +19,15 @@ on CUDA tensors a call that autograd has to differentiate goes through
 launches, :func:`mamba2_scan_bwd`); its plain version is
 :func:`mamba2_scan_bwd_ref`, written out tile by tile. On the CPU the
 plain forward is differentiated by autograd.
+
+On ``meta`` tensors (a dry run) the wrappers allocate what their CUDA
+branch allocates (outputs and scratch, sized by :func:`scan_scratch_floats`
+and :func:`bwd_scratch_floats`, the libraries' size functions in Python)
+and launch nothing (under an open cost counter, CPU tensors take the
+same route, the plain versions computing uncounted); :func:`scan_cost`
+and :func:`scan_bwd_cost` are a
+call's work, for the dry run's cost counter and ``chip_smoke.py``'s
+bounds.
 """
 from __future__ import annotations
 
@@ -164,8 +173,60 @@ def mamba2_scan_bwd_ref(x, dt, dA, B, C, h0, dy, dh_last, *,
     return dx.to(x.dtype), ddt, ddA, dB, dC, g
 
 
+def _tile_pairs(s: int, chunk: int = CHUNK) -> int:
+    """Causal (step, step) pairs inside the tiles of ``chunk`` steps."""
+    tiles = [chunk] * (s // chunk) + ([s % chunk] if s % chunk else [])
+    return sum(n * (n + 1) // 2 for n in tiles)
+
+
+def scan_cost(b, s, nh, dh, st, elem, *, h0=True) -> tuple[float, float]:
+    """(FLOPs, bytes) of one forward call: x, dt, dA, B, C (and h0) read
+    once, y and h_last written once; per tile the causal C B^T (shared by
+    the heads) and W x products, and per step and head the two [dh, st]
+    state products (C h^T for y, x B^T for h)."""
+    nbytes = (2 * b * s * nh * dh * elem + 4 * (2 * b * s * nh + 2 * b * s
+              * st + (1 + int(h0)) * b * nh * dh * st))
+    flop = (2 * b * _tile_pairs(s) * (st + nh * dh)
+            + 2 * 2 * b * s * nh * dh * st)
+    return float(flop), float(nbytes)
+
+
+def scan_bwd_cost(b, s, nh, dh, st, elem, *, h0=True,
+                  dh_last=False) -> tuple[float, float]:
+    """(FLOPs, bytes) of one backward call: x, dy, dt, dA, B, C (and h0,
+    dh_last) read once, dx, ddt, ddA, dB, dC, dh0 written once; per tile
+    the causal pairs' products (C B^T, shared by the heads; dy x^T and
+    P^T dy over dh; Q B and Q^T C over st, a head each), and per step and
+    head five [dh, st] products (the states walked forward again, the
+    gradients walked back, B G^T, dy H, x G)."""
+    nbytes = (3 * b * s * nh * dh * elem + 4 * (4 * b * s * nh + 4 * b * s
+              * st + (1 + int(h0) + int(dh_last)) * b * nh * dh * st))
+    flop = (2 * b * _tile_pairs(s) * (st + nh * (2 * dh + 2 * st))
+            + 5 * 2 * b * s * nh * dh * st)
+    return float(flop), float(nbytes)
+
+
+def scan_scratch_floats(b, s, nh, dh, st) -> int:
+    """``mamba2_scan_scratch`` of csrc/mamba_scan.cu: C B^T of every chunk
+    and the states entering every chunk but the first (0 for one chunk)."""
+    nch = -(-s // CHUNK)
+    if nch <= 1:
+        return 0
+    return b * nch * CHUNK * CHUNK + b * (nch - 1) * nh * (
+        -(-dh // 64) * 64) * st
+
+
+def bwd_scratch_floats(b, s, nh, dh, st) -> int:
+    """``mamba2_scan_bwd_scratch`` of csrc/mamba_scan_bwd.cu: C B^T, the
+    entering states and the leaving gradients, the dB / dC partials."""
+    del dh
+    nch = -(-s // CHUNK)
+    return (b * nch * CHUNK * CHUNK + 2 * b * (nch - 1) * nh * 64 * st
+            + 2 * b * nh * s * st)
+
+
 def _kernel_args(x, dt, dA, B, C, h0):
-    _build.require_cuda(x, "mamba2_scan")
+    _build.require_cuda(x, "mamba2_scan", meta=True)
     _check(x, dt, dA, B, C, h0)
     st = B.shape[2]
     if x.dtype not in DTYPE_CODES or st > MAX_STATE:
@@ -186,6 +247,20 @@ def _forward(x, dt, dA, B, C, h0):
     y = torch.empty_like(x)
     h_last = torch.empty((b, nh, dh, st), dtype=torch.float32,
                          device=x.device)
+    _build.reckon("mamba2_scan", *scan_cost(b, s, nh, dh, st,
+                                            x.element_size(),
+                                            h0=h0 is not None), x)
+    if _build.on_meta(x):
+        if s > CHUNK:
+            torch.empty(scan_scratch_floats(b, s, nh, dh, st),
+                        dtype=torch.float32, device=x.device)
+        return y, h_last
+    if x.device.type == "cpu":   # under a cost counter: the plain version
+        with _build.uncounted():
+            yr, hr = mamba2_scan_ref(x, dt, dA, B, C, h0)
+            y.copy_(yr)
+            h_last.copy_(hr)
+        return y, h_last
     lib = _build.lib("mamba_scan")
     scratch = None  # one chunk needs none; more: C B^T and the chunk states
     if s > CHUNK:
@@ -208,7 +283,7 @@ def mamba2_scan_bwd(x, dt, dA, B, C, h0, dy, dh_last):
     read in x's dtype). One call is three launches: the walks and C B^T; every tile's
     gradients with per-head partials of dB and dC; their sum over the
     heads (fixed order: repeats are bit-equal)."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not _build.counting():
         return mamba2_scan_bwd_ref(x, dt, dA, B, C, h0, dy, dh_last)
     x, dt, dA, B, C, h0 = _kernel_args(x, dt, dA, B, C, h0)
     b, s, nh, dh = x.shape
@@ -228,6 +303,18 @@ def mamba2_scan_bwd(x, dt, dA, B, C, h0, dy, dh_last):
     ddt, ddA = torch.empty((b, s, nh), **f32), torch.empty((b, s, nh), **f32)
     dB, dC = torch.empty((b, s, st), **f32), torch.empty((b, s, st), **f32)
     dh0 = torch.empty((b, nh, dh, st), **f32)
+    _build.reckon("mamba2_scan_bwd", *scan_bwd_cost(
+        b, s, nh, dh, st, x.element_size(), h0=h0 is not None,
+        dh_last=dh_last is not None), x)
+    if _build.on_meta(x):
+        torch.empty(bwd_scratch_floats(b, s, nh, dh, st), **f32)
+        return dx, ddt, ddA, dB, dC, dh0
+    if x.device.type == "cpu":   # under a cost counter: the plain version
+        with _build.uncounted():
+            for t, g in zip((dx, ddt, ddA, dB, dC, dh0), mamba2_scan_bwd_ref(
+                    x, dt, dA, B, C, h0, dy, dh_last)):
+                t.copy_(g)
+        return dx, ddt, ddA, dB, dC, dh0
     lib = _build.lib("mamba_scan_bwd")
     scratch = torch.empty(lib.mamba2_scan_bwd_scratch(b, s, nh, dh, st),
                           **f32)
@@ -272,7 +359,7 @@ def mamba2_scan(x, dt, dA, B, C, h0=None):
     """Contract of :func:`mamba2_scan_ref` (kernel on CUDA tensors: x fp32
     or bf16, ``st <= MAX_STATE``), with its gradient through
     :class:`Mamba2Scan` (``dh <= MAX_HEAD_DIM``)."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not _build.counting():
         return mamba2_scan_ref(x, dt, dA, B, C, h0)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, dA, B, C, h0)):

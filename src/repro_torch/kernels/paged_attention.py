@@ -53,6 +53,13 @@ the partials' buffer (sized by the library's ``paged_attention_scratch``)
 and the zeroed-once split counters per device and stream. A CUDA graph
 that captured a call keeps the two buffers it captured alive
 (``_build.keep_alive``).
+
+On ``meta`` tensors (a dry run) the wrapper allocates the output, the lse
+and the scratch (sized by :func:`scratch_floats`, the library's size
+function in Python) and launches nothing (under an open cost counter, CPU
+tensors take the same route, the plain version computing uncounted);
+:func:`paged_cost` is a call's
+work, for the dry run's cost counter and ``chip_smoke.py``'s bounds.
 """
 from __future__ import annotations
 
@@ -67,6 +74,63 @@ ARENA_INT8 = 2   # the C entry's arena dtype code of an int8 arena
 FORM_COUNTERS = ("paged_attention", "paged_attention_wide",
                  "paged_attention_lse")
 _scratch: dict = {}
+
+
+SPLIT_POSITIONS = 64   # csrc/paged_attention.cuh PA_SPLIT_POSITIONS
+
+
+def _splits_per_page(block: int) -> int:
+    return (block // SPLIT_POSITIONS if block > SPLIT_POSITIONS
+            and block % SPLIT_POSITIONS == 0 else 1)
+
+
+def scratch_floats(b: int, h: int, hd: int, block: int, nblk: int) -> int:
+    """The floats of the splits' partials a call needs (0: one split a
+    sequence): ``paged_attention_scratch`` of the CUDA source, for a dry
+    run's meta calls, which load no library."""
+    if block <= 0:
+        return 0
+    spp = _splits_per_page(block)
+    if spp > 1:
+        nsplit = nblk * spp if nblk > 0 else 1
+    else:
+        pps = 1 if block >= SPLIT_POSITIONS else SPLIT_POSITIONS // block
+        nsplit = -(-nblk // pps) if nblk > pps else 1
+    return b * h * nsplit * (hd + 2) if nsplit > 1 else 0
+
+
+def call_form(block: int, starts: bool, lse: bool) -> int:
+    """The kernel a call launches (``paged_attention_form`` of the CUDA
+    source): 0 split, 1 wide, 2 wide with the lse."""
+    if lse:
+        return 2
+    return 1 if starts or _splits_per_page(block) > 1 else 0
+
+
+def paged_cost(b, h, kh, hd, block, nblk, q_elem, kv_elem=None, *,
+               tokens=None, self_term=False, starts=False, lse=False,
+               scales=False) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call: q read and the output written once (fp32
+    with the lse), each of ``tokens`` visible K/V rows read once (with its
+    two fp32 scales from an int8 arena), the self term's k / v, the page
+    table, the block starts and lengths read, the lse written; QK^T and PV
+    over the visible tokens and the self term. ``tokens`` defaults to every
+    position the page table spans (``b * nblk * block``: a shape-only
+    count, what a dry run can know)."""
+    kv_elem = q_elem if kv_elem is None else kv_elem
+    tokens = b * nblk * block if tokens is None else int(tokens)
+    keys = tokens + (b if self_term else 0)
+    nbytes = (b * h * hd * (q_elem + (4 if lse else q_elem))
+              + 2 * tokens * kh * hd * kv_elem + 4 * b * nblk + 4 * b)
+    if scales:
+        nbytes += 2 * tokens * kh * 4
+    if self_term:
+        nbytes += 2 * b * kh * hd * q_elem
+    if starts:
+        nbytes += 4 * b * nblk
+    if lse:
+        nbytes += 4 * b * h
+    return float(4 * h * hd * keys), float(nbytes)
 
 
 def _scratch_for(device, stream: int, n_part: int, n_counters: int):
@@ -181,15 +245,15 @@ def paged_attention(q, arena, pages, lengths, *, scale: float,
                     kv_self=None, blk_start=None, return_lse: bool = False):
     """Contract of :func:`paged_attention_ref` (kernel on CUDA tensors:
     fp32 or bf16 q over an arena of q's dtype or an int8 one, head dim in
-    ``HEAD_DIMS``). ``arena`` (and ``scales``) must be contiguous (a layer
+    ``HEAD_DIMS``; meta tensors: the allocations alone, no launch). ``arena`` (and ``scales``) must be contiguous (a layer
     of a layer-major arena is): they are read in place."""
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not _build.counting():
         return paged_attention_ref(q, arena, pages, lengths, scale=scale,
                                    softcap=softcap, window=window,
                                    scales=scales, kv_self=kv_self,
                                    blk_start=blk_start,
                                    return_lse=return_lse)
-    _build.require_cuda(q, "paged_attention")
+    _build.require_cuda(q, "paged_attention", meta=True)
     _check(q, arena, pages, lengths, scales, kv_self, blk_start)
     b, h, hd = q.shape
     cap, _, block, kh, _ = arena.shape
@@ -216,6 +280,29 @@ def paged_attention(q, arena, pages, lengths, *, scale: float,
     lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
            if return_lse else None)
     nblk = pages.shape[1]
+    form = call_form(block, blk_start is not None, return_lse)
+    _build.reckon(FORM_COUNTERS[form], *paged_cost(
+        b, h, kh, hd, block, nblk, q.element_size(), arena.element_size(),
+        self_term=kv_self is not None, starts=blk_start is not None,
+        lse=return_lse, scales=scales is not None), q)
+    if _build.on_meta(q):   # the allocations alone
+        n_part = scratch_floats(b, h, hd, block, nblk)
+        if n_part:
+            _scratch_for(q.device, 0, n_part, b * kh)
+        return (out, lse) if return_lse else out
+    if q.device.type == "cpu":   # under a cost counter: the plain version
+        with _build.uncounted():
+            r = paged_attention_ref(q, arena, pages, lengths, scale=scale,
+                                    softcap=softcap, window=window,
+                                    scales=scales, kv_self=kv_self,
+                                    blk_start=blk_start,
+                                    return_lse=return_lse)
+            if return_lse:
+                out.copy_(r[0])
+                lse.copy_(r[1])
+            else:
+                out.copy_(r)
+        return (out, lse) if return_lse else out
     lib = _build.lib("paged_attention")
     stream = _build.stream_ptr(q.device)
     part_ptr = counters_ptr = None

@@ -24,7 +24,9 @@ coordinate's entry and everything else on ``home``.
 :func:`make_debug_mesh` builds one over the visible devices (repeating the
 card or the CPU, as :func:`make_lane_mesh` does); :func:`make_production_mesh`
 gives the reference's production axes and shape over the ``meta`` device:
-a plan for shapes and specs, on which running a step raises.
+a plan for shapes and specs. A step over a plan runs only inside
+:func:`walking` (``launch/dryrun.py``'s scope: meta tensors, nothing
+launched); anywhere else it raises.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ import torch
 LANE_AXIS = "lane"
 
 _forced: list = []   # the device count a force_device_count scope set
+_walks: list = []    # open walking() scopes
 
 
 def visible_devices(device_type: str) -> int:
@@ -147,15 +150,33 @@ class Mesh:
                     np.take(self.devices, i, axis=pos))
 
     def require_runnable(self, what: str) -> None:
-        """Raise where ``what`` would run on a plan-only mesh."""
-        if self.is_plan:
+        """Raise where ``what`` would run on a plan-only mesh outside a dry
+        run's :func:`walking` scope."""
+        if self.is_plan and not _walks:
             raise RuntimeError(
                 f"{what}: the mesh {self.shape} is a plan over the meta "
                 f"device (make_production_mesh); run steps over "
-                f"make_debug_mesh")
+                f"make_debug_mesh, or walk them in a dry run "
+                f"(launch/dryrun.walking)")
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, home={self.home})"
+
+
+@contextlib.contextmanager
+def walking():
+    """The dry run's scope: steps over a plan mesh (``meta`` entries) run
+    inside it, on meta tensors, launching nothing."""
+    _walks.append(True)
+    try:
+        yield
+    finally:
+        _walks.pop()
+
+
+def is_walking() -> bool:
+    """Whether this process is inside a :func:`walking` scope."""
+    return bool(_walks)
 
 
 def check_mesh(mesh) -> None:
@@ -196,7 +217,7 @@ def make_debug_mesh(n_data: int = 2, n_model: int = 2, *, pods: int = 0,
     shape = (pods, n_data, n_model) if pods else (n_data, n_model)
     axes = ("pod", "data", "model") if pods else ("data", "model")
     n = math.prod(shape)
-    if visible_devices(home.type) < n:
+    if home.type != "meta" and visible_devices(home.type) < n:
         raise RuntimeError(
             f"a {shape} mesh needs {n} devices of type {home.type}, "
             f"{visible_devices(home.type)} visible (force_device_count)")
@@ -222,7 +243,9 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The reference's production mesh: 16x16 (``data``, ``model``) or
     2x16x16 (``pod``, ``data``, ``model``), over the ``meta`` device. It
     plans geometries and specs (``serving/paged.plan_geometry``,
-    ``serving/engine.lower_serve_step``); a step over it raises."""
+    ``serving/engine.lower_serve_step``), and the dry run walks steps over
+    it inside :func:`walking` (``launch/dryrun.py``); outside that scope a
+    step over it raises."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return _named(shape, axes, torch.device("meta"))

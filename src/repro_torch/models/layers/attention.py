@@ -38,7 +38,11 @@ placement over 'model') through the flash kernel on that coordinate, and
 sum the rows of ``wo`` with a ``psum`` over the axes that cut its heads.
 Where the kv heads do not divide 'model' the reference's ``specs_for_tree``
 keeps ``wk`` / ``wv`` whole, and a coordinate's q heads read kv head
-``q_head // (h / kh)`` of its whole copy (:func:`kv_slice`).
+``q_head // (h / kh)`` of its whole copy (:func:`kv_slice`). With
+``cfg.attn_seq_shard`` the placed self-attention without its KV (the
+training loss, the encoder: where the reference's ``attention_forward``
+takes its sequence-parallel island) cuts the query sequence over 'model'
+instead (:func:`_seqpar_tp`).
 """
 from __future__ import annotations
 
@@ -318,6 +322,11 @@ def attention_tp(P: dict, cfg, h: Shards, positions: Shards, tp, *,
     ``h`` [b_local, s, d] and ``positions`` are Shards. Returns (out
     Shards, Shards of each coordinate's (k, v) [b_local, s, kh_local, hd]
     or None)."""
+    if cfg.attn_seq_shard and not collect_kv:
+        out = _seqpar_tp(P, cfg, h, positions, tp, theta=theta,
+                         window=window, causal=causal, origin=origin)
+        if out is not None:
+            return out, None
     outs, kvs = Shards(), Shards()
     for key in tp.keys:
         p = SHD.local_tree(P, key)
@@ -329,6 +338,65 @@ def attention_tp(P: dict, cfg, h: Shards, positions: Shards, tp, *,
         if collect_kv:
             kvs[key] = (k, v)
     return wo_tp(P["wo"], outs, tp, origin), (kvs if collect_kv else None)
+
+
+def _model_cut(leaf, dim: int, origin: str) -> bool:
+    """Whether 'model' (alone) cuts ``leaf``'s dimension ``dim``."""
+    axes = leaf.axes_of(dim)
+    if axes and axes != ("model",):
+        raise NotImplementedError(f"{origin}: heads cut over {axes}; the "
+                                  f"sequence-parallel island takes 'model'")
+    return bool(axes)
+
+
+def _seqpar_tp(P: dict, cfg, h: Shards, positions: Shards, tp, *,
+               theta: float, window: int, causal: bool, origin: str):
+    """The reference's ``_seqpar_attention`` over placed weights: the query
+    sequence cut over 'model' (slice ``m`` of ``s / n_model`` queries at
+    'model' coordinate ``m``, every head), K/V whole, the batch as the
+    step cuts it. Each coordinate's q / k / v come from its own heads'
+    columns; an ``all_to_all`` over 'model' trades q's heads for its
+    sequence slice and an ``all_gather`` joins K/V's heads (where 'model'
+    cuts them; whole heads are sliced in place), the flash kernel runs the
+    slice with ``q_offset = m * s_local`` over the whole K/V, and the
+    output goes back to ``wo``'s layout: an ``all_to_all`` to each
+    coordinate's heads and ``wo``'s rows summed, or (``wo`` whole) the
+    slice projected and the slices joined by an ``all_gather``. None
+    where the sequence does not split evenly (the caller then takes the
+    path without sequence parallelism, as the reference does)."""
+    mesh = tp.mesh
+    n = int(mesh.shape.get("model", 1))
+    k0 = tp.keys[0]
+    sq = h[k0].shape[1]
+    if "model" not in mesh.axis_names or sq % n:
+        return None
+    s_loc = sq // n
+    mpos = mesh.axis_names.index("model")
+    q, kk, vv = Shards(), Shards(), Shards()
+    for key in tp.keys:
+        q[key], kk[key], vv[key] = qkv_project(
+            SHD.local_tree(P, key), cfg, h[key], positions[key], theta)
+    if _model_cut(P["wq"], -2, origin):
+        q = tp.all_to_all(q, "model", 1, 2, origin + ".q")
+    else:
+        q = Shards({k: t[:, k[mpos] * s_loc:(k[mpos] + 1) * s_loc]
+                    for k, t in q.items()})
+    if _model_cut(P["wk"], -2, origin):
+        kk = tp.all_gather(kk, "model", 2, origin + ".k")
+        vv = tp.all_gather(vv, "model", 2, origin + ".v")
+    o = Shards()
+    for key in tp.keys:
+        o[key] = flash_attention(
+            q[key].transpose(1, 2), kk[key].transpose(1, 2),
+            vv[key].transpose(1, 2), scale=_scale(cfg), causal=causal,
+            window=window, softcap=cfg.attn_softcap,
+            q_offset=key[mpos] * s_loc).transpose(1, 2)
+    heads_cut = _model_cut(P["wo"], -3, origin)
+    if heads_cut:
+        o = tp.all_to_all(o, "model", 2, 1, origin + ".o")
+    a = wo_tp(P["wo"], Shards({k: t.flatten(-2) for k, t in o.items()}), tp,
+              origin)
+    return a if heads_cut else tp.all_gather(a, "model", 1, origin + ".seq")
 
 
 def wo_tp(wo, heads: Shards, tp, origin: str) -> Shards:

@@ -23,7 +23,13 @@ which an ``all_gather`` joins before the fp32 softmax and the stable-sort
 ``top_k`` (the same logits at every coordinate, so the ties rule holds);
 each coordinate runs its experts, and a ``psum`` combines them. The
 load-balance fractions are summed over the batch axes first. The ragged
-dispatch is not placed (it raises ``NotPorted`` over a mesh).
+dispatch over placed weights (:func:`moe_ragged_tp`) keeps the
+reference's global buffers: the capacity comes from the global token
+count and each (token, slot)'s place in its expert's buffer from the
+global running count (the counts of the batch slices before this one,
+``all_gather``-ed over the batch axes), so the same tokens drop; each
+coordinate fills its experts' rows with its own tokens and runs them, and
+a ``psum`` over the experts' axes combines the slots.
 
 Both dispatches keep every shape static for a given token count (the
 ragged buffer is ``[e * cap + 1, d]``, its last row the drop target), so
@@ -147,6 +153,79 @@ def moe_forward(params: dict, cfg, x: torch.Tensor, *, ragged: bool = False):
     return moe_forward_dense(params, cfg, x)
 
 
+def _router_tp(P: dict, cfg, x: Shards, tp, origin: str) -> Shards:
+    """Each coordinate's fp32 router logits of every expert: its router
+    columns' logits ``all_gather``-ed over the axes that cut ``expert``."""
+    return tp.all_gather(
+        Shards({k: (x[k] @ P["router"][k]).float() for k in tp.keys}),
+        P["router"].axes_of(-1), -1, origin + ".router")
+
+
+def _n_dp(tp) -> int:
+    n = 1
+    for a in tp.batch_axes:
+        n *= int(tp.mesh.shape[a])
+    return n
+
+
+def moe_ragged_tp(P: dict, cfg, x: Shards, tp, *, origin: str):
+    """:func:`moe_forward_ragged` over placed weights (module docstring):
+    (out Shards [b_local, s, d], aux Shards)."""
+    e, k = cfg.n_experts, cfg.top_k
+    ex_axes = P["w_up"].axes_of(-3)
+    n_dp = _n_dp(tp)
+    k0 = tp.keys[0]
+    b, s, d = x[k0].shape
+    n = b * s
+    n_glob = n * n_dp
+    cap = min(max(8, int(CAPACITY_FACTOR * n_glob * k / e)), n_glob)
+    logits = _router_tp(P, cfg, Shards({c: t.reshape(n, d) for c, t in
+                                        x.items()}), tp, origin)
+    route, counts, fracs = {}, Shards(), Shards()
+    for c in tp.keys:
+        probs, topv, topi = _route_logits(logits[c], cfg)
+        flat_e = topi.reshape(-1)
+        onehot = (flat_e[:, None] == torch.arange(e, device=flat_e.device)
+                  ).long()
+        route[c] = (topv, flat_e, onehot)
+        counts[c] = onehot.sum(dim=0)[None]
+        fracs[c] = torch.stack([onehot.float().reshape(n, k, e).mean(
+            dim=(0, 1)), probs.mean(dim=0)])
+    # the (token, slot)s of the batch slices before this one, by expert
+    before = tp.all_gather(counts, tp.batch_axes, 0, origin + ".counts")
+    fracs = tp.psum(fracs, tp.batch_axes, origin + ".router_fractions")
+    outs, aux = Shards(), Shards()
+    names = tp.mesh.axis_names
+    for c in tp.keys:
+        topv, flat_e, onehot = route[c]
+        i = 0
+        for a in tp.batch_axes:
+            i = i * int(tp.mesh.shape[a]) + c[names.index(a)]
+        offset = before[c][:i].sum(dim=0)
+        pos = (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1 + offset[
+            flat_e]
+        e0, e1 = P["w_up"].range_of(-3, c)
+        el = e1 - e0
+        mine = (pos < cap) & (flat_e >= e0) & (flat_e < e1)
+        dest = torch.where(mine, (flat_e - e0) * cap + pos, el * cap)
+        xf = x[c].reshape(n, d)
+        buf = torch.zeros((el * cap + 1, d), dtype=xf.dtype,
+                          device=xf.device)
+        buf.index_copy_(0, dest, xf.repeat_interleave(k, dim=0))
+        y = _experts(local_tree(P, c), cfg, buf[:-1].reshape(el, cap, d)
+                     ).reshape(el * cap, d)
+        safe = torch.clamp(dest, max=el * cap - 1)
+        got = torch.where(mine[:, None], y[safe].float(), 0.0)
+        # this coordinate's experts' share of each token, an fp32 partial
+        # rounded once after the psum (collectives.partial_product's rule)
+        outs[c] = (got.reshape(n, k, d) * topv[..., None].float()).sum(
+            dim=1).reshape(b, s, d)
+        f = fracs[c]
+        aux[c] = e * (f[0] * f[1]).sum() / (n_dp * n_dp)
+    out = tp.psum(outs, ex_axes, origin + ".experts")
+    return Shards({c: t.to(x[c].dtype) for c, t in out.items()}), aux
+
+
 def moe_tp(P: dict, cfg, x: Shards, tp, *, origin: str):
     """The dense dispatch over placed weights ``P``: each coordinate's
     router columns -> ``all_gather`` of the logits over the axes that cut
@@ -156,16 +235,12 @@ def moe_tp(P: dict, cfg, x: Shards, tp, *, origin: str):
     fractions averaged over the batch axes first, as over the global
     batch)."""
     ex_axes = P["w_up"].axes_of(-3)
-    logits = tp.all_gather(
-        Shards({k: (x[k] @ P["router"][k]).float() for k in tp.keys}),
-        P["router"].axes_of(-1), -1, origin + ".router")
+    logits = _router_tp(P, cfg, x, tp, origin)
     outs, fracs, weights = Shards(), Shards(), {}
     for k in tp.keys:
         w, fracs[k] = _weights_fracs(*_route_logits(logits[k], cfg))
         weights[k] = w.to(x[k].dtype)
-    n_dp = 1
-    for a in tp.batch_axes:
-        n_dp *= int(tp.mesh.shape[a])
+    n_dp = _n_dp(tp)
     fracs = tp.psum(fracs, tp.batch_axes, origin + ".router_fractions")
     aux = Shards({k: cfg.n_experts * (f[0] * f[1]).sum() / (n_dp * n_dp)
                   for k, f in fracs.items()})

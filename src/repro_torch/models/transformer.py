@@ -53,9 +53,11 @@ made on vocabulary shards, their padded ids masked by global id, and
 ``all_gather``-ed; :func:`lm_loss` over shards is a vocabulary-parallel
 cross entropy (``pmax`` of the rows' max, ``psum`` of the exp-sums, the
 label's logit from the shard that owns it with a ``psum``). The
-sequence-parallel lever (``cfg.attn_seq_shard``) and the ragged MoE
-dispatch take no placed weights; :func:`decode_step` (the dense-cache
-reference path) neither.
+sequence-parallel lever (``cfg.attn_seq_shard``: the query sequence cut
+over 'model', ``layers/attention._seqpar_tp``) and the ragged MoE dispatch
+(``REPRO_MOE_RAGGED=1``: ``layers/moe.moe_ragged_tp``) run over placed
+weights too; :func:`decode_step` (the dense-cache reference path) takes
+none.
 
 Entry points
     init_model(gen, cfg, device)     -> parameter tree
@@ -90,7 +92,8 @@ from repro_torch.models.layers.attention import (NEG_INF, _proj, _scale,
                                                  init_cross_attention,
                                                  out_project)
 from repro_torch.models.layers.mlp import init_mlp, mlp_forward, mlp_tp
-from repro_torch.models.layers.moe import init_moe, moe_forward, moe_tp
+from repro_torch.models.layers.moe import (init_moe, moe_forward,
+                                           moe_ragged_tp, moe_tp)
 from repro_torch.models.layers.norms import init_rmsnorm, rms_norm
 from repro_torch.models.params import dense_init
 from repro_torch.parallel import sharding as SHD
@@ -755,9 +758,9 @@ def mlp_sublayer_tp(P: dict, cfg: ModelConfig, x: Shards, tp, origin: str):
     None)."""
     h = norm_tp(P["norm2"], cfg, x, tp)
     if cfg.is_moe:
-        if os.environ.get("REPRO_MOE_RAGGED") == "1":
-            raise NotPorted("the ragged MoE dispatch over placed weights")
-        m, aux = moe_tp(P["mlp"], cfg, h, tp, origin=origin + ".mlp")
+        fwd = (moe_ragged_tp if os.environ.get("REPRO_MOE_RAGGED") == "1"
+               else moe_tp)
+        m, aux = fwd(P["mlp"], cfg, h, tp, origin=origin + ".mlp")
     else:
         m, aux = mlp_tp(P["mlp"], cfg, h, tp, origin=origin + ".mlp"), None
     return _add(x, _post_norm_tp(P, cfg, "norm2_post", m, tp)), aux
@@ -907,27 +910,21 @@ def embed_tokens_tp(params: dict, cfg: ModelConfig, tokens: Shards, tp,
                     origin: str = "embed") -> Shards:
     """The token lookup over a placed table: where 'model' cuts the
     vocabulary, the reference's manual lookup (each coordinate's rows of
-    its own ids, clamped and masked, an fp32 ``psum``), else a plain
-    lookup of the whole copy. Under autograd the rows are read from an
-    fp32 copy of the table (the same values), so that the lookup's
-    gradient, a scatter-add of one row a token, sums in fp32 and is
-    rounded once: summed in bf16, a frequent token's row loses most of
-    its gradient."""
+    its own ids, clamped and masked, cast to fp32 after the take, an fp32
+    ``psum``), else a plain lookup of the whole copy. As in the
+    reference, the rows are taken from the table in its own dtype, so the
+    lookup's gradient (a scatter-add of one row a token) sums in that
+    dtype at each coordinate, over the coordinate's batch slice."""
     emb = tp.use(params["embed"], origin)
     vax = emb.axes_of(0)
-
-    def rows(e, ids):
-        if torch.is_grad_enabled() and e.requires_grad:
-            return e.float()[ids]
-        return e[ids].float()
     if not vax:
-        x = tp.map(lambda e, t: rows(e, t.long()).to(e.dtype), emb, tokens)
+        x = tp.map(lambda e, t: e[t.long()], emb, tokens)
     else:
         parts = Shards()
         for k in tp.keys:
             lo, hi = emb.range_of(0, k)
             t = tokens[k].long()
-            out = rows(emb[k], torch.clamp(t - lo, 0, hi - lo - 1))
+            out = emb[k][torch.clamp(t - lo, 0, hi - lo - 1)].float()
             parts[k] = torch.where(((t >= lo) & (t < hi))[..., None], out,
                                    0.0)
         x = tp.map(lambda t: t.to(emb.dtype),

@@ -17,19 +17,24 @@ tensor of its own. Repeated calls are therefore bit-equal, and a sum of a
   at every member (``all-gather``);
 - :func:`reduce_scatter`: the sum, cut along a dimension, member ``j``
   keeping piece ``j`` (``reduce-scatter``);
+- :func:`all_to_all`: each member's tensor cut into equal pieces along
+  one dimension, member ``i`` receiving piece ``i`` of every member,
+  concatenated along another (``all-to-all``);
 - :func:`broadcast`: one tensor on the home entry copied to every
   coordinate.
 
-``psum``, ``all_gather`` and ``reduce_scatter`` are autograd functions:
-the gradient of a sum is the sum of the members' gradients (an
-``all-reduce``), of a gather a ``reduce-scatter``, and of a
-``reduce-scatter`` a gather, so a backward pass issues the transposed
+``psum``, ``all_gather``, ``reduce_scatter`` and ``all_to_all`` are
+autograd functions: the gradient of a sum is the sum of the members'
+gradients (an ``all-reduce``), of a gather a ``reduce-scatter``, of a
+``reduce-scatter`` a gather, and of an ``all-to-all`` the inverse
+``all-to-all``, so a backward pass issues the transposed
 collectives, as the reference's compiler does. ``pmax`` carries no
 gradient (it only steadies a log-sum-exp).
 
 **The log.** Every collective that moves data (a group of more than one
-member) appends a :class:`Record` to each log opened by :func:`recording`
-on the calling thread: its kind under the reference's five names
+member) appends a :class:`Record` to each log :func:`recording` holds
+open (on any thread: a card's backward runs on autograd's device thread,
+the recompute of a checkpointed block too): its kind under the reference's five names
 (``roofline/analysis.py``: ``all-reduce``, ``all-gather``,
 ``reduce-scatter``, ``all-to-all``, ``collective-permute``; a
 :func:`broadcast` is recorded as ``broadcast``, a kind the reference's
@@ -38,14 +43,22 @@ participant's output (the reference's measure) and an origin such as
 ``layers.7.attn.wo``. A backward pass records its collectives in the logs
 that were open when the forward ran, with ``/grad`` after the origin.
 ``roofline.analysis.collective_bytes`` sums a log by kind.
+
+**Cost counting.** The copies and sums a collective makes on the home
+entry stand for a transfer, not for work of the program: a cost counter
+(``roofline/cost.py``) leaves them out (``kernels/_build.uncounted``), and
+each copy a member receives is handed to the counters as that member's
+(:func:`_own`), so that the work after the collective counts at its
+coordinate.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import threading
 
 import torch
+
+from repro_torch.kernels import _build
 
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
          "collective-permute")
@@ -68,25 +81,41 @@ class Record:
     origin: str
 
 
-_local = threading.local()
+# the open logs: process-wide, since on the card autograd runs a backward
+# (and the recompute of a checkpointed block in it) on its device thread
+_logs: list = []
 
 
 def _open_logs() -> list:
-    return list(getattr(_local, "logs", ()))
+    return list(_logs)
 
 
 @contextlib.contextmanager
 def recording():
-    """Collect the collectives issued on this thread inside the scope:
-    yields the list their :class:`Record` s are appended to (scopes nest;
-    each open log gets every record)."""
+    """Collect the collectives issued inside the scope, on any thread (a
+    card's backward runs on autograd's device thread): yields the list
+    their :class:`Record` s are appended to (scopes nest; each open log
+    gets every record)."""
     log: list = []
-    prev = getattr(_local, "logs", ())
-    _local.logs = tuple(prev) + (log,)
+    _logs.append(log)
     try:
         yield log
     finally:
-        _local.logs = prev
+        del _logs[next(i for i, x in enumerate(_logs) if x is log)]
+
+
+_inside = _build.uncounted   # a collective's own copies and sums
+
+
+# the open cost counters' owner callbacks (tensor, coordinate index):
+# process-wide, since a card's backward runs on autograd's device thread
+owners: list = []
+
+
+def _own(t, key):
+    for f in owners:
+        f(t, key)
+    return t
 
 
 def _record(logs, kind: str, axes: tuple, nbytes: int, origin: str) -> None:
@@ -144,7 +173,7 @@ def _sum(parts, home) -> torch.Tensor:
 
 def _spread(t, mesh, members) -> list:
     """A copy of ``t`` for every member, on its device."""
-    return [t.to(_device(mesh, k), copy=True) for k in members]
+    return [_own(t.to(_device(mesh, k), copy=True), k) for k in members]
 
 
 class _Meta:
@@ -159,32 +188,55 @@ class _Meta:
 def _allreduce(meta: _Meta, keys: list, ts: list) -> list:
     by = dict(zip(keys, ts))
     out = {}
-    for g in meta.groups:
-        s = _sum([by[k] for k in g], meta.mesh.home)
-        out.update(zip(g, _spread(s, meta.mesh, g)))
+    with _inside():
+        for g in meta.groups:
+            s = _sum([by[k] for k in g], meta.mesh.home)
+            out.update(zip(g, _spread(s, meta.mesh, g)))
     return [out[k] for k in keys]
 
 
 def _gather(meta: _Meta, keys: list, ts: list) -> list:
     by = dict(zip(keys, ts))
     out = {}
-    for g in meta.groups:
-        home = meta.mesh.home
-        cat = torch.cat([by[k].to(home) for k in g], dim=meta.dim)
-        out.update(zip(g, _spread(cat, meta.mesh, g)))
+    with _inside():
+        for g in meta.groups:
+            home = meta.mesh.home
+            cat = torch.cat([by[k].to(home) for k in g], dim=meta.dim)
+            out.update(zip(g, _spread(cat, meta.mesh, g)))
     return [out[k] for k in keys]
 
 
 def _scatter(meta: _Meta, keys: list, ts: list) -> list:
     by = dict(zip(keys, ts))
     out = {}
-    for g in meta.groups:
-        s = _sum([by[k] for k in g], meta.mesh.home)
-        if s.shape[meta.dim] % len(g):
-            raise ValueError(f"reduce_scatter: dimension {meta.dim} of "
-                             f"{tuple(s.shape)} does not split {len(g)} ways")
-        for k, piece in zip(g, s.chunk(len(g), dim=meta.dim)):
-            out[k] = piece.to(_device(meta.mesh, k), copy=True)
+    with _inside():
+        for g in meta.groups:
+            s = _sum([by[k] for k in g], meta.mesh.home)
+            if s.shape[meta.dim] % len(g):
+                raise ValueError(f"reduce_scatter: dimension {meta.dim} of "
+                                 f"{tuple(s.shape)} does not split "
+                                 f"{len(g)} ways")
+            for k, piece in zip(g, s.chunk(len(g), dim=meta.dim)):
+                out[k] = _own(piece.to(_device(meta.mesh, k), copy=True), k)
+    return [out[k] for k in keys]
+
+
+def _exchange(meta: _Meta, keys: list, ts: list, split: int,
+              cat: int) -> list:
+    by = dict(zip(keys, ts))
+    out = {}
+    with _inside():
+        for g in meta.groups:
+            n = len(g)
+            if by[g[0]].shape[split] % n:
+                raise ValueError(f"all_to_all: dimension {split} of "
+                                 f"{tuple(by[g[0]].shape)} does not split "
+                                 f"{n} ways")
+            pieces = {k: by[k].to(meta.mesh.home).chunk(n, dim=split)
+                      for k in g}
+            for i, k in enumerate(g):
+                got = torch.cat([pieces[j][i] for j in g], dim=cat)
+                out[k] = _own(got.to(_device(meta.mesh, k), copy=True), k)
     return [out[k] for k in keys]
 
 
@@ -237,6 +289,23 @@ class _Scatter(torch.autograd.Function):
         return (None, None, *out)
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, meta, keys, *ts):
+        ctx.meta, ctx.keys = meta, keys
+        split, cat = meta.dim
+        return tuple(_exchange(meta, keys, list(ts), split, cat))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        m = ctx.meta
+        split, cat = m.dim
+        out = _exchange(m, ctx.keys, list(gs), cat, split)
+        _record(m.logs, "all-to-all", m.axes, _bytes(out[0]),
+                m.origin + "/grad")
+        return (None, None, *out)
+
+
 def _run(fn, kind, sh: Shards, mesh, axes, origin, dim=0) -> Shards:
     axes = mesh_axes(mesh, axes)
     if not axes:
@@ -264,6 +333,15 @@ def reduce_scatter(sh: Shards, mesh, axes, dim: int, origin: str) -> Shards:
     return _run(_Scatter, "reduce-scatter", sh, mesh, axes, origin, dim)
 
 
+def all_to_all(sh: Shards, mesh, axes, split: int, cat: int,
+               origin: str) -> Shards:
+    """Each member's tensor cut into equal pieces along ``split``; member
+    ``i`` (row-major over ``axes``) gets piece ``i`` of every member, in
+    member order, concatenated along ``cat``."""
+    return _run(_AllToAll, "all-to-all", sh, mesh, axes, origin,
+                (split, cat))
+
+
 @torch.no_grad()
 def pmax(sh: Shards, mesh, axes, origin: str) -> Shards:
     """The elementwise max over ``axes`` at every member (no gradient)."""
@@ -271,11 +349,12 @@ def pmax(sh: Shards, mesh, axes, origin: str) -> Shards:
     if not axes:
         return Shards({k: t.detach() for k, t in sh.items()})
     out = Shards()
-    for g in groups(mesh, list(sh), axes):
-        m = sh[g[0]].to(mesh.home, copy=True)
-        for k in g[1:]:
-            m = torch.maximum(m, sh[k].to(mesh.home))
-        out.update(zip(g, _spread(m, mesh, g)))
+    with _inside():
+        for g in groups(mesh, list(sh), axes):
+            m = sh[g[0]].to(mesh.home, copy=True)
+            for k in g[1:]:
+                m = torch.maximum(m, sh[k].to(mesh.home))
+            out.update(zip(g, _spread(m, mesh, g)))
     first = next(iter(out.values()))
     _record(_open_logs(), "all-reduce", axes, _bytes(first), origin)
     return Shards({k: out[k] for k in sh})
@@ -286,7 +365,8 @@ def broadcast(t: torch.Tensor, mesh, origin: str, keys=None) -> Shards:
     ``keys`` (None: the whole mesh); recorded as ``broadcast``."""
     if keys is None:
         keys = [tuple(c[a] for a in mesh.axis_names) for c in mesh.coords()]
-    out = Shards(zip(keys, _spread(t, mesh, keys)))
+    with _inside():
+        out = Shards(zip(keys, _spread(t, mesh, keys)))
     if len(keys) > 1:
         _record(_open_logs(), "broadcast", tuple(mesh.axis_names),
                 _bytes(t), origin)

@@ -38,7 +38,8 @@ from typing import Mapping, Sequence
 
 import torch
 
-from repro_torch.parallel.collectives import (Shards, all_gather,
+from repro_torch.parallel.collectives import (Shards, _inside, _own,
+                                              all_gather, all_to_all,
                                               partial_product, psum)
 
 # mesh axis groups
@@ -362,6 +363,38 @@ def local_tree(tree, key):
 
 
 # --------------------------------------------------- the model code's view
+def current_coord():
+    """The coordinate whose work this thread is doing inside a loop over
+    :attr:`TP.keys` (None outside one): a cost counter's attribution of an
+    op that reads no tensor of a coordinate (``torch.arange`` ...)."""
+    return getattr(_local, "coord", None)
+
+
+class _KeyLoop(list):
+    """The coordinates in row-major order; iterating them marks each one
+    as the current coordinate (:func:`current_coord`) while the loop body
+    runs."""
+
+    def __iter__(self):
+        prev = getattr(_local, "coord", None)
+        try:
+            for k in list.__iter__(self):
+                _local.coord = k
+                yield k
+        finally:
+            _local.coord = prev
+
+
+class Scattered(Shards):
+    """A global tensor's batch slices over a :class:`TP`'s batch axes (one
+    a coordinate, :meth:`TP.scatter`), with the global ``shape`` and the
+    ``batch_axes`` it was cut over."""
+
+    def __init__(self, parts, *, shape, batch_axes):
+        super().__init__(parts)
+        self.shape, self.batch_axes = tuple(shape), tuple(batch_axes)
+
+
 class TP:
     """A mesh as the model code walks it: the coordinates in row-major
     order, the batch axes (the batch dimension of every activation is cut
@@ -370,7 +403,7 @@ class TP:
 
     def __init__(self, mesh, batch_axes=()):
         self.mesh = mesh
-        self.keys = coord_keys(mesh)
+        self.keys = _KeyLoop(coord_keys(mesh))
         self.batch_axes = tuple(a for a in batch_axes
                                 if int(mesh.shape[a]) > 1)
 
@@ -394,16 +427,24 @@ class TP:
             i, n = i * size + key[names.index(a)], n * size
         return i * (b // n), (i + 1) * (b // n)
 
-    def scatter(self, t: torch.Tensor, dim: int = 0) -> Shards:
+    def scatter(self, t, dim: int = 0) -> Scattered:
         """A global tensor's batch slice (dimension ``dim``) at every
         coordinate, on its device (the input's placement, as the
-        reference's ``in_shardings``: no collective)."""
-        out = Shards()
-        for k in self.keys:
-            b0, b1 = self.batch_range(k, t.shape[dim])
-            out[k] = t.narrow(dim, b0, b1 - b0).to(self.device(k),
-                                                    copy=True)
-        return out
+        reference's ``in_shardings``: no collective, and no work of the
+        program's for a cost counter). A :class:`Scattered` of this
+        TP's batch axes is returned as it is."""
+        if isinstance(t, Scattered):
+            if dim != 0 or t.batch_axes != self.batch_axes:
+                raise ValueError(f"an input scattered over {t.batch_axes} "
+                                 f"where the step cuts {self.batch_axes}")
+            return t
+        out = {}
+        with _inside():
+            for k in coord_keys(self.mesh):
+                b0, b1 = self.batch_range(k, t.shape[dim])
+                out[k] = _own(t.narrow(dim, b0, b1 - b0).to(
+                    self.device(k), copy=True), k)
+        return Scattered(out, shape=t.shape, batch_axes=self.batch_axes)
 
     def join_batch(self, sh: Shards, dim: int = 0, device=None):
         """The inverse of :func:`scatter` (the output's fetch): the batch
@@ -435,6 +476,9 @@ class TP:
 
     def all_gather(self, sh, axes, dim, origin):
         return all_gather(sh, self.mesh, axes, dim, origin)
+
+    def all_to_all(self, sh, axes, split, cat, origin):
+        return all_to_all(sh, self.mesh, axes, split, cat, origin)
 
     def use(self, leaf: Placed, origin: str) -> Placed:
         """A weight as the model code uses it: every dimension cut over a

@@ -14,8 +14,10 @@ tensor cores) bound kernels that compute in those types
 (:func:`kernel_bound`). :func:`collective_bytes` sums a collective log
 (``parallel/collectives.recording``: what the port's mesh code issues)
 where the reference parses the collectives of its compiled HLO; the
-reference's HLO cost analysis (FLOPs and bytes of a lowered step) waits
-for ``launch/dryrun.py``.
+counterpart of its HLO cost and memory analyses (FLOPs, bytes moved,
+argument and temporary bytes of a step) is ``roofline/cost.py``, which
+``launch/dryrun.py`` reads. ``hbm_bytes`` is the card's memory, the dry
+run's ``fits_hbm`` budget.
 """
 from __future__ import annotations
 
@@ -32,13 +34,14 @@ class HW:
     link_bw: float         # NVLink bytes/s a card, each way
     tf32_flops: float      # dense TF32 tensor-core FLOP/s a card
     fp32_flops: float      # 32-bit FLOP/s outside the tensor cores a card
+    hbm_bytes: float       # device memory a card (the dry run's budget)
 
 
 # NVIDIA's data sheet (the SXM part, dense rates, at 700 W)
 CARDS = {
     "NVIDIA H100 80GB HBM3": HW(peak_flops=989e12, hbm_bw=3.35e12,
                                 link_bw=450e9, tf32_flops=494e12,
-                                fp32_flops=67e12),
+                                fp32_flops=67e12, hbm_bytes=80e9),
 }
 
 

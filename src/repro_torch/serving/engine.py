@@ -87,7 +87,7 @@ from repro_torch.core import kvpool
 from repro_torch.core import table as T
 from repro_torch.core.daemon import SQLCached, resolve_device
 from repro_torch.kernels import _build
-from repro_torch.launch.mesh import check_mesh
+from repro_torch.launch.mesh import check_mesh, is_walking
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import (_scale, out_project,
@@ -629,7 +629,8 @@ class MeshServeStep:
 
     def __init__(self, cfg: ModelConfig, geom: PagedGeom, params, mesh):
         self.mesh, self.geom = mesh, geom
-        if params is not None and not mesh.is_plan and not SHD.is_placed(
+        plan_only = mesh.is_plan and not is_walking()
+        if params is not None and not plan_only and not SHD.is_placed(
                 params):
             params = SHD.place_params(params, param_axes(cfg),
                                       SHD.SERVE_PARAM_RULES, mesh)
@@ -639,7 +640,7 @@ class MeshServeStep:
             else 0)
         self.input_specs = serve_input_specs(cfg, geom, mesh)
         self.state = self.inputs = None
-        if mesh.is_plan:
+        if plan_only:
             return
         home = mesh.home
         self._step_fn = make_serve_step(cfg, geom, mesh)

@@ -38,13 +38,24 @@ from repro_torch.parallel.collectives import Shards, psum
 
 
 def _split_microbatches(batch: dict, n: int) -> list[dict]:
-    """[b, ...] leaves -> n dicts of [b / n, ...] slices."""
+    """[b, ...] leaves -> n dicts of [b / n, ...] slices. A leaf already
+    scattered over the mesh (``sharding.Scattered``) is cut coordinate by
+    coordinate: microbatch ``i`` holds slice ``i`` of every coordinate's
+    rows (the same rows in all, grouped otherwise than slices of the
+    global batch)."""
     out = [{} for _ in range(n)]
     for k, x in batch.items():
         b = x.shape[0]
         if b % n:
             raise ValueError(f"batch {b} does not split into {n} "
                              f"microbatches")
+        if isinstance(x, SHD.Scattered):
+            parts = {c: t.split(t.shape[0] // n) for c, t in x.items()}
+            for i in range(n):
+                out[i][k] = SHD.Scattered(
+                    {c: p[i] for c, p in parts.items()},
+                    shape=(b // n,) + x.shape[1:], batch_axes=x.batch_axes)
+            continue
         for i, part in enumerate(x.split(b // n)):
             out[i][k] = part
     return out

@@ -9,7 +9,14 @@ devices, which jax fixes when it starts, and a mesh whose axes are
 gather. So they run here, in ONE child process per test file
 (``python tests/_torch_tp.py OUT.npz``, four forced host devices, no
 ``axis_rules``), and the parent reads the results from the ``.npz``.
-``compress_psum_pod`` runs here too, under ``jax.vmap(axis_name="pod")``.
+``compress_psum_pod`` runs here too, under ``jax.vmap(axis_name="pod")``,
+and the embedding lookup's gradient (mesh-free and placed by
+``TRAIN_PARAM_RULES`` under ``axis_rules``) on a bf16 table. A second
+part (``python tests/_torch_tp.py OUT.npz variants``, for
+tests/test_torch_tp_variants.py) runs the placed variants under
+``axis_rules(DEFAULT_RULES, mesh)``: gemma2-2b SMOKE with
+``attn_seq_shard`` (its train loss and gradients, its prefill) and
+granite-moe SMOKE with ``REPRO_MOE_RAGGED=1`` (train loss and gradients).
 Every input is drawn from seeded numpy generators, so the parent rebuilds
 the same ones.
 """
@@ -29,6 +36,20 @@ ROUNDS = 3
 TRAIN_ARCHS = ("gemma2-2b", "zamba2-2.7b")
 TRAIN_B, TRAIN_S, TRAIN_STEP = 4, 32, 1
 COMP_SHAPE, COMP_STEPS, COMP_PODS = (6, 10), 3, 2
+EMBED_ARCH, EMBED_B, EMBED_S = "gemma2-2b", 2, 4096
+SEQPAR_ARCH, RAGGED_ARCH = "gemma2-2b", "granite-moe-1b-a400m"
+
+
+def embed_case(vocab: int, d: int) -> dict:
+    """Zipf(1.2) tokens [EMBED_B, EMBED_S] clipped to the vocabulary (a
+    frequent token's row sums thousands of gradient rows) and a seeded
+    cotangent of the lookup's output, fp32 (cast to bf16 by both
+    sides)."""
+    rng = np.random.default_rng(12)
+    toks = np.minimum(rng.zipf(1.2, (EMBED_B, EMBED_S)) - 1, vocab - 1)
+    return {"tokens": toks.astype(np.int32),
+            "cot": rng.standard_normal((EMBED_B, EMBED_S, d)).astype(
+                np.float32)}
 
 
 def serve_case(arch: str, cfg, geom) -> dict:
@@ -168,19 +189,110 @@ def _compress(res: dict) -> None:
         res[f"compress/{i}/err"] = np.asarray(err)
 
 
-def _reference(out_path: str) -> None:
+def _embed(res: dict) -> None:
+    """The gradient of ``embed_tokens`` (its table bf16) for the cotangent
+    of :func:`embed_case`: mesh-free, and with the table placed by
+    ``TRAIN_PARAM_RULES`` over an Auto (2, 2) mesh under ``axis_rules``
+    (the reference's manual lookup)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.models import transformer as JTF
+    from repro.models.params import abstract_init
+    from repro.parallel import sharding as JSH
+    base, jp = M.ref_weights(EMBED_ARCH)
+    cfg = dataclasses.replace(base, dtype=jnp.bfloat16)
+    emb = jp["embed"].astype(jnp.bfloat16)
+    case = embed_case(cfg.vocab, cfg.d_model)
+    toks = jnp.asarray(case["tokens"])
+    cot = jnp.asarray(case["cot"]).astype(jnp.bfloat16)
+
+    def grad(e, t, c):
+        return jax.vjp(lambda e: JTF.embed_tokens({"embed": e}, cfg, t),
+                       e)[1](c)[0]
+    res["embed/free"] = np.asarray(jax.jit(grad)(emb, toks, cot),
+                                   np.float32)
+    mesh = _auto_mesh((2, 2))
+    sds, axes = abstract_init(JTF.init_model, cfg)
+    spec = JSH.specs_for_tree(axes, JSH.TRAIN_PARAM_RULES, mesh,
+                              sds)["embed"]
+    dp = NamedSharding(mesh, P("data"))
+    with JSH.axis_rules(JSH.DEFAULT_RULES, mesh):
+        got = jax.jit(grad, in_shardings=(spec, dp, dp))(emb, toks, cot)
+    res["embed/placed"] = np.asarray(got, np.float32)
+    res["weights/embed"] = np.asarray(emb, np.float32)
+
+
+def _variants(res: dict) -> None:
+    """gemma2-2b SMOKE with ``attn_seq_shard``: the placed train loss and
+    gradients (``TRAIN_PARAM_RULES``, remat full) and the placed prefill's
+    logits (``SERVE_PARAM_RULES``); granite-moe SMOKE with
+    ``REPRO_MOE_RAGGED=1``: the placed train loss and gradients. Over an
+    Auto (2, 2) mesh under ``axis_rules(DEFAULT_RULES, mesh)`` (the
+    sequence-parallel island needs the current mesh)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.models import transformer as JTF
+    from repro.models.params import abstract_init
+    from repro.parallel import sharding as JSH
+    mesh = _auto_mesh((2, 2))
+    dp = NamedSharding(mesh, P("data"))
+    for tag, arch in (("seqpar", SEQPAR_ARCH), ("ragged", RAGGED_ARCH)):
+        base, jp = M.ref_weights(arch)
+        cfg = (dataclasses.replace(base, attn_seq_shard=True)
+               if tag == "seqpar" else base)
+        sds, axes = abstract_init(JTF.init_model, cfg)
+        batch = {k: jnp.asarray(v) for k, v in
+                 train_batch(arch, cfg.vocab).items()}
+        spec = JSH.specs_for_tree(axes, JSH.TRAIN_PARAM_RULES, mesh, sds)
+        if tag == "ragged":
+            os.environ["REPRO_MOE_RAGGED"] = "1"
+        try:
+            fn = jax.jit(jax.value_and_grad(
+                lambda p, b: JTF.train_loss(p, cfg, b, remat="full")[0]),
+                in_shardings=(spec, {k: dp for k in batch}))
+            with JSH.axis_rules(JSH.DEFAULT_RULES, mesh):
+                loss, grads = fn(jp, batch)
+        finally:
+            os.environ.pop("REPRO_MOE_RAGGED", None)
+        res[f"{tag}/loss"] = np.asarray(loss)
+        res.update(M.flatten(grads, f"{tag}/grads"))
+        res.update(M.flatten(jp, f"{tag}/weights"))
+        if tag == "seqpar":
+            sspec = JSH.specs_for_tree(axes, JSH.SERVE_PARAM_RULES, mesh,
+                                       sds)
+            fn = jax.jit(lambda p, t: JTF.prefill(p, cfg, {"tokens": t})[0],
+                         in_shardings=(sspec, dp))
+            with JSH.axis_rules(JSH.DEFAULT_RULES, mesh):
+                res["seqpar/prefill"] = np.asarray(fn(jp, batch["tokens"]))
+
+
+def _reference(out_path: str, part: str = "steps") -> None:
     import jax
     assert jax.device_count() >= 4, jax.devices()
     res: dict = {}
-    _serve(res)
-    _train(res)
-    _compress(res)
+    if part == "variants":
+        _variants(res)
+    else:
+        _serve(res)
+        _train(res)
+        _compress(res)
+        _embed(res)
     np.savez(out_path, **res)
 
 
-def run_reference(out_path: str, timeout: float = 600.0) -> dict:
+def run_reference(out_path: str, timeout: float = 600.0,
+                  part: str = "steps") -> dict:
     """Start the child (four forced host devices, CPU) and load its
-    results."""
+    results (``part``: ``steps``, the placed steps of
+    tests/test_torch_tp_step.py, or ``variants``)."""
     import subprocess
     here = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(os.path.dirname(here), "src")
@@ -189,7 +301,7 @@ def run_reference(out_path: str, timeout: float = 600.0) -> dict:
                PYTHONPATH=os.pathsep.join(
                    [src, here, os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           out_path], env=env, capture_output=True,
+                           out_path, part], env=env, capture_output=True,
                           text=True, timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"the reference child failed:\n{proc.stderr}")
@@ -198,4 +310,4 @@ def run_reference(out_path: str, timeout: float = 600.0) -> dict:
 
 
 if __name__ == "__main__":
-    _reference(sys.argv[1])
+    _reference(sys.argv[1], *sys.argv[2:3])

@@ -107,3 +107,71 @@ def test_torch_train_small_on_the_cpu(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "resumed from step 8" in out.stdout
     assert out.stdout.splitlines()[-1] == "resumed at step 8, continued to 10"
+
+
+def test_torch_quickstart_prints_the_references_rows():
+    """examples/torch_quickstart.py on the CPU prints the rows, the
+    average, the expired counts, the rows left and the payload's shape
+    that examples/quickstart.py prints (the payload a torch tensor)."""
+    ref = _run("examples/quickstart.py")
+    got = _run("examples/torch_quickstart.py", "--device", "cpu")
+    assert ref.returncode == 0, ref.stderr
+    assert got.returncode == 0, got.stderr
+    want, lines = ref.stdout.splitlines(), got.stdout.splitlines()
+    assert lines[:-1] == want[:-1]
+    assert lines[-1].startswith(want[-1].split(" dtype:")[0] + " dtype: "
+                                "torch.float32 device: cpu")
+
+
+def _reference_cms(requests: int) -> dict:
+    """examples/cms_cache_sim.py's two runs at ``requests`` requests
+    (its source with ``REQUESTS`` set, its printing loop left out), hits
+    and expired entries counted by wrapping its daemon and cache."""
+    from repro.core.baseline import MemcachedLike
+    from repro.core.daemon import SQLCached
+    seen = {"sqlcached": [0, 0], "memcached": [0, 0]}
+
+    class DB(SQLCached):
+        def execute(self, sql, params=()):
+            r = super().execute(sql, params)
+            if sql.startswith("SELECT kind"):
+                seen["sqlcached"][0] += r.count > 0
+            elif sql.startswith("DELETE"):
+                seen["sqlcached"][1] += r.count
+            return r
+
+    class MC(MemcachedLike):
+        def get(self, key):
+            v = super().get(key)
+            seen["memcached"][0] += key.endswith(":header") and v is not None
+            return v
+
+        def flush_all(self):
+            n = super().flush_all()
+            seen["memcached"][1] += n
+            return n
+
+    src = (ROOT / "examples/cms_cache_sim.py").read_text()
+    src = src.replace("REQUESTS = 2000", f"REQUESTS = {requests}")
+    body = src.split("\nfor name, fn in (")[0]
+    ns = {"__name__": "cms"}
+    exec(compile(body, "cms_cache_sim.py", "exec"), ns)
+    ns["SQLCached"], ns["MemcachedLike"] = DB, MC
+    ns["run_sqlcached"]()
+    ns["run_memcached"]()
+    return seen
+
+
+def test_torch_cms_cache_sim_gives_the_references_hits():
+    """examples/torch_cms_cache_sim.py --requests 200 on the CPU: each
+    cache's hits and expired entries equal the reference example's on the
+    same seeded stream."""
+    got = _run("examples/torch_cms_cache_sim.py", "--device", "cpu",
+               "--requests", "200")
+    assert got.returncode == 0, got.stderr
+    want = _reference_cms(200)
+    for name in ("sqlcached", "memcached"):
+        line = next(ln for ln in got.stdout.splitlines()
+                    if ln.startswith(name))
+        hits, expired = want[name]
+        assert f"hits {hits}/200  expired {expired}" in line, (line, want)

@@ -32,7 +32,7 @@ def test_roofline_terms_match_reference(chips, per_device, flops, nbytes,
     # the v5e has one matrix rate: roofline_terms reads only peak_flops
     hw = TRA.HW(peak_flops=v5e.peak_flops, hbm_bw=v5e.hbm_bw,
                 link_bw=v5e.ici_bw, tf32_flops=v5e.peak_flops,
-                fp32_flops=v5e.peak_flops)
+                fp32_flops=v5e.peak_flops, hbm_bytes=0.0)   # not read here
     want = JRA.roofline_terms(hlo_flops=flops, hlo_bytes=nbytes,
                               coll_bytes=coll, chips=chips,
                               per_device=per_device, hw=v5e)

@@ -28,8 +28,11 @@ steps on the CPU.
   axis_name="pod")``, with error feedback over 3 steps, and
   ``make_compressed_grad_fn`` over (pod 2, data 1, model 2) against the
   compression of each pod's mesh-free gradients.
-* The placed step's tied-embedding gradient in bf16 against the fp32
-  step's (its lookup's scatter-add sums in fp32).
+* The tied embedding's lookup gradient on a bf16 table (Zipf tokens [2,
+  4,096], a seeded cotangent): the mesh-free one bit-equal to the
+  reference's ``jax.vjp``, the placed one (``TRAIN_PARAM_RULES`` over (2,
+  2)) within 1e-2 of the largest entry of the reference's placed lookup
+  (both sum in bf16 a batch slice at a time).
 
 The reference's placed steps run in one child process with four forced
 host devices (``tests/_torch_tp.py``).
@@ -360,22 +363,56 @@ def test_compressed_grad_fn_over_pods_and_a_placed_model():
         assert float((leaf - want).abs().max()) <= quantum * 1.001
 
 
-def test_placed_embedding_gradient_sums_in_fp32():
-    """bf16 gemma2-2b SMOKE on a Zipf batch (one token id 1,075 times in
-    8,192): the placed step's ``embed`` gradient within 1e-2 of its
-    largest entry against the fp32 step's (its lookup scatter-adds in
-    fp32)."""
-    from repro_torch.data.synthetic import make_batch
-    from repro_torch.training.loop import to_device
-    cfg = dataclasses.replace(TC.get_smoke("gemma2-2b"), dtype=torch.bfloat16)
-    params = TTF.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
-    batch = to_device(make_batch(cfg, 2, 4096, seed=0), torch.device("cpu"))
-    (_, _), g32 = make_loss_grad_fn(dataclasses.replace(
-        cfg, dtype=torch.float32))(SH._tree_map(lambda t: t.float(), params),
-                                   batch)
-    pl = SH.place_params(params, param_axes(cfg), SH.TRAIN_PARAM_RULES,
-                         cpu_mesh((2, 2)))
-    (_, _), gp = make_loss_grad_fn(cfg)(pl, batch)
-    got = SH.join_placed(gp["embed"], "cpu")
-    close(got.float(), g32["embed"], 1e-2,
-          "placed embed gradient against fp32")
+def _embed_inputs():
+    cfg = dataclasses.replace(TC.get_smoke(T.EMBED_ARCH),
+                              dtype=torch.bfloat16)
+    case = T.embed_case(cfg.vocab, cfg.d_model)
+    return (cfg, torch.from_numpy(case["tokens"]),
+            torch.from_numpy(case["cot"]).to(torch.bfloat16))
+
+
+def test_embedding_gradient_matches_the_reference(ref):
+    """The mesh-free lookup's gradient on a bf16 table (Zipf tokens [2,
+    4,096], a seeded cotangent) is bit-equal to ``jax.vjp`` of the
+    reference's ``embed_tokens``: both scatter-add in bf16."""
+    cfg, toks, cot = _embed_inputs()
+    emb = torch.from_numpy(ref["weights/embed"]).to(torch.bfloat16)
+    emb.requires_grad_(True)
+    x = TTF.embed_tokens({"embed": emb}, cfg, toks)
+    (g,) = torch.autograd.grad(x, emb, cot)
+    assert torch.equal(g.float(), torch.from_numpy(ref["embed/free"]))
+
+
+def test_placed_embedding_gradient_matches_the_reference(ref):
+    """The placed lookup's gradient (the table placed by
+    ``TRAIN_PARAM_RULES`` over (2, 2): vocabulary over 'model', d_model
+    over 'data'; the batch over 'data') against the reference's placed
+    lookup under ``axis_rules`` on the same bf16 table, tokens and
+    cotangent: both take the rows in bf16 and scatter-add each
+    coordinate's batch slice in bf16, then sum the two slices (the FSDP
+    gather's reduce-scatter); within 1e-2 of the largest entry (the two
+    slices' bf16 partial sums may round apart at their last bit before
+    the sum)."""
+    cfg, toks, cot = _embed_inputs()
+    emb = torch.from_numpy(ref["weights/embed"]).to(torch.bfloat16)
+    mesh = cpu_mesh((2, 2))
+    spec = SH.specs_for_tree({"embed": param_axes(cfg)["embed"]},
+                             SH.TRAIN_PARAM_RULES, mesh,
+                             {"embed": tuple(emb.shape)})["embed"]
+    placed = SH.split_by_spec(emb, spec, mesh)
+    leaves = list(placed.values())
+    for t in leaves:
+        t.requires_grad_(True)
+    tp = SH.TP.for_batch(mesh, toks.shape[0])
+    x = TTF.embed_tokens_tp({"embed": placed}, cfg, tp.scatter(toks), tp)
+    cots = tp.scatter(cot)
+    # one cotangent a batch slice: the 'model' copies of the output are
+    # one value, whose psum's transpose hands it to every vocabulary shard
+    outs = [k for k in tp.keys if k[1] == 0]
+    grads = torch.autograd.grad([x[k] for k in outs], leaves,
+                                [cots[k] for k in outs])
+    got = SH.join_placed(placed.with_parts(dict(zip(placed, grads))), "cpu")
+    want = ref["embed/placed"]
+    close(got.float(), want, 1e-2, "placed embed gradient")
+    # and not the mesh-free one (each slice sums fewer rows in bf16)
+    assert not np.array_equal(want, ref["embed/free"])
