@@ -194,7 +194,11 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               grows the compaction's scratch under an older graph, and a
               REINDEX retires every plan, each followed by statements
               that must equal the CPU daemon's. Reports capture ms, the
-              Table 2 table's graph-pool bytes and wall p50s.
+              Table 2 table's graph-pool bytes and wall p50s. Then
+              graphs_race: one thread plans 24 fresh statement shapes
+              while another builds daemons and yi-6b SMOKE ServeGraphs,
+              drops them in unreachable cycles and calls gc.collect():
+              zero failed captures, zero uncached plans.
    train   -- training through the port, first of the main paths: (i)
               gemma2-2b at full width with 2 layers (local, global), b 1,
               s 4,608: the loss and every gradient leaf through the
@@ -208,9 +212,9 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               internvl2-1b SMOKE (fp32): 3 steps, then a resume from the
               step-2 checkpoint whose step 3 repeats the loss within 1e-4
               relative, now also zamba2, falcon-mamba-7b, gemma3-27b and
-              phi3.5-moe; starcoder2-7b SMOKE (head dim 4, which the flash
-              kernels do not take) must be refused by the launcher with
-              NotPorted; (iv') zamba2-2.7b
+              phi3.5-moe, and starcoder2-7b SMOKE (head dim 4, through
+              the flash wrappers' zero-padded route at head dim 8);
+              (iv') zamba2-2.7b
               at full width, its first scan unit (6 Mamba2 layers and the
               shared block), s 4,608, against the plain scan and plain
               attention as in (i); (v) zamba2-2.7b at its 54 layers, 3
@@ -316,9 +320,13 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               reference's spec), granite-moe-1b-a400m over (1, 4)
               (experts over 'model'), 4 slots, the pools above (other
               seeds); and a 300-token yi-6b prefill over (1, 4) (flash a
-              coordinate a layer), logits within 0.05. Reports each
-              coordinate's placed bytes, round p50s, the collective
-              bytes and peak memory.
+              coordinate a layer), logits within 0.05; and the dense
+              decode_step over placed weights (decode_step_tp: yi-6b over
+              (2, 2), the dense cache placed by place_cache, 4 slots, 8
+              rounds) against the mesh-free decode_step, logits within
+              twice the bf16 mesh-free step's distance from fp32, no
+              kernel launched. Reports each coordinate's placed bytes,
+              round p50s, the collective bytes and peak memory.
    train_tp -- gemma2-2b at full width (b 2, s 4,096, remat full) with
               weights and moments placed by TRAIN_PARAM_RULES over (2, 2)
               (FSDP 'embed' over 'data', heads / mlp / vocab over
@@ -330,7 +338,13 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               reference's do, the placed one a batch slice at a time);
               then one AdamW update at step 1 and every parameter against
               the mesh-free step's; step seconds, peak memory, collective
-              bytes. Then one yi-6b SMOKE step through
+              bytes. The placed gradients again under seq -> model
+              (REPRO_SEQ_ACT=model: the residual stream cut along the
+              sequence over 'model'), held to the same bounds against the
+              mesh-free step: no residual all-reduce over 'model' left,
+              the all-gather and reduce-scatter bytes over 'model' equal
+              to seq_collective_reckoning; peak memory beside the step
+              without the rule. Then one yi-6b SMOKE step through
               parallel/compression.make_compressed_grad_fn over (pod 2,
               data 1, model 2) against the same on the CPU.
    dryrun -- the dry run (launch/dryrun.py) against the card: (i)
@@ -345,7 +359,9 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               yi-6b's placed serve round (4 slots of 4,096 over (2, 2)),
               its peak ratio reported; (iii) gemma2-2b train_4k over the
               16 x 16 production mesh: its two-point probe's costs,
-              roofline terms and wall seconds.
+              roofline terms and wall seconds; (iv) (i) under
+              REPRO_SEQ_ACT=model, the same counts and peak bounds, its
+              peak temporary bytes beside (i)'s.
    examples -- examples/torch_quickstart.py (its rows and counts, a CUDA
               payload) and examples/torch_cms_cache_sim.py (2,000
               requests: each cache's hits and request p50 / p99, wall
@@ -459,7 +475,7 @@ from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import relscan as RS  # noqa: E402
 from repro_torch.launch import mesh as MESH  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
-from repro_torch.models.config import MAMBA2, NotPorted  # noqa: E402
+from repro_torch.models.config import MAMBA2  # noqa: E402
 from repro_torch.models.layers import attention as AT  # noqa: E402
 from repro_torch.models.layers import moe as MOE  # noqa: E402
 from repro_torch.models.layers import ssm as SSM  # noqa: E402
@@ -1382,6 +1398,11 @@ FLASH_CASES = [
     (1, 16, 16, 8, 1024, 64, False, 0, 0.0, 0),
     (1, 16, 16, 24, 1024, 64, False, 0, 0.0, 0),
     (2, 16, 16, 24, 1000, 64, False, 0, 0.0, 0),
+    # starcoder2-7b's SMOKE head dim 4 (36 / 4 heads): the wrappers' zero-
+    # padded route through the kernels at head dim 8, forward and backward
+    (4, 36, 4, 32, 32, 4, True, 0, 0.0, 0),
+    (1, 4, 2, 70, 70, 4, True, 17, 20.0, 0),
+    (2, 4, 4, 13, 40, 4, False, 0, 0.0, 0),
 ]
 # the flash kernels' tile edges at every compiled head dim: lengths around
 # the 16-row warp tile, the 64-row CTA tile and the 64-key (32 at hd 256)
@@ -3709,6 +3730,91 @@ def phase_graphs(card):
           "fig1_single_read_p50_us": round(p50(fig.lat["single_read"]), 1),
           "fig1_batched_read_p50_us_per_read":
               round(p50(fig.lat["batch_read"]) / 32, 2)})
+    release(pr.gpu)
+    release(fig.gpu)
+    graphs_capture_race(card, torch.device("cuda", 0))
+
+
+RACE_SHAPES = 24        # fresh statement shapes the capturing thread plans
+RACE_ROUNDS = (6, 40)   # the other thread's rounds: at least, at most
+
+
+def graphs_capture_race(card, dev):
+    """Graph destruction against capture: one thread plans RACE_SHAPES
+    fresh statement shapes on a card daemon (each a capture on its miss)
+    while another builds a card daemon and a yi-6b SMOKE ServeGraph,
+    captures in each, drops them in unreachable cycles (freed only by a
+    collection) and calls gc.collect(), round after round. Every graph
+    destroyed while a capture is open must wait for it
+    (``core/execache.capture_guard``): zero failed captures, and every
+    shape hits its plan on a second run (no uncached plan). Reports the
+    rounds and how many releases were deferred."""
+    import threading
+    from repro_torch.configs import shapes as SHP
+    db = D.SQLCached(warmup=False)
+    db.execute("CREATE TABLE race (k INT, v INT) CAPACITY 4096")
+    db.executemany("INSERT INTO race (k, v) VALUES (?, ?)",
+                   [(i, 2 * i) for i in range(512)])
+    db.drain()
+    shapes = [f"SELECT v FROM race WHERE k = ? AND v > {i}"
+              for i in range(RACE_SHAPES)]
+    cfg = configs.get_smoke("yi-6b")
+    params = TF.init_model(torch.Generator(device=dev).manual_seed(SEED),
+                           cfg, dev)
+    shape = SHP.ShapeSpec("race", 64, 4, "decode")
+    errors, rounds = [], [0]
+    done = threading.Event()
+    deferred0 = EC.deferred_total()
+
+    def capture():
+        try:
+            for i, sql in enumerate(shapes):
+                db.execute(sql, (i,)).count
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(("capture", repr(e)))
+        finally:
+            done.set()
+
+    def churn():
+        try:
+            while rounds[0] < RACE_ROUNDS[1] and (
+                    not done.is_set() or rounds[0] < RACE_ROUNDS[0]):
+                d = D.SQLCached(warmup=False)
+                d.execute("CREATE TABLE t (k INT, v INT) CAPACITY 256")
+                d.execute("INSERT INTO t (k, v) VALUES (?, ?)",
+                          (rounds[0], 1))
+                d.execute("SELECT v FROM t WHERE k = ?", (rounds[0],)).count
+                step, _ = SE.lower_serve_step(cfg, shape, params,
+                                              device=dev)
+                d.cycle, step.cycle = d, step
+                del d, step
+                gc.collect()
+                rounds[0] += 1
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(("churn", repr(e)))
+
+    threads = [threading.Thread(target=capture),
+               threading.Thread(target=churn)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    hung = [t.name for t in threads if t.is_alive()]
+    st0 = executors(db, "race")
+    for i, sql in enumerate(shapes):
+        db.execute(sql, (i,)).count
+    st1 = executors(db, "race")
+    report = {"phase": "graphs_race", "card": card, "shapes": RACE_SHAPES,
+              "churn_rounds": rounds[0], "failed_captures": len(errors),
+              "errors": errors[:3], "uncached_plans":
+              st1["misses"] - st0["misses"],
+              "plans": st1["cached"], "deferred_releases":
+              EC.deferred_total() - deferred0}
+    emit(report)
+    release(db)
+    if errors or hung or report["uncached_plans"] or (
+            st1["cached"] < RACE_SHAPES):
+        raise AssertionError(f"graphs race: {report} (hung: {hung})")
 
 
 # ------------------------------------------------------------- shards
@@ -4824,7 +4930,8 @@ def bwd_case(gen, dev, dtype, case, views=False):
                        for s in shapes)
     kw = dict(scale=hd ** -0.5, causal=causal, window=window,
               softcap=softcap, q_offset=q_offset)
-    o, lse = FA._forward(q, k, v, with_lse=True, **kw)
+    # (head dim 4 through the zero-padded route, as the wrappers take it)
+    o, lse = FA.padded(FA._forward, q, k, v, with_lse=True, **kw)
     got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     again = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     want = FA.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
@@ -4865,6 +4972,56 @@ def bwd_case(gen, dev, dtype, case, views=False):
                  "flash_attention_bwd_dq": ab[0]}, d_rel
 
 
+# starcoder2-7b SMOKE's training call (b, h, kh, s): head dim 4
+FLASH_PAD_TIMING = (4, 36, 4, 32)
+
+
+def flash_pad_timing(gen, dev, card):
+    """Head dim 4 through the flash wrappers' zero-padded route at
+    starcoder2-7b SMOKE's training call, fp32 and bf16: the forward (no
+    gradient: one padded kernel call) and the forward with its lse plus
+    the backward, each the whole call's device ms (pads, the kernels at
+    head dim 8, slices), beside the same calls at head dim 8 unpadded,
+    the plain version's ms and the bound of the head-dim-4 work."""
+    b, h, kh, s = FLASH_PAD_TIMING
+    rows = []
+    for dtype, rate in ((torch.float32, SIMT_OPS_S),
+                        (torch.bfloat16, BF16_OPS_S)):
+        kw = dict(scale=0.5, causal=True, window=0, softcap=0.0, q_offset=0)
+        t = {}
+        for hd in (4, 8):
+            q, k, v, do = (torch.randn(sh, generator=gen, device=dev).to(
+                dtype) for sh in ((b, h, s, hd), (b, kh, s, hd),
+                                  (b, kh, s, hd), (b, h, s, hd)))
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+            def both(leaves=leaves, do=do):
+                FA.flash_attention(*leaves, **kw).backward(do)
+            t[hd] = {"fwd": call_device_ms(
+                lambda q=q, k=k, v=v: FA.flash_attention(q, k, v, **kw)),
+                "fwd_bwd": call_device_ms(both)}
+            if hd == 4:
+                plain = time_ms(lambda q=q, k=k, v=v: FA.flash_attention_ref(
+                    q, k, v, **kw), iters=50, warm=5)
+        elem = torch.empty((), dtype=dtype).element_size()
+        f_ops, f_bytes = FA.flash_cost(b, h, kh, s, s, 4, elem)
+        bwd = [FA.flash_bwd_cost(n, b, h, kh, s, s, 4, elem) for n in (
+            "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+            "flash_attention_bwd_dq")]
+        fb_ops = f_ops + sum(o for o, _ in bwd)
+        fb_bytes = (f_bytes + 4 * b * h * s) + sum(x for _, x in bwd)
+        rows.append({"dtype": str(dtype)[6:], "shape": [b, h, kh, s, 4],
+                     "fwd_device_ms": t[4]["fwd"],
+                     "fwd_device_ms_hd8_unpadded": t[8]["fwd"],
+                     "fwd_bwd_device_ms": t[4]["fwd_bwd"],
+                     "fwd_bwd_device_ms_hd8_unpadded": t[8]["fwd_bwd"],
+                     "plain_fwd_ms": plain,
+                     "fwd_bound_ms": bound(f_bytes, f_ops, rate)[0],
+                     "fwd_bwd_bound_ms": bound(fb_bytes, fb_ops, rate)[0]})
+    emit({"phase": "kernel_timing", "kernel": "flash_attention_head_dim_4",
+          "card": card, "rows": rows})
+
+
 def phase_kernels_attention_bwd(dev, card):
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     errs = {k: 0.0 for k in ("flash_attention_lse",
@@ -4883,6 +5040,7 @@ def phase_kernels_attention_bwd(dev, card):
         rel, delta_rel, n = max(rel, e), max(delta_rel, d), n + 1
         for k in errs:
             errs[k] = max(errs[k], a[k])
+    flash_pad_timing(gen, dev, card)
     # max_abs_err: each kernel's own output (lse; D; dK and dV; dQ)
     emit({"phase": "kernels_attention_bwd", "card": card, "cases": n,
           "tolerance_of_largest_gradient": {"float32": 1e-4,
@@ -5257,29 +5415,20 @@ def train_zamba2_full(card, dev, want):
     torch.cuda.empty_cache()
 
 
-# the SMOKE archs trained with a resume in (iii): every arch of the port
-# but starcoder2-7b, whose SMOKE head dim 4 the flash kernels do not take
-# (the launcher refuses it on the card: SMOKE_REFUSED)
+# the SMOKE archs trained with a resume in (iii): every arch of the port,
+# starcoder2-7b's head dim 4 through the flash wrappers' padded route
 SMOKE_TRAIN = ("yi-6b", "granite-moe-1b-a400m", "seamless-m4t-large-v2",
                "internvl2-1b", "zamba2-2.7b", "falcon-mamba-7b",
-               "gemma3-27b", "phi3.5-moe-42b-a6.6b")
-SMOKE_REFUSED = ("starcoder2-7b",)
+               "gemma3-27b", "phi3.5-moe-42b-a6.6b", "starcoder2-7b")
 
 
 def train_smoke_resume(card, dev, want):
     """(iii) the SMOKE archs (fp32) through the launcher: 3 steps, then a
     resume from the step-2 checkpoint whose step 3 must repeat the first
-    run's loss; the refused ones must raise NotPorted before a step."""
+    run's loss."""
     import shutil
     from repro_torch.launch import train as LT
     out = {}
-    for arch in SMOKE_REFUSED:
-        try:
-            LT.main(["--arch", arch, "--smoke", "--steps", "1"])
-        except NotPorted as e:
-            out[arch] = {"refused": str(e)}
-        else:
-            raise AssertionError(f"train (iii) {arch}: not refused")
     for arch in SMOKE_TRAIN:
         ckpt = ROOT / "build" / "chip_smoke_train" / arch
         shutil.rmtree(ckpt, ignore_errors=True)
@@ -5798,6 +5947,8 @@ TP_CASES = [
      4096),
 ]
 TP_PREFILL = ("yi-6b", (1, 4), 300)
+# arch, mesh, slots, cache length, rounds, the slots' first lengths
+TP_DECODE = ("yi-6b", (2, 2), 4, 64, 8, (13, 7, 0, 22))
 TP_TRAIN = ("gemma2-2b", (2, 2), 2, 4096)      # arch, mesh, b, s
 TP_COMPRESS = ("yi-6b", (2, 1, 2))              # SMOKE, (pod, data, model)
 
@@ -5879,6 +6030,88 @@ def _tree_leaves(tree):
     return tree_leaves(tree)
 
 
+def serve_tp_dense_decode(card, dev, params, cfg):
+    """The dense ``decode_step`` over placed weights (``decode_step_tp``):
+    yi-6b at full width, weights placed by SERVE_PARAM_RULES and the
+    seeded dense cache by ``place_cache`` over (2, 2) (slots over 'data',
+    kv heads over 'model'), TP_DECODE's rounds on seeded tokens, against
+    the mesh-free ``decode_step`` from the same weights and cache: the
+    logits within twice the bf16 mesh-free step's distance from the same
+    step in fp32 (the serve rule of :func:`placed_serve_case`), the joined
+    cache within ARENA_REL_TOL of its largest entry against the mesh-free
+    one's (the arenas' rule there: each coordinate's k / v projections
+    round on their own), and no kernel launched (the dense path is plain,
+    as the reference's)."""
+    arch, mshape, b, length, rounds, lens0 = TP_DECODE
+    with MESH.force_device_count(int(np.prod(mshape))):
+        mesh = MESH.make_debug_mesh(*mshape)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    start = TF.init_cache(cfg, b, length, dev)
+    for t in start.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 32).integers(
+        0, cfg.vocab, (rounds, b)).astype(np.int32)).to(dev)
+
+    def run(p, cache):
+        out, ms = [], []
+        lens = torch.tensor(lens0, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            for r in range(rounds):
+                sync()
+                t0 = time.perf_counter()
+                lg, cache = TF.decode_step(p, cfg, tokens[r], cache, lens)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                out.append(lg[:, :cfg.vocab].float())
+                lens = lens + 1
+        return out, cache, ms
+
+    before = dict(_build.launches)
+    p32 = SHD._tree_map(lambda t: t.float(), params)
+    lg_32, _, _ = run(p32, {k: t.float() for k, t in start.items()})
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    lg_f, free, free_ms = run(params, {k: t.clone() for k, t in
+                                       start.items()})
+    weights = SHD.place_params(params, param_axes(cfg),
+                               SHD.SERVE_PARAM_RULES, mesh)
+    cache = TF.place_cache(cfg, {k: t.clone() for k, t in start.items()},
+                           weights)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with CO.recording() as log:
+        lg_m, cache, tp_ms = run(weights, cache)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    launched = {k: v - before[k] for k, v in _build.launches.items()
+                if v != before[k]}
+    dist = lambda xs, ys: max(float((x - y).abs().max())  # noqa: E731
+                              for x, y in zip(xs, ys))
+    atol = 2 * dist(lg_f, lg_32)
+    err = dist(lg_m, lg_f)
+    joined = TF.join_cache(cache)
+    cache_err = max(float((joined[k].float() - free[k].float()).abs().max())
+                    / float(free[k].float().abs().max()) for k in free)
+    report = {"phase": "serve_tp", "case": "dense_decode", "card": card,
+              "arch": cfg.name, "mesh": mesh.shape, "slots": b,
+              "cache_len": length, "rounds": rounds,
+              "logit_max_abs_diff": err, "logit_bound": atol,
+              "mesh_free_vs_fp32": atol / 2, "cache_rel_err": cache_err,
+              "round_ms_p50": p50(tp_ms), "mesh_free_round_ms_p50":
+              p50(free_ms), "peak_gb": peak,
+              "collective_bytes_round": {
+                  k: v / rounds for k, v in
+                  RF.collective_bytes(log).items()},
+              "launches": launched}
+    emit(report)
+    del weights, cache, joined, free
+    gc.collect()
+    torch.cuda.empty_cache()
+    if launched:
+        raise AssertionError(f"serve_tp dense decode launched {launched}")
+    if not (err <= atol and cache_err <= ARENA_REL_TOL):
+        raise AssertionError(f"serve_tp dense decode: {report}")
+
+
 def serve_tp_prefill(card, dev, params, cfg, want, atol):
     """yi-6b's 300-token prefill with weights placed over (1, 4): every
     coordinate's heads through the flash kernel (one launch a coordinate
@@ -5945,6 +6178,7 @@ def phase_serve_tp(card, dev, held):
                           b, lengths, seq, False, want, (SEED + 21, SEED + 3))
         if name == "yi_1x8":
             serve_tp_prefill(card, dev, params, cfg, want, SERVE_LOGIT_ATOL)
+            serve_tp_dense_decode(card, dev, params, cfg)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5952,6 +6186,58 @@ def phase_serve_tp(card, dev, held):
 
 TP_LOSS_TOL = TRAIN_LOSS_TOL     # relative (phase train's bounds)
 TP_GRAD_TOL = TRAIN_GRAD_TOL     # of each leaf's largest entry
+# REPRO_SEQ_ACT=model: the residual stream cut along the sequence over
+# 'model' (launch/dryrun._act_rules)
+SEQ_ACT_RULES = dict(SHD.DEFAULT_RULES, seq=("model",))
+RESIDUAL_SUMS = (".wo", ".w_down", ".out_proj", "embed.lookup", ".experts")
+
+
+def seq_collective_reckoning(cfg, b_local: int, s: int, n: int,
+                             remat: str = "full") -> dict:
+    """The all-gather and reduce-scatter bytes over 'model' of one
+    training step (forward, the remat's recompute and backward) of a
+    decoder of attention + MLP blocks (train_tp's gemma2-2b; other forms
+    raise) whose residual stream is cut along the sequence into ``n``
+    slices, from the config: both sublayers of a layer gather their normed
+    input (model dtype, [b_local, s, d]) and reduce-scatter their fp32
+    partial output ([b_local, s / n, d]); the lookup reduce-scatters its
+    fp32 partials and the final norm's output is gathered once. The remat
+    runs a scan unit's forward twice (the tail layers once); the backward
+    transposes each forward collective once: a gather's gradient is a
+    reduce-scatter in the model dtype, a reduce-scatter's a gather in
+    fp32. Bytes are one participant's output, as the log counts them."""
+    if (cfg.ssm_layer_ids or cfg.is_moe or cfg.is_encdec
+            or cfg.shared_attn_every):
+        raise ValueError(f"{cfg.name}: the reckoning takes attention + MLP "
+                         f"decoders")
+    gs, ng, _ = TF.scan_layout(cfg)
+    elem = torch.empty((), dtype=cfg.dtype).element_size()
+    d = cfg.d_model
+    full, part = b_local * s * d, b_local * (s // n) * d
+    ag = rs = 0
+    for i in range(cfg.n_layers):
+        passes = 2 if remat != "none" and i < ng * gs else 1
+        ag += 2 * (passes * full * elem + full * 4)
+        rs += 2 * (passes * part * 4 + part * elem)
+    ag += full * elem + full * 4     # final norm's gather; lookup's grad
+    rs += part * 4 + part * elem     # the lookup; the final gather's grad
+    return {"all-gather": ag, "reduce-scatter": rs}
+
+
+def seq_act_log(log) -> dict:
+    """A step's collectives over 'model' by kind (bytes), and whether any
+    residual-stream sum (an all-reduce of a sublayer's output or of the
+    lookup) is left."""
+    out = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
+    residual = 0
+    for r in log:
+        if r.axes != ("model",) or r.kind not in out:
+            continue
+        out[r.kind] += r.nbytes
+        residual += r.kind == "all-reduce" and any(
+            r.origin.split("/")[0].endswith(o) for o in RESIDUAL_SUMS)
+    out["residual_all_reduces"] = residual
+    return out
 
 
 def _leaf_errs(names, got, want) -> dict:
@@ -6018,16 +6304,54 @@ def phase_train_tp(card, dev, held):
                               SHD.TRAIN_PARAM_RULES, mesh)
     del params   # the whole copy (upd_f is the mesh-free step's)
     per_coord = placed_bytes(placed)
-    (loss_p, _), g_p = grad_fn(placed, batch)
-    g_errs = _leaf_errs(names, (SHD.join_placed(x) for x in
-                                _placed_leaves(g_p)), g_f)
-    embed_p = SHD.join_placed(g_p["embed"])
+    seq = {}   # the placed gradients without the seq rule, then with it
+    for tag, rules in (("none", None), ("seq", SEQ_ACT_RULES)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        with SHD.axis_rules(rules, mesh), CO.recording() as log_g:
+            (loss_g, _), g_p = grad_fn(placed, batch)
+        sync()
+        seq[tag] = {"loss": float(loss_g),
+                    "grad_s": time.perf_counter() - t0,
+                    "peak_rise_gb": (torch.cuda.max_memory_allocated(dev)
+                                     - base) / 1e9,
+                    "model_collectives": seq_act_log(log_g),
+                    "collective_bytes": RF.collective_bytes(log_g)}
+        errs = _leaf_errs(names, (SHD.join_placed(x) for x in
+                                  _placed_leaves(g_p)), g_f)
+        embed_p = SHD.join_placed(g_p["embed"])
+        seq[tag]["errs"] = errs
+        seq[tag]["embed_vs_fp32"] = _leaf_errs(["e"], [embed_p],
+                                               [embed32])["e"]
+        del g_p, embed_p
+    loss_p, g_errs = seq["none"]["loss"], seq["none"]["errs"]
     embed_errs = {
-        "placed_vs_fp32": _leaf_errs(["e"], [embed_p], [embed32])["e"],
+        "placed_vs_fp32": seq["none"]["embed_vs_fp32"],
+        "seq_act_vs_fp32": seq["seq"]["embed_vs_fp32"],
         "mesh_free_vs_fp32": _leaf_errs(
             ["e"], [g_f[names.index("embed")]], [embed32])["e"]}
     embed_bound = max(TP_GRAD_TOL, 2 * embed_errs["mesh_free_vs_fp32"])
-    del g_p, g_f, embed_p, embed32
+    tp_b = b // int(mesh.shape["data"])
+    seq["seq"]["reckoned"] = seq_collective_reckoning(
+        cfg, tp_b, s, int(mesh.shape["model"]))
+    seq_rep = {"loss": seq["seq"]["loss"],
+               "loss_rel_diff": abs(seq["seq"]["loss"] - float(loss_f))
+               / abs(float(loss_f)),
+               "grad_rel_err_max": max(seq["seq"]["errs"].values()),
+               "grad_s": seq["seq"]["grad_s"],
+               "grad_s_without_rule": seq["none"]["grad_s"],
+               "peak_rise_gb": seq["seq"]["peak_rise_gb"],
+               "peak_rise_gb_without_rule": seq["none"]["peak_rise_gb"],
+               "model_collectives": seq["seq"]["model_collectives"],
+               "model_collectives_without_rule":
+                   seq["none"]["model_collectives"],
+               "reckoned": seq["seq"]["reckoned"],
+               "collective_bytes": seq["seq"]["collective_bytes"]}
+    del g_f, embed32
     gc.collect()
     torch.cuda.empty_cache()
     opt_p = adamw_init(placed)
@@ -6044,7 +6368,8 @@ def phase_train_tp(card, dev, held):
     for _ in range(5):   # the mesh-free grads (fp32, bf16), its step and
         # the first coordinate of the two placed ones
         expect_launches(want, cfg, "full", 1)
-    for _ in range(2 * (mesh.size - 1)):   # the placed ones: a coordinate
+    for _ in range(2 * (mesh.size - 1) + mesh.size):   # the placed ones:
+        # a coordinate (and the seq -> model gradients' coordinates)
         expect_launches(want, cfg, "full", 1)
     loss_rel = abs(float(loss_p) - float(loss_f)) / abs(float(loss_f))
     step_rel = abs(float(m_p["loss"]) - float(m_f["loss"])) / abs(
@@ -6068,7 +6393,7 @@ def phase_train_tp(card, dev, held):
               "mesh_free_step_s": free_s, "peak_gb": peak,
               "placed_bytes_per_coordinate": per_coord,
               "collective_bytes_step": RF.collective_bytes(log),
-              "collectives_a_step": len(log)}
+              "collectives_a_step": len(log), "seq_act": seq_rep}
     del placed, opt_p, upd_f
     gc.collect()
     torch.cuda.empty_cache()
@@ -6084,6 +6409,15 @@ def phase_train_tp(card, dev, held):
     if not report["compressed"]["ok"]:
         raise AssertionError(f"train_tp: the compressed step "
                              f"{report['compressed']}")
+    sq, mc = seq["seq"], seq_rep["model_collectives"]
+    over = {k: v for k, v in sq["errs"].items() if v > bounds[k]}
+    moved = (mc["residual_all_reduces"] == 0
+             and seq_rep["model_collectives_without_rule"][
+                 "residual_all_reduces"] > 0
+             and all(mc[k] == sq["reckoned"][k] for k in sq["reckoned"]))
+    if not (seq_rep["loss_rel_diff"] <= TP_LOSS_TOL and not over
+            and moved):
+        raise AssertionError(f"train_tp seq -> model: {seq_rep}, {over}")
 
 
 DRY_SERVE = ("yi-6b", (2, 2), 4, 4096)   # arch, mesh, slots, seq
@@ -6135,6 +6469,64 @@ def _shard_bytes(sh, key) -> int:
     return sh[key].numel() * sh[key].element_size()
 
 
+def _dry_train(cfg, mshape, b, s, dev, want, seq_act):
+    """Phase dryrun's train step: the walk on meta against the same step
+    on the card under one counter, with ``REPRO_SEQ_ACT`` set to
+    ``seq_act`` (None: unset) around both. Returns :func:`_same_walk`'s
+    record with the peaks."""
+    import os
+    from repro_torch.configs import shapes as SHP
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.optim.adamw import adamw_init
+    if seq_act:
+        os.environ["REPRO_SEQ_ACT"] = seq_act
+    try:
+        shape = SHP.ShapeSpec("dryrun_train", s, b, "train")
+        meta = DR._walk_train(cfg, shape, MESH.make_debug_mesh(
+            *mshape, device="meta"), 1)
+        with MESH.force_device_count(int(np.prod(mshape))):
+            mesh = MESH.make_debug_mesh(*mshape)
+        placed = SHD.place_params(
+            TF.init_model(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                          dev), param_axes(cfg), SHD.TRAIN_PARAM_RULES, mesh)
+        tp = SHD.TP.for_batch(mesh, b)
+        data = make_batch(cfg, b, s, seed=SEED)
+        batch = {k: tp.scatter(torch.from_numpy(np.asarray(data[k])).to(
+            dev, v.dtype)) for k, v in SHP.train_specs(cfg, shape).items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        k0 = tp.keys[0]
+        # each leaf's slice and its two fp32 moments, the batch slice, the
+        # step scalars
+        args = (sum(x[k0].numel() * (x[k0].element_size() + 8)
+                    for x in _placed_leaves(placed))
+                + sum(_shard_bytes(v, k0) for v in batch.values())
+                + DR.STEP_SCALARS)
+        opt = adamw_init(placed)
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        card_w = DR.train_walk(cfg, placed, batch, mesh, opt=opt)
+        sync()
+        rise = torch.cuda.max_memory_allocated(dev) - base
+    finally:
+        os.environ.pop("REPRO_SEQ_ACT", None)
+    for _ in range(mesh.size):
+        expect_launches(want, cfg, "full", 1)
+    r = _same_walk("train" + (" seq_act" if seq_act else ""), meta, card_w,
+                   args)
+    r["peak_walk_bytes"] = meta.cost["peak_live_bytes_all"]
+    r["peak_card_bytes"] = int(rise)
+    r["peak_ratio"] = r["peak_walk_bytes"] / max(rise, 1)
+    r["peak_temp_bytes_per_coordinate"] = meta.cost["peak_temp_bytes"]
+    r["step_s"] = card_w.seconds
+    del placed, batch, card_w, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
 def phase_dryrun(card, dev, held):
     """The dry run (``launch/dryrun.py``) against the card. (i) gemma2-2b
     at full width (b 2, s 4,096, remat full, weights and moments placed by
@@ -6147,59 +6539,27 @@ def phase_dryrun(card, dev, held):
     4 slots of 4,096 over (2, 2)), its peak ratio reported. (iii) The
     production cell gemma2-2b train_4k over the 16x16 mesh: its two-point
     probe's record (the whole cell's production walk takes minutes on the
-    host; PERF.md has its record from a CPU run)."""
+    host; PERF.md has its record from a CPU run). (iv) (i) again under
+    ``REPRO_SEQ_ACT=model`` (the residual stream cut along the sequence
+    over 'model'): the same counts equal, the peak ratio within DRY_PEAK,
+    and its peak temporary bytes a coordinate beside (i)'s."""
     from repro_torch.configs import shapes as SHP
-    from repro_torch.data.synthetic import make_batch
     from repro_torch.launch import dryrun as DR
-    from repro_torch.optim.adamw import adamw_init
     want = held["want"] = dict.fromkeys(_build.KERNELS, 0)
     report = {"phase": "dryrun", "card": card}
 
-    # (i) the train step
+    # (i) the train step, and (iv) the same under REPRO_SEQ_ACT=model
     arch, mshape, b, s = TP_TRAIN
     cfg = configs.get_config(arch)
-    shape = SHP.ShapeSpec("dryrun_train", s, b, "train")
-    meta = DR._walk_train(cfg, shape, MESH.make_debug_mesh(
-        *mshape, device="meta"), 1)
-    with MESH.force_device_count(int(np.prod(mshape))):
-        mesh = MESH.make_debug_mesh(*mshape)
-    placed = SHD.place_params(
-        TF.init_model(torch.Generator(device=dev).manual_seed(SEED), cfg,
-                      dev), param_axes(cfg), SHD.TRAIN_PARAM_RULES, mesh)
-    tp = SHD.TP.for_batch(mesh, b)
-    data = make_batch(cfg, b, s, seed=SEED)
-    batch = {k: tp.scatter(torch.from_numpy(np.asarray(data[k])).to(
-        dev, v.dtype)) for k, v in SHP.train_specs(cfg, shape).items()}
-    gc.collect()
-    torch.cuda.empty_cache()
-    k0 = tp.keys[0]
-    # each leaf's slice and its two fp32 moments, the batch slice, the
-    # step scalars
-    args = (sum(x[k0].numel() * (x[k0].element_size() + 8)
-                for x in _placed_leaves(placed))
-            + sum(_shard_bytes(v, k0) for v in batch.values())
-            + DR.STEP_SCALARS)
-    opt = adamw_init(placed)
-    sync()
-    torch.cuda.reset_peak_memory_stats(dev)
-    base = torch.cuda.memory_allocated(dev)
-    card_w = DR.train_walk(cfg, placed, batch, mesh, opt=opt)
-    sync()
-    rise = torch.cuda.max_memory_allocated(dev) - base
-    for _ in range(mesh.size):
-        expect_launches(want, cfg, "full", 1)
-    r = _same_walk("train", meta, card_w, args)
-    r["peak_walk_bytes"] = meta.cost["peak_live_bytes_all"]
-    r["peak_card_bytes"] = int(rise)
-    r["peak_ratio"] = r["peak_walk_bytes"] / max(rise, 1)
-    r["peak_temp_bytes_per_coordinate"] = meta.cost["peak_temp_bytes"]
-    report["train"] = {"arch": arch, "mesh": mesh.shape, "batch": b,
-                       "seq": s, **r}
-    del placed, batch, card_w, opt
-    gc.collect()
-    torch.cuda.empty_cache()
-    if not DRY_PEAK[0] <= r["peak_ratio"] <= DRY_PEAK[1]:
-        raise AssertionError(f"dryrun train: the walk's peak {r}")
+    for key, seq_act in (("train", None), ("train_seq_act", "model")):
+        r = _dry_train(cfg, mshape, b, s, dev, want, seq_act)
+        report[key] = {"arch": arch, "mesh": mshape, "batch": b, "seq": s,
+                       **r}
+        if not DRY_PEAK[0] <= r["peak_ratio"] <= DRY_PEAK[1]:
+            raise AssertionError(f"dryrun {key}: the walk's peak {r}")
+    report["train_seq_act"]["peak_temp_ratio_to_train"] = (
+        report["train_seq_act"]["peak_temp_bytes_per_coordinate"]
+        / report["train"]["peak_temp_bytes_per_coordinate"])
 
     # (ii) the serve round
     arch, mshape, b, s = DRY_SERVE
@@ -6465,9 +6825,8 @@ def main():
         _build.reset_launches()
         drive()
         got = dict(_build.launches)
-        # collect the path's garbage now: a CUDA graph of its daemons or
-        # engines that a later collection resets while another thread
-        # captures breaks that capture
+        # collect the path's garbage now, so that its tensors and graph
+        # pools go back to the card before the next path allocates
         gc.collect()
         emit({"phase": "launches", "path": path, "launches": got,
               "seconds": round(time.perf_counter() - t_path, 1)})

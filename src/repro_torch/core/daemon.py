@@ -2299,6 +2299,7 @@ class SQLCached:
         fused_sch = (SH.shard_schema(schema) if t.lanes is not None
                      else schema)
         returning = (T._fused_plan(fused_sch, where) is not None
+                     # reprolint: disable=REP001(schema.payloads is the host tuple of the payload column declarations, not a Result's device payloads)
                      and bool(schema.payloads))
         key = (mode, sid, "delete", xsch, where, returning)
         off = self._lane_offset(t, mode, sid)

@@ -26,6 +26,10 @@ What this asks of the rest of the port:
 * **Bound values enter from outside the graph.** Executors receive device
   views of the static input buffer, never host values (a value turned into
   a tensor inside the body would be baked into the graph).
+* **No graph dies during a capture.** Every captured graph lives in a
+  :class:`GraphHold`; while any thread captures (:func:`capture_guard`,
+  which every capture of the port enters) a dropped hold's graph, outputs
+  and pool wait for the last capture to end.
 * **Capture never syncs.** It runs on a side stream fenced against the
   serving stream with events both ways, through ``CUDAGraph.capture_begin``
   / ``capture_end`` (the ``torch.cuda.graph`` context manager synchronizes
@@ -66,6 +70,7 @@ mesh fan-out is so one graph launch a block plus the merge's.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Any, Callable
 
@@ -76,8 +81,8 @@ from repro_torch.core import telemetry as TEL
 from repro_torch.kernels import _build
 from repro_torch.lint import lockorder as LK
 
-__all__ = ["ExecEntry", "ExecutorCache", "MeshEntry", "device_lock",
-           "side_stream", "stage_array"]
+__all__ = ["ExecEntry", "ExecutorCache", "GraphHold", "MeshEntry",
+           "capture_guard", "device_lock", "side_stream", "stage_array"]
 
 _ALIGN = 16
 
@@ -116,6 +121,78 @@ def _retire(device: torch.device, objs) -> None:
 
 def _sweep() -> None:
     _GRAVE[:] = [(ev, o) for ev, o in _GRAVE if not ev.query()]
+
+
+# ------------------------------------------------------------ capture guard
+# While any thread of the process captures on a card, no CUDA graph that
+# the port owns may be destroyed: destroying one frees its pool's memory,
+# and a free while a stream captures fails that capture ("operation not
+# permitted when stream is capturing"). A collection that starts on the
+# capturing thread (any allocation in a captured body can start one) or a
+# last reference dropped on another thread would do just that. So every
+# graph lives in a GraphHold, whose finalizer hands what it holds to
+# _DEFERRED while a capture is open; the last capture to end releases them,
+# with the guard's lock held so that no capture begins meanwhile.
+_GUARD = threading.RLock()
+_DEFERRED: list = []
+_capturing = 0
+_deferred_total = 0
+
+
+@contextlib.contextmanager
+def capture_guard():
+    """Mark a capture as open for the scope (process-wide, any thread; the
+    scopes nest and overlap). What :class:`GraphHold` s give up inside it
+    is released when the last open scope ends."""
+    global _capturing
+    with _GUARD:
+        _capturing += 1
+    try:
+        yield
+    finally:
+        with _GUARD:
+            _capturing -= 1
+            if not _capturing:
+                dead = _DEFERRED[:]
+                _DEFERRED.clear()
+                del dead   # destroyed here, no capture open
+
+
+def capturing() -> bool:
+    """Whether a capture is open anywhere in the process."""
+    return _capturing > 0
+
+
+def deferred_count() -> int:
+    """How many released holds wait for the open captures to end."""
+    return len(_DEFERRED)
+
+
+def deferred_total() -> int:
+    """How many holds the process has released late, for a capture that
+    was open when they were dropped."""
+    return _deferred_total
+
+
+class GraphHold:
+    """A captured graph and what must not be freed before it (its static
+    outputs, its pool handle, the kernel scratch it recorded). Dropping
+    the hold destroys them at once, or, while a capture is open
+    (:func:`capture_guard`), after the last open capture ends."""
+
+    __slots__ = ("graph", "refs")
+
+    def __init__(self, graph, *refs):
+        self.graph, self.refs = graph, refs
+
+    def __del__(self):
+        global _deferred_total
+        objs = (self.graph, self.refs)
+        self.graph = self.refs = None
+        with _GUARD:
+            if _capturing:
+                _DEFERRED.append(objs)
+                _deferred_total += 1
 
 
 def _tree_to(tree, device):
@@ -412,7 +489,7 @@ class _Plan:
         outputs in the table's pool. Caller has primed on this stream."""
         for f in flags:
             g = torch.cuda.CUDAGraph()
-            with _build.recording() as rec:
+            with _build.recording() as rec, capture_guard():
                 g.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
                     packed = self._body(state, f)
@@ -423,7 +500,7 @@ class _Plan:
                         pass
                     raise
                 g.capture_end()
-            self.graphs[f] = (g, packed)
+            self.graphs[f] = GraphHold(g, packed, pool, rec["keep"])
             self.kernel_launches[f] = dict(rec["launches"])
             self.keep.extend(rec["keep"])
 
@@ -438,9 +515,10 @@ class _Plan:
         if self.device.type != "cuda":
             packed = self._body(state, flag)
         else:
-            g, packed = self.graphs[flag]
+            hold = self.graphs[flag]
+            packed = hold.refs[0]
             with torch.cuda.device(self.device):
-                g.replay()
+                hold.graph.replay()
             _build.add_launches(self.kernel_launches[flag])
             if not raw and packed is not None:
                 packed = packed.clone()

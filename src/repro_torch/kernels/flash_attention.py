@@ -12,6 +12,12 @@ serves a CPU tensor with the plain version and a CUDA tensor with a
 kernel; there is no other route. Unlike the TPU wrapper, any ``sq`` and
 ``sk`` are taken: the kernels mask the ragged tail of their last tiles.
 
+Head dim 4 (starcoder2-7b's SMOKE config) runs through the kernels at
+head dim 8: :func:`padded` zero-pads q, k, v (and, in the backward, o and
+dO) and slices the output and the gradients back, at the caller's
+``scale`` (``PADDED_HEAD_DIMS``); a padded call reckons and counts as the
+kernel's call at head dim 8.
+
 The kernels read q, k and v and write the output through their batch,
 head and sequence strides, so the ``[b, s, h, hd]``-transposed views that
 ``attention_prefill`` passes need no copy; the output keeps q's strides
@@ -46,7 +52,50 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
+# head dims the wrappers take by zero-padding to a kernel's head dim (q, k,
+# v and dO padded, the output and the gradients sliced back): exact, as
+# the scale is explicit and zero columns add nothing to q.k or to P.V
+PADDED_HEAD_DIMS = {4: 8}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_head_dim(hd: int) -> int:
+    """The head dim the kernels run a call of head dim ``hd`` at."""
+    return PADDED_HEAD_DIMS.get(hd, hd)
+
+
+def takes_head_dim(hd: int) -> bool:
+    """Whether the flash wrappers take head dim ``hd`` on the card."""
+    return kernel_head_dim(hd) in HEAD_DIMS
+
+
+def pad_head_dim(t: torch.Tensor, hd: int) -> torch.Tensor:
+    """``t`` [..., d] zero-padded to [..., hd] (itself where d == hd)."""
+    d = t.shape[-1]
+    return t if d == hd else torch.nn.functional.pad(t, (0, hd - d))
+
+
+def padded(fn, q, k, v, *rest, **kw):
+    """``fn(q, k, v, *rest, **kw)`` at the kernels' head dim: q, k, v (and
+    every tensor of ``rest`` shaped like q: o, dO) zero-padded, and each
+    tensor of the result shaped like a padded q (an output, a gradient)
+    sliced back to q's head dim (an lse passes as it is). Autograd carries
+    the pad and the slice, so a gradient through it is the kernel's at the
+    padded dim, sliced."""
+    hd = q.shape[-1]
+    kd = kernel_head_dim(hd)
+    if kd == hd:
+        return fn(q, k, v, *rest, **kw)
+
+    def fits(t, d):
+        return (isinstance(t, torch.Tensor) and t.dim() == q.dim()
+                and t.shape[-1] == d)
+    rest = [pad_head_dim(t, kd) if fits(t, hd) else t for t in rest]
+    out = fn(pad_head_dim(q, kd), pad_head_dim(k, kd), pad_head_dim(v, kd),
+             *rest, **kw)
+    if isinstance(out, tuple):
+        return tuple(t[..., :hd] if fits(t, kd) else t for t in out)
+    return out[..., :hd]
 
 
 def _check(q, k, v):
@@ -270,9 +319,10 @@ def _forward(q, k, v, *, scale, causal, window, softcap, q_offset,
 def _check_kernel_args(q, k, v):
     _build.require_cuda(q, "flash_attention", meta=True)
     _check(q, k, v)
-    if q.dtype not in DTYPE_CODES or q.shape[3] not in HEAD_DIMS:
+    if q.dtype not in DTYPE_CODES or not takes_head_dim(q.shape[3]):
         raise TypeError(f"flash_attention takes fp32/bf16 and head dims "
-                        f"{HEAD_DIMS}, not {q.dtype} / {q.shape[3]}")
+                        f"{HEAD_DIMS} (and {tuple(PADDED_HEAD_DIMS)}, "
+                        f"zero-padded), not {q.dtype} / {q.shape[3]}")
 
 
 class FlashAttention(torch.autograd.Function):
@@ -310,6 +360,8 @@ def flash_attention_bwd_delta(o, do) -> torch.Tensor:
     if o.dtype not in DTYPE_CODES:
         raise TypeError(f"flash_attention_bwd_delta takes fp32/bf16, not "
                         f"{o.dtype}")
+    kd = kernel_head_dim(o.shape[3])   # zero columns add nothing to D
+    o, do = pad_head_dim(o, kd), pad_head_dim(do, kd)
     b, h, sq, hd = o.shape
     o, do = _kernel_view(o), _kernel_view(do.to(o.dtype))
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=o.device)
@@ -341,6 +393,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float,
         dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
     _check_kernel_args(q, k, v)
+    if kernel_head_dim(q.shape[3]) != q.shape[3]:
+        return padded(flash_attention_bwd, q, k, v, o, lse, do, **kw)
     b, h, sq, hd = q.shape
     kh, sk = k.shape[1], k.shape[2]
     do = _kernel_view(do.to(q.dtype))
@@ -390,7 +444,8 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
                     window: int = 0, softcap: float = 0.0,
                     q_offset: int = 0) -> torch.Tensor:
     """Contract of :func:`flash_attention_ref` (kernels on CUDA tensors:
-    bf16 on tensor cores, fp32 SIMT; head dim in ``HEAD_DIMS``; meta
+    bf16 on tensor cores, fp32 SIMT; head dim in ``HEAD_DIMS``, or in
+    ``PADDED_HEAD_DIMS`` through :func:`padded`; meta
     tensors: the allocations alone), with its gradient through
     :class:`FlashAttention`."""
     if q.device.type == "cpu" and not _build.counting():
@@ -398,5 +453,5 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
                                    window=window, softcap=softcap,
                                    q_offset=q_offset)
     _check_kernel_args(q, k, v)
-    return FlashAttention.apply(q, k, v, scale, causal, window, softcap,
-                                q_offset)
+    return padded(FlashAttention.apply, q, k, v, scale, causal, window,
+                  softcap, q_offset)

@@ -32,8 +32,11 @@ scan groups, as in the reference), :data:`VARIANTS`, :func:`run_cell` and
 card's memory, ``roofline/analysis.CARDS``) in place of the reference's
 ``fits_16g_hbm``, and its roofline terms use the card's figures
 (``--card``, default the H100). ``REPRO_SEQ_ACT=model`` (the reference's
-Megatron-style sequence sharding of the residual stream) raises
-:class:`~repro_torch.models.config.NotPorted`.
+Megatron-style sequence sharding of the residual stream) walks the train
+step under ``"seq": ("model",)`` (``models/transformer.train_loss_tp``):
+the residual stream's ``psum`` s over 'model' become an ``all-gather``
+before each sublayer and a ``reduce-scatter`` after it; prefill and decode
+keep ``DEFAULT_RULES``, as in the reference.
 """
 from __future__ import annotations
 
@@ -54,7 +57,6 @@ from repro_torch import configs
 from repro_torch.configs import shapes as SH
 from repro_torch.launch.mesh import make_production_mesh, walking
 from repro_torch.models import transformer as TF
-from repro_torch.models.config import NotPorted
 from repro_torch.models.params import param_axes
 from repro_torch.optim.adamw import adamw_init
 from repro_torch.parallel import collectives as CO
@@ -198,14 +200,13 @@ def pick_microbatches(cfg, shape: SH.ShapeSpec, mesh, *,
 
 
 def _act_rules():
-    """Activation rules (the reference's variant hook): the port's mesh
-    code keeps the residual stream whole on every coordinate of 'model';
-    ``REPRO_SEQ_ACT=model`` (Megatron-style sequence sharding of it) is
-    not ported."""
+    """Activation rules (the reference's variant hook):
+    ``REPRO_SEQ_ACT=model`` turns on Megatron-style sequence sharding of
+    the residual stream over 'model' (``train_loss_tp`` reads the rule)."""
+    rules = dict(SHD.DEFAULT_RULES)
     if os.environ.get("REPRO_SEQ_ACT") == "model":
-        raise NotPorted("REPRO_SEQ_ACT=model: sequence sharding of the "
-                        "residual stream over 'model'")
-    return dict(SHD.DEFAULT_RULES)
+        rules["seq"] = ("model",)
+    return rules
 
 
 _walks: dict = {}   # (cfg, shape, mesh, microbatches) -> Walked
@@ -215,7 +216,8 @@ def _train_walk(cfg, shape: SH.ShapeSpec, mesh, mb: int) -> Walked:
     """The train step's walk (each (cfg, shape, mesh, mb) walked once a
     process: the microbatch probe and the cost probe share walks)."""
     key = (cfg, shape, tuple(mesh.shape.items()), str(mesh.home), mb,
-           os.environ.get("REPRO_MOE_RAGGED"))
+           os.environ.get("REPRO_MOE_RAGGED"),
+           os.environ.get("REPRO_SEQ_ACT"))
     if key not in _walks:
         _walks[key] = _walk_train(cfg, shape, mesh, mb)
     return _walks[key]
@@ -235,8 +237,9 @@ def train_walk(cfg, placed, batch: dict, mesh, mb: int = 1, *,
     """The walk of one training step (remat full, ``mb`` microbatches,
     AdamW at step 1) of ``placed`` parameters (``TRAIN_PARAM_RULES``) and
     their moments (``opt``, made here when None) on a ``batch`` already
-    scattered over ``mesh`` (``TP.scatter``): on meta tensors in a dry
-    run, on the card's to count the same step for real."""
+    scattered over ``mesh`` (``TP.scatter``), under the activation rules
+    of :func:`_act_rules`: on meta tensors in a dry run, on the card's to
+    count the same step for real."""
     opt = adamw_init(placed) if opt is None else opt
     step = make_train_step(cfg, remat="full", microbatches=mb)
     with SHD.axis_rules(_act_rules(), mesh):
@@ -251,7 +254,6 @@ def lower_train(cfg, shape: SH.ShapeSpec, mesh, unroll: bool = True):
     global batch cut to ``gb``; FLOPs, bytes and collectives scale by
     ``cost_scale``, the optimizer counted once: a small overcount, as in
     the reference). Returns (Walked, extra)."""
-    _act_rules()
     mb = pick_microbatches(cfg, shape, mesh)
     extra = {"microbatches": mb}
     if unroll:

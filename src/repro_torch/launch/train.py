@@ -12,10 +12,10 @@ with ``--seed`` on the target device (the reference draws them from
 The default device is the CUDA card; without one it raises unless
 ``--device cpu`` is given. ``--mesh single|multi`` is parsed and, as in
 the reference's launcher, trains exactly as ``--mesh none`` does (the
-reference never reads it). Not in this port yet, raising
-:class:`~repro_torch.models.config.NotPorted`: on the card an attention
-head dim the flash kernels do not take (starcoder2-7b's SMOKE head dim
-4; see :func:`refuse_on_card`).
+reference never reads it). Every arch's config trains on the card,
+starcoder2-7b's SMOKE config (head dim 4) included: the flash wrappers
+zero-pad its heads to the kernels' head dim 8
+(``kernels/flash_attention.padded``).
 """
 from __future__ import annotations
 
@@ -26,24 +26,10 @@ import torch
 from repro_torch import configs
 from repro_torch.core.daemon import resolve_device
 from repro_torch.data.synthetic import SyntheticDataset
-from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import transformer as TF
-from repro_torch.models.config import NotPorted
 from repro_torch.optim.adamw import adamw_init
 from repro_torch.training.loop import LoopConfig, TrainLoop
 from repro_torch.training.step import make_train_step
-
-
-def refuse_on_card(cfg):
-    """Raise NotPorted where ``cfg`` attends at a head dim the flash
-    kernels do not take (``HEAD_DIMS``): its attention cannot run on the
-    card."""
-    attends = (bool(cfg.attn_layer_ids) or cfg.shared_attn_every > 0
-               or cfg.is_encdec)
-    if attends and cfg.head_dim not in HEAD_DIMS:
-        raise NotPorted(f"training {cfg.name} on the card: attention head "
-                        f"dim {cfg.head_dim} (the flash kernels take "
-                        f"{HEAD_DIMS})")
 
 
 def main(argv=None):
@@ -70,8 +56,6 @@ def main(argv=None):
 
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    if torch.device(args.device).type == "cuda":
-        refuse_on_card(cfg)
     dev = resolve_device(args.device)
     print(f"arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M "
           f"active~{cfg.active_param_count()/1e6:.1f}M", flush=True)

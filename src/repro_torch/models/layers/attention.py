@@ -212,26 +212,39 @@ def attention_decode(params: dict, cfg, x: torch.Tensor,
     length (the new token is written at ``lengths``). The caches are
     updated in place (the reference donates them to its jitted step).
     Returns (out [b, 1, d], cache_k, cache_v)."""
-    b, L, kh, hd = cache_k.shape
     q, k, v = qkv_project(params, cfg, x, lengths[:, None], theta)
-    bidx = torch.arange(b, device=x.device)
+    write_token(cache_k, cache_v, k, v, lengths)
+    o = decode_attend(cfg, q, cache_k, cache_v, lengths, window=window)
+    return out_project(params, o), cache_k, cache_v
+
+
+def write_token(cache_k, cache_v, k, v, lengths) -> None:
+    """The new token's k / v [b, 1, kh, hd] written at position
+    ``lengths`` [b] of the dense caches [b, L, kh, hd], in place."""
+    bidx = torch.arange(cache_k.shape[0], device=cache_k.device)
     cache_k[bidx, lengths] = k[:, 0]
     cache_v[bidx, lengths] = v[:, 0]
 
-    h = cfg.n_heads
-    g = h // kh
-    qg = q.reshape(b, kh, g, hd).float() * _scale(cfg)
+
+def decode_attend(cfg, q, cache_k, cache_v, lengths, *, window: int = 0):
+    """One token's attention in plain PyTorch: q [b, 1, h, hd] against the
+    dense caches [b, L, kh, hd] (the new token already written at
+    ``lengths``; every position up to it visible, within ``window``) ->
+    [b, 1, h, hd] in q's dtype (fp32 math). ``h`` and ``kh`` are the
+    heads given (all of them, or one coordinate's)."""
+    b, L, kh, hd = cache_k.shape
+    h = q.shape[2]
+    qg = q.reshape(b, kh, h // kh, hd).float() * _scale(cfg)
     s = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.float())
     s = _softcap(s, cfg.attn_softcap)
-    k_pos = torch.arange(L, device=x.device)
+    k_pos = torch.arange(L, device=q.device)
     mask = k_pos[None, :] <= lengths[:, None]  # causal: includes the new token
     if window and window > 0:
         mask &= (lengths[:, None] - k_pos[None, :]) < window
     s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, cache_v.float())
-    o = o.reshape(b, 1, h, hd).to(x.dtype)
-    return out_project(params, o), cache_k, cache_v
+    return o.reshape(b, 1, h, hd).to(q.dtype)
 
 
 def attention_decode_paged(params: dict, cfg, x: torch.Tensor,
@@ -394,9 +407,14 @@ def _seqpar_tp(P: dict, cfg, h: Shards, positions: Shards, tp, *,
     heads_cut = _model_cut(P["wo"], -3, origin)
     if heads_cut:
         o = tp.all_to_all(o, "model", 2, 1, origin + ".o")
-    a = wo_tp(P["wo"], Shards({k: t.flatten(-2) for k, t in o.items()}), tp,
-              origin)
-    return a if heads_cut else tp.all_gather(a, "model", 1, origin + ".seq")
+        return wo_tp(P["wo"], Shards({k: t.flatten(-2) for k, t in
+                                      o.items()}), tp, origin)
+    # wo whole: each coordinate projects its own slice, which is the slice
+    # a residual stream cut over 'model' holds (tp.scatter_out)
+    a = wo_tp(P["wo"], Shards({k: t.flatten(-2) for k, t in o.items()}),
+              tp.with_seq(()), origin)
+    return a if tp.scatter_out else tp.all_gather(a, "model", 1,
+                                                  origin + ".seq")
 
 
 def wo_tp(wo, heads: Shards, tp, origin: str) -> Shards:

@@ -222,7 +222,7 @@ def moe_ragged_tp(P: dict, cfg, x: Shards, tp, *, origin: str):
             dim=1).reshape(b, s, d)
         f = fracs[c]
         aux[c] = e * (f[0] * f[1]).sum() / (n_dp * n_dp)
-    out = tp.psum(outs, ex_axes, origin + ".experts")
+    out = tp.sum_out(outs, ex_axes, origin + ".experts")
     return Shards({c: t.to(x[c].dtype) for c, t in out.items()}), aux
 
 
@@ -252,5 +252,5 @@ def moe_tp(P: dict, cfg, x: Shards, tp, *, origin: str):
         # after the psum (collectives.partial_product's rule)
         outs[k] = torch.einsum("end,ne->nd", y.float(), weights[k].reshape(
             b * s, -1)[:, e0:e1].float()).reshape(b, s, d)
-    out = tp.psum(outs, ex_axes, origin + ".experts")
+    out = tp.sum_out(outs, ex_axes, origin + ".experts")
     return Shards({k: t.to(x[k].dtype) for k, t in out.items()}), aux

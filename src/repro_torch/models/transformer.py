@@ -702,7 +702,12 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     tokens: [b] int; lengths: [b] tokens already in cache; ``enc_valid``
     [b]: valid encoder positions of each sequence (None: all of
     ``enc_k``). Returns (logits [b, V], cache); the cache's tensors are
-    written in place."""
+    written in place. Over placed parameters (``SERVE_PARAM_RULES``) the
+    cache is the placed one of :func:`place_cache` and the step runs at
+    every coordinate (:func:`decode_step_tp`)."""
+    if SHD.is_placed(params):
+        return decode_step_tp(params, cfg, tokens, cache, lengths,
+                              enc_valid=enc_valid)
     check_supported(cfg)
     x = embed_tokens(params, cfg, tokens[:, None])
     lengths = lengths.long()
@@ -755,14 +760,18 @@ def _post_norm_tp(P: dict, cfg: ModelConfig, name: str, y: Shards, tp):
 
 def mlp_sublayer_tp(P: dict, cfg: ModelConfig, x: Shards, tp, origin: str):
     """:func:`mlp_sublayer` over placed weights: (x, aux Shards or
-    None)."""
-    h = norm_tp(P["norm2"], cfg, x, tp)
+    None). With ``tp.seq_axes`` ``x`` is each coordinate's sequence slice:
+    the normed slices are gathered, and the FFN's output is
+    reduce-scattered back (``tp.out_scattered``)."""
+    h = tp.gather_seq(norm_tp(P["norm2"], cfg, x, tp),
+                      origin + ".mlp.seq_in")
+    to = tp.out_scattered()
     if cfg.is_moe:
         fwd = (moe_ragged_tp if os.environ.get("REPRO_MOE_RAGGED") == "1"
                else moe_tp)
-        m, aux = fwd(P["mlp"], cfg, h, tp, origin=origin + ".mlp")
+        m, aux = fwd(P["mlp"], cfg, h, to, origin=origin + ".mlp")
     else:
-        m, aux = mlp_tp(P["mlp"], cfg, h, tp, origin=origin + ".mlp"), None
+        m, aux = mlp_tp(P["mlp"], cfg, h, to, origin=origin + ".mlp"), None
     return _add(x, _post_norm_tp(P, cfg, "norm2_post", m, tp)), aux
 
 
@@ -772,16 +781,21 @@ def attn_block_tp(P: dict, cfg: ModelConfig, x: Shards, positions: Shards,
                   origin: str):
     """:func:`attn_block_fwd` over one layer's placed weights (gathered
     over the batch axes first where FSDP cut them). Returns (x, aux, kv
-    Shards or None)."""
+    Shards or None). With ``tp.seq_axes`` ``x`` is each coordinate's
+    sequence slice and ``positions`` the whole sequence's (each sublayer's
+    normed input gathered, its output reduce-scattered)."""
     P = tp.use_tree(P, origin)
-    h = norm_tp(P["norm1"], cfg, x, tp)
-    a, kv = attention_tp(P["attn"], cfg, h, positions, tp, theta=theta,
-                         window=window, causal=causal, collect_kv=collect_kv,
-                         origin=origin + ".attn")
+    h = tp.gather_seq(norm_tp(P["norm1"], cfg, x, tp),
+                      origin + ".attn.seq_in")
+    a, kv = attention_tp(P["attn"], cfg, h, positions, tp.out_scattered(),
+                         theta=theta, window=window, causal=causal,
+                         collect_kv=collect_kv, origin=origin + ".attn")
     x = _add(x, _post_norm_tp(P, cfg, "norm1_post", a, tp))
     if enc_kv is not None:
-        h = norm_tp(P["norm_x"], cfg, x, tp)
-        x = _add(x, cross_attention_tp(P["cross"], cfg, h, enc_kv, tp,
+        h = tp.gather_seq(norm_tp(P["norm_x"], cfg, x, tp),
+                          origin + ".cross.seq_in")
+        x = _add(x, cross_attention_tp(P["cross"], cfg, h, enc_kv,
+                                       tp.out_scattered(),
                                        origin=origin + ".cross",
                                        enc_valid=enc_valid))
     x, aux = mlp_sublayer_tp(P, cfg, x, tp, origin)
@@ -793,9 +807,11 @@ def mamba_block_tp(P: dict, cfg: ModelConfig, kind: str, x: Shards, tp, *,
     """:func:`mamba_block_fwd` over placed weights from zero states:
     (x, Shards of the final states)."""
     P = tp.use_tree(P, origin)
-    h = norm_tp(P["norm1"], cfg, x, tp)
+    h = tp.gather_seq(norm_tp(P["norm1"], cfg, x, tp),
+                      origin + ".mamba.seq_in")
     fwd = ssm.mamba1_forward_tp if kind == MAMBA1 else ssm.mamba2_forward_tp
-    y, st = fwd(P["mamba"], cfg, h, tp, origin=origin + ".mamba")
+    y, st = fwd(P["mamba"], cfg, h, tp.out_scattered(),
+                origin=origin + ".mamba")
     return _add(x, y), st
 
 
@@ -911,14 +927,18 @@ def embed_tokens_tp(params: dict, cfg: ModelConfig, tokens: Shards, tp,
     """The token lookup over a placed table: where 'model' cuts the
     vocabulary, the reference's manual lookup (each coordinate's rows of
     its own ids, clamped and masked, cast to fp32 after the take, an fp32
-    ``psum``), else a plain lookup of the whole copy. As in the
+    ``psum``; with ``tp.seq_axes`` a ``reduce-scatter`` along the sequence,
+    each coordinate keeping its slice), else a plain lookup of the whole
+    copy (sliced in place under ``tp.seq_axes``). As in the
     reference, the rows are taken from the table in its own dtype, so the
     lookup's gradient (a scatter-add of one row a token) sums in that
     dtype at each coordinate, over the coordinate's batch slice."""
     emb = tp.use(params["embed"], origin)
     vax = emb.axes_of(0)
+    to = tp.out_scattered()   # with tp.seq_axes: each coordinate's slice
     if not vax:
-        x = tp.map(lambda e, t: e[t.long()], emb, tokens)
+        x = to.sum_out(tp.map(lambda e, t: e[t.long()], emb, tokens), (),
+                       origin + ".lookup")
     else:
         parts = Shards()
         for k in tp.keys:
@@ -928,7 +948,7 @@ def embed_tokens_tp(params: dict, cfg: ModelConfig, tokens: Shards, tp,
             parts[k] = torch.where(((t >= lo) & (t < hi))[..., None], out,
                                    0.0)
         x = tp.map(lambda t: t.to(emb.dtype),
-                   tp.psum(parts, vax, origin + ".lookup"))
+                   to.sum_out(parts, vax, origin + ".lookup"))
     if cfg.scale_embeddings:
         x = tp.map(lambda t: t * torch.full((), cfg.d_model ** 0.5,
                                             dtype=t.dtype, device=t.device),
@@ -937,11 +957,15 @@ def embed_tokens_tp(params: dict, cfg: ModelConfig, tokens: Shards, tp,
 
 
 def _assemble_tp(params: dict, cfg: ModelConfig, batch: dict, tp) -> Shards:
-    x = embed_tokens_tp(params, cfg, batch["tokens"], tp)
+    """The inputs' hidden states (each coordinate's sequence slice under
+    ``tp.seq_axes``: the frontend's embeddings come first, so there the
+    whole sequence is assembled and then sliced)."""
     if cfg.frontend != "none" and "frontend" in batch:
+        x = embed_tokens_tp(params, cfg, batch["tokens"], tp.with_seq(()))
         x = tp.map(lambda f, t: torch.cat([f.to(t.dtype), t], dim=1),
                    batch["frontend"], x)
-    return x
+        return tp.seq_slice(x)
+    return embed_tokens_tp(params, cfg, batch["tokens"], tp)
 
 
 def _heads_tp(params: dict, tp):
@@ -1037,11 +1061,16 @@ def _encoder_tp(params: dict, cfg: ModelConfig, frames: Shards, tp):
     enc = params["encoder"]
     pos = tp.map(lambda f: torch.arange(f.shape[1], device=f.device)[
         None].expand(f.shape[0], f.shape[1]), frames)
+    if frames[tp.keys[0]].shape[1] % tp.seq_parts():
+        tp = tp.with_seq(())
     x, _, _ = run_stack_tp({"layers": enc["layers"]}, _encoder_cfg(cfg),
-                           tp.map(lambda f: f.to(cfg.dtype), frames), pos,
+                           tp.seq_slice(tp.map(lambda f: f.to(cfg.dtype),
+                                               frames)), pos,
                            tp, causal=False, prefix="encoder.")
     x = norm_tp(tp.use_tree(enc["final_norm"], "encoder.final_norm"), cfg, x,
                 tp)
+    x = tp.gather_seq(x, "encoder.final_norm.seq")
+    tp = tp.with_seq(())
     return [cross_kv_tp(tp.use_tree(layer_params_tp(params, cfg, i)["cross"],
                                     layer_name(cfg, i) + ".cross"), x, tp)
             for i in range(cfg.n_layers)]
@@ -1052,17 +1081,41 @@ def _batch_tp(batch: dict, tp) -> dict:
 
 
 def _positions(x: Shards, tp) -> Shards:
-    return tp.map(lambda t: torch.arange(t.shape[1], device=t.device)[
-        None].expand(t.shape[0], t.shape[1]), x)
+    """The whole sequence's positions (``x`` may hold slices of it:
+    ``tp.seq_axes``)."""
+    n = tp.seq_parts()
+    return tp.map(lambda t: torch.arange(t.shape[1] * n, device=t.device)[
+        None].expand(t.shape[0], t.shape[1] * n), x)
 
 
 def train_loss_tp(params: dict, cfg: ModelConfig, batch: dict, *,
                   remat: str = "none", tp=None):
     """:func:`train_loss` over placed weights (``batch`` on the mesh's home
-    entry, cut over the batch axes where it divides them)."""
+    entry, cut over the batch axes where it divides them).
+
+    It reads the activation rules in force (``parallel.sharding.
+    axis_rules``), as the reference's ``shard_act`` does: where they map
+    ``"seq"`` to 'model' (``REPRO_SEQ_ACT=model``), the residual stream is
+    cut along the sequence over 'model' between sublayers (Megatron-style
+    sequence parallelism, ``TP.seq_axes``): norms run on each coordinate's
+    slice, an ``all-gather`` over 'model' joins the normed slices before the
+    column-parallel projections, and a ``reduce-scatter`` along the
+    sequence replaces the ``psum`` after the row-parallel ones and after
+    the embedding lookup. The loss gathers the sequence (an ``all-gather``
+    of the final norm's output) and runs the vocabulary-parallel cross
+    entropy as without the rule. A sequence that does not split evenly
+    keeps the stream whole."""
     if tp is None:
         tp = SHD.TP.for_batch(SHD.placed_mesh(params),
                               batch["tokens"].shape[0])
+    seq = SHD.seq_axes_in_force(tp.mesh)
+    if seq:
+        s = batch["tokens"].shape[1] + (
+            batch["frontend"].shape[1] if cfg.frontend != "none"
+            and "frontend" in batch else 0)
+        tp = tp.with_seq(seq)
+        if s % tp.seq_parts():
+            tp = tp.with_seq(())
     bt = _batch_tp(batch, tp)
     x = _assemble_tp(params, cfg, bt, tp)
     enc_kv = (_encoder_tp(params, cfg, bt["enc_frames"], tp)
@@ -1070,6 +1123,7 @@ def train_loss_tp(params: dict, cfg: ModelConfig, batch: dict, *,
     x, aux, _ = run_stack_tp(params, cfg, x, _positions(x, tp), tp,
                              enc_kv=enc_kv, remat=remat)
     x = norm_tp(tp.use_tree(params["final_norm"], "final_norm"), cfg, x, tp)
+    x = tp.gather_seq(x, "final_norm.seq")
     ce = lm_loss_tp(params, cfg, x, bt["labels"], bt["loss_mask"], tp)
     loss = ce
     aux0 = 0.0 if aux is None else aux[tp.keys[0]]
@@ -1127,3 +1181,172 @@ def mamba_block_decode_tp(P: dict, cfg: ModelConfig, kind: str, x1: Shards,
     step = ssm.mamba1_decode_tp if kind == MAMBA1 else ssm.mamba2_decode_tp
     return _add(x1, step(P["mamba"], cfg, h, state, tp,
                          origin=origin + ".mamba"))
+
+
+# ============================================ dense decode over a mesh (TP)
+def _ssm_state_spec(shape: tuple, batch_axes: tuple, mesh) -> tuple:
+    """A stacked SSM state [n, b, ...] placed as the serving engine places
+    its own (``serving/engine._ssm_spec``): the slots over the batch axes,
+    'model' on Mamba2's heads or on Mamba1's (and the conv tails') larger
+    trailing dimension where it divides."""
+    nm = int(mesh.shape.get("model", 1))
+    parts = [None, SHD.spec_entry(batch_axes)] + [None] * (len(shape) - 2)
+    if len(shape) == 5:   # Mamba2 h [n, b, nh, dh, st]
+        if shape[2] % nm == 0:
+            parts[2] = "model"
+    else:   # Mamba1 h [n, b, di, st] / conv tails [n, b, cw - 1, di]
+        big = -1 if shape[-1] >= shape[-2] else -2
+        if shape[big] % nm == 0:
+            parts[big] = "model"
+    return tuple(parts)
+
+
+def cache_specs(cfg: ModelConfig, cache: dict, params: dict) -> dict:
+    """The dense cache's placement over the mesh of placed ``params``, by
+    ``SERVE_PARAM_RULES``' layout: the slots over the batch axes
+    (``TP.for_batch``'s rule), the kv heads of ``k`` / ``v`` /
+    ``shared_k`` / ``shared_v`` / ``enc_k`` / ``enc_v`` [L, b, len, kh, hd]
+    cut as the weights' ``wk`` cuts them (over 'model' where it divides),
+    the SSM states as the serving engine's."""
+    mesh = SHD.placed_mesh(params)
+    some = next(v for v in cache.values() if not isinstance(v, dict))
+    ssm_b = (next(iter(cache["ssm"].values())).shape[1]
+             if "ssm" in cache else None)
+    b = ssm_b if ssm_b is not None else some.shape[1]
+    bax = SHD.TP.for_batch(mesh, b).batch_axes
+    wk = _kv_weight(params, cfg)
+    heads = () if wk is None else wk.axes_of(-2)
+    out = {}
+    for name, t in cache.items():
+        if name == "ssm":
+            out[name] = {n: _ssm_state_spec(tuple(a.shape), bax, mesh)
+                         for n, a in t.items()}
+        else:
+            out[name] = (None, SHD.spec_entry(bax), None,
+                         SHD.spec_entry(heads), None)
+    return out
+
+
+def _kv_weight(params: dict, cfg: ModelConfig):
+    """A placed ``wk`` of the model (its kv heads' placement), or None for
+    an attention-free stack."""
+    for i in range(cfg.n_layers):
+        if cfg.layer_pattern[i] not in SSM_KINDS:
+            return layer_params_tp(params, cfg, i)["attn"]["wk"]
+    if "shared" in params:
+        return params["shared"]["attn"]["wk"]
+    return None
+
+
+def place_cache(cfg: ModelConfig, cache: dict, params: dict) -> dict:
+    """A dense cache (:func:`init_cache`, whole tensors) placed over the
+    mesh of placed ``params`` by :func:`cache_specs`: each leaf a
+    ``Placed`` of each coordinate's slots and heads (a copy of its own)."""
+    specs = cache_specs(cfg, cache, params)
+    mesh = SHD.placed_mesh(params)
+    return {name: ({n: SHD.split_by_spec(a, specs[name][n], mesh)
+                    for n, a in t.items()} if name == "ssm"
+                   else SHD.split_by_spec(t, specs[name], mesh))
+            for name, t in cache.items()}
+
+
+def join_cache(cache: dict, device=None) -> dict:
+    """The inverse of :func:`place_cache`: every leaf whole on ``device``
+    (None: the mesh's home entry)."""
+    return {name: ({n: SHD.join_placed(a, device) for n, a in t.items()}
+                   if name == "ssm" else SHD.join_placed(t, device))
+            for name, t in cache.items()}
+
+
+def attn_block_decode_tp(P: dict, cfg: ModelConfig, x1: Shards, cache_k,
+                         cache_v, lengths: Shards, tp, *, window: int,
+                         theta: float, cross=None, enc_valid=None,
+                         origin: str) -> Shards:
+    """:func:`attn_block_decode` over one layer's placed weights and its
+    placed dense caches (``Placed`` [b, L, kh, hd], written in place):
+    each coordinate projects its q / k / v heads, writes its k / v into
+    the caches' heads it holds and attends its q heads to them
+    (:func:`~repro_torch.models.layers.attention.decode_attend`, plain),
+    then ``wo``'s rows are summed (``psum``), as the paged ``_tp_step``
+    does around its island. ``cross``: the layer's placed (enc_k,
+    enc_v)."""
+    from repro_torch.models.layers.attention import (decode_attend, kv_slice,
+                                                     qkv_project, wo_tp,
+                                                     write_token)
+    h = norm_tp(P["norm1"], cfg, x1, tp)
+    at = P["attn"]
+    heads = Shards()
+    for k in tp.keys:
+        if at["wk"].range_of(-2, k) != cache_k.range_of(-2, k):
+            raise ValueError(f"{origin}: the cache's kv heads "
+                             f"{cache_k.range_of(-2, k)} at {k} are not "
+                             f"wk's {at['wk'].range_of(-2, k)}: place it "
+                             f"with place_cache")
+        q, kk, vv = qkv_project(SHD.local_tree(at, k), cfg, h[k],
+                                lengths[k][:, None], theta)
+        write_token(cache_k[k], cache_v[k], kk, vv, lengths[k])
+        sl = kv_slice(cfg, at["wq"].range_of(-2, k), cache_k.range_of(-2, k))
+        heads[k] = decode_attend(cfg, q, cache_k[k][:, :, sl],
+                                 cache_v[k][:, :, sl], lengths[k],
+                                 window=window).flatten(-2)
+    a = wo_tp(at["wo"], heads, tp, origin + ".attn")
+    x1 = _add(x1, _post_norm_tp(P, cfg, "norm1_post", a, tp))
+    if cross is not None:
+        x1 = cross_sublayer_tp(P, cfg, x1, *cross, enc_valid, tp,
+                               origin=origin)
+    return mlp_sublayer_tp(P, cfg, x1, tp, origin)[0]
+
+
+def decode_step_tp(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                   cache: dict, lengths: torch.Tensor, *, enc_valid=None,
+                   tp=None):
+    """:func:`decode_step` over placed weights (``SERVE_PARAM_RULES``) and
+    a placed dense cache (:func:`place_cache`, updated in place): tokens,
+    lengths and ``enc_valid`` [b] on the mesh's home entry, cut over the
+    batch axes where they divide them; every coordinate runs its heads,
+    columns and SSM shards with the collectives of the paged
+    ``serving/engine._tp_step`` (``psum`` of the rows, the vocabulary-
+    sharded lookup and logits). Like the mesh-free step it reaches no
+    kernel. Returns (logits [b, V] fp32 on the home entry, cache)."""
+    check_supported(cfg)
+    for t in cache.values():
+        for leaf in (t.values() if isinstance(t, dict)
+                     and not isinstance(t, Shards) else (t,)):
+            if not isinstance(leaf, SHD.Placed):
+                raise TypeError("decode over placed weights takes a cache "
+                                "placed by transformer.place_cache")
+    if tp is None:
+        tp = SHD.TP.for_batch(SHD.placed_mesh(params), tokens.shape[0])
+    toks = tp.scatter(tokens)
+    lens = tp.map(lambda t: t.long(), tp.scatter(lengths))
+    ev = None if enc_valid is None else tp.scatter(enc_valid)
+    x = embed_tokens_tp(params, cfg, tp.map(lambda t: t[:, None], toks), tp)
+    ai = si = 0
+    for i in range(cfg.n_layers):
+        name = layer_name(cfg, i)
+        P = tp.use_tree(layer_params_tp(params, cfg, i), name)
+        kind = cfg.layer_pattern[i]
+        if kind in SSM_KINDS:
+            x = mamba_block_decode_tp(
+                P, cfg, kind, x, {n: t.layer(si) for n, t in
+                                  cache["ssm"].items()}, tp, origin=name)
+            si += 1
+        else:
+            window, theta = layer_attrs(cfg, i)
+            cross = ((cache["enc_k"].layer(i), cache["enc_v"].layer(i))
+                     if "enc_k" in cache else None)
+            x = attn_block_decode_tp(P, cfg, x, cache["k"].layer(ai),
+                                     cache["v"].layer(ai), lens, tp,
+                                     window=window, theta=theta, cross=cross,
+                                     enc_valid=ev, origin=name)
+            ai += 1
+        g = shared_app(cfg, i)
+        if g >= 0:
+            x = attn_block_decode_tp(
+                tp.use_tree(params["shared"], f"shared.{g}"), cfg, x,
+                cache["shared_k"].layer(g), cache["shared_v"].layer(g), lens,
+                tp, window=0, theta=global_theta(cfg), origin=f"shared.{g}")
+    x = norm_tp(tp.use_tree(params["final_norm"], "final_norm"), cfg, x, tp)
+    logits = tp.join_batch(logits_tp(params, cfg, tp.map(
+        lambda t: t[:, 0], x), tp))
+    return logits, cache

@@ -32,6 +32,7 @@ branch.
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 import threading
 from typing import Mapping, Sequence
@@ -40,7 +41,8 @@ import torch
 
 from repro_torch.parallel.collectives import (Shards, _inside, _own,
                                               all_gather, all_to_all,
-                                              partial_product, psum)
+                                              mesh_axes, partial_product,
+                                              psum, reduce_scatter)
 
 # mesh axis groups
 _DP = ("pod", "data")  # batch-parallel axes (outer pod, inner data/fsdp)
@@ -104,6 +106,21 @@ def axis_rules(rules: Mapping[str, Sequence[str]] | None, mesh=None):
     finally:
         _local.rules = prev
         _local.mesh = prev_mesh
+
+
+def seq_axes_in_force(mesh) -> tuple[str, ...]:
+    """The mesh axes of more than one entry that the rules in force
+    (:func:`axis_rules`) cut the residual stream's sequence over: the
+    reference's ``"seq"`` rule, ``("model",)`` under ``REPRO_SEQ_ACT=model``
+    (``launch/dryrun._act_rules``), else none. The port cuts it over
+    'model' alone."""
+    rules = current_rules() or {}
+    axes = mesh_axes(mesh, tuple(rules.get("seq", ())))
+    if axes and axes != ("model",):
+        from repro_torch.models.config import NotPorted
+        raise NotPorted(f"the residual stream's sequence cut over {axes}: "
+                        f"the port cuts it over ('model',) alone")
+    return axes
 
 
 def _mesh_axes(mesh) -> tuple[str, ...]:
@@ -399,13 +416,89 @@ class TP:
     """A mesh as the model code walks it: the coordinates in row-major
     order, the batch axes (the batch dimension of every activation is cut
     over them; the other axes hold copies) and the collectives bound to
-    the mesh. ``batch_axes`` are mesh axes of more than one entry."""
+    the mesh. ``batch_axes`` are mesh axes of more than one entry.
 
-    def __init__(self, mesh, batch_axes=()):
+    ``seq_axes`` (Megatron-style sequence sharding, the reference's
+    ``"seq": ("model",)`` rule): the residual stream between sublayers is
+    cut along the sequence over them, each coordinate holding its slice
+    (:meth:`seq_slice`); a sublayer's normed input is gathered whole
+    (:meth:`gather_seq`) before its column-parallel projections, and its
+    row-parallel output is reduce-scattered back to slices: the model code
+    passes :meth:`out_scattered`'s view of the TP to the sublayer, whose
+    :meth:`rows` / :meth:`sum_out` then reduce-scatter where they would
+    ``psum``."""
+
+    def __init__(self, mesh, batch_axes=(), seq_axes=()):
         self.mesh = mesh
         self.keys = _KeyLoop(coord_keys(mesh))
         self.batch_axes = tuple(a for a in batch_axes
                                 if int(mesh.shape[a]) > 1)
+        self.seq_axes = tuple(a for a in seq_axes if int(mesh.shape[a]) > 1)
+        self.scatter_out = False
+
+    def with_seq(self, seq_axes) -> "TP":
+        """This TP with the residual stream cut along the sequence over
+        ``seq_axes`` (none: whole)."""
+        t = copy.copy(self)
+        t.seq_axes = tuple(a for a in seq_axes
+                           if int(self.mesh.shape[a]) > 1)
+        t.scatter_out = False
+        return t
+
+    def out_scattered(self) -> "TP":
+        """The view a sublayer's output projection runs under: with
+        ``seq_axes``, its partial sums are reduce-scattered along the
+        sequence (:meth:`sum_out`); without, this TP itself."""
+        if not self.seq_axes:
+            return self
+        t = copy.copy(self)
+        t.scatter_out = True
+        return t
+
+    def seq_parts(self) -> int:
+        """How many slices the sequence is cut into (1: whole)."""
+        return math.prod(int(self.mesh.shape[a]) for a in self.seq_axes)
+
+    def seq_range(self, key, s: int) -> tuple[int, int]:
+        """[start, stop) of coordinate ``key``'s slice of a sequence of
+        ``s`` (row-major over ``seq_axes``, the order of the collectives'
+        groups)."""
+        names = self.mesh.axis_names
+        i, n = 0, 1
+        for a in self.seq_axes:
+            size = int(self.mesh.shape[a])
+            i, n = i * size + key[names.index(a)], n * size
+        return i * (s // n), (i + 1) * (s // n)
+
+    def seq_slice(self, sh: Shards, dim: int = 1) -> Shards:
+        """Each coordinate's own slice of whole sequences (no
+        collective)."""
+        if not self.seq_axes:
+            return sh
+        out = Shards()
+        for k in self.keys:
+            s0, s1 = self.seq_range(k, sh[k].shape[dim])
+            out[k] = sh[k].narrow(dim, s0, s1 - s0)
+        return out
+
+    def gather_seq(self, sh: Shards, origin: str, dim: int = 1) -> Shards:
+        """The slices joined whole at every coordinate (an ``all-gather``
+        over ``seq_axes``; the tensors themselves without them)."""
+        if not self.seq_axes:
+            return sh
+        return all_gather(sh, self.mesh, self.seq_axes, dim, origin)
+
+    def sum_out(self, parts: Shards, axes, origin: str) -> Shards:
+        """A sublayer's output: the sum of its partials over ``axes`` (a
+        ``psum``), or under :meth:`out_scattered` each coordinate's slice
+        of it along the sequence: a ``reduce-scatter`` where ``axes`` are
+        the sequence axes, else the ``psum`` (a no-op without axes)
+        sliced in place."""
+        if not self.scatter_out:
+            return psum(parts, self.mesh, axes, origin)
+        if mesh_axes(self.mesh, axes) == self.seq_axes:
+            return reduce_scatter(parts, self.mesh, self.seq_axes, 1, origin)
+        return self.seq_slice(psum(parts, self.mesh, axes, origin))
 
     @classmethod
     def for_batch(cls, mesh, batch: int):
@@ -469,10 +562,11 @@ class TP:
     def rows(self, a: Shards, w, axes, origin: str, dtype) -> Shards:
         """A product whose weight ``w`` (Shards of each coordinate's rows)
         is cut over ``axes``: each coordinate's ``partial_product``, the
-        ``psum`` of the partials, rounded once to ``dtype``."""
+        ``psum`` of the partials (:meth:`sum_out`), rounded once to
+        ``dtype``."""
         parts = Shards({k: partial_product(a[k], w[k]) for k in self.keys})
         return Shards({k: t.to(dtype) for k, t in
-                       psum(parts, self.mesh, axes, origin).items()})
+                       self.sum_out(parts, axes, origin).items()})
 
     def all_gather(self, sh, axes, dim, origin):
         return all_gather(sh, self.mesh, axes, dim, origin)

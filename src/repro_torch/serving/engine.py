@@ -522,7 +522,10 @@ class ServeGraph:
     lock held, as its statement graphs are: first a prime round against a
     zeroed copy of the state loads the kernels and sizes their scratch on
     that stream, then the capture records the round against the real
-    state. Replays take the same lock. A failed capture raises; nothing
+    state, inside ``execache.capture_guard`` (the graph, its outputs and
+    pool live in an ``execache.GraphHold``, so no graph is destroyed while
+    any thread captures). Replays take the same lock. A failed capture
+    raises; nothing
     runs the round eagerly on the card. The round's outputs live in the
     graph's pool and the next replay overwrites them."""
 
@@ -551,12 +554,20 @@ class ServeGraph:
             self.inputs["enc_valid"] = torch.full(
                 specs["enc_valid"][0], cfg.frontend_len, dtype=torch.int32,
                 device=self.device)
-        self.graph = None
+        self._hold = None   # EC.GraphHold: the graph, its outputs, pool
         self.pool = None
-        self.out = None
         self.launches: dict = {}
-        self.keep: list = []
         self.capture_ms = None
+
+    @property
+    def graph(self):
+        """The captured round (None before the capture)."""
+        return None if self._hold is None else self._hold.graph
+
+    @property
+    def out(self):
+        """The round's static outputs in the graph's pool."""
+        return None if self._hold is None else self._hold.refs[0]
 
     def _body(self, state: dict):
         inputs = dict(self.inputs)
@@ -582,7 +593,7 @@ class ServeGraph:
             try:
                 with torch.cuda.stream(side):
                     self._body(_tree_map(torch.zeros_like, self.state))
-                    with _build.recording() as rec:
+                    with _build.recording() as rec, EC.capture_guard():
                         graph.capture_begin(pool=pool,
                                             capture_error_mode="thread_local")
                         try:
@@ -596,9 +607,9 @@ class ServeGraph:
                         graph.capture_end()
             finally:
                 serving.wait_stream(side)
-            self.graph, self.pool, self.out = graph, pool, out
+            self._hold = EC.GraphHold(graph, out, pool, rec["keep"])
+            self.pool = pool
             self.launches = dict(rec["launches"])
-            self.keep = rec["keep"]
             self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     def __call__(self, host_vec: np.ndarray):

@@ -11,7 +11,10 @@ started with eight devices before ``repro.launch.dryrun`` is imported
 SMOKE configs and its shapes at :data:`SHAPES`. Nothing in the reference
 is edited. One child runs an arch's cells (the three start together);
 each cell's ``run_cell`` record (the production graph, rolled: one
-compile a cell) goes to the parent as JSON.
+compile a cell) goes to the parent as JSON. ``python
+tests/_torch_dryrun.py OUT.json ARCH seq_act`` (for
+tests/test_torch_seq_act.py) runs the arch's ``train_4k`` cell alone under
+``REPRO_SEQ_ACT=model``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ SHAPES = {"train_4k": (64, 8), "prefill_32k": (64, 8),
 MESH = (2, 4)
 
 
-def _reference(out_path: str, arch: str) -> None:
+def _reference(out_path: str, arch: str, variant: str = "") -> None:
     import pathlib
     import tempfile
 
@@ -43,6 +46,15 @@ def _reference(out_path: str, arch: str) -> None:
     for name, (s, b) in SHAPES.items():
         JSH.SHAPES[name] = JSH.ShapeSpec(name, s, b, JSH.SHAPES[name].kind)
     out = {}
+    if variant == "seq_act":
+        os.environ["REPRO_SEQ_ACT"] = "model"
+        with tempfile.TemporaryDirectory() as tmp:
+            rec = JDR.run_cell(arch, "train_4k", multi_pod=False,
+                               out_dir=pathlib.Path(tmp), unroll=False)
+        rec.pop("traceback", None)
+        with open(out_path, "w") as f:
+            json.dump({f"{arch}/train_4k": rec}, f, default=str)
+        return
     with tempfile.TemporaryDirectory() as tmp:
         for kind in KINDS:
             rec = JDR.run_cell(arch, kind, multi_pod=False,
@@ -67,10 +79,11 @@ def _reference(out_path: str, arch: str) -> None:
         json.dump(out, f, default=str)
 
 
-def start_reference(out_path: str) -> list:
+def start_reference(out_path: str, archs=ARCHS, variant: str = "") -> list:
     """Start one child an arch (eight forced host devices, CPU), all at
     once; the parent works on while they run (:func:`load_reference`
-    waits for them)."""
+    waits for them). ``variant``: ``seq_act`` (``train_4k`` alone under
+    ``REPRO_SEQ_ACT=model``)."""
     import subprocess
     here = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(os.path.dirname(here), "src")
@@ -78,11 +91,13 @@ def start_reference(out_path: str) -> list:
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.pathsep.join(
                    [src, here, os.environ.get("PYTHONPATH", "")]))
+    env.pop("REPRO_SEQ_ACT", None)
     return [(subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               f"{out_path}.{i}", arch], env=env,
+                               f"{out_path}.{i}", arch]
+                              + ([variant] if variant else []), env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True), f"{out_path}.{i}")
-            for i, arch in enumerate(ARCHS)]
+            for i, arch in enumerate(archs)]
 
 
 def load_reference(children: list, timeout: float = 600.0) -> dict:
@@ -98,4 +113,4 @@ def load_reference(children: list, timeout: float = 600.0) -> dict:
 
 
 if __name__ == "__main__":
-    _reference(sys.argv[1], sys.argv[2])
+    _reference(*sys.argv[1:4])

@@ -17,6 +17,19 @@ tests/test_torch_tp_variants.py) runs the placed variants under
 ``axis_rules(DEFAULT_RULES, mesh)``: gemma2-2b SMOKE with
 ``attn_seq_shard`` (its train loss and gradients, its prefill) and
 granite-moe SMOKE with ``REPRO_MOE_RAGGED=1`` (train loss and gradients).
+A third part (``... seq_act``, for tests/test_torch_seq_act.py) runs the
+placed train step's loss and gradients of gemma2-2b and zamba2-2.7b SMOKE
+under ``axis_rules({**DEFAULT_RULES, "seq": ("model",)}, mesh)`` (the
+dry run's ``REPRO_SEQ_ACT=model``); ``... seq_combos`` (for
+tests/test_torch_seq_act_combos.py) the same rules combined with
+``attn_seq_shard`` (gemma2-2b) and with ``REPRO_MOE_RAGGED=1``
+(granite-moe): each combination's status (``ok`` or the error jax 0.9
+raises) and, where it runs, its loss and gradients. jit's cache does not
+key on the axis rules, so every rule set gets a fresh ``jax.jit``. A
+fourth (``... decode``, for tests/test_torch_tp_decode.py) runs the dense
+``decode_step`` of yi-6b, zamba2-2.7b and granite-moe SMOKE jitted with
+``SERVE_PARAM_RULES`` shardings (the cache's slots over 'data', its kv
+heads over 'model') over (2, 2) and (1, 4), 3 rounds each.
 Every input is drawn from seeded numpy generators, so the parent rebuilds
 the same ones.
 """
@@ -38,6 +51,8 @@ TRAIN_B, TRAIN_S, TRAIN_STEP = 4, 32, 1
 COMP_SHAPE, COMP_STEPS, COMP_PODS = (6, 10), 3, 2
 EMBED_ARCH, EMBED_B, EMBED_S = "gemma2-2b", 2, 4096
 SEQPAR_ARCH, RAGGED_ARCH = "gemma2-2b", "granite-moe-1b-a400m"
+SEQ_ACT_ARCHS = ("gemma2-2b", "zamba2-2.7b")
+DECODE_LEN, DECODE_LENGTHS = 16, (0, 3, 5, 1)
 
 
 def embed_case(vocab: int, d: int) -> dict:
@@ -73,6 +88,44 @@ def train_batch(arch: str, vocab: int) -> dict:
     mask[:, -1] = 0.0
     return {"tokens": rng.integers(0, vocab, shape).astype(np.int32),
             "labels": labels, "loss_mask": mask}
+
+
+def decode_case(arch: str, cfg) -> dict:
+    """A dense decode case of ``SLOTS`` slots: every cache leaf of
+    ``init_cache(cfg, SLOTS, DECODE_LEN)`` filled from a seeded generator
+    (fp32; cast by both sides), the tokens of each round and the starting
+    lengths."""
+    rng = np.random.default_rng(41 + len(arch))
+    kh, hd = cfg.n_kv_heads, cfg.head_dim
+    out = {"tokens": rng.integers(0, cfg.vocab, (ROUNDS, SLOTS)).astype(
+        np.int32), "lengths": np.asarray(DECODE_LENGTHS, np.int32)}
+    shape = (SLOTS, DECODE_LEN, kh, hd)
+    la = len(cfg.attn_layer_ids)
+    if la:
+        for n in ("k", "v"):
+            out[f"cache/{n}"] = rng.standard_normal(
+                (la,) + shape).astype(np.float32)
+    if cfg.shared_attn_every > 0:
+        na = cfg.n_shared_applications()
+        for n in ("shared_k", "shared_v"):
+            out[f"cache/{n}"] = rng.standard_normal(
+                (na,) + shape).astype(np.float32)
+    return out
+
+
+def _ssm_shapes(cfg) -> dict:
+    from repro.models.layers import ssm
+    one = ssm.mamba2_init_state(cfg, SLOTS)
+    n = len(cfg.ssm_layer_ids)
+    return {k: (n,) + tuple(a.shape) for k, a in one.items()}
+
+
+def ssm_case(arch: str, cfg, shapes: dict) -> dict:
+    """Seeded SSM states of the decode case (``shapes``: name -> the
+    stacked state's shape)."""
+    rng = np.random.default_rng(43 + len(arch))
+    return {f"cache/ssm/{k}": (rng.standard_normal(sh) * 0.5).astype(
+        np.float32) for k, sh in sorted(shapes.items())}
 
 
 def comp_grads() -> np.ndarray:
@@ -274,11 +327,119 @@ def _variants(res: dict) -> None:
                 res["seqpar/prefill"] = np.asarray(fn(jp, batch["tokens"]))
 
 
+def _seq_act(res: dict, combos: bool = False) -> None:
+    """The placed train loss and gradients under the ``seq -> model``
+    activation rule (``TRAIN_PARAM_RULES``, remat full, Auto (2, 2)): a
+    fresh ``jax.jit`` for each rule set (jit's cache does not key on the
+    rules). The combinations with ``attn_seq_shard`` and the ragged MoE
+    record their status and, where they run, their loss."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.models import transformer as JTF
+    from repro.models.params import abstract_init
+    from repro.parallel import sharding as JSH
+    mesh = _auto_mesh((2, 2))
+    dp = NamedSharding(mesh, P("data"))
+    rules = dict(JSH.DEFAULT_RULES, seq=("model",))
+    cases = ([("seqpar", SEQPAR_ARCH,
+               lambda c: dataclasses.replace(c, attn_seq_shard=True), None),
+              ("ragged", RAGGED_ARCH, lambda c: c, "1")] if combos else
+             [(a, a, lambda c: c, None) for a in SEQ_ACT_ARCHS])
+    for tag, arch, cfg_of, ragged in cases:
+        base, jp = M.ref_weights(arch)
+        cfg = cfg_of(base)
+        sds, axes = abstract_init(JTF.init_model, cfg)
+        batch = {k: jnp.asarray(v) for k, v in
+                 train_batch(arch, cfg.vocab).items()}
+        spec = JSH.specs_for_tree(axes, JSH.TRAIN_PARAM_RULES, mesh, sds)
+        if ragged:
+            os.environ["REPRO_MOE_RAGGED"] = ragged
+        try:
+            fn = jax.jit(jax.value_and_grad(
+                lambda p, b: JTF.train_loss(p, cfg, b, remat="full")[0]),
+                in_shardings=(spec, {k: dp for k in batch}))
+            with JSH.axis_rules(rules, mesh):
+                loss, grads = fn(jp, batch)
+            res[f"seq_act/{tag}/status"] = np.asarray("ok")
+            res[f"seq_act/{tag}/loss"] = np.asarray(loss)
+            res.update(M.flatten(grads, f"seq_act/{tag}/grads"))
+            res.update(M.flatten(jp, f"seq_act/{tag}/weights"))
+        except Exception as e:  # noqa: BLE001 — recorded for the parent
+            res[f"seq_act/{tag}/status"] = np.asarray(
+                f"{type(e).__name__}: {e}"[:500])
+        finally:
+            os.environ.pop("REPRO_MOE_RAGGED", None)
+
+
+def _decode(res: dict) -> None:
+    """The dense ``decode_step`` over weights placed by
+    ``SERVE_PARAM_RULES`` (jitted with ``in_shardings``; the cache's slots
+    over 'data' and kv heads over 'model' where they divide), 3 rounds from
+    :func:`decode_case`'s cache."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.models import transformer as JTF
+    from repro.models.params import abstract_init
+    from repro.parallel import sharding as JSH
+    for arch in SERVE_ARCHS:
+        cfg, jp = M.ref_weights(arch)
+        sds, axes = abstract_init(JTF.init_model, cfg)
+        c = decode_case(arch, cfg)
+        cache = {k.split("/", 1)[1]: jnp.asarray(v, cfg.dtype)
+                 for k, v in c.items() if k.startswith("cache/")}
+        if cfg.ssm_layer_ids:
+            st = ssm_case(arch, cfg, _ssm_shapes(cfg))
+            one = JTF.init_cache(cfg, SLOTS, DECODE_LEN)["ssm"]
+            cache["ssm"] = {k: jnp.asarray(st[f"cache/ssm/{k}"], a.dtype)
+                            for k, a in one.items()}
+            res.update({f"decode/{arch}/{k}": v for k, v in st.items()})
+        for mname, shape in MESHES.items():
+            mesh = _auto_mesh(shape)
+            nm, nd = shape[1], shape[0]
+            heads = "model" if cfg.n_kv_heads % nm == 0 else None
+            slots = "data" if SLOTS % nd == 0 else None
+
+            def cspec(name, a):
+                if name == "ssm":
+                    return {k: NamedSharding(mesh, P(None, slots))
+                            for k in a}
+                return NamedSharding(mesh, P(None, slots, None, heads))
+            c_spec = {k: cspec(k, v) for k, v in cache.items()}
+            p_spec = JSH.specs_for_tree(axes, JSH.SERVE_PARAM_RULES, mesh,
+                                        sds)
+            vec = NamedSharding(mesh, P(slots))
+            step = jax.jit(
+                lambda p, t, ca, ln: JTF.decode_step(p, cfg, t, ca, ln),
+                in_shardings=(p_spec, vec, c_spec, vec))
+            ca, lens, logits = cache, c["lengths"], []
+            for r in range(ROUNDS):
+                lg, ca = step(jp, jnp.asarray(c["tokens"][r]),
+                              jax.device_put(ca, c_spec), jnp.asarray(lens))
+                logits.append(np.asarray(lg))
+                lens = lens + 1
+            res[f"decode/{arch}/{mname}/logits"] = np.stack(logits)
+            for k, v in ca.items():
+                if k != "ssm":
+                    res[f"decode/{arch}/{mname}/cache/{k}"] = np.asarray(
+                        v, np.float32)
+        res.update(M.flatten(jp, f"weights/{arch}"))
+
+
 def _reference(out_path: str, part: str = "steps") -> None:
     import jax
     assert jax.device_count() >= 4, jax.devices()
     res: dict = {}
-    if part == "variants":
+    if part in ("seq_act", "seq_combos"):
+        _seq_act(res, combos=part == "seq_combos")
+    elif part == "decode":
+        _decode(res)
+    elif part == "variants":
         _variants(res)
     else:
         _serve(res)
@@ -292,7 +453,8 @@ def run_reference(out_path: str, timeout: float = 600.0,
                   part: str = "steps") -> dict:
     """Start the child (four forced host devices, CPU) and load its
     results (``part``: ``steps``, the placed steps of
-    tests/test_torch_tp_step.py, or ``variants``)."""
+    tests/test_torch_tp_step.py, ``variants``, ``seq_act``,
+    ``seq_combos`` or ``decode``)."""
     import subprocess
     here = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(os.path.dirname(here), "src")

@@ -23,7 +23,12 @@ FlashAttention; the Mamba2 scan's backward kernel is held against its
 plain version the same way and autograd reaches it through Mamba2Scan; a
 SMOKE gemma2-2b training step through the kernels is held against the
 same step with the plain attention, and a SMOKE zamba2 step on the card
-against the same step on the CPU. Every test
+against the same step on the CPU. Head dim 4 runs the flash kernels at 8
+through the wrappers' zero-padding, against the plain version; a capture
+survives a collection of another graph on its own thread; the dense
+decode step over placed weights and the train step with the residual
+stream cut along the sequence match their mesh-free and unsplit forms on
+repeated ``cuda:0``. Every test
 skips with a reason where no CUDA card is present; run them on the card
 with ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
 import re
@@ -1540,12 +1545,19 @@ def test_new_arch_engine_on_card_matches_cpu(cuda, arch, overrides):
 
 
 def test_kernels_refuse_head_dim_4(cuda):
-    """starcoder2's SMOKE head dim (4) is not one the kernels take: the
-    wrappers refuse it on the card rather than run a plain version."""
+    """starcoder2's SMOKE head dim (4) is not one the paged kernel takes:
+    its wrapper refuses it on the card rather than run a plain version
+    (the serve paths run starcoder2 at its full width's 128). The flash
+    wrappers take it through their zero-padded route (the kernels at head
+    dim 8), and refuse a head dim that neither the kernels nor the
+    padding take (12)."""
     q = torch.zeros((1, 36, 5, 4), device=cuda)
     k = torch.zeros((1, 4, 5, 4), device=cuda)
+    assert FA.flash_attention(q, k, k, scale=0.5).shape == q.shape
+    q12 = torch.zeros((1, 36, 5, 12), device=cuda)
+    k12 = torch.zeros((1, 4, 5, 12), device=cuda)
     with pytest.raises(TypeError):
-        FA.flash_attention(q, k, k, scale=0.5)
+        FA.flash_attention(q12, k12, k12, scale=0.5)
     arena = torch.zeros((3, 2, 8, 4, 4), device=cuda)
     with pytest.raises(TypeError):
         PA.paged_attention(q[:, :, 0], arena,
@@ -2513,3 +2525,173 @@ def test_seqpar_attention_on_card_matches_mesh_free(cuda):
     for a, c in zip(g1, g0):
         top = float(c.float().abs().max())
         assert float((a.float() - c.float()).abs().max()) <= 2e-2 * top
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    (2, 36, 4, 32, 32, True, 0, 0.0, 0),     # starcoder2-7b SMOKE's heads
+    (1, 4, 2, 70, 70, True, 17, 20.0, 0),
+    (2, 4, 4, 13, 40, False, 0, 0.0, 0)])
+def test_flash_head_dim_4_matches_plain(cuda, dtype, case):
+    """Head dim 4 through the wrappers' zero-padded route (the kernels at
+    head dim 8), forward with its gradients, against the plain version at
+    head dim 4: fp32 within 1e-5 / 1e-4, bf16 within 2e-2 of the
+    largest."""
+    b, h, kh, sq, sk, causal, window, softcap, q_offset = case
+    g = torch.Generator(device=cuda).manual_seed(sum(case[:5]))
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(dtype)
+                   for s in ((b, h, sq, 4), (b, kh, sk, 4), (b, kh, sk, 4),
+                             (b, h, sq, 4)))
+    kw = dict(scale=0.5, causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = FA.flash_attention(*leaves, **kw)
+    got.backward(do)
+    want = FA.flash_attention_ref(q, k, v, **kw)
+    o, lse = FA.padded(FA._forward, q, k, v, with_lse=True, **kw)
+    wg = FA.flash_attention_bwd_ref(q, k, v, want, FA.attention_lse_ref(
+        q, k, **kw), do, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) <= tol * max(
+        float(want.float().abs().max()), 1.0)
+    assert o.shape == want.shape and lse.shape == (b, h, sq)
+    gtol = 1e-4 if dtype == torch.float32 else 2e-2
+    for t, w in zip(leaves, wg):
+        assert t.grad.shape == w.shape
+        assert float((t.grad.float() - w).abs().max()) <= gtol * float(
+            w.abs().max())
+
+
+def test_capture_survives_a_collection_of_another_graph(cuda):
+    """A gc.collect() on the capturing thread, in the middle of a capture,
+    while an unreachable cycle holds another captured graph (as a dropped
+    daemon's or engine's plans do): the guard defers that graph's
+    destruction to the capture's end, the capture succeeds and replays."""
+    import gc
+
+    from repro_torch.core import execache as EC
+    side = torch.cuda.Stream()
+    x = torch.ones(1024, device=cuda)
+    side.wait_stream(torch.cuda.current_stream())
+
+    def captured(fn):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side), EC.capture_guard():
+            g.capture_begin(pool=torch.cuda.graph_pool_handle(),
+                            capture_error_mode="thread_local")
+            out = fn()
+            g.capture_end()
+        return g, out
+
+    class Owner:
+        pass
+    before = EC.deferred_total()
+    gc.disable()   # the collection happens inside the capture, not before
+    try:
+        _collect_in_captures(captured, Owner, x, side)
+    finally:
+        gc.enable()
+    assert EC.deferred_total() >= before + 3
+    assert EC.deferred_count() == 0 and not EC.capturing()
+
+
+def _collect_in_captures(captured, Owner, x, side):
+    import gc
+
+    from repro_torch.core import execache as EC
+    for _ in range(3):
+        a, b = Owner(), Owner()
+        a.peer, b.peer = b, a
+        g0, out0 = captured(lambda: x * 2)
+        a.hold = EC.GraphHold(g0, out0)
+        del a, b, g0, out0
+
+        def body():
+            y = x + 1
+            gc.collect()    # the cycle (and its graph) is collected here
+            return y * 3
+        g1, out1 = captured(body)
+        g1.replay()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        assert float(out1[0]) == 6.0
+        del g1, out1
+
+
+def test_placed_dense_decode_on_card_matches_mesh_free(cuda):
+    """``decode_step`` over weights placed by SERVE_PARAM_RULES and a cache
+    placed by ``place_cache`` over (2, 2) (cuda:0 repeated), yi-6b and
+    zamba2-2.7b SMOKE, 3 rounds against the mesh-free step within 1e-4 of
+    the largest logit; no kernel launched."""
+    from repro_torch import configs as TC
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as TM
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import param_axes
+    from repro_torch.parallel import sharding as TS
+    for arch in ("yi-6b", "zamba2-2.7b"):
+        cfg = TC.get_smoke(arch)
+        params = TF.init_model(torch.Generator(device=cuda).manual_seed(0),
+                               cfg, cuda)
+        with TM.force_device_count(4):
+            mesh = TM.make_debug_mesh(2, 2)
+        pl = TS.place_params(params, param_axes(cfg), TS.SERVE_PARAM_RULES,
+                             mesh)
+        cache = TF.init_cache(cfg, 4, 32, cuda)
+        placed = TF.place_cache(cfg, TF.init_cache(cfg, 4, 32, cuda), pl)
+        lens = torch.tensor([0, 3, 9, 1], device=cuda)
+        before = sum(_build.launches.values())
+        for r in range(3):
+            tok = torch.arange(4, device=cuda, dtype=torch.int32) * 7 + r
+            lw, cache = TF.decode_step(params, cfg, tok, cache, lens)
+            lg, placed = TF.decode_step(pl, cfg, tok, placed, lens)
+            torch.cuda.synchronize()
+            top = float(lw[:, :cfg.vocab].abs().max())
+            assert float((lg - lw)[:, :cfg.vocab].abs().max()) <= 1e-4 * top
+            lens = lens + 1
+        assert sum(_build.launches.values()) == before
+
+
+def test_seq_sharded_train_step_on_card_matches(cuda):
+    """The placed train step (TRAIN_PARAM_RULES over (2, 2), cuda:0
+    repeated, remat full) of gemma2-2b SMOKE under ``"seq": ("model",)``
+    against the same step without the rule: loss within 1e-5 and every
+    gradient leaf within 1e-4 of its largest; the residual stream's
+    all-reduces over 'model' gone."""
+    from repro_torch import configs as TC
+    from repro_torch.launch import mesh as TM
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import param_axes
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import collectives as CO
+    from repro_torch.parallel import sharding as TS
+    from repro_torch.training.step import make_loss_grad_fn
+    cfg = TC.get_smoke("gemma2-2b")
+    params = TF.init_model(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 64), generator=g,
+                                     device=cuda, dtype=torch.int32),
+             "labels": torch.randint(0, cfg.vocab, (4, 64), generator=g,
+                                     device=cuda, dtype=torch.int32),
+             "loss_mask": torch.ones((4, 64), device=cuda)}
+    with TM.force_device_count(4):
+        mesh = TM.make_debug_mesh(2, 2)
+    pl = TS.place_params(params, param_axes(cfg), TS.TRAIN_PARAM_RULES, mesh)
+    out = {}
+    for tag, rules in (("none", TS.DEFAULT_RULES),
+                       ("seq", dict(TS.DEFAULT_RULES, seq=("model",)))):
+        with TS.axis_rules(rules, mesh), CO.recording() as log:
+            (loss, _), grads = make_loss_grad_fn(cfg, remat="full")(pl,
+                                                                     batch)
+        out[tag] = (float(loss), tree_leaves(TS.gather_params(grads)), log)
+    assert abs(out["seq"][0] - out["none"][0]) <= 1e-5
+    for a, c in zip(out["seq"][1], out["none"][1]):
+        assert float((a - c).abs().max()) <= 1e-4 * float(c.abs().max())
+    assert not any(r.kind == "all-reduce" and r.axes == ("model",)
+                   and r.origin.split("/")[0].endswith((".wo", ".w_down"))
+                   for r in out["seq"][2])
+    assert any(r.kind == "reduce-scatter" and r.axes == ("model",)
+               for r in out["seq"][2])
