@@ -16,7 +16,8 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               and launches of whole calls that this tree and its parent
               both offer (``comparable_rows``: the scan with its totals,
               the hash build, the bare probe, the executors' verified
-              probe route), and
+              probe route, the Mamba2 scan with its outputs' SHA-256 and
+              its backward, each launch apart), and
               kernels, copies, host launch calls, device time, idle share
               and wall p50 per Table 2 DELETE / SELECT statement, plain
               and indexed.
@@ -129,21 +130,28 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               (without the softcap, the window as a mask); the forward
               with and without its lse store.
    kernels_mamba_bwd -- the Mamba2 scan's backward
-              (``csrc/mamba_scan_bwd.cu``: the walks and C B^T, the
-              chunk-parallel gradients, the sum over the heads) against
-              its plain version (``mamba2_scan_bwd_ref``): s 1, 24, 63,
-              64, 65, 100, 130, 300 and 4,608; dh 16 and 64; st 8, 64 and
-              256; nh 1-80; b 1-2; a zero, a random and no h0; dh_last
+              (``csrc/mamba_scan_bwd.cu``: the walks over segments of
+              chunks, the pass over the segments' boundaries, the
+              chunk-parallel gradients a group of heads a CTA, the sum
+              over the groups) against its plain version
+              (``mamba2_scan_bwd_ref``): s 1, 24, 40, 63, 64, 65, 100,
+              128, 130, 300, 4,608 and 8,193 (1, 2 and 129 chunks); dh
+              16 and 64; st 8, 64 and 256; nh 1-80 (7: groups that do not
+              divide it); b 1-2; a zero, a random and no h0; dh_last
               none and random; x fp32 and bf16; in one variant every
-              input a strided view; each gradient within 1e-4 of its largest entry (bf16
-              dx 2e-2), a second call bit-equal, autograd (Mamba2Scan)
-              equal to the wrapper. Then at zamba2's training shape (b 1,
-              s 8,192, nh 80, dh 64, st 64) and its 300-token prefill:
-              the six gradients against the plain version's (1e-4 of
-              each one's largest entry), the call's device time and each
-              launch's, the wrapper's,
-              the plain version's, the bound (no PyTorch call computes
-              this function).
+              input a strided view; the kernel's own plans at 1-17 walk
+              segments and 1-80 head groups (a last group smaller); each
+              gradient within 1e-4 of its largest entry (bf16 dx 2e-2), a
+              second call bit-equal, autograd (Mamba2Scan) equal to the
+              wrapper; one step at nh 7 with no state terms (its gradients
+              cancel in C_0 . B_0) against an fp64 closed form, within
+              1e-4 of each gradient's largest sum of absolute terms.
+              Then at zamba2's training shape (b 1, s 8,192, nh 80, dh
+              64, st 64) and its 300-token prefill: the six gradients
+              against the plain version's (1e-4 of each one's largest
+              entry), the call's device time and each launch's, the
+              wrapper's, the plain version's, the bound, the plan and the
+              scratch (no PyTorch call computes this function).
    bound_checks -- every model kernel's bound above reads its wrapper's
               reckoning (FA.flash_cost / flash_bwd_cost, PA.paged_cost,
               MS.scan_cost / scan_bwd_cost: the dry run's counts too),
@@ -440,6 +448,7 @@ and so it does without a CUDA card or outside a checkout of the repo.
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import pathlib
@@ -2350,12 +2359,24 @@ def mamba_short_prefills(gen, dev):
 # (b, s, nh, dh, st): one step, a short tile, one tile and a step either
 # side, zamba2's 300-token prefill, a ragged third tile at st 256, the
 # training length of phase train's zamba2 unit (4,608) at zamba2's width;
-# dh 16 and 64, st 8 / 64 / 256, nh 1-80, b 1-2
+# dh 16 and 64, st 8 / 64 / 256, nh 1-80, b 1-3; the segmented design's
+# edges at the kernel's own plan: one (ragged) chunk and two at nh 7 (7
+# groups of one head), 129 chunks (17 walk segments, the last of one
+# chunk), 33 chunks at nh 7 (5 segments; 4 groups of 2, 2, 2 and 1
+# heads), b 3 at 11 chunks (2 segments, 4 groups); 4,608 runs 8 segments
+# and 9 groups of 9, 9, ..., 8 heads
 MAMBA_BWD_CASES = [(1, 1, 1, 16, 8), (2, 24, 3, 16, 8), (1, 63, 80, 64, 64),
                    (1, 64, 80, 64, 64), (2, 65, 4, 64, 64),
                    (1, 300, 80, 64, 64), (2, 300, 5, 16, 256),
                    (1, 130, 7, 64, 256), (2, 100, 2, 16, 64),
-                   (1, 4608, 80, 64, 64)]
+                   (1, 4608, 80, 64, 64), (1, 40, 7, 64, 64),
+                   (2, 128, 7, 64, 64), (1, 8193, 3, 16, 8),
+                   (1, 2100, 7, 64, 64), (3, 704, 7, 64, 64)]
+# one step, no state terms: every gradient but dh0 scales with C_0 . B_0,
+# a sum of st products that cancels (the fp32 plain version rounds it as
+# much as the kernel does), so this case is held to an fp64 evaluation,
+# each gradient within MAMBA_BWD_TOL of its largest sum of absolute terms
+MAMBA_BWD_CANCEL = (1, 1, 7, 64, 64)
 # (h0, dh_last, views): a zero state and no gradient of h_last (what the
 # model's training passes), both random, h0 absent with dh_last random;
 # the views variant reads every input and dy through strides (x and dy
@@ -2455,6 +2476,75 @@ def mamba_bwd_work(b, s, nh, dh, st, elem, h0=True, dh_last=False,
     return reckoned("mamba_bwd", (new_bytes, new_flops), (nbytes, flop))
 
 
+MSB_KERNELS = ("msb_walk_kernel", "msb_pass_kernel", "msb_chunk_kernel",
+               "msb_sum_kernel")
+
+
+def mamba_bwd_plan(b, s, nh, dh, st) -> dict:
+    """The backward's head groups at a shape (``MS.bwd_groups``, the
+    library's choice) and its scratch bytes (the library's)."""
+    lib = _build.lib("mamba_scan_bwd")
+    return {"head_groups": MS.bwd_groups(b, s, nh),
+            "scratch_bytes": 4 * lib.mamba2_scan_bwd_scratch(b, s, nh, dh,
+                                                             st)}
+
+
+def mamba_bwd_one_step_exact(x, dt, dA, B, C, dy, absolute=False):
+    """The six gradients of one step (s 1, a zero h0, no dh_last) in fp64,
+    from their closed forms; ``absolute``: each entry's sum of the
+    absolute values of its terms instead (ddA's two cancelling score
+    terms included)."""
+    f = (lambda v: v.double().abs()) if absolute else (lambda v: v.double())
+    x, dy, B, C = f(x[:, 0]), f(dy[:, 0]), f(B[:, 0]), f(C[:, 0])
+    dt, dA = dt[:, 0].double(), dA[:, 0].double()     # [b, nh], dt > 0
+    cb = (C * B).sum(-1)                                     # [b]
+    xdy = (x * dy).sum(-1)                                   # [b, nh]
+    q = (dt * xdy).sum(-1)                                   # [b]
+    dx = dt[..., None] * cb[:, None, None] * dy
+    ddt = cb[:, None] * xdy
+    ddA = (2 * dt * cb[:, None] * xdy if absolute
+           else torch.zeros_like(dt))
+    dB, dC = q[:, None] * C, q[:, None] * B
+    dh0 = torch.exp(dA)[..., None, None] * dy[..., None] * C[:, None, None]
+    return (dx[:, None], ddt[:, None], ddA[:, None], dB[:, None],
+            dC[:, None], dh0)
+
+
+def mamba_bwd_cancel_case(gen, dev):
+    """MAMBA_BWD_CANCEL in fp32: the kernels' gradients and the fp32 plain
+    version's, each against the fp64 closed form, measured against each
+    gradient's largest sum of absolute terms; the kernels' held to
+    MAMBA_BWD_TOL of it. Also a second call bit-equal."""
+    ins, dy, _ = mamba_bwd_inputs(gen, dev, torch.float32, MAMBA_BWD_CANCEL,
+                                  "zero", False, False)
+    got = MS.mamba2_scan_bwd(*ins, dy, None)
+    again = MS.mamba2_scan_bwd(*ins, dy, None)
+    plain = MS.mamba2_scan_bwd_ref(*ins, dy, None)
+    x, dt, dA, B, C, _ = ins
+    exact = mamba_bwd_one_step_exact(x, dt, dA, B, C, dy)
+    terms = mamba_bwd_one_step_exact(x, dt, dA, B, C, dy, absolute=True)
+    sync()
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError("mamba2_scan_bwd one step: a second call differs")
+    out = {}
+    for k, g, p, e, a in zip(MAMBA_BWD_NAMES, got, plain, exact, terms):
+        scale = max(float(a.max()), 1e-30)
+        kern = float((g.double() - e).abs().max()) / scale
+        out[k] = {"kernel": kern,
+                  "plain_fp32": float((p.double() - e).abs().max()) / scale,
+                  "kernel_of_largest_entry": float(
+                      (g.double() - e).abs().max())
+                  / max(float(e.abs().max()), 1e-30),
+                  "plain_fp32_of_largest_entry": float(
+                      (p.double() - e).abs().max())
+                  / max(float(e.abs().max()), 1e-30)}
+        if not kern <= MAMBA_BWD_TOL["float32"]:
+            raise AssertionError(f"mamba2_scan_bwd one step: {k} is {kern} "
+                                 f"of its largest sum of absolute terms "
+                                 f"from the fp64 closed form")
+    return out
+
+
 def mamba_bwd_timing(gen, dev, shape, what):
     """One backward call as the model's training makes it (fp32 x, a zero
     h0, no gradient of h_last): its six gradients against the plain
@@ -2478,13 +2568,14 @@ def mamba_bwd_timing(gen, dev, shape, what):
     del got, want
     events = device_events(run, iters=5)
     per = {}
-    for sym in ("msb_walk_kernel", "msb_chunk_kernel", "msb_sum_kernel"):
+    for sym in MSB_KERNELS:
         t = [device_us(e) for e in events if sym in e.name]
-        per[sym] = sum(t) / len(t) / 1e3 if t else None
+        per[sym] = sum(t) / 5 / 1e3 if t else None
     b_ms, b_by = bound(*mamba_bwd_work(*shape, 4))
     b, s, nh, dh, st = shape
     return {"kernel": "mamba2_scan_bwd", "shape": f"b{b} s{s} nh{nh} dh{dh} "
             f"st{st} fp32 x, zero h0, no dh_last ({what})",
+            "plan": mamba_bwd_plan(*shape),
             "ms": time_ms(run, iters=10, warm=2),
             "device_ms": call_device_ms(run, iters=5),
             "device_launches": device_launches(run, iters=5),
@@ -2514,9 +2605,12 @@ def phase_kernels_mamba_bwd(dev, card):
                 for k, e in zip(MAMBA_BWD_NAMES, r):
                     rel[k] = max(rel[k], e)
                 err, n = max(err, a), n + 1
-    emit({"phase": "kernels_mamba_bwd", "card": card, "cases": n,
+    cancel = mamba_bwd_cancel_case(gen, dev)
+    emit({"phase": "kernels_mamba_bwd", "card": card, "cases": n + 1,
           "tolerance_of_largest_entry": MAMBA_BWD_TOL,
           "max_err_of_largest_entry": rel, "max_abs_err": err,
+          "one_step_against_fp64 (of the largest sum of absolute terms)":
+              cancel,
           "repeat_runs": "bit-equal", "autograd": "equal to the wrapper"})
     rows = {"mamba2_scan_bwd_main": mamba_bwd_timing(
                 gen, dev, MAMBA_TRAIN, "zamba2's training shape"),
@@ -4701,8 +4795,7 @@ def device_families(prof, wall_us, n):
             fam["copies"] += t
         elif "ms_state_kernel" in name or "ms_chunk_kernel" in name:
             fam["mamba2_scan"] += t
-        elif any(w in name for w in ("msb_walk_kernel", "msb_chunk_kernel",
-                                     "msb_sum_kernel")):
+        elif any(w in name for w in MSB_KERNELS):
             fam["mamba2_scan_bwd"] += t
         elif "paged_split_kernel" in name:
             fam["paged_attention"] += t
@@ -4790,13 +4883,78 @@ def table2_db(extra):
     return db
 
 
+def ms_by_launch(events, calls):
+    """Device ms a call of each kernel among ``events`` (by its function's
+    name; other activities by their own)."""
+    out: dict = {}
+    for e in events:
+        m = re.search(r"\b(\w+_kernel)\b", e.name)
+        name = m.group(1) if m else e.name
+        out[name] = out.get(name, 0.0) + device_us(e) / calls / 1e3
+    return out
+
+
+def comparable_ssd_rows(dev):
+    """The Mamba2 SSD scan and its backward as whole calls (``mamba2_scan``
+    and ``mamba2_scan_bwd``, the same wrappers in this tree and its
+    parent). The forward at zamba2's 300- and 24-token prefills and its
+    training shape (fp32 x, zero h0, seeded inputs): the device time of
+    every launch of one call, its launches and the SHA-256 of y and
+    h_last, so two trees' outputs can be compared bit for bit. The
+    backward at the training shape and the 300-token prefill (fp32 x,
+    zero h0, no dh_last): the same times, the call's time from events and
+    the bytes the call allocates beyond its outputs (the scratch)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rows = {}
+    for what, shape in (("zamba2 300-token prefill", MAMBA_SERVE),
+                        ("zamba2 24-token prefill", MAMBA_SHORT),
+                        ("zamba2 training shape", MAMBA_TRAIN)):
+        args = mamba_inputs(gen, dev, torch.float32, *shape, False)
+        run = lambda: MS.mamba2_scan(*args)  # noqa: E731
+        y, h = run()
+        digest = hashlib.sha256()
+        for out in (y, h):
+            digest.update(out.contiguous().cpu().numpy().tobytes())
+        events = device_events(run, iters=20)
+        rows[f"mamba2_scan, {what}"] = {
+            "device_ms": sum(device_us(e) for e in events) / 20 / 1e3,
+            "device_launches": len(events) / 20,
+            "device_ms_by_launch": ms_by_launch(events, 20),
+            "outputs_sha256": digest.hexdigest()}
+        del args, y, h
+    for what, shape in (("zamba2 training shape", MAMBA_TRAIN),
+                        ("zamba2 300-token prefill", MAMBA_SERVE)):
+        ins, dy, _ = mamba_bwd_inputs(gen, dev, torch.float32, shape,
+                                      "zero", False, False)
+        run = lambda: MS.mamba2_scan_bwd(*ins, dy, None)  # noqa: E731
+        out = run()
+        sync()
+        outs = sum(t.numel() * t.element_size() for t in out)
+        del out
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        run()
+        sync()
+        events = device_events(run, iters=10)
+        rows[f"mamba2_scan_bwd, {what}"] = {
+            "device_ms": sum(device_us(e) for e in events) / 10 / 1e3,
+            "device_launches": len(events) / 10,
+            "device_ms_by_launch": ms_by_launch(events, 10),
+            "ms": time_ms(run, iters=20, warm=3),
+            "call_peak_bytes_beyond_outputs":
+                torch.cuda.max_memory_allocated(dev) - base - outs}
+        del ins, dy
+        torch.cuda.empty_cache()
+    return rows
+
+
 def comparable_rows(dev):
     """Whole calls that this tree's package and its parent's both offer,
     timed by what they put on the card (every kernel, memset and copy of
     one call): the scan with each statement's total (``relscan`` without
     the compaction), the hash build, the bare probe, the executors'
     verified IndexProbe route (its ids, presence and count from
-    core/table.py), and
+    core/table.py), the Mamba2 SSD backward (``comparable_ssd_rows``), and
     per statement on the Table 2 table (plain and indexed) kernels, device
     time and idle share. Run it in a fresh process per tree to compare
     this package with another checkout's, within one call."""
@@ -4871,6 +5029,9 @@ def comparable_rows(dev):
         rows[f"{variant}_page_select"] = profile_statements(
             dbx, "SELECT * FROM cache WHERE page_id = ? LIMIT 64",
             [(int(p),) for p in pages[500:540]])
+    del db, dbx
+    gc.collect()
+    rows.update(comparable_ssd_rows(dev))
     return rows
 
 

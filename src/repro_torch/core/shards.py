@@ -439,9 +439,13 @@ def _pair_rows(x: torch.Tensor, pairs: _Pairs) -> torch.Tensor:
 
 def _pair_mask(state: dict, where, params_w, pairs: _Pairs) -> torch.Tensor:
     """GenericScan over pairs: [n, cap_s] match mask (validity included).
-    A fan-out evaluates the predicate on the stack in place."""
+    A fan-out evaluates the predicate on the stack in place. A name the
+    table lacks is left out of the columns, so the evaluator raises on it
+    as it does on a monolithic table (``KeyError("unknown column ...")``,
+    the reference's text) before any column is read."""
     cap_s = state["valid"].shape[1]
-    names = PL.columns_of(where) or {"_created"}
+    names = [c for c in PL.columns_of(where) if c in state["cols"]]
+    names = names or ["_created"]
     if pairs.fanout:
         cols = {c: state["cols"][c][:, None, :] for c in names}
         pr = tuple(p.reshape(1, pairs.w, 1) for p in params_w)

@@ -73,7 +73,8 @@ ms_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       ms_cb_tile(B, C, cbg, s, st, head - nh, bb, reinterpret_cast<float*>(smem + MS_CHUNK));
     return;
   }
-  ms_walk<T, false>(x, dt, dA, B, h0, H, h_last, s, nh, dh, st, head, bb, blockIdx.x, smem);
+  ms_walk<T, false, 4, false>(x, dt, dA, B, h0, H, h_last, s, nh, dh, st, head, bb,
+                              blockIdx.x, smem);
 }
 
 // Chunk launch. Grid (ndb, nh, b * nch). One chunk (cbg null): C B^T, y
@@ -144,10 +145,11 @@ ms_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   ms_zero(yacc);
   if (one) {
     ms_zero(cb);
-    if (rows && cc0 < L) ms_mma_tile(cb, Cs, lds, 1, Bs, lds, 1, st8, t0, cc0);
+    if (rows && cc0 < L)
+      ms_mma_tile<false, false>(cb, Cs, lds, 1, Bs, lds, 1, st8, t0, cc0);
   }
   if (has_prev && rows) {
-    ms_mma_tile(yacc, Cs, lds, 1, Hs, lds, 1, st8, t0, cc0);
+    ms_mma_tile<false, false>(yacc, Cs, lds, 1, Hs, lds, 1, st8, t0, cc0);
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -169,7 +171,8 @@ ms_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int i = 0; i < 4; ++i) Wt[ms_col(nt, i) * MS_LD + ms_row(i)] = cb[nt][i];
   __syncthreads();
   if (rows) {
-    ms_mma_tile(yacc, Wt, 1, MS_LD, xs, 1, MS_LD, ms_st8(min(L, t0 + 16)), t0, cc0);
+    ms_mma_tile<false, false>(yacc, Wt, 1, MS_LD, xs, 1, MS_LD, ms_st8(min(L, t0 + 16)),
+                              t0, cc0);
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -186,7 +189,7 @@ ms_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const float e = expf(*Ts);
   for (int nb = 0; nb < st; nb += 64) {
     float acc[4][4];
-    ms_state_tile(acc, xs, Bs, lds, sw, L, nb);
+    ms_state_tile<false>(acc, xs, Bs, lds, sw, L, nb);
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll

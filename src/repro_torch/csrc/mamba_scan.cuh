@@ -117,32 +117,65 @@ __device__ __forceinline__ void ms_mma(float (&d)[4], const uint32_t (&a)[4],
 // q = lane % 4). acc += sum_{k < K} A(row, k) B(k, column) (* bs[k]), K a
 // multiple of 8, A(r, k) = A[r * ars + k * aks], B(k, n) = Bm[n * bns +
 // k * bks]; the small terms go to their own accumulators (three
-// independent chains).
-template <bool SCALE_B = false>
+// independent chains). k0 (a multiple of 8) skips the steps k < k0, where
+// a causal operand is zero for every row of the tile. ROUNDS: each step
+// issues its 12 mma in three rounds of four independent ones, the steps
+// unrolled by 4 (the backward's kernels: on an H100 its walk runs 12 % and
+// its chunk launch 9 % faster so); else the three mma of a column block in
+// turn, the steps not unrolled (the forward's kernels: with the rounds its
+// state launch ran 7 % faster, but its chunk launch after it 17 % slower,
+// at s 8,192). Each accumulator sums the same products in the same order
+// either way.
+template <bool SCALE_B = false, bool ROUNDS = true>
 __device__ __forceinline__ void ms_mma_tile(float (&acc)[4][4], const float* A,
                                             int ars, int aks, const float* Bm,
                                             int bns, int bks, int K, int r0,
-                                            int c0, const float* bs = nullptr) {
+                                            int c0, const float* bs = nullptr,
+                                            int k0 = 0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   const float* ap = A + (r0 + g) * ars + q * aks;
   const float* bp = Bm + (c0 + g) * bns + q * bks;
   float sm[4][4];
   ms_zero(sm);
-  for (int k = 0; k < K; k += 8) {
-    uint32_t ah[4], al[4];
-    ms_split(ap[k * aks], ah[0], al[0]);
-    ms_split(ap[k * aks + 8 * ars], ah[1], al[1]);
-    ms_split(ap[(k + 4) * aks], ah[2], al[2]);
-    ms_split(ap[(k + 4) * aks + 8 * ars], ah[3], al[3]);
-    const float s0 = SCALE_B ? bs[k + q] : 1.f, s1 = SCALE_B ? bs[k + q + 4] : 1.f;
+  if constexpr (ROUNDS) {
+#pragma unroll 4
+    for (int k = k0; k < K; k += 8) {
+      uint32_t ah[4], al[4];
+      ms_split(ap[k * aks], ah[0], al[0]);
+      ms_split(ap[k * aks + 8 * ars], ah[1], al[1]);
+      ms_split(ap[(k + 4) * aks], ah[2], al[2]);
+      ms_split(ap[(k + 4) * aks + 8 * ars], ah[3], al[3]);
+      const float s0 = SCALE_B ? bs[k + q] : 1.f, s1 = SCALE_B ? bs[k + q + 4] : 1.f;
+      uint32_t bh[4][2], bl[4][2];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      uint32_t bh0, bl0, bh1, bl1;
-      ms_split(bp[nt * 8 * bns + k * bks] * s0, bh0, bl0);
-      ms_split(bp[nt * 8 * bns + (k + 4) * bks] * s1, bh1, bl1);
-      ms_mma(sm[nt], al, bh0, bh1);
-      ms_mma(sm[nt], ah, bl0, bl1);
-      ms_mma(acc[nt], ah, bh0, bh1);
+      for (int nt = 0; nt < 4; ++nt) {
+        ms_split(bp[nt * 8 * bns + k * bks] * s0, bh[nt][0], bl[nt][0]);
+        ms_split(bp[nt * 8 * bns + (k + 4) * bks] * s1, bh[nt][1], bl[nt][1]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) ms_mma(sm[nt], al, bh[nt][0], bh[nt][1]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) ms_mma(acc[nt], ah, bh[nt][0], bh[nt][1]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) ms_mma(sm[nt], ah, bl[nt][0], bl[nt][1]);
+    }
+  } else {
+    for (int k = k0; k < K; k += 8) {
+      uint32_t ah[4], al[4];
+      ms_split(ap[k * aks], ah[0], al[0]);
+      ms_split(ap[k * aks + 8 * ars], ah[1], al[1]);
+      ms_split(ap[(k + 4) * aks], ah[2], al[2]);
+      ms_split(ap[(k + 4) * aks + 8 * ars], ah[3], al[3]);
+      const float s0 = SCALE_B ? bs[k + q] : 1.f, s1 = SCALE_B ? bs[k + q + 4] : 1.f;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        uint32_t bh0, bl0, bh1, bl1;
+        ms_split(bp[nt * 8 * bns + k * bks] * s0, bh0, bl0);
+        ms_split(bp[nt * 8 * bns + (k + 4) * bks] * s1, bh1, bl1);
+        ms_mma(sm[nt], al, bh0, bh1);
+        ms_mma(sm[nt], ah, bl0, bl1);
+        ms_mma(acc[nt], ah, bh0, bh1);
+      }
     }
   }
 #pragma unroll
@@ -212,13 +245,14 @@ __device__ __forceinline__ void ms_cp_x(float* xs, const __nv_bfloat16* __restri
 
 // The warp's part of S[d][n] = sum_u sw_u x_u[d] B_u[n] for the 64-column
 // block nb of the state (x [u][d] rows of MS_LD, B [u][n] rows of ldb)
+template <bool ROUNDS = true>
 __device__ __forceinline__ void ms_state_tile(float (&acc)[4][4], const float* xs,
                                               const float* Bs, int ldb,
                                               const float* sw, int L, int nb) {
   const int warp = threadIdx.x >> 5;
   ms_zero(acc);
-  ms_mma_tile<true>(acc, xs, 1, MS_LD, Bs + nb, 1, ldb, ms_st8(L),
-                    (warp & 3) * 16, (warp >> 2) * 32, sw);
+  ms_mma_tile<true, ROUNDS>(acc, xs, 1, MS_LD, Bs + nb, 1, ldb, ms_st8(L),
+                            (warp & 3) * 16, (warp >> 2) * 32, sw);
 }
 
 // Two neighbouring elements (p[0], p[1]) of which `left` (> 0) lie in the
@@ -246,6 +280,22 @@ __device__ __forceinline__ int ms_col(int nt, int i) {
   return (threadIdx.x >> 7) * 32 + 8 * nt + 2 * (threadIdx.x & 3) + (i & 1);
 }
 
+// A chunk's statistics as one record (floats): cum [64] as fp64, dt [64]
+constexpr int MS_REC = 3 * MS_CHUNK;
+
+// Warp 0, after ms_stats: the record of this chunk into rec (global)
+__device__ __forceinline__ void ms_stats_store(float* __restrict__ rec, const double* cum,
+                                               const float* dts) {
+  __syncwarp();
+  const int lane = threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int t = 2 * lane + e;
+    reinterpret_cast<double*>(rec)[t] = cum[t];
+    rec[2 * MS_CHUNK + t] = dts[t];
+  }
+}
+
 // Floats of one slot of the walk (x [64][MS_LD], B [64][ldw], dA, dt)
 __host__ __device__ inline int ms_slot(int st) {  // floats of a slot
   return MS_CHUNK * (MS_LD + ms_ldw(st)) + 2 * MS_CHUNK;
@@ -257,8 +307,8 @@ size_t ms_state_smem(int st) {
 }
 
 // The C B^T tile [64][64] of chunk c of batch row bb (rows and columns
-// past the chunk's length zero), for every head. f: shared memory for two
-// [64][ms_lds(st)] tiles.
+// past the chunk's length zero), for every head (the forward's state
+// launch). f: shared memory for two [64][ms_lds(st)] tiles.
 __device__ __forceinline__ void ms_cb_tile(const float* __restrict__ B,
                                            const float* __restrict__ C,
                                            float* __restrict__ cbg, int s,
@@ -274,7 +324,8 @@ __device__ __forceinline__ void ms_cb_tile(const float* __restrict__ B,
   __syncthreads();
   float acc[4][4];
   ms_zero(acc);
-  ms_mma_tile(acc, Cs, lds, 1, Bs, lds, 1, st8, (warp & 3) * 16, (warp >> 2) * 32);
+  ms_mma_tile<false, false>(acc, Cs, lds, 1, Bs, lds, 1, st8, (warp & 3) * 16,
+                            (warp >> 2) * 32);
   float* out = cbg + ((size_t)bb * nch + c) * MS_CB;
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt)
@@ -295,8 +346,17 @@ __device__ __forceinline__ void ms_cb_tile(const float* __restrict__ B,
 // = zeros), the chunks last to first, written after chunk c to mid slot
 // c - 1 (the gradient of the state leaving chunk c - 1) and after chunk 0
 // to end (dh0). mid: [b][nch - 1][nh][ndb][64][st], rows past dh zero;
-// end: [b][nh][dh][st]. Shared memory: ms_state_smem(st).
-template <typename T, bool REV>
+// end: [b][nh][dh][st]. Shared memory: ms_state_smem(st). [c_lo, c_hi)
+// limits the walk to a segment of the chunks: it starts from init only
+// where the segment holds the walk's first chunk (the first forward, the
+// last reversed), else from zeros. Dout (not null): for each chunk c the
+// product of exp(T) over the segment's chunks walked before c, at
+// [b][nch][nh]; Eout (not null): the product over the whole segment, at
+// [b][c_lo / (c_hi - c_lo)][nh]; Sout (not null): each chunk's
+// statistics record (MS_REC floats) at [b][nch][nh]. NQ: the 64-column
+// blocks of st the state holds in registers (st <= 64 NQ); fewer
+// registers let two CTAs share an SM. ROUNDS: ms_mma_tile's form.
+template <typename T, bool REV, int NQ = 4, bool ROUNDS = true>
 __device__ __forceinline__ void ms_walk(const T* __restrict__ x,
                                         const float* __restrict__ dt,
                                         const float* __restrict__ dA,
@@ -305,13 +365,21 @@ __device__ __forceinline__ void ms_walk(const T* __restrict__ x,
                                         float* __restrict__ mid,
                                         float* __restrict__ end, int s, int nh,
                                         int dh, int st, int head, int bb,
-                                        int dblk, double* smem) {
+                                        int dblk, double* smem, int c_lo = 0,
+                                        int c_hi = 1 << 30,
+                                        float* __restrict__ Dout = nullptr,
+                                        float* __restrict__ Eout = nullptr,
+                                        float* __restrict__ Sout = nullptr) {
   const int ldw = ms_ldw(st);
   float* f = reinterpret_cast<float*>(smem + MS_CHUNK);
   const int nch = (s + MS_CHUNK - 1) / MS_CHUNK;
   const int ndb = (dh + MS_DB - 1) / MS_DB;
   const int tid = threadIdx.x;
   const int d0 = dblk * MS_DB;
+  const int seg_len = c_hi - c_lo;
+  c_hi = min(c_hi, nch);
+  const int nk = c_hi - c_lo;
+  if (!(REV ? c_hi == nch : c_lo == 0)) init = nullptr;
   double* cum = smem;
   float *ec = f, *dts = f + MS_CHUNK, *sw = f + 2 * MS_CHUNK, *Ts = f + 3 * MS_CHUNK;
   const float* wgt = REV ? ec : sw;  // the weight of a step's product
@@ -321,9 +389,9 @@ __device__ __forceinline__ void ms_walk(const T* __restrict__ x,
   const size_t hrow = ((size_t)bb * nh + head) * dh + d0;  // h row of d = 0
   const size_t tile_h = (size_t)MS_DB * st;
 
-  float h[4][4][4];  // the 64-column blocks q < 4 (st <= 256), mma fragments
+  float h[NQ][4][4];  // the 64-column blocks q < NQ (st <= 64 NQ), mma fragments
 #pragma unroll
-  for (int qb = 0; qb < 4; ++qb)
+  for (int qb = 0; qb < NQ; ++qb)
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -334,7 +402,7 @@ __device__ __forceinline__ void ms_walk(const T* __restrict__ x,
 
   // the k-th chunk of the walk into slot k % 2; warp 0 copies dA and dt
   // itself, so its statistics need only its own wait
-  auto chunk_of = [&](int k) { return REV ? nch - 1 - k : k; };
+  auto chunk_of = [&](int k) { return REV ? c_hi - 1 - k : c_lo + k; };
   auto issue = [&](int k) {
     const int c = chunk_of(k);
     const int L = min(MS_CHUNK, s - c * MS_CHUNK);
@@ -355,10 +423,11 @@ __device__ __forceinline__ void ms_walk(const T* __restrict__ x,
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
   issue(0);
-  for (int k = 0; k < nch; ++k) {
+  float run = 1.f;  // thread 0: the product of exp(T) walked so far
+  for (int k = 0; k < nk; ++k) {
     const int c = chunk_of(k);
     const int L = min(MS_CHUNK, s - c * MS_CHUNK);
-    if (k + 1 < nch) {
+    if (k + 1 < nk) {
       issue(k + 1);
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     } else {
@@ -370,18 +439,24 @@ __device__ __forceinline__ void ms_walk(const T* __restrict__ x,
       ms_stats(make_float4(st_a[2 * tid], st_a[2 * tid + 1], st_a[MS_CHUNK + 2 * tid],
                            st_a[MS_CHUNK + 2 * tid + 1]),
                cum, ec, dts, sw, Ts);
+      if (Sout != nullptr)
+        ms_stats_store(Sout + (((size_t)bb * nch + c) * nh + head) * MS_REC, cum, dts);
     }
     __syncthreads();
     const float e = expf(*Ts);
-    const bool last = k + 1 == nch;
+    if (Dout != nullptr && tid == 0) {
+      Dout[((size_t)bb * nch + c) * nh + head] = run;
+      run *= e;
+    }
+    const bool last = REV ? c == 0 : c == nch - 1;
     float* out = !last
         ? mid + ((((size_t)bb * (nch - 1) + (REV ? c - 1 : c)) * nh + head) * ndb + dblk) * tile_h
         : (end != nullptr ? end + hrow * st : nullptr);
 #pragma unroll
-    for (int qb = 0; qb < 4; ++qb) {
+    for (int qb = 0; qb < NQ; ++qb) {
       if (qb * 64 >= st) break;
       float acc[4][4];
-      ms_state_tile(acc, sl, sl + MS_CHUNK * MS_LD, ldw, wgt, L, qb * 64);
+      ms_state_tile<ROUNDS>(acc, sl, sl + MS_CHUNK * MS_LD, ldw, wgt, L, qb * 64);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -396,6 +471,7 @@ __device__ __forceinline__ void ms_walk(const T* __restrict__ x,
     }
     __syncthreads();  // this slot and the statistics are spent
   }
+  if (Eout != nullptr && tid == 0) Eout[((size_t)bb * nch + c_lo / seg_len) * nh + head] = run;
 }
 
 }  // namespace

@@ -58,7 +58,7 @@ KERNELS = ("relscan_scan", "relscan_compact", "hash_build", "hash_probe",
            # and the three launches of its backward
            "flash_attention_lse", "flash_attention_bwd_delta",
            "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
-           # the Mamba2 scan's backward (three launches a call)
+           # the Mamba2 scan's backward (two to four launches a call)
            "mamba2_scan_bwd",
            # the paged kernel's other two call forms, each launching
            # paged_wide_kernel: pages of 256 (the serving mesh's block) or

@@ -15,8 +15,8 @@ chunk's ``y`` at once. For ``s <= CHUNK`` it is one.
 
 The gradient (the reference takes ``jax.grad`` of its jnp chunked scan):
 on CUDA tensors a call that autograd has to differentiate goes through
-:class:`Mamba2Scan`, whose backward is ``csrc/mamba_scan_bwd.cu`` (three
-launches, :func:`mamba2_scan_bwd`); its plain version is
+:class:`Mamba2Scan`, whose backward is ``csrc/mamba_scan_bwd.cu`` (two to
+four launches, :func:`mamba2_scan_bwd`); its plain version is
 :func:`mamba2_scan_bwd_ref`, written out tile by tile. On the CPU the
 plain forward is differentiated by autograd.
 
@@ -39,6 +39,8 @@ CHUNK = 64          # steps a tile, in the kernel and by default in the plain ve
 MAX_STATE = 256     # the kernel's largest ``st`` (shared memory)
 MAX_HEAD_DIM = 64   # the backward's largest ``dh`` (one 64-row block)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SMS = 132          # a wave of chunk CTAs (an H100's SMs)
+_REC = 192          # floats of a chunk's statistics record (MS_REC)
 
 
 def _check(x, dt, dA, B, C, h0):
@@ -216,13 +218,33 @@ def scan_scratch_floats(b, s, nh, dh, st) -> int:
         -(-dh // 64) * 64) * st
 
 
+def bwd_groups(b, s, nh) -> int:
+    """``mb_groups`` of csrc/mamba_scan_bwd.cu: head groups of the
+    backward's chunk launch, balanced, for the fewest waves of ``_SMS``
+    CTAs times (heads a CTA + 1), then the fewest groups."""
+    nch = -(-s // CHUNK)
+    best, out = None, 1
+    for g in range(1, nh + 1):
+        gh = -(-nh // g)
+        if -(-nh // gh) != g:
+            continue
+        cost = -(-(nch * b * g) // _SMS) * (gh + 1)
+        if best is None or cost < best:
+            best, out = cost, g
+    return out
+
+
 def bwd_scratch_floats(b, s, nh, dh, st) -> int:
-    """``mamba2_scan_bwd_scratch`` of csrc/mamba_scan_bwd.cu: C B^T, the
-    entering states and the leaving gradients, the dB / dC partials."""
+    """``mamba2_scan_bwd_scratch`` of csrc/mamba_scan_bwd.cu: the local
+    states and gradients entering and leaving every chunk but one, each
+    chunk's statistics, the groups' dB / dC partials (more than one
+    group), each chunk's decays."""
     del dh
     nch = -(-s // CHUNK)
-    return (b * nch * CHUNK * CHUNK + 2 * b * (nch - 1) * nh * 64 * st
-            + 2 * b * nh * s * st)
+    ng = bwd_groups(b, s, nh)
+    return (2 * b * (nch - 1) * nh * 64 * st + b * nch * nh * _REC
+            + (2 * b * ng * s * st if ng > 1 else 0)
+            + (3 * b * nch * nh if nch > 1 else 0))
 
 
 def _kernel_args(x, dt, dA, B, C, h0):
@@ -280,9 +302,11 @@ def mamba2_scan_bwd(x, dt, dA, B, C, h0, dy, dh_last):
     """(dx, ddt, ddA, dB, dC, dh0) by the contract of
     :func:`mamba2_scan_bwd_ref` (the kernels on CUDA tensors: x fp32 or
     bf16, ``s >= 1``, ``dh <= MAX_HEAD_DIM``, ``st <= MAX_STATE``; dy is
-    read in x's dtype). One call is three launches: the walks and C B^T; every tile's
-    gradients with per-head partials of dB and dC; their sum over the
-    heads (fixed order: repeats are bit-equal)."""
+    read in x's dtype). One call is two to four launches: the walks over
+    segments of chunks; where there are several segments, the pass that
+    makes their boundaries whole; every chunk's gradients a group of heads
+    a CTA; where there are several groups, the sum of their dB / dC
+    partials (fixed order: repeats are bit-equal)."""
     if x.device.type == "cpu" and not _build.counting():
         return mamba2_scan_bwd_ref(x, dt, dA, B, C, h0, dy, dh_last)
     x, dt, dA, B, C, h0 = _kernel_args(x, dt, dA, B, C, h0)

@@ -2093,9 +2093,20 @@ MAMBA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # of the
 @pytest.mark.parametrize("b,s,nh,dh,st,h0", [
     (1, 1, 2, 16, 8, False), (2, 24, 3, 16, 8, True),
     (1, 64, 80, 64, 64, False), (1, 65, 4, 64, 64, True),
-    (2, 300, 5, 16, 256, True), (1, 300, 80, 64, 64, False)])
+    (2, 300, 5, 16, 256, True), (1, 300, 80, 64, 64, False),
+    # the redesign's edges at the kernel's own plan (chunks a walk segment,
+    # head groups of the chunk launch): 1, 2 and 129 chunks; 2-17 segments,
+    # a last one of 1-3 chunks; groups of 1-7 heads, a last one smaller
+    # (nh 7 in 4 groups, nh 80 in 12); st 256 over segments and in groups
+    # of 4; b 3
+    (1, 1, 7, 64, 64, True), (2, 128, 7, 64, 64, True),
+    (1, 8193, 3, 16, 8, True), (1, 700, 80, 64, 64, True),
+    (1, 4100, 7, 64, 256, False), (1, 2100, 7, 64, 64, True),
+    (3, 704, 7, 64, 64, True), (1, 1100, 5, 16, 8, True),
+    (1, 300, 80, 64, 256, True)])
 def test_mamba2_backward_matches_plain(cuda, b, s, nh, dh, st, h0, dtype):
-    """The three backward launches against mamba2_scan_bwd_ref on the
+    """The backward kernels, at their own plan (segments of the walk and
+    head groups the kernel chooses), against mamba2_scan_bwd_ref on the
     same inputs (a random dh_last where h0 is random), each gradient
     within its tolerance of its largest entry; a second call bit-equal."""
     gen = torch.Generator(device=cuda).manual_seed(s + nh + st)
@@ -2114,6 +2125,21 @@ def test_mamba2_backward_matches_plain(cuda, b, s, nh, dh, st, h0, dtype):
         top = float(w.float().abs().max())
         assert float((a.float() - w.float()).abs().max()) <= tol * max(
             top, 1e-30), i
+
+
+def test_mamba2_backward_scratch_matches_library(cuda):
+    """The Python mirror of the backward's scratch (the dry run allocates
+    by it on meta) equals the library's, over shapes whose plans have one
+    group and several (even and not)."""
+    from repro_torch.kernels import _build
+    lib = _build.lib("mamba_scan_bwd")
+    for b, s, nh, dh, st in [(1, 1, 1, 16, 8), (2, 24, 3, 16, 8),
+                             (1, 300, 80, 64, 64), (1, 8192, 80, 64, 64),
+                             (2, 4100, 7, 64, 256), (1, 577, 5, 16, 8),
+                             (1, 700, 80, 64, 64), (1, 2100, 7, 64, 64),
+                             (1, 4608, 80, 64, 64), (4, 2048, 24, 64, 128)]:
+        assert MS.bwd_scratch_floats(b, s, nh, dh, st) == \
+            lib.mamba2_scan_bwd_scratch(b, s, nh, dh, st), (b, s, nh, dh, st)
 
 
 def test_cuda_mamba2_scan_gives_gradients(cuda):

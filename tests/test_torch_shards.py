@@ -338,6 +338,68 @@ def test_reshard_skew_refusal_text_matches_reference():
     assert "resolve the skew" in texts[1]
 
 
+UNKNOWN_LAYOUTS = {
+    "shards": "CREATE TABLE t (k INT, v INT) CAPACITY 64 SHARDS 4",
+    "partitioned": "CREATE TABLE t (k INT, v INT) CAPACITY 64 SHARDS 4 "
+                   "PARTITION BY k",
+    "indexed": "CREATE TABLE t (k INT, v INT, INDEX(k)) CAPACITY 64 "
+               "SHARDS 4",
+}
+UNKNOWN_STMTS = (
+    "SELECT k FROM t WHERE zz = 1",
+    "SELECT k FROM t WHERE k = 1 AND v = 2 AND zz = 3",
+    "SELECT k FROM t WHERE zz + 1 = 2",
+    "SELECT MAX(v) FROM t WHERE zz = 1",
+    "DELETE FROM t WHERE k = 1 AND zz = 2",
+    "UPDATE t SET v = 1 WHERE zz = 1",
+    "WARMUP t LIKE 'SELECT k FROM t WHERE zz = ?'",
+)
+
+
+@pytest.fixture(scope="module")
+def unknown_dbs():
+    """One pair of daemons a layout, shared by the cases of the layout."""
+    made = {}
+
+    def get(layout):
+        if layout not in made:
+            dbs = pair()
+            run(dbs, "execute", UNKNOWN_LAYOUTS[layout])
+            run(dbs, "executemany", "INSERT INTO t (k, v) VALUES (?, ?)",
+                [(i, 10 * i) for i in range(10)])
+            made[layout] = dbs
+        return made[layout]
+    return get
+
+
+@pytest.mark.parametrize("sql", UNKNOWN_STMTS)
+@pytest.mark.parametrize("layout", sorted(UNKNOWN_LAYOUTS))
+def test_unknown_column_text_matches_reference(unknown_dbs, layout, sql):
+    """A WHERE naming a column the sharded table lacks raises the
+    predicate compiler's KeyError on both packages, with the same text, on
+    the fan-out and the pruned route alike, and changes nothing."""
+    dbs = unknown_dbs(layout)
+    texts = []
+    for db in dbs:
+        with pytest.raises(KeyError) as info:
+            db.execute(sql).count
+        texts.append(str(info.value))
+    assert texts[0] == texts[1] == str(KeyError("unknown column 'zz'"))
+    same_shards(dbs, "t")
+
+
+def test_unknown_column_err_line_matches_reference():
+    """The same error on the wire: the port's ERR line is the reference's."""
+    script = b"".join([
+        frame(UNKNOWN_LAYOUTS["partitioned"]),
+        frame("INSERT INTO t (k, v) VALUES (?, ?)", (3, 4)),
+        frame("SELECT k FROM t WHERE zz = ?", (1,), tag=1),
+        frame("UPDATE t SET v = 1 WHERE k = 3 AND zz = 1", tag=2)])
+    text = both(script)   # asserts the two servers' bytes are equal
+    assert text.count("ERR#") == 2, text
+    assert "ERR#1 \"unknown column 'zz'\"" in text, text
+
+
 def test_update_partition_column_refused():
     dbs = pair()
     make_t(dbs, 4)
