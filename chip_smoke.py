@@ -10,14 +10,18 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
 1. build   -- compile the CUDA kernels from the eight sources in
               ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
               parallel) and report registers, shared memory and spills
-              per kernel instance, and the tensor-core (HMMA) and cp.async
-              (LDGSTS) instructions of the flash library (``cuobjdump``).
+              per kernel instance, and the tensor-core (HMMA, HGMMA), copy
+              (LDGSTS, UTMALDG) and mbarrier (SYNCS) instructions of the
+              flash libraries (``cuobjdump``); the backward library must
+              hold HGMMA and its wgmma kernels spill nothing.
    comparable -- right after the build (torch.profiler): the device time
               and launches of whole calls that this tree and its parent
               both offer (``comparable_rows``: the scan with its totals,
               the hash build, the bare probe, the executors' verified
               probe route, the Mamba2 scan with its outputs' SHA-256 and
-              its backward, each launch apart), and
+              its backward, the flash backward at gemma2-2b's and
+              zamba2-2.7b's training shapes with its error, each launch
+              apart), and
               kernels, copies, host launch calls, device time, idle share
               and wall p50 per Table 2 DELETE / SELECT statement, plain
               and indexed.
@@ -118,8 +122,11 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               flash shapes and tile edges (head dims 8-256, causal and
               not, q_offset, windows crossed, softcap 50, GQA groups 1-9,
               sq != sk, rows that see no key), GQA 7 and 8, cross
-              attention, gemma2's window at 4,608 tokens and the
-              transposed views (dq in q's layout); a second call
+              attention, gemma2's window at 4,608 tokens, the wgmma
+              kernels' tile edges (sq, sk at 64 and 128 +- 1 at head dims
+              32-256, GQA 1, 2, 7, window edges inside a tile, q_offset,
+              rows that see no key, rings longer than a CTA's walk) and
+              the transposed views (dq in q's layout); a second call
               bit-equal, autograd (FlashAttention) equal to the wrapper,
               the stored lse against the plain one. Then at gemma2-2b's
               training shape (b 1, s 8,192, h 8 / kh 4, hd 256, softcap
@@ -128,7 +135,10 @@ the CUDA toolkit. Phases (one JSON line each on stdout):
               visible pairs · hd FLOP at 989 TFLOP/s for the whole
               backward) and scaled_dot_product_attention's backward
               (without the softcap, the window as a mask); the forward
-              with and without its lse store.
+              with and without its lse store. The same for the backward
+              at zamba2-2.7b's training shape (b 1, s 8,192, h 32 / kh
+              32, hd 80, causal, no softcap: SDPA's backward computes the
+              same function there).
    kernels_mamba_bwd -- the Mamba2 scan's backward
               (``csrc/mamba_scan_bwd.cu``: the walks over segments of
               chunks, the pass over the segments' boundaries, the
@@ -653,7 +663,8 @@ def phase_device() -> str:
 
 
 KERNEL_NAME = re.compile(r"(ms_state|ms_chunk|msb_walk|msb_chunk|msb_sum|"
-                         r"build_rows|build_buckets|scan|"
+                         r"build_rows|build_buckets|tc_dkdv|tc_dq|bw_dkdv|"
+                         r"bw_dq|bw_delta|scan|"
                          r"compact|probe|flash|paged_split)_kernel(_tc)?")
 
 
@@ -676,16 +687,20 @@ def kernel_key(fn: str) -> str:
     return name.group(0) + "<" + ",".join(args) + ">"
 
 
+SASS_OPS = ("HMMA", "LDGSTS", "LDSM", "HGMMA", "UTMALDG", "SYNCS")
+
+
 def sass_counts(lib: pathlib.Path) -> dict | None:
-    """HMMA (tensor-core) and LDGSTS (cp.async) instructions in a built
-    library's SASS, from cuobjdump (None where it is missing)."""
+    """Instructions in a built library's SASS, from cuobjdump (None where
+    it is missing): HMMA (mma.sync), LDGSTS (cp.async), LDSM (ldmatrix),
+    and Hopper's HGMMA (wgmma), UTMALDG (TMA loads) and SYNCS
+    (mbarriers)."""
     tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
         return None
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=120).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass))
-            for op in ("HMMA", "LDGSTS", "LDSM")}
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
 
 
 def phase_build() -> None:
@@ -711,8 +726,21 @@ def phase_build() -> None:
                     "smem_bytes": int(m.group(2) or 0),
                     "spill_stores_loads": spill}
     libdir = _build.BUILD_ROOT / _build._digest()
+    bwd_sass = sass_counts(libdir / "libflash_attention_bwd.so")
     emit({"phase": "build", "seconds": round(secs, 3), "ptxas": report,
-          "flash_sass": sass_counts(libdir / "libflash_attention.so")})
+          "flash_sass": sass_counts(libdir / "libflash_attention.so"),
+          "flash_bwd_sass": bwd_sass})
+    # the backward's wgmma kernels: on the tensor cores' Hopper path, and
+    # no register spilled
+    if bwd_sass is not None and not bwd_sass["HGMMA"]:
+        raise AssertionError("libflash_attention_bwd.so has no HGMMA")
+    spilled = {k: v["spill_stores_loads"] for k, v in report.items()
+               if re.search(r"\.tc_(dkdv|dq)_kernel", k)
+               and v["spill_stores_loads"] not in (None, [0, 0])}
+    built = bool(logs.get("flash_attention_bwd"))  # not a cached library
+    if spilled or (built and not any(".tc_" in k for k in report)):
+        raise AssertionError(f"the backward's wgmma kernels spill or are "
+                             f"missing from the build report: {spilled}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -4948,13 +4976,50 @@ def comparable_ssd_rows(dev):
     return rows
 
 
+def comparable_flash_bwd_rows(dev):
+    """The flash backward as a whole call (``flash_attention_bwd``, the
+    same wrapper in this tree and its parent) at gemma2-2b's training
+    shape (global and window 4,096, softcap 50) and zamba2-2.7b's (b 1,
+    h 32 / kh 32, s 8,192, hd 80, no softcap), bf16, seeded inputs, the
+    forward kernel's own output and lse: the device time of each launch
+    of one call and of the whole call, and the call's error against
+    ``flash_attention_bwd_ref`` relative to the largest gradient."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rows = {}
+    for tag, (b, h, kh, s, hd), window, softcap, what in BWD_TIMING:
+        q, k, v, do = (torch.randn(sh, generator=gen, device=dev)
+                       .to(torch.bfloat16) for sh in (
+            (b, h, s, hd), (b, kh, s, hd), (b, kh, s, hd), (b, h, s, hd)))
+        kw = dict(scale=hd ** -0.5, causal=True, window=window,
+                  softcap=softcap, q_offset=0)
+        o, lse = FA._forward(q, k, v, with_lse=True, **kw)
+        run = lambda: FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa
+        got = run()
+        want = bwd_ref_chunked(q, k, v, o, lse, do, kw)
+        top = max(float(w.abs().max()) for w in want)
+        err = max(float((a.float() - w).abs().max())
+                  for a, w in zip(got, want)) / top
+        del got, want
+        events = device_events(run, iters=5)
+        rows[f"flash_attention_bwd, {what}, "
+             + (f"window {window}" if window else "global")] = {
+            "device_ms": sum(device_us(e) for e in events) / 5 / 1e3,
+            "device_launches": len(events) / 5,
+            "device_ms_by_launch": ms_by_launch(events, 5),
+            "err_of_largest_gradient": err}
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
 def comparable_rows(dev):
     """Whole calls that this tree's package and its parent's both offer,
     timed by what they put on the card (every kernel, memset and copy of
     one call): the scan with each statement's total (``relscan`` without
     the compaction), the hash build, the bare probe, the executors'
     verified IndexProbe route (its ids, presence and count from
-    core/table.py), the Mamba2 SSD backward (``comparable_ssd_rows``), and
+    core/table.py), the Mamba2 SSD backward (``comparable_ssd_rows``), the
+    flash backward (``comparable_flash_bwd_rows``), and
     per statement on the Table 2 table (plain and indexed) kernels, device
     time and idle share. Run it in a fresh process per tree to compare
     this package with another checkout's, within one call."""
@@ -5032,6 +5097,42 @@ def comparable_rows(dev):
     del db, dbx
     gc.collect()
     rows.update(comparable_ssd_rows(dev))
+    rows.update(comparable_flash_bwd_rows(dev))
+    return rows
+
+
+def comparable_train_rows(dev, archs=("gemma2-2b", "zamba2-2.7b")):
+    """Full-width training steps that this tree's package and its parent's
+    both run: three steps of ``launch/train.py``'s main for each arch (b 1,
+    s 8,192, remat full, seeded, no checkpoint kept), then one more under
+    the profiler (``profiled_step``): each step's seconds and loss, the
+    peak GB, and the profiled step's device time by kernel family with the
+    flash backward's share. Not a phase of the smoke (the ``train`` phase
+    runs gemma2-2b's steps with their checks); run it in a fresh process a
+    tree, as ``comparable_rows``."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as LT
+    rows = {}
+    for arch in archs:
+        ckpt = tempfile.mkdtemp(prefix="comparable_train_")
+        torch.cuda.reset_peak_memory_stats(dev)
+        loop = LT.main(["--arch", arch, "--batch", "1", "--seq", "8192",
+                        "--remat", "full", "--steps", "3", "--ckpt-every",
+                        "1000", "--ckpt-dir", ckpt, "--seed", str(SEED)])
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        prof = profiled_step(loop, dev, 3)
+        fam = prof["device_us_by_family"]
+        rows[f"train, {arch}, b1 s8192 remat full"] = {
+            "step_s": [h["dt"] for h in loop.history],
+            "losses": [h["loss"] for h in loop.history],
+            "peak_gb": peak, "profiled_step": prof,
+            "flash_bwd_share_of_device": fam["flash_attention_bwd"]
+            / prof["device_us"]}
+        del loop
+        shutil.rmtree(ckpt, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -5058,8 +5159,37 @@ BWD_CASES = FLASH_CASES + FLASH_EDGE_CASES + [
     (1, 14, 2, 40, 40, 64, True, 0, 0.0, 0),      # GQA 7 (internvl2)
     (1, 8, 1, 70, 70, 128, True, 0, 0.0, 0),      # GQA 8
     (1, 16, 16, 24, 1024, 64, False, 0, 0.0, 0),  # cross attention
-    (1, 8, 4, 4608, 4608, 256, True, 4096, 50.0, 0)]  # gemma2, window crossed
+    (1, 8, 4, 4608, 4608, 256, True, 4096, 50.0, 0),  # gemma2, window crossed
+    # the wgmma kernels' edges (64-row tiles; CTAs of 128 keys or rows, 64
+    # at hd 256): sq and sk at a tile or a CTA +- 1 at every head dim, GQA
+    # groups 1, 2 and 7, window edges inside a tile, q_offset, rows that
+    # see no key, CTAs with fewer tiles than their ring has stages
+    (1, 4, 2, 127, 129, 32, True, 0, 0.0, 0),
+    (1, 2, 2, 129, 63, 32, False, 0, 0.0, 0),
+    (1, 2, 1, 65, 63, 64, True, 0, 0.0, 0),
+    (1, 4, 4, 128, 129, 64, False, 37, 0.0, 0),
+    (1, 7, 1, 127, 128, 80, True, 0, 0.0, 0),
+    (1, 2, 2, 129, 129, 80, True, 37, 0.0, 0),
+    (1, 2, 2, 130, 130, 80, True, 20, 0.0, 100),
+    (1, 2, 2, 129, 127, 128, True, 0, 30.0, 0),
+    (1, 4, 2, 63, 65, 128, True, 0, 0.0, 2),
+    (1, 4, 2, 63, 65, 256, True, 0, 50.0, 0),
+    (1, 2, 1, 65, 64, 256, True, 0, 0.0, 0),
+    (1, 2, 2, 64, 64, 256, False, 0, 0.0, 0),
+    (1, 14, 2, 129, 129, 256, True, 70, 50.0, 0),
+    (1, 4, 2, 70, 50, 64, False, 6, 0.0, 60),
+    (1, 2, 1, 100, 80, 256, True, 10, 0.0, 90)]
+# (b, h, kh, s, hd): [b, s, heads, hd] views at every wgmma head dim
+BWD_VIEW_CASES = FLASH_VIEW_CASES + [
+    (1, 4, 2, 129, 32), (2, 4, 4, 65, 64), (1, 6, 2, 200, 80),
+    (1, 4, 1, 127, 128), (1, 8, 4, 130, 256)]
 GEMMA2_TRAIN = (1, 8, 4, 8192, 256)   # b, h, kh, s, hd at full width
+ZAMBA2_TRAIN = (1, 32, 32, 8192, 80)  # zamba2-2.7b's shared attention block
+# the backward's timed shapes: tag, (b, h, kh, s, hd), window, softcap, what
+BWD_TIMING = (
+    ("alt", GEMMA2_TRAIN, 4096, 50.0, "gemma2-2b's training shape"),
+    ("main", GEMMA2_TRAIN, 0, 50.0, "gemma2-2b's training shape"),
+    ("zamba2", ZAMBA2_TRAIN, 0, 0.0, "zamba2-2.7b's training shape"))
 
 
 def visible_pairs(b, h, sq, sk, causal, window, q_offset) -> int:
@@ -5068,6 +5198,21 @@ def visible_pairs(b, h, sq, sk, causal, window, q_offset) -> int:
     hi = np.minimum(sk, q + 1) if causal else np.full(sq, sk)
     lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(sq, int)
     return int(b * h * np.maximum(hi - lo, 0).sum())
+
+
+def bwd_ref_chunked(q, k, v, o, lse, do, kw, heads=8):
+    """``flash_attention_bwd_ref`` over groups of about ``heads`` query
+    heads (whole GQA groups), one after another: the same gradients, with
+    the plain version's [b, h, sq, sk] fp32 temporaries a group at a
+    time."""
+    h, kh = q.shape[1], k.shape[1]
+    g = h // kh
+    step = max(1, heads // g)   # kv heads a group
+    parts = [FA.flash_attention_bwd_ref(
+        q[:, j * g:(j + step) * g], k[:, j:j + step], v[:, j:j + step],
+        o[:, j * g:(j + step) * g], lse[:, j * g:(j + step) * g],
+        do[:, j * g:(j + step) * g], **kw) for j in range(0, kh, step)]
+    return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(3))
 
 
 def bwd_case(gen, dev, dtype, case, views=False):
@@ -5195,7 +5340,7 @@ def phase_kernels_attention_bwd(dev, card):
              for case in BWD_CASES] + [
         (dtype, (b, h, kh, s, s, hd, True, 0, 0.0, 0), True)
         for dtype in (torch.float32, torch.bfloat16)
-        for b, h, kh, s, hd in FLASH_VIEW_CASES]
+        for b, h, kh, s, hd in BWD_VIEW_CASES]
     for dtype, case, views in cases:
         e, a, d = bwd_case(gen, dev, dtype, case, views=views)
         rel, delta_rel, n = max(rel, e), max(delta_rel, d), n + 1
@@ -5210,25 +5355,43 @@ def phase_kernels_attention_bwd(dev, card):
           "delta_max_err_of_largest_row": delta_rel, "max_abs_err": errs,
           "repeat_runs": "bit-equal"})
 
-    # gemma2-2b's full training shape, window 4,096 and global, bf16
+    # gemma2-2b's full training shape, window 4,096 and global, and
+    # zamba2-2.7b's (its shared block: no softcap, no window), bf16
     out = {}
-    b, h, kh, s, hd = GEMMA2_TRAIN
     bf = torch.bfloat16
-    q, k, v = flash_inputs(gen, dev, bf, b, h, kh, s, s, hd)
-    do = torch.randn((b, h, s, hd), generator=gen, device=dev).to(bf)
     elem = 2
-    for window in (4096, 0):
-        tag = "alt" if window else "main"
-        kw = dict(scale=hd ** -0.5, causal=True, window=window, softcap=50.0,
-                  q_offset=0)
+    for tag, (b, h, kh, s, hd), window, softcap, what in BWD_TIMING:
+        if tag != "main":   # the global shape reuses the window's inputs
+            q, k, v = flash_inputs(gen, dev, bf, b, h, kh, s, s, hd)
+            do = torch.randn((b, h, s, hd), generator=gen, device=dev).to(bf)
+        kw = dict(scale=hd ** -0.5, causal=True, window=window,
+                  softcap=softcap, q_offset=0)
         pairs = visible_pairs(b, h, s, s, True, window, 0)
-        shape = (f"b{b} h{h}/kh{kh} s{s} hd{hd} bf16 causal softcap 50 "
+        shape = (f"b{b} h{h}/kh{kh} s{s} hd{hd} bf16 causal "
+                 + (f"softcap {softcap:g} " if softcap else "no softcap ")
                  + (f"window {window}" if window else "global")
-                 + " (gemma2-2b's training shape)")
+                 + f" ({what})")
         o, lse = FA._forward(q, k, v, with_lse=True, **kw)
         fwd = lambda: FA._forward(q, k, v, with_lse=False, **kw)  # noqa: E731
         fwd_lse = lambda: FA._forward(q, k, v, with_lse=True, **kw)  # noqa
         bwd = lambda: FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa
+        # the kernels at the main path's own shape, held to the plain
+        # version on the same inputs, and a second call bit-equal
+        got, again = bwd(), bwd()
+        want = bwd_ref_chunked(q, k, v, o, lse, do, kw)
+        sync()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"flash backward, {shape}: a second call "
+                                 "differs")
+        top = max(float(w.abs().max()) for w in want)
+        err = max(float((a.float() - w).abs().max())
+                  for a, w in zip(got, want)) / max(top, 1e-30)
+        if not err <= BWD_TOL[bf]:
+            raise AssertionError(f"flash backward, {shape}: kernels differ "
+                                 f"from the plain version by {err} of the "
+                                 "largest gradient")
+        ab = [float((a.float() - w).abs().max()) for a, w in zip(got, want)]
+        del got, again, want
         events = device_events(bwd, iters=3)
         dev_ms = {}
         for name, sym in (("flash_attention_bwd_delta", "delta_kernel"),
@@ -5237,10 +5400,11 @@ def phase_kernels_attention_bwd(dev, card):
             t = [device_us(e) for e in events if sym in e.name]
             dev_ms[name] = sum(t) / len(t) / 1e3 if t else None
         bwd_ms = time_ms(bwd, iters=3, warm=1)
-        plain_ms = time_ms(lambda: FA.flash_attention_bwd_ref(
-            q, k, v, o, lse, do, **kw), iters=2, warm=1)
+        plain_ms = time_ms(lambda: bwd_ref_chunked(q, k, v, o, lse, do, kw),
+                           iters=2, warm=1)
         # the library's backward: dq, dk, dv of SDPA at the same shape,
-        # without the softcap (SDPA has none); the window as a mask
+        # without the softcap (SDPA has none: the same function at
+        # zamba2's shape); the window as a mask
         lib_ms, lib_err = None, None
         try:
             import torch.nn.functional as F
@@ -5266,7 +5430,7 @@ def phase_kernels_attention_bwd(dev, card):
         def bwd_work(name, old, rate=SIMT_OPS_S):
             f, n = FA.flash_bwd_cost(name, *shp, window=window)
             return bound(*reckoned(name, (n, f), old), rate)
-        rows = {
+        rows = {} if tag == "zamba2" else {   # (the forward: gemma2's)
             "flash_attention_lse": dict(
                 ms=time_ms(fwd_lse, iters=5, warm=1),
                 device_ms=device_ms(fwd_lse, "flash_kernel", iters=3),
@@ -5281,7 +5445,8 @@ def phase_kernels_attention_bwd(dev, card):
                      + 4 * b * h * s, fwd_flops)), BF16_OPS_S),
                 library_ms=None,
                 library="none at this shape: SDPA has no softcap (the "
-                        "forward's library time is in kernels_attention)"),
+                        "forward's library time is in kernels_attention)")}
+        rows.update({
             "flash_attention_bwd_delta": dict(bound=bwd_work(
                 "flash_attention_bwd_delta",
                 (2 * b * h * s * hd * elem + 4 * b * h * s, 0.0))),
@@ -5291,30 +5456,41 @@ def phase_kernels_attention_bwd(dev, card):
             "flash_attention_bwd_dq": dict(bound=bwd_work(
                 "flash_attention_bwd_dq", (0.0, 6 * pairs * hd),
                 BF16_OPS_S)),
-        }
+        })
         for name, r in rows.items():
             bound_ms, bound_by = r.pop("bound")
             if name != "flash_attention_lse":
                 r.update(ms=bwd_ms, device_ms=dev_ms[name],
                          plain_ms=plain_ms, library_ms=lib_ms,
                          library="scaled_dot_product_attention's backward "
-                         "(dq, dk, dv together: the three launches' work), "
-                         "no softcap", library_error=lib_err,
+                         "(dq, dk, dv together: the three launches' work)"
+                         + (", no softcap" if softcap else ": the same "
+                            "function"), library_error=lib_err,
                          ms_covers="the whole backward call (3 launches)")
             out[f"{name}_{tag}"] = {"kernel": name, "shape": shape,
                                     "bound_ms": bound_ms,
                                     "bound_by": bound_by, **r}
-            if window:
-                out[f"{name}_{tag}"]["alt"] = f"window_{window}"
+            if tag != "main":
+                out[f"{name}_{tag}"]["alt"] = (f"window_{window}" if window
+                                               else "zamba2_training")
         whole, whole_by = bound(0.0, 10 * pairs * hd, BF16_OPS_S)
         emit({"phase": "kernel_timing", "card": card,
               "kernel": "flash_attention backward (all three launches)",
               "shape": shape, "ms": bwd_ms,
               "device_ms": sum(x for x in dev_ms.values() if x),
               "plain_ms": plain_ms, "bound_ms": whole, "bound_by": whole_by,
-              "library_ms": lib_ms, "visible_pairs": pairs})
+              "library_ms": lib_ms, "visible_pairs": pairs,
+              "err_of_largest_gradient": err,
+              "tolerance_of_largest_gradient": BWD_TOL[bf],
+              "repeat_runs": "bit-equal"})
+        errs["flash_attention_bwd_dkdv"] = max(
+            errs["flash_attention_bwd_dkdv"], ab[1], ab[2])
+        errs["flash_attention_bwd_dq"] = max(errs["flash_attention_bwd_dq"],
+                                             ab[0])
         del o, lse
         torch.cuda.empty_cache()
+    del q, k, v, do
+    torch.cuda.empty_cache()
     for t in out.values():
         emit({"phase": "kernel_timing", "card": card, **t})
     return out, errs
@@ -7058,6 +7234,11 @@ def main():
                         alt["alt"]: {k: alt[k] for k in (
                             "ms", "device_ms", "plain_ms", "bound_ms",
                             "library_ms")}})
+        z = timing.get(f"{name}_zamba2")   # the backward's third shape
+        if z is not None:
+            kernels[-1][z["alt"]] = {k: z[k] for k in (
+                "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

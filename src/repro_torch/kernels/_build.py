@@ -198,6 +198,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                                      P],
         "flash_attention_bwd_dq": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                                    F, I, I, F, I, ctypes.POINTER(L), P],
+        "flash_attention_bwd_steps": [I] * 7 + [ctypes.POINTER(L)],
         "paged_attention": [P] * 12 + [I, I, I, I, I, I, I, I, I, F, F, I,
                                        P],
         "paged_attention_int8": [P] * 12 + [I, I, I, I, I, I, I, I, I, F, F,
@@ -213,7 +214,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         if hasattr(lib, fn):
             f = getattr(lib, fn)
             f.argtypes = args
-            f.restype = L if fn.endswith("_scratch") else I
+            f.restype = L if fn.endswith(("_scratch", "_steps")) else I
 
 
 def lib(name: str) -> ctypes.CDLL:

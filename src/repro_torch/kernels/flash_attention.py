@@ -30,7 +30,10 @@ its forward launches the kernel with the rows' log-sum-exp stored beside
 the output, and its backward launches ``csrc/flash_attention_bwd.cu``
 (three kernels: ``D = rowsum(dO o O)``, dK/dV summed over each GQA group,
 dQ) through :func:`flash_attention_bwd`; elsewhere nothing more is stored
-or launched. :func:`flash_attention_bwd_ref` is the backward's plain
+or launched. In bf16 at head dims 32-256 (``BWD_TC_HEAD_DIMS``) dK/dV and
+dQ are Hopper warpgroup kernels (wgmma, a TMA ring of tiles); their tile
+walk is :func:`bwd_tile_walk`. fp32, and bf16 at head dims 8 and 16, take
+the SIMT kernels. :func:`flash_attention_bwd_ref` is the backward's plain
 version, by the same formulas in fp32. On CPU tensors the plain forward
 is differentiated by autograd, as the reference differentiates its jnp.
 
@@ -45,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -257,6 +261,74 @@ def flash_bwd_cost(kernel, b, h, kh, sq, sk, hd, elem, *, causal=True,
     if kernel == "flash_attention_bwd_dq":
         return float(6 * pairs * hd), float(reads + rows * hd * elem)
     raise ValueError(f"not a backward launch: {kernel}")
+
+
+# The bf16 backward kernels at these head dims are csrc/flash_attention_bwd
+# .cu's wgmma kernels (tc_dkdv_kernel, tc_dq_kernel); fp32, and bf16 at the
+# other head dims, take its SIMT kernels (bw_dkdv_kernel, bw_dq_kernel).
+BWD_TC_HEAD_DIMS = (32, 64, 80, 128, 256)
+BWD_TILE = 64   # rows (query or key) of every tile the CTAs stream
+
+
+class BwdWalk(NamedTuple):
+    """The tile walk of the wgmma backward kernels for one shape: a dK/dV
+    CTA of keys ``[k0, k0 + cta)`` walks the query rows ``[lo, hi)`` of
+    each head of its GQA group in ``tile``-row tiles from ``lo``
+    (``dkdv``: (k0, lo, hi) a CTA); a dQ CTA of query rows ``[q0, q0 +
+    cta)`` walks the keys ``[lo, hi)`` in ``tile``-key tiles from ``lo``
+    (``dq``: (q0, lo, hi) a CTA)."""
+    tile: int
+    cta: int
+    dkdv: tuple
+    dq: tuple
+
+    def cta_steps(self, kind: str) -> list[int]:
+        """Tiles each CTA column walks for one (batch, query head):
+        ``kind`` "dkdv" or "dq" (the library's flash_attention_bwd_steps
+        writes the same list)."""
+        walk = self.dkdv if kind == "dkdv" else self.dq
+        return [-(-(hi - lo) // self.tile) if hi > lo else 0
+                for _, lo, hi in walk]
+
+    def steps(self, kind: str) -> int:
+        """Tiles one (batch, query head) walks over every CTA column."""
+        return sum(self.cta_steps(kind))
+
+
+def bwd_cta(hd: int) -> int:
+    """Keys of a dK/dV CTA and query rows of a dQ CTA (Tc<HD>::CN): 128,
+    one consumer warpgroup's 64 each, and 64 at head dim 256, where the
+    two share them."""
+    if hd not in BWD_TC_HEAD_DIMS:
+        raise ValueError(f"head dim {hd} takes the SIMT backward kernels")
+    return 64 if hd > 128 else 128
+
+
+def bwd_tile_walk(sq: int, sk: int, hd: int, *, causal: bool = True,
+                  window: int = 0, q_offset: int = 0) -> BwdWalk:
+    """The walk of the bf16 backward kernels (tc_dkdv_rows and tc_dq_keys
+    of csrc/flash_attention_bwd.cu): dK/dV from the causal lower bound to
+    the window's upper bound, or to sq where a row sees no key (such a row
+    weighs every key); dQ over the forward's key bounds, from key 0 where
+    a row of the CTA sees no key."""
+    t, cta = BWD_TILE, bwd_cta(hd)
+    dkdv = []
+    for k0 in range(0, sk, cta):
+        k_last = min(k0 + cta, sk) - 1
+        lo = max(0, k0 - q_offset) if causal else 0
+        hi = sq
+        if window > 0 and sk + window - 1 - q_offset >= sq:
+            hi = min(sq, k_last + window - q_offset)
+        dkdv.append((k0, lo // t * t, hi))
+    dq = []
+    for q0 in range(0, sq, cta):
+        q_first = q_offset + q0
+        q_last = q_offset + min(q0 + cta, sq) - 1
+        blind = window > 0 and q_last >= sk + window - 1
+        hi = min(sk, q_last + 1) if causal else sk
+        lo = max(0, q_first - window + 1) if window > 0 and not blind else 0
+        dq.append((q0, lo // t * t, hi))
+    return BwdWalk(t, cta, tuple(dkdv), tuple(dq))
 
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,7 @@ stream cut along the sequence match their mesh-free and unsplit forms on
 repeated ``cuda:0``. Every test
 skips with a reason where no CUDA card is present; run them on the card
 with ``python -m pytest -m gpu tests/test_torch_gpu.py``."""
+import ctypes
 import re
 
 import numpy as np
@@ -1115,6 +1116,10 @@ def test_flash_reads_transposed_views_without_a_copy(cuda, dtype, b, h, kh,
     """The [b, s, h, hd]-transposed views attention_prefill passes: the
     same output as the contiguous call, written in q's layout, and the
     caching allocator hands out the output's bytes and nothing else."""
+    # the allocator hands out a cached free block whole when less than
+    # 1 MB of it would be left: release the blocks earlier tests cached,
+    # so that the output takes its own bytes from a fresh segment
+    torch.cuda.empty_cache()
     g = torch.Generator(device=cuda).manual_seed(s)
     q, k, v = (torch.randn((b, s, n, hd), generator=g,
                            device=cuda).to(dtype).transpose(1, 2)
@@ -2032,6 +2037,26 @@ BWD_CASES = [
     (1, 16, 16, 24, 1024, 64, False, 0, 0.0, 0),
     (1, 4, 2, 16, 16, 16, True, 4, 0.0, 8),
     (1, 4, 4, 30, 20, 8, False, 6, 10.0, 5),
+] + [
+    # the wgmma kernels' edges (64-row tiles; CTAs of 128 keys or rows, 64
+    # at hd 256): sq and sk at a tile or a CTA +- 1 at every head dim, GQA
+    # groups 1, 2 and 7, window edges inside a tile, q_offset, rows that
+    # see no key, and CTAs with fewer tiles than their ring has stages
+    (1, 4, 2, 127, 129, 32, True, 0, 0.0, 0),
+    (1, 2, 2, 129, 63, 32, False, 0, 0.0, 0),
+    (1, 2, 1, 65, 63, 64, True, 0, 0.0, 0),
+    (1, 4, 4, 128, 129, 64, False, 37, 0.0, 0),
+    (1, 7, 1, 127, 128, 80, True, 0, 0.0, 0),
+    (1, 2, 2, 129, 129, 80, True, 37, 0.0, 0),
+    (1, 2, 2, 130, 130, 80, True, 20, 0.0, 100),
+    (1, 2, 2, 129, 127, 128, True, 0, 30.0, 0),
+    (1, 4, 2, 63, 65, 128, True, 0, 0.0, 2),
+    (1, 4, 2, 63, 65, 256, True, 0, 50.0, 0),
+    (1, 2, 1, 65, 64, 256, True, 0, 0.0, 0),
+    (1, 2, 2, 64, 64, 256, False, 0, 0.0, 0),
+    (1, 14, 2, 129, 129, 256, True, 70, 50.0, 0),
+    (1, 4, 2, 70, 50, 64, False, 6, 0.0, 60),
+    (1, 2, 1, 100, 80, 256, True, 10, 0.0, 90),
 ]
 
 
@@ -2059,6 +2084,79 @@ def test_flash_backward_matches_plain(cuda, b, h, kh, sq, sk, hd, causal,
     d_ref = (do.float() * o.float()).sum(dim=-1)
     assert float((d - d_ref).abs().max()) <= (
         BWD_TOL[dtype] * float(d_ref.abs().max()))
+
+
+# (b, h, kh, s, hd): [b, s, heads, hd] projections, as attention_prefill
+# passes them, at every head dim of the wgmma kernels
+BWD_VIEW_CASES = [(1, 4, 2, 129, 32), (2, 4, 4, 65, 64), (1, 6, 2, 200, 80),
+                  (1, 4, 1, 127, 128), (1, 8, 4, 130, 256)]
+
+
+@pytest.mark.parametrize("b,h,kh,s,hd", BWD_VIEW_CASES)
+def test_flash_backward_views_match_plain(cuda, b, h, kh, s, hd):
+    """bf16 through the tensors' strides (no copy): within 2e-2 of the
+    largest gradient, each gradient in its input's layout, bit-equal on a
+    second call."""
+    g = torch.Generator(device=cuda).manual_seed(s + hd)
+    q, k, v, do = (torch.randn((b, s, n, hd), generator=g, device=cuda)
+                   .to(torch.bfloat16).transpose(1, 2) for n in (h, kh, kh, h))
+    kw = dict(scale=hd ** -0.5, causal=True, window=0, softcap=0.0,
+              q_offset=0)
+    o, lse = FA._forward(q, k, v, with_lse=True, **kw)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = FA.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    top = max(float(w.abs().max()) for w in want)
+    for a, w, x in zip(got, want, (q, k, v)):
+        assert a.stride() == x.stride()
+        assert float((a.float() - w).abs().max()) <= BWD_TOL[
+            torch.bfloat16] * top
+
+
+def test_flash_backward_dtype_picks_the_kernel(cuda):
+    """A bf16 backward at head dims 32-256 launches the wgmma kernels
+    (tc_dkdv_kernel, tc_dq_kernel), an fp32 one the SIMT kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for dtype, want in ((torch.bfloat16, {"tc_dkdv_kernel", "tc_dq_kernel"}),
+                        (torch.float32, {"bw_dkdv_kernel", "bw_dq_kernel"})):
+        for hd in FA.BWD_TC_HEAD_DIMS:
+            q, k, v = _flash_case(cuda, dtype, 1, 4, 2, 70, 70, hd, hd)
+            do = _flash_case(cuda, dtype, 1, 4, 4, 70, 70, hd, hd + 1)[0]
+            kw = dict(scale=hd ** -0.5)
+            o, lse = FA._forward(q, k, v, with_lse=True, causal=True,
+                                 window=0, softcap=0.0, q_offset=0, **kw)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                torch.cuda.synchronize()
+            names = {m.group(0) for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     for m in [re.search(r"\w+_(dkdv|dq)_kernel", e.name)]
+                     if m}
+            assert names == want, (dtype, hd, names)
+
+
+def test_flash_bwd_walk_matches_library(cuda):
+    """The Python mirror of the wgmma kernels' tile walk
+    (``bwd_tile_walk``) gives each CTA column the tile steps the library
+    gives it (``flash_attention_bwd_steps``), for both launches."""
+    from repro_torch.kernels import _build
+    lib = _build.lib("flash_attention_bwd")
+    # (sq, sk, hd, causal, window, q_offset)
+    shapes = [(8192, 8192, 256, True, 0, 0), (8192, 8192, 256, True, 4096, 0),
+              (8192, 8192, 80, True, 0, 0)] + [
+        c[3:8] + (c[9],) for c in BWD_CASES if c[5] in FA.BWD_TC_HEAD_DIMS]
+    for sq, sk, hd, causal, window, q_offset in shapes:
+        walk = FA.bwd_tile_walk(sq, sk, hd, causal=causal, window=window,
+                                q_offset=q_offset)
+        for kind, name in ((0, "dkdv"), (1, "dq")):
+            out = (ctypes.c_longlong * (max(sq, sk) // 32 + 1))()
+            n = lib.flash_attention_bwd_steps(kind, sq, sk, hd, int(causal),
+                                              window, q_offset, out)
+            assert list(out[:n]) == walk.cta_steps(name), (kind, sq, sk, hd)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
